@@ -1,0 +1,64 @@
+"""Parameter-holding building blocks shared by the SAM and DINOv2 ports.
+
+Weights keep the JAX package's layout (a dense weight is [in, out]) and
+its attribute names, so a JAX parameter tree maps onto the module tree
+name for name (``weights.load_tree``). Inference only: every parameter
+is created with ``requires_grad=False``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+
+def param(*shape: int, dtype: torch.dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class Dense(nn.Module):
+    """y = x @ w (rounded to x's dtype) + b — the JAX ``_dense`` order:
+    round the product first, then add the bias."""
+
+    def __init__(self, n_in: int, n_out: int, *, bias: bool = True,
+                 dtype: torch.dtype, device=None):
+        super().__init__()
+        self.w = param(n_in, n_out, dtype=dtype, device=device)
+        self.b: Optional[nn.Parameter] = (
+            param(n_out, dtype=dtype, device=device) if bias else None)
+
+    def nobias(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(x, self.w.to(x.dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.nobias(x)
+        return y + self.b if self.b is not None else y
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis, computed in f32 from any storage
+    dtype and returned in the input's dtype (two-pass variance)."""
+
+    def __init__(self, n: int, *, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.scale = param(n, dtype=dtype, device=device)
+        self.bias = param(n, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor, eps: float) -> torch.Tensor:
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, unbiased=False, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps) * self.scale + self.bias
+        return y.to(x.dtype)
+
+
+def mlp(x: torch.Tensor, layers) -> torch.Tensor:
+    """Dense stack with ReLU between layers (SAM's MLP heads)."""
+    for i, layer in enumerate(layers):
+        x = layer(x)
+        if i < len(layers) - 1:
+            x = torch.relu(x)
+    return x

@@ -1,0 +1,83 @@
+"""Mask head kernel K3 (upscaler + hypernetwork) beside its plain version.
+
+Counterpart of ``revisit_anything_tpu/ops/maskhead.py`` ``fused_mask_head``
+(:345); the plain version is ``decoder._upscale_masks_blocks(interleave=
+False)`` (``models/sam/decoder.py:555-616``). Output is the block layout
+[Np, content, 16, M]: dim 2 = (q, r) = (2a1+b1, 2a2+b2), spatial row
+4i+2a1+a2 and column 4j+2b1+b2 of token position (i, j).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from revisit_anything_tpu_torch.kernels.build import MASK_HEAD, operand
+
+
+def upscale_masks_blocks(keys: torch.Tensor, hyper: torch.Tensor,
+                         up1_w: torch.Tensor, up1_b: torch.Tensor,
+                         ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                         up2_w: torch.Tensor, up2_b: torch.Tensor,
+                         eps: float = 1e-6) -> torch.Tensor:
+    """Plain version: keys [Np, P, D], hyper [Np, M, D/8] →
+    [Np, P, 16, M] in keys' dtype."""
+    np_, gg, d = keys.shape
+    m = hyper.shape[1]
+    c1 = d // 4
+    c2 = d // 8
+    y = torch.matmul(keys, up1_w.to(keys.dtype))
+    y = y.reshape(np_, gg, 4, c1) + up1_b.to(keys.dtype)
+    yf = y.float()
+    mu = yf.mean(-1, keepdim=True)
+    var = yf.var(-1, unbiased=False, keepdim=True)
+    yf = (yf - mu) * torch.rsqrt(var + eps) * ln_scale.float() \
+        + ln_bias.float()
+    y = F.gelu(yf).to(y.dtype)
+    y = torch.matmul(y, up2_w.to(y.dtype))                 # [.., 4, 4·c2]
+    y = y.reshape(np_, gg, 4, 4, c2) + up2_b.to(y.dtype)
+    y = F.gelu(y)
+    masks = torch.einsum("npqrc,nmc->npqrm", y.float(),
+                         hyper.to(y.dtype).float())
+    return masks.to(y.dtype).reshape(np_, gg, 16, m)
+
+
+def fused_mask_head(keys: torch.Tensor, hyper: torch.Tensor,
+                    up1_w: torch.Tensor, up1_b: torch.Tensor,
+                    ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                    up2_w: torch.Tensor, up2_b: torch.Tensor,
+                    eps: float = 1e-6,
+                    content: Optional[int] = None) -> torch.Tensor:
+    """Mask logits in block layout for the first ``content`` positions of
+    keys [Np, gg, D] (pad-row skipping: later positions are never read).
+
+    CUDA: kernel K3 (bf16, D = 256, M ≤ 4). CPU: the plain version."""
+    np_, gg, d = keys.shape
+    content = gg if content is None else content
+    if not 0 < content <= gg:
+        raise ValueError(f"content {content} outside (0, {gg}]")
+    if not keys.is_cuda:
+        return upscale_masks_blocks(keys[:, :content], hyper, up1_w, up1_b,
+                                    ln_scale, ln_bias, up2_w, up2_b, eps)
+    m = hyper.shape[1]
+    if d != 256 or not 1 <= m <= 4:
+        raise ValueError(f"mask head kernel: D={d}, M={m} not built "
+                         "(D 256, M ≤ 4)")
+    bf = torch.bfloat16
+    kf = operand("keys", keys, bf)
+    args = [operand("up1_w", up1_w.to(bf), bf, (256, 256)),
+            operand("up1_b", up1_b.to(bf), bf, (64,)),
+            operand("ln_scale", ln_scale.to(bf), bf, (64,)),
+            operand("ln_bias", ln_bias.to(bf), bf, (64,)),
+            operand("up2_w", up2_w.to(bf), bf, (64, 128)),
+            operand("up2_b", up2_b.to(bf), bf, (32,)),
+            operand("hyper", hyper.to(bf), bf, (np_, m, 32))]
+    out = torch.empty((np_, content, 16, m), dtype=bf, device=keys.device)
+    n_ctas = torch.cuda.get_device_properties(
+        keys.device).multi_processor_count
+    MASK_HEAD.launch(kf.data_ptr(), *[a.data_ptr() for a in args],
+                     out.data_ptr(), np_, gg, content, m, float(eps),
+                     n_ctas)
+    return out

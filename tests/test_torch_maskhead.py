@@ -1,0 +1,69 @@
+"""Port parity: kernel K3 (fused mask head) against the JAX package's
+``fused_mask_head`` (Pallas, interpret mode) and its XLA block path
+``decoder._upscale_masks_blocks(interleave=False)``."""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from revisit_anything_tpu.models.sam.decoder import _upscale_masks_blocks
+from revisit_anything_tpu.ops.maskhead import fused_mask_head as jax_mask_head
+from revisit_anything_tpu_torch.ops import maskhead as mh
+
+torch.set_float32_matmul_precision("highest")
+
+# f32 on both sides. The TPU kernel's GELU is a polynomial within 5e-7 of
+# erf's and its LN variance is one-pass; both stay below 1e-5 here.
+ATOL = 1e-5
+
+
+def _params(rng, d, m_tok, np_, gg):
+    c1, c2 = d // 4, d // 8
+    return {
+        "keys": rng.standard_normal((np_, gg, d)).astype(np.float32),
+        "hyper": (rng.standard_normal((np_, m_tok, c2)) * 0.5).astype(
+            np.float32),
+        "up1_w": (rng.standard_normal((d, 4 * c1)) * 0.1).astype(np.float32),
+        "up1_b": (rng.standard_normal((c1,)) * 0.1).astype(np.float32),
+        "ln_scale": (rng.standard_normal((c1,)) * 0.1 + 1.0).astype(
+            np.float32),
+        "ln_bias": (rng.standard_normal((c1,)) * 0.1).astype(np.float32),
+        "up2_w": (rng.standard_normal((c1, 4 * c2)) * 0.1).astype(np.float32),
+        "up2_b": (rng.standard_normal((c2,)) * 0.1).astype(np.float32),
+    }
+
+
+_ORDER = ("keys", "hyper", "up1_w", "up1_b", "ln_scale", "ln_bias",
+          "up2_w", "up2_b")
+
+
+@pytest.mark.parametrize("m_tok,content", [(3, 48), (1, 64)])
+def test_mask_head_matches_jax_kernel(m_tok, content):
+    rng = np.random.default_rng(m_tok)
+    p = _params(rng, 32, m_tok, 2, 64)
+    want = np.asarray(jax_mask_head(
+        *(jnp.asarray(p[k]) for k in _ORDER), eps=1e-6, content=content,
+        interpret=True))
+    got = mh.fused_mask_head(*(torch.from_numpy(p[k]) for k in _ORDER),
+                             eps=1e-6, content=content).numpy()
+    assert got.shape == (2, content, 16, m_tok)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_mask_head_matches_jax_block_path():
+    rng = np.random.default_rng(7)
+    p = _params(rng, 32, 3, 2, 64)
+    dec = {"up1_w": jnp.asarray(p["up1_w"]), "up1_b": jnp.asarray(p["up1_b"]),
+           "up_ln": {"scale": jnp.asarray(p["ln_scale"]),
+                     "bias": jnp.asarray(p["ln_bias"])},
+           "up2_w": jnp.asarray(p["up2_w"]), "up2_b": jnp.asarray(p["up2_b"])}
+    want = np.asarray(_upscale_masks_blocks(
+        jnp.asarray(p["keys"]), jnp.asarray(p["hyper"]), dec,
+        SimpleNamespace(grid=8, eps=1e-6), interleave=False))
+    got = mh.upscale_masks_blocks(*(torch.from_numpy(p[k]) for k in _ORDER),
+                                  eps=1e-6).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL)
