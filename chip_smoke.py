@@ -6,7 +6,7 @@ serve three full-width SegVLAD queries through the kernels.
 
 Phases (any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the four kernels from revisit_anything_tpu_torch/kernels/csrc;
+  2. build the five kernels from revisit_anything_tpu_torch/kernels/csrc;
   3. compare every kernel with its plain version in bf16 at the main
      path's shapes, timing both with CUDA events (median of 7 after
      warm-up);
@@ -14,13 +14,18 @@ Phases (any failure exits non-zero):
      the plain versions on the CPU, from the same weights: the answers
      must agree;
   5. build a SegVLADServer at full width (SAM ViT-H, DINOv2 ViT-g/14 in
-     bf16, random weights from a seed; 480x640 queries, SAM at 240x320,
-     1024-prompt AMG, a 100k-segment / 2000-image index made on the card)
-     and plant two images' own segment rows in the index;
+     bf16, random weights from a seed, SAM's made to segment a blob
+     around each point prompt so AMG keeps many segments; 480x640
+     queries, SAM at 240x320, 1024-prompt AMG, a 100k-segment /
+     2000-image index made on the card) and plant two images' own
+     segment rows in the index; each must keep at least 32 segments;
   6. answer 3 queries with every launch counter reset first; every kernel
      must have launched, each planted image must come back first for a
      noisy copy of itself, and answers must be deterministic;
-  7. print the kernel table as one JSON line, then the result line.
+  7. time one query's stages with CUDA events (the split must give
+     query()'s answer) and trace one query with torch.profiler for the
+     device's busy time;
+  8. print the kernel table as one JSON line, then the result line.
 """
 
 from __future__ import annotations
@@ -132,6 +137,24 @@ def compare_kernels(dev) -> dict:
         del kvt
     del qt, pe, vb
 
+    # K5: layer 1 (shared branch) and layer 2 (per-prompt), 1024 prompts
+    def pair_err(out_k, out_p):
+        errs = [_rel(a, b) for a, b in zip(out_k, out_p)]
+        return max(e[0] for e in errs), max(e[1] for e in errs)
+
+    for lead, label in ((1, "img [1,4096,256] shared, 1024 prompts"),
+                        (1024, "img [1024,4096,256]")):
+        iargs = (rnd(lead, 4096, 256), rnd(1, 4096, 128), rnd(1024, 7, 128),
+                 rnd(1024, 7, 128), rnd(256, 128, s=0.1), rnd(128, s=0.1),
+                 rnd(128, 256, s=0.1), rnd(256, s=0.1),
+                 rnd(256, s=0.1, off=1.0), rnd(256, s=0.1),
+                 rnd(256, 256, s=0.1))
+        check(build.I2T_UPDATE, label,
+              lambda: att.i2t_update(*iargs, 8, 1e-6),
+              lambda: att.i2t_update_reference(*iargs, 8, 1e-6),
+              pair_err, rel_tol)
+        del iargs
+
     # K3: 1024 prompts, content 49 rows x 64 = 3136 positions
     margs = (rnd(1024, 4096, 256), rnd(1024, 3, 32, s=0.5),
              rnd(256, 256, s=0.1), rnd(64, s=0.1), rnd(64, s=0.1, off=1.0),
@@ -194,11 +217,13 @@ def serve(dev, seed: int = 0) -> dict:
     from revisit_anything_tpu_torch.pipeline.query import query_segment_rows
     from revisit_anything_tpu_torch.pipeline.serve import (SegVLADServer,
                                                            ServingIndex)
-    from revisit_anything_tpu_torch.weights import init_dino, init_sam
+    from revisit_anything_tpu_torch.weights import (init_dino, init_sam,
+                                                    plant_point_segmenter)
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(seed)
     sam = init_sam(SAM_VIT_H, gen, dev, torch.bfloat16)
+    plant_point_segmenter(sam, gen)
     dino = init_dino(VIT_G14, gen, dev, torch.bfloat16)
     n_db, per_image = 100_000, 50
     db = torch.randn((n_db, PCA_DIM), generator=gen, device=dev)
@@ -243,9 +268,12 @@ def serve(dev, seed: int = 0) -> dict:
             ids[row:row + n_plant] = iid
         row += per_image
         print(f"[serve] planted image {iid}: {n_kept} masks kept, "
-              f"{n_plant} rows", flush=True)
-        if n_plant == 0:
-            _fail("the served AMG kept no mask for a planted image")
+              f"{int(valid.sum())} valid segment rows, {n_plant} planted",
+              flush=True)
+        # the planted segmenter keeps ~128 segments a 17places image
+        if n_kept < 32 or n_plant == 0:
+            _fail(f"the served AMG kept {n_kept} masks for a planted image "
+                  "(expected at least 32)")
     gen_c.manual_seed(seed + 1)
     srv = SegVLADServer(index=index(db), **kw)
 
@@ -285,7 +313,85 @@ def serve(dev, seed: int = 0) -> dict:
     missing = [name for name, n in counts.items() if n == 0]
     if missing:
         _fail(f"kernels not launched on the served path: {missing}")
+    stage_split(srv, queries[2], answers[2])
     return dict(counts=counts, wall_ms=wall, peak_gib=peak_gib)
+
+
+def stage_split(srv, img, answer) -> None:
+    """One query's stages between CUDA events (SegVLADServer.query step by
+    step; the answer must equal query()'s), then one traced query: the
+    device's busy time is the union of its kernels' intervals."""
+    import numpy as np
+    import torch
+
+    from revisit_anything_tpu_torch.models.sam.amg import _decode_batch
+    from revisit_anything_tpu_torch.ops.masks import pool_masks_to_patch_grid
+    from revisit_anything_tpu_torch.pipeline import serve as sv
+    from revisit_anything_tpu_torch.pipeline.query import query_topk_images
+
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev, time.perf_counter()))
+
+    torch.cuda.synchronize()
+    with torch.inference_mode():
+        mark("start")
+        img_dev = torch.from_numpy(img).to(srv.device)
+        batched = sv._sam_preprocess_fused(img_dev, srv._rh, srv._rw,
+                                           srv.sam_cfg.image_size)
+        emb = srv.sam.encoder(batched)[0]
+        mark("upload+preprocess+encode")
+        outs = [_decode_batch(srv.sam, srv.sam_cfg, emb, srv._image_pe,
+                              srv._pts[s:s + srv._bsz], srv.input_hw,
+                              srv.sam_hw, srv.amg)
+                for s in range(0, srv._pts.shape[0], srv._bsz)]
+        mark("AMG decode")
+        masks, iou, stab, boxes = (torch.cat(t) for t in zip(*outs))
+        masks, stats = sv._select_masks_centroids(
+            masks, iou, stab, boxes, srv._valid, srv.amg, srv.kmax)
+        pm = pool_masks_to_patch_grid(masks, srv._pool_a, srv._pool_b)
+        mark("select+NMS+pool")
+        desc = sv._dino_desc_device(srv.dino, srv.dino_cfg, img_dev,
+                                    srv.dino_layer, srv._crop)
+        mark("DINOv2")
+        adj, _ = srv._adjacency(stats.cpu().numpy())
+        mark("readback+host adjacency")
+        top = query_topk_images(
+            desc, pm, torch.from_numpy(adj).to(srv.device), srv._centers,
+            srv._pca_mean, srv._pca_comps, srv._pca_var, srv._db,
+            srv._db_ids, num_ref_images=srv.num_ref_images,
+            top_images=srv.top_images, whiten=srv._whiten,
+            db_norms=srv._db_norms).cpu().numpy()
+        mark("retrieval tail+readback")
+    torch.cuda.synchronize()
+    if not np.array_equal(top, answer):
+        _fail(f"stage split answered {top}, query() {answer}")
+    parts = [f"{name} {prev.elapsed_time(ev):.3f}"
+             for (_, prev, _), (name, ev, _) in zip(marks[:-1], marks[1:])]
+    print(f"[split] ms by stage (CUDA events): {'; '.join(parts)}; "
+          f"wall {1e3 * (marks[-1][2] - marks[0][2]):.3f}", flush=True)
+
+    from torch.autograd import DeviceType
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        srv.query(img)
+        traced_ms = (time.perf_counter() - t) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    total = sum(hi - lo for lo, hi in spans)
+    print(f"[trace] one traced query: {len(spans)} device events, device "
+          f"busy {busy / 1e3:.3f} ms (union of intervals; their plain sum "
+          f"{total / 1e3:.3f} ms) of {traced_ms:.3f} ms traced wall",
+          flush=True)
 
 
 def reference_check(dev, seed: int = 7) -> None:

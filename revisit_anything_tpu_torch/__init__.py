@@ -5,9 +5,11 @@ DINOv2 dense features, SuperSegment VLAD, PCA, kNN and weighted Borda) on
 an NVIDIA H100. Module paths and function names mirror the JAX package,
 which stays the reference; this package imports neither JAX nor it.
 
-Every TPU kernel on the serving path is a hand-written CUDA kernel for
+Every TPU kernel this serving path runs is a hand-written CUDA kernel for
 sm_90a (``kernels/csrc``), built with nvcc at the first CUDA launch. A
-kernel's wrapper runs its plain PyTorch version only for CPU tensors.
+kernel's wrapper runs its plain PyTorch version only for CPU tensors. The
+TPU's single-kernel decode tail (``ops/decode_fused.py``) is not ported:
+its work runs here as the i2t update and token cross attention kernels.
 """
 
 __version__ = "0.1.0"

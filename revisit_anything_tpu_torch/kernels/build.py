@@ -44,6 +44,10 @@ SIGNATURES: Dict[str, Sequence] = {
                             _P),
     # q, kvt, pe_kt, v_bias, out, b, n, d, m, heads, kv_shared, stream
     "rat_token_cross_kv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # img, peq, tok_k, tok_v, w_q, b_q, w_out, b_out, ln_s, ln_b, w_kv,
+    # keys, kvt, b, m, img_shared, eps, stream
+    "rat_i2t_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _F, _P),
     # keys, up1_w, up1_b, ln_s, ln_b, up2_w, up2_b, hyper, out,
     # np, gg, content, n_masks, eps, n_ctas, stream
     "rat_mask_head": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -142,6 +146,9 @@ FLASH_ATTENTION = Kernel(
 TOKEN_CROSS = Kernel(
     "token_cross_attention", "rat_token_cross_kv", _SRC + "token_cross.cu",
     "revisit_anything_tpu/ops/attention.py:442")
+I2T_UPDATE = Kernel(
+    "i2t_update", "rat_i2t_update", _SRC + "i2t_update.cu",
+    "revisit_anything_tpu/ops/attention.py:375")
 MASK_HEAD = Kernel(
     "mask_head", "rat_mask_head", _SRC + "mask_head.cu",
     "revisit_anything_tpu/ops/maskhead.py:299")
@@ -149,7 +156,7 @@ RESIZE_FLAGS = Kernel(
     "resize_flags", "rat_resize_flags", _SRC + "resize_flags.cu",
     "revisit_anything_tpu/ops/maskresize.py:207")
 
-KERNELS = (FLASH_ATTENTION, TOKEN_CROSS, MASK_HEAD, RESIZE_FLAGS)
+KERNELS = (FLASH_ATTENTION, TOKEN_CROSS, I2T_UPDATE, MASK_HEAD, RESIZE_FLAGS)
 
 
 def reset_counts() -> None:
@@ -162,8 +169,9 @@ def operand(name: str, t: torch.Tensor, dtype: torch.dtype,
     """Validate a kernel operand before its pointer is handed to C.
 
     Raises on a tensor that is not on the card, has another dtype or
-    shape; returns it contiguous and 16-byte aligned (the kernels load
-    16-byte vectors), copying only when it is not already."""
+    shape; returns it contiguous and 32-byte aligned (the kernels load
+    16-byte vectors and WMMA fragments straight from device memory),
+    copying only when it is not already."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor")
     if t.dtype != dtype:
@@ -172,6 +180,6 @@ def operand(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")
     t = t.contiguous()
-    if t.data_ptr() % 16:
+    if t.data_ptr() % 32:
         t = t.clone()
     return t

@@ -7,9 +7,10 @@
 //
 // What bounds it on the H100: SAM ViT-H's global layers (N = 4096,
 // Dh = 80, 16 heads) and DINOv2-g's blocks (N = 1531, Dh = 64, 24 heads)
-// are compute-bound (~43 GFLOP per SAM layer) once the [N, N] scores stay
-// off device memory; the TPU kernel held a whole [bq, N] score row in
-// VMEM, which 227 KB of shared memory cannot.
+// are compute-bound once the [N, N] scores stay off device memory: q·kᵀ
+// and p·v are 2 · 2 · H · N² · Dh = 2 · 2 · 16 · 4096² · 80 = 86 GFLOP per
+// SAM global layer. The TPU kernel held a whole [bq, N] score row in VMEM,
+// which 227 KB of shared memory cannot.
 //
 // Design: one CTA per (batch·head, 64-query tile), four warps of 16 query
 // rows each. K/V stream through shared memory in 64-key tiles with an

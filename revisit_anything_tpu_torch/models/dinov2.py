@@ -182,10 +182,10 @@ def embed_patches(model: DinoV2, cfg: DinoV2Config,
 
 
 def extract_dense(model: DinoV2, cfg: DinoV2Config, images: torch.Tensor,
-                  layer: int, facet: str = "value") -> torch.Tensor:
-    """Dense patch features [B, N_patches, D]: the ``facet`` slice of
-    block ``layer``'s qkv projection (DinoV2ExtractFeatures semantics,
-    without hooks; no final norm)."""
+                  layer: int) -> torch.Tensor:
+    """Dense patch features [B, N_patches, D]: the value facet of block
+    ``layer``'s qkv projection (DinoV2ExtractFeatures semantics, without
+    hooks; no final norm)."""
     x = embed_patches(model, cfg, images)
     for blk in model.blocks[:layer]:
         x = _block(x, blk, cfg)
@@ -193,9 +193,7 @@ def extract_dense(model: DinoV2, cfg: DinoV2Config, images: torch.Tensor,
     blk = model.blocks[layer]
     qkv = blk.qkv(blk.norm1(x, cfg.eps))
     d = cfg.embed_dim
-    sl = {"query": slice(0, d), "key": slice(d, 2 * d),
-          "value": slice(2 * d, 3 * d)}[facet]
-    return qkv[:, skip:, sl]
+    return qkv[:, skip:, 2 * d:]
 
 
 def center_crop_offsets(h: int, w: int, hn: int, wn: int):

@@ -8,16 +8,23 @@ mask_rows=gh``, following ``_run_two_way_shared`` (:260-355):
 
 - the three token→image attentions (layer 1 on the shared [1, M, D]
   branch, layer 2 and the final one per prompt) go through kernel K2
-  (``ops.attention.token_cross_attend_kv``) with k|v projected by one
-  matmul into the transposed [B, 2D, M] layout (``_t2i_fused`` :125-144);
-- the image→token updates stay plain torch (``_attn_i2t`` :94);
+  (``ops.attention.token_cross_attend_kv``) on k|v in the transposed
+  [B, 2D, M] layout (``_t2i_fused`` :125-144);
+- the two image→token updates go through kernel K5
+  (``ops.attention.i2t_update``, the TPU branch at :312-332): q-projection,
+  attention over the 7 tokens, out-projection, residual and LayerNorm in
+  one pass, which also emits the next token→image attention's transposed
+  k|v, so only layer 1's k|v is projected here;
 - output tokens are selected before the mask product (:730-737), and the
   mask head runs through kernel K3 (``ops.maskhead.fused_mask_head``).
+
+The JAX package's TPU default fuses layer 2 onward into one kernel
+(``ops/decode_fused.py`` ``decode_tail_fused``); that fusion is not ported
+yet — the same function runs here as K5, K2 and the token-side ops.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
 import torch
@@ -26,7 +33,8 @@ from torch import nn
 from revisit_anything_tpu_torch.models.layers import (Dense, LayerNorm, mlp,
                                                       param)
 from revisit_anything_tpu_torch.models.sam.config import SamArchConfig
-from revisit_anything_tpu_torch.ops.attention import token_cross_attend_kv
+from revisit_anything_tpu_torch.ops.attention import (i2t_update,
+                                                      token_cross_attend_kv)
 from revisit_anything_tpu_torch.ops.maskhead import fused_mask_head
 
 
@@ -105,36 +113,16 @@ def _attn(a: Attention, q, k, v, num_heads: int) -> torch.Tensor:
     return a.out(out.reshape(b, nq, d))
 
 
-def _attn_i2t(a: Attention, img_q, tok_k, tok_v, num_heads: int,
-              pe_q) -> torch.Tensor:
-    """image→tokens attention: the [B or 1, M, D] image branch attends to
-    the few tokens. ``pe_q`` is the pre-projected positional term W_q·pe,
-    added after the projection (W(x+pe) = Wx + W·pe)."""
-    iq = a.q.nobias(img_q) + pe_q
-    iq = iq + a.q.b
-    b = tok_k.shape[0]
-    m = iq.shape[1]
-    d = iq.shape[-1]
-    hd = d // num_heads
-    kk = a.k(tok_k).reshape(b, -1, num_heads, hd).float()
-    vv = a.v(tok_v).reshape(b, -1, num_heads, hd).float()
-    iqh = iq.reshape(iq.shape[0], m, num_heads, hd).float()
-    # [B|1, M, H, hd] x [B, T, H, hd] → [B, H, M, T]
-    logits = torch.matmul(iqh.permute(0, 2, 1, 3),
-                          kk.permute(0, 2, 3, 1)) / (hd ** 0.5)
-    probs = torch.softmax(logits, dim=-1).to(tok_k.dtype).float()
-    out = torch.matmul(probs, vv.permute(0, 2, 1, 3))    # [B, H, M, hd]
-    out = out.permute(0, 2, 1, 3).reshape(b, m, d).to(tok_k.dtype)
-    return a.out(out)
-
-
-def _t2i(a: Attention, q_tok, keys, pe_one, num_heads: int) -> torch.Tensor:
-    """tokens→image attention through kernel K2: k|v projected in ONE
-    matmul, transposed [B|1, 2D, M]; pe and the v bias fold in inside the
-    kernel. ``keys`` may be the shared [1, M, D] branch (layer 1)."""
+def _t2i(a: Attention, q_tok, keys, pe_one, num_heads: int,
+         kvt=None) -> torch.Tensor:
+    """tokens→image attention through kernel K2; pe and the v bias fold in
+    inside the kernel. ``kvt`` is the transposed k|v projection [B, 2D, M]
+    that K5 emitted; without it (layer 1, ``keys`` the shared [1, M, D]
+    branch) k|v are projected here in ONE matmul."""
     qp = a.q(q_tok)
-    wkv = torch.cat([a.k.w, a.v.w], dim=1).to(keys.dtype)     # [D, 2·DA]
-    kvt = torch.matmul(wkv.t(), keys.transpose(1, 2))         # [B, 2DA, M]
+    if kvt is None:
+        wkv = torch.cat([a.k.w, a.v.w], dim=1).to(keys.dtype)  # [D, 2·DA]
+        kvt = torch.matmul(wkv.t(), keys.transpose(1, 2))      # [B, 2DA, M]
     pe_k = a.k.nobias(pe_one) + a.k.b                          # [1, M, DA]
     out = token_cross_attend_kv(qp, kvt, pe_k.transpose(1, 2), a.v.b,
                                 num_heads)
@@ -148,7 +136,7 @@ def run_two_way_shared(dec: MaskDecoder, tokens, shared_src, src_pe_one,
     exists only from the layer-1 image→token update on."""
     nh = cfg.decoder_heads
     queries = tokens
-    keys = None
+    keys = kvt = None
     for i, layer in enumerate(dec.layers):
         if i == 0:
             queries = _attn(layer.self_attn, queries, queries, queries, nh)
@@ -159,20 +147,25 @@ def run_two_way_shared(dec: MaskDecoder, tokens, shared_src, src_pe_one,
 
         img_side = shared_src if i == 0 else keys
         q = queries + tokens
-        queries = queries + _t2i(layer.t2i, q, img_side, src_pe_one, nh)
+        queries = queries + _t2i(layer.t2i, q, img_side, src_pe_one, nh,
+                                 kvt)
         queries = layer.norm2(queries, cfg.eps)
 
         queries = queries + layer.lin2(torch.relu(layer.lin1(queries)))
         queries = layer.norm3(queries, cfg.eps)
 
         q = queries + tokens
-        pe_q = layer.i2t.q.nobias(src_pe_one)
-        keys = img_side + _attn_i2t(layer.i2t, img_side, q, queries, nh,
-                                    pe_q)
-        keys = layer.norm4(keys, cfg.eps)
+        ip = layer.i2t
+        nxt = (dec.layers[i + 1].t2i if i + 1 < len(dec.layers)
+               else dec.final_attn)
+        keys, kvt = i2t_update(
+            img_side, ip.q.nobias(src_pe_one), ip.k(q), ip.v(queries),
+            ip.q.w, ip.q.b, ip.out.w, ip.out.b, layer.norm4.scale,
+            layer.norm4.bias, torch.cat([nxt.k.w, nxt.v.w], dim=1), nh,
+            cfg.eps)
 
     q = queries + tokens
-    queries = queries + _t2i(dec.final_attn, q, keys, src_pe_one, nh)
+    queries = queries + _t2i(dec.final_attn, q, keys, src_pe_one, nh, kvt)
     queries = dec.norm_final(queries, cfg.eps)
     return queries, keys
 

@@ -1,2 +1,2 @@
-"""Tensor ops of the serving slice; the four kernels' wrappers live in
+"""Tensor ops of the serving slice; the five kernels' wrappers live in
 ``attention``, ``maskhead`` and ``maskresize``."""

@@ -1,9 +1,11 @@
-"""Attention kernels K1 (flash attention) and K2 (token→image cross
-attention), each beside its plain PyTorch version.
+"""Attention kernels K1 (flash attention), K2 (token→image cross
+attention) and K5 (fused image→token update), each beside its plain
+PyTorch version.
 
 Counterpart of ``revisit_anything_tpu/ops/attention.py`` (``attend``
-:561, ``token_cross_attend_kv`` :467). A wrapper takes the plain version
-only for CPU tensors; for CUDA tensors it launches the kernel or raises.
+:561, ``token_cross_attend_kv`` :467, ``i2t_update`` :489). A wrapper
+takes the plain version only for CPU tensors; for CUDA tensors it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ from typing import Optional
 import torch
 
 from revisit_anything_tpu_torch.kernels.build import (FLASH_ATTENTION,
-                                                      TOKEN_CROSS, operand)
+                                                      I2T_UPDATE, TOKEN_CROSS,
+                                                      operand)
 
 
 def attend_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -121,3 +124,81 @@ def token_cross_attend_kv(q: torch.Tensor, kvt: torch.Tensor,
                        vb.data_ptr(), out.data_ptr(), b, n, d, m, heads,
                        int(kvt.shape[0] == 1 and b > 1))
     return out
+
+
+def i2t_update_reference(img, peq, tok_k, tok_v, w_q, b_q, w_out, b_out,
+                         ln_scale, ln_bias, w_kv_next, heads: int,
+                         eps: float):
+    """Plain version of :func:`i2t_update`, rounding to img's dtype where
+    the kernel rounds: q after its f32 sum, the probabilities, the
+    attention output, the out-projection before its bias, the residual,
+    the normalized row and the k|v projection."""
+    dtype = img.dtype
+    b, t, da = tok_k.shape
+    m = img.shape[1]
+    hd = da // heads
+    x = img.float()
+    q = (x @ w_q.float() + peq.float() + b_q.float()).to(dtype)
+    qh = q.float().reshape(q.shape[0], m, heads, hd).transpose(1, 2)
+    kh = tok_k.to(dtype).float().reshape(b, t, heads, hd).permute(0, 2, 3, 1)
+    vh = tok_v.to(dtype).float().reshape(b, t, heads, hd).transpose(1, 2)
+    s = torch.matmul(qh, kh) / math.sqrt(hd)             # [B, H, M, T]
+    p = torch.softmax(s, dim=-1).to(dtype).float()
+    attn = torch.matmul(p, vh).transpose(1, 2).reshape(b, m, da).to(dtype)
+    out = (attn.float() @ w_out.float()).to(dtype) + b_out.to(dtype)
+    y = (img + out).float()
+    mu = y.mean(-1, keepdim=True)
+    var = torch.clamp((y * y).mean(-1, keepdim=True) - mu * mu, min=0.0)
+    keys = ((y - mu) * torch.rsqrt(var + eps) * ln_scale.float()
+            + ln_bias.float()).to(dtype)
+    kvt = (keys.float() @ w_kv_next.float()).to(dtype).transpose(1, 2)
+    return keys, kvt.contiguous()
+
+
+def i2t_update(img: torch.Tensor, peq: torch.Tensor, tok_k: torch.Tensor,
+               tok_v: torch.Tensor, w_q: torch.Tensor, b_q: torch.Tensor,
+               w_out: torch.Tensor, b_out: torch.Tensor,
+               ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+               w_kv_next: torch.Tensor, heads: int, eps: float):
+    """The two-way block's image→token update plus the next attention's
+    k|v projection: keys = LN(img + Attn(img → tokens)), kvt = the raw
+    transposed projection keys · w_kv_next, ready for
+    :func:`token_cross_attend_kv`.
+
+    img [B or 1, M, D] (leading dim 1 = the layer-1 branch shared by every
+    prompt); peq [1, M, DA] the pre-projected positional term W_q·pe;
+    tok_k, tok_v [B, T, DA] the projected token keys/values; w_q [D, DA],
+    b_q, w_out [DA, D], b_out, ln_scale, ln_bias; w_kv_next [D, 2·DA2].
+    Returns (keys [B, M, D], kvt [B, 2·DA2, M]).
+
+    CUDA: kernel K5 (bf16; D 256, DA 128, 8 heads, 7 tokens, M a multiple
+    of 64). CPU: :func:`i2t_update_reference`."""
+    if not img.is_cuda:
+        return i2t_update_reference(img, peq, tok_k, tok_v, w_q, b_q, w_out,
+                                    b_out, ln_scale, ln_bias, w_kv_next,
+                                    heads, eps)
+    b, t, da = tok_k.shape
+    lead, m, d = img.shape
+    if ((d, da, t, heads) != (256, 128, 7, 8) or m % 64
+            or tuple(w_kv_next.shape) != (256, 256)):
+        raise ValueError(f"i2t update: (D={d}, DA={da}, T={t}, heads="
+                         f"{heads}, M={m}, w_kv_next {tuple(w_kv_next.shape)})"
+                         " not built (256, 128, 7, 8, M % 64 == 0, 256x256)")
+    if lead not in (1, b):
+        raise ValueError(f"img leading dim {lead} is neither 1 nor {b}")
+    bf = torch.bfloat16
+    x = operand("img", img, bf, (lead, m, d))
+    pq = operand("peq", peq, bf, (1, m, da))
+    tk = operand("tok_k", tok_k, bf, (b, t, da))
+    tv = operand("tok_v", tok_v, bf, (b, t, da))
+    ws = [operand(name, w.to(bf), bf, shape) for name, w, shape in (
+        ("w_q", w_q, (d, da)), ("b_q", b_q, (da,)), ("w_out", w_out, (da, d)),
+        ("b_out", b_out, (d,)), ("ln_scale", ln_scale, (d,)),
+        ("ln_bias", ln_bias, (d,)), ("w_kv_next", w_kv_next, (d, 256)))]
+    keys = torch.empty((b, m, d), dtype=bf, device=img.device)
+    kvt = torch.empty((b, 256, m), dtype=bf, device=img.device)
+    I2T_UPDATE.launch(x.data_ptr(), pq.data_ptr(), tk.data_ptr(),
+                      tv.data_ptr(), *(w.data_ptr() for w in ws),
+                      keys.data_ptr(), kvt.data_ptr(), b, m,
+                      int(lead == 1), float(eps))
+    return keys, kvt

@@ -59,7 +59,6 @@ def query_topk_images(desc: torch.Tensor, patch_masks: torch.Tensor,
                       pca_components: torch.Tensor,
                       pca_variance: torch.Tensor, db: torch.Tensor,
                       db_image_ids: torch.Tensor, num_ref_images: int,
-                      knn_topk: int = KNN_TOPK, borda_topk: int = BORDA_TOPK,
                       top_images: int = RECALL_TOPK, whiten: bool = True,
                       db_norms: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
@@ -74,8 +73,8 @@ def query_topk_images(desc: torch.Tensor, patch_masks: torch.Tensor,
                                 pca_mean, pca_components, pca_variance,
                                 whiten)
     nd = db.shape[0]
-    # the vote reads only the top min(knn_topk, borda_topk) matches
-    k = min(knn_topk, borda_topk, nd)
+    # the vote reads only the top min(KNN_TOPK, BORDA_TOPK) matches
+    k = min(KNN_TOPK, BORDA_TOPK, nd)
     # a bf16 database meets the query rounded to bf16, products in f32
     s = proj.to(db.dtype).float() @ db.float().T
     norms = db_norms.float() if db_norms is not None else db_sq_norms(db)

@@ -22,8 +22,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from revisit_anything_tpu_torch.config import (BORDA_TOPK, KNN_TOPK,
-                                               RECALL_TOPK)
+from revisit_anything_tpu_torch.config import RECALL_TOPK
 from revisit_anything_tpu_torch.models import dinov2 as dn
 from revisit_anything_tpu_torch.models.sam import (SAM_PIXEL_MEAN,
                                                    SAM_PIXEL_STD, Sam)
@@ -94,7 +93,7 @@ def _select_masks_centroids(masks: torch.Tensor, iou: torch.Tensor,
 
 
 def _dino_desc_device(model: dn.DinoV2, cfg: dn.DinoV2Config,
-                      img_u8: torch.Tensor, layer: int, facet: str,
+                      img_u8: torch.Tensor, layer: int,
                       crop: Tuple[int, int, int, int]) -> torch.Tensor:
     """uint8 [H, W, 3] → L2-normalized dense descriptors [P, D] f32
     (ImageNet normalize, centre crop to patch multiples, bf16 input)."""
@@ -104,7 +103,7 @@ def _dino_desc_device(model: dn.DinoV2, cfg: dn.DinoV2Config,
     std = torch.from_numpy(dn.IMAGENET_STD).to(x.device)
     x = (x - mean) / std
     x = x[top:top + hn, left:left + wn][None].to(torch.bfloat16)
-    d = dn.extract_dense(model, cfg, x, layer, facet)[0].float()
+    d = dn.extract_dense(model, cfg, x, layer)[0].float()
     return d / torch.linalg.vector_norm(d, dim=1, keepdim=True).clamp(
         min=1e-12)
 
@@ -165,9 +164,7 @@ class SegVLADServer:
     def __init__(self, *, sam: Sam, dino: dn.DinoV2, index: ServingIndex,
                  full_hw: Tuple[int, int], sam_hw: Tuple[int, int],
                  amg: Optional[AmgConfig] = None, dino_layer: int = 31,
-                 dino_facet: str = "value", max_masks: int = 128,
-                 knn_topk: int = KNN_TOPK, borda_topk: int = BORDA_TOPK,
-                 top_images: int = RECALL_TOPK):
+                 max_masks: int = 128, top_images: int = RECALL_TOPK):
         self.sam = sam
         self.sam_cfg = sam.cfg
         self.dino = dino
@@ -178,10 +175,7 @@ class SegVLADServer:
         self.full_hw = tuple(full_hw)
         self.sam_hw = tuple(sam_hw)
         self.dino_layer = dino_layer
-        self.dino_facet = dino_facet
         self.kmax = max_masks
-        self.knn_topk = knn_topk
-        self.borda_topk = borda_topk
         self.top_images = top_images
         self.order = index.order
         self.num_ref_images = int(index.num_ref_images)
@@ -256,7 +250,7 @@ class SegVLADServer:
         masks, stats = self._amg_device(img_dev)
         pm = pool_masks_to_patch_grid(masks, self._pool_a, self._pool_b)
         desc = _dino_desc_device(self.dino, self.dino_cfg, img_dev,
-                                 self.dino_layer, self.dino_facet, self._crop)
+                                 self.dino_layer, self._crop)
         return pm, stats, desc
 
     def _adjacency(self, stats_np: np.ndarray) -> Tuple[np.ndarray, int]:
@@ -287,9 +281,9 @@ class SegVLADServer:
                 desc, patch_masks, torch.from_numpy(adj).to(self.device),
                 self._centers, self._pca_mean, self._pca_comps,
                 self._pca_var, self._db, self._db_ids,
-                num_ref_images=self.num_ref_images, knn_topk=self.knn_topk,
-                borda_topk=self.borda_topk, top_images=self.top_images,
-                whiten=self._whiten, db_norms=self._db_norms)
+                num_ref_images=self.num_ref_images,
+                top_images=self.top_images, whiten=self._whiten,
+                db_norms=self._db_norms)
             return top.cpu().numpy()
 
     def query_many(self, imgs: Sequence[np.ndarray]) -> List[np.ndarray]:

@@ -78,3 +78,25 @@ def test_token_cross_zero_pe_bias_is_plain_cross_attention():
         torch.from_numpy(q), torch.from_numpy(np.concatenate([kt, vt], 1)),
         torch.zeros(1, d, m), torch.zeros(d), heads).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_i2t_update_matches_jax(shared):
+    """K5's plain version against the JAX package's ``i2t_update`` (its
+    Pallas kernel in interpret mode), the next t2i's k|v emitted too."""
+    from revisit_anything_tpu.ops.attention import i2t_update as jax_i2t
+    rng = np.random.default_rng(7 + shared)
+    b, t, m, d, da, heads = 3, 7, 64, 32, 16, 2
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    args = (f(1 if shared else b, m, d), f(1, m, da), f(b, t, da),
+            f(b, t, da), f(d, da) * 0.3, f(da), f(da, d) * 0.3, f(d),
+            1.0 + 0.1 * f(d), f(d))
+    w_kv = f(d, 2 * da) * 0.3
+    want_keys, want_kvt = jax_i2t(*map(jnp.asarray, args), heads, eps=1e-6,
+                                  interpret=True,
+                                  w_kv_next=jnp.asarray(w_kv))
+    keys, kvt = att.i2t_update(*(torch.from_numpy(x) for x in args),
+                               torch.from_numpy(w_kv), heads, 1e-6)
+    np.testing.assert_allclose(keys.numpy(), np.asarray(want_keys),
+                               atol=ATOL)
+    np.testing.assert_allclose(kvt.numpy(), np.asarray(want_kvt), atol=ATOL)

@@ -30,13 +30,13 @@ def _rel(a, b):
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-12)
 
 
-@pytest.mark.parametrize("name,hw,layer,facet", [
-    ("mlp", (112, 112), 1, "value"),      # pretrain grid: no resize
-    ("mlp", (98, 126), 1, "value"),       # 7x9 grid: bicubic resize
-    ("swiglu", (70, 84), 2, "value"),
-    ("swiglu", (84, 84), 1, "key"),
+@pytest.mark.parametrize("name,hw,layer", [
+    ("mlp", (112, 112), 1),      # pretrain grid: no resize
+    ("mlp", (98, 126), 1),       # 7x9 grid: bicubic resize
+    ("swiglu", (70, 84), 2),
+    ("swiglu", (84, 84), 1),
 ])
-def test_extract_dense_matches_jax(name, hw, layer, facet):
+def test_extract_dense_matches_jax(name, hw, layer):
     kw = CONFIGS[name]
     jcfg, pcfg = jdn.DinoV2Config(**kw), pdn.DinoV2Config(**kw)
     params = jdn.init_params(jcfg, jax.random.PRNGKey(1))
@@ -48,11 +48,11 @@ def test_extract_dense_matches_jax(name, hw, layer, facet):
     img = rng.standard_normal((1,) + hw + (3,)).astype(np.float32)
     want = np.asarray(jdn.extract_dense(
         jax.tree_util.tree_map(jnp.asarray, tree), jcfg, jnp.asarray(img),
-        layer, facet))
+        layer, "value"))
     model = dino_from_jax_params(tree, pcfg)
     with torch.inference_mode():
-        got = pdn.extract_dense(model, pcfg, torch.from_numpy(img), layer,
-                                facet).numpy()
+        got = pdn.extract_dense(model, pcfg, torch.from_numpy(img),
+                                layer).numpy()
     assert got.shape == want.shape
     assert _rel(got, want) < REL
 

@@ -1,4 +1,4 @@
-"""The four CUDA kernels against their plain PyTorch versions on the card
+"""The five CUDA kernels against their plain PyTorch versions on the card
 (marked ``gpu``; they skip where there is no CUDA device), plus the
 port's import and dispatch contract, which holds everywhere.
 
@@ -67,6 +67,13 @@ def test_cpu_tensors_take_the_plain_versions():
     out = att.token_cross_attend_kv(q[0, :, :7, :].reshape(2, 7, 8).repeat(
         1, 1, 2), kvt, torch.zeros(1, 16, 20), torch.zeros(16), 2)
     assert out.shape == (2, 7, 16)
+    x = torch.from_numpy(rng.standard_normal((1, 64, 32)).astype(np.float32))
+    tok = torch.from_numpy(rng.standard_normal((2, 7, 16)).astype(
+        np.float32))
+    w = torch.from_numpy(rng.standard_normal((32, 32)).astype(np.float32))
+    keys, kvt = att.i2t_update(x, x[:, :, :16], tok, tok, w[:, :16], w[0, :16],
+                               w[:16], w[0], w[1], w[2], w, 2, 1e-6)
+    assert keys.shape == (2, 64, 32) and kvt.shape == (2, 32, 64)
     assert all(k.launches == 0 for k in build.KERNELS)
 
 
@@ -114,6 +121,30 @@ def test_token_cross_kernel_matches_plain(cuda, shared):
     want = att.token_cross_attend_kv_reference(q, kvt, pe, vb, 8)
     torch.cuda.synchronize()
     assert _rel_err(got, want) < BF16_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared", [True, False])
+def test_i2t_update_kernel_matches_plain(cuda, shared):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    bf = torch.bfloat16
+
+    def rnd(*shape, s=1.0, off=0.0):
+        return (torch.randn(shape, generator=g, device=cuda) * s + off).to(bf)
+
+    b, m = 16, 4096
+    args = (rnd(1 if shared else b, m, 256), rnd(1, m, 128), rnd(b, 7, 128),
+            rnd(b, 7, 128), rnd(256, 128, s=0.1), rnd(128, s=0.1),
+            rnd(128, 256, s=0.1), rnd(256, s=0.1), rnd(256, s=0.1, off=1.0),
+            rnd(256, s=0.1), rnd(256, 256, s=0.1))
+    before = build.I2T_UPDATE.launches
+    keys, kvt = att.i2t_update(*args, 8, 1e-6)
+    want_keys, want_kvt = att.i2t_update_reference(*args, 8, 1e-6)
+    torch.cuda.synchronize()
+    assert build.I2T_UPDATE.launches == before + 1
+    assert keys.shape == (b, m, 256) and kvt.shape == (b, 256, m)
+    assert _rel_err(keys, want_keys) < BF16_REL
+    assert _rel_err(kvt, want_kvt) < BF16_REL
 
 
 @pytest.mark.gpu

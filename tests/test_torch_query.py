@@ -111,8 +111,7 @@ def test_topk_images_with_guard_rows_and_fill(seed):
     db = np.concatenate([real, np.full((20, PCA), DB_GUARD, np.float32)])
     ids = np.concatenate([np.repeat(np.arange(3), 10),
                           np.full(20, 3)]).astype(np.int32)
-    kw = dict(num_ref_images=10, knn_topk=200, borda_topk=50, top_images=5,
-              whiten=True)
+    kw = dict(num_ref_images=10, top_images=5, whiten=True)
     want = np.asarray(jtopk(
         jnp.asarray(desc), jnp.asarray(masks), jnp.asarray(adj),
         *(jnp.asarray(idx[k]) for k in ("centers", "pca_mean",

@@ -164,3 +164,38 @@ def test_nms_keep_mask_matches_jax_exactly(seed):
     got = nms_keep_mask(torch.from_numpy(boxes), torch.from_numpy(scores),
                         0.5).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def test_point_segmenter_keeps_many_blob_masks():
+    """``weights.plant_point_segmenter`` turns a random SAM into one whose
+    point prompts segment blobs around their points, so AMG keeps many
+    distinct, moderately sized masks (random weights alone keep one)."""
+    from revisit_anything_tpu_torch.models.sam import Sam
+    from revisit_anything_tpu_torch.pipeline.serve import (
+        _select_masks_centroids)
+    from revisit_anything_tpu_torch.weights import (init_sam,
+                                                    plant_point_segmenter)
+    cfg = PortCfg(encoder_dim=256, encoder_depth=2, encoder_heads=4,
+                  global_attn_indexes=(1,), image_size=256, window_size=8)
+    gen = torch.Generator().manual_seed(0)
+    sam: Sam = init_sam(cfg, gen, "cpu", torch.float32)
+    plant_point_segmenter(sam, gen)
+    rng = np.random.default_rng(0)
+    img = (rng.standard_normal((1, 256, 256, 3)) * 0.5).astype(np.float32)
+    amg = pamg.AmgConfig(points_per_side=16, points_per_batch=256,
+                         pred_iou_thresh=-1e9, stability_score_thresh=0.0)
+    pts = pamg.build_point_grid(16) * 256.0
+    with torch.inference_mode():
+        emb = sam.encoder(torch.from_numpy(img))[0]
+        image_pe = pprompt.dense_positional_embedding(sam.prompt, cfg)[0]
+        masks, iou, stab, boxes = pamg._decode_batch(
+            sam, cfg, emb, image_pe, torch.from_numpy(pts).float(),
+            (256, 256), (128, 128), amg)
+        valid = torch.ones(iou.shape[0], dtype=torch.bool)
+        sel, stats = _select_masks_centroids(masks, iou, stab, boxes, valid,
+                                             amg, 128)
+    n = int(stats[-1])
+    area = sel[:n].float().mean((1, 2))
+    assert n >= 32
+    assert 0.005 < float(area.median()) < 0.2
+    assert int((area == 0).sum()) <= n // 10
