@@ -1,18 +1,22 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build the kernels, hold
 each against its plain PyTorch version at the serving path's shapes, then
-serve three full-width SegVLAD queries through the kernels.
+serve full-width SegVLAD queries through the kernels, in each of the
+decoder's forms.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the five kernels from revisit_anything_tpu_torch/kernels/csrc;
+  2. build the nine kernels from revisit_anything_tpu_torch/kernels/csrc
+     (one nvcc per source, in parallel);
   3. compare every kernel with its plain version in bf16 at the main
      path's shapes, timing both with CUDA events (median of 7 after
-     warm-up);
+     warm-up), beside its bound (the larger of bytes / 3.35 TB/s and
+     operations / the H100's peak rate for their type) and, where one
+     PyTorch call computes the same function, that call's time;
   4. serve a small input through the kernels on the card and through
-     the plain versions on the CPU, from the same weights: the answers
-     must agree;
+     the plain versions on the CPU, from the same weights, with the
+     "shared" and the "fused_tail_keys" decoder: the answers must agree;
   5. build a SegVLADServer at full width (SAM ViT-H, DINOv2 ViT-g/14 in
      bf16, random weights from a seed, SAM's made to segment a blob
      around each point prompt so AMG keeps many segments; 480x640
@@ -20,22 +24,44 @@ Phases (any failure exits non-zero):
      2000-image index made on the card) and plant two images' own
      segment rows in the index; each must keep at least 32 segments;
   6. answer 3 queries with every launch counter reset first; every kernel
-     must have launched, each planted image must come back first for a
-     noisy copy of itself, and answers must be deterministic;
+     of the "shared" decoder must have launched, each planted image must
+     come back first for a noisy copy of itself, and answers must be
+     deterministic;
   7. time one query's stages with CUDA events (the split must give
      query()'s answer) and trace one query with torch.profiler for the
      device's busy time;
-  8. print the kernel table as one JSON line, then the result line.
+  8. serve one planted query through each probability-factored decoder
+     form ("probs_split", "fused_tail_probs", "fused_tail_keys") with the
+     counters reset first: its kernels must launch and K5 must not, the
+     planted image must come first, at least 32 masks kept; print its
+     decode-stage time and its kept masks' agreement with "shared";
+  9. print the kernel table as one JSON line, then the result line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+
+
+VARIANTS = ("probs_split", "fused_tail_probs", "fused_tail_keys")
+
+
+def _paths() -> dict:
+    """The kernels a served query launches in each decoder form (K1 runs
+    the SAM encoder's global layers and DINOv2 in all of them)."""
+    from revisit_anything_tpu_torch.kernels import build as k
+    front = (k.FLASH_ATTENTION, k.TOKEN_CROSS, k.RESIZE_FLAGS)
+    return {"shared": front + (k.I2T_UPDATE, k.MASK_HEAD),
+            "probs_split": front + (k.I2T_PROBS, k.T2I_PROBS,
+                                    k.MASK_HEAD_PROBS),
+            "fused_tail_probs": front + (k.DECODE_TAIL, k.MASK_HEAD_PROBS),
+            "fused_tail_keys": front + (k.DECODE_TAIL, k.MASK_HEAD)}
 
 
 def _fail(msg: str) -> None:
@@ -65,6 +91,32 @@ def _rel(a, b) -> tuple:
     return d, d / max(b.float().abs().max().item(), 1e-6)
 
 
+def _tuple_err(out_k, out_p):
+    errs = [_rel(a, b) for a, b in zip(out_k, out_p)]
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+# One H100 SXM (NVIDIA's data sheet, dense): HBM bytes/s, bf16 tensor-core
+# FLOP/s, f32 (non-tensor) FLOP/s
+HBM_BYTES_S, BF16_FLOP_S, F32_FLOP_S = 3.35e12, 989e12, 67e12
+
+
+def _nbytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _bound(n_bytes: float, bf16_flop: float = 0.0,
+           f32_flop: float = 0.0) -> tuple:
+    """The least time the card could take: bytes moved once over the HBM
+    rate, against operations over the peak rate of their type (bf16
+    products on the tensor cores, f32 products on the FMA units, which
+    run beside them)."""
+    t_bytes = n_bytes / HBM_BYTES_S
+    t_ops = max(bf16_flop / BF16_FLOP_S, f32_flop / F32_FLOP_S)
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def compare_kernels(dev) -> dict:
     """Each kernel vs its plain version at the serving shapes (bf16)."""
     import numpy as np
@@ -77,6 +129,7 @@ def compare_kernels(dev) -> dict:
     from revisit_anything_tpu_torch.ops import attention as att
     from revisit_anything_tpu_torch.ops import maskhead as mh
     from revisit_anything_tpu_torch.ops import maskresize as mr
+    from torch.nn import functional as F
 
     bf = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(1234)
@@ -94,54 +147,86 @@ def compare_kernels(dev) -> dict:
     flag_tol = 1e-5
     results = {}
 
-    def check(kernel, label, fn_k, fn_p, err_fn, tol):
+    def check(kernel, label, fn_k, fn_p, err_fn, tol, ins, ops,
+              library=None, plain_prompts=None):
+        """``ins`` the inputs the function must read (views where it
+        reads part of a tensor), ``ops`` = (bf16 FLOP, f32 FLOP) its
+        arithmetic; ``plain_prompts``: the plain version ran on only the
+        first prompts, and the kernel's output for those is compared."""
         out_k, out_p = fn_k(), fn_p()
         torch.cuda.synchronize()
+        outs = out_k if isinstance(out_k, (tuple, list)) else (out_k,)
+        bound_ms, bound_by = _bound(_nbytes(ins) + _nbytes(outs), *ops)
+        if plain_prompts:
+            out_k = (tuple(o[:plain_prompts] for o in out_k)
+                     if isinstance(out_k, tuple) else out_k[:plain_prompts])
         abs_err, rel_err = err_fn(out_k, out_p)
+        del out_k, out_p, outs
         ms, plain_ms = _time_ms(fn_k), _time_ms(fn_p)
-        del out_k, out_p
+        library_ms = _time_ms(library) if library else None
         torch.cuda.empty_cache()
+        lib = f"  library {library_ms:.3f} ms" if library else ""
         print(f"[kernel] {kernel.name:22s} {label:44s} max_abs_err="
               f"{abs_err:.3e} rel_err={rel_err:.3e} (tol {tol:g}) "
-              f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms", flush=True)
+              f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms{lib}  bound "
+              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
         if not rel_err <= tol or not math.isfinite(abs_err):
             _fail(f"{kernel.name} {label}: error {rel_err} above {tol}")
-        results.setdefault(kernel.name, []).append(dict(
-            label=label, max_abs_err=abs_err, rel_err=rel_err, ms=ms,
-            plain_ms=plain_ms))
+        row = dict(label=label, max_abs_err=abs_err, rel_err=rel_err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=library_ms)
+        if plain_prompts:
+            row["plain_prompts"] = plain_prompts
+        results.setdefault(kernel.name, []).append(row)
 
     # K1: SAM ViT-H global layer and DINOv2-g block shapes
+    # (library: scaled_dot_product_attention, the bias materialized as
+    # its attn_mask outside the timed call)
     q, k, v = (rnd(1, 16, 4096, 80) for _ in range(3))
     bh, bw = rnd(1, 16, 4096, 64), rnd(1, 16, 4096, 64)
+    mask = (bh.float().repeat_interleave(64, dim=-1)
+            + bw.float().repeat(1, 1, 1, 64)).to(bf)
     check(build.FLASH_ATTENTION, "SAM global q/k/v [1,16,4096,80] + bias",
           lambda: att.attend(q, k, v, bh, bw, side=64),
           lambda: att.attend_reference(q, k, v, bh, bw, side=64),
-          _rel, rel_tol)
+          _rel, rel_tol, (q, k, v, bh, bw), (4 * 16 * 4096 ** 2 * 80, 0),
+          library=lambda: F.scaled_dot_product_attention(q, k, v,
+                                                         attn_mask=mask))
+    del mask
     q, k, v = (rnd(1, 24, 1531, 64) for _ in range(3))
     check(build.FLASH_ATTENTION, "DINOv2-g q/k/v [1,24,1531,64]",
           lambda: att.attend(q, k, v), lambda: att.attend_reference(q, k, v),
-          _rel, rel_tol)
+          _rel, rel_tol, (q, k, v), (4 * 24 * 1531 ** 2 * 64, 0),
+          library=lambda: F.scaled_dot_product_attention(q, k, v))
     del q, k, v, bh, bw
 
     # K2: layer-1 shared k|v and per-prompt k|v, 1024 prompts
     qt = rnd(1024, 7, 128)
     pe, vb = rnd(1, 128, 4096), rnd(128)
+    # (library: scaled_dot_product_attention on k = k + pe and v = v + bias
+    # formed outside the timed call; a shared k|v takes every prompt's
+    # queries as one batch of 1024·7 rows)
     for lead, label in ((1, "q [1024,7,128] kvt [1,256,4096] shared"),
                         (1024, "q [1024,7,128] kvt [1024,256,4096]")):
         kvt = rnd(lead, 256, 4096)
+        k_l = (kvt[:, :128] + pe).reshape(lead, 8, 16, 4096).transpose(
+            2, 3).contiguous()
+        v_l = (kvt[:, 128:] + vb[:, None]).reshape(lead, 8, 16, 4096
+                                                  ).transpose(2, 3).contiguous()
+        q_l = qt.reshape(1024, 7, 8, 16).transpose(1, 2)
+        q_l = (q_l.transpose(0, 1).reshape(1, 8, 1024 * 7, 16) if lead == 1
+               else q_l).contiguous()
         check(build.TOKEN_CROSS, label,
               lambda: att.token_cross_attend_kv(qt, kvt, pe, vb, 8),
               lambda: att.token_cross_attend_kv_reference(qt, kvt, pe, vb,
                                                           8),
-              _rel, rel_tol)
-        del kvt
+              _rel, rel_tol, (qt, kvt, pe, vb),
+              (4 * 1024 * 8 * 7 * 4096 * 16, 0),
+              library=lambda: F.scaled_dot_product_attention(q_l, k_l, v_l))
+        del kvt, k_l, v_l, q_l
     del qt, pe, vb
 
     # K5: layer 1 (shared branch) and layer 2 (per-prompt), 1024 prompts
-    def pair_err(out_k, out_p):
-        errs = [_rel(a, b) for a, b in zip(out_k, out_p)]
-        return max(e[0] for e in errs), max(e[1] for e in errs)
-
     for lead, label in ((1, "img [1,4096,256] shared, 1024 prompts"),
                         (1024, "img [1024,4096,256]")):
         iargs = (rnd(lead, 4096, 256), rnd(1, 4096, 128), rnd(1024, 7, 128),
@@ -152,18 +237,23 @@ def compare_kernels(dev) -> dict:
         check(build.I2T_UPDATE, label,
               lambda: att.i2t_update(*iargs, 8, 1e-6),
               lambda: att.i2t_update_reference(*iargs, 8, 1e-6),
-              pair_err, rel_tol)
+              _tuple_err, rel_tol, iargs,
+              (2 * 1024 * 4096 * (256 * 128 + 128 * 256 + 256 * 256)
+               + 2 * 2 * 1024 * 4096 * 8 * 7 * 16, 0))
         del iargs
 
     # K3: 1024 prompts, content 49 rows x 64 = 3136 positions
     margs = (rnd(1024, 4096, 256), rnd(1024, 3, 32, s=0.5),
              rnd(256, 256, s=0.1), rnd(64, s=0.1), rnd(64, s=0.1, off=1.0),
              rnd(64, s=0.1), rnd(64, 128, s=0.1), rnd(32, s=0.1))
+    head_flop = 2 * (256 * 256 + 4 * 64 * 128 + 16 * 32 * 3)  # a position
     check(build.MASK_HEAD, "keys [1024,4096,256] -> [1024,3136,16,3]",
           lambda: mh.fused_mask_head(*margs, eps=1e-6, content=3136),
           lambda: mh.upscale_masks_blocks(margs[0][:, :3136], *margs[1:],
                                           eps=1e-6),
-          _rel, rel_tol)
+          _rel, rel_tol, (margs[0][:, :3136],) + margs[1:],
+          (1024 * 3136 * head_flop, 0))
+    head = margs[2:]
     del margs
 
     # K4: the 17places mask resize (input 768x1024 -> 240x320, gh = 49)
@@ -180,14 +270,134 @@ def compare_kernels(dev) -> dict:
         mism = (flags != flags_p).float().mean().item()
         return mism, mism
 
+    # the banded resize's taps: row pass nnz(wh)·4g, column pass H·nnz(ww)
+    taps = int((whd != 0).sum()) * 4 * 64 + 240 * int((wwd != 0).sum())
     check(build.RESIZE_FLAGS, "logits [1024,3136,16,3] -> flags [1024,3,240,320]",
           lambda: mr.fused_resize_flags(logits, whd, wwd, 0.0, 1.0, (gh, 64)),
           lambda: mr.resize_flags_reference(logits, whd, wwd, 0.0, 1.0,
                                             (gh, 64)),
-          flags_err, flag_tol)
+          flags_err, flag_tol, (logits, whd, wwd), (0, 2 * 1024 * 3 * taps))
     del logits
     torch.cuda.empty_cache()
+    compare_probs_kernels(dev, check, head, rel_tol)
     return results
+
+
+def compare_probs_kernels(dev, check, head, rel_tol) -> None:
+    """B7, B8, B6 and B3 at the serving shapes (1024 prompts, M = 4096,
+    content 3136), bf16. The plain versions of the kernels that rebuild
+    the branch carry f32 [B, 4096, 256] intermediates (~20 GB at 1024
+    prompts), so they run on the first 256 prompts and the kernel's
+    output for those prompts is compared (prompts are independent); the
+    kernel is timed at 1024 prompts, the plain version at 256."""
+    import torch
+
+    from revisit_anything_tpu_torch.kernels import build
+    from revisit_anything_tpu_torch.models.sam import SAM_VIT_H
+    from revisit_anything_tpu_torch.models.sam.decoder import MaskDecoder
+    from revisit_anything_tpu_torch.ops import decode_fused as dfu
+    from revisit_anything_tpu_torch.ops import decode_probs as dpr
+    from revisit_anything_tpu_torch.ops import maskhead as mh
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(4321)
+    b, m, d, da, ht, c = 1024, 4096, 256, 128, 56, 256
+    content = 3136
+    print(f"[kernel] probability-factored decode kernels: plain versions "
+          f"that rebuild the branch run on the first {c} of {b} prompts",
+          flush=True)
+
+    def rnd(*shape, s=1.0, off=0.0):
+        return (torch.randn(shape, generator=g, device=dev) * s + off).to(bf)
+
+    def probs(n):
+        x = torch.randn((n, 8, 7, m), generator=g, device=dev) * 2.0
+        return torch.softmax(x, dim=2).reshape(n, ht, m).to(bf)
+
+    rows = torch.zeros((8, d), device=dev)
+    rows[[0, 3]] = torch.randn((2, d), generator=g, device=dev) * 0.1
+    rows[[1, 4]] = torch.randn((2, d), generator=g, device=dev) * 0.1 + 1.0
+    rows[[2, 5]] = torch.randn((2, d), generator=g, device=dev) * 0.1
+    rows = rows.to(bf)
+    img0, q1st, peqt = rnd(1, m, d), rnd(1, da, m), rnd(1, da, m)
+    tok_k, qt = rnd(b, 7, da), rnd(b, 7, da)
+    p1, p2 = probs(b), probs(b)
+    c1, c2 = rnd(b, ht, d, s=0.3), rnd(b, ht, d, s=0.3)
+    w_q, w_k, w_v, vb = (rnd(d, da, s=0.1), rnd(d, da, s=0.1),
+                         rnd(d, da, s=0.1), rnd(da, s=0.1))
+    # FLOP of one branch rebuild (bf16 P·C), of [56, 256] rows against the
+    # f32 branch, and of a head's token vectors against a bf16 [DA, M] pe
+    # term
+    recon = 2 * b * m * ht * d
+    rows_x_branch = 2 * b * m * ht * d
+    pe_term = 2 * b * ht * m * 16
+
+    check(build.I2T_PROBS, "layer 1: q1st [1,128,4096] -> P [1024,56,4096]",
+          lambda: dpr.i2t_probs(q1st, tok_k, 8),
+          lambda: dpr.i2t_probs_reference(q1st, tok_k, 8),
+          _rel, rel_tol, (q1st, tok_k), (pe_term, 0))
+    rec, rec_c = ((img0, p1, c1, peqt, w_q, rows),
+                  (img0, p1[:c], c1[:c], peqt, w_q, rows))
+    check(build.I2T_PROBS, "layer 2: P1, C1 [1024,56,*] -> P2",
+          lambda: dpr.i2t_probs(None, tok_k, 8, layer=2, recon=rec),
+          lambda: dpr.i2t_probs_reference(None, tok_k[:c], 8, layer=2,
+                                          recon=rec_c),
+          _rel, rel_tol, (tok_k,) + rec, (recon + pe_term, rows_x_branch),
+          plain_prompts=c)
+    for depth in (1, 2):
+        ps = (p2, c2) if depth == 2 else (None, None)
+        ps_c = (p2[:c], c2[:c]) if depth == 2 else (None, None)
+        args = (img0, p1, c1) + ps + (w_k, w_v, peqt, rows, vb, 8)
+        args_c = (img0, p1[:c], c1[:c]) + ps_c + (w_k, w_v, peqt, rows, vb,
+                                                  8)
+        check(build.T2I_PROBS,
+              f"depth {depth}: q [1024,7,128] over the rebuilt branch",
+              lambda: dpr.t2i_from_probs(qt, *args),
+              lambda: dpr.t2i_from_probs_reference(qt[:c], *args_c),
+              _rel, rel_tol, [qt] + [x for x in args if
+                                     isinstance(x, torch.Tensor)],
+              (depth * recon + pe_term, 2 * rows_x_branch), plain_prompts=c)
+
+    hyper = rnd(b, 3, 32, s=0.5)
+    margs = (img0, p1, c1, p2, c2, rows, hyper) + head
+    margs_c = (img0, p1[:c], c1[:c], p2[:c], c2[:c], rows,
+               hyper[:c]) + head
+    head_flop = 2 * (256 * 256 + 4 * 64 * 128 + 16 * 32 * 3)
+    check(build.MASK_HEAD_PROBS,
+          "P1,C1,P2,C2 -> [1024,3136,16,3]",
+          lambda: mh.fused_mask_head_probs(*margs, content=content),
+          lambda: mh.mask_head_probs_reference(*margs_c, content=content),
+          _rel, rel_tol,
+          (img0[:, :content], p1[..., :content], c1, p2[..., :content], c2,
+           rows, hyper) + head,
+          (b * content * (head_flop + 2 * 2 * ht * d), 0), plain_prompts=c)
+    del margs, margs_c, hyper
+
+    dec = MaskDecoder(SAM_VIT_H, dtype=bf, device=dev)
+    with torch.no_grad():
+        for name, prm in dec.named_parameters():
+            x = torch.randn(prm.shape, generator=g, device=dev) * 0.05
+            prm.copy_(x + 1.0 if name.endswith("scale") else x)
+    pek2t, pekft = rnd(1, da, m), rnd(1, da, m)
+    qin, tok = rnd(b, 7, d), rnd(b, 7, d)
+    weights = [prm for mod in (dec.layers[1], dec.final_attn,
+                               dec.norm_final) for prm in mod.parameters()]
+    tail_ins = [img0, q1st, peqt, pek2t, pekft, tok_k, c1, qin, tok,
+                rows] + weights
+    mlp = 2 * b * 7 * 2 * d * SAM_VIT_H.decoder_mlp_dim
+    tail_ops = (2 * recon + 4 * pe_term + mlp, 5 * rows_x_branch)
+    for keys in (True, False):
+        check(build.DECODE_TAIL,
+              "keys mode -> keys2 [1024,4096,256]" if keys else
+              "probs mode -> P1, P2 [1024,56,4096], C2",
+              lambda: dfu.decode_tail_fused(
+                  dec, img0, q1st, peqt, pek2t, pekft, tok_k, c1, qin, tok,
+                  8, 1e-6, keys),
+              lambda: dfu.decode_tail_reference(
+                  dec, img0, q1st, peqt, pek2t, pekft, tok_k[:c], c1[:c],
+                  qin[:c], tok[:c], 8, 1e-6, keys),
+              _tuple_err, rel_tol, tail_ins, tail_ops, plain_prompts=c)
+    torch.cuda.empty_cache()
 
 
 def _image(rng, hw):
@@ -310,11 +520,95 @@ def serve(dev, seed: int = 0) -> dict:
     again = srv.query(queries[2])
     if not np.array_equal(again, answers[2]):
         _fail(f"query not deterministic: {answers[2]} vs {again}")
-    missing = [name for name, n in counts.items() if n == 0]
+    missing = [k.name for k in _paths()["shared"] if counts[k.name] == 0]
     if missing:
         _fail(f"kernels not launched on the served path: {missing}")
     stage_split(srv, queries[2], answers[2])
-    return dict(counts=counts, wall_ms=wall, peak_gib=peak_gib)
+
+    # the probability-factored decoder forms: same weights, index and
+    # AmgConfig but for ``decode``, one planted query each
+    shared_ms = _decode_ms(srv, queries[0])
+    print(f"[variant] shared: decode stage {shared_ms:.3f} ms (CUDA events)",
+          flush=True)
+    variants = {}
+    for decode in VARIANTS:
+        gen_c.manual_seed(seed + 1)
+        vsrv = SegVLADServer(index=index(db), **dict(
+            kw, amg=dataclasses.replace(amg, decode=decode)))
+        variants[decode] = serve_variant(srv, vsrv, queries[0], decode)
+        del vsrv
+    return dict(counts=counts, wall_ms=wall, peak_gib=peak_gib,
+                variants=variants)
+
+
+def _decode_ms(srv, img) -> float:
+    """The AMG decode stage of one query (all prompt batches) between
+    CUDA events."""
+    import torch
+
+    from revisit_anything_tpu_torch.models.sam.amg import _decode_batch
+    from revisit_anything_tpu_torch.pipeline import serve as sv
+
+    with torch.inference_mode():
+        img_dev = torch.from_numpy(img).to(srv.device)
+        emb = srv.sam.encoder(sv._sam_preprocess_fused(
+            img_dev, srv._rh, srv._rw, srv.sam_cfg.image_size))[0]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for s in range(0, srv._pts.shape[0], srv._bsz):
+            _decode_batch(srv.sam, srv.sam_cfg, emb, srv._image_pe,
+                          srv._pts[s:s + srv._bsz], srv.input_hw,
+                          srv.sam_hw, srv.amg)
+        end.record()
+        end.synchronize()
+    return start.elapsed_time(end)
+
+
+def serve_variant(srv, vsrv, img, decode: str) -> dict:
+    """One planted query through ``vsrv`` (decoder form ``decode``) with
+    the counters reset just before: the form's kernels launched, K5 did
+    not, the planted image 0 comes first; then its decode-stage time and
+    the share of its kept masks that match a mask of the "shared" form
+    (``srv``) at IoU > 0.5."""
+    import torch
+
+    from revisit_anything_tpu_torch.kernels import build
+
+    torch.cuda.synchronize()
+    build.reset_counts()
+    t = time.perf_counter()
+    top = vsrv.query(img)
+    wall = (time.perf_counter() - t) * 1e3
+    counts = {k.name: k.launches for k in build.KERNELS}
+    want = {k.name for k in _paths()[decode]}
+    missing = sorted(n for n in want if counts[n] == 0)
+    stray = sorted(n for n, c in counts.items() if c and n not in want)
+    if missing or stray:
+        _fail(f"{decode}: kernels not launched {missing}, launched outside "
+              f"the form {stray}")
+    if top[0] != 0:
+        _fail(f"{decode}: noisy copy of planted image 0 answered {top}")
+    decode_ms = _decode_ms(vsrv, img)
+    with torch.inference_mode():
+        img_dev = torch.from_numpy(img).to(srv.device)
+        masks_v, st_v = vsrv._amg_device(img_dev)
+        masks_s, st_s = srv._amg_device(img_dev)
+        n_v, n_s = int(st_v[-1]), int(st_s[-1])
+        a = masks_v[:n_v].flatten(1).float()
+        b = masks_s[:n_s].flatten(1).float()
+        inter = a @ b.t()
+        iou = inter / (a.sum(1)[:, None] + b.sum(1)[None] - inter).clamp(
+            min=1.0)
+        agree = (iou.max(1).values > 0.5).float().mean().item()
+    print(f"[variant] {decode}: top-5 {top.tolist()}  query {wall:.1f} ms, "
+          f"decode stage {decode_ms:.3f} ms (CUDA events), {n_v} masks kept "
+          f"(shared {n_s}), {agree:.4f} of them match a shared mask at "
+          f"IoU > 0.5; launches {counts}", flush=True)
+    if n_v < 32:
+        _fail(f"{decode}: {n_v} masks kept (expected at least 32)")
+    return dict(query_ms=wall, decode_ms=decode_ms, kept=n_v,
+                agreement=agree, counts=counts)
 
 
 def stage_split(srv, img, answer) -> None:
@@ -397,8 +691,9 @@ def stage_split(srv, img, answer) -> None:
 def reference_check(dev, seed: int = 7) -> None:
     """The served path on a small input, through the kernels on the card
     and through the plain versions on the CPU, from the same bf16
-    weights and index: the same masks survive, the descriptors agree and
-    the answers match. The small models keep every kernel's production
+    weights and index, with the "shared" decoder (two inputs) and the
+    "fused_tail_keys" one (a third): the same masks survive, the
+    descriptors agree and the answers match. The small models keep every kernel's production
     widths (SAM head dim 80, prompt dim 256, decoder head dim 16; DINO
     head dim 64 over 1025 tokens)."""
     import copy
@@ -434,14 +729,15 @@ def reference_check(dev, seed: int = 7) -> None:
         pca_variance=np.ones(pca, np.float32), pca_whiten=True, db=db,
         db_image_ids=np.repeat(np.arange(n_img), per_image),
         num_ref_images=n_img, order=3)
-    kw = dict(index=index, full_hw=(448, 448), sam_hw=(224, 224),
-              amg=AmgConfig(points_per_side=8, points_per_batch=64,
-                            pred_iou_thresh=-1e9, stability_score_thresh=0.0),
-              dino_layer=2, max_masks=32)
-    cpu_srv = SegVLADServer(sam=sam, dino=dino, **kw)
-    gpu_srv = SegVLADServer(sam=copy.deepcopy(sam).to(dev),
-                            dino=copy.deepcopy(dino).to(dev), **kw)
-    for q in range(2):
+    gpu_sam, gpu_dino = copy.deepcopy(sam).to(dev), copy.deepcopy(dino).to(dev)
+    for q, decode in enumerate(("shared", "shared", "fused_tail_keys")):
+        kw = dict(index=index, full_hw=(448, 448), sam_hw=(224, 224),
+                  amg=AmgConfig(points_per_side=8, points_per_batch=64,
+                                pred_iou_thresh=-1e9,
+                                stability_score_thresh=0.0, decode=decode),
+                  dino_layer=2, max_masks=32)
+        cpu_srv = SegVLADServer(sam=sam, dino=dino, **kw)
+        gpu_srv = SegVLADServer(sam=gpu_sam, dino=gpu_dino, **kw)
         img = _image(rng, (448, 448))
         with torch.inference_mode():
             pm_c, st_c, de_c = cpu_srv._front(torch.from_numpy(img))
@@ -451,7 +747,8 @@ def reference_check(dev, seed: int = 7) -> None:
         agree = (pm_c == pm_g).float().mean().item()
         de_abs, de_rel = _rel(de_g, de_c)
         top_c, top_g = cpu_srv.query(img), gpu_srv.query(img)
-        print(f"[reference] small input {q}: masks kept card {n_g} / cpu "
+        print(f"[reference] small input {q}, {decode} decoder: masks kept "
+              f"card {n_g} / cpu "
               f"{n_c}, patch-mask agreement {agree:.6f}, descriptor "
               f"rel_err {de_rel:.3e}, top-5 card {top_g.tolist()} cpu "
               f"{top_c.tolist()}", flush=True)
@@ -487,15 +784,25 @@ def main() -> None:
     reference_check(dev)
     served = serve(dev)
 
+    # launches: the 3 "shared" queries for the kernels of that form, the
+    # three probability-factored queries for the others
     table = []
     for k in build.KERNELS:
         main_shape = results[k.name][0]
+        launches = served["counts"][k.name] or sum(
+            v["counts"][k.name] for v in served["variants"].values())
         table.append(dict(
             name=k.name, route="cuda", source=k.source, replaces=k.replaces,
-            launches=served["counts"][k.name],
+            launches=launches,
             max_abs_err=max(r["max_abs_err"] for r in results[k.name]),
             ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
-            shapes=results[k.name]))
+            bound_ms=main_shape["bound_ms"],
+            bound_by=main_shape["bound_by"],
+            library_ms=main_shape["library_ms"], shapes=results[k.name]))
+    for name, v in served["variants"].items():
+        print(f"[variant] {name}: query {v['query_ms']:.1f} ms, decode "
+              f"{v['decode_ms']:.3f} ms, agreement {v['agreement']:.4f}",
+              flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,13 @@
 """Build and bind the hand-written Hopper kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into ONE
-shared library with a plain C interface, loaded with ``ctypes``. The
-build runs at the first CUDA launch (never at import: machines without
-``nvcc`` import the package fine) and is cached under
-``build/torch_kernels/<hash of the sources>/`` at the checkout root.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``
+(all started together), and the objects are linked into ONE shared
+library with a plain C interface, loaded with ``ctypes``. The build runs
+at the first CUDA launch (never at import: machines without ``nvcc``
+import the package fine) and is cached under
+``build/torch_kernels/<hash of the sources>/`` at the checkout root,
+beside ``ptxas.log`` (each kernel's registers, shared memory and
+spills).
 
 Each C entry point takes raw device pointers, sizes and the CUDA stream,
 launches on that stream, and returns ``cudaGetLastError()``; the Python
@@ -30,7 +33,7 @@ import torch
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,6 +59,19 @@ SIGNATURES: Dict[str, Sequence] = {
     # np, gh, g, n_masks, h, w, thr, off, stream
     "rat_resize_flags": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _I, _I, _F, _F, _P),
+    # q1st, tok_k, img0, p1, c1, peq2t, w_q, rows, out, b, m, layer, eps,
+    # stream
+    "rat_i2t_probs": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # q, img0, p1, c1, p2, c2, w_k, w_v, pekt, rows, v_bias, out, b, m,
+    # depth, eps, stream
+    "rat_t2i_probs": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                      _I, _F, _P),
+    # img0, p1, c1m, p2, c2m, rows, up1_w, up1_b, ln_s, ln_b, up2_w, up2_b,
+    # hyper, out, np, gg, content, n_masks, eps, ln_eps, n_ctas, stream
+    "rat_mask_head_probs": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _P, _I, _I, _I, _I, _F, _F, _I, _P),
+    # a pointer to one TailParams struct (ops.decode_fused), stream
+    "rat_decode_tail": (_P, _P),
 }
 
 _lock = threading.Lock()
@@ -98,14 +114,7 @@ def load() -> ctypes.CDLL:
         out = library_path()
         if not out.exists():
             t0 = time.perf_counter()
-            out.parent.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-            cus = [str(f) for f in sorted(_CSRC.glob("*.cu"))]
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError("nvcc failed:\n" + res.stdout + res.stderr)
-            os.replace(tmp, out)
+            _build(out)
             last_build_seconds = time.perf_counter() - t0
         else:
             last_build_seconds = 0.0
@@ -116,6 +125,35 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
+
+
+def _build(out: Path) -> None:
+    """One nvcc per source, all at once, then one link."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"tmp{os.getpid()}"
+    procs = []
+    for cu in sorted(_CSRC.glob("*.cu")):
+        obj = out.parent / f"{cu.stem}.{tag}.o"
+        procs.append((obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], False
+    for obj, proc in procs:
+        logs.append(proc.communicate()[0])
+        failed |= proc.returncode != 0
+    (out.parent / "ptxas.log").write_text("".join(logs))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "".join(logs))
+    tmp = out.with_suffix(f".{tag}.so")
+    res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                          *(str(obj) for obj, _ in procs)],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError("nvcc link failed:\n" + res.stdout + res.stderr)
+    os.replace(tmp, out)
+    for obj, _ in procs:
+        obj.unlink()
 
 
 class Kernel:
@@ -156,7 +194,21 @@ RESIZE_FLAGS = Kernel(
     "resize_flags", "rat_resize_flags", _SRC + "resize_flags.cu",
     "revisit_anything_tpu/ops/maskresize.py:207")
 
-KERNELS = (FLASH_ATTENTION, TOKEN_CROSS, I2T_UPDATE, MASK_HEAD, RESIZE_FLAGS)
+I2T_PROBS = Kernel(
+    "i2t_probs", "rat_i2t_probs", _SRC + "i2t_probs.cu",
+    "revisit_anything_tpu/ops/decode_probs.py:179")
+T2I_PROBS = Kernel(
+    "t2i_from_probs", "rat_t2i_probs", _SRC + "t2i_probs.cu",
+    "revisit_anything_tpu/ops/decode_probs.py:290")
+MASK_HEAD_PROBS = Kernel(
+    "mask_head_probs", "rat_mask_head_probs", _SRC + "mask_head.cu",
+    "revisit_anything_tpu/ops/maskhead.py:257")
+DECODE_TAIL = Kernel(
+    "decode_tail", "rat_decode_tail", _SRC + "decode_tail.cu",
+    "revisit_anything_tpu/ops/decode_fused.py:417")
+
+KERNELS = (FLASH_ATTENTION, TOKEN_CROSS, I2T_UPDATE, MASK_HEAD, RESIZE_FLAGS,
+           I2T_PROBS, T2I_PROBS, MASK_HEAD_PROBS, DECODE_TAIL)
 
 
 def reset_counts() -> None:

@@ -26,12 +26,29 @@
 // accumulation; accumulators pass through a small f32 staging tile where
 // the bf16 rounding points of the JAX kernel are applied (y1 and y2
 // rounded before their bias add, h1/h2 stored as bf16).
+//
+// The same kernel with RECON (entry rat_mask_head_probs) replaces
+// revisit_anything_tpu/ops/maskhead.py `_mask_head_call_probs`
+// (pallas_call at :257, body :90-126 with recon=True), reached through
+// `fused_mask_head_probs` (:409): the keys tile is not read but rebuilt
+// per position from the shared img0 and the two image -> token updates,
+//   x = bf16(LN(LN(img0 + P1^T C1 + b1) + P2^T C2 + b2))     (f32, one-pass var)
+// by decode_common.cuh `recon_layer`, writing the tile the conv1 product
+// reads. That adds 2 x 56 x 256 multiply-adds a position on the FMA units
+// (~0.18 TFLOP at 1024 prompts x 3136 positions) and reads P1, P2 (2 x 470
+// MB) in place of keys (2.1 GB). The f32 rebuild tile [32, 256] reuses the
+// h1 and y staging tiles (32 KB, free until conv1); the P tile and the
+// branch vectors add 9.5 KB beside the resident weights, 207 KB in all.
+// C1 and C2 (28 KB a prompt each) do not fit beside them and are read
+// from L1/L2.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "decode_common.cuh"
 
 using namespace nvcuda;
 
@@ -52,6 +69,11 @@ constexpr int SMEM_H1 = BLK * D * 2;         // 16384
 constexpr int SMEM_Y = BLK * N2 * 4;         // 16384
 constexpr int SMEM_VEC = (3 * C1 + C2 + MAXM * C2) * 4;
 constexpr int SMEM_TOTAL = SMEM_W1 + SMEM_W2 + SMEM_X + SMEM_H1 + SMEM_Y + SMEM_VEC;
+constexpr int SMEM_RP = rat_decode::HT * BLK * 2;   // P tile (recon)
+constexpr int SMEM_RV = 6 * D * 4;                  // branch rows 0-5 (recon)
+constexpr int SMEM_RECON = SMEM_TOTAL + SMEM_RP + SMEM_RV;
+static_assert(SMEM_H1 + SMEM_Y == BLK * D * 4, "the f32 rebuild tile spans h1 and y");
+static_assert(BLK == rat_decode::BM && THREADS == rat_decode::THREADS, "recon tile shape");
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
@@ -67,6 +89,9 @@ __device__ __forceinline__ void copy_vec(void* dst, const void* src, int bytes) 
   for (int i = threadIdx.x; i < bytes / 16; i += THREADS) t[i] = s[i];
 }
 
+// RECON: keys is the shared img0 [gg, D]; the per-prompt tile is rebuilt
+// from p1/c1m/p2/c2m [Np, HT, gg | D] and the branch rows [8, D].
+template <bool RECON>
 __global__ void __launch_bounds__(THREADS, 1)
 mask_head_kernel(const __nv_bfloat16* __restrict__ keys,   // [Np, gg, D]
                  const __nv_bfloat16* __restrict__ up1_w,  // [D, D]
@@ -77,7 +102,10 @@ mask_head_kernel(const __nv_bfloat16* __restrict__ keys,   // [Np, gg, D]
                  const __nv_bfloat16* __restrict__ up2_b,  // [C2]
                  const __nv_bfloat16* __restrict__ hyper,  // [Np, M, C2]
                  __nv_bfloat16* __restrict__ out,          // [Np, content, 16, M]
-                 int np_, int gg, int content, int n_masks, float eps) {
+                 int np_, int gg, int content, int n_masks, float eps,
+                 const __nv_bfloat16* __restrict__ p1, const __nv_bfloat16* __restrict__ c1m,
+                 const __nv_bfloat16* __restrict__ p2, const __nv_bfloat16* __restrict__ c2m,
+                 const __nv_bfloat16* __restrict__ rows, float ln_eps) {
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* sW1 = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sW2 = reinterpret_cast<__nv_bfloat16*>(smem + SMEM_W1);
@@ -89,6 +117,9 @@ mask_head_kernel(const __nv_bfloat16* __restrict__ keys,   // [Np, gg, D]
   float* sLb = sLs + C1;            // ln bias [C1]
   float* sB2 = sLb + C1;            // up2_b [C2]
   float* sHyp = sB2 + C2;           // [MAXM][C2]
+  __nv_bfloat16* sRP = reinterpret_cast<__nv_bfloat16*>(smem + SMEM_TOTAL);
+  float* sRV = reinterpret_cast<float*>(smem + SMEM_TOTAL + SMEM_RP);
+  float* sR = reinterpret_cast<float*>(sH1);   // f32 rebuild tile [BLK][D]
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -101,6 +132,7 @@ mask_head_kernel(const __nv_bfloat16* __restrict__ keys,   // [Np, gg, D]
     sLb[i] = __bfloat162float(ln_b[i]);
   }
   for (int i = tid; i < C2; i += THREADS) sB2[i] = __bfloat162float(up2_b[i]);
+  if (RECON) rat_decode::load_f32(sRV, rows, 6 * D);
 
   const int tiles = (content + BLK - 1) / BLK;
   const long long total = (long long)np_ * tiles;
@@ -109,14 +141,29 @@ mask_head_kernel(const __nv_bfloat16* __restrict__ keys,   // [Np, gg, D]
     const int p0 = (int)(t % tiles) * BLK;
     __syncthreads();                       // previous tile fully consumed
 
-    // Load the keys tile (zero rows past content) and this prompt's hyper.
+    // Load (or rebuild) the keys tile, zero rows past content, and this
+    // prompt's hyper.
     constexpr int VPR = D / 8;
-    for (int i = tid; i < BLK * VPR; i += THREADS) {
-      const int r = i / VPR, c = i % VPR;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (p0 + r < content)
-        val = reinterpret_cast<const uint4*>(keys + ((size_t)n * gg + p0 + r) * D)[c];
-      reinterpret_cast<uint4*>(sX + r * D)[c] = val;
+    if (RECON) {
+      const int valid = min(BLK, content - p0);
+      const size_t off = (size_t)n * rat_decode::HT;
+      rat_decode::load_rows_tile(sR, D, keys, p0, valid);
+      rat_decode::load_p_tile(sRP, p1 + off * gg, gg, p0, valid);
+      __syncthreads();
+      rat_decode::recon_layer(sR, D, sRP, c1m + off * D, sRV, ln_eps);
+      rat_decode::load_p_tile(sRP, p2 + off * gg, gg, p0, valid);
+      __syncthreads();
+      rat_decode::recon_layer(sR, D, sRP, c2m + off * D, sRV + 3 * D, ln_eps);
+      for (int i = tid; i < BLK * D; i += THREADS)
+        sX[i] = __float2bfloat16(i / D < valid ? sR[i] : 0.f);
+    } else {
+      for (int i = tid; i < BLK * VPR; i += THREADS) {
+        const int r = i / VPR, c = i % VPR;
+        uint4 val = make_uint4(0u, 0u, 0u, 0u);
+        if (p0 + r < content)
+          val = reinterpret_cast<const uint4*>(keys + ((size_t)n * gg + p0 + r) * D)[c];
+        reinterpret_cast<uint4*>(sX + r * D)[c] = val;
+      }
     }
     for (int i = tid; i < n_masks * C2; i += THREADS)
       sHyp[i] = __bfloat162float(hyper[(size_t)n * n_masks * C2 + i]);
@@ -218,6 +265,28 @@ mask_head_kernel(const __nv_bfloat16* __restrict__ keys,   // [Np, gg, D]
   }
 }
 
+template <bool RECON>
+int launch(const void* keys, const void* up1_w, const void* up1_b, const void* ln_s,
+           const void* ln_b, const void* up2_w, const void* up2_b, const void* hyper,
+           void* out, int np_, int gg, int content, int n_masks, float eps, int n_ctas,
+           const void* p1, const void* c1m, const void* p2, const void* c2m,
+           const void* rows, float ln_eps, void* stream) {
+  if (n_masks < 1 || n_masks > MAXM || content > gg || n_ctas < 1)
+    return (int)cudaErrorInvalidValue;
+  const int smem = RECON ? SMEM_RECON : SMEM_TOTAL;
+  cudaError_t err = cudaFuncSetAttribute(
+      mask_head_kernel<RECON>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  typedef const __nv_bfloat16* P;
+  mask_head_kernel<RECON><<<n_ctas, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<P>(keys), static_cast<P>(up1_w), static_cast<P>(up1_b),
+      static_cast<P>(ln_s), static_cast<P>(ln_b), static_cast<P>(up2_w),
+      static_cast<P>(up2_b), static_cast<P>(hyper), static_cast<__nv_bfloat16*>(out), np_,
+      gg, content, n_masks, eps, static_cast<P>(p1), static_cast<P>(c1m),
+      static_cast<P>(p2), static_cast<P>(c2m), static_cast<P>(rows), ln_eps);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int rat_mask_head(const void* keys, const void* up1_w, const void* up1_b,
@@ -225,16 +294,20 @@ extern "C" int rat_mask_head(const void* keys, const void* up1_w, const void* up
                              const void* up2_b, const void* hyper, void* out,
                              int np_, int gg, int content, int n_masks, float eps,
                              int n_ctas, void* stream) {
-  if (n_masks < 1 || n_masks > MAXM || content > gg || n_ctas < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      mask_head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_TOTAL);
-  if (err != cudaSuccess) return (int)err;
-  mask_head_kernel<<<n_ctas, THREADS, SMEM_TOTAL, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(keys), static_cast<const __nv_bfloat16*>(up1_w),
-      static_cast<const __nv_bfloat16*>(up1_b), static_cast<const __nv_bfloat16*>(ln_s),
-      static_cast<const __nv_bfloat16*>(ln_b), static_cast<const __nv_bfloat16*>(up2_w),
-      static_cast<const __nv_bfloat16*>(up2_b), static_cast<const __nv_bfloat16*>(hyper),
-      static_cast<__nv_bfloat16*>(out), np_, gg, content, n_masks, eps);
-  return (int)cudaGetLastError();
+  return launch<false>(keys, up1_w, up1_b, ln_s, ln_b, up2_w, up2_b, hyper, out, np_, gg,
+                       content, n_masks, eps, n_ctas, nullptr, nullptr, nullptr, nullptr,
+                       nullptr, 0.f, stream);
+}
+
+extern "C" int rat_mask_head_probs(const void* img0, const void* p1, const void* c1m,
+                                   const void* p2, const void* c2m, const void* rows,
+                                   const void* up1_w, const void* up1_b, const void* ln_s,
+                                   const void* ln_b, const void* up2_w, const void* up2_b,
+                                   const void* hyper, void* out, int np_, int gg,
+                                   int content, int n_masks, float eps, float ln_eps,
+                                   int n_ctas, void* stream) {
+  if (gg % 8 != 0) return (int)cudaErrorInvalidValue;   // 16-byte P rows
+  return launch<true>(img0, up1_w, up1_b, ln_s, ln_b, up2_w, up2_b, hyper, out, np_, gg,
+                      content, n_masks, eps, n_ctas, p1, c1m, p2, c2m, rows, ln_eps,
+                      stream);
 }

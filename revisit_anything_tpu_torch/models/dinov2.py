@@ -84,7 +84,7 @@ class DinoBlock(nn.Module):
 
 class DinoV2(nn.Module):
     def __init__(self, cfg: DinoV2Config, *, dtype=torch.float32,
-                 device=None):
+                 device="cuda"):
         super().__init__()
         self.cfg = cfg
         d = cfg.embed_dim

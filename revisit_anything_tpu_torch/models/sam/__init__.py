@@ -14,7 +14,7 @@ class Sam(nn.Module):
     """The three SAM modules under the JAX parameter tree's top-level
     names (``encoder``, ``prompt``, ``decoder``)."""
 
-    def __init__(self, cfg: SamArchConfig, *, dtype, device=None):
+    def __init__(self, cfg: SamArchConfig, *, dtype, device="cuda"):
         super().__init__()
         self.cfg = cfg
         self.encoder = ImageEncoder(cfg, dtype=dtype, device=device)

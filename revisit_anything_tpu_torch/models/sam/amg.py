@@ -20,7 +20,8 @@ import numpy as np
 import torch
 
 from revisit_anything_tpu_torch.models.sam.config import SamArchConfig
-from revisit_anything_tpu_torch.models.sam.decoder import decode_masks
+from revisit_anything_tpu_torch.models.sam.decoder import (DECODES,
+                                                           decode_masks)
 from revisit_anything_tpu_torch.models.sam.prompt import (
     embed_points, no_mask_dense_embedding)
 from revisit_anything_tpu_torch.ops.maskresize import fused_resize_flags
@@ -35,6 +36,15 @@ class AmgConfig:
     stability_score_thresh: float = 0.95
     stability_score_offset: float = 1.0
     box_nms_thresh: float = 0.7
+    # two-way decoder form, one of decoder.DECODES: "shared" (K5), or the
+    # probability-factored "probs_split", "fused_tail_probs",
+    # "fused_tail_keys" (the JAX package's TPU default)
+    decode: str = "shared"
+
+    def __post_init__(self):
+        if self.decode not in DECODES:
+            raise ValueError(f"decode {self.decode!r} is not one of "
+                             f"{DECODES}")
 
 
 def build_point_grid(n_per_side: int) -> np.ndarray:
@@ -87,7 +97,8 @@ def _decode_batch(sam, cfg: SamArchConfig, image_embedding: torch.Tensor,
     wh, ww, gh = resize_mats_and_rows(cfg, tuple(input_hw), tuple(orig_hw))
     wh, ww = torch.from_numpy(wh).to(dev), torch.from_numpy(ww).to(dev)
     lowres_blk, iou = decode_masks(sam.decoder, cfg, image_embedding,
-                                   image_pe, sparse, dense, mask_rows=gh)
+                                   image_pe, sparse, dense, mask_rows=gh,
+                                   decode=amg.decode)
     iou = iou.reshape(-1)
 
     hgt, wid = orig_hw

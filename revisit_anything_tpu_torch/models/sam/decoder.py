@@ -4,23 +4,29 @@ mask head in block layout, IoU head.
 
 Counterpart of ``revisit_anything_tpu/models/sam/decoder.py``
 ``decode_masks`` (:636) with ``dense_shared=True, block_layout=True,
-mask_rows=gh``, following ``_run_two_way_shared`` (:260-355):
+mask_rows=gh``. ``decode`` picks the form, as the JAX package's
+``probs_path`` argument and its trace-time flags ``_FUSED_TAIL`` /
+``_TAIL_KEYS`` (:147-213) do:
 
-- the three token→image attentions (layer 1 on the shared [1, M, D]
-  branch, layer 2 and the final one per prompt) go through kernel K2
+- ``"shared"`` (default) follows ``_run_two_way_shared`` (:260-355): the
+  three token→image attentions through kernel K2
   (``ops.attention.token_cross_attend_kv``) on k|v in the transposed
-  [B, 2D, M] layout (``_t2i_fused`` :125-144);
-- the two image→token updates go through kernel K5
-  (``ops.attention.i2t_update``, the TPU branch at :312-332): q-projection,
-  attention over the 7 tokens, out-projection, residual and LayerNorm in
-  one pass, which also emits the next token→image attention's transposed
-  k|v, so only layer 1's k|v is projected here;
-- output tokens are selected before the mask product (:730-737), and the
-  mask head runs through kernel K3 (``ops.maskhead.fused_mask_head``).
+  [B, 2D, M] layout; the two image→token updates through kernel K5
+  (``ops.attention.i2t_update``), which also emits the next attention's
+  k|v; the mask head through kernel K3 (``ops.maskhead.fused_mask_head``).
+- ``"probs_split"``, ``"fused_tail_probs"``, ``"fused_tail_keys"`` follow
+  ``_run_two_way_probs`` (:358-519): the per-prompt branch exists only as
+  the image→token probabilities P and the products C
+  (``ops.decode_probs``). Layer 1's token→image attention runs through
+  K2 on the shared branch. Then ``"probs_split"`` runs kernels B7 ×2
+  (``i2t_probs``) and B8 ×2 (``t2i_from_probs``) with the token side in
+  torch; the two ``fused_tail_*`` forms run the whole rest of the
+  transformer in kernel B3 (``ops.decode_fused.decode_tail_fused``),
+  which emits either keys2 for K3 (``"fused_tail_keys"``, the JAX
+  package's TPU default) or P1, P2 and C2 for kernel B6
+  (``ops.maskhead.fused_mask_head_probs``, also after ``"probs_split"``).
 
-The JAX package's TPU default fuses layer 2 onward into one kernel
-(``ops/decode_fused.py`` ``decode_tail_fused``); that fusion is not ported
-yet — the same function runs here as K5, K2 and the token-side ops.
+Output tokens are selected before the mask product (:730-737).
 """
 
 from __future__ import annotations
@@ -35,7 +41,14 @@ from revisit_anything_tpu_torch.models.layers import (Dense, LayerNorm, mlp,
 from revisit_anything_tpu_torch.models.sam.config import SamArchConfig
 from revisit_anything_tpu_torch.ops.attention import (i2t_update,
                                                       token_cross_attend_kv)
-from revisit_anything_tpu_torch.ops.maskhead import fused_mask_head
+from revisit_anything_tpu_torch.ops.decode_fused import (branch_rows,
+                                                         decode_tail_fused)
+from revisit_anything_tpu_torch.ops.decode_probs import (c_matrix, i2t_probs,
+                                                         t2i_from_probs)
+from revisit_anything_tpu_torch.ops.maskhead import (fused_mask_head,
+                                                     fused_mask_head_probs)
+
+DECODES = ("shared", "probs_split", "fused_tail_probs", "fused_tail_keys")
 
 
 class Attention(nn.Module):
@@ -70,7 +83,7 @@ class TwoWayLayer(nn.Module):
 
 class MaskDecoder(nn.Module):
     def __init__(self, cfg: SamArchConfig, *, dtype=torch.float32,
-                 device=None):
+                 device="cuda"):
         super().__init__()
         pd = cfg.prompt_dim
         kw = dict(dtype=dtype, device=device)
@@ -170,20 +183,92 @@ def run_two_way_shared(dec: MaskDecoder, tokens, shared_src, src_pe_one,
     return queries, keys
 
 
+def _t_proj(lin, x: torch.Tensor) -> torch.Tensor:
+    """(x·W rounded to x's dtype + b)ᵀ of a shared [1, M, D] tensor:
+    [1, DA, M] (the JAX package's ``t_proj``)."""
+    return (lin.nobias(x) + lin.b.to(x.dtype)).transpose(1, 2)
+
+
+def run_two_way_probs(dec: MaskDecoder, tokens, shared_src, src_pe_one,
+                      cfg: SamArchConfig, decode: str):
+    """Probability-factored two-way transformer for prompts that share
+    one image branch input (``_run_two_way_probs``).
+
+    Returns (queries, pstate, keys): pstate = (p1, c1m, p2, c2m, branch
+    rows) for the probability-consuming mask head, or keys [B, M, D]
+    (``"fused_tail_keys"``); the other is None."""
+    nh = cfg.decoder_heads
+    eps = cfg.eps
+    l1, l2 = dec.layers[0], dec.layers[1]
+    fa = dec.final_attn
+
+    # layer 1: token side, token→image over the shared branch (K2)
+    queries = l1.norm1(_attn(l1.self_attn, tokens, tokens, tokens, nh), eps)
+    q = queries + tokens
+    queries = l1.norm2(queries + _t2i(l1.t2i, q, shared_src, src_pe_one,
+                                      nh), eps)
+    queries = l1.norm3(queries + l1.lin2(torch.relu(l1.lin1(queries))), eps)
+
+    # layer-1 image→token: its queries are shared by every prompt
+    i1 = l1.i2t
+    q1st = _t_proj(i1.q, shared_src + src_pe_one)            # [1, DA, M]
+    tok_k1 = i1.k(queries + tokens)
+    c1m = c_matrix(i1.v(queries), i1.out.w, nh)
+    i2 = l2.i2t
+    peq2t = _t_proj(i2.q, src_pe_one)
+    pek2t = _t_proj(l2.t2i.k, src_pe_one)
+    pekft = _t_proj(fa.k, src_pe_one)
+
+    q = queries + tokens
+    queries = l2.norm1(queries + _attn(l2.self_attn, q, q, queries, nh), eps)
+    rows = branch_rows(dec, shared_src.dtype)
+    if decode != "probs_split":
+        out = decode_tail_fused(dec, shared_src, q1st, peq2t, pek2t, pekft,
+                                tok_k1, c1m, queries, tokens, nh, eps,
+                                emit_keys=decode == "fused_tail_keys")
+        if decode == "fused_tail_keys":
+            return out[0], None, out[1]
+        queries, p1, p2, c2m = out
+        return queries, (p1, c1m, p2, c2m, rows), None
+
+    p1 = i2t_probs(q1st, tok_k1, nh, layer=1, eps=eps)      # [B, HT, M]
+
+    # layer 2: token→image over the branch rebuilt at depth 1 (B8)
+    t2 = l2.t2i
+    attn = t2i_from_probs(t2.q(queries + tokens), shared_src, p1, c1m, None,
+                          None, t2.k.w, t2.v.w, pek2t, rows, t2.v.b, nh, eps)
+    queries = l2.norm2(queries + t2.out(attn), eps)
+    queries = l2.norm3(queries + l2.lin2(torch.relu(l2.lin1(queries))), eps)
+
+    # layer-2 image→token: queries rebuilt from keys1 in the kernel (B7)
+    p2 = i2t_probs(None, i2.k(queries + tokens), nh, layer=2,
+                   recon=(shared_src, p1, c1m, peq2t, i2.q.w, rows), eps=eps)
+    c2m = c_matrix(i2.v(queries), i2.out.w, nh)
+
+    # final token→image attention over the branch at depth 2 (B8)
+    attn = t2i_from_probs(fa.q(queries + tokens), shared_src, p1, c1m, p2,
+                          c2m, fa.k.w, fa.v.w, pekft, rows, fa.v.b, nh, eps)
+    queries = dec.norm_final(queries + fa.out(attn), eps)
+    return queries, (p1, c1m, p2, c2m, rows), None
+
+
 def decode_masks(dec: MaskDecoder, cfg: SamArchConfig,
                  image_embedding: torch.Tensor, image_pe: torch.Tensor,
                  sparse_prompts: torch.Tensor, dense_prompts: torch.Tensor,
-                 mask_rows: Optional[int] = None
+                 mask_rows: Optional[int] = None, decode: str = "shared"
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Multimask decode of Np prompts against ONE image embedding.
 
     image_embedding, image_pe [g, g, D]; sparse_prompts [Np, T, D];
     dense_prompts [1, g, g, D] (the shared no-mask embedding);
     mask_rows: decode mask logits only for the first ``mask_rows`` token
-    rows (the rest are SAM's square padding, cropped away later).
+    rows (the rest are SAM's square padding, cropped away later);
+    decode: the two-way form, one of ``DECODES`` (module docstring).
 
     Returns (block-layout logits [Np, mask_rows·g, 16, 3], iou [Np, 3])
     for mask tokens 1..3."""
+    if decode not in DECODES:
+        raise ValueError(f"decode {decode!r} is not one of {DECODES}")
     np_, _, d = sparse_prompts.shape
     g = cfg.grid
     content = g * g if mask_rows is None else mask_rows * g
@@ -193,14 +278,25 @@ def decode_masks(dec: MaskDecoder, cfg: SamArchConfig,
     shared_src = (image_embedding[None] + dense_prompts[:1]).reshape(
         1, g * g, d)
     src_pe_one = image_pe.reshape(1, g * g, d).to(shared_src.dtype)
-    queries, keys = run_two_way_shared(dec, tokens, shared_src, src_pe_one,
-                                       cfg)
+    pstate = None
+    if decode == "shared":
+        queries, keys = run_two_way_shared(dec, tokens, shared_src,
+                                           src_pe_one, cfg)
+    else:
+        queries, pstate, keys = run_two_way_probs(dec, tokens, shared_src,
+                                                  src_pe_one, cfg, decode)
     iou_token_out = queries[:, 0]
     mask_tokens_out = queries[:, 1:1 + cfg.num_mask_tokens]
     hyper = torch.stack([mlp(mask_tokens_out[:, i], dec.hyper_mlps[i])
                          for i in range(1, cfg.num_mask_tokens)], dim=1)
-    masks = fused_mask_head(keys, hyper, dec.up1_w, dec.up1_b,
-                            dec.up_ln.scale, dec.up_ln.bias, dec.up2_w,
-                            dec.up2_b, eps=cfg.eps, content=content)
+    head = (dec.up1_w, dec.up1_b, dec.up_ln.scale, dec.up_ln.bias, dec.up2_w,
+            dec.up2_b)
+    if pstate is None:
+        masks = fused_mask_head(keys, hyper, *head, eps=cfg.eps,
+                                content=content)
+    else:
+        masks = fused_mask_head_probs(shared_src, *pstate, hyper, *head,
+                                      eps=cfg.eps, ln_eps=cfg.eps,
+                                      content=content)
     iou_pred = mlp(iou_token_out, dec.iou_head)
     return masks, iou_pred[:, 1:]

@@ -142,7 +142,7 @@ class ImageEncoder(nn.Module):
     """ImageEncoderViT + neck; ``forward`` is the JAX ``encode_image``."""
 
     def __init__(self, cfg: SamArchConfig, *, dtype=torch.float32,
-                 device=None):
+                 device="cuda"):
         super().__init__()
         self.cfg = cfg
         d = cfg.encoder_dim

@@ -18,7 +18,7 @@ from revisit_anything_tpu_torch.models.sam.config import SamArchConfig
 
 class PromptEncoder(nn.Module):
     def __init__(self, cfg: SamArchConfig, *, dtype=torch.float32,
-                 device=None):
+                 device="cuda"):
         super().__init__()
         pd = cfg.prompt_dim
         kw = dict(dtype=dtype, device=device)

@@ -1,0 +1,170 @@
+"""The fused SAM decode tail: kernel B3 beside its plain version.
+
+Counterpart of ``revisit_anything_tpu/ops/decode_fused.py``
+``decode_tail_fused`` (:429; kernel body ``_tail_kernel`` :166-341
+without its logits-emission branch). Per prompt, after the layer-1
+token side:
+
+    P1 = softmax_T(k1·q1s)                    layer-1 i2t probabilities
+    keys1 = LN(img0 + P1ᵀ C1 + b1)            (f32)
+    layer-2 t2i over keys1, out-proj, LN, MLP, LN     (token side)
+    tok_k2, tok_v2, C2 = per-head tok_v2·W_out2
+    P2 = softmax_T(k2·(keys1·Wq2 + peq2))
+    keys2 = LN(keys1 + P2ᵀ C2 + b2)
+    final t2i over keys2, out-proj, final LN
+
+It emits either keys2 [B, M, D] in the activation dtype (keys mode, for
+the plain mask head ``ops.maskhead.fused_mask_head``) or P1, P2
+[B, H·T, M] bf16 and C2 [B, H·T, D] (probability mode, for
+``ops.maskhead.fused_mask_head_probs``), and the token state after the
+final LayerNorm. Layouts as in ``ops.decode_probs``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from revisit_anything_tpu_torch.kernels.build import DECODE_TAIL, operand
+from revisit_anything_tpu_torch.ops.decode_probs import (KERNEL_DIMS,
+                                                         branch_attend,
+                                                         branch_probs,
+                                                         c_matrix,
+                                                         i2t_probs_reference,
+                                                         recon_branch,
+                                                         recon_step)
+
+
+def branch_rows(dec, dtype: torch.dtype) -> torch.Tensor:
+    """[8, D] branch constants of a ``MaskDecoder``: rows 0-2 the layer-1
+    image→token out-projection bias and norm4 scale / bias, rows 3-5
+    layer 2's, rows 6-7 zero (the JAX package's ``_pack_branch_rows``)."""
+    l1, l2 = dec.layers[0], dec.layers[1]
+    rows = [l1.i2t.out.b, l1.norm4.scale, l1.norm4.bias,
+            l2.i2t.out.b, l2.norm4.scale, l2.norm4.bias]
+    rows = torch.stack([r.to(dtype) for r in rows])
+    return torch.cat([rows, rows.new_zeros(2, rows.shape[1])])
+
+
+def decode_tail_reference(dec, img0, q1st, peq2t, pek2t, pekft, tok_k1, c1m,
+                          queries_b, tokens, heads: int, eps: float = 1e-6,
+                          emit_keys: bool = False):
+    """Plain version of :func:`decode_tail_fused`: the same steps through
+    the port's modules and the plain helpers of ``ops.decode_probs``."""
+    l2, fa = dec.layers[1], dec.final_attn
+    rows = branch_rows(dec, queries_b.dtype)
+    p1 = i2t_probs_reference(q1st, tok_k1, heads)
+    keys1 = recon_branch(img0, [p1], [c1m], rows, eps)
+    t2 = l2.t2i
+    attn = branch_attend(t2.q(queries_b + tokens), keys1, t2.k.w, t2.v.w,
+                         pek2t, t2.v.b, heads)
+    queries = l2.norm2(queries_b + t2.out(attn), eps)
+    queries = l2.norm3(queries + l2.lin2(torch.relu(l2.lin1(queries))), eps)
+    i2 = l2.i2t
+    p2 = branch_probs(keys1, i2.q.w, peq2t, i2.k(queries + tokens), heads)
+    c2m = c_matrix(i2.v(queries), i2.out.w, heads)
+    keys2 = recon_step(keys1, p2, c2m, rows[3:6], eps)
+    attn = branch_attend(fa.q(queries + tokens), keys2, fa.k.w, fa.v.w,
+                         pekft, fa.v.b, heads)
+    queries = dec.norm_final(queries + fa.out(attn), eps)
+    if emit_keys:
+        return queries, keys2.to(queries_b.dtype)
+    return queries, p1, p2, c2m
+
+
+# TailParams, field for field as in kernels/csrc/decode_tail.cu
+_TAIL_POINTERS = (
+    "img0", "q1st", "peq2t", "pek2t", "pekft", "tok_k1", "c1m", "qin", "tok",
+    "wq_t2", "bq_t2", "wk_t2", "wv_t2", "vb_t2", "wout_t2", "bout_t2",
+    "n2_s", "n2_b", "lin1_w", "lin1_b", "lin2_w", "lin2_b", "n3_s", "n3_b",
+    "wq_i2", "wk_i2", "bk_i2", "wv_i2", "bv_i2", "wout_i2",
+    "wq_fa", "bq_fa", "wk_fa", "wv_fa", "vb_fa", "wout_fa", "bout_fa",
+    "nf_s", "nf_b", "rows", "keys2", "p1", "p2", "c2m", "qout")
+
+
+class TailParams(ctypes.Structure):
+    _fields_ = ([(name, ctypes.c_void_p) for name in _TAIL_POINTERS]
+                + [("b", ctypes.c_int), ("m", ctypes.c_int),
+                   ("mlp", ctypes.c_int), ("eps", ctypes.c_float)])
+
+
+def decode_tail_fused(dec, img0: torch.Tensor, q1st: torch.Tensor,
+                      peq2t: torch.Tensor, pek2t: torch.Tensor,
+                      pekft: torch.Tensor, tok_k1: torch.Tensor,
+                      c1m: torch.Tensor, queries_b: torch.Tensor,
+                      tokens: torch.Tensor, heads: int, eps: float = 1e-6,
+                      emit_keys: bool = False):
+    """The decode tail of a ``MaskDecoder`` ``dec`` for B prompts.
+
+    img0 [1, M, D] the shared branch input; q1st [1, DA, M] the layer-1
+    image→token queries ((img0 + pe)·Wq1 + bq1)ᵀ; peq2t, pek2t, pekft
+    [1, DA, M] the pe terms of the layer-2 image→token queries
+    (pe·Wq + bq), the layer-2 and the final token→image keys (pe·Wk +
+    bk), transposed; tok_k1 [B, T, DA] the layer-1 image→token token
+    keys; c1m [B, H·T, D]; queries_b [B, T, D] the token state after the
+    layer-2 self-attention and norm1; tokens [B, T, D] the prompt tokens.
+
+    Returns (queries [B, T, D], keys2 [B, M, D]) with ``emit_keys``,
+    else (queries, p1, p2, c2m).
+
+    CUDA: kernel B3 (bf16; D 256, DA 128, 8 heads, 7 tokens, M a
+    multiple of 32). CPU: :func:`decode_tail_reference`."""
+    if not queries_b.is_cuda:
+        return decode_tail_reference(dec, img0, q1st, peq2t, pek2t, pekft,
+                                     tok_k1, c1m, queries_b, tokens, heads,
+                                     eps, emit_keys)
+    b, t, d = queries_b.shape
+    _, m, _ = img0.shape
+    da = tok_k1.shape[2]
+    l2, fa = dec.layers[1], dec.final_attn
+    mlp = l2.lin1.w.shape[1]
+    if (d, da, heads, t) != KERNEL_DIMS or m % 32:
+        raise ValueError(f"decode tail: (D={d}, DA={da}, heads={heads}, "
+                         f"T={t}, M={m}) not built ({KERNEL_DIMS}, "
+                         "M % 32 == 0)")
+    bf = torch.bfloat16
+    ht = heads * t
+    t2, i2 = l2.t2i, l2.i2t
+    shapes = {
+        "img0": (img0, (1, m, d)), "q1st": (q1st, (1, da, m)),
+        "peq2t": (peq2t, (1, da, m)), "pek2t": (pek2t, (1, da, m)),
+        "pekft": (pekft, (1, da, m)), "tok_k1": (tok_k1, (b, t, da)),
+        "c1m": (c1m, (b, ht, d)), "qin": (queries_b, (b, t, d)),
+        "tok": (tokens, (b, t, d)),
+        "wq_t2": (t2.q.w, (d, da)), "bq_t2": (t2.q.b, (da,)),
+        "wk_t2": (t2.k.w, (d, da)), "wv_t2": (t2.v.w, (d, da)),
+        "vb_t2": (t2.v.b, (da,)), "wout_t2": (t2.out.w, (da, d)),
+        "bout_t2": (t2.out.b, (d,)), "n2_s": (l2.norm2.scale, (d,)),
+        "n2_b": (l2.norm2.bias, (d,)), "lin1_w": (l2.lin1.w, (d, mlp)),
+        "lin1_b": (l2.lin1.b, (mlp,)), "lin2_w": (l2.lin2.w, (mlp, d)),
+        "lin2_b": (l2.lin2.b, (d,)), "n3_s": (l2.norm3.scale, (d,)),
+        "n3_b": (l2.norm3.bias, (d,)),
+        "wq_i2": (i2.q.w, (d, da)), "wk_i2": (i2.k.w, (d, da)),
+        "bk_i2": (i2.k.b, (da,)), "wv_i2": (i2.v.w, (d, da)),
+        "bv_i2": (i2.v.b, (da,)), "wout_i2": (i2.out.w, (da, d)),
+        "wq_fa": (fa.q.w, (d, da)), "bq_fa": (fa.q.b, (da,)),
+        "wk_fa": (fa.k.w, (d, da)), "wv_fa": (fa.v.w, (d, da)),
+        "vb_fa": (fa.v.b, (da,)), "wout_fa": (fa.out.w, (da, d)),
+        "bout_fa": (fa.out.b, (d,)), "nf_s": (dec.norm_final.scale, (d,)),
+        "nf_b": (dec.norm_final.bias, (d,)),
+        "rows": (branch_rows(dec, bf), (8, d)),
+    }
+    ins = {name: operand(name, x.to(bf), bf, shape)
+           for name, (x, shape) in shapes.items()}
+    dev = queries_b.device
+    qout = torch.empty((b, t, d), dtype=bf, device=dev)
+    c2m = torch.empty((b, ht, d), dtype=bf, device=dev)
+    outs = dict(qout=qout, c2m=c2m)
+    if emit_keys:
+        outs["keys2"] = torch.empty((b, m, d), dtype=bf, device=dev)
+    else:
+        outs["p1"] = torch.empty((b, ht, m), dtype=bf, device=dev)
+        outs["p2"] = torch.empty((b, ht, m), dtype=bf, device=dev)
+    ptrs = {name: x.data_ptr() for name, x in {**ins, **outs}.items()}
+    params = TailParams(*(ptrs.get(name) for name in _TAIL_POINTERS),
+                        b, m, mlp, float(eps))
+    DECODE_TAIL.launch(ctypes.addressof(params))
+    if emit_keys:
+        return qout, outs["keys2"]
+    return qout, outs["p1"], outs["p2"], c2m

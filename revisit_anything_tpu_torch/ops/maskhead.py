@@ -1,8 +1,11 @@
-"""Mask head kernel K3 (upscaler + hypernetwork) beside its plain version.
+"""Mask head kernels K3 (upscaler + hypernetwork) and B6 (the same on a
+branch rebuilt from attention probabilities), each beside its plain
+version.
 
 Counterpart of ``revisit_anything_tpu/ops/maskhead.py`` ``fused_mask_head``
-(:345); the plain version is ``decoder._upscale_masks_blocks(interleave=
-False)`` (``models/sam/decoder.py:555-616``). Output is the block layout
+(:345) and ``fused_mask_head_probs`` (:409); the plain version is
+``decoder._upscale_masks_blocks(interleave=False)``
+(``models/sam/decoder.py:555-616``). Output is the block layout
 [Np, content, 16, M]: dim 2 = (q, r) = (2a1+b1, 2a2+b2), spatial row
 4i+2a1+a2 and column 4j+2b1+b2 of token position (i, j).
 """
@@ -14,7 +17,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from revisit_anything_tpu_torch.kernels.build import MASK_HEAD, operand
+from revisit_anything_tpu_torch.kernels.build import (MASK_HEAD,
+                                                      MASK_HEAD_PROBS,
+                                                      operand)
+from revisit_anything_tpu_torch.ops.decode_probs import recon_branch
 
 
 def upscale_masks_blocks(keys: torch.Tensor, hyper: torch.Tensor,
@@ -80,4 +86,71 @@ def fused_mask_head(keys: torch.Tensor, hyper: torch.Tensor,
     MASK_HEAD.launch(kf.data_ptr(), *[a.data_ptr() for a in args],
                      out.data_ptr(), np_, gg, content, m, float(eps),
                      n_ctas)
+    return out
+
+
+def mask_head_probs_reference(img0, p1, c1m, p2, c2m, rows, hyper, up1_w,
+                              up1_b, ln_scale, ln_bias, up2_w, up2_b,
+                              eps: float = 1e-6, ln_eps: float = 1e-6,
+                              content: Optional[int] = None) -> torch.Tensor:
+    """Plain version of :func:`fused_mask_head_probs`: the branch after
+    both image→token updates rebuilt in f32 for the first ``content``
+    positions, rounded to img0's dtype, then the plain mask head."""
+    content = img0.shape[1] if content is None else content
+    keys = recon_branch(img0[:, :content], [p1[..., :content],
+                                            p2[..., :content]],
+                        [c1m, c2m], rows, ln_eps).to(img0.dtype)
+    return upscale_masks_blocks(keys, hyper, up1_w, up1_b, ln_scale, ln_bias,
+                                up2_w, up2_b, eps)
+
+
+def fused_mask_head_probs(img0: torch.Tensor, p1: torch.Tensor,
+                          c1m: torch.Tensor, p2: torch.Tensor,
+                          c2m: torch.Tensor, rows: torch.Tensor,
+                          hyper: torch.Tensor, up1_w: torch.Tensor,
+                          up1_b: torch.Tensor, ln_scale: torch.Tensor,
+                          ln_bias: torch.Tensor, up2_w: torch.Tensor,
+                          up2_b: torch.Tensor, eps: float = 1e-6,
+                          ln_eps: float = 1e-6,
+                          content: Optional[int] = None) -> torch.Tensor:
+    """:func:`fused_mask_head` on the branch rebuilt per position from the
+    image→token probabilities (``ops.decode_probs``): img0 [1, gg, D]
+    shared; p1, p2 [Np, H·T, gg] bf16; c1m, c2m [Np, H·T, D]; rows
+    [8, D] branch rows; ``ln_eps`` the branch LayerNorm's epsilon.
+    Returns [Np, content, 16, M].
+
+    CUDA: kernel B6 (bf16, D 256, H·T 56, M ≤ 4). CPU: the plain
+    version."""
+    _, gg, d = img0.shape
+    np_, ht, _ = p1.shape
+    content = gg if content is None else content
+    if not 0 < content <= gg:
+        raise ValueError(f"content {content} outside (0, {gg}]")
+    if not img0.is_cuda:
+        return mask_head_probs_reference(img0, p1, c1m, p2, c2m, rows, hyper,
+                                         up1_w, up1_b, ln_scale, ln_bias,
+                                         up2_w, up2_b, eps, ln_eps, content)
+    m = hyper.shape[1]
+    if d != 256 or ht != 56 or not 1 <= m <= 4:
+        raise ValueError(f"mask head (probs) kernel: D={d}, H·T={ht}, M={m} "
+                         "not built (D 256, H·T 56, M ≤ 4)")
+    bf = torch.bfloat16
+    ins = [operand("img0", img0, bf, (1, gg, d)),
+           operand("p1", p1, bf, (np_, ht, gg)),
+           operand("c1m", c1m, bf, (np_, ht, d)),
+           operand("p2", p2, bf, (np_, ht, gg)),
+           operand("c2m", c2m, bf, (np_, ht, d)),
+           operand("branch_rows", rows.to(bf), bf, (8, d)),
+           operand("up1_w", up1_w.to(bf), bf, (256, 256)),
+           operand("up1_b", up1_b.to(bf), bf, (64,)),
+           operand("ln_scale", ln_scale.to(bf), bf, (64,)),
+           operand("ln_bias", ln_bias.to(bf), bf, (64,)),
+           operand("up2_w", up2_w.to(bf), bf, (64, 128)),
+           operand("up2_b", up2_b.to(bf), bf, (32,)),
+           operand("hyper", hyper.to(bf), bf, (np_, m, 32))]
+    out = torch.empty((np_, content, 16, m), dtype=bf, device=img0.device)
+    n_ctas = torch.cuda.get_device_properties(
+        img0.device).multi_processor_count
+    MASK_HEAD_PROBS.launch(*(a.data_ptr() for a in ins), out.data_ptr(), np_,
+                           gg, content, m, float(eps), float(ln_eps), n_ctas)
     return out

@@ -71,7 +71,7 @@ def _assign(owner: nn.Module, key: str, target: Optional[torch.Tensor],
 
 
 def sam_from_jax_params(tree, cfg: SamArchConfig, *,
-                        dtype=torch.float32, device=None) -> Sam:
+                        dtype=torch.float32, device="cuda") -> Sam:
     """The port's Sam from a JAX SAM parameter tree (numpy leaves)."""
     sam = Sam(cfg, dtype=dtype, device=device)
     load_tree(sam, tree, skip=SAM_SKIP)
@@ -79,7 +79,7 @@ def sam_from_jax_params(tree, cfg: SamArchConfig, *,
 
 
 def dino_from_jax_params(tree, cfg: DinoV2Config, *,
-                         dtype=torch.float32, device=None) -> DinoV2:
+                         dtype=torch.float32, device="cuda") -> DinoV2:
     """The port's DinoV2 from a JAX DINOv2 parameter tree."""
     dino = DinoV2(cfg, dtype=dtype, device=device)
     load_tree(dino, tree)
@@ -107,8 +107,8 @@ def _is_ln(name: str) -> bool:
     return len(parts) >= 2 and parts[-2].startswith(("norm", "ln", "up_ln"))
 
 
-def init_sam(cfg: SamArchConfig, generator: torch.Generator, device=None,
-             dtype=torch.bfloat16) -> Sam:
+def init_sam(cfg: SamArchConfig, generator: torch.Generator,
+             device="cuda", dtype=torch.bfloat16) -> Sam:
     """Random SAM weights with the JAX init's layout and scales
     (``models/sam/params.py``): dense weights N(0, 0.02²), biases 0,
     LayerNorms (1, 0), pe_gaussian N(0, 1). The rel-pos tables, zero in
@@ -129,8 +129,8 @@ def init_sam(cfg: SamArchConfig, generator: torch.Generator, device=None,
     return sam
 
 
-def init_dino(cfg: DinoV2Config, generator: torch.Generator, device=None,
-              dtype=torch.bfloat16) -> DinoV2:
+def init_dino(cfg: DinoV2Config, generator: torch.Generator,
+              device="cuda", dtype=torch.bfloat16) -> DinoV2:
     """Random DINOv2 weights with the JAX init's layout and scales
     (``dinov2._init_params``): N(0, 0.02²) weights, embeddings and
     tokens, zero biases, LayerNorms (1, 0), LayerScale 1e-5."""

@@ -49,7 +49,7 @@ def test_extract_dense_matches_jax(name, hw, layer):
     want = np.asarray(jdn.extract_dense(
         jax.tree_util.tree_map(jnp.asarray, tree), jcfg, jnp.asarray(img),
         layer, "value"))
-    model = dino_from_jax_params(tree, pcfg)
+    model = dino_from_jax_params(tree, pcfg, device="cpu")
     with torch.inference_mode():
         got = pdn.extract_dense(model, pcfg, torch.from_numpy(img),
                                 layer).numpy()

@@ -1,4 +1,4 @@
-"""The five CUDA kernels against their plain PyTorch versions on the card
+"""The nine CUDA kernels against their plain PyTorch versions on the card
 (marked ``gpu``; they skip where there is no CUDA device), plus the
 port's import and dispatch contract, which holds everywhere.
 
@@ -16,6 +16,8 @@ import torch
 
 from revisit_anything_tpu_torch.kernels import build
 from revisit_anything_tpu_torch.ops import attention as att
+from revisit_anything_tpu_torch.ops import decode_fused as dfu
+from revisit_anything_tpu_torch.ops import decode_probs as dpr
 from revisit_anything_tpu_torch.ops import maskhead as mh
 from revisit_anything_tpu_torch.ops import maskresize as mr
 from revisit_anything_tpu_torch.ops.resize import bilinear_weight_matrix
@@ -74,10 +76,19 @@ def test_cpu_tensors_take_the_plain_versions():
     keys, kvt = att.i2t_update(x, x[:, :, :16], tok, tok, w[:, :16], w[0, :16],
                                w[:16], w[0], w[1], w[2], w, 2, 1e-6)
     assert keys.shape == (2, 64, 32) and kvt.shape == (2, 32, 64)
+    pet = x[:, :, :16].transpose(1, 2)                     # [1, DA, M]
+    p = dpr.i2t_probs(pet, tok, 2)
+    assert p.shape == (2, 14, 64) and p.dtype == torch.bfloat16
+    c = w[:14][None].repeat(2, 1, 1)                       # [B, H·T, D]
+    out = dpr.t2i_from_probs(tok, x, p, c, None, None, w[:, :16], w[:, :16],
+                             pet, w[:8], w[0, :16], 2)
+    assert out.shape == (2, 7, 16)
     assert all(k.launches == 0 for k in build.KERNELS)
 
 
 def test_kernel_table_points_at_sources():
+    assert len(build.KERNELS) == 9
+    assert len({k.entry for k in build.KERNELS}) == 9
     for k in build.KERNELS:
         assert os.path.exists(os.path.join(REPO, k.source)), k.source
         path, line = k.replaces.split(":")
@@ -185,3 +196,124 @@ def test_resize_kernel_matches_plain(cuda):
     own_rowst, own_colany = mr.flag_stats(flags)
     assert torch.equal(rowst, own_rowst)
     assert torch.equal(colany, own_colany)
+
+
+def _probs_inputs(cuda, b=16, m=4096, seed=5):
+    """Inputs of the probability-factored decode kernels at the serving
+    widths (D 256, DA 128, 8 heads, 7 tokens) for ``b`` prompts."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    bf = torch.bfloat16
+
+    def rnd(*shape, s=1.0, off=0.0):
+        return (torch.randn(shape, generator=g, device=cuda) * s + off).to(bf)
+
+    def probs(*shape):
+        x = torch.randn(shape, generator=g, device=cuda) * 2.0
+        return torch.softmax(x.reshape(b, 8, 7, m), dim=2).reshape(
+            shape).to(bf)
+
+    rows = torch.zeros((8, 256), device=cuda)
+    rows[[0, 3]] = torch.randn((2, 256), generator=g, device=cuda) * 0.1
+    rows[[1, 4]] = torch.randn((2, 256), generator=g, device=cuda) * 0.1 + 1
+    rows[[2, 5]] = torch.randn((2, 256), generator=g, device=cuda) * 0.1
+    return dict(img0=rnd(1, m, 256), q1st=rnd(1, 128, m), tok_k=rnd(b, 7, 128),
+                p1=probs(b, 56, m), p2=probs(b, 56, m),
+                c1=rnd(b, 56, 256, s=0.3), c2=rnd(b, 56, 256, s=0.3),
+                peqt=rnd(1, 128, m), w=rnd(256, 128, s=0.1),
+                w_v=rnd(256, 128, s=0.1), q=rnd(b, 7, 128),
+                v_bias=rnd(128, s=0.1), rows=rows.to(bf))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layer", [1, 2])
+def test_i2t_probs_kernel_matches_plain(cuda, layer):
+    x = _probs_inputs(cuda)
+    recon = (x["img0"], x["p1"], x["c1"], x["peqt"], x["w"], x["rows"])
+    kw = dict(layer=layer, recon=recon if layer == 2 else None)
+    q1st = x["q1st"] if layer == 1 else None
+    before = build.I2T_PROBS.launches
+    got = dpr.i2t_probs(q1st, x["tok_k"], 8, **kw)
+    want = dpr.i2t_probs_reference(q1st, x["tok_k"], 8, **kw)
+    torch.cuda.synchronize()
+    assert build.I2T_PROBS.launches == before + 1
+    assert got.shape == want.shape == (16, 56, 4096)
+    assert _rel_err(got, want) < BF16_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 2])
+def test_t2i_from_probs_kernel_matches_plain(cuda, depth):
+    x = _probs_inputs(cuda)
+    p2, c2 = (x["p2"], x["c2"]) if depth == 2 else (None, None)
+    args = (x["q"], x["img0"], x["p1"], x["c1"], p2, c2, x["w"], x["w_v"],
+            x["peqt"], x["rows"], x["v_bias"], 8)
+    before = build.T2I_PROBS.launches
+    got = dpr.t2i_from_probs(*args)
+    want = dpr.t2i_from_probs_reference(*args)
+    torch.cuda.synchronize()
+    assert build.T2I_PROBS.launches == before + 1
+    assert got.shape == want.shape == (16, 7, 128)
+    assert _rel_err(got, want) < BF16_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("content", [3136, 3130])
+def test_mask_head_probs_kernel_matches_plain(cuda, content):
+    x = _probs_inputs(cuda, b=8)
+    g = torch.Generator(device=cuda).manual_seed(6)
+
+    def rnd(*shape, s=1.0, off=0.0):
+        return (torch.randn(shape, generator=g, device=cuda) * s + off).to(
+            torch.bfloat16)
+
+    args = (x["img0"], x["p1"], x["c1"], x["p2"], x["c2"], x["rows"],
+            rnd(8, 3, 32, s=0.5), rnd(256, 256, s=0.1), rnd(64, s=0.1),
+            rnd(64, s=0.1, off=1.0), rnd(64, s=0.1), rnd(64, 128, s=0.1),
+            rnd(32, s=0.1))
+    before = build.MASK_HEAD_PROBS.launches
+    got = mh.fused_mask_head_probs(*args, content=content)
+    want = mh.mask_head_probs_reference(*args, content=content)
+    torch.cuda.synchronize()
+    assert build.MASK_HEAD_PROBS.launches == before + 1
+    assert got.shape == want.shape == (8, content, 16, 3)
+    assert _rel_err(got, want) < BF16_REL
+
+
+def serving_decoder(device, seed=0):
+    """A bf16 SAM ViT-H mask decoder (prompt dim 256, 8 heads, MLP 2048)
+    with seeded random weights: N(0, 0.05²), LayerNorm scales 1 + N(0,
+    0.05²)."""
+    from revisit_anything_tpu_torch.models.sam import SAM_VIT_H
+    from revisit_anything_tpu_torch.models.sam.decoder import MaskDecoder
+    dec = MaskDecoder(SAM_VIT_H, dtype=torch.bfloat16, device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in dec.named_parameters():
+            x = torch.randn(p.shape, generator=g, device=device) * 0.05
+            p.copy_(x + 1.0 if name.endswith("scale") else x)
+    return dec
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("emit_keys", [True, False])
+def test_decode_tail_kernel_matches_plain(cuda, emit_keys):
+    x = _probs_inputs(cuda)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    dec = serving_decoder(cuda)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+
+    args = (dec, x["img0"], x["q1st"], x["peqt"], rnd(1, 128, 4096),
+            rnd(1, 128, 4096), x["tok_k"], x["c1"], rnd(16, 7, 256),
+            rnd(16, 7, 256), 8, 1e-6, emit_keys)
+    before = build.DECODE_TAIL.launches
+    with torch.inference_mode():
+        got = dfu.decode_tail_fused(*args)
+        want = dfu.decode_tail_reference(*args)
+    torch.cuda.synchronize()
+    assert build.DECODE_TAIL.launches == before + 1
+    assert len(got) == len(want) == (2 if emit_keys else 4)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert _rel_err(a, b) < BF16_REL

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 
 from revisit_anything_tpu.models.sam.decoder import _upscale_masks_blocks
 from revisit_anything_tpu.ops.maskhead import fused_mask_head as jax_mask_head
+from revisit_anything_tpu.ops.maskhead import fused_mask_head_probs
 from revisit_anything_tpu_torch.ops import maskhead as mh
 
 torch.set_float32_matmul_precision("highest")
@@ -66,4 +67,39 @@ def test_mask_head_matches_jax_block_path():
         SimpleNamespace(grid=8, eps=1e-6), interleave=False))
     got = mh.upscale_masks_blocks(*(torch.from_numpy(p[k]) for k in _ORDER),
                                   eps=1e-6).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.parametrize("content", [None, 48])
+def test_mask_head_probs_matches_jax_kernel(content):
+    """Kernel B6: the branch rebuilt from two (P, C) updates, then the
+    mask head, against the JAX package's recon kernel."""
+    rng = np.random.default_rng(11)
+    d, ht, np_, gg = 32, 28, 2, 64
+    p = _params(rng, d, 3, np_, gg)
+    img0 = rng.standard_normal((1, gg, d)).astype(np.float32)
+    logits = rng.standard_normal((2, np_, ht, gg)) * 2.0
+    probs = np.exp(logits - logits.max(2, keepdims=True))
+    probs = (probs / probs.sum(2, keepdims=True)).astype(np.float32)
+    p1, p2 = (jnp.asarray(x).astype(jnp.bfloat16) for x in probs)
+    c1m, c2m = (rng.standard_normal((np_, ht, d)) * 0.3).astype(np.float32), \
+        (rng.standard_normal((np_, ht, d)) * 0.3).astype(np.float32)
+    rows = np.zeros((8, d), np.float32)
+    rows[[0, 3]] = rng.standard_normal((2, d)) * 0.1
+    rows[[1, 4]] = rng.standard_normal((2, d)) * 0.1 + 1.0
+    rows[[2, 5]] = rng.standard_normal((2, d)) * 0.1
+    head = _ORDER[1:]
+    want = np.asarray(fused_mask_head_probs(
+        jnp.asarray(img0), p1, jnp.asarray(c1m), p2, jnp.asarray(c2m),
+        jnp.asarray(rows), *(jnp.asarray(p[k]) for k in head), eps=1e-6,
+        ln_eps=1e-6, content=content, interpret=True))
+
+    def t(x):
+        return torch.from_numpy(np.array(x, np.float32))
+
+    got = mh.fused_mask_head_probs(
+        t(img0), t(p1).to(torch.bfloat16), t(c1m), t(p2).to(torch.bfloat16),
+        t(c2m), t(rows), *(t(p[k]) for k in head), eps=1e-6, ln_eps=1e-6,
+        content=content).numpy()
+    assert got.shape == (np_, content or gg, 16, 3)
     np.testing.assert_allclose(got, want, atol=ATOL)

@@ -2,6 +2,8 @@
 decode batch and NMS against the JAX package on a tiny config with both
 windowed and global encoder layers (f32 on both sides)."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -11,6 +13,7 @@ import jax.numpy as jnp
 
 from revisit_anything_tpu.models.sam import SamArchConfig, init_sam_params
 from revisit_anything_tpu.models.sam import amg as jamg
+from revisit_anything_tpu.models.sam import decoder as jdec_mod
 from revisit_anything_tpu.models.sam.decoder import decode_masks as jdecode
 from revisit_anything_tpu.models.sam.encoder import encode_image
 from revisit_anything_tpu.models.sam import prompt as jprompt
@@ -49,7 +52,7 @@ def models():
         lambda x: (np.asarray(x) + 0.05 * rng.standard_normal(x.shape)
                    ).astype(np.float32), params)
     jparams = jax.tree_util.tree_map(jnp.asarray, tree)
-    return jparams, sam_from_jax_params(tree, PCFG)
+    return jparams, sam_from_jax_params(tree, PCFG, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -107,18 +110,52 @@ def test_decoder_matches_jax(models, embedding):
     assert _rel(got_iou.numpy(), want_iou) < REL
 
 
+# the JAX decoder's trace-time flags (_PROBS_PATH, _FUSED_TAIL,
+# _TAIL_KEYS) for each of the port's AmgConfig.decode forms
+JAX_DECODE_FLAGS = {"shared": ("off", "auto", "auto"),
+                    "probs_split": ("on", "off", "auto"),
+                    "fused_tail_probs": ("on", "on", "off"),
+                    "fused_tail_keys": ("on", "on", "on")}
+
+
+@contextlib.contextmanager
+def jax_decode_flags(decode):
+    """The JAX decode flags set to ``decode``'s form. They are read at
+    trace time, so the jitted ``decode_masks`` and ``_decode_batch``
+    caches are cleared on the way in and out."""
+    names = ("_PROBS_PATH", "_FUSED_TAIL", "_TAIL_KEYS")
+    old = [getattr(jdec_mod, n) for n in names]
+
+    def clear():
+        jdecode.clear_cache()
+        jamg._decode_batch.clear_cache()
+
+    for n, v in zip(names, JAX_DECODE_FLAGS[decode]):
+        setattr(jdec_mod, n, v)
+    clear()
+    try:
+        yield
+    finally:
+        for n, v in zip(names, old):
+            setattr(jdec_mod, n, v)
+        clear()
+
+
+@pytest.mark.parametrize("decode", list(JAX_DECODE_FLAGS))
 @pytest.mark.parametrize("orig_hw", [(112, 112), (84, 112)])
-def test_decode_batch_matches_jax(models, embedding, orig_hw):
+def test_decode_batch_matches_jax(models, embedding, orig_hw, decode):
     jparams, sam = models
     emb = embedding[0][0]
     pe = np.array(jprompt.dense_positional_embedding(jparams, JCFG))[0]
     input_hw = jamg.resize_longest_side(*orig_hw, 128)
     amg_j = jamg.AmgConfig(points_per_side=6, points_per_batch=36)
-    amg_p = pamg.AmgConfig(points_per_side=6, points_per_batch=36)
+    amg_p = pamg.AmgConfig(points_per_side=6, points_per_batch=36,
+                           decode=decode)
     pts = _grid_points()
-    want = [np.asarray(x) for x in jamg._decode_batch(
-        jparams, JCFG, jnp.asarray(emb), jnp.asarray(pe), jnp.asarray(pts),
-        input_hw, orig_hw, amg_j)]
+    with jax_decode_flags(decode):
+        want = [np.asarray(x) for x in jamg._decode_batch(
+            jparams, JCFG, jnp.asarray(emb), jnp.asarray(pe),
+            jnp.asarray(pts), input_hw, orig_hw, amg_j)]
     with torch.inference_mode():
         got = [x.numpy() for x in pamg._decode_batch(
             sam, PCFG, torch.from_numpy(emb), torch.from_numpy(pe),
@@ -133,6 +170,29 @@ def test_decode_batch_matches_jax(models, embedding, orig_hw):
     same = (masks == want[0]).all(axis=(1, 2))
     np.testing.assert_array_equal(stab[same], want[2][same])
     np.testing.assert_array_equal(boxes[same], want[3][same])
+
+
+def test_unknown_amg_decode_raises():
+    with pytest.raises(ValueError, match="decode"):
+        pamg.AmgConfig(decode="fused")
+
+
+def test_entry_points_default_to_the_card():
+    """The port runs on the card unless the caller asks for the CPU: the
+    constructors and weight builders default to ``device="cuda"``."""
+    import inspect
+
+    from revisit_anything_tpu_torch import weights
+    from revisit_anything_tpu_torch.models.dinov2 import DinoV2
+    from revisit_anything_tpu_torch.models.sam import Sam
+    from revisit_anything_tpu_torch.models.sam.decoder import MaskDecoder
+    from revisit_anything_tpu_torch.models.sam.encoder import ImageEncoder
+    from revisit_anything_tpu_torch.models.sam.prompt import PromptEncoder
+    for fn in (weights.sam_from_jax_params, weights.dino_from_jax_params,
+               weights.init_sam, weights.init_dino, Sam, DinoV2,
+               ImageEncoder, PromptEncoder, MaskDecoder):
+        default = inspect.signature(fn).parameters["device"].default
+        assert default == "cuda", (fn.__name__, default)
 
 
 def test_resize_mats_match_jax_unrounded():

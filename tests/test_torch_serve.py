@@ -107,9 +107,11 @@ def servers():
                    index=JIndex(db=db, db_image_ids=db_ids,
                                 num_ref_images=N_IMAGES, **idx),
                    amg=JAmg(**AMG_KW), mesh=None, **SERVE_KW)
-    psrv = PServer(sam=sam_from_jax_params(sam_tree, PSamCfg(**SAM_KW)),
+    psrv = PServer(sam=sam_from_jax_params(sam_tree, PSamCfg(**SAM_KW),
+                                           device="cpu"),
                    dino=dino_from_jax_params(dino_tree,
-                                             pdn.DinoV2Config(**DINO_KW)),
+                                             pdn.DinoV2Config(**DINO_KW),
+                                             device="cpu"),
                    index=PIndex(db=db, db_image_ids=db_ids,
                                 num_ref_images=N_IMAGES, **idx),
                    amg=PAmg(**AMG_KW), **SERVE_KW)
