@@ -1,22 +1,23 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build the kernels, hold
 each against its plain PyTorch version at the serving path's shapes, then
 serve full-width SegVLAD queries through the kernels, in each of the
-decoder's forms.
+decoder's forms and with the encoder's windowed layers either way.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the nine kernels from revisit_anything_tpu_torch/kernels/csrc
+  2. build the twelve kernels from revisit_anything_tpu_torch/kernels/csrc
      (one nvcc per source, in parallel);
   3. compare every kernel with its plain version in bf16 at the main
      path's shapes, timing both with CUDA events (median of 7 after
      warm-up), beside its bound (the larger of bytes / 3.35 TB/s and
      operations / the H100's peak rate for their type) and, where one
      PyTorch call computes the same function, that call's time;
-  4. serve a small input through the kernels on the card and through
-     the plain versions on the CPU, from the same weights, with the
-     "shared" and the "fused_tail_keys" decoder: the answers must agree;
+  4. serve small inputs through the kernels on the card and through the
+     plain versions on the CPU, from the same weights, with the
+     "shared", "fused_tail_keys" and "fused_tail_logits" decoders and
+     with the window kernel: the answers must agree;
   5. build a SegVLADServer at full width (SAM ViT-H, DINOv2 ViT-g/14 in
      bf16, random weights from a seed, SAM's made to segment a blob
      around each point prompt so AMG keeps many segments; 480x640
@@ -30,12 +31,21 @@ Phases (any failure exits non-zero):
   7. time one query's stages with CUDA events (the split must give
      query()'s answer) and trace one query with torch.profiler for the
      device's busy time;
-  8. serve one planted query through each probability-factored decoder
-     form ("probs_split", "fused_tail_probs", "fused_tail_keys") with the
-     counters reset first: its kernels must launch and K5 must not, the
-     planted image must come first, at least 32 masks kept; print its
-     decode-stage time and its kept masks' agreement with "shared";
-  9. print the kernel table as one JSON line, then the result line.
+  8. serve one planted query with the encoder's windowed layers through
+     the window kernel (B11) with the counters reset first: it must launch
+     once per windowed layer (28), the planted image must come first;
+     print the kept masks' agreement with plain windows and the encode
+     stage either way (CUDA events, median of 7 each, in turns);
+  9. serve one planted query through each probability-factored decoder
+     form ("probs_split", "fused_tail_probs", "fused_tail_keys",
+     "fused_tail_logits") with the counters reset first: its kernels must
+     launch and no other decode kernel may, the planted image must come
+     first, at least 32 masks kept; print its decode-stage time and its
+     kept masks' agreement with "shared" ("fused_tail_logits" also with
+     "fused_tail_keys");
+ 10. print the kernel table as one JSON line (B10, token_cross_split, has
+     no caller on a serving path, as in the JAX package: launches 0),
+     then the result line.
 """
 
 from __future__ import annotations
@@ -49,19 +59,24 @@ import sys
 import time
 
 
-VARIANTS = ("probs_split", "fused_tail_probs", "fused_tail_keys")
+VARIANTS = ("probs_split", "fused_tail_probs", "fused_tail_keys",
+            "fused_tail_logits")
 
 
 def _paths() -> dict:
     """The kernels a served query launches in each decoder form (K1 runs
-    the SAM encoder's global layers and DINOv2 in all of them)."""
+    the SAM encoder's global layers and DINOv2 in all of them), and with
+    the window kernel ("shared" decoder)."""
     from revisit_anything_tpu_torch.kernels import build as k
     front = (k.FLASH_ATTENTION, k.TOKEN_CROSS, k.RESIZE_FLAGS)
-    return {"shared": front + (k.I2T_UPDATE, k.MASK_HEAD),
+    shared = front + (k.I2T_UPDATE, k.MASK_HEAD)
+    return {"shared": shared,
             "probs_split": front + (k.I2T_PROBS, k.T2I_PROBS,
                                     k.MASK_HEAD_PROBS),
             "fused_tail_probs": front + (k.DECODE_TAIL, k.MASK_HEAD_PROBS),
-            "fused_tail_keys": front + (k.DECODE_TAIL, k.MASK_HEAD)}
+            "fused_tail_keys": front + (k.DECODE_TAIL, k.MASK_HEAD),
+            "fused_tail_logits": front + (k.DECODE_TAIL_LOGITS,),
+            "window_kernel": shared + (k.WIN_ATTENTION,)}
 
 
 def _fail(msg: str) -> None:
@@ -129,6 +144,7 @@ def compare_kernels(dev) -> dict:
     from revisit_anything_tpu_torch.ops import attention as att
     from revisit_anything_tpu_torch.ops import maskhead as mh
     from revisit_anything_tpu_torch.ops import maskresize as mr
+    from revisit_anything_tpu_torch.ops import winattn as wa
     from torch.nn import functional as F
 
     bf = torch.bfloat16
@@ -200,6 +216,25 @@ def compare_kernels(dev) -> dict:
           library=lambda: F.scaled_dot_product_attention(q, k, v))
     del q, k, v, bh, bw
 
+    # B11: one SAM ViT-H windowed layer, 25 windows of 14x14, 16 heads of
+    # 80 (library: scaled_dot_product_attention on q/k/v split and the
+    # bias expanded to its attn_mask outside the timed call)
+    qkv = rnd(25, 196, 3840)
+    bh, bw = rnd(25, 196, 16 * 14), rnd(25, 196, 16 * 14)
+    q, k, v = (qkv[..., i * 1280:(i + 1) * 1280].reshape(25, 196, 16, 80)
+               .transpose(1, 2).contiguous() for i in range(3))
+    mask = (bh.float().reshape(25, 196, 16, 14).transpose(1, 2)
+            .repeat_interleave(14, dim=-1)
+            + bw.float().reshape(25, 196, 16, 14).transpose(1, 2)
+            .repeat(1, 1, 1, 14)).to(bf)
+    check(build.WIN_ATTENTION, "qkv [25,196,3840] + bias [25,196,224]",
+          lambda: wa.windowed_attend(qkv, bh, bw, 16, 14),
+          lambda: wa.windowed_attend_reference(qkv, bh, bw, 16, 14),
+          _rel, rel_tol, (qkv, bh, bw), (4 * 25 * 16 * 196 ** 2 * 80, 0),
+          library=lambda: F.scaled_dot_product_attention(q, k, v,
+                                                         attn_mask=mask))
+    del qkv, bh, bw, q, k, v, mask
+
     # K2: layer-1 shared k|v and per-prompt k|v, 1024 prompts
     qt = rnd(1024, 7, 128)
     pe, vb = rnd(1, 128, 4096), rnd(128)
@@ -224,7 +259,26 @@ def compare_kernels(dev) -> dict:
               (4 * 1024 * 8 * 7 * 4096 * 16, 0),
               library=lambda: F.scaled_dot_product_attention(q_l, k_l, v_l))
         del kvt, k_l, v_l, q_l
-    del qt, pe, vb
+    del pe, vb
+
+    # B10: K2 without pe and v bias on separate kt, vt (library:
+    # scaled_dot_product_attention over the 8 heads, k and v laid out
+    # for it outside the timed call)
+    for lead, label in ((1, "q [1024,7,128] kt, vt [1,128,4096] shared"),
+                        (1024, "q [1024,7,128] kt, vt [1024,128,4096]")):
+        kt, vt = rnd(lead, 128, 4096), rnd(lead, 128, 4096)
+        k_l, v_l = (x.reshape(lead, 8, 16, 4096).transpose(2, 3).contiguous()
+                    for x in (kt, vt))
+        q_l = qt.reshape(1024, 7, 8, 16).transpose(1, 2)
+        q_l = (q_l.transpose(0, 1).reshape(1, 8, 1024 * 7, 16) if lead == 1
+               else q_l).contiguous()
+        check(build.TOKEN_CROSS_SPLIT, label,
+              lambda: att.token_cross_attend(qt, kt, vt, 8),
+              lambda: att.token_cross_attend_reference(qt, kt, vt, 8),
+              _rel, rel_tol, (qt, kt, vt), (4 * 1024 * 8 * 7 * 4096 * 16, 0),
+              library=lambda: F.scaled_dot_product_attention(q_l, k_l, v_l))
+        del kt, vt, k_l, v_l, q_l
+    del qt
 
     # K5: layer 1 (shared branch) and layer 2 (per-prompt), 1024 prompts
     for lead, label in ((1, "img [1,4096,256] shared, 1024 prompts"),
@@ -397,6 +451,22 @@ def compare_probs_kernels(dev, check, head, rel_tol) -> None:
                   dec, img0, q1st, peqt, pek2t, pekft, tok_k[:c], c1[:c],
                   qin[:c], tok[:c], 8, 1e-6, keys),
               _tuple_err, rel_tol, tail_ins, tail_ops, plain_prompts=c)
+    # logits mode: the tail, then the mask head on keys2's first `content`
+    # positions and the three hypernetwork MLPs (no single library call)
+    head_ins = [prm for name, prm in dec.named_parameters()
+                if name.startswith(("up", "hyper_mlps.1", "hyper_mlps.2",
+                                    "hyper_mlps.3"))]
+    hyper_flop = 2 * b * 3 * (2 * d * d + d * 32)
+    check(build.DECODE_TAIL_LOGITS, "logits mode -> [1024,3136,16,3]",
+          lambda: dfu.decode_tail_fused(
+              dec, img0, q1st, peqt, pek2t, pekft, tok_k, c1, qin, tok, 8,
+              1e-6, mask_head=True, content=content),
+          lambda: dfu.decode_tail_reference(
+              dec, img0, q1st, peqt, pek2t, pekft, tok_k[:c], c1[:c],
+              qin[:c], tok[:c], 8, 1e-6, mask_head=True, content=content),
+          _tuple_err, rel_tol, tail_ins + head_ins,
+          (tail_ops[0] + b * content * head_flop, tail_ops[1] + hyper_flop),
+          plain_prompts=c)
     torch.cuda.empty_cache()
 
 
@@ -524,21 +594,124 @@ def serve(dev, seed: int = 0) -> dict:
     if missing:
         _fail(f"kernels not launched on the served path: {missing}")
     stage_split(srv, queries[2], answers[2])
+    window = serve_window_kernel(srv, queries[0])
 
     # the probability-factored decoder forms: same weights, index and
     # AmgConfig but for ``decode``, one planted query each
     shared_ms = _decode_ms(srv, queries[0])
     print(f"[variant] shared: decode stage {shared_ms:.3f} ms (CUDA events)",
           flush=True)
-    variants = {}
+    variants, servers = {}, {"shared": srv}
     for decode in VARIANTS:
         gen_c.manual_seed(seed + 1)
         vsrv = SegVLADServer(index=index(db), **dict(
             kw, amg=dataclasses.replace(amg, decode=decode)))
-        variants[decode] = serve_variant(srv, vsrv, queries[0], decode)
+        also = ("fused_tail_keys",) if decode == "fused_tail_logits" else ()
+        variants[decode] = serve_variant(
+            vsrv, queries[0], decode,
+            {name: servers[name] for name in ("shared",) + also})
+        if decode == "fused_tail_keys":
+            servers[decode] = vsrv
         del vsrv
     return dict(counts=counts, wall_ms=wall, peak_gib=peak_gib,
-                variants=variants)
+                variants=variants, window=window)
+
+
+def _check_launches(counts: dict, path: str) -> None:
+    """Every kernel of ``path`` launched, none outside it."""
+    want = {k.name for k in _paths()[path]}
+    missing = sorted(n for n in want if counts[n] == 0)
+    stray = sorted(n for n, c in counts.items() if c and n not in want)
+    if missing or stray:
+        _fail(f"{path}: kernels not launched {missing}, launched outside "
+              f"the path {stray}")
+
+
+def _agreement(amg_a, amg_b) -> tuple:
+    """Two servers' ``_amg_device`` results (kept masks, stats) on one
+    image: (masks kept by a, by b, the share of a's kept masks that match
+    one of b's at IoU > 0.5)."""
+    (masks_a, st_a), (masks_b, st_b) = amg_a, amg_b
+    n_a, n_b = int(st_a[-1]), int(st_b[-1])
+    a = masks_a[:n_a].flatten(1).float()
+    b = masks_b[:n_b].flatten(1).float()
+    inter = a @ b.t()
+    iou = inter / (a.sum(1)[:, None] + b.sum(1)[None] - inter).clamp(min=1.0)
+    return n_a, n_b, (iou.max(1).values > 0.5).float().mean().item()
+
+
+def _encode_ms(srv, img_dev) -> float:
+    """The SAM preprocess and encode stage of one query between CUDA
+    events."""
+    import torch
+
+    from revisit_anything_tpu_torch.pipeline import serve as sv
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    srv.sam.encoder(sv._sam_preprocess_fused(img_dev, srv._rh, srv._rw,
+                                             srv.sam_cfg.image_size))
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def serve_window_kernel(srv, img) -> dict:
+    """One planted query with the encoder's windowed layers through the
+    window kernel (counters reset just before): B11 once per windowed
+    layer, the "shared" decoder's kernels, the planted image 0 first;
+    then the kept masks' agreement with plain windows and the encode
+    stage with plain and kernel windows (CUDA events, 7 each in turns)."""
+    import torch
+
+    from revisit_anything_tpu_torch.kernels import build
+
+    enc = srv.sam.encoder
+    cfg = srv.sam_cfg
+    n_windowed = cfg.encoder_depth - len(cfg.global_attn_indexes)
+    torch.cuda.synchronize()
+    try:
+        enc.window_attention = "kernel"
+        build.reset_counts()
+        t = time.perf_counter()
+        top = srv.query(img)
+        wall = (time.perf_counter() - t) * 1e3
+        counts = {k.name: k.launches for k in build.KERNELS}
+        _check_launches(counts, "window_kernel")
+        if counts[build.WIN_ATTENTION.name] != n_windowed:
+            _fail(f"window kernel launched {counts[build.WIN_ATTENTION.name]}"
+                  f" times in one query (expected {n_windowed})")
+        if top[0] != 0:
+            _fail(f"window kernel: noisy copy of planted image 0 answered "
+                  f"{top}")
+        with torch.inference_mode():
+            img_dev = torch.from_numpy(img).to(srv.device)
+            amg_k = srv._amg_device(img_dev)
+            enc.window_attention = "plain"
+            n_k, n_p, agree = _agreement(amg_k, srv._amg_device(img_dev))
+            times = {"plain": [], "kernel": []}
+            for rep in range(8):
+                order = ("plain", "kernel") if rep % 2 else ("kernel",
+                                                             "plain")
+                for form in order:
+                    enc.window_attention = form
+                    times[form].append(_encode_ms(srv, img_dev))
+    finally:
+        enc.window_attention = "plain"
+    # the first turn warms both forms up
+    plain_ms = statistics.median(times["plain"][1:])
+    kernel_ms = statistics.median(times["kernel"][1:])
+    print(f"[window] window kernel: top-5 {top.tolist()}  query {wall:.1f} "
+          f"ms, {counts[build.WIN_ATTENTION.name]} window-kernel launches, "
+          f"{n_k} masks kept (plain windows {n_p}), {agree:.4f} of them "
+          f"match a plain-window mask at IoU > 0.5; encode stage (CUDA "
+          f"events, median of 7) plain windows {plain_ms:.3f} ms, kernel "
+          f"windows {kernel_ms:.3f} ms; launches {counts}", flush=True)
+    if n_k < 32:
+        _fail(f"window kernel: {n_k} masks kept (expected at least 32)")
+    return dict(query_ms=wall, kept=n_k, agreement=agree, counts=counts,
+                encode_plain_ms=plain_ms, encode_kernel_ms=kernel_ms)
 
 
 def _decode_ms(srv, img) -> float:
@@ -565,12 +738,12 @@ def _decode_ms(srv, img) -> float:
     return start.elapsed_time(end)
 
 
-def serve_variant(srv, vsrv, img, decode: str) -> dict:
+def serve_variant(vsrv, img, decode: str, refs: dict) -> dict:
     """One planted query through ``vsrv`` (decoder form ``decode``) with
-    the counters reset just before: the form's kernels launched, K5 did
-    not, the planted image 0 comes first; then its decode-stage time and
-    the share of its kept masks that match a mask of the "shared" form
-    (``srv``) at IoU > 0.5."""
+    the counters reset just before: the form's kernels launched and no
+    other, the planted image 0 comes first; then its decode-stage time
+    and the share of its kept masks that match a mask of each server in
+    ``refs`` (by form name) at IoU > 0.5."""
     import torch
 
     from revisit_anything_tpu_torch.kernels import build
@@ -581,34 +754,28 @@ def serve_variant(srv, vsrv, img, decode: str) -> dict:
     top = vsrv.query(img)
     wall = (time.perf_counter() - t) * 1e3
     counts = {k.name: k.launches for k in build.KERNELS}
-    want = {k.name for k in _paths()[decode]}
-    missing = sorted(n for n in want if counts[n] == 0)
-    stray = sorted(n for n, c in counts.items() if c and n not in want)
-    if missing or stray:
-        _fail(f"{decode}: kernels not launched {missing}, launched outside "
-              f"the form {stray}")
+    _check_launches(counts, decode)
     if top[0] != 0:
         _fail(f"{decode}: noisy copy of planted image 0 answered {top}")
     decode_ms = _decode_ms(vsrv, img)
+    agreement = {}
     with torch.inference_mode():
-        img_dev = torch.from_numpy(img).to(srv.device)
-        masks_v, st_v = vsrv._amg_device(img_dev)
-        masks_s, st_s = srv._amg_device(img_dev)
-        n_v, n_s = int(st_v[-1]), int(st_s[-1])
-        a = masks_v[:n_v].flatten(1).float()
-        b = masks_s[:n_s].flatten(1).float()
-        inter = a @ b.t()
-        iou = inter / (a.sum(1)[:, None] + b.sum(1)[None] - inter).clamp(
-            min=1.0)
-        agree = (iou.max(1).values > 0.5).float().mean().item()
+        img_dev = torch.from_numpy(img).to(vsrv.device)
+        amg_v = vsrv._amg_device(img_dev)
+        n_v = int(amg_v[1][-1])
+        for name, ref in refs.items():
+            _, n_r, agreement[name] = _agreement(amg_v,
+                                                 ref._amg_device(img_dev))
+            print(f"[variant] {decode}: {n_v} masks kept ({name} {n_r}), "
+                  f"{agreement[name]:.4f} of them match a {name} mask at "
+                  f"IoU > 0.5", flush=True)
     print(f"[variant] {decode}: top-5 {top.tolist()}  query {wall:.1f} ms, "
-          f"decode stage {decode_ms:.3f} ms (CUDA events), {n_v} masks kept "
-          f"(shared {n_s}), {agree:.4f} of them match a shared mask at "
-          f"IoU > 0.5; launches {counts}", flush=True)
+          f"decode stage {decode_ms:.3f} ms (CUDA events); launches "
+          f"{counts}", flush=True)
     if n_v < 32:
         _fail(f"{decode}: {n_v} masks kept (expected at least 32)")
     return dict(query_ms=wall, decode_ms=decode_ms, kept=n_v,
-                agreement=agree, counts=counts)
+                agreement=agreement, counts=counts)
 
 
 def stage_split(srv, img, answer) -> None:
@@ -691,11 +858,13 @@ def stage_split(srv, img, answer) -> None:
 def reference_check(dev, seed: int = 7) -> None:
     """The served path on a small input, through the kernels on the card
     and through the plain versions on the CPU, from the same bf16
-    weights and index, with the "shared" decoder (two inputs) and the
-    "fused_tail_keys" one (a third): the same masks survive, the
-    descriptors agree and the answers match. The small models keep every kernel's production
-    widths (SAM head dim 80, prompt dim 256, decoder head dim 16; DINO
-    head dim 64 over 1025 tokens)."""
+    weights and index, with the "shared" decoder (two inputs), the
+    "fused_tail_keys" and the "fused_tail_logits" ones, and the "shared"
+    one with the window kernel: the same masks survive, the descriptors
+    agree and the answers match. The small models keep every kernel's
+    production widths (SAM head dim 80, prompt dim 256, decoder head dim
+    16; DINO head dim 64 over 1025 tokens); with the window kernel both
+    encoder layers (8x8 windows and the 16x16 global grid) take it."""
     import copy
 
     import numpy as np
@@ -730,7 +899,12 @@ def reference_check(dev, seed: int = 7) -> None:
         db_image_ids=np.repeat(np.arange(n_img), per_image),
         num_ref_images=n_img, order=3)
     gpu_sam, gpu_dino = copy.deepcopy(sam).to(dev), copy.deepcopy(dino).to(dev)
-    for q, decode in enumerate(("shared", "shared", "fused_tail_keys")):
+    inputs = (("shared", "plain"), ("shared", "plain"),
+              ("fused_tail_keys", "plain"), ("fused_tail_logits", "plain"),
+              ("shared", "kernel"))
+    for q, (decode, windows) in enumerate(inputs):
+        sam.encoder.window_attention = windows
+        gpu_sam.encoder.window_attention = windows
         kw = dict(index=index, full_hw=(448, 448), sam_hw=(224, 224),
                   amg=AmgConfig(points_per_side=8, points_per_batch=64,
                                 pred_iou_thresh=-1e9,
@@ -747,8 +921,8 @@ def reference_check(dev, seed: int = 7) -> None:
         agree = (pm_c == pm_g).float().mean().item()
         de_abs, de_rel = _rel(de_g, de_c)
         top_c, top_g = cpu_srv.query(img), gpu_srv.query(img)
-        print(f"[reference] small input {q}, {decode} decoder: masks kept "
-              f"card {n_g} / cpu "
+        print(f"[reference] small input {q}, {decode} decoder, {windows} "
+              f"windows: masks kept card {n_g} / cpu "
               f"{n_c}, patch-mask agreement {agree:.6f}, descriptor "
               f"rel_err {de_rel:.3e}, top-5 card {top_g.tolist()} cpu "
               f"{top_c.tolist()}", flush=True)
@@ -785,12 +959,15 @@ def main() -> None:
     served = serve(dev)
 
     # launches: the 3 "shared" queries for the kernels of that form, the
-    # three probability-factored queries for the others
+    # probability-factored queries for theirs, the window-kernel query for
+    # B11; B10 (token_cross_split) has no caller on a serving path
     table = []
     for k in build.KERNELS:
         main_shape = results[k.name][0]
-        launches = served["counts"][k.name] or sum(
-            v["counts"][k.name] for v in served["variants"].values())
+        launches = (served["counts"][k.name]
+                    or sum(v["counts"][k.name]
+                           for v in served["variants"].values())
+                    or served["window"]["counts"][k.name])
         table.append(dict(
             name=k.name, route="cuda", source=k.source, replaces=k.replaces,
             launches=launches,
@@ -800,9 +977,13 @@ def main() -> None:
             bound_by=main_shape["bound_by"],
             library_ms=main_shape["library_ms"], shapes=results[k.name]))
     for name, v in served["variants"].items():
+        agree = ", ".join(f"{ref} {a:.4f}" for ref, a in v["agreement"].items())
         print(f"[variant] {name}: query {v['query_ms']:.1f} ms, decode "
-              f"{v['decode_ms']:.3f} ms, agreement {v['agreement']:.4f}",
-              flush=True)
+              f"{v['decode_ms']:.3f} ms, agreement with {agree}", flush=True)
+    w = served["window"]
+    print(f"[window] encode stage plain windows {w['encode_plain_ms']:.3f} ms,"
+          f" kernel windows {w['encode_kernel_ms']:.3f} ms; agreement "
+          f"{w['agreement']:.4f}", flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

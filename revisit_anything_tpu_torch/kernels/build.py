@@ -47,6 +47,10 @@ SIGNATURES: Dict[str, Sequence] = {
                             _P),
     # q, kvt, pe_kt, v_bias, out, b, n, d, m, heads, kv_shared, stream
     "rat_token_cross_kv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # q, kt, vt, out, b, n, d, m, heads, kv_shared, stream
+    "rat_token_cross": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # qkv, bias_h, bias_w, out, b, n, side, heads, hd, scale, stream
+    "rat_win_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     # img, peq, tok_k, tok_v, w_q, b_q, w_out, b_out, ln_s, ln_b, w_kv,
     # keys, kvt, b, m, img_shared, eps, stream
     "rat_i2t_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -72,6 +76,7 @@ SIGNATURES: Dict[str, Sequence] = {
                             _P, _P, _I, _I, _I, _I, _F, _F, _I, _P),
     # a pointer to one TailParams struct (ops.decode_fused), stream
     "rat_decode_tail": (_P, _P),
+    "rat_decode_tail_logits": (_P, _P),
 }
 
 _lock = threading.Lock()
@@ -207,8 +212,19 @@ DECODE_TAIL = Kernel(
     "decode_tail", "rat_decode_tail", _SRC + "decode_tail.cu",
     "revisit_anything_tpu/ops/decode_fused.py:417")
 
+DECODE_TAIL_LOGITS = Kernel(
+    "decode_tail_logits", "rat_decode_tail_logits", _SRC + "decode_tail.cu",
+    "revisit_anything_tpu/ops/decode_fused.py:417")
+TOKEN_CROSS_SPLIT = Kernel(
+    "token_cross_split", "rat_token_cross", _SRC + "token_cross.cu",
+    "revisit_anything_tpu/ops/attention.py:178")
+WIN_ATTENTION = Kernel(
+    "win_attention", "rat_win_attention", _SRC + "win_attention.cu",
+    "revisit_anything_tpu/ops/winattn.py:90")
+
 KERNELS = (FLASH_ATTENTION, TOKEN_CROSS, I2T_UPDATE, MASK_HEAD, RESIZE_FLAGS,
-           I2T_PROBS, T2I_PROBS, MASK_HEAD_PROBS, DECODE_TAIL)
+           I2T_PROBS, T2I_PROBS, MASK_HEAD_PROBS, DECODE_TAIL,
+           DECODE_TAIL_LOGITS, TOKEN_CROSS_SPLIT, WIN_ATTENTION)
 
 
 def reset_counts() -> None:

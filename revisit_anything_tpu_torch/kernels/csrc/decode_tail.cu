@@ -4,16 +4,19 @@
 // branch rebuilt tile by tile and never stored, except as the emission.
 //
 // Replaces: revisit_anything_tpu/ops/decode_fused.py `_tail_call` /
-// `_tail_kernel` (pallas_call at :417, body :166-341 without the logits
-// branch), reached through `decode_tail_fused` (:429) with emit_keys
-// True (keys mode) or False (probability mode). Per prompt:
+// `_tail_kernel` (pallas_call at :417, body :166-341), reached through
+// `decode_tail_fused` (:429) with emit_keys True (keys mode), False
+// (probability mode) or with `mask_head` (logits mode, entry
+// rat_decode_tail_logits). Per prompt:
 //   P1 = softmax_t(k1 . q1s / 4); keys1 = LN(img0 + P1^T C1 + b1)
 //   q = queries + attn(t2i-2 over keys1); LN; MLP 256 -> 2048 -> 256; LN
 //   k2, v2 = token projections; C2[h*7+t] = v2[t, h] Wout2[h]
 //   P2 = softmax_t(k2 . (keys1 Wq2 + peq2) / 4); keys2 = LN(keys1 + P2^T C2 + b2)
 //   q = LN_final(q + attn(final over keys2))
 // keys mode writes keys2 [M, D] bf16; probability mode writes P1, P2
-// [HT, M] bf16 and C2 [HT, D]; both write the token state [7, D].
+// [HT, M] bf16 and C2 [HT, D]; logits mode writes the mask logits
+// [content, 16, 3] bf16 in the block layout of mask_head.cu; all three
+// write the token state [7, D].
 //
 // What bounds it on the H100: the FMA units. A prompt needs about
 // 1.0 GFLOP (P1 59 MFLOP as the TPU counts it with its block-diagonal
@@ -39,8 +42,30 @@
 // needs K2 Wq2^T and qf Wk^T at once) and the token state; C1 and C2
 // (28 KB a prompt each) are read from L1/L2, the MLP weights (2 x 1 MB
 // bf16) from L2 once per prompt. 183 KB: one CTA an SM, 1024 CTAs.
+//
+// Logits mode: the mask head needs keys2 and the hypernetwork rows, and
+// the latter come from the token state after the FINAL attention, which
+// exists only once pass B has walked all of M; a prompt's keys2 (2 MB
+// bf16) fits no CTA. So pass B stores keys2's first `content` rows,
+// rounded to bf16 exactly where the keys mode rounds its emission (the
+// JAX logits mode rounds there too, decode_fused.py:336), into a scratch
+// slot of the CTA, which no one else reads; after the final LayerNorm the
+// same CTA runs the three hypernetwork MLPs of mask tokens 1..3 on the
+// FMA units, loads K3's conv weights (144 KB) into the shared memory the
+// tail no longer needs and runs mask_head_tile.cuh over the slot, 32
+// positions at a time. CTAs are persistent (one an SM, walking prompts),
+// so the scratch is one slot a CTA (132 x 1.6 MB), not one a prompt; the
+// slot is written and read back within the CTA, through L2 (__ldcg), as
+// a later prompt reuses it. One launch per prompt batch; no keys2 tensor
+// reaches the caller. 198 KB of shared memory (the mask head's layout).
+// This mode adds K3's work (~630 GFLOP of bf16 products at 1024 prompts
+// x 3136 positions, on the tensor cores) to the tail's FMA-bound work.
+// keys2's content rows still go through device memory (the 212 MB of
+// slots exceed the L2): 1.64 GB written and read back at 1024 prompts,
+// against 2.15 GB written and 1.64 GB read by keys mode and K3.
 
 #include "decode_common.cuh"
+#include "mask_head_tile.cuh"
 
 namespace {
 
@@ -56,9 +81,20 @@ struct TailParams {
   const __nv_bfloat16 *wq_fa, *bq_fa, *wk_fa, *wv_fa, *vb_fa, *wout_fa, *bout_fa;
   const __nv_bfloat16 *nf_s, *nf_b, *rows;
   __nv_bfloat16 *keys2, *p1, *p2, *c2m, *qout;
-  int b, m, mlp;
+  // logits mode: the mask head's weights, the three hypernetwork MLPs of
+  // mask tokens 1..3 stacked ([3, D, D], [3, D], [3, D, D], [3, D],
+  // [3, D, C2], [3, C2]), the scratch [ctas, content, D] and the logits
+  // [b, content, 16, 3]
+  const __nv_bfloat16 *up1_w, *up1_b, *ln_s, *ln_b, *up2_w, *up2_b;
+  const __nv_bfloat16 *hw1, *hb1, *hw2, *hb2, *hw3, *hb3;
+  __nv_bfloat16 *scratch, *logits;
+  int b, m, mlp, content, ctas;
   float eps;
 };
+
+constexpr int N_MASKS = 3;          // multimask tokens 1..3
+static_assert(rat_mask::THREADS == THREADS, "the mask head runs on the tail's CTA");
+static_assert(rat_mask::D == D, "the mask head reads the branch");
 
 constexpr int SMEM_Y = BM * LDY * 4;            // branch tile / token scratch
 constexpr int SMEM_Q = HT * D * 4;              // each query-side matrix
@@ -70,6 +106,8 @@ constexpr int SMEM_TOTAL =
     SMEM_Y + 2 * SMEM_Q + SMEM_P + SMEM_V + 2 * SMEM_ROWS + 3 * SMEM_TK;
 static_assert(T * MAX_MLP * 4 <= SMEM_Q, "the MLP hidden rows fit a matrix slot");
 static_assert(3 * T * D + 2 * T * DA <= BM * LDY, "token scratch fits the tile");
+static_assert(SMEM_TOTAL <= rat_mask::OFF_VEC, "the hyper rows survive the tail");
+static_assert(2 * N_MASKS * D * 4 <= SMEM_Q, "the hypernetwork's hidden rows fit a matrix slot");
 
 // P1 of the calling thread's (head, position) into the P tile (and the
 // emission), from k1 (shared) and q1s (global).
@@ -114,8 +152,12 @@ __device__ __forceinline__ void tile_scores(float s[T], const float* sQ, const f
   for (int t = 0; t < T; ++t) s[t] *= scale;
 }
 
-__global__ void __launch_bounds__(THREADS, 1) decode_tail_kernel(const TailParams pr) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// One prompt's tail, up to the token state (written to qout; also left
+// in the returned shared-memory rows [T][D] f32). keys2 rows below
+// `klimit` are stored to `kout` ([klimit, D], bf16) when it is set.
+__device__ __forceinline__ const float* tail_prompt(const TailParams& pr, int b,
+                                                    unsigned char* smem,
+                                                    __nv_bfloat16* kout, int klimit) {
   float* sY = reinterpret_cast<float*>(smem);
   float* sQa = reinterpret_cast<float*>(smem + SMEM_Y);
   float* sQb = reinterpret_cast<float*>(smem + SMEM_Y + SMEM_Q);
@@ -133,10 +175,9 @@ __global__ void __launch_bounds__(THREADS, 1) decode_tail_kernel(const TailParam
   float* xo = xc + T * D;         // [T][DA]
   float* xv = xo + T * DA;        // [T][DA]
 
-  const int b = blockIdx.x;
   const int h = threadIdx.x / 32;
   const int m = pr.m;
-  const bool keys_mode = pr.keys2 != nullptr;
+  const bool probs_mode = pr.p1 != nullptr;
 
   load_f32(sV, pr.rows, 6 * D);
   load_f32(sQin, pr.qin + (size_t)b * T * D, T * D);
@@ -213,7 +254,7 @@ __global__ void __launch_bounds__(THREADS, 1) decode_tail_kernel(const TailParam
   attn_init(st);
   const __nv_bfloat16* c2 = pr.c2m + (size_t)b * HT * D;
   for (int m0 = 0; m0 < m; m0 += BM) {
-    keys1_tile(sY, sP, sK1, sV, pr, b, m0, !keys_mode);
+    keys1_tile(sY, sP, sK1, sV, pr, b, m0, probs_mode);
     {
       float s[T];
       tile_scores(s, sQa, sY, sK2, pr.peq2t, m, m0);
@@ -223,15 +264,16 @@ __global__ void __launch_bounds__(THREADS, 1) decode_tail_kernel(const TailParam
       for (int t = 0; t < T; ++t) {
         const __nv_bfloat16 v = __float2bfloat16(s[t]);
         sP[(h * T + t) * BM + lane] = v;
-        if (!keys_mode) pr.p2[((size_t)b * HT + h * T + t) * m + m0 + lane] = v;
+        if (probs_mode) pr.p2[((size_t)b * HT + h * T + t) * m + m0 + lane] = v;
       }
     }
     __syncthreads();
     recon_layer(sY, LDY, sP, c2, sV + 3 * D, pr.eps);          // keys2
-    if (keys_mode) {
+    if (kout != nullptr && m0 < klimit) {
       for (int i = threadIdx.x; i < BM * D; i += THREADS) {
         const int r = i / D, c = i % D;
-        pr.keys2[((size_t)b * m + m0 + r) * D + c] = __float2bfloat16(sY[r * LDY + c]);
+        if (m0 + r < klimit)
+          kout[(size_t)(m0 + r) * D + c] = __float2bfloat16(sY[r * LDY + c]);
       }
     }
     float s[T];
@@ -253,6 +295,80 @@ __global__ void __launch_bounds__(THREADS, 1) decode_tail_kernel(const TailParam
   __syncthreads();
   for (int i = threadIdx.x; i < T * D; i += THREADS)
     pr.qout[(size_t)b * T * D + i] = __float2bfloat16(xc[i]);
+  return xc;
+}
+
+// One layer of the three hypernetwork MLPs: out[i][n] = bf16(bf16(x[i] .
+// W[i][:, n]) + b[i][n]) for mask token i, relu'd but for the last layer
+// (the JAX `_dense_rows` rounding). x rows have stride ldx, out rows
+// stride N; W [3][K][N], b [3][N] bf16 (global).
+__device__ __forceinline__ void hyper_layer(float* out, const float* x, int ldx, int K,
+                                            const __nv_bfloat16* W, const __nv_bfloat16* bias,
+                                            int N, bool relu) {
+  for (int o = threadIdx.x; o < N_MASKS * N; o += THREADS) {
+    const int i = o / N, n = o % N;
+    const __nv_bfloat16* w = W + (size_t)i * K * N + n;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < K; ++k) acc = fmaf(x[i * ldx + k], __bfloat162float(w[(size_t)k * N]), acc);
+    const float y = bf16_round(bf16_round(acc) + __bfloat162float(bias[i * N + n]));
+    out[o] = relu ? fmaxf(y, 0.f) : y;
+  }
+}
+
+// Keys and probability modes: one CTA a prompt.
+__global__ void __launch_bounds__(THREADS, 1) decode_tail_kernel(const TailParams pr) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int b = blockIdx.x;
+  tail_prompt(pr, b, smem, pr.keys2 ? pr.keys2 + (size_t)b * pr.m * D : nullptr, pr.m);
+}
+
+// Logits mode: persistent CTAs, each walking prompts blockIdx.x,
+// blockIdx.x + gridDim.x, ... with its own scratch slot.
+__global__ void __launch_bounds__(THREADS, 1) decode_tail_logits_kernel(const TailParams pr) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const rat_mask::Smem ms = rat_mask::layout(smem);
+  const int content = pr.content;
+  __nv_bfloat16* slot = pr.scratch + (size_t)blockIdx.x * content * D;
+  for (int b = blockIdx.x; b < pr.b; b += gridDim.x) {
+    __syncthreads();                       // the previous prompt's mask head is done
+    const float* q = tail_prompt(pr, b, smem, slot, content);
+    // hypernetwork rows of mask tokens 1..3 (token rows 2..4: row 0 is
+    // the IoU token, row 1 mask token 0) into the mask head's hyper rows
+    // (past the tail's shared memory); hidden rows in the first
+    // query-side matrix, free after the final attention
+    float* h1 = reinterpret_cast<float*>(smem + SMEM_Y);
+    float* h2 = h1 + N_MASKS * D;
+    __syncthreads();
+    hyper_layer(h1, q + 2 * D, D, D, pr.hw1, pr.hb1, D, true);
+    __syncthreads();
+    hyper_layer(h2, h1, D, D, pr.hw2, pr.hb2, D, true);
+    __syncthreads();
+    hyper_layer(ms.hyp, h2, D, D, pr.hw3, pr.hb3, rat_mask::C2, false);
+    __syncthreads();
+    rat_mask::load_weights(ms, pr.up1_w, pr.up1_b, pr.ln_s, pr.ln_b, pr.up2_w, pr.up2_b);
+    constexpr int VPR = D / 8;
+    for (int p0 = 0; p0 < content; p0 += rat_mask::BLK) {
+      for (int i = threadIdx.x; i < rat_mask::BLK * VPR; i += THREADS) {
+        const int r = i / VPR, c = i % VPR;
+        uint4 val = make_uint4(0u, 0u, 0u, 0u);
+        if (p0 + r < content)
+          val = __ldcg(reinterpret_cast<const uint4*>(slot + (size_t)(p0 + r) * D) + c);
+        reinterpret_cast<uint4*>(ms.x + r * D)[c] = val;
+      }
+      __syncthreads();
+      rat_mask::tile(ms, pr.logits, b, content, p0, N_MASKS, pr.eps);
+    }
+  }
+}
+
+}  // namespace
+
+namespace {
+
+bool tail_ok(const TailParams& pr) {
+  return pr.b >= 1 && pr.m >= BM && pr.m % BM == 0 && pr.mlp >= 1 && pr.mlp <= MAX_MLP &&
+         pr.c2m != nullptr && pr.qout != nullptr;
 }
 
 }  // namespace
@@ -260,13 +376,25 @@ __global__ void __launch_bounds__(THREADS, 1) decode_tail_kernel(const TailParam
 extern "C" int rat_decode_tail(const void* params, void* stream) {
   const TailParams& pr = *static_cast<const TailParams*>(params);
   const bool keys_mode = pr.keys2 != nullptr;
-  if (pr.b < 1 || pr.m < BM || pr.m % BM != 0 || pr.mlp < 1 || pr.mlp > MAX_MLP ||
-      pr.c2m == nullptr || pr.qout == nullptr ||
-      (!keys_mode && (pr.p1 == nullptr || pr.p2 == nullptr)))
+  if (!tail_ok(pr) || keys_mode == (pr.p1 != nullptr) || (pr.p1 == nullptr) != (pr.p2 == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       decode_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_TOTAL);
   if (err != cudaSuccess) return (int)err;
   decode_tail_kernel<<<pr.b, THREADS, SMEM_TOTAL, static_cast<cudaStream_t>(stream)>>>(pr);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rat_decode_tail_logits(const void* params, void* stream) {
+  const TailParams& pr = *static_cast<const TailParams*>(params);
+  if (!tail_ok(pr) || pr.keys2 != nullptr || pr.p1 != nullptr || pr.p2 != nullptr ||
+      pr.scratch == nullptr || pr.logits == nullptr || pr.content < 1 || pr.content > pr.m ||
+      pr.ctas < 1 || pr.ctas > pr.b)
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = SMEM_TOTAL > rat_mask::SMEM_TOTAL ? SMEM_TOTAL : rat_mask::SMEM_TOTAL;
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_tail_logits_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  decode_tail_logits_kernel<<<pr.ctas, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(pr);
   return (int)cudaGetLastError();
 }

@@ -25,7 +25,9 @@
 // tiles of all prompts. Both products use WMMA bf16 fragments with f32
 // accumulation; accumulators pass through a small f32 staging tile where
 // the bf16 rounding points of the JAX kernel are applied (y1 and y2
-// rounded before their bias add, h1/h2 stored as bf16).
+// rounded before their bias add, h1/h2 stored as bf16). The per-tile
+// code lives in mask_head_tile.cuh, shared with the decode tail's logits
+// mode (decode_tail.cu).
 //
 // The same kernel with RECON (entry rat_mask_head_probs) replaces
 // revisit_anything_tpu/ops/maskhead.py `_mask_head_call_probs`
@@ -42,52 +44,17 @@
 // C1 and C2 (28 KB a prompt each) do not fit beside them and are read
 // from L1/L2.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <math.h>
-#include <stdint.h>
-
 #include "decode_common.cuh"
-
-using namespace nvcuda;
+#include "mask_head_tile.cuh"
 
 namespace {
 
-constexpr int D = 256;     // prompt dim (keys channels, conv1 in/out)
-constexpr int C1 = 64;     // conv1 channels per 2x2 block
-constexpr int C2 = 32;     // conv2 channels per 2x2 block
-constexpr int N2 = 4 * C2; // conv2 outputs per conv1 block (128)
-constexpr int BLK = 32;    // positions per tile
-constexpr int THREADS = 256;
-constexpr int MAXM = 4;    // mask tokens
+using namespace rat_mask;
 
-constexpr int SMEM_W1 = D * D * 2;           // 131072
-constexpr int SMEM_W2 = C1 * N2 * 2;         // 16384
-constexpr int SMEM_X = BLK * D * 2;          // 16384
-constexpr int SMEM_H1 = BLK * D * 2;         // 16384
-constexpr int SMEM_Y = BLK * N2 * 4;         // 16384
-constexpr int SMEM_VEC = (3 * C1 + C2 + MAXM * C2) * 4;
-constexpr int SMEM_TOTAL = SMEM_W1 + SMEM_W2 + SMEM_X + SMEM_H1 + SMEM_Y + SMEM_VEC;
 constexpr int SMEM_RP = rat_decode::HT * BLK * 2;   // P tile (recon)
 constexpr int SMEM_RV = 6 * D * 4;                  // branch rows 0-5 (recon)
 constexpr int SMEM_RECON = SMEM_TOTAL + SMEM_RP + SMEM_RV;
-static_assert(SMEM_H1 + SMEM_Y == BLK * D * 4, "the f32 rebuild tile spans h1 and y");
 static_assert(BLK == rat_decode::BM && THREADS == rat_decode::THREADS, "recon tile shape");
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ float gelu(float x) {
-  return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
-}
-
-__device__ __forceinline__ void copy_vec(void* dst, const void* src, int bytes) {
-  const uint4* s = static_cast<const uint4*>(src);
-  uint4* t = static_cast<uint4*>(dst);
-  for (int i = threadIdx.x; i < bytes / 16; i += THREADS) t[i] = s[i];
-}
 
 // RECON: keys is the shared img0 [gg, D]; the per-prompt tile is rebuilt
 // from p1/c1m/p2/c2m [Np, HT, gg | D] and the branch rows [8, D].
@@ -107,31 +74,13 @@ mask_head_kernel(const __nv_bfloat16* __restrict__ keys,   // [Np, gg, D]
                  const __nv_bfloat16* __restrict__ p2, const __nv_bfloat16* __restrict__ c2m,
                  const __nv_bfloat16* __restrict__ rows, float ln_eps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sW1 = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sW2 = reinterpret_cast<__nv_bfloat16*>(smem + SMEM_W1);
-  __nv_bfloat16* sX = reinterpret_cast<__nv_bfloat16*>(smem + SMEM_W1 + SMEM_W2);
-  __nv_bfloat16* sH1 = reinterpret_cast<__nv_bfloat16*>(smem + SMEM_W1 + SMEM_W2 + SMEM_X);
-  float* sY = reinterpret_cast<float*>(smem + SMEM_W1 + SMEM_W2 + SMEM_X + SMEM_H1);
-  float* sB1 = sY + BLK * N2;       // up1_b [C1]
-  float* sLs = sB1 + C1;            // ln scale [C1]
-  float* sLb = sLs + C1;            // ln bias [C1]
-  float* sB2 = sLb + C1;            // up2_b [C2]
-  float* sHyp = sB2 + C2;           // [MAXM][C2]
+  const Smem sm = layout(smem);
   __nv_bfloat16* sRP = reinterpret_cast<__nv_bfloat16*>(smem + SMEM_TOTAL);
   float* sRV = reinterpret_cast<float*>(smem + SMEM_TOTAL + SMEM_RP);
-  float* sR = reinterpret_cast<float*>(sH1);   // f32 rebuild tile [BLK][D]
+  float* sR = reinterpret_cast<float*>(sm.h1);   // f32 rebuild tile [BLK][D]
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-
-  copy_vec(sW1, up1_w, SMEM_W1);
-  copy_vec(sW2, up2_w, SMEM_W2);
-  for (int i = tid; i < C1; i += THREADS) {
-    sB1[i] = __bfloat162float(up1_b[i]);
-    sLs[i] = __bfloat162float(ln_s[i]);
-    sLb[i] = __bfloat162float(ln_b[i]);
-  }
-  for (int i = tid; i < C2; i += THREADS) sB2[i] = __bfloat162float(up2_b[i]);
+  load_weights(sm, up1_w, up1_b, ln_s, ln_b, up2_w, up2_b);
   if (RECON) rat_decode::load_f32(sRV, rows, 6 * D);
 
   const int tiles = (content + BLK - 1) / BLK;
@@ -155,113 +104,20 @@ mask_head_kernel(const __nv_bfloat16* __restrict__ keys,   // [Np, gg, D]
       __syncthreads();
       rat_decode::recon_layer(sR, D, sRP, c2m + off * D, sRV + 3 * D, ln_eps);
       for (int i = tid; i < BLK * D; i += THREADS)
-        sX[i] = __float2bfloat16(i / D < valid ? sR[i] : 0.f);
+        sm.x[i] = __float2bfloat16(i / D < valid ? sR[i] : 0.f);
     } else {
       for (int i = tid; i < BLK * VPR; i += THREADS) {
         const int r = i / VPR, c = i % VPR;
         uint4 val = make_uint4(0u, 0u, 0u, 0u);
         if (p0 + r < content)
           val = reinterpret_cast<const uint4*>(keys + ((size_t)n * gg + p0 + r) * D)[c];
-        reinterpret_cast<uint4*>(sX + r * D)[c] = val;
+        reinterpret_cast<uint4*>(sm.x + r * D)[c] = val;
       }
     }
     for (int i = tid; i < n_masks * C2; i += THREADS)
-      sHyp[i] = __bfloat162float(hyper[(size_t)n * n_masks * C2 + i]);
+      sm.hyp[i] = __bfloat162float(hyper[(size_t)n * n_masks * C2 + i]);
     __syncthreads();
-
-    // conv1 + group LayerNorm + GELU, one 64-channel group at a time.
-    for (int g = 0; g < 4; ++g) {
-      {
-        const int rt = warp / 4, ct = warp % 4;     // 2 x 4 tiles of 16x16
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::fill_fragment(acc, 0.f);
-#pragma unroll 4
-        for (int kk = 0; kk < D; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-          wmma::load_matrix_sync(a, sX + rt * 16 * D + kk, D);
-          wmma::load_matrix_sync(b, sW1 + kk * D + g * C1 + ct * 16, D);
-          wmma::mma_sync(acc, a, b, acc);
-        }
-        wmma::store_matrix_sync(sY + rt * 16 * C1 + ct * 16, acc, C1,
-                                wmma::mem_row_major);
-      }
-      __syncthreads();
-      {
-        // 8 threads per position, 8 channels each.
-        const int pos = tid / 8, sub = tid % 8;
-        float y[8];
-        float s = 0.f;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int c = sub * 8 + e;
-          y[e] = bf16_round(bf16_round(sY[pos * C1 + c]) + sB1[c]);
-          s += y[e];
-        }
-        s += __shfl_xor_sync(0xffffffffu, s, 1);
-        s += __shfl_xor_sync(0xffffffffu, s, 2);
-        s += __shfl_xor_sync(0xffffffffu, s, 4);
-        const float mu = s / C1;
-        float v = 0.f;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v += (y[e] - mu) * (y[e] - mu);
-        v += __shfl_xor_sync(0xffffffffu, v, 1);
-        v += __shfl_xor_sync(0xffffffffu, v, 2);
-        v += __shfl_xor_sync(0xffffffffu, v, 4);
-        const float rs = rsqrtf(v / C1 + eps);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int c = sub * 8 + e;
-          const float yn = (y[e] - mu) * rs * sLs[c] + sLb[c];
-          sH1[pos * D + g * C1 + c] = __float2bfloat16(gelu(yn));
-        }
-      }
-      __syncthreads();
-    }
-
-    // conv2 per 2x2 block q, GELU, hypernetwork.
-    for (int q = 0; q < 4; ++q) {
-      {
-        const int rt = warp / 4, ct0 = (warp % 4) * 2;   // 2 x 8 tiles
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int ct = ct0 + u;
-          wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-          wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-          for (int kk = 0; kk < C1; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-            wmma::load_matrix_sync(a, sH1 + rt * 16 * D + q * C1 + kk, D);
-            wmma::load_matrix_sync(b, sW2 + kk * N2 + ct * 16, N2);
-            wmma::mma_sync(acc, a, b, acc);
-          }
-          wmma::store_matrix_sync(sY + rt * 16 * N2 + ct * 16, acc, N2,
-                                  wmma::mem_row_major);
-        }
-      }
-      __syncthreads();
-      for (int i = tid; i < BLK * N2; i += THREADS) {
-        const int c = i % C2;
-        const float y = bf16_round(bf16_round(sY[i]) + sB2[c]);
-        sY[i] = bf16_round(gelu(y));
-      }
-      __syncthreads();
-      for (int o = tid; o < BLK * 4 * n_masks; o += THREADS) {
-        const int pos = o / (4 * n_masks);
-        const int rem = o % (4 * n_masks);
-        const int r = rem / n_masks, m = rem % n_masks;
-        if (p0 + pos >= content) continue;
-        const float* hrow = sY + pos * N2 + r * C2;
-        const float* wrow = sHyp + m * C2;
-        float acc = 0.f;
-#pragma unroll
-        for (int c = 0; c < C2; ++c) acc = fmaf(hrow[c], wrow[c], acc);
-        out[(((size_t)n * content + p0 + pos) * 16 + q * 4 + r) * n_masks + m] =
-            __float2bfloat16(acc);
-      }
-      __syncthreads();
-    }
+    tile(sm, out, n, content, p0, n_masks, eps);
   }
 }
 

@@ -8,6 +8,13 @@
 //   out[b, :, h·hd:(h+1)·hd] = softmax(q_h·k / sqrt(hd)) · vᵀ
 // with 7 token queries over M = 4096 image keys (hd = 16, 8 heads).
 //
+// The same device code without pe and v bias, on separate transposed k
+// and v (entry rat_token_cross), replaces revisit_anything_tpu/ops/
+// attention.py `_token_cross` / `_token_attn_kernel` (pallas_call at
+// :178), reached through `token_cross_attend` (:200): k = kt[b, h rows],
+// v = vt[b, h rows], nothing added. It reads the same bytes a key as the
+// k|v form and is bound the same way.
+//
 // What bounds it on the H100: device-memory bytes. Each (prompt, head)
 // reads 2·hd·M bf16 of k|v (256 KB) for ~0.9 MFLOP: per-prompt k|v at
 // 1024 prompts is 2 GB a call, about 0.7 ms at 3.35 TB/s; the layer-1
@@ -49,14 +56,18 @@ __device__ __forceinline__ void merge(float& m, float& l, float* acc,
   m = m_new;
 }
 
-template <int HD, int NQ>
+// PE: k and v arrive as the halves of one projection with pe and the v
+// bias added here; otherwise as separate tensors, used as they are.
+template <int HD, int NQ, bool PE>
 __global__ void __launch_bounds__(THREADS)
 token_cross_kernel(const __nv_bfloat16* __restrict__ q,    // [B, NQ, D]
-                   const __nv_bfloat16* __restrict__ kvt,  // [B or 1, 2D, M]
-                   const __nv_bfloat16* __restrict__ pe,   // [D, M]
-                   const __nv_bfloat16* __restrict__ vb,   // [D]
+                   const __nv_bfloat16* __restrict__ kt,   // prompt 0's [D, M] keys
+                   const __nv_bfloat16* __restrict__ vt,   // prompt 0's [D, M] values
+                   size_t kv_stride,                       // elements a prompt; 0 = shared
+                   const __nv_bfloat16* __restrict__ pe,   // [D, M] (PE only)
+                   const __nv_bfloat16* __restrict__ vb,   // [D] (PE only)
                    __nv_bfloat16* __restrict__ out,        // [B, NQ, D]
-                   int d, int m, int kv_shared, float scale) {
+                   int d, int m, float scale) {
   __shared__ float sq[NQ][HD];
   __shared__ float sm[WARPS][NQ];
   __shared__ float sl[WARPS][NQ];
@@ -72,13 +83,12 @@ token_cross_kernel(const __nv_bfloat16* __restrict__ q,    // [B, NQ, D]
         __bfloat162float(q[((size_t)b * NQ + i / HD) * d + h * HD + i % HD]);
   __syncthreads();
 
-  const __nv_bfloat16* kb =
-      kvt + (kv_shared ? (size_t)0 : (size_t)b * 2 * d * m) + (size_t)h * HD * m;
-  const __nv_bfloat16* vbp = kb + (size_t)d * m;
-  const __nv_bfloat16* pb = pe + (size_t)h * HD * m;
+  const __nv_bfloat16* kb = kt + b * kv_stride + (size_t)h * HD * m;
+  const __nv_bfloat16* vbp = vt + b * kv_stride + (size_t)h * HD * m;
+  const __nv_bfloat16* pb = PE ? pe + (size_t)h * HD * m : nullptr;
   float vbias[HD];
 #pragma unroll
-  for (int j = 0; j < HD; ++j) vbias[j] = __bfloat162float(vb[h * HD + j]);
+  for (int j = 0; j < HD; ++j) vbias[j] = PE ? __bfloat162float(vb[h * HD + j]) : 0.f;
 
   float mrun[NQ], lrun[NQ], acc[NQ][HD];
 #pragma unroll
@@ -93,8 +103,9 @@ token_cross_kernel(const __nv_bfloat16* __restrict__ q,    // [B, NQ, D]
     float kf[HD];
 #pragma unroll
     for (int j = 0; j < HD; ++j)
-      kf[j] = bf16_round(__bfloat162float(kb[(size_t)j * m + key]) +
-                         __bfloat162float(pb[(size_t)j * m + key]));
+      kf[j] = PE ? bf16_round(__bfloat162float(kb[(size_t)j * m + key]) +
+                              __bfloat162float(pb[(size_t)j * m + key]))
+                 : __bfloat162float(kb[(size_t)j * m + key]);
     float p[NQ];
 #pragma unroll
     for (int i = 0; i < NQ; ++i) {
@@ -112,7 +123,8 @@ token_cross_kernel(const __nv_bfloat16* __restrict__ q,    // [B, NQ, D]
     }
 #pragma unroll
     for (int j = 0; j < HD; ++j) {
-      const float vf = bf16_round(__bfloat162float(vbp[(size_t)j * m + key]) + vbias[j]);
+      const float vf = PE ? bf16_round(__bfloat162float(vbp[(size_t)j * m + key]) + vbias[j])
+                          : __bfloat162float(vbp[(size_t)j * m + key]);
 #pragma unroll
       for (int i = 0; i < NQ; ++i) acc[i][j] = fmaf(p[i], vf, acc[i][j]);
     }
@@ -158,16 +170,26 @@ token_cross_kernel(const __nv_bfloat16* __restrict__ q,    // [B, NQ, D]
   }
 }
 
-template <int HD, int NQ>
-int launch(const void* q, const void* kvt, const void* pe, const void* vb,
-           void* out, int b, int d, int m, int heads, int kv_shared,
-           cudaStream_t stream) {
+template <int HD, int NQ, bool PE>
+int launch(const void* q, const void* kt, const void* vt, size_t kv_stride, const void* pe,
+           const void* vb, void* out, int b, int d, int m, int heads, cudaStream_t stream) {
   dim3 grid(b, heads);
-  token_cross_kernel<HD, NQ><<<grid, THREADS, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kvt),
-      static_cast<const __nv_bfloat16*>(pe), static_cast<const __nv_bfloat16*>(vb),
-      static_cast<__nv_bfloat16*>(out), d, m, kv_shared, 1.f / sqrtf((float)HD));
+  token_cross_kernel<HD, NQ, PE><<<grid, THREADS, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kt),
+      static_cast<const __nv_bfloat16*>(vt), kv_stride, static_cast<const __nv_bfloat16*>(pe),
+      static_cast<const __nv_bfloat16*>(vb), static_cast<__nv_bfloat16*>(out), d, m,
+      1.f / sqrtf((float)HD));
   return (int)cudaGetLastError();
+}
+
+template <bool PE>
+int dispatch(const void* q, const void* kt, const void* vt, size_t kv_stride, const void* pe,
+             const void* vb, void* out, int b, int n, int d, int m, int heads,
+             cudaStream_t s) {
+  if (heads <= 0 || d % heads != 0 || d / heads != 16) return (int)cudaErrorInvalidValue;
+  if (n == 7) return launch<16, 7, PE>(q, kt, vt, kv_stride, pe, vb, out, b, d, m, heads, s);
+  if (n == 8) return launch<16, 8, PE>(q, kt, vt, kv_stride, pe, vb, out, b, d, m, heads, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -175,10 +197,14 @@ int launch(const void* q, const void* kvt, const void* pe, const void* vb,
 extern "C" int rat_token_cross_kv(const void* q, const void* kvt, const void* pe,
                                   const void* vb, void* out, int b, int n, int d,
                                   int m, int heads, int kv_shared, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (heads <= 0 || d % heads != 0) return (int)cudaErrorInvalidValue;
-  const int hd = d / heads;
-  if (hd == 16 && n == 7) return launch<16, 7>(q, kvt, pe, vb, out, b, d, m, heads, kv_shared, s);
-  if (hd == 16 && n == 8) return launch<16, 8>(q, kvt, pe, vb, out, b, d, m, heads, kv_shared, s);
-  return (int)cudaErrorInvalidValue;
+  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(kvt);
+  return dispatch<true>(q, k, k + (size_t)d * m, kv_shared ? 0 : (size_t)2 * d * m, pe, vb,
+                        out, b, n, d, m, heads, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int rat_token_cross(const void* q, const void* kt, const void* vt, void* out,
+                               int b, int n, int d, int m, int heads, int kv_shared,
+                               void* stream) {
+  return dispatch<false>(q, kt, vt, kv_shared ? 0 : (size_t)d * m, nullptr, nullptr, out, b,
+                         n, d, m, heads, static_cast<cudaStream_t>(stream));
 }

@@ -38,7 +38,8 @@ class AmgConfig:
     box_nms_thresh: float = 0.7
     # two-way decoder form, one of decoder.DECODES: "shared" (K5), or the
     # probability-factored "probs_split", "fused_tail_probs",
-    # "fused_tail_keys" (the JAX package's TPU default)
+    # "fused_tail_keys" (the JAX package's TPU default),
+    # "fused_tail_logits" (the mask head inside the decode tail)
     decode: str = "shared"
 
     def __post_init__(self):

@@ -6,7 +6,7 @@ Counterpart of ``revisit_anything_tpu/models/sam/decoder.py``
 ``decode_masks`` (:636) with ``dense_shared=True, block_layout=True,
 mask_rows=gh``. ``decode`` picks the form, as the JAX package's
 ``probs_path`` argument and its trace-time flags ``_FUSED_TAIL`` /
-``_TAIL_KEYS`` (:147-213) do:
+``_TAIL_KEYS`` / ``_TAIL_LOGITS`` (:147-213) do:
 
 - ``"shared"`` (default) follows ``_run_two_way_shared`` (:260-355): the
   three token→image attentions through kernel K2
@@ -14,17 +14,20 @@ mask_rows=gh``. ``decode`` picks the form, as the JAX package's
   [B, 2D, M] layout; the two image→token updates through kernel K5
   (``ops.attention.i2t_update``), which also emits the next attention's
   k|v; the mask head through kernel K3 (``ops.maskhead.fused_mask_head``).
-- ``"probs_split"``, ``"fused_tail_probs"``, ``"fused_tail_keys"`` follow
-  ``_run_two_way_probs`` (:358-519): the per-prompt branch exists only as
-  the image→token probabilities P and the products C
-  (``ops.decode_probs``). Layer 1's token→image attention runs through
-  K2 on the shared branch. Then ``"probs_split"`` runs kernels B7 ×2
-  (``i2t_probs``) and B8 ×2 (``t2i_from_probs``) with the token side in
-  torch; the two ``fused_tail_*`` forms run the whole rest of the
-  transformer in kernel B3 (``ops.decode_fused.decode_tail_fused``),
-  which emits either keys2 for K3 (``"fused_tail_keys"``, the JAX
-  package's TPU default) or P1, P2 and C2 for kernel B6
-  (``ops.maskhead.fused_mask_head_probs``, also after ``"probs_split"``).
+- ``"probs_split"``, ``"fused_tail_probs"``, ``"fused_tail_keys"``,
+  ``"fused_tail_logits"`` follow ``_run_two_way_probs`` (:358-519): the
+  per-prompt branch exists only as the image→token probabilities P and
+  the products C (``ops.decode_probs``). Layer 1's token→image attention
+  runs through K2 on the shared branch. Then ``"probs_split"`` runs
+  kernels B7 ×2 (``i2t_probs``) and B8 ×2 (``t2i_from_probs``) with the
+  token side in torch; the three ``fused_tail_*`` forms run the whole
+  rest of the transformer in kernel B3
+  (``ops.decode_fused.decode_tail_fused``), which emits keys2 for K3
+  (``"fused_tail_keys"``, the JAX package's TPU default), or P1, P2 and
+  C2 for kernel B6 (``ops.maskhead.fused_mask_head_probs``, also after
+  ``"probs_split"``), or runs the mask head and the hypernetwork itself
+  and emits the mask logits (``"fused_tail_logits"``, :438-446 and
+  :724-728), leaving only the IoU head.
 
 Output tokens are selected before the mask product (:730-737).
 """
@@ -46,9 +49,12 @@ from revisit_anything_tpu_torch.ops.decode_fused import (branch_rows,
 from revisit_anything_tpu_torch.ops.decode_probs import (c_matrix, i2t_probs,
                                                          t2i_from_probs)
 from revisit_anything_tpu_torch.ops.maskhead import (fused_mask_head,
-                                                     fused_mask_head_probs)
+                                                     fused_mask_head_probs,
+                                                     hypernetwork,
+                                                     mask_head_weights)
 
-DECODES = ("shared", "probs_split", "fused_tail_probs", "fused_tail_keys")
+DECODES = ("shared", "probs_split", "fused_tail_probs", "fused_tail_keys",
+           "fused_tail_logits")
 
 
 class Attention(nn.Module):
@@ -190,13 +196,15 @@ def _t_proj(lin, x: torch.Tensor) -> torch.Tensor:
 
 
 def run_two_way_probs(dec: MaskDecoder, tokens, shared_src, src_pe_one,
-                      cfg: SamArchConfig, decode: str):
+                      cfg: SamArchConfig, decode: str, content: int):
     """Probability-factored two-way transformer for prompts that share
     one image branch input (``_run_two_way_probs``).
 
-    Returns (queries, pstate, keys): pstate = (p1, c1m, p2, c2m, branch
-    rows) for the probability-consuming mask head, or keys [B, M, D]
-    (``"fused_tail_keys"``); the other is None."""
+    Returns (queries, pstate, keys, logits), one of the last three set:
+    pstate = (p1, c1m, p2, c2m, branch rows) for the
+    probability-consuming mask head, keys [B, M, D]
+    (``"fused_tail_keys"``), or the mask logits of the first ``content``
+    positions [B, content, 16, 3] (``"fused_tail_logits"``)."""
     nh = cfg.decoder_heads
     eps = cfg.eps
     l1, l2 = dec.layers[0], dec.layers[1]
@@ -225,11 +233,15 @@ def run_two_way_probs(dec: MaskDecoder, tokens, shared_src, src_pe_one,
     if decode != "probs_split":
         out = decode_tail_fused(dec, shared_src, q1st, peq2t, pek2t, pekft,
                                 tok_k1, c1m, queries, tokens, nh, eps,
-                                emit_keys=decode == "fused_tail_keys")
+                                emit_keys=decode == "fused_tail_keys",
+                                mask_head=decode == "fused_tail_logits",
+                                content=content)
         if decode == "fused_tail_keys":
-            return out[0], None, out[1]
+            return out[0], None, out[1], None
+        if decode == "fused_tail_logits":
+            return out[0], None, None, out[1]
         queries, p1, p2, c2m = out
-        return queries, (p1, c1m, p2, c2m, rows), None
+        return queries, (p1, c1m, p2, c2m, rows), None, None
 
     p1 = i2t_probs(q1st, tok_k1, nh, layer=1, eps=eps)      # [B, HT, M]
 
@@ -249,7 +261,7 @@ def run_two_way_probs(dec: MaskDecoder, tokens, shared_src, src_pe_one,
     attn = t2i_from_probs(fa.q(queries + tokens), shared_src, p1, c1m, p2,
                           c2m, fa.k.w, fa.v.w, pekft, rows, fa.v.b, nh, eps)
     queries = dec.norm_final(queries + fa.out(attn), eps)
-    return queries, (p1, c1m, p2, c2m, rows), None
+    return queries, (p1, c1m, p2, c2m, rows), None, None
 
 
 def decode_masks(dec: MaskDecoder, cfg: SamArchConfig,
@@ -278,25 +290,22 @@ def decode_masks(dec: MaskDecoder, cfg: SamArchConfig,
     shared_src = (image_embedding[None] + dense_prompts[:1]).reshape(
         1, g * g, d)
     src_pe_one = image_pe.reshape(1, g * g, d).to(shared_src.dtype)
-    pstate = None
+    pstate = masks = None
     if decode == "shared":
         queries, keys = run_two_way_shared(dec, tokens, shared_src,
                                            src_pe_one, cfg)
     else:
-        queries, pstate, keys = run_two_way_probs(dec, tokens, shared_src,
-                                                  src_pe_one, cfg, decode)
-    iou_token_out = queries[:, 0]
-    mask_tokens_out = queries[:, 1:1 + cfg.num_mask_tokens]
-    hyper = torch.stack([mlp(mask_tokens_out[:, i], dec.hyper_mlps[i])
-                         for i in range(1, cfg.num_mask_tokens)], dim=1)
-    head = (dec.up1_w, dec.up1_b, dec.up_ln.scale, dec.up_ln.bias, dec.up2_w,
-            dec.up2_b)
-    if pstate is None:
-        masks = fused_mask_head(keys, hyper, *head, eps=cfg.eps,
-                                content=content)
-    else:
-        masks = fused_mask_head_probs(shared_src, *pstate, hyper, *head,
-                                      eps=cfg.eps, ln_eps=cfg.eps,
-                                      content=content)
-    iou_pred = mlp(iou_token_out, dec.iou_head)
+        queries, pstate, keys, masks = run_two_way_probs(
+            dec, tokens, shared_src, src_pe_one, cfg, decode, content)
+    if masks is None:
+        hyper = hypernetwork(dec, queries)
+        head = mask_head_weights(dec)
+        if pstate is None:
+            masks = fused_mask_head(keys, hyper, *head, eps=cfg.eps,
+                                    content=content)
+        else:
+            masks = fused_mask_head_probs(shared_src, *pstate, hyper, *head,
+                                          eps=cfg.eps, ln_eps=cfg.eps,
+                                          content=content)
+    iou_pred = mlp(queries[:, 0], dec.iou_head)
     return masks, iou_pred[:, 1:]

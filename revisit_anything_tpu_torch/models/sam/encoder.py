@@ -4,9 +4,14 @@ relative-position bias, NHWC throughout.
 Counterpart of ``revisit_anything_tpu/models/sam/encoder.py``
 (``encode_image`` :243, ``_attention`` :109, ``_rel_pos_gather`` :64,
 windows :200-216, neck :268-278). Global layers go through kernel K1
-(``ops.attention.attend``) with the q-projected bias components; windowed
-layers (N = 196) stay plain torch, as the JAX package keeps them on XLA.
-The patch embed is a reshape and one matmul.
+(``ops.attention.attend``) with the q-projected bias components. The
+windowed layers (N = 196) take one of two forms, picked by the
+encoder's ``window_attention``: ``"plain"`` (the default, as the JAX
+package's ``_WINATTN`` is off) keeps them in plain torch with bf16
+scores, as the JAX package keeps them on XLA; ``"kernel"`` sends every
+square layer below 1024 tokens through kernel B11
+(``ops.winattn.windowed_attend``), as ``_WINATTN = "on"`` does
+(encoder.py:120-136). The patch embed is a reshape and one matmul.
 """
 
 from __future__ import annotations
@@ -19,6 +24,12 @@ from torch import nn
 from revisit_anything_tpu_torch.models.layers import Dense, LayerNorm, param
 from revisit_anything_tpu_torch.models.sam.config import SamArchConfig
 from revisit_anything_tpu_torch.ops.attention import attend
+from revisit_anything_tpu_torch.ops.winattn import windowed_attend
+
+WINDOW_ATTENTIONS = ("plain", "kernel")
+# layers below this many tokens (square) take B11 in the "kernel" form:
+# every windowed layer, and global layers of small encoders
+_WINDOW_KERNEL_MAX_TOKENS = 1024
 
 
 def _linear_interp_matrix(out_size: int, in_size: int) -> np.ndarray:
@@ -79,12 +90,27 @@ class Neck(nn.Module):
 
 
 def _attention(x: torch.Tensor, blk: EncoderBlock, cfg: SamArchConfig,
-               global_layer: bool) -> torch.Tensor:
+               global_layer: bool, window_kernel: bool) -> torch.Tensor:
     """Attention over NHWC tokens with decomposed rel-pos bias
     (image_encoder.py:185-240, :292-361)."""
     b, h, w, d = x.shape
     nh, hd = cfg.encoder_heads, cfg.head_dim
     qkv = blk.qkv(x.reshape(b, h * w, d))
+
+    if window_kernel and h == w and h * w < _WINDOW_KERNEL_MAX_TOKENS:
+        # B11 on the raw qkv and the q-projected bias components in
+        # head-major channels [b, N, nh·side], f32 accumulate
+        rh = rel_pos_gather(blk.rel_pos_h, h, h)
+        rw = rel_pos_gather(blk.rel_pos_w, w, w)
+        qg = qkv[..., :d].reshape(b, h, w, nh, hd).float()
+        bias_h = torch.einsum("bhwnd,hkd->bhwnk", qg,
+                              rh.to(qkv.dtype).float()).to(x.dtype)
+        bias_w = torch.einsum("bhwnd,wkd->bhwnk", qg,
+                              rw.to(qkv.dtype).float()).to(x.dtype)
+        out = windowed_attend(qkv, bias_h.reshape(b, h * w, nh * h),
+                              bias_w.reshape(b, h * w, nh * w), nh, side=h)
+        return blk.proj(out).reshape(b, h, w, d)
+
     q = qkv[..., :d].reshape(b, h * w, nh, hd)
     k = qkv[..., d:2 * d].reshape(b, h * w, nh, hd)
     v = qkv[..., 2 * d:].reshape(b, h * w, nh, hd)
@@ -139,12 +165,16 @@ def _window_unpartition(wins: torch.Tensor, ws: int, pad_hw, hw):
 
 
 class ImageEncoder(nn.Module):
-    """ImageEncoderViT + neck; ``forward`` is the JAX ``encode_image``."""
+    """ImageEncoderViT + neck; ``forward`` is the JAX ``encode_image``.
+
+    ``window_attention`` (an attribute, so one set of weights serves both
+    ways) is one of ``WINDOW_ATTENTIONS`` (module docstring)."""
 
     def __init__(self, cfg: SamArchConfig, *, dtype=torch.float32,
-                 device="cuda"):
+                 device="cuda", window_attention: str = "plain"):
         super().__init__()
         self.cfg = cfg
+        self.window_attention = window_attention
         d = cfg.encoder_dim
         kw = dict(dtype=dtype, device=device)
         self.patch_embed = Dense(cfg.patch_size * cfg.patch_size * 3, d, **kw)
@@ -160,12 +190,13 @@ class ImageEncoder(nn.Module):
         blk = self.blocks[i]
         shortcut = x
         x = blk.norm1(x, cfg.eps)
+        kernel = self.window_attention == "kernel"
         if i in cfg.global_attn_indexes:
-            x = _attention(x, blk, cfg, global_layer=True)
+            x = _attention(x, blk, cfg, True, kernel)
         else:
             hw = (x.shape[1], x.shape[2])
             x, pad_hw = _window_partition(x, cfg.window_size)
-            x = _attention(x, blk, cfg, global_layer=False)
+            x = _attention(x, blk, cfg, False, kernel)
             x = _window_unpartition(x, cfg.window_size, pad_hw, hw)
         x = shortcut + x
         y = blk.norm2(x, cfg.eps)
@@ -173,6 +204,9 @@ class ImageEncoder(nn.Module):
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """images [B, S, S, 3] (pixel-normalized) → [B, g, g, prompt_dim]."""
+        if self.window_attention not in WINDOW_ATTENTIONS:
+            raise ValueError(f"window_attention {self.window_attention!r} "
+                             f"is not one of {WINDOW_ATTENTIONS}")
         cfg = self.cfg
         images = images.to(self.patch_embed.w.dtype)
         b, hh, ww, _ = images.shape

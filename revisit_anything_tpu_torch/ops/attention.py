@@ -1,9 +1,10 @@
 """Attention kernels K1 (flash attention), K2 (token→image cross
-attention) and K5 (fused image→token update), each beside its plain
-PyTorch version.
+attention), B10 (the same without pe and v bias, on separate kᵀ and vᵀ)
+and K5 (fused image→token update), each beside its plain PyTorch version.
 
 Counterpart of ``revisit_anything_tpu/ops/attention.py`` (``attend``
-:561, ``token_cross_attend_kv`` :467, ``i2t_update`` :489). A wrapper
+:561, ``token_cross_attend_kv`` :467, ``token_cross_attend`` :200,
+``i2t_update`` :489). A wrapper
 takes the plain version only for CPU tensors; for CUDA tensors it
 launches the kernel or raises.
 """
@@ -17,6 +18,7 @@ import torch
 
 from revisit_anything_tpu_torch.kernels.build import (FLASH_ATTENTION,
                                                       I2T_UPDATE, TOKEN_CROSS,
+                                                      TOKEN_CROSS_SPLIT,
                                                       operand)
 
 
@@ -72,26 +74,62 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def token_cross_attend_kv_reference(q: torch.Tensor, kvt: torch.Tensor,
-                                    pe_kt: torch.Tensor,
-                                    v_bias: torch.Tensor,
-                                    heads: int) -> torch.Tensor:
-    """Plain version of :func:`token_cross_attend_kv`: k = kvt[:, :D] +
-    pe_kt and v = kvt[:, D:] + v_bias in kvt's dtype, per-head f32
-    softmax, probabilities rounded to kvt's dtype."""
+def token_cross_attend_reference(q: torch.Tensor, kt: torch.Tensor,
+                                 vt: torch.Tensor,
+                                 heads: int) -> torch.Tensor:
+    """Plain version of :func:`token_cross_attend`: per-head f32 softmax,
+    probabilities rounded to vt's dtype."""
     b, n, d = q.shape
     hd = d // heads
-    dtype = kvt.dtype
-    kt = kvt[:, :d] + pe_kt.reshape(1, d, -1).to(dtype)
-    vt = kvt[:, d:] + v_bias.to(dtype)[:, None]
     m = kt.shape[-1]
     qh = q.reshape(b, n, heads, hd).permute(0, 2, 1, 3).float()
     kh = kt.reshape(kt.shape[0], heads, hd, m).float()
     vh = vt.reshape(vt.shape[0], heads, hd, m).float()
     s = torch.matmul(qh, kh) / math.sqrt(hd)             # [B, H, n, M]
-    p = torch.softmax(s, dim=-1).to(dtype).float()
+    p = torch.softmax(s, dim=-1).to(vt.dtype).float()
     out = torch.matmul(p, vh.transpose(-1, -2))          # [B, H, n, hd]
     return out.permute(0, 2, 1, 3).reshape(b, n, d).to(q.dtype)
+
+
+def token_cross_attend(q: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
+                       heads: int) -> torch.Tensor:
+    """Few token queries q [B, n, D] over M image keys, with the projected
+    keys and values transposed: kt, vt [B or 1, D, M] (leading dim 1 =
+    shared by every prompt). Returns [B, n, D].
+
+    CUDA: kernel B10 (bf16, head dim 16, n 7 or 8). CPU:
+    :func:`token_cross_attend_reference`."""
+    if not q.is_cuda:
+        return token_cross_attend_reference(q, kt, vt, heads)
+    b, n, d = q.shape
+    lead, _, m = kt.shape
+    if d % heads or d // heads != 16 or n not in (7, 8):
+        raise ValueError(f"token cross attention: (n={n}, d={d}, "
+                         f"heads={heads}) not built (head dim 16, n 7|8)")
+    if lead not in (1, b):
+        raise ValueError(f"kt leading dim {lead} is neither 1 nor {b}")
+    qf = operand("q", q, torch.bfloat16, (b, n, d))
+    kf = operand("kt", kt, torch.bfloat16, (lead, d, m))
+    vf = operand("vt", vt, torch.bfloat16, (lead, d, m))
+    out = torch.empty_like(qf)
+    TOKEN_CROSS_SPLIT.launch(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
+                             out.data_ptr(), b, n, d, m, heads,
+                             int(lead == 1))
+    return out
+
+
+def token_cross_attend_kv_reference(q: torch.Tensor, kvt: torch.Tensor,
+                                    pe_kt: torch.Tensor,
+                                    v_bias: torch.Tensor,
+                                    heads: int) -> torch.Tensor:
+    """Plain version of :func:`token_cross_attend_kv`: k = kvt[:, :D] +
+    pe_kt and v = kvt[:, D:] + v_bias in kvt's dtype, then
+    :func:`token_cross_attend_reference`."""
+    d = q.shape[2]
+    dtype = kvt.dtype
+    kt = kvt[:, :d] + pe_kt.reshape(1, d, -1).to(dtype)
+    vt = kvt[:, d:] + v_bias.to(dtype)[:, None]
+    return token_cross_attend_reference(q, kt, vt, heads)
 
 
 def token_cross_attend_kv(q: torch.Tensor, kvt: torch.Tensor,

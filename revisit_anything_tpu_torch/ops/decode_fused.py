@@ -1,9 +1,8 @@
 """The fused SAM decode tail: kernel B3 beside its plain version.
 
 Counterpart of ``revisit_anything_tpu/ops/decode_fused.py``
-``decode_tail_fused`` (:429; kernel body ``_tail_kernel`` :166-341
-without its logits-emission branch). Per prompt, after the layer-1
-token side:
+``decode_tail_fused`` (:429; kernel body ``_tail_kernel`` :166-341).
+Per prompt, after the layer-1 token side:
 
     P1 = softmax_T(k1·q1s)                    layer-1 i2t probabilities
     keys1 = LN(img0 + P1ᵀ C1 + b1)            (f32)
@@ -13,20 +12,26 @@ token side:
     keys2 = LN(keys1 + P2ᵀ C2 + b2)
     final t2i over keys2, out-proj, final LN
 
-It emits either keys2 [B, M, D] in the activation dtype (keys mode, for
-the plain mask head ``ops.maskhead.fused_mask_head``) or P1, P2
-[B, H·T, M] bf16 and C2 [B, H·T, D] (probability mode, for
-``ops.maskhead.fused_mask_head_probs``), and the token state after the
-final LayerNorm. Layouts as in ``ops.decode_probs``.
+It emits keys2 [B, M, D] in the activation dtype (keys mode, for the
+plain mask head ``ops.maskhead.fused_mask_head``), or P1, P2 [B, H·T, M]
+bf16 and C2 [B, H·T, D] (probability mode, for
+``ops.maskhead.fused_mask_head_probs``), or runs the decoder's mask head
+and the hypernetwork of the multimask tokens itself on keys2 rounded to
+the activation dtype and emits the mask logits [B, content, 16, 3]
+(logits mode, kernel B3's ``mask_head`` form); always also the token
+state after the final LayerNorm. Layouts as in ``ops.decode_probs``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
-from revisit_anything_tpu_torch.kernels.build import DECODE_TAIL, operand
+from revisit_anything_tpu_torch.kernels.build import (DECODE_TAIL,
+                                                      DECODE_TAIL_LOGITS,
+                                                      operand)
 from revisit_anything_tpu_torch.ops.decode_probs import (KERNEL_DIMS,
                                                          branch_attend,
                                                          branch_probs,
@@ -34,6 +39,9 @@ from revisit_anything_tpu_torch.ops.decode_probs import (KERNEL_DIMS,
                                                          i2t_probs_reference,
                                                          recon_branch,
                                                          recon_step)
+from revisit_anything_tpu_torch.ops.maskhead import (MULTIMASK_TOKENS,
+                                                     decoder_mask_head,
+                                                     mask_head_weights)
 
 
 def branch_rows(dec, dtype: torch.dtype) -> torch.Tensor:
@@ -49,9 +57,12 @@ def branch_rows(dec, dtype: torch.dtype) -> torch.Tensor:
 
 def decode_tail_reference(dec, img0, q1st, peq2t, pek2t, pekft, tok_k1, c1m,
                           queries_b, tokens, heads: int, eps: float = 1e-6,
-                          emit_keys: bool = False):
+                          emit_keys: bool = False, mask_head: bool = False,
+                          content: Optional[int] = None):
     """Plain version of :func:`decode_tail_fused`: the same steps through
-    the port's modules and the plain helpers of ``ops.decode_probs``."""
+    the port's modules and the plain helpers of ``ops.decode_probs``; the
+    logits mode is the keys mode followed by the plain mask head
+    (``ops.maskhead.decoder_mask_head``)."""
     l2, fa = dec.layers[1], dec.final_attn
     rows = branch_rows(dec, queries_b.dtype)
     p1 = i2t_probs_reference(q1st, tok_k1, heads)
@@ -68,6 +79,8 @@ def decode_tail_reference(dec, img0, q1st, peq2t, pek2t, pekft, tok_k1, c1m,
     attn = branch_attend(fa.q(queries + tokens), keys2, fa.k.w, fa.v.w,
                          pekft, fa.v.b, heads)
     queries = dec.norm_final(queries + fa.out(attn), eps)
+    if mask_head:
+        return queries, decoder_mask_head(dec, keys2, queries, eps, content)
     if emit_keys:
         return queries, keys2.to(queries_b.dtype)
     return queries, p1, p2, c2m
@@ -80,13 +93,39 @@ _TAIL_POINTERS = (
     "n2_s", "n2_b", "lin1_w", "lin1_b", "lin2_w", "lin2_b", "n3_s", "n3_b",
     "wq_i2", "wk_i2", "bk_i2", "wv_i2", "bv_i2", "wout_i2",
     "wq_fa", "bq_fa", "wk_fa", "wv_fa", "vb_fa", "wout_fa", "bout_fa",
-    "nf_s", "nf_b", "rows", "keys2", "p1", "p2", "c2m", "qout")
+    "nf_s", "nf_b", "rows", "keys2", "p1", "p2", "c2m", "qout",
+    "up1_w", "up1_b", "ln_s", "ln_b", "up2_w", "up2_b",
+    "hw1", "hb1", "hw2", "hb2", "hw3", "hb3", "scratch", "logits")
 
 
 class TailParams(ctypes.Structure):
     _fields_ = ([(name, ctypes.c_void_p) for name in _TAIL_POINTERS]
-                + [("b", ctypes.c_int), ("m", ctypes.c_int),
-                   ("mlp", ctypes.c_int), ("eps", ctypes.c_float)])
+                + [(name, ctypes.c_int) for name in
+                   ("b", "m", "mlp", "content", "ctas")]
+                + [("eps", ctypes.c_float)])
+
+
+def _mask_head_operands(dec, d: int) -> dict:
+    """The logits mode's extra kernel inputs: the mask head's weights and
+    the multimask tokens' hypernetwork MLPs stacked per layer."""
+    bf = torch.bfloat16
+    c1, c2 = d // 4, d // 8
+    names = ("up1_w", "up1_b", "ln_s", "ln_b", "up2_w", "up2_b")
+    shapes = ((d, d), (c1,), (c1,), (c1,), (c1, 4 * c2), (c2,))
+    ins = {name: operand(name, x.to(bf), bf, shape) for name, x, shape in
+           zip(names, mask_head_weights(dec), shapes)}
+    mlps = [dec.hyper_mlps[i] for i in MULTIMASK_TOKENS]
+    if len(mlps[0]) != 3:
+        raise ValueError("decode tail: hypernetwork MLPs of depth "
+                         f"{len(mlps[0])} not built (3)")
+    for j, n_out in enumerate((d, d, c2)):
+        ins[f"hw{j + 1}"] = operand(
+            f"hw{j + 1}", torch.stack([p[j].w for p in mlps]).to(bf), bf,
+            (3, d, n_out))
+        ins[f"hb{j + 1}"] = operand(
+            f"hb{j + 1}", torch.stack([p[j].b for p in mlps]).to(bf), bf,
+            (3, n_out))
+    return ins
 
 
 def decode_tail_fused(dec, img0: torch.Tensor, q1st: torch.Tensor,
@@ -94,7 +133,8 @@ def decode_tail_fused(dec, img0: torch.Tensor, q1st: torch.Tensor,
                       pekft: torch.Tensor, tok_k1: torch.Tensor,
                       c1m: torch.Tensor, queries_b: torch.Tensor,
                       tokens: torch.Tensor, heads: int, eps: float = 1e-6,
-                      emit_keys: bool = False):
+                      emit_keys: bool = False, mask_head: bool = False,
+                      content: Optional[int] = None):
     """The decode tail of a ``MaskDecoder`` ``dec`` for B prompts.
 
     img0 [1, M, D] the shared branch input; q1st [1, DA, M] the layer-1
@@ -105,17 +145,23 @@ def decode_tail_fused(dec, img0: torch.Tensor, q1st: torch.Tensor,
     keys; c1m [B, H·T, D]; queries_b [B, T, D] the token state after the
     layer-2 self-attention and norm1; tokens [B, T, D] the prompt tokens.
 
-    Returns (queries [B, T, D], keys2 [B, M, D]) with ``emit_keys``,
-    else (queries, p1, p2, c2m).
+    Returns (queries [B, T, D], logits [B, content, 16, 3]) with
+    ``mask_head`` (the decoder's mask head on the first ``content``
+    positions, default all, for mask tokens 1..3), (queries, keys2
+    [B, M, D]) with ``emit_keys``, else (queries, p1, p2, c2m).
 
     CUDA: kernel B3 (bf16; D 256, DA 128, 8 heads, 7 tokens, M a
-    multiple of 32). CPU: :func:`decode_tail_reference`."""
+    multiple of 32), in its logits form with ``mask_head``. CPU:
+    :func:`decode_tail_reference`."""
+    _, m, _ = img0.shape
+    content = m if content is None else content
+    if mask_head and not 0 < content <= m:
+        raise ValueError(f"content {content} outside (0, {m}]")
     if not queries_b.is_cuda:
         return decode_tail_reference(dec, img0, q1st, peq2t, pek2t, pekft,
                                      tok_k1, c1m, queries_b, tokens, heads,
-                                     eps, emit_keys)
+                                     eps, emit_keys, mask_head, content)
     b, t, d = queries_b.shape
-    _, m, _ = img0.shape
     da = tok_k1.shape[2]
     l2, fa = dec.layers[1], dec.final_attn
     mlp = l2.lin1.w.shape[1]
@@ -156,15 +202,28 @@ def decode_tail_fused(dec, img0: torch.Tensor, q1st: torch.Tensor,
     qout = torch.empty((b, t, d), dtype=bf, device=dev)
     c2m = torch.empty((b, ht, d), dtype=bf, device=dev)
     outs = dict(qout=qout, c2m=c2m)
-    if emit_keys:
+    ctas = 0
+    if mask_head:
+        ins.update(_mask_head_operands(dec, d))
+        # persistent CTAs, one an SM, each with its own keys2 slot
+        ctas = min(b, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        outs["scratch"] = torch.empty((ctas, content, d), dtype=bf,
+                                      device=dev)
+        outs["logits"] = torch.empty((b, content, 16, 3), dtype=bf,
+                                     device=dev)
+    elif emit_keys:
         outs["keys2"] = torch.empty((b, m, d), dtype=bf, device=dev)
     else:
         outs["p1"] = torch.empty((b, ht, m), dtype=bf, device=dev)
         outs["p2"] = torch.empty((b, ht, m), dtype=bf, device=dev)
     ptrs = {name: x.data_ptr() for name, x in {**ins, **outs}.items()}
     params = TailParams(*(ptrs.get(name) for name in _TAIL_POINTERS),
-                        b, m, mlp, float(eps))
-    DECODE_TAIL.launch(ctypes.addressof(params))
+                        b, m, mlp, content, ctas, float(eps))
+    kernel = DECODE_TAIL_LOGITS if mask_head else DECODE_TAIL
+    kernel.launch(ctypes.addressof(params))
+    if mask_head:
+        return qout, outs["logits"]
     if emit_keys:
         return qout, outs["keys2"]
     return qout, outs["p1"], outs["p2"], c2m

@@ -1,6 +1,7 @@
 """Mask head kernels K3 (upscaler + hypernetwork) and B6 (the same on a
 branch rebuilt from attention probabilities), each beside its plain
-version.
+version, and the plain pieces of a decoder's mask head that the decode
+tail's logits mode (``ops.decode_fused``) runs in its kernel.
 
 Counterpart of ``revisit_anything_tpu/ops/maskhead.py`` ``fused_mask_head``
 (:345) and ``fused_mask_head_probs`` (:409); the plain version is
@@ -20,7 +21,40 @@ import torch.nn.functional as F
 from revisit_anything_tpu_torch.kernels.build import (MASK_HEAD,
                                                       MASK_HEAD_PROBS,
                                                       operand)
+from revisit_anything_tpu_torch.models.layers import mlp
 from revisit_anything_tpu_torch.ops.decode_probs import recon_branch
+
+# multimask output: mask tokens 1..3 (mask_decoder.py:96-144)
+MULTIMASK_TOKENS = (1, 2, 3)
+
+
+def mask_head_weights(dec) -> tuple:
+    """(up1_w, up1_b, ln scale, ln bias, up2_w, up2_b) of a
+    ``MaskDecoder``, in :func:`fused_mask_head`'s argument order."""
+    return (dec.up1_w, dec.up1_b, dec.up_ln.scale, dec.up_ln.bias,
+            dec.up2_w, dec.up2_b)
+
+
+def hypernetwork(dec, queries: torch.Tensor) -> torch.Tensor:
+    """The hypernetwork MLPs of the multimask tokens on the token state
+    queries [B, T, D] (row 0 the IoU token, mask token i at row 1 + i):
+    [B, 3, D/8], each dense layer rounded before its bias with ReLU
+    between (``mlp``)."""
+    return torch.stack([mlp(queries[:, 1 + i], dec.hyper_mlps[i])
+                        for i in MULTIMASK_TOKENS], dim=1)
+
+
+def decoder_mask_head(dec, keys: torch.Tensor, queries: torch.Tensor,
+                      eps: float, content: Optional[int] = None
+                      ) -> torch.Tensor:
+    """Plain mask head of a ``MaskDecoder`` for the multimask tokens: the
+    first ``content`` positions of the final branch keys [B, M, D],
+    rounded to the token state's dtype, upscaled and contracted with
+    :func:`hypernetwork` rows → [B, content, 16, 3]."""
+    content = keys.shape[1] if content is None else content
+    return upscale_masks_blocks(keys[:, :content].to(queries.dtype),
+                                hypernetwork(dec, queries),
+                                *mask_head_weights(dec), eps)
 
 
 def upscale_masks_blocks(keys: torch.Tensor, hyper: torch.Tensor,

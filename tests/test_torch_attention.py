@@ -1,6 +1,8 @@
-"""Port parity: kernels K1 (flash attention) and K2 (token→image cross
-attention) against the JAX package's ``attend`` / ``token_cross_attend_kv``
-(their Pallas kernels run in interpret mode off-TPU).
+"""Port parity: kernels K1 (flash attention), K2 (token→image cross
+attention), B10 (the same on separate kᵀ and vᵀ without pe) and K5
+against the JAX package's ``attend`` / ``token_cross_attend_kv`` /
+``token_cross_attend`` / ``i2t_update`` (their Pallas kernels run in
+interpret mode off-TPU).
 
 On the CPU the port's wrappers take their plain versions; the CUDA
 kernels are held against those plain versions in test_torch_kernels.py.
@@ -77,6 +79,23 @@ def test_token_cross_zero_pe_bias_is_plain_cross_attention():
     got = att.token_cross_attend_kv(
         torch.from_numpy(q), torch.from_numpy(np.concatenate([kt, vt], 1)),
         torch.zeros(1, d, m), torch.zeros(d), heads).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_token_cross_attend_matches_jax(shared):
+    """B10 with shared (leading dim 1) and per-prompt kᵀ/vᵀ."""
+    from revisit_anything_tpu.ops.attention import token_cross_attend
+    rng = np.random.default_rng(11 + shared)
+    b, n, d, heads, m = 3, 7, 32, 2, 96
+    q = rng.standard_normal((b, n, d)).astype(np.float32)
+    kt, vt = (rng.standard_normal((1 if shared else b, d, m)).astype(
+        np.float32) for _ in range(2))
+    want = np.asarray(token_cross_attend(jnp.asarray(q), jnp.asarray(kt),
+                                         jnp.asarray(vt), heads))
+    got = att.token_cross_attend(*(torch.from_numpy(x) for x in (q, kt, vt)),
+                                 heads).numpy()
+    assert got.shape == (b, n, d)
     np.testing.assert_allclose(got, want, atol=ATOL)
 
 

@@ -1,4 +1,4 @@
-"""The nine CUDA kernels against their plain PyTorch versions on the card
+"""The twelve CUDA kernels against their plain PyTorch versions on the card
 (marked ``gpu``; they skip where there is no CUDA device), plus the
 port's import and dispatch contract, which holds everywhere.
 
@@ -20,6 +20,7 @@ from revisit_anything_tpu_torch.ops import decode_fused as dfu
 from revisit_anything_tpu_torch.ops import decode_probs as dpr
 from revisit_anything_tpu_torch.ops import maskhead as mh
 from revisit_anything_tpu_torch.ops import maskresize as mr
+from revisit_anything_tpu_torch.ops import winattn as wa
 from revisit_anything_tpu_torch.ops.resize import bilinear_weight_matrix
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -83,12 +84,28 @@ def test_cpu_tensors_take_the_plain_versions():
     out = dpr.t2i_from_probs(tok, x, p, c, None, None, w[:, :16], w[:, :16],
                              pet, w[:8], w[0, :16], 2)
     assert out.shape == (2, 7, 16)
+    out = att.token_cross_attend(tok, pet, pet, 2)
+    assert out.shape == (2, 7, 16)
+    qkv = torch.from_numpy(rng.standard_normal((3, 16, 48)).astype(
+        np.float32))
+    out = wa.windowed_attend(qkv, qkv[..., :8], qkv[..., 8:16], 2, side=4)
+    assert torch.equal(out, wa.windowed_attend_reference(
+        qkv, qkv[..., :8], qkv[..., 8:16], 2, 4))
+    dec = serving_decoder(torch.device("cpu"))
+    r = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+    with torch.inference_mode():
+        qo, logits = dfu.decode_tail_fused(
+            dec, r(1, 64, 256), r(1, 128, 64), r(1, 128, 64), r(1, 128, 64),
+            r(1, 128, 64), r(2, 7, 128), r(2, 56, 256), r(2, 7, 256),
+            r(2, 7, 256), 8, 1e-6, mask_head=True, content=48)
+    assert qo.shape == (2, 7, 256) and logits.shape == (2, 48, 16, 3)
     assert all(k.launches == 0 for k in build.KERNELS)
 
 
 def test_kernel_table_points_at_sources():
-    assert len(build.KERNELS) == 9
-    assert len({k.entry for k in build.KERNELS}) == 9
+    assert len(build.KERNELS) == 12
+    assert len({k.entry for k in build.KERNELS}) == 12
     for k in build.KERNELS:
         assert os.path.exists(os.path.join(REPO, k.source)), k.source
         path, line = k.replaces.split(":")
@@ -131,6 +148,45 @@ def test_token_cross_kernel_matches_plain(cuda, shared):
     got = att.token_cross_attend_kv(q, kvt, pe, vb, 8)
     want = att.token_cross_attend_kv_reference(q, kvt, pe, vb, 8)
     torch.cuda.synchronize()
+    assert _rel_err(got, want) < BF16_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared", [True, False])
+def test_token_cross_split_kernel_matches_plain(cuda, shared):
+    g = torch.Generator(device=cuda).manual_seed(8)
+    bf = torch.bfloat16
+    b, n, d, m = 16, 7, 128, 4096
+    q = torch.randn((b, n, d), generator=g, device=cuda).to(bf)
+    kt, vt = (torch.randn((1 if shared else b, d, m), generator=g,
+                          device=cuda).to(bf) for _ in range(2))
+    before = build.TOKEN_CROSS_SPLIT.launches
+    got = att.token_cross_attend(q, kt, vt, 8)
+    want = att.token_cross_attend_reference(q, kt, vt, 8)
+    torch.cuda.synchronize()
+    assert build.TOKEN_CROSS_SPLIT.launches == before + 1
+    assert _rel_err(got, want) < BF16_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,side,heads,hd", [(25, 14, 16, 80),
+                                             (3, 16, 2, 64), (4, 5, 2, 80)])
+def test_win_attention_kernel_matches_plain(cuda, b, side, heads, hd):
+    """SAM ViT-H's windowed layer (25 windows of 14x14, 16 heads of 80),
+    the widest window the kernel holds (N = 256) and a ragged one
+    (N = 25, padded to 32)."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    bf = torch.bfloat16
+    n = side * side
+    qkv = torch.randn((b, n, 3 * heads * hd), generator=g, device=cuda).to(bf)
+    bh, bw = (torch.randn((b, n, heads * side), generator=g,
+                          device=cuda).to(bf) for _ in range(2))
+    before = build.WIN_ATTENTION.launches
+    got = wa.windowed_attend(qkv, bh, bw, heads, side)
+    want = wa.windowed_attend_reference(qkv, bh, bw, heads, side)
+    torch.cuda.synchronize()
+    assert build.WIN_ATTENTION.launches == before + 1
+    assert got.shape == want.shape == (b, n, heads * hd)
     assert _rel_err(got, want) < BF16_REL
 
 
@@ -317,3 +373,31 @@ def test_decode_tail_kernel_matches_plain(cuda, emit_keys):
     for a, b in zip(got, want):
         assert a.shape == b.shape
         assert _rel_err(a, b) < BF16_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("content", [3136, 4096])
+def test_decode_tail_logits_kernel_matches_plain(cuda, content):
+    """The logits mode at 140 prompts: more than one prompt per CTA on a
+    132-SM card, so the persistent CTAs reuse their keys2 slot."""
+    b = 140
+    x = _probs_inputs(cuda, b=b)
+    g = torch.Generator(device=cuda).manual_seed(10)
+    dec = serving_decoder(cuda)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+
+    args = (dec, x["img0"], x["q1st"], x["peqt"], rnd(1, 128, 4096),
+            rnd(1, 128, 4096), x["tok_k"], x["c1"], rnd(b, 7, 256),
+            rnd(b, 7, 256), 8, 1e-6)
+    before = build.DECODE_TAIL_LOGITS.launches
+    with torch.inference_mode():
+        got = dfu.decode_tail_fused(*args, mask_head=True, content=content)
+        want = dfu.decode_tail_reference(*args, mask_head=True,
+                                         content=content)
+    torch.cuda.synchronize()
+    assert build.DECODE_TAIL_LOGITS.launches == before + 1
+    assert got[1].shape == want[1].shape == (b, content, 16, 3)
+    for a, w in zip(got, want):
+        assert _rel_err(a, w) < BF16_REL

@@ -111,11 +111,14 @@ def test_decoder_matches_jax(models, embedding):
 
 
 # the JAX decoder's trace-time flags (_PROBS_PATH, _FUSED_TAIL,
-# _TAIL_KEYS) for each of the port's AmgConfig.decode forms
+# _TAIL_KEYS) for each of the port's AmgConfig.decode forms;
+# "fused_tail_logits" is held to the JAX keys path, which computes the
+# function the JAX logits mode means to (test_torch_decode_fused.py)
 JAX_DECODE_FLAGS = {"shared": ("off", "auto", "auto"),
                     "probs_split": ("on", "off", "auto"),
                     "fused_tail_probs": ("on", "on", "off"),
-                    "fused_tail_keys": ("on", "on", "on")}
+                    "fused_tail_keys": ("on", "on", "on"),
+                    "fused_tail_logits": ("on", "on", "on")}
 
 
 @contextlib.contextmanager
@@ -173,6 +176,7 @@ def test_decode_batch_matches_jax(models, embedding, orig_hw, decode):
 
 
 def test_unknown_amg_decode_raises():
+    assert pamg.AmgConfig().decode == "shared"
     with pytest.raises(ValueError, match="decode"):
         pamg.AmgConfig(decode="fused")
 
