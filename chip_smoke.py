@@ -9,11 +9,17 @@ Phases (any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the twelve kernels from revisit_anything_tpu_torch/kernels/csrc
      (one nvcc per source, in parallel);
-  3. compare every kernel with its plain version in bf16 at the main
+  3. print the registers, shared memory and spill bytes of the three
+     redesigned attention entry points (K1, K2, B10) from ptxas.log; then
+     compare every kernel with its plain version in bf16 at the main
      path's shapes, timing both with CUDA events (median of 7 after
-     warm-up), beside its bound (the larger of bytes / 3.35 TB/s and
-     operations / the H100's peak rate for their type) and, where one
-     PyTorch call computes the same function, that call's time;
+     warm-up, each call queued behind a device sleep so that its host
+     launch cost is not timed), beside its bound (the larger of bytes /
+     3.35 TB/s and operations / the H100's peak rate for their type),
+     its bound share
+     (bound / kernel time) and, where one PyTorch call computes the same
+     function, that call's time and the kernel's time over it
+     (× library);
   4. serve small inputs through the kernels on the card and through the
      plain versions on the CPU, from the same weights, with the
      "shared", "fused_tail_keys" and "fused_tail_logits" decoders and
@@ -85,6 +91,10 @@ def _fail(msg: str) -> None:
 
 
 def _time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
+    """Median device time of one call between CUDA events. Each call is
+    queued behind a ~1 ms device sleep, so the host's cost of launching it
+    (the wrapper's checks, the ctypes call, the tensor maps) falls outside
+    the events."""
     import torch
     for _ in range(warmup):
         fn()
@@ -93,6 +103,7 @@ def _time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
         start.record()
         fn()
         end.record()
@@ -130,6 +141,55 @@ def _bound(n_bytes: float, bf16_flop: float = 0.0,
     t_ops = max(bf16_flop / BF16_FLOP_S, f32_flop / F32_FLOP_S)
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+# The redesigned attention kernels' instantiations in ptxas.log, by a
+# piece of their mangled names: (label, C entry point, dynamic shared
+# memory query and its arguments).
+PTXAS_KERNELS = (
+    ("token_cross_kernelILb1ELb1E", "K2 shared k|v", "rat_token_cross_kv",
+     "rat_token_cross_smem", (1, 1)),
+    ("token_cross_kernelILb1ELb0E", "K2 per-prompt k|v", "rat_token_cross_kv",
+     "rat_token_cross_smem", (1, 0)),
+    ("token_cross_kernelILb0ELb1E", "B10 shared k, v", "rat_token_cross",
+     "rat_token_cross_smem", (0, 1)),
+    ("token_cross_kernelILb0ELb0E", "B10 per-prompt k, v", "rat_token_cross",
+     "rat_token_cross_smem", (0, 0)),
+    ("flash_attention_kernelILi80ELi2E", "K1 Dh 80, bias side 64",
+     "rat_flash_attention", "rat_flash_attention_smem", (80,)),
+    ("flash_attention_kernelILi80ELi1E", "K1 Dh 80, bias other sides",
+     "rat_flash_attention", "rat_flash_attention_smem", (80,)),
+    ("flash_attention_kernelILi80ELi0E", "K1 Dh 80, no bias",
+     "rat_flash_attention", "rat_flash_attention_smem", (80,)),
+    ("flash_attention_kernelILi64ELi0E", "K1 Dh 64, no bias",
+     "rat_flash_attention", "rat_flash_attention_smem", (64,)),
+)
+
+
+def ptxas_report() -> None:
+    """Print the registers, shared memory and spill bytes of the three
+    redesigned entry points' kernels, read from the build's ptxas.log
+    (dynamic shared memory from the sources' own size functions)."""
+    import re
+
+    from revisit_anything_tpu_torch.kernels import build
+    log = (build.library_path().parent / "ptxas.log").read_text()
+    # each kernel's block: "Compiling entry function '<name>'" up to the
+    # next such line
+    blocks = re.split(r"Compiling entry function ", log)[1:]
+    lib = build.load()
+    for key, label, entry, smem_fn, smem_args in PTXAS_KERNELS:
+        block = next((b for b in blocks if key in b.split("\n", 1)[0]), None)
+        if block is None:
+            _fail(f"ptxas.log has no kernel {key}")
+        regs = re.search(r"Used (\d+) registers", block).group(1)
+        static = re.search(r"(\d+) bytes smem", block)
+        stores, loads = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                  r"spill loads", block).groups()
+        print(f"[ptxas] {label:28s} ({entry}): {regs} registers, shared "
+              f"memory {static.group(1) if static else 0} B static + "
+              f"{getattr(lib, smem_fn)(*smem_args)} B dynamic a CTA, spill "
+              f"stores {stores} B, loads {loads} B", flush=True)
 
 
 def compare_kernels(dev) -> dict:
@@ -181,16 +241,22 @@ def compare_kernels(dev) -> dict:
         ms, plain_ms = _time_ms(fn_k), _time_ms(fn_p)
         library_ms = _time_ms(library) if library else None
         torch.cuda.empty_cache()
-        lib = f"  library {library_ms:.3f} ms" if library else ""
+        # bound share: the bound's time over the kernel's; × library: the
+        # kernel's time over the library call's
+        share = bound_ms / ms
+        x_lib = ms / library_ms if library else None
+        lib = (f"  library {library_ms:.3f} ms  x library {x_lib:.2f}"
+               if library else "")
         print(f"[kernel] {kernel.name:22s} {label:44s} max_abs_err="
               f"{abs_err:.3e} rel_err={rel_err:.3e} (tol {tol:g}) "
               f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms{lib}  bound "
-              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+              f"{bound_ms:.4f} ms ({bound_by})  bound share {share:.3f}",
+              flush=True)
         if not rel_err <= tol or not math.isfinite(abs_err):
             _fail(f"{kernel.name} {label}: error {rel_err} above {tol}")
         row = dict(label=label, max_abs_err=abs_err, rel_err=rel_err, ms=ms,
                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   library_ms=library_ms)
+                   library_ms=library_ms, bound_share=share, x_library=x_lib)
         if plain_prompts:
             row["plain_prompts"] = plain_prompts
         results.setdefault(kernel.name, []).append(row)
@@ -954,6 +1020,7 @@ def main() -> None:
     print(f"[build] kernels built in {build.last_build_seconds:.1f} s "
           f"({build.library_path()})", flush=True)
 
+    ptxas_report()
     results = compare_kernels(dev)
     reference_check(dev)
     served = serve(dev)
@@ -975,7 +1042,9 @@ def main() -> None:
             ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
             bound_ms=main_shape["bound_ms"],
             bound_by=main_shape["bound_by"],
-            library_ms=main_shape["library_ms"], shapes=results[k.name]))
+            library_ms=main_shape["library_ms"],
+            bound_share=main_shape["bound_share"],
+            x_library=main_shape["x_library"], shapes=results[k.name]))
     for name, v in served["variants"].items():
         agree = ", ".join(f"{ref} {a:.4f}" for ref, a in v["agreement"].items())
         print(f"[variant] {name}: query {v['query_ms']:.1f} ms, decode "

@@ -40,7 +40,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 # C signature of every entry point: (argument types), all return int
-# (a cudaError_t). The last argument is always the stream.
+# (a cudaError_t). The last argument of a launch is always the stream.
 SIGNATURES: Dict[str, Sequence] = {
     # q, k, v, bias_h, bias_w, out, bh, n, side, has_bias, scale, hd, stream
     "rat_flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
@@ -77,6 +77,9 @@ SIGNATURES: Dict[str, Sequence] = {
     # a pointer to one TailParams struct (ops.decode_fused), stream
     "rat_decode_tail": (_P, _P),
     "rat_decode_tail_logits": (_P, _P),
+    # reports, no launch: dynamic shared memory of a CTA in bytes
+    "rat_token_cross_smem": (_I, _I),           # pe, shared
+    "rat_flash_attention_smem": (_I,),          # hd
 }
 
 _lock = threading.Lock()

@@ -5,217 +5,591 @@
 // softmax(q·kᵀ·scale + bias)·v over [B·H, N, Dh]; keys >= N are masked;
 // the optional bias is bias[q, k] = bias_h[q, k / side] + bias_w[q, k % side].
 //
-// What bounds it on the H100: SAM ViT-H's global layers (N = 4096,
-// Dh = 80, 16 heads) and DINOv2-g's blocks (N = 1531, Dh = 64, 24 heads)
-// are compute-bound once the [N, N] scores stay off device memory: q·kᵀ
-// and p·v are 2 · 2 · H · N² · Dh = 2 · 2 · 16 · 4096² · 80 = 86 GFLOP per
-// SAM global layer. The TPU kernel held a whole [bq, N] score row in VMEM,
-// which 227 KB of shared memory cannot.
+// What bounds it on the H100 (NVIDIA H100 80GB HBM3, 700 W): the tensor
+// cores. SAM ViT-H's global layers (N = 4096, Dh = 80, 16 heads) are
+// 4 · 16 · 4096² · 80 = 86 GFLOP (0.087 ms at 989 TFLOP/s) against 50 MB
+// of q, k, v and bias; DINOv2-g's blocks (N = 1531, Dh = 64, 24 heads)
+// 14 GFLOP (0.015 ms). Next come the exponentials: N² a head, 268 M a SAM
+// layer, ~0.07 ms at the SFU's 16 a clock an SM.
 //
-// Design: one CTA per (batch·head, 64-query tile), four warps of 16 query
-// rows each. K/V stream through shared memory in 64-key tiles with an
-// online softmax in f32 (running max / sum per row in shared memory), so
-// no score row is ever held whole. Both products run on the tensor cores
-// through WMMA bf16 16x16x16 fragments with f32 accumulation. The bias is
-// gathered by index from the q row's bias_h/bias_w rows (no 0/1 expansion
-// matmuls), head dims 64 and 80 are native (no pad to 128), and the
-// ragged key edge (N = 1531) is masked in the kernel. A simple correct
-// kernel: wgmma/TMA pipelining is later work.
+// Design (Hopper, sm_90a): one CTA of three warpgroups takes 128 query
+// rows of one (batch, head).
+//  - WG2 is the producer (setmaxnreg down to 24 registers): one thread
+//    loads Q once and then streams 128-key tiles of K and of V by TMA
+//    into two 2-stage rings, each stage guarded by a full and an empty
+//    mbarrier; K(t) and V(t-1) are issued in the order they are used.
+//  - WG0 and WG1 are the consumers (setmaxnreg up to 240), 64 query rows
+//    each. S = Q·Kᵀ runs by wgmma m64n128k16 from shared memory into
+//    registers; the online softmax runs in registers (exp2 with log2 e
+//    folded into the scale, one rescale of O a tile, row max and sum by
+//    quad shuffles); P is rounded to bf16 and fed as the register A
+//    operand of wgmma m64n{Dh}k16 against V. The f32 output accumulator
+//    stays in registers for the whole key loop.
+//  - Products overlap the softmax two ways: a warpgroup issues S(t) and
+//    then P(t-1)·V(t-1) before it waits for S(t) alone, so P·V runs
+//    under tile t's softmax; and the two warpgroups take turns to issue
+//    (named barriers), so one's softmax runs under the other's products.
+//  - Dh = 80 is not a swizzle width (a 128-byte swizzle row holds 64
+//    bf16). Each row of Q, K and V is loaded as two 64-column TMA boxes,
+//    the second zero-filled past column 80 by the TMA's bounds check, so
+//    every tile has the one 128B-swizzled layout: Q·Kᵀ takes 4 K-steps
+//    from the first box and a 5th from the second; P·V reads V
+//    MN-major as one n80 operand whose second 64-column atom is the
+//    second box (the descriptor's leading byte offset).
+//  - Keys past N (N = 1531) arrive as zeros from the TMA and score -inf
+//    in the last tile; query rows past N are not stored.
+//  - The bias: each consumer warp stages its 16 rows of bias_h and bias_w
+//    ([rows, side] bf16, side <= 64) in shared memory once, before the key
+//    loop. With side = 64 and 128-key tiles a thread's bias_w columns are
+//    the same on every tile and stay in registers (f32, times log2 e);
+//    bias_h takes one shared-memory read a row a tile. Other sides look
+//    both up from shared memory per score. Sums are taken in f32, as the
+//    JAX kernel's 0/1 expansion products sum them.
+// Q/K/V reach the TMA through 3-D tensor maps [B·H, N, Dh] built per call
+// (cuTensorMapEncodeTiled through the runtime's driver entry point, so
+// the library needs no -lcuda), passed as __grid_constant__ parameters.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <math.h>
 #include <stdint.h>
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
+constexpr int BQ = 128;                 // query rows a CTA (2 warpgroups x 64)
+constexpr int BK = 128;                 // keys a tile
+constexpr int STAGES = 2;
+constexpr int THREADS = 384;            // WG0, WG1 consumers; WG2 producer
+constexpr int BOX = 64;                 // columns a TMA box: one 128-byte row
+constexpr int BOX_BYTES = 128 * BOX * 2;  // a [128 rows, 64 cols] box, Q or K/V
+constexpr int MAX_SIDE = 64;
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int HD>
-constexpr int smem_bytes() {
-  return 3 * BQ * HD * 2      // Q, K, V tiles (bf16)
-         + BQ * BK * 4        // scores (f32)
-         + BQ * BK * 2        // probabilities (bf16)
-         + BQ * HD * 4        // output accumulator (f32)
-         + 2 * BQ * 4;        // running max / sum
+struct Cfg {
+  static constexpr int NB = (HD + BOX - 1) / BOX;          // boxes a row
+  static constexpr int KSTEPS = HD / 16;                   // of Q·Kᵀ
+  static constexpr int TILE = NB * BOX_BYTES;              // Q, or K or V of a stage
+  static constexpr int BIAS = 2 * BQ * MAX_SIDE * 2;       // bias_h and bias_w rows
+  static constexpr int BARS = 128;
+  static constexpr int SMEM = 1024 + TILE * (1 + 2 * STAGES) + BIAS + BARS;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// A wgmma shared-memory descriptor for a 128B-swizzled tile.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-template <int HD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          int row0, int n) {
-  constexpr int VPR = HD / 8;               // 16-byte vectors per row
-  for (int i = threadIdx.x; i < BQ * VPR; i += THREADS) {
-    const int r = i / VPR, c = i % VPR;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n)
-      val = reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * HD)[c];
-    reinterpret_cast<uint4*>(dst + r * HD)[c] = val;
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of this parity. A wait
+// of more than ~10 s (a lost TMA transaction) traps instead of hanging
+// the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > 20000000000ll) __trap();
   }
 }
 
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0,
+                                            int c1, int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Named barrier over n threads: sync waits, arrive only counts.
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d (+)= A·B: A [64 x 16] and B [128 x 16], both K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A·B: A [64 x 16] bf16 in registers, B [16 x 80] MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39 "
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A·B: A [64 x 16] bf16 in registers, B [16 x 64] MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Pin an accumulator's registers in place after a wgmma wait, so that no
+// read or write of them moves across it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// The same for P's bf16 pairs, the register A operand of P·V.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       const __nv_bfloat16* __restrict__ bias_h,
-                       const __nv_bfloat16* __restrict__ bias_w,
-                       __nv_bfloat16* __restrict__ out,
-                       int n, int side, int has_bias, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sK = sQ + BQ * HD;
-  __nv_bfloat16* sV = sK + BK * HD;
-  float* sS = reinterpret_cast<float*>(sV + BK * HD);
-  __nv_bfloat16* sP = reinterpret_cast<__nv_bfloat16*>(sS + BQ * BK);
-  float* sO = reinterpret_cast<float*>(sP + BQ * BK);
-  float* sM = sO + BQ * HD;
-  float* sL = sM + BQ;
+__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (HD == 80) wgmma_rs_n80(o, a, db);
+  else wgmma_rs_n64(o, a, db);
+}
+
+// BIAS: 0 none; 1 any side <= 64, looked up per score; 2 side = 64.
+template <int HD, int BIAS>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __nv_bfloat16* __restrict__ bias_h,   // [B·H, N, side]
+                       const __nv_bfloat16* __restrict__ bias_w,   // [B·H, N, side]
+                       __nv_bfloat16* __restrict__ out,            // [B·H, N, Dh]
+                       int n, int side, float scale_log2) {
+  using C = Cfg<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  // 128B-swizzled tiles want 1024-byte alignment.
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sK = sQ + C::TILE;                         // stage s at + s·TILE
+  const uint32_t sV = sK + STAGES * C::TILE;
+  const uint32_t bias_off = base - raw + C::TILE * (1 + 2 * STAGES);
+  __nv_bfloat16* sBh = reinterpret_cast<__nv_bfloat16*>(smem_raw + bias_off);
+  __nv_bfloat16* sBw = sBh + BQ * MAX_SIDE;
+  // K and V have rings of their own: a K stage frees as soon as its
+  // Q·Kᵀ is done, a V stage after its P·V.
+  const uint32_t bars = base + C::TILE * (1 + 2 * STAGES) + C::BIAS;
+  auto full_k = [&](int s) { return bars + 8 * s; };
+  auto full_v = [&](int s) { return bars + 8 * (STAGES + s); };
+  auto empty_k = [&](int s) { return bars + 8 * (2 * STAGES + s); };
+  auto empty_v = [&](int s) { return bars + 8 * (3 * STAGES + s); };
+  const uint32_t qfull = bars + 8 * (4 * STAGES);
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const size_t base = (size_t)bh * n * HD;
-  const size_t bbase = (size_t)bh * n * side;
+  const int ntiles = (n + BK - 1) / BK;
 
-  load_tile<HD>(sQ, q + base, q0, n);
-  for (int i = threadIdx.x; i < BQ * HD; i += THREADS) sO[i] = 0.f;
-  for (int i = threadIdx.x; i < BQ; i += THREADS) {
-    sM[i] = -INFINITY;
-    sL[i] = 0.f;
-  }
-
-  const int wr = warp * 16;                 // this warp's first query row
-  for (int k0 = 0; k0 < n; k0 += BK) {
-    __syncthreads();                        // previous tile fully consumed
-    load_tile<HD>(sK, k + base, k0, n);
-    load_tile<HD>(sV, v + base, k0, n);
-    __syncthreads();
-
-    // S = Q Kᵀ for this warp's 16 rows x 64 keys.
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BK / 16];
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < HD; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a;
-      wmma::load_matrix_sync(a, sQ + wr * HD + kk, HD);
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major> b;
-        wmma::load_matrix_sync(b, sK + j * 16 * HD + kk, HD);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), 256);
+      mbar_init(empty_v(s), 256);
     }
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j)
-      wmma::store_matrix_sync(sS + wr * BK + j * 16, acc[j], BK,
-                              wmma::mem_row_major);
-    __syncwarp();
+    mbar_init(qfull, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // Online softmax over the tile, one row at a time, two keys per lane.
-    for (int r = 0; r < 16; ++r) {
-      const int row = wr + r;
-      const int qi = q0 + row;
-      float s[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int col = lane + 32 * h;
-        const int key = k0 + col;
-        float val = sS[row * BK + col] * scale;
-        if (key >= n) {
-          val = -INFINITY;
-        } else if (has_bias && qi < n) {
-          val += __bfloat162float(bias_h[bbase + (size_t)qi * side + key / side]) +
-                 __bfloat162float(bias_w[bbase + (size_t)qi * side + key % side]);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: Q, then K(t) and V(t-1) in the order they are used ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(qfull, C::TILE);
+      for (int b = 0; b < C::NB; ++b) tma_load_3d(sQ + b * BOX_BYTES, &tq, b * BOX, q0, bh, qfull);
+      for (int t = 0; t <= ntiles; ++t) {
+        if (t < ntiles) {
+          const int s = t % STAGES;
+          mbar_wait(empty_k(s), ((t / STAGES) + 1) & 1);    // passes at once for t < STAGES
+          mbar_expect_tx(full_k(s), C::TILE);
+          for (int b = 0; b < C::NB; ++b)
+            tma_load_3d(sK + s * C::TILE + b * BOX_BYTES, &tk, b * BOX, t * BK, bh, full_k(s));
         }
-        s[h] = val;
+        if (t > 0) {
+          const int u = t - 1, s = u % STAGES;
+          mbar_wait(empty_v(s), ((u / STAGES) + 1) & 1);
+          mbar_expect_tx(full_v(s), C::TILE);
+          for (int b = 0; b < C::NB; ++b)
+            tma_load_3d(sV + s * C::TILE + b * BOX_BYTES, &tv, b * BOX, u * BK, bh, full_v(s));
+        }
       }
-      const float m_old = sM[row];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s[0], s[1])));
-      const float p0 = expf(s[0] - m_new);
-      const float p1 = expf(s[1] - m_new);
-      const float psum = warp_sum(p0 + p1);
-      const float alpha = (m_old == -INFINITY) ? 0.f : expf(m_old - m_new);
-      sP[row * BK + lane] = __float2bfloat16(p0);
-      sP[row * BK + lane + 32] = __float2bfloat16(p1);
-      for (int c = lane; c < HD; c += 32) sO[row * HD + c] *= alpha;
+    }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int ctid = threadIdx.x % 128;
+    const int warp = ctid / 32, lane = ctid % 32, g = lane / 4, c = lane % 4;
+    const int wrow0 = wg * 64 + warp * 16;                  // the warp's first CTA row
+    const int rl[2] = {wrow0 + g, wrow0 + g + 8};           // this thread's two rows
+
+    float bw_r[2][8][2];                                    // BIAS == 2: bias_w · log2 e
+    if (BIAS) {
+      for (int i = lane; i < 16 * side; i += 32) {
+        const int r = i / side, col = i % side, qi = q0 + wrow0 + r;
+        const size_t src = ((size_t)bh * n + qi) * side + col;
+        const __nv_bfloat16 zero = __float2bfloat16(0.f);
+        sBh[(wrow0 + r) * MAX_SIDE + col] = qi < n ? bias_h[src] : zero;
+        sBw[(wrow0 + r) * MAX_SIDE + col] = qi < n ? bias_w[src] : zero;
+      }
       __syncwarp();
-      if (lane == 0) {
-        sM[row] = m_new;
-        sL[row] = sL[row] * alpha + psum;
+      if (BIAS == 2) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              bw_r[r][i][e] =
+                  LOG2E * __bfloat162float(sBw[rl[r] * MAX_SIDE + 8 * i + 2 * c + e]);
       }
     }
-    __syncwarp();
 
-    // O += P V for this warp's rows.
+    float o[HD / 2];
 #pragma unroll
-    for (int jj = 0; jj < HD / 16; ++jj) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-      wmma::load_matrix_sync(o, sO + wr * HD + jj * 16, HD, wmma::mem_row_major);
+    for (int j = 0; j < HD / 2; ++j) o[j] = 0.f;
+    float sc[BK / 2];
 #pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> b;
-        wmma::load_matrix_sync(a, sP + wr * BK + kk, BK);
-        wmma::load_matrix_sync(b, sV + kk * HD + jj * 16, HD);
-        wmma::mma_sync(o, a, b, o);
+    for (int j = 0; j < BK / 2; ++j) sc[j] = 0.f;
+    uint32_t pa[BK / 16][4];                                // P of the previous tile, bf16
+    float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
+
+    // O += P·V for tile u: P (bf16) as the register A operand, V MN-major;
+    // a K-step is 16 keys = two 1024-byte swizzle atoms, the second 64
+    // columns of V lie one box (BOX_BYTES) further.
+    auto issue_pv = [&](int u) {
+      const uint32_t vb = sV + (u % STAGES) * C::TILE;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_pv<HD>(o, pa[kk], gmma_desc(vb + kk * 2048, BOX_BYTES, 1024));
+    };
+
+    // The two warpgroups take turns to issue their products (named
+    // barriers 1 and 2), so one's softmax overlaps the other's wgmma.
+    const int my_bar = 1 + wg, other_bar = 2 - wg;
+    if (wg == 1) named_arrive(1, 256);                      // WG0 issues first
+
+    mbar_wait(qfull, 0);
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % STAGES;
+      const int k0 = t * BK;
+      mbar_wait(full_k(s), (t / STAGES) & 1);
+      if (t > 0) mbar_wait(full_v((t - 1) % STAGES), ((t - 1) / STAGES) & 1);
+
+      // Issue S(t) = Q·Kᵀ (K-major A and B; a K-step advances 32 bytes in
+      // the swizzled row), then P(t-1)·V(t-1) behind it.
+      named_sync(my_bar, 256);
+      fence_regs(sc);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < C::KSTEPS; ++k) {
+        const uint32_t qa = sQ + (k / 4) * BOX_BYTES + wg * 64 * 128 + (k % 4) * 32;
+        const uint32_t kb = sK + s * C::TILE + (k / 4) * BOX_BYTES + (k % 4) * 32;
+        wgmma_ss_n128(sc, gmma_desc(qa, 16, 1024), gmma_desc(kb, 16, 1024), k > 0);
       }
-      wmma::store_matrix_sync(sO + wr * HD + jj * 16, o, HD, wmma::mem_row_major);
-    }
-  }
-  __syncwarp();
+      wgmma_commit();
+      if (t > 0) {
+        issue_pv(t - 1);
+        wgmma_commit();
+      }
+      if (!(wg == 1 && t == ntiles - 1)) named_arrive(other_bar, 256);
+      if (t > 0) wgmma_wait<1>(); else wgmma_wait<0>();     // S(t) done
+      fence_regs(sc);
+      mbar_arrive(empty_k(s));
 
-  for (int r = 0; r < 16; ++r) {
-    const int row = wr + r;
-    const int qi = q0 + row;
-    if (qi >= n) break;
-    const float inv = 1.f / sL[row];
-    for (int c = lane; c < HD; c += 32)
-      out[base + (size_t)qi * HD + c] = __float2bfloat16(sO[row * HD + c] * inv);
+      // Scores to the log2 domain: with a bias, v = s·scale·log2 e + bias·log2
+      // e is formed here; without one the raw score stays and the scale
+      // folds into the max and the exponent's FFMA (it is positive). Keys
+      // past N (last tile only) score -inf.
+      // sc[4i + 2r + e]: row rl[r], key k0 + 8i + 2c + e.
+      if (BIAS) {
+        float bh_r[2][2];
+        if (BIAS == 2) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+              bh_r[r][hh] =
+                  LOG2E * __bfloat162float(sBh[rl[r] * MAX_SIDE + k0 / MAX_SIDE + hh]);
+        }
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = k0 + 8 * i + 2 * c + e;
+            int kh = 0, kw = 0;
+            if (BIAS == 1) {
+              kh = min(key, n - 1) / side;
+              kw = min(key, n - 1) - kh * side;
+            }
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const float b =
+                  BIAS == 2 ? bh_r[r][i / 8] + bw_r[r][i % 8][e]
+                            : LOG2E * (__bfloat162float(sBh[rl[r] * MAX_SIDE + kh]) +
+                                       __bfloat162float(sBw[rl[r] * MAX_SIDE + kw]));
+              sc[4 * i + 2 * r + e] = fmaf(sc[4 * i + 2 * r + e], scale_log2, b);
+            }
+          }
+        }
+      }
+      if (k0 + BK > n) {
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (k0 + 8 * i + 2 * c + e >= n) {
+              sc[4 * i + e] = -INFINITY;
+              sc[4 * i + 2 + e] = -INFINITY;
+            }
+      }
+
+      // Online softmax: one FFMA and one exp2 a score, one rescale of O a tile.
+      const float sl = BIAS ? 1.f : scale_log2;
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i)
+          mx = fmaxf(mx, fmaxf(sc[4 * i + 2 * r], sc[4 * i + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(mrow[r], mx * sl);
+        alpha[r] = ex2(mrow[r] - m_new);                    // 0 on the first tile
+        mrow[r] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = ex2(fmaf(sc[4 * i + 2 * r + e], sl, -m_new));
+            sc[4 * i + 2 * r + e] = p;
+            sum += p;
+          }
+        lrow[r] = lrow[r] * alpha[r] + sum;
+      }
+
+      // P(t-1)·V(t-1) done: free its V stage, rescale O, and round P(t).
+      if (t > 0) {
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(pa);
+        mbar_arrive(empty_v((t - 1) % STAGES));
+      }
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          o[4 * j + 2 * r] *= alpha[r];
+          o[4 * j + 2 * r + 1] *= alpha[r];
+        }
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+    }
+
+    // The last tile's P·V.
+    {
+      const int u = ntiles - 1;
+      mbar_wait(full_v(u % STAGES), (u / STAGES) & 1);
+      fence_regs(o);
+      wgmma_fence();
+      issue_pv(u);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      mbar_arrive(empty_v(u % STAGES));
+    }
+
+    // Normalize and store the rows below N.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = lrow[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int qi = q0 + rl[r];
+      if (qi < n) {
+        const float inv = 1.f / l;
+        __nv_bfloat16* dst = out + ((size_t)bh * n + qi) * HD + 2 * c;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j)
+          *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+              pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      }
+    }
   }
 }
 
-template <int HD>
-int launch(const void* q, const void* k, const void* v, const void* bh_,
-           const void* bw_, void* out, int bh, int n, int side, int has_bias,
-           float scale, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// [bh, n, hd] bf16 as a 3-D tensor map of [128 rows, 64 cols] boxes,
+// 128B-swizzled; reads past n or hd fill zeros.
+bool tensor_map(CUtensorMap* map, const void* ptr, int bh, int n, int hd) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)n, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)hd * 2, (cuuint64_t)n * hd * 2};
+  const cuuint32_t box[3] = {BOX, 128, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD, int BIAS>
+int launch(const void* q, const void* k, const void* v, const void* bias_h,
+           const void* bias_w, void* out, int bh, int n, int side, float scale,
+           cudaStream_t stream) {
+  using C = Cfg<HD>;
+  auto kernel = flash_attention_kernel<HD, BIAS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((n + BQ - 1) / BQ, bh);
-  flash_attention_kernel<HD><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(bh_),
-      static_cast<const __nv_bfloat16*>(bw_), static_cast<__nv_bfloat16*>(out),
-      n, side, has_bias, scale);
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, q, bh, n, HD) || !tensor_map(&tk, k, bh, n, HD) ||
+      !tensor_map(&tv, v, bh, n, HD))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + BQ - 1) / BQ, bh);
+  kernel<<<grid, THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, static_cast<const __nv_bfloat16*>(bias_h),
+      static_cast<const __nv_bfloat16*>(bias_w), static_cast<__nv_bfloat16*>(out), n, side,
+      scale * LOG2E);
   return (int)cudaGetLastError();
+}
+
+template <int HD>
+int dispatch(const void* q, const void* k, const void* v, const void* bias_h,
+             const void* bias_w, void* out, int bh, int n, int side, int has_bias,
+             float scale, cudaStream_t s) {
+  if (!has_bias) return launch<HD, 0>(q, k, v, nullptr, nullptr, out, bh, n, 1, scale, s);
+  if (side < 1 || side > MAX_SIDE || side * side != n) return (int)cudaErrorInvalidValue;
+  if (side == MAX_SIDE)
+    return launch<HD, 2>(q, k, v, bias_h, bias_w, out, bh, n, side, scale, s);
+  return launch<HD, 1>(q, k, v, bias_h, bias_w, out, bh, n, side, scale, s);
 }
 
 }  // namespace
@@ -226,12 +600,18 @@ extern "C" int rat_flash_attention(const void* q, const void* k, const void* v,
                                    int has_bias, float scale, int hd,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bh <= 0 || n <= 0 || bh > 65535) return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 64:
-      return launch<64>(q, k, v, bias_h, bias_w, out, bh, n, side, has_bias, scale, s);
+      return dispatch<64>(q, k, v, bias_h, bias_w, out, bh, n, side, has_bias, scale, s);
     case 80:
-      return launch<80>(q, k, v, bias_h, bias_w, out, bh, n, side, has_bias, scale, s);
+      return dispatch<80>(q, k, v, bias_h, bias_w, out, bh, n, side, has_bias, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// Dynamic shared memory a CTA takes at head dim hd (for reports).
+extern "C" int rat_flash_attention_smem(int hd) {
+  return hd == 64 ? Cfg<64>::SMEM : hd == 80 ? Cfg<80>::SMEM : 0;
 }

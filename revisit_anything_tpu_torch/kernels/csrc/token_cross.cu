@@ -12,22 +12,44 @@
 // and v (entry rat_token_cross), replaces revisit_anything_tpu/ops/
 // attention.py `_token_cross` / `_token_attn_kernel` (pallas_call at
 // :178), reached through `token_cross_attend` (:200): k = kt[b, h rows],
-// v = vt[b, h rows], nothing added. It reads the same bytes a key as the
-// k|v form and is bound the same way.
+// v = vt[b, h rows], nothing added.
 //
-// What bounds it on the H100: device-memory bytes. Each (prompt, head)
-// reads 2·hd·M bf16 of k|v (256 KB) for ~0.9 MFLOP: per-prompt k|v at
-// 1024 prompts is 2 GB a call, about 0.7 ms at 3.35 TB/s; the layer-1
-// call shares one k|v (leading dim 1) and runs out of L2.
+// What bounds it on the H100 (NVIDIA H100 80GB HBM3, 700 W):
+//  - per-prompt k|v (kvt [1024, 256, 4096]): device-memory bytes, 2.15 GB
+//    a call, 0.64 ms at 3.35 TB/s;
+//  - shared k|v (layer 1, kvt [1, 256, 4096]): 5 MB and 15 GFLOP, so no
+//    rate of the card binds it, but its 235 M exponentials do: at the
+//    SFU's 16 a clock an SM they take ~0.06 ms.
 //
-// Design: one CTA of 256 threads per (prompt, head). Each thread walks
-// keys tid, tid+256, ... — neighbouring threads read neighbouring keys of
-// the transposed [hd, M] rows, so every load is coalesced — and keeps an
-// online-softmax state (max, sum, hd accumulators) per query in
-// registers. States merge by warp shuffles, then across the 8 warps in
-// shared memory. The 7 queries are taken unpadded (the TPU's pad to 8 was
-// a sublane rule). pe and the v bias are added in the kernel, rounded to
-// bf16 as the TPU kernel's bf16 adds round.
+// Design: both products run on the tensor cores through mma.sync
+// m16n8k16 (bf16 in, f32 out) with the FA2 register layout — Q·Kᵀ's
+// accumulator fragment is rounded to bf16 and reused as the A operand of
+// P·V — and the online softmax runs in registers over a 64-key tile: one
+// exp2 a score (log2 e folded into the scale), one rescale of the
+// accumulators a tile, row max and sum reduced by quad shuffles. No
+// accumulator is rescaled per key. mma.sync, not wgmma: a prompt has 7
+// query rows and wgmma's 64-row M would waste 89% of it, and neither case
+// is bound by the tensor-core rate.
+// kᵀ, peᵀ and vᵀ arrive as [16, M] rows; their [16 × 64] tiles stream
+// through a 3-stage cp.async ring in shared memory (rows padded by 16
+// bytes, so ldmatrix reads are free of bank conflicts); K is read as the
+// B operand of Q·Kᵀ by ldmatrix.trans, V as the B operand of P·V by
+// ldmatrix. k + pe and v + bias are formed once per tile in place, by
+// the thread that copied each chunk, rounded to bf16 as the TPU kernel's
+// bf16 adds round.
+//
+// Two schedules, chosen by the prompt stride of k|v:
+//  - shared k|v: every prompt's queries stack into one [B·n, 16] matrix
+//    per head; a CTA takes (128 rows, head), 8 warps of 16 rows share one
+//    ring (one barrier a tile), and the head's k, pe and v stream once
+//    per CTA. Rows past B·n are zero and not stored; a prompt's rows may
+//    cross a warp's or a CTA's boundary.
+//  - per-prompt k|v: a CTA takes a prompt, a warp a head with its own
+//    ring (3 tiles of k, pe and v, 20 KB, in flight a warp). The n <= 8
+//    queries fill rows 0..7 of the 16-row fragment: rows 8..15 are never
+//    exponentiated, their probabilities are 0 and they are not stored.
+// M must be a multiple of 8 (16-byte rows); the last tile's keys past M
+// load as zeros and score -inf.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -36,149 +58,317 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
+constexpr int HD = 16;                       // head dim (one k16 step)
+constexpr int TK = 64;                       // keys a tile
+constexpr int LD = TK + 8;                   // padded row of a tile
+constexpr int STAGES = 3;
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Merge online-softmax state (m_b, l_b, acc_b) into (m, l, acc).
-template <int HD>
-__device__ __forceinline__ void merge(float& m, float& l, float* acc,
-                                      float m_b, float l_b, const float* acc_b) {
-  const float m_new = fmaxf(m, m_b);
-  const float a = (m == -INFINITY) ? 0.f : expf(m - m_new);
-  const float b = (m_b == -INFINITY) ? 0.f : expf(m_b - m_new);
-  l = l * a + l_b * b;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c += a · b for one 16x8x16 bf16 tile, f32 accumulation.
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p, bool valid) {
+  return valid ? *reinterpret_cast<const uint32_t*>(p) : 0u;
+}
+
+// 8 bf16 sums a + b, each rounded to bf16.
+__device__ __forceinline__ uint4 add8(uint4 a, uint4 b) {
+  __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
 #pragma unroll
-  for (int j = 0; j < HD; ++j) acc[j] = acc[j] * a + acc_b[j] * b;
-  m = m_new;
+  for (int i = 0; i < 4; ++i) {
+    const float2 fx = __bfloat1622float2(x[i]), fy = __bfloat1622float2(y[i]);
+    x[i] = __floats2bfloat162_rn(fx.x + fy.x, fx.y + fy.y);
+  }
+  return a;
 }
 
-// PE: k and v arrive as the halves of one projection with pe and the v
-// bias added here; otherwise as separate tensors, used as they are.
-template <int HD, int NQ, bool PE>
-__global__ void __launch_bounds__(THREADS)
-token_cross_kernel(const __nv_bfloat16* __restrict__ q,    // [B, NQ, D]
+// SHARED: the CTA's 8 warps share one ring (group of 256 threads);
+// otherwise each warp is its own group with its own ring.
+template <bool SHARED>
+__device__ __forceinline__ void group_sync() {
+  if (SHARED) __syncthreads(); else __syncwarp();
+}
+
+// Shared k|v: 448 CTAs at the serving shape; at most 80 registers a
+// thread let 3 CTAs share an SM.
+template <bool PE, bool SHARED>
+__global__ void __launch_bounds__(THREADS, SHARED ? 3 : 1)
+token_cross_kernel(const __nv_bfloat16* __restrict__ q,    // [B·n, D]
                    const __nv_bfloat16* __restrict__ kt,   // prompt 0's [D, M] keys
                    const __nv_bfloat16* __restrict__ vt,   // prompt 0's [D, M] values
-                   size_t kv_stride,                       // elements a prompt; 0 = shared
+                   size_t kv_stride,                       // elements a prompt
                    const __nv_bfloat16* __restrict__ pe,   // [D, M] (PE only)
                    const __nv_bfloat16* __restrict__ vb,   // [D] (PE only)
-                   __nv_bfloat16* __restrict__ out,        // [B, NQ, D]
-                   int d, int m, float scale) {
-  __shared__ float sq[NQ][HD];
-  __shared__ float sm[WARPS][NQ];
-  __shared__ float sl[WARPS][NQ];
-  __shared__ float sacc[WARPS][NQ][HD];
+                   __nv_bfloat16* __restrict__ out,        // [B·n, D]
+                   int rows, int n, int d, int m, int heads, float scale_log2) {
+  constexpr int NMAT = PE ? 3 : 2;                         // k, v (, pe) tiles
+  constexpr int MAT = HD * LD;
+  constexpr int STAGE = NMAT * MAT;
+  constexpr int GTHREADS = SHARED ? THREADS : 32;
+  constexpr bool HALF = !SHARED;                           // rows 8..15 are padding
+  extern __shared__ __align__(16) __nv_bfloat16 smem[];
 
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-
-  for (int i = threadIdx.x; i < NQ * HD; i += THREADS)
-    sq[i / HD][i % HD] =
-        __bfloat162float(q[((size_t)b * NQ + i / HD) * d + h * HD + i % HD]);
-  __syncthreads();
-
-  const __nv_bfloat16* kb = kt + b * kv_stride + (size_t)h * HD * m;
-  const __nv_bfloat16* vbp = vt + b * kv_stride + (size_t)h * HD * m;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = lane % 4;
+  int h, r0, nrows, gtid;
+  const __nv_bfloat16 *kb, *vbase;
+  __nv_bfloat16* ring;
+  if (SHARED) {
+    h = blockIdx.y;
+    r0 = blockIdx.x * (WARPS * 16) + warp * 16;
+    nrows = rows - r0;                                     // may be <= 0: load only
+    kb = kt + (size_t)h * HD * m;
+    vbase = vt + (size_t)h * HD * m;
+    ring = smem;
+    gtid = threadIdx.x;
+  } else {
+    h = blockIdx.y * WARPS + warp;
+    if (h >= heads) return;                                // no CTA-wide sync below
+    r0 = blockIdx.x * n;
+    nrows = n;
+    kb = kt + blockIdx.x * kv_stride + (size_t)h * HD * m;
+    vbase = vt + blockIdx.x * kv_stride + (size_t)h * HD * m;
+    ring = smem + warp * STAGES * STAGE;
+    gtid = lane;
+  }
   const __nv_bfloat16* pb = PE ? pe + (size_t)h * HD * m : nullptr;
-  float vbias[HD];
-#pragma unroll
-  for (int j = 0; j < HD; ++j) vbias[j] = PE ? __bfloat162float(vb[h * HD + j]) : 0.f;
+  const int ntiles = (m + TK - 1) / TK;
 
-  float mrun[NQ], lrun[NQ], acc[NQ][HD];
+  // A stage holds the tile's rows stacked as [k 0..15 | v 0..15 | pe 0..15]
+  // x TK keys. Each thread copies the same 16-byte chunks of every tile:
+  // column ch of stacked rows rbase, rbase + G8, ..., so its source
+  // pointers are set once and move by TK keys a tile, and it forms k + pe
+  // and v + bias on exactly the chunks it copied (no barrier between).
+  constexpr int G8 = GTHREADS / (TK / 8);                  // stacked rows a pass
+  constexpr int PASSES = (NMAT * HD + G8 - 1) / G8;
+  const int ch = gtid % (TK / 8), rbase = gtid / (TK / 8);
+  const __nv_bfloat16* src[PASSES];
+  uint32_t vbias[PASSES];                                  // bf16x2 of v's bias row
 #pragma unroll
-  for (int i = 0; i < NQ; ++i) {
-    mrun[i] = -INFINITY;
-    lrun[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < HD; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int key = threadIdx.x; key < m; key += THREADS) {
-    float kf[HD];
-#pragma unroll
-    for (int j = 0; j < HD; ++j)
-      kf[j] = PE ? bf16_round(__bfloat162float(kb[(size_t)j * m + key]) +
-                              __bfloat162float(pb[(size_t)j * m + key]))
-                 : __bfloat162float(kb[(size_t)j * m + key]);
-    float p[NQ];
-#pragma unroll
-    for (int i = 0; i < NQ; ++i) {
-      float s = 0.f;
-#pragma unroll
-      for (int j = 0; j < HD; ++j) s = fmaf(sq[i][j], kf[j], s);
-      s *= scale;
-      const float m_new = fmaxf(mrun[i], s);
-      const float a = (mrun[i] == -INFINITY) ? 0.f : expf(mrun[i] - m_new);
-      p[i] = expf(s - m_new);
-      lrun[i] = lrun[i] * a + p[i];
-#pragma unroll
-      for (int j = 0; j < HD; ++j) acc[i][j] *= a;
-      mrun[i] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < HD; ++j) {
-      const float vf = PE ? bf16_round(__bfloat162float(vbp[(size_t)j * m + key]) + vbias[j])
-                          : __bfloat162float(vbp[(size_t)j * m + key]);
-#pragma unroll
-      for (int i = 0; i < NQ; ++i) acc[i][j] = fmaf(p[i], vf, acc[i][j]);
+  for (int p = 0; p < PASSES; ++p) {
+    const int rowlin = rbase + p * G8, mat = rowlin / HD, row = rowlin % HD;
+    src[p] = rowlin < NMAT * HD
+                 ? (mat == 0 ? kb : (mat == 1 ? vbase : pb)) + (size_t)row * m + ch * 8
+                 : nullptr;
+    vbias[p] = 0u;
+    if (PE && mat == 1) {
+      const __nv_bfloat162 b2 = __bfloat162bfloat162(vb[h * HD + row]);
+      vbias[p] = *reinterpret_cast<const uint32_t*>(&b2);
     }
   }
 
-  // Merge the 32 lanes' states by shuffles.
+  auto load_tile = [&](int t) {
+    if (t < ntiles) {
+      __nv_bfloat16* st = ring + (t % STAGES) * STAGE + rbase * LD + ch * 8;
+      const bool valid = t * TK + ch * 8 < m;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int i = 0; i < NQ; ++i) {
-      const float m_b = __shfl_xor_sync(0xffffffffu, mrun[i], off);
-      const float l_b = __shfl_xor_sync(0xffffffffu, lrun[i], off);
-      float acc_b[HD];
-#pragma unroll
-      for (int j = 0; j < HD; ++j)
-        acc_b[j] = __shfl_xor_sync(0xffffffffu, acc[i][j], off);
-      merge<HD>(mrun[i], lrun[i], acc[i], m_b, l_b, acc_b);
+      for (int p = 0; p < PASSES; ++p)
+        if (src[p] != nullptr)
+          cp_async16(st + p * G8 * LD, src[p] + (valid ? t * TK : 0), valid);
     }
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < NQ; ++i) {
-      sm[warp][i] = mrun[i];
-      sl[warp][i] = lrun[i];
-#pragma unroll
-      for (int j = 0; j < HD; ++j) sacc[warp][i][j] = acc[i][j];
-    }
-  }
-  __syncthreads();
+    cp_async_commit();                                      // empty groups keep the count
+  };
 
-  // Merge the warps: one thread per (query, channel).
-  if (threadIdx.x < NQ * HD) {
-    const int i = threadIdx.x / HD, j = threadIdx.x % HD;
-    float mx = -INFINITY;
-    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, sm[w][i]);
-    float l = 0.f, a = 0.f;
-    for (int w = 0; w < WARPS; ++w) {
-      const float e = (sm[w][i] == -INFINITY) ? 0.f : expf(sm[w][i] - mx);
-      l += sl[w][i] * e;
-      a += sacc[w][i][j] * e;
+  // Q fragment (A of Q·Kᵀ): rows g and g+8 of the warp's 16, cols 2c.. and 2c+8..
+  uint32_t qa[4];
+  {
+    const __nv_bfloat16* qr = q + (size_t)(r0 + g) * d + h * HD + 2 * c;
+    qa[0] = ld_u32(qr, g < nrows);
+    qa[1] = ld_u32(qr + 8 * (size_t)d, g + 8 < nrows);
+    qa[2] = ld_u32(qr + 8, g < nrows);
+    qa[3] = ld_u32(qr + 8 * (size_t)d + 8, g + 8 < nrows);
+  }
+
+  float acc[2][4] = {};                                     // O: hd 0-7, 8-15
+  float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
+
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) load_tile(t);
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait();                                        // own chunks of tile t landed
+    __nv_bfloat16* sk = ring + (t % STAGES) * STAGE;
+    __nv_bfloat16* sv = sk + MAT;
+    if (PE) {
+      // k += pe and v += bias in place on the own chunks, rounded to bf16.
+      __nv_bfloat16* own = sk + rbase * LD + ch * 8;
+#pragma unroll
+      for (int p = 0; p < PASSES; ++p) {
+        const int rowlin = rbase + p * G8;
+        uint4* x = reinterpret_cast<uint4*>(own + p * G8 * LD);
+        if (rowlin < HD)
+          *x = add8(*x, *reinterpret_cast<const uint4*>(own + (p * G8 + 2 * HD) * LD));
+        else if (rowlin < 2 * HD)
+          *x = add8(*x, make_uint4(vbias[p], vbias[p], vbias[p], vbias[p]));
+      }
     }
-    out[((size_t)b * NQ + i) * d + h * HD + j] = __float2bfloat16(a / l);
+    group_sync<SHARED>();                                   // tile t formed; t-1 consumed
+    load_tile(t + STAGES - 1);
+
+    // S = Q·Kᵀ: 8 chunks of 8 keys; ldmatrix.trans of K's [16 hd, 8 keys] blocks.
+    float s[TK / 8][4];
+    const int mi = lane / 8, rr = lane % 8;
+#pragma unroll
+    for (int jj = 0; jj < TK / 16; ++jj) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, sk + ((mi & 1) * 8 + rr) * LD + (2 * jj + (mi >> 1)) * 8);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[2 * jj][e] = s[2 * jj + 1][e] = 0.f;
+      mma16816(s[2 * jj], qa, b[0], b[1]);
+      mma16816(s[2 * jj + 1], qa, b[2], b[3]);
+    }
+
+    // Online softmax over the tile in the log2 domain: the max is
+    // taken on the raw scores (the scale is positive), and each
+    // probability is one FFMA and one exp2 of its raw score. Keys past M
+    // (last tile only) score -inf.
+    if (t * TK + TK > m) {
+#pragma unroll
+      for (int j = 0; j < TK / 8; ++j)
+        if (t * TK + j * 8 >= m)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = -INFINITY;
+    }
+    float alpha[2], m_neg[2];
+#pragma unroll
+    for (int r = 0; r < (HALF ? 1 : 2); ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < TK / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(mrow[r], mx * scale_log2);
+      alpha[r] = ex2(mrow[r] - m_new);                    // 0 on the first tile
+      mrow[r] = m_new;
+      m_neg[r] = -m_new;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < TK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (HALF && e >= 2) {
+          s[j][e] = 0.f;
+        } else {
+          s[j][e] = ex2(fmaf(s[j][e], scale_log2, m_neg[e / 2]));
+          sum[e / 2] += s[j][e];
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < (HALF ? 1 : 2); ++r) {
+      lrow[r] = lrow[r] * alpha[r] + sum[r];
+#pragma unroll
+      for (int nc = 0; nc < 2; ++nc) {
+        acc[nc][2 * r] *= alpha[r];
+        acc[nc][2 * r + 1] *= alpha[r];
+      }
+    }
+
+    // O += P·V: P from the S fragments; V's [8 hd, 8 keys] blocks by ldmatrix.
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      uint32_t b[4];
+      ldsm_x4(b, sv + ((mi >> 1) * 8 + rr) * LD + kk * 16 + (mi & 1) * 8);
+      mma16816(acc[0], pa, b[0], b[1]);
+      mma16816(acc[1], pa, b[2], b[3]);
+    }
+  }
+
+  // Finish the row sums across the quad and store rows < nrows.
+#pragma unroll
+  for (int r = 0; r < (HALF ? 1 : 2); ++r) {
+    lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 1);
+    lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 2);
+    const int row = g + 8 * r;
+    if (row < nrows) {
+      const float inv = 1.f / lrow[r];
+      __nv_bfloat16* o = out + (size_t)(r0 + row) * d + h * HD + 2 * c;
+#pragma unroll
+      for (int nc = 0; nc < 2; ++nc)
+        *reinterpret_cast<uint32_t*>(o + nc * 8) =
+            pack_bf16(acc[nc][2 * r] * inv, acc[nc][2 * r + 1] * inv);
+    }
   }
 }
 
-template <int HD, int NQ, bool PE>
+template <bool PE, bool SHARED>
+constexpr int smem_bytes() {
+  return (SHARED ? 1 : WARPS) * STAGES * (PE ? 3 : 2) * HD * LD * 2;
+}
+
+template <bool PE, bool SHARED>
 int launch(const void* q, const void* kt, const void* vt, size_t kv_stride, const void* pe,
-           const void* vb, void* out, int b, int d, int m, int heads, cudaStream_t stream) {
-  dim3 grid(b, heads);
-  token_cross_kernel<HD, NQ, PE><<<grid, THREADS, 0, stream>>>(
+           const void* vb, void* out, int b, int n, int d, int m, int heads,
+           cudaStream_t stream) {
+  constexpr int smem = smem_bytes<PE, SHARED>();
+  auto kernel = token_cross_kernel<PE, SHARED>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = b * n;
+  const dim3 grid = SHARED ? dim3((rows + WARPS * 16 - 1) / (WARPS * 16), heads)
+                           : dim3(b, (heads + WARPS - 1) / WARPS);
+  kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kt),
       static_cast<const __nv_bfloat16*>(vt), kv_stride, static_cast<const __nv_bfloat16*>(pe),
-      static_cast<const __nv_bfloat16*>(vb), static_cast<__nv_bfloat16*>(out), d, m,
-      1.f / sqrtf((float)HD));
+      static_cast<const __nv_bfloat16*>(vb), static_cast<__nv_bfloat16*>(out), rows, n, d, m,
+      heads, LOG2E / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
 
@@ -186,10 +376,11 @@ template <bool PE>
 int dispatch(const void* q, const void* kt, const void* vt, size_t kv_stride, const void* pe,
              const void* vb, void* out, int b, int n, int d, int m, int heads,
              cudaStream_t s) {
-  if (heads <= 0 || d % heads != 0 || d / heads != 16) return (int)cudaErrorInvalidValue;
-  if (n == 7) return launch<16, 7, PE>(q, kt, vt, kv_stride, pe, vb, out, b, d, m, heads, s);
-  if (n == 8) return launch<16, 8, PE>(q, kt, vt, kv_stride, pe, vb, out, b, d, m, heads, s);
-  return (int)cudaErrorInvalidValue;
+  if (heads <= 0 || d != heads * HD || (n != 7 && n != 8) || m <= 0 || m % 8)
+    return (int)cudaErrorInvalidValue;
+  if (kv_stride == 0)
+    return launch<PE, true>(q, kt, vt, 0, pe, vb, out, b, n, d, m, heads, s);
+  return launch<PE, false>(q, kt, vt, kv_stride, pe, vb, out, b, n, d, m, heads, s);
 }
 
 }  // namespace
@@ -207,4 +398,10 @@ extern "C" int rat_token_cross(const void* q, const void* kt, const void* vt, vo
                                void* stream) {
   return dispatch<false>(q, kt, vt, kv_shared ? 0 : (size_t)d * m, nullptr, nullptr, out, b,
                          n, d, m, heads, static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory a CTA of each schedule takes (for reports).
+extern "C" int rat_token_cross_smem(int pe, int shared) {
+  if (pe) return shared ? smem_bytes<true, true>() : smem_bytes<true, false>();
+  return shared ? smem_bytes<false, true>() : smem_bytes<false, false>();
 }

@@ -47,7 +47,8 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     decomposed rel-pos bias bias_h/bias_w [B, H, N, side]
     (bias[q, k] = bias_h[q, k // side] + bias_w[q, k % side], N = side²).
 
-    CUDA: kernel K1 (bf16, Dh 64 or 80). CPU: :func:`attend_reference`."""
+    CUDA: kernel K1 (bf16, Dh 64 or 80, side <= 64). CPU:
+    :func:`attend_reference`."""
     if not q.is_cuda:
         return attend_reference(q, k, v, bias_h, bias_w, side)
     b, h, n, dh = q.shape
@@ -60,8 +61,9 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vf = operand("v", v, torch.bfloat16, shape)
     has_bias = bias_h is not None
     if has_bias:
-        if side * side != n:
-            raise ValueError(f"bias needs N == side² ({n} vs {side})")
+        if side * side != n or side > 64:
+            raise ValueError(f"bias needs N == side² and side <= 64 (N={n}, "
+                             f"side={side})")
         bh = operand("bias_h", bias_h, torch.bfloat16, (b, h, n, side))
         bw = operand("bias_w", bias_w, torch.bfloat16, (b, h, n, side))
     out = torch.empty_like(qf)
@@ -97,7 +99,7 @@ def token_cross_attend(q: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
     keys and values transposed: kt, vt [B or 1, D, M] (leading dim 1 =
     shared by every prompt). Returns [B, n, D].
 
-    CUDA: kernel B10 (bf16, head dim 16, n 7 or 8). CPU:
+    CUDA: kernel B10 (bf16, head dim 16, n 7 or 8, M % 8 == 0). CPU:
     :func:`token_cross_attend_reference`."""
     if not q.is_cuda:
         return token_cross_attend_reference(q, kt, vt, heads)
@@ -108,6 +110,9 @@ def token_cross_attend(q: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
                          f"heads={heads}) not built (head dim 16, n 7|8)")
     if lead not in (1, b):
         raise ValueError(f"kt leading dim {lead} is neither 1 nor {b}")
+    if m % 8:
+        raise ValueError(f"token cross attention: M={m} is not a multiple "
+                         "of 8")
     qf = operand("q", q, torch.bfloat16, (b, n, d))
     kf = operand("kt", kt, torch.bfloat16, (lead, d, m))
     vf = operand("vt", vt, torch.bfloat16, (lead, d, m))
@@ -140,8 +145,8 @@ def token_cross_attend_kv(q: torch.Tensor, kvt: torch.Tensor,
     by every prompt); pe_kt [1, D, M] is added to k and v_bias [D] to v
     inside the kernel. Returns [B, n, D].
 
-    CUDA: kernel K2 (bf16, head dim 16, n 7 or 8). CPU: the plain
-    version."""
+    CUDA: kernel K2 (bf16, head dim 16, n 7 or 8, M % 8 == 0). CPU: the
+    plain version."""
     if not q.is_cuda:
         return token_cross_attend_kv_reference(q, kvt, pe_kt, v_bias, heads)
     b, n, d = q.shape
@@ -152,6 +157,9 @@ def token_cross_attend_kv(q: torch.Tensor, kvt: torch.Tensor,
     if kvt.shape[0] not in (1, b):
         raise ValueError(f"kvt leading dim {kvt.shape[0]} is neither 1 "
                          f"nor {b}")
+    if m % 8:
+        raise ValueError(f"token cross attention: M={m} is not a multiple "
+                         "of 8")
     qf = operand("q", q, torch.bfloat16, (b, n, d))
     kv = operand("kvt", kvt, torch.bfloat16, (kvt.shape[0], 2 * d, m))
     pe = operand("pe_kt", pe_kt.to(torch.bfloat16).reshape(d, m),

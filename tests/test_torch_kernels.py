@@ -113,59 +113,125 @@ def test_kernel_table_points_at_sources():
             assert "pallas_call" in f.readlines()[int(line) - 1]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("n,dh,bias", [(4096, 80, True), (1531, 64, False),
-                                       (200, 64, False)])
-def test_flash_kernel_matches_plain(cuda, n, dh, bias):
-    g = torch.Generator(device=cuda).manual_seed(0)
+def _flash_inputs(cuda, b, n, dh, bias, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     bf = torch.bfloat16
-    q, k, v = (torch.randn((1, 2, n, dh), generator=g, device=cuda).to(bf)
+    q, k, v = (torch.randn((b, 2, n, dh), generator=g, device=cuda).to(bf)
                for _ in range(3))
     side = int(round(n ** 0.5)) if bias else 0
     bh = bw = None
     if bias:
-        bh, bw = (torch.randn((1, 2, n, side), generator=g,
+        bh, bw = (torch.randn((b, 2, n, side), generator=g,
                               device=cuda).to(bf) for _ in range(2))
+    return (q, k, v, bh, bw), side
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,dh,bias", [
+    (1, 4096, 80, True),     # SAM ViT-H global layer (side 64)
+    (1, 1531, 64, False),    # DINOv2-g: ragged last key and row tile
+    (1, 200, 64, False),
+    (2, 64, 64, False),      # batch·heads 4, one partial tile
+    (2, 65, 80, False),      # one key past a 64-row boundary
+    (2, 1531, 80, False),
+    (2, 196, 80, True),      # side 14: the bias looked up per score
+    (2, 1024, 64, True),     # side 32
+    (1, 256, 80, True),      # side 16 (the smoke's small SAM)
+])
+def test_flash_kernel_matches_plain(cuda, b, n, dh, bias):
+    args, side = _flash_inputs(cuda, b, n, dh, bias)
     before = build.FLASH_ATTENTION.launches
-    got = att.attend(q, k, v, bh, bw, side=side)
-    want = att.attend_reference(q, k, v, bh, bw, side=side)
+    got = att.attend(*args, side=side)
+    want = att.attend_reference(*args, side=side)
     torch.cuda.synchronize()
     assert build.FLASH_ATTENTION.launches == before + 1
+    assert got.shape == want.shape
     assert _rel_err(got, want) < BF16_REL
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("shared", [True, False])
-def test_token_cross_kernel_matches_plain(cuda, shared):
-    g = torch.Generator(device=cuda).manual_seed(1)
+def _token_inputs(cuda, b, n, m, lead, pe, seed=1):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     bf = torch.bfloat16
-    b, n, d, m = 16, 7, 128, 4096
+    d = 128
     q = torch.randn((b, n, d), generator=g, device=cuda).to(bf)
-    kvt = torch.randn((1 if shared else b, 2 * d, m), generator=g,
-                      device=cuda).to(bf)
-    pe = torch.randn((1, d, m), generator=g, device=cuda).to(bf)
-    vb = torch.randn((d,), generator=g, device=cuda).to(bf)
-    got = att.token_cross_attend_kv(q, kvt, pe, vb, 8)
-    want = att.token_cross_attend_kv_reference(q, kvt, pe, vb, 8)
+    if pe:
+        return (q, torch.randn((lead, 2 * d, m), generator=g,
+                               device=cuda).to(bf),
+                torch.randn((1, d, m), generator=g, device=cuda).to(bf),
+                torch.randn((d,), generator=g, device=cuda).to(bf))
+    return (q,) + tuple(torch.randn((lead, d, m), generator=g,
+                                    device=cuda).to(bf) for _ in range(2))
+
+
+# (shared k|v, prompts, queries a prompt, keys): the serving shapes; 5
+# prompts of 7 rows (a prompt crosses a warp's 16 rows, the last row tile
+# is ragged); 20 prompts (a prompt crosses a CTA's 128 rows); n = 8; M =
+# 1024 and ragged last key tiles (M = 1000, 1032).
+TOKEN_CASES = [(True, 16, 7, 4096), (False, 16, 7, 4096),
+               (True, 5, 7, 4096), (True, 20, 7, 1024), (True, 5, 8, 1000),
+               (True, 4, 7, 1032), (False, 5, 8, 1024), (False, 3, 7, 1000)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared,b,n,m", TOKEN_CASES)
+def test_token_cross_kernel_matches_plain(cuda, shared, b, n, m):
+    args = _token_inputs(cuda, b, n, m, 1 if shared else b, pe=True)
+    before = build.TOKEN_CROSS.launches
+    got = att.token_cross_attend_kv(*args, 8)
+    want = att.token_cross_attend_kv_reference(*args, 8)
     torch.cuda.synchronize()
+    assert build.TOKEN_CROSS.launches == before + 1
+    assert got.shape == want.shape == (b, n, 128)
     assert _rel_err(got, want) < BF16_REL
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shared", [True, False])
-def test_token_cross_split_kernel_matches_plain(cuda, shared):
-    g = torch.Generator(device=cuda).manual_seed(8)
-    bf = torch.bfloat16
-    b, n, d, m = 16, 7, 128, 4096
-    q = torch.randn((b, n, d), generator=g, device=cuda).to(bf)
-    kt, vt = (torch.randn((1 if shared else b, d, m), generator=g,
-                          device=cuda).to(bf) for _ in range(2))
+@pytest.mark.parametrize("shared,b,n,m", TOKEN_CASES)
+def test_token_cross_split_kernel_matches_plain(cuda, shared, b, n, m):
+    args = _token_inputs(cuda, b, n, m, 1 if shared else b, pe=False,
+                         seed=8)
     before = build.TOKEN_CROSS_SPLIT.launches
-    got = att.token_cross_attend(q, kt, vt, 8)
-    want = att.token_cross_attend_reference(q, kt, vt, 8)
+    got = att.token_cross_attend(*args, 8)
+    want = att.token_cross_attend_reference(*args, 8)
     torch.cuda.synchronize()
     assert build.TOKEN_CROSS_SPLIT.launches == before + 1
+    assert got.shape == want.shape == (b, n, 128)
     assert _rel_err(got, want) < BF16_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["flash", "flash_bias", "token_shared",
+                                  "token_prompt", "split_shared"])
+def test_attention_kernels_are_bitwise_repeatable(cuda, case):
+    """Two launches on the same inputs give the same bits (no atomics, no
+    order that depends on scheduling)."""
+    if case.startswith("flash"):
+        args, side = _flash_inputs(cuda, 2, 1024, 80, case == "flash_bias")
+        run = lambda: att.attend(*args, side=side)  # noqa: E731
+    elif case.startswith("token"):
+        shared = case == "token_shared"
+        args = _token_inputs(cuda, 20, 7, 4096, 1 if shared else 20, pe=True)
+        run = lambda: att.token_cross_attend_kv(*args, 8)  # noqa: E731
+    else:
+        args = _token_inputs(cuda, 20, 7, 4096, 1, pe=False)
+        run = lambda: att.token_cross_attend(*args, 8)  # noqa: E731
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_attention_kernels_refuse_shapes_they_do_not_take(cuda):
+    """K2 and B10 need M % 8 == 0; K1's bias needs side <= 64."""
+    args = _token_inputs(cuda, 2, 7, 1004, 2, pe=True)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        att.token_cross_attend_kv(*args, 8)
+    args = _token_inputs(cuda, 2, 7, 1004, 1, pe=False)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        att.token_cross_attend(*args, 8)
+    args, side = _flash_inputs(cuda, 1, 65 * 65, 64, True)
+    with pytest.raises(ValueError, match="side <= 64"):
+        att.attend(*args, side=side)
 
 
 @pytest.mark.gpu
