@@ -9,8 +9,9 @@ Phases (any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the twelve kernels from revisit_anything_tpu_torch/kernels/csrc
      (one nvcc per source, in parallel);
-  3. print the registers, shared memory and spill bytes of the three
-     redesigned attention entry points (K1, K2, B10) from ptxas.log; then
+  3. print the registers, shared memory and spill bytes of the four
+     redesigned attention entry points (K1, K2, B10, B11) from ptxas.log;
+     then
      compare every kernel with its plain version in bf16 at the main
      path's shapes, timing both with CUDA events (median of 7 after
      warm-up, each call queued behind a device sleep so that its host
@@ -36,7 +37,9 @@ Phases (any failure exits non-zero):
      deterministic;
   7. time one query's stages with CUDA events (the split must give
      query()'s answer) and trace one query with torch.profiler for the
-     device's busy time;
+     device's busy time and its host-to-device copies (at most 2: the
+     image and the adjacency); then profile one windowed encoder block
+     by op, with plain and with kernel windows;
   8. serve one planted query with the encoder's windowed layers through
      the window kernel (B11) with the counters reset first: it must launch
      once per windowed layer (28), the planted image must come first;
@@ -163,11 +166,15 @@ PTXAS_KERNELS = (
      "rat_flash_attention", "rat_flash_attention_smem", (80,)),
     ("flash_attention_kernelILi64ELi0E", "K1 Dh 64, no bias",
      "rat_flash_attention", "rat_flash_attention_smem", (64,)),
+    ("win_attention_kernelILi80ELi2E", "B11 hd 80, sides 8-15 (at 14)",
+     "rat_win_attention", "rat_win_attention_smem", (14, 80)),
+    ("win_attention_kernelILi64ELi2E", "B11 hd 64, sides 8-15 (at 14)",
+     "rat_win_attention", "rat_win_attention_smem", (14, 64)),
 )
 
 
 def ptxas_report() -> None:
-    """Print the registers, shared memory and spill bytes of the three
+    """Print the registers, shared memory and spill bytes of the four
     redesigned entry points' kernels, read from the build's ptxas.log
     (dynamic shared memory from the sources' own size functions)."""
     import re
@@ -660,6 +667,7 @@ def serve(dev, seed: int = 0) -> dict:
     if missing:
         _fail(f"kernels not launched on the served path: {missing}")
     stage_split(srv, queries[2], answers[2])
+    layer_breakdown(srv)
     window = serve_window_kernel(srv, queries[0])
 
     # the probability-factored decoder forms: same weights, index and
@@ -915,10 +923,75 @@ def stage_split(srv, img, answer) -> None:
         busy += max(0.0, hi - max(lo, end))
         end = max(end, hi)
     total = sum(hi - lo for lo, hi in spans)
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    h2d = sum("HtoD" in n for n in names)
+    d2h = sum("DtoH" in n for n in names)
     print(f"[trace] one traced query: {len(spans)} device events, device "
           f"busy {busy / 1e3:.3f} ms (union of intervals; their plain sum "
-          f"{total / 1e3:.3f} ms) of {traced_ms:.3f} ms traced wall",
+          f"{total / 1e3:.3f} ms) of {traced_ms:.3f} ms traced wall; "
+          f"{h2d} host-to-device copies, {d2h} device-to-host copies",
           flush=True)
+    # a query uploads the image and the adjacency, nothing else
+    if h2d > 2:
+        _fail(f"a traced query made {h2d} host-to-device copies (expected "
+              f"at most 2: the image and the adjacency)")
+
+
+def layer_breakdown(srv, top: int = 8) -> None:
+    """Device time of one windowed encoder block (SAM ViT-H's block 0 on
+    the 64x64 grid, bf16) by op, with plain and with kernel windows:
+    torch.profiler over 3 calls after warm-up, self device time per op,
+    the ``top`` largest with their share of the block."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    enc = srv.sam.encoder
+    cfg = srv.sam_cfg
+    i = next(j for j in range(cfg.encoder_depth)
+             if j not in cfg.global_attn_indexes)
+    g = torch.Generator(device=srv.device).manual_seed(3)
+    x = torch.randn((1, cfg.grid, cfg.grid, cfg.encoder_dim), generator=g,
+                    device=srv.device).to(enc.patch_embed.w.dtype)
+    reps = 3
+    try:
+        for form in ("plain", "kernel"):
+            enc.window_attention = form
+            with torch.inference_mode():
+                for _ in range(2):
+                    enc._block(x, i)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(reps):
+                        enc._block(x, i)
+                    torch.cuda.synchronize()
+            # kernels' own entries give the block's device time; the aten
+            # ops that launched them (self device time) name its parts,
+            # and what no aten op launched (B11, through ctypes) is the
+            # rest
+            total, rows = 0.0, []
+            for ev in prof.key_averages():
+                ms = getattr(ev, "self_device_time_total", 0.0) / reps / 1e3
+                if ms <= 0:
+                    continue
+                if ev.device_type == DeviceType.CUDA:
+                    total += ms
+                else:
+                    rows.append((ms, ev.key))
+            if total <= 0:
+                _fail(f"[layer] the profiler saw no device time ({form})")
+            rows.append((total - sum(ms for ms, _ in rows),
+                         "kernels no aten op launched"))
+            rows.sort(reverse=True)
+            parts = "; ".join(f"{name} {ms:.4f} ms {ms / total:.3f}"
+                              for ms, name in rows[:top])
+            print(f"[layer] windowed block {i}, {form} windows: device "
+                  f"{total:.4f} ms a block (torch.profiler, self device "
+                  f"time, mean of {reps}); top ops: {parts}", flush=True)
+    finally:
+        enc.window_attention = "plain"
 
 
 def reference_check(dev, seed: int = 7) -> None:

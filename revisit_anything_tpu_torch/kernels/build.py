@@ -80,6 +80,7 @@ SIGNATURES: Dict[str, Sequence] = {
     # reports, no launch: dynamic shared memory of a CTA in bytes
     "rat_token_cross_smem": (_I, _I),           # pe, shared
     "rat_flash_attention_smem": (_I,),          # hd
+    "rat_win_attention_smem": (_I, _I),         # side, hd
 }
 
 _lock = threading.Lock()

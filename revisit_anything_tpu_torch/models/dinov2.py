@@ -98,6 +98,8 @@ class DinoV2(nn.Module):
         self.norm = LayerNorm(d, **kw)
         self.register_tokens = (param(1, cfg.num_register_tokens, d, **kw)
                                 if cfg.num_register_tokens else None)
+        # interpolate_pos_embed's results: grid → (key, table)
+        self._pos_cache: dict = {}
 
 
 def _attention(x: torch.Tensor, blk: DinoBlock,
@@ -137,8 +139,31 @@ def interpolate_pos_embed(model: DinoV2, cfg: DinoV2Config,
                           grid_hw: Tuple[int, int]) -> torch.Tensor:
     """Bicubic resize of the pretrain patch position grid to ``grid_hw``
     (keeping the cls position), with the hub's scale-factor semantics:
-    source coordinate = (dst + 0.5)·pretrain/(grid + offset) − 0.5."""
-    pos = model.pos_embed.float()
+    source coordinate = (dst + 0.5)·pretrain/(grid + offset) − 0.5.
+
+    Computed once per grid size and cached on the model, keyed on the
+    position table's storage and version counter: a weight load writes
+    the table in place (``weights.load_tree``, the seeded initializers)
+    and so recomputes it (a model built in inference mode has no version
+    counter and recomputes every call). Callers must not write to the
+    result."""
+    grid_hw = tuple(grid_hw)
+    pe = model.pos_embed
+    if pe.is_inference():
+        return _resize_pos_embed(pe, cfg, grid_hw)
+    key = (pe.device, pe.dtype, pe.data_ptr(), pe._version)
+    hit = model._pos_cache.get(grid_hw)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    with torch.inference_mode(False):
+        table = _resize_pos_embed(pe, cfg, grid_hw)
+    model._pos_cache[grid_hw] = (key, table)
+    return table
+
+
+def _resize_pos_embed(pe: torch.Tensor, cfg: DinoV2Config,
+                      grid_hw: Tuple[int, int]) -> torch.Tensor:
+    pos = pe.float()
     cls_pos, patch_pos = pos[:, :1], pos[:, 1:]
     gh0, gw0 = cfg.pretrain_grid
     gh, gw = grid_hw

@@ -8,10 +8,35 @@ is created with ``requires_grad=False``.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
+
+_CONSTANTS: Dict[tuple, torch.Tensor] = {}
+
+
+def device_constant(key: tuple, device, make: Callable) -> torch.Tensor:
+    """A constant built and uploaded once per (``key``, device).
+
+    ``make()`` returns it on the host (a numpy array or a CPU tensor);
+    later calls return the cached copy on ``device``, so a hot path makes
+    no host→device copy for it (a copy from pageable memory would
+    synchronize the stream). Built outside inference mode, so callers in
+    any mode may use it. The cache is shared by the process: each value
+    is a pure function of its key, so two callers racing on a miss only
+    build it twice. Callers must not write to it."""
+    k = (key, torch.device(device))
+    t = _CONSTANTS.get(k)
+    if t is None:
+        with torch.inference_mode(False):
+            v = make()
+            if not isinstance(v, torch.Tensor):
+                v = torch.from_numpy(np.ascontiguousarray(v))
+            t = v.to(k[1])
+        _CONSTANTS[k] = t
+    return t
 
 
 def param(*shape: int, dtype: torch.dtype, device) -> nn.Parameter:

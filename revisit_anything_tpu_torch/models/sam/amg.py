@@ -19,6 +19,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from revisit_anything_tpu_torch.models.layers import device_constant
 from revisit_anything_tpu_torch.models.sam.config import SamArchConfig
 from revisit_anything_tpu_torch.models.sam.decoder import (DECODES,
                                                            decode_masks)
@@ -95,8 +96,10 @@ def _decode_batch(sam, cfg: SamArchConfig, image_embedding: torch.Tensor,
                           torch.ones((bsz, 1), dtype=torch.int32,
                                      device=dev), pad=True)
     dense = no_mask_dense_embedding(sam.prompt, cfg, 1)
-    wh, ww, gh = resize_mats_and_rows(cfg, tuple(input_hw), tuple(orig_hw))
-    wh, ww = torch.from_numpy(wh).to(dev), torch.from_numpy(ww).to(dev)
+    key = (cfg, tuple(input_hw), tuple(orig_hw))
+    wh_np, ww_np, gh = resize_mats_and_rows(*key)
+    wh = device_constant(("amg_resize_h",) + key, dev, lambda: wh_np)
+    ww = device_constant(("amg_resize_w",) + key, dev, lambda: ww_np)
     lowres_blk, iou = decode_masks(sam.decoder, cfg, image_embedding,
                                    image_pe, sparse, dense, mask_rows=gh,
                                    decode=amg.decode)

@@ -21,7 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from revisit_anything_tpu_torch.models.layers import Dense, LayerNorm, param
+from revisit_anything_tpu_torch.models.layers import (Dense, LayerNorm,
+                                                     device_constant, param)
 from revisit_anything_tpu_torch.models.sam.config import SamArchConfig
 from revisit_anything_tpu_torch.ops.attention import attend
 from revisit_anything_tpu_torch.ops.winattn import windowed_attend
@@ -54,13 +55,24 @@ def rel_pos_gather(rel_pos: torch.Tensor, q_size: int,
     reference's get_rel_pos: resize the table to 2·max−1 entries, gather
     by relative coordinate)."""
     max_rel = 2 * max(q_size, k_size) - 1
+    dev = rel_pos.device
     if rel_pos.shape[0] != max_rel:
-        m = torch.from_numpy(_linear_interp_matrix(max_rel, rel_pos.shape[0]))
-        rel_pos = (m.to(rel_pos.device) @ rel_pos.float()).to(rel_pos.dtype)
-    q_coords = np.arange(q_size)[:, None] * max(k_size / q_size, 1.0)
-    k_coords = np.arange(k_size)[None, :] * max(q_size / k_size, 1.0)
-    rel = (q_coords - k_coords) + (k_size - 1) * max(q_size / k_size, 1.0)
-    return rel_pos[torch.from_numpy(rel.astype(np.int64)).to(rel_pos.device)]
+        n_in = rel_pos.shape[0]
+        m = device_constant(("rel_pos_interp", max_rel, n_in), dev,
+                            lambda: _linear_interp_matrix(max_rel, n_in))
+        rel_pos = (m @ rel_pos.float()).to(rel_pos.dtype)
+    return rel_pos[rel_pos_index(q_size, k_size, dev)]
+
+
+def rel_pos_index(q_size: int, k_size: int, device) -> torch.Tensor:
+    """[q_size, k_size] int64 relative coordinates into the resized
+    table, built once per (sizes, device) (``layers.device_constant``)."""
+    def make():
+        q_coords = np.arange(q_size)[:, None] * max(k_size / q_size, 1.0)
+        k_coords = np.arange(k_size)[None, :] * max(q_size / k_size, 1.0)
+        rel = (q_coords - k_coords) + (k_size - 1) * max(q_size / k_size, 1.0)
+        return rel.astype(np.int64)
+    return device_constant(("rel_pos_index", q_size, k_size), device, make)
 
 
 class EncoderBlock(nn.Module):

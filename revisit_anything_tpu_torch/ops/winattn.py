@@ -17,8 +17,9 @@ import torch
 
 from revisit_anything_tpu_torch.kernels.build import WIN_ATTENTION, operand
 
-# widest window the kernel holds in shared memory: N = side² ≤ 256
-MAX_TOKENS = 256
+# the kernel takes every square window below 1024 tokens (side ≤ 31),
+# as many as the encoder's "kernel" rule sends it
+MAX_TOKENS = 1023
 
 
 def windowed_attend_reference(qkv: torch.Tensor, bias_h: torch.Tensor,
@@ -53,7 +54,7 @@ def windowed_attend(qkv: torch.Tensor, bias_h: torch.Tensor,
     bias_h, bias_w [B, N, heads·side] the q-projected decomposed rel-pos
     bias in head-major channels (channel h·side + kh). Returns [B, N, D].
 
-    CUDA: kernel B11 (bf16, head dim 64 or 80, N ≤ 256). CPU:
+    CUDA: kernel B11 (bf16, head dim 64 or 80, N ≤ 1023). CPU:
     :func:`windowed_attend_reference`."""
     b, n, three_d = qkv.shape
     if n != side * side or three_d % (3 * heads):

@@ -84,7 +84,7 @@ def query_topk_images(desc: torch.Tensor, patch_masks: torch.Tensor,
     # guard hits (sims < −4) and invalid query rows stay out of the
     # min-max normalization and vote zero
     real = (sims > -4.0) & valid[:, None]
-    inf = torch.tensor(float("inf"), device=sims.device)
+    inf = sims.new_full((), float("inf"))
     s_min = torch.where(real, sims, inf).min()
     s_max = torch.where(real, sims, -inf).max()
     norm_s = (sims - s_min) / torch.clamp(s_max - s_min, min=1e-30)

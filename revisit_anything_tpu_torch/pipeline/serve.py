@@ -10,8 +10,11 @@ Per query: one uint8 upload; SAM preprocess → encode → AMG decode batches
 → thresholds/NMS/top-``kmax`` select → mask→patch pooling, and the DINO
 dense features, all on the device; one small readback (centroids) for the
 host Qhull Delaunay adjacency; the retrieval tail on the device; one
-readback of the top ids. Single device; the database is static (no
-incremental inserts in this slice).
+readback of the top ids. The query path's constants (normalization,
+rel-pos indices, resize matrices, DINOv2's resized position table) are
+built on the device once, so the image and the adjacency are the only
+host→device copies of a query. Single device; the database is static
+(no incremental inserts in this slice).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 
 from revisit_anything_tpu_torch.config import RECALL_TOPK
 from revisit_anything_tpu_torch.models import dinov2 as dn
+from revisit_anything_tpu_torch.models.layers import device_constant
 from revisit_anything_tpu_torch.models.sam import (SAM_PIXEL_MEAN,
                                                    SAM_PIXEL_STD, Sam)
 from revisit_anything_tpu_torch.models.sam.amg import (
@@ -48,8 +52,10 @@ def _sam_preprocess_fused(img_u8: torch.Tensor, rh: torch.Tensor,
     x = torch.einsum("oh,hwc->owc", rh, x)
     x = torch.einsum("pw,owc->opc", rw, x)
     x = torch.clamp(torch.round(x), 0.0, 255.0)
-    mean = torch.tensor(SAM_PIXEL_MEAN, device=x.device)
-    std = torch.tensor(SAM_PIXEL_STD, device=x.device)
+    mean = device_constant(("sam_pixel_mean",), x.device,
+                           lambda: torch.tensor(SAM_PIXEL_MEAN))
+    std = device_constant(("sam_pixel_std",), x.device,
+                          lambda: torch.tensor(SAM_PIXEL_STD))
     x = (x - mean) / std
     nh, nw = x.shape[0], x.shape[1]
     return torch.nn.functional.pad(x, (0, 0, 0, pad_to - nw,
@@ -99,8 +105,9 @@ def _dino_desc_device(model: dn.DinoV2, cfg: dn.DinoV2Config,
     (ImageNet normalize, centre crop to patch multiples, bf16 input)."""
     top, left, hn, wn = crop
     x = img_u8.float() / 255.0
-    mean = torch.from_numpy(dn.IMAGENET_MEAN).to(x.device)
-    std = torch.from_numpy(dn.IMAGENET_STD).to(x.device)
+    mean = device_constant(("imagenet_mean",), x.device,
+                           lambda: dn.IMAGENET_MEAN)
+    std = device_constant(("imagenet_std",), x.device, lambda: dn.IMAGENET_STD)
     x = (x - mean) / std
     x = x[top:top + hn, left:left + wn][None].to(torch.bfloat16)
     d = dn.extract_dense(model, cfg, x, layer)[0].float()

@@ -113,6 +113,17 @@ def test_kernel_table_points_at_sources():
             assert "pallas_call" in f.readlines()[int(line) - 1]
 
 
+def test_winattn_variants_patch_the_kernel_source():
+    """Every variant of ``kernels.winattn_variants`` still finds the lines
+    it replaces in ``win_attention.cu`` (the tool runs only on the
+    card)."""
+    from revisit_anything_tpu_torch.kernels import winattn_variants as wv
+    base = wv._SRC.read_text()
+    for name, (_, reps) in wv.VARIANTS.items():
+        text = wv._source(reps)
+        assert (text == base) == (not reps), name
+
+
 def _flash_inputs(cuda, b, n, dh, bias, seed=0):
     g = torch.Generator(device=cuda).manual_seed(seed)
     bf = torch.bfloat16
@@ -201,11 +212,14 @@ def test_token_cross_split_kernel_matches_plain(cuda, shared, b, n, m):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["flash", "flash_bias", "token_shared",
-                                  "token_prompt", "split_shared"])
+                                  "token_prompt", "split_shared", "window"])
 def test_attention_kernels_are_bitwise_repeatable(cuda, case):
     """Two launches on the same inputs give the same bits (no atomics, no
     order that depends on scheduling)."""
-    if case.startswith("flash"):
+    if case == "window":
+        args = _win_inputs(cuda, 25, 14, 16, 80)
+        run = lambda: wa.windowed_attend(*args, 16, 14)  # noqa: E731
+    elif case.startswith("flash"):
         args, side = _flash_inputs(cuda, 2, 1024, 80, case == "flash_bias")
         run = lambda: att.attend(*args, side=side)  # noqa: E731
     elif case.startswith("token"):
@@ -222,7 +236,8 @@ def test_attention_kernels_are_bitwise_repeatable(cuda, case):
 
 @pytest.mark.gpu
 def test_attention_kernels_refuse_shapes_they_do_not_take(cuda):
-    """K2 and B10 need M % 8 == 0; K1's bias needs side <= 64."""
+    """K2 and B10 need M % 8 == 0; K1's bias needs side <= 64; B11 head
+    dim 64 or 80 and N < 1024."""
     args = _token_inputs(cuda, 2, 7, 1004, 2, pe=True)
     with pytest.raises(ValueError, match="multiple of 8"):
         att.token_cross_attend_kv(*args, 8)
@@ -232,21 +247,37 @@ def test_attention_kernels_refuse_shapes_they_do_not_take(cuda):
     args, side = _flash_inputs(cuda, 1, 65 * 65, 64, True)
     with pytest.raises(ValueError, match="side <= 64"):
         att.attend(*args, side=side)
+    for side, hd in ((14, 96), (32, 80)):
+        with pytest.raises(ValueError, match="not built"):
+            wa.windowed_attend(*_win_inputs(cuda, 1, side, 2, hd), 2, side)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,side,heads,hd", [(25, 14, 16, 80),
-                                             (3, 16, 2, 64), (4, 5, 2, 80)])
-def test_win_attention_kernel_matches_plain(cuda, b, side, heads, hd):
-    """SAM ViT-H's windowed layer (25 windows of 14x14, 16 heads of 80),
-    the widest window the kernel holds (N = 256) and a ragged one
-    (N = 25, padded to 32)."""
-    g = torch.Generator(device=cuda).manual_seed(9)
+def _win_inputs(cuda, b, side, heads, hd, seed=9):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     bf = torch.bfloat16
     n = side * side
     qkv = torch.randn((b, n, 3 * heads * hd), generator=g, device=cuda).to(bf)
     bh, bw = (torch.randn((b, n, heads * side), generator=g,
                           device=cuda).to(bf) for _ in range(2))
+    return qkv, bh, bw
+
+
+# (windows, side, heads, head dim): SAM ViT-H's windowed layer (25 windows
+# of 14x14, 16 heads of 80) and one window of it; N = 196 at hd 64; N =
+# 256 (16 row tiles: 3 rounds of 6 warps); N = 25 (ragged, padded to 32); sides
+# 20 and 31 (N = 400 and 961: K|V resident at 400, streamed in key blocks
+# at 961)
+WIN_CASES = [(25, 14, 16, 80), (1, 14, 16, 80), (2, 14, 2, 64),
+             (3, 16, 2, 64), (4, 5, 2, 80), (4, 5, 2, 64), (2, 20, 2, 80),
+             (1, 31, 2, 80), (1, 31, 2, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,side,heads,hd", WIN_CASES)
+def test_win_attention_kernel_matches_plain(cuda, b, side, heads, hd):
+    """B11 against its plain version, from the SAM shape to N = 961."""
+    qkv, bh, bw = _win_inputs(cuda, b, side, heads, hd)
+    n = side * side
     before = build.WIN_ATTENTION.launches
     got = wa.windowed_attend(qkv, bh, bw, heads, side)
     want = wa.windowed_attend_reference(qkv, bh, bw, heads, side)

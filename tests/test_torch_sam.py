@@ -263,3 +263,55 @@ def test_point_segmenter_keeps_many_blob_masks():
     assert n >= 32
     assert 0.005 < float(area.median()) < 0.2
     assert int((area == 0).sum()) <= n // 10
+
+
+@pytest.mark.parametrize("q_size,k_size,table", [
+    (4, 4, 7),       # the table's own size: a gather only
+    (4, 4, 11),      # resized table (linear interpolation) first
+    (3, 6, 11),      # unequal sizes: scaled coordinates
+    (6, 3, 9),
+])
+def test_rel_pos_gather_matches_jax_with_a_cached_index(q_size, k_size,
+                                                        table):
+    """The port builds the relative-coordinate index once per (sizes,
+    device) and gathers on the device; the index equals a fresh
+    computation and the gathered table matches JAX ``_rel_pos_gather``."""
+    from revisit_anything_tpu.models.sam.encoder import _rel_pos_gather
+    from revisit_anything_tpu_torch.models.sam import encoder as penc
+    rng = np.random.default_rng(table + q_size)
+    rel_pos = rng.standard_normal((table, 8)).astype(np.float32)
+    idx = penc.rel_pos_index(q_size, k_size, "cpu")
+    assert penc.rel_pos_index(q_size, k_size, "cpu") is idx
+    fresh = ((np.arange(q_size)[:, None] * max(k_size / q_size, 1.0)
+              - np.arange(k_size)[None, :] * max(q_size / k_size, 1.0))
+             + (k_size - 1) * max(q_size / k_size, 1.0)).astype(np.int64)
+    np.testing.assert_array_equal(idx.numpy(), fresh)
+    want = np.asarray(_rel_pos_gather(jnp.asarray(rel_pos), q_size, k_size))
+    for _ in range(2):                 # the second call reads the caches
+        got = penc.rel_pos_gather(torch.from_numpy(rel_pos), q_size,
+                                  k_size).numpy()
+        assert got.shape == want.shape == (q_size, k_size, 8)
+        assert _rel(got, want) < 1e-6
+
+
+def test_sam_preprocess_keeps_its_bits():
+    """The cached normalization constants give the bits the per-call
+    uploads gave."""
+    from revisit_anything_tpu_torch.models.sam import (SAM_PIXEL_MEAN,
+                                                       SAM_PIXEL_STD)
+    from revisit_anything_tpu_torch.ops.resize import bilinear_weight_matrix
+    from revisit_anything_tpu_torch.pipeline.serve import (
+        _sam_preprocess_fused)
+    rng = np.random.default_rng(3)
+    img = torch.from_numpy(rng.integers(0, 256, (60, 80, 3), dtype=np.uint8))
+    rh = torch.from_numpy(bilinear_weight_matrix(48, 60))
+    rw = torch.from_numpy(bilinear_weight_matrix(64, 80))
+    x = torch.einsum("pw,owc->opc", rw,
+                     torch.einsum("oh,hwc->owc", rh, img.float()))
+    x = torch.clamp(torch.round(x), 0.0, 255.0)
+    x = (x - torch.tensor(SAM_PIXEL_MEAN)) / torch.tensor(SAM_PIXEL_STD)
+    want = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, 16))[None]
+    for _ in range(2):
+        with torch.inference_mode():
+            got = _sam_preprocess_fused(img, rh, rw, 64)
+        assert torch.equal(got, want)
