@@ -9,8 +9,8 @@ Phases (any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the twelve kernels from revisit_anything_tpu_torch/kernels/csrc
      (one nvcc per source, in parallel);
-  3. print the registers, shared memory and spill bytes of the four
-     redesigned attention entry points (K1, K2, B10, B11) from ptxas.log;
+  3. print the registers, shared memory and spill bytes of the five
+     redesigned entry points (K1, K2, B10, B11, K3) from ptxas.log;
      then
      compare every kernel with its plain version in bf16 at the main
      path's shapes, timing both with CUDA events (median of 7 after
@@ -146,8 +146,8 @@ def _bound(n_bytes: float, bf16_flop: float = 0.0,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-# The redesigned attention kernels' instantiations in ptxas.log, by a
-# piece of their mangled names: (label, C entry point, dynamic shared
+# The redesigned kernels' instantiations in ptxas.log, by a piece of
+# their mangled names: (label, C entry point, dynamic shared
 # memory query and its arguments).
 PTXAS_KERNELS = (
     ("token_cross_kernelILb1ELb1E", "K2 shared k|v", "rat_token_cross_kv",
@@ -170,11 +170,13 @@ PTXAS_KERNELS = (
      "rat_win_attention", "rat_win_attention_smem", (14, 80)),
     ("win_attention_kernelILi64ELi2E", "B11 hd 64, sides 8-15 (at 14)",
      "rat_win_attention", "rat_win_attention_smem", (14, 64)),
+    ("mask_head_kernelILi3E", "K3 M 3", "rat_mask_head",
+     "rat_mask_head_smem", ()),
 )
 
 
 def ptxas_report() -> None:
-    """Print the registers, shared memory and spill bytes of the four
+    """Print the registers, shared memory and spill bytes of the five
     redesigned entry points' kernels, read from the build's ptxas.log
     (dynamic shared memory from the sources' own size functions)."""
     import re
@@ -373,13 +375,23 @@ def compare_kernels(dev) -> dict:
     margs = (rnd(1024, 4096, 256), rnd(1024, 3, 32, s=0.5),
              rnd(256, 256, s=0.1), rnd(64, s=0.1), rnd(64, s=0.1, off=1.0),
              rnd(64, s=0.1), rnd(64, 128, s=0.1), rnd(32, s=0.1))
-    head_flop = 2 * (256 * 256 + 4 * 64 * 128 + 16 * 32 * 3)  # a position
+    # A position: the products on the tensor cores (bf16 inputs: the two
+    # convolutions and the hypernetwork's 16·32·M multiply-adds, an f32
+    # sum of bf16 products), and on the FMA units (f32): 768 GELUs (256
+    # after conv1, 512 after conv2) of 22 operations each at the JAX
+    # formula (ops/maskhead.py `_gelu`: |x|, 6 multiply-adds, 4
+    # squarings, a reciprocal and a subtraction, one multiply-add and the
+    # halving), the group LN's 7 a channel (sum, square multiply-add,
+    # normalize and scale-and-shift multiply-adds) over 256 channels, and
+    # the 768 bias adds.
+    head_bf16 = 2 * (256 * 256 + 4 * 64 * 128 + 16 * 32 * 3)
+    head_f32 = 768 * 22 + 256 * 7 + 768
     check(build.MASK_HEAD, "keys [1024,4096,256] -> [1024,3136,16,3]",
           lambda: mh.fused_mask_head(*margs, eps=1e-6, content=3136),
           lambda: mh.upscale_masks_blocks(margs[0][:, :3136], *margs[1:],
                                           eps=1e-6),
           _rel, rel_tol, (margs[0][:, :3136],) + margs[1:],
-          (1024 * 3136 * head_flop, 0))
+          (1024 * 3136 * head_bf16, 1024 * 3136 * head_f32))
     head = margs[2:]
     del margs
 

@@ -81,6 +81,7 @@ SIGNATURES: Dict[str, Sequence] = {
     "rat_token_cross_smem": (_I, _I),           # pe, shared
     "rat_flash_attention_smem": (_I,),          # hd
     "rat_win_attention_smem": (_I, _I),         # side, hd
+    "rat_mask_head_smem": (),
 }
 
 _lock = threading.Lock()

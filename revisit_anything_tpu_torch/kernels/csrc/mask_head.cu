@@ -4,32 +4,67 @@
 // `_mask_head_kernel` -> `mask_head_body` (pallas_call at :299, body
 // :138), reached through `fused_mask_head` (:345). Per image position of
 // one prompt's final branch keys[n, p, 0:256]:
-//   y1 = bf16(x · up1_w) + up1_b                 (ConvT k=s=2 256 -> 4x64)
+//   y1 = bf16(bf16(x · up1_w) + up1_b)           (ConvT k=s=2 256 -> 4x64)
 //   h1 = bf16(gelu(groupLN_64(y1)))              (4 groups of 64, f32 stats)
-//   y2[q] = bf16(h1[q] · up2_w) + up2_b          (ConvT 64 -> 4x32 per block q)
+//   y2[q] = bf16(bf16(h1[q] · up2_w) + up2_b)    (ConvT 64 -> 4x32 per block q)
 //   h2 = bf16(gelu(y2))
-//   out[n, p, 4q + r, m] = bf16(sum_c h2[q, r, c] · hyper[n, m, c])
+//   out[n, p, 4q + r, m] = bf16(sum_c h2[q, r, c] · hyper[n, m, c])   (f32 sum)
 // giving [Np, content, 16, M] in the (q, r) = (2a1+b1, 2a2+b2) order.
 //
-// What bounds it on the H100: tensor-core math. At 1024 prompts x 3136
-// positions the two convolutions are ~630 GFLOP per decode; inputs
-// (1.6 GB keys) and outputs (0.3 GB) are small next to that. The TPU
-// kernel's block-diagonal conv2 [256, 512] and hypernetwork [512, 48]
-// (3/4 and 15/16 zeros, shaped for the 128x128 MXU) are NOT carried:
-// conv2 runs as four [64 -> 128] products per position and the
-// hypernetwork as a 32-wide dot per output, and GELU uses erff instead of
-// the TPU's polynomial.
+// What bounds it on the H100: the f32 epilogue on the CUDA cores, not the
+// tensor cores. A position takes 2 · (256·256 + 4·64·128 + 16·32·M) bf16
+// product FLOP (0.65 ms at 1024 prompts x 3136 positions, M = 3 and 989
+// TFLOP/s) but ~19,500 f32 operations: 768 GELUs of ~22 each (the A&S erf
+// polynomial below), the group LN (~7 a channel) and the bias adds, ~0.95
+// ms at 67 TFLOP/s. Keys (1.6 GB) and logits (0.3 GB) take ~0.6 ms at
+// 3.35 TB/s. The TPU kernel's block-diagonal conv2 [256, 512] and
+// hypernetwork [512, 48] (3/4 and 15/16 zeros, shaped for the 128x128
+// MXU) are not carried.
 //
-// Design: persistent CTAs (one per SM, 8 warps) keep up1_w (128 KB) and
-// up2_w (16 KB) in shared memory for their whole life and walk 32-position
-// tiles of all prompts. Both products use WMMA bf16 fragments with f32
-// accumulation; accumulators pass through a small f32 staging tile where
-// the bf16 rounding points of the JAX kernel are applied (y1 and y2
-// rounded before their bias add, h1/h2 stored as bf16). The per-tile
-// code lives in mask_head_tile.cuh, shared with the decode tail's logits
-// mode (decode_tail.cu).
+// Design (Hopper, sm_90a): persistent CTAs, one an SM, of two
+// warpgroups and no producer warp: 8 warps, two a scheduler, so the
+// compiler may give a thread 255 registers (the register file is split
+// over the 4 schedulers: a third warp on one of them caps every thread
+// at 168, where the epilogue beside an accumulator in flight spills or
+// has its wgmmas serialized). A work item is (prompt, 64 positions);
+// items are dealt round-robin over the CTAs and, inside a CTA,
+// alternately to the two warpgroups, each a whole item at a time.
+//  - One thread loads up1_w (128 KB) and up2_w (16 KB) once by TMA,
+//    128B-swizzled and MN-major (N contiguous, as they lie in memory).
+//    Each warpgroup owns one keys slot [64 positions, 256] (four 64x64
+//    TMA boxes, a full mbarrier): one of its threads asks for its next
+//    item's keys as soon as the current item's last conv1 has retired,
+//    so they load under the last group's epilogues. Rows past gg arrive
+//    as zeros; rows from content to gg are read and never stored.
+//  - Per conv1 group g of an item: y1 = wgmma m64n64k16 x 16 (keys and
+//    up1_w from shared memory, 32 f32 accumulators); the epilogue rounds,
+//    adds the bias as a bf16 pair, takes the group-LN statistics by two
+//    quad shuffles (a row's 64 channels lie in the 4 threads of a quad)
+//    and packs GELU's output to bf16 pairs that are conv2's register A
+//    operand; y2 = wgmma m64n128k16 x 4 against up2_w (64 accumulators);
+//    the second epilogue rounds, adds the bias and packs GELU's output
+//    to A fragments again, and the hypernetwork dot is wgmma m64n8k16 x 2
+//    for each r of the group against the prompt's hyper rows (B [32
+//    channels, 8 masks], built per item in shared memory). The next
+//    group's conv1 is issued right behind conv2 and runs under the
+//    second epilogue.
+//  - GELU is the JAX package's exact-form A&S 7.1.28 erf polynomial
+//    (ops/maskhead.py `_gelu`, within 5e-7 of erf) with a fast reciprocal,
+//    taken doubled (one multiply fewer) 16 values at a time, one step
+//    over all of them before the next. The halves move, exactly, into
+//    up2_w and hyper (halved once in shared memory): rounding commutes
+//    with a power of two, so h1 and h2 are the JAX package's bf16 values
+//    times 2 and every product is the same.
+//  - The two warpgroups take turns to issue their products (named
+//    barriers, as FA3 does), so that one's epilogue runs under the
+//    other's products rather than the two running in step.
+//  - Logits go to a per-warpgroup staging tile [64, 16, M] bf16 in shared
+//    memory; the item's rows below content are one contiguous run of
+//    out (64·16·M bf16, 16-byte aligned) and leave by 16-byte coalesced
+//    stores.
+// Where its time goes: kernels/maskhead_variants.py (PERF.md).
 //
-// The same kernel with RECON (entry rat_mask_head_probs) replaces
+// RECON (entry rat_mask_head_probs, kernel B6) replaces
 // revisit_anything_tpu/ops/maskhead.py `_mask_head_call_probs`
 // (pallas_call at :257, body :90-126 with recon=True), reached through
 // `fused_mask_head_probs` (:409): the keys tile is not read but rebuilt
@@ -38,41 +73,500 @@
 // by decode_common.cuh `recon_layer`, writing the tile the conv1 product
 // reads. That adds 2 x 56 x 256 multiply-adds a position on the FMA units
 // (~0.18 TFLOP at 1024 prompts x 3136 positions) and reads P1, P2 (2 x 470
-// MB) in place of keys (2.1 GB). The f32 rebuild tile [32, 256] reuses the
-// h1 and y staging tiles (32 KB, free until conv1); the P tile and the
-// branch vectors add 9.5 KB beside the resident weights, 207 KB in all.
-// C1 and C2 (28 KB a prompt each) do not fit beside them and are read
-// from L1/L2.
+// MB) in place of keys (2.1 GB). It runs the 32-position WMMA tile of
+// mask_head_tile.cuh (256 threads, shared with the decode tail's logits
+// mode): the f32 rebuild tile [32, 256] reuses the h1 and y staging tiles
+// (32 KB, free until conv1); the P tile and the branch vectors add 9.5 KB
+// beside the resident weights, 207 KB in all. C1 and C2 (28 KB a prompt
+// each) do not fit beside them and are read from L1/L2.
 
 #include "decode_common.cuh"
+#include "hopper.cuh"
 #include "mask_head_tile.cuh"
+
+namespace rat_k3 {
+
+using namespace rat_hopper;
+
+constexpr int D = 256;           // keys channels, conv1 in and out
+constexpr int C1 = 64;           // conv1 channels a group
+constexpr int C2 = 32;           // conv2 channels a (q, r)
+constexpr int BP = 64;           // positions an item: one wgmma row tile
+constexpr int MAXM = 4;          // mask tokens
+constexpr int THREADS = 256;     // two warpgroups
+constexpr int ISSUES = 5;        // product issues an item: conv1, 3 x (conv2 + conv1), conv2
+constexpr bool TURNS = true;     // the warpgroups take turns to issue their products
+
+// Shared memory from a 1024-byte aligned base. Every TMA box is rows of
+// 128 bytes (64 bf16), 128B-swizzled.
+constexpr int BOX_X = BP * 128;                // keys box [64 positions, 64 ch]
+constexpr int SLOT = 4 * BOX_X;                // an item's keys [64, 256]
+constexpr int BOX_W1 = D * 128;                // up1_w box [256 K, 64 N]
+constexpr int BOX_W2 = C1 * 128;               // up2_w box [64 K, 64 N]
+constexpr int STAGE = BP * 16 * MAXM * 2;      // logits [64, 16, M] bf16
+constexpr int OFF_W1 = 0;
+constexpr int OFF_W2 = OFF_W1 + 4 * BOX_W1;
+constexpr int OFF_X = OFF_W2 + 2 * BOX_W2;     // slot s at + s·SLOT
+constexpr int OFF_STAGE = OFF_X + 2 * SLOT;    // warpgroup w at + w·STAGE
+constexpr int HYP = 8 * C2 * 2;                // hypernetwork B [8 m, 32 k] bf16
+constexpr int OFF_HYP = OFF_STAGE + 2 * STAGE; // warpgroup w at + w·HYP
+constexpr int OFF_B1 = OFF_HYP + 2 * HYP;      // up1_b bf16 [64]
+constexpr int OFF_B2 = OFF_B1 + C1 * 2;        // up2_b bf16 [32]
+constexpr int OFF_LS = OFF_B2 + C2 * 2;        // ln scale f32 [64]
+constexpr int OFF_LB = OFF_LS + C1 * 4;        // ln bias f32 [64]
+constexpr int OFF_BAR = OFF_LB + C1 * 4;       // weights, slot 0, slot 1
+constexpr int SMEM = 1024 + OFF_BAR + 3 * 8;   // + alignment slack
+static_assert(SMEM <= 232448, "one CTA an SM");
+
+// Twice the JAX package's GELU (ops/maskhead.py `_gelu`), in place on N
+// values, one step of the formula over all N before the next so that N
+// independent chains hide each other's latency: A&S 7.1.28 with the
+// 1/sqrt(2) argument scale folded into the coefficients,
+// 2 gelu(x) = x + |x| (1 - 1/p^16), p = 1 + sum_k c_k |x|^k; the caller
+// folds the half into the next product.
+template <int N>
+__device__ __forceinline__ void gelu2(float (&x)[N]) {
+  constexpr float C1_ = 0.0705230784f * 0.70710678118654752f;
+  constexpr float C2_ = 0.0422820123f * 0.5f;
+  constexpr float C3_ = 0.0092705272f * 0.35355339059327376f;
+  constexpr float C4_ = 0.0001520143f * 0.25f;
+  constexpr float C5_ = 0.0002765672f * 0.17677669529663688f;
+  constexpr float C6_ = 0.0000430638f * 0.125f;
+  float a[N], p[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    a[n] = fabsf(x[n]);
+    p[n] = fmaf(a[n], C6_, C5_);
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) p[n] = fmaf(a[n], p[n], C4_);
+#pragma unroll
+  for (int n = 0; n < N; ++n) p[n] = fmaf(a[n], p[n], C3_);
+#pragma unroll
+  for (int n = 0; n < N; ++n) p[n] = fmaf(a[n], p[n], C2_);
+#pragma unroll
+  for (int n = 0; n < N; ++n) p[n] = fmaf(a[n], p[n], C1_);
+#pragma unroll
+  for (int n = 0; n < N; ++n) p[n] = fmaf(a[n], p[n], 1.f);
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int n = 0; n < N; ++n) p[n] = p[n] * p[n];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    float r;                                    // 1/p^16; 0 when p^16 overflows
+    asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(p[n]));
+    x[n] = fmaf(-a[n], r, x[n] + a[n]);
+  }
+}
+
+// A bf16 pair as two floats (x the low half): two integer operations.
+__device__ __forceinline__ float2 unpack_bf16(__nv_bfloat162 v) {
+  const uint32_t u = *reinterpret_cast<uint32_t*>(&v);
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+
+// d (+)= A·B: A [64 x 16] K-major and B [16 x 64] MN-major, both in
+// shared memory.
+__device__ __forceinline__ void wgmma_ss_n64_mn(float (&d)[32], uint64_t da, uint64_t db,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A·B: A [64 x 16] bf16 in registers, B [16 x 128] MN-major in
+// shared memory.
+__device__ __forceinline__ void wgmma_rs_n128_mn(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A·B: A [64 x 16] bf16 in registers, B [16 x 8] K-major in shared
+// memory without swizzle.
+__device__ __forceinline__ void wgmma_rs_n8(float (&d)[4], const uint32_t (&a)[4], uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// conv1 of group g: acc = keys tile [64, 256] · up1_w[:, 64g : 64g + 64].
+// A K-step is 16 channels: 32 bytes inside a box's swizzled rows (keys)
+// or 16 rows of 128 bytes (up1_w).
+__device__ __forceinline__ void issue_conv1(float (&acc)[32], uint32_t sx, uint32_t sw1,
+                                            int g) {
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < D / 16; ++k) {
+    const uint64_t da = gmma_desc(sx + (k / 4) * BOX_X + (k % 4) * 32, 16, 1024);
+    const uint64_t db = gmma_desc(sw1 + g * BOX_W1 + k * 2048, BOX_W1, 1024);
+    wgmma_ss_n64_mn(acc, da, db, k > 0);
+  }
+  wgmma_commit();
+}
+
+// conv2 of one group: acc = h1 [64, 64] (registers) · up2_w [64, 128],
+// whose two 64-column halves are the two up2_w boxes.
+__device__ __forceinline__ void issue_conv2(float (&acc)[64], const uint32_t (&a)[4][4],
+                                            uint32_t sw2) {
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < C1 / 16; ++k)
+    wgmma_rs_n128_mn(acc, a[k], gmma_desc(sw2 + k * 2048, BOX_W2, 1024), k > 0);
+  wgmma_commit();
+}
+
+// y1 -> h1 for one group. acc[4i + 2rr + e] is row (16·warp + lane/4 +
+// 8rr), channel 8i + 2c + e (c = lane % 4); h1 leaves as conv2's A
+// fragments: a[kk] holds channels 16kk.. of both rows. The two rows'
+// statistics are taken side by side, each sum in two halves, to keep the
+// dependent chains short.
+__device__ __forceinline__ void epilogue1(const float (&acc)[32], uint32_t (&a)[4][4],
+                                          const __nv_bfloat162 (&b1)[8], const float* ls,
+                                          const float* lb, int c, float eps) {
+  float y[2][16], st[2][2];                      // row values; their sum and sum of squares
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float s0 = 0.f, s1 = 0.f, q0 = 0.f, q1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float2 f = unpack_bf16(
+          __hadd2(__floats2bfloat162_rn(acc[4 * i + 2 * rr], acc[4 * i + 2 * rr + 1]), b1[i]));
+      y[rr][2 * i] = f.x;
+      y[rr][2 * i + 1] = f.y;
+      s0 += f.x;
+      s1 += f.y;
+      q0 = fmaf(f.x, f.x, q0);
+      q1 = fmaf(f.y, f.y, q1);
+    }
+    st[rr][0] = s0 + s1;
+    st[rr][1] = q0 + q1;
+  }
+#pragma unroll
+  for (int lane = 1; lane < 4; lane *= 2)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int k = 0; k < 2; ++k) st[rr][k] += __shfl_xor_sync(0xffffffffu, st[rr][k], lane);
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    // one-pass variance, as the JAX kernel takes it; y·rs - mu·rs
+    const float mu = st[rr][0] * (1.f / C1);
+    const float rs = rsqrtf(st[rr][1] * (1.f / C1) - mu * mu + eps);
+    const float sh = -mu * rs;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float2 sc = reinterpret_cast<const float2*>(ls)[4 * i + c];
+      const float2 bi = reinterpret_cast<const float2*>(lb)[4 * i + c];
+      y[rr][2 * i] = fmaf(fmaf(y[rr][2 * i], rs, sh), sc.x, bi.x);
+      y[rr][2 * i + 1] = fmaf(fmaf(y[rr][2 * i + 1], rs, sh), sc.y, bi.y);
+    }
+    gelu2(y[rr]);
+    // bf16(2 gelu) = 2 bf16(gelu); up2_w was halved in shared memory
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      a[i / 2][(i % 2) * 2 + rr] = pack_bf16(y[rr][2 * i], y[rr][2 * i + 1]);
+  }
+}
+
+// y2 -> logits for group q. acc[4i + 2rr + e] is row (16·warp + lane/4 +
+// 8rr), conv2 column 8i + 2c + e = 32r + channel, r = i / 4, channel
+// 8(i % 4) + 2c + e. h2 = bf16(2 gelu(y2)) leaves as A fragments, and
+// the hypernetwork dot runs on the tensor cores: for each r, [64 rows,
+// 32 channels] · hyper/2 [32, 8] (the halves cancel exactly), f32 sums
+// of bf16 products, rounded once. Thread c of a quad holds masks 2c and
+// 2c + 1 of its two rows.
+template <int M>
+__device__ __forceinline__ void epilogue2(const float (&acc)[64], __nv_bfloat16* stage,
+                                          uint32_t shyp, const __nv_bfloat162 (&b2)[4], int q,
+                                          int row0, int c) {
+  uint32_t h2[8][4];
+  // 16 values at a time: row rr, conv2 columns of i = 8h .. 8h + 7
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float z[16];
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const int i = 8 * h + t;
+        const float2 y = unpack_bf16(__hadd2(
+            __floats2bfloat162_rn(acc[4 * i + 2 * rr], acc[4 * i + 2 * rr + 1]), b2[i % 4]));
+        z[2 * t] = y.x;
+        z[2 * t + 1] = y.y;
+      }
+      gelu2(z);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const int i = 8 * h + t;
+        h2[i / 2][(i % 2) * 2 + rr] = pack_bf16(z[2 * t], z[2 * t + 1]);
+      }
+    }
+  float d[4][4];
+  wgmma_fence();
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      wgmma_rs_n8(d[r], h2[2 * r + k], gmma_desc_plain(shyp + k * 256, 128, 512), k > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int r = 0; r < 4; ++r) fence_regs(d[r]);
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (2 * c + e < M)
+          stage[((row0 + 8 * rr) * 16 + 4 * q + r) * M + 2 * c + e] =
+              __float2bfloat16(d[r][2 * rr + e]);
+}
+
+template <int M>
+__global__ void __launch_bounds__(THREADS, 1)
+mask_head_kernel(const __grid_constant__ CUtensorMap tkeys,   // [Np, gg, 256]
+                 const __grid_constant__ CUtensorMap tw1,     // up1_w [256, 256]
+                 const __grid_constant__ CUtensorMap tw2,     // up2_w [64, 128]
+                 const __nv_bfloat16* __restrict__ up1_b,     // [64]
+                 const __nv_bfloat16* __restrict__ ln_s,      // [64]
+                 const __nv_bfloat16* __restrict__ ln_b,      // [64]
+                 const __nv_bfloat16* __restrict__ up2_b,     // [32]
+                 const __nv_bfloat16* __restrict__ hyper,     // [Np, M, 32]
+                 __nv_bfloat16* __restrict__ out,             // [Np, content, 16, M]
+                 int content, int tiles, int total, float eps) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* sm = smem_raw + (base - raw);
+  const uint32_t wbar = base + OFF_BAR;
+  auto full = [&](int s) { return base + OFF_BAR + 8 * (1 + s); };
+  // this CTA's items: blockIdx.x + k·gridDim.x (the grid is at most
+  // total); warpgroup wg takes k = wg, wg + 2, ... into its slot wg
+  const int n_items = (total - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int wg = threadIdx.x / 128;
+  const int ctid = threadIdx.x % 128;
+  const uint32_t sx = base + OFF_X + wg * SLOT;
+  // one thread of a warpgroup loads its k-th item's keys into its slot
+  auto load_item = [&](int k) {
+    const int item = blockIdx.x + k * gridDim.x;
+    mbar_expect_tx(full(wg), SLOT);
+    for (int b = 0; b < 4; ++b)
+      tma_load_3d(sx + b * BOX_X, &tkeys, 64 * b, (item % tiles) * BP, item / tiles, full(wg));
+  };
+
+  __nv_bfloat16* sb1 = reinterpret_cast<__nv_bfloat16*>(sm + OFF_B1);
+  __nv_bfloat16* sb2 = reinterpret_cast<__nv_bfloat16*>(sm + OFF_B2);
+  float* sls = reinterpret_cast<float*>(sm + OFF_LS);
+  float* slb = reinterpret_cast<float*>(sm + OFF_LB);
+  for (int i = threadIdx.x; i < C1; i += THREADS) {
+    sb1[i] = up1_b[i];
+    sls[i] = __bfloat162float(ln_s[i]);
+    slb[i] = __bfloat162float(ln_b[i]);
+  }
+  for (int i = threadIdx.x; i < C2; i += THREADS) sb2[i] = up2_b[i];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 3; ++s) mbar_init(wbar + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(wbar, 4 * BOX_W1 + 2 * BOX_W2);
+    for (int j = 0; j < 4; ++j) tma_load_2d(base + OFF_W1 + j * BOX_W1, &tw1, 64 * j, 0, wbar);
+    for (int j = 0; j < 2; ++j) tma_load_2d(base + OFF_W2 + j * BOX_W2, &tw2, 64 * j, 0, wbar);
+  }
+  if (ctid == 0 && wg < n_items) load_item(wg);
+
+  const int warp = ctid / 32, lane = ctid % 32, c = lane % 4;
+  const int row0 = 16 * warp + lane / 4;                 // this thread's first row
+  const uint32_t sw1 = base + OFF_W1, sw2 = base + OFF_W2;
+  // hyper/2 as wgmma's B [8 masks, 32 channels], K-major without
+  // swizzle: (m, k) at byte (k / 8)·128 + m·16 + (k % 8)·2
+  __nv_bfloat16* hyp = reinterpret_cast<__nv_bfloat16*>(sm + OFF_HYP + wg * HYP);
+  const uint32_t shyp = base + OFF_HYP + wg * HYP;
+  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(sm + OFF_STAGE + wg * STAGE);
+  const int bar = 1 + wg;                                // this warpgroup's named barrier
+  // Turns (named barriers 3 and 4, as in FA3's ping-pong): warpgroup 0
+  // issues first, then each issues only after the other has issued, so
+  // one's epilogue runs under the other's products instead of the two
+  // running in step. Warpgroup 0 may have one item more; it then issues
+  // alone once warpgroup 1 is done. t counts this warpgroup's issues.
+  const int n0 = (n_items + 1) / 2, n1 = n_items / 2;
+  int t = 0;
+  auto turn_begin = [&]() {
+    if (TURNS && (wg == 1 || t <= ISSUES * n1)) named_sync(3 + wg, 256);
+  };
+  auto turn_end = [&]() {
+    if (TURNS && (wg == 0 ? t < ISSUES * n1 : t + 1 < ISSUES * n0)) named_arrive(4 - wg, 256);
+    ++t;
+  };
+  if (TURNS && wg == 1) named_arrive(3, 256);             // warpgroup 0 goes first
+  __nv_bfloat162 b1[8], b2[4];                           // bias pairs of this thread's channels
+#pragma unroll
+  for (int i = 0; i < 8; ++i) b1[i] = reinterpret_cast<const __nv_bfloat162*>(sb1)[4 * i + c];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) b2[j] = reinterpret_cast<const __nv_bfloat162*>(sb2)[4 * j + c];
+
+  float acc1[32], acc2[64];
+  uint32_t a2[4][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc1[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc2[i] = 0.f;
+  mbar_wait(wbar, 0);
+  // halve up2_w in place (exact): h1 leaves the first epilogue as
+  // bf16(2 gelu) = 2 bf16(gelu)
+  for (int i = threadIdx.x; i < 2 * BOX_W2 / 4; i += THREADS) {
+    __nv_bfloat162* w = reinterpret_cast<__nv_bfloat162*>(sm + OFF_W2) + i;
+    *w = __hmul2(*w, __float2bfloat162_rn(0.5f));
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  for (int j = 0; wg + 2 * j < n_items; ++j) {
+    const int k = wg + 2 * j;
+    const int item = blockIdx.x + k * gridDim.x;
+    const int n = item / tiles, p0 = (item % tiles) * BP;
+    // this prompt's hyper rows; the barrier also closes the previous
+    // item's staging copy
+    for (int e = ctid; e < 8 * C2; e += 128) {
+      const int m = e / C2, k = e % C2;
+      const float v = m < M ? __bfloat162float(hyper[((size_t)n * M + m) * C2 + k]) : 0.f;
+      hyp[(k / 8) * 64 + m * 8 + k % 8] = __float2bfloat16(0.5f * v);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_sync(bar, 128);
+    mbar_wait(full(wg), j & 1);
+    turn_begin();
+    issue_conv1(acc1, sx, sw1, 0);
+    turn_end();
+    wgmma_wait<0>();
+    fence_regs(acc1);
+#pragma unroll 1
+    for (int g = 0; g < 3; ++g) {
+      epilogue1(acc1, a2, b1, sls, slb, c, eps);
+      fence_regs(a2);
+      turn_begin();
+      issue_conv2(acc2, a2, sw2);
+      issue_conv1(acc1, sx, sw1, g + 1);                 // runs under epilogue2
+      turn_end();
+      wgmma_wait<1>();                                    // conv2 done
+      fence_regs(acc2);
+      epilogue2<M>(acc2, stage, shyp, b2, g, row0, c);
+      wgmma_wait<0>();
+      fence_regs(acc1);
+    }
+    // the keys tile is consumed: the next item's keys load under the
+    // last group's epilogues
+    if (ctid == 0 && k + 2 < n_items) load_item(k + 2);
+    epilogue1(acc1, a2, b1, sls, slb, c, eps);
+    fence_regs(a2);
+    turn_begin();
+    issue_conv2(acc2, a2, sw2);
+    turn_end();
+    wgmma_wait<0>();
+    fence_regs(acc2);
+    epilogue2<M>(acc2, stage, shyp, b2, 3, row0, c);
+    named_sync(bar, 128);
+    // rows below content: one contiguous run of out
+    const int chunks = min(BP, content - p0) * 2 * M;     // 16-byte chunks
+    const uint4* src = reinterpret_cast<const uint4*>(stage);
+    uint4* dst = reinterpret_cast<uint4*>(out + ((size_t)n * content + p0) * 16 * M);
+    for (int i = ctid; i < chunks; i += 128) dst[i] = src[i];
+  }
+}
+
+template <int M>
+int launch(const void* keys, const void* up1_w, const void* up1_b, const void* ln_s,
+           const void* ln_b, const void* up2_w, const void* up2_b, const void* hyper,
+           void* out, int np_, int gg, int content, float eps, int n_ctas,
+           cudaStream_t stream) {
+  auto kernel = mask_head_kernel<M>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tk, t1, t2;
+  const cuuint64_t kdims[3] = {(cuuint64_t)D, (cuuint64_t)gg, (cuuint64_t)np_};
+  const cuuint64_t kstrides[2] = {(cuuint64_t)D * 2, (cuuint64_t)gg * D * 2};
+  const cuuint32_t kbox[3] = {64, BP, 1};
+  const cuuint64_t w1dims[2] = {(cuuint64_t)D, (cuuint64_t)D};
+  const cuuint64_t w1strides[1] = {(cuuint64_t)D * 2};
+  const cuuint32_t w1box[2] = {64, D};
+  const cuuint64_t w2dims[2] = {(cuuint64_t)4 * C2, (cuuint64_t)C1};
+  const cuuint64_t w2strides[1] = {(cuuint64_t)4 * C2 * 2};
+  const cuuint32_t w2box[2] = {64, C1};
+  if (!tensor_map_bf16(&tk, keys, 3, kdims, kstrides, kbox) ||
+      !tensor_map_bf16(&t1, up1_w, 2, w1dims, w1strides, w1box) ||
+      !tensor_map_bf16(&t2, up2_w, 2, w2dims, w2strides, w2box))
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (content + BP - 1) / BP;
+  const long long total = (long long)np_ * tiles;
+  if (total > (1ll << 30)) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(total < n_ctas ? total : n_ctas);
+  typedef const __nv_bfloat16* P;
+  kernel<<<grid, THREADS, SMEM, stream>>>(
+      tk, t1, t2, static_cast<P>(up1_b), static_cast<P>(ln_s), static_cast<P>(ln_b),
+      static_cast<P>(up2_b), static_cast<P>(hyper), static_cast<__nv_bfloat16*>(out), content,
+      tiles, (int)total, eps);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace rat_k3
 
 namespace {
 
 using namespace rat_mask;
 
-constexpr int SMEM_RP = rat_decode::HT * BLK * 2;   // P tile (recon)
-constexpr int SMEM_RV = 6 * D * 4;                  // branch rows 0-5 (recon)
+constexpr int SMEM_RP = rat_decode::HT * BLK * 2;   // P tile
+constexpr int SMEM_RV = 6 * D * 4;                  // branch rows 0-5
 constexpr int SMEM_RECON = SMEM_TOTAL + SMEM_RP + SMEM_RV;
 static_assert(BLK == rat_decode::BM && THREADS == rat_decode::THREADS, "recon tile shape");
 
-// RECON: keys is the shared img0 [gg, D]; the per-prompt tile is rebuilt
-// from p1/c1m/p2/c2m [Np, HT, gg | D] and the branch rows [8, D].
-template <bool RECON>
+// B6: img0 is the shared [gg, D] branch input; the per-prompt tile is
+// rebuilt from p1/c1m/p2/c2m [Np, HT, gg | D] and the branch rows [8, D].
 __global__ void __launch_bounds__(THREADS, 1)
-mask_head_kernel(const __nv_bfloat16* __restrict__ keys,   // [Np, gg, D]
-                 const __nv_bfloat16* __restrict__ up1_w,  // [D, D]
-                 const __nv_bfloat16* __restrict__ up1_b,  // [C1]
-                 const __nv_bfloat16* __restrict__ ln_s,   // [C1]
-                 const __nv_bfloat16* __restrict__ ln_b,   // [C1]
-                 const __nv_bfloat16* __restrict__ up2_w,  // [C1, N2]
-                 const __nv_bfloat16* __restrict__ up2_b,  // [C2]
-                 const __nv_bfloat16* __restrict__ hyper,  // [Np, M, C2]
-                 __nv_bfloat16* __restrict__ out,          // [Np, content, 16, M]
-                 int np_, int gg, int content, int n_masks, float eps,
-                 const __nv_bfloat16* __restrict__ p1, const __nv_bfloat16* __restrict__ c1m,
-                 const __nv_bfloat16* __restrict__ p2, const __nv_bfloat16* __restrict__ c2m,
-                 const __nv_bfloat16* __restrict__ rows, float ln_eps) {
+mask_head_probs_kernel(const __nv_bfloat16* __restrict__ img0,   // [gg, D]
+                       const __nv_bfloat16* __restrict__ up1_w,  // [D, D]
+                       const __nv_bfloat16* __restrict__ up1_b,  // [C1]
+                       const __nv_bfloat16* __restrict__ ln_s,   // [C1]
+                       const __nv_bfloat16* __restrict__ ln_b,   // [C1]
+                       const __nv_bfloat16* __restrict__ up2_w,  // [C1, N2]
+                       const __nv_bfloat16* __restrict__ up2_b,  // [C2]
+                       const __nv_bfloat16* __restrict__ hyper,  // [Np, M, C2]
+                       __nv_bfloat16* __restrict__ out,          // [Np, content, 16, M]
+                       int np_, int gg, int content, int n_masks, float eps,
+                       const __nv_bfloat16* __restrict__ p1, const __nv_bfloat16* __restrict__ c1m,
+                       const __nv_bfloat16* __restrict__ p2, const __nv_bfloat16* __restrict__ c2m,
+                       const __nv_bfloat16* __restrict__ rows, float ln_eps) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Smem sm = layout(smem);
   __nv_bfloat16* sRP = reinterpret_cast<__nv_bfloat16*>(smem + SMEM_TOTAL);
@@ -81,7 +575,7 @@ mask_head_kernel(const __nv_bfloat16* __restrict__ keys,   // [Np, gg, D]
 
   const int tid = threadIdx.x;
   load_weights(sm, up1_w, up1_b, ln_s, ln_b, up2_w, up2_b);
-  if (RECON) rat_decode::load_f32(sRV, rows, 6 * D);
+  rat_decode::load_f32(sRV, rows, 6 * D);
 
   const int tiles = (content + BLK - 1) / BLK;
   const long long total = (long long)np_ * tiles;
@@ -90,57 +584,24 @@ mask_head_kernel(const __nv_bfloat16* __restrict__ keys,   // [Np, gg, D]
     const int p0 = (int)(t % tiles) * BLK;
     __syncthreads();                       // previous tile fully consumed
 
-    // Load (or rebuild) the keys tile, zero rows past content, and this
+    // Rebuild the keys tile (rows past content zero) and load this
     // prompt's hyper.
-    constexpr int VPR = D / 8;
-    if (RECON) {
-      const int valid = min(BLK, content - p0);
-      const size_t off = (size_t)n * rat_decode::HT;
-      rat_decode::load_rows_tile(sR, D, keys, p0, valid);
-      rat_decode::load_p_tile(sRP, p1 + off * gg, gg, p0, valid);
-      __syncthreads();
-      rat_decode::recon_layer(sR, D, sRP, c1m + off * D, sRV, ln_eps);
-      rat_decode::load_p_tile(sRP, p2 + off * gg, gg, p0, valid);
-      __syncthreads();
-      rat_decode::recon_layer(sR, D, sRP, c2m + off * D, sRV + 3 * D, ln_eps);
-      for (int i = tid; i < BLK * D; i += THREADS)
-        sm.x[i] = __float2bfloat16(i / D < valid ? sR[i] : 0.f);
-    } else {
-      for (int i = tid; i < BLK * VPR; i += THREADS) {
-        const int r = i / VPR, c = i % VPR;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (p0 + r < content)
-          val = reinterpret_cast<const uint4*>(keys + ((size_t)n * gg + p0 + r) * D)[c];
-        reinterpret_cast<uint4*>(sm.x + r * D)[c] = val;
-      }
-    }
+    const int valid = min(BLK, content - p0);
+    const size_t off = (size_t)n * rat_decode::HT;
+    rat_decode::load_rows_tile(sR, D, img0, p0, valid);
+    rat_decode::load_p_tile(sRP, p1 + off * gg, gg, p0, valid);
+    __syncthreads();
+    rat_decode::recon_layer(sR, D, sRP, c1m + off * D, sRV, ln_eps);
+    rat_decode::load_p_tile(sRP, p2 + off * gg, gg, p0, valid);
+    __syncthreads();
+    rat_decode::recon_layer(sR, D, sRP, c2m + off * D, sRV + 3 * D, ln_eps);
+    for (int i = tid; i < BLK * D; i += THREADS)
+      sm.x[i] = __float2bfloat16(i / D < valid ? sR[i] : 0.f);
     for (int i = tid; i < n_masks * C2; i += THREADS)
       sm.hyp[i] = __bfloat162float(hyper[(size_t)n * n_masks * C2 + i]);
     __syncthreads();
     tile(sm, out, n, content, p0, n_masks, eps);
   }
-}
-
-template <bool RECON>
-int launch(const void* keys, const void* up1_w, const void* up1_b, const void* ln_s,
-           const void* ln_b, const void* up2_w, const void* up2_b, const void* hyper,
-           void* out, int np_, int gg, int content, int n_masks, float eps, int n_ctas,
-           const void* p1, const void* c1m, const void* p2, const void* c2m,
-           const void* rows, float ln_eps, void* stream) {
-  if (n_masks < 1 || n_masks > MAXM || content > gg || n_ctas < 1)
-    return (int)cudaErrorInvalidValue;
-  const int smem = RECON ? SMEM_RECON : SMEM_TOTAL;
-  cudaError_t err = cudaFuncSetAttribute(
-      mask_head_kernel<RECON>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  typedef const __nv_bfloat16* P;
-  mask_head_kernel<RECON><<<n_ctas, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<P>(keys), static_cast<P>(up1_w), static_cast<P>(up1_b),
-      static_cast<P>(ln_s), static_cast<P>(ln_b), static_cast<P>(up2_w),
-      static_cast<P>(up2_b), static_cast<P>(hyper), static_cast<__nv_bfloat16*>(out), np_,
-      gg, content, n_masks, eps, static_cast<P>(p1), static_cast<P>(c1m),
-      static_cast<P>(p2), static_cast<P>(c2m), static_cast<P>(rows), ln_eps);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -150,10 +611,28 @@ extern "C" int rat_mask_head(const void* keys, const void* up1_w, const void* up
                              const void* up2_b, const void* hyper, void* out,
                              int np_, int gg, int content, int n_masks, float eps,
                              int n_ctas, void* stream) {
-  return launch<false>(keys, up1_w, up1_b, ln_s, ln_b, up2_w, up2_b, hyper, out, np_, gg,
-                       content, n_masks, eps, n_ctas, nullptr, nullptr, nullptr, nullptr,
-                       nullptr, 0.f, stream);
+  if (np_ < 1 || content < 1 || content > gg || n_ctas < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (n_masks) {
+    case 1:
+      return rat_k3::launch<1>(keys, up1_w, up1_b, ln_s, ln_b, up2_w, up2_b, hyper, out, np_,
+                               gg, content, eps, n_ctas, s);
+    case 2:
+      return rat_k3::launch<2>(keys, up1_w, up1_b, ln_s, ln_b, up2_w, up2_b, hyper, out, np_,
+                               gg, content, eps, n_ctas, s);
+    case 3:
+      return rat_k3::launch<3>(keys, up1_w, up1_b, ln_s, ln_b, up2_w, up2_b, hyper, out, np_,
+                               gg, content, eps, n_ctas, s);
+    case 4:
+      return rat_k3::launch<4>(keys, up1_w, up1_b, ln_s, ln_b, up2_w, up2_b, hyper, out, np_,
+                               gg, content, eps, n_ctas, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
+
+// Dynamic shared memory a K3 CTA takes (for reports).
+extern "C" int rat_mask_head_smem() { return rat_k3::SMEM; }
 
 extern "C" int rat_mask_head_probs(const void* img0, const void* p1, const void* c1m,
                                    const void* p2, const void* c2m, const void* rows,
@@ -162,8 +641,17 @@ extern "C" int rat_mask_head_probs(const void* img0, const void* p1, const void*
                                    const void* hyper, void* out, int np_, int gg,
                                    int content, int n_masks, float eps, float ln_eps,
                                    int n_ctas, void* stream) {
-  if (gg % 8 != 0) return (int)cudaErrorInvalidValue;   // 16-byte P rows
-  return launch<true>(img0, up1_w, up1_b, ln_s, ln_b, up2_w, up2_b, hyper, out, np_, gg,
-                      content, n_masks, eps, n_ctas, p1, c1m, p2, c2m, rows, ln_eps,
-                      stream);
+  if (gg % 8 != 0 || n_masks < 1 || n_masks > MAXM || content > gg || n_ctas < 1)
+    return (int)cudaErrorInvalidValue;   // 16-byte P rows
+  cudaError_t err = cudaFuncSetAttribute(
+      mask_head_probs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_RECON);
+  if (err != cudaSuccess) return (int)err;
+  typedef const __nv_bfloat16* P;
+  mask_head_probs_kernel<<<n_ctas, THREADS, SMEM_RECON, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<P>(img0), static_cast<P>(up1_w), static_cast<P>(up1_b), static_cast<P>(ln_s),
+      static_cast<P>(ln_b), static_cast<P>(up2_w), static_cast<P>(up2_b), static_cast<P>(hyper),
+      static_cast<__nv_bfloat16*>(out), np_, gg, content, n_masks, eps, static_cast<P>(p1),
+      static_cast<P>(c1m), static_cast<P>(p2), static_cast<P>(c2m), static_cast<P>(rows),
+      ln_eps);
+  return (int)cudaGetLastError();
 }

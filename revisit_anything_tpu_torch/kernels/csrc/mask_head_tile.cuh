@@ -1,8 +1,9 @@
-// The mask head's per-tile device code, shared by the mask head kernels
-// (mask_head.cu: K3 and its RECON form B6) and the decode tail's logits
+// The mask head's 32-position WMMA tile, shared by B6 (mask_head.cu's
+// RECON kernel, entry rat_mask_head_probs) and the decode tail's logits
 // mode (decode_tail.cu), as the JAX package shares `mask_head_body`
 // (revisit_anything_tpu/ops/maskhead.py:138) between its mask-head
 // kernels and the tail's emit_logits branch (ops/decode_fused.py:304-341).
+// K3 (mask_head.cu, entry rat_mask_head) has its own TMA + wgmma design.
 //
 // One CTA of 256 threads holds up1_w (128 KB) and up2_w (16 KB) in shared
 // memory and runs a tile of BLK = 32 positions of one prompt's final

@@ -93,7 +93,8 @@ def fused_mask_head(keys: torch.Tensor, hyper: torch.Tensor,
     """Mask logits in block layout for the first ``content`` positions of
     keys [Np, gg, D] (pad-row skipping: later positions are never read).
 
-    CUDA: kernel K3 (bf16, D = 256, M ≤ 4). CPU: the plain version."""
+    CUDA: kernel K3 (bf16, D = 256, M ≤ 4; persistent TMA + ``wgmma``
+    CTAs, ``kernels/csrc/mask_head.cu``). CPU: the plain version."""
     np_, gg, d = keys.shape
     content = gg if content is None else content
     if not 0 < content <= gg:

@@ -124,6 +124,16 @@ def test_winattn_variants_patch_the_kernel_source():
         assert (text == base) == (not reps), name
 
 
+def test_maskhead_variants_patch_the_kernel_source():
+    """Every variant of ``kernels.maskhead_variants`` still finds the lines
+    it replaces in ``mask_head.cu`` (the tool runs only on the card)."""
+    from revisit_anything_tpu_torch.kernels import maskhead_variants as mv
+    base = mv._SRC.read_text()
+    for name, (_, reps) in mv.VARIANTS.items():
+        text = mv._source(reps)
+        assert (text == base) == (not reps), name
+
+
 def _flash_inputs(cuda, b, n, dh, bias, seed=0):
     g = torch.Generator(device=cuda).manual_seed(seed)
     bf = torch.bfloat16
@@ -311,23 +321,57 @@ def test_i2t_update_kernel_matches_plain(cuda, shared):
     assert _rel_err(kvt, want_kvt) < BF16_REL
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("content", [3136, 3130])
-def test_mask_head_kernel_matches_plain(cuda, content):
-    g = torch.Generator(device=cuda).manual_seed(2)
+def _mask_head_inputs(cuda, np_, gg, m, d=256, seed=2):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     bf = torch.bfloat16
 
     def rnd(*shape, s=1.0, off=0.0):
         return (torch.randn(shape, generator=g, device=cuda) * s + off).to(bf)
 
-    args = (rnd(8, 4096, 256), rnd(8, 3, 32, s=0.5), rnd(256, 256, s=0.1),
-            rnd(64, s=0.1), rnd(64, s=0.1, off=1.0), rnd(64, s=0.1),
-            rnd(64, 128, s=0.1), rnd(32, s=0.1))
+    return (rnd(np_, gg, d), rnd(np_, m, d // 8, s=0.5),
+            rnd(d, d, s=0.1), rnd(d // 4, s=0.1), rnd(d // 4, s=0.1, off=1.0),
+            rnd(d // 4, s=0.1), rnd(d // 4, d // 2, s=0.1), rnd(d // 8, s=0.1))
+
+
+# (prompts, gg, content, mask tokens): content a whole number of 64-row
+# items (3136), a ragged last item (3130) and less than one item (37),
+# each at M 1, 3 and 4 and at 1 prompt (most CTAs idle) and 8; then
+# content = gg, where the last item reads past the tensor (zero-filled).
+MASK_HEAD_CASES = [(np_, 4096, content, m) for np_ in (1, 8)
+                   for content in (3136, 3130, 37) for m in (1, 3, 4)] + [
+    (2, 3130, 3130, 3), (3, 37, 37, 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("np_,gg,content,m", MASK_HEAD_CASES)
+def test_mask_head_kernel_matches_plain(cuda, np_, gg, content, m):
+    args = _mask_head_inputs(cuda, np_, gg, m)
+    before = build.MASK_HEAD.launches
     got = mh.fused_mask_head(*args, eps=1e-6, content=content)
     want = mh.upscale_masks_blocks(args[0][:, :content], *args[1:], eps=1e-6)
     torch.cuda.synchronize()
-    assert got.shape == want.shape == (8, content, 16, 3)
+    assert build.MASK_HEAD.launches == before + 1
+    assert got.shape == want.shape == (np_, content, 16, m)
     assert _rel_err(got, want) < BF16_REL
+
+
+@pytest.mark.gpu
+def test_mask_head_kernel_is_bitwise_repeatable(cuda):
+    """Two launches of K3 on the same inputs give the same bits."""
+    args = _mask_head_inputs(cuda, 8, 4096, 3)
+    first, second = (mh.fused_mask_head(*args, eps=1e-6, content=3130)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_mask_head_kernel_refuses_shapes_it_does_not_take(cuda):
+    """K3 takes D 256 and M 1-4 only."""
+    with pytest.raises(ValueError, match="not built"):
+        mh.fused_mask_head(*_mask_head_inputs(cuda, 2, 128, 3, d=128), eps=1e-6)
+    with pytest.raises(ValueError, match="not built"):
+        mh.fused_mask_head(*_mask_head_inputs(cuda, 2, 128, 5), eps=1e-6)
 
 
 @pytest.mark.gpu

@@ -70,6 +70,31 @@ def test_mask_head_matches_jax_block_path():
     np.testing.assert_allclose(got, want, atol=ATOL)
 
 
+def test_plain_mask_head_keeps_the_kernels_rounding_points_in_bf16():
+    """The plain version the K3 kernel is held to on the card
+    (``upscale_masks_blocks``) against the JAX kernel (interpret mode) in
+    bf16 at the kernel's real width: D 256, M 4, content 96 of gg 128 (not
+    a whole number of 64-position items). Both round y1, h1, y2 and h2 to
+    bf16 at the same points; what differs is the f32 summation order of
+    the products, the GELU (erf against the A&S polynomial, 5e-7) and the
+    LN variance (two-pass against one-pass), each of which can flip an
+    intermediate bf16 rounding by one ulp. So the logits may differ by
+    one or two bf16 ulps of the output's scale, not more."""
+    rng = np.random.default_rng(5)
+    p = _params(rng, 256, 4, 2, 128)
+    bf = {k: jnp.asarray(p[k]).astype(jnp.bfloat16) for k in _ORDER}
+    want = np.asarray(jax_mask_head(
+        *(bf[k] for k in _ORDER), eps=1e-6, content=96,
+        interpret=True).astype(jnp.float32))
+    got = mh.upscale_masks_blocks(
+        *(torch.from_numpy(p[k]).to(torch.bfloat16) for k in _ORDER),
+        eps=1e-6)[:, :96].float().numpy()
+    assert got.shape == want.shape == (2, 96, 16, 4)
+    scale = np.abs(want).max()
+    ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)      # bf16: 8 significant bits
+    np.testing.assert_allclose(got, want, rtol=0, atol=2 * ulp)
+
+
 @pytest.mark.parametrize("content", [None, 48])
 def test_mask_head_probs_matches_jax_kernel(content):
     """Kernel B6: the branch rebuilt from two (P, C) updates, then the
