@@ -9,8 +9,8 @@ Phases (any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the twelve kernels from revisit_anything_tpu_torch/kernels/csrc
      (one nvcc per source, in parallel);
-  3. print the registers, shared memory and spill bytes of the five
-     redesigned entry points (K1, K2, B10, B11, K3) from ptxas.log;
+  3. print the registers, shared memory and spill bytes of the six
+     redesigned entry points (K1, K2, B10, B11, K3, K5) from ptxas.log;
      then
      compare every kernel with its plain version in bf16 at the main
      path's shapes, timing both with CUDA events (median of 7 after
@@ -172,11 +172,15 @@ PTXAS_KERNELS = (
      "rat_win_attention", "rat_win_attention_smem", (14, 64)),
     ("mask_head_kernelILi3E", "K3 M 3", "rat_mask_head",
      "rat_mask_head_smem", ()),
+    ("i2t_update_kernelILb1E", "K5 shared branch (layer 1)", "rat_i2t_update",
+     "rat_i2t_update_smem", ()),
+    ("i2t_update_kernelILb0E", "K5 per-prompt (layer 2)", "rat_i2t_update",
+     "rat_i2t_update_smem", ()),
 )
 
 
 def ptxas_report() -> None:
-    """Print the registers, shared memory and spill bytes of the five
+    """Print the registers, shared memory and spill bytes of the six
     redesigned entry points' kernels, read from the build's ptxas.log
     (dynamic shared memory from the sources' own size functions)."""
     import re
@@ -195,10 +199,15 @@ def ptxas_report() -> None:
         static = re.search(r"(\d+) bytes smem", block)
         stores, loads = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
                                   r"spill loads", block).groups()
+        # ptxas's (C7514) / (C7515) notes name the kernel whose wgmmas it
+        # serialized
+        serial = any(key in line and "(C751" in line
+                     for line in log.splitlines())
         print(f"[ptxas] {label:28s} ({entry}): {regs} registers, shared "
               f"memory {static.group(1) if static else 0} B static + "
               f"{getattr(lib, smem_fn)(*smem_args)} B dynamic a CTA, spill "
-              f"stores {stores} B, loads {loads} B", flush=True)
+              f"stores {stores} B, loads {loads} B"
+              f"{', wgmma serialized (C751x)' if serial else ''}", flush=True)
 
 
 def compare_kernels(dev) -> dict:

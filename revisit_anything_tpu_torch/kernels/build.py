@@ -82,6 +82,7 @@ SIGNATURES: Dict[str, Sequence] = {
     "rat_flash_attention_smem": (_I,),          # hd
     "rat_win_attention_smem": (_I, _I),         # side, hd
     "rat_mask_head_smem": (),
+    "rat_i2t_update_smem": (),
 }
 
 _lock = threading.Lock()

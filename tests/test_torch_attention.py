@@ -99,23 +99,41 @@ def test_token_cross_attend_matches_jax(shared):
     np.testing.assert_allclose(got, want, atol=ATOL)
 
 
+@pytest.mark.parametrize("far", [False, True])
 @pytest.mark.parametrize("shared", [True, False])
-def test_i2t_update_matches_jax(shared):
+def test_i2t_update_matches_jax(shared, far):
     """K5's plain version against the JAX package's ``i2t_update`` (its
-    Pallas kernel in interpret mode), the next t2i's k|v emitted too."""
+    Pallas kernel in interpret mode), the next t2i's k|v emitted too.
+    ``far``: head 0's logits sit more than 100 above head 1's, where a softmax
+    shifted by the max over all heads would underflow head 1 (the JAX
+    kernel shifts per head, ops/attention.py `_i2t_kernel`)."""
     from revisit_anything_tpu.ops.attention import i2t_update as jax_i2t
-    rng = np.random.default_rng(7 + shared)
+    rng = np.random.default_rng(7 + shared + 2 * far)
     b, t, m, d, da, heads = 3, 7, 64, 32, 16, 2
     f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
     args = (f(1 if shared else b, m, d), f(1, m, da), f(b, t, da),
             f(b, t, da), f(d, da) * 0.3, f(da), f(da, d) * 0.3, f(d),
             1.0 + 0.1 * f(d), f(d))
+    if far:
+        args[5][:8] += 6.0          # b_q: head 0's q near +6, head 1's near -6
+        args[5][8:] -= 6.0
+        args[2][..., :] += 6.0      # tok_k near +6 in both heads
     w_kv = f(d, 2 * da) * 0.3
     want_keys, want_kvt = jax_i2t(*map(jnp.asarray, args), heads, eps=1e-6,
                                   interpret=True,
                                   w_kv_next=jnp.asarray(w_kv))
     keys, kvt = att.i2t_update(*(torch.from_numpy(x) for x in args),
                                torch.from_numpy(w_kv), heads, 1e-6)
+    if far:
+        q = args[0] @ args[4] + args[1] + args[5]
+        s = np.einsum("bmhe,bthe->bhmt", np.broadcast_to(
+            q, (b, m, da)).reshape(b, m, heads, da // heads),
+            args[2].reshape(b, t, heads, da // heads)) / np.sqrt(da // heads)
+        assert (s[:, 0].max(-1) - s[:, 1].max(-1)).min() > 100
+    assert np.isfinite(keys.numpy()).all()
+    # logits near +-100 carry f32 rounding of ulp(100) = 7.6e-6 (against
+    # ~1e-7 at the O(1) logits of the other cases) into each exponent
+    atol = 4 * ATOL if far else ATOL
     np.testing.assert_allclose(keys.numpy(), np.asarray(want_keys),
-                               atol=ATOL)
-    np.testing.assert_allclose(kvt.numpy(), np.asarray(want_kvt), atol=ATOL)
+                               atol=atol)
+    np.testing.assert_allclose(kvt.numpy(), np.asarray(want_kvt), atol=atol)

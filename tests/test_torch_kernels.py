@@ -134,6 +134,16 @@ def test_maskhead_variants_patch_the_kernel_source():
         assert (text == base) == (not reps), name
 
 
+def test_i2t_variants_patch_the_kernel_source():
+    """Every variant of ``kernels.i2t_variants`` still finds the lines it
+    replaces in ``i2t_update.cu`` (the tool runs only on the card)."""
+    from revisit_anything_tpu_torch.kernels import i2t_variants as iv
+    base = iv._SRC.read_text()
+    for name, (_, reps) in iv.VARIANTS.items():
+        text = iv._source(reps)
+        assert (text == base) == (not reps), name
+
+
 def _flash_inputs(cuda, b, n, dh, bias, seed=0):
     g = torch.Generator(device=cuda).manual_seed(seed)
     bf = torch.bfloat16
@@ -297,28 +307,81 @@ def test_win_attention_kernel_matches_plain(cuda, b, side, heads, hd):
     assert _rel_err(got, want) < BF16_REL
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("shared", [True, False])
-def test_i2t_update_kernel_matches_plain(cuda, shared):
-    g = torch.Generator(device=cuda).manual_seed(4)
+def _i2t_inputs(cuda, shared, b, m, seed=4, far=False):
+    """K5's operands; ``far``: head 0's logits sit ~500 above head 1's
+    (q_0 and k_0 near +8, q_1 near -8), so a softmax shifted by the row's
+    max over all heads would underflow head 1 to 0/0."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
     bf = torch.bfloat16
 
     def rnd(*shape, s=1.0, off=0.0):
         return (torch.randn(shape, generator=g, device=cuda) * s + off).to(bf)
 
-    b, m = 16, 4096
-    args = (rnd(1 if shared else b, m, 256), rnd(1, m, 128), rnd(b, 7, 128),
-            rnd(b, 7, 128), rnd(256, 128, s=0.1), rnd(128, s=0.1),
+    b_q, tok_k = rnd(128, s=0.1), rnd(b, 7, 128)
+    if far:
+        b_q[:16] += 8.0
+        b_q[16:32] -= 8.0
+        tok_k[..., :32] += 8.0
+    return (rnd(1 if shared else b, m, 256), rnd(1, m, 128), tok_k,
+            rnd(b, 7, 128), rnd(256, 128, s=0.1), b_q,
             rnd(128, 256, s=0.1), rnd(256, s=0.1), rnd(256, s=0.1, off=1.0),
             rnd(256, s=0.1), rnd(256, 256, s=0.1))
+
+
+# (shared, b, M, far): b 1 leaves most persistent CTAs idle; M 192 ends on
+# half a 128-position unit (its second warpgroup's rows lie past M), M 64
+# is that half alone; far: head 0's logits ~500 above head 1's, where only
+# a softmax shifted per head keeps head 1 from 0/0.
+I2T_CASES = [(shared, b, m, False) for shared in (True, False)
+             for b in (1, 3, 16) for m in (64, 192, 4096)] + [
+    (True, 5, 192, True), (False, 5, 192, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared,b,m,far", I2T_CASES)
+def test_i2t_update_kernel_matches_plain(cuda, shared, b, m, far):
+    args = _i2t_inputs(cuda, shared, b, m, seed=5 if far else 4, far=far)
     before = build.I2T_UPDATE.launches
     keys, kvt = att.i2t_update(*args, 8, 1e-6)
     want_keys, want_kvt = att.i2t_update_reference(*args, 8, 1e-6)
     torch.cuda.synchronize()
     assert build.I2T_UPDATE.launches == before + 1
     assert keys.shape == (b, m, 256) and kvt.shape == (b, 256, m)
+    assert torch.isfinite(keys.float()).all()
+    assert torch.isfinite(kvt.float()).all()
     assert _rel_err(keys, want_keys) < BF16_REL
     assert _rel_err(kvt, want_kvt) < BF16_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared", [True, False])
+def test_i2t_update_kernel_is_bitwise_repeatable(cuda, shared):
+    """Two launches of K5 on the same inputs give the same bits."""
+    args = _i2t_inputs(cuda, shared, 16, 4096)
+    (k1, t1), (k2, t2) = (att.i2t_update(*args, 8, 1e-6) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(k1, k2) and torch.equal(t1, t2)
+
+
+@pytest.mark.gpu
+def test_i2t_update_kernel_refuses_shapes_it_does_not_take(cuda):
+    """K5 takes D 256, DA 128, 8 heads, T 7, M % 64 == 0 and a 256x256
+    w_kv_next only."""
+    args = list(_i2t_inputs(cuda, False, 2, 128))
+    bad = {
+        "M % 64": lambda a: [a[0][:, :96], a[1][:, :96]] + a[2:],
+        "D": lambda a: [a[0][..., :128]] + a[1:4] + [a[4][:128]] + a[5:],
+        "DA": lambda a: a[:1] + [a[1][..., :64], a[2][..., :64],
+                                a[3][..., :64], a[4][:, :64], a[5][:64],
+                                a[6][:64]] + a[7:],
+        "T": lambda a: a[:2] + [a[2][:, :6], a[3][:, :6]] + a[4:],
+        "w_kv_next": lambda a: a[:10] + [a[10][:, :128]],
+    }
+    for cut in bad.values():
+        with pytest.raises(ValueError, match="not built"):
+            att.i2t_update(*cut(args), 8, 1e-6)
+    with pytest.raises(ValueError, match="not built"):
+        att.i2t_update(*args, 4, 1e-6)
 
 
 def _mask_head_inputs(cuda, np_, gg, m, d=256, seed=2):
