@@ -9,8 +9,9 @@ Phases (any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the twelve kernels from revisit_anything_tpu_torch/kernels/csrc
      (one nvcc per source, in parallel);
-  3. print the registers, shared memory and spill bytes of the six
-     redesigned entry points (K1, K2, B10, B11, K3, K5) from ptxas.log;
+  3. print the registers, shared memory and spill bytes of the seven
+     redesigned entry points (K1, K2, B10, B11, K3, K5, K4) from
+     ptxas.log;
      then
      compare every kernel with its plain version in bf16 at the main
      path's shapes, timing both with CUDA events (median of 7 after
@@ -176,11 +177,13 @@ PTXAS_KERNELS = (
      "rat_i2t_update_smem", ()),
     ("i2t_update_kernelILb0E", "K5 per-prompt (layer 2)", "rat_i2t_update",
      "rat_i2t_update_smem", ()),
+    ("resize_flags_kernelILi3ELb1E", "K4 M 3 (240x320)", "rat_resize_flags",
+     "rat_resize_flags_smem", (3, 320, 240)),
 )
 
 
 def ptxas_report() -> None:
-    """Print the registers, shared memory and spill bytes of the six
+    """Print the registers, shared memory and spill bytes of the seven
     redesigned entry points' kernels, read from the build's ptxas.log
     (dynamic shared memory from the sources' own size functions)."""
     import re
@@ -242,15 +245,18 @@ def compare_kernels(dev) -> dict:
     results = {}
 
     def check(kernel, label, fn_k, fn_p, err_fn, tol, ins, ops,
-              library=None, plain_prompts=None):
+              library=None, plain_prompts=None, rate=False):
         """``ins`` the inputs the function must read (views where it
         reads part of a tensor), ``ops`` = (bf16 FLOP, f32 FLOP) its
         arithmetic; ``plain_prompts``: the plain version ran on only the
-        first prompts, and the kernel's output for those is compared."""
+        first prompts, and the kernel's output for those is compared;
+        ``rate``: also print the achieved GB/s (the bytes it must read
+        and write over the kernel's time)."""
         out_k, out_p = fn_k(), fn_p()
         torch.cuda.synchronize()
         outs = out_k if isinstance(out_k, (tuple, list)) else (out_k,)
-        bound_ms, bound_by = _bound(_nbytes(ins) + _nbytes(outs), *ops)
+        moved = _nbytes(ins) + _nbytes(outs)
+        bound_ms, bound_by = _bound(moved, *ops)
         if plain_prompts:
             out_k = (tuple(o[:plain_prompts] for o in out_k)
                      if isinstance(out_k, tuple) else out_k[:plain_prompts])
@@ -265,6 +271,8 @@ def compare_kernels(dev) -> dict:
         x_lib = ms / library_ms if library else None
         lib = (f"  library {library_ms:.3f} ms  x library {x_lib:.2f}"
                if library else "")
+        if rate:
+            lib += f"  {moved / ms / 1e6:.1f} GB/s"
         print(f"[kernel] {kernel.name:22s} {label:44s} max_abs_err="
               f"{abs_err:.3e} rel_err={rel_err:.3e} (tol {tol:g}) "
               f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms{lib}  bound "
@@ -275,6 +283,8 @@ def compare_kernels(dev) -> dict:
         row = dict(label=label, max_abs_err=abs_err, rel_err=rel_err, ms=ms,
                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    library_ms=library_ms, bound_share=share, x_library=x_lib)
+        if rate:
+            row["gb_s"] = moved / ms / 1e6
         if plain_prompts:
             row["plain_prompts"] = plain_prompts
         results.setdefault(kernel.name, []).append(row)
@@ -407,6 +417,7 @@ def compare_kernels(dev) -> dict:
     # K4: the 17places mask resize (input 768x1024 -> 240x320, gh = 49)
     wh, ww, gh = resize_mats_and_rows(SAM_VIT_H, (768, 1024), (240, 320))
     whd, wwd = torch.from_numpy(wh).to(dev), torch.from_numpy(ww).to(dev)
+    taps = tuple(t.to(dev) for t in mr.resize_taps(wh, ww))
     logits = rnd(1024, gh * 64, 16, 3, s=4.0)
 
     def flags_err(out_k, flags_p):
@@ -419,12 +430,14 @@ def compare_kernels(dev) -> dict:
         return mism, mism
 
     # the banded resize's taps: row pass nnz(wh)·4g, column pass H·nnz(ww)
-    taps = int((whd != 0).sum()) * 4 * 64 + 240 * int((wwd != 0).sum())
+    n_taps = int((whd != 0).sum()) * 4 * 64 + 240 * int((wwd != 0).sum())
     check(build.RESIZE_FLAGS, "logits [1024,3136,16,3] -> flags [1024,3,240,320]",
-          lambda: mr.fused_resize_flags(logits, whd, wwd, 0.0, 1.0, (gh, 64)),
+          lambda: mr.fused_resize_flags(logits, whd, wwd, 0.0, 1.0, (gh, 64),
+                                        taps=taps),
           lambda: mr.resize_flags_reference(logits, whd, wwd, 0.0, 1.0,
                                             (gh, 64)),
-          flags_err, flag_tol, (logits, whd, wwd), (0, 2 * 1024 * 3 * taps))
+          flags_err, flag_tol, (logits,) + taps, (0, 2 * 1024 * 3 * n_taps),
+          rate=True)
     del logits
     torch.cuda.empty_cache()
     compare_probs_kernels(dev, check, head, rel_tol)

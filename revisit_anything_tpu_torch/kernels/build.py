@@ -59,10 +59,10 @@ SIGNATURES: Dict[str, Sequence] = {
     # np, gg, content, n_masks, eps, n_ctas, stream
     "rat_mask_head": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _F, _I, _P),
-    # logits, wh, ww, h_lo, h_hi, w_lo, w_hi, flags, rowst, colany,
-    # np, gh, g, n_masks, h, w, thr, off, stream
-    "rat_resize_flags": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                         _I, _I, _I, _F, _F, _P),
+    # logits, h_taps, w_taps, flags, rowst, colany, np, gh, g, n_masks,
+    # h, w, thr-off, thr, thr+off, n_sm, stream
+    "rat_resize_flags": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                         _F, _F, _I, _P),
     # q1st, tok_k, img0, p1, c1, peq2t, w_q, rows, out, b, m, layer, eps,
     # stream
     "rat_i2t_probs": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
@@ -83,6 +83,8 @@ SIGNATURES: Dict[str, Sequence] = {
     "rat_win_attention_smem": (_I, _I),         # side, hd
     "rat_mask_head_smem": (),
     "rat_i2t_update_smem": (),
+    "rat_resize_flags_smem": (_I, _I, _I),      # n_masks, w, h
+    "rat_resize_flags_ctas": (_I, _I, _I),      # n_masks, w, h: CTAs an SM
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) device helpers shared by the TMA + wgmma kernels
-// (flash_attention.cu, mask_head.cu, i2t_update.cu): shared-memory
-// descriptors, mbarriers with a trap on a lost TMA, TMA loads and stores,
+// (flash_attention.cu, mask_head.cu, i2t_update.cu) and the bulk-copy
+// resize (resize_flags.cu): shared-memory descriptors, mbarriers with a
+// trap on a lost TMA, TMA loads and stores, 1-D bulk loads,
 // the wgmma fence / commit / wait group and the register-A and MN-major
 // n128 wgmma shapes, register pins, named barriers, and the host's lookup
 // of cuTensorMapEncodeTiled.
@@ -191,6 +192,17 @@ __device__ __forceinline__ void bulk_wait_read() {
 // Wait until this thread's bulk stores are complete.
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// A 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from device memory into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load_1d(uint32_t dst, const void* src, uint32_t bytes,
+                                             uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // cuTensorMapEncodeTiled, looked up through the CUDA runtime (so the

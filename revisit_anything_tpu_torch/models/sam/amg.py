@@ -25,7 +25,8 @@ from revisit_anything_tpu_torch.models.sam.decoder import (DECODES,
                                                            decode_masks)
 from revisit_anything_tpu_torch.models.sam.prompt import (
     embed_points, no_mask_dense_embedding)
-from revisit_anything_tpu_torch.ops.maskresize import fused_resize_flags
+from revisit_anything_tpu_torch.ops.maskresize import (fused_resize_flags,
+                                                       resize_taps)
 from revisit_anything_tpu_torch.ops.resize import bilinear_weight_matrix
 
 
@@ -100,6 +101,12 @@ def _decode_batch(sam, cfg: SamArchConfig, image_embedding: torch.Tensor,
     wh_np, ww_np, gh = resize_mats_and_rows(*key)
     wh = device_constant(("amg_resize_h",) + key, dev, lambda: wh_np)
     ww = device_constant(("amg_resize_w",) + key, dev, lambda: ww_np)
+    # K4's tap tables; the CPU path takes the dense matrices
+    taps = None
+    if dev.type == "cuda":
+        taps = tuple(device_constant(("amg_taps", i) + key, dev,
+                                     lambda i=i: resize_taps(wh_np, ww_np)[i])
+                     for i in range(2))
     lowres_blk, iou = decode_masks(sam.decoder, cfg, image_embedding,
                                    image_pe, sparse, dense, mask_rows=gh,
                                    decode=amg.decode)
@@ -108,7 +115,7 @@ def _decode_batch(sam, cfg: SamArchConfig, image_embedding: torch.Tensor,
     hgt, wid = orig_hw
     flags, rowst, colany = fused_resize_flags(
         lowres_blk, wh, ww, cfg.mask_threshold, amg.stability_score_offset,
-        grid_hw=(gh, cfg.grid))
+        grid_hw=(gh, cfg.grid), taps=taps)
     masks_bool = (flags.reshape(-1, hgt, wid) & 2) != 0
     rowst = rowst.reshape(-1, hgt, 3)
     hi = rowst[..., 1].sum(-1).float()

@@ -14,7 +14,7 @@ integer reductions of the flags.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -52,29 +52,67 @@ def flag_stats(flags: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return rowst, mask.any(-2).to(torch.uint8)
 
 
-def tap_ranges(mat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per row of mat [R, K]: [lo, hi) spanning its non-zero entries
-    (empty rows give [0, 0)), int32 on mat's device."""
-    nz = mat != 0
-    k = mat.shape[1]
+# the kernel's limits: taps a row and a column, the logits' largest grid
+# width, masks, output width
+TAPS, GRID, MAX_MASKS, MAX_W = 3, 64, 4, 8192
+
+
+def tap_table(mat, round_to: Optional[torch.dtype] = None,
+              monotone: bool = False) -> torch.Tensor:
+    """The banded matrix mat [R, K] as the kernel's tap table [R, 4] f32
+    on the host: per row (first tap k0 as a float, w[k0], w[k0+1],
+    w[k0+2]), with k0 ≤ K − 3 so that all three taps lie inside the row.
+    ``round_to`` rounds the weights first (the row pass multiplies bf16
+    weights, as the reference does); ``monotone`` requires k0 to be
+    non-decreasing (the row pass slides down the rows), and an empty row
+    takes the previous row's k0. Raises ValueError for a row whose
+    non-zeros span more than 3 columns."""
+    m = torch.as_tensor(mat).detach().to("cpu", torch.float32)
+    if round_to is not None:
+        m = m.to(round_to).float()
+    rows, k = m.shape
+    if k < TAPS:
+        raise ValueError(f"resize matrix {tuple(m.shape)}: fewer than "
+                         f"{TAPS} columns")
+    nz = m != 0
     has = nz.any(1)
-    first = nz.to(torch.int32).argmax(1)
-    last = k - 1 - nz.flip(1).to(torch.int32).argmax(1)
-    zero = torch.zeros_like(first)
-    lo = torch.where(has, first, zero).to(torch.int32)
-    hi = torch.where(has, last + 1, zero).to(torch.int32)
-    return lo.contiguous(), hi.contiguous()
+    first = nz.to(torch.int64).argmax(1)
+    last = k - 1 - nz.flip(1).to(torch.int64).argmax(1)
+    if bool(((last - first + 1 > TAPS) & has).any()):
+        raise ValueError(f"resize matrix {tuple(m.shape)}: a row spans more "
+                         f"than {TAPS} taps; the kernel was not built for it")
+    k0 = torch.where(has, first.clamp(max=k - TAPS), 0)
+    if monotone:
+        if bool((k0[has].diff() < 0).any()):
+            raise ValueError("resize matrix: first taps decrease down the "
+                             "rows; the kernel was not built for it")
+        k0 = torch.cummax(k0, 0).values
+    w = m.gather(1, k0[:, None] + torch.arange(TAPS))
+    return torch.cat([k0[:, None].float(), w], 1).contiguous()
+
+
+def resize_taps(wh, ww, dtype: torch.dtype = torch.bfloat16
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tap tables (host, f32) of wh [H, 4gh] (weights rounded to the
+    logits' ``dtype``) and ww [W, 4g] for :func:`fused_resize_flags`."""
+    return (tap_table(wh, round_to=dtype, monotone=True), tap_table(ww))
 
 
 def fused_resize_flags(lowres_blk: torch.Tensor, wh: torch.Tensor,
                        ww: torch.Tensor, thr: float, off: float,
-                       grid_hw: Tuple[int, int]):
+                       grid_hw: Tuple[int, int],
+                       taps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Resize block-layout logits to [H, W], threshold, and reduce.
 
     Returns (flags [Np, M, H, W] uint8, rowst [Np, M, H, 3] int32,
     colany [Np, M, W] uint8). CUDA: kernel K4 (bf16 logits; the column
-    pass in true f32). CPU: :func:`resize_flags_reference` and
-    :func:`flag_stats`."""
+    pass in true f32) over ``taps`` = :func:`resize_taps` of (wh, ww) on
+    the logits' device (built here, through the host, when not given).
+    CPU: :func:`resize_flags_reference` and :func:`flag_stats`.
+
+    The kernel takes g ≤ 64, gh ≤ g, 1-4 masks, any H and W ≤ 8192, and
+    at most 3 adjacent taps a row of wh and of ww; it raises ValueError on
+    anything else."""
     if not lowres_blk.is_cuda:
         flags = resize_flags_reference(lowres_blk, wh, ww, thr, off, grid_hw)
         return (flags,) + flag_stats(flags)
@@ -84,19 +122,27 @@ def fused_resize_flags(lowres_blk: torch.Tensor, wh: torch.Tensor,
     if sixteen != 16 or gh * g != gg:
         raise ValueError(f"logits {tuple(lowres_blk.shape)} do not match "
                          f"grid {grid_hw}")
-    bf = torch.bfloat16
-    lx = operand("logits", lowres_blk, bf)
-    whd = operand("wh", wh.to(bf), bf, (h, 4 * gh))
-    wwf = operand("ww", ww.float(), torch.float32, (w, 4 * g))
-    h_lo, h_hi = tap_ranges(whd)
-    w_lo, w_hi = tap_ranges(wwf)
+    if (not 1 <= g <= GRID or not 1 <= gh <= g
+            or not 1 <= n_masks <= MAX_MASKS
+            or not 1 <= w <= MAX_W or h < 1 or np_ < 1
+            or tuple(wh.shape) != (h, 4 * gh) or tuple(ww.shape) != (w, 4 * g)):
+        raise ValueError(
+            f"resize_flags: logits {tuple(lowres_blk.shape)} on grid "
+            f"{grid_hw} to {h}x{w}: the kernel was not built for it (g <= "
+            f"{GRID}, gh <= g, 1-{MAX_MASKS} masks, W <= {MAX_W})")
     dev = lowres_blk.device
+    if taps is None:
+        taps = tuple(t.to(dev) for t in resize_taps(wh, ww))
+    f32 = torch.float32
+    lx = operand("logits", lowres_blk, torch.bfloat16)
+    htap = operand("h_taps", taps[0], f32, (h, 4))
+    wtap = operand("w_taps", taps[1], f32, (w, 4))
     flags = torch.empty((np_, n_masks, h, w), dtype=torch.uint8, device=dev)
     rowst = torch.empty((np_, n_masks, h, 3), dtype=torch.int32, device=dev)
     colany = torch.empty((np_, n_masks, w), dtype=torch.uint8, device=dev)
-    RESIZE_FLAGS.launch(lx.data_ptr(), whd.data_ptr(), wwf.data_ptr(),
-                        h_lo.data_ptr(), h_hi.data_ptr(), w_lo.data_ptr(),
-                        w_hi.data_ptr(), flags.data_ptr(), rowst.data_ptr(),
-                        colany.data_ptr(), np_, gh, g, n_masks, h, w,
-                        float(thr), float(off))
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    RESIZE_FLAGS.launch(lx.data_ptr(), htap.data_ptr(), wtap.data_ptr(),
+                        flags.data_ptr(), rowst.data_ptr(), colany.data_ptr(),
+                        np_, gh, g, n_masks, h, w, float(thr - off),
+                        float(thr), float(thr + off), n_sm)
     return flags, rowst, colany

@@ -21,7 +21,6 @@ from revisit_anything_tpu_torch.ops import decode_probs as dpr
 from revisit_anything_tpu_torch.ops import maskhead as mh
 from revisit_anything_tpu_torch.ops import maskresize as mr
 from revisit_anything_tpu_torch.ops import winattn as wa
-from revisit_anything_tpu_torch.ops.resize import bilinear_weight_matrix
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -141,6 +140,16 @@ def test_i2t_variants_patch_the_kernel_source():
     base = iv._SRC.read_text()
     for name, (_, reps) in iv.VARIANTS.items():
         text = iv._source(reps)
+        assert (text == base) == (not reps), name
+
+
+def test_resize_variants_patch_the_kernel_source():
+    """Every variant of ``kernels.resize_variants`` still finds the lines
+    it replaces in ``resize_flags.cu`` (the tool runs only on the card)."""
+    from revisit_anything_tpu_torch.kernels import resize_variants as rv
+    base = rv._SRC.read_text()
+    for name, (_, reps) in rv.VARIANTS.items():
+        text = rv._source(reps)
         assert (text == base) == (not reps), name
 
 
@@ -437,25 +446,97 @@ def test_mask_head_kernel_refuses_shapes_it_does_not_take(cuda):
         mh.fused_mask_head(*_mask_head_inputs(cuda, 2, 128, 5), eps=1e-6)
 
 
+def _resize_inputs(cuda, orig_hw, np_, m, seed=3, const=None, side=1024):
+    """AMG's resize matrices for an image of orig_hw (input resized to the
+    long side ``side``, SAM's grid side / 16) and seeded bf16 logits
+    [np_, gh·g, 16, m]."""
+    import dataclasses
+
+    from revisit_anything_tpu_torch.models.sam import SAM_VIT_H
+    from revisit_anything_tpu_torch.models.sam.amg import (
+        resize_longest_side, resize_mats_and_rows)
+    cfg = dataclasses.replace(SAM_VIT_H, image_size=side)
+    wh, ww, gh = resize_mats_and_rows(
+        cfg, resize_longest_side(*orig_hw, side), orig_hw)
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((np_, gh * cfg.grid, 16, m)).astype(
+        np.float32) * 4.0
+    if const is not None:
+        x[:] = const
+    x = torch.from_numpy(x).to(cuda, torch.bfloat16)
+    return (x, torch.from_numpy(wh).to(cuda), torch.from_numpy(ww).to(cuda),
+            (gh, cfg.grid))
+
+
+# (image, prompts, masks, constant logits, SAM input side): 17places
+# (240x320, gh 49) at 1-4 masks, and at 301 prompts (no multiple of the
+# CTA count: 2 an SM); a square grid (gh = g = 64, 256x256); portrait
+# (H > W) at W = 240 and at W = 250 (not a multiple of 16: byte stores);
+# a small SAM's grid (g 16, 224x224); tap tables too large for shared
+# memory (600x800: bands of 3 rows; 2000x3000: bands of 1 row); all
+# pixels above and all below every threshold
+RESIZE_CASES = [
+    ((240, 320), 16, 3, None, 1024), ((240, 320), 16, 1, None, 1024),
+    ((240, 320), 8, 2, None, 1024), ((240, 320), 8, 4, None, 1024),
+    ((240, 320), 301, 3, None, 1024), ((256, 256), 16, 3, None, 1024),
+    ((320, 240), 16, 3, None, 1024), ((333, 250), 16, 1, None, 1024),
+    ((224, 224), 16, 3, None, 256), ((600, 800), 4, 3, None, 1024),
+    ((2000, 3000), 2, 3, None, 1024),
+    ((240, 320), 4, 3, 20.0, 1024), ((240, 320), 4, 3, -20.0, 1024),
+]
+
+
 @pytest.mark.gpu
-def test_resize_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(3)
-    gh, g = 49, 64
-    up = bilinear_weight_matrix(1024, 256)
-    wh = (bilinear_weight_matrix(240, 768) @ up[:768])[:, :4 * gh]
-    ww = bilinear_weight_matrix(320, 1024) @ up
-    x = torch.from_numpy((rng.standard_normal((16, gh * g, 16, 3)) * 4.0
-                          ).astype(np.float32)).to(cuda, torch.bfloat16)
-    whd, wwd = torch.from_numpy(wh).to(cuda), torch.from_numpy(ww).to(cuda)
+@pytest.mark.parametrize("orig_hw,np_,m,const,side", RESIZE_CASES)
+def test_resize_kernel_matches_plain(cuda, orig_hw, np_, m, const, side):
+    x, whd, wwd, grid = _resize_inputs(cuda, orig_hw, np_, m, const=const,
+                                       side=side)
+    taps = tuple(t.to(cuda) for t in mr.resize_taps(whd, wwd))
+    build.RESIZE_FLAGS.launches = 0
     flags, rowst, colany = mr.fused_resize_flags(x, whd, wwd, 0.0, 1.0,
-                                                 (gh, g))
-    want = mr.resize_flags_reference(x, whd, wwd, 0.0, 1.0, (gh, g))
+                                                 grid, taps=taps)
+    want = mr.resize_flags_reference(x, whd, wwd, 0.0, 1.0, grid)
     torch.cuda.synchronize()
+    assert build.RESIZE_FLAGS.launches == 1
     # f32 summation order only: flips only at exact threshold crossings
     assert float((flags != want).float().mean()) <= 1e-5
+    if const is not None:
+        assert torch.equal(flags, want)
+        assert bool((flags == (7 if const > 0 else 0)).all())
     own_rowst, own_colany = mr.flag_stats(flags)
     assert torch.equal(rowst, own_rowst)
     assert torch.equal(colany, own_colany)
+
+
+@pytest.mark.gpu
+def test_resize_kernel_builds_its_tap_tables_when_not_given(cuda):
+    x, whd, wwd, grid = _resize_inputs(cuda, (240, 320), 4, 3)
+    got = mr.fused_resize_flags(x, whd, wwd, 0.0, 1.0, grid)
+    taps = tuple(t.to(cuda) for t in mr.resize_taps(whd, wwd))
+    again = mr.fused_resize_flags(x, whd, wwd, 0.0, 1.0, grid, taps=taps)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_resize_kernel_refuses_shapes_it_does_not_take(cuda):
+    """K4 takes g <= 64, gh <= g, 1-4 masks, W <= 8192 and 3 taps."""
+    x, whd, wwd, (gh, _) = _resize_inputs(cuda, (240, 320), 2, 3)
+    x80 = torch.zeros((2, gh * 80, 16, 3), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="not built"):          # g = 80
+        mr.fused_resize_flags(x80, whd, torch.zeros((320, 320), device=cuda),
+                              0.0, 1.0, (gh, 80))
+    x5 = torch.zeros((2, gh * 64, 16, 5), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="not built"):          # 5 masks
+        mr.fused_resize_flags(x5, whd, wwd, 0.0, 1.0, (gh, 64))
+    wide = torch.zeros((8200, 256), device=cuda)
+    with pytest.raises(ValueError, match="not built"):          # W 8200
+        mr.fused_resize_flags(x, whd, wide, 0.0, 1.0, (gh, 64))
+    spread = wwd.clone()
+    spread[:, 0] = 0.5                                          # 4+ taps
+    with pytest.raises(ValueError, match="taps"):
+        mr.fused_resize_flags(x, whd, spread, 0.0, 1.0, (gh, 64))
 
 
 def _probs_inputs(cuda, b=16, m=4096, seed=5):

@@ -63,13 +63,72 @@ def test_reference_matches_jax_reference():
     np.testing.assert_array_equal(got, want)
 
 
-def test_tap_ranges_cover_all_nonzeros():
-    _, wh, ww = _setup(240, 320, gh=8)
-    for mat in (wh, ww):
-        lo, hi = (x.numpy() for x in mr.tap_ranges(torch.from_numpy(mat)))
-        for r in range(mat.shape[0]):
-            nz = np.flatnonzero(mat[r])
-            if len(nz):
-                assert lo[r] == nz[0] and hi[r] == nz[-1] + 1
-            else:
-                assert lo[r] == hi[r] == 0
+def _dense_from_taps(tab, k):
+    """The dense [R, k] matrix a tap table [R, 4] stands for."""
+    tab = tab.numpy()
+    out = np.zeros((tab.shape[0], k), np.float32)
+    for r, (k0, *w) in enumerate(tab):
+        assert k0 == int(k0) and 0 <= k0 <= k - mr.TAPS
+        out[r, int(k0):int(k0) + mr.TAPS] = w
+    return out
+
+
+def _amg_mats(orig_hw):
+    from revisit_anything_tpu_torch.models.sam import SAM_VIT_H
+    from revisit_anything_tpu_torch.models.sam.amg import (
+        resize_longest_side, resize_mats_and_rows)
+    input_hw = resize_longest_side(*orig_hw, 1024)
+    wh, ww, _ = resize_mats_and_rows(SAM_VIT_H, input_hw, orig_hw)
+    return wh, ww
+
+
+# the 17places shape (240x320 from a 768x1024 input) and the three shapes
+# of the parity test above
+@pytest.mark.parametrize("shape", ["17places", (30, 40, 8), (25, 50, 6),
+                                   (64, 20, 8)])
+def test_tap_tables_rebuild_the_dense_matrices(shape):
+    """K4's tap tables hold every non-zero of wh (rounded to bf16, as the
+    reference rounds it) and ww exactly, in rows of 3 adjacent taps whose
+    first tap never decreases down wh's rows."""
+    if shape == "17places":
+        wh, ww = _amg_mats((240, 320))
+    else:
+        _, wh, ww = _setup(*shape[:2], gh=shape[2])
+    htab, wtab = mr.resize_taps(wh, ww)
+    wh_bf = torch.from_numpy(wh).to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(_dense_from_taps(htab, wh.shape[1]), wh_bf)
+    np.testing.assert_array_equal(_dense_from_taps(wtab, ww.shape[1]), ww)
+    assert (np.diff(htab[:, 0].numpy()) >= 0).all()
+
+
+@pytest.mark.parametrize("orig_hw", [(32, 48), (100, 133), (64, 64),
+                                     (2000, 3000), (333, 250)])
+def test_amg_resize_matrices_fit_the_kernel_taps(orig_hw):
+    """Every image size AMG resizes to has at most 3 adjacent taps a row
+    and a column, so K4 serves it: the tables build and rebuild the
+    matrices."""
+    wh, ww = _amg_mats(orig_hw)
+    htab, wtab = mr.resize_taps(wh, ww)
+    np.testing.assert_array_equal(_dense_from_taps(wtab, ww.shape[1]), ww)
+    assert htab.shape == (wh.shape[0], 4)
+
+
+def test_tap_table_refuses_what_the_kernel_does_not_take():
+    wide = np.zeros((2, 8), np.float32)
+    wide[0, 1:5] = 0.25                                   # 4 taps
+    with pytest.raises(ValueError, match="taps"):
+        mr.tap_table(wide)
+    down = np.zeros((2, 8), np.float32)
+    down[0, 4], down[1, 1] = 1.0, 1.0                     # first tap falls
+    with pytest.raises(ValueError, match="decrease"):
+        mr.tap_table(down, monotone=True)
+    assert mr.tap_table(down).shape == (2, 4)
+
+
+def test_cpu_path_ignores_the_tap_tables():
+    lowres, wh, ww = _setup(30, 40)
+    args = (torch.from_numpy(lowres), torch.from_numpy(wh),
+            torch.from_numpy(ww), 0.0, 1.0, (8, 8))
+    got = mr.fused_resize_flags(*args, taps=mr.resize_taps(wh, ww))
+    for a, b in zip(got, mr.fused_resize_flags(*args)):
+        assert torch.equal(a, b)
