@@ -9,8 +9,8 @@ Phases (any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the twelve kernels from revisit_anything_tpu_torch/kernels/csrc
      (one nvcc per source, in parallel);
-  3. print the registers, shared memory and spill bytes of the seven
-     redesigned entry points (K1, K2, B10, B11, K3, K5, K4) from
+  3. print the registers, shared memory and spill bytes of the eight
+     redesigned entry points (K1, K2, B10, B11, K3, B6, K5, K4) from
      ptxas.log;
      then
      compare every kernel with its plain version in bf16 at the main
@@ -130,6 +130,17 @@ def _tuple_err(out_k, out_p):
 # FLOP/s, f32 (non-tensor) FLOP/s
 HBM_BYTES_S, BF16_FLOP_S, F32_FLOP_S = 3.35e12, 989e12, 67e12
 
+# The mask head's f32 work a position (K3 and B6), beside its products on
+# the tensor cores (bf16 inputs: the two convolutions and the
+# hypernetwork's 16·32·M multiply-adds, an f32 sum of bf16 products): 768
+# GELUs (256 after conv1, 512 after conv2) of 22 operations each at the
+# JAX formula (ops/maskhead.py `_gelu`: |x|, 6 multiply-adds, 4
+# squarings, a reciprocal and a subtraction, one multiply-add and the
+# halving), the group LN's 7 a channel (sum, square multiply-add,
+# normalize and scale-and-shift multiply-adds) over 256 channels, and the
+# 768 bias adds.
+HEAD_F32 = 768 * 22 + 256 * 7 + 768
+
 
 def _nbytes(ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
@@ -171,7 +182,9 @@ PTXAS_KERNELS = (
      "rat_win_attention", "rat_win_attention_smem", (14, 80)),
     ("win_attention_kernelILi64ELi2E", "B11 hd 64, sides 8-15 (at 14)",
      "rat_win_attention", "rat_win_attention_smem", (14, 64)),
-    ("mask_head_kernelILi3E", "K3 M 3", "rat_mask_head",
+    ("mask_head_kernelILi3ELb0E", "K3 M 3", "rat_mask_head",
+     "rat_mask_head_smem", ()),
+    ("mask_head_kernelILi3ELb1E", "B6 M 3", "rat_mask_head_probs",
      "rat_mask_head_smem", ()),
     ("i2t_update_kernelILb1E", "K5 shared branch (layer 1)", "rat_i2t_update",
      "rat_i2t_update_smem", ()),
@@ -183,7 +196,7 @@ PTXAS_KERNELS = (
 
 
 def ptxas_report() -> None:
-    """Print the registers, shared memory and spill bytes of the seven
+    """Print the registers, shared memory and spill bytes of the eight
     redesigned entry points' kernels, read from the build's ptxas.log
     (dynamic shared memory from the sources' own size functions)."""
     import re
@@ -394,23 +407,13 @@ def compare_kernels(dev) -> dict:
     margs = (rnd(1024, 4096, 256), rnd(1024, 3, 32, s=0.5),
              rnd(256, 256, s=0.1), rnd(64, s=0.1), rnd(64, s=0.1, off=1.0),
              rnd(64, s=0.1), rnd(64, 128, s=0.1), rnd(32, s=0.1))
-    # A position: the products on the tensor cores (bf16 inputs: the two
-    # convolutions and the hypernetwork's 16·32·M multiply-adds, an f32
-    # sum of bf16 products), and on the FMA units (f32): 768 GELUs (256
-    # after conv1, 512 after conv2) of 22 operations each at the JAX
-    # formula (ops/maskhead.py `_gelu`: |x|, 6 multiply-adds, 4
-    # squarings, a reciprocal and a subtraction, one multiply-add and the
-    # halving), the group LN's 7 a channel (sum, square multiply-add,
-    # normalize and scale-and-shift multiply-adds) over 256 channels, and
-    # the 768 bias adds.
     head_bf16 = 2 * (256 * 256 + 4 * 64 * 128 + 16 * 32 * 3)
-    head_f32 = 768 * 22 + 256 * 7 + 768
     check(build.MASK_HEAD, "keys [1024,4096,256] -> [1024,3136,16,3]",
           lambda: mh.fused_mask_head(*margs, eps=1e-6, content=3136),
           lambda: mh.upscale_masks_blocks(margs[0][:, :3136], *margs[1:],
                                           eps=1e-6),
           _rel, rel_tol, (margs[0][:, :3136],) + margs[1:],
-          (1024 * 3136 * head_bf16, 1024 * 3136 * head_f32))
+          (1024 * 3136 * head_bf16, 1024 * 3136 * HEAD_F32))
     head = margs[2:]
     del margs
 
@@ -524,6 +527,11 @@ def compare_probs_kernels(dev, check, head, rel_tol) -> None:
     margs_c = (img0, p1[:c], c1[:c], p2[:c], c2[:c], rows,
                hyper[:c]) + head
     head_flop = 2 * (256 * 256 + 4 * 64 * 128 + 16 * 32 * 3)
+    # f32 work a position: K3's epilogue (HEAD_F32) and the rebuild's two
+    # branch LayerNorms at the group LN's 7 a channel, each after a bias
+    # add, over 256 channels (the products P^T C are bf16 on the tensor
+    # cores): 19,456 + 4,096 = 23,552, ~1.13 ms at 67 TFLOP/s.
+    recon_f32 = 2 * 256 * (7 + 1)
     check(build.MASK_HEAD_PROBS,
           "P1,C1,P2,C2 -> [1024,3136,16,3]",
           lambda: mh.fused_mask_head_probs(*margs, content=content),
@@ -531,7 +539,8 @@ def compare_probs_kernels(dev, check, head, rel_tol) -> None:
           _rel, rel_tol,
           (img0[:, :content], p1[..., :content], c1, p2[..., :content], c2,
            rows, hyper) + head,
-          (b * content * (head_flop + 2 * 2 * ht * d), 0), plain_prompts=c)
+          (b * content * (head_flop + 2 * 2 * ht * d),
+           b * content * (HEAD_F32 + recon_f32)), plain_prompts=c)
     del margs, margs_c, hyper
 
     dec = MaskDecoder(SAM_VIT_H, dtype=bf, device=dev)

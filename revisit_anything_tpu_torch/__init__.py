@@ -8,8 +8,9 @@ which stays the reference; this package imports neither JAX nor it.
 Every TPU kernel this serving path runs is a hand-written CUDA kernel for
 sm_90a (``kernels/csrc``), built with nvcc at the first CUDA launch. A
 kernel's wrapper runs its plain PyTorch version only for CPU tensors. The
-TPU's single-kernel decode tail (``ops/decode_fused.py``) is not ported:
-its work runs here as the i2t update and token cross attention kernels.
+TPU's single-kernel decode tail is ported too (``ops/decode_fused.py`` ->
+``kernels/csrc/decode_tail.cu``), run by the three ``"fused_tail_*"``
+decoder forms.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,6 @@
-// Device code shared by the probability-factored decode kernels:
-// i2t_probs.cu (B7), t2i_probs.cu (B8), decode_tail.cu (B3) and the
-// probability-consuming mask head in mask_head.cu (B6).
+// Device code shared by the probability-factored decode kernels on the
+// FMA units: i2t_probs.cu (B7), t2i_probs.cu (B8) and decode_tail.cu
+// (B3). B6 (mask_head.cu) rebuilds its branch by wgmma instead.
 //
 // The JAX package shares the same pieces between its TPU kernels:
 // revisit_anything_tpu/ops/decode_probs.py `_recon_t` (:51) and

@@ -64,25 +64,47 @@
 //    stores.
 // Where its time goes: kernels/maskhead_variants.py (PERF.md).
 //
-// RECON (entry rat_mask_head_probs, kernel B6) replaces
+// B6 (entry rat_mask_head_probs) replaces
 // revisit_anything_tpu/ops/maskhead.py `_mask_head_call_probs`
 // (pallas_call at :257, body :90-126 with recon=True), reached through
-// `fused_mask_head_probs` (:409): the keys tile is not read but rebuilt
+// `fused_mask_head_probs` (:409). Its keys tile is not read but rebuilt
 // per position from the shared img0 and the two image -> token updates,
 //   x = bf16(LN(LN(img0 + P1^T C1 + b1) + P2^T C2 + b2))     (f32, one-pass var)
-// by decode_common.cuh `recon_layer`, writing the tile the conv1 product
-// reads. That adds 2 x 56 x 256 multiply-adds a position on the FMA units
-// (~0.18 TFLOP at 1024 prompts x 3136 positions) and reads P1, P2 (2 x 470
-// MB) in place of keys (2.1 GB). It runs the 32-position WMMA tile of
-// mask_head_tile.cuh (256 threads, shared with the decode tail's logits
-// mode): the f32 rebuild tile [32, 256] reuses the h1 and y staging tiles
-// (32 KB, free until conv1); the P tile and the branch vectors add 9.5 KB
-// beside the resident weights, 207 KB in all. C1 and C2 (28 KB a prompt
-// each) do not fit beside them and are read from L1/L2.
+// and then goes through K3's item body unchanged: one kernel template,
+// RECON = true. Bounded like K3 by its f32 work: K3's epilogue plus the
+// two branch LayerNorms (~7 operations a channel each), ~23,000
+// operations a position, ~1.1 ms at 1024 prompts x 3136 positions; its
+// bytes (P1 and P2 ~0.72 GB, logits 0.31 GB) take ~0.33 ms.
+//  - The rebuild runs on the tensor cores. A warpgroup presets acc [64
+//    positions, 256] f32 (four n64 chunks, 128 registers a thread) to
+//    img0 + b1, read straight from global memory (the rows every prompt
+//    reads, L2-resident), and adds P1^T · C1 by wgmma m64n64k16 x 16: K =
+//    56 padded to 64, P^T an MN-major A (positions contiguous) and C an
+//    MN-major B (channels contiguous), by wgmma's transpose bits. P and C
+//    are bf16, so the products are exact and summed in f32; the preset
+//    takes img0 + b1 + a where JAX takes (img0 + a) + b1, a change of f32
+//    summation order only. The LayerNorm runs in registers (a row's 256
+//    channels lie in the 4 threads of a quad: two quad shuffles), then b2
+//    is added, P2^T · C2 likewise, the second LayerNorm, and the keys
+//    leave as bf16 into the warpgroup's keys slot in the 128B-swizzled
+//    layout conv1's descriptor reads. The item's first conv1 is issued
+//    only after that, so the 128 rebuild accumulators are dead before
+//    conv1's and conv2's are live. The rebuild's products take no turn.
+//  - Shared memory is K3's, byte for byte: the rebuild's operands borrow
+//    the warpgroup's own keys slot and staging tile, in time:
+//      keys slot (32 KB) <- C [64 k, 256] as four TMA boxes [64 k, 64 ch];
+//      staging tile (8 KB at M = 4) <- P [64 k, 64 positions], one box;
+//    each box is 64 rows of a 3-d tensor map whose row extent is 56, so
+//    TMA fills rows 56-63 with zeros (never the next prompt's rows) and
+//    the padded K-step adds nothing. One full barrier phase a branch
+//    layer (C and P, 40 KB). The next item's C1 loads once this item's
+//    last conv1 has retired (under the last group's epilogues, as K3's
+//    keys do), its P1 once the staging tile's logits have left. Layer
+//    2's operands load once layer 1's products have retired, under the
+//    first LayerNorm. Rows at or past content are rebuilt and never stored;
+//    past gg, img0 and P read as zeros.
 
-#include "decode_common.cuh"
 #include "hopper.cuh"
-#include "mask_head_tile.cuh"
 
 namespace rat_k3 {
 
@@ -117,6 +139,15 @@ constexpr int OFF_LB = OFF_LS + C1 * 4;        // ln bias f32 [64]
 constexpr int OFF_BAR = OFF_LB + C1 * 4;       // weights, slot 0, slot 1
 constexpr int SMEM = 1024 + OFF_BAR + 3 * 8;   // + alignment slack
 static_assert(SMEM <= 232448, "one CTA an SM");
+
+// B6: the rebuild's operands in a warpgroup's keys slot (C: four boxes
+// [64 k, 64 channels]) and staging tile (P: one box [64 k, 64
+// positions]), 64 rows of which TMA fills rows 56-63 with zeros.
+constexpr int HT = 56;                         // probability rows a prompt
+constexpr int BOX_R = 64 * 128;                // an operand box, bf16
+constexpr int LAYER_TX = 5 * BOX_R;            // C and P of one branch layer
+static_assert(SLOT == 4 * BOX_R && STAGE >= BOX_R && HT <= 64,
+              "B6's operands fit the keys slot and the staging tile");
 
 // Twice the JAX package's GELU (ops/maskhead.py `_gelu`), in place on N
 // values, one step of the formula over all N before the next so that N
@@ -329,9 +360,147 @@ __device__ __forceinline__ void epilogue2(const float (&acc)[64], __nv_bfloat16*
               __float2bfloat16(d[r][2 * rr + e]);
 }
 
-template <int M>
+// B6: d += A·B, A [64 x 16] and B [16 x 64] both MN-major in shared
+// memory (wgmma's transpose bits).
+__device__ __forceinline__ void wgmma_ss_n64_tt(float (&d)[32], uint64_t da, uint64_t db,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// B6: acc += P^T [64 positions, 64 k] · C [64 k, 256], P in the staging
+// tile and C's four n64 boxes in the keys slot (a K-step is 16 rows of
+// 128 bytes in both).
+__device__ __forceinline__ void issue_recon(float (&acc)[4][32], uint32_t sp, uint32_t sc) {
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      wgmma_ss_n64_tt(acc[j], gmma_desc(sp + k * 2048, BOX_R, 1024),
+                      gmma_desc(sc + j * BOX_R + k * 2048, BOX_R, 1024), 1);
+  wgmma_commit();
+}
+
+// B6: a bf16 pair of a [256] row as two floats.
+__device__ __forceinline__ float2 ldg_pair(const __nv_bfloat16* row, int ch) {
+  return unpack_bf16(__ldg(reinterpret_cast<const __nv_bfloat162*>(row + ch)));
+}
+
+// B6: acc = img0 rows + b1. acc[j][4i + 2rr + e] is row (16·warp +
+// lane/4 + 8rr) = position p of the item, channel 64j + 8i + 2c + e;
+// positions at or past gg read as zeros.
+__device__ __forceinline__ void preset_branch(float (&acc)[4][32], const __nv_bfloat16* img0,
+                                              const __nv_bfloat16* b1, int p, int gg, int c) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int ch = 64 * j + 8 * i + 2 * c;
+      const float2 b = ldg_pair(b1, ch);
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const float2 x =
+            p + 8 * rr < gg ? ldg_pair(img0 + (size_t)(p + 8 * rr) * D, ch) : make_float2(0.f, 0.f);
+        acc[j][4 * i + 2 * rr] = x.x + b.x;
+        acc[j][4 * i + 2 * rr + 1] = x.y + b.y;
+      }
+    }
+}
+
+// B6: a branch LayerNorm in place on the rebuild's accumulators (layout
+// as preset_branch), f32 with the one-pass variance max(E[y^2] - mu^2,
+// 0) as the JAX kernel takes it; with NEXT, the next layer's bias b is
+// added after it.
+template <bool NEXT>
+__device__ __forceinline__ void branch_ln(float (&acc)[4][32], const __nv_bfloat16* scale,
+                                          const __nv_bfloat16* bias, const __nv_bfloat16* b,
+                                          int c, float eps) {
+  float st[2][2];                                // a row's sum and sum of squares
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float s0 = 0.f, s1 = 0.f, q0 = 0.f, q1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float x = acc[j][4 * i + 2 * rr], y = acc[j][4 * i + 2 * rr + 1];
+        s0 += x;
+        s1 += y;
+        q0 = fmaf(x, x, q0);
+        q1 = fmaf(y, y, q1);
+      }
+    st[rr][0] = s0 + s1;
+    st[rr][1] = q0 + q1;
+  }
+#pragma unroll
+  for (int lane = 1; lane < 4; lane *= 2)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int k = 0; k < 2; ++k) st[rr][k] += __shfl_xor_sync(0xffffffffu, st[rr][k], lane);
+  float mu[2], rs[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    mu[rr] = st[rr][0] * (1.f / D);
+    rs[rr] = rsqrtf(fmaxf(st[rr][1] * (1.f / D) - mu[rr] * mu[rr], 0.f) + eps);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int ch = 64 * j + 8 * i + 2 * c;
+      const float2 sc = ldg_pair(scale, ch), bi = ldg_pair(bias, ch);
+      const float2 nb = NEXT ? ldg_pair(b, ch) : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float& x = acc[j][4 * i + 2 * rr];
+        float& y = acc[j][4 * i + 2 * rr + 1];
+        x = fmaf((x - mu[rr]) * rs[rr], sc.x, bi.x);
+        y = fmaf((y - mu[rr]) * rs[rr], sc.y, bi.y);
+        if (NEXT) {
+          x += nb.x;
+          y += nb.y;
+        }
+      }
+    }
+}
+
+// B6: the rebuilt keys, bf16, into the keys slot where conv1 reads them:
+// box j holds channels 64j.., row p at p·128, its 16-byte chunk i at
+// (i ^ p % 8)·16 (the 128B swizzle TMA writes; p % 8 = lane / 4).
+__device__ __forceinline__ void store_keys(const float (&acc)[4][32], uint8_t* slot, int row0,
+                                           int c) {
+  const int sw = row0 % 8;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+        *reinterpret_cast<uint32_t*>(slot + j * BOX_R + (row0 + 8 * rr) * 128 +
+                                     ((i ^ sw) * 16) + 4 * c) =
+            pack_bf16(acc[j][4 * i + 2 * rr], acc[j][4 * i + 2 * rr + 1]);
+}
+
+// K3 (RECON false) and B6 (RECON true): one work item at a time a
+// warpgroup. The maps: K3 keys [Np, gg, 256] in tkeys; B6 P1 in tkeys, P2
+// [Np, 56, gg] in tp2, C1 and C2 [Np, 56, 256] in tc1 and tc2.
+template <int M, bool RECON>
 __global__ void __launch_bounds__(THREADS, 1)
-mask_head_kernel(const __grid_constant__ CUtensorMap tkeys,   // [Np, gg, 256]
+mask_head_kernel(const __grid_constant__ CUtensorMap tkeys,   // keys | P1
+                 const __grid_constant__ CUtensorMap tp2,     // B6: P2
+                 const __grid_constant__ CUtensorMap tc1,     // B6: C1
+                 const __grid_constant__ CUtensorMap tc2,     // B6: C2
                  const __grid_constant__ CUtensorMap tw1,     // up1_w [256, 256]
                  const __grid_constant__ CUtensorMap tw2,     // up2_w [64, 128]
                  const __nv_bfloat16* __restrict__ up1_b,     // [64]
@@ -340,7 +509,9 @@ mask_head_kernel(const __grid_constant__ CUtensorMap tkeys,   // [Np, gg, 256]
                  const __nv_bfloat16* __restrict__ up2_b,     // [32]
                  const __nv_bfloat16* __restrict__ hyper,     // [Np, M, 32]
                  __nv_bfloat16* __restrict__ out,             // [Np, content, 16, M]
-                 int content, int tiles, int total, float eps) {
+                 const __nv_bfloat16* __restrict__ img0,      // B6: [gg, 256]
+                 const __nv_bfloat16* __restrict__ rows,      // B6: branch rows [8, 256]
+                 int content, int gg, int tiles, int total, float eps, float ln_eps) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -353,12 +524,24 @@ mask_head_kernel(const __grid_constant__ CUtensorMap tkeys,   // [Np, gg, 256]
   const int wg = threadIdx.x / 128;
   const int ctid = threadIdx.x % 128;
   const uint32_t sx = base + OFF_X + wg * SLOT;
+  const uint32_t sst = base + OFF_STAGE + wg * STAGE;
   // one thread of a warpgroup loads its k-th item's keys into its slot
   auto load_item = [&](int k) {
     const int item = blockIdx.x + k * gridDim.x;
     mbar_expect_tx(full(wg), SLOT);
     for (int b = 0; b < 4; ++b)
       tma_load_3d(sx + b * BOX_X, &tkeys, 64 * b, (item % tiles) * BP, item / tiles, full(wg));
+  };
+  // B6: C of a branch layer into the slot (and the phase's bytes: P
+  // follows by load_p)
+  auto load_c = [&](int k, const CUtensorMap* tc) {
+    mbar_expect_tx(full(wg), LAYER_TX);
+    const int item = blockIdx.x + k * gridDim.x;
+    for (int b = 0; b < 4; ++b) tma_load_3d(sx + b * BOX_R, tc, 64 * b, 0, item / tiles, full(wg));
+  };
+  auto load_p = [&](int k, const CUtensorMap* tp) {
+    const int item = blockIdx.x + k * gridDim.x;
+    tma_load_3d(sst, tp, (item % tiles) * BP, 0, item / tiles, full(wg));
   };
 
   __nv_bfloat16* sb1 = reinterpret_cast<__nv_bfloat16*>(sm + OFF_B1);
@@ -381,7 +564,10 @@ mask_head_kernel(const __grid_constant__ CUtensorMap tkeys,   // [Np, gg, 256]
     for (int j = 0; j < 4; ++j) tma_load_2d(base + OFF_W1 + j * BOX_W1, &tw1, 64 * j, 0, wbar);
     for (int j = 0; j < 2; ++j) tma_load_2d(base + OFF_W2 + j * BOX_W2, &tw2, 64 * j, 0, wbar);
   }
-  if (ctid == 0 && wg < n_items) load_item(wg);
+  if (ctid == 0 && wg < n_items) {
+    if constexpr (RECON) load_c(wg, &tc1);
+    else load_item(wg);
+  }
 
   const int warp = ctid / 32, lane = ctid % 32, c = lane % 4;
   const int row0 = 16 * warp + lane / 4;                 // this thread's first row
@@ -413,12 +599,6 @@ mask_head_kernel(const __grid_constant__ CUtensorMap tkeys,   // [Np, gg, 256]
 #pragma unroll
   for (int j = 0; j < 4; ++j) b2[j] = reinterpret_cast<const __nv_bfloat162*>(sb2)[4 * j + c];
 
-  float acc1[32], acc2[64];
-  uint32_t a2[4][4];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc1[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc2[i] = 0.f;
   mbar_wait(wbar, 0);
   // halve up2_w in place (exact): h1 leaves the first epilogue as
   // bf16(2 gelu) = 2 bf16(gelu)
@@ -442,7 +622,37 @@ mask_head_kernel(const __grid_constant__ CUtensorMap tkeys,   // [Np, gg, 256]
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     named_sync(bar, 128);
-    mbar_wait(full(wg), j & 1);
+    if constexpr (RECON) {
+      // the keys tile, rebuilt: two phases of the slot's barrier an item
+      if (ctid == 0) load_p(k, &tkeys);                   // the staging tile is free
+      float r[4][32];
+      preset_branch(r, img0, rows, p0 + row0, gg, c);
+      mbar_wait(full(wg), 0);
+      issue_recon(r, sst, sx);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int q = 0; q < 4; ++q) fence_regs(r[q]);
+      named_sync(bar, 128);                               // P1 and C1 are consumed
+      if (ctid == 0) {
+        load_c(k, &tc2);
+        load_p(k, &tp2);
+      }
+      branch_ln<true>(r, rows + D, rows + 2 * D, rows + 3 * D, c, ln_eps);
+      mbar_wait(full(wg), 1);
+      issue_recon(r, sst, sx);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int q = 0; q < 4; ++q) fence_regs(r[q]);
+      named_sync(bar, 128);                               // P2 and C2 are consumed
+      branch_ln<false>(r, rows + 4 * D, rows + 5 * D, nullptr, c, ln_eps);
+      store_keys(r, sm + OFF_X + wg * SLOT, row0, c);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      named_sync(bar, 128);
+    } else {
+      mbar_wait(full(wg), j & 1);
+    }
+    float acc1[32], acc2[64];
+    uint32_t a2[4][4];
     turn_begin();
     issue_conv1(acc1, sx, sw1, 0);
     turn_end();
@@ -462,9 +672,14 @@ mask_head_kernel(const __grid_constant__ CUtensorMap tkeys,   // [Np, gg, 256]
       wgmma_wait<0>();
       fence_regs(acc1);
     }
-    // the keys tile is consumed: the next item's keys load under the
-    // last group's epilogues
-    if (ctid == 0 && k + 2 < n_items) load_item(k + 2);
+    // the keys tile is consumed: the next item's keys (B6: its C1) load
+    // under the last group's epilogues
+    if constexpr (RECON) {
+      named_sync(bar, 128);
+      if (ctid == 0 && k + 2 < n_items) load_c(k + 2, &tc1);
+    } else {
+      if (ctid == 0 && k + 2 < n_items) load_item(k + 2);
+    }
     epilogue1(acc1, a2, b1, sls, slb, c, eps);
     fence_regs(a2);
     turn_begin();
@@ -482,106 +697,68 @@ mask_head_kernel(const __grid_constant__ CUtensorMap tkeys,   // [Np, gg, 256]
   }
 }
 
-template <int M>
-int launch(const void* keys, const void* up1_w, const void* up1_b, const void* ln_s,
-           const void* ln_b, const void* up2_w, const void* up2_b, const void* hyper,
-           void* out, int np_, int gg, int content, float eps, int n_ctas,
-           cudaStream_t stream) {
-  auto kernel = mask_head_kernel<M>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err != cudaSuccess) return (int)err;
-  CUtensorMap tk, t1, t2;
-  const cuuint64_t kdims[3] = {(cuuint64_t)D, (cuuint64_t)gg, (cuuint64_t)np_};
-  const cuuint64_t kstrides[2] = {(cuuint64_t)D * 2, (cuuint64_t)gg * D * 2};
-  const cuuint32_t kbox[3] = {64, BP, 1};
+// A kernel's arguments: the tensor maps (K3 uses the first and the
+// weights'), the vectors and the sizes.
+struct Args {
+  CUtensorMap maps[4];                           // keys | P1, P2, C1, C2
+  CUtensorMap w1, w2;
+  const void *up1_b, *ln_s, *ln_b, *up2_b, *hyper, *img0, *rows;
+  void* out;
+  int np_, gg, content;
+  float eps, ln_eps;
+};
+
+// A bf16 [np, n_rows, width] tensor as a 3-d tensor map of [64, 64, 1]
+// boxes (rows past n_rows read as zeros).
+inline bool map3(CUtensorMap* map, const void* ptr, int width, int n_rows, int np_) {
+  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)n_rows, (cuuint64_t)np_};
+  const cuuint64_t strides[2] = {(cuuint64_t)width * 2, (cuuint64_t)n_rows * width * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  return tensor_map_bf16(map, ptr, 3, dims, strides, box);
+}
+
+inline bool map_weights(Args& a, const void* up1_w, const void* up2_w) {
   const cuuint64_t w1dims[2] = {(cuuint64_t)D, (cuuint64_t)D};
   const cuuint64_t w1strides[1] = {(cuuint64_t)D * 2};
   const cuuint32_t w1box[2] = {64, D};
   const cuuint64_t w2dims[2] = {(cuuint64_t)4 * C2, (cuuint64_t)C1};
   const cuuint64_t w2strides[1] = {(cuuint64_t)4 * C2 * 2};
   const cuuint32_t w2box[2] = {64, C1};
-  if (!tensor_map_bf16(&tk, keys, 3, kdims, kstrides, kbox) ||
-      !tensor_map_bf16(&t1, up1_w, 2, w1dims, w1strides, w1box) ||
-      !tensor_map_bf16(&t2, up2_w, 2, w2dims, w2strides, w2box))
-    return (int)cudaErrorInvalidValue;
-  const int tiles = (content + BP - 1) / BP;
-  const long long total = (long long)np_ * tiles;
+  return tensor_map_bf16(&a.w1, up1_w, 2, w1dims, w1strides, w1box) &&
+         tensor_map_bf16(&a.w2, up2_w, 2, w2dims, w2strides, w2box);
+}
+
+template <int M, bool RECON>
+int launch(const Args& a, int n_ctas, cudaStream_t stream) {
+  auto kernel = mask_head_kernel<M, RECON>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (a.content + BP - 1) / BP;
+  const long long total = (long long)a.np_ * tiles;
   if (total > (1ll << 30)) return (int)cudaErrorInvalidValue;
   const int grid = (int)(total < n_ctas ? total : n_ctas);
   typedef const __nv_bfloat16* P;
   kernel<<<grid, THREADS, SMEM, stream>>>(
-      tk, t1, t2, static_cast<P>(up1_b), static_cast<P>(ln_s), static_cast<P>(ln_b),
-      static_cast<P>(up2_b), static_cast<P>(hyper), static_cast<__nv_bfloat16*>(out), content,
-      tiles, (int)total, eps);
+      a.maps[0], a.maps[1], a.maps[2], a.maps[3], a.w1, a.w2, static_cast<P>(a.up1_b),
+      static_cast<P>(a.ln_s), static_cast<P>(a.ln_b), static_cast<P>(a.up2_b),
+      static_cast<P>(a.hyper), static_cast<__nv_bfloat16*>(a.out), static_cast<P>(a.img0),
+      static_cast<P>(a.rows), a.content, a.gg, tiles, (int)total, a.eps, a.ln_eps);
   return (int)cudaGetLastError();
 }
 
-}  // namespace rat_k3
-
-namespace {
-
-using namespace rat_mask;
-
-constexpr int SMEM_RP = rat_decode::HT * BLK * 2;   // P tile
-constexpr int SMEM_RV = 6 * D * 4;                  // branch rows 0-5
-constexpr int SMEM_RECON = SMEM_TOTAL + SMEM_RP + SMEM_RV;
-static_assert(BLK == rat_decode::BM && THREADS == rat_decode::THREADS, "recon tile shape");
-
-// B6: img0 is the shared [gg, D] branch input; the per-prompt tile is
-// rebuilt from p1/c1m/p2/c2m [Np, HT, gg | D] and the branch rows [8, D].
-__global__ void __launch_bounds__(THREADS, 1)
-mask_head_probs_kernel(const __nv_bfloat16* __restrict__ img0,   // [gg, D]
-                       const __nv_bfloat16* __restrict__ up1_w,  // [D, D]
-                       const __nv_bfloat16* __restrict__ up1_b,  // [C1]
-                       const __nv_bfloat16* __restrict__ ln_s,   // [C1]
-                       const __nv_bfloat16* __restrict__ ln_b,   // [C1]
-                       const __nv_bfloat16* __restrict__ up2_w,  // [C1, N2]
-                       const __nv_bfloat16* __restrict__ up2_b,  // [C2]
-                       const __nv_bfloat16* __restrict__ hyper,  // [Np, M, C2]
-                       __nv_bfloat16* __restrict__ out,          // [Np, content, 16, M]
-                       int np_, int gg, int content, int n_masks, float eps,
-                       const __nv_bfloat16* __restrict__ p1, const __nv_bfloat16* __restrict__ c1m,
-                       const __nv_bfloat16* __restrict__ p2, const __nv_bfloat16* __restrict__ c2m,
-                       const __nv_bfloat16* __restrict__ rows, float ln_eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem sm = layout(smem);
-  __nv_bfloat16* sRP = reinterpret_cast<__nv_bfloat16*>(smem + SMEM_TOTAL);
-  float* sRV = reinterpret_cast<float*>(smem + SMEM_TOTAL + SMEM_RP);
-  float* sR = reinterpret_cast<float*>(sm.h1);   // f32 rebuild tile [BLK][D]
-
-  const int tid = threadIdx.x;
-  load_weights(sm, up1_w, up1_b, ln_s, ln_b, up2_w, up2_b);
-  rat_decode::load_f32(sRV, rows, 6 * D);
-
-  const int tiles = (content + BLK - 1) / BLK;
-  const long long total = (long long)np_ * tiles;
-  for (long long t = blockIdx.x; t < total; t += gridDim.x) {
-    const int n = (int)(t / tiles);
-    const int p0 = (int)(t % tiles) * BLK;
-    __syncthreads();                       // previous tile fully consumed
-
-    // Rebuild the keys tile (rows past content zero) and load this
-    // prompt's hyper.
-    const int valid = min(BLK, content - p0);
-    const size_t off = (size_t)n * rat_decode::HT;
-    rat_decode::load_rows_tile(sR, D, img0, p0, valid);
-    rat_decode::load_p_tile(sRP, p1 + off * gg, gg, p0, valid);
-    __syncthreads();
-    rat_decode::recon_layer(sR, D, sRP, c1m + off * D, sRV, ln_eps);
-    rat_decode::load_p_tile(sRP, p2 + off * gg, gg, p0, valid);
-    __syncthreads();
-    rat_decode::recon_layer(sR, D, sRP, c2m + off * D, sRV + 3 * D, ln_eps);
-    for (int i = tid; i < BLK * D; i += THREADS)
-      sm.x[i] = __float2bfloat16(i / D < valid ? sR[i] : 0.f);
-    for (int i = tid; i < n_masks * C2; i += THREADS)
-      sm.hyp[i] = __bfloat162float(hyper[(size_t)n * n_masks * C2 + i]);
-    __syncthreads();
-    tile(sm, out, n, content, p0, n_masks, eps);
+template <bool RECON>
+int launch_m(const Args& a, int n_masks, int n_ctas, cudaStream_t stream) {
+  switch (n_masks) {
+    case 1: return launch<1, RECON>(a, n_ctas, stream);
+    case 2: return launch<2, RECON>(a, n_ctas, stream);
+    case 3: return launch<3, RECON>(a, n_ctas, stream);
+    case 4: return launch<4, RECON>(a, n_ctas, stream);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
+}  // namespace rat_k3
 
 extern "C" int rat_mask_head(const void* keys, const void* up1_w, const void* up1_b,
                              const void* ln_s, const void* ln_b, const void* up2_w,
@@ -589,26 +766,16 @@ extern "C" int rat_mask_head(const void* keys, const void* up1_w, const void* up
                              int np_, int gg, int content, int n_masks, float eps,
                              int n_ctas, void* stream) {
   if (np_ < 1 || content < 1 || content > gg || n_ctas < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (n_masks) {
-    case 1:
-      return rat_k3::launch<1>(keys, up1_w, up1_b, ln_s, ln_b, up2_w, up2_b, hyper, out, np_,
-                               gg, content, eps, n_ctas, s);
-    case 2:
-      return rat_k3::launch<2>(keys, up1_w, up1_b, ln_s, ln_b, up2_w, up2_b, hyper, out, np_,
-                               gg, content, eps, n_ctas, s);
-    case 3:
-      return rat_k3::launch<3>(keys, up1_w, up1_b, ln_s, ln_b, up2_w, up2_b, hyper, out, np_,
-                               gg, content, eps, n_ctas, s);
-    case 4:
-      return rat_k3::launch<4>(keys, up1_w, up1_b, ln_s, ln_b, up2_w, up2_b, hyper, out, np_,
-                               gg, content, eps, n_ctas, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  rat_k3::Args a = {};
+  if (!rat_k3::map3(&a.maps[0], keys, rat_k3::D, gg, np_) ||
+      !rat_k3::map_weights(a, up1_w, up2_w))
+    return (int)cudaErrorInvalidValue;
+  a.up1_b = up1_b, a.ln_s = ln_s, a.ln_b = ln_b, a.up2_b = up2_b, a.hyper = hyper;
+  a.out = out, a.np_ = np_, a.gg = gg, a.content = content, a.eps = eps;
+  return rat_k3::launch_m<false>(a, n_masks, n_ctas, static_cast<cudaStream_t>(stream));
 }
 
-// Dynamic shared memory a K3 CTA takes (for reports).
+// Dynamic shared memory a K3 or B6 CTA takes (for reports).
 extern "C" int rat_mask_head_smem() { return rat_k3::SMEM; }
 
 extern "C" int rat_mask_head_probs(const void* img0, const void* p1, const void* c1m,
@@ -618,17 +785,18 @@ extern "C" int rat_mask_head_probs(const void* img0, const void* p1, const void*
                                    const void* hyper, void* out, int np_, int gg,
                                    int content, int n_masks, float eps, float ln_eps,
                                    int n_ctas, void* stream) {
-  if (gg % 8 != 0 || n_masks < 1 || n_masks > MAXM || content > gg || n_ctas < 1)
-    return (int)cudaErrorInvalidValue;   // 16-byte P rows
-  cudaError_t err = cudaFuncSetAttribute(
-      mask_head_probs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_RECON);
-  if (err != cudaSuccess) return (int)err;
-  typedef const __nv_bfloat16* P;
-  mask_head_probs_kernel<<<n_ctas, THREADS, SMEM_RECON, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<P>(img0), static_cast<P>(up1_w), static_cast<P>(up1_b), static_cast<P>(ln_s),
-      static_cast<P>(ln_b), static_cast<P>(up2_w), static_cast<P>(up2_b), static_cast<P>(hyper),
-      static_cast<__nv_bfloat16*>(out), np_, gg, content, n_masks, eps, static_cast<P>(p1),
-      static_cast<P>(c1m), static_cast<P>(p2), static_cast<P>(c2m), static_cast<P>(rows),
-      ln_eps);
-  return (int)cudaGetLastError();
+  // gg % 8: the P maps' row stride a multiple of 16 bytes
+  if (np_ < 1 || gg % 8 != 0 || content < 1 || content > gg || n_ctas < 1)
+    return (int)cudaErrorInvalidValue;
+  using rat_k3::D;
+  using rat_k3::HT;
+  rat_k3::Args a = {};
+  if (!rat_k3::map3(&a.maps[0], p1, gg, HT, np_) || !rat_k3::map3(&a.maps[1], p2, gg, HT, np_) ||
+      !rat_k3::map3(&a.maps[2], c1m, D, HT, np_) || !rat_k3::map3(&a.maps[3], c2m, D, HT, np_) ||
+      !rat_k3::map_weights(a, up1_w, up2_w))
+    return (int)cudaErrorInvalidValue;
+  a.up1_b = up1_b, a.ln_s = ln_s, a.ln_b = ln_b, a.up2_b = up2_b, a.hyper = hyper;
+  a.img0 = img0, a.rows = rows, a.out = out, a.np_ = np_, a.gg = gg, a.content = content;
+  a.eps = eps, a.ln_eps = ln_eps;
+  return rat_k3::launch_m<true>(a, n_masks, n_ctas, static_cast<cudaStream_t>(stream));
 }

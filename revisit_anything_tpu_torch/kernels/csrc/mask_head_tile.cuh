@@ -1,9 +1,10 @@
-// The mask head's 32-position WMMA tile, shared by B6 (mask_head.cu's
-// RECON kernel, entry rat_mask_head_probs) and the decode tail's logits
-// mode (decode_tail.cu), as the JAX package shares `mask_head_body`
-// (revisit_anything_tpu/ops/maskhead.py:138) between its mask-head
-// kernels and the tail's emit_logits branch (ops/decode_fused.py:304-341).
-// K3 (mask_head.cu, entry rat_mask_head) has its own TMA + wgmma design.
+// The mask head's 32-position WMMA tile of the decode tail's logits mode
+// (decode_tail.cu, entry rat_decode_tail_logits), its only user: the JAX
+// package runs the same `mask_head_body`
+// (revisit_anything_tpu/ops/maskhead.py:138) in the tail's emit_logits
+// branch (ops/decode_fused.py:304-341). K3 and B6 (mask_head.cu, entries
+// rat_mask_head and rat_mask_head_probs) share their own TMA + wgmma
+// design and do not include this header.
 //
 // One CTA of 256 threads holds up1_w (128 KB) and up2_w (16 KB) in shared
 // memory and runs a tile of BLK = 32 positions of one prompt's final

@@ -1,8 +1,9 @@
-"""Time source-level variants of the fused mask head (K3) on the card, to
-see whether the tensor cores, the epilogue or the keys ring sets its
-pace: each variant is ``mask_head.cu`` with a few lines replaced (all but
-the first no longer compute the right answer: they remove one part of
-the work to show what it costs), built by its own nvcc into
+"""Time source-level variants of the fused mask head (K3) and of its
+probability form (B6) on the card, to see whether the tensor cores, the
+epilogue, the keys ring or B6's branch rebuild sets the pace: each
+variant is ``mask_head.cu`` with a few lines replaced (all but the first
+of each table no longer compute the right answer: they remove one part
+of the work to show what it costs), built by its own nvcc into
 ``build/torch_kernels/variants/`` and timed at the serving shape and on
 one work item alone.
 
@@ -10,7 +11,9 @@ one work item alone.
 
 Times are CUDA-event medians of 11 calls, each queued behind a device
 sleep (as ``chip_smoke.py`` times kernels). Needs a CUDA device and
-nvcc; prints one line per shape.
+nvcc; prints one line per kernel and shape. K3's variants are held to
+the plain version, B6's to the B6 kernel's own output (its plain version
+does not fit the card at 1024 prompts).
 """
 
 from __future__ import annotations
@@ -74,6 +77,35 @@ VARIANTS = {
               [(_ENTRY, "  if (total > 0) return;\n" + _ENTRY)]),
 }
 
+# B6: the rebuild's loads (C, and P into the staging tile) and its
+# products and LayerNorms
+_LOAD_C = "    mbar_expect_tx(full(wg), LAYER_TX);"
+_LOAD_P = ("    tma_load_3d(sst, tp, (item % tiles) * BP, 0, item / tiles, "
+           "full(wg));")
+_RECON = "      issue_recon(r, sst, sx);"
+_LN1 = ("      branch_ln<true>(r, rows + D, rows + 2 * D, rows + 3 * D, c, "
+        "ln_eps);")
+_LN2 = ("      branch_ln<false>(r, rows + 4 * D, rows + 5 * D, nullptr, c, "
+        "ln_eps);")
+_NO_HEAD = [(_EP1, _NO_EP1), (_EP2, _NO_EP2), (_MMA1, _NO_MMA1),
+            (_MMA2, _NO_MMA2)]
+
+# name -> (what it shows, [(old text, new text), ...])
+PROBS_VARIANTS = {
+    "kernel": ("the kernel as built", []),
+    "norebuild": ("rebuild removed: keys = img0 rows + b1 copied to the "
+                  "slot (no P or C loads, products or LayerNorms)",
+                  [(_LOAD_C, "    mbar_arrive(full(wg));\n    return;"),
+                   (_LOAD_P, ""),
+                   (_RECON, "      fence_regs(r[0]);"), (_LN1, ""),
+                   (_LN2, "")]),
+    "nohead": ("head removed: the rebuild, hyper rows and logit stores "
+               "only", _NO_HEAD),
+    "noturns": ("the two warpgroups issue their products without taking "
+                "turns", [("constexpr bool TURNS = true;",
+                           "constexpr bool TURNS = false;")]),
+}
+
 # (prompts, gg, content, mask tokens): the serving shape, and one
 # 64-position item alone (one CTA, the weights loaded once)
 SHAPES = ((1024, 4096, 3136, 3), (1, 64, 64, 3))
@@ -88,26 +120,30 @@ def _source(reps) -> str:
     return text
 
 
-def _build_all() -> dict:
+def _build_all() -> tuple:
+    """K3's and B6's variants, one nvcc each, all started together:
+    ({name: rat_mask_head}, {name: rat_mask_head_probs})."""
     _OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, (_, reps) in VARIANTS.items():
-        cu = _OUT / f"maskhead_{name}.cu"
-        cu.write_text(_source(reps))
-        procs[name] = subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build._CSRC),
-             "-shared", "-o", str(_OUT / f"maskhead_{name}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    fns = {}
-    for name, proc in procs.items():
+    for tag, table in (("maskhead", VARIANTS), ("maskprobs", PROBS_VARIANTS)):
+        for name, (_, reps) in table.items():
+            cu = _OUT / f"{tag}_{name}.cu"
+            cu.write_text(_source(reps))
+            procs[tag, name] = subprocess.Popen(
+                [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build._CSRC),
+                 "-shared", "-o", str(_OUT / f"{tag}_{name}.so"), str(cu)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fns = {"maskhead": {}, "maskprobs": {}}
+    for (tag, name), proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
-            raise RuntimeError(f"{name}: nvcc failed\n{log}")
-        fn = ctypes.CDLL(str(_OUT / f"maskhead_{name}.so")).rat_mask_head
-        fn.argtypes = list(build.SIGNATURES["rat_mask_head"])
+            raise RuntimeError(f"{tag} {name}: nvcc failed\n{log}")
+        entry = "rat_mask_head" if tag == "maskhead" else "rat_mask_head_probs"
+        fn = getattr(ctypes.CDLL(str(_OUT / f"{tag}_{name}.so")), entry)
+        fn.argtypes = list(build.SIGNATURES[entry])
         fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
+        fns[tag][name] = fn
+    return fns["maskhead"], fns["maskprobs"]
 
 
 def _clock(call, n: int = 300) -> str:
@@ -130,43 +166,71 @@ def _clock(call, n: int = 300) -> str:
     return f", {mhz:.0f} MHz {watts:.0f} W"
 
 
+def _run(fns: dict, call_args, out, want) -> list:
+    """Time each variant on the same arguments; its relative error
+    against ``want`` and, at more than one prompt, the clock and power."""
+    stream = torch.cuda.current_stream().cuda_stream
+    parts = []
+    for name, fn in fns.items():
+        out.zero_()
+
+        def call(fn=fn):
+            err = fn(*call_args, stream)
+            if err:
+                raise RuntimeError(f"launch failed: cudaError {err}")
+        ms = _time_ms(call)
+        if want is None:
+            want = out.float().clone()
+        rel = ((out.float() - want).abs().max() / want.abs().max()).item()
+        clock = _clock(call) if out.shape[0] > 1 else ""
+        parts.append(f"{name} {ms * 1e3:.1f} us (rel_err {rel:.1e}{clock})")
+    return parts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("maskhead_variants: needs a CUDA device")
     dev = torch.device("cuda")
-    fns = _build_all()
+    fns, probs_fns = _build_all()
     for name, (what, _) in VARIANTS.items():
-        print(f"[variant] {name}: {what}", flush=True)
+        print(f"[variant] K3 {name}: {what}", flush=True)
+    for name, (what, _) in PROBS_VARIANTS.items():
+        print(f"[variant] B6 {name}: {what}", flush=True)
     g = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
 
     def rnd(*shape, s=1.0, off=0.0):
         return (torch.randn(shape, generator=g, device=dev) * s + off).to(bf)
 
-    stream = torch.cuda.current_stream().cuda_stream
+    def probs(np_, gg):
+        x = torch.randn((np_, 8, 7, gg), generator=g, device=dev) * 2.0
+        return torch.softmax(x, dim=2).reshape(np_, 56, gg).to(bf)
+
     n_ctas = torch.cuda.get_device_properties(dev).multi_processor_count
     for np_, gg, content, m in SHAPES:
-        args = (rnd(np_, gg, 256), rnd(np_, m, 32, s=0.5),
-                rnd(256, 256, s=0.1), rnd(64, s=0.1), rnd(64, s=0.1, off=1.0),
+        head = (rnd(256, 256, s=0.1), rnd(64, s=0.1), rnd(64, s=0.1, off=1.0),
                 rnd(64, s=0.1), rnd(64, 128, s=0.1), rnd(32, s=0.1))
-        want = mh.upscale_masks_blocks(args[0][:, :content], *args[1:],
+        keys, hyper = rnd(np_, gg, 256), rnd(np_, m, 32, s=0.5)
+        want = mh.upscale_masks_blocks(keys[:, :content], hyper, *head,
                                        eps=1e-6).float()
         out = torch.empty((np_, content, 16, m), dtype=bf, device=dev)
-        ptrs = args[:1] + args[2:] + args[1:2]          # the C argument order
-        parts = []
-        for name, fn in fns.items():
-            out.zero_()
-
-            def call(fn=fn):
-                err = fn(*(a.data_ptr() for a in ptrs), out.data_ptr(), np_,
-                         gg, content, m, 1e-6, n_ctas, stream)
-                if err:
-                    raise RuntimeError(f"launch failed: cudaError {err}")
-            ms = _time_ms(call)
-            rel = ((out.float() - want).abs().max() / want.abs().max()).item()
-            clock = _clock(call) if np_ > 1 else ""
-            parts.append(f"{name} {ms * 1e3:.1f} us (rel_err {rel:.1e}{clock})")
-        print(f"[variants] keys [{np_},{gg},256] content {content} M {m}: "
+        ptrs = (keys,) + head + (hyper,)                # the C argument order
+        parts = _run(fns, [a.data_ptr() for a in ptrs] + [
+            out.data_ptr(), np_, gg, content, m, 1e-6, n_ctas], out, want)
+        print(f"[variants] K3 keys [{np_},{gg},256] content {content} M {m}: "
+              f"{'; '.join(parts)}", flush=True)
+        del keys, want
+        rows = torch.zeros((8, 256), device=dev)
+        rows[[1, 4]] = 1.0
+        rows = (rows + torch.randn((8, 256), generator=g, device=dev) * 0.1
+                ).to(bf)
+        ins = (rnd(1, gg, 256), probs(np_, gg), rnd(np_, 56, 256, s=0.3),
+               probs(np_, gg), rnd(np_, 56, 256, s=0.3), rows) + head + (
+                   hyper,)
+        parts = _run(probs_fns, [a.data_ptr() for a in ins] + [
+            out.data_ptr(), np_, gg, content, m, 1e-6, 1e-6, n_ctas], out,
+            None)
+        print(f"[variants] B6 P [{np_},56,{gg}] content {content} M {m}: "
               f"{'; '.join(parts)}", flush=True)
 
 

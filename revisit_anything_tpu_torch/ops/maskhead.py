@@ -154,7 +154,9 @@ def fused_mask_head_probs(img0: torch.Tensor, p1: torch.Tensor,
     [8, D] branch rows; ``ln_eps`` the branch LayerNorm's epsilon.
     Returns [Np, content, 16, M].
 
-    CUDA: kernel B6 (bf16, D 256, H·T 56, M ≤ 4). CPU: the plain
+    CUDA: kernel B6 (bf16, D 256, H·T 56, M ≤ 4, gg a multiple of 8;
+    K3's persistent TMA + ``wgmma`` CTAs behind a ``wgmma`` rebuild of
+    the keys tile, ``kernels/csrc/mask_head.cu``). CPU: the plain
     version."""
     _, gg, d = img0.shape
     np_, ht, _ = p1.shape
@@ -166,9 +168,10 @@ def fused_mask_head_probs(img0: torch.Tensor, p1: torch.Tensor,
                                          up1_w, up1_b, ln_scale, ln_bias,
                                          up2_w, up2_b, eps, ln_eps, content)
     m = hyper.shape[1]
-    if d != 256 or ht != 56 or not 1 <= m <= 4:
-        raise ValueError(f"mask head (probs) kernel: D={d}, H·T={ht}, M={m} "
-                         "not built (D 256, H·T 56, M ≤ 4)")
+    if d != 256 or ht != 56 or not 1 <= m <= 4 or gg % 8:
+        raise ValueError(f"mask head (probs) kernel: D={d}, H·T={ht}, M={m}, "
+                         f"gg={gg} not built (D 256, H·T 56, M ≤ 4, gg a "
+                         "multiple of 8)")
     bf = torch.bfloat16
     ins = [operand("img0", img0, bf, (1, gg, d)),
            operand("p1", p1, bf, (np_, ht, gg)),

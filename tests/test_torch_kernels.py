@@ -124,11 +124,13 @@ def test_winattn_variants_patch_the_kernel_source():
 
 
 def test_maskhead_variants_patch_the_kernel_source():
-    """Every variant of ``kernels.maskhead_variants`` still finds the lines
-    it replaces in ``mask_head.cu`` (the tool runs only on the card)."""
+    """Every variant of ``kernels.maskhead_variants``, K3's and B6's,
+    still finds the lines it replaces in ``mask_head.cu`` (the tool runs
+    only on the card)."""
     from revisit_anything_tpu_torch.kernels import maskhead_variants as mv
     base = mv._SRC.read_text()
-    for name, (_, reps) in mv.VARIANTS.items():
+    for name, (_, reps) in (*mv.VARIANTS.items(),
+                            *mv.PROBS_VARIANTS.items()):
         text = mv._source(reps)
         assert (text == base) == (not reps), name
 
@@ -597,27 +599,61 @@ def test_t2i_from_probs_kernel_matches_plain(cuda, depth):
     assert _rel_err(got, want) < BF16_REL
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("content", [3136, 3130])
-def test_mask_head_probs_kernel_matches_plain(cuda, content):
-    x = _probs_inputs(cuda, b=8)
-    g = torch.Generator(device=cuda).manual_seed(6)
+def _mask_head_probs_args(cuda, np_, m, seed=6):
+    """B6's arguments at the serving widths (gg 4096) for ``np_`` prompts
+    and ``m`` mask tokens."""
+    x = _probs_inputs(cuda, b=np_)
+    g = torch.Generator(device=cuda).manual_seed(seed)
 
     def rnd(*shape, s=1.0, off=0.0):
         return (torch.randn(shape, generator=g, device=cuda) * s + off).to(
             torch.bfloat16)
 
-    args = (x["img0"], x["p1"], x["c1"], x["p2"], x["c2"], x["rows"],
-            rnd(8, 3, 32, s=0.5), rnd(256, 256, s=0.1), rnd(64, s=0.1),
+    return (x["img0"], x["p1"], x["c1"], x["p2"], x["c2"], x["rows"],
+            rnd(np_, m, 32, s=0.5), rnd(256, 256, s=0.1), rnd(64, s=0.1),
             rnd(64, s=0.1, off=1.0), rnd(64, s=0.1), rnd(64, 128, s=0.1),
             rnd(32, s=0.1))
+
+
+# (prompts, content, mask tokens) at gg 4096: a whole number of 64-row
+# items (3136), a ragged last item (3130), less than one item (40) and
+# content = gg (the last item's P boxes past gg are zero-filled), each at
+# M 1-4 on 8 prompts; then 133 prompts, more than a 132-SM card's CTAs.
+MASK_HEAD_PROBS_CASES = [
+    pytest.param(8, 3136, 3, id="3136"), pytest.param(8, 3130, 3, id="3130")
+] + [(8, content, m) for content in (3136, 3130, 40, 4096)
+     for m in (1, 2, 3, 4) if (content, m) not in ((3136, 3), (3130, 3))] + [
+    (133, 3136, 3), (133, 4096, 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("np_,content,m", MASK_HEAD_PROBS_CASES)
+def test_mask_head_probs_kernel_matches_plain(cuda, np_, content, m):
+    args = _mask_head_probs_args(cuda, np_, m)
     before = build.MASK_HEAD_PROBS.launches
     got = mh.fused_mask_head_probs(*args, content=content)
     want = mh.mask_head_probs_reference(*args, content=content)
     torch.cuda.synchronize()
     assert build.MASK_HEAD_PROBS.launches == before + 1
-    assert got.shape == want.shape == (8, content, 16, 3)
+    assert got.shape == want.shape == (np_, content, 16, m)
     assert _rel_err(got, want) < BF16_REL
+
+
+@pytest.mark.gpu
+def test_mask_head_probs_kernel_permutes_with_its_prompts(cuda):
+    """Permuting the prompts permutes B6's output bit for bit: an item
+    reads its own prompt's P and C only (the 64-row boxes' rows 56-63
+    are zeros, never the next prompt's rows 0-7)."""
+    args = _mask_head_probs_args(cuda, 133, 3)
+    perm = torch.randperm(133, generator=torch.Generator().manual_seed(0))
+    perm = perm.to(cuda)
+    per_prompt = (1, 2, 3, 4, 6)              # p1, c1, p2, c2, hyper
+    shuffled = tuple(a[perm] if i in per_prompt else a
+                     for i, a in enumerate(args))
+    base = mh.fused_mask_head_probs(*args, content=3130)
+    got = mh.fused_mask_head_probs(*shuffled, content=3130)
+    torch.cuda.synchronize()
+    assert torch.equal(got, base[perm])
 
 
 def serving_decoder(device, seed=0):

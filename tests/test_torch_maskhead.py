@@ -95,13 +95,16 @@ def test_plain_mask_head_keeps_the_kernels_rounding_points_in_bf16():
     np.testing.assert_allclose(got, want, rtol=0, atol=2 * ulp)
 
 
-@pytest.mark.parametrize("content", [None, 48])
-def test_mask_head_probs_matches_jax_kernel(content):
+@pytest.mark.parametrize("content,n_masks", [
+    pytest.param(None, 3, id="None"), pytest.param(48, 3, id="48"),
+    (None, 1), (48, 1), (None, 4), (48, 4)])
+def test_mask_head_probs_matches_jax_kernel(content, n_masks):
     """Kernel B6: the branch rebuilt from two (P, C) updates, then the
-    mask head, against the JAX package's recon kernel."""
+    mask head, against the JAX package's recon kernel, at 1, 3 and 4
+    mask tokens."""
     rng = np.random.default_rng(11)
     d, ht, np_, gg = 32, 28, 2, 64
-    p = _params(rng, d, 3, np_, gg)
+    p = _params(rng, d, n_masks, np_, gg)
     img0 = rng.standard_normal((1, gg, d)).astype(np.float32)
     logits = rng.standard_normal((2, np_, ht, gg)) * 2.0
     probs = np.exp(logits - logits.max(2, keepdims=True))
@@ -126,5 +129,5 @@ def test_mask_head_probs_matches_jax_kernel(content):
         t(img0), t(p1).to(torch.bfloat16), t(c1m), t(p2).to(torch.bfloat16),
         t(c2m), t(rows), *(t(p[k]) for k in head), eps=1e-6, ln_eps=1e-6,
         content=content).numpy()
-    assert got.shape == (np_, content or gg, 16, 3)
+    assert got.shape == (np_, content or gg, 16, n_masks)
     np.testing.assert_allclose(got, want, atol=ATOL)
