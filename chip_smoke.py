@@ -9,15 +9,17 @@ Phases (any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the twelve kernels from revisit_anything_tpu_torch/kernels/csrc
      (one nvcc per source, in parallel);
-  3. print the registers, shared memory and spill bytes of the eight
-     redesigned entry points (K1, K2, B10, B11, K3, B6, K5, K4) from
-     ptxas.log;
+  3. print the registers, shared memory and spill bytes of the nine
+     redesigned entry points (K1, K2, B10, B11, K3, B6, K5, K4, B3's keys
+     mode) from ptxas.log, and the HMMA instructions in the SASS of B3's
+     keys mode (cuobjdump);
      then
      compare every kernel with its plain version in bf16 at the main
      path's shapes, timing both with CUDA events (median of 7 after
      warm-up, each call queued behind a device sleep so that its host
      launch cost is not timed), beside its bound (the larger of bytes /
-     3.35 TB/s and operations / the H100's peak rate for their type),
+     3.35 TB/s and operations / the H100's peak rate for their type:
+     bf16 and TF32 products on the tensor cores, f32 on the FMA units),
      its bound share
      (bound / kernel time) and, where one PyTorch call computes the same
      function, that call's time and the kernel's time over it
@@ -52,7 +54,9 @@ Phases (any failure exits non-zero):
      launch and no other decode kernel may, the planted image must come
      first, at least 32 masks kept; print its decode-stage time and its
      kept masks' agreement with "shared" ("fused_tail_logits" also with
-     "fused_tail_keys");
+     "fused_tail_keys"); for "fused_tail_keys", the same query with the
+     decode tail's plain f32 version in the kernel's place, with the
+     predicted IoU at the top-128 cut ([witness]);
  10. print the kernel table as one JSON line (B10, token_cross_split, has
      no caller on a serving path, as in the JAX package: launches 0),
      then the result line.
@@ -126,9 +130,10 @@ def _tuple_err(out_k, out_p):
     return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
-# One H100 SXM (NVIDIA's data sheet, dense): HBM bytes/s, bf16 tensor-core
-# FLOP/s, f32 (non-tensor) FLOP/s
-HBM_BYTES_S, BF16_FLOP_S, F32_FLOP_S = 3.35e12, 989e12, 67e12
+# One H100 SXM (NVIDIA's data sheet, dense): HBM bytes/s, bf16 and TF32
+# tensor-core FLOP/s, f32 (non-tensor) FLOP/s
+HBM_BYTES_S, BF16_FLOP_S, TF32_FLOP_S, F32_FLOP_S = (3.35e12, 989e12, 495e12,
+                                                     67e12)
 
 # The mask head's f32 work a position (K3 and B6), beside its products on
 # the tensor cores (bf16 inputs: the two convolutions and the
@@ -146,14 +151,15 @@ def _nbytes(ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def _bound(n_bytes: float, bf16_flop: float = 0.0,
-           f32_flop: float = 0.0) -> tuple:
+def _bound(n_bytes: float, bf16_flop: float = 0.0, f32_flop: float = 0.0,
+           tf32_flop: float = 0.0) -> tuple:
     """The least time the card could take: bytes moved once over the HBM
-    rate, against operations over the peak rate of their type (bf16
-    products on the tensor cores, f32 products on the FMA units, which
-    run beside them)."""
+    rate, against operations over the peak rate of their type (bf16 and
+    TF32 products one after the other on the tensor cores, f32 products
+    on the FMA units, which run beside them)."""
     t_bytes = n_bytes / HBM_BYTES_S
-    t_ops = max(bf16_flop / BF16_FLOP_S, f32_flop / F32_FLOP_S)
+    t_ops = max(bf16_flop / BF16_FLOP_S + tf32_flop / TF32_FLOP_S,
+                f32_flop / F32_FLOP_S)
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -192,11 +198,13 @@ PTXAS_KERNELS = (
      "rat_i2t_update_smem", ()),
     ("resize_flags_kernelILi3ELb1E", "K4 M 3 (240x320)", "rat_resize_flags",
      "rat_resize_flags_smem", (3, 320, 240)),
+    ("decode_tail_keys_kernel", "B3 keys mode", "rat_decode_tail",
+     "rat_decode_tail_keys_smem", ()),
 )
 
 
 def ptxas_report() -> None:
-    """Print the registers, shared memory and spill bytes of the eight
+    """Print the registers, shared memory and spill bytes of the nine
     redesigned entry points' kernels, read from the build's ptxas.log
     (dynamic shared memory from the sources' own size functions)."""
     import re
@@ -224,6 +232,31 @@ def ptxas_report() -> None:
               f"{getattr(lib, smem_fn)(*smem_args)} B dynamic a CTA, spill "
               f"stores {stores} B, loads {loads} B"
               f"{', wgmma serialized (C751x)' if serial else ''}", flush=True)
+    sass_report("decode_tail_keys_kernel", "B3 keys mode")
+
+
+def sass_report(key: str, label: str) -> None:
+    """Count the tensor-core instructions (HMMA, by shape and type) in one
+    kernel's SASS, from cuobjdump of the built library; fail if there are
+    none."""
+    import collections
+    import re
+    import shutil
+
+    from revisit_anything_tpu_torch.kernels import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    res = subprocess.run([tool, "-sass", str(build.library_path())],
+                         capture_output=True, text=True, check=True)
+    funcs = [f for f in res.stdout.split("Function : ")[1:]
+             if key in f.split("\n", 1)[0]]
+    if not funcs:
+        _fail(f"cuobjdump: no kernel {key}")
+    kinds = collections.Counter(re.findall(r"HMMA\.[0-9A-Z.]+", funcs[0]))
+    if not kinds:
+        _fail(f"{label}: no HMMA in its SASS")
+    print(f"[sass] {label} ({key}): {sum(kinds.values())} HMMA ("
+          + ", ".join(f"{n} {k}" for k, n in sorted(kinds.items())) + ")",
+          flush=True)
 
 
 def compare_kernels(dev) -> dict:
@@ -260,8 +293,8 @@ def compare_kernels(dev) -> dict:
     def check(kernel, label, fn_k, fn_p, err_fn, tol, ins, ops,
               library=None, plain_prompts=None, rate=False):
         """``ins`` the inputs the function must read (views where it
-        reads part of a tensor), ``ops`` = (bf16 FLOP, f32 FLOP) its
-        arithmetic; ``plain_prompts``: the plain version ran on only the
+        reads part of a tensor), ``ops`` = (bf16 FLOP, f32 FLOP[, TF32
+        FLOP]) its arithmetic; ``plain_prompts``: the plain version ran on only the
         first prompts, and the kernel's output for those is compared;
         ``rate``: also print the achieved GB/s (the bytes it must read
         and write over the kernel's time)."""
@@ -274,6 +307,9 @@ def compare_kernels(dev) -> dict:
             out_k = (tuple(o[:plain_prompts] for o in out_k)
                      if isinstance(out_k, tuple) else out_k[:plain_prompts])
         abs_err, rel_err = err_fn(out_k, out_p)
+        parts = ([_rel(a, p)[1] for a, p in zip(out_k, out_p)]
+                 if isinstance(out_k, tuple) and isinstance(out_p, tuple)
+                 else None)
         del out_k, out_p, outs
         ms, plain_ms = _time_ms(fn_k), _time_ms(fn_p)
         library_ms = _time_ms(library) if library else None
@@ -286,6 +322,8 @@ def compare_kernels(dev) -> dict:
                if library else "")
         if rate:
             lib += f"  {moved / ms / 1e6:.1f} GB/s"
+        if parts:
+            lib += "  rel_err by output " + " ".join(f"{e:.3e}" for e in parts)
         print(f"[kernel] {kernel.name:22s} {label:44s} max_abs_err="
               f"{abs_err:.3e} rel_err={rel_err:.3e} (tol {tol:g}) "
               f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms{lib}  bound "
@@ -490,8 +528,10 @@ def compare_probs_kernels(dev, check, head, rel_tol) -> None:
     w_q, w_k, w_v, vb = (rnd(d, da, s=0.1), rnd(d, da, s=0.1),
                          rnd(d, da, s=0.1), rnd(da, s=0.1))
     # FLOP of one branch rebuild (bf16 P·C), of [56, 256] rows against the
-    # f32 branch, and of a head's token vectors against a bf16 [DA, M] pe
-    # term
+    # f32 branch (f32 operands: counted at the TF32 rate, which holds the
+    # tolerance; B3's keys mode runs them as three fp16 products for
+    # precision, which a bound need not pay), and of a head's token
+    # vectors against a bf16 [DA, M] pe term
     recon = 2 * b * m * ht * d
     rows_x_branch = 2 * b * m * ht * d
     pe_term = 2 * b * ht * m * 16
@@ -506,7 +546,7 @@ def compare_probs_kernels(dev, check, head, rel_tol) -> None:
           lambda: dpr.i2t_probs(None, tok_k, 8, layer=2, recon=rec),
           lambda: dpr.i2t_probs_reference(None, tok_k[:c], 8, layer=2,
                                           recon=rec_c),
-          _rel, rel_tol, (tok_k,) + rec, (recon + pe_term, rows_x_branch),
+          _rel, rel_tol, (tok_k,) + rec, (recon + pe_term, 0, rows_x_branch),
           plain_prompts=c)
     for depth in (1, 2):
         ps = (p2, c2) if depth == 2 else (None, None)
@@ -520,7 +560,8 @@ def compare_probs_kernels(dev, check, head, rel_tol) -> None:
               lambda: dpr.t2i_from_probs_reference(qt[:c], *args_c),
               _rel, rel_tol, [qt] + [x for x in args if
                                      isinstance(x, torch.Tensor)],
-              (depth * recon + pe_term, 2 * rows_x_branch), plain_prompts=c)
+              (depth * recon + pe_term, 0, 2 * rows_x_branch),
+              plain_prompts=c)
 
     hyper = rnd(b, 3, 32, s=0.5)
     margs = (img0, p1, c1, p2, c2, rows, hyper) + head
@@ -555,7 +596,7 @@ def compare_probs_kernels(dev, check, head, rel_tol) -> None:
     tail_ins = [img0, q1st, peqt, pek2t, pekft, tok_k, c1, qin, tok,
                 rows] + weights
     mlp = 2 * b * 7 * 2 * d * SAM_VIT_H.decoder_mlp_dim
-    tail_ops = (2 * recon + 4 * pe_term + mlp, 5 * rows_x_branch)
+    tail_ops = (2 * recon + 4 * pe_term + mlp, 0, 5 * rows_x_branch)
     for keys in (True, False):
         check(build.DECODE_TAIL,
               "keys mode -> keys2 [1024,4096,256]" if keys else
@@ -581,7 +622,7 @@ def compare_probs_kernels(dev, check, head, rel_tol) -> None:
               dec, img0, q1st, peqt, pek2t, pekft, tok_k[:c], c1[:c],
               qin[:c], tok[:c], 8, 1e-6, mask_head=True, content=content),
           _tuple_err, rel_tol, tail_ins + head_ins,
-          (tail_ops[0] + b * content * head_flop, tail_ops[1] + hyper_flop),
+          (tail_ops[0] + b * content * head_flop, hyper_flop, tail_ops[2]),
           plain_prompts=c)
     torch.cuda.empty_cache()
 
@@ -729,6 +770,7 @@ def serve(dev, seed: int = 0) -> dict:
             {name: servers[name] for name in ("shared",) + also})
         if decode == "fused_tail_keys":
             servers[decode] = vsrv
+            plain_tail_witness(vsrv, queries[0], srv)
         del vsrv
     return dict(counts=counts, wall_ms=wall, peak_gib=peak_gib,
                 variants=variants, window=window)
@@ -893,6 +935,55 @@ def serve_variant(vsrv, img, decode: str, refs: dict) -> dict:
         _fail(f"{decode}: {n_v} masks kept (expected at least 32)")
     return dict(query_ms=wall, decode_ms=decode_ms, kept=n_v,
                 agreement=agreement, counts=counts)
+
+
+def plain_tail_witness(vsrv, img, ref) -> None:
+    """The "fused_tail_keys" server ``vsrv`` on ``img`` with its decode
+    tail as the kernel and as the plain version (``decode_tail_reference``,
+    f32 on the card): how many kept masks match one of ``ref``'s
+    ("shared") and of the kernel's at IoU > 0.5, and the predicted IoU at
+    the top-``kmax`` cut (masks past it are dropped; it falls among
+    bf16-rounded ties). A witness of what the f32 function itself
+    serves; it fails nothing."""
+    import torch
+
+    from revisit_anything_tpu_torch.models.sam import decoder
+    from revisit_anything_tpu_torch.ops import decode_fused as dfu
+    from revisit_anything_tpu_torch.pipeline import serve as sv
+
+    select, cuts = sv._select_masks_centroids, {}
+
+    def spy(masks, iou, stab, boxes, valid, amg, kmax):
+        keep = valid & (stab >= amg.stability_score_thresh)
+        if amg.pred_iou_thresh > 0.0:
+            keep = keep & (iou > amg.pred_iou_thresh)
+        nms = sv.nms_keep_mask(boxes, iou.masked_fill(~keep, float("-inf")),
+                               amg.box_nms_thresh)
+        left = torch.sort(iou[nms & keep], descending=True).values
+        cuts["n"], cuts["at"] = left.numel(), left[kmax - 2:kmax + 2].tolist()
+        return select(masks, iou, stab, boxes, valid, amg, kmax)
+
+    kernel, runs = decoder.decode_tail_fused, {}
+    sv._select_masks_centroids = spy
+    try:
+        with torch.inference_mode():
+            img_dev = torch.from_numpy(img).to(vsrv.device)
+            runs["shared"] = (ref._amg_device(img_dev), dict(cuts))
+            for name, tail in (("kernel", kernel),
+                               ("plain f32", dfu.decode_tail_reference)):
+                decoder.decode_tail_fused = tail
+                runs[name] = (vsrv._amg_device(img_dev), dict(cuts))
+    finally:
+        sv._select_masks_centroids = select
+        decoder.decode_tail_fused = kernel
+    for name, (amg_v, cut) in runs.items():
+        agree = [f"{_agreement(amg_v, runs[r][0])[2]:.4f} {r}"
+                 for r in ("shared", "kernel") if r != name]
+        print(f"[witness] fused_tail_keys tail {name}: "
+              f"{int(amg_v[1][-1])} masks kept of {cut['n']} past NMS, "
+              f"predicted IoU at ranks {vsrv.kmax - 1}-{vsrv.kmax + 2} "
+              + " ".join(f"{x:.6f}" for x in cut["at"])
+              + "; matched at IoU > 0.5: " + ", ".join(agree), flush=True)
 
 
 def stage_split(srv, img, answer) -> None:

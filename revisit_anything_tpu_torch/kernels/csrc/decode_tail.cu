@@ -18,7 +18,11 @@
 // [content, 16, 3] bf16 in the block layout of mask_head.cu; all three
 // write the token state [7, D].
 //
-// What bounds it on the H100: the FMA units. A prompt needs about
+// Two designs: the probability and logits modes still run the FMA
+// design (until their own redesign); the keys mode runs on the tensor
+// cores (below, "Keys mode").
+//
+// FMA design. What bounds it on the H100: the FMA units. A prompt needs about
 // 1.0 GFLOP (P1 59 MFLOP as the TPU counts it with its block-diagonal
 // keys, the 7.3 MFLOP of real head products here; two rebuilds of keys1
 // and one of keys2 at 117 MFLOP each; P2 117 + 7 MFLOP; two attentions
@@ -43,6 +47,43 @@
 // (28 KB a prompt each) are read from L1/L2, the MLP weights (2 x 1 MB
 // bf16) from L2 once per prompt. 183 KB: one CTA an SM, 1024 CTAs.
 //
+// Keys mode (decode_tail_keys_kernel; the products in decode_tc.cuh):
+// replaces the TPU kernel revisit_anything_tpu/ops/decode_fused.py:417
+// (_tail_call -> _tail_kernel) in its keys form. The same control flow
+// (one CTA of 8 warps a prompt, passes A and B over 32-position tiles,
+// pass B rebuilding keys1 again, the token mid-ops between them), with
+// the three families of per-tile products on the tensor cores by
+// mma.sync: the rebuilds in bf16 (exact products, the f32 branch kept in
+// registers as their residual), the scores Q^ . Y^T and the online-
+// softmax context p . Y as three fp16 products of hi/lo planes of their
+// f32 operands times a power of two (22 bits of each). P1, P2, the pe
+// terms, the softmaxes, the branch LayerNorms (on the accumulators) and
+// every token-side op stay on the FMA units; keys2 leaves from registers
+// by 16-byte stores.
+// Precision: at 1024 prompts x M 4096 (H100, chip_smoke.py) the max
+// relative error against decode_tail_reference is 5.9e-3 for the token
+// state and 5.3e-3 for keys2 (tolerance 2e-2). Against the plain f32
+// version the kernel moves 4.9% of the token state's bf16 elements and
+// 6.3% of keys2's, the FMA design 5.9% and 7.5%, the plain version with
+// TF32 matmuls 31% and 34% (kernels/tail_variants.py [precision]). TF32
+// and bf16 planes were tried first; both, with the context summed over
+// the tiles inside the mma accumulators (decode_tc.cuh: those additions
+// do not round to nearest), moved ~20% and one of a served query's 128
+// kept masks; this kernel serves the plain version's cut exactly
+// (chip_smoke.py [witness]).
+// What bounds it: not a peak. A tile of pass B takes 21.0k cycles an SM
+// (kernels/tail_variants.py [phases], H100 at 1980 MHz): the two rebuilds
+// 6.6k (their LayerNorm epilogues and keys2's copy-out more than their
+// 32 mma.sync a warp), the two score products 4.7k, the context 1.7k,
+// the FMA phases (P1, P2, the pe terms, the softmaxes) 6.0k, loads 1.1k;
+// each phase is short of independent work for 8 warps between 21 CTA
+// barriers a tile pair.
+// Shared memory: the branch planes (hi, lo: 32 KB, also the token
+// scratch), the two query-side matrices (hi, lo: 112 KB; the MLP's hidden
+// rows and the contexts borrow them), C1 and C2 staged once a prompt (56
+// KB), S / p (7 KB), P, the token state, vectors, branch constants and
+// the planes' scales: 231,488 B, one CTA an SM.
+//
 // Logits mode: the mask head needs keys2 and the hypernetwork rows, and
 // the latter come from the token state after the FINAL attention, which
 // exists only once pass B has walked all of M; a prompt's keys2 (2 MB
@@ -65,6 +106,7 @@
 // against 2.15 GB written and 1.64 GB read by keys mode and K3.
 
 #include "decode_common.cuh"
+#include "decode_tc.cuh"
 #include "mask_head_tile.cuh"
 
 namespace {
@@ -316,12 +358,254 @@ __device__ __forceinline__ void hyper_layer(float* out, const float* x, int ldx,
   }
 }
 
-// Keys and probability modes: one CTA a prompt.
+// Probability mode: one CTA a prompt.
 __global__ void __launch_bounds__(THREADS, 1) decode_tail_kernel(const TailParams pr) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int b = blockIdx.x;
-  tail_prompt(pr, b, smem, pr.keys2 ? pr.keys2 + (size_t)b * pr.m * D : nullptr, pr.m);
+  tail_prompt(pr, blockIdx.x, smem, nullptr, 0);
 }
+
+// ---- keys mode: the per-tile products on the tensor cores (decode_tc.cuh) ----
+
+namespace keys {
+
+using namespace rat_decode_tc;
+
+// Shared memory of the keys mode (bytes). The token vectors k1, k2 and q
+// and the branch constants are bf16 values and are kept as bf16; the
+// prompt tokens are read again where they are added. The f32 branch
+// itself lives in registers (decode_tc.cuh Frag).
+constexpr int OFF_Y = 0;                           // branch planes hi, lo / token scratch
+constexpr int OFF_QA = OFF_Y + BM * D * 4;         // query-side matrices' planes hi, lo
+constexpr int OFF_QB = OFF_QA + HT * D * 4;
+constexpr int OFF_C1 = OFF_QB + HT * D * 4;        // C1, C2 bf16
+constexpr int OFF_C2 = OFF_C1 + HT * D * 2;
+constexpr int OFF_S = OFF_C2 + HT * D * 2;         // S / p hi, lo; the LN's row sums
+constexpr int OFF_P = OFF_S + HT * BM * 4;         // P1 / P2 bf16
+constexpr int OFF_QIN = OFF_P + HT * BM * 2;       // token state [T][D] f32
+constexpr int OFF_V = OFF_QIN + T * D * 4;         // branch constants [6][D] bf16
+constexpr int OFF_K1 = OFF_V + 6 * D * 2;          // k1, k2, q [T][DA] bf16
+constexpr int OFF_K2 = OFF_K1 + T * DA * 2;
+constexpr int OFF_Q = OFF_K2 + T * DA * 2;
+constexpr int OFF_ALPHA = OFF_Q + T * DA * 2;      // rescale / 1 / sum [HT]
+constexpr int OFF_SC = OFF_ALPHA + 64 * 4;         // planes' s: Y1, Y2, QA, QB; scratch [8]
+constexpr int SMEM = OFF_SC + 16 * 4;
+static_assert(SMEM == 231488 && SMEM <= 232448, "one CTA an SM");
+static_assert(T * MAX_MLP * 4 <= HT * D * 4, "the MLP hidden rows fit a matrix slot");
+static_assert(3 * T * D + 2 * T * DA <= BM * D, "token scratch fits the tile");
+static_assert(BM * WARPS * 8 <= HT * BM * 4, "the LN's row sums fit S");
+
+__device__ __forceinline__ void copy_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src, int n) {
+  for (int i = threadIdx.x; i < n / 8; i += THREADS)
+    reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
+}
+
+__device__ __forceinline__ void to_bf16(__nv_bfloat16* dst, const float* src, int n) {
+  for (int i = threadIdx.x; i < n; i += THREADS) dst[i] = __float2bfloat16(src[i]);
+}
+
+// P1 of the calling thread's (head, position) into the P tile, from its
+// column of q1st^T.
+__device__ __forceinline__ void p1_tile(__nv_bfloat16* sP, const __nv_bfloat16* sK1,
+                                        const PeCol& q1s) {
+  float s[T];
+#pragma unroll
+  for (int t = 0; t < T; ++t) s[t] = 0.f;
+  add_pe_term_bf(s, sK1, q1s);
+  const float scale = rsqrtf((float)HD);
+#pragma unroll
+  for (int t = 0; t < T; ++t) s[t] *= scale;
+  softmax_tokens(s);
+  store_p(sP, s);
+}
+
+__global__ void __launch_bounds__(THREADS, 1) decode_tail_keys_kernel(const TailParams pr) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __half* sYh = reinterpret_cast<__half*>(smem + OFF_Y);
+  __half* sYl = sYh + BM * D;
+  __half* sQah = reinterpret_cast<__half*>(smem + OFF_QA);
+  __half* sQal = sQah + HT * D;
+  __half* sQbh = reinterpret_cast<__half*>(smem + OFF_QB);
+  __half* sQbl = sQbh + HT * D;
+  float* sQa = reinterpret_cast<float*>(smem + OFF_QA);   // the context [HT][D]
+  float* sQb = reinterpret_cast<float*>(smem + OFF_QB);   // the MLP's hidden rows
+  __nv_bfloat16* sC1 = reinterpret_cast<__nv_bfloat16*>(smem + OFF_C1);
+  __nv_bfloat16* sC2 = reinterpret_cast<__nv_bfloat16*>(smem + OFF_C2);
+  float* sS = reinterpret_cast<float*>(smem + OFF_S);
+  __half* sPh = reinterpret_cast<__half*>(smem + OFF_S);
+  __half* sPl = sPh + HT * BM;
+  float2* red = reinterpret_cast<float2*>(smem + OFF_S);
+  __nv_bfloat16* sP = reinterpret_cast<__nv_bfloat16*>(smem + OFF_P);
+  float* sQin = reinterpret_cast<float*>(smem + OFF_QIN);
+  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + OFF_V);
+  __nv_bfloat16* sK1 = reinterpret_cast<__nv_bfloat16*>(smem + OFF_K1);
+  __nv_bfloat16* sK2 = reinterpret_cast<__nv_bfloat16*>(smem + OFF_K2);
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem + OFF_Q);
+  float* alpha = reinterpret_cast<float*>(smem + OFF_ALPHA);
+  float* sSc = reinterpret_cast<float*>(smem + OFF_SC);    // Y1, Y2, QA, QB s
+  float* scratch = sSc + 8;
+  // token scratch inside the (then idle) branch tile
+  float* xa = reinterpret_cast<float*>(smem + OFF_Y);   // [T][D]
+  float* xb = xa + T * D;         // [T][D]
+  float* xc = xb + T * D;         // [T][D]
+  float* xo = xc + T * D;         // [T][DA]
+  float* xv = xo + T * DA;        // [T][DA]
+
+  const int b = blockIdx.x;
+  const int m = pr.m;
+  const int lane = threadIdx.x % 32;
+  const __nv_bfloat16* tok = pr.tok + (size_t)b * T * D;
+  __nv_bfloat16* kout = pr.keys2 + (size_t)b * m * D;
+
+  copy_bf16(sV, pr.rows, 6 * D);
+  copy_bf16(sK1, pr.tok_k1 + (size_t)b * T * DA, T * DA);
+  stage_c(sC1, pr.c1m + (size_t)b * HT * D);
+  load_f32(sQin, pr.qin + (size_t)b * T * D, T * D);
+  load_f32(xb, tok, T * D);
+  __syncthreads();
+  branch_scales(sSc, scratch, sV);
+
+  // layer-2 t2i queries and their query-side matrix
+  add_rows(xa, sQin, xb, T * D);
+  __syncthreads();
+  dense_rows_k4(xo, xa, D, pr.wq_t2, pr.bq_t2, DA, false);
+  __syncthreads();
+  to_bf16(sq, xo, T * DA);
+  project_rows_tc(sQah, sQal, sSc + 2, scratch, xo, pr.wk_t2);
+  __syncthreads();
+
+  // ---- pass A: P1 -> keys1 -> layer-2 t2i partials ----
+  Online st;
+  Ctx ctx;
+  Frag y;                                      // the f32 branch tile
+  online_init(st);
+  context_init(ctx);
+  const float ys1 = sSc[0], ys2 = sSc[1];       // the planes' s
+  const float unscale_t2 = 1.f / (sSc[2] * ys1);
+  for (int m0 = 0; m0 < m; m0 += BM) {
+    PeCol pe;                                  // each asked for a phase ahead
+    ImgFrag img;
+    load_pe(pe, pr.q1st, m, m0 + lane);
+    load_img0(img, pr.img0, m0);
+    p1_tile(sP, sK1, pe);
+    __syncthreads();
+    load_pe(pe, pr.pek2t, m, m0 + lane);
+    rebuild_tc<true>(y, img, sYh, sYl, sP, sC1, sV, red, pr.eps, ys1, nullptr);  // keys1
+    scores_tc(sS, sQah, sQal, sYh, sYl);
+    __syncthreads();
+    float s[T];
+    head_scores_tc(s, sS, sq, pe, unscale_t2);
+    __syncthreads();                                           // S read: p replaces it
+    online_tile(st, s, sPh, sPl, alpha);
+    __syncthreads();
+    context_tc(ctx, sPh, sPl, alpha, sYh, sYl);
+    __syncthreads();
+  }
+  online_finish(st, alpha);
+  __syncthreads();
+  context_store(ctx, alpha, 1.f / (P_SCALE * ys1), sQa);
+  __syncthreads();
+
+  // ---- token mid-ops ----
+  attn_out(xo, sQa, pr.wv_t2, pr.vb_t2);                       // attn [T][DA]
+  __syncthreads();
+  dense_rows_k4(xb, xo, DA, pr.wout_t2, pr.bout_t2, D, false);
+  __syncthreads();
+  add_rows(xa, sQin, xb, T * D);
+  __syncthreads();
+  ln_rows(sQin, xa, pr.n2_s, pr.n2_b, pr.eps);                 // queries
+  __syncthreads();
+  dense_rows_n8(sQb, sQin, D, pr.lin1_w, pr.lin1_b, pr.mlp, true); // hidden
+  __syncthreads();
+  dense_rows_k4(xb, sQb, pr.mlp, pr.lin2_w, pr.lin2_b, D, false);
+  __syncthreads();
+  add_rows(xa, sQin, xb, T * D);
+  __syncthreads();
+  ln_rows(sQin, xa, pr.n3_s, pr.n3_b, pr.eps);
+  load_f32(xc, tok, T * D);
+  __syncthreads();
+  add_rows(xa, sQin, xc, T * D);                               // queries + tokens
+  __syncthreads();
+  dense_rows_k4(xo, xa, D, pr.wk_i2, pr.bk_i2, DA, false);        // k2
+  dense_rows_k4(xv, sQin, D, pr.wv_i2, pr.bv_i2, DA, false);      // v2
+  dense_rows_k4(xb, xa, D, pr.wq_fa, pr.bq_fa, DA, false);        // final queries
+  __syncthreads();
+  to_bf16(sK2, xo, T * DA);
+  to_bf16(sq, xb, T * DA);
+  project_rows_tc(sQah, sQal, sSc + 2, scratch, xo, pr.wq_i2);  // k2 Wq2^T
+  project_rows_tc(sQbh, sQbl, sSc + 3, scratch, xb, pr.wk_fa);  // qf Wk^T
+  // C2[h*T + t][d] = bf16(v2[t, h] . Wout2[h rows, d]), into C's layout
+  {
+    const int d = threadIdx.x;
+    for (int hh = 0; hh < H; ++hh) {
+      float w[HD];
+#pragma unroll
+      for (int j = 0; j < HD; ++j)
+        w[j] = __bfloat162float(pr.wout_i2[(size_t)(hh * HD + j) * D + d]);
+#pragma unroll
+      for (int t = 0; t < T; ++t) {
+        float a = 0.f;
+#pragma unroll
+        for (int j = 0; j < HD; ++j) a = fmaf(xv[t * DA + hh * HD + j], w[j], a);
+        sC2[wide_idx(hh * T + t, d)] = __float2bfloat16(a);
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- pass B: P1 -> keys1 -> P2 -> keys2 -> emission, final partials ----
+  online_init(st);
+  context_init(ctx);
+  const float unscale_p2 = 1.f / (sSc[2] * ys1), unscale_fa = 1.f / (sSc[3] * ys2);
+  for (int m0 = 0; m0 < m; m0 += BM) {
+    PeCol pe;
+    ImgFrag img;
+    load_pe(pe, pr.q1st, m, m0 + lane);
+    load_img0(img, pr.img0, m0);
+    p1_tile(sP, sK1, pe);
+    __syncthreads();
+    load_pe(pe, pr.peq2t, m, m0 + lane);
+    rebuild_tc<true>(y, img, sYh, sYl, sP, sC1, sV, red, pr.eps, ys1, nullptr);  // keys1 again
+    scores_tc(sS, sQah, sQal, sYh, sYl);
+    __syncthreads();
+    {
+      float s[T];
+      head_scores_tc(s, sS, sK2, pe, unscale_p2);
+      softmax_tokens(s);
+      store_p(sP, s);                                          // P2
+    }
+    __syncthreads();
+    load_pe(pe, pr.pekft, m, m0 + lane);
+    rebuild_tc<false>(y, img, sYh, sYl, sP, sC2, sV + 3 * D, red, pr.eps, ys2,
+                      kout + (size_t)m0 * D);                  // keys2, emitted
+    scores_tc(sS, sQbh, sQbl, sYh, sYl);
+    __syncthreads();
+    float s[T];
+    head_scores_tc(s, sS, sq, pe, unscale_fa);
+    __syncthreads();                                           // S read: p replaces it
+    online_tile(st, s, sPh, sPl, alpha);
+    __syncthreads();
+    context_tc(ctx, sPh, sPl, alpha, sYh, sYl);
+    __syncthreads();
+  }
+  online_finish(st, alpha);
+  __syncthreads();
+  context_store(ctx, alpha, 1.f / (P_SCALE * ys2), sQa);
+  __syncthreads();
+
+  // ---- final out-projection and LayerNorm ----
+  attn_out(xo, sQa, pr.wv_fa, pr.vb_fa);
+  __syncthreads();
+  dense_rows_k4(xb, xo, DA, pr.wout_fa, pr.bout_fa, D, false);
+  __syncthreads();
+  add_rows(xa, sQin, xb, T * D);
+  __syncthreads();
+  ln_rows(xc, xa, pr.nf_s, pr.nf_b, pr.eps);
+  __syncthreads();
+  for (int i = threadIdx.x; i < T * D; i += THREADS)
+    pr.qout[(size_t)b * T * D + i] = __float2bfloat16(xc[i]);
+}
+
+}  // namespace keys
 
 // Logits mode: persistent CTAs, each walking prompts blockIdx.x,
 // blockIdx.x + gridDim.x, ... with its own scratch slot.
@@ -376,14 +660,26 @@ bool tail_ok(const TailParams& pr) {
 extern "C" int rat_decode_tail(const void* params, void* stream) {
   const TailParams& pr = *static_cast<const TailParams*>(params);
   const bool keys_mode = pr.keys2 != nullptr;
-  if (!tail_ok(pr) || keys_mode == (pr.p1 != nullptr) || (pr.p1 == nullptr) != (pr.p2 == nullptr))
+  if (!tail_ok(pr) || keys_mode == (pr.p1 != nullptr) || (pr.p1 == nullptr) != (pr.p2 == nullptr) ||
+      (keys_mode && pr.mlp % 8))
     return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (keys_mode) {
+    cudaError_t err = cudaFuncSetAttribute(keys::decode_tail_keys_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, keys::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    keys::decode_tail_keys_kernel<<<pr.b, THREADS, keys::SMEM, st>>>(pr);
+    return (int)cudaGetLastError();
+  }
   cudaError_t err = cudaFuncSetAttribute(
       decode_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_TOTAL);
   if (err != cudaSuccess) return (int)err;
-  decode_tail_kernel<<<pr.b, THREADS, SMEM_TOTAL, static_cast<cudaStream_t>(stream)>>>(pr);
+  decode_tail_kernel<<<pr.b, THREADS, SMEM_TOTAL, st>>>(pr);
   return (int)cudaGetLastError();
 }
+
+// Dynamic shared memory of a keys-mode CTA in bytes (a report, no launch).
+extern "C" int rat_decode_tail_keys_smem() { return keys::SMEM; }
 
 extern "C" int rat_decode_tail_logits(const void* params, void* stream) {
   const TailParams& pr = *static_cast<const TailParams*>(params);

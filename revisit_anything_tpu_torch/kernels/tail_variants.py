@@ -1,0 +1,313 @@
+"""Time source-level variants of the fused decode tail's keys mode (B3) on
+the card, to see which part of the work sets its pace: each variant is
+``decode_tail.cu`` (and ``decode_tc.cuh``) with a few lines replaced (all
+but the first no longer compute the right answer: they remove one part of
+the work, keeping the CTA barriers, to show what it costs), built by its
+own nvcc into ``build/torch_kernels/variants/`` and timed at the serving
+shape (1024 prompts x M 4096), one wave of 132 prompts, and M = 32 (one
+tile: the per-prompt token work).
+
+    python -m revisit_anything_tpu_torch.kernels.tail_variants
+
+Times are CUDA-event medians of 11 calls, each queued behind a device
+sleep (as ``chip_smoke.py`` times kernels), with the SM clock and board
+power nvidia-smi reads while the kernel runs back to back at the serving
+shape. Then the phase probe (cycles of each statement of pass B's loop,
+``[phases]``) and the precision of the kernel and of the FMA design
+against the plain version, beside the plain version in TF32 and with
+its branch products rounded from f64 (``[precision]``). Needs a CUDA
+device and nvcc; prints one line per variant and shape.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+
+import torch
+
+from revisit_anything_tpu_torch.kernels import build
+from revisit_anything_tpu_torch.kernels.maskhead_variants import _clock
+from revisit_anything_tpu_torch.kernels.winattn_variants import _time_ms
+from revisit_anything_tpu_torch.ops import decode_fused as dfu
+
+_FILES = ("decode_tail.cu", "decode_tc.cuh")
+_SRC = build._CSRC / _FILES[0]
+_OUT = build._BUILD_ROOT / "variants"
+
+_TAIL, _TC = _FILES
+_SCORES = [(_TAIL, "    scores_tc(sS, sQah, sQal, sYh, sYl);\n", ""),
+           (_TAIL, "    scores_tc(sS, sQbh, sQbl, sYh, sYl);\n", "")]
+_CONTEXT = [(_TAIL, "    context_tc(ctx, sPh, sPl, alpha, sYh, sYl);\n", "")]
+# a rebuild ends with two CTA barriers: they stay
+_REBUILD = [(_TAIL, "    rebuild_tc<true>(y, img, sYh, sYl, sP, sC1, sV, red, pr.eps, "
+                    "ys1, nullptr);",
+             "    __syncthreads();\n    __syncthreads();"),
+            (_TAIL, "    rebuild_tc<false>(y, img, sYh, sYl, sP, sC2, sV + 3 * D, "
+                    "red, pr.eps, ys2,\n                      kout + (size_t)m0 * D);",
+             "    __syncthreads();\n    __syncthreads();")]
+_SOFTMAX = ("    __syncthreads();                                           "
+            "// S read: p replaces it\n    online_tile(st, s, sPh, sPl, alpha);\n")
+_ENTRY = ("__global__ void __launch_bounds__(THREADS, 1) "
+          "decode_tail_keys_kernel(const TailParams pr) {\n")
+
+# name -> (what it shows, [(file, old text, new text), ...])
+VARIANTS = {
+    "kernel": ("the kernel as built", []),
+    "fma": ("the FMA design (the probability mode's kernel emitting keys2, "
+            "the keys mode before its tensor-core redesign)",
+            [(_TAIL, "  tail_prompt(pr, blockIdx.x, smem, nullptr, 0);",
+              "  tail_prompt(pr, blockIdx.x, smem, pr.keys2 ? pr.keys2 + "
+              "(size_t)blockIdx.x * pr.m * D : nullptr, pr.m);"),
+             (_TAIL, "  if (keys_mode) {", "  if (false) {")]),
+    "noscores": ("no score products (S as left in shared memory)", _SCORES),
+    "nocontext": ("no context products", _CONTEXT),
+    "norebuild": ("no branch rebuilds (planes as left in shared memory, "
+                  "no keys2 stores)", _REBUILD),
+    "noproducts": ("none of the three product families",
+                   _SCORES + _CONTEXT + _REBUILD),
+    "nope": ("no pe terms (no pe loads or their FMA)",
+             [(_TC, "                                               const PeCol& col) "
+                    "{\n", "                                               "
+               "const PeCol& col) {\n  return;\n"),
+              (_TC, "#pragma unroll\n  for (int j = 0; j < HD; ++j)\n    asm volatile",
+               "  return;\n#pragma unroll\n  for (int j = 0; j < HD; ++j)\n    asm volatile")]),
+    "nop1": ("no P1 (P as left in shared memory)",
+             [(_TAIL, "    p1_tile(sP, sK1, pe);\n", "")]),
+    "nosoftmax": ("no attention softmax (the online update; p as left in "
+                  "shared memory)", [(_TAIL, _SOFTMAX, "    __syncthreads();\n")]),
+    "noemit": ("no keys2 stores", [(_TAIL, "kout + (size_t)m0 * D);",
+                                    "nullptr);")]),
+    "nomlp": ("no token MLP", [
+        (_TAIL, "  dense_rows_n8(sQb, sQin, D, pr.lin1_w, pr.lin1_b, pr.mlp, "
+                "true); // hidden\n", ""),
+        (_TAIL, "  dense_rows_k4(xb, sQb, pr.mlp, pr.lin2_w, pr.lin2_b, D, "
+                "false);\n", "")]),
+    "empty": ("returns at entry (launch cost)",
+              [(_TAIL, _ENTRY, _ENTRY + "  if (pr.m > 0) return;\n")]),
+}
+
+# (prompts, positions): the serving shape, one wave, one tile
+SHAPES = ((1024, 4096), (132, 4096), (1024, 32))
+
+# The phase probe: pass B's loop with a clock64() stamp after each
+# statement, taken by lane 0 of every warp of CTA 0 on tiles 1..TILES and
+# written to the (in keys mode unused) C2 scratch.
+TILES = 8
+_LOOP = "  for (int m0 = 0; m0 < m; m0 += BM) {\n"
+_STAMP = ("if (blockIdx.x == 0 && (threadIdx.x & 31) == 0 && m0 >= BM && "
+          "m0 <= TILES * BM) reinterpret_cast<long long*>(pr.c2m)[((m0 / BM - 1)"
+          " * 32 + ns++) * WARPS + threadIdx.x / 32] = clock64();")
+
+
+def _probe_source() -> tuple:
+    """decode_tail.cu with pass B stamped, and the stamped lines."""
+    text = _SRC.read_text()
+    head = text.index("decode_tail_keys_kernel(const TailParams pr) {")
+    start = text.index(_LOOP, text.index(_LOOP, head) + 1) + len(_LOOP)
+    end = text.index("\n  }\n", start)
+    out, lines, stmt = [f"    int ns = 0;\n    {_STAMP}\n"], [], ""
+    for line in text[start:end].split("\n"):
+        out.append(line + "\n")
+        stmt = f"{stmt} {line.strip()}" if stmt else line.strip()
+        if line.split("//")[0].rstrip().endswith((";", "{", "}")):
+            if line.split("//")[0].rstrip().endswith(";"):
+                out.append(f"    {_STAMP}\n")
+                lines.append(stmt)
+            stmt = ""
+    body = "".join(out).replace("TILES", str(TILES))
+    return text[:start] + body + text[end:], lines
+
+
+def _source(reps) -> dict:
+    """The variant's text of each patched file."""
+    texts = {f: (build._CSRC / f).read_text() for f in _FILES}
+    for f, old, new in reps:
+        if old not in texts[f]:
+            raise ValueError(f"variant patch does not apply: {old[:60]!r}")
+        texts[f] = texts[f].replace(old, new)
+    return texts
+
+
+def _build_all() -> dict:
+    procs = {}
+    for name, (_, reps) in VARIANTS.items():
+        out = _OUT / f"tail_{name}"
+        out.mkdir(parents=True, exist_ok=True)
+        for f, text in _source(reps).items():
+            (out / f).write_text(text)
+        procs[name] = subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build._CSRC),
+             "-shared", "-o", str(out / "tail.so"), str(out / _TAIL)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fns = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"{name}: nvcc failed\n{log}")
+        fn = ctypes.CDLL(str(_OUT / f"tail_{name}" / "tail.so")).rat_decode_tail
+        fn.argtypes = list(build.SIGNATURES["rat_decode_tail"])
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def _probe(dfu_args) -> None:
+    """Run the stamped kernel on the serving shape; print each statement
+    of pass B's loop with its cycles (median over tiles, mean and max over
+    the 8 warps; a barrier's are the wait)."""
+    import statistics
+    out = _OUT / "tail_probe"
+    out.mkdir(parents=True, exist_ok=True)
+    text, lines = _probe_source()
+    (out / _TAIL).write_text(text)
+    (out / _TC).write_text((build._CSRC / _TC).read_text())
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build._CSRC),
+                    "-shared", "-o", str(out / "tail.so"), str(out / _TAIL)],
+                   check=True, capture_output=True)
+    fn = ctypes.CDLL(str(out / "tail.so")).rat_decode_tail
+    fn.argtypes = list(build.SIGNATURES["rat_decode_tail"])
+    fn.restype = ctypes.c_int
+    buf = torch.zeros((TILES, 32, 8), dtype=torch.int64, device="cuda")
+
+    class Probe(_Launch):
+        def launch(self, params) -> None:
+            dfu.TailParams.from_address(params).c2m = buf.data_ptr()
+            super().launch(params)
+
+    kernel = dfu.DECODE_TAIL
+    dfu.DECODE_TAIL = Probe(fn)
+    try:
+        with torch.inference_mode():
+            dfu.decode_tail_fused(*dfu_args)
+        torch.cuda.synchronize()
+    finally:
+        dfu.DECODE_TAIL = kernel
+    st = buf.cpu()
+    d = (st[:, 1:len(lines) + 1] - st[:, :len(lines)]).double()
+    total = 0.0
+    for i, line in enumerate(lines):
+        mean = statistics.median(d[:, i].mean(1).tolist())
+        top = statistics.median(d[:, i].max(1).values.tolist())
+        total += mean
+        print(f"[phases] {mean:8.0f} mean {top:8.0f} max cycles  {line}",
+              flush=True)
+    print(f"[phases] {total:8.0f} cycles a tile of pass B (warp mean)",
+          flush=True)
+
+
+def recon_step_f64(y, p, c, rows3, eps):
+    """``ops.decode_probs.recon_step`` with P^T C summed in f64 and rounded
+    to f32 once: the plain f32 function moved by at most an f32 ulp."""
+    pc = torch.matmul(p.double().transpose(1, 2), c.double()).float()
+    y = y + pc + rows3[0].float()
+    mu = y.mean(-1, keepdim=True)
+    var = torch.clamp((y * y).mean(-1, keepdim=True) - mu * mu, min=0.0)
+    return (y - mu) * torch.rsqrt(var + eps) * rows3[1].float() \
+        + rows3[2].float()
+
+
+def _precision(dfu_args, fns, n: int = 64) -> None:
+    """The outputs of the kernel and of the FMA design (variant "fma") on
+    the first ``n`` prompts against the plain version, beside the plain
+    version run with TF32 matmuls and with P^T C rounded once from f64
+    (``recon_step_f64``: the floor an f32 computation in another order
+    sets): the share of bf16 elements that differ from the f32 plain
+    version and the mean absolute difference, for the token state and
+    keys2."""
+    from revisit_anything_tpu_torch.ops import decode_probs as dpr
+    args = list(dfu_args)
+    for i in (6, 7, 8, 9):                     # the per-prompt operands
+        args[i] = args[i][:n]
+    outs = {}
+    with torch.inference_mode():
+        want = dfu.decode_tail_reference(*args)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            outs["plain in TF32"] = dfu.decode_tail_reference(*args)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        saved = dpr.recon_step
+        dpr.recon_step = dfu.recon_step = recon_step_f64
+        try:
+            outs["plain, P^T C from f64"] = dfu.decode_tail_reference(*args)
+        finally:
+            dpr.recon_step = dfu.recon_step = saved
+        kernel = dfu.DECODE_TAIL
+        try:
+            for name in ("kernel", "fma"):
+                dfu.DECODE_TAIL = _Launch(fns[name])
+                outs[name] = dfu.decode_tail_fused(*args)
+        finally:
+            dfu.DECODE_TAIL = kernel
+    for label, res in outs.items():
+        for name, a, w in zip(("token state", "keys2"), res, want):
+            d = (a.float() - w.float()).abs()
+            print(f"[precision] {label} vs plain f32, {n} prompts: {name} "
+                  f"differs in {(d > 0).float().mean().item():.4f} of its "
+                  f"elements, mean |diff| {d.mean().item():.3e}, max "
+                  f"{d.max().item():.3e}", flush=True)
+
+
+class _Launch:
+    """Stands in for ``build.DECODE_TAIL`` in the wrapper: the variant's
+    entry point on the current stream."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def launch(self, params) -> None:
+        err = self.fn(params, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch failed: cudaError {err}")
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        sys.exit("tail_variants: needs a CUDA device")
+    from revisit_anything_tpu_torch.models.sam import SAM_VIT_H
+    from revisit_anything_tpu_torch.models.sam.decoder import MaskDecoder
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fns = _build_all()
+    for name, (what, _) in VARIANTS.items():
+        print(f"[variant] {name}: {what}", flush=True)
+    g = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
+
+    def rnd(*shape, s=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * s).to(bf)
+
+    dec = MaskDecoder(SAM_VIT_H, dtype=bf, device=dev)
+    with torch.no_grad():
+        for name, prm in dec.named_parameters():
+            x = torch.randn(prm.shape, generator=g, device=dev) * 0.05
+            prm.copy_(x + 1.0 if name.endswith("scale") else x)
+    kernel = dfu.DECODE_TAIL
+    try:
+        for b, m in SHAPES:
+            args = (dec, rnd(1, m, 256), rnd(1, 128, m), rnd(1, 128, m),
+                    rnd(1, 128, m), rnd(1, 128, m), rnd(b, 7, 128),
+                    rnd(b, 56, 256, s=0.3), rnd(b, 7, 256), rnd(b, 7, 256),
+                    8, 1e-6, True)
+            if (b, m) == SHAPES[0]:
+                args_serving = args
+            for name, fn in fns.items():
+                dfu.DECODE_TAIL = _Launch(fn)
+
+                @torch.inference_mode()
+                def call():
+                    dfu.decode_tail_fused(*args)
+                ms = _time_ms(call)
+                clock = _clock(call, 30) if (b, m) == SHAPES[0] else ""
+                print(f"[variants] {b} prompts x M {m}: {name} "
+                      f"{ms * 1e3:.1f} us{clock}", flush=True)
+    finally:
+        dfu.DECODE_TAIL = kernel
+    _probe(args_serving)
+    _precision(args_serving, fns)
+
+
+if __name__ == "__main__":
+    main()

@@ -155,6 +155,16 @@ def test_resize_variants_patch_the_kernel_source():
         assert (text == base) == (not reps), name
 
 
+def test_tail_variants_patch_the_kernel_source():
+    """Every variant of ``kernels.tail_variants`` still finds the lines it
+    replaces in ``decode_tail.cu`` / ``decode_tc.cuh`` (the tool runs only
+    on the card)."""
+    from revisit_anything_tpu_torch.kernels import tail_variants as tv
+    base = tv._source([])
+    for name, (_, reps) in tv.VARIANTS.items():
+        assert (tv._source(reps) == base) == (not reps), name
+
+
 def _flash_inputs(cuda, b, n, dh, bias, seed=0):
     g = torch.Generator(device=cuda).manual_seed(seed)
     bf = torch.bfloat16
@@ -671,19 +681,37 @@ def serving_decoder(device, seed=0):
     return dec
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("emit_keys", [True, False])
-def test_decode_tail_kernel_matches_plain(cuda, emit_keys):
-    x = _probs_inputs(cuda)
-    g = torch.Generator(device=cuda).manual_seed(7)
+def _tail_args(cuda, b, m, emit_keys, seed=7):
+    """Decode-tail inputs for ``b`` prompts over ``m`` positions."""
+    x = _probs_inputs(cuda, b=b, m=m)
+    g = torch.Generator(device=cuda).manual_seed(seed)
     dec = serving_decoder(cuda)
 
     def rnd(*shape):
         return torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
 
-    args = (dec, x["img0"], x["q1st"], x["peqt"], rnd(1, 128, 4096),
-            rnd(1, 128, 4096), x["tok_k"], x["c1"], rnd(16, 7, 256),
-            rnd(16, 7, 256), 8, 1e-6, emit_keys)
+    return (dec, x["img0"], x["q1st"], x["peqt"], rnd(1, 128, m),
+            rnd(1, 128, m), x["tok_k"], x["c1"], rnd(b, 7, 256),
+            rnd(b, 7, 256), 8, 1e-6, emit_keys)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("emit_keys,b,m,ln_scale", [
+    pytest.param(True, 16, 4096, 1.0, id="True"),
+    pytest.param(False, 16, 4096, 1.0, id="False"),
+    # keys mode at more prompts than the card's 132 SMs, and at M = 96
+    # (three tiles: the online softmax rescales its context across tiles)
+    pytest.param(True, 140, 4096, 1.0, id="True-140-4096"),
+    pytest.param(True, 16, 96, 1.0, id="True-16-96"),
+    # both branch LayerNorm scales times 2^15 (exact in bf16): keys2
+    # passes fp16's largest value 65504, which the keys mode's fp16 planes
+    # hold times a power of two
+    pytest.param(True, 16, 256, 32768.0, id="True-16-256-large-branch")])
+def test_decode_tail_kernel_matches_plain(cuda, emit_keys, b, m, ln_scale):
+    args = _tail_args(cuda, b, m, emit_keys)
+    with torch.no_grad():
+        for layer in args[0].layers[:2]:
+            layer.norm4.scale.mul_(ln_scale)
     before = build.DECODE_TAIL.launches
     with torch.inference_mode():
         got = dfu.decode_tail_fused(*args)
@@ -691,9 +719,31 @@ def test_decode_tail_kernel_matches_plain(cuda, emit_keys):
     torch.cuda.synchronize()
     assert build.DECODE_TAIL.launches == before + 1
     assert len(got) == len(want) == (2 if emit_keys else 4)
-    for a, b in zip(got, want):
-        assert a.shape == b.shape
-        assert _rel_err(a, b) < BF16_REL
+    if ln_scale > 1.0:
+        assert want[1].float().abs().max().item() > 65504
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        assert torch.isfinite(a.float()).all()
+        assert _rel_err(a, w) < BF16_REL
+
+
+@pytest.mark.gpu
+def test_decode_tail_keys_kernel_permutes_with_its_prompts(cuda):
+    """Permuting the prompts permutes the keys mode's outputs bit for bit:
+    a CTA reads its own prompt's tokens, keys and C1 only."""
+    b = 24
+    args = _tail_args(cuda, b, 256, True)
+    perm = torch.randperm(b, generator=torch.Generator().manual_seed(0))
+    perm = perm.to(cuda)
+    per_prompt = (6, 7, 8, 9)                 # tok_k1, c1m, queries, tokens
+    shuffled = tuple(a[perm] if i in per_prompt else a
+                     for i, a in enumerate(args))
+    with torch.inference_mode():
+        base = dfu.decode_tail_fused(*args)
+        got = dfu.decode_tail_fused(*shuffled)
+    torch.cuda.synchronize()
+    for a, w in zip(got, base):
+        assert torch.equal(a, w[perm])
 
 
 @pytest.mark.gpu
