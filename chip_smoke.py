@@ -9,10 +9,10 @@ Phases (any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the twelve kernels from revisit_anything_tpu_torch/kernels/csrc
      (one nvcc per source, in parallel);
-  3. print the registers, shared memory and spill bytes of the nine
-     redesigned entry points (K1, K2, B10, B11, K3, B6, K5, K4, B3's keys
-     mode) from ptxas.log, and the HMMA instructions in the SASS of B3's
-     keys mode (cuobjdump);
+  3. print the registers, shared memory and spill bytes of the redesigned
+     entry points' kernels (K1, K2, B10, B11, K3, B6, K5, K4, and B3 in
+     its three modes) from ptxas.log, and the HMMA instructions in the
+     SASS of B3's three instantiations (cuobjdump);
      then
      compare every kernel with its plain version in bf16 at the main
      path's shapes, timing both with CUDA events (median of 7 after
@@ -54,8 +54,8 @@ Phases (any failure exits non-zero):
      launch and no other decode kernel may, the planted image must come
      first, at least 32 masks kept; print its decode-stage time and its
      kept masks' agreement with "shared" ("fused_tail_logits" also with
-     "fused_tail_keys"); for "fused_tail_keys", the same query with the
-     decode tail's plain f32 version in the kernel's place, with the
+     "fused_tail_keys"); for each "fused_tail_*" form, the same query with
+     the decode tail's plain f32 version in the kernel's place, with the
      predicted IoU at the top-128 cut ([witness]);
  10. print the kernel table as one JSON line (B10, token_cross_split, has
      no caller on a serving path, as in the JAX package: launches 0),
@@ -198,13 +198,22 @@ PTXAS_KERNELS = (
      "rat_i2t_update_smem", ()),
     ("resize_flags_kernelILi3ELb1E", "K4 M 3 (240x320)", "rat_resize_flags",
      "rat_resize_flags_smem", (3, 320, 240)),
-    ("decode_tail_keys_kernel", "B3 keys mode", "rat_decode_tail",
-     "rat_decode_tail_keys_smem", ()),
+    ("decode_tail_kernelILi0E", "B3 keys mode", "rat_decode_tail",
+     "rat_decode_tail_smem", ()),
+    ("decode_tail_kernelILi1E", "B3 probability mode", "rat_decode_tail",
+     "rat_decode_tail_smem", ()),
+    ("decode_tail_kernelILi2E", "B3 logits mode (then K3)",
+     "rat_decode_tail_logits", "rat_decode_tail_smem", ()),
 )
+
+# B3's instantiations, by their emission: keys, probability, logits mode
+TAIL_SASS = (("decode_tail_kernelILi0E", "B3 keys mode"),
+             ("decode_tail_kernelILi1E", "B3 probability mode"),
+             ("decode_tail_kernelILi2E", "B3 logits mode"))
 
 
 def ptxas_report() -> None:
-    """Print the registers, shared memory and spill bytes of the nine
+    """Print the registers, shared memory and spill bytes of the
     redesigned entry points' kernels, read from the build's ptxas.log
     (dynamic shared memory from the sources' own size functions)."""
     import re
@@ -232,13 +241,13 @@ def ptxas_report() -> None:
               f"{getattr(lib, smem_fn)(*smem_args)} B dynamic a CTA, spill "
               f"stores {stores} B, loads {loads} B"
               f"{', wgmma serialized (C751x)' if serial else ''}", flush=True)
-    sass_report("decode_tail_keys_kernel", "B3 keys mode")
+    sass_report(TAIL_SASS)
 
 
-def sass_report(key: str, label: str) -> None:
-    """Count the tensor-core instructions (HMMA, by shape and type) in one
-    kernel's SASS, from cuobjdump of the built library; fail if there are
-    none."""
+def sass_report(kernels) -> None:
+    """Count the tensor-core instructions (HMMA, by shape and type) in the
+    SASS of each of ``kernels`` ((piece of the mangled name, label)), from
+    one cuobjdump of the built library; fail where there are none."""
     import collections
     import re
     import shutil
@@ -247,16 +256,18 @@ def sass_report(key: str, label: str) -> None:
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     res = subprocess.run([tool, "-sass", str(build.library_path())],
                          capture_output=True, text=True, check=True)
-    funcs = [f for f in res.stdout.split("Function : ")[1:]
-             if key in f.split("\n", 1)[0]]
-    if not funcs:
-        _fail(f"cuobjdump: no kernel {key}")
-    kinds = collections.Counter(re.findall(r"HMMA\.[0-9A-Z.]+", funcs[0]))
-    if not kinds:
-        _fail(f"{label}: no HMMA in its SASS")
-    print(f"[sass] {label} ({key}): {sum(kinds.values())} HMMA ("
-          + ", ".join(f"{n} {k}" for k, n in sorted(kinds.items())) + ")",
-          flush=True)
+    for key, label in kernels:
+        funcs = [f for f in res.stdout.split("Function : ")[1:]
+                 if key in f.split("\n", 1)[0]]
+        if not funcs:
+            _fail(f"cuobjdump: no kernel {key}")
+        kinds = collections.Counter(re.findall(r"HMMA\.[0-9A-Z.]+",
+                                               funcs[0]))
+        if not kinds:
+            _fail(f"{label}: no HMMA in its SASS")
+        print(f"[sass] {label} ({key}): {sum(kinds.values())} HMMA ("
+              + ", ".join(f"{n} {k}" for k, n in sorted(kinds.items()))
+              + ")", flush=True)
 
 
 def compare_kernels(dev) -> dict:
@@ -291,13 +302,14 @@ def compare_kernels(dev) -> dict:
     results = {}
 
     def check(kernel, label, fn_k, fn_p, err_fn, tol, ins, ops,
-              library=None, plain_prompts=None, rate=False):
+              library=None, plain_prompts=None, rate=False, was=None):
         """``ins`` the inputs the function must read (views where it
         reads part of a tensor), ``ops`` = (bf16 FLOP, f32 FLOP[, TF32
         FLOP]) its arithmetic; ``plain_prompts``: the plain version ran on only the
         first prompts, and the kernel's output for those is compared;
         ``rate``: also print the achieved GB/s (the bytes it must read
-        and write over the kernel's time)."""
+        and write over the kernel's time); ``was``: the previous design's
+        time in ms (PERF.md), printed in brackets."""
         out_k, out_p = fn_k(), fn_p()
         torch.cuda.synchronize()
         outs = out_k if isinstance(out_k, (tuple, list)) else (out_k,)
@@ -326,7 +338,8 @@ def compare_kernels(dev) -> dict:
             lib += "  rel_err by output " + " ".join(f"{e:.3e}" for e in parts)
         print(f"[kernel] {kernel.name:22s} {label:44s} max_abs_err="
               f"{abs_err:.3e} rel_err={rel_err:.3e} (tol {tol:g}) "
-              f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms{lib}  bound "
+              f"kernel {ms:.3f} ms{f' [{was:.3f}]' if was else ''}  plain "
+              f"{plain_ms:.3f} ms{lib}  bound "
               f"{bound_ms:.4f} ms ({bound_by})  bound share {share:.3f}",
               flush=True)
         if not rel_err <= tol or not math.isfinite(abs_err):
@@ -607,7 +620,8 @@ def compare_probs_kernels(dev, check, head, rel_tol) -> None:
               lambda: dfu.decode_tail_reference(
                   dec, img0, q1st, peqt, pek2t, pekft, tok_k[:c], c1[:c],
                   qin[:c], tok[:c], 8, 1e-6, keys),
-              _tuple_err, rel_tol, tail_ins, tail_ops, plain_prompts=c)
+              _tuple_err, rel_tol, tail_ins, tail_ops, plain_prompts=c,
+              was=None if keys else 69.207)
     # logits mode: the tail, then the mask head on keys2's first `content`
     # positions and the three hypernetwork MLPs (no single library call)
     head_ins = [prm for name, prm in dec.named_parameters()
@@ -623,7 +637,7 @@ def compare_probs_kernels(dev, check, head, rel_tol) -> None:
               qin[:c], tok[:c], 8, 1e-6, mask_head=True, content=content),
           _tuple_err, rel_tol, tail_ins + head_ins,
           (tail_ops[0] + b * content * head_flop, hyper_flop, tail_ops[2]),
-          plain_prompts=c)
+          plain_prompts=c, was=108.297)
     torch.cuda.empty_cache()
 
 
@@ -770,7 +784,8 @@ def serve(dev, seed: int = 0) -> dict:
             {name: servers[name] for name in ("shared",) + also})
         if decode == "fused_tail_keys":
             servers[decode] = vsrv
-            plain_tail_witness(vsrv, queries[0], srv)
+        if decode.startswith("fused_tail"):
+            plain_tail_witness(vsrv, queries[0], srv, decode)
         del vsrv
     return dict(counts=counts, wall_ms=wall, peak_gib=peak_gib,
                 variants=variants, window=window)
@@ -937,14 +952,14 @@ def serve_variant(vsrv, img, decode: str, refs: dict) -> dict:
                 agreement=agreement, counts=counts)
 
 
-def plain_tail_witness(vsrv, img, ref) -> None:
-    """The "fused_tail_keys" server ``vsrv`` on ``img`` with its decode
-    tail as the kernel and as the plain version (``decode_tail_reference``,
-    f32 on the card): how many kept masks match one of ``ref``'s
-    ("shared") and of the kernel's at IoU > 0.5, and the predicted IoU at
-    the top-``kmax`` cut (masks past it are dropped; it falls among
-    bf16-rounded ties). A witness of what the f32 function itself
-    serves; it fails nothing."""
+def plain_tail_witness(vsrv, img, ref, decode: str) -> None:
+    """The "fused_tail_*" server ``vsrv`` (form ``decode``) on ``img`` with
+    its decode tail as the kernel and as the plain version
+    (``decode_tail_reference``, f32 on the card): how many kept masks
+    match one of ``ref``'s ("shared") and of the kernel's at IoU > 0.5,
+    and the predicted IoU at the top-``kmax`` cut (masks past it are
+    dropped; it falls among bf16-rounded ties). A witness of what the f32
+    function itself serves; it fails nothing."""
     import torch
 
     from revisit_anything_tpu_torch.models.sam import decoder
@@ -979,7 +994,7 @@ def plain_tail_witness(vsrv, img, ref) -> None:
     for name, (amg_v, cut) in runs.items():
         agree = [f"{_agreement(amg_v, runs[r][0])[2]:.4f} {r}"
                  for r in ("shared", "kernel") if r != name]
-        print(f"[witness] fused_tail_keys tail {name}: "
+        print(f"[witness] {decode} tail {name}: "
               f"{int(amg_v[1][-1])} masks kept of {cut['n']} past NMS, "
               f"predicted IoU at ranks {vsrv.kmax - 1}-{vsrv.kmax + 2} "
               + " ".join(f"{x:.6f}" for x in cut["at"])

@@ -83,7 +83,7 @@ SIGNATURES: Dict[str, Sequence] = {
     "rat_win_attention_smem": (_I, _I),         # side, hd
     "rat_mask_head_smem": (),
     "rat_i2t_update_smem": (),
-    "rat_decode_tail_keys_smem": (),
+    "rat_decode_tail_smem": (),
     "rat_resize_flags_smem": (_I, _I, _I),      # n_masks, w, h
     "rat_resize_flags_ctas": (_I, _I, _I),      # n_masks, w, h: CTAs an SM
 }

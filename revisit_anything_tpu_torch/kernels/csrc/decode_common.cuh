@@ -1,6 +1,8 @@
 // Device code shared by the probability-factored decode kernels on the
-// FMA units: i2t_probs.cu (B7), t2i_probs.cu (B8) and decode_tail.cu
-// (B3). B6 (mask_head.cu) rebuilds its branch by wgmma instead.
+// FMA units: i2t_probs.cu (B7) and t2i_probs.cu (B8); decode_tail.cu
+// (B3) takes its token-side pieces and runs its per-tile products on the
+// tensor cores (decode_tc.cuh). B6 (mask_head.cu) rebuilds its branch by
+// wgmma.
 //
 // The JAX package shares the same pieces between its TPU kernels:
 // revisit_anything_tpu/ops/decode_probs.py `_recon_t` (:51) and
@@ -308,32 +310,6 @@ __device__ __forceinline__ void attn_out(float* so, const float* sCtx,
   }
 }
 
-// Token-side dense layer on T rows: out[t][n] = bf16(bf16(x[t] . W[:, n])
-// + b[n]), optionally ReLU'd. x [T][K] f32 (shared), W [K][N] bf16
-// (global), out [T][N] f32 (shared).
-__device__ __forceinline__ void dense_rows(float* out, const float* x, int K,
-                                           const __nv_bfloat16* W, const __nv_bfloat16* b,
-                                           int N, bool relu) {
-  for (int n = threadIdx.x; n < N; n += THREADS) {
-    float acc[T];
-#pragma unroll
-    for (int t = 0; t < T; ++t) acc[t] = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < K; ++k) {
-      const float w = __bfloat162float(W[(size_t)k * N + n]);
-#pragma unroll
-      for (int t = 0; t < T; ++t) acc[t] = fmaf(x[t * K + k], w, acc[t]);
-    }
-    const float bias = __bfloat162float(b[n]);
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-      const float y = bf16_round(bf16_round(acc[t]) + bias);
-      out[t * N + n] = relu ? fmaxf(y, 0.f) : y;
-    }
-  }
-}
-
-// out[i] = bf16(a[i] + b[i]) for i < n (a bf16 residual add).
 __device__ __forceinline__ void add_rows(float* out, const float* a, const float* b, int n) {
   for (int i = threadIdx.x; i < n; i += THREADS) out[i] = bf16_round(a[i] + b[i]);
 }

@@ -18,59 +18,45 @@
 // [content, 16, 3] bf16 in the block layout of mask_head.cu; all three
 // write the token state [7, D].
 //
-// Two designs: the probability and logits modes still run the FMA
-// design (until their own redesign); the keys mode runs on the tensor
-// cores (below, "Keys mode").
-//
-// FMA design. What bounds it on the H100: the FMA units. A prompt needs about
-// 1.0 GFLOP (P1 59 MFLOP as the TPU counts it with its block-diagonal
-// keys, the 7.3 MFLOP of real head products here; two rebuilds of keys1
-// and one of keys2 at 117 MFLOP each; P2 117 + 7 MFLOP; two attentions
-// of 2 x 117 MFLOP each, at 56 token rows), about 1 TFLOP at 1024
-// prompts, all f32 as in the JAX kernel (keys1 and keys2 are f32 there
-// and are multiplied as f32 here: no tensor cores, no bf16 rounding of
-// the branch). Keys mode must also write 2.15 GB (0.64 ms at 3.35 TB/s).
+// One kernel, decode_tail_kernel<E>, serves the three modes; E picks what
+// it emits (KEYS keys2, PROBS P1 / P2 / C2, ROWS keys2's first rows and
+// the hypernetwork rows for K3). What bounds it: a prompt needs about 1.0
+// GFLOP (two rebuilds of keys1 and one of keys2, the P2 scores and two
+// attentions over the f32 branch, 117 MFLOP each at 56 token rows), about
+// 1 TFLOP at 1024 prompts; keys mode must also write 2.15 GB (0.64 ms at
+// 3.35 TB/s).
 //
 // Design: the TPU holds one prompt's whole f32 branch [256, 4096] (4 MB)
 // in VMEM; a CTA has 227 KB. So one CTA of 8 warps per prompt walks M in
 // 32-position tiles twice:
 //   pass A: P1 -> keys1 tile -> layer-2 t2i online-softmax partials;
 //   mid-ops on the [7, 256] token state (out-projection, LN, MLP, LN,
-//           k2, v2, C2 written to device memory, the query-side matrices);
+//           k2, v2, C2, the query-side matrices);
 //   pass B: P1 -> keys1 again (recomputed, bit-identical) -> P2 ->
 //           keys2 -> emission -> final-attention partials;
 //   then the final out-projection and LayerNorm.
-// Scores and attention follow t2i_probs.cu (warp = head, lane =
-// position, projections on the query side). Shared memory holds the f32
-// tile (33 KB), two [56, 256] f32 query-side matrices (115 KB: pass B
-// needs K2 Wq2^T and qf Wk^T at once) and the token state; C1 and C2
-// (28 KB a prompt each) are read from L1/L2, the MLP weights (2 x 1 MB
-// bf16) from L2 once per prompt. 183 KB: one CTA an SM, 1024 CTAs.
-//
-// Keys mode (decode_tail_keys_kernel; the products in decode_tc.cuh):
-// replaces the TPU kernel revisit_anything_tpu/ops/decode_fused.py:417
-// (_tail_call -> _tail_kernel) in its keys form. The same control flow
-// (one CTA of 8 warps a prompt, passes A and B over 32-position tiles,
-// pass B rebuilding keys1 again, the token mid-ops between them), with
-// the three families of per-tile products on the tensor cores by
-// mma.sync: the rebuilds in bf16 (exact products, the f32 branch kept in
-// registers as their residual), the scores Q^ . Y^T and the online-
-// softmax context p . Y as three fp16 products of hi/lo planes of their
-// f32 operands times a power of two (22 bits of each). P1, P2, the pe
-// terms, the softmaxes, the branch LayerNorms (on the accumulators) and
-// every token-side op stay on the FMA units; keys2 leaves from registers
-// by 16-byte stores.
-// Precision: at 1024 prompts x M 4096 (H100, chip_smoke.py) the max
-// relative error against decode_tail_reference is 5.9e-3 for the token
-// state and 5.3e-3 for keys2 (tolerance 2e-2). Against the plain f32
-// version the kernel moves 4.9% of the token state's bf16 elements and
-// 6.3% of keys2's, the FMA design 5.9% and 7.5%, the plain version with
-// TF32 matmuls 31% and 34% (kernels/tail_variants.py [precision]). TF32
-// and bf16 planes were tried first; both, with the context summed over
-// the tiles inside the mma accumulators (decode_tc.cuh: those additions
-// do not round to nearest), moved ~20% and one of a served query's 128
-// kept masks; this kernel serves the plain version's cut exactly
-// (chip_smoke.py [witness]).
+// The three families of per-tile products run on the tensor cores by
+// mma.sync (decode_tc.cuh): the rebuilds in bf16 (exact products, the f32
+// branch kept in registers as their residual), the scores Q^ . Y^T and
+// the online-softmax context p . Y as three fp16 products of hi/lo planes
+// of their f32 operands times a power of two (22 bits of each). P1, P2,
+// the pe terms, the softmaxes, the branch LayerNorms (on the
+// accumulators) and every token-side op stay on the FMA units; keys2
+// leaves from registers by 16-byte stores, P1 and P2 from the values the
+// P tile holds.
+// Precision: at 1024 prompts x M 4096 (H100, chip_smoke.py) the keys
+// mode's max relative error against decode_tail_reference is 5.9e-3 for
+// the token state and 5.3e-3 for keys2 (tolerance 2e-2). Against the
+// plain f32 version it moves 4.9% of the token state's bf16 elements and
+// 6.3% of keys2's, the FMA design it replaced 5.9% and 7.5%, the plain
+// version with TF32 matmuls 31% and 34% (kernels/tail_variants.py
+// [precision]). TF32 and bf16 planes were tried first; both, with the
+// context summed over the tiles inside the mma accumulators (decode_tc.cuh:
+// those additions do not round to nearest), moved ~20% and one of a
+// served query's 128 kept masks; this kernel serves the plain version's
+// cut exactly (chip_smoke.py [witness]). The probability mode's P1 is the
+// plain version's bit for bit (no branch product in it); P2 moves 4.0%
+// and C2 3.3% of their bf16 elements.
 // What bounds it: not a peak. A tile of pass B takes 21.0k cycles an SM
 // (kernels/tail_variants.py [phases], H100 at 1980 MHz): the two rebuilds
 // 6.6k (their LayerNorm epilogues and keys2's copy-out more than their
@@ -80,38 +66,40 @@
 // barriers a tile pair.
 // Shared memory: the branch planes (hi, lo: 32 KB, also the token
 // scratch), the two query-side matrices (hi, lo: 112 KB; the MLP's hidden
-// rows and the contexts borrow them), C1 and C2 staged once a prompt (56
-// KB), S / p (7 KB), P, the token state, vectors, branch constants and
-// the planes' scales: 231,488 B, one CTA an SM.
+// rows, the contexts and the hypernetwork's hidden rows borrow them), C1
+// and C2 staged once a prompt (56 KB), S / p (7 KB), P, the token state,
+// vectors, branch constants and the planes' scales: 231,488 B, one CTA an
+// SM.
 //
-// Logits mode: the mask head needs keys2 and the hypernetwork rows, and
-// the latter come from the token state after the FINAL attention, which
-// exists only once pass B has walked all of M; a prompt's keys2 (2 MB
-// bf16) fits no CTA. So pass B stores keys2's first `content` rows,
-// rounded to bf16 exactly where the keys mode rounds its emission (the
-// JAX logits mode rounds there too, decode_fused.py:336), into a scratch
-// slot of the CTA, which no one else reads; after the final LayerNorm the
-// same CTA runs the three hypernetwork MLPs of mask tokens 1..3 on the
-// FMA units, loads K3's conv weights (144 KB) into the shared memory the
-// tail no longer needs and runs mask_head_tile.cuh over the slot, 32
-// positions at a time. CTAs are persistent (one an SM, walking prompts),
-// so the scratch is one slot a CTA (132 x 1.6 MB), not one a prompt; the
-// slot is written and read back within the CTA, through L2 (__ldcg), as
-// a later prompt reuses it. One launch per prompt batch; no keys2 tensor
-// reaches the caller. 198 KB of shared memory (the mask head's layout).
-// This mode adds K3's work (~630 GFLOP of bf16 products at 1024 prompts
-// x 3136 positions, on the tensor cores) to the tail's FMA-bound work.
-// keys2's content rows still go through device memory (the 212 MB of
-// slots exceed the L2): 1.64 GB written and read back at 1024 prompts,
-// against 2.15 GB written and 1.64 GB read by keys mode and K3.
+// Logits mode (entry rat_decode_tail_logits): the mask head needs keys2
+// and the hypernetwork rows, and the latter come from the token state
+// after the FINAL attention, which exists only once pass B has walked all
+// of M; a prompt's keys2 (2 MB bf16) fits no CTA. So the ROWS emission
+// stores keys2 for every tile below `content` (rounded to bf16 exactly
+// where the keys mode rounds its emission; the JAX logits mode rounds
+// there too, decode_fused.py:336) into rows [B, content rounded up to 32,
+// D], and after the final LayerNorm runs the three hypernetwork MLPs of
+// mask tokens 1..3 on the FMA units from the f32 token state into hyper
+// [B, 3, D/8]. The entry then launches K3 (mask_head.cu rat_mask_head, TMA
+// + wgmma) on rows and hyper on the same stream. Fusing K3 into the tail
+// would save no bytes (keys2's rows go through device memory either way:
+// a slot a CTA, 132 x 1.6 MB, exceeds the 50 MB L2) and would tie K3's
+// TMA ring to the tail's shared-memory layout. Rows cost 1.64 GB written
+// and read at 1024 prompts x content 3136.
 
 #include "decode_common.cuh"
 #include "decode_tc.cuh"
-#include "mask_head_tile.cuh"
+
+// mask_head.cu (K3)
+extern "C" int rat_mask_head(const void* keys, const void* up1_w, const void* up1_b,
+                             const void* ln_s, const void* ln_b, const void* up2_w,
+                             const void* up2_b, const void* hyper, void* out, int np_, int gg,
+                             int content, int n_masks, float eps, int n_ctas, void* stream);
 
 namespace {
 
 using namespace rat_decode;
+using namespace rat_decode_tc;
 
 constexpr int MAX_MLP = 2048;
 
@@ -125,219 +113,73 @@ struct TailParams {
   __nv_bfloat16 *keys2, *p1, *p2, *c2m, *qout;
   // logits mode: the mask head's weights, the three hypernetwork MLPs of
   // mask tokens 1..3 stacked ([3, D, D], [3, D], [3, D, D], [3, D],
-  // [3, D, C2], [3, C2]), the scratch [ctas, content, D] and the logits
-  // [b, content, 16, 3]
+  // [3, D, HYPER], [3, HYPER]), keys2's rows [b, content rounded up to 32,
+  // D], the hypernetwork rows [b, 3, HYPER] and the logits [b, content,
+  // 16, 3]; K3 runs on `ctas` CTAs
   const __nv_bfloat16 *up1_w, *up1_b, *ln_s, *ln_b, *up2_w, *up2_b;
   const __nv_bfloat16 *hw1, *hb1, *hw2, *hb2, *hw3, *hb3;
-  __nv_bfloat16 *scratch, *logits;
+  __nv_bfloat16 *krows, *hyper, *logits;
   int b, m, mlp, content, ctas;
   float eps;
 };
 
+// The emissions of decode_tail_kernel<E>.
+constexpr int KEYS = 0;    // keys2 [b, M, D]
+constexpr int PROBS = 1;   // P1, P2 [b, HT, M], C2 [b, HT, D]
+constexpr int ROWS = 2;    // keys2's rows below content, hypernetwork rows
+
 constexpr int N_MASKS = 3;          // multimask tokens 1..3
-static_assert(rat_mask::THREADS == THREADS, "the mask head runs on the tail's CTA");
-static_assert(rat_mask::D == D, "the mask head reads the branch");
+constexpr int HYPER = D / 8;        // hypernetwork output width
 
-constexpr int SMEM_Y = BM * LDY * 4;            // branch tile / token scratch
-constexpr int SMEM_Q = HT * D * 4;              // each query-side matrix
-constexpr int SMEM_P = HT * BM * 2;
-constexpr int SMEM_V = 6 * D * 4;
-constexpr int SMEM_ROWS = T * D * 4;            // queries, tokens
-constexpr int SMEM_TK = T * DA * 4;             // k1, k2, q (pe-term vector)
-constexpr int SMEM_TOTAL =
-    SMEM_Y + 2 * SMEM_Q + SMEM_P + SMEM_V + 2 * SMEM_ROWS + 3 * SMEM_TK;
-static_assert(T * MAX_MLP * 4 <= SMEM_Q, "the MLP hidden rows fit a matrix slot");
-static_assert(3 * T * D + 2 * T * DA <= BM * LDY, "token scratch fits the tile");
-static_assert(SMEM_TOTAL <= rat_mask::OFF_VEC, "the hyper rows survive the tail");
-static_assert(2 * N_MASKS * D * 4 <= SMEM_Q, "the hypernetwork's hidden rows fit a matrix slot");
+// Shared memory (bytes). The token vectors k1, k2 and q and the branch
+// constants are bf16 values and are kept as bf16; the prompt tokens are
+// read again where they are added. The f32 branch itself lives in
+// registers (decode_tc.cuh Frag).
+constexpr int OFF_Y = 0;                           // branch planes hi, lo / token scratch
+constexpr int OFF_QA = OFF_Y + BM * D * 4;         // query-side matrices' planes hi, lo
+constexpr int OFF_QB = OFF_QA + HT * D * 4;
+constexpr int OFF_C1 = OFF_QB + HT * D * 4;        // C1, C2 bf16
+constexpr int OFF_C2 = OFF_C1 + HT * D * 2;
+constexpr int OFF_S = OFF_C2 + HT * D * 2;         // S / p hi, lo; the LN's row sums
+constexpr int OFF_P = OFF_S + HT * BM * 4;         // P1 / P2 bf16
+constexpr int OFF_QIN = OFF_P + HT * BM * 2;       // token state [T][D] f32
+constexpr int OFF_V = OFF_QIN + T * D * 4;         // branch constants [6][D] bf16
+constexpr int OFF_K1 = OFF_V + 6 * D * 2;          // k1, k2, q [T][DA] bf16
+constexpr int OFF_K2 = OFF_K1 + T * DA * 2;
+constexpr int OFF_Q = OFF_K2 + T * DA * 2;
+constexpr int OFF_ALPHA = OFF_Q + T * DA * 2;      // rescale / 1 / sum [HT]
+constexpr int OFF_SC = OFF_ALPHA + 64 * 4;         // planes' s: Y1, Y2, QA, QB; scratch [8]
+constexpr int SMEM = OFF_SC + 16 * 4;
+static_assert(SMEM == 231488 && SMEM <= 232448, "one CTA an SM");
+static_assert(T * MAX_MLP * 4 <= HT * D * 4, "the MLP hidden rows fit a matrix slot");
+static_assert(3 * T * D + 2 * T * DA <= BM * D, "token scratch fits the tile");
+static_assert(BM * WARPS * 8 <= HT * BM * 4, "the LN's row sums fit S");
+static_assert(2 * N_MASKS * D * 4 <= HT * D * 4, "the hypernetwork's hidden rows fit a matrix slot");
 
-// P1 of the calling thread's (head, position) into the P tile (and the
-// emission), from k1 (shared) and q1s (global).
-__device__ __forceinline__ void p1_tile(__nv_bfloat16* sP, const float* sK1,
-                                        const TailParams& pr, int b, int m0, bool emit) {
-  const int h = threadIdx.x / 32, lane = threadIdx.x % 32;
+__device__ __forceinline__ void copy_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src, int n) {
+  for (int i = threadIdx.x; i < n / 8; i += THREADS)
+    reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
+}
+
+__device__ __forceinline__ void to_bf16(__nv_bfloat16* dst, const float* src, int n) {
+  for (int i = threadIdx.x; i < n; i += THREADS) dst[i] = __float2bfloat16(src[i]);
+}
+
+// P1 of the calling thread's (head, position) into the P tile, from its
+// column of q1st^T; also to out ([HT][m] bf16, the tile's first column)
+// when it is given.
+__device__ __forceinline__ void p1_tile(__nv_bfloat16* sP, const __nv_bfloat16* sK1,
+                                        const PeCol& q1s, __nv_bfloat16* out, int m) {
   float s[T];
 #pragma unroll
   for (int t = 0; t < T; ++t) s[t] = 0.f;
-  add_pe_term(s, sK1, pr.q1st, pr.m, h, m0 + lane);
+  add_pe_term_bf(s, sK1, q1s);
   const float scale = rsqrtf((float)HD);
 #pragma unroll
   for (int t = 0; t < T; ++t) s[t] *= scale;
   softmax_tokens(s);
-#pragma unroll
-  for (int t = 0; t < T; ++t) {
-    const __nv_bfloat16 v = __float2bfloat16(s[t]);
-    sP[(h * T + t) * BM + lane] = v;
-    if (emit) pr.p1[((size_t)b * HT + h * T + t) * pr.m + m0 + lane] = v;
-  }
-}
-
-// keys1 of tile m0 into sY: img0 + P1 (recomputed) -> one update.
-__device__ __forceinline__ void keys1_tile(float* sY, __nv_bfloat16* sP, const float* sK1,
-                                           const float* sV, const TailParams& pr, int b,
-                                           int m0, bool emit_p1) {
-  load_rows_tile(sY, LDY, pr.img0, m0, BM);
-  p1_tile(sP, sK1, pr, b, m0, emit_p1);
-  __syncthreads();
-  recon_layer(sY, LDY, sP, pr.c1m + (size_t)b * HT * D, sV, pr.eps);
-}
-
-// Scores of the tile against a query-side matrix plus a pe term, scaled.
-__device__ __forceinline__ void tile_scores(float s[T], const float* sQ, const float* sY,
-                                            const float* sq, const __nv_bfloat16* pet,
-                                            int m, int m0) {
-  const int h = threadIdx.x / 32, lane = threadIdx.x % 32;
-  head_scores(s, sQ, sY, LDY, h, lane);
-  add_pe_term(s, sq, pet, m, h, m0 + lane);
-  const float scale = rsqrtf((float)HD);
-#pragma unroll
-  for (int t = 0; t < T; ++t) s[t] *= scale;
-}
-
-// One prompt's tail, up to the token state (written to qout; also left
-// in the returned shared-memory rows [T][D] f32). keys2 rows below
-// `klimit` are stored to `kout` ([klimit, D], bf16) when it is set.
-__device__ __forceinline__ const float* tail_prompt(const TailParams& pr, int b,
-                                                    unsigned char* smem,
-                                                    __nv_bfloat16* kout, int klimit) {
-  float* sY = reinterpret_cast<float*>(smem);
-  float* sQa = reinterpret_cast<float*>(smem + SMEM_Y);
-  float* sQb = reinterpret_cast<float*>(smem + SMEM_Y + SMEM_Q);
-  __nv_bfloat16* sP = reinterpret_cast<__nv_bfloat16*>(smem + SMEM_Y + 2 * SMEM_Q);
-  float* sV = reinterpret_cast<float*>(smem + SMEM_Y + 2 * SMEM_Q + SMEM_P);
-  float* sQin = sV + 6 * D;       // token state [T][D]
-  float* sTok = sQin + T * D;     // prompt tokens [T][D]
-  float* sK1 = sTok + T * D;      // layer-1 i2t token keys [T][DA]
-  float* sK2 = sK1 + T * DA;      // layer-2 i2t token keys [T][DA]
-  float* sq = sK2 + T * DA;       // the current attention's token queries
-  // token scratch inside the (then idle) branch tile
-  float* xa = sY;                 // [T][D]
-  float* xb = xa + T * D;         // [T][D]
-  float* xc = xb + T * D;         // [T][D]
-  float* xo = xc + T * D;         // [T][DA]
-  float* xv = xo + T * DA;        // [T][DA]
-
-  const int h = threadIdx.x / 32;
-  const int m = pr.m;
-  const bool probs_mode = pr.p1 != nullptr;
-
-  load_f32(sV, pr.rows, 6 * D);
-  load_f32(sQin, pr.qin + (size_t)b * T * D, T * D);
-  load_f32(sTok, pr.tok + (size_t)b * T * D, T * D);
-  load_f32(sK1, pr.tok_k1 + (size_t)b * T * DA, T * DA);
-  __syncthreads();
-
-  // layer-2 t2i queries and their query-side matrix
-  add_rows(xa, sQin, sTok, T * D);
-  __syncthreads();
-  dense_rows(sq, xa, D, pr.wq_t2, pr.bq_t2, DA, false);
-  __syncthreads();
-  project_rows(sQa, sq, pr.wk_t2);
-  __syncthreads();
-
-  // ---- pass A: P1 -> keys1 -> layer-2 t2i partials ----
-  AttnState st;
-  attn_init(st);
-  for (int m0 = 0; m0 < m; m0 += BM) {
-    keys1_tile(sY, sP, sK1, sV, pr, b, m0, false);
-    float s[T];
-    tile_scores(s, sQa, sY, sq, pr.pek2t, m, m0);
-    attn_tile(st, s, sY, LDY);
-    __syncthreads();
-  }
-  attn_store(st, sQa, h);
-  __syncthreads();
-
-  // ---- token mid-ops ----
-  attn_out(xo, sQa, pr.wv_t2, pr.vb_t2);                       // attn [T][DA]
-  __syncthreads();
-  dense_rows(xb, xo, DA, pr.wout_t2, pr.bout_t2, D, false);
-  __syncthreads();
-  add_rows(xa, sQin, xb, T * D);
-  __syncthreads();
-  ln_rows(sQin, xa, pr.n2_s, pr.n2_b, pr.eps);                 // queries
-  __syncthreads();
-  dense_rows(sQb, sQin, D, pr.lin1_w, pr.lin1_b, pr.mlp, true); // hidden
-  __syncthreads();
-  dense_rows(xb, sQb, pr.mlp, pr.lin2_w, pr.lin2_b, D, false);
-  __syncthreads();
-  add_rows(xa, sQin, xb, T * D);
-  __syncthreads();
-  ln_rows(sQin, xa, pr.n3_s, pr.n3_b, pr.eps);
-  __syncthreads();
-  add_rows(xa, sQin, sTok, T * D);                             // queries + tokens
-  __syncthreads();
-  dense_rows(sK2, xa, D, pr.wk_i2, pr.bk_i2, DA, false);       // k2
-  dense_rows(xv, sQin, D, pr.wv_i2, pr.bv_i2, DA, false);      // v2
-  dense_rows(sq, xa, D, pr.wq_fa, pr.bq_fa, DA, false);        // final queries
-  __syncthreads();
-  project_rows(sQa, sK2, pr.wq_i2);                            // k2 Wq2^T
-  project_rows(sQb, sq, pr.wk_fa);                             // qf Wk^T
-  // C2[h*T + t][d] = bf16(v2[t, h] . Wout2[h rows, d])
-  {
-    const int d = threadIdx.x;
-    for (int hh = 0; hh < H; ++hh) {
-      float w[HD];
-#pragma unroll
-      for (int j = 0; j < HD; ++j)
-        w[j] = __bfloat162float(pr.wout_i2[(size_t)(hh * HD + j) * D + d]);
-#pragma unroll
-      for (int t = 0; t < T; ++t) {
-        float a = 0.f;
-#pragma unroll
-        for (int j = 0; j < HD; ++j) a = fmaf(xv[t * DA + hh * HD + j], w[j], a);
-        pr.c2m[((size_t)b * HT + hh * T + t) * D + d] = __float2bfloat16(a);
-      }
-    }
-  }
-  __syncthreads();                     // C2 (device memory) visible to the CTA
-
-  // ---- pass B: P1 -> keys1 -> P2 -> keys2 -> emission, final partials ----
-  attn_init(st);
-  const __nv_bfloat16* c2 = pr.c2m + (size_t)b * HT * D;
-  for (int m0 = 0; m0 < m; m0 += BM) {
-    keys1_tile(sY, sP, sK1, sV, pr, b, m0, probs_mode);
-    {
-      float s[T];
-      tile_scores(s, sQa, sY, sK2, pr.peq2t, m, m0);
-      softmax_tokens(s);
-      const int lane = threadIdx.x % 32;
-#pragma unroll
-      for (int t = 0; t < T; ++t) {
-        const __nv_bfloat16 v = __float2bfloat16(s[t]);
-        sP[(h * T + t) * BM + lane] = v;
-        if (probs_mode) pr.p2[((size_t)b * HT + h * T + t) * m + m0 + lane] = v;
-      }
-    }
-    __syncthreads();
-    recon_layer(sY, LDY, sP, c2, sV + 3 * D, pr.eps);          // keys2
-    if (kout != nullptr && m0 < klimit) {
-      for (int i = threadIdx.x; i < BM * D; i += THREADS) {
-        const int r = i / D, c = i % D;
-        if (m0 + r < klimit)
-          kout[(size_t)(m0 + r) * D + c] = __float2bfloat16(sY[r * LDY + c]);
-      }
-    }
-    float s[T];
-    tile_scores(s, sQb, sY, sq, pr.pekft, m, m0);
-    attn_tile(st, s, sY, LDY);
-    __syncthreads();
-  }
-  attn_store(st, sQa, h);
-  __syncthreads();
-
-  // ---- final out-projection and LayerNorm ----
-  attn_out(xo, sQa, pr.wv_fa, pr.vb_fa);
-  __syncthreads();
-  dense_rows(xb, xo, DA, pr.wout_fa, pr.bout_fa, D, false);
-  __syncthreads();
-  add_rows(xa, sQin, xb, T * D);
-  __syncthreads();
-  ln_rows(xc, xa, pr.nf_s, pr.nf_b, pr.eps);
-  __syncthreads();
-  for (int i = threadIdx.x; i < T * D; i += THREADS)
-    pr.qout[(size_t)b * T * D + i] = __float2bfloat16(xc[i]);
-  return xc;
+  store_p(sP, s);
+  if (out) emit_p(out, m, s);
 }
 
 // One layer of the three hypernetwork MLPs: out[i][n] = bf16(bf16(x[i] .
@@ -358,67 +200,8 @@ __device__ __forceinline__ void hyper_layer(float* out, const float* x, int ldx,
   }
 }
 
-// Probability mode: one CTA a prompt.
+template <int E>
 __global__ void __launch_bounds__(THREADS, 1) decode_tail_kernel(const TailParams pr) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  tail_prompt(pr, blockIdx.x, smem, nullptr, 0);
-}
-
-// ---- keys mode: the per-tile products on the tensor cores (decode_tc.cuh) ----
-
-namespace keys {
-
-using namespace rat_decode_tc;
-
-// Shared memory of the keys mode (bytes). The token vectors k1, k2 and q
-// and the branch constants are bf16 values and are kept as bf16; the
-// prompt tokens are read again where they are added. The f32 branch
-// itself lives in registers (decode_tc.cuh Frag).
-constexpr int OFF_Y = 0;                           // branch planes hi, lo / token scratch
-constexpr int OFF_QA = OFF_Y + BM * D * 4;         // query-side matrices' planes hi, lo
-constexpr int OFF_QB = OFF_QA + HT * D * 4;
-constexpr int OFF_C1 = OFF_QB + HT * D * 4;        // C1, C2 bf16
-constexpr int OFF_C2 = OFF_C1 + HT * D * 2;
-constexpr int OFF_S = OFF_C2 + HT * D * 2;         // S / p hi, lo; the LN's row sums
-constexpr int OFF_P = OFF_S + HT * BM * 4;         // P1 / P2 bf16
-constexpr int OFF_QIN = OFF_P + HT * BM * 2;       // token state [T][D] f32
-constexpr int OFF_V = OFF_QIN + T * D * 4;         // branch constants [6][D] bf16
-constexpr int OFF_K1 = OFF_V + 6 * D * 2;          // k1, k2, q [T][DA] bf16
-constexpr int OFF_K2 = OFF_K1 + T * DA * 2;
-constexpr int OFF_Q = OFF_K2 + T * DA * 2;
-constexpr int OFF_ALPHA = OFF_Q + T * DA * 2;      // rescale / 1 / sum [HT]
-constexpr int OFF_SC = OFF_ALPHA + 64 * 4;         // planes' s: Y1, Y2, QA, QB; scratch [8]
-constexpr int SMEM = OFF_SC + 16 * 4;
-static_assert(SMEM == 231488 && SMEM <= 232448, "one CTA an SM");
-static_assert(T * MAX_MLP * 4 <= HT * D * 4, "the MLP hidden rows fit a matrix slot");
-static_assert(3 * T * D + 2 * T * DA <= BM * D, "token scratch fits the tile");
-static_assert(BM * WARPS * 8 <= HT * BM * 4, "the LN's row sums fit S");
-
-__device__ __forceinline__ void copy_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src, int n) {
-  for (int i = threadIdx.x; i < n / 8; i += THREADS)
-    reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
-}
-
-__device__ __forceinline__ void to_bf16(__nv_bfloat16* dst, const float* src, int n) {
-  for (int i = threadIdx.x; i < n; i += THREADS) dst[i] = __float2bfloat16(src[i]);
-}
-
-// P1 of the calling thread's (head, position) into the P tile, from its
-// column of q1st^T.
-__device__ __forceinline__ void p1_tile(__nv_bfloat16* sP, const __nv_bfloat16* sK1,
-                                        const PeCol& q1s) {
-  float s[T];
-#pragma unroll
-  for (int t = 0; t < T; ++t) s[t] = 0.f;
-  add_pe_term_bf(s, sK1, q1s);
-  const float scale = rsqrtf((float)HD);
-#pragma unroll
-  for (int t = 0; t < T; ++t) s[t] *= scale;
-  softmax_tokens(s);
-  store_p(sP, s);
-}
-
-__global__ void __launch_bounds__(THREADS, 1) decode_tail_keys_kernel(const TailParams pr) {
   extern __shared__ __align__(128) unsigned char smem[];
   __half* sYh = reinterpret_cast<__half*>(smem + OFF_Y);
   __half* sYl = sYh + BM * D;
@@ -454,7 +237,13 @@ __global__ void __launch_bounds__(THREADS, 1) decode_tail_keys_kernel(const Tail
   const int m = pr.m;
   const int lane = threadIdx.x % 32;
   const __nv_bfloat16* tok = pr.tok + (size_t)b * T * D;
-  __nv_bfloat16* kout = pr.keys2 + (size_t)b * m * D;
+  // keys2's rows leave to kout below klimit; P1 and P2 to p1out, p2out
+  const int klimit = E == KEYS ? m : E == ROWS ? pr.content : 0;
+  __nv_bfloat16* kout = E == KEYS   ? pr.keys2 + (size_t)b * m * D
+                        : E == ROWS ? pr.krows + (size_t)b * ((pr.content + BM - 1) / BM * BM) * D
+                                    : nullptr;
+  __nv_bfloat16* p1out = E == PROBS ? pr.p1 + (size_t)b * HT * m : nullptr;
+  __nv_bfloat16* p2out = E == PROBS ? pr.p2 + (size_t)b * HT * m : nullptr;
 
   copy_bf16(sV, pr.rows, 6 * D);
   copy_bf16(sK1, pr.tok_k1 + (size_t)b * T * DA, T * DA);
@@ -486,7 +275,7 @@ __global__ void __launch_bounds__(THREADS, 1) decode_tail_keys_kernel(const Tail
     ImgFrag img;
     load_pe(pe, pr.q1st, m, m0 + lane);
     load_img0(img, pr.img0, m0);
-    p1_tile(sP, sK1, pe);
+    p1_tile(sP, sK1, pe, nullptr, m);
     __syncthreads();
     load_pe(pe, pr.pek2t, m, m0 + lane);
     rebuild_tc<true>(y, img, sYh, sYl, sP, sC1, sV, red, pr.eps, ys1, nullptr);  // keys1
@@ -534,6 +323,7 @@ __global__ void __launch_bounds__(THREADS, 1) decode_tail_keys_kernel(const Tail
   project_rows_tc(sQah, sQal, sSc + 2, scratch, xo, pr.wq_i2);  // k2 Wq2^T
   project_rows_tc(sQbh, sQbl, sSc + 3, scratch, xb, pr.wk_fa);  // qf Wk^T
   // C2[h*T + t][d] = bf16(v2[t, h] . Wout2[h rows, d]), into C's layout
+  // (and, in probability mode, to c2m in row layout)
   {
     const int d = threadIdx.x;
     for (int hh = 0; hh < H; ++hh) {
@@ -547,6 +337,7 @@ __global__ void __launch_bounds__(THREADS, 1) decode_tail_keys_kernel(const Tail
 #pragma unroll
         for (int j = 0; j < HD; ++j) a = fmaf(xv[t * DA + hh * HD + j], w[j], a);
         sC2[wide_idx(hh * T + t, d)] = __float2bfloat16(a);
+        if (E == PROBS) pr.c2m[((size_t)b * HT + hh * T + t) * D + d] = __float2bfloat16(a);
       }
     }
   }
@@ -561,7 +352,7 @@ __global__ void __launch_bounds__(THREADS, 1) decode_tail_keys_kernel(const Tail
     ImgFrag img;
     load_pe(pe, pr.q1st, m, m0 + lane);
     load_img0(img, pr.img0, m0);
-    p1_tile(sP, sK1, pe);
+    p1_tile(sP, sK1, pe, p1out ? p1out + m0 : nullptr, m);   // P1, emitted in probability mode
     __syncthreads();
     load_pe(pe, pr.peq2t, m, m0 + lane);
     rebuild_tc<true>(y, img, sYh, sYl, sP, sC1, sV, red, pr.eps, ys1, nullptr);  // keys1 again
@@ -572,11 +363,12 @@ __global__ void __launch_bounds__(THREADS, 1) decode_tail_keys_kernel(const Tail
       head_scores_tc(s, sS, sK2, pe, unscale_p2);
       softmax_tokens(s);
       store_p(sP, s);                                          // P2
+      if (p2out) emit_p(p2out + m0, m, s);
     }
     __syncthreads();
     load_pe(pe, pr.pekft, m, m0 + lane);
     rebuild_tc<false>(y, img, sYh, sYl, sP, sC2, sV + 3 * D, red, pr.eps, ys2,
-                      kout + (size_t)m0 * D);                  // keys2, emitted
+                      m0 < klimit ? kout + (size_t)m0 * D : nullptr);  // keys2, emitted
     scores_tc(sS, sQbh, sQbl, sYh, sYl);
     __syncthreads();
     float s[T];
@@ -603,56 +395,39 @@ __global__ void __launch_bounds__(THREADS, 1) decode_tail_keys_kernel(const Tail
   __syncthreads();
   for (int i = threadIdx.x; i < T * D; i += THREADS)
     pr.qout[(size_t)b * T * D + i] = __float2bfloat16(xc[i]);
-}
 
-}  // namespace keys
-
-// Logits mode: persistent CTAs, each walking prompts blockIdx.x,
-// blockIdx.x + gridDim.x, ... with its own scratch slot.
-__global__ void __launch_bounds__(THREADS, 1) decode_tail_logits_kernel(const TailParams pr) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const rat_mask::Smem ms = rat_mask::layout(smem);
-  const int content = pr.content;
-  __nv_bfloat16* slot = pr.scratch + (size_t)blockIdx.x * content * D;
-  for (int b = blockIdx.x; b < pr.b; b += gridDim.x) {
-    __syncthreads();                       // the previous prompt's mask head is done
-    const float* q = tail_prompt(pr, b, smem, slot, content);
-    // hypernetwork rows of mask tokens 1..3 (token rows 2..4: row 0 is
-    // the IoU token, row 1 mask token 0) into the mask head's hyper rows
-    // (past the tail's shared memory); hidden rows in the first
-    // query-side matrix, free after the final attention
-    float* h1 = reinterpret_cast<float*>(smem + SMEM_Y);
+  if (E == ROWS) {
+    // hypernetwork rows of mask tokens 1..3 from the f32 token state
+    // (token rows 2..4: row 0 is the IoU token, row 1 mask token 0); the
+    // hidden rows in the first query-side matrix, free after the final
+    // attention
+    float* h1 = sQa;
     float* h2 = h1 + N_MASKS * D;
-    __syncthreads();
-    hyper_layer(h1, q + 2 * D, D, D, pr.hw1, pr.hb1, D, true);
+    hyper_layer(h1, xc + 2 * D, D, D, pr.hw1, pr.hb1, D, true);
     __syncthreads();
     hyper_layer(h2, h1, D, D, pr.hw2, pr.hb2, D, true);
     __syncthreads();
-    hyper_layer(ms.hyp, h2, D, D, pr.hw3, pr.hb3, rat_mask::C2, false);
+    hyper_layer(h1, h2, D, D, pr.hw3, pr.hb3, HYPER, false);
     __syncthreads();
-    rat_mask::load_weights(ms, pr.up1_w, pr.up1_b, pr.ln_s, pr.ln_b, pr.up2_w, pr.up2_b);
-    constexpr int VPR = D / 8;
-    for (int p0 = 0; p0 < content; p0 += rat_mask::BLK) {
-      for (int i = threadIdx.x; i < rat_mask::BLK * VPR; i += THREADS) {
-        const int r = i / VPR, c = i % VPR;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (p0 + r < content)
-          val = __ldcg(reinterpret_cast<const uint4*>(slot + (size_t)(p0 + r) * D) + c);
-        reinterpret_cast<uint4*>(ms.x + r * D)[c] = val;
-      }
-      __syncthreads();
-      rat_mask::tile(ms, pr.logits, b, content, p0, N_MASKS, pr.eps);
-    }
+    for (int i = threadIdx.x; i < N_MASKS * HYPER; i += THREADS)
+      pr.hyper[(size_t)b * N_MASKS * HYPER + i] = __float2bfloat16(h1[i]);
   }
 }
 
-}  // namespace
-
-namespace {
-
+// Checks every mode shares: the dense layers' widths (the token MLP's
+// hidden width a multiple of 8: dense_rows_n8's 16-byte loads).
 bool tail_ok(const TailParams& pr) {
   return pr.b >= 1 && pr.m >= BM && pr.m % BM == 0 && pr.mlp >= 1 && pr.mlp <= MAX_MLP &&
-         pr.c2m != nullptr && pr.qout != nullptr;
+         pr.mlp % 8 == 0 && pr.qout != nullptr;
+}
+
+template <int E>
+int launch_tail(const TailParams& pr, cudaStream_t st) {
+  cudaError_t err =
+      cudaFuncSetAttribute(decode_tail_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return (int)err;
+  decode_tail_kernel<E><<<pr.b, THREADS, SMEM, st>>>(pr);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -661,36 +436,28 @@ extern "C" int rat_decode_tail(const void* params, void* stream) {
   const TailParams& pr = *static_cast<const TailParams*>(params);
   const bool keys_mode = pr.keys2 != nullptr;
   if (!tail_ok(pr) || keys_mode == (pr.p1 != nullptr) || (pr.p1 == nullptr) != (pr.p2 == nullptr) ||
-      (keys_mode && pr.mlp % 8))
+      (!keys_mode && pr.c2m == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (keys_mode) {
-    cudaError_t err = cudaFuncSetAttribute(keys::decode_tail_keys_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, keys::SMEM);
-    if (err != cudaSuccess) return (int)err;
-    keys::decode_tail_keys_kernel<<<pr.b, THREADS, keys::SMEM, st>>>(pr);
-    return (int)cudaGetLastError();
-  }
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_TOTAL);
-  if (err != cudaSuccess) return (int)err;
-  decode_tail_kernel<<<pr.b, THREADS, SMEM_TOTAL, st>>>(pr);
-  return (int)cudaGetLastError();
+  return keys_mode ? launch_tail<KEYS>(pr, st) : launch_tail<PROBS>(pr, st);
 }
 
-// Dynamic shared memory of a keys-mode CTA in bytes (a report, no launch).
-extern "C" int rat_decode_tail_keys_smem() { return keys::SMEM; }
+// Dynamic shared memory of a tail CTA in bytes (a report, no launch).
+extern "C" int rat_decode_tail_smem() { return SMEM; }
 
+// The tail with the ROWS emission, then K3 on its rows and hypernetwork
+// rows (content positions, gg = content rounded up to 32, 3 mask tokens),
+// on the same stream.
 extern "C" int rat_decode_tail_logits(const void* params, void* stream) {
   const TailParams& pr = *static_cast<const TailParams*>(params);
   if (!tail_ok(pr) || pr.keys2 != nullptr || pr.p1 != nullptr || pr.p2 != nullptr ||
-      pr.scratch == nullptr || pr.logits == nullptr || pr.content < 1 || pr.content > pr.m ||
-      pr.ctas < 1 || pr.ctas > pr.b)
+      pr.krows == nullptr || pr.hyper == nullptr || pr.logits == nullptr || pr.content < 1 ||
+      pr.content > pr.m || pr.ctas < 1)
     return (int)cudaErrorInvalidValue;
-  constexpr int smem = SMEM_TOTAL > rat_mask::SMEM_TOTAL ? SMEM_TOTAL : rat_mask::SMEM_TOTAL;
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_tail_logits_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  decode_tail_logits_kernel<<<pr.ctas, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(pr);
-  return (int)cudaGetLastError();
+  const int err = launch_tail<ROWS>(pr, static_cast<cudaStream_t>(stream));
+  if (err != 0) return err;
+  const int gg = (pr.content + BM - 1) / BM * BM;
+  return rat_mask_head(pr.krows, pr.up1_w, pr.up1_b, pr.ln_s, pr.ln_b, pr.up2_w, pr.up2_b,
+                       pr.hyper, pr.logits, pr.b, gg, pr.content, N_MASKS, pr.eps, pr.ctas,
+                       stream);
 }

@@ -1,8 +1,7 @@
-// Tensor-core pieces of the fused decode tail's keys mode (decode_tail.cu,
-// B3): the three families of per-tile products on a [32 positions x 256
-// channels] branch tile moved off the FMA units, and the shared-memory
-// layouts they read without bank conflicts. The probability and logits
-// modes still run decode_common.cuh's FMA versions.
+// Tensor-core pieces of the fused decode tail (decode_tail.cu, B3, all
+// three modes): the three families of per-tile products on a [32
+// positions x 256 channels] branch tile moved off the FMA units, and the
+// shared-memory layouts they read without bank conflicts.
 //
 //   rebuild   Y <- LN(Y + P^T C + b)     mma.sync m16n8k16 / m16n8k8 bf16
 //   scores    S[56 x 32] = Q^ . Y^T        mma.sync m16n8k16 fp16, split
@@ -469,12 +468,13 @@ __device__ __forceinline__ void project_rows_tc(__half* sQh, __half* sQl, float*
   if (d == 0) *scale = s;
 }
 
-// Token-side dense layers as decode_common.cuh's dense_rows, bit for bit
-// (each output's f32 sum runs over k in order, then the two bf16
-// roundings), with wider loads: x by float4 over four k, and W by 16
-// bytes (8 outputs a thread, dense_rows_n8: N % 8 == 0) or one output a
-// thread (dense_rows_k4). x [T][K] f32 (shared, 16-byte aligned rows, K %
-// 4 == 0), W [K][N] bf16 (global), out [T][N] f32 (shared).
+// Token-side dense layers on T rows: out[t][n] = bf16(bf16(x[t] . W[:,
+// n]) + b[n]), optionally ReLU'd (the JAX `_dense_rows` rounding; each
+// output's f32 sum runs over k in order), with wide loads: x by float4
+// over four k, and W by 16 bytes (8 outputs a thread, dense_rows_n8: N %
+// 8 == 0) or one output a thread (dense_rows_k4). x [T][K] f32 (shared,
+// 16-byte aligned rows, K % 4 == 0), W [K][N] bf16 (global), out [T][N]
+// f32 (shared).
 __device__ __forceinline__ float dense_out(float acc, const __nv_bfloat16* b, int n, bool relu) {
   const float y = bf16_round(bf16_round(acc) + __bfloat162float(b[n]));
   return relu ? fmaxf(y, 0.f) : y;
@@ -538,7 +538,7 @@ __device__ __forceinline__ void dense_rows_k4(float* out, const float* x, int K,
 // s[t] += sum_j q[t][h*HD + j] * pe[j] for the calling thread's head h
 // (its warp), as decode_common.cuh's add_pe_term with the token vectors q
 // [T][DA] held as bf16 (they are bf16 values: loaded from bf16 or rounded
-// by dense_rows) and the pe column already loaded.
+// by the dense layers) and the pe column already loaded.
 __device__ __forceinline__ void add_pe_term_bf(float s[T], const __nv_bfloat16* sq,
                                                const PeCol& col) {
   const int h = threadIdx.x / 32;
@@ -578,6 +578,14 @@ __device__ __forceinline__ void store_p(__nv_bfloat16* sP, const float s[T]) {
   const int h = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
   for (int t = 0; t < T; ++t) sP[narrow_idx(h * T + t, lane)] = __float2bfloat16(s[t]);
+}
+
+// The same probabilities to out, [HT][m] bf16 rows from the tile's first
+// position.
+__device__ __forceinline__ void emit_p(__nv_bfloat16* out, int m, const float s[T]) {
+  const int h = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int t = 0; t < T; ++t) out[(size_t)(h * T + t) * m + lane] = __float2bfloat16(s[t]);
 }
 
 // Online softmax of one head's T token rows over the positions: the

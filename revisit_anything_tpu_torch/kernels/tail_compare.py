@@ -1,0 +1,129 @@
+"""Hold the fused decode tail (B3) of this checkout against another
+checkout's on the card: the same seeded inputs through each checkout's
+``decode_tail_fused`` in its three modes (140 prompts x M 4096, the
+logits mode at content 3136), compared output by output (bit for bit, and
+the share of bf16 elements that moved); then, in each checkout, the
+probability and logits modes on the first 64 prompts against that
+checkout's own plain version (the share of bf16 elements moved, as
+``tail_variants`` ``[precision]``), and the probability mode on the gpu
+test's large-branch inputs (16 prompts x M 256, both branch LayerNorm
+scales x 2^15) against its plain version: each output's relative error
+and the P2 elements moved by more than 0.25.
+
+    python -m revisit_anything_tpu_torch.kernels.tail_compare OTHER_ROOT
+
+Each checkout runs in its own process (the two packages share a name),
+building its own kernels; outputs go to ``build/tail_compare/`` at this
+checkout's root. Needs a CUDA device and nvcc.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+from pathlib import Path
+
+_ROOT = Path(__file__).resolve().parents[2]
+_OUT = _ROOT / "build" / "tail_compare"
+MODES = ("keys", "probs", "logits")
+
+
+def _decoder(torch, g, dev):
+    """A bf16 SAM ViT-H mask decoder with seeded random weights (as the
+    gpu tests' ``serving_decoder``)."""
+    from revisit_anything_tpu_torch.models.sam import SAM_VIT_H
+    from revisit_anything_tpu_torch.models.sam.decoder import MaskDecoder
+    dec = MaskDecoder(SAM_VIT_H, dtype=torch.bfloat16, device=dev)
+    with torch.no_grad():
+        for name, prm in dec.named_parameters():
+            x = torch.randn(prm.shape, generator=g, device=dev) * 0.05
+            prm.copy_(x + 1.0 if name.endswith("scale") else x)
+    return dec
+
+
+def _args(torch, dev, b, m, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dec = _decoder(torch, g, dev)
+
+    def rnd(*shape, s=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * s).to(
+            torch.bfloat16)
+
+    return (dec, rnd(1, m, 256), rnd(1, 128, m), rnd(1, 128, m),
+            rnd(1, 128, m), rnd(1, 128, m), rnd(b, 7, 128),
+            rnd(b, 56, 256, s=0.3), rnd(b, 7, 256), rnd(b, 7, 256), 8, 1e-6)
+
+
+def _rel(a, w) -> float:
+    d = (a.float() - w.float()).abs().max()
+    return (d / w.float().abs().max()).item()
+
+
+def _worker(root: str, out: str) -> None:
+    """In the checkout at ``root``: the three modes' outputs to ``out``,
+    and the large-branch probability case against its plain version."""
+    sys.path[0] = root                 # in place of this script's directory
+    import torch
+
+    from revisit_anything_tpu_torch.ops import decode_fused as dfu
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    print(f"[compare] {root}: {dfu.__file__}", flush=True)
+    args = _args(torch, dev, 140, 4096, 0)
+    kws = ({"emit_keys": True}, {"emit_keys": False},
+           {"mask_head": True, "content": 3136})
+    with torch.inference_mode():
+        res = {mode: [o.cpu() for o in dfu.decode_tail_fused(*args, **kw)]
+               for mode, kw in zip(MODES, kws)}
+    torch.save(res, out)
+    few = tuple(a[:64] if i in (6, 7, 8, 9) else a    # per-prompt operands
+                for i, a in enumerate(args))
+    for mode, kw in zip(MODES[1:], kws[1:]):
+        with torch.inference_mode():
+            got = dfu.decode_tail_fused(*few, **kw)
+            want = dfu.decode_tail_reference(*few, **kw)
+        moved = " ".join(f"{((a != w).float().mean()):.4f}"
+                         for a, w in zip(got, want))
+        print(f"[compare] {root}: {mode} mode against its plain version, 64 "
+              f"prompts: share of bf16 elements moved by output {moved}",
+              flush=True)
+    args = _args(torch, dev, 16, 256, 7)
+    with torch.no_grad():
+        for layer in args[0].layers[:2]:
+            layer.norm4.scale.mul_(32768.0)
+    with torch.inference_mode():
+        got = dfu.decode_tail_fused(*args, emit_keys=False)
+        want = dfu.decode_tail_reference(*args, emit_keys=False)
+    errs = " ".join(f"{_rel(a, w):.3e}" for a, w in zip(got, want))
+    moved = int(((got[2].float() - want[2].float()).abs() > 0.25).sum())
+    print(f"[compare] {root}: probability mode, both branch LayerNorm scales"
+          f" x 2^15, against its plain version: rel_err by output {errs}; "
+          f"P2 elements moved > 0.25: {moved} of {got[2].numel()}",
+          flush=True)
+
+
+def main() -> None:
+    import torch
+    if len(sys.argv) != 2:
+        sys.exit(__doc__)
+    if not torch.cuda.is_available():
+        sys.exit("tail_compare: needs a CUDA device")
+    _OUT.mkdir(parents=True, exist_ok=True)
+    roots = {"this": str(_ROOT), "other": str(Path(sys.argv[1]).resolve())}
+    for name, root in roots.items():
+        subprocess.run([sys.executable, __file__, "--worker", root,
+                        str(_OUT / f"{name}.pt")], check=True)
+    this, other = (torch.load(_OUT / f"{n}.pt") for n in roots)
+    for mode in MODES:
+        for i, (a, b) in enumerate(zip(this[mode], other[mode])):
+            d = (a.float() - b.float()).abs()
+            print(f"[compare] {mode} mode output {i}: bit for bit "
+                  f"{torch.equal(a, b)}, moved {(d > 0).float().mean():.4f} "
+                  f"of its elements, max |diff| {d.max():.3e}", flush=True)
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:
+        _worker(*sys.argv[2:4])
+    else:
+        main()

@@ -1,11 +1,12 @@
-"""Time source-level variants of the fused decode tail's keys mode (B3) on
-the card, to see which part of the work sets its pace: each variant is
-``decode_tail.cu`` (and ``decode_tc.cuh``) with a few lines replaced (all
-but the first no longer compute the right answer: they remove one part of
-the work, keeping the CTA barriers, to show what it costs), built by its
-own nvcc into ``build/torch_kernels/variants/`` and timed at the serving
-shape (1024 prompts x M 4096), one wave of 132 prompts, and M = 32 (one
-tile: the per-prompt token work).
+"""Time source-level variants of the fused decode tail (B3) in its keys
+mode on the card, to see which part of the work sets its pace: each
+variant is ``decode_tail.cu`` (and ``decode_tc.cuh``) with a few lines
+replaced (all but the first no longer compute the right answer: they
+remove one part of the work, keeping the CTA barriers, to show what it
+costs), built by its own nvcc into ``build/torch_kernels/variants/``
+(linked with K3's ``mask_head.cu``, which the logits entry calls) and
+timed at the serving shape (1024 prompts x M 4096), one wave of 132
+prompts, and M = 32 (one tile: the per-prompt token work).
 
     python -m revisit_anything_tpu_torch.kernels.tail_variants
 
@@ -13,10 +14,10 @@ Times are CUDA-event medians of 11 calls, each queued behind a device
 sleep (as ``chip_smoke.py`` times kernels), with the SM clock and board
 power nvidia-smi reads while the kernel runs back to back at the serving
 shape. Then the phase probe (cycles of each statement of pass B's loop,
-``[phases]``) and the precision of the kernel and of the FMA design
-against the plain version, beside the plain version in TF32 and with
-its branch products rounded from f64 (``[precision]``). Needs a CUDA
-device and nvcc; prints one line per variant and shape.
+``[phases]``) and the precision of the kernel's three modes against the
+plain version, beside the plain version in TF32 and with its branch
+products rounded from f64 (``[precision]``). Needs a CUDA device and
+nvcc; prints one line per variant and shape.
 """
 
 from __future__ import annotations
@@ -45,22 +46,17 @@ _REBUILD = [(_TAIL, "    rebuild_tc<true>(y, img, sYh, sYl, sP, sC1, sV, red, pr
                     "ys1, nullptr);",
              "    __syncthreads();\n    __syncthreads();"),
             (_TAIL, "    rebuild_tc<false>(y, img, sYh, sYl, sP, sC2, sV + 3 * D, "
-                    "red, pr.eps, ys2,\n                      kout + (size_t)m0 * D);",
+                    "red, pr.eps, ys2,\n                      m0 < klimit ? kout + (size_t)m0 * D "
+                    ": nullptr);",
              "    __syncthreads();\n    __syncthreads();")]
 _SOFTMAX = ("    __syncthreads();                                           "
             "// S read: p replaces it\n    online_tile(st, s, sPh, sPl, alpha);\n")
 _ENTRY = ("__global__ void __launch_bounds__(THREADS, 1) "
-          "decode_tail_keys_kernel(const TailParams pr) {\n")
+          "decode_tail_kernel(const TailParams pr) {\n")
 
 # name -> (what it shows, [(file, old text, new text), ...])
 VARIANTS = {
     "kernel": ("the kernel as built", []),
-    "fma": ("the FMA design (the probability mode's kernel emitting keys2, "
-            "the keys mode before its tensor-core redesign)",
-            [(_TAIL, "  tail_prompt(pr, blockIdx.x, smem, nullptr, 0);",
-              "  tail_prompt(pr, blockIdx.x, smem, pr.keys2 ? pr.keys2 + "
-              "(size_t)blockIdx.x * pr.m * D : nullptr, pr.m);"),
-             (_TAIL, "  if (keys_mode) {", "  if (false) {")]),
     "noscores": ("no score products (S as left in shared memory)", _SCORES),
     "nocontext": ("no context products", _CONTEXT),
     "norebuild": ("no branch rebuilds (planes as left in shared memory, "
@@ -74,11 +70,13 @@ VARIANTS = {
               (_TC, "#pragma unroll\n  for (int j = 0; j < HD; ++j)\n    asm volatile",
                "  return;\n#pragma unroll\n  for (int j = 0; j < HD; ++j)\n    asm volatile")]),
     "nop1": ("no P1 (P as left in shared memory)",
-             [(_TAIL, "    p1_tile(sP, sK1, pe);\n", "")]),
+             [(_TAIL, "    p1_tile(sP, sK1, pe, nullptr, m);\n", ""),
+              (_TAIL, "    p1_tile(sP, sK1, pe, p1out ? p1out + m0 : nullptr, m);"
+                      "   // P1, emitted in probability mode\n", "")]),
     "nosoftmax": ("no attention softmax (the online update; p as left in "
                   "shared memory)", [(_TAIL, _SOFTMAX, "    __syncthreads();\n")]),
-    "noemit": ("no keys2 stores", [(_TAIL, "kout + (size_t)m0 * D);",
-                                    "nullptr);")]),
+    "noemit": ("no keys2 stores", [(_TAIL, "m0 < klimit ? kout + (size_t)m0 * D "
+                                           ": nullptr);", "nullptr);")]),
     "nomlp": ("no token MLP", [
         (_TAIL, "  dense_rows_n8(sQb, sQin, D, pr.lin1_w, pr.lin1_b, pr.mlp, "
                 "true); // hidden\n", ""),
@@ -93,7 +91,7 @@ SHAPES = ((1024, 4096), (132, 4096), (1024, 32))
 
 # The phase probe: pass B's loop with a clock64() stamp after each
 # statement, taken by lane 0 of every warp of CTA 0 on tiles 1..TILES and
-# written to the (in keys mode unused) C2 scratch.
+# written to the (in keys mode unused) C2 pointer.
 TILES = 8
 _LOOP = "  for (int m0 = 0; m0 < m; m0 += BM) {\n"
 _STAMP = ("if (blockIdx.x == 0 && (threadIdx.x & 31) == 0 && m0 >= BM && "
@@ -104,7 +102,7 @@ _STAMP = ("if (blockIdx.x == 0 && (threadIdx.x & 31) == 0 && m0 >= BM && "
 def _probe_source() -> tuple:
     """decode_tail.cu with pass B stamped, and the stamped lines."""
     text = _SRC.read_text()
-    head = text.index("decode_tail_keys_kernel(const TailParams pr) {")
+    head = text.index("decode_tail_kernel(const TailParams pr) {")
     start = text.index(_LOOP, text.index(_LOOP, head) + 1) + len(_LOOP)
     end = text.index("\n  }\n", start)
     out, lines, stmt = [f"    int ns = 0;\n    {_STAMP}\n"], [], ""
@@ -130,27 +128,49 @@ def _source(reps) -> dict:
     return texts
 
 
+def _compile(src, obj) -> subprocess.Popen:
+    return subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build._CSRC), "-c", "-o",
+         str(obj), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _link(procs: dict, head) -> dict:
+    """Wait for the compiles ``procs`` (name -> (directory, process)),
+    link each variant's object with K3's ``head`` object (the logits
+    entry calls it) and return each library (name -> ctypes library)."""
+    libs = {}
+    for name, (out, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"{name}: nvcc failed\n{log}")
+    for name, (out, _) in procs.items():
+        if out is None:
+            continue
+        subprocess.run([build._nvcc(), "-shared", "-o", str(out / "tail.so"),
+                        str(out / "tail.o"), str(head)], check=True,
+                       capture_output=True)
+        lib = ctypes.CDLL(str(out / "tail.so"))
+        for entry in ("rat_decode_tail", "rat_decode_tail_logits",
+                      "rat_mask_head"):
+            getattr(lib, entry).argtypes = list(build.SIGNATURES[entry])
+            getattr(lib, entry).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
 def _build_all() -> dict:
-    procs = {}
+    _OUT.mkdir(parents=True, exist_ok=True)
+    head = _OUT / "mask_head.o"
+    procs = {"mask_head.cu": (None, _compile(build._CSRC / "mask_head.cu",
+                                             head))}
     for name, (_, reps) in VARIANTS.items():
         out = _OUT / f"tail_{name}"
         out.mkdir(parents=True, exist_ok=True)
         for f, text in _source(reps).items():
             (out / f).write_text(text)
-        procs[name] = subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build._CSRC),
-             "-shared", "-o", str(out / "tail.so"), str(out / _TAIL)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    fns = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"{name}: nvcc failed\n{log}")
-        fn = ctypes.CDLL(str(_OUT / f"tail_{name}" / "tail.so")).rat_decode_tail
-        fn.argtypes = list(build.SIGNATURES["rat_decode_tail"])
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
+        procs[name] = (out, _compile(out / _TAIL, out / "tail.o"))
+    return _link(procs, head)
 
 
 def _probe(dfu_args) -> None:
@@ -163,12 +183,8 @@ def _probe(dfu_args) -> None:
     text, lines = _probe_source()
     (out / _TAIL).write_text(text)
     (out / _TC).write_text((build._CSRC / _TC).read_text())
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build._CSRC),
-                    "-shared", "-o", str(out / "tail.so"), str(out / _TAIL)],
-                   check=True, capture_output=True)
-    fn = ctypes.CDLL(str(out / "tail.so")).rat_decode_tail
-    fn.argtypes = list(build.SIGNATURES["rat_decode_tail"])
-    fn.restype = ctypes.c_int
+    fn = _link({"probe": (out, _compile(out / _TAIL, out / "tail.o"))},
+               _OUT / "mask_head.o")["probe"].rat_decode_tail
     buf = torch.zeros((TILES, 32, 8), dtype=torch.int64, device="cuda")
 
     class Probe(_Launch):
@@ -208,57 +224,96 @@ def recon_step_f64(y, p, c, rows3, eps):
         + rows3[2].float()
 
 
-def _precision(dfu_args, fns, n: int = 64) -> None:
-    """The outputs of the kernel and of the FMA design (variant "fma") on
-    the first ``n`` prompts against the plain version, beside the plain
+def _moved(label: str, n: int, names, got, want,
+           ref: str = "plain f32") -> None:
+    """Print, for each output, the share of its bf16 elements that differ
+    from ``ref``'s (``want``) and their mean and max absolute
+    difference."""
+    for name, a, w in zip(names, got, want):
+        d = (a.float() - w.float()).abs()
+        print(f"[precision] {label} vs {ref}, {n} prompts: {name} "
+              f"differs in {(d > 0).float().mean().item():.4f} of its "
+              f"elements, mean |diff| {d.mean().item():.3e}, max "
+              f"{d.max().item():.3e}", flush=True)
+
+
+def _precision(dfu_args, lib, n: int = 64, content: int = 3136) -> None:
+    """The kernel (library ``lib``) on the first ``n`` prompts against the
+    plain version, in its three modes: the keys mode beside the plain
     version run with TF32 matmuls and with P^T C rounded once from f64
     (``recon_step_f64``: the floor an f32 computation in another order
-    sets): the share of bf16 elements that differ from the f32 plain
-    version and the mean absolute difference, for the token state and
-    keys2."""
+    sets), then the probability mode's and the logits mode's outputs, and
+    K3 alone on the plain version's keys2 (what the mask head moves by
+    itself): the share of bf16 elements that differ from the f32 plain
+    version and the mean absolute difference; last the logits mode
+    against the keys mode's kernel followed by the plain hypernetwork and
+    K3 (the "fused_tail_keys" path)."""
     from revisit_anything_tpu_torch.ops import decode_probs as dpr
+    from revisit_anything_tpu_torch.ops import maskhead as mh
     args = list(dfu_args)
     for i in (6, 7, 8, 9):                     # the per-prompt operands
         args[i] = args[i][:n]
     outs = {}
-    with torch.inference_mode():
-        want = dfu.decode_tail_reference(*args)
-        torch.backends.cuda.matmul.allow_tf32 = True
-        try:
-            outs["plain in TF32"] = dfu.decode_tail_reference(*args)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = False
-        saved = dpr.recon_step
-        dpr.recon_step = dfu.recon_step = recon_step_f64
-        try:
-            outs["plain, P^T C from f64"] = dfu.decode_tail_reference(*args)
-        finally:
-            dpr.recon_step = dfu.recon_step = saved
-        kernel = dfu.DECODE_TAIL
-        try:
-            for name in ("kernel", "fma"):
-                dfu.DECODE_TAIL = _Launch(fns[name])
-                outs[name] = dfu.decode_tail_fused(*args)
-        finally:
-            dfu.DECODE_TAIL = kernel
-    for label, res in outs.items():
-        for name, a, w in zip(("token state", "keys2"), res, want):
-            d = (a.float() - w.float()).abs()
-            print(f"[precision] {label} vs plain f32, {n} prompts: {name} "
-                  f"differs in {(d > 0).float().mean().item():.4f} of its "
-                  f"elements, mean |diff| {d.mean().item():.3e}, max "
-                  f"{d.max().item():.3e}", flush=True)
+    kernels = dfu.DECODE_TAIL, dfu.DECODE_TAIL_LOGITS, mh.MASK_HEAD
+    try:
+        dfu.DECODE_TAIL = _Launch(lib.rat_decode_tail)
+        dfu.DECODE_TAIL_LOGITS = _Launch(lib.rat_decode_tail_logits)
+        with torch.inference_mode():
+            want = dfu.decode_tail_reference(*args)
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                outs["plain in TF32"] = dfu.decode_tail_reference(*args)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            saved = dpr.recon_step
+            dpr.recon_step = dfu.recon_step = recon_step_f64
+            try:
+                outs["plain, P^T C from f64"] = dfu.decode_tail_reference(
+                    *args)
+            finally:
+                dpr.recon_step = dfu.recon_step = saved
+            outs["kernel"] = dfu.decode_tail_fused(*args)
+            for label, res in outs.items():
+                _moved(label, n, ("token state", "keys2"), res, want)
+            args[-1] = False
+            _moved("probability mode kernel", n,
+                   ("token state", "P1", "P2", "C2"),
+                   dfu.decode_tail_fused(*args),
+                   dfu.decode_tail_reference(*args))
+            head = dict(mask_head=True, content=content)
+            want = dfu.decode_tail_reference(*args, **head)
+            _moved("logits mode kernel", n, ("token state", "logits"),
+                   dfu.decode_tail_fused(*args, **head), want)
+            # K3 alone, on the plain version's keys2 and hypernetwork
+            # rows; the logits mode against the "fused_tail_keys" path
+            # (the keys mode, the plain hypernetwork, K3)
+            mh.MASK_HEAD = _Launch(lib.rat_mask_head)
+
+            def k3(q, keys2):
+                return (mh.fused_mask_head(
+                    keys2[:, :content].to(q.dtype), mh.hypernetwork(args[0], q),
+                    *mh.mask_head_weights(args[0]), eps=args[11],
+                    content=content),)
+            _moved("K3 on the plain tail's keys2", n, ("logits",),
+                   k3(*dfu.decode_tail_reference(*args[:-1], True)),
+                   want[1:])
+            _moved("logits mode kernel", n, ("logits",),
+                   dfu.decode_tail_fused(*args, **head)[1:],
+                   k3(*dfu.decode_tail_fused(*args[:-1], True)),
+                   ref="keys mode kernel + plain hypernetwork + K3")
+    finally:
+        dfu.DECODE_TAIL, dfu.DECODE_TAIL_LOGITS, mh.MASK_HEAD = kernels
 
 
 class _Launch:
-    """Stands in for ``build.DECODE_TAIL`` in the wrapper: the variant's
-    entry point on the current stream."""
+    """Stands in for a ``build`` kernel handle in a wrapper: the variant
+    library's entry point on the current stream."""
 
     def __init__(self, fn):
         self.fn = fn
 
-    def launch(self, params) -> None:
-        err = self.fn(params, torch.cuda.current_stream().cuda_stream)
+    def launch(self, *args) -> None:
+        err = self.fn(*args, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch failed: cudaError {err}")
 
@@ -270,7 +325,7 @@ def main() -> None:
     from revisit_anything_tpu_torch.models.sam.decoder import MaskDecoder
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    fns = _build_all()
+    libs = _build_all()
     for name, (what, _) in VARIANTS.items():
         print(f"[variant] {name}: {what}", flush=True)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -293,8 +348,8 @@ def main() -> None:
                     8, 1e-6, True)
             if (b, m) == SHAPES[0]:
                 args_serving = args
-            for name, fn in fns.items():
-                dfu.DECODE_TAIL = _Launch(fn)
+            for name, lib in libs.items():
+                dfu.DECODE_TAIL = _Launch(lib.rat_decode_tail)
 
                 @torch.inference_mode()
                 def call():
@@ -306,7 +361,7 @@ def main() -> None:
     finally:
         dfu.DECODE_TAIL = kernel
     _probe(args_serving)
-    _precision(args_serving, fns)
+    _precision(args_serving, libs["kernel"])
 
 
 if __name__ == "__main__":

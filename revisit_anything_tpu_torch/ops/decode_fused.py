@@ -15,11 +15,12 @@ Per prompt, after the layer-1 token side:
 It emits keys2 [B, M, D] in the activation dtype (keys mode, for the
 plain mask head ``ops.maskhead.fused_mask_head``), or P1, P2 [B, H·T, M]
 bf16 and C2 [B, H·T, D] (probability mode, for
-``ops.maskhead.fused_mask_head_probs``), or runs the decoder's mask head
-and the hypernetwork of the multimask tokens itself on keys2 rounded to
-the activation dtype and emits the mask logits [B, content, 16, 3]
-(logits mode, kernel B3's ``mask_head`` form); always also the token
-state after the final LayerNorm. Layouts as in ``ops.decode_probs``.
+``ops.maskhead.fused_mask_head_probs``), or runs the hypernetwork of the
+multimask tokens itself and the decoder's mask head (kernel K3) on keys2
+rounded to the activation dtype and emits the mask logits [B, content,
+16, 3] (logits mode, kernel B3's ``mask_head`` form); always also the
+token state after the final LayerNorm. Layouts as in
+``ops.decode_probs``.
 """
 
 from __future__ import annotations
@@ -95,7 +96,7 @@ _TAIL_POINTERS = (
     "wq_fa", "bq_fa", "wk_fa", "wv_fa", "vb_fa", "wout_fa", "bout_fa",
     "nf_s", "nf_b", "rows", "keys2", "p1", "p2", "c2m", "qout",
     "up1_w", "up1_b", "ln_s", "ln_b", "up2_w", "up2_b",
-    "hw1", "hb1", "hw2", "hb2", "hw3", "hb3", "scratch", "logits")
+    "hw1", "hb1", "hw2", "hb2", "hw3", "hb3", "krows", "hyper", "logits")
 
 
 class TailParams(ctypes.Structure):
@@ -151,7 +152,10 @@ def decode_tail_fused(dec, img0: torch.Tensor, q1st: torch.Tensor,
     [B, M, D]) with ``emit_keys``, else (queries, p1, p2, c2m).
 
     CUDA: kernel B3 (bf16; D 256, DA 128, 8 heads, 7 tokens, M a
-    multiple of 32), in its logits form with ``mask_head``. CPU:
+    multiple of 32, MLP width a multiple of 8), one tensor-core kernel
+    for the three modes; with ``mask_head`` its entry runs the tail and
+    then K3's kernel (``kernels/csrc/mask_head.cu``) on keys2's first
+    rows and the hypernetwork rows, on one stream. CPU:
     :func:`decode_tail_reference`."""
     _, m, _ = img0.shape
     content = m if content is None else content
@@ -165,10 +169,10 @@ def decode_tail_fused(dec, img0: torch.Tensor, q1st: torch.Tensor,
     da = tok_k1.shape[2]
     l2, fa = dec.layers[1], dec.final_attn
     mlp = l2.lin1.w.shape[1]
-    if (d, da, heads, t) != KERNEL_DIMS or m % 32:
+    if (d, da, heads, t) != KERNEL_DIMS or m % 32 or mlp % 8:
         raise ValueError(f"decode tail: (D={d}, DA={da}, heads={heads}, "
-                         f"T={t}, M={m}) not built ({KERNEL_DIMS}, "
-                         "M % 32 == 0)")
+                         f"T={t}, M={m}, MLP={mlp}) not built "
+                         f"({KERNEL_DIMS}, M % 32 == 0, MLP % 8 == 0)")
     bf = torch.bfloat16
     ht = heads * t
     t2, i2 = l2.t2i, l2.i2t
@@ -200,16 +204,17 @@ def decode_tail_fused(dec, img0: torch.Tensor, q1st: torch.Tensor,
            for name, (x, shape) in shapes.items()}
     dev = queries_b.device
     qout = torch.empty((b, t, d), dtype=bf, device=dev)
-    c2m = torch.empty((b, ht, d), dtype=bf, device=dev)
-    outs = dict(qout=qout, c2m=c2m)
+    outs = dict(qout=qout)
     ctas = 0
     if mask_head:
         ins.update(_mask_head_operands(dec, d))
-        # persistent CTAs, one an SM, each with its own keys2 slot
-        ctas = min(b, torch.cuda.get_device_properties(
-            dev).multi_processor_count)
-        outs["scratch"] = torch.empty((ctas, content, d), dtype=bf,
-                                      device=dev)
+        # keys2's rows below content, whole 32-position tiles, and the
+        # hypernetwork rows, for K3 on persistent CTAs, one an SM
+        ctas = torch.cuda.get_device_properties(dev).multi_processor_count
+        gg = -(-content // 32) * 32
+        outs["krows"] = torch.empty((b, gg, d), dtype=bf, device=dev)
+        outs["hyper"] = torch.empty((b, len(MULTIMASK_TOKENS), d // 8),
+                                    dtype=bf, device=dev)
         outs["logits"] = torch.empty((b, content, 16, 3), dtype=bf,
                                      device=dev)
     elif emit_keys:
@@ -217,6 +222,7 @@ def decode_tail_fused(dec, img0: torch.Tensor, q1st: torch.Tensor,
     else:
         outs["p1"] = torch.empty((b, ht, m), dtype=bf, device=dev)
         outs["p2"] = torch.empty((b, ht, m), dtype=bf, device=dev)
+        outs["c2m"] = torch.empty((b, ht, d), dtype=bf, device=dev)
     ptrs = {name: x.data_ptr() for name, x in {**ins, **outs}.items()}
     params = TailParams(*(ptrs.get(name) for name in _TAIL_POINTERS),
                         b, m, mlp, content, ctas, float(eps))
@@ -226,4 +232,4 @@ def decode_tail_fused(dec, img0: torch.Tensor, q1st: torch.Tensor,
         return qout, outs["logits"]
     if emit_keys:
         return qout, outs["keys2"]
-    return qout, outs["p1"], outs["p2"], c2m
+    return qout, outs["p1"], outs["p2"], outs["c2m"]

@@ -704,23 +704,35 @@ def _tail_args(cuda, b, m, emit_keys, seed=7):
     pytest.param(True, 140, 4096, 1.0, id="True-140-4096"),
     pytest.param(True, 16, 96, 1.0, id="True-16-96"),
     # both branch LayerNorm scales times 2^15 (exact in bf16): keys2
-    # passes fp16's largest value 65504, which the keys mode's fp16 planes
+    # passes fp16's largest value 65504, which the kernel's fp16 planes
     # hold times a power of two
-    pytest.param(True, 16, 256, 32768.0, id="True-16-256-large-branch")])
+    pytest.param(True, 16, 256, 32768.0, id="True-16-256-large-branch"),
+    # the probability mode at the same cases
+    pytest.param(False, 140, 4096, 1.0, id="False-140-4096"),
+    pytest.param(False, 16, 96, 1.0, id="False-16-96"),
+    pytest.param(False, 16, 256, 32768.0, id="False-16-256-large-branch")])
 def test_decode_tail_kernel_matches_plain(cuda, emit_keys, b, m, ln_scale):
     args = _tail_args(cuda, b, m, emit_keys)
     with torch.no_grad():
         for layer in args[0].layers[:2]:
             layer.norm4.scale.mul_(ln_scale)
+        if not emit_keys:
+            # the layer-2 i2t query weight down by as much (exact), so that
+            # P2's scores keep their usual size: at 2^15 times it P2 is one
+            # hot, and its bf16 elements flip 0 <-> 1 at near-ties of
+            # tokens under any change of the summation order (PERF.md §6)
+            args[0].layers[1].i2t.q.w.div_(ln_scale)
     before = build.DECODE_TAIL.launches
     with torch.inference_mode():
         got = dfu.decode_tail_fused(*args)
         want = dfu.decode_tail_reference(*args)
+        keys2 = (want if emit_keys else
+                 dfu.decode_tail_reference(*args[:-1], True))[1]
     torch.cuda.synchronize()
     assert build.DECODE_TAIL.launches == before + 1
     assert len(got) == len(want) == (2 if emit_keys else 4)
     if ln_scale > 1.0:
-        assert want[1].float().abs().max().item() > 65504
+        assert keys2.float().abs().max().item() > 65504
     for a, w in zip(got, want):
         assert a.shape == w.shape
         assert torch.isfinite(a.float()).all()
@@ -747,10 +759,36 @@ def test_decode_tail_keys_kernel_permutes_with_its_prompts(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("content", [3136, 4096])
+@pytest.mark.parametrize("mode", ["probs", "logits"])
+def test_decode_tail_probs_and_logits_kernels_permute_with_their_prompts(
+        cuda, mode):
+    """Permuting the prompts permutes the probability and logits modes'
+    outputs bit for bit (the logits mode at a content that is not a
+    multiple of 32: K3 reads keys2's rows up to the next multiple)."""
+    b = 24
+    args = _tail_args(cuda, b, 256, False)
+    kw = dict(mask_head=True, content=200) if mode == "logits" else {}
+    perm = torch.randperm(b, generator=torch.Generator().manual_seed(0))
+    perm = perm.to(cuda)
+    per_prompt = (6, 7, 8, 9)                 # tok_k1, c1m, queries, tokens
+    shuffled = tuple(a[perm] if i in per_prompt else a
+                     for i, a in enumerate(args))
+    with torch.inference_mode():
+        base = dfu.decode_tail_fused(*args, **kw)
+        got = dfu.decode_tail_fused(*shuffled, **kw)
+    torch.cuda.synchronize()
+    assert len(got) == (2 if kw else 4)
+    for a, w in zip(got, base):
+        assert torch.equal(a, w[perm])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("content", [3136, 4096, 3100, 20])
 def test_decode_tail_logits_kernel_matches_plain(cuda, content):
-    """The logits mode at 140 prompts: more than one prompt per CTA on a
-    132-SM card, so the persistent CTAs reuse their keys2 slot."""
+    """The logits mode at 140 prompts (more than the card's 132 SMs), at
+    content a multiple of 32, not one (K3 reads keys2's rows up to the
+    next multiple) and below one tile; its entry launches the tail and
+    K3 as one counted launch."""
     b = 140
     x = _probs_inputs(cuda, b=b)
     g = torch.Generator(device=cuda).manual_seed(10)
@@ -763,12 +801,14 @@ def test_decode_tail_logits_kernel_matches_plain(cuda, content):
             rnd(1, 128, 4096), x["tok_k"], x["c1"], rnd(b, 7, 256),
             rnd(b, 7, 256), 8, 1e-6)
     before = build.DECODE_TAIL_LOGITS.launches
+    head_before = build.MASK_HEAD.launches
     with torch.inference_mode():
         got = dfu.decode_tail_fused(*args, mask_head=True, content=content)
         want = dfu.decode_tail_reference(*args, mask_head=True,
                                          content=content)
     torch.cuda.synchronize()
     assert build.DECODE_TAIL_LOGITS.launches == before + 1
+    assert build.MASK_HEAD.launches == head_before
     assert got[1].shape == want[1].shape == (b, content, 16, 3)
     for a, w in zip(got, want):
         assert _rel_err(a, w) < BF16_REL
