@@ -10,9 +10,10 @@ Phases (any failure exits non-zero):
   2. build the twelve kernels from revisit_anything_tpu_torch/kernels/csrc
      (one nvcc per source, in parallel);
   3. print the registers, shared memory and spill bytes of the redesigned
-     entry points' kernels (K1, K2, B10, B11, K3, B6, K5, K4, and B3 in
-     its three modes) from ptxas.log, and the HMMA instructions in the
-     SASS of B3's three instantiations (cuobjdump);
+     entry points' kernels (K1, K2, B10, B11, K3, B6, K5, K4, B3 in its
+     three modes, B7 in its two layers and B8 at its two depths) from
+     ptxas.log, and the HMMA instructions in the SASS of B3's three
+     instantiations, B7's layer 2 and B8's two depths (cuobjdump);
      then
      compare every kernel with its plain version in bf16 at the main
      path's shapes, timing both with CUDA events (median of 7 after
@@ -54,9 +55,10 @@ Phases (any failure exits non-zero):
      launch and no other decode kernel may, the planted image must come
      first, at least 32 masks kept; print its decode-stage time and its
      kept masks' agreement with "shared" ("fused_tail_logits" also with
-     "fused_tail_keys"); for each "fused_tail_*" form, the same query with
-     the decode tail's plain f32 version in the kernel's place, with the
-     predicted IoU at the top-128 cut ([witness]);
+     "fused_tail_keys"); for "probs_split" and each "fused_tail_*" form,
+     the same query with the form's decode kernels' plain f32 versions in
+     their place (B7 and B8; the decode tail), with the predicted IoU at
+     the top-128 cut ([witness]);
  10. print the kernel table as one JSON line (B10, token_cross_split, has
      no caller on a serving path, as in the JAX package: launches 0),
      then the result line.
@@ -204,12 +206,25 @@ PTXAS_KERNELS = (
      "rat_decode_tail_smem", ()),
     ("decode_tail_kernelILi2E", "B3 logits mode (then K3)",
      "rat_decode_tail_logits", "rat_decode_tail_smem", ()),
+    ("i2t_probs_l1_kernel", "B7 layer 1", "rat_i2t_probs",
+     "rat_i2t_probs_smem", (1,)),
+    ("i2t_probs_l2_kernel", "B7 layer 2", "rat_i2t_probs",
+     "rat_i2t_probs_smem", (2,)),
+    ("t2i_probs_kernelILi1E", "B8 depth 1", "rat_t2i_probs",
+     "rat_t2i_probs_smem", (1,)),
+    ("t2i_probs_kernelILi2E", "B8 depth 2", "rat_t2i_probs",
+     "rat_t2i_probs_smem", (2,)),
 )
 
-# B3's instantiations, by their emission: keys, probability, logits mode
-TAIL_SASS = (("decode_tail_kernelILi0E", "B3 keys mode"),
-             ("decode_tail_kernelILi1E", "B3 probability mode"),
-             ("decode_tail_kernelILi2E", "B3 logits mode"))
+# The kernels whose products run by mma.sync: B3's instantiations, by
+# their emission (keys, probability, logits mode), B7's layer 2 and B8's
+# two depths
+MMA_SASS = (("decode_tail_kernelILi0E", "B3 keys mode"),
+            ("decode_tail_kernelILi1E", "B3 probability mode"),
+            ("decode_tail_kernelILi2E", "B3 logits mode"),
+            ("i2t_probs_l2_kernel", "B7 layer 2"),
+            ("t2i_probs_kernelILi1E", "B8 depth 1"),
+            ("t2i_probs_kernelILi2E", "B8 depth 2"))
 
 
 def ptxas_report() -> None:
@@ -241,7 +256,7 @@ def ptxas_report() -> None:
               f"{getattr(lib, smem_fn)(*smem_args)} B dynamic a CTA, spill "
               f"stores {stores} B, loads {loads} B"
               f"{', wgmma serialized (C751x)' if serial else ''}", flush=True)
-    sass_report(TAIL_SASS)
+    sass_report(MMA_SASS)
 
 
 def sass_report(kernels) -> None:
@@ -552,7 +567,7 @@ def compare_probs_kernels(dev, check, head, rel_tol) -> None:
     check(build.I2T_PROBS, "layer 1: q1st [1,128,4096] -> P [1024,56,4096]",
           lambda: dpr.i2t_probs(q1st, tok_k, 8),
           lambda: dpr.i2t_probs_reference(q1st, tok_k, 8),
-          _rel, rel_tol, (q1st, tok_k), (pe_term, 0))
+          _rel, rel_tol, (q1st, tok_k), (pe_term, 0), was=0.536)
     rec, rec_c = ((img0, p1, c1, peqt, w_q, rows),
                   (img0, p1[:c], c1[:c], peqt, w_q, rows))
     check(build.I2T_PROBS, "layer 2: P1, C1 [1024,56,*] -> P2",
@@ -560,7 +575,7 @@ def compare_probs_kernels(dev, check, head, rel_tol) -> None:
           lambda: dpr.i2t_probs_reference(None, tok_k[:c], 8, layer=2,
                                           recon=rec_c),
           _rel, rel_tol, (tok_k,) + rec, (recon + pe_term, 0, rows_x_branch),
-          plain_prompts=c)
+          plain_prompts=c, was=14.244)
     for depth in (1, 2):
         ps = (p2, c2) if depth == 2 else (None, None)
         ps_c = (p2[:c], c2[:c]) if depth == 2 else (None, None)
@@ -574,7 +589,7 @@ def compare_probs_kernels(dev, check, head, rel_tol) -> None:
               _rel, rel_tol, [qt] + [x for x in args if
                                      isinstance(x, torch.Tensor)],
               (depth * recon + pe_term, 0, 2 * rows_x_branch),
-              plain_prompts=c)
+              plain_prompts=c, was=(21.663, 32.381)[depth - 1])
 
     hyper = rnd(b, 3, 32, s=0.5)
     margs = (img0, p1, c1, p2, c2, rows, hyper) + head
@@ -784,8 +799,7 @@ def serve(dev, seed: int = 0) -> dict:
             {name: servers[name] for name in ("shared",) + also})
         if decode == "fused_tail_keys":
             servers[decode] = vsrv
-        if decode.startswith("fused_tail"):
-            plain_tail_witness(vsrv, queries[0], srv, decode)
+        plain_witness(vsrv, queries[0], srv, decode)
         del vsrv
     return dict(counts=counts, wall_ms=wall, peak_gib=peak_gib,
                 variants=variants, window=window)
@@ -952,19 +966,28 @@ def serve_variant(vsrv, img, decode: str, refs: dict) -> dict:
                 agreement=agreement, counts=counts)
 
 
-def plain_tail_witness(vsrv, img, ref, decode: str) -> None:
-    """The "fused_tail_*" server ``vsrv`` (form ``decode``) on ``img`` with
-    its decode tail as the kernel and as the plain version
-    (``decode_tail_reference``, f32 on the card): how many kept masks
-    match one of ``ref``'s ("shared") and of the kernel's at IoU > 0.5,
-    and the predicted IoU at the top-``kmax`` cut (masks past it are
-    dropped; it falls among bf16-rounded ties). A witness of what the f32
-    function itself serves; it fails nothing."""
+def plain_witness(vsrv, img, ref, decode: str) -> None:
+    """The probability-factored server ``vsrv`` (form ``decode``) on
+    ``img`` with its decode kernels as they are and with their plain
+    versions (f32 on the card) in their place: B7 and B8
+    (``i2t_probs_reference``, ``t2i_from_probs_reference``) for
+    "probs_split", the decode tail (``decode_tail_reference``) for the
+    "fused_tail_*" forms. How many kept masks match one of ``ref``'s
+    ("shared") and of the kernels' at IoU > 0.5, and the predicted IoU at
+    the top-``kmax`` cut (masks past it are dropped; it falls among
+    bf16-rounded ties). A witness of what the f32 function itself serves;
+    it fails nothing."""
     import torch
 
     from revisit_anything_tpu_torch.models.sam import decoder
     from revisit_anything_tpu_torch.ops import decode_fused as dfu
+    from revisit_anything_tpu_torch.ops import decode_probs as dpr
     from revisit_anything_tpu_torch.pipeline import serve as sv
+
+    plain = ({"i2t_probs": dpr.i2t_probs_reference,
+              "t2i_from_probs": dpr.t2i_from_probs_reference}
+             if decode == "probs_split"
+             else {"decode_tail_fused": dfu.decode_tail_reference})
 
     select, cuts = sv._select_masks_centroids, {}
 
@@ -978,23 +1001,24 @@ def plain_tail_witness(vsrv, img, ref, decode: str) -> None:
         cuts["n"], cuts["at"] = left.numel(), left[kmax - 2:kmax + 2].tolist()
         return select(masks, iou, stab, boxes, valid, amg, kmax)
 
-    kernel, runs = decoder.decode_tail_fused, {}
+    kernels, runs = {n: getattr(decoder, n) for n in plain}, {}
     sv._select_masks_centroids = spy
     try:
         with torch.inference_mode():
             img_dev = torch.from_numpy(img).to(vsrv.device)
             runs["shared"] = (ref._amg_device(img_dev), dict(cuts))
-            for name, tail in (("kernel", kernel),
-                               ("plain f32", dfu.decode_tail_reference)):
-                decoder.decode_tail_fused = tail
+            for name, fns in (("kernel", kernels), ("plain f32", plain)):
+                for n, fn in fns.items():
+                    setattr(decoder, n, fn)
                 runs[name] = (vsrv._amg_device(img_dev), dict(cuts))
     finally:
         sv._select_masks_centroids = select
-        decoder.decode_tail_fused = kernel
+        for n, fn in kernels.items():
+            setattr(decoder, n, fn)
     for name, (amg_v, cut) in runs.items():
         agree = [f"{_agreement(amg_v, runs[r][0])[2]:.4f} {r}"
                  for r in ("shared", "kernel") if r != name]
-        print(f"[witness] {decode} tail {name}: "
+        print(f"[witness] {decode} {'/'.join(plain)} {name}: "
               f"{int(amg_v[1][-1])} masks kept of {cut['n']} past NMS, "
               f"predicted IoU at ranks {vsrv.kmax - 1}-{vsrv.kmax + 2} "
               + " ".join(f"{x:.6f}" for x in cut["at"])

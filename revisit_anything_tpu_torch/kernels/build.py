@@ -84,6 +84,8 @@ SIGNATURES: Dict[str, Sequence] = {
     "rat_mask_head_smem": (),
     "rat_i2t_update_smem": (),
     "rat_decode_tail_smem": (),
+    "rat_i2t_probs_smem": (_I,),                # layer
+    "rat_t2i_probs_smem": (_I,),                # depth
     "rat_resize_flags_smem": (_I, _I, _I),      # n_masks, w, h
     "rat_resize_flags_ctas": (_I, _I, _I),      # n_masks, w, h: CTAs an SM
 }

@@ -1,7 +1,11 @@
-// Tensor-core pieces of the fused decode tail (decode_tail.cu, B3, all
-// three modes): the three families of per-tile products on a [32
-// positions x 256 channels] branch tile moved off the FMA units, and the
-// shared-memory layouts they read without bank conflicts.
+// Tensor-core pieces of the probability-factored decode kernels: the
+// fused decode tail (decode_tail.cu, B3, all three modes), the image ->
+// token probabilities (i2t_probs.cu, B7) and the token -> image attention
+// over the rebuilt branch (t2i_probs.cu, B8). The three families of
+// per-tile products on a [32 positions x 256 channels] branch tile run on
+// the tensor cores; beside them the shared-memory layouts they read
+// without bank conflicts, the loads that fill them and the token-side
+// pieces (pe terms, scores, softmaxes) on the FMA units.
 //
 //   rebuild   Y <- LN(Y + P^T C + b)     mma.sync m16n8k16 / m16n8k8 bf16
 //   scores    S[56 x 32] = Q^ . Y^T        mma.sync m16n8k16 fp16, split
@@ -189,6 +193,40 @@ __device__ __forceinline__ void stage_c(__nv_bfloat16* sC, const __nv_bfloat16* 
   }
 }
 
+// n bf16 values (n % 8 == 0, both 16-byte aligned) copied as they are.
+__device__ __forceinline__ void copy16(__nv_bfloat16* dst, const __nv_bfloat16* src, int n) {
+  for (int i = threadIdx.x; i < n / 8; i += THREADS)
+    reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
+}
+
+// 16 bytes from device to shared memory by cp.async (through the L2
+// only), in commit groups: a thread waits for its own groups, then a CTA
+// barrier makes every thread's copies visible.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(rat_hopper::smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most one of the thread's groups is still in flight.
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Positions m0..m0+BM-1 of one prompt's P^T [HT, m] bf16 (global; m and
+// m0 multiples of BM) into the narrow P tile [HT k][BM] that rebuild_tc
+// reads, by cp.async: 56 rows x 4 16-byte chunks, each to its permuted
+// chunk. The caller commits the group.
+__device__ __forceinline__ void load_p_async(__nv_bfloat16* sP, const __nv_bfloat16* p, int m,
+                                             int m0) {
+  for (int i = threadIdx.x; i < HT * (BM / 8); i += THREADS) {
+    const int k = i / (BM / 8), c = i % (BM / 8);
+    cp_async16(sP + narrow_idx(k, 8 * c), p + (size_t)k * m + m0 + 8 * c);
+  }
+}
+
 // The fragment's rows as bf16 to out rows ([BM][D], the tile's): the four
 // threads of a quad swap channel pairs until each holds 8 adjacent
 // channels of a row, then one 16-byte store a thread and row, marked
@@ -220,7 +258,8 @@ __device__ __forceinline__ void emit_rows(__nv_bfloat16* out, const Frag& y) {
 }
 
 // One branch update on the tile: Y <- LN(Y + P^T C + b) per position,
-// with the one-pass variance, as decode_common.cuh's recon_layer. The
+// with the one-pass variance max(E[y^2] - mu^2, 0) (the JAX `_recon_t`,
+// ops/decode_probs.py:51, and `_recon_step`, ops/decode_fused.py:94). The
 // residual is img (FROM_IMG0: keys1) or y itself (keys2); y ends as the
 // new branch, f32, its planes x ys in sYh / sYl, and as bf16 in out rows
 // (when out is given). sP narrow [HT k][BM] and sC wide (rows 56..63 of K
@@ -432,11 +471,14 @@ __device__ __forceinline__ void scores_tc(float* sS, const __half* sQh, const __
     }
 }
 
-// Token-side matrix pushed through a projection, as decode_common.cuh's
-// project_rows, into Q^'s hi and lo planes (the scores' A operand) times
-// the power of two *scale (written by thread 0), chosen from the matrix's
-// max; the products are computed twice, once for the max. q [T][DA] f32
-// (shared), W [D][DA] bf16 (global), scratch [WARPS] floats.
+// Token-side matrix pushed through a projection: Q^[h*T + t][d] =
+// sum_j q[t][h*HD + j] * W[d][h*HD + j], the query side of (q_h W_h^T) .
+// Y = q_h . (Y W_h), so the per-position product shrinks to HT rows (the
+// JAX fused tail's `_bd_attend_q`). Into Q^'s hi and lo planes (the
+// scores' A operand) times the power of two *scale (written by thread 0),
+// chosen from the matrix's max; the products are computed twice, once for
+// the max. q [T][DA] f32 (shared), W [D][DA] bf16 (global), scratch
+// [WARPS] floats.
 __device__ __forceinline__ void project_rows_tc(__half* sQh, __half* sQl, float* scale,
                                                 float* scratch, const float* sq,
                                                 const __nv_bfloat16* W) {
@@ -535,10 +577,11 @@ __device__ __forceinline__ void dense_rows_k4(float* out, const float* x, int K,
   }
 }
 
-// s[t] += sum_j q[t][h*HD + j] * pe[j] for the calling thread's head h
-// (its warp), as decode_common.cuh's add_pe_term with the token vectors q
-// [T][DA] held as bf16 (they are bf16 values: loaded from bf16 or rounded
-// by the dense layers) and the pe column already loaded.
+// s[t] += sum_j q[t][h*HD + j] * pet[h*HD + j][col] for the calling
+// thread's head h (its warp): a token-side vector against a transposed
+// positional term, with the token vectors q [T][DA] held as bf16 (they are
+// bf16 values: loaded from bf16 or rounded by the dense layers) and the pe
+// column already loaded (load_pe).
 __device__ __forceinline__ void add_pe_term_bf(float s[T], const __nv_bfloat16* sq,
                                                const PeCol& col) {
   const int h = threadIdx.x / 32;
@@ -553,6 +596,24 @@ __device__ __forceinline__ void add_pe_term_bf(float s[T], const __nv_bfloat16* 
     float a = 0.f;
 #pragma unroll
     for (int j = 0; j < HD; ++j) a = fmaf(q[j], pe[j], a);
+    s[t] += a;
+  }
+}
+
+// The same pe term with the token vectors q [T][DA] held as f32 (shared),
+// for a walk whose tiles all read the same vectors and whose work is
+// mostly this term (B7 layer 1): they are converted once a CTA instead of
+// once a tile.
+__device__ __forceinline__ void add_pe_term_f32(float s[T], const float* sq, const PeCol& col) {
+  const int h = threadIdx.x / 32;
+  float pe[HD];
+#pragma unroll
+  for (int j = 0; j < HD; ++j) pe[j] = __uint_as_float((uint32_t)col.v[j] << 16);
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    float a = 0.f;
+#pragma unroll
+    for (int j = 0; j < HD; ++j) a = fmaf(sq[t * DA + h * HD + j], pe[j], a);
     s[t] += a;
   }
 }

@@ -11,86 +11,145 @@
 //
 // What bounds it on the H100: layer 1 is bound by its output, 470 MB of P
 // at 1024 prompts x 4096 positions (0.14 ms at 3.35 TB/s); its 7 GFLOP of
-// scores are small. Layer 2 is bound by the FMA units: per position the
-// rebuild is 56 x 256 multiply-adds and the scores another 56 x 256, about
-// 240 GFLOP at 1024 prompts, all f32 (keys1 is f32 in the JAX kernel).
+// scores are small. Layer 2 is bound by operations: per position the
+// rebuild is 56 x 256 multiply-adds (bf16 operands) and the scores another
+// 56 x 256 against the f32 branch, about 240 GFLOP at 1024 prompts.
 //
-// Design: one CTA of 8 warps per (prompt, 512 positions), walking 32-
-// position tiles: warp = head, lane = position, so a head's 7 scores and
-// their softmax stay in one thread's registers and the stores of P are
-// coalesced along M. Layer 2 pushes Wq2 to the token side once per CTA
-// (K2[h*7 + t] = k[t, h] Wq2[:, h]^T, [56, 256]; the JAX fused tail's
-// reassociation), so a position costs 56 x 256 for the scores instead of
-// 256 x 128 for its queries; the branch tile is rebuilt in shared memory
-// by decode_common.cuh `recon_layer`, C1 read from L1/L2. The TPU kernel's
+// Design: one CTA of 8 warps per (prompt, run of 32-position tiles); in
+// the scores and the softmax warp = head and lane = position, so a head's
+// 7 scores and their softmax stay in one thread's registers and the
+// stores of P are 64-byte row pieces along M. Layer 1 is B3's P1
+// (decode_tail.cu `p1_tile`) on runs of 16 tiles, with the token keys
+// held as f32 (add_pe_term_f32): the layer is bound by its instructions,
+// and with the keys as bf16, converted every tile, it took 0.74 ms
+// against 0.54 on an H100. Layer 2 is the first half of B3's pass B on
+// the tensor cores (decode_tc.cuh), one CTA a prompt (runs of 128 tiles):
+// Wq2 pushed to the token side once per CTA (K2[h*7 + t] = k[t, h]
+// Wq2[:, h]^T, [56, 256]; the JAX fused tail's reassociation), the branch
+// tile rebuilt from P1 (by cp.async, one tile ahead) and C1 (staged once a
+// CTA) as bf16 mma.sync onto img0 in registers, and the scores K2 .
+// keys1^T as three fp16 products of hi/lo planes (22 bits), then the pe
+// term, the softmax and the stores on the FMA units. Runs of 16 tiles
+// (8192 CTAs at 1024 prompts, an even last wave) took 6.2 ms against 5.2
+// for whole prompts on an H100 (kernels/probs_compare.py [grid]): each
+// run repeats K2's projection and C1's staging. The TPU kernel's
 // block-diagonal token matrices are not carried: heads are warps.
+// Layer 2's shared memory: the branch planes (32 KB; the token keys in f32
+// before the walk), K2's planes (56 KB), C1, S, two P tiles, vectors and
+// scales: 138,048 B, one CTA an SM.
 
 #include "decode_common.cuh"
+#include "decode_tc.cuh"
 
 namespace {
 
 using namespace rat_decode;
+using namespace rat_decode_tc;
 
-constexpr int TILES_PER_CTA = 16;
+constexpr int L1_TILES = 16;   // 32-position tiles a CTA takes, layer 1
+constexpr int L2_TILES = 128;  // and layer 2: a whole prompt at M 4096
 
-constexpr int SMEM_K = T * DA * 4;                  // token keys f32
-constexpr int SMEM_Y = BM * LDY * 4;                // branch tile
-constexpr int SMEM_Q = HT * D * 4;                  // K2 = k Wq2^T
-constexpr int SMEM_P = HT * BM * 2;                 // P1 tile
-constexpr int SMEM_V = 3 * D * 4;                   // b1, ln1 scale / bias
-constexpr int SMEM_L2 = SMEM_K + SMEM_Y + SMEM_Q + SMEM_P + SMEM_V;
+// Layer 2's shared memory (bytes).
+constexpr int OFF_Y = 0;                         // branch planes hi, lo / token keys f32
+constexpr int OFF_Q = OFF_Y + BM * D * 4;        // K2 planes hi, lo
+constexpr int OFF_C = OFF_Q + HT * D * 4;        // C1 bf16, wide
+constexpr int OFF_S = OFF_C + HT * D * 2;        // S; the LN's row sums
+constexpr int OFF_P = OFF_S + HT * BM * 4;       // P1 tiles [2][HT][BM] bf16
+constexpr int OFF_V = OFF_P + 2 * HT * BM * 2;   // branch rows 0-5 bf16
+constexpr int OFF_K = OFF_V + 6 * D * 2;         // token keys [T][DA] bf16
+constexpr int OFF_SC = OFF_K + T * DA * 2;       // planes' s: Y1, Y2, K2; scratch [8]
+constexpr int SMEM_L2 = OFF_SC + 16 * 4;
+static_assert(SMEM_L2 == 138048 && SMEM_L2 <= 232448, "one CTA an SM");
+static_assert(BM * WARPS * 8 <= HT * BM * 4, "the LN's row sums fit S");
 
-template <int LAYER>
 __global__ void __launch_bounds__(THREADS)
-i2t_probs_kernel(const __nv_bfloat16* __restrict__ q1st,   // [DA, M] (layer 1)
-                 const __nv_bfloat16* __restrict__ tok_k,  // [B, T, DA]
-                 const __nv_bfloat16* __restrict__ img0,   // [M, D] (layer 2)
-                 const __nv_bfloat16* __restrict__ p1,     // [B, HT, M]
-                 const __nv_bfloat16* __restrict__ c1,     // [B, HT, D]
-                 const __nv_bfloat16* __restrict__ peq2t,  // [DA, M]
-                 const __nv_bfloat16* __restrict__ w_q,    // [D, DA]
-                 const __nv_bfloat16* __restrict__ rows,   // [8, D]
-                 __nv_bfloat16* __restrict__ out,          // [B, HT, M]
-                 int m, float eps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sK = reinterpret_cast<float*>(smem);
-  float* sY = reinterpret_cast<float*>(smem + SMEM_K);
-  float* sQ = reinterpret_cast<float*>(smem + SMEM_K + SMEM_Y);
-  __nv_bfloat16* sP = reinterpret_cast<__nv_bfloat16*>(smem + SMEM_K + SMEM_Y + SMEM_Q);
-  float* sV = reinterpret_cast<float*>(smem + SMEM_K + SMEM_Y + SMEM_Q + SMEM_P);
-
-  const int b = blockIdx.y;
-  const int h = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float scale = rsqrtf((float)HD);
+i2t_probs_l1_kernel(const __nv_bfloat16* __restrict__ q1st,   // [DA, M]
+                    const __nv_bfloat16* __restrict__ tok_k,  // [B, T, DA]
+                    __nv_bfloat16* __restrict__ out,          // [B, HT, M]
+                    int m) {
+  __shared__ __align__(16) float sK[T * DA];
+  const int b = blockIdx.y, lane = threadIdx.x % 32;
   load_f32(sK, tok_k + (size_t)b * T * DA, T * DA);
-  if (LAYER == 2) load_f32(sV, rows, 3 * D);
   __syncthreads();
-  if (LAYER == 2) project_rows(sQ, sK, w_q);     // read after the next barrier
-
-  const int tiles = m / BM;
-  const int t_end = min(tiles, (int)(blockIdx.x + 1) * TILES_PER_CTA);
-  for (int tile = blockIdx.x * TILES_PER_CTA; tile < t_end; ++tile) {
-    const int m0 = tile * BM;
+  const int t0 = blockIdx.x * L1_TILES, t_end = min(m / BM, t0 + L1_TILES);
+  __nv_bfloat16* ob = out + (size_t)b * HT * m;
+  const float scale = rsqrtf((float)HD);
+  for (int i = t0; i < t_end; ++i) {
+    PeCol pe;
+    load_pe(pe, q1st, m, i * BM + lane);
     float s[T];
-    if (LAYER == 1) {
 #pragma unroll
-      for (int t = 0; t < T; ++t) s[t] = 0.f;
-      add_pe_term(s, sK, q1st, m, h, m0 + lane);
-    } else {
-      load_rows_tile(sY, LDY, img0, m0, BM);
-      load_p_tile(sP, p1 + (size_t)b * HT * m, m, m0, BM);
-      __syncthreads();
-      recon_layer(sY, LDY, sP, c1 + (size_t)b * HT * D, sV, eps);
-      head_scores(s, sQ, sY, LDY, h, lane);
-      add_pe_term(s, sK, peq2t, m, h, m0 + lane);
-    }
+    for (int t = 0; t < T; ++t) s[t] = 0.f;
+    add_pe_term_f32(s, sK, pe);
 #pragma unroll
     for (int t = 0; t < T; ++t) s[t] *= scale;
     softmax_tokens(s);
-#pragma unroll
-    for (int t = 0; t < T; ++t)
-      out[((size_t)b * HT + h * T + t) * m + m0 + lane] = __float2bfloat16(s[t]);
-    if (LAYER == 2) __syncthreads();             // the tile is reloaded
+    emit_p(ob + i * BM, m, s);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+i2t_probs_l2_kernel(const __nv_bfloat16* __restrict__ tok_k,  // [B, T, DA]
+                    const __nv_bfloat16* __restrict__ img0,   // [M, D]
+                    const __nv_bfloat16* __restrict__ p1,     // [B, HT, M]
+                    const __nv_bfloat16* __restrict__ c1,     // [B, HT, D]
+                    const __nv_bfloat16* __restrict__ peq2t,  // [DA, M]
+                    const __nv_bfloat16* __restrict__ w_q,    // [D, DA]
+                    const __nv_bfloat16* __restrict__ rows,   // [8, D]
+                    __nv_bfloat16* __restrict__ out,          // [B, HT, M]
+                    int m, float eps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __half* sYh = reinterpret_cast<__half*>(smem + OFF_Y);
+  __half* sYl = sYh + BM * D;
+  __half* sQh = reinterpret_cast<__half*>(smem + OFF_Q);
+  __half* sQl = sQh + HT * D;
+  __nv_bfloat16* sC = reinterpret_cast<__nv_bfloat16*>(smem + OFF_C);
+  float* sS = reinterpret_cast<float*>(smem + OFF_S);
+  float2* red = reinterpret_cast<float2*>(smem + OFF_S);
+  __nv_bfloat16* sP = reinterpret_cast<__nv_bfloat16*>(smem + OFF_P);
+  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + OFF_V);
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + OFF_K);
+  float* sSc = reinterpret_cast<float*>(smem + OFF_SC);
+  float* scratch = sSc + 8;
+  float* xk = reinterpret_cast<float*>(smem + OFF_Y);   // token keys f32
+
+  const int b = blockIdx.y, lane = threadIdx.x % 32;
+  const int t0 = blockIdx.x * L2_TILES, t_end = min(m / BM, t0 + L2_TILES);
+  const __nv_bfloat16* pb = p1 + (size_t)b * HT * m;
+  __nv_bfloat16* ob = out + (size_t)b * HT * m;
+  // tile i's P1 into buffer (i - t0) % 2, one commit group a tile
+  load_p_async(sP, pb, m, t0 * BM);
+  cp_async_commit();
+  copy16(sV, rows, 6 * D);
+  copy16(sK, tok_k + (size_t)b * T * DA, T * DA);
+  load_f32(xk, tok_k + (size_t)b * T * DA, T * DA);
+  stage_c(sC, c1 + (size_t)b * HT * D);
+  __syncthreads();
+  branch_scales(sSc, scratch, sV);
+  project_rows_tc(sQh, sQl, sSc + 2, scratch, xk, w_q);   // K2 = k Wq2^T
+  __syncthreads();
+
+  const float ys1 = sSc[0];                               // the planes' s
+  const float unscale = 1.f / (sSc[2] * ys1);
+  Frag y;                                                 // the f32 branch tile
+  for (int i = t0; i < t_end; ++i) {
+    const int m0 = i * BM;
+    PeCol pe;                                             // each asked for a phase ahead
+    ImgFrag img;
+    load_pe(pe, peq2t, m, m0 + lane);
+    load_img0(img, img0, m0);
+    if (i + 1 < t_end) load_p_async(sP + ((i + 1 - t0) & 1) * HT * BM, pb, m, m0 + BM);
+    cp_async_commit();
+    cp_async_wait1();                                     // tile i's P1
+    __syncthreads();
+    rebuild_tc<true>(y, img, sYh, sYl, sP + ((i - t0) & 1) * HT * BM, sC, sV, red, eps, ys1,
+                     nullptr);                            // keys1
+    scores_tc(sS, sQh, sQl, sYh, sYl);
+    __syncthreads();
+    float s[T];
+    head_scores_tc(s, sS, sK, pe, unscale);
+    softmax_tokens(s);
+    emit_p(ob + m0, m, s);                                // P2
   }
 }
 
@@ -103,20 +162,22 @@ extern "C" int rat_i2t_probs(const void* q1st, const void* tok_k, const void* im
   if (b < 1 || b > 65535 || m < BM || m % BM != 0 || (layer != 1 && layer != 2))
     return (int)cudaErrorInvalidValue;
   typedef const __nv_bfloat16* P;
-  const dim3 grid((m / BM + TILES_PER_CTA - 1) / TILES_PER_CTA, b);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int tiles = m / BM;
   if (layer == 1) {
-    i2t_probs_kernel<1><<<grid, THREADS, SMEM_K, s>>>(
-        static_cast<P>(q1st), static_cast<P>(tok_k), nullptr, nullptr, nullptr, nullptr,
-        nullptr, nullptr, static_cast<__nv_bfloat16*>(out), m, eps);
+    i2t_probs_l1_kernel<<<dim3((tiles + L1_TILES - 1) / L1_TILES, b), THREADS, 0, s>>>(
+        static_cast<P>(q1st), static_cast<P>(tok_k), static_cast<__nv_bfloat16*>(out), m);
   } else {
     cudaError_t err = cudaFuncSetAttribute(
-        i2t_probs_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_L2);
+        i2t_probs_l2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_L2);
     if (err != cudaSuccess) return (int)err;
-    i2t_probs_kernel<2><<<grid, THREADS, SMEM_L2, s>>>(
-        nullptr, static_cast<P>(tok_k), static_cast<P>(img0), static_cast<P>(p1),
-        static_cast<P>(c1), static_cast<P>(peq2t), static_cast<P>(w_q), static_cast<P>(rows),
+    i2t_probs_l2_kernel<<<dim3((tiles + L2_TILES - 1) / L2_TILES, b), THREADS, SMEM_L2, s>>>(
+        static_cast<P>(tok_k), static_cast<P>(img0), static_cast<P>(p1), static_cast<P>(c1),
+        static_cast<P>(peq2t), static_cast<P>(w_q), static_cast<P>(rows),
         static_cast<__nv_bfloat16*>(out), m, eps);
   }
   return (int)cudaGetLastError();
 }
+
+// Dynamic shared memory of a CTA of `layer` in bytes (a report, no launch).
+extern "C" int rat_i2t_probs_smem(int layer) { return layer == 2 ? SMEM_L2 : 0; }

@@ -9,39 +9,60 @@
 //   out[t, h] = softmax_m(q[t, h] . (keys Wk + pe_k)[m, h] / 4) . (keys Wv + bv)[:, h]
 // with 7 token queries and 8 heads of 16 over M = 4096 positions.
 //
-// What bounds it on the H100: the FMA units. Per position the rebuild
-// costs 56 x 256 multiply-adds a layer, the scores 56 x 256 and the
-// context 56 x 256: about 0.36 (depth 1) or 0.48 (depth 2) TFLOP at 1024
-// prompts, in f32 as in the JAX kernel (its keys are f32). Bytes are
-// small: P (470 MB a layer at 1024 prompts) is read once.
+// What bounds it on the H100: operations. Per position the rebuild costs
+// 56 x 256 multiply-adds a layer (bf16 operands, exact products), the
+// scores 56 x 256 and the context 56 x 256 against the f32 branch: about
+// 0.36 (depth 1) or 0.48 (depth 2) TFLOP at 1024 prompts. Bytes are small:
+// P (470 MB a layer at 1024 prompts) is read once.
 //
-// Design: one CTA of 8 warps per prompt walks the M positions in 32-
-// position tiles with an online softmax, as token_cross.cu does over
-// keys. The projections move to the query side (the JAX fused tail's
-// `_bd_attend_q`): s = (q_h Wk_h^T) . keys + q_h . pe_k and
-// out = (p . keys) Wv + bv, so no [M, 2*DA] k|v is ever formed; the same
-// function up to f32 reassociation. Warp = head, lane = position: each
-// warp keeps its head's 7 x 256 context in registers (56 a thread) and
-// takes the softmax weights of the other lanes by shuffles. C1, C2 are
-// read from L1/L2 (28 KB a prompt each); shared memory holds the f32
-// branch tile (33 KB) and the [56, 256] query-side matrix (57 KB), 104 KB
-// in all, so two CTAs share an SM.
+// Design: B3's pass A (decode_tail.cu) with P1 (and P2) read from device
+// memory instead of computed. One CTA of 8 warps per prompt walks the M
+// positions in 32-position tiles with an online softmax; the projections
+// move to the query side (the JAX fused tail's `_bd_attend_q`): s = (q_h
+// Wk_h^T) . keys + q_h . pe_k and out = (p . keys) Wv + bv, so no [M,
+// 2*DA] k|v is ever formed. Per tile, the products run on the tensor cores
+// by mma.sync (decode_tc.cuh): the rebuilds in bf16 onto the f32 branch
+// held in registers, the scores and the online-softmax context as three
+// fp16 products of hi/lo planes of their f32 operands times a power of two
+// (22 bits), each from a fresh accumulator joined in f32 by fmaf. The P
+// tiles arrive by cp.async one tile ahead, into the layout the rebuild
+// reads; the img0 and pe operands are asked for a phase ahead. The value
+// projection runs once, on the [56, 256] context, on the FMA units.
+// Shared memory: the branch planes (32 KB; the token rows before and after
+// the walk), the query-side matrix's planes (56 KB; then the context), C1
+// (and C2) staged once a prompt, S / p, two P tiles a layer, vectors and
+// scales: 138,304 B at depth 1, 174,144 B at depth 2, one CTA an SM.
 
 #include "decode_common.cuh"
+#include "decode_tc.cuh"
 
 namespace {
 
 using namespace rat_decode;
+using namespace rat_decode_tc;
 
-constexpr int SMEM_Y = BM * LDY * 4;
-constexpr int SMEM_Q = HT * D * 4;     // q Wk^T, then the context
-constexpr int SMEM_P = HT * BM * 2;
-constexpr int SMEM_V = 6 * D * 4;      // branch rows 0-5
-constexpr int SMEM_q = T * DA * 4;     // token queries
-constexpr int SMEM_O = T * DA * 4;     // attention output
-constexpr int SMEM_TOTAL = SMEM_Y + SMEM_Q + SMEM_P + SMEM_V + SMEM_q + SMEM_O;
+constexpr int PT = HT * BM;   // elements of one P tile
 
-__global__ void __launch_bounds__(THREADS)
+// Shared memory (bytes) of a CTA at depth DEPTH.
+template <int DEPTH>
+struct Smem {
+  static constexpr int Y = 0;                            // branch planes hi, lo / token rows
+  static constexpr int Q = Y + BM * D * 4;               // q Wk^T planes hi, lo / the context
+  static constexpr int C = Q + HT * D * 4;               // C1 (, C2) bf16, wide
+  static constexpr int S = C + DEPTH * HT * D * 2;       // S / p hi, lo; the LN's row sums
+  static constexpr int P = S + HT * BM * 4;              // P tiles [2][DEPTH][HT][BM] bf16
+  static constexpr int V = P + 2 * DEPTH * PT * 2;       // branch rows 0-5 bf16
+  static constexpr int QT = V + 6 * D * 2;               // token queries [T][DA] bf16
+  static constexpr int ALPHA = QT + T * DA * 2;          // rescale / 1 / sum [HT]
+  static constexpr int SC = ALPHA + 64 * 4;              // planes' s: Y1, Y2, Q; scratch [8]
+  static constexpr int TOTAL = SC + 16 * 4;
+};
+static_assert(Smem<1>::TOTAL == 138304 && Smem<2>::TOTAL == 174144, "the byte counts above");
+static_assert(Smem<2>::TOTAL <= 232448, "a CTA fits an SM");
+static_assert(BM * WARPS * 8 <= HT * BM * 4, "the LN's row sums fit S");
+
+template <int DEPTH>
+__global__ void __launch_bounds__(THREADS, 1)
 t2i_probs_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, DA]
                  const __nv_bfloat16* __restrict__ img0,   // [M, D]
                  const __nv_bfloat16* __restrict__ p1,     // [B, HT, M]
@@ -54,49 +75,105 @@ t2i_probs_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, DA]
                  const __nv_bfloat16* __restrict__ rows,   // [8, D]
                  const __nv_bfloat16* __restrict__ v_bias, // [DA]
                  __nv_bfloat16* __restrict__ out,          // [B, T, DA]
-                 int m, int depth, float eps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sY = reinterpret_cast<float*>(smem);
-  float* sQ = reinterpret_cast<float*>(smem + SMEM_Y);
-  __nv_bfloat16* sP = reinterpret_cast<__nv_bfloat16*>(smem + SMEM_Y + SMEM_Q);
-  float* sV = reinterpret_cast<float*>(smem + SMEM_Y + SMEM_Q + SMEM_P);
-  float* sq = reinterpret_cast<float*>(smem + SMEM_Y + SMEM_Q + SMEM_P + SMEM_V);
-  float* so = sq + T * DA;
+                 int m, float eps) {
+  using L = Smem<DEPTH>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __half* sYh = reinterpret_cast<__half*>(smem + L::Y);
+  __half* sYl = sYh + BM * D;
+  __half* sQh = reinterpret_cast<__half*>(smem + L::Q);
+  __half* sQl = sQh + HT * D;
+  __nv_bfloat16* sC = reinterpret_cast<__nv_bfloat16*>(smem + L::C);
+  float* sS = reinterpret_cast<float*>(smem + L::S);
+  __half* sPh = reinterpret_cast<__half*>(smem + L::S);
+  __half* sPl = sPh + HT * BM;
+  float2* red = reinterpret_cast<float2*>(smem + L::S);
+  __nv_bfloat16* sP = reinterpret_cast<__nv_bfloat16*>(smem + L::P);
+  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + L::V);
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem + L::QT);
+  float* alpha = reinterpret_cast<float*>(smem + L::ALPHA);
+  float* sSc = reinterpret_cast<float*>(smem + L::SC);
+  float* scratch = sSc + 8;
+  float* xq = reinterpret_cast<float*>(smem + L::Y);     // q f32, then the output rows
+  float* sCtx = reinterpret_cast<float*>(smem + L::Q);   // the context [HT][D] f32
 
-  const int b = blockIdx.x;
-  const int h = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float scale = rsqrtf((float)HD);
-  load_f32(sq, q + (size_t)b * T * DA, T * DA);
-  load_f32(sV, rows, 3 * depth * D);
-  __syncthreads();
-  project_rows(sQ, sq, w_k);                      // read after the next barrier
-
-  AttnState st;
-  attn_init(st);
-  for (int m0 = 0; m0 < m; m0 += BM) {
-    load_rows_tile(sY, LDY, img0, m0, BM);
-    load_p_tile(sP, p1 + (size_t)b * HT * m, m, m0, BM);
-    __syncthreads();
-    recon_layer(sY, LDY, sP, c1 + (size_t)b * HT * D, sV, eps);
-    if (depth == 2) {
-      load_p_tile(sP, p2 + (size_t)b * HT * m, m, m0, BM);
-      __syncthreads();
-      recon_layer(sY, LDY, sP, c2 + (size_t)b * HT * D, sV + 3 * D, eps);
-    }
-    float s[T];
-    head_scores(s, sQ, sY, LDY, h, lane);
-    add_pe_term(s, sq, pekt, m, h, m0 + lane);
+  const int b = blockIdx.x, lane = threadIdx.x % 32;
+  const int tiles = m / BM;
+  const __nv_bfloat16* pb[2] = {p1 + (size_t)b * HT * m,
+                                DEPTH == 2 ? p2 + (size_t)b * HT * m : nullptr};
+  // the P tiles of tile i into buffer i % 2, one commit group a tile
+  auto load_p = [&](int i) {
 #pragma unroll
-    for (int t = 0; t < T; ++t) s[t] *= scale;
-    attn_tile(st, s, sY, LDY);
-    __syncthreads();                              // the tile is reloaded
-  }
-  attn_store(st, sQ, h);                          // sQ is free: all scores done
+    for (int l = 0; l < DEPTH; ++l) load_p_async(sP + ((i & 1) * DEPTH + l) * PT, pb[l], m, i * BM);
+  };
+  load_p(0);
+  cp_async_commit();
+  copy16(sV, rows, 6 * D);
+  copy16(sq, q + (size_t)b * T * DA, T * DA);
+  load_f32(xq, q + (size_t)b * T * DA, T * DA);
+  stage_c(sC, c1 + (size_t)b * HT * D);
+  if (DEPTH == 2) stage_c(sC + HT * D, c2 + (size_t)b * HT * D);
   __syncthreads();
-  attn_out(so, sQ, w_v, v_bias);
+  branch_scales(sSc, scratch, sV);
+  project_rows_tc(sQh, sQl, sSc + 2, scratch, xq, w_k);
+  __syncthreads();
+
+  Online st;
+  Ctx ctx;
+  Frag y;                                        // the f32 branch tile
+  online_init(st);
+  context_init(ctx);
+  const float ys1 = sSc[0], ys2 = sSc[1];        // the planes' s
+  const float ys = DEPTH == 2 ? ys2 : ys1;       // the attended layer's
+  const float unscale = 1.f / (sSc[2] * ys);
+  for (int i = 0; i < tiles; ++i) {
+    const int m0 = i * BM;
+    PeCol pe;                                    // each asked for a phase ahead
+    ImgFrag img;
+    load_pe(pe, pekt, m, m0 + lane);
+    load_img0(img, img0, m0);
+    if (i + 1 < tiles) load_p(i + 1);
+    cp_async_commit();
+    cp_async_wait1();                            // tile i's P
+    __syncthreads();
+    const __nv_bfloat16* tp = sP + (i & 1) * DEPTH * PT;
+    rebuild_tc<true>(y, img, sYh, sYl, tp, sC, sV, red, eps, ys1, nullptr);       // keys1
+    if (DEPTH == 2)
+      rebuild_tc<false>(y, img, sYh, sYl, tp + PT, sC + HT * D, sV + 3 * D, red, eps, ys2,
+                        nullptr);                                                 // keys2
+    scores_tc(sS, sQh, sQl, sYh, sYl);
+    __syncthreads();
+    float s[T];
+    head_scores_tc(s, sS, sq, pe, unscale);
+    __syncthreads();                             // S read: p replaces it
+    online_tile(st, s, sPh, sPl, alpha);
+    __syncthreads();
+    context_tc(ctx, sPh, sPl, alpha, sYh, sYl);
+    __syncthreads();
+  }
+  online_finish(st, alpha);
+  __syncthreads();
+  context_store(ctx, alpha, 1.f / (P_SCALE * ys), sCtx);
+  __syncthreads();
+  attn_out(xq, sCtx, w_v, v_bias);
   __syncthreads();
   for (int i = threadIdx.x; i < T * DA; i += THREADS)
-    out[(size_t)b * T * DA + i] = __float2bfloat16(so[i]);
+    out[(size_t)b * T * DA + i] = __float2bfloat16(xq[i]);
+}
+
+template <int DEPTH>
+int launch(const void* const* ptrs, void* out, int b, int m, float eps, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(t2i_probs_kernel<DEPTH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Smem<DEPTH>::TOTAL);
+  if (err != cudaSuccess) return (int)err;
+  typedef const __nv_bfloat16* P;
+  t2i_probs_kernel<DEPTH><<<b, THREADS, Smem<DEPTH>::TOTAL, s>>>(
+      static_cast<P>(ptrs[0]), static_cast<P>(ptrs[1]), static_cast<P>(ptrs[2]),
+      static_cast<P>(ptrs[3]), static_cast<P>(ptrs[4]), static_cast<P>(ptrs[5]),
+      static_cast<P>(ptrs[6]), static_cast<P>(ptrs[7]), static_cast<P>(ptrs[8]),
+      static_cast<P>(ptrs[9]), static_cast<P>(ptrs[10]), static_cast<__nv_bfloat16*>(out), m,
+      eps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -108,14 +185,12 @@ extern "C" int rat_t2i_probs(const void* q, const void* img0, const void* p1, co
   if (b < 1 || m < BM || m % BM != 0 || (depth != 1 && depth != 2) ||
       (depth == 2 && (p2 == nullptr || c2 == nullptr)))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      t2i_probs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_TOTAL);
-  if (err != cudaSuccess) return (int)err;
-  typedef const __nv_bfloat16* P;
-  t2i_probs_kernel<<<b, THREADS, SMEM_TOTAL, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<P>(q), static_cast<P>(img0), static_cast<P>(p1), static_cast<P>(c1),
-      static_cast<P>(p2), static_cast<P>(c2), static_cast<P>(w_k), static_cast<P>(w_v),
-      static_cast<P>(pekt), static_cast<P>(rows), static_cast<P>(v_bias),
-      static_cast<__nv_bfloat16*>(out), m, depth, eps);
-  return (int)cudaGetLastError();
+  const void* ptrs[11] = {q, img0, p1, c1, p2, c2, w_k, w_v, pekt, rows, v_bias};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return depth == 2 ? launch<2>(ptrs, out, b, m, eps, s) : launch<1>(ptrs, out, b, m, eps, s);
+}
+
+// Dynamic shared memory of a CTA at `depth` in bytes (a report, no launch).
+extern "C" int rat_t2i_probs_smem(int depth) {
+  return depth == 2 ? Smem<2>::TOTAL : Smem<1>::TOTAL;
 }

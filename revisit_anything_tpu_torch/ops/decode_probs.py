@@ -142,7 +142,14 @@ def i2t_probs(q1st: Optional[torch.Tensor], tok_k: torch.Tensor,
     tok_k [B, T, DA] the projected token keys.
 
     CUDA: kernel B7 (bf16; D 256, DA 128, 8 heads, 7 tokens, M a
-    multiple of 32). CPU: :func:`i2t_probs_reference`."""
+    multiple of 32). Layer 1 computes the scores on the FMA units, as
+    the plain version rounds them. Layer 2 rebuilds keys1 a 32-position
+    tile at a time on the tensor cores, from bf16 P1 and C1 onto the f32
+    img0, exact up to the order of summation. It projects on the query
+    side, s = (k_h·W_q,hᵀ)·keys1 + k_h·peq2_h, with the product against
+    the f32 branch as three fp16 products of power-of-two-scaled hi/lo
+    planes, 22 bits of each operand. The result is the same function up
+    to f32 reassociation. CPU: :func:`i2t_probs_reference`."""
     if not tok_k.is_cuda:
         return i2t_probs_reference(q1st, tok_k, heads, layer=layer,
                                    recon=recon, eps=eps)
@@ -200,9 +207,14 @@ def t2i_from_probs(q_tok: torch.Tensor, img0: torch.Tensor,
     v_bias [DA]. Returns the pre-out-projection output [B, T, DA].
 
     CUDA: kernel B8 (bf16, the shapes of :func:`i2t_probs`). The kernel
-    projects on the query side — s = (q_h·W_k,hᵀ)·keys + q_h·pe_k,h and
-    o = (p·keysᵀ)·W_v + v_bias — the same function up to f32
-    reassociation. CPU: :func:`t2i_from_probs_reference`."""
+    rebuilds the branch a 32-position tile at a time on the tensor cores
+    (bf16 P·C onto the f32 branch) and projects on the query side:
+    s = (q_h·W_k,hᵀ)·keys + q_h·pe_k,h and o = (p·keys)·W_v + v_bias,
+    with an online softmax over the tiles. The scores and p·keys against
+    the f32 branch run as three fp16 products of power-of-two-scaled
+    hi/lo planes, 22 bits of each operand. The result is the same
+    function up to f32 reassociation. CPU:
+    :func:`t2i_from_probs_reference`."""
     if not q_tok.is_cuda:
         return t2i_from_probs_reference(q_tok, img0, p1, c1, p2, c2, w_k,
                                         w_v, pekt, rows, v_bias, heads, eps)

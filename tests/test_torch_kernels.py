@@ -577,10 +577,39 @@ def _probs_inputs(cuda, b=16, m=4096, seed=5):
                 v_bias=rnd(128, s=0.1), rows=rows.to(bf))
 
 
+def _large_branch(x, ln_scale, depth):
+    """The inputs ``x`` with the branch LayerNorm scales of the first
+    ``depth`` layers times ``ln_scale`` and the query-side weight ``w``
+    divided by it (both exact in bf16 at a power of two): the branch
+    grows by ``ln_scale`` and the scores against it keep their usual
+    size (at 2^15 times it a softmax over them is one hot and flips at
+    near-ties under any change of the summation order, PERF.md §6)."""
+    rows = x["rows"].clone()
+    rows[[1, 4][:depth]] *= ln_scale
+    return dict(x, rows=rows, w=x["w"] / ln_scale)
+
+
+# (layer or depth, prompts, M, branch LayerNorm scale): the serving shape
+# at 16 prompts, more prompts than the card's 132 SMs, M = 96 (three
+# tiles: the online softmax rescales its context across tiles) and both
+# branch LayerNorm scales times 2^15, so that the branch passes fp16's
+# largest value 65504, which the kernels' fp16 planes hold times a power
+# of two
+PROBS_CASES = [
+    pytest.param(1, 16, 4096, 1.0, id="1"),
+    pytest.param(2, 16, 4096, 1.0, id="2"),
+    pytest.param(1, 140, 4096, 1.0, id="1-140-4096"),
+    pytest.param(2, 140, 4096, 1.0, id="2-140-4096"),
+    pytest.param(1, 16, 96, 1.0, id="1-16-96"),
+    pytest.param(2, 16, 96, 1.0, id="2-16-96"),
+    pytest.param(1, 16, 256, 32768.0, id="1-16-256-large-branch"),
+    pytest.param(2, 16, 256, 32768.0, id="2-16-256-large-branch")]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("layer", [1, 2])
-def test_i2t_probs_kernel_matches_plain(cuda, layer):
-    x = _probs_inputs(cuda)
+@pytest.mark.parametrize("layer,b,m,ln_scale", PROBS_CASES)
+def test_i2t_probs_kernel_matches_plain(cuda, layer, b, m, ln_scale):
+    x = _large_branch(_probs_inputs(cuda, b=b, m=m), ln_scale, 1)
     recon = (x["img0"], x["p1"], x["c1"], x["peqt"], x["w"], x["rows"])
     kw = dict(layer=layer, recon=recon if layer == 2 else None)
     q1st = x["q1st"] if layer == 1 else None
@@ -589,14 +618,18 @@ def test_i2t_probs_kernel_matches_plain(cuda, layer):
     want = dpr.i2t_probs_reference(q1st, x["tok_k"], 8, **kw)
     torch.cuda.synchronize()
     assert build.I2T_PROBS.launches == before + 1
-    assert got.shape == want.shape == (16, 56, 4096)
+    assert got.shape == want.shape == (b, 56, m)
+    if ln_scale > 1.0 and layer == 2:
+        keys1 = dpr.recon_branch(x["img0"], [x["p1"]], [x["c1"]], x["rows"],
+                                 1e-6)
+        assert keys1.abs().max().item() > 65504
     assert _rel_err(got, want) < BF16_REL
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("depth", [1, 2])
-def test_t2i_from_probs_kernel_matches_plain(cuda, depth):
-    x = _probs_inputs(cuda)
+@pytest.mark.parametrize("depth,b,m,ln_scale", PROBS_CASES)
+def test_t2i_from_probs_kernel_matches_plain(cuda, depth, b, m, ln_scale):
+    x = _large_branch(_probs_inputs(cuda, b=b, m=m), ln_scale, depth)
     p2, c2 = (x["p2"], x["c2"]) if depth == 2 else (None, None)
     args = (x["q"], x["img0"], x["p1"], x["c1"], p2, c2, x["w"], x["w_v"],
             x["peqt"], x["rows"], x["v_bias"], 8)
@@ -605,8 +638,41 @@ def test_t2i_from_probs_kernel_matches_plain(cuda, depth):
     want = dpr.t2i_from_probs_reference(*args)
     torch.cuda.synchronize()
     assert build.T2I_PROBS.launches == before + 1
-    assert got.shape == want.shape == (16, 7, 128)
+    assert got.shape == want.shape == (b, 7, 128)
+    if ln_scale > 1.0:
+        ps, cs = [x["p1"], x["p2"]][:depth], [x["c1"], x["c2"]][:depth]
+        keys = dpr.recon_branch(x["img0"], ps, cs, x["rows"], 1e-6)
+        assert keys.abs().max().item() > 65504
+    assert torch.isfinite(got.float()).all()
     assert _rel_err(got, want) < BF16_REL
+
+
+@pytest.mark.gpu
+def test_probs_kernels_permute_with_their_prompts(cuda):
+    """Permuting the prompts permutes B7's (both layers) and B8's (both
+    depths) outputs bit for bit: a CTA reads its own prompt's token rows,
+    P and C only."""
+    b = 24
+    x = _probs_inputs(cuda, b=b, m=256)
+    perm = torch.randperm(b, generator=torch.Generator().manual_seed(0))
+    perm = perm.to(cuda)
+    xp = {k: (v[perm] if k in ("tok_k", "q", "p1", "p2", "c1", "c2") else v)
+          for k, v in x.items()}
+
+    def run(y):
+        recon = (y["img0"], y["p1"], y["c1"], y["peqt"], y["w"], y["rows"])
+        outs = [dpr.i2t_probs(y["q1st"], y["tok_k"], 8),
+                dpr.i2t_probs(None, y["tok_k"], 8, layer=2, recon=recon)]
+        for p2, c2 in ((None, None), (y["p2"], y["c2"])):
+            outs.append(dpr.t2i_from_probs(
+                y["q"], y["img0"], y["p1"], y["c1"], p2, c2, y["w"],
+                y["w_v"], y["peqt"], y["rows"], y["v_bias"], 8))
+        return outs
+
+    base, got = run(x), run(xp)
+    torch.cuda.synchronize()
+    for a, w in zip(got, base):
+        assert torch.equal(a, w[perm])
 
 
 def _mask_head_probs_args(cuda, np_, m, seed=6):
