@@ -1,7 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build the kernels, hold
 each against its plain PyTorch version at the serving path's shapes, then
-serve full-width SegVLAD queries through the kernels, in each of the
-decoder's forms and with the encoder's windowed layers either way.
+serve full-width SegVLAD queries through the kernels over a live database
+(inserts, removals, snapshots, pipelined and concurrent queries, the
+streaming kNN), in each of the decoder's forms and with the encoder's
+windowed layers either way, and load full-size checkpoints onto the card.
 
     python3 chip_smoke.py
 
@@ -33,8 +35,11 @@ Phases (any failure exits non-zero):
      bf16, random weights from a seed, SAM's made to segment a blob
      around each point prompt so AMG keeps many segments; 480x640
      queries, SAM at 240x320, 1024-prompt AMG, a 100k-segment /
-     2000-image index made on the card) and plant two images' own
-     segment rows in the index; each must keep at least 32 segments;
+     2000-image index made on the card, with room for 16 more images);
+     [insert]: add two planted images and 14 more through
+     add_reference_images in one chunk with the counters reset first:
+     the "shared" kernels must launch, each planted image keep at least
+     32 segment rows;
   6. answer 3 queries with every launch counter reset first; every kernel
      of the "shared" decoder must have launched, each planted image must
      come back first for a noisy copy of itself, and answers must be
@@ -59,7 +64,25 @@ Phases (any failure exits non-zero):
      the same query with the form's decode kernels' plain f32 versions in
      their place (B7 and B8; the decode tail), with the predicted IoU at
      the top-128 cut ([witness]);
- 10. print the kernel table as one JSON line (B10, token_cross_split, has
+ 10. [insert], continued: remove planted image 1 (its noisy copy must no
+     longer find it), snapshot the database to an npz and restore it
+     into a fresh server: the same top-5 on the three queries;
+ 11. [pipeline]: 8 queries one after another, and through query_many with
+     1-4 workers: equal answers; wall time, queries/s, device busy time
+     and idle share (torch.profiler);
+ 12. [concurrent]: a restored server inserts 4 images on one thread while
+     query_many answers the 8 queries: each answer is the one before or
+     after the insert, and the new images are found first afterwards;
+ 13. [stream-knn]: one query's tail over a 600k-row bf16 database at PCA
+     1024 (past the one-shot cap) by the streaming path and by the
+     one-shot path with the cap raised: the same top-5, the planted
+     image first; tail times and peak device memory;
+ 14. [checkpoint]: a seeded original-layout SAM ViT-H state dict saved
+     with torch.save and loaded by load_sam_checkpoint, a hub-layout
+     DINOv2-g dict converted in memory, both onto the card in bf16 (load
+     seconds, peak host RSS, device memory); leaves spot-checked against
+     the dicts; one query through them with the "shared" kernels;
+ 15. print the kernel table as one JSON line (B10, token_cross_split, has
      no caller on a serving path, as in the JAX package: launches 0),
      then the result line.
 """
@@ -669,7 +692,9 @@ def _image(rng, hw):
 
 
 def serve(dev, seed: int = 0) -> dict:
-    """Full-width server, planted index, 3 counted queries."""
+    """Full-width server over a 100k-row index with room for 16 images,
+    the planted images inserted through ``add_reference_images``, 3
+    counted queries, then the other phases on the same models."""
     import numpy as np
     import torch
 
@@ -680,7 +705,6 @@ def serve(dev, seed: int = 0) -> dict:
     from revisit_anything_tpu_torch.models.dinov2 import VIT_G14
     from revisit_anything_tpu_torch.models.sam import SAM_VIT_H
     from revisit_anything_tpu_torch.models.sam.amg import AmgConfig
-    from revisit_anything_tpu_torch.pipeline.query import query_segment_rows
     from revisit_anything_tpu_torch.pipeline.serve import (SegVLADServer,
                                                            ServingIndex)
     from revisit_anything_tpu_torch.weights import (init_dino, init_sam,
@@ -696,55 +720,34 @@ def serve(dev, seed: int = 0) -> dict:
     db = db / db.norm(dim=1, keepdim=True)
     ids = torch.arange(n_db // per_image, device=dev).repeat_interleave(
         per_image)
-
-    def index(rows):
-        return ServingIndex(
-            centers=torch.randn((NUM_CLUSTERS, DINO_G_DIM), generator=gen_c,
-                                device=dev),
-            pca_mean=torch.zeros(NUM_CLUSTERS * DINO_G_DIM, device=dev),
-            pca_components=pca, pca_variance=torch.ones(PCA_DIM, device=dev),
-            pca_whiten=True, db=rows, db_image_ids=ids,
-            num_ref_images=n_db // per_image, order=3)
-
     pca = torch.randn((PCA_DIM, NUM_CLUSTERS * DINO_G_DIM), generator=gen,
                       device=dev) * 0.01
+    index = ServingIndex(
+        centers=torch.randn((NUM_CLUSTERS, DINO_G_DIM), generator=gen,
+                            device=dev),
+        pca_mean=torch.zeros(NUM_CLUSTERS * DINO_G_DIM, device=dev),
+        pca_components=pca, pca_variance=torch.ones(PCA_DIM, device=dev),
+        pca_whiten=True, db=db, db_image_ids=ids,
+        num_ref_images=n_db // per_image, order=3)
     amg = AmgConfig(points_per_batch=1024, pred_iou_thresh=-1e9,
                     stability_score_thresh=0.0)
     kw = dict(sam=sam, dino=dino, full_hw=PLACES17_HW,
               sam_hw=PLACES17_SAM_HW, amg=amg, max_masks=128)
-    gen_c = torch.Generator(device=dev).manual_seed(seed + 1)
-    srv = SegVLADServer(index=index(db), **kw)
+    srv = SegVLADServer(index=index, db_capacity=n_db + 16 * 128,
+                        insert_chunk=16, **kw)
+    del db, ids, pca, index
     torch.cuda.synchronize()
     print(f"[serve] models + index ready in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    # plant images A and B (their own segment rows) as database images 0, 1
+    # [insert]: planted images A and B, then 14 more, in one chunk, after
+    # one query has warmed the front up
+    srv.query(_image(np.random.default_rng(seed + 100), PLACES17_HW))
     rng = np.random.default_rng(seed)
-    planted = [_image(rng, PLACES17_HW) for _ in range(2)]
-    row = 0
-    for iid, img in enumerate(planted):
-        with torch.inference_mode():
-            pm, stats, desc = srv._front(torch.from_numpy(img).to(dev))
-            adj, n_kept = srv._adjacency(stats.cpu().numpy())
-            rows, valid = query_segment_rows(
-                desc, pm, torch.from_numpy(adj).to(dev), srv._centers,
-                srv._pca_mean, srv._pca_comps, srv._pca_var)
-            n_plant = min(int(valid.sum()), per_image)
-            db[row:row + n_plant] = rows[valid][:n_plant]
-            ids[row:row + n_plant] = iid
-        row += per_image
-        print(f"[serve] planted image {iid}: {n_kept} masks kept, "
-              f"{int(valid.sum())} valid segment rows, {n_plant} planted",
-              flush=True)
-        # the planted segmenter keeps ~128 segments a 17places image
-        if n_kept < 32 or n_plant == 0:
-            _fail(f"the served AMG kept {n_kept} masks for a planted image "
-                  "(expected at least 32)")
-    gen_c.manual_seed(seed + 1)
-    srv = SegVLADServer(index=index(db), **kw)
+    inserted = [_image(rng, PLACES17_HW) for _ in range(16)]
+    planted = insert_phase(srv, inserted)
 
-    queries = [np.clip(img.astype(np.int16) + rng.integers(-4, 5, img.shape),
-                       0, 255).astype(np.uint8) for img in planted]
+    queries = [_noisy(rng, inserted[i]) for i in range(2)]
     queries.append(_image(rng, PLACES17_HW))
 
     torch.cuda.synchronize()
@@ -766,13 +769,10 @@ def serve(dev, seed: int = 0) -> dict:
     print(f"[serve] peak device memory {peak_gib:.2f} GiB", flush=True)
 
     for top in answers:
-        if top.shape != (5,) or not ((top >= -1) & (top < n_db // per_image)
-                                     ).all():
-            _fail(f"malformed answer {top}")
-    for iid in range(2):
-        if answers[iid][0] != iid:
-            _fail(f"noisy copy of planted image {iid} answered "
-                  f"{answers[iid]}")
+        _check_answer(srv, top)
+    for i, iid in enumerate(planted):
+        if answers[i][0] != iid:
+            _fail(f"noisy copy of planted image {iid} answered {answers[i]}")
     again = srv.query(queries[2])
     if not np.array_equal(again, answers[2]):
         _fail(f"query not deterministic: {answers[2]} vs {again}")
@@ -781,28 +781,628 @@ def serve(dev, seed: int = 0) -> dict:
         _fail(f"kernels not launched on the served path: {missing}")
     stage_split(srv, queries[2], answers[2])
     layer_breakdown(srv)
-    window = serve_window_kernel(srv, queries[0])
+    window = serve_window_kernel(srv, queries[0], planted[0])
 
-    # the probability-factored decoder forms: same weights, index and
+    # the probability-factored decoder forms: same weights, database and
     # AmgConfig but for ``decode``, one planted query each
     shared_ms = _decode_ms(srv, queries[0])
     print(f"[variant] shared: decode stage {shared_ms:.3f} ms (CUDA events)",
           flush=True)
     variants, servers = {}, {"shared": srv}
     for decode in VARIANTS:
-        gen_c.manual_seed(seed + 1)
-        vsrv = SegVLADServer(index=index(db), **dict(
+        vsrv = SegVLADServer(index=_live_index(srv), **dict(
             kw, amg=dataclasses.replace(amg, decode=decode)))
         also = ("fused_tail_keys",) if decode == "fused_tail_logits" else ()
         variants[decode] = serve_variant(
-            vsrv, queries[0], decode,
+            vsrv, queries[0], decode, planted[0],
             {name: servers[name] for name in ("shared",) + also})
         if decode == "fused_tail_keys":
             servers[decode] = vsrv
         plain_witness(vsrv, queries[0], srv, decode)
         del vsrv
+    servers.clear()
+
+    remove_and_snapshot(srv, queries, planted, kw)
+    more = [_noisy(rng, inserted[i]) for i in range(2, 7)]
+    pipelined = pipeline_phase(srv, queries + more)
+    concurrent = concurrent_phase(srv, queries + more, rng, kw)
+    stream = stream_knn_phase(srv, queries[0], planted[0])
     return dict(counts=counts, wall_ms=wall, peak_gib=peak_gib,
-                variants=variants, window=window)
+                variants=variants, window=window, pipelined=pipelined,
+                concurrent=concurrent, stream=stream)
+
+
+def _noisy(rng, img):
+    import numpy as np
+    return np.clip(img.astype(np.int16) + rng.integers(-4, 5, img.shape),
+                   0, 255).astype(np.uint8)
+
+
+def _check_answer(srv, top) -> None:
+    """A well-formed answer: 5 image ids in range, −1 for unfilled ranks."""
+    if top.shape != (5,) or not ((top >= -1) & (top < srv.num_ref_images)
+                                 ).all():
+        _fail(f"malformed answer {top}")
+
+
+def _live_index(srv):
+    """A ServingIndex of ``srv``'s current device state (used in place)."""
+    from revisit_anything_tpu_torch.pipeline.serve import ServingIndex
+    db, ids, _ = srv._db_state
+    return ServingIndex(centers=srv._centers, pca_mean=srv._pca_mean,
+                        pca_components=srv._pca_comps,
+                        pca_variance=srv._pca_var, pca_whiten=srv._whiten,
+                        db=db, db_image_ids=ids,
+                        num_ref_images=srv.num_ref_images, order=srv.order)
+
+
+def insert_phase(srv, imgs) -> list:
+    """[insert]: ``imgs`` added in one chunk with the counters reset
+    first: the "shared" kernels must launch, and each of the first two
+    (the planted images) keep at least 32 segment rows. Returns their
+    ids."""
+    import torch
+
+    from revisit_anything_tpu_torch.kernels import build
+    from revisit_anything_tpu_torch.pipeline.query import DB_GUARD
+
+    cursor = srv._cursor
+    torch.cuda.synchronize()
+    build.reset_counts()
+    t = time.perf_counter()
+    ids = srv.add_reference_images(imgs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    counts = {k.name: k.launches for k in build.KERNELS}
+    db, db_ids = srv._db[cursor:srv._cursor], srv._db_ids[cursor:srv._cursor]
+    live = (db.float() < DB_GUARD / 2).all(1)
+    rows = [int((live & (db_ids == i)).sum()) for i in ids]
+    print(f"[insert] {len(imgs)} images in one chunk: {secs:.3f} s, "
+          f"{secs / len(imgs) * 1e3:.1f} ms an image; ids {ids[0]}..{ids[-1]}"
+          f"; segment rows an image {rows}; cursor {cursor} -> {srv._cursor}"
+          f" of {srv._capacity}; launches {counts}", flush=True)
+    _check_launches(counts, "shared")
+    if ids != list(range(ids[0], ids[0] + len(imgs))):
+        _fail(f"insert assigned ids {ids}")
+    for iid, n in zip(ids[:2], rows):
+        # the planted segmenter keeps ~128 segments a 17places image
+        if n < 32:
+            _fail(f"planted image {iid} kept {n} segment rows (expected at "
+                  "least 32)")
+    return ids[:2]
+
+
+def remove_and_snapshot(srv, queries, planted, kw) -> None:
+    """[insert], continued: planted image 1 removed (its noisy copy no
+    longer finds it in the top-5), then the database snapshot to an npz,
+    read by ``ServingIndex.from_npz`` into a fresh server that answers the
+    three queries as the live one."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from revisit_anything_tpu_torch.pipeline.serve import (SegVLADServer,
+                                                           ServingIndex)
+
+    srv.remove_reference_image(planted[1])
+    after = [srv.query(q) for q in queries]
+    if planted[1] in after[1]:
+        _fail(f"removed image {planted[1]} still answered: {after[1]}")
+    if after[0][0] != planted[0]:
+        _fail(f"after the removal planted image {planted[0]} answered "
+              f"{after[0]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "index.npz")
+        t = time.perf_counter()
+        snap = srv.snapshot_index(path)
+        secs = time.perf_counter() - t
+        size = os.path.getsize(path)
+        fresh = SegVLADServer(index=ServingIndex.from_npz(path), **kw)
+    got = [fresh.query(q) for q in queries]
+    print(f"[insert] removed image {planted[1]}: top-5 of its noisy copy "
+          f"{after[1].tolist()}; snapshot of {len(snap.db)} rows, "
+          f"{snap.num_ref_images} images in {secs:.2f} s ({size / 2 ** 20:.0f}"
+          f" MiB npz); restored server top-5 {[g.tolist() for g in got]}",
+          flush=True)
+    for a, g in zip(after, got):
+        if not np.array_equal(a, g):
+            _fail(f"restored snapshot answered {g}, the live server {a}")
+    del fresh
+
+
+def _busy_ms(prof) -> float:
+    """The union of a trace's device-event intervals, ms."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    return busy / 1e3
+
+
+def pipeline_phase(srv, queries) -> dict:
+    """[pipeline]: the queries one after another, then through
+    ``query_many`` with 1-4 workers: the answers must be equal. Wall time
+    (the best of 3 rounds, the modes in turns), queries/s, the caching
+    allocator's device allocations and frees over the rounds, and the
+    device's busy time and idle share from one torch.profiler trace of
+    each."""
+    import numpy as np
+    import torch
+
+    runs = {"sequential": lambda: [srv.query(q) for q in queries]}
+    for n in (1, 2, 3, 4):
+        runs[f"{n} worker{'s' if n > 1 else ''}"] = (
+            lambda n=n: srv.query_many(queries, n))
+    want = runs["sequential"]()                      # also a warm-up
+    walls = {name: [] for name in runs}
+    mallocs = {name: [0, 0] for name in runs}
+    for _ in range(3):
+        for name, run in runs.items():
+            torch.cuda.synchronize()
+            st = torch.cuda.memory_stats()
+            t = time.perf_counter()
+            got = run()
+            walls[name].append(time.perf_counter() - t)
+            st2 = torch.cuda.memory_stats()
+            for i, key in enumerate(("num_device_alloc", "num_device_free")):
+                mallocs[name][i] += st2[key] - st[key]
+            for a, b in zip(got, want):
+                if not np.array_equal(a, b):
+                    _fail(f"[pipeline] {name} answered {a}, sequential {b}")
+    out = {}
+    for name, run in runs.items():
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            traced = time.perf_counter() - t
+        busy = _busy_ms(prof)
+        wall = min(walls[name])
+        out[name] = dict(wall_s=wall, qps=len(queries) / wall,
+                         busy_ms=busy, traced_wall_s=traced,
+                         idle_share=1.0 - busy / 1e3 / wall)
+        print(f"[pipeline] {name}: {len(queries)} queries in "
+              f"{wall * 1e3:.1f} ms ({out[name]['qps']:.2f} queries/s; "
+              f"rounds {' '.join(f'{w * 1e3:.1f}' for w in walls[name])} ms;"
+              f" device allocations / frees over the rounds "
+              f"{mallocs[name][0]} / {mallocs[name][1]}); device busy "
+              f"{busy:.1f} ms of a {traced * 1e3:.1f} ms traced run, idle "
+              f"share {out[name]['idle_share']:.3f} of the untraced wall "
+              f"({1.0 - busy / 1e3 / traced:.3f} of the traced)", flush=True)
+    return out
+
+
+def concurrent_phase(srv, queries, rng, kw) -> dict:
+    """[concurrent]: a server restored from ``srv``'s snapshot with room
+    for 4 images; one thread inserts them in one chunk while
+    ``query_many`` answers the queries on 4 workers. Every answer must be
+    the query's answer before the insert or after it; then each new
+    image's noisy copy must find it first."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from revisit_anything_tpu_torch.config import PLACES17_HW
+    from revisit_anything_tpu_torch.pipeline.serve import SegVLADServer
+
+    snap = srv.snapshot_index()
+    live = SegVLADServer(index=snap, db_capacity=len(snap.db) + 4 * 128,
+                         insert_chunk=4, **kw)
+    new = [_image(rng, PLACES17_HW) for _ in range(4)]
+    before = [live.query(q) for q in queries]
+    result = {}
+
+    def insert():
+        t = time.perf_counter()
+        result["ids"] = live.add_reference_images(new)
+        result["s"] = time.perf_counter() - t
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    thread = threading.Thread(target=insert)
+    thread.start()
+    during = live.query_many(queries, 4)
+    thread.join()
+    wall = time.perf_counter() - t
+    if "ids" not in result:
+        _fail("[concurrent] the insert thread failed")
+    after = [live.query(q) for q in queries]
+    moved = 0
+    for d, b, a in zip(during, before, after):
+        _check_answer(live, d)
+        if not (np.array_equal(d, b) or np.array_equal(d, a)):
+            _fail(f"[concurrent] answered {d}: neither the answer before "
+                  f"the insert {b} nor after it {a}")
+        moved += not np.array_equal(b, a)
+    found = [live.query(_noisy(rng, img)) for img in new]
+    print(f"[concurrent] {len(queries)} queries on 4 workers beside a "
+          f"4-image insert: {wall * 1e3:.1f} ms in all, the insert "
+          f"{result['s'] * 1e3:.1f} ms; every answer is the one before or "
+          f"after the insert ({moved} queries differ between the two); new "
+          f"ids {result['ids']}, their noisy copies answered "
+          f"{[f.tolist() for f in found]}", flush=True)
+    for iid, top in zip(result["ids"], found):
+        if top[0] != iid:
+            _fail(f"[concurrent] inserted image {iid} answered {top}")
+    del live
+    return dict(wall_s=wall, insert_s=result["s"])
+
+
+def stream_knn_phase(srv, img, planted: int) -> dict:
+    """[stream-knn]: one query's tail over a bf16 database of 600k rows at
+    PCA 1024 (its [128, 600k] f32 scores pass the 256 MiB one-shot cap):
+    the streaming path and the one-shot path (cap raised) must give the
+    same top-5, the planted image first. Tail times by CUDA events
+    (median of 5) and peak device memory of each; the one-shot tail over
+    the live 102k-row f32 database beside them, and the streaming tail at
+    other tile sizes."""
+    import torch
+
+    from revisit_anything_tpu_torch.pipeline.query import (db_sq_norms,
+                                                           query_topk_images)
+
+    dev, n_rows, per_image = srv.device, 600_000, 50
+    n_img = n_rows // per_image
+    if planted >= n_img:
+        _fail(f"[stream-knn] planted id {planted} past {n_img} images")
+    with torch.inference_mode():
+        img_dev = torch.from_numpy(img).to(dev)
+        pm, stats, desc = srv._front(img_dev)
+        adj, _ = srv._adjacency(stats.cpu().numpy())
+        head = (desc, pm, torch.from_numpy(adj).to(dev), srv._centers,
+                srv._pca_mean, srv._pca_comps, srv._pca_var)
+        # the planted image's rows as the live server holds them, under
+        # its id, among 600k random unit rows
+        rows = srv._db[srv._db_ids == planted]
+        g = torch.Generator(device=dev).manual_seed(5)
+        db = torch.empty((n_rows, rows.shape[1]), dtype=torch.bfloat16,
+                         device=dev)
+        for s in range(0, n_rows, 100_000):
+            x = torch.randn((100_000, rows.shape[1]), generator=g, device=dev)
+            db[s:s + 100_000] = (x / x.norm(dim=1, keepdim=True)).bfloat16()
+        db[:len(rows)] = rows.bfloat16()
+        ids = torch.arange(n_rows, device=dev) // per_image
+        ids[:len(rows)] = planted
+        norms = db_sq_norms(db)
+        torch.cuda.synchronize()
+
+        def tail(db, ids, norms, n_img, cap, **kw):
+            return lambda: query_topk_images(
+                *head, db, ids, num_ref_images=n_img, db_norms=norms,
+                oneshot_cap_bytes=cap, **kw)
+
+        out = {}
+        runs = [("streaming 600k bf16", tail(db, ids, norms, n_img,
+                                             256 * 2 ** 20)),
+                ("one-shot 600k bf16", tail(db, ids, norms, n_img, 2 ** 40)),
+                ("one-shot 102k f32 (live)", tail(
+                    srv._db, srv._db_ids, srv._db_norms, srv.num_ref_images,
+                    256 * 2 ** 20))]
+        runs += [(f"streaming 600k bf16, db_tile {t}", tail(
+            db, ids, norms, n_img, 256 * 2 ** 20, db_tile=t))
+            for t in (8192, 32768, 65536, 131072)]
+        for name, fn in runs:
+            top = fn().cpu().numpy()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+            ms = _time_ms(fn, reps=5)
+            out[name] = dict(ms=ms, peak_mib=peak, top=top.tolist())
+            print(f"[stream-knn] {name}: tail {ms:.3f} ms (CUDA events, "
+                  f"median of 5), peak device memory above the database "
+                  f"{peak:.1f} MiB, top-5 {top.tolist()}", flush=True)
+    a, b = (out[n]["top"] for n in ("streaming 600k bf16",
+                                    "one-shot 600k bf16"))
+    if a != b or a[0] != planted:
+        _fail(f"[stream-knn] streaming {a} vs one-shot {b} (planted rows "
+              f"under id {planted})")
+    del db, ids, norms
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sam_original_spec(cfg) -> list:
+    """The original ``sam_vit_*.pth`` layout at ``cfg``'s widths: (key,
+    shape, kind) with kind "ln" for LayerNorm weights, "pe" for the
+    Fourier matrix, else "w"."""
+    d, pd, g, p = cfg.encoder_dim, cfg.prompt_dim, cfg.grid, cfg.patch_size
+    spec = []
+
+    def put(key, *shape, kind="w"):
+        spec.append((key, shape, kind))
+
+    def linear(key, n_out, n_in):
+        put(key + ".weight", n_out, n_in)
+        put(key + ".bias", n_out)
+
+    def ln(key, n):
+        put(key + ".weight", n, kind="ln")
+        put(key + ".bias", n)
+
+    e, mlp = "image_encoder.", int(d * cfg.mlp_ratio)
+    put(e + "patch_embed.proj.weight", d, 3, p, p)
+    put(e + "patch_embed.proj.bias", d)
+    put(e + "pos_embed", 1, g, g, d)
+    for i in range(cfg.encoder_depth):
+        b = f"{e}blocks.{i}."
+        size = g if i in cfg.global_attn_indexes else cfg.window_size
+        ln(b + "norm1", d)
+        linear(b + "attn.qkv", 3 * d, d)
+        linear(b + "attn.proj", d, d)
+        put(b + "attn.rel_pos_h", 2 * size - 1, cfg.head_dim)
+        put(b + "attn.rel_pos_w", 2 * size - 1, cfg.head_dim)
+        ln(b + "norm2", d)
+        linear(b + "mlp.lin1", mlp, d)
+        linear(b + "mlp.lin2", d, mlp)
+    put(e + "neck.0.weight", pd, d, 1, 1)
+    ln(e + "neck.1", pd)
+    put(e + "neck.2.weight", pd, pd, 3, 3)
+    ln(e + "neck.3", pd)
+    pe = "prompt_encoder."
+    put(pe + "pe_layer.positional_encoding_gaussian_matrix", 2, pd // 2,
+        kind="pe")
+    for i in range(4):
+        put(pe + f"point_embeddings.{i}.weight", 1, pd)
+    put(pe + "not_a_point_embed.weight", 1, pd)
+    put(pe + "no_mask_embed.weight", 1, pd)
+    md = pe + "mask_downscaling."
+    for key, shape in ((".0.weight", (4, 1, 2, 2)), (".0.bias", (4,)),
+                       (".3.weight", (16, 4, 2, 2)), (".3.bias", (16,)),
+                       (".6.weight", (pd, 16, 1, 1)), (".6.bias", (pd,))):
+        put(md[:-1] + key, *shape)
+    ln(md + "1", 4)
+    ln(md + "4", 16)
+    m = "mask_decoder."
+    put(m + "iou_token.weight", 1, pd)
+    put(m + "mask_tokens.weight", cfg.num_mask_tokens, pd)
+
+    def attn(key, down):
+        for n in ("q", "k", "v"):
+            linear(f"{key}.{n}_proj", pd // down, pd)
+        linear(key + ".out_proj", pd, pd // down)
+
+    for i in range(cfg.decoder_depth):
+        lp = f"{m}transformer.layers.{i}"
+        attn(lp + ".self_attn", 1)
+        ln(lp + ".norm1", pd)
+        attn(lp + ".cross_attn_token_to_image", 2)
+        ln(lp + ".norm2", pd)
+        linear(lp + ".mlp.lin1", cfg.decoder_mlp_dim, pd)
+        linear(lp + ".mlp.lin2", pd, cfg.decoder_mlp_dim)
+        ln(lp + ".norm3", pd)
+        attn(lp + ".cross_attn_image_to_token", 2)
+        ln(lp + ".norm4", pd)
+    attn(m + "transformer.final_attn_token_to_image", 2)
+    ln(m + "transformer.norm_final_attn", pd)
+    put(m + "output_upscaling.0.weight", pd, pd // 4, 2, 2)
+    put(m + "output_upscaling.0.bias", pd // 4)
+    ln(m + "output_upscaling.1", pd // 4)
+    put(m + "output_upscaling.3.weight", pd // 4, pd // 8, 2, 2)
+    put(m + "output_upscaling.3.bias", pd // 8)
+    for i in range(cfg.num_mask_tokens):
+        for j, (n_out, n_in) in enumerate(((pd, pd), (pd, pd),
+                                           (pd // 8, pd))):
+            linear(f"{m}output_hypernetworks_mlps.{i}.layers.{j}", n_out,
+                   n_in)
+    dims = ([pd] + [cfg.iou_head_hidden] * (cfg.iou_head_depth - 1)
+            + [cfg.num_mask_tokens])
+    for j in range(cfg.iou_head_depth):
+        linear(f"{m}iou_prediction_head.layers.{j}", dims[j + 1], dims[j])
+    return spec
+
+
+def _dino_hub_spec(cfg) -> list:
+    """The facebookresearch/dinov2 hub layout (layer scale, no register
+    tokens) at ``cfg``'s widths, as ``_sam_original_spec``."""
+    d, p = cfg.embed_dim, cfg.patch_size
+    gh, gw = cfg.pretrain_grid
+    spec = [("patch_embed.proj.weight", (d, 3, p, p), "w"),
+            ("patch_embed.proj.bias", (d,), "w"),
+            ("cls_token", (1, 1, d), "w"), ("pos_embed", (1, 1 + gh * gw, d),
+                                            "w"),
+            ("mask_token", (1, d), "w"), ("norm.weight", (d,), "ln"),
+            ("norm.bias", (d,), "w")]
+    hidden = (2 * cfg.swiglu_hidden, cfg.swiglu_hidden)
+    for i in range(cfg.depth):
+        b = f"blocks.{i}."
+        spec += [(b + "norm1.weight", (d,), "ln"),
+                 (b + "norm1.bias", (d,), "w"),
+                 (b + "attn.qkv.weight", (3 * d, d), "w"),
+                 (b + "attn.qkv.bias", (3 * d,), "w"),
+                 (b + "attn.proj.weight", (d, d), "w"),
+                 (b + "attn.proj.bias", (d,), "w"),
+                 (b + "ls1.gamma", (d,), "w"), (b + "ls2.gamma", (d,), "w"),
+                 (b + "norm2.weight", (d,), "ln"),
+                 (b + "norm2.bias", (d,), "w"),
+                 (b + "mlp.w12.weight", (hidden[0], d), "w"),
+                 (b + "mlp.w12.bias", (hidden[0],), "w"),
+                 (b + "mlp.w3.weight", (d, hidden[1]), "w"),
+                 (b + "mlp.w3.bias", (d,), "w")]
+    return spec
+
+
+def _state_dict(spec, gen, dev) -> dict:
+    """Seeded f32 CPU tensors for ``spec``: LayerNorm weights 1 + N(0,
+    0.02²), the Fourier matrix N(0, 1), the rest N(0, 0.02²); drawn on
+    the card, then copied to the host."""
+    import torch
+    out = {}
+    for key, shape, kind in spec:
+        x = torch.randn(shape, generator=gen, device=dev)
+        if kind != "pe":
+            x = x * 0.02 + (1.0 if kind == "ln" else 0.0)
+        out[key] = x.cpu()
+    return out
+
+
+class _PeakRss:
+    """The peak resident set of this process while the block runs (MiB),
+    sampled every 2 ms from /proc/self/statm."""
+
+    def __enter__(self):
+        import os
+        import threading
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.peak = self.start = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _rss(self) -> float:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page / 2 ** 20
+
+    def _run(self):
+        while not self._stop.wait(0.002):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+
+def checkpoint_phase(dev, seed: int = 3) -> dict:
+    """[checkpoint]: a seeded original-layout SAM ViT-H state dict saved
+    with torch.save (the size of ``sam_vit_h_4b8939.pth``) and loaded by
+    ``load_sam_checkpoint``, and a hub-layout DINOv2-g dict converted in
+    memory, both onto the card in bf16 (load seconds, the peak host RSS
+    of each load, device memory); a few leaves against the dicts (a
+    transposed dense weight, the ConvT layout, the patch embeddings);
+    then one query through them with the "shared" kernels launched."""
+    import os
+    import resource
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from revisit_anything_tpu_torch.config import (DINO_G_DIM, NUM_CLUSTERS,
+                                                   PLACES17_HW,
+                                                   PLACES17_SAM_HW)
+    from revisit_anything_tpu_torch.kernels import build
+    from revisit_anything_tpu_torch.models import dinov2 as dn
+    from revisit_anything_tpu_torch.models.sam import SAM_VIT_H
+    from revisit_anything_tpu_torch.models.sam.amg import AmgConfig
+    from revisit_anything_tpu_torch.models.sam.convert import (
+        load_sam_checkpoint)
+    from revisit_anything_tpu_torch.pipeline.serve import (SegVLADServer,
+                                                           ServingIndex)
+
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+
+    def same(name, got, want):
+        want = want.to(dev, bf)
+        if not torch.equal(got, want):
+            err = (got.float() - want.float()).abs().max()
+            _fail(f"[checkpoint] {name}: the loaded leaf differs from the "
+                  f"state dict (max {err})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sam_vit_h.pth")
+        sd = _state_dict(_sam_original_spec(SAM_VIT_H), gen, dev)
+        n_sam = sum(v.numel() for v in sd.values())
+        t = time.perf_counter()
+        torch.save(sd, path)
+        save_s = time.perf_counter() - t
+        del sd
+        size = os.path.getsize(path)
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        with _PeakRss() as rss_sam:
+            t = time.perf_counter()
+            sam = load_sam_checkpoint(path, SAM_VIT_H, dtype=bf, device=dev)
+            torch.cuda.synchronize()
+            sam_s = time.perf_counter() - t
+        sam_mib = (torch.cuda.memory_allocated() - mem0) / 2 ** 20
+        sd = torch.load(path, map_location="cpu", weights_only=True,
+                        mmap=True)
+        same("encoder block 0 qkv (a transposed dense weight)",
+             sam.encoder.blocks[0].qkv.w,
+             sd["image_encoder.blocks.0.attn.qkv.weight"].T)
+        w = sd["mask_decoder.output_upscaling.0.weight"]
+        same("decoder up1_w (the ConvT layout)", sam.decoder.up1_w,
+             w.permute(0, 2, 3, 1).reshape(w.shape[0], -1))
+        w = sd["image_encoder.patch_embed.proj.weight"]
+        same("encoder patch embedding", sam.encoder.patch_embed.w,
+             w.permute(2, 3, 1, 0).reshape(-1, w.shape[0]))
+        del sd, w
+
+    sd = _state_dict(_dino_hub_spec(dn.VIT_G14), gen, dev)
+    n_dino = sum(v.numel() for v in sd.values())
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    with _PeakRss() as rss_dino:
+        t = time.perf_counter()
+        dino = dn.convert_dinov2_hub_state_dict(sd, dn.VIT_G14, dtype=bf,
+                                                device=dev)
+        torch.cuda.synchronize()
+        dino_s = time.perf_counter() - t
+    dino_mib = (torch.cuda.memory_allocated() - mem0) / 2 ** 20
+    same("DINOv2 block 39 qkv", dino.blocks[39].qkv.w,
+         sd["blocks.39.attn.qkv.weight"].T)
+    w = sd["patch_embed.proj.weight"]
+    same("DINOv2 patch embedding", dino.patch_embed.w,
+         w.permute(2, 3, 1, 0).reshape(-1, w.shape[0]))
+    same("DINOv2 block 0 w12", dino.blocks[0].w12.w,
+         sd["blocks.0.mlp.w12.weight"].T)
+    del sd, w
+    max_rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+    print(f"[checkpoint] SAM ViT-H original layout, {n_sam / 1e6:.1f}M "
+          f"parameters, {size / 2 ** 30:.2f} GiB file (saved in "
+          f"{save_s:.1f} s): loaded onto the card in bf16 in {sam_s:.2f} s, "
+          f"host RSS {rss_sam.start:.0f} -> peak {rss_sam.peak:.0f} MiB "
+          f"during the load, {sam_mib:.0f} MiB on the card; DINOv2-g hub "
+          f"layout, {n_dino / 1e6:.1f}M parameters in memory: converted in "
+          f"{dino_s:.2f} s, host RSS {rss_dino.start:.0f} -> peak "
+          f"{rss_dino.peak:.0f} MiB, {dino_mib:.0f} MiB on the card; process "
+          f"peak RSS so far {max_rss:.0f} MiB", flush=True)
+
+    rng = np.random.default_rng(seed)
+    db = rng.standard_normal((5000, 1024)).astype(np.float32)
+    db /= np.linalg.norm(db, axis=1, keepdims=True)
+    index = ServingIndex(
+        centers=rng.standard_normal((NUM_CLUSTERS, DINO_G_DIM)).astype(
+            np.float32),
+        pca_mean=np.zeros(NUM_CLUSTERS * DINO_G_DIM, np.float32),
+        pca_components=(rng.standard_normal((1024, NUM_CLUSTERS * DINO_G_DIM))
+                        * 0.01).astype(np.float32),
+        pca_variance=np.ones(1024, np.float32), pca_whiten=True, db=db,
+        db_image_ids=np.arange(5000) // 50, num_ref_images=100, order=3)
+    srv = SegVLADServer(sam=sam, dino=dino, index=index, full_hw=PLACES17_HW,
+                        sam_hw=PLACES17_SAM_HW, max_masks=128,
+                        amg=AmgConfig(points_per_batch=1024,
+                                      pred_iou_thresh=-1e9,
+                                      stability_score_thresh=0.0))
+    img = _image(rng, PLACES17_HW)
+    srv.query(img)
+    torch.cuda.synchronize()
+    build.reset_counts()
+    t = time.perf_counter()
+    top = srv.query(img)
+    ms = (time.perf_counter() - t) * 1e3
+    counts = {k.name: k.launches for k in build.KERNELS}
+    print(f"[checkpoint] one query through the loaded models: top-5 "
+          f"{top.tolist()} in {ms:.1f} ms; launches {counts}", flush=True)
+    _check_answer(srv, top)
+    _check_launches(counts, "shared")
+    return dict(sam_load_s=sam_s, sam_peak_rss_mib=rss_sam.peak,
+                dino_load_s=dino_s, dino_peak_rss_mib=rss_dino.peak,
+                sam_mib=sam_mib, dino_mib=dino_mib, query_ms=ms)
 
 
 def _check_launches(counts: dict, path: str) -> None:
@@ -845,10 +1445,10 @@ def _encode_ms(srv, img_dev) -> float:
     return start.elapsed_time(end)
 
 
-def serve_window_kernel(srv, img) -> dict:
+def serve_window_kernel(srv, img, planted: int) -> dict:
     """One planted query with the encoder's windowed layers through the
     window kernel (counters reset just before): B11 once per windowed
-    layer, the "shared" decoder's kernels, the planted image 0 first;
+    layer, the "shared" decoder's kernels, the planted image first;
     then the kept masks' agreement with plain windows and the encode
     stage with plain and kernel windows (CUDA events, 7 each in turns)."""
     import torch
@@ -870,9 +1470,9 @@ def serve_window_kernel(srv, img) -> dict:
         if counts[build.WIN_ATTENTION.name] != n_windowed:
             _fail(f"window kernel launched {counts[build.WIN_ATTENTION.name]}"
                   f" times in one query (expected {n_windowed})")
-        if top[0] != 0:
-            _fail(f"window kernel: noisy copy of planted image 0 answered "
-                  f"{top}")
+        if top[0] != planted:
+            _fail(f"window kernel: noisy copy of planted image {planted} "
+                  f"answered {top}")
         with torch.inference_mode():
             img_dev = torch.from_numpy(img).to(srv.device)
             amg_k = srv._amg_device(img_dev)
@@ -926,10 +1526,10 @@ def _decode_ms(srv, img) -> float:
     return start.elapsed_time(end)
 
 
-def serve_variant(vsrv, img, decode: str, refs: dict) -> dict:
+def serve_variant(vsrv, img, decode: str, planted: int, refs: dict) -> dict:
     """One planted query through ``vsrv`` (decoder form ``decode``) with
     the counters reset just before: the form's kernels launched and no
-    other, the planted image 0 comes first; then its decode-stage time
+    other, the planted image comes first; then its decode-stage time
     and the share of its kept masks that match a mask of each server in
     ``refs`` (by form name) at IoU > 0.5."""
     import torch
@@ -943,8 +1543,9 @@ def serve_variant(vsrv, img, decode: str, refs: dict) -> dict:
     wall = (time.perf_counter() - t) * 1e3
     counts = {k.name: k.launches for k in build.KERNELS}
     _check_launches(counts, decode)
-    if top[0] != 0:
-        _fail(f"{decode}: noisy copy of planted image 0 answered {top}")
+    if top[0] != planted:
+        _fail(f"{decode}: noisy copy of planted image {planted} answered "
+              f"{top}")
     decode_ms = _decode_ms(vsrv, img)
     agreement = {}
     with torch.inference_mode():
@@ -1270,6 +1871,7 @@ def main() -> None:
     results = compare_kernels(dev)
     reference_check(dev)
     served = serve(dev)
+    checkpoint_phase(dev)
 
     # launches: the 3 "shared" queries for the kernels of that form, the
     # probability-factored queries for theirs, the window-kernel query for

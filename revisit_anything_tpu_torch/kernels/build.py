@@ -173,7 +173,10 @@ def _build(out: Path) -> None:
 
 
 class Kernel:
-    """One hand-written kernel: its C entry point and its launch count."""
+    """One hand-written kernel: its C entry point and its launch count
+    (counted under a lock, so it is exact when threads launch)."""
+
+    _count_lock = threading.Lock()
 
     def __init__(self, name: str, entry: str, source: str, replaces: str):
         self.name = name
@@ -190,7 +193,8 @@ class Kernel:
         if err != 0:
             raise RuntimeError(f"{self.name}: CUDA launch failed with "
                                f"cudaError {err}")
-        self.launches += 1
+        with Kernel._count_lock:
+            self.launches += 1
 
 
 _SRC = "revisit_anything_tpu_torch/kernels/csrc/"

@@ -1,10 +1,12 @@
-"""DINOv2 vision transformer, dense value-facet features.
+"""DINOv2 vision transformer, dense features and checkpoint loading.
 
 Counterpart of ``revisit_anything_tpu/models/dinov2.py``
 (``DinoV2Config``, ``VIT_G14``, ``embed_patches`` :232, ``extract_dense``
-:276, ``center_crop_offsets`` :320). ``extract_dense`` runs blocks
-0..layer−1 plus block ``layer``'s norm1 and qkv, and returns the facet
-slice. ViT-g uses the SwiGLU FFN. Attention over N ≥ 1024 tokens on the
+:276, ``center_crop_offsets`` :320, ``convert_dinov2_hub_state_dict``
+:334, ``convert_transformers_state_dict`` :385, ``load_checkpoint``
+:437). ``extract_dense`` runs blocks 0..layer−1 plus block ``layer``'s
+norm1 and qkv, and returns a facet's slice (or block ``layer``'s output
+tokens). ViT-g uses the SwiGLU FFN. Attention over N ≥ 1024 tokens on the
 card goes through kernel K1 without bias (production N = 1 + 34·45 =
 1531); shorter sequences and CPU tensors use the plain form.
 """
@@ -13,14 +15,17 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from revisit_anything_tpu_torch.models.layers import Dense, LayerNorm, param
+from revisit_anything_tpu_torch.models.layers import (Dense, LayerNorm,
+                                                     linear_leaves, load_tree,
+                                                     norm_leaves, param)
+from revisit_anything_tpu_torch.models.layers import state_array as _np
 from revisit_anything_tpu_torch.ops.attention import attend
 
 
@@ -143,7 +148,7 @@ def interpolate_pos_embed(model: DinoV2, cfg: DinoV2Config,
 
     Computed once per grid size and cached on the model, keyed on the
     position table's storage and version counter: a weight load writes
-    the table in place (``weights.load_tree``, the seeded initializers)
+    the table in place (``layers.load_tree``, the seeded initializers)
     and so recomputes it (a model built in inference mode has no version
     counter and recomputes every call). Callers must not write to the
     result."""
@@ -157,6 +162,9 @@ def interpolate_pos_embed(model: DinoV2, cfg: DinoV2Config,
         return hit[1]
     with torch.inference_mode(False):
         table = _resize_pos_embed(pe, cfg, grid_hw)
+    if table.is_cuda:
+        # queries on other streams may read the cached table at once
+        torch.cuda.current_stream(table.device).synchronize()
     model._pos_cache[grid_hw] = (key, table)
     return table
 
@@ -206,22 +214,147 @@ def embed_patches(model: DinoV2, cfg: DinoV2Config,
     return x
 
 
+FACETS = ("query", "key", "value", "token")
+
+
 def extract_dense(model: DinoV2, cfg: DinoV2Config, images: torch.Tensor,
-                  layer: int) -> torch.Tensor:
-    """Dense patch features [B, N_patches, D]: the value facet of block
-    ``layer``'s qkv projection (DinoV2ExtractFeatures semantics, without
-    hooks; no final norm)."""
+                  layer: int, facet: str = "value") -> torch.Tensor:
+    """Dense patch features [B, N_patches, D] (DinoV2ExtractFeatures
+    semantics, without hooks; cls and register tokens dropped, no final
+    norm). ``facet`` "query" / "key" / "value": that slice of block
+    ``layer``'s qkv projection (from blocks 0..layer−1 and block
+    ``layer``'s norm1 and qkv); "token": block ``layer``'s output."""
+    if facet not in FACETS:
+        raise ValueError(f"facet {facet!r} not in {FACETS}")
     x = embed_patches(model, cfg, images)
     for blk in model.blocks[:layer]:
         x = _block(x, blk, cfg)
     skip = 1 + cfg.num_register_tokens
     blk = model.blocks[layer]
+    if facet == "token":
+        return _block(x, blk, cfg)[:, skip:]
     qkv = blk.qkv(blk.norm1(x, cfg.eps))
     d = cfg.embed_dim
-    return qkv[:, skip:, 2 * d:]
+    i = FACETS.index(facet)
+    return qkv[:, skip:, i * d:(i + 1) * d]
 
 
 def center_crop_offsets(h: int, w: int, hn: int, wn: int):
     """torchvision CenterCrop offsets: int(round(trim / 2)) with Python's
     banker's rounding (not floor)."""
     return int(round((h - hn) / 2.0)), int(round((w - wn) / 2.0))
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints (torch only deserializes; leaves are copied one at a time
+# into the module on the device, ``layers.load_tree``)
+# ---------------------------------------------------------------------------
+
+
+def _patch_w(w: np.ndarray, cfg: DinoV2Config) -> np.ndarray:
+    """conv [D, 3, p, p] → matmul [p·p·3, D] in ``embed_patches``'s
+    (p, p, 3) order."""
+    return w.transpose(2, 3, 1, 0).reshape(-1, cfg.embed_dim)
+
+
+def convert_dinov2_hub_state_dict(sd: Dict, cfg: DinoV2Config, *,
+                                  dtype=torch.float32,
+                                  device="cuda") -> DinoV2:
+    """The facebookresearch/dinov2 layout (fused qkv, SwiGLU ``w12``/``w3``
+    or MLP ``fc1``/``fc2``, optional ``ls1``/``ls2`` gammas and
+    ``register_tokens``) → ``DinoV2`` on ``device``. Layer scale follows
+    the checkpoint (the JAX model skips a missing gamma); register tokens
+    must match ``cfg.num_register_tokens``. ``mask_token`` is ignored."""
+    has_ls = "blocks.0.ls1.gamma" in sd
+    blocks = []
+    for i in range(cfg.depth):
+        p = f"blocks.{i}"
+        blk = {"norm1": norm_leaves(sd, p + ".norm1"),
+               "qkv": linear_leaves(sd, p + ".attn.qkv"),
+               "proj": linear_leaves(sd, p + ".attn.proj"),
+               "norm2": norm_leaves(sd, p + ".norm2"),
+               "ls1": _np(sd, p + ".ls1.gamma") if has_ls else None,
+               "ls2": _np(sd, p + ".ls2.gamma") if has_ls else None}
+        if cfg.ffn == "swiglu":
+            blk["w12"] = linear_leaves(sd, p + ".mlp.w12")
+            blk["w3"] = linear_leaves(sd, p + ".mlp.w3")
+        else:
+            blk["fc1"] = linear_leaves(sd, p + ".mlp.fc1")
+            blk["fc2"] = linear_leaves(sd, p + ".mlp.fc2")
+        blocks.append(blk)
+    tree = {
+        "patch_embed": {"w": _patch_w(_np(sd, "patch_embed.proj.weight"),
+                                      cfg),
+                        "b": _np(sd, "patch_embed.proj.bias")},
+        "cls_token": _np(sd, "cls_token"),
+        "pos_embed": _np(sd, "pos_embed"),
+        "blocks": blocks,
+        "norm": norm_leaves(sd, "norm"),
+        "register_tokens": (_np(sd, "register_tokens")
+                            if "register_tokens" in sd else None),
+    }
+    model = DinoV2(dataclasses.replace(cfg, layerscale=has_ls), dtype=dtype,
+                   device=device)
+    load_tree(model, tree)
+    return model
+
+
+def convert_transformers_state_dict(sd: Dict, cfg: DinoV2Config, *,
+                                    dtype=torch.float32,
+                                    device="cuda") -> DinoV2:
+    """A HuggingFace transformers ``Dinov2Model`` state dict (split q/k/v,
+    layer scale always present, no register tokens) → ``DinoV2`` on
+    ``device``."""
+    blocks = []
+    for i in range(cfg.depth):
+        p = f"encoder.layer.{i}"
+        a = p + ".attention.attention"
+        parts = [linear_leaves(sd, f"{a}.{n}")
+                 for n in ("query", "key", "value")]
+        blk = {
+            "norm1": norm_leaves(sd, p + ".norm1"),
+            # the one leaf this layout makes a copy of
+            "qkv": {"w": np.concatenate([q["w"] for q in parts], axis=1),
+                    "b": np.concatenate([q["b"] for q in parts])},
+            "proj": linear_leaves(sd, p + ".attention.output.dense"),
+            "norm2": norm_leaves(sd, p + ".norm2"),
+            "ls1": _np(sd, p + ".layer_scale1.lambda1"),
+            "ls2": _np(sd, p + ".layer_scale2.lambda1"),
+        }
+        if cfg.ffn == "swiglu":
+            blk["w12"] = linear_leaves(sd, p + ".mlp.weights_in")
+            blk["w3"] = linear_leaves(sd, p + ".mlp.weights_out")
+        else:
+            blk["fc1"] = linear_leaves(sd, p + ".mlp.fc1")
+            blk["fc2"] = linear_leaves(sd, p + ".mlp.fc2")
+        blocks.append(blk)
+    tree = {
+        "patch_embed": {
+            "w": _patch_w(_np(sd, "embeddings.patch_embeddings.projection"
+                                  ".weight"), cfg),
+            "b": _np(sd, "embeddings.patch_embeddings.projection.bias")},
+        "cls_token": _np(sd, "embeddings.cls_token"),
+        "pos_embed": _np(sd, "embeddings.position_embeddings"),
+        "blocks": blocks,
+        "norm": norm_leaves(sd, "layernorm"),
+        "register_tokens": None,
+    }
+    model = DinoV2(dataclasses.replace(cfg, layerscale=True), dtype=dtype,
+                   device=device)
+    load_tree(model, tree)
+    return model
+
+
+def load_checkpoint(path: str, cfg: DinoV2Config, *, dtype=torch.float32,
+                    device="cuda") -> DinoV2:
+    """A torch-saved DINOv2 checkpoint (hub or transformers layout,
+    optionally under a ``model`` key) → ``DinoV2`` on ``device`` in
+    ``dtype``. The file is memory-mapped, so its pages are read as each
+    leaf is copied."""
+    sd = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    if isinstance(sd, dict) and "model" in sd:
+        sd = sd["model"]
+    if any(k.startswith("encoder.layer") for k in sd):
+        return convert_transformers_state_dict(sd, cfg, dtype=dtype,
+                                               device=device)
+    return convert_dinov2_hub_state_dict(sd, cfg, dtype=dtype, device=device)

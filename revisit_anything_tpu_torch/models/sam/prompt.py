@@ -17,12 +17,19 @@ from revisit_anything_tpu_torch.models.sam.config import SamArchConfig
 
 
 class PromptEncoder(nn.Module):
+    """``dense_pe``: keep a second Fourier matrix, ``pe_gaussian_dense``,
+    for the dense image PE (the HuggingFace layout's
+    ``shared_image_embedding``, independent of the prompts' matrix);
+    without it the dense PE uses ``pe_gaussian``, as in the original
+    layout."""
+
     def __init__(self, cfg: SamArchConfig, *, dtype=torch.float32,
-                 device="cuda"):
+                 device="cuda", dense_pe: bool = False):
         super().__init__()
         pd = cfg.prompt_dim
         kw = dict(dtype=dtype, device=device)
         self.pe_gaussian = param(2, pd // 2, **kw)
+        self.pe_gaussian_dense = param(2, pd // 2, **kw) if dense_pe else None
         self.point_embed = param(4, pd, **kw)
         self.not_a_point = param(pd, **kw)
         self.no_mask = param(pd, **kw)
@@ -38,13 +45,18 @@ def _fourier_pe(coords01: torch.Tensor, gaussian: torch.Tensor) -> torch.Tensor:
 
 def dense_positional_embedding(prompt: PromptEncoder,
                                cfg: SamArchConfig) -> torch.Tensor:
-    """PE of the g×g grid cell centres → [1, g, g, prompt_dim] f32."""
+    """PE of the g×g grid cell centres → [1, g, g, prompt_dim] f32, by
+    ``pe_gaussian_dense`` where the encoder has one (JAX ``prompt.py``
+    :45), else by ``pe_gaussian``."""
     g = cfg.grid
     ys = (np.arange(g, dtype=np.float32) + 0.5) / g
     xs = (np.arange(g, dtype=np.float32) + 0.5) / g
     grid = np.stack(np.meshgrid(xs, ys, indexing="xy"), axis=-1)
-    grid = torch.from_numpy(grid).to(prompt.pe_gaussian.device)
-    return _fourier_pe(grid, prompt.pe_gaussian)[None]
+    gaussian = (prompt.pe_gaussian_dense
+                if prompt.pe_gaussian_dense is not None
+                else prompt.pe_gaussian)
+    grid = torch.from_numpy(grid).to(gaussian.device)
+    return _fourier_pe(grid, gaussian)[None]
 
 
 def embed_points(prompt: PromptEncoder, cfg: SamArchConfig,

@@ -1,8 +1,10 @@
 """Retrieval tail of one query: dense features + masks → segment VLAD →
-PCA → row-normalized rows → one-shot kNN → weighted Borda → top image ids.
+PCA → row-normalized rows → kNN (one-shot below a score-matrix cap,
+streaming tiles above it) → weighted Borda → top image ids.
 
 Counterpart of ``revisit_anything_tpu/pipeline/query.py``
-(``query_segment_rows`` :56, ``query_topk_images`` :82, ``DB_GUARD``).
+(``query_segment_rows`` :56, ``query_topk_images`` :82, ``pca_tuple``
+:199, ``DB_GUARD``).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 
 from revisit_anything_tpu_torch.config import (BORDA_TOPK, KNN_TOPK,
                                                RECALL_TOPK)
+from revisit_anything_tpu_torch.ops.knn import _knn_scores, dot_f32
 from revisit_anything_tpu_torch.ops.vlad import l2_normalize, segment_vlad
 
 # Magnitude of database guard rows (padding, removed entries): their kNN
@@ -48,9 +51,15 @@ def query_segment_rows(desc, patch_masks, adjacency, centers, pca_mean,
 
 
 def db_sq_norms(db: torch.Tensor) -> torch.Tensor:
-    """[Nd] f32 squared row norms (guard rows get huge norms)."""
-    dbf = db.float()
-    return (dbf * dbf).sum(1)
+    """[Nd] f32 squared row norms (guard rows get huge norms), computed
+    65,536 rows at a time so a bf16 database never has a whole f32
+    copy."""
+    chunk = 65536
+    out = torch.empty(db.shape[0], device=db.device)
+    for start in range(0, db.shape[0], chunk):
+        rows = db[start:start + chunk].float()
+        out[start:start + chunk] = (rows * rows).sum(1)
+    return out
 
 
 def query_topk_images(desc: torch.Tensor, patch_masks: torch.Tensor,
@@ -59,26 +68,38 @@ def query_topk_images(desc: torch.Tensor, patch_masks: torch.Tensor,
                       pca_components: torch.Tensor,
                       pca_variance: torch.Tensor, db: torch.Tensor,
                       db_image_ids: torch.Tensor, num_ref_images: int,
-                      top_images: int = RECALL_TOPK, whiten: bool = True,
-                      db_norms: Optional[torch.Tensor] = None
+                      knn_topk: int = KNN_TOPK, borda_topk: int = BORDA_TOPK,
+                      top_images: int = RECALL_TOPK, db_tile: int = 131072,
+                      whiten: bool = True,
+                      db_norms: Optional[torch.Tensor] = None,
+                      oneshot_cap_bytes: int = 256 * 1024 * 1024
                       ) -> torch.Tensor:
     """One query image → its top database image ids (−1 for ranks no
     image fills).
 
     desc [P, D] L2-normalized patch descriptors; patch_masks [M, P] bool
     (padding rows all-false); adjacency [M, M] bool or None; db [Nd, dim]
-    row-normalized database segments with image ids db_image_ids [Nd];
-    db_norms optional precomputed [Nd] squared norms."""
+    row-normalized database segments (f32 or bf16) with image ids
+    db_image_ids [Nd]; db_norms optional precomputed [Nd] squared norms.
+    The vote reads the top min(knn_topk, borda_topk) matches of each
+    segment: from one [M, Nd] f32 score matrix while it fits
+    ``oneshot_cap_bytes``, else from a streaming merge over ``db_tile``-row
+    tiles (``ops.knn._knn_scores``). The JAX default tile, 8,192 rows, is
+    a TPU size: on one H100 a 600k-row bf16 database took 36.5 ms in
+    tiles of 8,192 and 3.5 ms in tiles of 131,072 (64 MiB of scores at
+    128 segments; chip_smoke.py [stream-knn])."""
     proj, valid = _segment_rows(desc, patch_masks, adjacency, centers,
                                 pca_mean, pca_components, pca_variance,
                                 whiten)
     nd = db.shape[0]
-    # the vote reads only the top min(KNN_TOPK, BORDA_TOPK) matches
-    k = min(KNN_TOPK, BORDA_TOPK, nd)
-    # a bf16 database meets the query rounded to bf16, products in f32
-    s = proj.to(db.dtype).float() @ db.float().T
+    k = min(knn_topk, borda_topk, nd)
     norms = db_norms.float() if db_norms is not None else db_sq_norms(db)
-    scores, idx = torch.topk(s - 0.5 * norms[None, :], k, dim=1)
+    if proj.shape[0] * nd * 4 <= oneshot_cap_bytes:
+        s = dot_f32(proj, db)
+        scores, idx = torch.topk(s.sub_(0.5 * norms[None, :]), k, dim=1)
+    else:
+        scores, idx = _knn_scores(proj, db, norms, k,
+                                  min(db_tile, max(128, nd)))
     q_norms = (proj * proj).sum(1, keepdim=True)
     sims = 2.0 - (q_norms - 2.0 * scores)
     # guard hits (sims < −4) and invalid query rows stay out of the
@@ -98,3 +119,11 @@ def query_topk_images(desc: torch.Tensor, patch_masks: torch.Tensor,
     ranked = torch.where(cnt > 0, votes, -inf)
     vals, top = torch.topk(ranked, min(top_images, num_ref_images))
     return torch.where(torch.isneginf(vals), torch.full_like(top, -1), top)
+
+
+def pca_tuple(pca) -> Tuple[object, object, object, bool]:
+    """PCA parameters (``mean``, ``components``, ``explained_variance``,
+    ``whiten``) → the (mean, components, variance, whiten) arguments of
+    the query tail."""
+    return (pca.mean, pca.components, pca.explained_variance,
+            bool(pca.whiten))

@@ -11,69 +11,27 @@ loads leaf for leaf with :func:`load_tree`.
 from __future__ import annotations
 
 import math
-from typing import Iterable, Optional
 
-import numpy as np
 import torch
 from torch import nn
 
 from revisit_anything_tpu_torch.models.dinov2 import DinoV2, DinoV2Config
+from revisit_anything_tpu_torch.models.layers import load_tree
 from revisit_anything_tpu_torch.models.sam import Sam, SamArchConfig
 from revisit_anything_tpu_torch.models.sam.prompt import (
     dense_positional_embedding)
 
 # JAX SAM tree entries the serving slice does not run (mask prompts)
-SAM_SKIP = ("mask_down", "pe_gaussian_dense")
-
-
-def load_tree(module: nn.Module, tree, skip: Iterable[str] = (),
-              path: str = "") -> None:
-    """Copy a nested dict/list tree of arrays into ``module`` by name.
-
-    Dict keys name attributes, list positions index ModuleLists. A None
-    leaf requires the module's entry to be None. Keys listed in ``skip``
-    are ignored; any other key without a counterpart, or a shape that
-    differs, raises."""
-    skip = tuple(skip)
-    if isinstance(tree, dict):
-        for key, sub in tree.items():
-            if key in skip:
-                continue
-            if not hasattr(module, key):
-                raise KeyError(f"no port entry for {path + key}")
-            child = getattr(module, key)
-            if isinstance(child, nn.Module):
-                load_tree(child, sub, skip, f"{path}{key}.")
-            else:
-                _assign(module, key, child, sub, path + key)
-    elif isinstance(tree, (list, tuple)):
-        if len(tree) != len(module):
-            raise ValueError(f"{path}: {len(tree)} entries vs "
-                             f"{len(module)} in the port")
-        for i, sub in enumerate(tree):
-            load_tree(module[i], sub, skip, f"{path}{i}.")
-    else:
-        raise TypeError(f"{path}: unexpected tree node {type(tree)}")
-
-
-def _assign(owner: nn.Module, key: str, target: Optional[torch.Tensor],
-            value, name: str) -> None:
-    if value is None or target is None:
-        if value is not None or target is not None:
-            raise ValueError(f"{name}: None in only one of the trees")
-        return
-    arr = np.asarray(value, dtype=np.float32)
-    if tuple(arr.shape) != tuple(target.shape):
-        raise ValueError(f"{name}: shape {arr.shape} vs port "
-                         f"{tuple(target.shape)}")
-    with torch.no_grad():
-        target.copy_(torch.from_numpy(arr))
+SAM_SKIP = ("mask_down",)
 
 
 def sam_from_jax_params(tree, cfg: SamArchConfig, *,
                         dtype=torch.float32, device="cuda") -> Sam:
-    """The port's Sam from a JAX SAM parameter tree (numpy leaves)."""
-    sam = Sam(cfg, dtype=dtype, device=device)
+    """The port's Sam from a JAX SAM parameter tree (numpy leaves). A
+    tree with a separate dense-PE Fourier matrix (``pe_gaussian_dense``,
+    the HuggingFace layout's) keeps it."""
+    sam = Sam(cfg, dtype=dtype, device=device,
+              dense_pe="pe_gaussian_dense" in tree["prompt"])
     load_tree(sam, tree, skip=SAM_SKIP)
     return sam
 

@@ -137,3 +137,32 @@ def test_pos_embed_of_a_model_built_in_inference_mode():
         again = pdn.interpolate_pos_embed(model, pcfg, (7, 9))
     assert first is not again and torch.equal(first, again)
     assert not model._pos_cache
+
+
+@pytest.mark.parametrize("facet", ["query", "key", "value", "token"])
+def test_extract_dense_facets_match_jax(facet):
+    """Each facet of ``extract_dense`` (a slice of block ``layer``'s qkv,
+    or the block's output tokens) against JAX's, with register tokens."""
+    kw = dict(CONFIGS["swiglu"], num_register_tokens=2)
+    jcfg, pcfg = jdn.DinoV2Config(**kw), pdn.DinoV2Config(**kw)
+    params = jdn.init_params(jcfg, jax.random.PRNGKey(4))
+    rng = np.random.default_rng(8)
+    tree = jax.tree_util.tree_map(
+        lambda x: (np.asarray(x) + 0.1 * rng.standard_normal(x.shape)
+                   ).astype(np.float32), params)
+    img = rng.standard_normal((1, 70, 84, 3)).astype(np.float32)
+    want = np.asarray(jdn.extract_dense(
+        jax.tree_util.tree_map(jnp.asarray, tree), jcfg, jnp.asarray(img),
+        1, facet))
+    model = dino_from_jax_params(tree, pcfg, device="cpu")
+    with torch.inference_mode():
+        got = pdn.extract_dense(model, pcfg, torch.from_numpy(img), 1,
+                                facet).numpy()
+    assert got.shape == want.shape == (1, 30, 48)
+    assert _rel(got, want) < REL
+
+
+def test_extract_dense_refuses_an_unknown_facet():
+    pcfg = pdn.DinoV2Config(**CONFIGS["mlp"])
+    with pytest.raises(ValueError, match="facet"):
+        pdn.extract_dense(None, pcfg, None, 1, "values")

@@ -48,7 +48,9 @@ def test_port_imports_without_jax_or_nvcc():
     """The whole serving path imports on a machine with neither JAX in
     use nor nvcc: the kernels build at their first CUDA launch."""
     code = ("import sys; import revisit_anything_tpu_torch.pipeline.serve, "
-            "revisit_anything_tpu_torch.weights; "
+            "revisit_anything_tpu_torch.weights, "
+            "revisit_anything_tpu_torch.models.sam.convert, "
+            "revisit_anything_tpu_torch.ops.knn; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'revisit_anything_tpu.'))]; "
             "assert not bad, bad")
@@ -878,3 +880,132 @@ def test_decode_tail_logits_kernel_matches_plain(cuda, content):
     assert got[1].shape == want[1].shape == (b, content, 16, 3)
     for a, w in zip(got, want):
         assert _rel_err(a, w) < BF16_REL
+
+
+def _small_server(dev, seed=7, **kw):
+    """A server over small models that keep every "shared" kernel's
+    production widths (SAM head dim 80 on a 16x16 grid, prompt dim 256;
+    DINO head dim 64 over 1025 tokens) and a random index of 50 images,
+    with the point segmenter planted so AMG keeps many masks."""
+    from revisit_anything_tpu_torch.models.dinov2 import DinoV2Config
+    from revisit_anything_tpu_torch.models.sam import SamArchConfig
+    from revisit_anything_tpu_torch.models.sam.amg import AmgConfig
+    from revisit_anything_tpu_torch.pipeline.serve import (SegVLADServer,
+                                                           ServingIndex)
+    from revisit_anything_tpu_torch.weights import (init_dino, init_sam,
+                                                    plant_point_segmenter)
+    sam_cfg = SamArchConfig(encoder_dim=320, encoder_depth=2, encoder_heads=4,
+                            global_attn_indexes=(1,), image_size=256,
+                            window_size=8, decoder_mlp_dim=512,
+                            iou_head_hidden=64)
+    dino_cfg = DinoV2Config(embed_dim=128, depth=3, num_heads=2,
+                            ffn="swiglu", pretrain_grid=(16, 16))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sam = init_sam(sam_cfg, gen, dev, torch.bfloat16)
+    plant_point_segmenter(sam, gen)
+    dino = init_dino(dino_cfg, gen, dev, torch.bfloat16)
+    rng = np.random.default_rng(seed)
+    n_img, per_image, c, pca = 50, 10, 8, 32
+    db = rng.standard_normal((n_img * per_image, pca)).astype(np.float32)
+    db /= np.linalg.norm(db, axis=1, keepdims=True)
+    index = ServingIndex(
+        centers=rng.standard_normal((c, 128)).astype(np.float32),
+        pca_mean=np.zeros(c * 128, np.float32),
+        pca_components=(rng.standard_normal((pca, c * 128)) * 0.05
+                        ).astype(np.float32),
+        pca_variance=np.ones(pca, np.float32), pca_whiten=True, db=db,
+        db_image_ids=np.repeat(np.arange(n_img), per_image),
+        num_ref_images=n_img, order=3)
+    return SegVLADServer(
+        sam=sam, dino=dino, index=index, full_hw=(448, 448),
+        sam_hw=(224, 224), dino_layer=2, max_masks=32,
+        amg=AmgConfig(points_per_side=8, points_per_batch=64,
+                      pred_iou_thresh=-1e9, stability_score_thresh=0.0),
+        **kw)
+
+
+def _blob_image(rng, hw=(448, 448)):
+    h, w = hw
+    img = rng.integers(60, 200, (h, w, 3), dtype=np.uint8)
+    yy, xx = np.ogrid[:h, :w]
+    for _ in range(8):
+        cy, cx = rng.integers(20, h - 20), rng.integers(20, w - 20)
+        r = rng.integers(15, 60)
+        img[(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = rng.integers(0, 255, 3)
+    return img
+
+
+@pytest.mark.gpu
+def test_live_database_and_pipelined_queries_on_the_card(cuda):
+    """Inserts run the "shared" kernels; pipelined queries on 4 workers
+    answer as sequential ones; inserted
+    images are retrieved, a removed one is not, and a snapshot restores
+    the same answers."""
+    from revisit_anything_tpu_torch.pipeline.serve import SegVLADServer
+    srv = _small_server(cuda, db_capacity=500 + 4 * 32, insert_chunk=4)
+    rng = np.random.default_rng(11)
+    imgs = [_blob_image(rng) for _ in range(4)]
+    build.reset_counts()
+    ids = srv.add_reference_images(imgs)
+    assert ids == [50, 51, 52, 53] and srv.num_images == 54
+    for k in (build.FLASH_ATTENTION, build.TOKEN_CROSS, build.I2T_UPDATE,
+              build.MASK_HEAD, build.RESIZE_FLAGS):
+        assert k.launches > 0, k.name
+    queries = [np.clip(im.astype(np.int16) + rng.integers(-4, 5, im.shape),
+                       0, 255).astype(np.uint8) for im in imgs]
+    queries += [_blob_image(rng) for _ in range(4)]
+    seq = [srv.query(q) for q in queries]
+    for a, b in zip(srv.query_many(queries, workers=4), seq):
+        np.testing.assert_array_equal(a, b)
+    for iid, top in zip(ids, seq):
+        assert iid in top, (iid, top)
+    srv.remove_reference_image(ids[0])
+    assert ids[0] not in srv.query(queries[0])
+    fresh = SegVLADServer(sam=srv.sam, dino=srv.dino,
+                          index=srv.snapshot_index(), full_hw=srv.full_hw,
+                          sam_hw=srv.sam_hw, dino_layer=2, max_masks=32,
+                          amg=srv.amg)
+    for q in queries[:3]:
+        np.testing.assert_array_equal(fresh.query(q), srv.query(q))
+
+
+@pytest.mark.gpu
+def test_bf16_database_knn_makes_no_f32_copy(cuda):
+    """A bf16 database's one-shot kNN (bf16 products into f32 scores)
+    allocates the score matrices, not an f32 copy of the database, and
+    answers as the streaming tiles and the CPU do."""
+    from revisit_anything_tpu_torch.pipeline import query as pq
+    rng = np.random.default_rng(3)
+    p, d, c, m, pca, nd = 64, 16, 4, 32, 256, 400_000
+    desc = rng.standard_normal((p, d)).astype(np.float32)
+    desc /= np.linalg.norm(desc, axis=1, keepdims=True)
+    masks = rng.random((m, p)) < 0.2
+    args = [torch.from_numpy(x) for x in (
+        desc, masks, np.eye(m, dtype=bool),
+        rng.standard_normal((c, d)).astype(np.float32),
+        np.zeros(c * d, np.float32),
+        rng.standard_normal((pca, c * d)).astype(np.float32),
+        np.ones(pca, np.float32))]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    db = torch.randn((nd, pca), generator=g, device=cuda)
+    db = (db / db.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    ids = torch.arange(nd, device=cuda) // 100
+    norms = pq.db_sq_norms(db)
+    on_card = [a.to(cuda) for a in args]
+    kw = dict(num_ref_images=nd // 100, db_norms=norms)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        one = pq.query_topk_images(*on_card, db, ids, **kw)
+        torch.cuda.synchronize()
+        grew = torch.cuda.max_memory_allocated() - before
+        stream = pq.query_topk_images(*on_card, db, ids, oneshot_cap_bytes=1,
+                                      **kw)
+        cpu = pq.query_topk_images(*args, db.cpu(), ids.cpu(),
+                                   num_ref_images=nd // 100,
+                                   db_norms=norms.cpu())
+    scores = m * nd * 4
+    assert grew < 3 * scores < nd * pca * 4, (grew, scores)
+    assert torch.equal(one, stream)
+    assert torch.equal(one.cpu(), cpu)

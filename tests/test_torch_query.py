@@ -127,3 +127,83 @@ def test_topk_images_with_guard_rows_and_fill(seed):
     np.testing.assert_array_equal(got, want)
     assert list(got[3:]) == [-1, -1]
     assert set(got[:3]) == {0, 1, 2}
+
+
+def _db(seed, n_rows=400, n_images=40):
+    """Unit rows over ``n_images`` images and a few guard rows."""
+    rng = np.random.default_rng(200 + seed)
+    db = rng.standard_normal((n_rows, PCA)).astype(np.float32)
+    db /= np.linalg.norm(db, axis=1, keepdims=True)
+    db[-7:] = DB_GUARD
+    ids = np.repeat(np.arange(n_images), n_rows // n_images).astype(np.int32)
+    return db, ids
+
+
+@pytest.mark.parametrize("db_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("path", ["oneshot", "streaming"])
+@pytest.mark.parametrize("seed,knn_topk,borda_topk", [
+    (0, 200, 50), (1, 30, 50), (2, 200, 7), (3, 5, 5)])
+def test_topk_images_match_jax_on_both_knn_paths(db_dtype, path, seed,
+                                                 knn_topk, borda_topk):
+    """The one-shot score matrix and the streaming tiles (cap 1 byte,
+    128-row tiles: 4 tiles, the last one short) against the JAX query on
+    an f32 and a bf16 database, with the kNN and Borda depths varied. A
+    bf16 database takes the query rounded to bf16 and f32 products on
+    both sides."""
+    desc, masks, adj, idx = _inputs(10 + seed)
+    db, ids = _db(seed)
+    kw = dict(num_ref_images=45, top_images=5, knn_topk=knn_topk,
+              borda_topk=borda_topk)
+    if path == "streaming":
+        kw.update(oneshot_cap_bytes=1, db_tile=128)
+    jdb = jnp.asarray(db, dtype=getattr(jnp, db_dtype))
+    want = np.asarray(jtopk(
+        jnp.asarray(desc), jnp.asarray(masks), jnp.asarray(adj),
+        *(jnp.asarray(idx[k]) for k in ("centers", "pca_mean",
+                                        "pca_components", "pca_variance")),
+        jdb, jnp.asarray(ids), num_clusters=C, **kw))
+    pdb = _t(db).to(getattr(torch, db_dtype))
+    got = pq.query_topk_images(
+        _t(desc), _t(masks), _t(adj),
+        *(_t(idx[k]) for k in ("centers", "pca_mean", "pca_components",
+                               "pca_variance")),
+        pdb, _t(ids), db_norms=pq.db_sq_norms(pdb), **kw).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got >= 0).sum() >= 3
+
+
+@pytest.mark.parametrize("db_dtype", ["float32", "bfloat16"])
+def test_knn_scores_match_jax(db_dtype):
+    """The streaming merge against JAX ``_knn_scores`` on a database
+    padded to whole tiles with +inf norms (the port also takes it
+    unpadded, its last tile shorter)."""
+    from revisit_anything_tpu.ops.knn import _knn_scores as jknn
+    from revisit_anything_tpu.ops.knn import _pad_rows
+    from revisit_anything_tpu_torch.ops.knn import _knn_scores
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((12, PCA)).astype(np.float32)
+    db, _ = _db(1, n_rows=300)
+    jdb = jnp.asarray(db, dtype=getattr(jnp, db_dtype))
+    norms = np.asarray(jnp.sum(jdb.astype(jnp.float32) ** 2, axis=1))
+    jdb_p = _pad_rows(jdb, 128, 0.0)
+    norms_p = np.concatenate([norms, np.full(84, np.inf, np.float32)])
+    want_s, want_i = map(np.asarray, jknn(jnp.asarray(q), jdb_p,
+                                          jnp.asarray(norms_p), 20, 128))
+    pdb = _t(db).to(getattr(torch, db_dtype))
+    for rows, n in ((pdb, norms), (torch.cat([pdb, pdb.new_zeros(84, PCA)]),
+                                   norms_p)):
+        got_s, got_i = _knn_scores(_t(q), rows, _t(n), 20, 128)
+        np.testing.assert_array_equal(got_i.numpy(), want_i)
+        np.testing.assert_allclose(got_s.numpy(), want_s, rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_pca_tuple_matches_jax():
+    from types import SimpleNamespace
+
+    from revisit_anything_tpu.pipeline.query import pca_tuple as jpca
+    pca = SimpleNamespace(mean=np.zeros(3), components=np.ones((2, 3)),
+                          explained_variance=np.ones(2), whiten=1)
+    got, want = pq.pca_tuple(pca), jpca(pca)
+    assert got[3] is want[3] is True
+    assert all(a is b for a, b in zip(got[:3], want[:3]))
