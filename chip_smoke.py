@@ -18,7 +18,7 @@ Phases (any failure exits non-zero):
      instantiations, B7's layer 2 and B8's two depths (cuobjdump);
      then
      compare every kernel with its plain version in bf16 at the main
-     path's shapes, timing both with CUDA events (median of 7 after
+     path's shapes (K1 also at the offline extraction's batches), timing both with CUDA events (median of 7 after
      warm-up, each call queued behind a device sleep so that its host
      launch cost is not timed), beside its bound (the larger of bytes /
      3.35 TB/s and operations / the H100's peak rate for their type:
@@ -77,12 +77,22 @@ Phases (any failure exits non-zero):
      1024 (past the one-shot cap) by the streaming path and by the
      one-shot path with the cap raised: the same top-5, the planted
      image first; tail times and peak device memory;
- 14. [checkpoint]: a seeded original-layout SAM ViT-H state dict saved
+ 14. [offline]: the offline SegLoc pipeline on the same models at the
+     17places size (48 database images, 16 noisy-copy queries): SAM masks
+     (4 images an encode) and DINOv2-g features (8 a forward) with the
+     counters reset first, a 32-cluster vocabulary, order-3 segment
+     VLADs, a 1024-component PCA, SegLoc retrieval raw (Recall@1 must be
+     1.0) and with the PCA, and AnyLoc's; images/s, seconds a stage,
+     peak device memory; the queries' extraction traced again for the
+     device's idle share; the first 4 images encoded together against
+     one at a time (embeddings and masks); knn_l2 across tiles against
+     one tile;
+ 15. [checkpoint]: a seeded original-layout SAM ViT-H state dict saved
      with torch.save and loaded by load_sam_checkpoint, a hub-layout
      DINOv2-g dict converted in memory, both onto the card in bf16 (load
      seconds, peak host RSS, device memory); leaves spot-checked against
      the dicts; one query through them with the "shared" kernels;
- 15. print the kernel table as one JSON line (B10, token_cross_split, has
+ 16. print the kernel table as one JSON line (B10, token_cross_split, has
      no caller on a serving path, as in the JAX package: launches 0),
      then the result line.
 """
@@ -411,6 +421,25 @@ def compare_kernels(dev) -> dict:
           _rel, rel_tol, (q, k, v), (4 * 24 * 1531 ** 2 * 64, 0),
           library=lambda: F.scaled_dot_product_attention(q, k, v))
     del q, k, v, bh, bw
+    # and at the offline extraction's batches: SAM encoding 4 images at
+    # once (each image its own rel-pos bias), DINOv2-g 8
+    q, k, v = (rnd(4, 16, 4096, 80) for _ in range(3))
+    bh, bw = rnd(4, 16, 4096, 64), rnd(4, 16, 4096, 64)
+    mask = (bh.float().repeat_interleave(64, dim=-1)
+            + bw.float().repeat(1, 1, 1, 64)).to(bf)
+    check(build.FLASH_ATTENTION, "SAM global q/k/v [4,16,4096,80] + bias",
+          lambda: att.attend(q, k, v, bh, bw, side=64),
+          lambda: att.attend_reference(q, k, v, bh, bw, side=64),
+          _rel, rel_tol, (q, k, v, bh, bw), (4 * 4 * 16 * 4096 ** 2 * 80, 0),
+          library=lambda: F.scaled_dot_product_attention(q, k, v,
+                                                         attn_mask=mask))
+    del q, k, v, bh, bw, mask
+    q, k, v = (rnd(8, 24, 1531, 64) for _ in range(3))
+    check(build.FLASH_ATTENTION, "DINOv2-g q/k/v [8,24,1531,64]",
+          lambda: att.attend(q, k, v), lambda: att.attend_reference(q, k, v),
+          _rel, rel_tol, (q, k, v), (4 * 8 * 24 * 1531 ** 2 * 64, 0),
+          library=lambda: F.scaled_dot_product_attention(q, k, v))
+    del q, k, v
 
     # B11: one SAM ViT-H windowed layer, 25 windows of 14x14, 16 heads of
     # 80 (library: scaled_dot_product_attention on q/k/v split and the
@@ -807,9 +836,11 @@ def serve(dev, seed: int = 0) -> dict:
     pipelined = pipeline_phase(srv, queries + more)
     concurrent = concurrent_phase(srv, queries + more, rng, kw)
     stream = stream_knn_phase(srv, queries[0], planted[0])
+    del srv
+    offline = offline_phase(sam, dino)
     return dict(counts=counts, wall_ms=wall, peak_gib=peak_gib,
                 variants=variants, window=window, pipelined=pipelined,
-                concurrent=concurrent, stream=stream)
+                concurrent=concurrent, stream=stream, offline=offline)
 
 
 def _noisy(rng, img):
@@ -1110,6 +1141,315 @@ def stream_knn_phase(srv, img, planted: int) -> dict:
     del db, ids, norms
     torch.cuda.empty_cache()
     return out
+
+
+def _card() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+class _Span:
+    """Wall seconds and the CUDA-event span (ms) of the device work a
+    block queued, both ending in a synchronize; with ``trace``, also the
+    device's busy ms in the block (the union of a torch.profiler trace's
+    device events; the trace slows the host)."""
+
+    def __init__(self, trace: bool = False):
+        self.trace, self.busy_ms = trace, None
+
+    def __enter__(self):
+        import torch
+        torch.cuda.synchronize()
+        if self.trace:
+            self.prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            self.prof.__enter__()
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.end = torch.cuda.Event(enable_timing=True)
+        self.t0 = time.perf_counter()
+        self.start.record()
+        return self
+
+    def __exit__(self, *exc):
+        self.end.record()
+        self.end.synchronize()
+        self.wall = time.perf_counter() - self.t0
+        self.device_ms = self.start.elapsed_time(self.end)
+        if self.trace:
+            self.prof.__exit__(*exc)
+            self.busy_ms = _busy_ms(self.prof)
+
+
+def _batch_against_single(sam, imgs, sam_hw, amg, batch_masks) -> None:
+    """The batched encode against one image at a time, at full width:
+    SAM's embeddings of ``imgs`` encoded together and one by one (within
+    2e-2 of the scale, the kernels' bf16 tolerance), and the masks
+    ``generate_masks_batch`` kept for them (``batch_masks``) against
+    ``generate_masks``' for each image (the same count, 95% of the
+    batch's masks matching one of the single call's at IoU > 0.5). The
+    planted segmenter's masks follow the prompt grid, so a per-image
+    fault in a batched launch shows in the embeddings, not in the recall."""
+    import numpy as np
+    import torch
+
+    from revisit_anything_tpu_torch.models.sam.amg import (_preprocess_any,
+                                                           generate_masks)
+    from revisit_anything_tpu_torch.pipeline.extract import (
+        _resize_cv2_bilinear)
+
+    dev = sam.encoder.pos_embed.device
+    small = [_resize_cv2_bilinear(im, (sam_hw[1], sam_hw[0])) for im in imgs]
+    with torch.inference_mode():
+        x = torch.cat([_preprocess_any(im, sam.cfg, dev)[0] for im in small])
+        together = sam.encoder(x)
+        alone = torch.cat([sam.encoder(x[i:i + 1])
+                           for i in range(len(small))])
+    errs = [_rel(together[i], alone[i])[1] for i in range(len(small))]
+    counts, shares = [], []
+    for im, got in zip(small, batch_masks):
+        want = [r.segmentation for r in generate_masks(sam, im, amg,
+                                                       max_masks=128)]
+        counts.append((len(got), len(want)))
+        if not want:
+            shares.append(0.0)
+            continue
+        g = torch.from_numpy(got.reshape(len(got), -1)).to(dev).float()
+        w = torch.from_numpy(np.stack(want).reshape(len(want), -1)
+                             ).to(dev).float()
+        inter = g @ w.t()
+        iou = inter / (g.sum(1)[:, None] + w.sum(1)[None] - inter
+                       ).clamp(min=1.0)
+        shares.append((iou.max(1).values > 0.5).float().mean().item())
+    print(f"[offline] batched encode of {len(small)} against one image at "
+          f"a time: embedding rel_err {' '.join(f'{e:.3e}' for e in errs)} "
+          f"(tol 2e-2); masks kept (batch, single) {counts}, matched at IoU "
+          f"> 0.5 {' '.join(f'{a:.4f}' for a in shares)}", flush=True)
+    if (not max(errs) <= 2e-2 or any(a != b for a, b in counts)
+            or min(shares) < 0.95):
+        _fail("[offline] the batched encode disagrees with single images")
+
+
+def _knn_tiles(banks, dev, tile: int = 1024) -> None:
+    """``knn_l2``'s merge across tiles on the card: the raw query segments
+    against the database bank in tiles of ``tile`` rows and in the one
+    tile of ``DB_TILE`` (the default), timed both ways. cuBLAS sums each
+    f32 product of another shape in another order: over K terms that
+    moves a unit-scale score by ~sqrt(K)·2^-24 (1.3e-5 at K = 49,152),
+    twice that in a squared distance. So the distances agree within 1e-4
+    of their scale, and the indices of the top ``KNN_TOPK`` wherever a
+    distance is more than that away from its neighbours in the row (a
+    near-tie may swap; one rank more is searched, so that the last rank
+    has a neighbour below it)."""
+    import torch
+
+    from revisit_anything_tpu_torch.config import KNN_TOPK
+    from revisit_anything_tpu_torch.ops.knn import DB_TILE, knn_l2
+
+    q = torch.as_tensor(banks["q"].descriptors, device=dev)
+    db = torch.as_tensor(banks["db"].descriptors, device=dev)
+    d1, i1 = knn_l2(q, db, KNN_TOPK + 1)
+    dt, it = knn_l2(q, db, KNN_TOPK + 1, db_tile=tile)
+    ms1 = _time_ms(lambda: knn_l2(q, db, KNN_TOPK))
+    mst = _time_ms(lambda: knn_l2(q, db, KNN_TOPK, db_tile=tile))
+    tol = 1e-4 * d1.abs().max().item()
+    err = (dt - d1).abs().max().item()
+    gap = d1.diff(dim=1).abs() > tol                  # [n, KNN_TOPK]
+    first = torch.ones_like(gap[:, :1])
+    apart = torch.cat([first, gap[:, :-1]], 1) & gap  # ranks 0..KNN_TOPK-1
+    differ = it[:, :-1] != i1[:, :-1]
+    bad = (differ & apart).nonzero()[:, 1].tolist()
+    n_tiles = -(-db.shape[0] // tile)
+    print(f"[offline] knn_l2 {q.shape[0]} x {db.shape[0]} x {db.shape[1]} "
+          f"f32, top {KNN_TOPK}: one tile of {DB_TILE} {ms1:.3f} ms, "
+          f"{n_tiles} tiles of {tile} {mst:.3f} ms (median of 7); distances "
+          f"max_abs_err {err:.3e} (tol {tol:.3e}); indices differ at "
+          f"{differ.float().mean():.6f} of the ranks, at {len(bad)} ranks "
+          f"apart from their neighbours {sorted(set(bad))[:10]}", flush=True)
+    if not err <= tol or bad:
+        _fail("[offline] knn_l2 across tiles disagrees with one tile")
+
+
+def offline_phase(sam, dino, seed: int = 5) -> dict:
+    """[offline]: the offline SegLoc pipeline at the 17places size through
+    its per-image functions (the card's machine has no h5py, so the loops
+    of the h5 stages run here without their files): 48 database images and
+    16 queries (noisy copies of database images 3q) at 480x640; SAM masks
+    at 240x320 by ``generate_masks_batch`` (4 images an encoder dispatch,
+    1024 prompts, at most 128 masks), DINOv2-g layer-31 value features by
+    ``dino_dense_features`` (8 images a forward), with every launch
+    counter reset first; a 32-cluster vocabulary over the database's
+    descriptors; order-3 segment VLADs (``image_segment_vlad``); a
+    1024-component whitened PCA fitted on the database bank; SegLoc
+    retrieval on the raw VLADs (Recall@1 must be 1.0), then with the
+    PCA, then AnyLoc's. Every planted image must keep at least 32 masks,
+    and K1, K2, K5, K3 and K4 must launch during extraction."""
+    import numpy as np
+    import torch
+
+    from revisit_anything_tpu_torch.config import (DATASETS, NUM_CLUSTERS,
+                                                   PCA_DIM)
+    from revisit_anything_tpu_torch.kernels import build
+    from revisit_anything_tpu_torch.models.sam.amg import (
+        AmgConfig, generate_masks_batch)
+    from revisit_anything_tpu_torch.ops.masks import mask_pool_matrices
+    from revisit_anything_tpu_torch.pipeline.aggregate import (
+        SegmentBank, image_global_vlad, image_segment_vlad)
+    from revisit_anything_tpu_torch.pipeline.evaluate import (
+        run_anyloc_retrieval, run_segloc_retrieval)
+    from revisit_anything_tpu_torch.pipeline.extract import (
+        _fallback_records, _resize_cv2_bilinear, dino_dense_features)
+    from revisit_anything_tpu_torch.pipeline.vocabulary import (
+        fit_pca_from_vlads, fit_vocabulary)
+
+    dev = sam.encoder.pos_embed.device
+    ds = DATASETS["17places"]
+    full_hw, sam_hw = ds.size.hw, ds.sam_size.hw
+    n_db, n_q, encode_batch, dino_batch = 48, 16, 4, 8
+    rng = np.random.default_rng(seed)
+    sets = {"db": [_image(rng, full_hw) for _ in range(n_db)]}
+    sets["q"] = [_noisy(rng, sets["db"][3 * q]) for q in range(n_q)]
+    gt = [[3 * q] for q in range(n_q)]
+    amg = AmgConfig(points_per_batch=1024, pred_iou_thresh=-1e9,
+                    stability_score_thresh=0.0)
+    card = _card()
+
+    def sam_records(imgs):
+        """extract_sam_masks' loop: encode_batch images an encoder
+        dispatch."""
+        recs = []
+        for s in range(0, len(imgs), encode_batch):
+            small = [_resize_cv2_bilinear(im, (sam_hw[1], sam_hw[0]))
+                     for im in imgs[s:s + encode_batch]]
+            recs += [r or _fallback_records(sam_hw) for r in
+                     generate_masks_batch(sam, small, amg, max_masks=128)]
+        return recs
+
+    def dino_feats(imgs):
+        """extract_dino_features' loop: dino_batch images a forward."""
+        return torch.cat([
+            dino_dense_features(dino, np.stack(imgs[s:s + dino_batch]))
+            for s in range(0, len(imgs), dino_batch)])
+
+    # extraction, untimed by any trace
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_counts()
+    masks, feats, times = {}, {}, {}
+    for tag, imgs in sets.items():
+        with _Span() as sam_t:
+            recs = sam_records(imgs)
+        masks[tag] = [np.stack([r.segmentation for r in rr]) for rr in recs]
+        with _Span() as dino_t:
+            feats[tag] = dino_feats(imgs)
+        times[tag] = (sam_t, dino_t)
+    counts = {k.name: k.launches for k in build.KERNELS}
+    # the device's busy time: the queries' extraction again under
+    # torch.profiler (which slows the host); idle share = 1 - busy / the
+    # untraced wall of the same images (PERF.md §3)
+    busy = {}
+    for name, fn in (("SAM", sam_records), ("DINOv2-g", dino_feats)):
+        with _Span(trace=True) as t:
+            fn(sets["q"])
+        busy[name] = t.busy_ms
+    n_img = n_db + n_q
+    per_image = {k: round(v / n_img, 2) for k, v in counts.items() if v}
+    kept = [len(m) for tag in ("db", "q") for m in masks[tag]]
+    for tag, spans in times.items():
+        n = len(sets[tag])
+        parts = []
+        for name, t in zip(("SAM", "DINOv2-g"), spans):
+            part = (f"{name} {n / t.wall:.3f} images/s wall, "
+                    f"{n * 1e3 / t.device_ms:.3f} by the CUDA-event span "
+                    f"({t.wall:.3f} s, {t.device_ms:.3f} ms)")
+            if tag == "q":
+                part += (f", traced again: device busy {busy[name] / n:.3f} "
+                         f"ms an image, idle share "
+                         f"{1 - busy[name] / (t.wall * 1e3):.3f} of the "
+                         "untraced wall")
+            parts.append(part)
+        print(f"[offline] extract {tag}: " + "; ".join(parts), flush=True)
+    print(f"[offline] launches over the {n_img} images' extraction: "
+          f"{counts}; per image {per_image}", flush=True)
+    print(f"[offline] masks kept per image: min {min(kept)}, max "
+          f"{max(kept)}, mean {np.mean(kept):.1f}", flush=True)
+    missing = [k.name for k in (build.FLASH_ATTENTION, build.TOKEN_CROSS,
+                                build.I2T_UPDATE, build.MASK_HEAD,
+                                build.RESIZE_FLAGS) if counts[k.name] == 0]
+    if missing:
+        _fail(f"[offline] kernels not launched in extraction: {missing}")
+    if min(kept) < 32:
+        _fail(f"[offline] an image kept {min(kept)} masks (< 32)")
+    _batch_against_single(sam, sets["db"][:encode_batch], sam_hw, amg,
+                          masks["db"][:encode_batch])
+
+    # vocabulary over the database's descriptors, as fit_vocabulary_from_h5
+    d = feats["db"].shape[1]
+    descs = feats["db"].permute(0, 2, 3, 1).reshape(-1, d)
+    with _Span() as voc_t:
+        centers = fit_vocabulary(descs, NUM_CLUSTERS, seed=42, device=dev)
+    print(f"[offline] vocabulary: {NUM_CLUSTERS} clusters over "
+          f"{descs.shape[0]} x {d} descriptors in {voc_t.wall:.3f} s",
+          flush=True)
+    del descs
+
+    # aggregation, as compute_segment_vlads' loop
+    pool_a, pool_b = mask_pool_matrices(sam_hw, full_hw)
+    banks, agg = {}, {}
+    for tag in ("db", "q"):
+        f_np = feats[tag].cpu().numpy()
+        with _Span() as agg_t:
+            vl = [image_segment_vlad(m, f_np[i], centers, pool_a, pool_b,
+                                     3, dev)
+                  for i, m in enumerate(masks[tag])]
+        banks[tag] = SegmentBank(
+            np.concatenate(vl), np.repeat(np.arange(len(vl)),
+                                          [len(v) for v in vl]),
+            num_images=len(vl))
+        agg[tag] = agg_t
+        n_seg, dim = banks[tag].descriptors.shape
+        print(f"[offline] aggregate {tag}: {n_seg} order-3 segment VLADs x "
+              f"{dim} f32 ({n_seg * dim * 4 / 2 ** 30:.2f} GiB) in "
+              f"{agg_t.wall:.3f} s, {n_seg / agg_t.wall:.1f} segments/s",
+              flush=True)
+
+    with _Span() as pca_t:
+        pca = fit_pca_from_vlads(banks["db"], PCA_DIM, device=dev)
+    print(f"[offline] PCA {pca.components.shape[0]} whitened components fit "
+          f"on {len(banks['db'].descriptors)} segments in {pca_t.wall:.3f} "
+          f"s", flush=True)
+
+    with _Span() as raw_t:
+        raw = run_segloc_retrieval(banks["db"], banks["q"], gt, device=dev)
+    with _Span() as pca_r:
+        with_pca = run_segloc_retrieval(banks["db"], banks["q"], gt, pca=pca,
+                                        device=dev)
+    with _Span() as any_t:
+        gv = {tag: np.stack([image_global_vlad(f, centers, dev)
+                             for f in feats[tag].cpu().numpy()])
+              for tag in ("db", "q")}
+        anyloc = run_anyloc_retrieval(gv["db"], gv["q"], gt, device=dev)
+    _knn_tiles(banks, dev)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def fmt(recalls):
+        return " ".join(f"{x:.4f}" for x in recalls)
+
+    print(f"[offline] Recall@1..5 SegLoc raw {fmt(raw.recalls)} "
+          f"({raw_t.wall:.3f} s); with PCA {fmt(with_pca.recalls)} "
+          f"({pca_r.wall:.3f} s, PCA applied included); AnyLoc "
+          f"{fmt(anyloc.recalls)}, 1%-recall {anyloc.one_percent_recall:.4f}"
+          f" ({any_t.wall:.3f} s, global VLADs included)", flush=True)
+    print(f"[offline] {card}: peak device memory {peak:.2f} GiB over the "
+          "phase", flush=True)
+    if raw.recalls[0] != 1.0:
+        _fail(f"[offline] Recall@1 {raw.recalls[0]} on the raw VLADs: "
+              f"predictions {[p.tolist() for p in raw.predictions]}")
+    return dict(counts=counts, kept=kept, recalls=raw.recalls,
+                pca_recalls=with_pca.recalls, anyloc=anyloc.recalls)
 
 
 def _sam_original_spec(cfg) -> list:
@@ -1583,6 +1923,7 @@ def plain_witness(vsrv, img, ref, decode: str) -> None:
     from revisit_anything_tpu_torch.models.sam import decoder
     from revisit_anything_tpu_torch.ops import decode_fused as dfu
     from revisit_anything_tpu_torch.ops import decode_probs as dpr
+    from revisit_anything_tpu_torch.ops.nms import nms_keep_mask
     from revisit_anything_tpu_torch.pipeline import serve as sv
 
     plain = ({"i2t_probs": dpr.i2t_probs_reference,
@@ -1596,8 +1937,8 @@ def plain_witness(vsrv, img, ref, decode: str) -> None:
         keep = valid & (stab >= amg.stability_score_thresh)
         if amg.pred_iou_thresh > 0.0:
             keep = keep & (iou > amg.pred_iou_thresh)
-        nms = sv.nms_keep_mask(boxes, iou.masked_fill(~keep, float("-inf")),
-                               amg.box_nms_thresh)
+        nms = nms_keep_mask(boxes, iou.masked_fill(~keep, float("-inf")),
+                            amg.box_nms_thresh)
         left = torch.sort(iou[nms & keep], descending=True).values
         cuts["n"], cuts["at"] = left.numel(), left[kmax - 2:kmax + 2].tolist()
         return select(masks, iou, stab, boxes, valid, amg, kmax)
@@ -1857,10 +2198,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(_card(), flush=True)
 
     from revisit_anything_tpu_torch.kernels import build
     build.load()

@@ -1,6 +1,7 @@
 """Segment VLAD: hard assignment + per-SuperSegment residual sums
 (counterpart of ``revisit_anything_tpu/ops/vlad.py`` ``segment_vlad`` :61,
-``hard_assignment``, ``expand_super_masks``, ``l2_normalize``)."""
+``global_vlad`` :140, ``hard_assignment``, ``expand_super_masks``,
+``l2_normalize``)."""
 
 from __future__ import annotations
 
@@ -52,3 +53,11 @@ def segment_vlad(desc: torch.Tensor, centers: torch.Tensor,
     if intra_norm:
         vlads = l2_normalize(vlads, -1)
     return l2_normalize(vlads.reshape(m, -1), -1)
+
+
+def global_vlad(desc: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """AnyLoc's whole-image VLAD [C·D]: ``segment_vlad`` with one all-true
+    mask."""
+    mask = torch.ones((1, desc.shape[0]), dtype=torch.bool,
+                      device=desc.device)
+    return segment_vlad(desc, centers, mask)[0]

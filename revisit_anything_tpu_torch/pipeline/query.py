@@ -15,7 +15,7 @@ import torch
 
 from revisit_anything_tpu_torch.config import (BORDA_TOPK, KNN_TOPK,
                                                RECALL_TOPK)
-from revisit_anything_tpu_torch.ops.knn import _knn_scores, dot_f32
+from revisit_anything_tpu_torch.ops.knn import DB_TILE, _knn_scores, dot_f32
 from revisit_anything_tpu_torch.ops.vlad import l2_normalize, segment_vlad
 
 # Magnitude of database guard rows (padding, removed entries): their kNN
@@ -69,7 +69,7 @@ def query_topk_images(desc: torch.Tensor, patch_masks: torch.Tensor,
                       pca_variance: torch.Tensor, db: torch.Tensor,
                       db_image_ids: torch.Tensor, num_ref_images: int,
                       knn_topk: int = KNN_TOPK, borda_topk: int = BORDA_TOPK,
-                      top_images: int = RECALL_TOPK, db_tile: int = 131072,
+                      top_images: int = RECALL_TOPK, db_tile: int = DB_TILE,
                       whiten: bool = True,
                       db_norms: Optional[torch.Tensor] = None,
                       oneshot_cap_bytes: int = 256 * 1024 * 1024
@@ -84,10 +84,8 @@ def query_topk_images(desc: torch.Tensor, patch_masks: torch.Tensor,
     The vote reads the top min(knn_topk, borda_topk) matches of each
     segment: from one [M, Nd] f32 score matrix while it fits
     ``oneshot_cap_bytes``, else from a streaming merge over ``db_tile``-row
-    tiles (``ops.knn._knn_scores``). The JAX default tile, 8,192 rows, is
-    a TPU size: on one H100 a 600k-row bf16 database took 36.5 ms in
-    tiles of 8,192 and 3.5 ms in tiles of 131,072 (64 MiB of scores at
-    128 segments; chip_smoke.py [stream-knn])."""
+    tiles (``ops.knn._knn_scores``; ``ops.knn.DB_TILE`` gives the
+    tile's measurement)."""
     proj, valid = _segment_rows(desc, patch_masks, adjacency, centers,
                                 pca_mean, pca_components, pca_variance,
                                 whiten)

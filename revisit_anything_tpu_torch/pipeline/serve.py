@@ -7,7 +7,8 @@ Counterpart of ``revisit_anything_tpu/pipeline/serve.py``:
 ``remove_reference_image`` (:683) and ``snapshot_index`` (:696), the
 database updates ``_db_insert`` (:88), ``_compact_insert_many`` (:100)
 and ``_db_remove`` (:134), and the device stages
-``_sam_preprocess_fused`` (:141), ``_select_masks_centroids`` (:170),
+``_sam_preprocess_fused`` (:141; in ``models/sam/amg.py``, which the
+offline extraction shares), ``_select_masks_centroids`` (:170),
 ``_dino_desc_device`` (:210) and the host ``_adjacency`` (:517).
 
 Per query: one uint8 upload; SAM preprocess → encode → AMG decode batches
@@ -43,16 +44,15 @@ from revisit_anything_tpu_torch.config import (BORDA_TOPK, KNN_TOPK,
                                                RECALL_TOPK)
 from revisit_anything_tpu_torch.models import dinov2 as dn
 from revisit_anything_tpu_torch.models.layers import device_constant
-from revisit_anything_tpu_torch.models.sam import (SAM_PIXEL_MEAN,
-                                                   SAM_PIXEL_STD, Sam)
+from revisit_anything_tpu_torch.models.sam import Sam
 from revisit_anything_tpu_torch.models.sam.amg import (
-    AmgConfig, _decode_batch, build_point_grid, resize_longest_side)
+    AmgConfig, _decode_batch, _keep_order, _sam_preprocess_fused,
+    prompt_points, resize_longest_side)
 from revisit_anything_tpu_torch.models.sam.prompt import (
     dense_positional_embedding)
 from revisit_anything_tpu_torch.ops.adjacency import delaunay_adjacency
 from revisit_anything_tpu_torch.ops.masks import (mask_pool_matrices,
                                                   pool_masks_to_patch_grid)
-from revisit_anything_tpu_torch.ops.nms import nms_keep_mask
 from revisit_anything_tpu_torch.ops.resize import bilinear_weight_matrix
 from revisit_anything_tpu_torch.pipeline.query import (DB_GUARD,
                                                        db_sq_norms,
@@ -111,25 +111,6 @@ def _db_remove(db: torch.Tensor, db_ids: torch.Tensor,
     return db.masked_fill((db_ids == image_id)[:, None], DB_GUARD)
 
 
-def _sam_preprocess_fused(img_u8: torch.Tensor, rh: torch.Tensor,
-                          rw: torch.Tensor, pad_to: int) -> torch.Tensor:
-    """uint8 [H, W, 3] → [1, S, S, 3] normalized SAM input. rh/rw are the
-    composed per-axis bilinear matrices (full → half res → S frame); the
-    resized image is re-quantized to uint8 levels before normalizing."""
-    x = img_u8.float()
-    x = torch.einsum("oh,hwc->owc", rh, x)
-    x = torch.einsum("pw,owc->opc", rw, x)
-    x = torch.clamp(torch.round(x), 0.0, 255.0)
-    mean = device_constant(("sam_pixel_mean",), x.device,
-                           lambda: torch.tensor(SAM_PIXEL_MEAN))
-    std = device_constant(("sam_pixel_std",), x.device,
-                          lambda: torch.tensor(SAM_PIXEL_STD))
-    x = (x - mean) / std
-    nh, nw = x.shape[0], x.shape[1]
-    return torch.nn.functional.pad(x, (0, 0, 0, pad_to - nw,
-                                       0, pad_to - nh))[None]
-
-
 def _select_masks_centroids(masks: torch.Tensor, iou: torch.Tensor,
                             stab: torch.Tensor, boxes: torch.Tensor,
                             valid: torch.Tensor, amg: AmgConfig, kmax: int):
@@ -138,16 +119,8 @@ def _select_masks_centroids(masks: torch.Tensor, iou: torch.Tensor,
     Returns (masks [kmax, h, w] bool in IoU-descending NMS-keep order,
     padding rows all-false; stats [2·kmax+1] f32 = centroid (x, y) pairs
     then the kept count — one array, one readback)."""
-    keep = valid & (stab >= amg.stability_score_thresh)
-    if amg.pred_iou_thresh > 0.0:
-        keep = keep & (iou > amg.pred_iou_thresh)
-    neg = float("-inf")
-    scores = iou.masked_fill(~keep, neg)
-    nms_keep = nms_keep_mask(boxes, scores, amg.box_nms_thresh)
-    final_scores = iou.masked_fill(~(nms_keep & keep), neg)
-    k_take = min(kmax, int(final_scores.shape[0]))
-    order = torch.argsort(-final_scores, stable=True)[:k_take]
-    n_kept = torch.clamp((final_scores > neg).sum(), max=k_take)
+    k_take = min(kmax, int(iou.shape[0]))
+    order, n_kept = _keep_order(iou, stab, boxes, valid, amg, k_take)
 
     sel = masks[order]
     if k_take < kmax:
@@ -311,18 +284,11 @@ class SegVLADServer:
 
         # AMG point grid in the S frame (apply_coords scaling), padded to
         # whole batches; padding prompts are invalid candidates
-        grid = build_point_grid(self.amg.points_per_side)
-        pts = grid * np.array([sw, sh], np.float32)
-        pts = (pts * np.array([self.input_hw[1] / sw, self.input_hw[0] / sh],
-                              np.float32)).astype(np.float32)
         bsz = self.amg.points_per_batch
-        pad = (-len(pts)) % bsz
-        n_pts = len(pts)
-        if pad:
-            pts = np.concatenate([pts, np.zeros((pad, 2), np.float32)])
+        pts, _, valid = prompt_points(self.amg.points_per_side,
+                                      self.input_hw, self.sam_hw, bsz)
         self._pts = torch.from_numpy(pts).to(dev)
-        self._valid = torch.from_numpy(np.repeat(np.concatenate(
-            [np.ones(n_pts, bool), np.zeros(pad, bool)]), 3)).to(dev)
+        self._valid = torch.from_numpy(np.repeat(valid, 3)).to(dev)
         self._bsz = bsz
 
         pool_a, pool_b = mask_pool_matrices(self.sam_hw, self.full_hw)

@@ -44,15 +44,26 @@ def _rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-6))
 
 
+OFFLINE_MODULES = (
+    "config", "io.h5io", "io.vocab", "ops.masks", "ops.vlad", "ops.kmeans",
+    "ops.pca", "ops.knn", "models.sam.amg", "pipeline.extract",
+    "pipeline.vocabulary", "pipeline.aggregate", "retrieval.matching",
+    "retrieval.recall", "pipeline.evaluate")
+
+
 def test_port_imports_without_jax_or_nvcc():
-    """The whole serving path imports on a machine with neither JAX in
-    use nor nvcc: the kernels build at their first CUDA launch."""
-    code = ("import sys; import revisit_anything_tpu_torch.pipeline.serve, "
-            "revisit_anything_tpu_torch.weights, "
-            "revisit_anything_tpu_torch.models.sam.convert, "
-            "revisit_anything_tpu_torch.ops.knn; "
+    """The serving path and the fifteen modules of the offline pipeline
+    import on a machine with neither JAX in use nor nvcc (the kernels
+    build at their first CUDA launch), and load none of h5py, PIL, cv2
+    or sklearn (the card's machine lacks some of them: they are imported
+    where a function needs them)."""
+    mods = ["pipeline.serve", "weights", "models.sam.convert",
+            *OFFLINE_MODULES]
+    code = ("import sys; " + "; ".join(
+        f"import revisit_anything_tpu_torch.{m}" for m in mods) + "; "
             "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'revisit_anything_tpu.'))]; "
+            "m.startswith(('jax.', 'revisit_anything_tpu.')) or "
+            "m.split('.')[0] in ('h5py', 'PIL', 'cv2', 'sklearn')]; "
             "assert not bad, bad")
     env = dict(os.environ, PATH="/usr/bin:/bin")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -1009,3 +1020,136 @@ def test_bf16_database_knn_makes_no_f32_copy(cuda):
     assert grew < 3 * scores < nd * pca * 4, (grew, scores)
     assert torch.equal(one, stream)
     assert torch.equal(one.cpu(), cpu)
+
+
+def _offline_sam():
+    """A small SAM on the CPU with every "shared" kernel's production
+    widths (head dim 80, prompt dim 256), its point segmenter planted."""
+    from revisit_anything_tpu_torch.models.sam import SamArchConfig
+    from revisit_anything_tpu_torch.weights import (init_sam,
+                                                    plant_point_segmenter)
+    cfg = SamArchConfig(encoder_dim=320, encoder_depth=2, encoder_heads=4,
+                        global_attn_indexes=(1,), image_size=256,
+                        window_size=8, decoder_mlp_dim=512,
+                        iou_head_hidden=64)
+    gen = torch.Generator().manual_seed(3)
+    sam = init_sam(cfg, gen, "cpu", torch.bfloat16)
+    plant_point_segmenter(sam, gen)
+    return sam
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("windows", ["plain", "kernel"])
+def test_generate_masks_batch_on_the_card_matches_the_cpu(cuda, windows):
+    """A batch of two images (one encoder dispatch at B = 2) through the
+    kernels keeps the masks the CPU plain path keeps from the same
+    weights: the same count an image, 95% of the card's masks matching
+    one of the CPU's at IoU > 0.5 (the smoke's agreement measure) and 90%
+    at IoU > 0.9. bf16 kernels round differently from their bf16 plain
+    versions, so a candidate near the NMS threshold may keep a neighbour
+    instead (one of 32 masks an image did on an H100; the smoke's
+    ``[window]`` finds plain and kernel windows' masks matched at
+    0.992)."""
+    import copy
+
+    from revisit_anything_tpu_torch.models.sam.amg import (
+        AmgConfig, generate_masks_batch)
+    sam = _offline_sam()
+    card = copy.deepcopy(sam).to(cuda)
+    sam.encoder.window_attention = card.encoder.window_attention = windows
+    rng = np.random.default_rng(21)
+    imgs = [_blob_image(rng, (224, 224)) for _ in range(2)]
+    amg = AmgConfig(points_per_side=8, points_per_batch=64,
+                    pred_iou_thresh=-1e9, stability_score_thresh=0.0)
+    build.reset_counts()
+    got = generate_masks_batch(card, imgs, amg, max_masks=32)
+    # with kernel windows the 16x16 global layer (256 tokens) takes the
+    # window kernel too; with plain windows it takes flash attention once
+    # for the batch's one encode
+    encode = (build.WIN_ATTENTION if windows == "kernel"
+              else build.FLASH_ATTENTION)
+    for k in (encode, build.TOKEN_CROSS, build.I2T_UPDATE, build.MASK_HEAD,
+              build.RESIZE_FLAGS):
+        assert k.launches > 0, k.name
+    assert encode.launches == (2 if windows == "kernel" else 1)
+    want = generate_masks_batch(sam, imgs, amg, max_masks=32)
+    for g, w in zip(got, want):
+        assert len(g) == len(w) > 8
+        gm = np.stack([r.segmentation for r in g]).reshape(len(g), -1)
+        wm = np.stack([r.segmentation for r in w]).reshape(len(w), -1)
+        inter = gm.astype(np.float32) @ wm.T.astype(np.float32)
+        best = (inter / (gm.sum(1)[:, None] + wm.sum(1)[None, :] - inter)
+                ).max(1)
+        assert (best > 0.5).mean() >= 0.95, best
+        assert (best > 0.9).mean() >= 0.9, best
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["cosine", "euclidean"])
+def test_kmeans_iterations_on_the_card_match_the_cpu(cuda, mode):
+    """Lloyd iterations from the same centers: the same labels, centers
+    within 1e-5 (true f32 products, whatever the TF32 setting)."""
+    from revisit_anything_tpu_torch.ops.kmeans import kmeans_iterate
+    rng = np.random.default_rng(22)
+    blobs = rng.standard_normal((16, 64)).astype(np.float32) * 2
+    x = torch.from_numpy((blobs[rng.integers(0, 16, 20000)]
+                          + rng.standard_normal((20000, 64))
+                          ).astype(np.float32))
+    c0 = x[torch.from_numpy(rng.choice(20000, 16, replace=False))]
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        cg, lg = kmeans_iterate(x.to(cuda), c0.to(cuda), 20, mode)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    cc, lc = kmeans_iterate(x, c0, 20, mode)
+    assert torch.equal(lg.cpu(), lc)
+    assert (cg.cpu() - cc).abs().max() <= 1e-5
+
+
+@pytest.mark.gpu
+def test_offline_retrieval_ops_on_the_card_match_the_cpu(cuda):
+    """pca_apply (1e-5), knn_l2 (distances within 1e-5 relative, the same
+    indices wherever the next and previous distances are more than 1e-5
+    away) and weighted_borda_predict (the same ids, with planted ties) on
+    the card against the CPU."""
+    from revisit_anything_tpu_torch.ops.knn import knn_l2
+    from revisit_anything_tpu_torch.ops.pca import PCAParams, pca_apply
+    from revisit_anything_tpu_torch.retrieval.matching import (
+        weighted_borda_predict)
+    rng = np.random.default_rng(23)
+    t = torch.from_numpy
+    x = t(rng.standard_normal((3000, 2048)).astype(np.float32))
+    params = PCAParams(t(rng.standard_normal(2048).astype(np.float32)),
+                       t(rng.standard_normal((256, 2048)).astype(
+                           np.float32)),
+                       t(rng.random(256).astype(np.float32) + 0.5), True)
+    on = PCAParams(*(a.to(cuda) for a in params[:3]), True)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        y_card = pca_apply(x.to(cuda), on).cpu()
+        db = x[:2500] / x[:2500].norm(dim=1, keepdim=True)
+        q = db[::50] + 0.05 * t(rng.standard_normal((50, 2048)).astype(
+            np.float32))
+        d_card, i_card = knn_l2(q.to(cuda), db.to(cuda), 200)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    y = pca_apply(x, params)
+    assert ((y_card - y).abs().max() / y.abs().max()) <= 1e-5
+    d, i = knn_l2(q, db, 200)
+    assert ((d_card.cpu() - d).abs().max() / d.abs().max()) <= 1e-5
+    gap = d.diff(dim=1).abs() > 1e-5 * d.abs().max()
+    apart = torch.ones_like(i, dtype=torch.bool)
+    apart[:, 1:] &= gap
+    apart[:, :-1] &= gap
+    assert torch.equal(i_card.cpu()[apart], i[apart])
+    assert apart.float().mean() > 0.5
+
+    n_q, n_ref = 50, 500
+    q_ids = t(np.repeat(np.arange(n_q), 40))
+    sims = t(rng.integers(0, 9, (n_q * 40, 50)).astype(np.float32) / 8.0)
+    matches = t(rng.integers(0, 2500, (n_q * 40, 50)))
+    ref_ids = t(np.repeat(np.arange(n_ref), 5))
+    args = (sims, matches, q_ids, ref_ids)
+    got = weighted_borda_predict(*(a.to(cuda) for a in args), n_q, n_ref)
+    want = weighted_borda_predict(*args, n_q, n_ref)
+    assert torch.equal(got.cpu(), want)
