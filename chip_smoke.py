@@ -18,7 +18,9 @@ Phases (any failure exits non-zero):
      instantiations, B7's layer 2 and B8's two depths (cuobjdump);
      then
      compare every kernel with its plain version in bf16 at the main
-     path's shapes (K1 also at the offline extraction's batches), timing both with CUDA events (median of 7 after
+     path's shapes (K1 also at the offline extraction's batches; K4, K3,
+     K2 and K5 also at multi-crop AMG's crop shapes: 256 prompts, gh
+     52), timing both with CUDA events (median of 7 after
      warm-up, each call queued behind a device sleep so that its host
      launch cost is not timed), beside its bound (the larger of bytes /
      3.35 TB/s and operations / the H100's peak rate for their type:
@@ -87,18 +89,34 @@ Phases (any failure exits non-zero):
      device's idle share; the first 4 images encoded together against
      one at a time (embeddings and masks); knn_l2 across tiles against
      one tile;
- 15. [checkpoint]: a seeded original-layout SAM ViT-H state dict saved
+ 15. [multicrop]: one planted 240x320 image through multi-crop AMG
+     (crop_n_layers=1, crop_n_points_downscale_factor=2,
+     min_mask_region_area=100): launches with the counters reset (K1 20,
+     K2 15, K5 10, K3 5, K4 5), every mask inside its crop box, no two
+     kept boxes above crop_nms_thresh, deterministic, one crop equal to
+     generate_masks; seconds an image, the small-region ms;
+ 16. [predictor]: SamPredictor on a 480x640 image: 8 grid points (each
+     mask at IoU >= 0.95 with AMG's "shared" candidate for the point,
+     predicted IoU within 2e-2), a box, a mask input, logits; set_image
+     and predict ms;
+ 17. [export]: the decoder exported by torch.export at 256 prompts,
+     saved, loaded and called: within 1e-3 of the eager general path;
+     export and load seconds, file MiB;
+ 18. [datasets]: radius positives of 2,000 UTM points against a brute
+     force, an image listing and get_gt("17places") (no sklearn);
+ 19. [checkpoint]: a seeded original-layout SAM ViT-H state dict saved
      with torch.save and loaded by load_sam_checkpoint, a hub-layout
      DINOv2-g dict converted in memory, both onto the card in bf16 (load
      seconds, peak host RSS, device memory); leaves spot-checked against
      the dicts; one query through them with the "shared" kernels;
- 16. print the kernel table as one JSON line (B10, token_cross_split, has
+ 20. print the kernel table as one JSON line (B10, token_cross_split, has
      no caller on a serving path, as in the JAX package: launches 0),
      then the result line.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -561,8 +579,88 @@ def compare_kernels(dev) -> dict:
           rate=True)
     del logits
     torch.cuda.empty_cache()
+    compare_crop_shapes(dev, check, rnd, rel_tol, flag_tol, flags_err)
     compare_probs_kernels(dev, check, head, rel_tol)
     return results
+
+
+def compare_crop_shapes(dev, check, rnd, rel_tol, flag_tol,
+                        flags_err) -> None:
+    """K4, K3, K2 and K5 at the shapes multi-crop AMG gives them on a
+    240x320 image (crop_n_layers=1, downscale factor 2): a 161x201 crop's
+    SAM frame is 820x1024, so K4 resizes gh = 52 token rows and K3
+    decodes content 52·64 = 3328 positions, at 256 prompts (a 16x16
+    grid); K2's per-prompt k|v and K5's per-prompt update at 256
+    prompts."""
+    import torch
+
+    from revisit_anything_tpu_torch.kernels import build
+    from revisit_anything_tpu_torch.models.sam import SAM_VIT_H
+    from revisit_anything_tpu_torch.models.sam.amg import (
+        resize_longest_side, resize_mats_and_rows)
+    from revisit_anything_tpu_torch.ops import attention as att
+    from revisit_anything_tpu_torch.ops import maskhead as mh
+    from revisit_anything_tpu_torch.ops import maskresize as mr
+    from torch.nn import functional as F
+
+    b, crop_hw = 256, (161, 201)
+    input_hw = resize_longest_side(*crop_hw, 1024)
+    wh, ww, gh = resize_mats_and_rows(SAM_VIT_H, input_hw, crop_hw)
+    content = gh * 64
+    whd, wwd = torch.from_numpy(wh).to(dev), torch.from_numpy(ww).to(dev)
+    taps = tuple(t.to(dev) for t in mr.resize_taps(wh, ww))
+    logits = rnd(b, content, 16, 3, s=4.0)
+    n_taps = (int((whd != 0).sum()) * 4 * 64
+              + crop_hw[0] * int((wwd != 0).sum()))
+    check(build.RESIZE_FLAGS,
+          f"crop logits [{b},{content},16,3] -> flags [{b},3,161,201]",
+          lambda: mr.fused_resize_flags(logits, whd, wwd, 0.0, 1.0,
+                                        (gh, 64), taps=taps),
+          lambda: mr.resize_flags_reference(logits, whd, wwd, 0.0, 1.0,
+                                            (gh, 64)),
+          flags_err, flag_tol, (logits,) + taps, (0, 2 * b * 3 * n_taps),
+          rate=True)
+    del logits
+
+    margs = (rnd(b, 4096, 256), rnd(b, 3, 32, s=0.5),
+             rnd(256, 256, s=0.1), rnd(64, s=0.1), rnd(64, s=0.1, off=1.0),
+             rnd(64, s=0.1), rnd(64, 128, s=0.1), rnd(32, s=0.1))
+    head_bf16 = 2 * (256 * 256 + 4 * 64 * 128 + 16 * 32 * 3)
+    check(build.MASK_HEAD, f"keys [{b},4096,256] -> [{b},{content},16,3]",
+          lambda: mh.fused_mask_head(*margs, eps=1e-6, content=content),
+          lambda: mh.upscale_masks_blocks(margs[0][:, :content], *margs[1:],
+                                          eps=1e-6),
+          _rel, rel_tol, (margs[0][:, :content],) + margs[1:],
+          (b * content * head_bf16, b * content * HEAD_F32))
+    del margs
+
+    qt, kvt = rnd(b, 7, 128), rnd(b, 256, 4096)
+    pe, vb = rnd(1, 128, 4096), rnd(128)
+    k_l = (kvt[:, :128] + pe).reshape(b, 8, 16, 4096).transpose(
+        2, 3).contiguous()
+    v_l = (kvt[:, 128:] + vb[:, None]).reshape(b, 8, 16, 4096).transpose(
+        2, 3).contiguous()
+    q_l = qt.reshape(b, 7, 8, 16).transpose(1, 2).contiguous()
+    check(build.TOKEN_CROSS, f"q [{b},7,128] kvt [{b},256,4096]",
+          lambda: att.token_cross_attend_kv(qt, kvt, pe, vb, 8),
+          lambda: att.token_cross_attend_kv_reference(qt, kvt, pe, vb, 8),
+          _rel, rel_tol, (qt, kvt, pe, vb), (4 * b * 8 * 7 * 4096 * 16, 0),
+          library=lambda: F.scaled_dot_product_attention(q_l, k_l, v_l))
+    del qt, kvt, pe, vb, k_l, v_l, q_l
+
+    iargs = (rnd(b, 4096, 256), rnd(1, 4096, 128), rnd(b, 7, 128),
+             rnd(b, 7, 128), rnd(256, 128, s=0.1), rnd(128, s=0.1),
+             rnd(128, 256, s=0.1), rnd(256, s=0.1),
+             rnd(256, s=0.1, off=1.0), rnd(256, s=0.1),
+             rnd(256, 256, s=0.1))
+    check(build.I2T_UPDATE, f"img [{b},4096,256]",
+          lambda: att.i2t_update(*iargs, 8, 1e-6),
+          lambda: att.i2t_update_reference(*iargs, 8, 1e-6),
+          _tuple_err, rel_tol, iargs,
+          (2 * b * 4096 * (256 * 128 + 128 * 256 + 256 * 256)
+           + 2 * 2 * b * 4096 * 8 * 7 * 16, 0))
+    del iargs
+    torch.cuda.empty_cache()
 
 
 def compare_probs_kernels(dev, check, head, rel_tol) -> None:
@@ -838,9 +936,12 @@ def serve(dev, seed: int = 0) -> dict:
     stream = stream_knn_phase(srv, queries[0], planted[0])
     del srv
     offline = offline_phase(sam, dino)
+    del dino
+    tools = sam_tools_phase(sam)
     return dict(counts=counts, wall_ms=wall, peak_gib=peak_gib,
                 variants=variants, window=window, pipelined=pipelined,
-                concurrent=concurrent, stream=stream, offline=offline)
+                concurrent=concurrent, stream=stream, offline=offline,
+                tools=tools)
 
 
 def _noisy(rng, img):
@@ -1450,6 +1551,313 @@ def offline_phase(sam, dino, seed: int = 5) -> dict:
               f"predictions {[p.tolist() for p in raw.predictions]}")
     return dict(counts=counts, kept=kept, recalls=raw.recalls,
                 pca_recalls=with_pca.recalls, anyloc=anyloc.recalls)
+
+
+def _box_iou(a, b) -> float:
+    """IoU of two XYXY boxes, areas without +1 (torchvision's)."""
+    ix = max(0.0, min(a[2], b[2]) - max(a[0], b[0]))
+    iy = max(0.0, min(a[3], b[3]) - max(a[1], b[1]))
+    inter = ix * iy
+    union = ((a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1])
+             - inter)
+    return inter / union if union > 0 else 0.0
+
+
+def _same_records(a, b) -> bool:
+    import numpy as np
+    return len(a) == len(b) and all(
+        np.array_equal(x.segmentation, y.segmentation)
+        and x.crop_box == y.crop_box and x.bbox == y.bbox
+        and x.predicted_iou == y.predicted_iou
+        and x.stability_score == y.stability_score for x, y in zip(a, b))
+
+
+def multicrop_phase(sam, seed: int = 9) -> dict:
+    """[multicrop]: one planted 240x320 image through multi-crop AMG with
+    upstream's example-notebook settings (crop_n_layers=1,
+    crop_n_points_downscale_factor=2, min_mask_region_area=100; the
+    thresholds off as the planted segmenter needs): 5 encodes, the full
+    image's 32x32 grid and 4 crops' 16x16 grids. Launches with the
+    counters reset (K1 20, K2 15, K5 10, K3 5, K4 5), every mask inside
+    its XYWH crop box, no two kept boxes above crop_nms_thresh, the same
+    records twice, and with crop_n_layers=0 ``_generate_multicrop`` gives
+    ``generate_masks``' records bit for bit; seconds an image and the
+    small-region post-processing's ms."""
+    import numpy as np
+    import dataclasses as dc
+
+    import torch
+
+    from revisit_anything_tpu_torch.config import PLACES17_SAM_HW
+    from revisit_anything_tpu_torch.kernels import build
+    from revisit_anything_tpu_torch.models.sam import amg as pamg
+
+    img = _image(np.random.default_rng(seed), PLACES17_SAM_HW)
+    amg = pamg.AmgConfig(points_per_batch=1024, pred_iou_thresh=-1e9,
+                         stability_score_thresh=0.0, crop_n_layers=1,
+                         crop_n_points_downscale_factor=2,
+                         min_mask_region_area=100)
+    pamg.generate_masks(sam, img, amg, max_masks=128)        # warm-up
+    torch.cuda.synchronize()
+    build.reset_counts()
+    t0 = time.perf_counter()
+    recs = pamg.generate_masks(sam, img, amg, max_masks=128)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in build.KERNELS}
+    want = {build.FLASH_ATTENTION: 20, build.TOKEN_CROSS: 15,
+            build.I2T_UPDATE: 10, build.MASK_HEAD: 5, build.RESIZE_FLAGS: 5}
+    crops = collections.Counter(r.crop_box for r in recs)
+    print(f"[multicrop] {len(recs)} records in {wall:.3f} s an image "
+          f"(5 encodes, 1024 + 4 x 256 prompts); by crop box (XYWH) "
+          f"{dict(crops)}; launches {counts}", flush=True)
+    bad = {k.name: counts[k.name] for k, n in want.items()
+           if counts[k.name] != n}
+    if bad:
+        _fail(f"[multicrop] launches {bad}, expected "
+              f"{ {k.name: n for k, n in want.items()} }")
+    if not recs:
+        _fail("[multicrop] no records")
+    boxes = []
+    for r in recs:
+        x0, y0, w, h = r.crop_box
+        ys, xs = np.nonzero(r.segmentation)
+        if not (xs.min() >= x0 and xs.max() < x0 + w and ys.min() >= y0
+                and ys.max() < y0 + h) or r.area <= 100:
+            _fail(f"[multicrop] a mask outside its crop box {r.crop_box} "
+                  f"or of area {r.area}")
+        boxes.append((xs.min(), ys.min(), xs.max(), ys.max()))
+    worst = max((_box_iou(a, b) for i, a in enumerate(boxes)
+                 for b in boxes[i + 1:]), default=0.0)
+    if worst > amg.crop_nms_thresh + 1e-6:
+        _fail(f"[multicrop] two kept boxes at IoU {worst}")
+    if not _same_records(recs, pamg.generate_masks(sam, img, amg,
+                                                   max_masks=128)):
+        _fail("[multicrop] records differ between two runs")
+    one = dc.replace(amg, crop_n_layers=0)
+    if not _same_records(pamg._generate_multicrop(sam, img, one, 128),
+                         pamg.generate_masks(sam, img, one, max_masks=128)):
+        _fail("[multicrop] one crop through _generate_multicrop differs "
+              "from generate_masks")
+    # the post-processing alone, on the candidates it received
+    raw = pamg.generate_masks(sam, img, dc.replace(
+        amg, min_mask_region_area=0), max_masks=128)
+    masks = [r.segmentation for r in raw]
+    t0 = time.perf_counter()
+    kept, _ = pamg._postprocess_small_regions(masks, 100, 0.7)
+    post_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[multicrop] max box IoU between kept masks {worst:.3f}; "
+          f"deterministic; one crop = generate_masks; small-region "
+          f"post-processing {post_ms:.3f} ms for {len(masks)} masks "
+          f"({len(kept)} kept)", flush=True)
+    _host_profile(lambda: pamg.generate_masks(sam, img, amg, max_masks=128))
+    return dict(records=len(recs), seconds=wall, post_ms=post_ms,
+                counts=counts)
+
+
+def _host_profile(fn, top: int = 10) -> None:
+    """Where a call's wall time goes on the host: cProfile's functions by
+    own time (a function that waits for the device, e.g. a readback,
+    holds that wait)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    prof.disable()
+    st = pstats.Stats(prof)
+    total = sum(v[2] for v in st.stats.values())
+    rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:top]
+    print(f"[multicrop] host profile of one image ({total * 1e3:.1f} ms "
+          "under cProfile), own time: " + "; ".join(
+              f"{name} ({file.rsplit('/', 1)[-1]}:{line}) "
+              f"{v[2] * 1e3:.1f} ms x{v[1]}"
+              for (file, line, name), v in rows), flush=True)
+
+
+def predictor_phase(sam, seed: int = 10) -> dict:
+    """[predictor]: ``SamPredictor.set_image`` on a 480x640 image, then
+    ``predict`` with 8 grid points one at a time (multimask), a box
+    (single mask), the best low-res logits fed back as ``mask_input``,
+    and ``return_logits``: shapes and finite values everywhere. The
+    predictor's general plain path and AMG's "shared" kernels compute
+    the same function for a point: each of its 3 masks must be at IoU >=
+    0.95 with AMG's candidate for the same point (before filters) and
+    its predicted IoU within 2e-2."""
+    import numpy as np
+    import torch
+
+    from revisit_anything_tpu_torch.models.sam import amg as pamg
+    from revisit_anything_tpu_torch.models.sam.predictor import SamPredictor
+    from revisit_anything_tpu_torch.models.sam.prompt import (
+        dense_positional_embedding)
+
+    hw, low_side = (480, 640), 4 * sam.cfg.grid
+    img = _image(np.random.default_rng(seed), hw)
+    pred = SamPredictor(sam)
+    pred.set_image(img)                                      # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred.set_image(img)
+    torch.cuda.synchronize()
+    set_ms = (time.perf_counter() - t0) * 1e3
+    input_hw = pred._input_hw
+    pts_in, pts_orig, _ = pamg.prompt_points(32, input_hw, hw, 1024)
+    idx = np.array([100, 230, 300, 420, 530, 650, 780, 910])
+    emb = pred.get_image_embedding()
+    amg = pamg.AmgConfig(points_per_batch=1024)
+    with torch.inference_mode():
+        pe = dense_positional_embedding(sam.prompt, sam.cfg)[0]
+        cand, cand_iou, _, _ = pamg._decode_batch(
+            sam, sam.cfg, emb, pe, torch.from_numpy(pts_in[idx]).to(
+                emb.device), input_hw, hw, amg)
+    cand = cand.reshape(len(idx), 3, *hw).cpu().numpy()
+    cand_iou = cand_iou.reshape(len(idx), 3).float().cpu().numpy()
+    times, worst_iou, worst_pred = [], 1.0, 0.0
+    for j, i in enumerate(idx):
+        t0 = time.perf_counter()
+        masks, iou, low = pred.predict(point_coords=pts_orig[i][None],
+                                       point_labels=np.array([1]))
+        times.append((time.perf_counter() - t0) * 1e3)
+        if masks.shape != (3,) + hw or low.shape != (3, low_side,
+                                                     low_side):
+            _fail(f"[predictor] shapes {masks.shape}, {low.shape}")
+        if not (np.isfinite(iou).all() and np.isfinite(low).all()):
+            _fail("[predictor] non-finite output")
+        for k in range(3):
+            inter = np.logical_and(masks[k], cand[j, k]).sum()
+            union = np.logical_or(masks[k], cand[j, k]).sum()
+            worst_iou = min(worst_iou, inter / union if union else 1.0)
+            worst_pred = max(worst_pred,
+                             abs(float(iou[k] - cand_iou[j, k])))
+    print(f"[predictor] 8 points against AMG's candidates: min mask IoU "
+          f"{worst_iou:.4f}, max |predicted IoU diff| {worst_pred:.2e}",
+          flush=True)
+    if worst_iou < 0.95 or worst_pred > 2e-2:
+        _fail(f"[predictor] mask IoU {worst_iou} or predicted IoU diff "
+              f"{worst_pred} against AMG's candidates")
+    masks, iou, low = pred.predict(box=np.array([100, 80, 400, 300]),
+                                   multimask_output=False)
+    best = low[int(np.argmax(iou))][None]
+    fed, fed_iou, _ = pred.predict(point_coords=pts_orig[idx[3]][None],
+                                   point_labels=np.array([1]),
+                                   mask_input=best, multimask_output=False)
+    logits, _, _ = pred.predict(point_coords=pts_orig[idx[3]][None],
+                                point_labels=np.array([1]),
+                                return_logits=True)
+    for name, arr, shape, dtype in (
+            ("box", masks, (1,) + hw, np.bool_),
+            ("mask_input", fed, (1,) + hw, np.bool_),
+            ("return_logits", logits, (3,) + hw, np.float32)):
+        if arr.shape != shape or arr.dtype != dtype:
+            _fail(f"[predictor] {name}: {arr.shape} {arr.dtype}")
+    if not (np.isfinite(logits).all() and np.isfinite(fed_iou).all()):
+        _fail("[predictor] non-finite logits")
+    predict_ms = statistics.median(times)
+    print(f"[predictor] set_image {set_ms:.3f} ms (480x640, K1 x4), "
+          f"predict {predict_ms:.3f} ms (median of 8, one point, general "
+          f"path in bf16, wall); box {int(masks.sum())} px, mask_input "
+          f"{int(fed.sum())} px", flush=True)
+    return dict(set_image_ms=set_ms, predict_ms=predict_ms, emb=emb)
+
+
+def export_phase(sam, emb) -> dict:
+    """[export]: ``export_decoder`` at 256 prompts on the card,
+    ``load_decoder``, one call on the predictor's embedding: masks and IoU
+    within 1e-3 relative of the eager general path."""
+    import os
+    import tempfile
+
+    import torch
+
+    from revisit_anything_tpu_torch.models.sam import amg as pamg
+    from revisit_anything_tpu_torch.models.sam.export import (
+        export_decoder, load_decoder, make_decode_fn)
+
+    pts = pamg.prompt_points(16, (768, 1024), (240, 320), 256)[0]
+    pts = torch.from_numpy(pts).to(emb.device)
+    x = emb.float()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sam_decoder.pt2")
+        t0 = time.perf_counter()
+        export_decoder(sam, path, num_prompts=256)
+        export_s = time.perf_counter() - t0
+        mib = os.path.getsize(path) / 2 ** 20
+        t0 = time.perf_counter()
+        fn = load_decoder(path)
+        load_s = time.perf_counter() - t0
+        with torch.no_grad():
+            got = fn(x, pts)
+            want = make_decode_fn(sam, 256)(x, pts)
+    torch.cuda.synchronize()
+    errs = [_rel(a, b)[1] for a, b in zip(got, want)]
+    print(f"[export] 256 prompts: export {export_s:.2f} s, load "
+          f"{load_s:.2f} s, file {mib:.2f} MiB; masks "
+          f"{tuple(got[0].shape)} rel_err {errs[0]:.2e}, IoU rel_err "
+          f"{errs[1]:.2e} against the eager general path", flush=True)
+    low_side = 4 * sam.cfg.grid
+    if got[0].shape != (256, 3, low_side, low_side) or max(errs) > 1e-3:
+        _fail(f"[export] shape {tuple(got[0].shape)}, rel_err {errs}")
+    return dict(export_s=export_s, load_s=load_s, mib=mib, rel_err=errs)
+
+
+def datasets_phase(seed: int = 11) -> dict:
+    """[datasets] on the card's machine (no sklearn): ``radius_positives``
+    on 2,000 seeded UTM database points against a brute-force distance
+    matrix, ``list_dataset_images`` over a tree written from the seed,
+    and ``get_gt("17places")``."""
+    import numpy as np
+    import os
+    import tempfile
+
+    from revisit_anything_tpu_torch.config import DATASETS
+    from revisit_anything_tpu_torch.datasets import (get_gt,
+                                                     list_dataset_images,
+                                                     radius_positives)
+
+    rng = np.random.default_rng(seed)
+    db = rng.uniform(0, 2000, (2000, 2)) + np.array([585000.0, 4477000.0])
+    q = db[rng.choice(2000, 200, replace=False)] + rng.normal(0, 15,
+                                                              (200, 2))
+    radius_positives(db[:10], q[:10], 25.0)          # scipy's import
+    t0 = time.perf_counter()
+    got = radius_positives(db, q, 25.0)
+    ms = (time.perf_counter() - t0) * 1e3
+    d2 = ((q[:, None, :] - db[None, :, :]) ** 2).sum(-1)
+    want = [np.flatnonzero(row <= 625.0).tolist() for row in d2]
+    if [g.tolist() for g in got] != want:
+        _fail("[datasets] radius positives differ from the brute force")
+    ds = DATASETS["17places"]
+    with tempfile.TemporaryDirectory() as root:
+        for sub, n in ((ds.data_subpath_ref, 40), (ds.data_subpath_query,
+                                                   40)):
+            d = os.path.join(root, ds.name, sub)
+            os.makedirs(d)
+            for i in rng.permutation(n):
+                open(os.path.join(d, f"{i}.jpg"), "wb").close()
+        refs, queries = list_dataset_images(ds, root)
+    names = [os.path.basename(p) for p in refs]
+    if names != [f"{i}.jpg" for i in range(40)] or len(queries) != 40:
+        _fail(f"[datasets] listing {names[:5]}..., {len(queries)} queries")
+    gt = get_gt("17places", "", ref_paths=refs, query_paths=queries)
+    if gt[20] != list(range(5, 36)) or len(gt) != 40:
+        _fail("[datasets] 17places ground truth")
+    print(f"[datasets] radius_positives 2000 db x 200 queries in {ms:.3f} "
+          f"ms ({sum(len(g) for g in got)} positives), equal to the brute "
+          f"force; list_dataset_images and get_gt('17places') ok",
+          flush=True)
+    return dict(radius_ms=ms)
+
+
+def sam_tools_phase(sam) -> dict:
+    """[multicrop], [predictor], [export] and [datasets] on the serve
+    phase's SAM ViT-H."""
+    out = dict(multicrop=multicrop_phase(sam))
+    out["predictor"] = predictor_phase(sam)
+    out["export"] = export_phase(sam, out["predictor"].pop("emb"))
+    out["datasets"] = datasets_phase()
+    return out
 
 
 def _sam_original_spec(cfg) -> list:

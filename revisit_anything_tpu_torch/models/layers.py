@@ -8,7 +8,7 @@ is created with ``requires_grad=False``.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -39,26 +39,21 @@ def device_constant(key: tuple, device, make: Callable) -> torch.Tensor:
     return t
 
 
-def load_tree(module: nn.Module, tree, skip: Iterable[str] = (),
-              path: str = "") -> None:
+def load_tree(module: nn.Module, tree, path: str = "") -> None:
     """Copy a nested dict/list tree of arrays into ``module`` by name.
 
     Dict keys name attributes, list positions index ModuleLists. A None
-    leaf requires the module's entry to be None. Keys listed in ``skip``
-    are ignored; any other key without a counterpart, or a shape that
-    differs, raises. Leaves are copied one at a time (cast to the
+    leaf requires the module's entry to be None. A key without a
+    counterpart, or a shape that differs, raises. Leaves are copied one at a time (cast to the
     entry's dtype on its device), so a tree of views into a checkpoint's
     state dict loads without a second copy of the model on the host."""
-    skip = tuple(skip)
     if isinstance(tree, dict):
         for key, sub in tree.items():
-            if key in skip:
-                continue
             if not hasattr(module, key):
                 raise KeyError(f"no port entry for {path + key}")
             child = getattr(module, key)
             if isinstance(child, nn.Module):
-                load_tree(child, sub, skip, f"{path}{key}.")
+                load_tree(child, sub, f"{path}{key}.")
             else:
                 _assign(child, sub, path + key)
     elif isinstance(tree, (list, tuple)):
@@ -66,7 +61,7 @@ def load_tree(module: nn.Module, tree, skip: Iterable[str] = (),
             raise ValueError(f"{path}: {len(tree)} entries vs "
                              f"{len(module)} in the port")
         for i, sub in enumerate(tree):
-            load_tree(module[i], sub, skip, f"{path}{i}.")
+            load_tree(module[i], sub, f"{path}{i}.")
     else:
         raise TypeError(f"{path}: unexpected tree node {type(tree)}")
 

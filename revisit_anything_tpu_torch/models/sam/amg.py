@@ -3,26 +3,35 @@ batch) → prompt batches decoded to candidate masks at the original
 resolution with IoU, stability and boxes → filters, NMS and top-k →
 mask records.
 
-Counterpart of ``revisit_anything_tpu/models/sam/amg.py``: ``AmgConfig``,
-``build_point_grid``, ``resize_longest_side``, ``resize_mats_and_rows``
-(:158, without the TPU's lane rounding of the row count: gh = 49 at
-240×320, content 3136), ``_decode_batch`` (:223), ``_pack_bits`` (:327),
-``_select_and_pack`` (:341), ``generate_masks`` (:380),
-``generate_masks_batch`` (:411), ``_crop_candidates`` (:449, one crop),
-``_assemble_records`` (:515) and ``_generate_from_embedding`` (:540).
-The resize, the three thresholdings and the per-axis stats run in kernel
-K4 (``ops.maskresize.fused_resize_flags``); stability and boxes are
-integer reductions of its stats, identical to reducing the flag image.
+Counterpart of ``revisit_anything_tpu/models/sam/amg.py``: ``AmgConfig``
+(:44), ``build_point_grid``, ``generate_crop_boxes`` (:75),
+``resize_longest_side``, ``resize_mats_and_rows`` (:158, without the
+TPU's lane rounding of the row count: gh = 49 at 240×320, content 3136),
+``_decode_batch`` (:223), ``_pack_bits`` (:327), ``_select_and_pack``
+(:341, with the crop-edge filter), ``generate_masks`` (:380),
+``generate_masks_batch`` (:411), ``_crop_candidates`` (:449),
+``_assemble_records`` (:515), ``_generate_from_embedding`` (:540),
+``_generate_multicrop`` (:565) and ``_postprocess_small_regions``
+(:648). The resize, the three thresholdings and the per-axis stats run
+in kernel K4 (``ops.maskresize.fused_resize_flags``); stability and
+boxes are integer reductions of its stats, identical to reducing the
+flag image.
 
-Not ported yet: multi-crop AMG and the small-region post-processing
-(the JAX ``AmgConfig``'s ``crop_*`` and ``min_mask_region_area`` fields),
-so records keep every non-empty mask and carry the full-image crop box.
+Multi-crop AMG (``crop_n_layers`` > 0) encodes each crop of
+``generate_crop_boxes`` on its own and decodes its point grid
+(``points_per_side`` over ``crop_n_points_downscale_factor`` to the
+layer's power), drops masks at a crop edge that is not an image edge,
+uncrops the rest and keeps the smaller crop's mask where two overlap
+(host NMS by 1/area of the crop box). ``min_mask_region_area`` > 0 fills
+small holes and removes small islands (``native.py``), keeps the
+unchanged masks first by host NMS and drops masks of at most that area.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -37,9 +46,10 @@ from revisit_anything_tpu_torch.models.sam.decoder import (DECODES,
                                                            decode_masks)
 from revisit_anything_tpu_torch.models.sam.prompt import (
     dense_positional_embedding, embed_points, no_mask_dense_embedding)
+from revisit_anything_tpu_torch.native import nms_native, remove_small_regions
 from revisit_anything_tpu_torch.ops.maskresize import (fused_resize_flags,
                                                        resize_taps)
-from revisit_anything_tpu_torch.ops.nms import nms_keep_mask
+from revisit_anything_tpu_torch.ops.nms import nms_host, nms_keep_mask
 from revisit_anything_tpu_torch.ops.resize import bilinear_weight_matrix
 
 
@@ -51,6 +61,16 @@ class AmgConfig:
     stability_score_thresh: float = 0.95
     stability_score_offset: float = 1.0
     box_nms_thresh: float = 0.7
+    min_mask_region_area: int = 0   # > 0: small-region post-processing
+    # multi-crop (automatic_mask_generator.py:40-48): layer i adds
+    # (2^i)² overlapping crops, each through the whole grid pipeline,
+    # deduplicated by cross-crop NMS that prefers smaller crops. The
+    # server ignores these fields and decodes the one grid, as the JAX
+    # server does (its pipeline/serve.py:381).
+    crop_n_layers: int = 0
+    crop_nms_thresh: float = 0.7
+    crop_overlap_ratio: float = 512 / 1500
+    crop_n_points_downscale_factor: int = 1
     # two-way decoder form, one of decoder.DECODES: "shared" (K5), or the
     # probability-factored "probs_split", "fused_tail_probs",
     # "fused_tail_keys" (the JAX package's TPU default),
@@ -69,6 +89,33 @@ def build_point_grid(n_per_side: int) -> np.ndarray:
     coords = np.linspace(offset, 1.0 - offset, n_per_side)
     xs, ys = np.meshgrid(coords, coords)
     return np.stack([xs.ravel(), ys.ravel()], axis=-1)
+
+
+def generate_crop_boxes(im_hw: Tuple[int, int], n_layers: int,
+                        overlap_ratio: float):
+    """XYXY crop boxes and their layers: layer 0 the whole image, layer i
+    (2^i)² crops of length ceil((overlap·(n−1) + len)/n), overlap
+    int(ratio · short side · 2/n) (utils/amg.py:200-235)."""
+    im_h, im_w = im_hw
+    short_side = min(im_h, im_w)
+    crop_boxes = [[0, 0, im_w, im_h]]
+    layer_idxs = [0]
+
+    def crop_len(orig_len, n_crops, overlap):
+        return int(math.ceil((overlap * (n_crops - 1) + orig_len) / n_crops))
+
+    for i_layer in range(n_layers):
+        n_per_side = 2 ** (i_layer + 1)
+        overlap = int(overlap_ratio * short_side * (2 / n_per_side))
+        crop_w = crop_len(im_w, n_per_side, overlap)
+        crop_h = crop_len(im_h, n_per_side, overlap)
+        for x0 in (int((crop_w - overlap) * i) for i in range(n_per_side)):
+            for y0 in [int((crop_h - overlap) * j)
+                       for j in range(n_per_side)]:
+                crop_boxes.append([x0, y0, min(x0 + crop_w, im_w),
+                                   min(y0 + crop_h, im_h)])
+                layer_idxs.append(i_layer + 1)
+    return crop_boxes, layer_idxs
 
 
 def resize_longest_side(h: int, w: int, long_side: int) -> Tuple[int, int]:
@@ -209,16 +256,30 @@ def _decode_batch(sam, cfg: SamArchConfig, image_embedding: torch.Tensor,
 
 
 def _keep_order(iou: torch.Tensor, stab: torch.Tensor, boxes: torch.Tensor,
-                valid: torch.Tensor, amg: AmgConfig, k_take: int):
+                valid: torch.Tensor, amg: AmgConfig, k_take: int,
+                crop_box=None, orig_box=None):
     """The AMG filters (validity, stability, predicted IoU when its
-    threshold is positive), greedy box NMS over the survivors, and the
-    kept candidates by predicted IoU descending (stable).
+    threshold is positive, and with ``crop_box`` / ``orig_box`` (XYXY
+    tuples) the crop-edge filter: no box within 20 px of a crop edge
+    that is not within 20 px of the image's, is_box_near_crop_edge,
+    utils/amg.py:78-89), greedy box NMS over the survivors, and the kept
+    candidates by predicted IoU descending (stable).
 
     Returns (order [k_take] candidate indices, the kept ones first;
     n_kept, a 0-d tensor ≤ k_take)."""
     keep = valid & (stab >= amg.stability_score_thresh)
     if amg.pred_iou_thresh > 0.0:
         keep = keep & (iou > amg.pred_iou_thresh)
+    if crop_box is not None:
+        dev = boxes.device
+        x0, y0 = crop_box[0], crop_box[1]
+        cb, ob, off = (device_constant(("amg_box", tuple(v)), dev,
+                                       lambda v=v: np.asarray(v, np.float32))
+                       for v in (crop_box, orig_box, (x0, y0, x0, y0)))
+        b = boxes + off
+        near_crop = (b - cb).abs() <= 20.0
+        near_img = (b - ob).abs() <= 20.0
+        keep = keep & ~(near_crop & ~near_img).any(1)
     neg = float("-inf")
     nms_keep = nms_keep_mask(boxes, iou.masked_fill(~keep, neg),
                              amg.box_nms_thresh)
@@ -240,57 +301,65 @@ def _pack_bits(masks: torch.Tensor) -> torch.Tensor:
 
 
 def _select_and_pack(masks, iou, stab, boxes, valid, amg: AmgConfig,
-                     max_out: int):
+                     max_out: int, crop_box=None, orig_box=None):
     """Filters, NMS and the top ``max_out`` on the device; only the kept
     masks' bits are packed. Returns (packed, order, n_kept)."""
-    order, n_kept = _keep_order(iou, stab, boxes, valid, amg, max_out)
+    order, n_kept = _keep_order(iou, stab, boxes, valid, amg, max_out,
+                                crop_box, orig_box)
     return _pack_bits(masks[order]), order, n_kept
 
 
 def _crop_candidates(sam, embedding: torch.Tensor,
-                     input_hw: Tuple[int, int], orig_hw: Tuple[int, int],
-                     amg: AmgConfig, max_masks: int):
-    """Decode the point grid over the whole image (the one crop) and
-    return its kept candidates on the host, in NMS keep order: (masks
-    bool [n, h, w], iou [n], stability [n], points [n, 2] in the image's
-    frame)."""
+                     input_hw: Tuple[int, int], crop_hw: Tuple[int, int],
+                     amg: AmgConfig, max_masks: int, points_per_side: int,
+                     crop_box=None, orig_box=None):
+    """Decode the ``points_per_side``² grid over one crop (its SAM frame
+    ``input_hw``, its size ``crop_hw``) and return its kept candidates
+    on the host, in NMS keep order: (masks bool [n, h, w], iou [n],
+    stability [n], points [n, 2] and boxes [n, 4] XYXY, both in the
+    crop's frame). ``crop_box`` / ``orig_box`` turn the crop-edge filter
+    on (:func:`_keep_order`)."""
     cfg = sam.cfg
-    h, w = orig_hw
+    h, w = crop_hw
     dev = embedding.device
     image_pe = dense_positional_embedding(sam.prompt, cfg)[0]
-    bsz = min(amg.points_per_batch, amg.points_per_side ** 2)
-    key = (amg.points_per_side, tuple(input_hw), tuple(orig_hw), bsz)
+    bsz = min(amg.points_per_batch, points_per_side ** 2)
+    key = (points_per_side, tuple(input_hw), tuple(crop_hw), bsz)
     pts_in, pts_orig, valid = prompt_points(*key)
     pts = device_constant(("amg_points",) + key, dev, lambda: pts_in)
     valid_dev = device_constant(("amg_valid",) + key, dev,
                                 lambda: np.repeat(valid, 3))
     outs = [_decode_batch(sam, cfg, embedding, image_pe, pts[s:s + bsz],
-                          input_hw, orig_hw, amg)
+                          input_hw, crop_hw, amg)
             for s in range(0, pts.shape[0], bsz)]
     masks, iou, stab, boxes = (torch.cat(t) for t in zip(*outs))
     max_out = min(max_masks, masks.shape[0])
     packed, order, n_kept = _select_and_pack(masks, iou, stab, boxes,
-                                             valid_dev, amg, max_out)
+                                             valid_dev, amg, max_out,
+                                             crop_box, orig_box)
     n_kept = int(n_kept)
     if n_kept == 0:
         z = np.zeros((0,))
-        return np.zeros((0, h, w), bool), z, z, np.zeros((0, 2))
+        return (np.zeros((0, h, w), bool), z, z, np.zeros((0, 2)),
+                np.zeros((0, 4), np.float32))
     order = order[:n_kept]
     masks = np.unpackbits(packed[:n_kept].cpu().numpy(),
                           axis=-1)[:, :, :w].astype(bool)
     return (masks, iou[order].float().cpu().numpy(),
             stab[order].cpu().numpy(),
-            np.repeat(pts_orig, 3, axis=0)[order.cpu().numpy()])
+            np.repeat(pts_orig, 3, axis=0)[order.cpu().numpy()],
+            boxes[order].cpu().numpy())
 
 
-def _assemble_records(final_masks, iou, stab, points) -> List[MaskRecord]:
-    """MaskRecords of the non-empty masks (the reference's final area
-    filter at ``min_mask_region_area`` 0), each with the full-image crop
-    box."""
+def _assemble_records(final_masks, iou, stab, points, crop_boxes_per_mask,
+                      amg: AmgConfig) -> List[MaskRecord]:
+    """MaskRecords of the masks of area above ``min_mask_region_area``
+    (the reference's final area filter, automatic_mask_generator.py
+    :192-194), each with its crop box as XYWH."""
     records = []
     for j, seg in enumerate(final_masks):
         area = int(seg.sum())
-        if area == 0:
+        if area <= amg.min_mask_region_area:
             continue
         ys, xs = np.nonzero(seg)
         bbox = (float(xs.min()), float(ys.min()),
@@ -300,16 +369,120 @@ def _assemble_records(final_masks, iou, stab, points) -> List[MaskRecord]:
             predicted_iou=float(iou[j]),
             point_coords=points[j][None, :].astype(np.float64),
             stability_score=float(stab[j]),
-            crop_box=(0, 0, seg.shape[1], seg.shape[0])))
+            crop_box=tuple(crop_boxes_per_mask[j])))
     return records
+
+
+def _postprocess_small_regions(masks: List[np.ndarray], min_area: int,
+                               nms_thresh: float):
+    """Fill small holes and remove small islands in each mask, then NMS
+    that prefers the unchanged masks (postprocess_small_regions,
+    automatic_mask_generator.py:324-376). Returns (kept masks, their
+    indices), in NMS keep order: the unchanged masks first, not
+    re-sorted."""
+    new_masks, unchanged = [], []
+    for m in masks:
+        m2, ch_holes = remove_small_regions(m, min_area, "holes")
+        m2, ch_islands = remove_small_regions(m2, min_area, "islands")
+        new_masks.append(m2)
+        unchanged.append(float(not (ch_holes or ch_islands)))
+    boxes = []
+    for m in new_masks:
+        ys, xs = np.nonzero(m)
+        boxes.append([xs.min(), ys.min(), xs.max(), ys.max()]
+                     if len(xs) else [0, 0, 0, 0])
+    keep = nms_native(np.asarray(boxes, np.float32),
+                      np.asarray(unchanged, np.float32), nms_thresh)
+    return [new_masks[i] for i in keep], keep
+
+
+def _finish(masks, iou, stab, points, crop_boxes, amg: AmgConfig):
+    """Small-region post-processing (at the larger of the box and crop
+    NMS thresholds, as the reference passes even with one crop) and the
+    records; ``crop_boxes`` XYWH a mask."""
+    final_masks = list(masks)
+    keep = np.arange(len(final_masks))
+    if amg.min_mask_region_area > 0 and final_masks:
+        final_masks, keep = _postprocess_small_regions(
+            final_masks, amg.min_mask_region_area,
+            max(amg.box_nms_thresh, amg.crop_nms_thresh))
+    return _assemble_records(final_masks, iou[keep], stab[keep],
+                             points[keep], [crop_boxes[k] for k in keep],
+                             amg)
 
 
 def _generate_from_embedding(sam, embedding: torch.Tensor,
                              input_hw: Tuple[int, int],
                              orig_hw: Tuple[int, int], amg: AmgConfig,
                              max_masks: int) -> List[MaskRecord]:
-    return _assemble_records(*_crop_candidates(sam, embedding, input_hw,
-                                               orig_hw, amg, max_masks))
+    """The one grid over the whole image: records in NMS keep order."""
+    h, w = orig_hw
+    masks, iou, stab, points, _ = _crop_candidates(
+        sam, embedding, input_hw, orig_hw, amg, max_masks,
+        amg.points_per_side)
+    if len(masks) == 0:
+        return []
+    return _finish(masks, iou, stab, points, [(0, 0, w, h)] * len(masks),
+                   amg)
+
+
+def _generate_multicrop(sam, image_rgb: np.ndarray, amg: AmgConfig,
+                        max_masks: int) -> List[MaskRecord]:
+    """Multi-crop AMG (_generate_masks / _process_crop,
+    automatic_mask_generator.py:198-265): per crop one encode and the
+    scaled point grid with the crop-edge filter and the crop's NMS; masks,
+    points and boxes uncropped to the image; cross-crop host NMS scored
+    1/area(crop box), so smaller crops win; at most ``max_masks``
+    records, best predicted IoU first."""
+    orig_h, orig_w = image_rgb.shape[:2]
+    crop_boxes, layer_idxs = generate_crop_boxes(
+        (orig_h, orig_w), amg.crop_n_layers, amg.crop_overlap_ratio)
+    dev = sam.encoder.pos_embed.device
+    all_masks, all_iou, all_stab, all_pts, all_boxes, all_cb = (
+        [], [], [], [], [], [])
+    for cb, layer in zip(crop_boxes, layer_idxs):
+        x0, y0, x1, y1 = cb
+        crop = image_rgb[y0:y1, x0:x1]
+        with torch.inference_mode():
+            batched, input_hw = _preprocess_any(crop, sam.cfg, dev)
+            embedding = sam.encoder(batched)[0]
+            pps = max(1, int(amg.points_per_side
+                             / (amg.crop_n_points_downscale_factor ** layer)))
+            masks, iou, stab, pts, bxs = _crop_candidates(
+                sam, embedding, input_hw, crop.shape[:2], amg, max_masks,
+                pps, crop_box=tuple(cb), orig_box=(0, 0, orig_w, orig_h))
+        if len(masks) == 0:
+            continue
+        unc = np.zeros((len(masks), orig_h, orig_w), bool)
+        unc[:, y0:y1, x0:x1] = masks
+        all_masks.append(unc)
+        all_iou.append(iou)
+        all_stab.append(stab)
+        all_pts.append(pts + np.array([x0, y0], np.float32))
+        all_boxes.append(bxs + np.array([x0, y0, x0, y0], np.float32))
+        all_cb.extend([tuple(cb)] * len(masks))
+    if not all_masks:
+        return []
+    masks = np.concatenate(all_masks)
+    iou = np.concatenate(all_iou)
+    stab = np.concatenate(all_stab)
+    points = np.concatenate(all_pts)
+    if len(crop_boxes) > 1:
+        boxes = np.concatenate(all_boxes).astype(np.float32)
+        areas = np.array([(c[2] - c[0]) * (c[3] - c[1]) for c in all_cb],
+                         np.float64)
+        keep = nms_host(boxes, (1.0 / areas).astype(np.float32),
+                        amg.crop_nms_thresh)
+        masks, iou, stab, points = (masks[keep], iou[keep], stab[keep],
+                                    points[keep])
+        all_cb = [all_cb[k] for k in keep]
+    records = _finish(masks, iou, stab, points,
+                      [(c[0], c[1], c[2] - c[0], c[3] - c[1])
+                       for c in all_cb], amg)
+    if len(records) > max_masks:
+        records.sort(key=lambda r: -r.predicted_iou)
+        records = records[:max_masks]
+    return records
 
 
 def generate_masks(sam, image_rgb: np.ndarray, amg: AmgConfig = AmgConfig(),
@@ -324,11 +497,16 @@ def generate_masks_batch(sam, images_rgb: Sequence[np.ndarray],
                          amg: AmgConfig = AmgConfig(),
                          max_masks: int = 512) -> List[List[MaskRecord]]:
     """AMG over same-shape images: one encoder dispatch for the batch,
-    then each image's prompt batches, filters and records."""
+    then each image's prompt batches, filters and records. Multi-crop
+    (``crop_n_layers`` > 0) encodes each crop on its own, so its images
+    run one at a time."""
     if not len(images_rgb):
         return []
     if len({im.shape for im in images_rgb}) != 1:
         raise ValueError("generate_masks_batch needs same-shape images")
+    if amg.crop_n_layers > 0:
+        return [_generate_multicrop(sam, im, amg, max_masks)
+                for im in images_rgb]
     dev = sam.encoder.pos_embed.device
     with torch.inference_mode():
         pre = [_preprocess_any(im, sam.cfg, dev) for im in images_rgb]

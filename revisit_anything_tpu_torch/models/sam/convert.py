@@ -15,8 +15,8 @@ dense weight is a view; a convolution reshaped for a matmul is one
 leaf's copy), then copies it leaf by leaf into a ``Sam`` built on
 ``device`` in ``dtype`` (``layers.load_tree``). So a checkpoint goes from
 the state dict into the module on the card with no second copy of the
-model on the host. The mask-prompt downscaling stack (``mask_down``) is
-not read: the port runs point prompts only.
+model on the host. Every leaf of the JAX tree is read, the mask-prompt
+downscaling stack (``mask_down``, JAX :172-184 and :227) included.
 """
 
 from __future__ import annotations
@@ -50,6 +50,21 @@ def _mlp_layers(sd, prefix, n, hf=False):
     else:
         names = [f"{prefix}.layers.{i}" for i in range(n)]
     return [linear_leaves(sd, nm) for nm in names]
+
+
+def _mask_down(sd, p):
+    """The mask-prompt downscaling stack: ``p`` maps conv1..3 and ln1..2
+    to their state-dict prefixes. Convolutions [out, in, kh, kw] → HWIO
+    (the 1x1 one → [in, out])."""
+    def conv(key):
+        return _np(sd, p[key] + ".weight").transpose(2, 3, 1, 0)
+
+    return {"conv1_w": conv("conv1"), "conv1_b": _np(sd, p["conv1"] + ".bias"),
+            "ln1": norm_leaves(sd, p["ln1"]),
+            "conv2_w": conv("conv2"), "conv2_b": _np(sd, p["conv2"] + ".bias"),
+            "ln2": norm_leaves(sd, p["ln2"]),
+            "conv3_w": _np(sd, p["conv3"] + ".weight")[:, :, 0, 0].T,
+            "conv3_b": _np(sd, p["conv3"] + ".bias")}
 
 
 def _encoder_common(sd, cfg: SamArchConfig, p):
@@ -169,6 +184,12 @@ def convert_original_sam_state_dict(sd: Dict, cfg: SamArchConfig, *,
              for i in range(4)]),
         "not_a_point": _np(sd, "prompt_encoder.not_a_point_embed.weight")[0],
         "no_mask": _np(sd, "prompt_encoder.no_mask_embed.weight")[0],
+        "mask_down": _mask_down(sd, {
+            "conv1": "prompt_encoder.mask_downscaling.0",
+            "ln1": "prompt_encoder.mask_downscaling.1",
+            "conv2": "prompt_encoder.mask_downscaling.3",
+            "ln2": "prompt_encoder.mask_downscaling.4",
+            "conv3": "prompt_encoder.mask_downscaling.6"}),
     }
     dec = _decoder_common(sd, cfg, "mask_decoder", hf=False)
     return _load({"encoder": enc, "prompt": prompt, "decoder": dec}, cfg,
@@ -208,6 +229,12 @@ def convert_hf_sam_state_dict(sd: Dict, cfg: SamArchConfig, *,
              for i in range(4)]),
         "not_a_point": _np(sd, "prompt_encoder.not_a_point_embed.weight")[0],
         "no_mask": _np(sd, "prompt_encoder.no_mask_embed.weight")[0],
+        "mask_down": _mask_down(sd, {
+            "conv1": "prompt_encoder.mask_embed.conv1",
+            "ln1": "prompt_encoder.mask_embed.layer_norm1",
+            "conv2": "prompt_encoder.mask_embed.conv2",
+            "ln2": "prompt_encoder.mask_embed.layer_norm2",
+            "conv3": "prompt_encoder.mask_embed.conv3"}),
     }
     dec = _decoder_common(sd, cfg, "mask_decoder", hf=True)
     return _load({"encoder": enc, "prompt": prompt, "decoder": dec}, cfg,

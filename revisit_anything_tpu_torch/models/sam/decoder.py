@@ -1,10 +1,11 @@
-"""SAM mask decoder for automatic mask generation: two-way transformer with
-the image branch shared across prompts until it diverges, hypernetwork
-mask head in block layout, IoU head.
+"""SAM mask decoder: two-way transformer, hypernetwork mask head, IoU
+head.
 
 Counterpart of ``revisit_anything_tpu/models/sam/decoder.py``
-``decode_masks`` (:636) with ``dense_shared=True, block_layout=True,
-mask_rows=gh``. ``decode`` picks the form, as the JAX package's
+``decode_masks`` (:636). Automatic mask generation and the server call
+it with the shared no-mask dense prompt (``dense_shared=True``) and the
+block layout with ``mask_rows=gh``; there ``decode`` picks the form, as
+the JAX package's
 ``probs_path`` argument and its trace-time flags ``_FUSED_TAIL`` /
 ``_TAIL_KEYS`` / ``_TAIL_LOGITS`` (:147-213) do:
 
@@ -29,7 +30,15 @@ mask_rows=gh``. ``decode`` picks the form, as the JAX package's
   and emits the mask logits (``"fused_tail_logits"``, :438-446 and
   :724-728), leaving only the IoU head.
 
-Output tokens are selected before the mask product (:730-737).
+Output tokens are selected before the mask product (:730-737):
+mask tokens 1..3 (``multimask``) or token 0 and its IoU.
+
+``dense_shared=False`` is the general path for per-prompt dense prompts
+(a mask prompt), ``_run_two_way`` (:216-257) and :714-719, with spatial
+[Np, M, 4g, 4g] logits (``_upscale_masks_blocks(interleave=True)``,
+:555-622): plain PyTorch on every device, since the JAX package reaches
+no Pallas kernel there either. The predictor and the exported decoder
+run it.
 """
 
 from __future__ import annotations
@@ -48,10 +57,13 @@ from revisit_anything_tpu_torch.ops.decode_fused import (branch_rows,
                                                          decode_tail_fused)
 from revisit_anything_tpu_torch.ops.decode_probs import (c_matrix, i2t_probs,
                                                          t2i_from_probs)
-from revisit_anything_tpu_torch.ops.maskhead import (fused_mask_head,
+from revisit_anything_tpu_torch.ops.maskhead import (MULTIMASK_TOKENS,
+                                                     blocks_to_spatial,
+                                                     fused_mask_head,
                                                      fused_mask_head_probs,
                                                      hypernetwork,
-                                                     mask_head_weights)
+                                                     mask_head_weights,
+                                                     upscale_masks_blocks)
 
 DECODES = ("shared", "probs_split", "fused_tail_probs", "fused_tail_keys",
            "fused_tail_logits")
@@ -130,6 +142,42 @@ def _attn(a: Attention, q, k, v, num_heads: int) -> torch.Tensor:
     probs = torch.softmax(logits, dim=-1).to(q.dtype).float()
     out = torch.einsum("bhnm,bmhd->bnhd", probs, vh).to(q.dtype)
     return a.out(out.reshape(b, nq, d))
+
+
+def run_two_way(dec: MaskDecoder, tokens, src, src_pe, cfg: SamArchConfig):
+    """TwoWayTransformer on a per-prompt image branch src [Np, M, D] with
+    its PE src_pe (token self-attention, token→image, MLP, image→token,
+    depth times, then the final token→image attention), plain PyTorch.
+    Returns (queries [Np, T, D], keys [Np, M, D])."""
+    nh = cfg.decoder_heads
+    queries, keys = tokens, src
+    for i, layer in enumerate(dec.layers):
+        if i == 0:
+            # skip_first_layer_pe: self-attention without PE replaces the
+            # queries (no residual)
+            queries = _attn(layer.self_attn, queries, queries, queries, nh)
+        else:
+            q = queries + tokens
+            queries = queries + _attn(layer.self_attn, q, q, queries, nh)
+        queries = layer.norm1(queries, cfg.eps)
+
+        q = queries + tokens
+        k = keys + src_pe
+        queries = layer.norm2(queries + _attn(layer.t2i, q, k, keys, nh),
+                              cfg.eps)
+        queries = layer.norm3(
+            queries + layer.lin2(torch.relu(layer.lin1(queries))), cfg.eps)
+
+        q = queries + tokens
+        k = keys + src_pe
+        keys = layer.norm4(keys + _attn(layer.i2t, k, q, queries, nh),
+                           cfg.eps)
+
+    q = queries + tokens
+    k = keys + src_pe
+    queries = dec.norm_final(
+        queries + _attn(dec.final_attn, q, k, keys, nh), cfg.eps)
+    return queries, keys
 
 
 def _t2i(a: Attention, q_tok, keys, pe_one, num_heads: int,
@@ -267,45 +315,72 @@ def run_two_way_probs(dec: MaskDecoder, tokens, shared_src, src_pe_one,
 def decode_masks(dec: MaskDecoder, cfg: SamArchConfig,
                  image_embedding: torch.Tensor, image_pe: torch.Tensor,
                  sparse_prompts: torch.Tensor, dense_prompts: torch.Tensor,
-                 mask_rows: Optional[int] = None, decode: str = "shared"
+                 mask_rows: Optional[int] = None, decode: str = "shared",
+                 multimask: bool = True, dense_shared: bool = True
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Multimask decode of Np prompts against ONE image embedding.
+    """Decode Np prompts against ONE image embedding.
 
     image_embedding, image_pe [g, g, D]; sparse_prompts [Np, T, D];
-    dense_prompts [1, g, g, D] (the shared no-mask embedding);
+    dense_prompts [1, g, g, D] (``dense_shared``: one dense prompt for
+    every prompt, the no-mask embedding; only its first row is read) or
+    [Np, g, g, D] (the general path, :func:`run_two_way`);
     mask_rows: decode mask logits only for the first ``mask_rows`` token
-    rows (the rest are SAM's square padding, cropped away later);
-    decode: the two-way form, one of ``DECODES`` (module docstring).
+    rows (shared path only; the rest are SAM's square padding, cropped
+    away later); decode: the two-way form of the shared path, one of
+    ``DECODES`` (module docstring; the general path has one form,
+    "shared" by name); multimask: mask tokens 1..3 and their IoU, else
+    token 0 and its IoU (not in the ``"fused_tail_logits"`` form, whose
+    kernel runs tokens 1..3).
 
-    Returns (block-layout logits [Np, mask_rows·g, 16, 3], iou [Np, 3])
-    for mask tokens 1..3."""
+    Returns (logits, iou [Np, M]): the shared path's block layout
+    [Np, mask_rows·g, 16, M] in the branch's dtype, the general path's
+    spatial [Np, M, 4g, 4g] f32."""
     if decode not in DECODES:
         raise ValueError(f"decode {decode!r} is not one of {DECODES}")
+    if not dense_shared and decode != "shared":
+        raise ValueError(f"decode {decode!r} needs the shared dense prompt")
+    if decode == "fused_tail_logits" and not multimask:
+        raise ValueError("the fused_tail_logits kernel decodes the "
+                         "multimask tokens only")
     np_, _, d = sparse_prompts.shape
     g = cfg.grid
+    if mask_rows is not None and not (dense_shared and 0 < mask_rows <= g):
+        raise ValueError(f"mask_rows {mask_rows} needs the shared path "
+                         f"and 0 < mask_rows <= {g}")
     content = g * g if mask_rows is None else mask_rows * g
+    token_ids = MULTIMASK_TOKENS if multimask else (0,)
     out_tokens = torch.cat([dec.iou_token, dec.mask_tokens], dim=0)
     tokens = torch.cat([out_tokens[None].expand(np_, -1, -1),
                         sparse_prompts.to(out_tokens.dtype)], dim=1)
-    shared_src = (image_embedding[None] + dense_prompts[:1]).reshape(
-        1, g * g, d)
-    src_pe_one = image_pe.reshape(1, g * g, d).to(shared_src.dtype)
     pstate = masks = None
-    if decode == "shared":
-        queries, keys = run_two_way_shared(dec, tokens, shared_src,
-                                           src_pe_one, cfg)
+    if not dense_shared:
+        src = (image_embedding[None] + dense_prompts).reshape(np_, g * g, d)
+        src_pe = image_pe.reshape(1, g * g, d).to(src.dtype).expand(
+            np_, -1, -1)
+        queries, keys = run_two_way(dec, tokens, src, src_pe, cfg)
+        masks = blocks_to_spatial(upscale_masks_blocks(
+            keys, hypernetwork(dec, queries, token_ids),
+            *mask_head_weights(dec), cfg.eps, round_output=False), g)
     else:
-        queries, pstate, keys, masks = run_two_way_probs(
-            dec, tokens, shared_src, src_pe_one, cfg, decode, content)
-    if masks is None:
-        hyper = hypernetwork(dec, queries)
-        head = mask_head_weights(dec)
-        if pstate is None:
-            masks = fused_mask_head(keys, hyper, *head, eps=cfg.eps,
-                                    content=content)
+        shared_src = (image_embedding[None] + dense_prompts[:1]).reshape(
+            1, g * g, d)
+        src_pe_one = image_pe.reshape(1, g * g, d).to(shared_src.dtype)
+        if decode == "shared":
+            queries, keys = run_two_way_shared(dec, tokens, shared_src,
+                                               src_pe_one, cfg)
         else:
-            masks = fused_mask_head_probs(shared_src, *pstate, hyper, *head,
-                                          eps=cfg.eps, ln_eps=cfg.eps,
-                                          content=content)
+            queries, pstate, keys, masks = run_two_way_probs(
+                dec, tokens, shared_src, src_pe_one, cfg, decode, content)
+        if masks is None:
+            hyper = hypernetwork(dec, queries, token_ids)
+            head = mask_head_weights(dec)
+            if pstate is None:
+                masks = fused_mask_head(keys, hyper, *head, eps=cfg.eps,
+                                        content=content)
+            else:
+                masks = fused_mask_head_probs(shared_src, *pstate, hyper,
+                                              *head, eps=cfg.eps,
+                                              ln_eps=cfg.eps,
+                                              content=content)
     iou_pred = mlp(queries[:, 0], dec.iou_head)
-    return masks, iou_pred[:, 1:]
+    return masks, iou_pred[:, 1:] if multimask else iou_pred[:, :1]

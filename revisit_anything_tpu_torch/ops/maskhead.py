@@ -35,13 +35,15 @@ def mask_head_weights(dec) -> tuple:
             dec.up2_w, dec.up2_b)
 
 
-def hypernetwork(dec, queries: torch.Tensor) -> torch.Tensor:
-    """The hypernetwork MLPs of the multimask tokens on the token state
-    queries [B, T, D] (row 0 the IoU token, mask token i at row 1 + i):
-    [B, 3, D/8], each dense layer rounded before its bias with ReLU
-    between (``mlp``)."""
+def hypernetwork(dec, queries: torch.Tensor,
+                 tokens=MULTIMASK_TOKENS) -> torch.Tensor:
+    """The hypernetwork MLPs of mask ``tokens`` (the multimask ones by
+    default, (0,) for a single mask) on the token state queries [B, T, D]
+    (row 0 the IoU token, mask token i at row 1 + i): [B, len(tokens),
+    D/8], each dense layer rounded before its bias with ReLU between
+    (``mlp``)."""
     return torch.stack([mlp(queries[:, 1 + i], dec.hyper_mlps[i])
-                        for i in MULTIMASK_TOKENS], dim=1)
+                        for i in tokens], dim=1)
 
 
 def decoder_mask_head(dec, keys: torch.Tensor, queries: torch.Tensor,
@@ -61,9 +63,11 @@ def upscale_masks_blocks(keys: torch.Tensor, hyper: torch.Tensor,
                          up1_w: torch.Tensor, up1_b: torch.Tensor,
                          ln_scale: torch.Tensor, ln_bias: torch.Tensor,
                          up2_w: torch.Tensor, up2_b: torch.Tensor,
-                         eps: float = 1e-6) -> torch.Tensor:
+                         eps: float = 1e-6,
+                         round_output: bool = True) -> torch.Tensor:
     """Plain version: keys [Np, P, D], hyper [Np, M, D/8] →
-    [Np, P, 16, M] in keys' dtype."""
+    [Np, P, 16, M] in keys' dtype (f32 where ``round_output`` is false,
+    as the JAX package's spatial output keeps its f32 products)."""
     np_, gg, d = keys.shape
     m = hyper.shape[1]
     c1 = d // 4
@@ -81,7 +85,19 @@ def upscale_masks_blocks(keys: torch.Tensor, hyper: torch.Tensor,
     y = F.gelu(y)
     masks = torch.einsum("npqrc,nmc->npqrm", y.float(),
                          hyper.to(y.dtype).float())
-    return masks.to(y.dtype).reshape(np_, gg, 16, m)
+    if round_output:
+        masks = masks.to(y.dtype)
+    return masks.reshape(np_, gg, 16, m)
+
+
+def blocks_to_spatial(masks: torch.Tensor, g: int) -> torch.Tensor:
+    """Block layout [Np, g², 16, M] → spatial [Np, M, 4g, 4g]: block
+    (q, r) = (2a1+b1, 2a2+b2) of position (i, j) is pixel (4i+2a1+a2,
+    4j+2b1+b2)."""
+    np_, _, _, m = masks.shape
+    x = masks.reshape(np_, g, g, 2, 2, 2, 2, m)   # n i j a1 b1 a2 b2 m
+    x = x.permute(0, 7, 1, 3, 5, 2, 4, 6)          # n m i a1 a2 j b1 b2
+    return x.reshape(np_, m, 4 * g, 4 * g)
 
 
 def fused_mask_head(keys: torch.Tensor, hyper: torch.Tensor,

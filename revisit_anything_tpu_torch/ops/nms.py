@@ -1,9 +1,10 @@
-"""Exact greedy box NMS on the device (counterpart of
-``revisit_anything_tpu/ops/nms.py`` ``box_iou_matrix`` :18 and
-``nms_keep_mask`` :33)."""
+"""Exact greedy box NMS on the device and on the host (counterpart of
+``revisit_anything_tpu/ops/nms.py`` ``box_iou_matrix`` :18,
+``nms_keep_mask`` :33 and ``nms_host`` :87)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -45,3 +46,29 @@ def nms_keep_mask(boxes: torch.Tensor, scores: torch.Tensor,
     keep = torch.zeros(n, dtype=torch.bool, device=boxes.device)
     keep[order] = alive > 0
     return keep
+
+
+def nms_host(boxes: np.ndarray, scores: np.ndarray,
+             iou_threshold: float = 0.7) -> np.ndarray:
+    """Greedy NMS on the host: kept indices int64 by score descending
+    (stable), torchvision's return convention. A score of −inf marks a
+    padding candidate and is never kept."""
+    order = np.argsort(-scores, kind="stable")
+    x1, y1, x2, y2 = boxes.T
+    area = np.maximum(x2 - x1, 0) * np.maximum(y2 - y1, 0)
+    keep = []
+    suppressed = np.zeros(len(boxes), bool)
+    for i in order:
+        if suppressed[i] or scores[i] == -np.inf:
+            continue
+        keep.append(i)
+        ix1 = np.maximum(x1[i], x1)
+        iy1 = np.maximum(y1[i], y1)
+        ix2 = np.minimum(x2[i], x2)
+        iy2 = np.minimum(y2[i], y2)
+        inter = np.maximum(ix2 - ix1, 0) * np.maximum(iy2 - iy1, 0)
+        union = area[i] + area - inter
+        with np.errstate(invalid="ignore", divide="ignore"):
+            iou = np.where(union > 0, inter / union, 0.0)
+        suppressed |= iou > iou_threshold
+    return np.array(keep, dtype=np.int64)

@@ -223,6 +223,9 @@ class SegVLADServer:
       full_hw: the dataset's query resolution (queries arrive at it).
       sam_hw: SAM extraction resolution (half of full_hw in the reference
         datasets).
+      amg: the point grid, thresholds and decoder form of the query's
+        AMG; its multi-crop and small-region fields are ignored (one
+        grid over the whole image, as the JAX server decodes).
       dino_layer, dino_facet: the DINOv2 block and facet the descriptors
         come from ("query", "key", "value" or "token").
       max_masks: static mask capacity; masks beyond it (post-NMS,

@@ -21,9 +21,6 @@ from revisit_anything_tpu_torch.models.sam import Sam, SamArchConfig
 from revisit_anything_tpu_torch.models.sam.prompt import (
     dense_positional_embedding)
 
-# JAX SAM tree entries the serving slice does not run (mask prompts)
-SAM_SKIP = ("mask_down",)
-
 
 def sam_from_jax_params(tree, cfg: SamArchConfig, *,
                         dtype=torch.float32, device="cuda") -> Sam:
@@ -32,7 +29,7 @@ def sam_from_jax_params(tree, cfg: SamArchConfig, *,
     the HuggingFace layout's) keeps it."""
     sam = Sam(cfg, dtype=dtype, device=device,
               dense_pe="pe_gaussian_dense" in tree["prompt"])
-    load_tree(sam, tree, skip=SAM_SKIP)
+    load_tree(sam, tree)
     return sam
 
 
@@ -45,10 +42,13 @@ def dino_from_jax_params(tree, cfg: DinoV2Config, *,
 
 
 def _fill(module: nn.Module, generator: torch.Generator,
-          normal_std) -> None:
-    """Initialize every parameter: ``normal_std(name, param)`` returns
-    the std of a N(0, std²) init, 0.0 for zeros or None for ones."""
+          normal_std, skip: str = None) -> None:
+    """Initialize every parameter (but those under the prefix ``skip``):
+    ``normal_std(name, param)`` returns the std of a N(0, std²) init,
+    0.0 for zeros or None for ones."""
     for name, p in module.named_parameters():
+        if skip is not None and name.startswith(skip):
+            continue
         std = normal_std(name, p)
         with torch.no_grad():
             if std is None:
@@ -70,7 +70,11 @@ def init_sam(cfg: SamArchConfig, generator: torch.Generator,
     """Random SAM weights with the JAX init's layout and scales
     (``models/sam/params.py``): dense weights N(0, 0.02²), biases 0,
     LayerNorms (1, 0), pe_gaussian N(0, 1). The rel-pos tables, zero in
-    the JAX init, get N(0, 0.02²) so the served path exercises the bias."""
+    the JAX init, get N(0, 0.02²) so the served path exercises the bias.
+    The mask-prompt stack (convolutions N(0, 0.2²), N(0, 0.1²),
+    N(0, 0.05²)) draws from its own generator, seeded from
+    ``generator``'s seed, so the other weights, and what the caller
+    draws from ``generator`` next, are those of a SAM without it."""
     sam = Sam(cfg, dtype=dtype, device=device)
 
     def std(name, p):
@@ -83,7 +87,17 @@ def init_sam(cfg: SamArchConfig, generator: torch.Generator,
             return 1.0
         return 0.02
 
-    _fill(sam, generator, std)
+    _fill(sam, generator, std, skip="prompt.mask_down.")
+    mask_gen = torch.Generator(device=generator.device).manual_seed(
+        generator.initial_seed() + 1)
+    conv_std = {"conv1_w": 0.2, "conv2_w": 0.1, "conv3_w": 0.05}
+
+    def mask_std(name, p):
+        if _is_ln(name):
+            return None if name.endswith("scale") else 0.0
+        return conv_std.get(name, 0.0)
+
+    _fill(sam.prompt.mask_down, mask_gen, mask_std)
     return sam
 
 

@@ -262,18 +262,16 @@ def _np_dict(sd):
     return {k: v.numpy() for k, v in sd.items()}
 
 
-def assert_leaves_equal(module, tree, path="", skip=()):
+def assert_leaves_equal(module, tree, path=""):
     """Every leaf of the JAX ``tree`` equals the port module's entry of
     the same name, exactly."""
     if isinstance(tree, dict):
         for key, sub in tree.items():
-            if key not in skip:
-                assert_leaves_equal(getattr(module, key), sub,
-                                    f"{path}{key}.", skip)
+            assert_leaves_equal(getattr(module, key), sub, f"{path}{key}.")
     elif isinstance(tree, (list, tuple)):
         assert len(tree) == len(module), path
         for i, sub in enumerate(tree):
-            assert_leaves_equal(module[i], sub, f"{path}{i}.", skip)
+            assert_leaves_equal(module[i], sub, f"{path}{i}.")
     elif tree is None:
         assert module is None, path
     else:
@@ -304,7 +302,7 @@ def sam_pairs():
 @pytest.mark.parametrize("layout", list(SAM_LAYOUTS))
 def test_sam_converter_matches_jax_leaf_for_leaf(sam_pairs, layout):
     sd, tree, sam = sam_pairs[layout]
-    assert_leaves_equal(sam, tree, skip=("mask_down",))
+    assert_leaves_equal(sam, tree)
     assert (sam.prompt.pe_gaussian_dense is None) == (layout == "original")
 
 
@@ -424,7 +422,7 @@ def test_load_sam_checkpoint_from_a_file(sam_pairs, tmp_path, layout):
     path = tmp_path / "sam.pth"
     torch.save({"state_dict": sd} if layout == "original" else sd, path)
     sam = pconv.load_sam_checkpoint(str(path), PCFG, device="cpu")
-    assert_leaves_equal(sam, tree, skip=("mask_down",))
+    assert_leaves_equal(sam, tree)
     half = pconv.load_sam_checkpoint(str(path), PCFG, dtype=torch.bfloat16,
                                      device="cpu")
     assert half.encoder.blocks[0].qkv.w.dtype == torch.bfloat16

@@ -51,14 +51,21 @@ OFFLINE_MODULES = (
     "retrieval.recall", "pipeline.evaluate")
 
 
+SAM_TOOL_MODULES = (
+    "native", "models.sam.predictor", "models.sam.export", "datasets",
+    "datasets.gt", "datasets.images", "datasets.aerial",
+    "datasets.msls_prep", "datasets.vladbuff_val")
+
+
 def test_port_imports_without_jax_or_nvcc():
-    """The serving path and the fifteen modules of the offline pipeline
-    import on a machine with neither JAX in use nor nvcc (the kernels
-    build at their first CUDA launch), and load none of h5py, PIL, cv2
-    or sklearn (the card's machine lacks some of them: they are imported
-    where a function needs them)."""
+    """The serving path, the fifteen modules of the offline pipeline and
+    SAM's tools and the dataset loaders import on a machine with neither
+    JAX in use nor nvcc (the kernels build at their first CUDA launch,
+    ``native/maskops.cpp`` at its first call), and load none of h5py,
+    PIL, cv2 or sklearn (the card's machine lacks some of them: they are
+    imported where a function needs them)."""
     mods = ["pipeline.serve", "weights", "models.sam.convert",
-            *OFFLINE_MODULES]
+            *OFFLINE_MODULES, *SAM_TOOL_MODULES]
     code = ("import sys; " + "; ".join(
         f"import revisit_anything_tpu_torch.{m}" for m in mods) + "; "
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -231,10 +238,12 @@ def _token_inputs(cuda, b, n, m, lead, pe, seed=1):
 # (shared k|v, prompts, queries a prompt, keys): the serving shapes; 5
 # prompts of 7 rows (a prompt crosses a warp's 16 rows, the last row tile
 # is ragged); 20 prompts (a prompt crosses a CTA's 128 rows); n = 8; M =
-# 1024 and ragged last key tiles (M = 1000, 1032).
+# 1024 and ragged last key tiles (M = 1000, 1032); multi-crop AMG's 256
+# prompts (a layer-1 crop's 16x16 grid), shared and per prompt.
 TOKEN_CASES = [(True, 16, 7, 4096), (False, 16, 7, 4096),
                (True, 5, 7, 4096), (True, 20, 7, 1024), (True, 5, 8, 1000),
-               (True, 4, 7, 1032), (False, 5, 8, 1024), (False, 3, 7, 1000)]
+               (True, 4, 7, 1032), (False, 5, 8, 1024), (False, 3, 7, 1000),
+               (True, 256, 7, 4096), (False, 256, 7, 4096)]
 
 
 @pytest.mark.gpu
@@ -364,10 +373,10 @@ def _i2t_inputs(cuda, shared, b, m, seed=4, far=False):
 
 # (shared, b, M, far): b 1 leaves most persistent CTAs idle; M 192 ends on
 # half a 128-position unit (its second warpgroup's rows lie past M), M 64
-# is that half alone; far: head 0's logits ~500 above head 1's, where only
+# is that half alone; b 256 is a multi-crop AMG crop's grid; far: head 0's logits ~500 above head 1's, where only
 # a softmax shifted per head keeps head 1 from 0/0.
 I2T_CASES = [(shared, b, m, False) for shared in (True, False)
-             for b in (1, 3, 16) for m in (64, 192, 4096)] + [
+             for b in (1, 3, 16, 256) for m in (64, 192, 4096)] + [
     (True, 5, 192, True), (False, 5, 192, True)]
 
 
@@ -433,10 +442,13 @@ def _mask_head_inputs(cuda, np_, gg, m, d=256, seed=2):
 # (prompts, gg, content, mask tokens): content a whole number of 64-row
 # items (3136), a ragged last item (3130) and less than one item (37),
 # each at M 1, 3 and 4 and at 1 prompt (most CTAs idle) and 8; then
-# content = gg, where the last item reads past the tensor (zero-filled).
+# content = gg, where the last item reads past the tensor (zero-filled);
+# multi-crop AMG's crops of a 240x320 image (gh 52 and 51 rows, 256
+# prompts), and their single-mask decode.
 MASK_HEAD_CASES = [(np_, 4096, content, m) for np_ in (1, 8)
                    for content in (3136, 3130, 37) for m in (1, 3, 4)] + [
-    (2, 3130, 3130, 3), (3, 37, 37, 4)]
+    (2, 3130, 3130, 3), (3, 37, 37, 4), (256, 4096, 3328, 3),
+    (256, 4096, 3264, 3), (256, 4096, 3328, 1)]
 
 
 @pytest.mark.gpu
@@ -499,7 +511,9 @@ def _resize_inputs(cuda, orig_hw, np_, m, seed=3, const=None, side=1024):
 # (H > W) at W = 240 and at W = 250 (not a multiple of 16: byte stores);
 # a small SAM's grid (g 16, 224x224); tap tables too large for shared
 # memory (600x800: bands of 3 rows; 2000x3000: bands of 1 row); all
-# pixels above and all below every threshold
+# pixels above and all below every threshold; multi-crop AMG's crops of
+# a 240x320 image (SAM frames 820/815/824 x 1024, gh 52/51/52) at 256
+# prompts
 RESIZE_CASES = [
     ((240, 320), 16, 3, None, 1024), ((240, 320), 16, 1, None, 1024),
     ((240, 320), 8, 2, None, 1024), ((240, 320), 8, 4, None, 1024),
@@ -508,6 +522,8 @@ RESIZE_CASES = [
     ((224, 224), 16, 3, None, 256), ((600, 800), 4, 3, None, 1024),
     ((2000, 3000), 2, 3, None, 1024),
     ((240, 320), 4, 3, 20.0, 1024), ((240, 320), 4, 3, -20.0, 1024),
+    ((161, 201), 256, 3, None, 1024), ((160, 201), 256, 3, None, 1024),
+    ((161, 200), 256, 3, None, 1024),
 ]
 
 
@@ -1082,6 +1098,50 @@ def test_generate_masks_batch_on_the_card_matches_the_cpu(cuda, windows):
                 ).max(1)
         assert (best > 0.5).mean() >= 0.95, best
         assert (best > 0.9).mean() >= 0.9, best
+
+
+@pytest.mark.gpu
+def test_multicrop_generate_masks_on_the_card_matches_the_cpu(cuda):
+    """Multi-crop AMG (crop_n_layers=1, 4 points a side in the crops,
+    small-region post-processing at 20 px) through the kernels keeps the
+    masks the CPU plain path keeps from the same weights: within one
+    record of the CPU's count, 95% of the card's masks matching one of
+    the CPU's at IoU > 0.5 and 90% at IoU > 0.9 (the batch test's
+    measure; the crop-edge and cross-crop filters add thresholds that a
+    bf16 rounding can cross), each inside its crop box."""
+    import copy
+
+    from revisit_anything_tpu_torch.models.sam.amg import (AmgConfig,
+                                                           generate_masks)
+    sam = _offline_sam()
+    card = copy.deepcopy(sam).to(cuda)
+    img = _blob_image(np.random.default_rng(23), (224, 224))
+    amg = AmgConfig(points_per_side=8, points_per_batch=64,
+                    pred_iou_thresh=-1e9, stability_score_thresh=0.0,
+                    crop_n_layers=1, crop_n_points_downscale_factor=2,
+                    min_mask_region_area=20)
+    build.reset_counts()
+    got = generate_masks(card, img, amg, max_masks=32)
+    assert build.FLASH_ATTENTION.launches == 5          # one encode a crop
+    for k in (build.TOKEN_CROSS, build.I2T_UPDATE, build.MASK_HEAD,
+              build.RESIZE_FLAGS):
+        assert k.launches > 0, k.name
+    assert build.RESIZE_FLAGS.launches == 5
+    want = generate_masks(sam, img, amg, max_masks=32)
+    assert abs(len(got) - len(want)) <= 1 and len(want) > 8
+    assert len({r.crop_box for r in got}) > 1
+    gm = np.stack([r.segmentation for r in got]).reshape(len(got), -1)
+    wm = np.stack([r.segmentation for r in want]).reshape(len(want), -1)
+    inter = gm.astype(np.float32) @ wm.T.astype(np.float32)
+    best = (inter / (gm.sum(1)[:, None] + wm.sum(1)[None, :] - inter)
+            ).max(1)
+    assert (best > 0.5).mean() >= 0.95, best
+    assert (best > 0.9).mean() >= 0.9, best
+    for r in got:
+        x0, y0, w, h = r.crop_box
+        ys, xs = np.nonzero(r.segmentation)
+        assert xs.min() >= x0 and xs.max() < x0 + w
+        assert ys.min() >= y0 and ys.max() < y0 + h
 
 
 @pytest.mark.gpu
