@@ -3,22 +3,25 @@ each against its plain PyTorch version at the serving path's shapes, then
 serve full-width SegVLAD queries through the kernels over a live database
 (inserts, removals, snapshots, pipelined and concurrent queries, the
 streaming kNN), in each of the decoder's forms and with the encoder's
-windowed layers either way, and load full-size checkpoints onto the card.
+windowed layers either way, load full-size checkpoints onto the card,
+extract features with the other backbones and train VLAD-BuFF.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the twelve kernels from revisit_anything_tpu_torch/kernels/csrc
-     (one nvcc per source, in parallel);
+  2. build the thirteen kernel entries from
+     revisit_anything_tpu_torch/kernels/csrc (one nvcc per source, in
+     parallel);
   3. print the registers, shared memory and spill bytes of the redesigned
      entry points' kernels (K1, K2, B10, B11, K3, B6, K5, K4, B3 in its
-     three modes, B7 in its two layers and B8 at its two depths) from
-     ptxas.log, and the HMMA instructions in the SASS of B3's three
+     three modes, B7 in its two layers and B8 at its two depths, K1 f32
+     at head dims 64 and 80) from ptxas.log, and the HMMA instructions in the SASS of B3's three
      instantiations, B7's layer 2 and B8's two depths (cuobjdump);
      then
      compare every kernel with its plain version in bf16 at the main
-     path's shapes (K1 also at the offline extraction's batches; K4, K3,
+     path's shapes (K1 also at the offline extraction's batches, and in
+     f32 at DINOv1's shape and two more within 1e-5; K4, K3,
      K2 and K5 also at multi-crop AMG's crop shapes: 256 prompts, gh
      52), timing both with CUDA events (median of 7 after
      warm-up, each call queued behind a device sleep so that its host
@@ -109,9 +112,21 @@ Phases (any failure exits non-zero):
      DINOv2-g dict converted in memory, both onto the card in bf16 (load
      seconds, peak host RSS, device memory); leaves spot-checked against
      the dicts; one query through them with the "shared" kernels;
- 20. print the kernel table as one JSON line (B10, token_cross_split, has
-     no caller on a serving path, as in the JAX package: launches 0),
-     then the result line.
+ 20. [backbones]: full-width models with seeded weights in f32: DINOv1
+     ViT-S/8 (hub.load_model) on 8 images of 480x640 through
+     dinov1_dense_features (224x298, stride 4: 4,016 tokens; K1 f32
+     must launch 11 times and agree within 1e-4 with its plain version
+     in its place), CosPlace ViT-B/16, ResNet-50, VLAD-BuFF and
+     DINO-SALAD descriptors, fit_wpca to 512 components: images/s, peak
+     device memory;
+ 21. [train]: five VLAD-BuFF steps at the CLI's defaults from seeded
+     PNGs (discover_places, PlacesBatcher, prefetch): finite losses,
+     frozen parameters bit for bit, every trainable tensor moved; a
+     checkpoint after step 3 restored into a fresh state gives step 4's
+     loss and parameters within 1e-6; run_validation on 32 + 16 images;
+ 22. print the kernel table as one JSON line (B10, token_cross_split, has
+     no caller on a serving path, as in the JAX package: launches 0; K1
+     f32's launches are the DINOv1 batch's), then the result line.
 """
 
 from __future__ import annotations
@@ -237,6 +252,10 @@ PTXAS_KERNELS = (
      "rat_flash_attention", "rat_flash_attention_smem", (80,)),
     ("flash_attention_kernelILi64ELi0E", "K1 Dh 64, no bias",
      "rat_flash_attention", "rat_flash_attention_smem", (64,)),
+    ("flash_attention_f32_kernelILi64E", "K1 f32 Dh 64",
+     "rat_flash_attention_f32", "rat_flash_attention_f32_smem", (64,)),
+    ("flash_attention_f32_kernelILi80E", "K1 f32 Dh 80",
+     "rat_flash_attention_f32", "rat_flash_attention_f32_smem", (80,)),
     ("win_attention_kernelILi80ELi2E", "B11 hd 80, sides 8-15 (at 14)",
      "rat_win_attention", "rat_win_attention_smem", (14, 80)),
     ("win_attention_kernelILi64ELi2E", "B11 hd 64, sides 8-15 (at 14)",
@@ -458,6 +477,23 @@ def compare_kernels(dev) -> dict:
           _rel, rel_tol, (q, k, v), (4 * 8 * 24 * 1531 ** 2 * 64, 0),
           library=lambda: F.scaled_dot_product_attention(q, k, v))
     del q, k, v
+
+    # K1 in f32 (DINOv1's f32 extraction, an f32 DINOv2 at N >= 1024): f32
+    # sums in another order and expf's two ulps, relative 1e-5; products
+    # on the FMA units (library: scaled_dot_product_attention in f32 with
+    # TF32 off)
+    for b, h, n, dh, what in ((8, 6, 4016, 64, "DINOv1 ViT-S/8 224x298 s4"),
+                              (1, 1, 1025, 64, "shortest K1 length"),
+                              (2, 1, 1531, 80, "head dim 80")):
+        q, k, v = (torch.randn((b, h, n, dh), generator=g, device=dev)
+                   for _ in range(3))
+        check(build.FLASH_ATTENTION_F32,
+              f"{what} q/k/v [{b},{h},{n},{dh}] f32",
+              lambda: att.attend(q, k, v),
+              lambda: att.attend_reference(q, k, v), _rel, 1e-5, (q, k, v),
+              (0, 4 * b * h * n * n * dh),
+              library=lambda: F.scaled_dot_product_attention(q, k, v))
+        del q, k, v
 
     # B11: one SAM ViT-H windowed layer, 25 windows of 14x14, 16 heads of
     # 80 (library: scaled_dot_product_attention on q/k/v split and the
@@ -2153,6 +2189,293 @@ def checkpoint_phase(dev, seed: int = 3) -> dict:
                 sam_mib=sam_mib, dino_mib=dino_mib, query_ms=ms)
 
 
+def _timed(tag: str, label: str, fn, n_images: int) -> tuple:
+    """``fn()`` once to warm up, then once between a synchronize and a
+    CUDA-event span with the peak device memory reset: prints images/s,
+    the batch's wall and device ms, the peak GiB; returns (the result,
+    its numbers)."""
+    import torch
+    fn()
+    torch.cuda.reset_peak_memory_stats()
+    with _Span() as span:
+        res = fn()
+    nums = dict(images_s=n_images / span.wall, wall_ms=span.wall * 1e3,
+                device_ms=span.device_ms,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    print(f"[{tag}] {label}: {nums['images_s']:.1f} images/s (a batch of "
+          f"{n_images}: wall {nums['wall_ms']:.1f} ms, device "
+          f"{nums['device_ms']:.1f} ms), peak {nums['peak_gib']:.2f} GiB",
+          flush=True)
+    return res, nums
+
+
+def backbones_phase(dev, seed: int = 12) -> dict:
+    """[backbones]: full-width models with seeded weights, f32 (TF32 off):
+    DINOv1 ViT-S/8 through ``hub.load_model("dino_vits8")`` on 8 images of
+    480x640 through ``dinov1_dense_features`` (224x298, stride 4: 4,016
+    tokens, layer 11, key facet, upsampled back; K1 f32 must launch 11
+    times a batch and nothing else, and one image's features must agree
+    within 1e-4 with the same forward with K1's plain version in its
+    place); CosPlace ViT-B/16's value facet at 224x224, ResNet-50
+    conv1..layer4 at 480x640, and the VLAD-BuFF (NetVLAD-AntiBurst 64 x
+    768 = 49,152-d) and DINO-SALAD global descriptors at 224x224, batch 8
+    each; then ``fit_wpca`` to 512 components on 1,024 VLAD-BuFF
+    descriptors (the dual path), whose whitened training set must have
+    unit variance. Images/s and peak device memory each."""
+    import numpy as np
+    import torch
+
+    from revisit_anything_tpu_torch import hub
+    from revisit_anything_tpu_torch.kernels import build
+    from revisit_anything_tpu_torch.models import cosplace_vit as cv
+    from revisit_anything_tpu_torch.models import dinov2 as dn
+    from revisit_anything_tpu_torch.models import resnet as rn
+    from revisit_anything_tpu_torch.ops import attention as att
+    from revisit_anything_tpu_torch.pipeline.extract import (
+        dinov1_dense_features)
+    from revisit_anything_tpu_torch.training import vladbuff as vb
+    from revisit_anything_tpu_torch.weights import init_cosplace_vit
+
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+
+    model, cfg, _ = hub.load_model("dino_vits8", seed=seed, device=dev)
+    imgs = np.stack([_image(rng, (480, 640)) for _ in range(8)])
+    kw = dict(stride=4, layer=11, facet="key", load_size=224)
+    build.reset_counts()
+    feats = dinov1_dense_features(model, cfg, imgs, **kw)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in build.KERNELS}
+    if counts.pop(build.FLASH_ATTENTION_F32.name) != 11 or any(
+            counts.values()):
+        _fail(f"[backbones] DINOv1 batch launched "
+              f"{build.FLASH_ATTENTION_F32.name} "
+              f"{build.FLASH_ATTENTION_F32.launches} times (11 expected), "
+              f"others {counts}")
+    out["counts"] = {k.name: k.launches for k in build.KERNELS}
+    if (tuple(feats.shape) != (8, 384, 480, 640)
+            or not torch.isfinite(feats).all()):
+        _fail(f"[backbones] DINOv1 features {tuple(feats.shape)} or not "
+              "finite")
+    _, out["dinov1"] = _timed(
+        "backbones", "DINOv1 ViT-S/8 f32 480x640 -> 224x298 s4 (4,016 "
+        "tokens), layer 11 key, upsampled",
+        lambda: dinov1_dense_features(model, cfg, imgs, **kw), 8)
+    kernel = dn.attend
+    dn.attend = att.attend_reference
+    try:
+        plain = dinov1_dense_features(model, cfg, imgs[:1], **kw)
+    finally:
+        dn.attend = kernel
+    abs_err, rel_err = _rel(feats[:1], plain)
+    print(f"[backbones] DINOv1 witness: one image's features with K1 f32 "
+          f"against its plain version in its place: max_abs_err "
+          f"{abs_err:.3e} rel_err {rel_err:.3e} (tol 1e-4)", flush=True)
+    if not rel_err <= 1e-4:
+        _fail(f"[backbones] DINOv1 features off the plain forward by "
+              f"{rel_err}")
+    del model, feats, plain
+
+    x224 = torch.randn((8, 224, 224, 3), generator=gen, device=dev)
+    model = init_cosplace_vit(cv.VIT_BASE, gen, dev)
+    with torch.inference_mode():
+        desc, out["cosplace"] = _timed(
+            "backbones", "CosPlace ViT-B/16 224x224 value facet, layer 11",
+            lambda: cv.extract_features(model, cv.VIT_BASE, x224, 11,
+                                        "value"), 8)
+    if tuple(desc.shape) != (8, 196, 768) or not torch.isfinite(desc).all():
+        _fail(f"[backbones] CosPlace features {tuple(desc.shape)}")
+    del model
+
+    model = rn.init_resnet(rn.RESNET50, seed, device=dev)
+    x480 = torch.randn((8, 480, 640, 3), generator=gen, device=dev)
+    with torch.inference_mode():
+        fm, out["resnet50"] = _timed(
+            "backbones", "ResNet-50 conv1..layer4 480x640",
+            lambda: rn.resnet_forward(model, rn.RESNET50, x480), 8)
+    if tuple(fm.shape) != (8, 2048, 15, 20) or not torch.isfinite(fm).all():
+        _fail(f"[backbones] ResNet-50 features {tuple(fm.shape)}")
+    del model, x480, fm
+
+    model, cfg, fwd = hub.load_model("vlad_buff", seed=seed, device=dev)
+    desc, out["vlad_buff"] = _timed(
+        "backbones", "VLAD-BuFF DINOv2 ViT-B/14 + NetVLAD-AntiBurst 64 "
+        "224x224 (49,152-d)", lambda: fwd(model, x224), 8)
+    salad, scfg, sfwd = hub.load_model("dino_salad", seed=seed, device=dev)
+    sdesc, out["dino_salad"] = _timed(
+        "backbones", "DINO-SALAD DINOv2 ViT-B/14 224x224 (8,448-d)",
+        lambda: sfwd(salad, x224), 8)
+    for name, d, width in (("VLAD-BuFF", desc, 49152),
+                           ("DINO-SALAD", sdesc, 8448)):
+        norms = d.norm(dim=1)
+        if (tuple(d.shape) != (8, width)
+                or not torch.allclose(norms, torch.ones_like(norms),
+                                      atol=1e-4)):
+            _fail(f"[backbones] {name} descriptors {tuple(d.shape)} not "
+                  "unit rows")
+    del salad
+
+    batches = [torch.randn((64, 224, 224, 3), generator=gen, device=dev)
+               for _ in range(16)]
+    descs = torch.cat([fwd(model, b) for b in batches])
+    del batches
+    torch.cuda.reset_peak_memory_stats()
+    with _Span() as span:
+        wpca = vb.fit_wpca(descs, 512)
+    var = ((descs @ wpca["w"].T + wpca["b"]).var(0)).cpu()
+    print(f"[backbones] fit_wpca 1,024 x 49,152 -> 512 (dual): "
+          f"{span.wall:.3f} s, peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+          f" GiB; whitened variance {var.min():.6f}..{var.max():.6f}",
+          flush=True)
+    if not (torch.isfinite(wpca["w"]).all() and (var - 1).abs().max() < 1e-2):
+        _fail("[backbones] fit_wpca: the whitened set is not unit variance")
+    out["fit_wpca_s"] = span.wall
+    del model, descs, wpca
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(dev, seed: int = 13) -> dict:
+    """[train]: VLAD-BuFF training at the CLI's defaults (DINOv2 ViT-B/14,
+    the last 4 of 12 blocks trainable, NetVLAD-AntiBurst 64, the
+    multi-similarity loss, AdamW at lr 6e-5 on the linear schedule), 16
+    places x 4 images at 224x224 a batch, f32 with TF32 off, from seeded
+    PNGs read by ``discover_places`` → ``PlacesBatcher`` → ``prefetch``.
+    Five steps: every loss finite, every frozen parameter bit for bit its
+    start, every trainable tensor moved. ``save_train_state`` after step
+    3, ``restore_train_state`` into a fresh state and step 4 there: loss
+    and parameters within 1e-6 of the continued run's. Then
+    ``run_validation`` on 32 references and 16 noisy-copy queries.
+    Prints each loss, steps/s, images/s and peak device memory."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from revisit_anything_tpu_torch.kernels import build
+    from revisit_anything_tpu_torch.training import checkpoint as ck
+    from revisit_anything_tpu_torch.training import data
+    from revisit_anything_tpu_torch.training import train as tr
+    from revisit_anything_tpu_torch.training import validation as val
+
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed)
+    cfg = tr.VPRTrainConfig()
+    steps, ppb, ipp = 5, 16, cfg.imgs_per_place
+
+    def png(path, img):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(img).save(path, compress_level=1)
+
+    def view(base):
+        noise = rng.normal(0.0, 12.0, base.shape)
+        return np.clip(base + noise, 0, 255).astype(np.uint8)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for p in range(steps * ppb):
+            base = _image(rng, (240, 320))
+            for i in range(ipp):
+                png(os.path.join(tmp, "gsv", f"city{p % 2}", f"{p:04d}",
+                                 f"{i}.png"), view(base))
+        places = data.discover_places(os.path.join(tmp, "gsv"), ipp)
+        batches = list(data.prefetch(iter(data.PlacesBatcher(
+            places, (224, 224), ppb, ipp, seed=seed))))
+        print(f"[train] {len(places)} places written and {len(batches)} "
+              f"batches of {ppb * ipp} loaded in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        if len(batches) != steps:
+            _fail(f"[train] {len(batches)} batches, {steps} expected")
+
+        state = tr.create_train_state(cfg, seed=seed, device=dev)
+        start = {n: p.detach().clone()
+                 for n, p in state.model.named_parameters()}
+        mask = tr._trainable_mask(state.model, cfg)
+        build.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+
+        def step(st, i):
+            x, y = batches[i]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = tr.train_step(st, cfg, torch.from_numpy(x),
+                                 torch.from_numpy(y)).item()
+            return loss, time.perf_counter() - t
+
+        losses, secs = [], []
+        for i in range(steps):
+            loss, sec = step(state, i)
+            losses.append(loss)
+            secs.append(sec)
+            if i == 2:
+                path = ck.save_train_state(os.path.join(tmp, "ckpt"), state)
+                after3 = {n: p.detach().clone()
+                          for n, p in state.model.named_parameters()}
+            if i == 3:
+                at4 = {n: p.detach().clone()
+                       for n, p in state.model.named_parameters()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts = {k.name: k.launches for k in build.KERNELS}
+        rate = (steps - 1) / sum(secs[1:])
+        print(f"[train] losses {' '.join(f'{v:.6f}' for v in losses)}; step "
+              f"ms {' '.join(f'{1e3 * v:.1f}' for v in secs)}; "
+              f"{rate:.3f} steps/s, {rate * ppb * ipp:.1f} images/s (steps "
+              f"2-5), peak {peak:.2f} GiB; kernel launches {counts}",
+              flush=True)
+        if not all(np.isfinite(losses)):
+            _fail(f"[train] a loss is not finite: {losses}")
+        for n, p in state.model.named_parameters():
+            moved = not torch.equal(p, start[n])
+            if moved != mask[n]:
+                _fail(f"[train] {n}: {'frozen but changed' if moved else 'trainable but never changed'}")
+        n_train = sum(p.numel() for n, p in state.model.named_parameters()
+                      if mask[n])
+        print(f"[train] {n_train:,} trainable parameters moved, "
+              f"{sum(p.numel() for p in state.model.parameters()) - n_train:,}"
+              " frozen bit for bit", flush=True)
+
+        fresh = tr.create_train_state(cfg, seed=seed + 1, device=dev)
+        ck.restore_train_state(path, fresh)
+        same = all(torch.equal(p, after3[n])
+                   for n, p in fresh.model.named_parameters())
+        loss4, _ = step(fresh, 3)
+        worst = max(_rel(p, at4[n])[1]
+                    for n, p in fresh.model.named_parameters())
+        print(f"[train] resumed from {os.path.basename(path)} (restored "
+              f"bit for bit: {same}): step 4 loss {loss4:.9f} against "
+              f"{losses[3]:.9f}, parameters within {worst:.3e} relative",
+              flush=True)
+        if not (same and abs(loss4 - losses[3]) <= 1e-6 * abs(losses[3])
+                and worst <= 1e-6):
+            _fail("[train] the resumed step 4 differs from the continued "
+                  "run's")
+        del fresh, after3, at4, start
+
+        root = os.path.join(tmp, "val")
+        refs = [_image(rng, (240, 320)) for _ in range(32)]
+        for i, img in enumerate(refs):
+            png(os.path.join(root, "ref", f"{i:03d}.png"), img)
+        for i in range(16):
+            png(os.path.join(root, "query", f"{i:03d}.png"), view(refs[i]))
+        np.save(os.path.join(root, "gt.npy"),
+                np.asarray([[i] for i in range(16)], dtype=object),
+                allow_pickle=True)
+        vset = val.ValidationSet.from_directory(root)
+        with _Span() as span:
+            recalls = val.run_validation(state.model, cfg, vset,
+                                         print_results=False)
+        print(f"[train] run_validation 32 refs, 16 queries: "
+              f"{', '.join(f'R@{k} {v:.4f}' for k, v in recalls.items())} "
+              f"in {span.wall:.2f} s", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return dict(losses=losses, steps_s=rate, peak_gib=peak, recalls=recalls)
+
+
 def _check_launches(counts: dict, path: str) -> None:
     """Every kernel of ``path`` launched, none outside it."""
     want = {k.name for k in _paths()[path]}
@@ -2618,6 +2941,8 @@ def main() -> None:
     reference_check(dev)
     served = serve(dev)
     checkpoint_phase(dev)
+    backbones = backbones_phase(dev)
+    train_phase(dev)
 
     # launches: the 3 "shared" queries for the kernels of that form, the
     # probability-factored queries for theirs, the window-kernel query for
@@ -2628,7 +2953,8 @@ def main() -> None:
         launches = (served["counts"][k.name]
                     or sum(v["counts"][k.name]
                            for v in served["variants"].values())
-                    or served["window"]["counts"][k.name])
+                    or served["window"]["counts"][k.name]
+                    or backbones["counts"][k.name])
         table.append(dict(
             name=k.name, route="cuda", source=k.source, replaces=k.replaces,
             launches=launches,

@@ -9,6 +9,12 @@ from typing import List, Tuple
 from revisit_anything_tpu_torch.config import DatasetConfig
 from revisit_anything_tpu_torch.io.h5io import natsorted_keys
 
+# the training loader's GSV-Cities directory scan (not gt-indexed, so a
+# whitelist is safe there); the gt-indexed list_images is unfiltered
+IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".tif",
+              ".tiff", ".webp", ".ppm")
+
+
 def list_images(directory: str) -> List[str]:
     """Every regular file of ``directory``, natural-sorted and unfiltered
     (the reference's ``natsorted(os.listdir())``,

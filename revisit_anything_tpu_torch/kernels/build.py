@@ -45,6 +45,8 @@ SIGNATURES: Dict[str, Sequence] = {
     # q, k, v, bias_h, bias_w, out, bh, n, side, has_bias, scale, hd, stream
     "rat_flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                             _P),
+    # q, k, v, out, bh, n, scale, hd, stream (f32, no bias)
+    "rat_flash_attention_f32": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
     # q, kvt, pe_kt, v_bias, out, b, n, d, m, heads, kv_shared, stream
     "rat_token_cross_kv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # q, kt, vt, out, b, n, d, m, heads, kv_shared, stream
@@ -80,6 +82,7 @@ SIGNATURES: Dict[str, Sequence] = {
     # reports, no launch: dynamic shared memory of a CTA in bytes
     "rat_token_cross_smem": (_I, _I),           # pe, shared
     "rat_flash_attention_smem": (_I,),          # hd
+    "rat_flash_attention_f32_smem": (_I,),      # hd
     "rat_win_attention_smem": (_I, _I),         # side, hd
     "rat_mask_head_smem": (),
     "rat_i2t_update_smem": (),
@@ -201,6 +204,9 @@ _SRC = "revisit_anything_tpu_torch/kernels/csrc/"
 FLASH_ATTENTION = Kernel(
     "flash_attention", "rat_flash_attention", _SRC + "flash_attention.cu",
     "revisit_anything_tpu/ops/attention.py:116")
+FLASH_ATTENTION_F32 = Kernel(
+    "flash_attention_f32", "rat_flash_attention_f32",
+    _SRC + "flash_attention.cu", "revisit_anything_tpu/ops/attention.py:116")
 TOKEN_CROSS = Kernel(
     "token_cross_attention", "rat_token_cross_kv", _SRC + "token_cross.cu",
     "revisit_anything_tpu/ops/attention.py:442")
@@ -239,7 +245,8 @@ WIN_ATTENTION = Kernel(
 
 KERNELS = (FLASH_ATTENTION, TOKEN_CROSS, I2T_UPDATE, MASK_HEAD, RESIZE_FLAGS,
            I2T_PROBS, T2I_PROBS, MASK_HEAD_PROBS, DECODE_TAIL,
-           DECODE_TAIL_LOGITS, TOKEN_CROSS_SPLIT, WIN_ATTENTION)
+           DECODE_TAIL_LOGITS, TOKEN_CROSS_SPLIT, WIN_ATTENTION,
+           FLASH_ATTENTION_F32)
 
 
 def reset_counts() -> None:

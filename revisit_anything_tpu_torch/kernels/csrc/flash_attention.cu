@@ -467,6 +467,204 @@ int dispatch(const void* q, const void* k, const void* v, const void* bias_h,
   return launch<HD, 1>(q, k, v, bias_h, bias_w, out, bh, n, side, scale, s);
 }
 
+// ---------------------------------------------------------------------------
+// K1 in f32 (entry rat_flash_attention_f32): the same function without the
+// bias, on f32 q, k, v and out, for the f32 DINO forwards (DINOv1's
+// extraction at AnyLoc's settings: N = 4016, 6 heads of 64; an f32 DINOv2 at
+// N >= 1024). The TPU kernel computes in its inputs' dtype (scores f32, p
+// rounded to v's dtype), so f32 inputs give f32 attention.
+//
+// True f32 throughout: scores, the online softmax and the value product on
+// the FMA units, with f32 sums (wgmma has no f32 form, and TF32 would lose
+// the parity the f32 path exists for). What bounds it: the FMA units,
+// 4·N²·Dh FLOP a head at 67 TFLOP/s (DINOv1 ViT-S/8, batch 8: 198 GFLOP,
+// 2.96 ms) against 16·N·Dh bytes a head (12 MB, 4 us).
+//
+// Design (a first, simple pass): one CTA of 256 threads takes 64 query rows
+// of one (batch, head). Q is copied into shared memory once; then for each
+// 64-key tile, K and V are copied in by coalesced float4 loads (keys past N
+// as zeros, masked to -inf), and the 16x16 threads compute S = Q·Kᵀ with
+// 4 rows x 4 keys a thread (rows ty + 16i, keys tx + 16j), reading float4s
+// along Dh (Q and K rows padded by 4 floats, so the 8 threads of a
+// quarter-warp read 8 distinct bank groups; a row of Q is one broadcast).
+// The online softmax runs in registers: each row's max and sum are
+// reduced over its 16 threads by shuffles, exp by expf. P goes to shared
+// memory over K's tile, and O += P·V accumulates in registers (4 rows x
+// Dh/16 columns a thread, columns tx·Dh/16 + c). Rows past N are not
+// stored.
+constexpr int F32_BQ = 64;
+constexpr int F32_BK = 64;
+constexpr int F32_THREADS = 256;
+
+template <int HD>
+struct F32Cfg {
+  static constexpr int LD = HD + 4;                     // Q and K/P row stride
+  static constexpr int CPT = HD / 16;                   // O columns a thread
+  static constexpr int SMEM = (2 * F32_BQ * LD + F32_BK * HD) * 4;
+};
+
+template <int HD>
+__device__ __forceinline__ void load_rows_f32(float* dst, int ld, const float* src,
+                                              int row0, int n, int tid) {
+  constexpr int V4 = HD / 4;                            // float4s a row
+  for (int idx = tid; idx < 64 * V4; idx += F32_THREADS) {
+    const int r = idx / V4, c4 = idx % V4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < n)
+      val = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * HD + 4 * c4);
+    *reinterpret_cast<float4*>(dst + r * ld + 4 * c4) = val;
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(F32_THREADS, 2)
+flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ out,
+                           int n, float scale) {
+  using C = F32Cfg<HD>;
+  extern __shared__ __align__(16) float smem_f[];
+  float* qs = smem_f;                                   // [64][LD]
+  float* ks = qs + F32_BQ * C::LD;                      // [64][LD], then P
+  float* vs = ks + F32_BK * C::LD;                      // [64][HD]
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int bh = blockIdx.y, q0 = blockIdx.x * F32_BQ;
+  const size_t base = (size_t)bh * n * HD;
+
+  load_rows_f32<HD>(qs, C::LD, q + base, q0, n, tid);
+
+  float o[4][C::CPT];
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < C::CPT; ++c) o[i][c] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < n; k0 += F32_BK) {
+    __syncthreads();                                    // last tile's P, V read
+    load_rows_f32<HD>(ks, C::LD, k + base, k0, n, tid);
+    load_rows_f32<HD>(vs, HD, v + base, k0, n, tid);
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < HD; d += 4) {
+      float4 qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * C::LD + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * C::LD + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+        }
+    }
+
+    // Online softmax of each row over its 16 threads.
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = (k0 + tx + 16 * j < n) ? s[i][j] * scale : -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);              // finite: k0 < n
+      const float alpha = expf(m[i] - m_new);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = expf(s[i][j] - m_new);
+        sum += s[i][j];
+      }
+      l[i] = l[i] * alpha + sum;                        // this thread's part
+#pragma unroll
+      for (int c = 0; c < C::CPT; ++c) o[i][c] *= alpha;
+    }
+
+    __syncthreads();                                    // S read K's tile
+    float* ps = ks;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ps[(ty + 16 * i) * C::LD + tx + 16 * j] = s[i][j];
+    __syncthreads();
+
+#pragma unroll 2
+    for (int kk = 0; kk < F32_BK; kk += 4) {
+      float4 pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * C::LD + kk);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float vv[C::CPT];
+        const float* vrow = vs + (kk + u) * HD + tx * C::CPT;
+        if constexpr (C::CPT == 4) {
+          const float4 t = *reinterpret_cast<const float4*>(vrow);
+          vv[0] = t.x; vv[1] = t.y; vv[2] = t.z; vv[3] = t.w;
+        } else {
+#pragma unroll
+          for (int c = 0; c < C::CPT; ++c) vv[c] = vrow[c];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = u == 0 ? pv[i].x : u == 1 ? pv[i].y : u == 2 ? pv[i].z : pv[i].w;
+#pragma unroll
+          for (int c = 0; c < C::CPT; ++c) o[i][c] = fmaf(p, vv[c], o[i][c]);
+        }
+      }
+    }
+  }
+
+  // The row sums over the 16 threads, then normalize and store.
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float li = l[i];
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) li += __shfl_xor_sync(0xffffffffu, li, off);
+    const int row = q0 + ty + 16 * i;
+    if (row < n) {
+      const float inv = 1.f / li;
+      float* dst = out + base + (size_t)row * HD + tx * C::CPT;
+#pragma unroll
+      for (int c = 0; c < C::CPT; ++c) dst[c] = o[i][c] * inv;
+    }
+  }
+}
+
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* out, int bh, int n,
+               float scale, cudaStream_t stream) {
+  using C = F32Cfg<HD>;
+  auto kernel = flash_attention_f32_kernel<HD>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + F32_BQ - 1) / F32_BQ, bh);
+  kernel<<<grid, F32_THREADS, C::SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), n, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int rat_flash_attention(const void* q, const void* k, const void* v,
@@ -489,4 +687,25 @@ extern "C" int rat_flash_attention(const void* q, const void* k, const void* v,
 // Dynamic shared memory a CTA takes at head dim hd (for reports).
 extern "C" int rat_flash_attention_smem(int hd) {
   return hd == 64 ? Cfg<64>::SMEM : hd == 80 ? Cfg<80>::SMEM : 0;
+}
+
+// K1 in f32, no bias: q, k, v, out [bh, n, hd] f32, hd 64 or 80.
+extern "C" int rat_flash_attention_f32(const void* q, const void* k, const void* v,
+                                       void* out, int bh, int n, float scale, int hd,
+                                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bh <= 0 || n <= 0 || bh > 65535) return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 64:
+      return launch_f32<64>(q, k, v, out, bh, n, scale, s);
+    case 80:
+      return launch_f32<80>(q, k, v, out, bh, n, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory a CTA of the f32 kernel takes at head dim hd.
+extern "C" int rat_flash_attention_f32_smem(int hd) {
+  return hd == 64 ? F32Cfg<64>::SMEM : hd == 80 ? F32Cfg<80>::SMEM : 0;
 }

@@ -1,8 +1,9 @@
 """DINOv2 vision transformer, dense features and checkpoint loading.
 
 Counterpart of ``revisit_anything_tpu/models/dinov2.py``
-(``DinoV2Config``, ``VIT_G14``, ``embed_patches`` :232, ``extract_dense``
-:276, ``center_crop_offsets`` :320, ``convert_dinov2_hub_state_dict``
+(``DinoV2Config``, ``VIT_G14``, ``VIT_B14`` and ``CONFIGS``,
+``embed_patches`` :232, ``forward_tokens`` :258, ``extract_dense`` :276,
+``preprocess`` :306, ``center_crop_offsets`` :320, ``convert_dinov2_hub_state_dict``
 :334, ``convert_transformers_state_dict`` :385, ``load_checkpoint``
 :437). ``extract_dense`` runs blocks 0..layer−1 plus block ``layer``'s
 norm1 and qkv, and returns a facet's slice (or block ``layer``'s output
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +61,12 @@ class DinoV2Config:
 
 
 VIT_G14 = DinoV2Config(embed_dim=1536, depth=40, num_heads=24, ffn="swiglu")
+VIT_L14 = DinoV2Config(embed_dim=1024, depth=24, num_heads=16)
+VIT_B14 = DinoV2Config(embed_dim=768, depth=12, num_heads=12)
+VIT_S14 = DinoV2Config(embed_dim=384, depth=12, num_heads=6)
+
+CONFIGS = {"dinov2_vitg14": VIT_G14, "dinov2_vitl14": VIT_L14,
+           "dinov2_vitb14": VIT_B14, "dinov2_vits14": VIT_S14}
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -214,6 +221,29 @@ def embed_patches(model: DinoV2, cfg: DinoV2Config,
     return x
 
 
+def forward_tokens(model: DinoV2, cfg: DinoV2Config, images: torch.Tensor,
+                   num_blocks: Optional[int] = None,
+                   final_norm: bool = True) -> torch.Tensor:
+    """Token states [B, 1+R+N, D] after the first ``num_blocks`` blocks
+    (all if None), then the final norm unless ``final_norm`` is False."""
+    x = embed_patches(model, cfg, images)
+    n = cfg.depth if num_blocks is None else num_blocks
+    for blk in model.blocks[:n]:
+        x = _block(x, blk, cfg)
+    if final_norm:
+        x = model.norm(x, cfg.eps)
+    return x
+
+
+def patch_features(tokens: torch.Tensor, cfg: DinoV2Config,
+                   image_hw: Tuple[int, int]) -> torch.Tensor:
+    """Token states [B, 1+R+N, D] of an image of ``image_hw`` → the patch
+    tokens as a map [B, D, gh, gw] (cls and register tokens dropped)."""
+    patches = tokens[:, 1 + cfg.num_register_tokens:]
+    gh, gw = (s // cfg.patch_size for s in image_hw)
+    return patches.reshape(patches.shape[0], gh, gw, -1).permute(0, 3, 1, 2)
+
+
 FACETS = ("query", "key", "value", "token")
 
 
@@ -237,6 +267,20 @@ def extract_dense(model: DinoV2, cfg: DinoV2Config, images: torch.Tensor,
     d = cfg.embed_dim
     i = FACETS.index(facet)
     return qkv[:, skip:, i * d:(i + 1) * d]
+
+
+def preprocess(images_uint8: np.ndarray,
+               patch_multiple: bool = True) -> np.ndarray:
+    """RGB uint8 [B, H, W, 3] → ImageNet-normalized float32 (numpy),
+    center-cropped to multiples of 14 (getAnyLocFt semantics)."""
+    x = images_uint8.astype(np.float32) / 255.0
+    x = (x - IMAGENET_MEAN) / IMAGENET_STD
+    if patch_multiple:
+        h, w = x.shape[1:3]
+        hn, wn = (h // 14) * 14, (w // 14) * 14
+        top, left = center_crop_offsets(h, w, hn, wn)
+        x = x[:, top:top + hn, left:left + wn]
+    return x
 
 
 def center_crop_offsets(h: int, w: int, hn: int, wn: int):

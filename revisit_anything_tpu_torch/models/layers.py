@@ -81,6 +81,43 @@ def _assign(target: Optional[torch.Tensor], value, name: str) -> None:
         target.copy_(src)
 
 
+def tree_module(tree, *, dtype=torch.float32, device="cuda") -> nn.Module:
+    """A module whose attributes mirror a parameter tree (nested dicts of
+    arrays or tensors, lists as ``nn.ModuleList``s), leaf for leaf, for
+    the parameter sets that have no fixed class (the aggregators, the
+    WPCA layer): dict keys become attributes. Parameters are created with
+    ``requires_grad=False``."""
+    if isinstance(tree, (list, tuple)):
+        return nn.ModuleList(tree_module(t, dtype=dtype, device=device)
+                             for t in tree)
+    module = nn.Module()
+    for key, sub in tree.items():
+        if isinstance(sub, (dict, list, tuple)):
+            module.add_module(key, tree_module(sub, dtype=dtype,
+                                               device=device))
+        else:
+            t = (sub.detach() if isinstance(sub, torch.Tensor) else
+                 torch.from_numpy(np.array(sub, dtype=np.float32)))
+            module.register_parameter(key, nn.Parameter(
+                t.to(device=device, dtype=dtype, copy=True),
+                requires_grad=False))
+    return module
+
+
+def module_tree(module: nn.Module):
+    """The parameter tree of ``module`` as nested dicts (lists for
+    ``nn.ModuleList``s) of f32 numpy arrays: the JAX package's layout for
+    the port's modules, whose names follow its trees (entries that are
+    None in the module are left out)."""
+    if isinstance(module, nn.ModuleList):
+        return [module_tree(m) for m in module]
+    out = {k: p.detach().to("cpu", torch.float32).numpy()
+           for k, p in module.named_parameters(recurse=False)}
+    for k, child in module.named_children():
+        out[k] = module_tree(child)
+    return out
+
+
 def state_array(sd, key: str) -> np.ndarray:
     """Entry ``key`` of a checkpoint's state dict (tensors or arrays) as
     an f32 numpy array: a view of it where it is already one."""

@@ -1,4 +1,4 @@
-"""Attention kernels K1 (flash attention), K2 (token→image cross
+"""Attention kernels K1 (flash attention, in bf16 and in f32), K2 (token→image cross
 attention), B10 (the same without pe and v bias, on separate kᵀ and vᵀ)
 and K5 (fused image→token update), each beside its plain PyTorch version.
 
@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from revisit_anything_tpu_torch.kernels.build import (FLASH_ATTENTION,
+                                                      FLASH_ATTENTION_F32,
                                                       I2T_UPDATE, TOKEN_CROSS,
                                                       TOKEN_CROSS_SPLIT,
                                                       operand)
@@ -47,15 +48,34 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     decomposed rel-pos bias bias_h/bias_w [B, H, N, side]
     (bias[q, k] = bias_h[q, k // side] + bias_w[q, k % side], N = side²).
 
-    CUDA: kernel K1 (bf16, Dh 64 or 80, side <= 64). CPU:
+    CUDA: kernel K1, in bf16 (Dh 64 or 80, side <= 64) or in f32 (Dh 64
+    or 80, no bias); other dtypes raise. K1 has no backward (the TPU
+    kernel has none either): a call under grad mode with an input that
+    requires grad raises, so a gradient is never cut off silently. CPU:
     :func:`attend_reference`."""
     if not q.is_cuda:
         return attend_reference(q, k, v, bias_h, bias_w, side)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (q, k, v, bias_h, bias_w)):
+        raise RuntimeError("flash attention (K1) has no backward, as the "
+                           "TPU kernel has none: call it under "
+                           "torch.no_grad() or torch.inference_mode()")
     b, h, n, dh = q.shape
     if dh not in (64, 80):
         raise ValueError(f"flash attention: head dim {dh} not built "
                          "(64, 80)")
     shape = (b, h, n, dh)
+    if q.dtype == torch.float32:
+        if bias_h is not None:
+            raise ValueError("f32 flash attention takes no bias")
+        qf, kf, vf = (operand(name, t, torch.float32, shape)
+                      for name, t in (("q", q), ("k", k), ("v", v)))
+        out = torch.empty_like(qf)
+        FLASH_ATTENTION_F32.launch(qf.data_ptr(), kf.data_ptr(),
+                                   vf.data_ptr(), out.data_ptr(), b * h, n,
+                                   1.0 / math.sqrt(dh), dh)
+        return out
     qf = operand("q", q, torch.bfloat16, shape)
     kf = operand("k", k, torch.bfloat16, shape)
     vf = operand("v", v, torch.bfloat16, shape)

@@ -29,22 +29,23 @@ DB_TILE = 131072
 
 @contextlib.contextmanager
 def f32_products():
-    """f32 matrix products on the card in true f32 inside the block,
-    whatever the process's setting (TF32 would flip kmeans labels and kNN
-    orders; the JAX package computes these at ``Precision.HIGHEST``).
-    Reads and restores the cuBLAS setting through its per-backend
-    property (``torch.get_float32_matmul_precision`` raises once a
-    process has mixed the legacy ``allow_tf32`` flags with the new API).
-    The setting is process-wide, so the block also holds other threads'
+    """f32 matrix products and cuDNN convolutions on the card in true f32
+    inside the block, whatever the process's setting (TF32 would flip
+    kmeans labels and kNN orders; the JAX package computes these at
+    ``Precision.HIGHEST``). Reads and restores the cuBLAS and cuDNN
+    settings through their per-backend properties
+    (``torch.get_float32_matmul_precision`` raises once a process has
+    mixed the legacy ``allow_tf32`` flags with the new API). The setting
+    is process-wide, so the block also holds other threads'
     products to f32. CPU products are f32 unless the process lowered
     ``torch.set_float32_matmul_precision`` itself."""
-    matmul = torch.backends.cuda.matmul
-    prev = matmul.fp32_precision
-    matmul.fp32_precision = "ieee"
+    matmul, conv = torch.backends.cuda.matmul, torch.backends.cudnn.conv
+    prev = matmul.fp32_precision, conv.fp32_precision
+    matmul.fp32_precision = conv.fp32_precision = "ieee"
     try:
         yield
     finally:
-        matmul.fp32_precision = prev
+        matmul.fp32_precision, conv.fp32_precision = prev
 
 
 def dot_f32(query: torch.Tensor, db: torch.Tensor) -> torch.Tensor:

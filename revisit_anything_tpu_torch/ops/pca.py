@@ -7,8 +7,8 @@ finder (counterpart of ``revisit_anything_tpu/ops/pca.py``: ``PCAParams``,
 is not the JAX package's ``jax.random`` draw; the tests hold both fits
 to each other and to sklearn by explained variance and by the principal
 angles between their subspaces. Every product runs in true f32
-(``ops.knn.f32_products``). The AnyLoc helper ``reduce_pca`` waits for
-the training slice.
+(``ops.knn.f32_products``). ``reduce_pca`` (JAX :140) is AnyLoc's helper
+on :func:`pca_fit_full`.
 """
 
 from __future__ import annotations
@@ -111,3 +111,44 @@ def pca_fit_full(x: torch.Tensor) -> PCAParams:
         mean = x.mean(0)
         _, s, vt = torch.linalg.svd(x - mean, full_matrices=False)
     return PCAParams(mean, _sign_fix(vt), (s ** 2) / (n - 1), False)
+
+
+def reduce_pca(train_descs, test_descs, lower_dim: int,
+               low_factor: float = 0.0, fallback: int = 256,
+               whitening: bool = False, device="cuda") -> tuple:
+    """Train and test descriptors reduced by a PCA fit on the train set
+    (AnyLoc's helper), computed on ``device``; returns numpy arrays.
+
+    ``low_factor`` > 0 takes that fraction of the ``lower_dim`` basis
+    vectors from the BOTTOM of the spectrum and the rest from the top
+    (not whitened); when the train set has fewer samples than features,
+    both sets are first projected to ``fallback`` dims by a PCA fit on
+    their concatenation."""
+    if not 0.0 <= low_factor <= 1.0:
+        raise ValueError(f"low_factor {low_factor} not in [0, 1]")
+    as_t = lambda a: torch.as_tensor(                     # noqa: E731
+        np.asarray(a, dtype=np.float32)).to(device)
+    train, test = as_t(train_descs), as_t(test_descs)
+    if low_factor == 0.0:
+        p = pca_fit_full(train)
+        p = PCAParams(p.mean, p.components[:lower_dim],
+                      p.explained_variance[:lower_dim], whitening)
+        return (pca_apply(train, p).cpu().numpy(),
+                pca_apply(test, p).cpu().numpy())
+    n_samples, n_feat = train.shape
+    if n_samples < n_feat:
+        both = torch.cat([train, test])
+        p = pca_fit_full(both)
+        p = PCAParams(p.mean, p.components[:fallback],
+                      p.explained_variance[:fallback], False)
+        down = pca_apply(both, p)
+        train, test = down[:n_samples], down[n_samples:]
+    n_down = int(low_factor * lower_dim)
+    n_up = lower_dim - n_down
+    p = pca_fit_full(train)
+    comps = (p.components[:lower_dim] if n_down == 0 else
+             torch.cat([p.components[:n_up], p.components[-n_down:]]))
+    tf = PCAParams(p.mean, comps, torch.ones(comps.shape[0], device=device),
+                   False)
+    return (pca_apply(train, tf).cpu().numpy(),
+            pca_apply(test, tf).cpu().numpy())

@@ -1,13 +1,16 @@
 """Segment VLAD: hard assignment + per-SuperSegment residual sums
 (counterpart of ``revisit_anything_tpu/ops/vlad.py`` ``segment_vlad`` :61,
-``global_vlad`` :140, ``hard_assignment``, ``expand_super_masks``,
-``l2_normalize``)."""
+``soft_global_vlad`` :112, ``global_vlad`` :140,
+``concat_center_residuals`` :154, ``hard_assignment``,
+``expand_super_masks``, ``l2_normalize``)."""
 
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from revisit_anything_tpu_torch.ops.knn import f32_products
 
 _EPS = 1e-12  # torch F.normalize default eps
 
@@ -61,3 +64,34 @@ def global_vlad(desc: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     mask = torch.ones((1, desc.shape[0]), dtype=torch.bool,
                       device=desc.device)
     return segment_vlad(desc, centers, mask)[0]
+
+
+def soft_global_vlad(desc: torch.Tensor, centers: torch.Tensor,
+                     soft_temp: float = 1.0,
+                     intra_norm: bool = True) -> torch.Tensor:
+    """Soft-assignment whole-image VLAD [C·D], L2-normalized:
+    softmax(temp · cosine(desc, centers)) over clusters; cluster k
+    accumulates soft[q, k]·Σ_c (desc_q − center_c), the residual sum over
+    ALL centers as the reference's reduction does."""
+    desc = desc.float()
+    centers = centers.float()
+    c = centers.shape[0]
+    with f32_products():
+        cos = l2_normalize(desc, 1) @ l2_normalize(centers, 1).T
+        soft = torch.softmax(soft_temp * cos, dim=1)             # [Q, C]
+        # Σ_c (x_q − center_c) = C·x_q − Σ_c center_c
+        res_all = c * desc - centers.sum(0)                      # [Q, D]
+        vlad = soft.T @ res_all                                  # [C, D]
+    if intra_norm:
+        vlad = l2_normalize(vlad, 1)
+    return l2_normalize(vlad.reshape(-1), 0)
+
+
+def concat_center_residuals(centers: torch.Tensor,
+                            desc: torch.Tensor) -> torch.Tensor:
+    """Each descriptor's residual to EVERY center, intra-normalized per
+    center, concatenated, then L2-normalized per descriptor (AnyLoc's
+    ``concat_desc_dists_clusters``). Returns [N, C·D]."""
+    res = desc[:, None, :].float() - centers[None].float()       # [N, C, D]
+    res = l2_normalize(res, -1)
+    return l2_normalize(res.reshape(desc.shape[0], -1), -1)

@@ -3,13 +3,15 @@ in the h5 schemas the JAX package and the reference read.
 
 Counterpart of ``revisit_anything_tpu/pipeline/extract.py``:
 ``load_image_rgb``, ``_resize_cv2_bilinear``, ``_fallback_records``,
-``extract_sam_masks`` (:68) and ``extract_dino_features`` (:135). SAM
-runs at half the DINO resolution (``config.DatasetConfig.sam_size``);
-DINOv2-g's layer-31 value facet at the full one, L2-normalized over
-channels. The per-batch work (:func:`generate_masks_batch`,
-:func:`dino_dense_features`) is separate from the h5 files, so it runs
-where ``h5py`` is not installed. The DINOv1, dinoNV and SALAD extractors
-wait for the slices of their backbones.
+``extract_sam_masks`` (:68), ``extract_dino_features`` (:135),
+``extract_dinov1_features_to_h5`` (:182), ``extract_dinonv_features_to_h5``
+(:267) and ``extract_dinosalad_features_to_h5`` (:303). SAM runs at half
+the DINO resolution (``config.DatasetConfig.sam_size``); DINOv2-g's
+layer-31 value facet at the full one, L2-normalized over channels. The
+per-batch work (:func:`generate_masks_batch`, :func:`dino_dense_features`,
+:func:`dinov1_dense_features`, :func:`dinonv_dense_features`,
+:func:`dinosalad_dense_features`) is separate from the h5 files, so it
+runs where ``h5py`` is not installed.
 """
 
 from __future__ import annotations
@@ -155,6 +157,53 @@ def extract_dino_features(image_paths: Sequence[str],
     """DINOv2 dense features of images resized to ``target_hw`` →
     ``ift_dino`` [1, D, dh, dw] per image, ``batch_size`` images a
     forward. Runs on ``dino``'s device."""
+    _h5_features(image_paths, image_keys, out_h5_path, target_hw,
+                 batch_size, progress, "dino",
+                 lambda imgs: dino_dense_features(dino, imgs, layer, facet))
+
+
+def dinov1_dense_features(model, cfg, images_u8: np.ndarray,
+                          stride: int = 4, layer: int = 11,
+                          facet: str = "key", load_size: int = 224,
+                          binned: bool = False,
+                          upsample: bool = True) -> torch.Tensor:
+    """uint8 RGB [B, H, W, 3] at the dataset size → DINOv1 features
+    [B, D (·17 binned), H, W] (``upsample``) or [B, ·, gh, gw] on
+    ``model``'s device: /255 with NO ImageNet normalization, the float
+    bilinear resize of the short side to ``load_size`` (torchvision
+    ``F.resize(int)``), the stride-``stride`` facet of block ``layer``
+    (head-minor channels) in the model's dtype, the optional GSP log
+    binning, then the align-corners bilinear upsample to (H, W). Raw,
+    not normalized."""
+    from revisit_anything_tpu_torch.models import dinov1 as d1
+    from revisit_anything_tpu_torch.ops.resize import (
+        bilinear_resize_align_corners, bilinear_resize_torch)
+    th, tw = images_u8.shape[1:3]
+    if th <= tw:
+        lh, lw = load_size, int(load_size * tw / th)
+    else:
+        lh, lw = int(load_size * th / tw), load_size
+    gh, gw = d1.strided_grid(lh, lw, cfg.patch_size, stride)
+    dev = model.pos_embed.device
+    x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(dev)
+    x = x.float().permute(0, 3, 1, 2) / 255.0
+    x = bilinear_resize_torch(x, (lh, lw)).permute(0, 2, 3, 1)
+    with torch.inference_mode():
+        feats = d1.extract_dense(model, cfg, x, layer=layer, facet=facet,
+                                 stride=stride)
+        if binned:
+            feats = d1.log_bin(feats, (gh, gw))
+        fm = feats.transpose(1, 2).reshape(len(images_u8), -1, gh, gw)
+        if upsample:
+            fm = bilinear_resize_align_corners(fm.float(), (th, tw))
+    return fm.float()
+
+
+def _h5_features(image_paths, image_keys, out_h5_path, target_hw,
+                 batch_size, progress, tag, features) -> None:
+    """The h5 loop of the dense extractors: images resized to
+    ``target_hw`` (cv2 bilinear), ``features(uint8 batch)`` → one
+    ``ift_dino`` [1, D, h, w] entry an image."""
     with open_h5(out_h5_path, "w") as f:
         for s in range(0, len(image_paths), batch_size):
             paths = image_paths[s:s + batch_size]
@@ -162,10 +211,74 @@ def extract_dino_features(image_paths: Sequence[str],
                                                   (target_hw[1],
                                                    target_hw[0]))
                              for p in paths])
-            feats = dino_dense_features(dino, imgs, layer, facet)
-            feats = feats.cpu().numpy()
+            feats = features(imgs).cpu().numpy()
             for i, key in enumerate(image_keys[s:s + batch_size]):
                 write_dino_features(f, key, feats[i:i + 1])
             if progress:
-                print(f"[dino] {s + len(paths)}/{len(image_paths)}",
+                print(f"[{tag}] {s + len(paths)}/{len(image_paths)}",
                       flush=True)
+
+
+def extract_dinov1_features_to_h5(image_paths: Sequence[str],
+                                  image_keys: Sequence[str],
+                                  out_h5_path: str, model, cfg,
+                                  target_hw: Tuple[int, int],
+                                  stride: int = 4, layer: int = 11,
+                                  facet: str = "key", load_size: int = 224,
+                                  binned: bool = False,
+                                  upsample: bool = True,
+                                  batch_size: int = 8,
+                                  progress: bool = True) -> None:
+    """DINOv1 dense features (:func:`dinov1_dense_features` of images
+    resized to ``target_hw``) → h5 ``ift_dino`` entries."""
+    _h5_features(image_paths, image_keys, out_h5_path, target_hw,
+                 batch_size, progress, "dinoV1",
+                 lambda imgs: dinov1_dense_features(
+                     model, cfg, imgs, stride, layer, facet, load_size,
+                     binned, upsample))
+
+
+def dinonv_dense_features(model, cfg, images_u8: np.ndarray) -> torch.Tensor:
+    """uint8 RGB [B, H, W, 3] → the VLAD-BuFF backbone's dense features
+    [B, 768, dh, dw] (ImageNet-normalized, centre-cropped to multiples of
+    14; token facet after the final norm, unnormalized) on ``model``'s
+    device."""
+    from revisit_anything_tpu_torch.training.vladbuff import (
+        extract_dinonv_features)
+    dev = next(model.parameters()).device
+    x = torch.from_numpy(dn.preprocess(images_u8)).to(dev)
+    with torch.inference_mode():
+        return extract_dinonv_features(model, cfg, x).float()
+
+
+def extract_dinonv_features_to_h5(image_paths: Sequence[str],
+                                  image_keys: Sequence[str],
+                                  out_h5_path: str, model, cfg,
+                                  target_hw: Tuple[int, int],
+                                  batch_size: int = 8,
+                                  progress: bool = True) -> None:
+    """SegVLAD-FineT dense backbone features (raw) → ``*_dinoNV_*.h5``
+    with the ``ift_dino`` dataset name."""
+    _h5_features(image_paths, image_keys, out_h5_path, target_hw,
+                 batch_size, progress, "dinoNV",
+                 lambda imgs: dinonv_dense_features(model, cfg, imgs))
+
+
+def dinosalad_dense_features(model, cfg,
+                             images_u8: np.ndarray) -> torch.Tensor:
+    """As :func:`dinonv_dense_features` through the DINO-SALAD backbone,
+    L2-normalized over channels."""
+    return l2_normalize(dinonv_dense_features(model, cfg, images_u8), 1)
+
+
+def extract_dinosalad_features_to_h5(image_paths: Sequence[str],
+                                     image_keys: Sequence[str],
+                                     out_h5_path: str, model, cfg,
+                                     target_hw: Tuple[int, int],
+                                     batch_size: int = 8,
+                                     progress: bool = True) -> None:
+    """DINO-SALAD dense backbone features (channel-L2-normalized) →
+    ``*_dinoSALAD_*.h5``."""
+    _h5_features(image_paths, image_keys, out_h5_path, target_hw,
+                 batch_size, progress, "dinoSALAD",
+                 lambda imgs: dinosalad_dense_features(model, cfg, imgs))

@@ -5,21 +5,29 @@ The port's modules keep the JAX tree's names and layouts
 (``models/sam/params.py``, ``models/dinov2._init_params``): a dense
 weight is ``w`` [in, out] with bias ``b``, LayerNorms hold ``scale`` and
 ``bias``, lists are ``nn.ModuleList``s. So a JAX tree (as numpy arrays)
-loads leaf for leaf with :func:`load_tree`.
+loads leaf for leaf with :func:`load_tree`: SAM, DINOv2 and DINOv1
+(``dino_from_jax_params``), the CosPlace ViT, ResNet, any aggregator
+(``training.aggregators.from_jax_tree``) and the VLAD-BuFF / SALAD
+``{"backbone", "aggregator", "wpca"?}`` trees (:func:`vpr_from_jax_params`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 from torch import nn
 
+from revisit_anything_tpu_torch.models.cosplace_vit import (CosPlaceViT,
+                                                           HfViTConfig)
 from revisit_anything_tpu_torch.models.dinov2 import DinoV2, DinoV2Config
-from revisit_anything_tpu_torch.models.layers import load_tree
+from revisit_anything_tpu_torch.models.layers import load_tree, tree_module
+from revisit_anything_tpu_torch.models.resnet import ResNet, ResNetConfig
 from revisit_anything_tpu_torch.models.sam import Sam, SamArchConfig
 from revisit_anything_tpu_torch.models.sam.prompt import (
     dense_positional_embedding)
+from revisit_anything_tpu_torch.training.train import VPRModel
 
 
 def sam_from_jax_params(tree, cfg: SamArchConfig, *,
@@ -39,6 +47,40 @@ def dino_from_jax_params(tree, cfg: DinoV2Config, *,
     dino = DinoV2(cfg, dtype=dtype, device=device)
     load_tree(dino, tree)
     return dino
+
+
+def cosplace_from_jax_params(tree, cfg: HfViTConfig, *,
+                             dtype=torch.float32,
+                             device="cuda") -> CosPlaceViT:
+    """The port's CosPlace ViT from a JAX ``cosplace_vit`` tree."""
+    model = CosPlaceViT(cfg, dtype=dtype, device=device)
+    load_tree(model, tree)
+    return model
+
+
+def resnet_from_jax_params(tree, cfg: ResNetConfig, *, dtype=torch.float32,
+                           device="cuda") -> ResNet:
+    """The port's ResNet from a JAX ``resnet`` tree (folded batch
+    norms)."""
+    model = ResNet(cfg, dtype=dtype, device=device)
+    load_tree(model, tree)
+    return model
+
+
+def vpr_from_jax_params(tree, cfg: DinoV2Config, *, dtype=torch.float32,
+                        device="cuda") -> VPRModel:
+    """A VLAD-BuFF or DINO-SALAD ``{"backbone", "aggregator", "wpca"?}``
+    tree (numpy leaves) → ``VPRModel`` on ``device``, layer scale as the
+    backbone tree has it."""
+    has_ls = tree["backbone"]["blocks"][0].get("ls1") is not None
+    backbone = dino_from_jax_params(
+        tree["backbone"], dataclasses.replace(cfg, layerscale=has_ls),
+        dtype=dtype, device=device)
+    model = VPRModel(backbone, tree_module(tree["aggregator"],
+                                           device=device))
+    if tree.get("wpca") is not None:
+        model.add_module("wpca", tree_module(tree["wpca"], device=device))
+    return model
 
 
 def _fill(module: nn.Module, generator: torch.Generator,
@@ -123,6 +165,25 @@ def init_dino(cfg: DinoV2Config, generator: torch.Generator,
                 if ls is not None:
                     ls.fill_(1e-5)
     return dino
+
+
+def init_cosplace_vit(cfg: HfViTConfig, generator: torch.Generator,
+                      device="cuda", dtype=torch.float32) -> CosPlaceViT:
+    """Random CosPlace ViT weights with the JAX init's scales
+    (``cosplace_vit.init_params``): N(0, 0.02²) weights, tokens and
+    position table, zero biases, LayerNorms (1, 0)."""
+    model = CosPlaceViT(cfg, dtype=dtype, device=device)
+
+    def std(name, p):
+        leaf = name.split(".")[-1]
+        if _is_ln(name):
+            return None if leaf == "scale" else 0.0
+        if leaf in ("b", "patch_b"):
+            return 0.0
+        return 0.02
+
+    _fill(model, generator, std)
+    return model
 
 
 def plant_point_segmenter(sam: Sam, generator: torch.Generator) -> None:

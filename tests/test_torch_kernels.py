@@ -1,4 +1,4 @@
-"""The twelve CUDA kernels against their plain PyTorch versions on the card
+"""The thirteen CUDA kernels against their plain PyTorch versions on the card
 (marked ``gpu``; they skip where there is no CUDA device), plus the
 port's import and dispatch contract, which holds everywhere.
 
@@ -57,20 +57,29 @@ SAM_TOOL_MODULES = (
     "datasets.msls_prep", "datasets.vladbuff_val")
 
 
+BACKBONE_TRAINING_MODULES = (
+    "hub", "models.dinov1", "models.cosplace_vit", "models.resnet",
+    "ops.posembed", "ops.resize", "training.aggregators", "training.losses",
+    "training.train", "training.data", "training.checkpoint",
+    "training.validation", "training.vladbuff", "retrieval.analysis")
+
+
 def test_port_imports_without_jax_or_nvcc():
-    """The serving path, the fifteen modules of the offline pipeline and
-    SAM's tools and the dataset loaders import on a machine with neither
-    JAX in use nor nvcc (the kernels build at their first CUDA launch,
-    ``native/maskops.cpp`` at its first call), and load none of h5py,
-    PIL, cv2 or sklearn (the card's machine lacks some of them: they are
-    imported where a function needs them)."""
+    """The serving path, the fifteen modules of the offline pipeline,
+    SAM's tools and the dataset loaders, the other backbones, the hub and
+    training import on a machine with neither JAX in use nor nvcc (the
+    kernels build at their first CUDA launch, ``native/maskops.cpp`` at
+    its first call), and load none of h5py, PIL, cv2, sklearn, optax,
+    orbax, transformers or pandas (the card's machine lacks some of them:
+    they are imported where a function needs them)."""
     mods = ["pipeline.serve", "weights", "models.sam.convert",
-            *OFFLINE_MODULES, *SAM_TOOL_MODULES]
+            *OFFLINE_MODULES, *SAM_TOOL_MODULES, *BACKBONE_TRAINING_MODULES]
     code = ("import sys; " + "; ".join(
         f"import revisit_anything_tpu_torch.{m}" for m in mods) + "; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'revisit_anything_tpu.')) or "
-            "m.split('.')[0] in ('h5py', 'PIL', 'cv2', 'sklearn')]; "
+            "m.split('.')[0] in ('h5py', 'PIL', 'cv2', 'sklearn', 'optax', "
+            "'orbax', 'transformers', 'pandas')]; "
             "assert not bad, bad")
     env = dict(os.environ, PATH="/usr/bin:/bin")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -123,8 +132,8 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 def test_kernel_table_points_at_sources():
-    assert len(build.KERNELS) == 12
-    assert len({k.entry for k in build.KERNELS}) == 12
+    assert len(build.KERNELS) == 13
+    assert len({k.entry for k in build.KERNELS}) == 13
     for k in build.KERNELS:
         assert os.path.exists(os.path.join(REPO, k.source)), k.source
         path, line = k.replaces.split(":")
@@ -313,6 +322,130 @@ def test_attention_kernels_refuse_shapes_they_do_not_take(cuda):
     for side, hd in ((14, 96), (32, 80)):
         with pytest.raises(ValueError, match="not built"):
             wa.windowed_attend(*_win_inputs(cuda, 1, side, 2, hd), 2, side)
+
+
+# K1 in f32: f32 sums in another order and expf's two ulps, relative to
+# the output's scale
+F32_REL = 1e-5
+
+
+# (batch, heads, N, Dh): DINOv1 ViT-S/8 at AnyLoc's settings (224x298,
+# stride 4: N 4016), the shortest sequence DINO sends to K1, DINOv2-g's
+# length at head dim 80, one key past a 64-row tile, ragged row tiles
+F32_CASES = [(8, 6, 4016, 64), (1, 1, 1025, 64), (2, 1, 1531, 80),
+             (1, 2, 65, 64), (2, 3, 200, 80)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,n,dh", F32_CASES)
+def test_flash_kernel_f32_matches_plain(cuda, b, h, n, dh):
+    g = torch.Generator(device=cuda).manual_seed(n)
+    q, k, v = (torch.randn((b, h, n, dh), generator=g, device=cuda)
+               for _ in range(3))
+    before = (build.FLASH_ATTENTION_F32.launches,
+              build.FLASH_ATTENTION.launches)
+    got = att.attend(q, k, v)
+    want = att.attend_reference(q, k, v)
+    again = att.attend(q, k, v)
+    torch.cuda.synchronize()
+    assert (build.FLASH_ATTENTION_F32.launches,
+            build.FLASH_ATTENTION.launches) == (before[0] + 2, before[1])
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert _rel_err(got, want) < F32_REL
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_refuses_grad_mode_and_other_dtypes(cuda):
+    """K1 has no backward: under grad mode an input that requires grad
+    raises (bf16 and f32); under no_grad or inference_mode it launches.
+    f16 and an f32 bias are not built."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((1, 2, 1024, 64), generator=g, device=cuda)
+               for _ in range(3))
+    for dtype in (torch.float32, torch.bfloat16):
+        qg = q.clone().to(dtype).requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            att.attend(qg, k.to(dtype), v.to(dtype))
+    qg = q.clone().requires_grad_(True)
+    before = build.FLASH_ATTENTION_F32.launches
+    with torch.no_grad():
+        a = att.attend(qg, k, v)
+    with torch.inference_mode():
+        b = att.attend(qg, k, v)
+    torch.cuda.synchronize()
+    assert build.FLASH_ATTENTION_F32.launches == before + 2
+    assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        att.attend(q.half(), k.half(), v.half())
+    bh = torch.zeros((1, 2, 1024, 32), device=cuda)
+    with pytest.raises(ValueError, match="no bias"):
+        att.attend(q, k, v, bh, bh, side=32)
+
+
+@pytest.mark.gpu
+def test_dinov1_extraction_on_the_card_matches_the_cpu(cuda):
+    """A DINOv1 f32 extraction at 1,288 tokens (136x160 at stride 4, head
+    dim 64): K1 f32 in each block before the facet's, against the same
+    model on the CPU (plain attention), within 1e-4 of the scale."""
+    from revisit_anything_tpu_torch.models import dinov2 as dn
+    from revisit_anything_tpu_torch.pipeline.extract import (
+        dinov1_dense_features)
+    from revisit_anything_tpu_torch.weights import init_dino
+    cfg = dn.DinoV2Config(embed_dim=128, depth=3, num_heads=2, patch_size=8,
+                          layerscale=False, pretrain_grid=(4, 4))
+    cpu_model = init_dino(cfg, torch.Generator().manual_seed(0), "cpu",
+                          torch.float32)
+    gpu_model = init_dino(cfg, torch.Generator().manual_seed(0), "cpu",
+                          torch.float32).to(cuda)
+    imgs = np.random.default_rng(1).integers(0, 256, (2, 136, 160, 3),
+                                             dtype=np.uint8)
+    kw = dict(stride=4, layer=2, facet="key", load_size=136)
+    before = build.FLASH_ATTENTION_F32.launches
+    got = dinov1_dense_features(gpu_model, cfg, imgs, **kw)
+    torch.cuda.synchronize()
+    assert build.FLASH_ATTENTION_F32.launches == before + 2
+    want = dinov1_dense_features(cpu_model, cfg, imgs, **kw)
+    assert got.shape == want.shape == (2, 128, 136, 160)
+    assert _rel_err(got.cpu(), want) < 1e-4
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """Three VLAD-BuFF SGD steps of a small model on the card and on the
+    CPU from the same weights and batches (TF32 off): losses within 1e-4
+    relative and parameters within 1e-5 of each tensor's scale (the
+    card's backward sums in another order; SGD's update is linear in the
+    gradient, where AdamW's first steps move a parameter by ±lr whatever
+    the size of its gradient, so a near-zero gradient's sign would decide
+    it); the frozen blocks bit-identical on both."""
+    import copy
+
+    from revisit_anything_tpu_torch.models import dinov2 as dn
+    from revisit_anything_tpu_torch.training import train as tr
+    cfg = tr.VPRTrainConfig(backbone=dn.DinoV2Config(
+        embed_dim=64, depth=3, num_heads=2, pretrain_grid=(4, 4)),
+        num_trainable_blocks=2, clusters=8, optimizer="sgd", lr=0.05)
+    cpu = tr.create_train_state(cfg, seed=0, device="cpu")
+    start = copy.deepcopy(cpu.model)
+    card = tr.create_train_state(cfg, model=copy.deepcopy(cpu.model).to(cuda))
+    rng = np.random.default_rng(2)
+    labels = np.repeat(np.arange(4), 4).astype(np.int64)
+    for _ in range(3):
+        base = 0.3 * rng.standard_normal((4, 56, 56, 3))
+        imgs = (base[labels] + rng.standard_normal((16, 56, 56, 3))
+                ).astype(np.float32)
+        lc = tr.train_step(cpu, cfg, torch.from_numpy(imgs),
+                           torch.from_numpy(labels))
+        lg = tr.train_step(card, cfg, torch.from_numpy(imgs),
+                           torch.from_numpy(labels))
+        assert abs(lg.item() - lc.item()) <= 1e-4 * abs(lc.item())
+    for (name, a), (_, b), (_, s) in zip(card.model.named_parameters(),
+                                         cpu.model.named_parameters(),
+                                         start.named_parameters()):
+        assert _rel_err(a.detach().cpu(), b.detach()) < 1e-5, name
+        if name.startswith("backbone.blocks.0."):
+            assert torch.equal(a.cpu(), s) and torch.equal(b, s), name
 
 
 def _win_inputs(cuda, b, side, heads, hd, seed=9):
