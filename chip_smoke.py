@@ -16,12 +16,13 @@ Phases (any failure exits non-zero):
   3. print the registers, shared memory and spill bytes of the redesigned
      entry points' kernels (K1, K2, B10, B11, K3, B6, K5, K4, B3 in its
      three modes, B7 in its two layers and B8 at its two depths, K1 f32
-     at head dims 64 and 80) from ptxas.log, and the HMMA instructions in the SASS of B3's three
-     instantiations, B7's layer 2 and B8's two depths (cuobjdump);
-     then
+     and its K/V split at head dims 64 and 80) from ptxas.log, and the
+     tensor-core instructions in the SASS of B3's three instantiations,
+     B7's layer 2 and B8's two depths (HMMA) and of K1 f32 at head dims
+     64 and 80 (TF32 HGMMA) (cuobjdump); then
      compare every kernel with its plain version in bf16 at the main
      path's shapes (K1 also at the offline extraction's batches, and in
-     f32 at DINOv1's shape and two more within 1e-5; K4, K3,
+     f32, split TF32, at DINOv1's shape and two more within 1e-5; K4, K3,
      K2 and K5 also at multi-crop AMG's crop shapes: 256 prompts, gh
      52), timing both with CUDA events (median of 7 after
      warm-up, each call queued behind a device sleep so that its host
@@ -252,10 +253,14 @@ PTXAS_KERNELS = (
      "rat_flash_attention", "rat_flash_attention_smem", (80,)),
     ("flash_attention_kernelILi64ELi0E", "K1 Dh 64, no bias",
      "rat_flash_attention", "rat_flash_attention_smem", (64,)),
-    ("flash_attention_f32_kernelILi64E", "K1 f32 Dh 64",
-     "rat_flash_attention_f32", "rat_flash_attention_f32_smem", (64,)),
-    ("flash_attention_f32_kernelILi80E", "K1 f32 Dh 80",
-     "rat_flash_attention_f32", "rat_flash_attention_f32_smem", (80,)),
+    ("flash_attention_tf32x3_kernelILi64E", "K1 f32 Dh 64 (split TF32)",
+     "rat_flash_attention_f32", "rat_flash_attention_f32_smem", (64, 0)),
+    ("flash_attention_tf32x3_kernelILi80E", "K1 f32 Dh 80 (split TF32)",
+     "rat_flash_attention_f32", "rat_flash_attention_f32_smem", (80, 0)),
+    ("split_kv_kernelILi64E", "K1 f32 Dh 64 K/V split",
+     "rat_flash_attention_f32", "rat_flash_attention_f32_smem", (64, 1)),
+    ("split_kv_kernelILi80E", "K1 f32 Dh 80 K/V split",
+     "rat_flash_attention_f32", "rat_flash_attention_f32_smem", (80, 1)),
     ("win_attention_kernelILi80ELi2E", "B11 hd 80, sides 8-15 (at 14)",
      "rat_win_attention", "rat_win_attention_smem", (14, 80)),
     ("win_attention_kernelILi64ELi2E", "B11 hd 64, sides 8-15 (at 14)",
@@ -286,15 +291,20 @@ PTXAS_KERNELS = (
      "rat_t2i_probs_smem", (2,)),
 )
 
-# The kernels whose products run by mma.sync: B3's instantiations, by
-# their emission (keys, probability, logits mode), B7's layer 2 and B8's
-# two depths
-MMA_SASS = (("decode_tail_kernelILi0E", "B3 keys mode"),
-            ("decode_tail_kernelILi1E", "B3 probability mode"),
-            ("decode_tail_kernelILi2E", "B3 logits mode"),
-            ("i2t_probs_l2_kernel", "B7 layer 2"),
-            ("t2i_probs_kernelILi1E", "B8 depth 1"),
-            ("t2i_probs_kernelILi2E", "B8 depth 2"))
+# The kernels whose products run by mma.sync (HMMA): B3's instantiations,
+# by their emission (keys, probability, logits mode), B7's layer 2 and
+# B8's two depths; and K1 f32's, by TF32 wgmma (HGMMA ... TF32): (piece
+# of the mangled name, label, the instruction that must be there)
+MMA_SASS = (("decode_tail_kernelILi0E", "B3 keys mode", "HMMA"),
+            ("decode_tail_kernelILi1E", "B3 probability mode", "HMMA"),
+            ("decode_tail_kernelILi2E", "B3 logits mode", "HMMA"),
+            ("i2t_probs_l2_kernel", "B7 layer 2", "HMMA"),
+            ("t2i_probs_kernelILi1E", "B8 depth 1", "HMMA"),
+            ("t2i_probs_kernelILi2E", "B8 depth 2", "HMMA"),
+            ("flash_attention_tf32x3_kernelILi64E", "K1 f32 Dh 64",
+             "HGMMA.*TF32"),
+            ("flash_attention_tf32x3_kernelILi80E", "K1 f32 Dh 80",
+             "HGMMA.*TF32"))
 
 
 def ptxas_report() -> None:
@@ -330,9 +340,10 @@ def ptxas_report() -> None:
 
 
 def sass_report(kernels) -> None:
-    """Count the tensor-core instructions (HMMA, by shape and type) in the
-    SASS of each of ``kernels`` ((piece of the mangled name, label)), from
-    one cuobjdump of the built library; fail where there are none."""
+    """Count the tensor-core instructions (HMMA and HGMMA, by shape and
+    type) in the SASS of each of ``kernels`` ((piece of the mangled name,
+    label, a pattern one of them must match)), from one cuobjdump of the
+    built library; fail where none matches."""
     import collections
     import re
     import shutil
@@ -341,16 +352,17 @@ def sass_report(kernels) -> None:
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     res = subprocess.run([tool, "-sass", str(build.library_path())],
                          capture_output=True, text=True, check=True)
-    for key, label in kernels:
+    for key, label, need in kernels:
         funcs = [f for f in res.stdout.split("Function : ")[1:]
                  if key in f.split("\n", 1)[0]]
         if not funcs:
             _fail(f"cuobjdump: no kernel {key}")
-        kinds = collections.Counter(re.findall(r"HMMA\.[0-9A-Z.]+",
+        kinds = collections.Counter(re.findall(r"\bHG?MMA\.[0-9A-Za-z.]+",
                                                funcs[0]))
-        if not kinds:
-            _fail(f"{label}: no HMMA in its SASS")
-        print(f"[sass] {label} ({key}): {sum(kinds.values())} HMMA ("
+        if not any(re.match(need, k) for k in kinds):
+            _fail(f"{label}: no {need} in its SASS")
+        print(f"[sass] {label} ({key}): {sum(kinds.values())} tensor-core "
+              "instructions ("
               + ", ".join(f"{n} {k}" for k, n in sorted(kinds.items()))
               + ")", flush=True)
 
@@ -478,21 +490,28 @@ def compare_kernels(dev) -> dict:
           library=lambda: F.scaled_dot_product_attention(q, k, v))
     del q, k, v
 
-    # K1 in f32 (DINOv1's f32 extraction, an f32 DINOv2 at N >= 1024): f32
-    # sums in another order and expf's two ulps, relative 1e-5; products
-    # on the FMA units (library: scaled_dot_product_attention in f32 with
-    # TF32 off)
-    for b, h, n, dh, what in ((8, 6, 4016, 64, "DINOv1 ViT-S/8 224x298 s4"),
-                              (1, 1, 1025, 64, "shortest K1 length"),
-                              (2, 1, 1531, 80, "head dim 80")):
+    # K1 in f32 (DINOv1's f32 extraction, an f32 DINOv2 at N >= 1024):
+    # products as three TF32 passes of split operands (~2^-21 each) and
+    # ex2.approx, relative 1e-5 (library: scaled_dot_product_attention in
+    # f32 with TF32 off). Bound: the three passes' 3·4·N²·Dh FLOP a head
+    # at the TF32 rate, beside the softmax's f32 operations on the FMA
+    # units, 5 a score (the max, the exponent's multiply-add as 2, the row
+    # sum's add and the split's subtraction; ex2 runs on the SFU and the
+    # TF32 roundings are integer operations). Bytes: q, k, v and out once
+    # (the K/V split's scratch is the kernel's own traffic).
+    for b, h, n, dh, what, was in (
+            (8, 6, 4016, 64, "DINOv1 ViT-S/8 224x298 s4", 6.350),
+            (1, 1, 1025, 64, "shortest K1 length", 0.092),
+            (2, 1, 1531, 80, "head dim 80", 0.162)):
         q, k, v = (torch.randn((b, h, n, dh), generator=g, device=dev)
                    for _ in range(3))
         check(build.FLASH_ATTENTION_F32,
               f"{what} q/k/v [{b},{h},{n},{dh}] f32",
               lambda: att.attend(q, k, v),
               lambda: att.attend_reference(q, k, v), _rel, 1e-5, (q, k, v),
-              (0, 4 * b * h * n * n * dh),
-              library=lambda: F.scaled_dot_product_attention(q, k, v))
+              (0, 5 * b * h * n * n, 3 * 4 * b * h * n * n * dh),
+              library=lambda: F.scaled_dot_product_attention(q, k, v),
+              was=was)
         del q, k, v
 
     # B11: one SAM ViT-H windowed layer, 25 windows of 14x14, 16 heads of

@@ -45,8 +45,8 @@ SIGNATURES: Dict[str, Sequence] = {
     # q, k, v, bias_h, bias_w, out, bh, n, side, has_bias, scale, hd, stream
     "rat_flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                             _P),
-    # q, k, v, out, bh, n, scale, hd, stream (f32, no bias)
-    "rat_flash_attention_f32": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
+    # q, k, v, out, scratch, bh, n, scale, hd, stream (f32, no bias)
+    "rat_flash_attention_f32": (_P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
     # q, kvt, pe_kt, v_bias, out, b, n, d, m, heads, kv_shared, stream
     "rat_token_cross_kv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # q, kt, vt, out, b, n, d, m, heads, kv_shared, stream
@@ -82,7 +82,7 @@ SIGNATURES: Dict[str, Sequence] = {
     # reports, no launch: dynamic shared memory of a CTA in bytes
     "rat_token_cross_smem": (_I, _I),           # pe, shared
     "rat_flash_attention_smem": (_I,),          # hd
-    "rat_flash_attention_f32_smem": (_I,),      # hd
+    "rat_flash_attention_f32_smem": (_I, _I),   # hd, split
     "rat_win_attention_smem": (_I, _I),         # side, hd
     "rat_mask_head_smem": (),
     "rat_i2t_update_smem": (),

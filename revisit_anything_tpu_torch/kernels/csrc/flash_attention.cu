@@ -474,194 +474,393 @@ int dispatch(const void* q, const void* k, const void* v, const void* bias_h,
 // N >= 1024). The TPU kernel computes in its inputs' dtype (scores f32, p
 // rounded to v's dtype), so f32 inputs give f32 attention.
 //
-// True f32 throughout: scores, the online softmax and the value product on
-// the FMA units, with f32 sums (wgmma has no f32 form, and TF32 would lose
-// the parity the f32 path exists for). What bounds it: the FMA units,
-// 4·N²·Dh FLOP a head at 67 TFLOP/s (DINOv1 ViT-S/8, batch 8: 198 GFLOP,
-// 2.96 ms) against 16·N·Dh bytes a head (12 MB, 4 us).
+// Precision: both products run on the tensor cores in split TF32. An f32
+// operand x is cut into hi = tf32_rna(x) and lo = tf32_rna(x - hi) (11 and
+// 11 more significant bits: x = hi + lo + a rest below 2^-22 |x|), and a
+// product A·B is taken as lo·hi + hi·lo + hi·hi, the small passes first so
+// that the accumulator is still small while they are added. The dropped
+// lo·lo term and the rests are ~2^-21 of each product, against one TF32
+// pass's 2^-11: on random inputs (a CPU emulation, tests/
+// test_torch_attention.py) the output is as close to f64 as true f32 is.
+// Each tile's P·V starts from zero and joins the running O by an FMA
+// (wgmma accumulates without rounding to nearest, so a sum carried over
+// ~60 tiles would drift); exponentials by ex2.approx, log2 e folded into
+// the scale.
 //
-// Design (a first, simple pass): one CTA of 256 threads takes 64 query rows
-// of one (batch, head). Q is copied into shared memory once; then for each
-// 64-key tile, K and V are copied in by coalesced float4 loads (keys past N
-// as zeros, masked to -inf), and the 16x16 threads compute S = Q·Kᵀ with
-// 4 rows x 4 keys a thread (rows ty + 16i, keys tx + 16j), reading float4s
-// along Dh (Q and K rows padded by 4 floats, so the 8 threads of a
-// quarter-warp read 8 distinct bank groups; a row of Q is one broadcast).
-// The online softmax runs in registers: each row's max and sum are
-// reduced over its 16 threads by shuffles, exp by expf. P goes to shared
-// memory over K's tile, and O += P·V accumulates in registers (4 rows x
-// Dh/16 columns a thread, columns tx·Dh/16 + c). Rows past N are not
-// stored.
-constexpr int F32_BQ = 64;
-constexpr int F32_BK = 64;
-constexpr int F32_THREADS = 256;
+// What bounds it: the tensor cores, three TF32 passes of 4·N²·Dh FLOP a
+// head at 495 TFLOP/s (DINOv1 ViT-S/8, batch 8: 3 x 198 GFLOP, 1.20 ms),
+// against 16·N·Dh bytes a head of q, k, v and out (197 MB, 0.06 ms) and
+// N² exponentials a head on the SFU (774 M, ~0.2 ms), which run beside them.
+//
+// Design (Hopper, sm_90a), two kernels on the caller's stream:
+//  - split_kv_kernel (the pre-pass) writes K's hi and lo planes as
+//    [2, B·H, N, Dh] and V's transposed, Vᵀ [2, B·H, Dh, n_pad] (TF32 wgmma
+//    takes B only K-major, and the K dimension of P·V is the keys), into
+//    scratch the wrapper allocates; n_pad = N rounded up to 64 (16-byte TMA
+//    strides), keys past N written as zeros (a NaN of unwritten scratch
+//    times p = 0 would still be NaN). Within each group of 8 keys, Vᵀ holds
+//    them in the order 0,2,4,6,1,3,5,7: S's accumulator gives a thread keys
+//    2t and 2t+1 of each 8, the register A operand wants keys t and t+4, so
+//    with the keys permuted S's registers serve as P's fragments as they
+//    are (no shuffles).
+//  - flash_attention_tf32x3_kernel: one CTA of three warpgroups takes 128
+//    query rows of one (batch, head), as bf16 K1 does. WG2 is the producer
+//    (setmaxnreg down to 24): one thread loads Q once and streams the K and
+//    Vᵀ planes of each key tile by TMA through a 2-stage ring (full and
+//    empty mbarriers). WG0 and WG1 (setmaxnreg up to 240) take 64 rows each.
+//    Q's split is made in shared memory by the consumers: each splits its
+//    own rows in place into the hi plane and beside it the lo plane (no
+//    scratch, no second pass over Q). S = Q·Kᵀ is three passes of
+//    wgmma m64n{BK}k8 from shared memory; the online softmax runs in
+//    registers (row max and sum by quad shuffles, one rescale of O a tile);
+//    P is split in registers, hi in S's own registers, and fed as the
+//    register A operand of three passes of m64n{Dh}k8 against the Vᵀ
+//    planes. The two consumer warpgroups take turns to issue (named
+//    barriers 1 and 2: S(t) of WG0, S(t) of WG1, P·V(t) of WG0, P·V(t) of
+//    WG1, ...), so one's softmax runs under the other's products.
+//  - Tiles (128B-swizzled boxes of 32 floats): Dh 64 takes 64-key tiles,
+//    Q hi + lo 64 KB and 2 stages of K hi + lo (32 KB) and Vᵀ hi + lo
+//    (32 KB): 192 KB. Dh 80 pads Q's and K's rows to 96 columns (three
+//    boxes, the last zero-filled past column 80 by the TMA), which at
+//    64-key tiles would take 272 KB; it takes 32-key tiles (96 + 2 x 44 =
+//    184 KB). Keys past N arrive as zeros (K) or are zeros (Vᵀ) and score
+//    -inf in the last tile; query rows past N are not stored.
+constexpr int F32_BQ = 128;             // query rows a CTA (2 warpgroups x 64)
+constexpr int F32_BOX = 32;             // floats a TMA box row: 128 bytes
+constexpr int F32_KEY_PAD = 64;         // Vᵀ rows rounded up to this many keys
+constexpr int SPLIT_THREADS = 256;
 
 template <int HD>
 struct F32Cfg {
-  static constexpr int LD = HD + 4;                     // Q and K/P row stride
-  static constexpr int CPT = HD / 16;                   // O columns a thread
-  static constexpr int SMEM = (2 * F32_BQ * LD + F32_BK * HD) * 4;
+  static constexpr int BK = HD == 64 ? 64 : 32;           // keys a tile
+  static constexpr int QB = (HD + F32_BOX - 1) / F32_BOX; // boxes a Q or K row
+  static constexpr int VB = BK / F32_BOX;                 // boxes a Vᵀ row
+  static constexpr int KSTEPS = HD / 8;                   // of Q·Kᵀ
+  static constexpr int Q_BOX = F32_BQ * 128;              // bytes
+  static constexpr int K_BOX = BK * 128;
+  static constexpr int V_BOX = HD * 128;
+  static constexpr int Q_PLANE = QB * Q_BOX;              // hi; lo right after
+  static constexpr int K_PLANE = QB * K_BOX;
+  static constexpr int V_PLANE = VB * V_BOX;
+  static constexpr int STAGE = 2 * (K_PLANE + V_PLANE);   // K hi, K lo, Vᵀ hi, Vᵀ lo
+  static constexpr int BARS = 64;
+  static constexpr int SMEM = 1024 + 2 * Q_PLANE + STAGES * STAGE + BARS;
+  static constexpr int SPLIT_SMEM = F32_KEY_PAD * (HD + 1) * 4;
 };
 
+// x = hi + lo + a rest below 2^-22 |x|, hi and lo TF32.
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - hi);
+}
+
+__device__ __forceinline__ void split_tf32(float4 x, float4& hi, float4& lo) {
+  split_tf32(x.x, hi.x, lo.x);
+  split_tf32(x.y, hi.y, lo.y);
+  split_tf32(x.z, hi.z, lo.z);
+  split_tf32(x.w, hi.w, lo.w);
+}
+
+// The pre-pass: one CTA a (64-key tile, batch·head). kp [2][bh][n][HD],
+// vt [2][bh][HD][n_pad] (hi planes first).
 template <int HD>
-__device__ __forceinline__ void load_rows_f32(float* dst, int ld, const float* src,
-                                              int row0, int n, int tid) {
-  constexpr int V4 = HD / 4;                            // float4s a row
-  for (int idx = tid; idx < 64 * V4; idx += F32_THREADS) {
-    const int r = idx / V4, c4 = idx % V4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n)
-      val = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * HD + 4 * c4);
-    *reinterpret_cast<float4*>(dst + r * ld + 4 * c4) = val;
+__global__ void __launch_bounds__(SPLIT_THREADS)
+split_kv_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                float* __restrict__ kp, float* __restrict__ vt, int bh_total, int n,
+                int n_pad) {
+  extern __shared__ float vs[];                           // [64][HD + 1]
+  constexpr int V4 = HD / 4;
+  const int bh = blockIdx.y, k0 = blockIdx.x * F32_KEY_PAD;
+  const size_t kplane = (size_t)bh_total * n * HD;
+  const size_t vplane = (size_t)bh_total * HD * n_pad;
+  for (int i = threadIdx.x; i < F32_KEY_PAD * V4; i += SPLIT_THREADS) {
+    const int r = i / V4, c = 4 * (i % V4), key = k0 + r;
+    float4 vx = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (key < n) {
+      const size_t at = ((size_t)bh * n + key) * HD + c;
+      vx = *reinterpret_cast<const float4*>(v + at);
+      float4 h, l;
+      split_tf32(*reinterpret_cast<const float4*>(k + at), h, l);
+      *reinterpret_cast<float4*>(kp + at) = h;
+      *reinterpret_cast<float4*>(kp + kplane + at) = l;
+    }
+    float* row = vs + r * (HD + 1) + c;
+    row[0] = vx.x; row[1] = vx.y; row[2] = vx.z; row[3] = vx.w;
+  }
+  __syncthreads();
+  // Vᵀ position p of a group of 8 holds key 2p (p < 4) or 2p - 7 (p >= 4).
+  for (int i = threadIdx.x; i < HD * F32_KEY_PAD; i += SPLIT_THREADS) {
+    const int d = i / F32_KEY_PAD, pos = i % F32_KEY_PAD, j = pos & 7;
+    const int r = (pos & ~7) + (j < 4 ? 2 * j : 2 * j - 7);
+    const size_t at = ((size_t)bh * HD + d) * n_pad + k0 + pos;
+    split_tf32(vs[r * (HD + 1) + d], vt[at], vt[vplane + at]);
   }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(F32_THREADS, 2)
-flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ out,
-                           int n, float scale) {
+__device__ __forceinline__ void wgmma_s_tf32(float (&d)[F32Cfg<HD>::BK / 2], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  if constexpr (F32Cfg<HD>::BK == 64) wgmma_ss_tf32_n64(d, da, db, accumulate);
+  else wgmma_ss_tf32_n32(d, da, db, accumulate);
+}
+
+template <int HD>
+__device__ __forceinline__ void wgmma_pv_tf32(float (&d)[HD / 2], const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  if constexpr (HD == 80) wgmma_rs_tf32_n80(d, a, db, accumulate);
+  else wgmma_rs_tf32_n64(d, a, db, accumulate);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              float* __restrict__ out,          // [B·H, N, Dh]
+                              int n, int bh_total, float scale_log2) {
   using C = F32Cfg<HD>;
-  extern __shared__ __align__(16) float smem_f[];
-  float* qs = smem_f;                                   // [64][LD]
-  float* ks = qs + F32_BQ * C::LD;                      // [64][LD], then P
-  float* vs = ks + F32_BK * C::LD;                      // [64][HD]
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int bh = blockIdx.y, q0 = blockIdx.x * F32_BQ;
-  const size_t base = (size_t)bh * n * HD;
+  constexpr int BK = C::BK;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t sQ = base;                               // hi plane, then lo
+  const uint32_t sS = sQ + 2 * C::Q_PLANE;                // stage s at + s·STAGE
+  const uint32_t bars = sS + STAGES * C::STAGE;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+  const uint32_t qfull = bars + 8 * (2 * STAGES);
 
-  load_rows_f32<HD>(qs, C::LD, q + base, q0, n, tid);
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * F32_BQ;
+  const int ntiles = (n + BK - 1) / BK;
 
-  float o[4][C::CPT];
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < C::CPT; ++c) o[i][c] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 256);
+    }
+    mbar_init(qfull, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  for (int k0 = 0; k0 < n; k0 += F32_BK) {
-    __syncthreads();                                    // last tile's P, V read
-    load_rows_f32<HD>(ks, C::LD, k + base, k0, n, tid);
-    load_rows_f32<HD>(vs, HD, v + base, k0, n, tid);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * C::LD + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * C::LD + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
-        }
-    }
-
-    // Online softmax of each row over its 16 threads.
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = (k0 + tx + 16 * j < n) ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);              // finite: k0 < n
-      const float alpha = expf(m[i] - m_new);
-      m[i] = m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        sum += s[i][j];
-      }
-      l[i] = l[i] * alpha + sum;                        // this thread's part
-#pragma unroll
-      for (int c = 0; c < C::CPT; ++c) o[i][c] *= alpha;
-    }
-
-    __syncthreads();                                    // S read K's tile
-    float* ps = ks;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ps[(ty + 16 * i) * C::LD + tx + 16 * j] = s[i][j];
-    __syncthreads();
-
-#pragma unroll 2
-    for (int kk = 0; kk < F32_BK; kk += 4) {
-      float4 pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * C::LD + kk);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float vv[C::CPT];
-        const float* vrow = vs + (kk + u) * HD + tx * C::CPT;
-        if constexpr (C::CPT == 4) {
-          const float4 t = *reinterpret_cast<const float4*>(vrow);
-          vv[0] = t.x; vv[1] = t.y; vv[2] = t.z; vv[3] = t.w;
-        } else {
-#pragma unroll
-          for (int c = 0; c < C::CPT; ++c) vv[c] = vrow[c];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = u == 0 ? pv[i].x : u == 1 ? pv[i].y : u == 2 ? pv[i].z : pv[i].w;
-#pragma unroll
-          for (int c = 0; c < C::CPT; ++c) o[i][c] = fmaf(p, vv[c], o[i][c]);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: Q, then each tile's K hi, K lo, Vᵀ hi, Vᵀ lo ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(qfull, C::Q_PLANE);
+      for (int b = 0; b < C::QB; ++b)
+        tma_load_3d(sQ + b * C::Q_BOX, &tq, b * F32_BOX, q0, bh, qfull);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % STAGES;
+        const uint32_t st = sS + s * C::STAGE;
+        mbar_wait(empty(s), ((t / STAGES) + 1) & 1);      // passes at once for t < STAGES
+        mbar_expect_tx(full(s), C::STAGE);
+        for (int pl = 0; pl < 2; ++pl) {
+          for (int b = 0; b < C::QB; ++b)
+            tma_load_3d(st + pl * C::K_PLANE + b * C::K_BOX, &tk, b * F32_BOX, t * BK,
+                        bh + pl * bh_total, full(s));
+          for (int b = 0; b < C::VB; ++b)
+            tma_load_3d(st + 2 * C::K_PLANE + pl * C::V_PLANE + b * C::V_BOX, &tv,
+                        t * BK + b * F32_BOX, 0, bh + pl * bh_total, full(s));
         }
       }
     }
-  }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int ctid = threadIdx.x % 128;
+    const int warp = ctid / 32, lane = ctid % 32, g = lane / 4, c = lane % 4;
+    const int rl[2] = {wg * 64 + warp * 16 + g, wg * 64 + warp * 16 + g + 8};
 
-  // The row sums over the 16 threads, then normalize and store.
+    // Split this warpgroup's 64 rows of Q in place: hi over the raw
+    // values, lo at the same offset in the lo plane (the swizzle is the
+    // same in both). Then make the writes visible to wgmma.
+    mbar_wait(qfull, 0);
+    for (int b = 0; b < C::QB; ++b) {
+      float4* hi = reinterpret_cast<float4*>(smem_raw + (base - raw) + b * C::Q_BOX +
+                                             wg * 64 * 128);
+      float4* lo = hi + C::Q_PLANE / 16;
+      for (int i = ctid; i < 64 * 128 / 16; i += 128) {
+        float4 h, l;
+        split_tf32(hi[i], h, l);
+        hi[i] = h;
+        lo[i] = l;
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_sync(3 + wg, 128);
+
+    float o[HD / 2], acc[HD / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float li = l[i];
+    for (int j = 0; j < HD / 2; ++j) o[j] = acc[j] = 0.f;
+    float sc[BK / 2];                                       // S, then P's hi
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) li += __shfl_xor_sync(0xffffffffu, li, off);
-    const int row = q0 + ty + 16 * i;
-    if (row < n) {
-      const float inv = 1.f / li;
-      float* dst = out + base + (size_t)row * HD + tx * C::CPT;
+    for (int j = 0; j < BK / 2; ++j) sc[j] = 0.f;
+    uint32_t plo[BK / 8][4];                                // P's lo, as A fragments
+    float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
+
+    const int my_bar = 1 + wg, other_bar = 2 - wg;
+    if (wg == 1) named_arrive(1, 256);                      // WG0 issues first
+
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % STAGES;
+      const int k0 = t * BK;
+      const uint32_t st = sS + s * C::STAGE;
+      mbar_wait(full(s), (t / STAGES) & 1);
+
+      // S = Q·Kᵀ: lo·hi, hi·lo, then hi·hi (K-major A and B; a K-step of 8
+      // floats advances 32 bytes in the swizzled row).
+      named_sync(my_bar, 256);
+      fence_regs(sc);
+      wgmma_fence();
 #pragma unroll
-      for (int c = 0; c < C::CPT; ++c) dst[c] = o[i][c] * inv;
+      for (int pass = 0; pass < 3; ++pass) {
+        const uint32_t qp = sQ + (pass == 0 ? C::Q_PLANE : 0);
+        const uint32_t kp = st + (pass == 1 ? C::K_PLANE : 0);
+#pragma unroll
+        for (int k = 0; k < C::KSTEPS; ++k) {
+          const uint32_t qa = qp + (k / 4) * C::Q_BOX + wg * 64 * 128 + (k % 4) * 32;
+          const uint32_t kb = kp + (k / 4) * C::K_BOX + (k % 4) * 32;
+          wgmma_s_tf32<HD>(sc, gmma_desc(qa, 16, 1024), gmma_desc(kb, 16, 1024),
+                           pass > 0 || k > 0);
+        }
+      }
+      wgmma_commit();
+      named_arrive(other_bar, 256);
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // sc[4i + 2r + e]: row rl[r], key k0 + 8i + 2c + e. Keys past N
+      // (last tile only) score -inf.
+      if (k0 + BK > n) {
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (k0 + 8 * i + 2 * c + e >= n) {
+              sc[4 * i + e] = -INFINITY;
+              sc[4 * i + 2 + e] = -INFINITY;
+            }
+      }
+
+      // Online softmax in base 2, then P's split: hi into sc, lo into plo
+      // in the A fragment's order (a0 = row g key 2c, a1 = row g + 8 key
+      // 2c, a2 = row g key 2c + 1, a3 = row g + 8 key 2c + 1).
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i)
+          mx = fmaxf(mx, fmaxf(sc[4 * i + 2 * r], sc[4 * i + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(mrow[r], mx * scale_log2);
+        alpha[r] = ex2(mrow[r] - m_new);                    // 0 on the first tile
+        mrow[r] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = ex2(fmaf(sc[4 * i + 2 * r + e], scale_log2, -m_new));
+            sum += p;
+            float lo;
+            split_tf32(p, sc[4 * i + 2 * r + e], lo);
+            plo[i][r + 2 * e] = __float_as_uint(lo);
+          }
+        lrow[r] = lrow[r] * alpha[r] + sum;
+      }
+
+      // This tile's P·V into a fresh accumulator: lo·hi, hi·lo, hi·hi
+      // (Vᵀ K-major; a K-step of 8 keys advances 32 bytes).
+      named_sync(my_bar, 256);
+      fence_regs(acc);
+      fence_regs(plo);
+      wgmma_fence();
+#pragma unroll
+      for (int pass = 0; pass < 3; ++pass) {
+        const uint32_t vp = st + 2 * C::K_PLANE + (pass == 1 ? C::V_PLANE : 0);
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i) {
+          const uint32_t phi[4] = {__float_as_uint(sc[4 * i]), __float_as_uint(sc[4 * i + 2]),
+                                   __float_as_uint(sc[4 * i + 1]),
+                                   __float_as_uint(sc[4 * i + 3])};
+          const uint64_t vb = gmma_desc(vp + (i / 4) * C::V_BOX + (i % 4) * 32, 16, 1024);
+          if (pass == 0) wgmma_pv_tf32<HD>(acc, plo[i], vb, i > 0);
+          else wgmma_pv_tf32<HD>(acc, phi, vb, 1);
+        }
+      }
+      wgmma_commit();
+      if (!(wg == 1 && t == ntiles - 1)) named_arrive(other_bar, 256);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(sc);
+      fence_regs(plo);
+      mbar_arrive(empty(s));
+
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            o[4 * j + 2 * r + e] = fmaf(o[4 * j + 2 * r + e], alpha[r], acc[4 * j + 2 * r + e]);
+    }
+
+    // Normalize and store the rows below N.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = lrow[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int qi = q0 + rl[r];
+      if (qi < n) {
+        const float inv = 1.f / l;
+        float* dst = out + ((size_t)bh * n + qi) * HD + 2 * c;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j)
+          *reinterpret_cast<float2*>(dst + 8 * j) =
+              make_float2(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      }
     }
   }
 }
 
+// Scratch of the f32 kernel: K's planes [2, bh, n, hd], then Vᵀ's [2, bh,
+// hd, n_pad], n_pad = n rounded up to F32_KEY_PAD (the wrapper allocates
+// 2·bh·hd·(n + n_pad) floats).
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int bh, int n,
-               float scale, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out, void* scratch, int bh,
+               int n, float scale, cudaStream_t stream) {
   using C = F32Cfg<HD>;
-  auto kernel = flash_attention_f32_kernel<HD>;
+  const int n_pad = (n + F32_KEY_PAD - 1) / F32_KEY_PAD * F32_KEY_PAD;
+  float* kp = static_cast<float*>(scratch);
+  float* vt = kp + (size_t)2 * bh * n * HD;
+  auto kernel = flash_attention_tf32x3_kernel<HD>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n + F32_BQ - 1) / F32_BQ, bh);
-  kernel<<<grid, F32_THREADS, C::SMEM, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), n, scale);
+  CUtensorMap tq, tk, tv;
+  const cuuint64_t qdims[3] = {(cuuint64_t)HD, (cuuint64_t)n, (cuuint64_t)bh};
+  const cuuint64_t kdims[3] = {(cuuint64_t)HD, (cuuint64_t)n, (cuuint64_t)2 * bh};
+  const cuuint64_t qstrides[2] = {(cuuint64_t)HD * 4, (cuuint64_t)n * HD * 4};
+  const cuuint32_t qbox[3] = {F32_BOX, F32_BQ, 1}, kbox[3] = {F32_BOX, C::BK, 1};
+  const cuuint64_t vdims[3] = {(cuuint64_t)n_pad, (cuuint64_t)HD, (cuuint64_t)2 * bh};
+  const cuuint64_t vstrides[2] = {(cuuint64_t)n_pad * 4, (cuuint64_t)HD * n_pad * 4};
+  const cuuint32_t vbox[3] = {F32_BOX, HD, 1};
+  if (!tensor_map_f32(&tq, q, 3, qdims, qstrides, qbox) ||
+      !tensor_map_f32(&tk, kp, 3, kdims, qstrides, kbox) ||
+      !tensor_map_f32(&tv, vt, 3, vdims, vstrides, vbox))
+    return (int)cudaErrorInvalidValue;
+  split_kv_kernel<HD><<<dim3(n_pad / F32_KEY_PAD, bh), SPLIT_THREADS, C::SPLIT_SMEM, stream>>>(
+      static_cast<const float*>(k), static_cast<const float*>(v), kp, vt, bh, n, n_pad);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((n + F32_BQ - 1) / F32_BQ, bh), THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, static_cast<float*>(out), n, bh, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -689,23 +888,28 @@ extern "C" int rat_flash_attention_smem(int hd) {
   return hd == 64 ? Cfg<64>::SMEM : hd == 80 ? Cfg<80>::SMEM : 0;
 }
 
-// K1 in f32, no bias: q, k, v, out [bh, n, hd] f32, hd 64 or 80.
+// K1 in f32, no bias: q, k, v, out [bh, n, hd] f32, hd 64 or 80; scratch
+// 2·bh·hd·(n + n_pad) floats, n_pad = n rounded up to 64. Two launches on
+// the stream: the K/V split, then the attention.
 extern "C" int rat_flash_attention_f32(const void* q, const void* k, const void* v,
-                                       void* out, int bh, int n, float scale, int hd,
-                                       void* stream) {
+                                       void* out, void* scratch, int bh, int n, float scale,
+                                       int hd, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bh <= 0 || n <= 0 || bh > 65535) return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 64:
-      return launch_f32<64>(q, k, v, out, bh, n, scale, s);
+      return launch_f32<64>(q, k, v, out, scratch, bh, n, scale, s);
     case 80:
-      return launch_f32<80>(q, k, v, out, bh, n, scale, s);
+      return launch_f32<80>(q, k, v, out, scratch, bh, n, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// Dynamic shared memory a CTA of the f32 kernel takes at head dim hd.
-extern "C" int rat_flash_attention_f32_smem(int hd) {
-  return hd == 64 ? F32Cfg<64>::SMEM : hd == 80 ? F32Cfg<80>::SMEM : 0;
+// Dynamic shared memory a CTA of the f32 attention (split = 0) or of its
+// K/V split (split = 1) takes at head dim hd.
+extern "C" int rat_flash_attention_f32_smem(int hd, int split) {
+  if (hd == 64) return split ? F32Cfg<64>::SPLIT_SMEM : F32Cfg<64>::SMEM;
+  if (hd == 80) return split ? F32Cfg<80>::SPLIT_SMEM : F32Cfg<80>::SMEM;
+  return 0;
 }

@@ -49,7 +49,8 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (bias[q, k] = bias_h[q, k // side] + bias_w[q, k % side], N = side²).
 
     CUDA: kernel K1, in bf16 (Dh 64 or 80, side <= 64) or in f32 (Dh 64
-    or 80, no bias); other dtypes raise. K1 has no backward (the TPU
+    or 80, no bias; products in split TF32 on the tensor cores, as
+    accurate as f32); other dtypes raise. K1 has no backward (the TPU
     kernel has none either): a call under grad mode with an input that
     requires grad raises, so a gradient is never cut off silently. CPU:
     :func:`attend_reference`."""
@@ -72,8 +73,14 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         qf, kf, vf = (operand(name, t, torch.float32, shape)
                       for name, t in (("q", q), ("k", k), ("v", v)))
         out = torch.empty_like(qf)
+        # the kernel's K/V split: K's TF32 hi and lo planes, then Vᵀ's
+        # over n rounded up to 64 keys
+        n_pad = -(-n // 64) * 64
+        scratch = torch.empty(2 * b * h * dh * (n + n_pad),
+                              dtype=torch.float32, device=q.device)
         FLASH_ATTENTION_F32.launch(qf.data_ptr(), kf.data_ptr(),
-                                   vf.data_ptr(), out.data_ptr(), b * h, n,
+                                   vf.data_ptr(), out.data_ptr(),
+                                   scratch.data_ptr(), b * h, n,
                                    1.0 / math.sqrt(dh), dh)
         return out
     qf = operand("q", q, torch.bfloat16, shape)

@@ -34,6 +34,71 @@ def test_attend_matches_jax_ragged(n, dh):
     np.testing.assert_allclose(got, want, atol=ATOL)
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, by the bit operations K1's f32 kernel uses (``tf32_rna``)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x: torch.Tensor):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _tf32_attend(q, k, v, split: bool) -> torch.Tensor:
+    """The arithmetic of K1's f32 kernel (flash_attention.cu
+    ``flash_attention_tf32x3_kernel``) in f32 on the CPU: tiles of 64 keys
+    (32 at head dim 80), the online softmax in base 2, and each product
+    as lo·hi + hi·lo + hi·hi of TF32 planes summed in that order
+    (``split``), or as one TF32 product; each tile's P·V joined to O by
+    O·α + tile."""
+    dh, n = q.shape[-1], k.shape[-2]
+    bk = 64 if dh == 64 else 32
+    sl = torch.tensor(1.4426950408889634 / np.sqrt(dh), dtype=torch.float32)
+
+    def product(a, b):
+        if not split:
+            return _tf32(a) @ _tf32(b)
+        (ah, al), (bh, bl) = _split(a), _split(b)
+        return al @ bh + ah @ bl + ah @ bh
+
+    m = torch.full(q.shape[:-1], -torch.inf)
+    l = torch.zeros(q.shape[:-1])
+    o = torch.zeros(q.shape)
+    for k0 in range(0, n, bk):
+        s = product(q, k[..., k0:k0 + bk, :].transpose(-1, -2))
+        m_new = torch.maximum(m, s.amax(-1) * sl)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s * sl - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[..., None] + product(p, v[..., k0:k0 + bk, :])
+        m = m_new
+    return o / l[..., None]
+
+
+@pytest.mark.parametrize("scale", [1.0, 2.0])
+@pytest.mark.parametrize("n,dh", [(65, 64), (200, 80)])
+def test_split_tf32_arithmetic_matches_jax(n, dh, scale):
+    """K1 f32 takes its products as three TF32 passes of split operands:
+    emulated here, it is within 1e-5 of JAX ``attend`` in f32 (relative to
+    the output's largest value) at unit scale and with q, k x 2 (scores of
+    std ~4), where one TF32 pass misses by far."""
+    rng = np.random.default_rng(n + int(scale))
+    q, k, v = (rng.standard_normal((1, 2, n, dh)).astype(np.float32)
+               for _ in range(3))
+    q, k = q * np.float32(scale), k * np.float32(scale)
+    want = torch.from_numpy(np.array(jax_attend(q, k, v, block_q=128)))
+    args = [torch.from_numpy(x) for x in (q, k, v)]
+
+    def rel(got):
+        return float((got - want).abs().max() / want.abs().max())
+
+    assert rel(_tf32_attend(*args, split=True)) < 1e-5
+    if scale > 1:
+        assert rel(_tf32_attend(*args, split=False)) > 1e-5
+
+
 def test_attend_decomposed_bias_matches_jax():
     rng = np.random.default_rng(1)
     side = 12

@@ -324,8 +324,9 @@ def test_attention_kernels_refuse_shapes_they_do_not_take(cuda):
             wa.windowed_attend(*_win_inputs(cuda, 1, side, 2, hd), 2, side)
 
 
-# K1 in f32: f32 sums in another order and expf's two ulps, relative to
-# the output's scale
+# K1 in f32: its products are three TF32 passes of split operands (each
+# ~2^-21 of the product, the tensor core's sums in another order) and its
+# exponentials ex2.approx; relative to the output's scale
 F32_REL = 1e-5
 
 
@@ -336,12 +337,20 @@ F32_CASES = [(8, 6, 4016, 64), (1, 1, 1025, 64), (2, 1, 1531, 80),
              (1, 2, 65, 64), (2, 3, 200, 80)]
 
 
+# and q, k x 2 (scores of std ~4, where one TF32 pass would be ~1e-3
+# off), at a length whose Vᵀ rows are padded past N
+F32_SCALED_CASE = (2, 3, 1025, 64)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,h,n,dh", F32_CASES)
-def test_flash_kernel_f32_matches_plain(cuda, b, h, n, dh):
+@pytest.mark.parametrize("b,h,n,dh,scale", [
+    *(pytest.param(*c, 1.0, id="-".join(map(str, c))) for c in F32_CASES),
+    pytest.param(*F32_SCALED_CASE, 2.0, id="2-3-1025-64-qk-x2")])
+def test_flash_kernel_f32_matches_plain(cuda, b, h, n, dh, scale):
     g = torch.Generator(device=cuda).manual_seed(n)
     q, k, v = (torch.randn((b, h, n, dh), generator=g, device=cuda)
                for _ in range(3))
+    q, k = q * scale, k * scale
     before = (build.FLASH_ATTENTION_F32.launches,
               build.FLASH_ATTENTION.launches)
     got = att.attend(q, k, v)
