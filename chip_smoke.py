@@ -4,7 +4,9 @@ serve full-width SegVLAD queries through the kernels over a live database
 (inserts, removals, snapshots, pipelined and concurrent queries, the
 streaming kNN), in each of the decoder's forms and with the encoder's
 windowed layers either way, load full-size checkpoints onto the card,
-extract features with the other backbones and train VLAD-BuFF.
+extract features with the other backbones and train VLAD-BuFF, encode
+camera-sized images, run the mesh paths over the card listed twice and
+drive the command line.
 
     python3 chip_smoke.py
 
@@ -83,6 +85,14 @@ Phases (any failure exits non-zero):
      1024 (past the one-shot cap) by the streaming path and by the
      one-shot path with the cap raised: the same top-5, the planted
      image first; tail times and peak device memory;
+ 13b. [mesh]: a mesh listing the one H100 twice (the machine has one;
+     NCCL and several cards cannot run here): sharded_knn_l2 at 100k f32
+     rows against knn_l2 (equal distances and index sets), DINOv2-g on 8
+     images split by data_parallel_apply against one forward (K1 31 a
+     chunk), a row-sharded server against a one-device one through two
+     inserts, a removal and 5 queries (equal top-5; each server's
+     launches counted on their own, equal, every "shared" kernel among
+     them); ms of each;
  14. [offline]: the offline SegLoc pipeline on the same models at the
      17places size (48 database images, 16 noisy-copy queries): SAM masks
      (4 images an encode) and DINOv2-g features (8 a forward) with the
@@ -106,6 +116,13 @@ Phases (any failure exits non-zero):
  17. [export]: the decoder exported by torch.export at 256 prompts,
      saved, loaded and called: within 1e-3 of the eager general path;
      export and load seconds, file MiB;
+ 17b. [preprocess]: SamPredictor.set_image on a 1200x1600 and a
+     2048x1536 image (PIL's host downscale into the 1024 frame): K1 4
+     launches an image and no other kernel; against the same calls on
+     the CPU (bf16, and f32 as the witness of which side rounds): the
+     embedding, 4 grid points' predicted IoUs, their low-res logits, and
+     mask flips only where the CPU's logit is within the low-res bound of
+     the threshold; ms on the card, s on the CPU;
  18. [datasets]: radius positives of 2,000 UTM points against a brute
      force, an image listing and get_gt("17places") (no sklearn);
  19. [checkpoint]: a seeded original-layout SAM ViT-H state dict saved
@@ -125,6 +142,12 @@ Phases (any failure exits non-zero):
      frozen parameters bit for bit, every trainable tensor moved; a
      checkpoint after step 3 restored into a fresh state gives step 4's
      loss and parameters within 1e-6; run_validation on 32 + 16 images;
+ 21b. [cli]: cli.main at full width (seeded SAM ViT-H, DINOv2-g layer
+     31): `query` over a 20,000-row index the smoke writes (its top-5
+     equal to the library's SegVLADServer built from the same seeds; the
+     "shared" kernels launched), a three-command `serve` loop, `amg` on a
+     1200x1600 image, `train` for 3 steps at [train]'s sizes; seconds a
+     command (the h5 commands need h5py, absent there: skipped);
  22. print the kernel table as one JSON line (B10, token_cross_split, has
      no caller on a serving path, as in the JAX package: launches 0; K1
      f32's launches are the DINOv1 batch's), then the result line.
@@ -913,8 +936,10 @@ def serve(dev, seed: int = 0) -> dict:
         num_ref_images=n_db // per_image, order=3)
     amg = AmgConfig(points_per_batch=1024, pred_iou_thresh=-1e9,
                     stability_score_thresh=0.0)
+    # mesh=None: these phases measure the one-device server, whatever
+    # the cards; [mesh] drives the row-sharded one
     kw = dict(sam=sam, dino=dino, full_hw=PLACES17_HW,
-              sam_hw=PLACES17_SAM_HW, amg=amg, max_masks=128)
+              sam_hw=PLACES17_SAM_HW, amg=amg, max_masks=128, mesh=None)
     srv = SegVLADServer(index=index, db_capacity=n_db + 16 * 128,
                         insert_chunk=16, **kw)
     del db, ids, pca, index
@@ -989,14 +1014,15 @@ def serve(dev, seed: int = 0) -> dict:
     pipelined = pipeline_phase(srv, queries + more)
     concurrent = concurrent_phase(srv, queries + more, rng, kw)
     stream = stream_knn_phase(srv, queries[0], planted[0])
+    mesh = mesh_phase(srv, dino, queries)
     del srv
     offline = offline_phase(sam, dino)
     del dino
     tools = sam_tools_phase(sam)
     return dict(counts=counts, wall_ms=wall, peak_gib=peak_gib,
                 variants=variants, window=window, pipelined=pipelined,
-                concurrent=concurrent, stream=stream, offline=offline,
-                tools=tools)
+                concurrent=concurrent, stream=stream, mesh=mesh,
+                offline=offline, tools=tools)
 
 
 def _noisy(rng, img):
@@ -1906,11 +1932,12 @@ def datasets_phase(seed: int = 11) -> dict:
 
 
 def sam_tools_phase(sam) -> dict:
-    """[multicrop], [predictor], [export] and [datasets] on the serve
-    phase's SAM ViT-H."""
+    """[multicrop], [predictor], [export], [preprocess] and [datasets] on
+    the serve phase's SAM ViT-H."""
     out = dict(multicrop=multicrop_phase(sam))
     out["predictor"] = predictor_phase(sam)
     out["export"] = export_phase(sam, out["predictor"].pop("emb"))
+    out["preprocess"] = preprocess_phase(sam)
     out["datasets"] = datasets_phase()
     return out
 
@@ -2495,6 +2522,481 @@ def train_phase(dev, seed: int = 13) -> dict:
     return dict(losses=losses, steps_s=rate, peak_gib=peak, recalls=recalls)
 
 
+def preprocess_phase(sam, seed: int = 14) -> dict:
+    """[preprocess]: ``SamPredictor.set_image`` at full width on a
+    1200x1600 and a 2048x1536 uint8 image, both larger than SAM's 1024
+    frame (PIL's host downscale, then the encoder), with the counters
+    reset first: K1 must launch 4 times an image (the 4 global layers)
+    and no other kernel. The same calls on the CPU (a copy of the same
+    bf16 weights, plain versions) give the reference, and a CPU copy in
+    f32 the witness of which side a disagreement is rounding on:
+
+    - the image embedding within 2e-2 of the CPU's in norm (||card -
+      cpu|| / ||cpu||; its max-abs error over the max-abs value is
+      printed: 32 bf16 layers on each side, rounded in another order);
+    - for 4 grid points, each of the 3 masks' predicted IoU within
+      [predictor]'s 2e-2 of the CPU's, and its low-res logits (the
+      decoder's output, before the upscale) within LOWRES_TOL of the
+      CPU's largest |logit|;
+    - the masks differ from the CPU's only at pixels whose CPU logit
+      lies within that same bound of the threshold: the upscale is a
+      convex blend of low-res logits, so a pixel further from it than
+      the low-res error cannot flip, and a flip elsewhere is a fault;
+    - the card's low-res logits no further from the f32 witness's than
+      WITNESS_FACTOR times the CPU bf16 copy's distance from it.
+
+    Printed besides: the masks' IoU against the CPU's and the witness's,
+    how many pixels flipped, the largest |CPU logit| among them and the
+    share of pixels inside the bound. set_image ms on the card (wall,
+    synchronized, after one warm-up call) and its parts, timed apart
+    after it (host downscale, upload, encode, the rest), and s on the
+    CPU."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from revisit_anything_tpu_torch.kernels import build
+    from revisit_anything_tpu_torch.models.sam import amg as pamg
+    from revisit_anything_tpu_torch.models.sam.predictor import SamPredictor
+
+    LOWRES_TOL, WITNESS_FACTOR = 2e-2, 2.0
+    thr = sam.cfg.mask_threshold
+    rng = np.random.default_rng(seed)
+    cpu_sam = copy.deepcopy(sam).cpu()
+    f32_sam = copy.deepcopy(cpu_sam).float()
+    out = {}
+
+    def iou(a, b):
+        union = np.logical_or(a, b).sum()
+        return np.logical_and(a, b).sum() / union if union else 1.0
+
+    for hw in ((1200, 1600), (2048, 1536)):
+        img = _image(rng, hw)
+        pred = SamPredictor(sam)
+        pred.set_image(img)                                   # warm-up
+        build.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.set_image(img)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k.name: k.launches for k in build.KERNELS if k.launches}
+        # set_image's parts, each synchronized: the host downscale and
+        # normalize, the upload, the encode, and the rest (the host's
+        # low-res -> image resize matrices and their upload)
+        parts = {}
+        t0 = time.perf_counter()
+        x, _ = pamg.preprocess_image(img, sam.cfg, "cpu")
+        parts["host"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        x = x.to(sam.encoder.pos_embed.device)
+        torch.cuda.synchronize()
+        parts["upload"] = (time.perf_counter() - t0) * 1e3
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            sam.encoder(x)
+            torch.cuda.synchronize()
+            parts["encode"] = (time.perf_counter() - t0) * 1e3
+        parts["rest"] = ms - sum(parts.values())
+        del x
+        cpu_pred = SamPredictor(cpu_sam)
+        t0 = time.perf_counter()
+        cpu_pred.set_image(img)
+        cpu_s = time.perf_counter() - t0
+        f32_pred = SamPredictor(f32_sam)
+        f32_pred.set_image(img)
+        emb, ref = pred.get_image_embedding(), cpu_pred.get_image_embedding()
+        err = _rel(emb.cpu(), ref)
+        norm_rel = ((emb.cpu().float() - ref.float()).norm()
+                    / ref.float().norm()).item()
+        _, pts, _ = pamg.prompt_points(32, pred._input_hw, hw, 1024)
+        r = dict(iou_cpu=1.0, iou_f32_card=1.0, iou_f32_cpu=1.0,
+                 pred_diff=0.0, lowres_rel=0.0, flipped=0, outside=0,
+                 flip_margin=0.0, band_share=0.0, witness_card=0.0,
+                 witness_cpu=0.0)
+        for i in (100, 300, 530, 910):
+            point = dict(point_coords=pts[i][None],
+                         point_labels=np.array([1]), return_logits=True)
+            lg_card, iou_card, lo_card = pred.predict(**point)
+            lg_cpu, iou_cpu, lo_cpu = cpu_pred.predict(**point)
+            lg_f32, _, lo_f32 = f32_pred.predict(**point)
+            for k in range(3):
+                m_card, m_cpu = lg_card[k] > thr, lg_cpu[k] > thr
+                m_f32 = lg_f32[k] > thr
+                bound = LOWRES_TOL * np.abs(lo_cpu[k]).max()
+                lo_err = np.abs(lo_card[k] - lo_cpu[k]).max()
+                flip = m_card != m_cpu
+                margin = np.abs(lg_cpu[k] - thr)
+                r["iou_cpu"] = min(r["iou_cpu"], iou(m_card, m_cpu))
+                r["iou_f32_card"] = min(r["iou_f32_card"], iou(m_card, m_f32))
+                r["iou_f32_cpu"] = min(r["iou_f32_cpu"], iou(m_cpu, m_f32))
+                r["pred_diff"] = max(r["pred_diff"],
+                                     abs(float(iou_card[k] - iou_cpu[k])))
+                r["lowres_rel"] = max(r["lowres_rel"],
+                                      lo_err / np.abs(lo_cpu[k]).max())
+                r["flipped"] += int(flip.sum())
+                r["outside"] += int((flip & (margin > bound)).sum())
+                if flip.any():
+                    r["flip_margin"] = max(r["flip_margin"],
+                                           float(margin[flip].max()))
+                r["band_share"] = max(r["band_share"],
+                                      float((margin <= bound).mean()))
+                r["witness_card"] = max(r["witness_card"], float(
+                    np.abs(lo_card[k] - lo_f32[k]).max()))
+                r["witness_cpu"] = max(r["witness_cpu"], float(
+                    np.abs(lo_cpu[k] - lo_f32[k]).max()))
+        key = f"{hw[0]}x{hw[1]}"
+        finite = bool(torch.isfinite(emb).all())
+        print(f"[preprocess] set_image {key} -> input {pred._input_hw}: "
+              f"{ms:.3f} ms on the card ("
+              f"{', '.join(f'{k} {v:.3f}' for k, v in parts.items())} ms), "
+              f"{cpu_s:.2f} s on the CPU; launches {counts}; embedding against the CPU: max-abs "
+              f"rel_err {err[1]:.3e}, norm rel_err {norm_rel:.3e}, finite "
+              f"{finite}", flush=True)
+        print(f"[preprocess] {key}, 4 points x 3 masks: max |predicted IoU "
+              f"diff| {r['pred_diff']:.2e}; low-res logits max-abs err over "
+              f"the CPU's max |logit| {r['lowres_rel']:.3e} (limit "
+              f"{LOWRES_TOL}); min mask IoU against the CPU "
+              f"{r['iou_cpu']:.4f}, card and CPU against the f32 witness "
+              f"{r['iou_f32_card']:.4f}, {r['iou_f32_cpu']:.4f}; "
+              f"{r['flipped']} pixels flipped, {r['outside']} of them "
+              f"outside the bound, largest |CPU logit| among them "
+              f"{r['flip_margin']:.3e}, share of pixels inside the bound "
+              f"{r['band_share']:.4f}; low-res max |diff| from the f32 "
+              f"witness: card {r['witness_card']:.3e}, CPU bf16 "
+              f"{r['witness_cpu']:.3e}", flush=True)
+        if counts != {build.FLASH_ATTENTION.name: 4}:
+            _fail(f"[preprocess] {key}: launches {counts}, K1 x4 expected")
+        if not finite or norm_rel > 2e-2 or r["pred_diff"] > 2e-2:
+            _fail(f"[preprocess] {key}: the card's embedding or predicted "
+                  "IoUs disagree with the CPU's")
+        if r["lowres_rel"] > LOWRES_TOL or r["outside"]:
+            _fail(f"[preprocess] {key}: the card's low-res logits or masks "
+                  "disagree with the CPU's beyond bf16 rounding")
+        if r["witness_card"] > WITNESS_FACTOR * r["witness_cpu"]:
+            _fail(f"[preprocess] {key}: the card is further from the f32 "
+                  "witness than the CPU's bf16 copy")
+        out[key] = dict(ms=ms, parts=parts, cpu_s=cpu_s, rel_err=err[1],
+                        norm_rel_err=norm_rel, **r)
+    del cpu_sam, f32_sam
+    return out
+
+
+def mesh_phase(srv, dino, queries, seed: int = 15) -> dict:
+    """[mesh]: a mesh that lists the one H100 twice (the card's machine has
+    one; NCCL and a mesh of several cards cannot run here), over which:
+    ``sharded_knn_l2`` at 100k f32 rows x 1024 and 128 queries, k 200,
+    against ``knn_l2`` (equal distances within 1e-5, equal index sets but
+    where two rows tie at the k-th distance within 1e-5);
+    ``dino_dense_features`` of DINOv2-g on a batch of 8 480x640 images
+    split by ``data_parallel_apply`` against the one forward (within 2e-2
+    of the features' scale; K1 31 times a chunk); a row-sharded
+    ``SegVLADServer`` (the live index, room for 4 images) against a
+    one-device one built the same way: two inserts, a removal and the
+    queries give equal top-5 ids; the launches of each server's queries,
+    counted on their own, are equal and hold every "shared" kernel.
+    ms of each (CUDA events or synchronized wall)."""
+    import numpy as np
+    import torch
+
+    from revisit_anything_tpu_torch.kernels import build
+    from revisit_anything_tpu_torch.ops.knn import knn_l2
+    from revisit_anything_tpu_torch.parallel import make_mesh, sharded_knn_l2
+    from revisit_anything_tpu_torch.pipeline.extract import (
+        dino_dense_features)
+    from revisit_anything_tpu_torch.pipeline.serve import SegVLADServer
+
+    dev = srv.device
+    mesh = make_mesh(devices=[dev, dev])
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    db = torch.randn((100_000, 1024), generator=g, device=dev)
+    db /= db.norm(dim=1, keepdim=True)
+    q = torch.randn((128, 1024), generator=g, device=dev)
+    q /= q.norm(dim=1, keepdim=True)
+    sq_s, idx_s = sharded_knn_l2(q, db, 200, mesh)
+    sq_1, idx_1 = knn_l2(q, db, 200)
+    d_err = (sq_s - sq_1).abs().max().item()
+    kth = sq_1[:, -1:]
+    rows_differ, unexplained = 0, 0
+    for r in range(q.shape[0]):
+        a, b = set(idx_s[r].tolist()), set(idx_1[r].tolist())
+        if a != b:
+            rows_differ += 1
+            odd = torch.tensor(sorted(a ^ b), device=dev)
+            dist = ((db[odd] - q[r]) ** 2).sum(1)
+            unexplained += int(((dist - kth[r]).abs() > 1e-5).sum())
+    out["knn_sharded_ms"] = _time_ms(lambda: sharded_knn_l2(q, db, 200, mesh),
+                                     reps=5)
+    out["knn_ms"] = _time_ms(lambda: knn_l2(q, db, 200), reps=5)
+    print(f"[mesh] sharded_knn_l2 100k x 1024 f32, 128 queries, k 200, 2 "
+          f"shards on one H100: {out['knn_sharded_ms']:.3f} ms against "
+          f"knn_l2 {out['knn_ms']:.3f} ms (CUDA events, median of 5); "
+          f"max |distance diff| {d_err:.3e}, rows whose sets differ "
+          f"{rows_differ} (by ties at the k-th: {unexplained == 0})",
+          flush=True)
+    if d_err > 1e-5 or unexplained:
+        _fail("[mesh] sharded_knn_l2 disagrees with knn_l2")
+    del db, q
+
+    imgs = np.stack([_image(np.random.default_rng(seed + i), (480, 640))
+                     for i in range(8)])
+    single = dino_dense_features(dino, imgs, mesh=None)
+    build.reset_counts()
+    split = dino_dense_features(dino, imgs, mesh=mesh)
+    k1_split = build.FLASH_ATTENTION.launches
+    build.reset_counts()
+    dino_dense_features(dino, imgs, mesh=None)
+    k1_single = build.FLASH_ATTENTION.launches
+    err = _rel(split, single)
+    out["dp_ms"] = _time_ms(lambda: dino_dense_features(dino, imgs,
+                                                        mesh=mesh), reps=3)
+    out["single_ms"] = _time_ms(lambda: dino_dense_features(dino, imgs),
+                                reps=3)
+    print(f"[mesh] data_parallel_apply DINOv2-g, batch 8 480x640 in 2 chunks "
+          f"of 4: {out['dp_ms']:.3f} ms against one forward "
+          f"{out['single_ms']:.3f} ms (CUDA events, median of 3); K1 "
+          f"launches {k1_split} split, {k1_single} whole; rel_err "
+          f"{err[1]:.3e}", flush=True)
+    if err[1] > 2e-2 or k1_split != 2 * k1_single or k1_single != 31:
+        _fail("[mesh] the split DINOv2-g forward disagrees with the whole")
+    del single, split
+
+    index = _live_index(srv)
+    n = index.db.shape[0]
+    kw = dict(sam=srv.sam, dino=srv.dino, index=index, full_hw=srv.full_hw,
+              sam_hw=srv.sam_hw, amg=srv.amg, max_masks=srv.kmax,
+              db_capacity=n + 4 * srv.kmax)
+    one = SegVLADServer(mesh=None, **kw)
+    two = SegVLADServer(mesh=mesh, **kw)
+    rng = np.random.default_rng(seed)
+    new = [_image(rng, srv.full_hw) for _ in range(2)]
+    ids = [one.add_reference_images(new), two.add_reference_images(new)]
+    one.remove_reference_image(ids[0][0])
+    two.remove_reference_image(ids[1][0])
+    asked = list(queries) + [_noisy(rng, im) for im in new]
+    # each server's launches counted on their own: the one device's
+    # queries first, then the counters reset and the sharded ones
+    build.reset_counts()
+    tops_one = [one.query(img) for img in asked]
+    counts_one = {k.name: k.launches for k in build.KERNELS if k.launches}
+    build.reset_counts()
+    tops_two = [two.query(img) for img in asked]
+    counts = {k.name: k.launches for k in build.KERNELS if k.launches}
+    tops = list(zip(tops_one, tops_two))
+    walls = {}
+    for name, s in (("one device", one), ("row-sharded", two)):
+        t = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.query(asked[0])
+            t.append((time.perf_counter() - t0) * 1e3)
+        walls[name] = statistics.median(t)
+    out["server_ms"] = walls
+    print(f"[mesh] row-sharded SegVLADServer ({n + 4 * srv.kmax} rows in 2 "
+          f"shards) against one device: inserted {ids[1]} ({ids[0]}), "
+          f"removed {ids[1][0]}; top-5 "
+          f"{[b.tolist() for _, b in tops]} sharded, equal: "
+          f"{all(np.array_equal(a, b) for a, b in tops)}; query wall "
+          f"{walls['row-sharded']:.1f} ms sharded, "
+          f"{walls['one device']:.1f} ms one device (median of 3)",
+          flush=True)
+    per_query = {k: v / len(asked) for k, v in counts.items()}
+    print(f"[mesh] launches over {len(asked)} queries: row-sharded {counts} "
+          f"({per_query} a query), one device {counts_one}", flush=True)
+    if ids[0] != ids[1] or not all(np.array_equal(a, b) for a, b in tops):
+        _fail("[mesh] the row-sharded server's answers differ")
+    if ids[1][0] in tops[-2][1] or tops[-1][1][0] != ids[1][1]:
+        _fail("[mesh] the removed image is found, or the inserted one not "
+              "first for its noisy copy")
+    missing = [k.name for k in _paths()["shared"] if k.name not in counts]
+    if missing:
+        _fail(f"[mesh] kernels not launched by the sharded server: {missing}")
+    if counts != counts_one:
+        _fail(f"[mesh] the sharded server launched {counts}, the one-device "
+              f"server {counts_one}")
+    out["launches"] = dict(sharded=counts, one_device=counts_one,
+                           queries=len(asked))
+    del one, two
+    torch.cuda.empty_cache()
+    return out
+
+
+def cli_phase(dev, seed: int = 16) -> dict:
+    """[cli]: the port's CLI at full width on the card (its default
+    device), through ``cli.main``: ``query`` (SAM ViT-H, DINOv2-g layer
+    31, seeded weights, the 1024-prompt AMG with both thresholds off)
+    over a 20,000-row, 400-image index the smoke writes, whose top-5 must
+    equal ``SegVLADServer.query``'s built by the library from the same
+    index and seeds, with the "shared" kernels launched; a ``serve`` loop
+    of three commands (query, add, query of the added image, which must
+    come first); ``amg`` on one 1200x1600 image (mask PNGs and
+    metadata.csv, AMG's kernels launched); ``train`` for 3 steps at the
+    [train] phase's sizes (finite losses). Seconds a command. extract,
+    vocab, pca, evaluate and build-index write h5 files, which this
+    machine cannot (no h5py): they run in the CPU tests only."""
+    import contextlib
+    import importlib.util
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from revisit_anything_tpu_torch import cli
+    from revisit_anything_tpu_torch.config import (DINO_G_DIM, NUM_CLUSTERS,
+                                                   PCA_DIM, PLACES17_HW,
+                                                   PLACES17_SAM_HW)
+    from revisit_anything_tpu_torch.kernels import build
+    from revisit_anything_tpu_torch.models.dinov2 import VIT_G14
+    from revisit_anything_tpu_torch.models.sam import SAM_VIT_H
+    from revisit_anything_tpu_torch.models.sam.amg import AmgConfig
+    from revisit_anything_tpu_torch.pipeline.serve import (SegVLADServer,
+                                                           ServingIndex)
+    from revisit_anything_tpu_torch.weights import init_dino, init_sam
+
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed)
+    secs = {}
+
+    def run(name, argv, stdin=None):
+        buf, old = io.StringIO(), sys.stdin
+        if stdin is not None:
+            sys.stdin = io.StringIO(stdin)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                cli.main(argv)
+        finally:
+            sys.stdin = old
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return buf.getvalue()
+
+    def counts():
+        return {k.name: k.launches for k in build.KERNELS}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        n_img, per = 400, 50
+        db = rng.standard_normal((n_img * per, PCA_DIM)).astype(np.float32)
+        db /= np.linalg.norm(db, axis=1, keepdims=True)
+        index = os.path.join(tmp, "index.npz")
+        np.savez(
+            index, db=db, db_dtype=np.asarray("float32"),
+            db_image_ids=np.repeat(np.arange(n_img), per),
+            image_keys=np.asarray([f"ref_{i:04d}.png" for i in range(n_img)]),
+            centers=rng.standard_normal((NUM_CLUSTERS, DINO_G_DIM)).astype(
+                np.float32),
+            pca_mean=np.zeros(NUM_CLUSTERS * DINO_G_DIM, np.float32),
+            pca_components=(rng.standard_normal(
+                (PCA_DIM, NUM_CLUSTERS * DINO_G_DIM), np.float32) * 0.01),
+            pca_variance=np.ones(PCA_DIM, np.float32),
+            pca_whiten=np.asarray(True), order=np.asarray(3),
+            mask_h=np.asarray(PLACES17_SAM_HW[0]),
+            mask_w=np.asarray(PLACES17_SAM_HW[1]),
+            dino_h=np.asarray(PLACES17_HW[0]),
+            dino_w=np.asarray(PLACES17_HW[1]))
+        del db
+        paths = {}
+        for name, hw in (("query", PLACES17_HW), ("added", PLACES17_HW),
+                         ("camera", (1200, 1600))):
+            paths[name] = os.path.join(tmp, f"{name}.png")
+            Image.fromarray(_image(rng, hw)).save(paths[name])
+        flags = ["--index", index, "--topk", "5", "--pred-iou-thresh=-1e9",
+                 "--stability-score-thresh", "0.0"]
+
+        build.reset_counts()
+        got = json.loads(run("query", ["query", "--image", paths["query"],
+                                       *flags]).splitlines()[-1])
+        c = counts()
+        missing = [k.name for k in _paths()["shared"] if c[k.name] == 0]
+        srv = SegVLADServer(
+            sam=init_sam(SAM_VIT_H, torch.Generator(device=dev).manual_seed(
+                0), dev, torch.bfloat16),
+            dino=init_dino(VIT_G14, torch.Generator(device=dev).manual_seed(
+                1), dev, torch.bfloat16),
+            index=ServingIndex.from_npz(index), full_hw=PLACES17_HW,
+            sam_hw=PLACES17_SAM_HW, dino_layer=31, top_images=5,
+            amg=AmgConfig(points_per_batch=1024, pred_iou_thresh=-1e9,
+                          stability_score_thresh=0.0))
+        want = srv.query(np.asarray(Image.open(paths["query"]).convert(
+            "RGB")))
+        del srv
+        torch.cuda.empty_cache()
+        print(f"[cli] query: {json.dumps(got)} in {secs['query']:.2f} s "
+              f"(models built from seeds 0 and 1, index read); the "
+              f"library's SegVLADServer: {want.tolist()}; launches {c}",
+              flush=True)
+        if (sorted(got) != ["image_ids", "matches", "query"]
+                or got["image_ids"] != want[want >= 0].tolist()
+                or got["matches"] != [f"ref_{i:04d}.png"
+                                      for i in got["image_ids"]]):
+            _fail("[cli] query's JSON differs from the library's answer")
+        if missing:
+            _fail(f"[cli] query launched no {missing}")
+
+        script = (f"query {paths['query']}\nadd {paths['added']}\n"
+                  f"query {paths['added']}\nquit\n")
+        lines = [json.loads(ln) for ln in run(
+            "serve", ["serve", *flags, "--db-capacity",
+                      str(n_img * per + 128)], stdin=script).splitlines()]
+        print(f"[cli] serve (query, add, query the added image): {lines} in "
+              f"{secs['serve']:.2f} s", flush=True)
+        if (len(lines) != 4 or lines[0].get("ready") is not True
+                or lines[1] != got or lines[2].get("image_id") != n_img
+                or lines[3].get("image_ids", [None])[0] != n_img):
+            _fail("[cli] the serve loop's answers are not the expected ones")
+
+        build.reset_counts()
+        amg_out = os.path.join(tmp, "amg")
+        run("amg", ["amg", "--input", paths["camera"], "--output", amg_out,
+                    "--pred-iou-thresh=-1e9", "--stability-score-thresh",
+                    "0.0"])
+        c = counts()
+        masks = [f for f in os.listdir(os.path.join(amg_out, "camera"))
+                 if f.endswith(".png")]
+        with open(os.path.join(amg_out, "camera", "metadata.csv")) as f:
+            rows = f.read().splitlines()
+        print(f"[cli] amg 1200x1600: {len(masks)} masks in "
+              f"{secs['amg']:.2f} s (seeded ViT-H built); launches {c}",
+              flush=True)
+        if not masks or len(rows) != len(masks) + 1 or any(
+                c[k.name] == 0 for k in _paths()["shared"]):
+            _fail("[cli] amg wrote no masks or launched no AMG kernel")
+
+        for p in range(16):
+            base = _image(rng, (240, 320))
+            for i in range(4):
+                d = os.path.join(tmp, "gsv", f"city{p % 2}", f"{p:04d}")
+                os.makedirs(d, exist_ok=True)
+                Image.fromarray(_noisy(rng, base)).save(
+                    os.path.join(d, f"{i}.png"), compress_level=1)
+        out = run("train", ["train", "--train-root", os.path.join(tmp, "gsv"),
+                            "--ckpt-dir", os.path.join(tmp, "ckpt"),
+                            "--steps", "3", "--log-every", "1",
+                            "--ckpt-every", "100"])
+        losses = [float(ln.split("loss")[1]) for ln in out.splitlines()
+                  if ln.startswith("step ")]
+        print(f"[cli] train 3 steps (DINOv2-B/14, 16 places x 4 at 224x224, "
+              f"AdamW): losses {losses} in {secs['train']:.2f} s with the "
+              f"model build and a checkpoint", flush=True)
+        if len(losses) != 3 or not np.isfinite(losses).all():
+            _fail(f"[cli] train printed losses {losses}")
+    h5 = importlib.util.find_spec("h5py") is not None
+    print(f"[cli] extract, vocab, pca, evaluate, build-index: skipped (they "
+          f"write h5 files; h5py {'present' if h5 else 'absent'} here; "
+          f"tests/test_torch_cli.py runs them on the CPU)", flush=True)
+    print(f"[cli] seconds a command: "
+          f"{json.dumps({k: round(v, 2) for k, v in secs.items()})}",
+          flush=True)
+    return secs
+
+
 def _check_launches(counts: dict, path: str) -> None:
     """Every kernel of ``path`` launched, none outside it."""
     want = {k.name for k in _paths()[path]}
@@ -2962,6 +3464,7 @@ def main() -> None:
     checkpoint_phase(dev)
     backbones = backbones_phase(dev)
     train_phase(dev)
+    cli_phase(dev)
 
     # launches: the 3 "shared" queries for the kernels of that form, the
     # probability-factored queries for theirs, the window-kernel query for

@@ -3,20 +3,23 @@
 Counterpart of ``revisit_anything_tpu/config.py``: the constants, and
 ``ImageSize``, ``DatasetConfig``, ``ExperimentConfig``,
 ``RetrievalConfig``, ``DATASETS``, ``EXPERIMENTS``, ``get_dataset`` and
-``get_experiment`` (:144-238), field for field. The JAX package's
-``WorkdirConfig`` (filesystem roots from environment variables) waits
-for the command-line slice.
+``get_experiment`` (:144-238), field for field, and ``WorkdirConfig``
+(:120-141): the filesystem roots, from the ``RAT_*`` environment
+variables when the object is made.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Optional, Tuple
 
 PATCH_SIZE = 14                 # DINOv2 patch size; patch grid = desired // 14
 NUM_CLUSTERS = 32               # VLAD vocabulary size
 DINO_G_DIM = 1536               # DINOv2 ViT-g/14 feature dim (value facet)
 VLAD_DIM = NUM_CLUSTERS * DINO_G_DIM        # 49152
+DINO_B_NV_DIM = 768             # fine-tuned DINOv2-B/14 + NetVLAD feature dim
+VLAD_DIM_FINETUNED = NUM_CLUSTERS * DINO_B_NV_DIM  # 24576
 PCA_DIM = 1024                  # whitened PCA output dim
 KNN_TOPK = 200                  # retrieval candidates per query segment
 BORDA_TOPK = 50                 # candidates used for weighted Borda voting
@@ -97,6 +100,32 @@ class RetrievalConfig:
     borda_topk: int = BORDA_TOPK
     recall_topk: int = RECALL_TOPK
     match_method: str = "max_seg_topk_wt_borda_Im"
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkdirConfig:
+    """Filesystem roots: datasets, the artifact workdir and the vocabulary
+    cache. The environment (``RAT_DATA_ROOT``, ``RAT_WORKDIR``,
+    ``RAT_CACHE_ROOT``) is read when the object is made, not at import.
+    Without it the roots are the CLI's defaults, relative to the working
+    directory (the JAX package's are absolute paths of its own machine).
+    """
+    data_root: str = dataclasses.field(
+        default_factory=lambda: os.environ.get("RAT_DATA_ROOT", "./data"))
+    workdir: str = dataclasses.field(
+        default_factory=lambda: os.environ.get("RAT_WORKDIR", "./workdir"))
+    cache_root: str = dataclasses.field(
+        default_factory=lambda: os.environ.get("RAT_CACHE_ROOT", "./cache"))
+
+    def vocab_path(self, vocab_id: str, finetuned: bool = False) -> str:
+        """The cluster-centre file in the reference's cache layout,
+        ``vocabulary/dinov2_vitg14/l31_value_c32/{id}/c_centers.pt``
+        (vlad_c_centers_pt_gen.py:148-150), ``NVFinetuned`` after the id
+        for the fine-tuned vocabulary."""
+        suffix = "NVFinetuned" if finetuned else ""
+        return os.path.join(
+            self.cache_root, "vocabulary", "dinov2_vitg14", "l31_value_c32",
+            f"{vocab_id}{suffix}", "c_centers.pt")
 
 
 def _ds(name: str, h: int, w: int, sub_r: str, sub_q: str,

@@ -3,8 +3,8 @@
 from torch import nn
 
 from revisit_anything_tpu_torch.models.sam.config import (  # noqa: F401
-    SAM_PIXEL_MEAN, SAM_PIXEL_STD, SAM_VIT_B, SAM_VIT_H, SAM_VIT_L,
-    SamArchConfig)
+    SAM_PIXEL_MEAN, SAM_PIXEL_STD, SAM_REGISTRY, SAM_VIT_B, SAM_VIT_H,
+    SAM_VIT_L, SamArchConfig)
 from revisit_anything_tpu_torch.models.sam.decoder import MaskDecoder
 from revisit_anything_tpu_torch.models.sam.encoder import ImageEncoder
 from revisit_anything_tpu_torch.models.sam.prompt import PromptEncoder

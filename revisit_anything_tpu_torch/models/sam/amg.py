@@ -5,7 +5,9 @@ mask records.
 
 Counterpart of ``revisit_anything_tpu/models/sam/amg.py``: ``AmgConfig``
 (:44), ``build_point_grid``, ``generate_crop_boxes`` (:75),
-``resize_longest_side``, ``resize_mats_and_rows`` (:158, without the
+``resize_longest_side``, ``preprocess_image`` (:109, PIL's downscale
+into the S frame; ``_preprocess_any`` takes it for an image larger than
+the frame, as JAX :368 does), ``resize_mats_and_rows`` (:158, without the
 TPU's lane rounding of the row count: gh = 49 at 240×320, content 3136),
 ``_decode_batch`` (:223), ``_pack_bits`` (:327), ``_select_and_pack``
 (:341, with the crop-edge filter), ``generate_masks`` (:380),
@@ -51,6 +53,7 @@ from revisit_anything_tpu_torch.ops.maskresize import (fused_resize_flags,
                                                        resize_taps)
 from revisit_anything_tpu_torch.ops.nms import nms_host, nms_keep_mask
 from revisit_anything_tpu_torch.ops.resize import bilinear_weight_matrix
+from revisit_anything_tpu_torch.parallel import data_parallel_apply
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,19 +166,39 @@ def _sam_preprocess_fused(img_u8: torch.Tensor, rh: torch.Tensor,
                                        0, pad_to - nh))[None]
 
 
+def preprocess_image(image_rgb: np.ndarray, cfg: SamArchConfig,
+                     device="cuda") -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """uint8 RGB [H, W, 3] → ([1, S, S, 3] f32 on ``device``, the resized
+    (pre-pad) dims): PIL's antialiased bilinear resize of the longest side
+    to S (ResizeLongestSide.apply_image, utils/transforms.py:30-38), then
+    normalized and zero-padded, on the host in the JAX package's numpy
+    arithmetic (its ``preprocess_image``, amg.py:109-127, bit for bit),
+    then one upload. PIL is imported here: the card's machine has it,
+    and no module of the port loads it at import."""
+    from PIL import Image
+    h, w = image_rgb.shape[:2]
+    nh, nw = resize_longest_side(h, w, cfg.image_size)
+    resized = np.asarray(
+        Image.fromarray(image_rgb).resize((nw, nh),
+                                          Image.Resampling.BILINEAR),
+        dtype=np.float32)
+    x = (resized - np.asarray(SAM_PIXEL_MEAN)) / np.asarray(SAM_PIXEL_STD)
+    out = np.zeros((1, cfg.image_size, cfg.image_size, 3), np.float32)
+    out[0, :nh, :nw] = x
+    return torch.from_numpy(out).to(device), (nh, nw)
+
+
 def _preprocess_any(image_rgb: np.ndarray, cfg: SamArchConfig, device):
-    """uint8 RGB [H, W, 3] → ([1, S, S, 3] on ``device``, input_hw): the
-    JAX package's device path, bilinear upscaling to the S frame. Raises
-    where the JAX package takes its host PIL path (an image larger than
-    the S frame, downscaled with PIL's antialiased filter): no dataset of
-    ``config.DATASETS`` does, and the port does not reproduce PIL."""
+    """uint8 RGB [H, W, 3] → ([1, S, S, 3] on ``device``, input_hw), by
+    the JAX package's two paths (its ``_preprocess_any``, amg.py:368):
+    an image that fits the S frame goes up as uint8 and is upscaled on
+    the device (:func:`_sam_preprocess_fused`; for an upscale PIL's
+    antialiased bilinear is plain half-pixel bilinear); a larger one is
+    downscaled on the host by PIL (:func:`preprocess_image`)."""
     h, w = image_rgb.shape[:2]
     input_hw = resize_longest_side(h, w, cfg.image_size)
     if input_hw[0] < h or input_hw[1] < w:
-        raise NotImplementedError(
-            f"a {h}x{w} image is downscaled into SAM's {cfg.image_size} "
-            "frame by PIL's antialiased bilinear filter, which the port "
-            "does not reproduce")
+        return preprocess_image(image_rgb, cfg, device)
     rh = device_constant(("sam_pre_rows", input_hw[0], h), device,
                          lambda: bilinear_weight_matrix(input_hw[0], h))
     rw = device_constant(("sam_pre_cols", input_hw[1], w), device,
@@ -493,13 +516,21 @@ def generate_masks(sam, image_rgb: np.ndarray, amg: AmgConfig = AmgConfig(),
     return generate_masks_batch(sam, [image_rgb], amg, max_masks)[0]
 
 
+def _encode(encoder, x: torch.Tensor) -> torch.Tensor:
+    return encoder(x)
+
+
 def generate_masks_batch(sam, images_rgb: Sequence[np.ndarray],
                          amg: AmgConfig = AmgConfig(),
-                         max_masks: int = 512) -> List[List[MaskRecord]]:
+                         max_masks: int = 512,
+                         mesh=None) -> List[List[MaskRecord]]:
     """AMG over same-shape images: one encoder dispatch for the batch,
     then each image's prompt batches, filters and records. Multi-crop
     (``crop_n_layers`` > 0) encodes each crop on its own, so its images
-    run one at a time."""
+    run one at a time. With a mesh of several devices (JAX :415-439) the
+    encoder batch is split over it (``parallel.data_parallel_apply``),
+    the embeddings gathered on ``sam``'s device, where every image is
+    decoded."""
     if not len(images_rgb):
         return []
     if len({im.shape for im in images_rgb}) != 1:
@@ -510,7 +541,12 @@ def generate_masks_batch(sam, images_rgb: Sequence[np.ndarray],
     dev = sam.encoder.pos_embed.device
     with torch.inference_mode():
         pre = [_preprocess_any(im, sam.cfg, dev) for im in images_rgb]
-        embeddings = sam.encoder(torch.cat([p[0] for p in pre]))
+        batched = torch.cat([p[0] for p in pre])
+        if mesh is not None and mesh.size > 1:
+            embeddings = data_parallel_apply(_encode, sam.encoder, batched,
+                                             mesh)
+        else:
+            embeddings = sam.encoder(batched)
         return [_generate_from_embedding(sam, embeddings[i], pre[i][1],
                                          images_rgb[i].shape[:2], amg,
                                          max_masks)

@@ -53,6 +53,9 @@ SAM_VIT_H = SamArchConfig(1280, 32, 16, (7, 15, 23, 31))
 SAM_VIT_L = SamArchConfig(1024, 24, 16, (5, 11, 17, 23))
 SAM_VIT_B = SamArchConfig(768, 12, 12, (2, 5, 8, 11))
 
+SAM_REGISTRY = {"vit_h": SAM_VIT_H, "vit_l": SAM_VIT_L, "vit_b": SAM_VIT_B,
+                "default": SAM_VIT_H}
+
 # Pixel normalization in 0-255 space (Sam.preprocess).
 SAM_PIXEL_MEAN = (123.675, 116.28, 103.53)
 SAM_PIXEL_STD = (58.395, 57.12, 57.375)

@@ -27,6 +27,7 @@ from revisit_anything_tpu_torch.ops.masks import (mask_centroids,
                                                   pool_masks_to_patch_grid)
 from revisit_anything_tpu_torch.ops.vlad import (global_vlad, l2_normalize,
                                                  segment_vlad)
+from revisit_anything_tpu_torch.utils.profiling import stage_timer
 
 
 @dataclasses.dataclass
@@ -86,15 +87,18 @@ def compute_segment_vlads(masks_h5_path: str, dino_h5_path: str,
                           desired_hw: Tuple[int, int], progress: bool = True,
                           device="cuda") -> SegmentBank:
     """Every image's segment VLADs from the mask and feature h5 files, in
-    ``image_keys`` order."""
+    ``image_keys`` order; stages ``agg.read`` and ``agg.vlad``."""
+    timer = stage_timer()
     pool_a, pool_b = mask_pool_matrices(mask_hw, desired_hw)
     descs, im_inds = [], []
     with open_h5(masks_h5_path) as mh5, open_h5(dino_h5_path) as dh5:
         for i, key in enumerate(image_keys):
-            masks = read_all_masks_bool(mh5, key)
-            feats = read_dino_features(dh5, key)[0]      # [D, dh, dw]
-            v = image_segment_vlad(masks, feats, centers, pool_a, pool_b,
-                                   order, device)
+            with timer.stage("agg.read"):
+                masks = read_all_masks_bool(mh5, key)
+                feats = read_dino_features(dh5, key)[0]  # [D, dh, dw]
+            with timer.stage("agg.vlad"):
+                v = image_segment_vlad(masks, feats, centers, pool_a,
+                                       pool_b, order, device)
             descs.append(v)
             im_inds.extend([i] * len(v))
             if progress and (i + 1) % 50 == 0:

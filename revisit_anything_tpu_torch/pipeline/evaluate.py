@@ -3,9 +3,11 @@
 
 Counterpart of ``revisit_anything_tpu/pipeline/evaluate.py``
 (``RetrievalResult``, ``apply_pca_in_batches``, ``run_segloc_retrieval``,
-``run_anyloc_retrieval``) on one device; the JAX package's ``mesh``
-argument (the database sharded over devices) waits for the multi-GPU
-slice.
+``run_anyloc_retrieval``). ``run_segloc_retrieval``'s ``mesh`` (JAX
+:64-96): with several devices the kNN's database rows are sharded over
+them (``parallel.sharded_knn_l2``). Its stages go to
+``utils.profiling.stage_timer()``: ``retrieval.pca``, ``retrieval.knn``,
+``retrieval.vote``.
 """
 
 from __future__ import annotations
@@ -20,12 +22,14 @@ from revisit_anything_tpu_torch.config import (BORDA_TOPK, KNN_TOPK,
                                                RECALL_TOPK)
 from revisit_anything_tpu_torch.ops.knn import knn_l2
 from revisit_anything_tpu_torch.ops.pca import PCAParams, pca_apply
+from revisit_anything_tpu_torch.parallel import resolve_mesh, sharded_knn_l2
 from revisit_anything_tpu_torch.pipeline.aggregate import SegmentBank
 from revisit_anything_tpu_torch.retrieval.matching import (
     get_matches_host, weighted_borda_predict)
 from revisit_anything_tpu_torch.retrieval.recall import (calc_recall,
                                                          calculate_map,
                                                          one_percent_recall)
+from revisit_anything_tpu_torch.utils.profiling import stage_timer
 
 
 @dataclasses.dataclass
@@ -65,7 +69,7 @@ def run_segloc_retrieval(db_bank: SegmentBank, query_bank: SegmentBank,
                          recall_topk: int = RECALL_TOPK,
                          map_calculate: bool = False,
                          device_voting: bool = True,
-                         device="cuda") -> RetrievalResult:
+                         device="cuda", mesh="auto") -> RetrievalResult:
     """SegLoc retrieval: kNN of the query segments over the database
     segments, weighted Borda voting over database images, Recall@1..k.
 
@@ -74,38 +78,51 @@ def run_segloc_retrieval(db_bank: SegmentBank, query_bank: SegmentBank,
     ``device_voting``: the Borda sums on ``device``
     (:func:`weighted_borda_predict`), else the per-query host loop
     (:func:`get_matches_host`); the two predict the same images. Query
-    images of ``gt`` without segments count as misses."""
+    images of ``gt`` without segments count as misses. ``mesh``: a mesh
+    of several devices shards the kNN's database over them ("auto": every
+    card, when ``device`` is one; None: ``device`` alone)."""
+    timer = stage_timer()
     db = db_bank.descriptors
     q = query_bank.descriptors
     if pca is not None:
-        db = _normalize_rows(apply_pca_in_batches(db_bank, pca).descriptors)
-        q = _normalize_rows(apply_pca_in_batches(query_bank, pca).descriptors)
+        with timer.stage("retrieval.pca"):
+            db = apply_pca_in_batches(db_bank, pca).descriptors
+            q = apply_pca_in_batches(query_bank, pca).descriptors
+        db, q = _normalize_rows(db), _normalize_rows(q)
 
-    sq_l2, matches = knn_l2(torch.as_tensor(q, device=device),
-                            torch.as_tensor(db, device=device), knn_topk)
-    sims_dev = 2.0 - sq_l2[:, :borda_topk]
-    m50_dev = matches[:, :borda_topk]
-    sq_l2, matches = sq_l2.cpu().numpy(), matches.cpu().numpy()
+    mesh = resolve_mesh(mesh, device)
+    with timer.stage("retrieval.knn"):
+        if mesh is not None and mesh.size > 1:
+            sq_l2, matches = sharded_knn_l2(q, db, knn_topk, mesh)
+            sq_l2, matches = sq_l2.to(device), matches.to(device)
+        else:
+            sq_l2, matches = knn_l2(torch.as_tensor(q, device=device),
+                                    torch.as_tensor(db, device=device),
+                                    knn_topk)
+        sims_dev = 2.0 - sq_l2[:, :borda_topk]
+        m50_dev = matches[:, :borda_topk]
+        sq_l2, matches = sq_l2.cpu().numpy(), matches.cpu().numpy()
 
     derived = (int(query_bank.image_indices.max()) + 1
                if len(query_bank.image_indices) else 0)
     n_q = max(len(gt), query_bank.num_images or 0, derived)
-    if device_voting:
-        n_r = int(db_bank.image_indices.max()) + 1
-        preds_arr = weighted_borda_predict(
-            sims_dev, m50_dev,
-            torch.as_tensor(query_bank.image_indices, device=device),
-            torch.as_tensor(db_bank.image_indices, device=device), n_q, n_r,
-            n=recall_topk)
-        preds = list(preds_arr.cpu().numpy())
-    else:
-        ranges = query_bank.seg_ranges
-        ranges += [np.zeros((0,), np.int64)
-                   for _ in range(n_q - len(ranges))]
-        preds = get_matches_host(matches[:, :borda_topk],
-                                 2.0 - sq_l2[:, :borda_topk], ranges,
-                                 db_bank.image_indices, n=recall_topk,
-                                 method="max_seg_topk_wt_borda_Im")
+    with timer.stage("retrieval.vote"):
+        if device_voting:
+            n_r = int(db_bank.image_indices.max()) + 1
+            preds_arr = weighted_borda_predict(
+                sims_dev, m50_dev,
+                torch.as_tensor(query_bank.image_indices, device=device),
+                torch.as_tensor(db_bank.image_indices, device=device), n_q,
+                n_r, n=recall_topk)
+            preds = list(preds_arr.cpu().numpy())
+        else:
+            ranges = query_bank.seg_ranges
+            ranges += [np.zeros((0,), np.int64)
+                       for _ in range(n_q - len(ranges))]
+            preds = get_matches_host(matches[:, :borda_topk],
+                                     2.0 - sq_l2[:, :borda_topk], ranges,
+                                     db_bank.image_indices, n=recall_topk,
+                                     method="max_seg_topk_wt_borda_Im")
     recalls = calc_recall(preds, gt, recall_topk)
     map_value = calculate_map(preds, gt) if map_calculate else None
     return RetrievalResult(recalls, preds, matches, sq_l2, map_value)

@@ -3,7 +3,10 @@ in the h5 schemas the JAX package and the reference read.
 
 Counterpart of ``revisit_anything_tpu/pipeline/extract.py``:
 ``load_image_rgb``, ``_resize_cv2_bilinear``, ``_fallback_records``,
-``extract_sam_masks`` (:68), ``extract_dino_features`` (:135),
+``extract_sam_masks`` (:68), ``extract_dino_features`` (:135, with
+its ``mesh``: the batch split over the mesh's devices by
+``parallel.data_parallel_apply``, as the SAM encoder batch of
+``generate_masks_batch``),
 ``extract_dinov1_features_to_h5`` (:182), ``extract_dinonv_features_to_h5``
 (:267) and ``extract_dinosalad_features_to_h5`` (:303). SAM runs at half
 the DINO resolution (``config.DatasetConfig.sam_size``); DINOv2-g's
@@ -11,7 +14,9 @@ layer-31 value facet at the full one, L2-normalized over channels. The
 per-batch work (:func:`generate_masks_batch`, :func:`dino_dense_features`,
 :func:`dinov1_dense_features`, :func:`dinonv_dense_features`,
 :func:`dinosalad_dense_features`) is separate from the h5 files, so it
-runs where ``h5py`` is not installed.
+runs where ``h5py`` is not installed. The h5 drivers record the JAX
+package's stages in ``utils.profiling.stage_timer()`` (``sam.load``,
+``sam.generate``, ``sam.write``, ``dino.*``, ``dinov1.*``, ...).
 """
 
 from __future__ import annotations
@@ -29,6 +34,9 @@ from revisit_anything_tpu_torch.models.layers import device_constant
 from revisit_anything_tpu_torch.models.sam.amg import (AmgConfig,
                                                        generate_masks_batch)
 from revisit_anything_tpu_torch.ops.vlad import l2_normalize
+from revisit_anything_tpu_torch.parallel import (data_parallel_apply,
+                                                 resolve_mesh)
+from revisit_anything_tpu_torch.utils.profiling import stage_timer
 
 
 def load_image_rgb(path: str) -> np.ndarray:
@@ -107,30 +115,49 @@ def _fallback_records(hw: Tuple[int, int]) -> List[MaskRecord]:
 def extract_sam_masks(image_paths: Sequence[str], image_keys: Sequence[str],
                       out_h5_path: str, sam, target_hw: Tuple[int, int],
                       amg: AmgConfig = AmgConfig(), progress: bool = True,
-                      encode_batch: int = 1) -> None:
+                      encode_batch: int = 0, mesh="auto") -> None:
     """AMG over images resized to ``target_hw``, written in the mask h5
-    schema; ``encode_batch`` images a SAM encoder dispatch, the fallback
-    records where none is kept. Runs on ``sam``'s device."""
+    schema; ``encode_batch`` images a SAM encoder dispatch (0: the mesh's
+    device count, 1 without a mesh), the fallback records where none is
+    kept. Runs on ``sam``'s device; with a mesh of several devices
+    ("auto": every card, when ``sam`` is on one) the encoder batch is
+    split over it."""
+    mesh = resolve_mesh(mesh, sam.encoder.pos_embed.device)
+    if encode_batch <= 0:
+        encode_batch = mesh.size if mesh is not None and mesh.size > 1 else 1
+    timer = stage_timer()
     with open_h5(out_h5_path, "w") as f:
         for s in range(0, len(image_paths), encode_batch):
-            imgs = [_resize_cv2_bilinear(load_image_rgb(p),
-                                         (target_hw[1], target_hw[0]))
-                    for p in image_paths[s:s + encode_batch]]
-            per_image = generate_masks_batch(sam, imgs, amg)
-            for key, records in zip(image_keys[s:s + encode_batch],
-                                    per_image):
-                if not records:
-                    records = _fallback_records(target_hw)
-                write_image_masks(f, key, records)
-                if progress:
-                    print(f"[sam] {key}: {len(records)} masks", flush=True)
+            with timer.stage("sam.load"):
+                imgs = [_resize_cv2_bilinear(load_image_rgb(p),
+                                             (target_hw[1], target_hw[0]))
+                        for p in image_paths[s:s + encode_batch]]
+            with timer.stage("sam.generate"):
+                per_image = generate_masks_batch(sam, imgs, amg, mesh=mesh)
+            with timer.stage("sam.write"):
+                for key, records in zip(image_keys[s:s + encode_batch],
+                                        per_image):
+                    if not records:
+                        records = _fallback_records(target_hw)
+                    write_image_masks(f, key, records)
+                    if progress:
+                        print(f"[sam] {key}: {len(records)} masks",
+                              flush=True)
+
+
+def _dino_forward(layer: int, facet: str):
+    def forward(model, x):
+        return dn.extract_dense(model, model.cfg, x, layer, facet)
+    return forward
 
 
 def dino_dense_features(dino, images_u8: np.ndarray, layer: int = 31,
-                        facet: str = "value") -> torch.Tensor:
+                        facet: str = "value", mesh=None) -> torch.Tensor:
     """uint8 RGB [B, H, W, 3] → f32 [B, D, dh, dw] on ``dino``'s device:
     ImageNet normalization, centre crop to patch multiples, the facet of
-    block ``layer``, L2-normalized over D."""
+    block ``layer``, L2-normalized over D. With a mesh of several
+    devices the forward's batch is split over it
+    (``parallel.data_parallel_apply``; "auto": every card)."""
     cfg = dino.cfg
     dev = dino.pos_embed.device
     x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(dev)
@@ -142,8 +169,13 @@ def dino_dense_features(dino, images_u8: np.ndarray, layer: int = 31,
     hn, wn = (h // 14) * 14, (w // 14) * 14
     top, left = dn.center_crop_offsets(h, w, hn, wn)
     x = x[:, top:top + hn, left:left + wn]
+    mesh = resolve_mesh(mesh, dev)
+    fwd = _dino_forward(layer, facet)
     with torch.inference_mode():
-        feats = dn.extract_dense(dino, cfg, x, layer, facet).float()
+        if mesh is not None and mesh.size > 1:
+            feats = data_parallel_apply(fwd, dino, x, mesh).float()
+        else:
+            feats = fwd(dino, x).float()
     b = feats.shape[0]
     feats = feats.transpose(1, 2).reshape(b, -1, hn // 14, wn // 14)
     return l2_normalize(feats, 1)
@@ -153,13 +185,17 @@ def extract_dino_features(image_paths: Sequence[str],
                           image_keys: Sequence[str], out_h5_path: str, dino,
                           target_hw: Tuple[int, int], layer: int = 31,
                           facet: str = "value", batch_size: int = 8,
-                          progress: bool = True) -> None:
+                          progress: bool = True, mesh="auto") -> None:
     """DINOv2 dense features of images resized to ``target_hw`` →
     ``ift_dino`` [1, D, dh, dw] per image, ``batch_size`` images a
-    forward. Runs on ``dino``'s device."""
+    forward. Runs on ``dino``'s device, the batch split over ``mesh``
+    when it has several devices ("auto": every card, when ``dino`` is on
+    one; None: one device)."""
+    mesh = resolve_mesh(mesh, dino.pos_embed.device)
     _h5_features(image_paths, image_keys, out_h5_path, target_hw,
                  batch_size, progress, "dino",
-                 lambda imgs: dino_dense_features(dino, imgs, layer, facet))
+                 lambda imgs: dino_dense_features(dino, imgs, layer, facet,
+                                                  mesh))
 
 
 def dinov1_dense_features(model, cfg, images_u8: np.ndarray,
@@ -203,17 +239,24 @@ def _h5_features(image_paths, image_keys, out_h5_path, target_hw,
                  batch_size, progress, tag, features) -> None:
     """The h5 loop of the dense extractors: images resized to
     ``target_hw`` (cv2 bilinear), ``features(uint8 batch)`` → one
-    ``ift_dino`` [1, D, h, w] entry an image."""
+    ``ift_dino`` [1, D, h, w] entry an image; stages ``<tag>.load``,
+    ``<tag>.forward`` (ending in the readback) and ``<tag>.write``, the
+    tag lower-cased."""
+    timer = stage_timer()
+    stage = tag.lower()
     with open_h5(out_h5_path, "w") as f:
         for s in range(0, len(image_paths), batch_size):
             paths = image_paths[s:s + batch_size]
-            imgs = np.stack([_resize_cv2_bilinear(load_image_rgb(p),
-                                                  (target_hw[1],
-                                                   target_hw[0]))
-                             for p in paths])
-            feats = features(imgs).cpu().numpy()
-            for i, key in enumerate(image_keys[s:s + batch_size]):
-                write_dino_features(f, key, feats[i:i + 1])
+            with timer.stage(f"{stage}.load"):
+                imgs = np.stack([_resize_cv2_bilinear(load_image_rgb(p),
+                                                      (target_hw[1],
+                                                       target_hw[0]))
+                                 for p in paths])
+            with timer.stage(f"{stage}.forward"):
+                feats = features(imgs).cpu().numpy()
+            with timer.stage(f"{stage}.write"):
+                for i, key in enumerate(image_keys[s:s + batch_size]):
+                    write_dino_features(f, key, feats[i:i + 1])
             if progress:
                 print(f"[{tag}] {s + len(paths)}/{len(image_paths)}",
                       flush=True)

@@ -9,7 +9,8 @@ database updates ``_db_insert`` (:88), ``_compact_insert_many`` (:100)
 and ``_db_remove`` (:134), and the device stages
 ``_sam_preprocess_fused`` (:141; in ``models/sam/amg.py``, which the
 offline extraction shares), ``_select_masks_centroids`` (:170),
-``_dino_desc_device`` (:210) and the host ``_adjacency`` (:517).
+``_dino_desc_device`` (:210) and the host ``_adjacency`` (:517), and the
+``mesh`` argument (:338, :402-469, :664-693).
 
 Per query: one uint8 upload; SAM preprocess → encode → AMG decode batches
 → thresholds/NMS/top-``kmax`` select → mask→patch pooling, and the DINO
@@ -26,8 +27,17 @@ one database copy a chunk) and removed (their rows become guard rows) on
 the live server. The (db, ids, norms) triple is swapped through one
 attribute once the new state is complete on the device, so a query reads
 either the old or the new database, never a mix. ``query_many`` runs
-queries on worker threads (``PIPELINE_WORKERS``). Single device (the
-sharded database waits for the multi-GPU slice).
+queries on worker threads (``PIPELINE_WORKERS``).
+
+With a mesh of several devices the database rows (capacity padding
+included, then guard rows up to a multiple of the device count) are
+split into one contiguous shard a device, each shard with its ids and
+squared norms. A query scores every shard and merges the candidates
+(``pipeline.query.query_topk_images_sharded``); an insert writes each
+row into the shard that owns its index (copying only the shards it
+touches), a removal turns the image's rows into guard rows in every
+shard, and the state swapped is the tuple of shards; ``snapshot_index``
+gathers them. The models stay on the server's device.
 """
 
 from __future__ import annotations
@@ -54,10 +64,10 @@ from revisit_anything_tpu_torch.ops.adjacency import delaunay_adjacency
 from revisit_anything_tpu_torch.ops.masks import (mask_pool_matrices,
                                                   pool_masks_to_patch_grid)
 from revisit_anything_tpu_torch.ops.resize import bilinear_weight_matrix
-from revisit_anything_tpu_torch.pipeline.query import (DB_GUARD,
-                                                       db_sq_norms,
-                                                       query_segment_rows,
-                                                       query_topk_images)
+from revisit_anything_tpu_torch.parallel import resolve_mesh
+from revisit_anything_tpu_torch.pipeline.query import (
+    DB_GUARD, db_sq_norms, query_segment_rows, query_topk_images,
+    query_topk_images_sharded)
 
 
 # The database updates make a new (db, ids) pair and leave the old one
@@ -76,17 +86,16 @@ def _db_insert(db: torch.Tensor, db_ids: torch.Tensor, rows: torch.Tensor,
     return db, db_ids
 
 
-def _compact_insert_many(db: torch.Tensor, db_ids: torch.Tensor,
-                         rows: torch.Tensor, n_kept: torch.Tensor,
-                         image_ids: torch.Tensor, cursor: int):
-    """Batched insert: a chunk of images' row blocks compacted and written
-    with one database copy.
+def _compact_rows(rows: torch.Tensor, n_kept: torch.Tensor,
+                  image_ids: torch.Tensor):
+    """A chunk of images' row blocks compacted into one block.
 
     ``rows`` [B, kmax, dim], per image its kept rows first, then guards;
     ``n_kept`` [B]; ``image_ids`` [B]. Row j of the stacked block belongs
     to image i = searchsorted(cumsum(n_kept), j, right) at k = j − the
     exclusive cumsum; rows past the chunk's total are guard rows (the
-    next insert overwrites them) and take ``image_ids[0]``, as in JAX."""
+    next insert overwrites them) and take ``image_ids[0]``, as in JAX.
+    Returns (rows [B·kmax, dim], ids [B·kmax])."""
     b, kmax, dim = rows.shape
     cum = torch.cumsum(n_kept, 0)
     off = cum - n_kept
@@ -99,10 +108,42 @@ def _compact_insert_many(db: torch.Tensor, db_ids: torch.Tensor,
     stacked = rows.reshape(b * kmax, dim)[flat].masked_fill(
         ~valid[:, None], DB_GUARD)
     ids = torch.where(valid, image_ids[i_c], image_ids[0])
+    return stacked, ids
+
+
+def _compact_insert_many(db: torch.Tensor, db_ids: torch.Tensor,
+                         rows: torch.Tensor, n_kept: torch.Tensor,
+                         image_ids: torch.Tensor, cursor: int):
+    """Batched insert: :func:`_compact_rows`'s block written at ``cursor``
+    with one database copy."""
+    stacked, ids = _compact_rows(rows, n_kept, image_ids)
+    n = stacked.shape[0]
     db, db_ids = db.clone(), db_ids.clone()
-    db[cursor:cursor + b * kmax] = stacked.to(db.dtype)
-    db_ids[cursor:cursor + b * kmax] = ids.to(db_ids.dtype)
+    db[cursor:cursor + n] = stacked.to(db.dtype)
+    db_ids[cursor:cursor + n] = ids.to(db_ids.dtype)
     return db, db_ids
+
+
+def _shard_insert(shards, shard_rows: int, rows: torch.Tensor,
+                  ids: torch.Tensor, cursor: int):
+    """Rows [n, dim] and their ids written at global rows [cursor,
+    cursor + n) of a row-sharded database (a tuple of (db, ids, norms)
+    shards of ``shard_rows`` rows each): each touched shard is copied,
+    written on its device and its norms recomputed; the other shards are
+    shared with the old state."""
+    out = list(shards)
+    stop = cursor + rows.shape[0]
+    for s, (db, db_ids, _) in enumerate(shards):
+        lo, hi = max(cursor, s * shard_rows), min(stop, (s + 1) * shard_rows)
+        if lo >= hi:
+            continue
+        db, db_ids = db.clone(), db_ids.clone()
+        part = slice(lo - s * shard_rows, hi - s * shard_rows)
+        db[part] = rows[lo - cursor:hi - cursor].to(db.device, db.dtype)
+        db_ids[part] = ids[lo - cursor:hi - cursor].to(db_ids.device,
+                                                       db_ids.dtype)
+        out[s] = (db, db_ids, db_sq_norms(db))
+    return tuple(out)
 
 
 def _db_remove(db: torch.Tensor, db_ids: torch.Tensor,
@@ -237,6 +278,10 @@ class SegVLADServer:
       max_ref_images: Borda bins (image ids) with ``db_capacity``; by
         default the index's images plus one per free row.
       insert_chunk: images per database copy in ``add_reference_images``.
+      mesh: a ``parallel.Mesh`` whose "data" axis the database rows are
+        sharded over, when it has several devices; "auto" (JAX's default)
+        takes every card when the models are on one; None keeps the
+        database on the models' device.
     """
 
     def __init__(self, *, sam: Sam, dino: dn.DinoV2, index: ServingIndex,
@@ -247,7 +292,7 @@ class SegVLADServer:
                  top_images: int = RECALL_TOPK,
                  db_capacity: Optional[int] = None,
                  max_ref_images: Optional[int] = None,
-                 insert_chunk: int = 16):
+                 insert_chunk: int = 16, mesh="auto"):
         if dino_facet not in dn.FACETS:
             raise ValueError(f"dino_facet {dino_facet!r} not in {dn.FACETS}")
         self.sam = sam
@@ -335,9 +380,31 @@ class SegVLADServer:
             db_ids = torch.cat([db_ids, torch.zeros(db_capacity - n,
                                                     dtype=db_ids.dtype,
                                                     device=dev)])
-        # queries read (db, ids, norms) through this one attribute; inserts
-        # and removals build a new triple and swap it under the lock
-        self._db_state = (db, db_ids, db_sq_norms(db))
+        # queries read (db, ids, norms) — or, row-sharded, a tuple of such
+        # shards — through this one attribute; inserts and removals build
+        # a new state and swap it under the lock
+        self._num_rows = db.shape[0]
+        self._mesh = resolve_mesh(mesh, dev)
+        self._shard_devices = None
+        if self._mesh is not None and self._mesh.size > 1:
+            self._shard_devices = self._mesh.axis_devices("data")
+            d = len(self._shard_devices)
+            pad = (-db.shape[0]) % d
+            # shard padding: guard rows, never in a top-k, voting zero
+            db = torch.cat([db, torch.full((pad, db.shape[1]), DB_GUARD,
+                                           dtype=db.dtype, device=dev)])
+            db_ids = torch.cat([db_ids, torch.zeros(pad, dtype=db_ids.dtype,
+                                                    device=dev)])
+            self._shard_rows = db.shape[0] // d
+            shards = []
+            for i, sdev in enumerate(self._shard_devices):
+                part = slice(i * self._shard_rows, (i + 1) * self._shard_rows)
+                sdb = db[part].to(sdev)
+                shards.append((sdb, db_ids[part].to(sdev), db_sq_norms(sdb)))
+            self._db_state = tuple(shards)
+        else:
+            self._db_state = (db, db_ids, db_sq_norms(db))
+        del db, db_ids
         self._mutate_lock = threading.Lock()
 
         with torch.inference_mode():
@@ -386,11 +453,12 @@ class SegVLADServer:
                              " resize on the host first")
 
     def _publish(self) -> None:
-        """Wait until the work queued on this thread's stream is done, so
+        """Wait until the work queued on this thread's streams is done, so
         what it made (a new database, an image's rows) is complete before
         threads on other streams read it."""
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        for d in {self.device, *(self._shard_devices or ())}:
+            if d.type == "cuda":
+                torch.cuda.current_stream(d).synchronize()
 
     # ----- database state -----
 
@@ -402,17 +470,31 @@ class SegVLADServer:
                    else self.num_ref_images)
 
     @property
+    def sharded(self) -> bool:
+        """Whether the database rows are split over a mesh's devices."""
+        return self._shard_devices is not None
+
+    def _gathered(self, state, i: int) -> torch.Tensor:
+        """Part ``i`` (0 rows, 1 ids, 2 squared norms) of a state on the
+        server's device, as one device holds it: a sharded one's shards
+        joined there, the shard padding dropped."""
+        if not self.sharded:
+            return state[i]
+        return torch.cat([shard[i].to(self.device)
+                          for shard in state])[:self._num_rows]
+
+    @property
     def _db(self) -> torch.Tensor:
-        return self._db_state[0]
+        return self._gathered(self._db_state, 0)
 
     @property
     def _db_ids(self) -> torch.Tensor:
-        return self._db_state[1]
+        return self._gathered(self._db_state, 1)
 
     @property
     def _db_norms(self) -> torch.Tensor:
         """[Nd] f32 squared row norms, recomputed once per database swap."""
-        return self._db_state[2]
+        return self._gathered(self._db_state, 2)
 
     # ----- public API -----
 
@@ -424,16 +506,22 @@ class SegVLADServer:
                 self.device)
             patch_masks, stats, desc = self._front(img_dev)
             adj, _ = self._adjacency(stats.cpu().numpy())
-            # one load: a consistent triple, held until the readback below
+            # one load: a consistent state, held until the readback below
             # has waited for every kernel that reads it
-            db, db_ids, db_norms = self._db_state
-            top = query_topk_images(
-                desc, patch_masks, torch.from_numpy(adj).to(self.device),
-                self._centers, self._pca_mean, self._pca_comps,
-                self._pca_var, db, db_ids,
-                num_ref_images=self.num_ref_images, knn_topk=self.knn_topk,
-                borda_topk=self.borda_topk, top_images=self.top_images,
-                whiten=self._whiten, db_norms=db_norms)
+            state = self._db_state
+            args = (desc, patch_masks, torch.from_numpy(adj).to(self.device),
+                    self._centers, self._pca_mean, self._pca_comps,
+                    self._pca_var)
+            kw = dict(num_ref_images=self.num_ref_images,
+                      knn_topk=self.knn_topk, borda_topk=self.borda_topk,
+                      top_images=self.top_images, whiten=self._whiten)
+            if self.sharded:
+                top = query_topk_images_sharded(
+                    *args, shards=state, num_rows=self._num_rows, **kw)
+            else:
+                db, db_ids, db_norms = state
+                top = query_topk_images(*args, db, db_ids, db_norms=db_norms,
+                                        **kw)
             return top.cpu().numpy()
 
     def query_many(self, imgs: Sequence[np.ndarray],
@@ -501,13 +589,19 @@ class SegVLADServer:
                 chunk_ids = list(range(self._next_image_id,
                                        self._next_image_id + len(chunk)))
                 with torch.inference_mode():
-                    db, db_ids = _compact_insert_many(
-                        self._db, self._db_ids,
-                        torch.stack([r for r, _ in prepped]),
-                        torch.tensor(kept, device=self.device),
-                        torch.tensor(chunk_ids, device=self.device),
-                        self._cursor)
-                    state = (db, db_ids, db_sq_norms(db))
+                    rows = torch.stack([r for r, _ in prepped])
+                    kept_t = torch.tensor(kept, device=self.device)
+                    ids_t = torch.tensor(chunk_ids, device=self.device)
+                    if self.sharded:
+                        state = _shard_insert(
+                            self._db_state, self._shard_rows,
+                            *_compact_rows(rows, kept_t, ids_t),
+                            self._cursor)
+                    else:
+                        db, db_ids = _compact_insert_many(
+                            *self._db_state[:2], rows, kept_t, ids_t,
+                            self._cursor)
+                        state = (db, db_ids, db_sq_norms(db))
                     self._publish()
                 # one swap: queries see the old or the new triple
                 self._db_state = state
@@ -526,8 +620,13 @@ class SegVLADServer:
                              "db_capacity=...)")
         with self._mutate_lock:
             with torch.inference_mode():
-                db = _db_remove(self._db, self._db_ids, image_id)
-                state = (db, self._db_ids, db_sq_norms(db))
+                shards = self._db_state if self.sharded else (
+                    self._db_state,)
+                state = []
+                for db, db_ids, _ in shards:
+                    db = _db_remove(db, db_ids, image_id)
+                    state.append((db, db_ids, db_sq_norms(db)))
+                state = tuple(state) if self.sharded else state[0]
                 self._publish()
             self._db_state = state
 
@@ -540,9 +639,11 @@ class SegVLADServer:
         of either package and the query CLI read. ``image_keys``: display
         names by image id, ``image_<id>`` by default."""
         with self._mutate_lock:
-            db_dev, ids_dev = self._db_state[:2]
+            state = self._db_state
+            db_dev, ids_dev = (self._gathered(state, 0),
+                               self._gathered(state, 1))
             n = (self._cursor if self._cursor is not None
-                 else ids_dev.shape[0])
+                 else self._num_rows)
             db = _numpy(db_dev[:n].float())
             db_ids = _numpy(ids_dev[:n]).astype(np.int32)
             # the true image-id bound, not the Borda bins: persisting the

@@ -64,22 +64,32 @@ BACKBONE_TRAINING_MODULES = (
     "training.validation", "training.vladbuff", "retrieval.analysis")
 
 
+CLI_MESH_MODULES = (
+    "cli", "__main__", "parallel", "parallel.mesh", "parallel.data_parallel",
+    "parallel.distributed", "parallel.sharded_knn", "utils",
+    "utils.profiling", "utils.seeding", "retrieval.cluster_analysis")
+
+
 def test_port_imports_without_jax_or_nvcc():
     """The serving path, the fifteen modules of the offline pipeline,
     SAM's tools and the dataset loaders, the other backbones, the hub and
-    training import on a machine with neither JAX in use nor nvcc (the
+    training, the CLI, the mesh paths, profiling, seeding and the cluster
+    analysis import on a machine with neither JAX in use nor nvcc (the
     kernels build at their first CUDA launch, ``native/maskops.cpp`` at
-    its first call), and load none of h5py, PIL, cv2, sklearn, optax,
-    orbax, transformers or pandas (the card's machine lacks some of them:
-    they are imported where a function needs them)."""
+    its first call), and load none of h5py, PIL, cv2, sklearn,
+    matplotlib, imageio, optax, orbax, transformers or pandas (the card's
+    machine lacks some of them: they are imported where a function needs
+    them)."""
     mods = ["pipeline.serve", "weights", "models.sam.convert",
-            *OFFLINE_MODULES, *SAM_TOOL_MODULES, *BACKBONE_TRAINING_MODULES]
+            *OFFLINE_MODULES, *SAM_TOOL_MODULES, *BACKBONE_TRAINING_MODULES,
+            *CLI_MESH_MODULES]
     code = ("import sys; " + "; ".join(
         f"import revisit_anything_tpu_torch.{m}" for m in mods) + "; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'revisit_anything_tpu.')) or "
-            "m.split('.')[0] in ('h5py', 'PIL', 'cv2', 'sklearn', 'optax', "
-            "'orbax', 'transformers', 'pandas')]; "
+            "m.split('.')[0] in ('h5py', 'PIL', 'cv2', 'sklearn', "
+            "'matplotlib', 'imageio', 'optax', 'orbax', 'transformers', "
+            "'pandas')]; "
             "assert not bad, bad")
     env = dict(os.environ, PATH="/usr/bin:/bin")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -1355,3 +1365,78 @@ def test_offline_retrieval_ops_on_the_card_match_the_cpu(cuda):
     got = weighted_borda_predict(*(a.to(cuda) for a in args), n_q, n_ref)
     want = weighted_borda_predict(*args, n_q, n_ref)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_set_image_of_a_large_image_on_the_card_matches_the_cpu(cuda):
+    """A 1200x1600 image, larger than the small SAM's 256 frame (PIL's host
+    downscale to 192x256), through ``SamPredictor.set_image`` on the card
+    and on the CPU from the same bf16 weights: K1 once (the one global
+    layer), the embedding within BF16_REL of its scale."""
+    import copy
+
+    from revisit_anything_tpu_torch.models.sam.predictor import SamPredictor
+    sam = _offline_sam()
+    card = SamPredictor(copy.deepcopy(sam).to(cuda))
+    cpu = SamPredictor(sam)
+    img = _blob_image(np.random.default_rng(31), (1200, 1600))
+    build.reset_counts()
+    card.set_image(img)
+    assert build.FLASH_ATTENTION.launches == 1
+    assert sum(k.launches for k in build.KERNELS) == 1
+    cpu.set_image(img)
+    assert card._input_hw == cpu._input_hw == (192, 256)
+    emb = card.get_image_embedding()
+    assert emb.is_cuda and bool(torch.isfinite(emb).all())
+    assert _rel_err(emb.cpu(), cpu.get_image_embedding()) <= BF16_REL
+
+
+@pytest.mark.gpu
+def test_sharded_knn_over_the_card_twice_matches_knn_l2(cuda):
+    """A mesh that lists the card twice: two shards of an uneven database,
+    the one-device kNN's distances (within 1e-5) and index sets."""
+    from revisit_anything_tpu_torch.ops.knn import knn_l2
+    from revisit_anything_tpu_torch.parallel import make_mesh, sharded_knn_l2
+    mesh = make_mesh(devices=[cuda, cuda])
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((37, 64), generator=g, device=cuda)
+    db = torch.randn((10007, 64), generator=g, device=cuda)
+    sq, idx = sharded_knn_l2(q, db, 50, mesh)
+    sq1, idx1 = knn_l2(q, db, 50)
+    assert sq.is_cuda and int(idx.max()) < 10007
+    torch.testing.assert_close(sq, sq1, rtol=1e-5, atol=1e-5)
+    assert torch.equal(idx.sort(1).values, idx1.sort(1).values)
+
+
+@pytest.mark.gpu
+def test_row_sharded_server_on_the_card_matches_one_device(cuda):
+    """The database in two shards on the card: after inserts and a removal
+    every query answers as the one-device server's, the sharded queries,
+    counted on their own, launch the kernels the one-device queries
+    launch as many times, and the snapshots agree."""
+    from revisit_anything_tpu_torch.parallel import make_mesh
+    kw = dict(db_capacity=500 + 3 * 32, insert_chunk=4)
+    one = _small_server(cuda, mesh=None, **kw)
+    two = _small_server(cuda, mesh=make_mesh(devices=[cuda, cuda]), **kw)
+    assert two.sharded and not one.sharded
+    rng = np.random.default_rng(12)
+    imgs = [_blob_image(rng) for _ in range(3)]
+    assert one.add_reference_images(imgs) == two.add_reference_images(imgs)
+    one.remove_reference_image(51)
+    two.remove_reference_image(51)
+    queries = imgs + [_blob_image(rng) for _ in range(2)]
+    build.reset_counts()
+    want = [one.query(q) for q in queries]
+    counts_one = {k.name: k.launches for k in build.KERNELS}
+    build.reset_counts()
+    got = [two.query(q) for q in queries]
+    counts_two = {k.name: k.launches for k in build.KERNELS}
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    for k in (build.FLASH_ATTENTION, build.TOKEN_CROSS, build.I2T_UPDATE,
+              build.MASK_HEAD, build.RESIZE_FLAGS):
+        assert counts_two[k.name] > 0, k.name
+    assert counts_two == counts_one
+    a, b = one.snapshot_index(), two.snapshot_index()
+    np.testing.assert_array_equal(a.db, b.db)
+    np.testing.assert_array_equal(a.db_image_ids, b.db_image_ids)

@@ -199,9 +199,17 @@ def test_batched_encode_matches_one_image_at_a_time(models):
 
 
 def test_downscaling_preprocess_raises():
-    cfg = PSamCfg(**SAM_KW)
-    with pytest.raises(NotImplementedError, match="PIL"):
-        pamg._preprocess_any(np.zeros((200, 100, 3), np.uint8), cfg, CPU)
+    """An image larger than the SAM frame used to raise here; it now takes
+    the JAX package's host PIL path and gives its array bit for bit (the
+    name is kept; ``tests/test_torch_preprocess.py`` holds the path at
+    camera sizes)."""
+    from revisit_anything_tpu.models.sam import amg as jamg
+    img = np.random.default_rng(0).integers(0, 256, (200, 100, 3),
+                                            dtype=np.uint8)
+    got, got_hw = pamg._preprocess_any(img, PSamCfg(**SAM_KW), CPU)
+    want, want_hw = jamg._preprocess_any(img, SamArchConfig(**SAM_KW))
+    assert got_hw == want_hw == (128, 64)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_fallback_records_draw_the_jax_pixels(monkeypatch):
