@@ -4,8 +4,9 @@ serve full-width SegVLAD queries through the kernels over a live database
 (inserts, removals, snapshots, pipelined and concurrent queries, the
 streaming kNN), in each of the decoder's forms and with the encoder's
 windowed layers either way, load full-size checkpoints onto the card,
-extract features with the other backbones and train VLAD-BuFF, encode
-camera-sized images, run the mesh paths over the card listed twice and
+extract features with the other backbones and train VLAD-BuFF (on one
+device and sharded over processes), encode camera-sized images, run the
+mesh paths over the card listed twice and the multi-device dry run, and
 drive the command line.
 
     python3 chip_smoke.py
@@ -142,6 +143,14 @@ Phases (any failure exits non-zero):
      frozen parameters bit for bit, every trainable tensor moved; a
      checkpoint after step 3 restored into a fresh state gives step 4's
      loss and parameters within 1e-6; run_validation on 32 + 16 images;
+ 21a. [sharded-train]: make_sharded_train_step at [train]'s sizes
+     against train_step from the same seeded state, three steps: a 1x1
+     mesh on an NCCL group of one process, and meshes (1, 2) and (2, 1)
+     of two processes on the one card over gloo with CUDA tensors;
+     losses within rtol 1e-4, parameters within atol 1e-4, frozen ones
+     bit for bit; steps/s of each; then [dryrun]: dryrun_multichip(4)
+     over the card listed 4 times (its extraction must launch K1, K2,
+     K5, K3 and K4);
  21b. [cli]: cli.main at full width (seeded SAM ViT-H, DINOv2-g layer
      31): `query` over a 20,000-row index the smoke writes (its top-5
      equal to the library's SegVLADServer built from the same seeds; the
@@ -2522,6 +2531,180 @@ def train_phase(dev, seed: int = 13) -> dict:
     return dict(losses=losses, steps_s=rate, peak_gib=peak, recalls=recalls)
 
 
+SHARDED_STEPS = 3
+
+
+def _sharded_batches(seed: int, ppb: int = 16, ipp: int = 4) -> list:
+    """[train]'s batch shape from a seed: ``ppb`` places x ``ipp`` views
+    at 224x224, normalized f32; a place's views share a weak common image
+    so the miner finds pairs."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    labels = np.repeat(np.arange(ppb), ipp)
+    out = []
+    for _ in range(SHARDED_STEPS):
+        base = 0.3 * rng.standard_normal((ppb, 224, 224, 3), np.float32)
+        out.append((base[labels] + rng.standard_normal(
+            (ppb * ipp, 224, 224, 3), np.float32), labels))
+    return out
+
+
+def _timed_steps(step, batches) -> tuple:
+    """Losses of ``step(images, labels)`` over ``batches`` and its steps/s
+    after the first (synchronized wall)."""
+    import torch
+    losses, secs = [], []
+    for x, y in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(step(x, y).item())
+        secs.append(time.perf_counter() - t)
+    return losses, (len(secs) - 1) / sum(secs[1:])
+
+
+SHARDED_MESHES = ((1, 2), (2, 1))
+
+
+def _sharded_worker(argv) -> None:
+    """One of [sharded-train] (b)'s two processes on the card (gloo): the
+    sharded step from the seeded state on each mesh of
+    ``SHARDED_MESHES`` in turn; rank 0 saves each mesh's losses, steps/s,
+    peak memory and gathered parameters to ``<argv[3]>/<dp>x<tp>.pt``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from revisit_anything_tpu_torch.dryrun import init_rank
+    from revisit_anything_tpu_torch.parallel import make_mesh
+    from revisit_anything_tpu_torch.training import train as tr
+    addr, rank, seed, out = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    dev = init_rank(addr, "gloo", 2, rank, "cuda:0")
+    cfg = tr.VPRTrainConfig()
+    batches = _sharded_batches(seed)
+    for dp, tp in SHARDED_MESHES:
+        step_fn, st = tr.make_sharded_train_step(
+            make_mesh((dp, tp), ("data", "model"), devices=[dev] * 2), cfg,
+            tr.create_train_state(cfg, seed=seed, device=dev))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses, rate = _timed_steps(lambda x, y: step_fn(st, x, y), batches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        params, _ = st.state_dicts()
+        if rank == 0:
+            torch.save({"losses": losses, "steps_s": rate, "peak_gib": peak,
+                        "params": {k: v.cpu() for k, v in params.items()}},
+                       os.path.join(out, f"{dp}x{tp}.pt"))
+        del st, params
+    dist.destroy_process_group()
+
+
+def sharded_train_phase(dev, seed: int = 17) -> dict:
+    """[sharded-train]: ``make_sharded_train_step`` at [train]'s sizes
+    (DINOv2 ViT-B/14, 4 of 12 blocks trainable, NetVLAD-AntiBurst 64,
+    AdamW at lr 6e-5 on the linear schedule; 16 places x 4 views at
+    224x224 a batch, f32 with TF32 off; seeded batches) against
+    ``train_step`` from the same seeded state: (a) a 1x1 mesh on an NCCL
+    group of this process alone; (b) two processes on the one card over
+    gloo with CUDA tensors (NCCL refuses two ranks on one card), meshes
+    (1, 2) and (2, 1). Three steps each: losses within rtol 1e-4 and
+    every parameter within atol 1e-4 (the CPU test's AdamW bounds), the
+    frozen ones bit for bit. Prints steps/s (steps 2-3) of each."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from revisit_anything_tpu_torch.dryrun import free_port, run_ranks
+    from revisit_anything_tpu_torch.parallel import make_mesh
+    from revisit_anything_tpu_torch.training import train as tr
+
+    torch.cuda.empty_cache()
+    cfg = tr.VPRTrainConfig()
+    batches = _sharded_batches(seed)
+    ref = tr.create_train_state(cfg, seed=seed, device=dev)
+    mask = tr._trainable_mask(ref.model, cfg)
+    want, want_rate = _timed_steps(
+        lambda x, y: tr.train_step(ref, cfg, torch.from_numpy(x),
+                                   torch.from_numpy(y)), batches)
+    final = {n: p.detach() for n, p in ref.model.named_parameters()}
+    print(f"[sharded-train] train_step (one device): losses "
+          f"{' '.join(f'{v:.6f}' for v in want)}; {want_rate:.3f} steps/s "
+          f"(steps 2-3)", flush=True)
+    out = {"one_device_steps_s": want_rate}
+
+    def check(tag, losses, params, rate, note=""):
+        dl = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+        dp_ = max((params[n].to(dev) - p).abs().max().item()
+                  for n, p in final.items())
+        frozen = all(torch.equal(params[n].to(dev), p)
+                     for n, p in final.items() if not mask[n])
+        print(f"[sharded-train] {tag}: losses "
+              f"{' '.join(f'{v:.6f}' for v in losses)}; {rate:.3f} steps/s "
+              f"(steps 2-3; train_step {want_rate:.3f}); max loss rel diff "
+              f"{dl:.3e}, max |param diff| {dp_:.3e}, frozen bit for bit "
+              f"{frozen}{note}", flush=True)
+        if not (dl <= 1e-4 and dp_ <= 1e-4 and frozen):
+            _fail(f"[sharded-train] {tag} disagrees with train_step")
+        out[tag] = dict(losses=losses, steps_s=rate, loss_rel=dl,
+                        param_abs=dp_)
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        step_fn, st = tr.make_sharded_train_step(
+            make_mesh((1, 1), ("data", "model"), devices=[dev]), cfg,
+            tr.create_train_state(cfg, seed=seed, device=dev))
+        losses, rate = _timed_steps(lambda x, y: step_fn(st, x, y), batches)
+        params, _ = st.state_dicts()
+        check("(a) 1x1 mesh, NCCL, world 1", losses, params, rate)
+        del st, params
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        addr = f"tcp://127.0.0.1:{free_port()}"
+        t0 = time.perf_counter()
+        run_ranks("import sys, chip_smoke; "
+                  "chip_smoke._sharded_worker(sys.argv[1:])",
+                  [[addr, r, seed, tmp] for r in range(2)], timeout=600)
+        print(f"[sharded-train] (b) both meshes in "
+              f"{time.perf_counter() - t0:.1f} s with the processes' "
+              f"start-up", flush=True)
+        for dp, tp in SHARDED_MESHES:
+            res = torch.load(os.path.join(tmp, f"{dp}x{tp}.pt"),
+                             weights_only=True)
+            check(f"(b) ({dp}, {tp}) mesh, gloo with CUDA tensors, 2 "
+                  f"processes on one card", res["losses"], res["params"],
+                  res["steps_s"], f"; rank 0 peak {res['peak_gib']:.2f} GiB")
+    del ref, final
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_phase() -> dict:
+    """[dryrun]: ``dryrun_multichip(4)`` on the card (the mesh paths over
+    the one H100 listed 4 times; the train step in 4 processes over
+    gloo), with the counters reset first: its extraction path must
+    launch K1, K2, K5, K3 and K4."""
+    from revisit_anything_tpu_torch.dryrun import dryrun_multichip
+    from revisit_anything_tpu_torch.kernels import build
+    build.reset_counts()
+    t0 = time.perf_counter()
+    out = dryrun_multichip(4)
+    counts = {k.name: k.launches for k in build.KERNELS if k.launches}
+    print(f"[dryrun] {time.perf_counter() - t0:.1f} s; train step "
+          f"{out['train']['seconds']:.1f} s with its 4 processes' start-up; "
+          f"launches {counts} (extraction with and without the mesh)",
+          flush=True)
+    missing = [k.name for k in _paths()["shared"] if k.name not in counts]
+    if missing:
+        _fail(f"[dryrun] kernels not launched: {missing}")
+    return out
+
+
 def preprocess_phase(sam, seed: int = 14) -> dict:
     """[preprocess]: ``SamPredictor.set_image`` at full width on a
     1200x1600 and a 2048x1536 uint8 image, both larger than SAM's 1024
@@ -3464,6 +3647,8 @@ def main() -> None:
     checkpoint_phase(dev)
     backbones = backbones_phase(dev)
     train_phase(dev)
+    sharded_train_phase(dev)
+    dryrun_phase()
     cli_phase(dev)
 
     # launches: the 3 "shared" queries for the kernels of that form, the

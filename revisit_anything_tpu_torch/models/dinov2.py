@@ -129,19 +129,45 @@ def _attention(x: torch.Tensor, blk: DinoBlock,
     return blk.proj(out.permute(0, 2, 1, 3).reshape(b, n, d))
 
 
-def _ffn(x: torch.Tensor, blk: DinoBlock, cfg: DinoV2Config) -> torch.Tensor:
+def _ffn(x: torch.Tensor, blk: DinoBlock, cfg: DinoV2Config,
+         tp=None) -> torch.Tensor:
+    """The block's MLP or SwiGLU FFN. With ``tp`` (a
+    ``parallel.collectives.MeshAxis`` over the mesh's "model" axis) the
+    hidden dimension is split over it, as the JAX train step's sharding
+    splits it (``training/train.py:241-246``): ``blk`` holds this rank's
+    fc1 / w12 columns (w12's x1 block and x2 block) and fc2 / w3 rows,
+    and the whole 1-d fc1 / w12 bias, which is sliced to those columns;
+    the partial products are summed over the axis, then the output bias
+    is added once."""
+    if tp is not None:
+        return _ffn_tensor_parallel(x, blk, cfg, tp)
     if cfg.ffn == "swiglu":
         x1, x2 = blk.w12(x).chunk(2, dim=-1)
         return blk.w3(F.silu(x1) * x2)
     return blk.fc2(F.gelu(blk.fc1(x)))
 
 
-def _block(x: torch.Tensor, blk: DinoBlock, cfg: DinoV2Config) -> torch.Tensor:
+def _ffn_tensor_parallel(x: torch.Tensor, blk: DinoBlock, cfg: DinoV2Config,
+                         tp) -> torch.Tensor:
+    x = tp.copy_in(x)
+    if cfg.ffn == "swiglu":
+        h = blk.w12.nobias(x) + tp.local(blk.w12.b, 0, halves=2)
+        x1, x2 = h.chunk(2, dim=-1)
+        out, last = blk.w3.nobias(F.silu(x1) * x2), blk.w3
+    else:
+        h = blk.fc1.nobias(x) + tp.local(blk.fc1.b, 0)
+        out, last = blk.fc2.nobias(F.gelu(h)), blk.fc2
+    return tp.reduce_out(out) + last.b
+
+
+def _block(x: torch.Tensor, blk: DinoBlock, cfg: DinoV2Config,
+           tp=None) -> torch.Tensor:
+    """One transformer block; ``tp`` splits its FFN (:func:`_ffn`)."""
     a = _attention(blk.norm1(x, cfg.eps), blk, cfg)
     if blk.ls1 is not None:
         a = a * blk.ls1
     x = x + a
-    f = _ffn(blk.norm2(x, cfg.eps), blk, cfg)
+    f = _ffn(blk.norm2(x, cfg.eps), blk, cfg, tp)
     if blk.ls2 is not None:
         f = f * blk.ls2
     return x + f

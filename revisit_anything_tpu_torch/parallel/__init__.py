@@ -7,3 +7,5 @@ from revisit_anything_tpu_torch.parallel.data_parallel import (  # noqa: F401
     data_parallel_apply)
 from revisit_anything_tpu_torch.parallel.distributed import (  # noqa: F401
     host_shard, initialize_multihost, process_info)
+from revisit_anything_tpu_torch.parallel.collectives import (  # noqa: F401
+    MeshAxis, owned_ranges)

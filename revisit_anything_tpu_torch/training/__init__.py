@@ -1,2 +1,3 @@
-"""VLAD-BuFF training on one device: aggregators, losses, the train
-step, data, checkpoints and validation."""
+"""VLAD-BuFF training: aggregators, losses, the train step (one device,
+and data x tensor parallel over processes), data, checkpoints and
+validation."""

@@ -24,7 +24,7 @@ from torch import nn
 
 from revisit_anything_tpu_torch.models.layers import tree_module
 from revisit_anything_tpu_torch.ops.knn import f32_products
-from revisit_anything_tpu_torch.ops.vlad import l2_normalize
+from revisit_anything_tpu_torch.ops.vlad import _EPS, l2_normalize
 
 
 def from_jax_tree(tree, *, dtype=torch.float32, device="cuda") -> nn.Module:
@@ -140,25 +140,59 @@ def _antiburst_weights(x_flat: torch.Tensor,
 
 
 def netvlad_forward(params: nn.Module, features: torch.Tensor,
-                    normalize_input: bool = True) -> torch.Tensor:
+                    normalize_input: bool = True, tp=None) -> torch.Tensor:
     """features [B, D, H, W] → [B, clusters·D] VLADs: input L2-norm over
     D, softmax soft assignment, optional AntiBurst down-weighting,
-    residual aggregation, intra-norm and global L2."""
+    residual aggregation, intra-norm and global L2.
+
+    With ``tp`` (a ``parallel.collectives.MeshAxis`` over the mesh's
+    "model" axis) the clusters are split over it, as the JAX train
+    step's sharding splits them (``assign_w`` by columns, ``centroids``
+    by rows: ``params`` holds this rank's): the softmax over clusters is
+    reduced over the axis (the max, then the sum of exponentials), the
+    global L2 norm comes from the all-reduced squared norms, and the
+    descriptor is gathered over the axis. Residuals and intra-norms stay
+    local; the AntiBurst weights come from the replicated input. A
+    replicated value that meets this rank's clusters passes
+    ``tp.copy_in``, whose backward sums the ranks' partial gradients."""
     b, d = features.shape[:2]
     with f32_products():
         x = features.reshape(b, d, -1).float()                # [B, D, P]
         if normalize_input:
             x = l2_normalize(x, 1)
         x = _nv_pca_project(params, x, normalize_input)
-        logits = torch.einsum("bdp,dc->bcp", x, params.assign_w)
-        soft_assign = torch.softmax(logits, dim=1)            # [B, C, P]
+        # replicated values enter this rank's clusters through copy_in
+        xc = x if tp is None else tp.copy_in(x)
+        logits = torch.einsum("bdp,dc->bcp", xc, params.assign_w)
+        soft_assign = (torch.softmax(logits, dim=1) if tp is None
+                       else _softmax_over(logits, tp))        # [B, C, P]
         if hasattr(params, "ab_params"):
-            soft_assign = soft_assign / _antiburst_weights(
-                x, params.ab_params)[:, None, :]
-        vlad = (torch.einsum("bcp,bdp->bcd", soft_assign, x)
+            w_burst = _antiburst_weights(x, params.ab_params)
+            if tp is not None:
+                w_burst = tp.copy_in(w_burst)
+            soft_assign = soft_assign / w_burst[:, None, :]
+        vlad = (torch.einsum("bcp,bdp->bcd", soft_assign, xc)
                 - soft_assign.sum(2)[:, :, None] * params.centroids)
     vlad = l2_normalize(vlad, 2)                              # intra-norm
-    return l2_normalize(vlad.reshape(b, -1), 1)
+    if tp is None:
+        return l2_normalize(vlad.reshape(b, -1), 1)
+    vlad = vlad.reshape(b, -1)
+    sq = _sum_over((vlad * vlad).sum(1, keepdim=True), tp)
+    return tp.gather(vlad / torch.sqrt(sq).clamp(min=_EPS), 1)
+
+
+def _sum_over(x: torch.Tensor, tp) -> torch.Tensor:
+    """A sum over ``tp``'s ranks that each rank then uses with its own
+    clusters only: the forward's all-reduce, and an all-reduce of the
+    backward's partial gradients (``copy_in``)."""
+    return tp.copy_in(tp.reduce_out(x))
+
+
+def _softmax_over(logits: torch.Tensor, tp) -> torch.Tensor:
+    """Softmax over dim 1 of clusters split over ``tp``."""
+    shift = tp.all_max(logits.detach().amax(1, keepdim=True))
+    e = torch.exp(logits - shift)
+    return e / _sum_over(e.sum(1, keepdim=True), tp)
 
 
 # ---------------------------------------------------------------------------

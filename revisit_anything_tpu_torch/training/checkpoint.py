@@ -9,7 +9,10 @@ model's and the optimizer's state dicts and the step, written under a
 temporary name and moved into place with ``os.replace``, so a crash
 mid-save never leaves a partial file under a checkpoint's name. JAX
 (orbax) checkpoints are not read; parameters cross between the packages
-through ``weights.py``.
+through ``weights.py``. A sharded state (``train.ShardedTrainState``)
+writes the one-device state's file: every rank gathers, rank 0 writes,
+and a restore slices the file to each rank, so a run resumes at another
+(dp, tp); every rank of a sharded state calls these functions.
 """
 
 from __future__ import annotations
@@ -24,11 +27,13 @@ _PARTIAL = ".partial"
 
 
 def _save(path: str, state) -> None:
-    tmp = path + _PARTIAL
-    torch.save({"model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "step": int(state.step)}, tmp)
-    os.replace(tmp, path)
+    model_sd, optimizer_sd = state.state_dicts()
+    if state.writes_files:
+        tmp = path + _PARTIAL
+        torch.save({"model": model_sd, "optimizer": optimizer_sd,
+                    "step": int(state.step)}, tmp)
+        os.replace(tmp, path)
+    state.barrier()
 
 
 def save_train_state(ckpt_dir: str, state) -> str:
@@ -69,19 +74,21 @@ def save_best_state(ckpt_dir: str, state, metric: float,
         return None
     path = os.path.join(ckpt_dir, "best")
     _save(path, state)
-    tmp = meta_path + _PARTIAL
-    with open(tmp, "w") as f:
-        json.dump({"metric": float(metric), "monitor": monitor,
-                   "step": int(state.step)}, f)
-    os.replace(tmp, meta_path)
+    if state.writes_files:
+        tmp = meta_path + _PARTIAL
+        with open(tmp, "w") as f:
+            json.dump({"metric": float(metric), "monitor": monitor,
+                       "step": int(state.step)}, f)
+        os.replace(tmp, meta_path)
+    state.barrier()
     return path
 
 
 def restore_train_state(path: str, state) -> None:
     """Load a checkpoint into ``state`` (a train state built for the same
-    configuration: its model, optimizer and step are overwritten)."""
+    configuration, one-device or sharded: its model, optimizer and step
+    are overwritten)."""
     dev = next(state.model.parameters()).device
     ckpt = torch.load(path, map_location=dev, weights_only=True)
-    state.model.load_state_dict(ckpt["model"])
-    state.optimizer.load_state_dict(ckpt["optimizer"])
+    state.load_state_dicts(ckpt["model"], ckpt["optimizer"])
     state.step = int(ckpt["step"])

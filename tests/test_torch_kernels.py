@@ -67,14 +67,16 @@ BACKBONE_TRAINING_MODULES = (
 CLI_MESH_MODULES = (
     "cli", "__main__", "parallel", "parallel.mesh", "parallel.data_parallel",
     "parallel.distributed", "parallel.sharded_knn", "utils",
-    "utils.profiling", "utils.seeding", "retrieval.cluster_analysis")
+    "utils.profiling", "utils.seeding", "retrieval.cluster_analysis",
+    "parallel.collectives", "dryrun")
 
 
 def test_port_imports_without_jax_or_nvcc():
     """The serving path, the fifteen modules of the offline pipeline,
     SAM's tools and the dataset loaders, the other backbones, the hub and
     training, the CLI, the mesh paths, profiling, seeding and the cluster
-    analysis import on a machine with neither JAX in use nor nvcc (the
+    analysis, the sharded train step and the multi-device dry run import
+    on a machine with neither JAX in use nor nvcc (the
     kernels build at their first CUDA launch, ``native/maskops.cpp`` at
     its first call), and load none of h5py, PIL, cv2, sklearn,
     matplotlib, imageio, optax, orbax, transformers or pandas (the card's
@@ -85,6 +87,8 @@ def test_port_imports_without_jax_or_nvcc():
             *CLI_MESH_MODULES]
     code = ("import sys; " + "; ".join(
         f"import revisit_anything_tpu_torch.{m}" for m in mods) + "; "
+            "from revisit_anything_tpu_torch.training.train import ("
+            "make_sharded_train_step, param_sharding_rules, shard_model); "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'revisit_anything_tpu.')) or "
             "m.split('.')[0] in ('h5py', 'PIL', 'cv2', 'sklearn', "
@@ -465,6 +469,52 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
         assert _rel_err(a.detach().cpu(), b.detach()) < 1e-5, name
         if name.startswith("backbone.blocks.0."):
             assert torch.equal(a.cpu(), s) and torch.equal(b, s), name
+
+
+@pytest.mark.gpu
+def test_sharded_step_on_a_1x1_nccl_mesh_matches_train_step(cuda):
+    """The sharded step on a 1x1 mesh (an NCCL group of one process, this
+    one) against ``train_step`` from the same weights and batches on the
+    card: three SGD steps, losses and parameters within 1e-5 relative
+    (the NetVLAD softmax and global norm in another order), the frozen
+    blocks bit for bit."""
+    import copy
+
+    import torch.distributed as dist
+
+    from revisit_anything_tpu_torch.dryrun import free_port
+    from revisit_anything_tpu_torch.models import dinov2 as dn
+    from revisit_anything_tpu_torch.parallel import make_mesh
+    from revisit_anything_tpu_torch.training import train as tr
+    cfg = tr.VPRTrainConfig(backbone=dn.DinoV2Config(
+        embed_dim=64, depth=3, num_heads=2, pretrain_grid=(4, 4)),
+        num_trainable_blocks=2, clusters=8, optimizer="sgd", lr=0.05)
+    one = tr.create_train_state(cfg, seed=0, device=cuda)
+    start = copy.deepcopy(one.model)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        step_fn, sharded = tr.make_sharded_train_step(
+            make_mesh((1, 1), ("data", "model"), devices=[cuda]), cfg,
+            tr.create_train_state(cfg, model=copy.deepcopy(start)))
+        rng = np.random.default_rng(2)
+        labels = np.repeat(np.arange(4), 4).astype(np.int64)
+        for _ in range(3):
+            base = 0.3 * rng.standard_normal((4, 56, 56, 3))
+            imgs = (base[labels] + rng.standard_normal((16, 56, 56, 3))
+                    ).astype(np.float32)
+            lo = tr.train_step(one, cfg, torch.from_numpy(imgs),
+                               torch.from_numpy(labels))
+            ls = step_fn(sharded, imgs, labels)
+            assert abs(ls.item() - lo.item()) <= 1e-5 * abs(lo.item())
+        got, _ = sharded.state_dicts()
+    finally:
+        dist.destroy_process_group()
+    for (name, a), (_, s) in zip(one.model.named_parameters(),
+                                 start.named_parameters()):
+        assert _rel_err(got[name], a.detach()) < 1e-5, name
+        if name.startswith("backbone.blocks.0."):
+            assert torch.equal(got[name], s), name
 
 
 def _win_inputs(cuda, b, side, heads, hd, seed=9):
