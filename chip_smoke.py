@@ -2,9 +2,10 @@
 each against its plain PyTorch version at the serving path's shapes, then
 serve full-width SegVLAD queries through the kernels over a live database
 (inserts, removals, snapshots, pipelined and concurrent queries, the
-streaming kNN), in each of the decoder's forms and with the encoder's
-windowed layers either way, load full-size checkpoints onto the card,
-extract features with the other backbones and train VLAD-BuFF (on one
+streaming kNN), in each of the decoder's forms, with the encoder's
+windowed layers either way and with SAM and DINOv2 in f32, load
+full-size checkpoints onto the card, extract features with the other
+backbones and train VLAD-BuFF (on one
 device and sharded over processes), encode camera-sized images, run the
 mesh paths over the card listed twice and the multi-device dry run, and
 drive the command line.
@@ -13,21 +14,25 @@ drive the command line.
 
 Phases (any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the thirteen kernel entries from
+  2. build the eighteen kernel entries from
      revisit_anything_tpu_torch/kernels/csrc (one nvcc per source, in
      parallel);
   3. print the registers, shared memory and spill bytes of the redesigned
      entry points' kernels (K1, K2, B10, B11, K3, B6, K5, K4, B3 in its
      three modes, B7 in its two layers and B8 at its two depths, K1 f32
-     and its K/V split at head dims 64 and 80) from ptxas.log, and the
+     and its K/V split at head dims 64 and 80, K1 f32 with the bias, and
+     the f32 forms of K2, K5, K3 and K4) from ptxas.log, and the
      tensor-core instructions in the SASS of B3's three instantiations,
      B7's layer 2 and B8's two depths (HMMA) and of K1 f32 at head dims
-     64 and 80 (TF32 HGMMA) (cuobjdump); then
+     64 and 80 and with the bias (TF32 HGMMA) (cuobjdump); then
      compare every kernel with its plain version in bf16 at the main
      path's shapes (K1 also at the offline extraction's batches, and in
      f32, split TF32, at DINOv1's shape and two more within 1e-5; K4, K3,
      K2 and K5 also at multi-crop AMG's crop shapes: 256 prompts, gh
-     52), timing both with CUDA events (median of 7 after
+     52; the f32 forms of K1 with the bias, K2, K5, K3 and K4 at the f32
+     served query's shapes within 1e-5, K4's flags equal outside a band
+     of 1e-5 of the logits' scale around each threshold, the band's
+     pixels counted), timing both with CUDA events (median of 7 after
      warm-up, each call queued behind a device sleep so that its host
      launch cost is not timed), beside its bound (the larger of bytes /
      3.35 TB/s and operations / the H100's peak rate for their type:
@@ -73,6 +78,15 @@ Phases (any failure exits non-zero):
      the same query with the form's decode kernels' plain f32 versions in
      their place (B7 and B8; the decode tail), with the predicted IoU at
      the top-128 cut ([witness]);
+ 9b. [sam-f32]: SAM ViT-H (planted) and DINOv2-g in f32 from the same
+     seed, serving the 3 queries against the same live index with the
+     counters reset before each: K1 f32 with the bias 4 times, without
+     it 31, K2 f32 3, K5 f32 2, K3 f32 1, K4 f32 1 and no other kernel;
+     the planted images first; each query's kept masks against the bf16
+     server's (matched at IoU > 0.5: at least 0.9 of them) and against
+     the f32 plain path on the card with TF32 off (the same count, each
+     at IoU >= 0.95); wall ms, encode and decode stage ms (CUDA events),
+     peak device memory;
  10. [insert], continued: remove planted image 1 (its noisy copy must no
      longer find it), snapshot the database to an npz and restore it
      into a fresh server: the same top-5 on the three queries;
@@ -119,8 +133,9 @@ Phases (any failure exits non-zero):
      export and load seconds, file MiB;
  17b. [preprocess]: SamPredictor.set_image on a 1200x1600 and a
      2048x1536 image (PIL's host downscale into the 1024 frame): K1 4
-     launches an image and no other kernel; against the same calls on
-     the CPU (bf16, and f32 as the witness of which side rounds): the
+     launches an image and no other kernel; for the 2048x1536 image,
+     against the same calls on the CPU (bf16, and f32 as the witness of
+     which side rounds): the
      embedding, 4 grid points' predicted IoUs, their low-res logits, and
      mask flips only where the CPU's logit is within the low-res bound of
      the threshold; ms on the card, s on the CPU;
@@ -152,19 +167,21 @@ Phases (any failure exits non-zero):
      over the card listed 4 times (its extraction must launch K1, K2,
      K5, K3 and K4);
  21b. [cli]: cli.main at full width (seeded SAM ViT-H, DINOv2-g layer
-     31): `query` over a 20,000-row index the smoke writes (its top-5
-     equal to the library's SegVLADServer built from the same seeds; the
-     "shared" kernels launched), a three-command `serve` loop, `amg` on a
+     31, in f32 as the JAX CLI): `query` over a 20,000-row index the
+     smoke writes (its top-5 equal to the library's f32 SegVLADServer
+     built from the same seeds; the "shared" decoder's f32 kernels
+     launched), a three-command `serve` loop, `amg` on a
      1200x1600 image, `train` for 3 steps at [train]'s sizes; seconds a
      command (the h5 commands need h5py, absent there: skipped);
  22. print the kernel table as one JSON line (B10, token_cross_split, has
-     no caller on a serving path, as in the JAX package: launches 0; K1
-     f32's launches are the DINOv1 batch's), then the result line.
+     no caller on a serving path, as in the JAX package: launches 0; the
+     f32 forms' launches are the 3 f32 queries'), then the result line.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -180,12 +197,17 @@ VARIANTS = ("probs_split", "fused_tail_probs", "fused_tail_keys",
 
 def _paths() -> dict:
     """The kernels a served query launches in each decoder form (K1 runs
-    the SAM encoder's global layers and DINOv2 in all of them), and with
-    the window kernel ("shared" decoder)."""
+    the SAM encoder's global layers and DINOv2 in all of them), with the
+    window kernel ("shared" decoder), and in f32 ("shared" decoder, f32
+    SAM and DINOv2: K1 f32 with the bias in SAM's global layers, without
+    it in DINOv2's)."""
     from revisit_anything_tpu_torch.kernels import build as k
     front = (k.FLASH_ATTENTION, k.TOKEN_CROSS, k.RESIZE_FLAGS)
     shared = front + (k.I2T_UPDATE, k.MASK_HEAD)
     return {"shared": shared,
+            "shared_f32": (k.FLASH_ATTENTION_F32_BIAS, k.FLASH_ATTENTION_F32,
+                           k.TOKEN_CROSS_F32, k.I2T_UPDATE_F32,
+                           k.MASK_HEAD_F32, k.RESIZE_FLAGS_F32),
             "probs_split": front + (k.I2T_PROBS, k.T2I_PROBS,
                                     k.MASK_HEAD_PROBS),
             "fused_tail_probs": front + (k.DECODE_TAIL, k.MASK_HEAD_PROBS),
@@ -285,10 +307,24 @@ PTXAS_KERNELS = (
      "rat_flash_attention", "rat_flash_attention_smem", (80,)),
     ("flash_attention_kernelILi64ELi0E", "K1 Dh 64, no bias",
      "rat_flash_attention", "rat_flash_attention_smem", (64,)),
-    ("flash_attention_tf32x3_kernelILi64E", "K1 f32 Dh 64 (split TF32)",
+    ("flash_attention_tf32x3_kernelILi64ELb0E", "K1 f32 Dh 64 (split TF32)",
      "rat_flash_attention_f32", "rat_flash_attention_f32_smem", (64, 0)),
-    ("flash_attention_tf32x3_kernelILi80E", "K1 f32 Dh 80 (split TF32)",
+    ("flash_attention_tf32x3_kernelILi80ELb0E", "K1 f32 Dh 80 (split TF32)",
      "rat_flash_attention_f32", "rat_flash_attention_f32_smem", (80, 0)),
+    ("flash_attention_tf32x3_kernelILi80ELb1E", "K1 f32 Dh 80 + bias",
+     "rat_flash_attention_f32_bias", "rat_flash_attention_f32_smem",
+     (80, 0)),
+    ("flash_attention_tf32x3_kernelILi64ELb1E", "K1 f32 Dh 64 + bias",
+     "rat_flash_attention_f32_bias", "rat_flash_attention_f32_smem",
+     (64, 0)),
+    ("token_cross_kv_f32_kernel", "K2 f32", "rat_token_cross_kv_f32", None,
+     ()),
+    ("i2t_update_f32_kernel", "K5 f32", "rat_i2t_update_f32",
+     "rat_i2t_update_f32_smem", ()),
+    ("mask_head_f32_kernel", "K3 f32", "rat_mask_head_f32",
+     "rat_mask_head_f32_smem", ()),
+    ("resize_flags_kernelILi3ELb1EfE", "K4 f32 M 3 (240x320)",
+     "rat_resize_flags_f32", "rat_resize_flags_f32_smem", (3, 320, 240)),
     ("split_kv_kernelILi64E", "K1 f32 Dh 64 K/V split",
      "rat_flash_attention_f32", "rat_flash_attention_f32_smem", (64, 1)),
     ("split_kv_kernelILi80E", "K1 f32 Dh 80 K/V split",
@@ -305,8 +341,8 @@ PTXAS_KERNELS = (
      "rat_i2t_update_smem", ()),
     ("i2t_update_kernelILb0E", "K5 per-prompt (layer 2)", "rat_i2t_update",
      "rat_i2t_update_smem", ()),
-    ("resize_flags_kernelILi3ELb1E", "K4 M 3 (240x320)", "rat_resize_flags",
-     "rat_resize_flags_smem", (3, 320, 240)),
+    ("resize_flags_kernelILi3ELb1E13__nv_bfloat16", "K4 M 3 (240x320)",
+     "rat_resize_flags", "rat_resize_flags_smem", (3, 320, 240)),
     ("decode_tail_kernelILi0E", "B3 keys mode", "rat_decode_tail",
      "rat_decode_tail_smem", ()),
     ("decode_tail_kernelILi1E", "B3 probability mode", "rat_decode_tail",
@@ -333,9 +369,11 @@ MMA_SASS = (("decode_tail_kernelILi0E", "B3 keys mode", "HMMA"),
             ("i2t_probs_l2_kernel", "B7 layer 2", "HMMA"),
             ("t2i_probs_kernelILi1E", "B8 depth 1", "HMMA"),
             ("t2i_probs_kernelILi2E", "B8 depth 2", "HMMA"),
-            ("flash_attention_tf32x3_kernelILi64E", "K1 f32 Dh 64",
+            ("flash_attention_tf32x3_kernelILi64ELb0E", "K1 f32 Dh 64",
              "HGMMA.*TF32"),
-            ("flash_attention_tf32x3_kernelILi80E", "K1 f32 Dh 80",
+            ("flash_attention_tf32x3_kernelILi80ELb0E", "K1 f32 Dh 80",
+             "HGMMA.*TF32"),
+            ("flash_attention_tf32x3_kernelILi80ELb1E", "K1 f32 Dh 80 + bias",
              "HGMMA.*TF32"))
 
 
@@ -365,7 +403,8 @@ def ptxas_report() -> None:
                      for line in log.splitlines())
         print(f"[ptxas] {label:28s} ({entry}): {regs} registers, shared "
               f"memory {static.group(1) if static else 0} B static + "
-              f"{getattr(lib, smem_fn)(*smem_args)} B dynamic a CTA, spill "
+              f"{getattr(lib, smem_fn)(*smem_args) if smem_fn else 0} B "
+              f"dynamic a CTA, spill "
               f"stores {stores} B, loads {loads} B"
               f"{', wgmma serialized (C751x)' if serial else ''}", flush=True)
     sass_report(MMA_SASS)
@@ -666,9 +705,154 @@ def compare_kernels(dev) -> dict:
           rate=True)
     del logits
     torch.cuda.empty_cache()
+    compare_f32_kernels(dev, check)
     compare_crop_shapes(dev, check, rnd, rel_tol, flag_tol, flags_err)
     compare_probs_kernels(dev, check, head, rel_tol)
     return results
+
+
+# The f32 forms against their plain versions in f32 with TF32 off: max
+# |kernel - plain| / max |plain| (K4: flags equal but where the plain
+# logit lies within this share of the logits' scale from a threshold)
+F32_REL = 1e-5
+
+
+def compare_f32_kernels(dev, check) -> None:
+    """The f32 forms of the default SAM path's kernels (an f32 SAM, the
+    JAX package's default dtype) at the f32 served query's shapes: K1 with
+    the bias (SAM ViT-H's global layer), K2 (shared and per-prompt k|v,
+    1024 prompts), K5 (layers 1 and 2), K3 (1024 prompts, content 3136,
+    M 3) and K4 (17places), each against its plain version in f32 with
+    TF32 off. Bound (as K1 f32's rows): the larger of the bytes over
+    3.35 TB/s and the products as three TF32 passes at 495 TFLOP/s; K1's
+    softmax operations on the FMA units as in its no-bias rows, K4's taps
+    as f32 FMAs as in its bf16 row."""
+    import torch
+
+    from revisit_anything_tpu_torch.kernels import build
+    from revisit_anything_tpu_torch.models.sam import SAM_VIT_H
+    from revisit_anything_tpu_torch.models.sam.amg import (
+        resize_mats_and_rows)
+    from revisit_anything_tpu_torch.ops import attention as att
+    from revisit_anything_tpu_torch.ops import maskhead as mh
+    from revisit_anything_tpu_torch.ops import maskresize as mr
+    from torch.nn import functional as F
+
+    g = torch.Generator(device=dev).manual_seed(2323)
+
+    def rnd(*shape, s=1.0, off=0.0):
+        return torch.randn(shape, generator=g, device=dev) * s + off
+
+    # K1 f32 + bias (library: SDPA in f32, the bias expanded into its
+    # attn_mask outside the timed call)
+    q, k, v = (rnd(1, 16, 4096, 80) for _ in range(3))
+    bh, bw = rnd(1, 16, 4096, 64), rnd(1, 16, 4096, 64)
+    mask = bh.repeat_interleave(64, dim=-1) + bw.repeat(1, 1, 1, 64)
+    n2 = 16 * 4096 ** 2
+    check(build.FLASH_ATTENTION_F32_BIAS,
+          "SAM global q/k/v [1,16,4096,80] + bias f32",
+          lambda: att.attend(q, k, v, bh, bw, side=64),
+          lambda: att.attend_reference(q, k, v, bh, bw, side=64),
+          _rel, F32_REL, (q, k, v, bh, bw),
+          (0, 7 * n2, 3 * 4 * n2 * 80),
+          library=lambda: F.scaled_dot_product_attention(q, k, v,
+                                                         attn_mask=mask))
+    del q, k, v, bh, bw, mask
+    torch.cuda.empty_cache()
+
+    # K2 f32 (library: SDPA in f32 on k + pe and v + bias formed outside
+    # the timed call)
+    qt = rnd(1024, 7, 128)
+    pe, vb = rnd(1, 128, 4096), rnd(128)
+    for lead, label in ((1, "q [1024,7,128] kvt [1,256,4096] shared f32"),
+                        (1024, "q [1024,7,128] kvt [1024,256,4096] f32")):
+        kvt = rnd(lead, 256, 4096)
+        k_l = (kvt[:, :128] + pe).reshape(lead, 8, 16, 4096).transpose(
+            2, 3).contiguous()
+        v_l = (kvt[:, 128:] + vb[:, None]).reshape(lead, 8, 16, 4096
+                                                  ).transpose(2, 3).contiguous()
+        q_l = qt.reshape(1024, 7, 8, 16).transpose(1, 2)
+        q_l = (q_l.transpose(0, 1).reshape(1, 8, 1024 * 7, 16) if lead == 1
+               else q_l).contiguous()
+        check(build.TOKEN_CROSS_F32, label,
+              lambda: att.token_cross_attend_kv(qt, kvt, pe, vb, 8),
+              lambda: att.token_cross_attend_kv_reference(qt, kvt, pe, vb,
+                                                          8),
+              _rel, F32_REL, (qt, kvt, pe, vb),
+              (0, 0, 3 * 4 * 1024 * 8 * 7 * 4096 * 16),
+              library=lambda: F.scaled_dot_product_attention(q_l, k_l, v_l))
+        del kvt, k_l, v_l, q_l
+    del qt, pe, vb
+    torch.cuda.empty_cache()
+
+    # K5 f32: layer 1 (shared branch) and layer 2 (per prompt)
+    for lead, label in ((1, "img [1,4096,256] shared, 1024 prompts f32"),
+                        (1024, "img [1024,4096,256] f32")):
+        iargs = (rnd(lead, 4096, 256), rnd(1, 4096, 128), rnd(1024, 7, 128),
+                 rnd(1024, 7, 128), rnd(256, 128, s=0.1), rnd(128, s=0.1),
+                 rnd(128, 256, s=0.1), rnd(256, s=0.1),
+                 rnd(256, s=0.1, off=1.0), rnd(256, s=0.1),
+                 rnd(256, 256, s=0.1))
+        check(build.I2T_UPDATE_F32, label,
+              lambda: att.i2t_update(*iargs, 8, 1e-6),
+              lambda: att.i2t_update_reference(*iargs, 8, 1e-6),
+              _tuple_err, F32_REL, iargs,
+              (0, 0, 3 * (2 * 1024 * 4096 * (256 * 128 + 128 * 256
+                                              + 256 * 256)
+                          + 2 * 2 * 1024 * 4096 * 8 * 7 * 16)))
+        del iargs
+        torch.cuda.empty_cache()
+
+    # K3 f32: 1024 prompts, content 49 rows x 64 = 3136 positions
+    margs = (rnd(1024, 4096, 256), rnd(1024, 3, 32, s=0.5),
+             rnd(256, 256, s=0.1), rnd(64, s=0.1), rnd(64, s=0.1, off=1.0),
+             rnd(64, s=0.1), rnd(64, 128, s=0.1), rnd(32, s=0.1))
+    head_products = 2 * (256 * 256 + 4 * 64 * 128 + 16 * 32 * 3)
+    check(build.MASK_HEAD_F32,
+          "keys [1024,4096,256] -> [1024,3136,16,3] f32",
+          lambda: mh.fused_mask_head(*margs, eps=1e-6, content=3136),
+          lambda: mh.upscale_masks_blocks(margs[0][:, :3136], *margs[1:],
+                                          eps=1e-6),
+          _rel, F32_REL, (margs[0][:, :3136],) + margs[1:],
+          (0, 0, 3 * 1024 * 3136 * head_products))
+    del margs
+    torch.cuda.empty_cache()
+
+    # K4 f32: the 17places resize over f32 logits with unrounded f32 taps;
+    # flags may differ only within F32_REL of a threshold
+    wh, ww, gh = resize_mats_and_rows(SAM_VIT_H, (768, 1024), (240, 320))
+    whd, wwd = torch.from_numpy(wh).to(dev), torch.from_numpy(ww).to(dev)
+    taps = tuple(t.to(dev) for t in mr.resize_taps(wh, ww, torch.float32))
+    logits = rnd(1024, gh * 64, 16, 3, s=4.0)
+    near = mr.near_threshold(mr.resize_logits_reference(logits, whd, wwd,
+                                                        (gh, 64)),
+                             (-1.0, 0.0, 1.0), F32_REL)
+
+    def flags_err_f32(out_k, flags_p):
+        flags, rowst, colany = out_k
+        own_rowst, own_colany = mr.flag_stats(flags)
+        if not (torch.equal(rowst, own_rowst)
+                and torch.equal(colany, own_colany)):
+            _fail("resize_flags_f32: stats differ from its own flags")
+        diff = flags != flags_p
+        outside = int((diff & ~near).sum())
+        print(f"[kernel] resize_flags_f32: {int(near.sum())} pixels of "
+              f"{near.numel()} lie within {F32_REL:g} of the logits' scale "
+              f"from a threshold; flags differ at {int(diff.sum())} "
+              f"pixels, {outside} of them outside that band", flush=True)
+        return diff.float().mean().item(), outside / diff.numel()
+
+    n_taps = int((whd != 0).sum()) * 4 * 64 + 240 * int((wwd != 0).sum())
+    check(build.RESIZE_FLAGS_F32,
+          "logits [1024,3136,16,3] f32 -> flags [1024,3,240,320]",
+          lambda: mr.fused_resize_flags(logits, whd, wwd, 0.0, 1.0, (gh, 64),
+                                        taps=taps),
+          lambda: mr.resize_flags_reference(logits, whd, wwd, 0.0, 1.0,
+                                            (gh, 64)),
+          flags_err_f32, 0.0, (logits,) + taps, (0, 2 * 1024 * 3 * n_taps),
+          rate=True)
+    del logits, near
+    torch.cuda.empty_cache()
 
 
 def compare_crop_shapes(dev, check, rnd, rel_tol, flag_tol,
@@ -1017,6 +1201,7 @@ def serve(dev, seed: int = 0) -> dict:
         plain_witness(vsrv, queries[0], srv, decode)
         del vsrv
     servers.clear()
+    sam_f32 = sam_f32_phase(srv, queries, planted, kw, seed)
 
     remove_and_snapshot(srv, queries, planted, kw)
     more = [_noisy(rng, inserted[i]) for i in range(2, 7)]
@@ -1029,9 +1214,169 @@ def serve(dev, seed: int = 0) -> dict:
     del dino
     tools = sam_tools_phase(sam)
     return dict(counts=counts, wall_ms=wall, peak_gib=peak_gib,
-                variants=variants, window=window, pipelined=pipelined,
+                variants=variants, window=window, sam_f32=sam_f32,
+                pipelined=pipelined,
                 concurrent=concurrent, stream=stream, mesh=mesh,
                 offline=offline, tools=tools)
+
+
+# K1 f32 with the bias in SAM ViT-H's 4 global layers, without it in
+# DINOv2-g's first 31 blocks, K2 in the decoder's 3 token->image
+# attentions, K5 in its 2 image->token updates, K3 and K4 once: one f32
+# query of the "shared" decoder (1024 prompts in one batch)
+F32_QUERY_LAUNCHES = {"flash_attention_f32_bias": 4, "flash_attention_f32": 31,
+                      "token_cross_attention_f32": 3, "i2t_update_f32": 2,
+                      "mask_head_f32": 1, "resize_flags_f32": 1}
+
+
+@contextlib.contextmanager
+def _plain_sam_f32():
+    """SAM's kernels on the default path replaced by their plain versions
+    (f32 on the card with TF32 off, as main() sets it): K1 in the
+    encoder, K2, K5 and K3 in the decoder, K4 in AMG."""
+    from revisit_anything_tpu_torch.models.sam import amg, decoder, encoder
+    from revisit_anything_tpu_torch.ops import attention as att
+    from revisit_anything_tpu_torch.ops import maskhead as mh
+    from revisit_anything_tpu_torch.ops import maskresize as mr
+
+    def mask_head(keys, hyper, *w, eps=1e-6, content=None):
+        return mh.upscale_masks_blocks(keys[:, :content], hyper, *w, eps)
+
+    def resize_flags(lowres, wh, ww, thr, off, grid_hw, taps=None):
+        flags = mr.resize_flags_reference(lowres, wh, ww, thr, off, grid_hw)
+        return (flags,) + mr.flag_stats(flags)
+
+    swaps = ((encoder, "attend", att.attend_reference),
+             (decoder, "token_cross_attend_kv",
+              att.token_cross_attend_kv_reference),
+             (decoder, "i2t_update", att.i2t_update_reference),
+             (decoder, "fused_mask_head", mask_head),
+             (amg, "fused_resize_flags", resize_flags))
+    kept = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in kept:
+            setattr(mod, name, fn)
+
+
+def _best_iou(amg_a, amg_b):
+    """For each mask a's server kept, its best IoU with a mask b's kept
+    (two empty masks: 1)."""
+    import torch
+    (masks_a, st_a), (masks_b, st_b) = amg_a, amg_b
+    a = masks_a[:int(st_a[-1])].flatten(1).float()
+    b = masks_b[:int(st_b[-1])].flatten(1).float()
+    inter = a @ b.t()
+    union = a.sum(1)[:, None] + b.sum(1)[None] - inter
+    iou = torch.where(union > 0, inter / union.clamp(min=1.0), 1.0)
+    return iou.max(1).values
+
+
+def sam_f32_phase(srv, queries, planted, kw, seed) -> dict:
+    """[sam-f32]: SAM ViT-H (its point segmenter planted) and DINOv2-g in
+    f32, the JAX package's and the JAX CLI's dtype, from the bf16 server's
+    seed (the same draws, unrounded), serving the 3 queries against the
+    bf16 server's live 100k-row index with the counters reset before each:
+    every query launches F32_QUERY_LAUNCHES and no other kernel, each
+    planted image comes first; then per query its kept masks against the
+    bf16 server's on the same image (the share matched at IoU > 0.5, as
+    [variant] measures) and against the f32 plain path on the card with
+    TF32 off (the same count, each mask at IoU >= 0.95 with one of the
+    plain path's); wall ms a query, the encode and decode stages by CUDA
+    events, peak device memory."""
+    import numpy as np
+    import torch
+
+    from revisit_anything_tpu_torch.kernels import build
+    from revisit_anything_tpu_torch.models.dinov2 import VIT_G14
+    from revisit_anything_tpu_torch.models.sam import SAM_VIT_H
+    from revisit_anything_tpu_torch.pipeline.serve import SegVLADServer
+    from revisit_anything_tpu_torch.weights import (init_dino, init_sam,
+                                                    plant_point_segmenter)
+
+    dev = srv.device
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sam = init_sam(SAM_VIT_H, gen, dev, torch.float32)
+    plant_point_segmenter(sam, gen)
+    dino = init_dino(VIT_G14, gen, dev, torch.float32)
+    fsrv = SegVLADServer(index=_live_index(srv),
+                         **dict(kw, sam=sam, dino=dino))
+    fsrv.query(queries[2])                       # warm-up: constants, caches
+    torch.cuda.synchronize()
+    print(f"[sam-f32] f32 SAM ViT-H + DINOv2-g built and warmed up in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    answers, wall, launches = [], [], collections.Counter()
+    for i, img in enumerate(queries):
+        torch.cuda.synchronize()
+        build.reset_counts()
+        t = time.perf_counter()
+        top = fsrv.query(img)
+        wall.append((time.perf_counter() - t) * 1e3)
+        counts = {k.name: k.launches for k in build.KERNELS if k.launches}
+        launches.update(counts)
+        answers.append(top)
+        print(f"[sam-f32] query {i}: top-5 {top.tolist()}  {wall[-1]:.1f} ms;"
+              f" launches {counts}", flush=True)
+        _check_answer(fsrv, top)
+        if counts != F32_QUERY_LAUNCHES:
+            _fail(f"[sam-f32] query {i} launched {counts}, expected "
+                  f"{F32_QUERY_LAUNCHES} and no other kernel")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, iid in enumerate(planted):
+        if answers[i][0] != iid:
+            _fail(f"[sam-f32] noisy copy of planted image {iid} answered "
+                  f"{answers[i]}")
+    with torch.inference_mode():
+        img_dev = torch.from_numpy(queries[0]).to(dev)
+        encode = [_encode_ms(fsrv, img_dev) for _ in range(4)][1:]
+    decode = [_decode_ms(fsrv, queries[0]) for _ in range(4)][1:]
+    agree_bf16, plain_iou = [], []
+    with torch.inference_mode():
+        for i, img in enumerate(queries):
+            img_dev = torch.from_numpy(img).to(dev)
+            amg_k = fsrv._amg_device(img_dev)
+            n_k, n_b, share = _agreement(amg_k, srv._amg_device(img_dev))
+            with _plain_sam_f32():
+                build.reset_counts()
+                amg_p = fsrv._amg_device(img_dev)
+                stray = [k.name for k in build.KERNELS if k.launches]
+            n_p = int(amg_p[1][-1])
+            best = _best_iou(amg_k, amg_p)
+            agree_bf16.append(share)
+            plain_iou.append(best.min().item() if n_k else 1.0)
+            print(f"[sam-f32] query {i}: {n_k} masks kept (bf16 server "
+                  f"{n_b}, f32 plain path "
+                  f"{n_p}); {share:.4f} of them match a bf16 mask at IoU > "
+                  f"0.5; against the f32 plain path: least best IoU "
+                  f"{plain_iou[-1]:.4f}, mean {best.mean().item():.4f}",
+                  flush=True)
+            if stray:
+                _fail(f"[sam-f32] the plain path launched {stray}")
+            if n_k != n_p or plain_iou[-1] < 0.95:
+                _fail(f"[sam-f32] query {i}: {n_k} masks kept against the "
+                      f"f32 plain path's {n_p}, least IoU {plain_iou[-1]}")
+            # bf16 rounds every layer of both models: a mask near the top-k
+            # cut or an NMS tie may differ, most must not
+            if share < 0.9:
+                _fail(f"[sam-f32] query {i}: only {share:.4f} of the f32 "
+                      "masks match a bf16 mask at IoU > 0.5")
+    enc_ms, dec_ms = statistics.median(encode), statistics.median(decode)
+    print(f"[sam-f32] f32 query: wall {statistics.median(wall):.1f} ms "
+          f"(median of 3: {', '.join(f'{w:.1f}' for w in wall)}); encode "
+          f"stage {enc_ms:.3f} ms, decode stage {dec_ms:.3f} ms (CUDA "
+          f"events, median of 3 after one); peak device memory "
+          f"{peak_gib:.2f} GiB; masks matched to the bf16 query's "
+          f"{', '.join(f'{a:.4f}' for a in agree_bf16)}", flush=True)
+    del fsrv, sam, dino
+    torch.cuda.empty_cache()
+    return dict(counts=dict(launches), wall_ms=wall, encode_ms=enc_ms,
+                decode_ms=dec_ms, peak_gib=peak_gib, agree_bf16=agree_bf16,
+                plain_least_iou=plain_iou)
 
 
 def _noisy(rng, img):
@@ -2710,9 +3055,11 @@ def preprocess_phase(sam, seed: int = 14) -> dict:
     1200x1600 and a 2048x1536 uint8 image, both larger than SAM's 1024
     frame (PIL's host downscale, then the encoder), with the counters
     reset first: K1 must launch 4 times an image (the 4 global layers)
-    and no other kernel. The same calls on the CPU (a copy of the same
-    bf16 weights, plain versions) give the reference, and a CPU copy in
-    f32 the witness of which side a disagreement is rounding on:
+    and no other kernel. For the 2048x1536 image (the CPU's ~90 s a call
+    are kept to one image, so the smoke stays inside half its time
+    limit) the same calls on the CPU (a copy of the same bf16 weights,
+    plain versions) give the reference, and a CPU copy in f32 the
+    witness of which side a disagreement is rounding on:
 
     - the image embedding within 2e-2 of the CPU's in norm (||card -
       cpu|| / ||cpu||; its max-abs error over the max-abs value is
@@ -2754,7 +3101,7 @@ def preprocess_phase(sam, seed: int = 14) -> dict:
         union = np.logical_or(a, b).sum()
         return np.logical_and(a, b).sum() / union if union else 1.0
 
-    for hw in ((1200, 1600), (2048, 1536)):
+    for hw, on_cpu in (((1200, 1600), False), ((2048, 1536), True)):
         img = _image(rng, hw)
         pred = SamPredictor(sam)
         pred.set_image(img)                                   # warm-up
@@ -2783,6 +3130,19 @@ def preprocess_phase(sam, seed: int = 14) -> dict:
             parts["encode"] = (time.perf_counter() - t0) * 1e3
         parts["rest"] = ms - sum(parts.values())
         del x
+        key = f"{hw[0]}x{hw[1]}"
+        if not on_cpu:
+            finite = bool(torch.isfinite(pred.get_image_embedding()).all())
+            print(f"[preprocess] set_image {key} -> input {pred._input_hw}: "
+                  f"{ms:.3f} ms on the card ("
+                  f"{', '.join(f'{k} {v:.3f}' for k, v in parts.items())} "
+                  f"ms); launches {counts}; embedding finite {finite} (no "
+                  "CPU reference for this image)", flush=True)
+            if counts != {build.FLASH_ATTENTION.name: 4} or not finite:
+                _fail(f"[preprocess] {key}: launches {counts}, K1 x4 "
+                      f"expected; embedding finite {finite}")
+            out[key] = dict(ms=ms, parts=parts)
+            continue
         cpu_pred = SamPredictor(cpu_sam)
         t0 = time.perf_counter()
         cpu_pred.set_image(img)
@@ -2829,7 +3189,6 @@ def preprocess_phase(sam, seed: int = 14) -> dict:
                     np.abs(lo_card[k] - lo_f32[k]).max()))
                 r["witness_cpu"] = max(r["witness_cpu"], float(
                     np.abs(lo_cpu[k] - lo_f32[k]).max()))
-        key = f"{hw[0]}x{hw[1]}"
         finite = bool(torch.isfinite(emb).all())
         print(f"[preprocess] set_image {key} -> input {pred._input_hw}: "
               f"{ms:.3f} ms on the card ("
@@ -3010,10 +3369,11 @@ def mesh_phase(srv, dino, queries, seed: int = 15) -> dict:
 def cli_phase(dev, seed: int = 16) -> dict:
     """[cli]: the port's CLI at full width on the card (its default
     device), through ``cli.main``: ``query`` (SAM ViT-H, DINOv2-g layer
-    31, seeded weights, the 1024-prompt AMG with both thresholds off)
-    over a 20,000-row, 400-image index the smoke writes, whose top-5 must
-    equal ``SegVLADServer.query``'s built by the library from the same
-    index and seeds, with the "shared" kernels launched; a ``serve`` loop
+    31, seeded weights in f32, the JAX CLI's dtype, the 1024-prompt AMG
+    with both thresholds off) over a 20,000-row, 400-image index the smoke
+    writes, whose top-5 must equal ``SegVLADServer.query``'s built by the
+    library in f32 from the same index and seeds, with the "shared"
+    decoder's f32 kernels launched; a ``serve`` loop
     of three commands (query, add, query of the added image, which must
     come first); ``amg`` on one 1200x1600 image (mask PNGs and
     metadata.csv, AMG's kernels launched); ``train`` for 3 steps at the
@@ -3097,12 +3457,12 @@ def cli_phase(dev, seed: int = 16) -> dict:
         got = json.loads(run("query", ["query", "--image", paths["query"],
                                        *flags]).splitlines()[-1])
         c = counts()
-        missing = [k.name for k in _paths()["shared"] if c[k.name] == 0]
+        missing = [k.name for k in _paths()["shared_f32"] if c[k.name] == 0]
         srv = SegVLADServer(
             sam=init_sam(SAM_VIT_H, torch.Generator(device=dev).manual_seed(
-                0), dev, torch.bfloat16),
+                0), dev, torch.float32),
             dino=init_dino(VIT_G14, torch.Generator(device=dev).manual_seed(
-                1), dev, torch.bfloat16),
+                1), dev, torch.float32),
             index=ServingIndex.from_npz(index), full_hw=PLACES17_HW,
             sam_hw=PLACES17_SAM_HW, dino_layer=31, top_images=5,
             amg=AmgConfig(points_per_batch=1024, pred_iou_thresh=-1e9,
@@ -3149,7 +3509,8 @@ def cli_phase(dev, seed: int = 16) -> dict:
               f"{secs['amg']:.2f} s (seeded ViT-H built); launches {c}",
               flush=True)
         if not masks or len(rows) != len(masks) + 1 or any(
-                c[k.name] == 0 for k in _paths()["shared"]):
+                c[k.name] == 0 for k in _paths()["shared_f32"]
+                if k is not build.FLASH_ATTENTION_F32):
             _fail("[cli] amg wrote no masks or launched no AMG kernel")
 
         for p in range(16):
@@ -3194,13 +3555,8 @@ def _agreement(amg_a, amg_b) -> tuple:
     """Two servers' ``_amg_device`` results (kept masks, stats) on one
     image: (masks kept by a, by b, the share of a's kept masks that match
     one of b's at IoU > 0.5)."""
-    (masks_a, st_a), (masks_b, st_b) = amg_a, amg_b
-    n_a, n_b = int(st_a[-1]), int(st_b[-1])
-    a = masks_a[:n_a].flatten(1).float()
-    b = masks_b[:n_b].flatten(1).float()
-    inter = a @ b.t()
-    iou = inter / (a.sum(1)[:, None] + b.sum(1)[None] - inter).clamp(min=1.0)
-    return n_a, n_b, (iou.max(1).values > 0.5).float().mean().item()
+    return (int(amg_a[1][-1]), int(amg_b[1][-1]),
+            (_best_iou(amg_a, amg_b) > 0.5).float().mean().item())
 
 
 def _encode_ms(srv, img_dev) -> float:
@@ -3653,7 +4009,9 @@ def main() -> None:
 
     # launches: the 3 "shared" queries for the kernels of that form, the
     # probability-factored queries for theirs, the window-kernel query for
-    # B11; B10 (token_cross_split) has no caller on a serving path
+    # B11, the 3 f32 queries for the f32 forms (K1 f32 without the bias in
+    # their DINOv2-g); B10 (token_cross_split) has no caller on a serving
+    # path
     table = []
     for k in build.KERNELS:
         main_shape = results[k.name][0]
@@ -3661,6 +4019,7 @@ def main() -> None:
                     or sum(v["counts"][k.name]
                            for v in served["variants"].values())
                     or served["window"]["counts"][k.name]
+                    or served["sam_f32"]["counts"].get(k.name, 0)
                     or backbones["counts"][k.name])
         table.append(dict(
             name=k.name, route="cuda", source=k.source, replaces=k.replaces,
@@ -3680,6 +4039,11 @@ def main() -> None:
     print(f"[window] encode stage plain windows {w['encode_plain_ms']:.3f} ms,"
           f" kernel windows {w['encode_kernel_ms']:.3f} ms; agreement "
           f"{w['agreement']:.4f}", flush=True)
+    f = served["sam_f32"]
+    print(f"[sam-f32] f32 query {statistics.median(f['wall_ms']):.1f} ms, "
+          f"encode {f['encode_ms']:.3f} ms, decode {f['decode_ms']:.3f} ms, "
+          f"peak {f['peak_gib']:.2f} GiB, launches over 3 queries "
+          f"{f['counts']}", flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

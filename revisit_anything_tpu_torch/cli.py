@@ -15,12 +15,12 @@ on the port.
 Counterpart of ``revisit_anything_tpu/cli.py``: the same eleven commands,
 flag for flag, plus ``--device`` (default ``cuda``; the CPU only when
 asked, ``--device cpu``: a missing card is an error, never a reason to
-run on the CPU). Each command calls the port's library. SAM and DINOv2
-run in bf16 on the card, the dtype its kernels take, and in f32 on the
-CPU, the JAX CLI's dtype; DINOv1 and the trained VLAD-BuFF / DINO-SALAD
-models in f32. Without a checkpoint flag the weights are seeded random
-(``weights.init_*``: SAM from seed 0, DINOv2 from seed 1, as the JAX CLI
-takes ``PRNGKey(0)`` / ``PRNGKey(1)``; the draws themselves differ).
+run on the CPU). Each command calls the port's library. Every model runs
+in f32, the JAX CLI's dtype, on the card as on the CPU (SAM's kernels on
+the default decoder path have f32 forms). Without a checkpoint flag the
+weights are seeded random (``weights.init_*``: SAM from seed 0, DINOv2
+from seed 1, as the JAX CLI takes ``PRNGKey(0)`` / ``PRNGKey(1)``; the
+draws themselves differ).
 
 Stage artifacts (h5/pt/npz/pkl) live under --workdir with the reference's
 filenames. The h5 commands (``extract``, ``vocab``, ``pca``,
@@ -69,12 +69,6 @@ def _device(args) -> torch.device:
     return dev
 
 
-def _dtype(dev: torch.device) -> torch.dtype:
-    """SAM's and DINOv2's dtype: bf16 on the card (every SAM kernel takes
-    bf16), f32 on the CPU (the JAX CLI's)."""
-    return torch.bfloat16 if dev.type == "cuda" else torch.float32
-
-
 def _gen(dev: torch.device, seed: int) -> torch.Generator:
     return torch.Generator(device=dev).manual_seed(seed)
 
@@ -84,15 +78,15 @@ def _sam(cfg, checkpoint, dev, seed=0):
         load_sam_checkpoint)
     from revisit_anything_tpu_torch.weights import init_sam
     if checkpoint:
-        return load_sam_checkpoint(checkpoint, cfg, dtype=_dtype(dev),
+        return load_sam_checkpoint(checkpoint, cfg, dtype=torch.float32,
                                    device=dev)
-    return init_sam(cfg, _gen(dev, seed), dev, _dtype(dev))
+    return init_sam(cfg, _gen(dev, seed), dev, torch.float32)
 
 
 def _dino(cfg, checkpoint, dev, seed=1, dtype=None):
     from revisit_anything_tpu_torch.models import dinov2 as dn
     from revisit_anything_tpu_torch.weights import init_dino
-    dtype = dtype or _dtype(dev)
+    dtype = dtype or torch.float32
     if checkpoint:
         return dn.load_checkpoint(checkpoint, cfg, dtype=dtype, device=dev)
     return init_dino(cfg, _gen(dev, seed), dev, dtype)

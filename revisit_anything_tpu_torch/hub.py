@@ -20,8 +20,9 @@ inference entry (run under ``torch.inference_mode``):
 
 Without ``checkpoint`` the weights are seeded random (``seed``). The
 models live on ``device`` (default the card) in ``dtype``: by default
-f32, the JAX package's, except ``sam_*``, which defaults to bf16, the
-dtype every SAM kernel of the port is built for.
+f32, the JAX package's, for every family (SAM's kernels on the default
+decoder path are built for f32 and for bf16; ``dtype=torch.bfloat16``
+takes the bf16 ones).
 """
 
 from __future__ import annotations
@@ -66,9 +67,8 @@ def load_model(name: str, checkpoint: Optional[str] = None, seed: int = 0,
         from revisit_anything_tpu_torch.weights import init_sam
         cfg = {"sam_vit_h": SAM_VIT_H, "sam_vit_l": SAM_VIT_L,
                "sam_vit_b": SAM_VIT_B}[name]
-        dt = torch.bfloat16 if dtype is None else dtype
-        model = (load_sam_checkpoint(checkpoint, cfg, dtype=dt, device=device)
-                 if checkpoint else init_sam(cfg, gen, device, dt))
+        model = (load_sam_checkpoint(checkpoint, cfg, dtype=f32, device=device)
+                 if checkpoint else init_sam(cfg, gen, device, f32))
         amg = kwargs.get("amg", AmgConfig())
         return model, cfg, _inference(
             lambda m, image: generate_masks(m, image, amg))

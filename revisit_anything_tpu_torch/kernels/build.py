@@ -47,8 +47,14 @@ SIGNATURES: Dict[str, Sequence] = {
                             _P),
     # q, k, v, out, scratch, bh, n, scale, hd, stream (f32, no bias)
     "rat_flash_attention_f32": (_P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
+    # q, k, v, bias_h, bias_w, out, scratch, bh, n, side, scale, hd, stream
+    # (f32 with the decomposed bias)
+    "rat_flash_attention_f32_bias": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _F, _I, _P),
     # q, kvt, pe_kt, v_bias, out, b, n, d, m, heads, kv_shared, stream
     "rat_token_cross_kv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "rat_token_cross_kv_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _P),
     # q, kt, vt, out, b, n, d, m, heads, kv_shared, stream
     "rat_token_cross": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # qkv, bias_h, bias_w, out, b, n, side, heads, hd, scale, stream
@@ -57,14 +63,21 @@ SIGNATURES: Dict[str, Sequence] = {
     # keys, kvt, b, m, img_shared, eps, stream
     "rat_i2t_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _F, _P),
+    "rat_i2t_update_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _I, _I, _I, _F, _P),
     # keys, up1_w, up1_b, ln_s, ln_b, up2_w, up2_b, hyper, out,
     # np, gg, content, n_masks, eps, n_ctas, stream
     "rat_mask_head": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _F, _I, _P),
+    # the same without n_ctas (f32)
+    "rat_mask_head_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _I, _F, _P),
     # logits, h_taps, w_taps, flags, rowst, colany, np, gh, g, n_masks,
     # h, w, thr-off, thr, thr+off, n_sm, stream
     "rat_resize_flags": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                          _F, _F, _I, _P),
+    "rat_resize_flags_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _F, _F, _F, _I, _P),
     # q1st, tok_k, img0, p1, c1, peq2t, w_q, rows, out, b, m, layer, eps,
     # stream
     "rat_i2t_probs": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
@@ -85,16 +98,20 @@ SIGNATURES: Dict[str, Sequence] = {
     "rat_flash_attention_f32_smem": (_I, _I),   # hd, split
     "rat_win_attention_smem": (_I, _I),         # side, hd
     "rat_mask_head_smem": (),
+    "rat_mask_head_f32_smem": (),
     "rat_i2t_update_smem": (),
+    "rat_i2t_update_f32_smem": (),
     "rat_decode_tail_smem": (),
     "rat_i2t_probs_smem": (_I,),                # layer
     "rat_t2i_probs_smem": (_I,),                # depth
     "rat_resize_flags_smem": (_I, _I, _I),      # n_masks, w, h
     "rat_resize_flags_ctas": (_I, _I, _I),      # n_masks, w, h: CTAs an SM
+    "rat_resize_flags_f32_smem": (_I, _I, _I),
 }
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_failed: Optional[RuntimeError] = None     # a failed build, raised again
 last_build_seconds: Optional[float] = None
 
 
@@ -125,15 +142,22 @@ def library_path() -> Path:
 
 
 def load() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
-    global _lib, last_build_seconds
+    """Build (once per source hash) and load the kernel library. A build
+    that failed raises again at every later call, without a rebuild."""
+    global _lib, _failed, last_build_seconds
     with _lock:
         if _lib is not None:
             return _lib
+        if _failed is not None:
+            raise _failed
         out = library_path()
         if not out.exists():
             t0 = time.perf_counter()
-            _build(out)
+            try:
+                _build(out)
+            except RuntimeError as err:
+                _failed = err
+                raise
             last_build_seconds = time.perf_counter() - t0
         else:
             last_build_seconds = 0.0
@@ -243,10 +267,29 @@ WIN_ATTENTION = Kernel(
     "win_attention", "rat_win_attention", _SRC + "win_attention.cu",
     "revisit_anything_tpu/ops/winattn.py:90")
 
+# the f32 forms of the default SAM path's kernels (an f32 SAM, the JAX
+# package's default dtype), each its own entry at the same TPU site
+FLASH_ATTENTION_F32_BIAS = Kernel(
+    "flash_attention_f32_bias", "rat_flash_attention_f32_bias",
+    _SRC + "flash_attention.cu", "revisit_anything_tpu/ops/attention.py:116")
+TOKEN_CROSS_F32 = Kernel(
+    "token_cross_attention_f32", "rat_token_cross_kv_f32",
+    _SRC + "token_cross.cu", "revisit_anything_tpu/ops/attention.py:442")
+I2T_UPDATE_F32 = Kernel(
+    "i2t_update_f32", "rat_i2t_update_f32", _SRC + "i2t_update.cu",
+    "revisit_anything_tpu/ops/attention.py:375")
+MASK_HEAD_F32 = Kernel(
+    "mask_head_f32", "rat_mask_head_f32", _SRC + "mask_head.cu",
+    "revisit_anything_tpu/ops/maskhead.py:299")
+RESIZE_FLAGS_F32 = Kernel(
+    "resize_flags_f32", "rat_resize_flags_f32", _SRC + "resize_flags.cu",
+    "revisit_anything_tpu/ops/maskresize.py:207")
+
 KERNELS = (FLASH_ATTENTION, TOKEN_CROSS, I2T_UPDATE, MASK_HEAD, RESIZE_FLAGS,
            I2T_PROBS, T2I_PROBS, MASK_HEAD_PROBS, DECODE_TAIL,
            DECODE_TAIL_LOGITS, TOKEN_CROSS_SPLIT, WIN_ATTENTION,
-           FLASH_ATTENTION_F32)
+           FLASH_ATTENTION_F32, FLASH_ATTENTION_F32_BIAS, TOKEN_CROSS_F32,
+           I2T_UPDATE_F32, MASK_HEAD_F32, RESIZE_FLAGS_F32)
 
 
 def reset_counts() -> None:

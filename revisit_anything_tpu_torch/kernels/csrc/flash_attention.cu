@@ -468,11 +468,23 @@ int dispatch(const void* q, const void* k, const void* v, const void* bias_h,
 }
 
 // ---------------------------------------------------------------------------
-// K1 in f32 (entry rat_flash_attention_f32): the same function without the
-// bias, on f32 q, k, v and out, for the f32 DINO forwards (DINOv1's
-// extraction at AnyLoc's settings: N = 4016, 6 heads of 64; an f32 DINOv2 at
-// N >= 1024). The TPU kernel computes in its inputs' dtype (scores f32, p
-// rounded to v's dtype), so f32 inputs give f32 attention.
+// K1 in f32 (entry rat_flash_attention_f32): the same function on f32 q, k,
+// v, out and bias, for the f32 DINO forwards (DINOv1's extraction at
+// AnyLoc's settings: N = 4016, 6 heads of 64; an f32 DINOv2 at N >= 1024)
+// and an f32 SAM's global layers (N = 4096, 16 heads of 80, the decomposed
+// bias at side 64). The TPU kernel computes in its inputs' dtype (scores
+// f32, p rounded to v's dtype), so f32 inputs give f32 attention.
+//
+// The bias (BIAS = true): each score becomes s·scale·log2 e + (bias_h[q,
+// k / side] + bias_w[q, k % side])·log2 e as soon as S leaves the tensor
+// cores, before the row max, so the online softmax below runs unchanged on
+// it (at a scale of 1). At Dh 80 the CTA's shared memory (184 KB) leaves
+// no room for its 128 rows of both tables in f32 (64 KB), so each thread
+// reads its two rows' terms from device memory (L1 and L2 hold a CTA's
+// 64 KB of bias, read once per key tile): one bias_h and one bias_w term a
+// score, found by stepping the key's column across the key grid's rows
+// from the tile's first key (any side; at side 64 a tile lies inside one
+// row).
 //
 // Precision: both products run on the tensor cores in split TF32. An f32
 // operand x is cut into hi = tf32_rna(x) and lo = tf32_rna(x - hi) (11 and
@@ -611,13 +623,15 @@ __device__ __forceinline__ void wgmma_pv_tf32(float (&d)[HD / 2], const uint32_t
   else wgmma_rs_tf32_n64(d, a, db, accumulate);
 }
 
-template <int HD>
+template <int HD, bool BIAS>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tk,
                               const __grid_constant__ CUtensorMap tv,
-                              float* __restrict__ out,          // [B·H, N, Dh]
-                              int n, int bh_total, float scale_log2) {
+                              const float* __restrict__ bias_h,  // [B·H, N, side]
+                              const float* __restrict__ bias_w,  // [B·H, N, side]
+                              float* __restrict__ out,           // [B·H, N, Dh]
+                              int n, int side, int bh_total, float scale_log2) {
   using C = F32Cfg<HD>;
   constexpr int BK = C::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -700,6 +714,8 @@ flash_attention_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     for (int j = 0; j < BK / 2; ++j) sc[j] = 0.f;
     uint32_t plo[BK / 8][4];                                // P's lo, as A fragments
     float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
+    // with a bias, the scores arrive in the log2 domain already scaled
+    const float sl = BIAS ? 1.f : scale_log2;
 
     const int my_bar = 1 + wg, other_bar = 2 - wg;
     if (wg == 1) named_arrive(1, 256);                      // WG0 issues first
@@ -732,8 +748,32 @@ flash_attention_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_wait<0>();
       fence_regs(sc);
 
-      // sc[4i + 2r + e]: row rl[r], key k0 + 8i + 2c + e. Keys past N
-      // (last tile only) score -inf.
+      // sc[4i + 2r + e]: row rl[r], key k0 + 8i + 2c + e. With a bias,
+      // v = s·scale·log2 e + (bias_h + bias_w)·log2 e (rows past N read row
+      // N - 1 and are not stored; keys past N read nothing).
+      if constexpr (BIAS) {
+        const int kh0 = k0 / side, kw0 = k0 - kh0 * side;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const size_t row = ((size_t)bh * n + min(q0 + rl[r], n - 1)) * side;
+#pragma unroll
+          for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int off = 8 * i + 2 * c + e;
+              int kw = kw0 + off, kh = kh0;
+              while (kw >= side) {
+                kw -= side;
+                ++kh;
+              }
+              const float b =
+                  k0 + off < n ? (__ldg(bias_h + row + kh) + __ldg(bias_w + row + kw)) * LOG2E
+                               : 0.f;
+              sc[4 * i + 2 * r + e] = fmaf(sc[4 * i + 2 * r + e], scale_log2, b);
+            }
+        }
+      }
+      // Keys past N (last tile only) score -inf.
       if (k0 + BK > n) {
 #pragma unroll
         for (int i = 0; i < BK / 8; ++i)
@@ -757,7 +797,7 @@ flash_attention_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
           mx = fmaxf(mx, fmaxf(sc[4 * i + 2 * r], sc[4 * i + 2 * r + 1]));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(mrow[r], mx * scale_log2);
+        const float m_new = fmaxf(mrow[r], mx * sl);
         alpha[r] = ex2(mrow[r] - m_new);                    // 0 on the first tile
         mrow[r] = m_new;
         float sum = 0.f;
@@ -765,7 +805,7 @@ flash_attention_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
         for (int i = 0; i < BK / 8; ++i)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const float p = ex2(fmaf(sc[4 * i + 2 * r + e], scale_log2, -m_new));
+            const float p = ex2(fmaf(sc[4 * i + 2 * r + e], sl, -m_new));
             sum += p;
             float lo;
             split_tf32(p, sc[4 * i + 2 * r + e], lo);
@@ -832,14 +872,15 @@ flash_attention_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
 // Scratch of the f32 kernel: K's planes [2, bh, n, hd], then Vᵀ's [2, bh,
 // hd, n_pad], n_pad = n rounded up to F32_KEY_PAD (the wrapper allocates
 // 2·bh·hd·(n + n_pad) floats).
-template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* out, void* scratch, int bh,
-               int n, float scale, cudaStream_t stream) {
+template <int HD, bool BIAS>
+int launch_f32(const void* q, const void* k, const void* v, const void* bias_h,
+               const void* bias_w, void* out, void* scratch, int bh, int n, int side, float scale,
+               cudaStream_t stream) {
   using C = F32Cfg<HD>;
   const int n_pad = (n + F32_KEY_PAD - 1) / F32_KEY_PAD * F32_KEY_PAD;
   float* kp = static_cast<float*>(scratch);
   float* vt = kp + (size_t)2 * bh * n * HD;
-  auto kernel = flash_attention_tf32x3_kernel<HD>;
+  auto kernel = flash_attention_tf32x3_kernel<HD, BIAS>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
@@ -860,7 +901,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, void* scr
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3((n + F32_BQ - 1) / F32_BQ, bh), THREADS, C::SMEM, stream>>>(
-      tq, tk, tv, static_cast<float*>(out), n, bh, scale * LOG2E);
+      tq, tk, tv, static_cast<const float*>(bias_h), static_cast<const float*>(bias_w),
+      static_cast<float*>(out), n, side, bh, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -898,9 +940,28 @@ extern "C" int rat_flash_attention_f32(const void* q, const void* k, const void*
   if (bh <= 0 || n <= 0 || bh > 65535) return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 64:
-      return launch_f32<64>(q, k, v, out, scratch, bh, n, scale, s);
+      return launch_f32<64, false>(q, k, v, nullptr, nullptr, out, scratch, bh, n, 1, scale, s);
     case 80:
-      return launch_f32<80>(q, k, v, out, scratch, bh, n, scale, s);
+      return launch_f32<80, false>(q, k, v, nullptr, nullptr, out, scratch, bh, n, 1, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K1 in f32 with the decomposed bias: as rat_flash_attention_f32, plus
+// bias_h and bias_w [bh, n, side] f32, side <= 64 and n = side².
+extern "C" int rat_flash_attention_f32_bias(const void* q, const void* k, const void* v,
+                                            const void* bias_h, const void* bias_w, void* out,
+                                            void* scratch, int bh, int n, int side,
+                                            float scale, int hd, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bh <= 0 || n <= 0 || bh > 65535 || side < 1 || side > MAX_SIDE || side * side != n)
+    return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 64:
+      return launch_f32<64, true>(q, k, v, bias_h, bias_w, out, scratch, bh, n, side, scale, s);
+    case 80:
+      return launch_f32<80, true>(q, k, v, bias_h, bias_w, out, scratch, bh, n, side, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

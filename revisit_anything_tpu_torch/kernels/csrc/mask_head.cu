@@ -104,6 +104,9 @@
 //    first LayerNorm. Rows at or past content are rebuilt and never stored;
 //    past gg, img0 and P read as zeros.
 
+#include <math.h>
+
+#include "f32_tile.cuh"
 #include "hopper.cuh"
 
 namespace rat_k3 {
@@ -800,3 +803,184 @@ extern "C" int rat_mask_head_probs(const void* img0, const void* p1, const void*
   a.eps = eps, a.ln_eps = ln_eps;
   return rat_k3::launch_m<true>(a, n_masks, n_ctas, static_cast<cudaStream_t>(stream));
 }
+
+// ---------------------------------------------------------------------------
+// K3 in f32 (entry rat_mask_head_f32): the same function on f32 operands,
+// for an f32 SAM. The TPU kernel computes in its inputs' dtype, so none of
+// the bf16 roundings above happen: y1, h1, y2, h2 and the logits stay f32,
+// GELU is the exact erf form (torch's gelu; the TPU kernel's A&S
+// polynomial lies within 5e-7 of it) and the group LN's variance is
+// two-pass.
+//
+// What bounds it on the H100: its products, 2 · (256·256 + 4·64·128 +
+// 16·32·M) FLOP a position, 0.64 TFLOP at 1024 prompts x 3136 positions and
+// M = 3: 3.9 ms at the TF32 rate over the three passes that split-TF32
+// needs (165 TFLOP/s), against 3.3 GB of keys in and 0.6 GB of logits out
+// (1.2 ms at 3.35 TB/s).
+//
+// Design: a simple kernel, plain f32 FMAs on the CUDA cores (f32_tile.cuh),
+// no tensor cores: one CTA of 256 threads takes 64 positions of one prompt
+// (positions at or past content are zeros and not stored).
+//  1. keys [64, 256] into shared memory; up2_w [64, 128] (resident), the
+//     prompt's hypernetwork rows and the small vectors beside it.
+//  2. y1 = keys · up1_w + up1_b (up1_w streamed by 32-row chunks from L2)
+//     over the keys tile.
+//  3. Group LN (4 groups of 64 a row, a thread a (row, group): two-pass
+//     mean and variance), scale and shift, GELU, in place: h1.
+//  4. For each conv1 group q: y2 = h1[:, q] · up2_w + up2_b, GELU → h2
+//     [64, 128] in shared memory; then the hypernetwork dot, out[p, 4q + r,
+//     m] = sum_c h2[p, 32r + c] · hyper[m, c], into a [64, 16, M] tile.
+//  5. The tile's rows below content leave as one contiguous run.
+namespace rat_k3f {
+
+using namespace rat_f32;
+
+constexpr int D = 256, C1 = 64, C2 = 32, MAXM = 4;
+constexpr int BM = TILE_ROWS;
+constexpr int XS = D + 4;                        // row pitches (floats)
+constexpr int HS = 4 * C2 + 4;
+constexpr int OFF_X = 0;                         // [BM][XS]: keys, y1, h1
+constexpr int OFF_W = OFF_X + BM * XS;           // [WCHUNK][D]: an up1_w chunk
+constexpr int OFF_W2 = OFF_W + WCHUNK * D;       // [C1][4·C2]: up2_w
+constexpr int OFF_H2 = OFF_W2 + C1 * 4 * C2;     // [BM][HS]: h2 of one group
+constexpr int OFF_O = OFF_H2 + BM * HS;          // [BM][16·M]: logits
+constexpr int OFF_HY = OFF_O + BM * 16 * MAXM;   // [M][C2]: hypernetwork rows
+constexpr int OFF_V = OFF_HY + MAXM * C2;        // up1_b, ln scale, ln bias [C1]; up2_b [C2]
+constexpr int SMEM = (OFF_V + 3 * C1 + C2) * 4;
+
+__global__ void __launch_bounds__(TILE_THREADS, 1)
+mask_head_f32_kernel(const float* __restrict__ keys,    // [Np, gg, D]
+                     const float* __restrict__ up1_w,   // [D, 4·C1]
+                     const float* __restrict__ up1_b,   // [C1]
+                     const float* __restrict__ ln_s,    // [C1]
+                     const float* __restrict__ ln_b,    // [C1]
+                     const float* __restrict__ up2_w,   // [C1, 4·C2]
+                     const float* __restrict__ up2_b,   // [C2]
+                     const float* __restrict__ hyper,   // [Np, M, C2]
+                     float* __restrict__ out,           // [Np, content, 16, M]
+                     int gg, int content, int n_masks, float eps) {
+  extern __shared__ float4 smem4[];
+  float* const sm = reinterpret_cast<float*>(smem4);
+  float* const sx = sm + OFF_X;
+  float* const sw = sm + OFF_W;
+  float* const sw2 = sm + OFF_W2;
+  float* const sh2 = sm + OFF_H2;
+  float* const so = sm + OFF_O;
+  float* const shy = sm + OFF_HY;
+  float* const sb1 = sm + OFF_V;
+  float* const sls = sb1 + C1;
+  float* const slb = sls + C1;
+  float* const sb2 = slb + C1;
+  const int n = blockIdx.y, p0 = blockIdx.x * BM, tid = threadIdx.x;
+  const int tc = tid % 32, r0 = 8 * (tid / 32);
+  const int rows = min(BM, content - p0);
+  const int M = n_masks;
+
+  // 1. keys (zeros past content), up2_w, the hypernetwork rows, vectors
+  const float* x = keys + ((size_t)n * gg + p0) * D;
+  for (int e = tid; e < BM * D / 4; e += TILE_THREADS) {
+    const int r = e / (D / 4), c = 4 * (e % (D / 4));
+    *reinterpret_cast<float4*>(sx + r * XS + c) =
+        r < rows ? *reinterpret_cast<const float4*>(x + (size_t)r * D + c)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (int e = 4 * tid; e < C1 * 4 * C2; e += 4 * TILE_THREADS)
+    *reinterpret_cast<float4*>(sw2 + e) = *reinterpret_cast<const float4*>(up2_w + e);
+  for (int e = tid; e < M * C2; e += TILE_THREADS) shy[e] = hyper[(size_t)n * M * C2 + e];
+  if (tid < C1) {
+    sb1[tid] = up1_b[tid];
+    sls[tid] = ln_s[tid];
+    slb[tid] = ln_b[tid];
+  }
+  if (tid < C2) sb2[tid] = up2_b[tid];
+
+  // 2. y1 = keys · up1_w + up1_b, over the keys
+  {
+    float acc[8][D / 32];
+    tile_gemm<D, D>(acc, sx, XS, up1_w, sw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < D / 32; ++j) {
+        const int c = tc + 32 * j;
+        sx[(r0 + i) * XS + c] = acc[i][j] + sb1[c % C1];
+      }
+  }
+  __syncthreads();
+
+  // 3. h1 = GELU(groupLN(y1)): a thread a (row, group)
+  {
+    float* g = sx + (tid / 4) * XS + (tid % 4) * C1;
+    float s = 0.f;
+    for (int c = 0; c < C1; ++c) s += g[c];
+    const float mu = s / C1;
+    float v = 0.f;
+    for (int c = 0; c < C1; ++c) {
+      const float dv = g[c] - mu;
+      v = fmaf(dv, dv, v);
+    }
+    const float rstd = 1.f / sqrtf(v / C1 + eps);
+    for (int c = 0; c < C1; ++c) g[c] = gelu_erf((g[c] - mu) * rstd * sls[c] + slb[c]);
+  }
+  __syncthreads();
+
+  // 4. per group q: h2 = GELU(h1[:, q] · up2_w + up2_b), then the
+  //    hypernetwork dot into the logits tile
+  for (int q = 0; q < 4; ++q) {
+    float acc[8][4 * C2 / 32];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4 * C2 / 32; ++j) acc[i][j] = 0.f;
+    tile_fma<4 * C2>(acc, sx, XS, q * C1, C1, sw2, 4 * C2);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4 * C2 / 32; ++j) {
+        const int c = tc + 32 * j;
+        sh2[(r0 + i) * HS + c] = gelu_erf(acc[i][j] + sb2[c % C2]);
+      }
+    __syncthreads();
+    for (int e = tid; e < BM * 4 * M; e += TILE_THREADS) {
+      const int p = e / (4 * M), r = (e / M) % 4, mm = e % M;
+      const float* h = sh2 + p * HS + r * C2;
+      const float* w = shy + mm * C2;
+      float o = 0.f;
+#pragma unroll
+      for (int c = 0; c < C2; ++c) o = fmaf(h[c], w[c], o);
+      so[p * 16 * M + (4 * q + r) * M + mm] = o;
+    }
+    __syncthreads();
+  }
+
+  // 5. the rows below content, one contiguous run of out
+  float* dst = out + ((size_t)n * content + p0) * 16 * M;
+  for (int e = tid; e < rows * 16 * M; e += TILE_THREADS) dst[e] = so[e];
+}
+
+}  // namespace rat_k3f
+
+// K3 in f32: the same arguments as rat_mask_head (n_ctas unused: a CTA a
+// 64-position item), every tensor f32; out [Np, content, 16, M].
+extern "C" int rat_mask_head_f32(const void* keys, const void* up1_w, const void* up1_b,
+                                 const void* ln_s, const void* ln_b, const void* up2_w,
+                                 const void* up2_b, const void* hyper, void* out, int np_,
+                                 int gg, int content, int n_masks, float eps, void* stream) {
+  using namespace rat_k3f;
+  if (np_ < 1 || np_ > 65535 || content < 1 || content > gg || n_masks < 1 ||
+      n_masks > MAXM)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      mask_head_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return (int)err;
+  typedef const float* P;
+  mask_head_f32_kernel<<<dim3((content + BM - 1) / BM, np_), TILE_THREADS, SMEM,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<P>(keys), static_cast<P>(up1_w), static_cast<P>(up1_b), static_cast<P>(ln_s),
+      static_cast<P>(ln_b), static_cast<P>(up2_w), static_cast<P>(up2_b), static_cast<P>(hyper),
+      static_cast<float*>(out), gg, content, n_masks, eps);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory a K3 f32 CTA takes (for reports).
+extern "C" int rat_mask_head_f32_smem() { return rat_k3f::SMEM; }

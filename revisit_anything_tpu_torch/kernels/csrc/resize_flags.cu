@@ -1,5 +1,13 @@
 // Fused lowres -> original mask resize + threshold flags + per-axis stats.
 //
+// Two instantiations of one kernel, by the logits' type E: bf16 (entry
+// rat_resize_flags) and f32 (entry rat_resize_flags_f32, for an f32 SAM:
+// the TPU kernel keeps its row matrix and its products in the logits'
+// dtype, so the f32 row pass multiplies f32 logits by unrounded f32 taps,
+// `ops.maskresize.resize_taps(..., dtype=float32)`). Only the loads
+// differ: a grid row is g·16·M·sizeof(E) bytes, so the f32 ring takes
+// twice the shared memory (1 CTA an SM at 17places, against 2).
+//
 // Replaces: revisit_anything_tpu/ops/maskresize.py `fused_resize_flags` /
 // `_resize_flags_kernel` (pallas_call at :207, emit_stats=True, called at
 // models/sam/amg.py:275-277). Per prompt n and mask token m:
@@ -76,8 +84,8 @@ constexpr int MAX_W = 8192;
 constexpr int TABLE_BUDGET = 16384;   // tap tables kept in shared memory up to this size
 static_assert(4 * BAND * 8 <= CT, "band_out takes eight threads a row of a band");
 
-// Ring slot pitch; a slot holds one grid row of g·16·M bf16.
-__host__ __device__ constexpr int slot_bytes(int m) { return G * 16 * m * 2; }
+// Ring slot pitch; a slot holds one grid row of g·16·M logits of es bytes.
+__host__ __device__ constexpr int slot_bytes(int m, int es) { return G * 16 * m * es; }
 
 // Shared memory of a CTA: the ring, two T buffers [M·band][C] f32, two
 // staging tiles [M·band][w4] bytes (w4 = W rounded up to 32), two
@@ -88,12 +96,12 @@ struct Layout {
   int band, w4, t, stage, cw, bar, tab, total;
 };
 
-__host__ __device__ inline Layout layout(int m, int w, int h) {
+__host__ __device__ inline Layout layout(int m, int w, int h, int es) {
   Layout L;
   L.w4 = (w + 31) & ~31;                // staged row pitch: whole 32-pixel chunks
   int band = STAGE_BUDGET / (m * L.w4);
   L.band = band < 1 ? 1 : (band > BAND ? BAND : band);
-  L.t = NSLOT * slot_bytes(m);
+  L.t = NSLOT * slot_bytes(m, es);
   L.stage = L.t + 2 * L.band * m * C * 4;
   L.cw = L.stage + 2 * L.band * m * L.w4;
   L.bar = (L.cw + 2 * m * L.w4 + 7) & ~7;
@@ -154,18 +162,19 @@ __device__ __forceinline__ Band next_band(Band b, const float4* htap, int h, int
 // The first row thread: bulk-copy the CTA's grid rows issued..lim-1
 // (sequence numbers, at most `total`) into their ring slots. Sequence s
 // is prompt s / R (blockIdx.x + (s / R)·gridDim.x), grid row i0 + s % R.
-template <int M>
+template <int M, typename E>
 __device__ __forceinline__ void issue_until(int& issued, int lim, int total, int R, int i0, int gh,
-                                            int g, const __nv_bfloat16* logits, uint32_t ring_s,
+                                            int g, const E* logits, uint32_t ring_s,
                                             uint32_t bar0) {
+  constexpr int ES = (int)sizeof(E);
   lim = lim < total ? lim : total;
   for (; issued < lim; ++issued) {
     const int s = issued, pl = s / R, i = i0 + s - pl * R;
     const size_t n = blockIdx.x + (size_t)pl * gridDim.x;
     const uint32_t bar = bar0 + 8 * (s % NSLOT);
-    mbar_expect_tx(bar, g * 32 * M);
-    bulk_load_1d(ring_s + (s % NSLOT) * slot_bytes(M), logits + (n * gh + i) * (g * 16 * M),
-                 g * 32 * M, bar);
+    mbar_expect_tx(bar, g * 16 * M * ES);
+    bulk_load_1d(ring_s + (s % NSLOT) * slot_bytes(M, ES), logits + (n * gh + i) * (g * 16 * M),
+                 g * 16 * M * ES, bar);
   }
 }
 
@@ -177,25 +186,32 @@ __device__ __forceinline__ void wait_rows(Band b, int R, int i0, uint32_t bar0) 
   }
 }
 
-// Row k of this thread's (j, b1) run, 2M bf16 = M words, as f32.
-template <int M>
+// Row k of this thread's (j, b1) run, 2M logits (M words of bf16 pairs,
+// or 2M f32), as f32.
+template <int M, typename E>
 __device__ __forceinline__ void load_run(float (&dst)[2 * M], const uint8_t* __restrict__ ring,
                                          int k, int seq0, int i0, int j, int b1) {
   const int i = k >> 2, a1 = (k >> 1) & 1, a2 = k & 1;
-  const uint32_t* src = reinterpret_cast<const uint32_t*>(
-                            ring + ((seq0 + i - i0) % NSLOT) * slot_bytes(M)) +
-                        ((16 * j + 8 * a1 + 4 * b1 + 2 * a2) * M >> 1);
+  const uint8_t* slot = ring + ((seq0 + i - i0) % NSLOT) * slot_bytes(M, (int)sizeof(E));
+  const int e0 = (16 * j + 8 * a1 + 4 * b1 + 2 * a2) * M;   // the run's first element
+  if constexpr (sizeof(E) == 4) {
+    const float* src = reinterpret_cast<const float*>(slot) + e0;
 #pragma unroll
-  for (int w = 0; w < M; ++w) {
-    const uint32_t u = src[w];
-    dst[2 * w] = __uint_as_float(u << 16);
-    dst[2 * w + 1] = __uint_as_float(u & 0xffff0000u);
+    for (int q = 0; q < 2 * M; ++q) dst[q] = src[q];
+  } else {
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(slot) + (e0 >> 1);
+#pragma unroll
+    for (int w = 0; w < M; ++w) {
+      const uint32_t u = src[w];
+      dst[2 * w] = __uint_as_float(u << 16);
+      dst[2 * w + 1] = __uint_as_float(u & 0xffff0000u);
+    }
   }
 }
 
 // T[m·nrows + r, c] = sum_t wh[o0+r, k0+t] · L[k0+t, c, m]: row thread
 // `run` owns one (j, b1) run (c = 4j + 2b1 + b2) for every row of the band.
-template <int M, bool S>
+template <int M, bool S, typename E>
 __device__ __forceinline__ void row_pass(const uint8_t* __restrict__ ring, float* __restrict__ T,
                                          const float4* htap, int o0, int nrows, int seq0, int i0,
                                          int kmax, int g, int run) {
@@ -213,16 +229,16 @@ __device__ __forceinline__ void row_pass(const uint8_t* __restrict__ ring, float
         win[0][q] = win[1][q];
         win[1][q] = win[2][q];
       }
-      load_run<M>(win[2], ring, k0 + 2, seq0, i0, j, b1);
+      load_run<M, E>(win[2], ring, k0 + 2, seq0, i0, j, b1);
     } else if (d == 2) {
 #pragma unroll
       for (int q = 0; q < 2 * M; ++q) win[0][q] = win[2][q];
-      load_run<M>(win[1], ring, k0 + 1, seq0, i0, j, b1);
-      load_run<M>(win[2], ring, k0 + 2, seq0, i0, j, b1);
+      load_run<M, E>(win[1], ring, k0 + 1, seq0, i0, j, b1);
+      load_run<M, E>(win[2], ring, k0 + 2, seq0, i0, j, b1);
     } else if (d != 0) {
-      load_run<M>(win[0], ring, k0, seq0, i0, j, b1);
-      load_run<M>(win[1], ring, k0 + 1, seq0, i0, j, b1);
-      load_run<M>(win[2], ring, k0 + 2, seq0, i0, j, b1);
+      load_run<M, E>(win[0], ring, k0, seq0, i0, j, b1);
+      load_run<M, E>(win[1], ring, k0 + 1, seq0, i0, j, b1);
+      load_run<M, E>(win[2], ring, k0 + 2, seq0, i0, j, b1);
     }
     wk = k0;
     float* trow = T + r * C + 2 * run;
@@ -389,9 +405,9 @@ __device__ __forceinline__ void write_colany(uint32_t* cw, uint8_t* colany, size
 // band, into two T buffers; the eight column warps turn each T into
 // flags and stats. T[b&1] full and empty are named barriers, so the row
 // pass of band b+1 runs under the column pass of band b.
-template <int M, bool S>
+template <int M, bool S, typename E>
 __global__ void __launch_bounds__(THREADS, 2)
-resize_flags_kernel(const __nv_bfloat16* __restrict__ logits,  // [Np, gh*g, 16, M]
+resize_flags_kernel(const E* __restrict__ logits,              // [Np, gh*g, 16, M]
                     const float4* __restrict__ htap_g,         // [H] (k0, w0, w1, w2)
                     const float4* __restrict__ wtap_g,         // [W] (c0, w0, w1, w2)
                     uint8_t* __restrict__ flags,               // [Np, M, H, W]
@@ -399,7 +415,7 @@ resize_flags_kernel(const __nv_bfloat16* __restrict__ logits,  // [Np, gh*g, 16,
                     uint8_t* __restrict__ colany,              // [Np, M, W]
                     int np_, int gh, int g, int h, int w, float t_lo, float t_mid, float t_hi) {
   extern __shared__ __align__(128) uint8_t smem[];
-  const Layout L = layout(M, w, h);
+  const Layout L = layout(M, w, h, (int)sizeof(E));
   const uint8_t* ring = smem;
   const uint32_t ring_s = smem_u32(smem);
   const uint32_t bar0 = smem_u32(smem + L.bar);
@@ -449,11 +465,11 @@ resize_flags_kernel(const __nv_bfloat16* __restrict__ logits,  // [Np, gh*g, 16,
     for (int b = 0; b < n_bands; ++b) {
       named_sync(BAR_R, RT);                      // every row thread has left band b-1
       if (run == 0)                               // so rows above band b are free
-        issue_until<M>(issued, bd.pl * R + bd.i_lo - i0 + NSLOT, total, R, i0, gh, g, logits,
+        issue_until<M, E>(issued, bd.pl * R + bd.i_lo - i0 + NSLOT, total, R, i0, gh, g, logits,
                        ring_s, bar0);
       if (b >= 2) named_sync(BAR_EMPTY + (b & 1), THREADS);
       wait_rows(bd, R, i0, bar0);
-      row_pass<M, S>(ring, b & 1 ? t1 : t0, htap, bd.o0, bd.o1 - bd.o0, bd.pl * R, i0, kmax, g,
+      row_pass<M, S, E>(ring, b & 1 ? t1 : t0, htap, bd.o0, bd.o1 - bd.o0, bd.pl * R, i0, kmax, g,
                      run);
       named_arrive(BAR_FULL + (b & 1), THREADS);
       bd = next_band<S>(bd, htap, h, L.band, kmax);
@@ -485,12 +501,12 @@ resize_flags_kernel(const __nv_bfloat16* __restrict__ logits,  // [Np, gh*g, 16,
     write_colany<M>(due & 1 ? cw1 : cw0, colany, blockIdx.x + (size_t)due * gridDim.x, w, nq);
 }
 
-template <int M, bool S>
+template <int M, bool S, typename E>
 int launch_as(const void* logits, const void* htap, const void* wtap, void* flags, void* rowst,
               void* colany, int np_, int gh, int g, int h, int w, float t_lo, float t_mid,
               float t_hi, int n_sm, cudaStream_t stream) {
-  auto kernel = resize_flags_kernel<M, S>;
-  const Layout L = layout(M, w, h);
+  auto kernel = resize_flags_kernel<M, S, E>;
+  const Layout L = layout(M, w, h, (int)sizeof(E));
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
   if (err != cudaSuccess) return (int)err;
@@ -501,22 +517,47 @@ int launch_as(const void* logits, const void* htap, const void* wtap, void* flag
   const long long ctas = (long long)n_sm * per_sm;
   const int grid = (int)(np_ < ctas ? np_ : ctas);
   kernel<<<grid, THREADS, L.total, stream>>>(
-      static_cast<const __nv_bfloat16*>(logits), static_cast<const float4*>(htap),
+      static_cast<const E*>(logits), static_cast<const float4*>(htap),
       static_cast<const float4*>(wtap), static_cast<uint8_t*>(flags), static_cast<int*>(rowst),
       static_cast<uint8_t*>(colany), np_, gh, g, h, w, t_lo, t_mid, t_hi);
   return (int)cudaGetLastError();
 }
 
 // The tables go to shared memory where they fit TABLE_BUDGET.
-template <int M>
+template <int M, typename E>
 int launch(const void* logits, const void* htap, const void* wtap, void* flags, void* rowst,
            void* colany, int np_, int gh, int g, int h, int w, float t_lo, float t_mid,
            float t_hi, int n_sm, cudaStream_t stream) {
-  if (layout(M, w, h).total > layout(M, w, h).tab)
-    return launch_as<M, true>(logits, htap, wtap, flags, rowst, colany, np_, gh, g, h, w, t_lo,
-                              t_mid, t_hi, n_sm, stream);
-  return launch_as<M, false>(logits, htap, wtap, flags, rowst, colany, np_, gh, g, h, w, t_lo,
-                             t_mid, t_hi, n_sm, stream);
+  const Layout L = layout(M, w, h, (int)sizeof(E));
+  if (L.total > L.tab)
+    return launch_as<M, true, E>(logits, htap, wtap, flags, rowst, colany, np_, gh, g, h, w,
+                                 t_lo, t_mid, t_hi, n_sm, stream);
+  return launch_as<M, false, E>(logits, htap, wtap, flags, rowst, colany, np_, gh, g, h, w,
+                                t_lo, t_mid, t_hi, n_sm, stream);
+}
+
+template <typename E>
+int dispatch(const void* logits, const void* h_taps, const void* w_taps, void* flags,
+             void* rowst, void* colany, int np_, int gh, int g, int n_masks, int h, int w,
+             float t_lo, float t_mid, float t_hi, int n_sm, cudaStream_t s) {
+  if (np_ < 1 || g < 1 || g > G || gh < 1 || gh > g || h < 1 || w < 1 || w > MAX_W ||
+      n_sm < 1 || (long long)np_ * gh > (1ll << 30))
+    return (int)cudaErrorInvalidValue;
+  switch (n_masks) {
+    case 1:
+      return launch<1, E>(logits, h_taps, w_taps, flags, rowst, colany, np_, gh, g, h, w, t_lo,
+                          t_mid, t_hi, n_sm, s);
+    case 2:
+      return launch<2, E>(logits, h_taps, w_taps, flags, rowst, colany, np_, gh, g, h, w, t_lo,
+                          t_mid, t_hi, n_sm, s);
+    case 3:
+      return launch<3, E>(logits, h_taps, w_taps, flags, rowst, colany, np_, gh, g, h, w, t_lo,
+                          t_mid, t_hi, n_sm, s);
+    case 4:
+      return launch<4, E>(logits, h_taps, w_taps, flags, rowst, colany, np_, gh, g, h, w, t_lo,
+                          t_mid, t_hi, n_sm, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace rat_k4
@@ -527,37 +568,34 @@ extern "C" int rat_resize_flags(const void* logits, const void* h_taps, const vo
                                 void* flags, void* rowst, void* colany, int np_, int gh, int g,
                                 int n_masks, int h, int w, float t_lo, float t_mid, float t_hi,
                                 int n_sm, void* stream) {
-  using namespace rat_k4;
-  if (np_ < 1 || g < 1 || g > G || gh < 1 || gh > g || h < 1 || w < 1 || w > MAX_W ||
-      n_sm < 1 || (long long)np_ * gh > (1ll << 30))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (n_masks) {
-    case 1:
-      return launch<1>(logits, h_taps, w_taps, flags, rowst, colany, np_, gh, g, h, w, t_lo,
-                       t_mid, t_hi, n_sm, s);
-    case 2:
-      return launch<2>(logits, h_taps, w_taps, flags, rowst, colany, np_, gh, g, h, w, t_lo,
-                       t_mid, t_hi, n_sm, s);
-    case 3:
-      return launch<3>(logits, h_taps, w_taps, flags, rowst, colany, np_, gh, g, h, w, t_lo,
-                       t_mid, t_hi, n_sm, s);
-    case 4:
-      return launch<4>(logits, h_taps, w_taps, flags, rowst, colany, np_, gh, g, h, w, t_lo,
-                       t_mid, t_hi, n_sm, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return rat_k4::dispatch<__nv_bfloat16>(logits, h_taps, w_taps, flags, rowst, colany, np_, gh,
+                                         g, n_masks, h, w, t_lo, t_mid, t_hi, n_sm,
+                                         static_cast<cudaStream_t>(stream));
 }
 
-// Dynamic shared memory of a CTA in bytes.
+// The same on f32 logits (the taps unrounded f32).
+extern "C" int rat_resize_flags_f32(const void* logits, const void* h_taps, const void* w_taps,
+                                    void* flags, void* rowst, void* colany, int np_, int gh,
+                                    int g, int n_masks, int h, int w, float t_lo, float t_mid,
+                                    float t_hi, int n_sm, void* stream) {
+  return rat_k4::dispatch<float>(logits, h_taps, w_taps, flags, rowst, colany, np_, gh, g,
+                                 n_masks, h, w, t_lo, t_mid, t_hi, n_sm,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory of a CTA in bytes, bf16 and f32 logits.
 extern "C" int rat_resize_flags_smem(int n_masks, int w, int h) {
-  return rat_k4::layout(n_masks, w, h).total;
+  return rat_k4::layout(n_masks, w, h, 2).total;
+}
+extern "C" int rat_resize_flags_f32_smem(int n_masks, int w, int h) {
+  return rat_k4::layout(n_masks, w, h, 4).total;
 }
 
 // CTAs an SM (occupancy at that shared memory), 0 on an error.
 extern "C" int rat_resize_flags_ctas(int n_masks, int w, int h) {
   using namespace rat_k4;
-  const Layout L = layout(n_masks, w, h);
+  using E = __nv_bfloat16;
+  const Layout L = layout(n_masks, w, h, 2);
   int per_sm = 0;
   auto query = [&](auto kernel) {
     if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total) ||
@@ -566,10 +604,10 @@ extern "C" int rat_resize_flags_ctas(int n_masks, int w, int h) {
   };
   const bool s = L.total > L.tab;
   switch (n_masks) {
-    case 1: s ? query(resize_flags_kernel<1, true>) : query(resize_flags_kernel<1, false>); break;
-    case 2: s ? query(resize_flags_kernel<2, true>) : query(resize_flags_kernel<2, false>); break;
-    case 3: s ? query(resize_flags_kernel<3, true>) : query(resize_flags_kernel<3, false>); break;
-    case 4: s ? query(resize_flags_kernel<4, true>) : query(resize_flags_kernel<4, false>); break;
+    case 1: s ? query(resize_flags_kernel<1, true, E>) : query(resize_flags_kernel<1, false, E>); break;
+    case 2: s ? query(resize_flags_kernel<2, true, E>) : query(resize_flags_kernel<2, false, E>); break;
+    case 3: s ? query(resize_flags_kernel<3, true, E>) : query(resize_flags_kernel<3, false, E>); break;
+    case 4: s ? query(resize_flags_kernel<4, true, E>) : query(resize_flags_kernel<4, false, E>); break;
   }
   return per_sm;
 }

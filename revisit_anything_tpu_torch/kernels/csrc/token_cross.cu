@@ -405,3 +405,129 @@ extern "C" int rat_token_cross_smem(int pe, int shared) {
   if (pe) return shared ? smem_bytes<true, true>() : smem_bytes<true, false>();
   return shared ? smem_bytes<false, true>() : smem_bytes<false, false>();
 }
+
+// ---------------------------------------------------------------------------
+// K2 in f32 (entry rat_token_cross_kv_f32): the same function on f32 q,
+// kvt, pe_kt, v_bias and out, for an f32 SAM. The TPU kernel computes in
+// its inputs' dtype, so k + pe and v + bias are f32 adds and the
+// probabilities stay f32.
+//
+// What bounds it on the H100: bytes where k|v is per prompt (kvt [1024,
+// 256, 4096] f32, 4.3 GB a call, 1.3 ms at 3.35 TB/s); where it is shared
+// (layer 1) only its 15 GFLOP and its exponentials, which no rate of the
+// card makes long.
+//
+// Design: a simple kernel, plain f32 FMAs on the CUDA cores, no tensor
+// cores: one CTA of 256 threads takes (head, prompt). Per tile of 256 keys
+// the head's 16 k rows (kvt + pe) and 16 v rows (kvt + bias) are formed in
+// shared memory (32 KB, coalesced rows in, consecutive keys to consecutive
+// banks); warp i takes query row i (n <= 8), lane l the tile's keys l +
+// 32j (j < 8): its 8 scores, their max, one rescale of its running max,
+// sum and 16 accumulators, then 8 exponentials (expf) and the P·V FMAs. At
+// the end the 32 lanes of a warp merge their partial softmaxes by shuffles
+// and lane 0 stores the row. Keys past M score -inf.
+namespace rat_k2f {
+
+constexpr int HD = 16, TK = 256, THREADS = 256;
+
+__global__ void __launch_bounds__(THREADS)
+token_cross_kv_f32_kernel(const float* __restrict__ q,     // [B, n, D]
+                          const float* __restrict__ kvt,   // [1|B, 2D, M]
+                          const float* __restrict__ pe,    // [D, M]
+                          const float* __restrict__ vb,    // [D]
+                          float* __restrict__ out,         // [B, n, D]
+                          size_t kv_stride, int n, int d, int m, float scale) {
+  __shared__ float sk[HD][TK];
+  __shared__ float sv[HD][TK];
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const float* kr = kvt + b * kv_stride + (size_t)h * HD * m;
+  const float* vr = kvt + b * kv_stride + (size_t)(d + h * HD) * m;
+  const float* pr = pe + (size_t)h * HD * m;
+  const bool live = warp < n;                               // warp-uniform
+  float qv[HD], acc[HD], mrun = -INFINITY, lsum = 0.f;
+#pragma unroll
+  for (int e = 0; e < HD; ++e) {
+    qv[e] = live ? q[((size_t)b * n + warp) * d + h * HD + e] : 0.f;
+    acc[e] = 0.f;
+  }
+  for (int t0 = 0; t0 < m; t0 += TK) {
+    __syncthreads();                                        // the last tile is read
+    for (int e = threadIdx.x; e < HD * TK; e += THREADS) {
+      const int r = e / TK, p = e % TK, key = t0 + p;
+      float kx = 0.f, vx = 0.f;
+      if (key < m) {
+        kx = kr[(size_t)r * m + key] + pr[(size_t)r * m + key];
+        vx = vr[(size_t)r * m + key] + vb[h * HD + r];
+      }
+      sk[r][p] = kx;
+      sv[r][p] = vx;
+    }
+    __syncthreads();
+    if (!live) continue;
+    float s[TK / 32], mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < TK / 32; ++j) {
+      const int p = lane + 32 * j;
+      float dot = 0.f;
+#pragma unroll
+      for (int e = 0; e < HD; ++e) dot = fmaf(qv[e], sk[e][p], dot);
+      s[j] = t0 + p < m ? dot * scale : -INFINITY;
+      mx = fmaxf(mx, s[j]);
+    }
+    const float mnew = fmaxf(mrun, mx);
+    if (mnew == -INFINITY) continue;                        // no key of this lane yet
+    const float corr = expf(mrun - mnew);                   // 0 on the lane's first keys
+    lsum *= corr;
+#pragma unroll
+    for (int e = 0; e < HD; ++e) acc[e] *= corr;
+#pragma unroll
+    for (int j = 0; j < TK / 32; ++j) {
+      const float p = expf(s[j] - mnew);
+      lsum += p;
+#pragma unroll
+      for (int e = 0; e < HD; ++e) acc[e] = fmaf(p, sv[e][lane + 32 * j], acc[e]);
+    }
+    mrun = mnew;
+  }
+  if (!live) return;
+  // merge the lanes' (max, sum, accumulators)
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float mo = __shfl_xor_sync(0xffffffffu, mrun, o);
+    const float lo = __shfl_xor_sync(0xffffffffu, lsum, o);
+    const float mn = fmaxf(mrun, mo);
+    const float ca = mrun == -INFINITY ? 0.f : expf(mrun - mn);
+    const float cb = mo == -INFINITY ? 0.f : expf(mo - mn);
+    lsum = lsum * ca + lo * cb;
+#pragma unroll
+    for (int e = 0; e < HD; ++e) {
+      const float ao = __shfl_xor_sync(0xffffffffu, acc[e], o);
+      acc[e] = acc[e] * ca + ao * cb;
+    }
+    mrun = mn;
+  }
+  if (lane == 0) {
+    float* dst = out + ((size_t)b * n + warp) * d + h * HD;
+#pragma unroll
+    for (int e = 0; e < HD; ++e) dst[e] = acc[e] / lsum;
+  }
+}
+
+}  // namespace rat_k2f
+
+// K2 in f32: the same arguments as rat_token_cross_kv, every tensor f32.
+extern "C" int rat_token_cross_kv_f32(const void* q, const void* kvt, const void* pe,
+                                      const void* vb, void* out, int b, int n, int d, int m,
+                                      int heads, int kv_shared, void* stream) {
+  constexpr int hd = rat_k2f::HD, threads = rat_k2f::THREADS;
+  if (b < 1 || b > 65535 || heads <= 0 || d != heads * hd || n < 1 || n > threads / 32 ||
+      m <= 0 || m % 8)
+    return (int)cudaErrorInvalidValue;
+  rat_k2f::token_cross_kv_f32_kernel<<<dim3(heads, b), threads, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(kvt),
+      static_cast<const float*>(pe), static_cast<const float*>(vb), static_cast<float*>(out),
+      kv_shared ? 0 : (size_t)2 * d * m, n, d, m, 1.f / sqrtf((float)hd));
+  return (int)cudaGetLastError();
+}

@@ -32,7 +32,7 @@ from revisit_anything_tpu_torch.ops import maskresize as mr
 _SRC = build._CSRC / "resize_flags.cu"
 _OUT = build._BUILD_ROOT / "variants"
 
-_ROW = ("      row_pass<M, S>(ring, b & 1 ? t1 : t0, htap, bd.o0, bd.o1 - bd.o0, "
+_ROW = ("      row_pass<M, S, E>(ring, b & 1 ? t1 : t0, htap, bd.o0, bd.o1 - bd.o0, "
         "bd.pl * R, i0, kmax, g,\n                     run);")
 _COL = ("    column_pass<S>(b & 1 ? t1 : t0, b & 1 ? s1 : s0, wtap, cs, rows, w, L.w4, "
         "4 * g - TAPS,\n                   t_lo, t_mid, t_hi);")

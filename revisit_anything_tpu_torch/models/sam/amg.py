@@ -224,6 +224,18 @@ def resize_mats_and_rows(cfg: SamArchConfig, input_hw: Tuple[int, int],
     return wh[:, :4 * gh], ww, gh
 
 
+def amg_taps(key: tuple, device, dtype: torch.dtype) -> tuple:
+    """K4's tap tables of the resize matrices of ``key`` = (cfg, input_hw,
+    orig_hw) (:func:`resize_mats_and_rows`), wh's weights at the logits'
+    ``dtype`` (rounded to bf16 for bf16 logits, kept f32 for f32 ones, as
+    the JAX package rounds its row matrix to the logits' dtype), built
+    once per (key, dtype, device)."""
+    wh_np, ww_np, _ = resize_mats_and_rows(*key)
+    return tuple(device_constant(
+        ("amg_taps", i, dtype) + key, device,
+        lambda i=i: resize_taps(wh_np, ww_np, dtype)[i]) for i in range(2))
+
+
 def _decode_batch(sam, cfg: SamArchConfig, image_embedding: torch.Tensor,
                   image_pe: torch.Tensor, points_1024: torch.Tensor,
                   input_hw: Tuple[int, int], orig_hw: Tuple[int, int],
@@ -244,16 +256,13 @@ def _decode_batch(sam, cfg: SamArchConfig, image_embedding: torch.Tensor,
     wh_np, ww_np, gh = resize_mats_and_rows(*key)
     wh = device_constant(("amg_resize_h",) + key, dev, lambda: wh_np)
     ww = device_constant(("amg_resize_w",) + key, dev, lambda: ww_np)
-    # K4's tap tables; the CPU path takes the dense matrices
-    taps = None
-    if dev.type == "cuda":
-        taps = tuple(device_constant(("amg_taps", i) + key, dev,
-                                     lambda i=i: resize_taps(wh_np, ww_np)[i])
-                     for i in range(2))
     lowres_blk, iou = decode_masks(sam.decoder, cfg, image_embedding,
                                    image_pe, sparse, dense, mask_rows=gh,
                                    decode=amg.decode)
     iou = iou.reshape(-1)
+    # K4's tap tables; the CPU path takes the dense matrices
+    taps = (amg_taps(key, dev, lowres_blk.dtype) if dev.type == "cuda"
+            else None)
 
     hgt, wid = orig_hw
     flags, rowst, colany = fused_resize_flags(

@@ -1,6 +1,7 @@
-"""Attention kernels K1 (flash attention, in bf16 and in f32), K2 (token→image cross
+"""Attention kernels K1 (flash attention), K2 (token→image cross
 attention), B10 (the same without pe and v bias, on separate kᵀ and vᵀ)
-and K5 (fused image→token update), each beside its plain PyTorch version.
+and K5 (fused image→token update), each beside its plain PyTorch version;
+K1, K2 and K5 in bf16 and in f32 (an f32 SAM, the JAX package's default).
 
 Counterpart of ``revisit_anything_tpu/ops/attention.py`` (``attend``
 :561, ``token_cross_attend_kv`` :467, ``token_cross_attend`` :200,
@@ -16,11 +17,18 @@ from typing import Optional
 
 import torch
 
-from revisit_anything_tpu_torch.kernels.build import (FLASH_ATTENTION,
-                                                      FLASH_ATTENTION_F32,
-                                                      I2T_UPDATE, TOKEN_CROSS,
-                                                      TOKEN_CROSS_SPLIT,
-                                                      operand)
+from revisit_anything_tpu_torch.kernels.build import (
+    FLASH_ATTENTION, FLASH_ATTENTION_F32, FLASH_ATTENTION_F32_BIAS,
+    I2T_UPDATE, I2T_UPDATE_F32, TOKEN_CROSS, TOKEN_CROSS_F32,
+    TOKEN_CROSS_SPLIT, operand)
+
+
+def kernel_dtype(what: str, t: torch.Tensor) -> torch.dtype:
+    """The dtype a CUDA operand picks a kernel by: bf16 or f32; raises on
+    any other."""
+    if t.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{what}: {t.dtype} not built (bfloat16, float32)")
+    return t.dtype
 
 
 def attend_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -48,12 +56,13 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     decomposed rel-pos bias bias_h/bias_w [B, H, N, side]
     (bias[q, k] = bias_h[q, k // side] + bias_w[q, k % side], N = side²).
 
-    CUDA: kernel K1, in bf16 (Dh 64 or 80, side <= 64) or in f32 (Dh 64
-    or 80, no bias; products in split TF32 on the tensor cores, as
-    accurate as f32); other dtypes raise. K1 has no backward (the TPU
-    kernel has none either): a call under grad mode with an input that
-    requires grad raises, so a gradient is never cut off silently. CPU:
-    :func:`attend_reference`."""
+    CUDA: kernel K1 by q's dtype, bf16 or f32 (Dh 64 or 80, side <= 64;
+    f32: products in split TF32 on the tensor cores, as accurate as f32,
+    entries ``rat_flash_attention_f32`` and, with the bias,
+    ``rat_flash_attention_f32_bias``); other dtypes raise. K1 has no
+    backward (the TPU kernel has none either): a call under grad mode
+    with an input that requires grad raises, so a gradient is never cut
+    off silently. CPU: :func:`attend_reference`."""
     if not q.is_cuda:
         return attend_reference(q, k, v, bias_h, bias_w, side)
     if torch.is_grad_enabled() and any(
@@ -67,33 +76,36 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash attention: head dim {dh} not built "
                          "(64, 80)")
     shape = (b, h, n, dh)
-    if q.dtype == torch.float32:
-        if bias_h is not None:
-            raise ValueError("f32 flash attention takes no bias")
-        qf, kf, vf = (operand(name, t, torch.float32, shape)
-                      for name, t in (("q", q), ("k", k), ("v", v)))
-        out = torch.empty_like(qf)
-        # the kernel's K/V split: K's TF32 hi and lo planes, then Vᵀ's
-        # over n rounded up to 64 keys
-        n_pad = -(-n // 64) * 64
-        scratch = torch.empty(2 * b * h * dh * (n + n_pad),
-                              dtype=torch.float32, device=q.device)
-        FLASH_ATTENTION_F32.launch(qf.data_ptr(), kf.data_ptr(),
-                                   vf.data_ptr(), out.data_ptr(),
-                                   scratch.data_ptr(), b * h, n,
-                                   1.0 / math.sqrt(dh), dh)
-        return out
-    qf = operand("q", q, torch.bfloat16, shape)
-    kf = operand("k", k, torch.bfloat16, shape)
-    vf = operand("v", v, torch.bfloat16, shape)
+    dt = kernel_dtype("flash attention", q)
+    qf = operand("q", q, dt, shape)
+    kf = operand("k", k, dt, shape)
+    vf = operand("v", v, dt, shape)
     has_bias = bias_h is not None
     if has_bias:
         if side * side != n or side > 64:
             raise ValueError(f"bias needs N == side² and side <= 64 (N={n}, "
                              f"side={side})")
-        bh = operand("bias_h", bias_h, torch.bfloat16, (b, h, n, side))
-        bw = operand("bias_w", bias_w, torch.bfloat16, (b, h, n, side))
+        bh = operand("bias_h", bias_h, dt, (b, h, n, side))
+        bw = operand("bias_w", bias_w, dt, (b, h, n, side))
     out = torch.empty_like(qf)
+    if dt == torch.float32:
+        # the kernel's K/V split: K's TF32 hi and lo planes, then Vᵀ's
+        # over n rounded up to 64 keys
+        n_pad = -(-n // 64) * 64
+        scratch = torch.empty(2 * b * h * dh * (n + n_pad),
+                              dtype=torch.float32, device=q.device)
+        scale = 1.0 / math.sqrt(dh)
+        if has_bias:
+            FLASH_ATTENTION_F32_BIAS.launch(
+                qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), bh.data_ptr(),
+                bw.data_ptr(), out.data_ptr(), scratch.data_ptr(), b * h, n,
+                side, scale, dh)
+        else:
+            FLASH_ATTENTION_F32.launch(qf.data_ptr(), kf.data_ptr(),
+                                       vf.data_ptr(), out.data_ptr(),
+                                       scratch.data_ptr(), b * h, n, scale,
+                                       dh)
+        return out
     FLASH_ATTENTION.launch(
         qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
         bh.data_ptr() if has_bias else None,
@@ -172,8 +184,8 @@ def token_cross_attend_kv(q: torch.Tensor, kvt: torch.Tensor,
     by every prompt); pe_kt [1, D, M] is added to k and v_bias [D] to v
     inside the kernel. Returns [B, n, D].
 
-    CUDA: kernel K2 (bf16, head dim 16, n 7 or 8, M % 8 == 0). CPU: the
-    plain version."""
+    CUDA: kernel K2 by q's dtype, bf16 or f32 (head dim 16, n 7 or 8,
+    M % 8 == 0); other dtypes raise. CPU: the plain version."""
     if not q.is_cuda:
         return token_cross_attend_kv_reference(q, kvt, pe_kt, v_bias, heads)
     b, n, d = q.shape
@@ -187,15 +199,15 @@ def token_cross_attend_kv(q: torch.Tensor, kvt: torch.Tensor,
     if m % 8:
         raise ValueError(f"token cross attention: M={m} is not a multiple "
                          "of 8")
-    qf = operand("q", q, torch.bfloat16, (b, n, d))
-    kv = operand("kvt", kvt, torch.bfloat16, (kvt.shape[0], 2 * d, m))
-    pe = operand("pe_kt", pe_kt.to(torch.bfloat16).reshape(d, m),
-                 torch.bfloat16, (d, m))
-    vb = operand("v_bias", v_bias.to(torch.bfloat16), torch.bfloat16, (d,))
+    dt = kernel_dtype("token cross attention", q)
+    qf = operand("q", q, dt, (b, n, d))
+    kv = operand("kvt", kvt, dt, (kvt.shape[0], 2 * d, m))
+    pe = operand("pe_kt", pe_kt.to(dt).reshape(d, m), dt, (d, m))
+    vb = operand("v_bias", v_bias.to(dt), dt, (d,))
     out = torch.empty_like(qf)
-    TOKEN_CROSS.launch(qf.data_ptr(), kv.data_ptr(), pe.data_ptr(),
-                       vb.data_ptr(), out.data_ptr(), b, n, d, m, heads,
-                       int(kvt.shape[0] == 1 and b > 1))
+    (TOKEN_CROSS_F32 if dt == torch.float32 else TOKEN_CROSS).launch(
+        qf.data_ptr(), kv.data_ptr(), pe.data_ptr(), vb.data_ptr(),
+        out.data_ptr(), b, n, d, m, heads, int(kvt.shape[0] == 1 and b > 1))
     return out
 
 
@@ -244,8 +256,9 @@ def i2t_update(img: torch.Tensor, peq: torch.Tensor, tok_k: torch.Tensor,
     b_q, w_out [DA, D], b_out, ln_scale, ln_bias; w_kv_next [D, 2·DA2].
     Returns (keys [B, M, D], kvt [B, 2·DA2, M]).
 
-    CUDA: kernel K5 (bf16; D 256, DA 128, 8 heads, 7 tokens, M a multiple
-    of 64). CPU: :func:`i2t_update_reference`."""
+    CUDA: kernel K5 by img's dtype, bf16 or f32 (D 256, DA 128, 8 heads,
+    7 tokens, M a multiple of 64); other dtypes raise. CPU:
+    :func:`i2t_update_reference`."""
     if not img.is_cuda:
         return i2t_update_reference(img, peq, tok_k, tok_v, w_q, b_q, w_out,
                                     b_out, ln_scale, ln_bias, w_kv_next,
@@ -259,19 +272,19 @@ def i2t_update(img: torch.Tensor, peq: torch.Tensor, tok_k: torch.Tensor,
                          " not built (256, 128, 7, 8, M % 64 == 0, 256x256)")
     if lead not in (1, b):
         raise ValueError(f"img leading dim {lead} is neither 1 nor {b}")
-    bf = torch.bfloat16
-    x = operand("img", img, bf, (lead, m, d))
-    pq = operand("peq", peq, bf, (1, m, da))
-    tk = operand("tok_k", tok_k, bf, (b, t, da))
-    tv = operand("tok_v", tok_v, bf, (b, t, da))
-    ws = [operand(name, w.to(bf), bf, shape) for name, w, shape in (
+    dt = kernel_dtype("i2t update", img)
+    x = operand("img", img, dt, (lead, m, d))
+    pq = operand("peq", peq, dt, (1, m, da))
+    tk = operand("tok_k", tok_k, dt, (b, t, da))
+    tv = operand("tok_v", tok_v, dt, (b, t, da))
+    ws = [operand(name, w.to(dt), dt, shape) for name, w, shape in (
         ("w_q", w_q, (d, da)), ("b_q", b_q, (da,)), ("w_out", w_out, (da, d)),
         ("b_out", b_out, (d,)), ("ln_scale", ln_scale, (d,)),
         ("ln_bias", ln_bias, (d,)), ("w_kv_next", w_kv_next, (d, 256)))]
-    keys = torch.empty((b, m, d), dtype=bf, device=img.device)
-    kvt = torch.empty((b, 256, m), dtype=bf, device=img.device)
-    I2T_UPDATE.launch(x.data_ptr(), pq.data_ptr(), tk.data_ptr(),
-                      tv.data_ptr(), *(w.data_ptr() for w in ws),
-                      keys.data_ptr(), kvt.data_ptr(), b, m,
-                      int(lead == 1), float(eps))
+    keys = torch.empty((b, m, d), dtype=dt, device=img.device)
+    kvt = torch.empty((b, 256, m), dtype=dt, device=img.device)
+    (I2T_UPDATE_F32 if dt == torch.float32 else I2T_UPDATE).launch(
+        x.data_ptr(), pq.data_ptr(), tk.data_ptr(), tv.data_ptr(),
+        *(w.data_ptr() for w in ws), keys.data_ptr(), kvt.data_ptr(), b, m,
+        int(lead == 1), float(eps))
     return keys, kvt

@@ -19,9 +19,11 @@ import torch
 import torch.nn.functional as F
 
 from revisit_anything_tpu_torch.kernels.build import (MASK_HEAD,
+                                                      MASK_HEAD_F32,
                                                       MASK_HEAD_PROBS,
                                                       operand)
 from revisit_anything_tpu_torch.models.layers import mlp
+from revisit_anything_tpu_torch.ops.attention import kernel_dtype
 from revisit_anything_tpu_torch.ops.decode_probs import recon_branch
 
 # multimask output: mask tokens 1..3 (mask_decoder.py:96-144)
@@ -109,8 +111,10 @@ def fused_mask_head(keys: torch.Tensor, hyper: torch.Tensor,
     """Mask logits in block layout for the first ``content`` positions of
     keys [Np, gg, D] (pad-row skipping: later positions are never read).
 
-    CUDA: kernel K3 (bf16, D = 256, M ≤ 4; persistent TMA + ``wgmma``
-    CTAs, ``kernels/csrc/mask_head.cu``). CPU: the plain version."""
+    CUDA: kernel K3 by keys' dtype (D = 256, M ≤ 4; ``kernels/csrc/
+    mask_head.cu``): bf16, persistent TMA + ``wgmma`` CTAs; f32, plain f32
+    FMAs a 64-position tile (``rat_mask_head_f32``); other dtypes raise.
+    CPU: the plain version."""
     np_, gg, d = keys.shape
     content = gg if content is None else content
     if not 0 < content <= gg:
@@ -122,21 +126,23 @@ def fused_mask_head(keys: torch.Tensor, hyper: torch.Tensor,
     if d != 256 or not 1 <= m <= 4:
         raise ValueError(f"mask head kernel: D={d}, M={m} not built "
                          "(D 256, M ≤ 4)")
-    bf = torch.bfloat16
-    kf = operand("keys", keys, bf)
-    args = [operand("up1_w", up1_w.to(bf), bf, (256, 256)),
-            operand("up1_b", up1_b.to(bf), bf, (64,)),
-            operand("ln_scale", ln_scale.to(bf), bf, (64,)),
-            operand("ln_bias", ln_bias.to(bf), bf, (64,)),
-            operand("up2_w", up2_w.to(bf), bf, (64, 128)),
-            operand("up2_b", up2_b.to(bf), bf, (32,)),
-            operand("hyper", hyper.to(bf), bf, (np_, m, 32))]
-    out = torch.empty((np_, content, 16, m), dtype=bf, device=keys.device)
-    n_ctas = torch.cuda.get_device_properties(
-        keys.device).multi_processor_count
-    MASK_HEAD.launch(kf.data_ptr(), *[a.data_ptr() for a in args],
-                     out.data_ptr(), np_, gg, content, m, float(eps),
-                     n_ctas)
+    dt = kernel_dtype("mask head", keys)
+    kf = operand("keys", keys, dt)
+    args = [operand("up1_w", up1_w.to(dt), dt, (256, 256)),
+            operand("up1_b", up1_b.to(dt), dt, (64,)),
+            operand("ln_scale", ln_scale.to(dt), dt, (64,)),
+            operand("ln_bias", ln_bias.to(dt), dt, (64,)),
+            operand("up2_w", up2_w.to(dt), dt, (64, 128)),
+            operand("up2_b", up2_b.to(dt), dt, (32,)),
+            operand("hyper", hyper.to(dt), dt, (np_, m, 32))]
+    out = torch.empty((np_, content, 16, m), dtype=dt, device=keys.device)
+    ptrs = (kf.data_ptr(), *[a.data_ptr() for a in args], out.data_ptr(),
+            np_, gg, content, m, float(eps))
+    if dt == torch.float32:
+        MASK_HEAD_F32.launch(*ptrs)
+    else:
+        MASK_HEAD.launch(*ptrs, torch.cuda.get_device_properties(
+            keys.device).multi_processor_count)
     return out
 
 

@@ -18,15 +18,18 @@ from typing import Optional, Tuple
 
 import torch
 
-from revisit_anything_tpu_torch.kernels.build import RESIZE_FLAGS, operand
+from revisit_anything_tpu_torch.kernels.build import (RESIZE_FLAGS,
+                                                      RESIZE_FLAGS_F32,
+                                                      operand)
+from revisit_anything_tpu_torch.ops.attention import kernel_dtype
 
 
-def resize_flags_reference(lowres_blk: torch.Tensor, wh: torch.Tensor,
-                           ww: torch.Tensor, thr: float, off: float,
-                           grid_hw: Tuple[int, int]) -> torch.Tensor:
-    """Plain version: lowres_blk [Np, gh·g, 16, M] block-layout logits,
+def resize_logits_reference(lowres_blk: torch.Tensor, wh: torch.Tensor,
+                            ww: torch.Tensor,
+                            grid_hw: Tuple[int, int]) -> torch.Tensor:
+    """The plain resize: lowres_blk [Np, gh·g, 16, M] block-layout logits,
     wh [H, 4gh] (rounded to the logits' dtype, as the JAX path does),
-    ww [W, 4g] f32 → flags [Np, M, H, W] uint8. Both contractions run in
+    ww [W, 4g] f32 → logits [Np, M, H, W] f32. Both contractions run in
     f32 (bf16 products are exact in f32)."""
     np_, gg, _, n_masks = lowres_blk.shape
     gh, g = grid_hw
@@ -37,7 +40,15 @@ def resize_flags_reference(lowres_blk: torch.Tensor, wh: torch.Tensor,
     ww_blk = ww.float().reshape(w, g, 2, 2)
     m = lowres_blk.float().reshape(np_, gh, g, 2, 2, 2, 2, n_masks)
     m = torch.einsum("oiac,nijabcdm->nojbdm", wh_blk, m)
-    m = torch.einsum("pjbd,nojbdm->nmop", ww_blk, m)
+    return torch.einsum("pjbd,nojbdm->nmop", ww_blk, m)
+
+
+def resize_flags_reference(lowres_blk: torch.Tensor, wh: torch.Tensor,
+                           ww: torch.Tensor, thr: float, off: float,
+                           grid_hw: Tuple[int, int]) -> torch.Tensor:
+    """Plain version: :func:`resize_logits_reference` thresholded →
+    flags [Np, M, H, W] uint8."""
+    m = resize_logits_reference(lowres_blk, wh, ww, grid_hw)
     return ((m > thr - off).to(torch.uint8)
             + (m > thr).to(torch.uint8) * 2
             + (m > thr + off).to(torch.uint8) * 4)
@@ -50,6 +61,17 @@ def flag_stats(flags: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
                          (flags >> 2).sum(-1, dtype=torch.int32),
                          (flags & 1).sum(-1, dtype=torch.int32)], dim=-1)
     return rowst, mask.any(-2).to(torch.uint8)
+
+
+def near_threshold(logits: torch.Tensor, thresholds, tol: float
+                   ) -> torch.Tensor:
+    """Pixels of plain f32 logits (:func:`resize_logits_reference`) that
+    lie within ``tol`` of the logits' largest |value| from one of
+    ``thresholds``: the only pixels whose flags an f32 summation-order
+    change (the f32 kernel against its plain version) may flip."""
+    band = tol * float(logits.abs().max())
+    return torch.stack([(logits - t).abs() <= band for t in thresholds]
+                       ).any(0)
 
 
 # the kernel's limits: taps a row and a column, the logits' largest grid
@@ -105,10 +127,11 @@ def fused_resize_flags(lowres_blk: torch.Tensor, wh: torch.Tensor,
     """Resize block-layout logits to [H, W], threshold, and reduce.
 
     Returns (flags [Np, M, H, W] uint8, rowst [Np, M, H, 3] int32,
-    colany [Np, M, W] uint8). CUDA: kernel K4 (bf16 logits; the column
-    pass in true f32) over ``taps`` = :func:`resize_taps` of (wh, ww) on
-    the logits' device (built here, through the host, when not given).
-    CPU: :func:`resize_flags_reference` and :func:`flag_stats`.
+    colany [Np, M, W] uint8). CUDA: kernel K4 by the logits' dtype, bf16
+    or f32 (the column pass in true f32) over ``taps`` = :func:`resize_taps`
+    of (wh, ww) at the logits' dtype, on the logits' device (built here,
+    through the host, when not given); other dtypes raise. CPU:
+    :func:`resize_flags_reference` and :func:`flag_stats`.
 
     The kernel takes g ≤ 64, gh ≤ g, 1-4 masks, any H and W ≤ 8192, and
     at most 3 adjacent taps a row of wh and of ww; it raises ValueError on
@@ -131,18 +154,19 @@ def fused_resize_flags(lowres_blk: torch.Tensor, wh: torch.Tensor,
             f"{grid_hw} to {h}x{w}: the kernel was not built for it (g <= "
             f"{GRID}, gh <= g, 1-{MAX_MASKS} masks, W <= {MAX_W})")
     dev = lowres_blk.device
+    dt = kernel_dtype("resize_flags", lowres_blk)
     if taps is None:
-        taps = tuple(t.to(dev) for t in resize_taps(wh, ww))
+        taps = tuple(t.to(dev) for t in resize_taps(wh, ww, dt))
     f32 = torch.float32
-    lx = operand("logits", lowres_blk, torch.bfloat16)
+    lx = operand("logits", lowres_blk, dt)
     htap = operand("h_taps", taps[0], f32, (h, 4))
     wtap = operand("w_taps", taps[1], f32, (w, 4))
     flags = torch.empty((np_, n_masks, h, w), dtype=torch.uint8, device=dev)
     rowst = torch.empty((np_, n_masks, h, 3), dtype=torch.int32, device=dev)
     colany = torch.empty((np_, n_masks, w), dtype=torch.uint8, device=dev)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    RESIZE_FLAGS.launch(lx.data_ptr(), htap.data_ptr(), wtap.data_ptr(),
-                        flags.data_ptr(), rowst.data_ptr(), colany.data_ptr(),
-                        np_, gh, g, n_masks, h, w, float(thr - off),
-                        float(thr), float(thr + off), n_sm)
+    (RESIZE_FLAGS_F32 if dt == f32 else RESIZE_FLAGS).launch(
+        lx.data_ptr(), htap.data_ptr(), wtap.data_ptr(), flags.data_ptr(),
+        rowst.data_ptr(), colany.data_ptr(), np_, gh, g, n_masks, h, w,
+        float(thr - off), float(thr), float(thr + off), n_sm)
     return flags, rowst, colany

@@ -99,15 +99,17 @@ def test_split_tf32_arithmetic_matches_jax(n, dh, scale):
         assert rel(_tf32_attend(*args, split=False)) > 1e-5
 
 
-def test_attend_decomposed_bias_matches_jax():
+@pytest.mark.parametrize("side,dh", [(12, 40), (8, 80)])
+def test_attend_decomposed_bias_matches_jax(side, dh):
+    """f32, the dtype of K1's bias form in an f32 SAM; (8, 80): SAM's head
+    dim on a grid of 8."""
     rng = np.random.default_rng(1)
-    side = 12
     n = side * side
-    q, k, v = (rng.standard_normal((1, 2, n, 40)).astype(np.float32)
+    q, k, v = (rng.standard_normal((1, 2, n, dh)).astype(np.float32)
                for _ in range(3))
     bh, bw = (rng.standard_normal((1, 2, n, side)).astype(np.float32)
               for _ in range(2))
-    want = np.asarray(jax_attend(q, k, v, bh, bw, side=side, block_q=144))
+    want = np.asarray(jax_attend(q, k, v, bh, bw, side=side, block_q=n))
     got = att.attend(*(torch.from_numpy(x) for x in (q, k, v, bh, bw)),
                      side=side).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL)

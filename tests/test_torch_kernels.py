@@ -1,6 +1,7 @@
-"""The thirteen CUDA kernels against their plain PyTorch versions on the card
-(marked ``gpu``; they skip where there is no CUDA device), plus the
-port's import and dispatch contract, which holds everywhere.
+"""The eighteen CUDA kernel entries (the default SAM path's in bf16 and
+in f32) against their plain PyTorch versions on the card (marked
+``gpu``; they skip where there is no CUDA device), plus the port's
+import and dispatch contract, which holds everywhere.
 
 This file imports no JAX, so the card's machine (which has none) runs it:
 ``python -m pytest tests/test_torch_kernels.py -m gpu --noconftest``.
@@ -146,8 +147,8 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 def test_kernel_table_points_at_sources():
-    assert len(build.KERNELS) == 13
-    assert len({k.entry for k in build.KERNELS}) == 13
+    assert len(build.KERNELS) == 18
+    assert len({k.entry for k in build.KERNELS}) == 18
     for k in build.KERNELS:
         assert os.path.exists(os.path.join(REPO, k.source)), k.source
         path, line = k.replaces.split(":")
@@ -208,9 +209,9 @@ def test_tail_variants_patch_the_kernel_source():
         assert (tv._source(reps) == base) == (not reps), name
 
 
-def _flash_inputs(cuda, b, n, dh, bias, seed=0):
+def _flash_inputs(cuda, b, n, dh, bias, seed=0, dtype=torch.bfloat16):
     g = torch.Generator(device=cuda).manual_seed(seed)
-    bf = torch.bfloat16
+    bf = dtype
     q, k, v = (torch.randn((b, 2, n, dh), generator=g, device=cuda).to(bf)
                for _ in range(3))
     side = int(round(n ** 0.5)) if bias else 0
@@ -244,9 +245,9 @@ def test_flash_kernel_matches_plain(cuda, b, n, dh, bias):
     assert _rel_err(got, want) < BF16_REL
 
 
-def _token_inputs(cuda, b, n, m, lead, pe, seed=1):
+def _token_inputs(cuda, b, n, m, lead, pe, seed=1, dtype=torch.bfloat16):
     g = torch.Generator(device=cuda).manual_seed(seed)
-    bf = torch.bfloat16
+    bf = dtype
     d = 128
     q = torch.randn((b, n, d), generator=g, device=cuda).to(bf)
     if pe:
@@ -382,7 +383,8 @@ def test_flash_kernel_f32_matches_plain(cuda, b, h, n, dh, scale):
 def test_flash_kernel_refuses_grad_mode_and_other_dtypes(cuda):
     """K1 has no backward: under grad mode an input that requires grad
     raises (bf16 and f32); under no_grad or inference_mode it launches.
-    f16 and an f32 bias are not built."""
+    f16 is not built; an f32 bias launches K1 f32 with the bias, and a
+    bias it was not built for (side > 64, N != side²) raises."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn((1, 2, 1024, 64), generator=g, device=cuda)
                for _ in range(3))
@@ -402,8 +404,21 @@ def test_flash_kernel_refuses_grad_mode_and_other_dtypes(cuda):
     with pytest.raises(ValueError):
         att.attend(q.half(), k.half(), v.half())
     bh = torch.zeros((1, 2, 1024, 32), device=cuda)
-    with pytest.raises(ValueError, match="no bias"):
-        att.attend(q, k, v, bh, bh, side=32)
+    before = (build.FLASH_ATTENTION_F32_BIAS.launches,
+              build.FLASH_ATTENTION_F32.launches)
+    with torch.no_grad():
+        got = att.attend(q, k, v, bh, bh, side=32)
+    torch.cuda.synchronize()
+    assert (build.FLASH_ATTENTION_F32_BIAS.launches,
+            build.FLASH_ATTENTION_F32.launches) == (before[0] + 1, before[1])
+    assert _rel_err(got, att.attend_reference(q, k, v, bh, bh, side=32)
+                    ) < F32_REL
+    q65 = torch.randn((1, 2, 65 * 65, 64), generator=g, device=cuda)
+    b65 = torch.zeros((1, 2, 65 * 65, 65), device=cuda)
+    with pytest.raises(ValueError, match="side <= 64"):
+        att.attend(q65, q65, q65, b65, b65, side=65)
+    with pytest.raises(ValueError, match="side <= 64"):
+        att.attend(q, k, v, bh[..., :31], bh[..., :31], side=31)
 
 
 @pytest.mark.gpu
@@ -552,12 +567,12 @@ def test_win_attention_kernel_matches_plain(cuda, b, side, heads, hd):
     assert _rel_err(got, want) < BF16_REL
 
 
-def _i2t_inputs(cuda, shared, b, m, seed=4, far=False):
+def _i2t_inputs(cuda, shared, b, m, seed=4, far=False, dtype=torch.bfloat16):
     """K5's operands; ``far``: head 0's logits sit ~500 above head 1's
     (q_0 and k_0 near +8, q_1 near -8), so a softmax shifted by the row's
     max over all heads would underflow head 1 to 0/0."""
     g = torch.Generator(device=cuda).manual_seed(seed)
-    bf = torch.bfloat16
+    bf = dtype
 
     def rnd(*shape, s=1.0, off=0.0):
         return (torch.randn(shape, generator=g, device=cuda) * s + off).to(bf)
@@ -629,9 +644,9 @@ def test_i2t_update_kernel_refuses_shapes_it_does_not_take(cuda):
         att.i2t_update(*args, 4, 1e-6)
 
 
-def _mask_head_inputs(cuda, np_, gg, m, d=256, seed=2):
+def _mask_head_inputs(cuda, np_, gg, m, d=256, seed=2, dtype=torch.bfloat16):
     g = torch.Generator(device=cuda).manual_seed(seed)
-    bf = torch.bfloat16
+    bf = dtype
 
     def rnd(*shape, s=1.0, off=0.0):
         return (torch.randn(shape, generator=g, device=cuda) * s + off).to(bf)
@@ -780,6 +795,187 @@ def test_resize_kernel_refuses_shapes_it_does_not_take(cuda):
     spread[:, 0] = 0.5                                          # 4+ taps
     with pytest.raises(ValueError, match="taps"):
         mr.fused_resize_flags(x, whd, spread, 0.0, 1.0, (gh, 64))
+
+
+# ---------------------------------------------------------------------------
+# The f32 forms of the default SAM path's kernels (K1 with the bias, K2,
+# K5, K3, K4): each against its plain version in f32 with TF32 off,
+# within F32_REL of the output's scale (K4: flags equal but where the
+# plain logit lies within F32_REL of its scale from a threshold).
+
+F32_BIAS_CASES = [(1, 4096, 80), (1, 4096, 64), (2, 196, 80), (2, 1024, 64),
+                  (1, 256, 80), (2, 64, 80)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,dh", F32_BIAS_CASES)
+def test_flash_kernel_f32_bias_matches_plain(cuda, b, n, dh):
+    """K1 f32 with the decomposed bias: SAM ViT-H's global layer (side
+    64), head dim 64, sides 14, 32, 16 (the smoke's small SAM) and 8."""
+    args, side = _flash_inputs(cuda, b, n, dh, True, dtype=torch.float32)
+    before = (build.FLASH_ATTENTION_F32_BIAS.launches,
+              build.FLASH_ATTENTION_F32.launches,
+              build.FLASH_ATTENTION.launches)
+    got = att.attend(*args, side=side)
+    want = att.attend_reference(*args, side=side)
+    again = att.attend(*args, side=side)
+    torch.cuda.synchronize()
+    assert (build.FLASH_ATTENTION_F32_BIAS.launches,
+            build.FLASH_ATTENTION_F32.launches,
+            build.FLASH_ATTENTION.launches) == (before[0] + 2, before[1],
+                                                before[2])
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert _rel_err(got, want) < F32_REL
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared,b,n,m", TOKEN_CASES)
+def test_token_cross_kernel_f32_matches_plain(cuda, shared, b, n, m):
+    args = _token_inputs(cuda, b, n, m, 1 if shared else b, pe=True,
+                         dtype=torch.float32)
+    before = (build.TOKEN_CROSS_F32.launches, build.TOKEN_CROSS.launches)
+    got = att.token_cross_attend_kv(*args, 8)
+    want = att.token_cross_attend_kv_reference(*args, 8)
+    torch.cuda.synchronize()
+    assert (build.TOKEN_CROSS_F32.launches,
+            build.TOKEN_CROSS.launches) == (before[0] + 1, before[1])
+    assert got.dtype == torch.float32
+    assert got.shape == want.shape == (b, n, 128)
+    assert _rel_err(got, want) < F32_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared,b,m,far", I2T_CASES)
+def test_i2t_update_kernel_f32_matches_plain(cuda, shared, b, m, far):
+    args = _i2t_inputs(cuda, shared, b, m, seed=5 if far else 4, far=far,
+                       dtype=torch.float32)
+    before = (build.I2T_UPDATE_F32.launches, build.I2T_UPDATE.launches)
+    keys, kvt = att.i2t_update(*args, 8, 1e-6)
+    want_keys, want_kvt = att.i2t_update_reference(*args, 8, 1e-6)
+    torch.cuda.synchronize()
+    assert (build.I2T_UPDATE_F32.launches,
+            build.I2T_UPDATE.launches) == (before[0] + 1, before[1])
+    assert keys.dtype == kvt.dtype == torch.float32
+    assert keys.shape == (b, m, 256) and kvt.shape == (b, 256, m)
+    # logits near +-500 (far) carry f32 rounding of ulp(500) = 3e-5 into
+    # each exponent, on both sides
+    tol = 20 * F32_REL if far else F32_REL
+    assert _rel_err(keys, want_keys) < tol
+    assert _rel_err(kvt, want_kvt) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("np_,gg,content,m", MASK_HEAD_CASES)
+def test_mask_head_kernel_f32_matches_plain(cuda, np_, gg, content, m):
+    args = _mask_head_inputs(cuda, np_, gg, m, dtype=torch.float32)
+    before = (build.MASK_HEAD_F32.launches, build.MASK_HEAD.launches)
+    got = mh.fused_mask_head(*args, eps=1e-6, content=content)
+    want = mh.upscale_masks_blocks(args[0][:, :content], *args[1:], eps=1e-6)
+    torch.cuda.synchronize()
+    assert (build.MASK_HEAD_F32.launches,
+            build.MASK_HEAD.launches) == (before[0] + 1, before[1])
+    assert got.dtype == torch.float32
+    assert got.shape == want.shape == (np_, content, 16, m)
+    assert _rel_err(got, want) < F32_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("orig_hw,np_,m,const,side", RESIZE_CASES)
+def test_resize_kernel_f32_matches_plain(cuda, orig_hw, np_, m, const, side):
+    x, whd, wwd, grid = _resize_inputs(cuda, orig_hw, np_, m, const=const,
+                                       side=side)
+    x = x.float() + 0.01 * torch.randn(
+        x.shape, generator=torch.Generator(device=cuda).manual_seed(1),
+        device=cuda)
+    taps = tuple(t.to(cuda) for t in mr.resize_taps(whd, wwd, torch.float32))
+    before = (build.RESIZE_FLAGS_F32.launches, build.RESIZE_FLAGS.launches)
+    flags, rowst, colany = mr.fused_resize_flags(x, whd, wwd, 0.0, 1.0,
+                                                 grid, taps=taps)
+    want = mr.resize_flags_reference(x, whd, wwd, 0.0, 1.0, grid)
+    torch.cuda.synchronize()
+    assert (build.RESIZE_FLAGS_F32.launches,
+            build.RESIZE_FLAGS.launches) == (before[0] + 1, before[1])
+    near = mr.near_threshold(mr.resize_logits_reference(x, whd, wwd, grid),
+                             (-1.0, 0.0, 1.0), F32_REL)
+    assert not bool(((flags != want) & ~near).any())
+    own_rowst, own_colany = mr.flag_stats(flags)
+    assert torch.equal(rowst, own_rowst)
+    assert torch.equal(colany, own_colany)
+
+
+@pytest.mark.gpu
+def test_f32_kernels_dispatch_on_dtype(cuda):
+    """The five wrappers of the default SAM path send bf16 CUDA tensors to
+    the bf16 kernels, f32 ones to the f32 kernels, and raise on f16."""
+    flash, side = _flash_inputs(cuda, 1, 256, 80, True)
+    token = _token_inputs(cuda, 4, 7, 1024, 1, pe=True)
+    i2t = _i2t_inputs(cuda, True, 4, 128)
+    head = _mask_head_inputs(cuda, 2, 128, 3)
+    x, whd, wwd, grid = _resize_inputs(cuda, (240, 320), 2, 3)
+    calls = {
+        (build.FLASH_ATTENTION, build.FLASH_ATTENTION_F32_BIAS):
+            lambda c: att.attend(*c(flash), side=side),
+        (build.TOKEN_CROSS, build.TOKEN_CROSS_F32):
+            lambda c: att.token_cross_attend_kv(*c(token), 8),
+        (build.I2T_UPDATE, build.I2T_UPDATE_F32):
+            lambda c: att.i2t_update(*c(i2t), 8, 1e-6),
+        (build.MASK_HEAD, build.MASK_HEAD_F32):
+            lambda c: mh.fused_mask_head(*c(head), eps=1e-6),
+        (build.RESIZE_FLAGS, build.RESIZE_FLAGS_F32):
+            lambda c: mr.fused_resize_flags(*c((x,)), whd, wwd, 0.0, 1.0,
+                                            grid),
+    }
+
+    def cast(dtype):
+        return lambda args: tuple(None if a is None else a.to(dtype)
+                                  for a in args)
+
+    for (k_bf16, k_f32), call in calls.items():
+        for dtype, kernel in ((torch.bfloat16, k_bf16),
+                              (torch.float32, k_f32)):
+            build.reset_counts()
+            out = call(cast(dtype))
+            torch.cuda.synchronize()
+            counts = {k.name: k.launches for k in build.KERNELS if k.launches}
+            assert counts == {kernel.name: 1}, counts
+            first = out[0] if isinstance(out, tuple) else out
+            assert first.dtype in (dtype, torch.uint8)
+        with pytest.raises(ValueError, match="not built|float16"):
+            call(cast(torch.float16))
+
+
+@pytest.mark.gpu
+def test_generate_masks_batch_f32_on_the_card_matches_the_cpu(cuda):
+    """An f32 SAM (the JAX package's default dtype) on two images through
+    the f32 kernels, and no bf16 kernel, keeps the masks the CPU's f32
+    plain path keeps from the same weights: the same count an image and
+    every mask at IoU >= 0.95 with one of the CPU's."""
+    import copy
+
+    from revisit_anything_tpu_torch.models.sam.amg import (
+        AmgConfig, generate_masks_batch)
+    sam = _offline_sam(torch.float32)
+    card = copy.deepcopy(sam).to(cuda)
+    rng = np.random.default_rng(21)
+    imgs = [_blob_image(rng, (224, 224)) for _ in range(2)]
+    amg = AmgConfig(points_per_side=8, points_per_batch=64,
+                    pred_iou_thresh=-1e9, stability_score_thresh=0.0)
+    build.reset_counts()
+    got = generate_masks_batch(card, imgs, amg, max_masks=32)
+    f32 = (build.FLASH_ATTENTION_F32_BIAS, build.TOKEN_CROSS_F32,
+           build.I2T_UPDATE_F32, build.MASK_HEAD_F32, build.RESIZE_FLAGS_F32)
+    counts = {k.name: k.launches for k in build.KERNELS if k.launches}
+    assert sorted(counts) == sorted(k.name for k in f32), counts
+    want = generate_masks_batch(sam, imgs, amg, max_masks=32)
+    for g, w in zip(got, want):
+        assert len(g) == len(w) > 8
+        gm = np.stack([r.segmentation for r in g]).reshape(len(g), -1)
+        wm = np.stack([r.segmentation for r in w]).reshape(len(w), -1)
+        inter = gm.astype(np.float32) @ wm.T.astype(np.float32)
+        best = (inter / (gm.sum(1)[:, None] + wm.sum(1)[None, :] - inter)
+                ).max(1)
+        assert (best >= 0.95).all(), best
 
 
 def _probs_inputs(cuda, b=16, m=4096, seed=5):
@@ -1240,7 +1436,7 @@ def test_bf16_database_knn_makes_no_f32_copy(cuda):
     assert torch.equal(one.cpu(), cpu)
 
 
-def _offline_sam():
+def _offline_sam(dtype=torch.bfloat16):
     """A small SAM on the CPU with every "shared" kernel's production
     widths (head dim 80, prompt dim 256), its point segmenter planted."""
     from revisit_anything_tpu_torch.models.sam import SamArchConfig
@@ -1251,7 +1447,7 @@ def _offline_sam():
                         window_size=8, decoder_mlp_dim=512,
                         iou_head_hidden=64)
     gen = torch.Generator().manual_seed(3)
-    sam = init_sam(cfg, gen, "cpu", torch.bfloat16)
+    sam = init_sam(cfg, gen, "cpu", dtype)
     plant_point_segmenter(sam, gen)
     return sam
 

@@ -70,7 +70,8 @@ def test_mask_head_matches_jax_block_path():
     np.testing.assert_allclose(got, want, atol=ATOL)
 
 
-def test_plain_mask_head_keeps_the_kernels_rounding_points_in_bf16():
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_plain_mask_head_keeps_the_kernels_rounding_points_in_bf16(dtype):
     """The plain version the K3 kernel is held to on the card
     (``upscale_masks_blocks``) against the JAX kernel (interpret mode) in
     bf16 at the kernel's real width: D 256, M 4, content 96 of gg 128 (not
@@ -79,18 +80,24 @@ def test_plain_mask_head_keeps_the_kernels_rounding_points_in_bf16():
     the products, the GELU (erf against the A&S polynomial, 5e-7) and the
     LN variance (two-pass against one-pass), each of which can flip an
     intermediate bf16 rounding by one ulp. So the logits may differ by
-    one or two bf16 ulps of the output's scale, not more."""
+    one or two bf16 ulps of the output's scale, not more. In f32 (K3's
+    f32 form) nothing is rounded: within 1e-5 of the output's scale."""
     rng = np.random.default_rng(5)
     p = _params(rng, 256, 4, 2, 128)
-    bf = {k: jnp.asarray(p[k]).astype(jnp.bfloat16) for k in _ORDER}
+    jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if dtype == "bf16"
+                else (jnp.float32, torch.float32))
+    ins = {k: jnp.asarray(p[k]).astype(jdt) for k in _ORDER}
     want = np.asarray(jax_mask_head(
-        *(bf[k] for k in _ORDER), eps=1e-6, content=96,
+        *(ins[k] for k in _ORDER), eps=1e-6, content=96,
         interpret=True).astype(jnp.float32))
     got = mh.upscale_masks_blocks(
-        *(torch.from_numpy(p[k]).to(torch.bfloat16) for k in _ORDER),
+        *(torch.from_numpy(p[k]).to(tdt) for k in _ORDER),
         eps=1e-6)[:, :96].float().numpy()
     assert got.shape == want.shape == (2, 96, 16, 4)
     scale = np.abs(want).max()
+    if dtype == "f32":
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
+        return
     ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)      # bf16: 8 significant bits
     np.testing.assert_allclose(got, want, rtol=0, atol=2 * ulp)
 

@@ -84,21 +84,46 @@ def _amg_mats(orig_hw):
 
 # the 17places shape (240x320 from a 768x1024 input) and the three shapes
 # of the parity test above
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
 @pytest.mark.parametrize("shape", ["17places", (30, 40, 8), (25, 50, 6),
                                    (64, 20, 8)])
-def test_tap_tables_rebuild_the_dense_matrices(shape):
-    """K4's tap tables hold every non-zero of wh (rounded to bf16, as the
-    reference rounds it) and ww exactly, in rows of 3 adjacent taps whose
-    first tap never decreases down wh's rows."""
+def test_tap_tables_rebuild_the_dense_matrices(shape, dtype):
+    """K4's tap tables hold every non-zero of wh (rounded to the logits'
+    dtype, as the JAX package rounds its row matrix: bf16, or f32 kept
+    exactly) and ww exactly, in rows of 3 adjacent taps whose first tap
+    never decreases down wh's rows."""
     if shape == "17places":
         wh, ww = _amg_mats((240, 320))
     else:
         _, wh, ww = _setup(*shape[:2], gh=shape[2])
-    htab, wtab = mr.resize_taps(wh, ww)
-    wh_bf = torch.from_numpy(wh).to(torch.bfloat16).float().numpy()
-    np.testing.assert_array_equal(_dense_from_taps(htab, wh.shape[1]), wh_bf)
+    htab, wtab = mr.resize_taps(wh, ww, dtype)
+    # JAX's row matrix at that dtype (ops/maskresize.py:188)
+    wh_d = np.asarray(jnp.asarray(wh, jnp.bfloat16 if dtype == torch.bfloat16
+                                  else jnp.float32), np.float32)
+    np.testing.assert_array_equal(_dense_from_taps(htab, wh.shape[1]), wh_d)
     np.testing.assert_array_equal(_dense_from_taps(wtab, ww.shape[1]), ww)
     assert (np.diff(htab[:, 0].numpy()) >= 0).all()
+    if dtype == torch.float32:
+        np.testing.assert_array_equal(wh_d, wh)
+
+
+def test_amg_keeps_the_taps_of_each_logits_dtype_apart():
+    """AMG's K4 tap tables are cached per (shape, logits dtype): an f32
+    SAM and a bf16 SAM in one process do not share one table, and the two
+    differ (the bf16 one rounds wh's weights, the f32 one keeps them)."""
+    from revisit_anything_tpu_torch.models.sam import SAM_VIT_H
+    from revisit_anything_tpu_torch.models.sam.amg import (
+        amg_taps, resize_longest_side, resize_mats_and_rows)
+    key = (SAM_VIT_H, resize_longest_side(240, 320, 1024), (240, 320))
+    h_bf, w_bf = amg_taps(key, "cpu", torch.bfloat16)
+    h_32, w_32 = amg_taps(key, "cpu", torch.float32)
+    assert h_bf is not h_32
+    assert not torch.equal(h_bf, h_32)
+    assert torch.equal(w_bf, w_32)
+    wh = resize_mats_and_rows(*key)[0]
+    np.testing.assert_array_equal(_dense_from_taps(h_32, wh.shape[1]), wh)
+    assert amg_taps(key, "cpu", torch.float32)[0] is h_32
 
 
 @pytest.mark.parametrize("orig_hw", [(32, 48), (100, 133), (64, 64),

@@ -324,6 +324,28 @@ def test_small_region_postprocess_matches_jax():
             np.testing.assert_array_equal(a, b)
 
 
+def test_generate_masks_of_an_f32_sam_matches_jax(models):
+    """The default served path as a whole: ``generate_masks`` of an f32
+    SAM (the JAX package's default dtype) in one crop, against JAX's f32
+    ``generate_masks`` from the same weights: the encoder, the "shared"
+    decoder's plain versions of K1-K5, the filters and NMS give the JAX
+    package's records in its order, each mask equal but for a pixel
+    whose logit sits within f32 summation order of the threshold (1 of
+    12,288 in one mask here)."""
+    tree, sam = models
+    assert sam.encoder.pos_embed.dtype == torch.float32
+    img = _image(np.random.default_rng(13))
+    kw = dict(AMG_KW, crop_n_layers=0)
+    want = jamg.generate_masks(tree, JCFG, img, jamg.AmgConfig(**kw))
+    got = pamg.generate_masks(sam, img, pamg.AmgConfig(**kw))
+    assert len(got) == len(want) > 8
+    for g, w in zip(got, want):
+        assert (g.segmentation != w.segmentation).mean() <= 1e-3
+        assert abs(g.area - w.area) <= 1e-3 * g.segmentation.size
+        np.testing.assert_array_equal(g.point_coords, w.point_coords)
+        assert abs(g.predicted_iou - w.predicted_iou) <= 1e-4
+
+
 def test_multicrop_with_one_crop_is_generate_masks(models):
     _, sam = models
     img = _image(np.random.default_rng(9))
