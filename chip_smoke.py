@@ -20,11 +20,13 @@ Phases (any failure exits non-zero):
   3. print the registers, shared memory and spill bytes of the redesigned
      entry points' kernels (K1, K2, B10, B11, K3, B6, K5, K4, B3 in its
      three modes, B7 in its two layers and B8 at its two depths, K1 f32
-     and its K/V split at head dims 64 and 80, K1 f32 with the bias, and
-     the f32 forms of K2, K5, K3 and K4) from ptxas.log, and the
-     tensor-core instructions in the SASS of B3's three instantiations,
-     B7's layer 2 and B8's two depths (HMMA) and of K1 f32 at head dims
-     64 and 80 and with the bias (TF32 HGMMA) (cuobjdump); then
+     and its K/V split at head dims 64 and 80, K1 f32 with the bias, the
+     f32 forms of K2 (both schedules) and K5 (both layers and its weight
+     split), K3 f32 and K4 f32) from ptxas.log, and the tensor-core
+     instructions in the SASS of B3's three instantiations, B7's layer 2,
+     B8's two depths and K2 f32's two schedules (HMMA) and of K1 f32 at
+     head dims 64 and 80 and with the bias and K5 f32 at both layers
+     (TF32 HGMMA) (cuobjdump); then
      compare every kernel with its plain version in bf16 at the main
      path's shapes (K1 also at the offline extraction's batches, and in
      f32, split TF32, at DINOv1's shape and two more within 1e-5; K4, K3,
@@ -317,10 +319,16 @@ PTXAS_KERNELS = (
     ("flash_attention_tf32x3_kernelILi64ELb1E", "K1 f32 Dh 64 + bias",
      "rat_flash_attention_f32_bias", "rat_flash_attention_f32_smem",
      (64, 0)),
-    ("token_cross_kv_f32_kernel", "K2 f32", "rat_token_cross_kv_f32", None,
-     ()),
-    ("i2t_update_f32_kernel", "K5 f32", "rat_i2t_update_f32",
-     "rat_i2t_update_f32_smem", ()),
+    ("token_cross_kv_tf32x3_kernelILb1E", "K2 f32 shared k|v (split TF32)",
+     "rat_token_cross_kv_f32", "rat_token_cross_f32_smem", (1,)),
+    ("token_cross_kv_tf32x3_kernelILb0E", "K2 f32 per-prompt k|v",
+     "rat_token_cross_kv_f32", "rat_token_cross_f32_smem", (0,)),
+    ("i2t_update_tf32x3_kernelILb1E", "K5 f32 layer 1 (split TF32)",
+     "rat_i2t_update_f32", "rat_i2t_update_f32_smem", ()),
+    ("i2t_update_tf32x3_kernelILb0E", "K5 f32 layer 2 (split TF32)",
+     "rat_i2t_update_f32", "rat_i2t_update_f32_smem", ()),
+    ("split_weights_kernel", "K5 f32 weight split", "rat_i2t_update_f32",
+     None, ()),
     ("mask_head_f32_kernel", "K3 f32", "rat_mask_head_f32",
      "rat_mask_head_f32_smem", ()),
     ("resize_flags_kernelILi3ELb1EfE", "K4 f32 M 3 (240x320)",
@@ -360,9 +368,10 @@ PTXAS_KERNELS = (
 )
 
 # The kernels whose products run by mma.sync (HMMA): B3's instantiations,
-# by their emission (keys, probability, logits mode), B7's layer 2 and
-# B8's two depths; and K1 f32's, by TF32 wgmma (HGMMA ... TF32): (piece
-# of the mangled name, label, the instruction that must be there)
+# by their emission (keys, probability, logits mode), B7's layer 2, B8's
+# two depths and K2 f32's two schedules (TF32); and K1 f32's and K5 f32's,
+# by TF32 wgmma (HGMMA ... TF32): (piece of the mangled name, label, the
+# instruction that must be there)
 MMA_SASS = (("decode_tail_kernelILi0E", "B3 keys mode", "HMMA"),
             ("decode_tail_kernelILi1E", "B3 probability mode", "HMMA"),
             ("decode_tail_kernelILi2E", "B3 logits mode", "HMMA"),
@@ -374,7 +383,13 @@ MMA_SASS = (("decode_tail_kernelILi0E", "B3 keys mode", "HMMA"),
             ("flash_attention_tf32x3_kernelILi80ELb0E", "K1 f32 Dh 80",
              "HGMMA.*TF32"),
             ("flash_attention_tf32x3_kernelILi80ELb1E", "K1 f32 Dh 80 + bias",
-             "HGMMA.*TF32"))
+             "HGMMA.*TF32"),
+            ("i2t_update_tf32x3_kernelILb1E", "K5 f32 layer 1", "HGMMA.*TF32"),
+            ("i2t_update_tf32x3_kernelILb0E", "K5 f32 layer 2", "HGMMA.*TF32"),
+            ("token_cross_kv_tf32x3_kernelILb1E", "K2 f32 shared k|v",
+             "HMMA.*TF32"),
+            ("token_cross_kv_tf32x3_kernelILb0E", "K2 f32 per-prompt k|v",
+             "HMMA.*TF32"))
 
 
 def ptxas_report() -> None:
@@ -761,11 +776,12 @@ def compare_f32_kernels(dev, check) -> None:
     torch.cuda.empty_cache()
 
     # K2 f32 (library: SDPA in f32 on k + pe and v + bias formed outside
-    # the timed call)
+    # the timed call; in brackets PR 23's FMA design)
     qt = rnd(1024, 7, 128)
     pe, vb = rnd(1, 128, 4096), rnd(128)
-    for lead, label in ((1, "q [1024,7,128] kvt [1,256,4096] shared f32"),
-                        (1024, "q [1024,7,128] kvt [1024,256,4096] f32")):
+    for lead, label, was in (
+            (1, "q [1024,7,128] kvt [1,256,4096] shared f32", 2.029),
+            (1024, "q [1024,7,128] kvt [1024,256,4096] f32", 2.790)):
         kvt = rnd(lead, 256, 4096)
         k_l = (kvt[:, :128] + pe).reshape(lead, 8, 16, 4096).transpose(
             2, 3).contiguous()
@@ -780,14 +796,23 @@ def compare_f32_kernels(dev, check) -> None:
                                                           8),
               _rel, F32_REL, (qt, kvt, pe, vb),
               (0, 0, 3 * 4 * 1024 * 8 * 7 * 4096 * 16),
-              library=lambda: F.scaled_dot_product_attention(q_l, k_l, v_l))
+              library=lambda: F.scaled_dot_product_attention(q_l, k_l, v_l),
+              was=was)
         del kvt, k_l, v_l, q_l
     del qt, pe, vb
     torch.cuda.empty_cache()
 
-    # K5 f32: layer 1 (shared branch) and layer 2 (per prompt)
-    for lead, label in ((1, "img [1,4096,256] shared, 1024 prompts f32"),
-                        (1024, "img [1024,4096,256] f32")):
+    # K5 f32: layer 1 (shared branch) and layer 2 (per prompt); in brackets
+    # PR 23's FMA design. Bound: the products as three TF32 passes (the 8 x
+    # 7 attention's 2·2·8·7·16 FLOP a (prompt, position) too, on the tensor
+    # cores as the kernel runs them), q = x·Wq counted once a position at
+    # layer 1: the kernel computes it once a position block, since it does
+    # not depend on the prompt (PR 23's bound, 6.755 ms at both layers,
+    # counted it once a prompt).
+    for lead, label, was in (
+            (1, "img [1,4096,256] shared, 1024 prompts f32", 41.602),
+            (1024, "img [1024,4096,256] f32", 44.291)):
+        q_rows = 4096 if lead == 1 else 1024 * 4096
         iargs = (rnd(lead, 4096, 256), rnd(1, 4096, 128), rnd(1024, 7, 128),
                  rnd(1024, 7, 128), rnd(256, 128, s=0.1), rnd(128, s=0.1),
                  rnd(128, 256, s=0.1), rnd(256, s=0.1),
@@ -797,9 +822,10 @@ def compare_f32_kernels(dev, check) -> None:
               lambda: att.i2t_update(*iargs, 8, 1e-6),
               lambda: att.i2t_update_reference(*iargs, 8, 1e-6),
               _tuple_err, F32_REL, iargs,
-              (0, 0, 3 * (2 * 1024 * 4096 * (256 * 128 + 128 * 256
-                                              + 256 * 256)
-                          + 2 * 2 * 1024 * 4096 * 8 * 7 * 16)))
+              (0, 0, 3 * (2 * q_rows * 256 * 128
+                          + 2 * 1024 * 4096 * (128 * 256 + 256 * 256)
+                          + 2 * 2 * 1024 * 4096 * 8 * 7 * 16)),
+              was=was)
         del iargs
         torch.cuda.empty_cache()
 

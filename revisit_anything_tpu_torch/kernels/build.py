@@ -63,8 +63,9 @@ SIGNATURES: Dict[str, Sequence] = {
     # keys, kvt, b, m, img_shared, eps, stream
     "rat_i2t_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _F, _P),
+    # the same plus scratch (the weights' TF32 planes) after kvt (f32)
     "rat_i2t_update_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _P, _I, _I, _I, _F, _P),
+                           _P, _P, _I, _I, _I, _F, _P),
     # keys, up1_w, up1_b, ln_s, ln_b, up2_w, up2_b, hyper, out,
     # np, gg, content, n_masks, eps, n_ctas, stream
     "rat_mask_head": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -101,6 +102,8 @@ SIGNATURES: Dict[str, Sequence] = {
     "rat_mask_head_f32_smem": (),
     "rat_i2t_update_smem": (),
     "rat_i2t_update_f32_smem": (),
+    "rat_i2t_update_f32_scratch": (_I,),        # SMs: floats of scratch
+    "rat_token_cross_f32_smem": (_I,),          # shared
     "rat_decode_tail_smem": (),
     "rat_i2t_probs_smem": (_I,),                # layer
     "rat_t2i_probs_smem": (_I,),                # depth

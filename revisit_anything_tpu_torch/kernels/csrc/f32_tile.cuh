@@ -1,5 +1,5 @@
-// Pieces of the f32 forms of K5 (i2t_update.cu) and K3 (mask_head.cu):
-// a 64-row tile times a weight matrix in plain f32 FMAs on the CUDA cores.
+// Pieces of the f32 form of K3 (mask_head.cu): a 64-row tile times a
+// weight matrix in plain f32 FMAs on the CUDA cores, and the exact GELU.
 //
 // A CTA of 256 threads holds a tile A [64, K] in shared memory (row pitch
 // lda floats) and computes A · W for W [K, N] row-major, N = 128 or 256.

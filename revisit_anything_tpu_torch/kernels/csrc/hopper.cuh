@@ -3,10 +3,11 @@
 // resize (resize_flags.cu): shared-memory descriptors, mbarriers with a
 // trap on a lost TMA, TMA loads and stores, 1-D bulk loads,
 // the wgmma fence / commit / wait group and the register-A and MN-major
-// n128 wgmma shapes, the TF32 rounding and wgmma shapes (flash_attention.cu's
-// f32 kernel), register pins, named barriers, the mma.sync shapes
-// and transposed ldmatrix (i2t_update.cu, decode_tc.cuh), and the host's
-// lookup of cuTensorMapEncodeTiled.
+// n128 wgmma shapes, the TF32 rounding and split and the TF32 wgmma shapes
+// (the f32 kernels of flash_attention.cu and i2t_update.cu), register pins,
+// named barriers, the mma.sync shapes (bf16, fp16 and TF32: i2t_update.cu,
+// decode_tc.cuh, token_cross.cu's f32 kernel) and transposed ldmatrix,
+// and the host's lookup of cuTensorMapEncodeTiled.
 
 #pragma once
 
@@ -292,6 +293,49 @@ __device__ __forceinline__ void wgmma_rs_tf32_n80(float (&d)[40], const uint32_t
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
         "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A·B in TF32: A [64 x 8] in registers, B [128 x 8] K-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_tf32_n128(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// x = hi + lo + a rest below 2^-22 |x|, hi and lo TF32, as the bits the
+// tensor core takes.
+__device__ __forceinline__ void split_tf32_bits(float x, uint32_t& hi, uint32_t& lo) {
+  const float h = tf32_rna(x);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(tf32_rna(x - h));
+}
+
+// d = A·B + d on one warp in TF32: A [16 x 8] (a0 = (row g, col t), a1 =
+// (g + 8, t), a2 = (g, t + 4), a3 = (g + 8, t + 4) for lane 4g + t), B
+// [8 x 8] (b0 = (k t, n g), b1 = (k t + 4, n g)), f32 sums (d0, d1 = (g,
+// 2t..2t + 1), d2, d3 = (g + 8, 2t..2t + 1)).
+__device__ __forceinline__ void mma_m16n8k8_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                                 uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // A 3-d TMA store of a shared-memory tile (a bulk group of this thread);

@@ -56,6 +56,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int HD = 16;                       // head dim (one k16 step)
@@ -414,104 +416,326 @@ extern "C" int rat_token_cross_smem(int pe, int shared) {
 //
 // What bounds it on the H100: bytes where k|v is per prompt (kvt [1024,
 // 256, 4096] f32, 4.3 GB a call, 1.3 ms at 3.35 TB/s); where it is shared
-// (layer 1) only its 15 GFLOP and its exponentials, which no rate of the
-// card makes long.
+// (layer 1) its 15 GFLOP, as three TF32 passes 0.09 ms, and its 235 M
+// exponentials (~0.06 ms on the SFU).
 //
-// Design: a simple kernel, plain f32 FMAs on the CUDA cores, no tensor
-// cores: one CTA of 256 threads takes (head, prompt). Per tile of 256 keys
-// the head's 16 k rows (kvt + pe) and 16 v rows (kvt + bias) are formed in
-// shared memory (32 KB, coalesced rows in, consecutive keys to consecutive
-// banks); warp i takes query row i (n <= 8), lane l the tile's keys l +
-// 32j (j < 8): its 8 scores, their max, one rescale of its running max,
-// sum and 16 accumulators, then 8 exponentials (expf) and the P·V FMAs. At
-// the end the 32 lanes of a warp merge their partial softmaxes by shuffles
-// and lane 0 stores the row. Keys past M score -inf.
+// Precision: split TF32, as K1's f32 form: an f32 operand x is cut into hi
+// = tf32_rna(x) and lo = tf32_rna(x − hi), and each product is lo·hi +
+// hi·lo + hi·hi, in that order, on the tensor cores. S = Q·Kᵀ takes an
+// 8-key block's three passes over the head's 16 channels into a fresh
+// accumulator; P·V takes each 8-key block's three passes in turn into a
+// tile's fresh accumulator, joined to the running O by an FMA (mma.sync
+// accumulates without rounding to nearest).
+//
+// Design: bf16 K2's two schedules and FA2 register layout on mma.sync
+// m16n8k8 in TF32. The products run on the tensor cores, not as
+// register-blocked FMAs: the three passes' 45 GFLOP take 0.09 ms at 495
+// TFLOP/s, the 15 GFLOP as FMAs 0.22 ms at 67 TFLOP/s, and the FMAs would
+// also wait on a shared-memory load for every few of them. wgmma's 64-row
+// M would waste most of a prompt's 7 rows in the per-prompt schedule, and
+// the shared one is not bound by the tensor-core rate.
+//  - A stage holds a tile's rows stacked as [k 0..15 | v 0..15 | pe 0..15 |
+//    v lo 0..15] x TK keys (rows padded to TK + 8 floats: conflict-free
+//    fragment loads), copied by cp.async. Each thread forms the chunks it
+//    copied: k + pe, split, hi over k and lo over pe; v + bias, split, hi
+//    over v and lo into the fourth plane. So a tile is formed and split
+//    once, and every warp reads its hi and lo fragments from shared memory.
+//  - Q's hi and lo fragments are split once, in registers. S's accumulator
+//    gives a thread keys 2c and 2c + 1 of each 8, the A operand of P·V wants
+//    keys c and c + 4: V's B fragment reads keys 2c and 2c + 1 (one 8-byte
+//    load), so S's registers are P's fragments as they lie.
+//  - The online softmax runs in base 2 in registers (log2 e folded into the
+//    scale, one exponential a score, row max and sum by quad shuffles).
+//  - Shared k|v (layer 1): every prompt's queries stack into one [B·n, 16]
+//    matrix a head; a CTA takes (128 rows, head), 8 warps of 16 rows share
+//    one ring of 3 stages of 64 keys (one barrier a tile), so the head's k,
+//    pe and v are formed once a CTA. Rows past B·n are zero and not stored;
+//    a prompt's rows may cross a warp's or a CTA's boundary.
+//  - Per-prompt k|v (layers 2-3): a CTA takes a prompt, a warp a head with
+//    its own ring of 2 stages of 32 keys (20 KB), so a warp keeps its next
+//    tile's k, v and pe (6 KB) in flight while it computes. The n
+//    <= 8 queries fill rows 0..7 of the 16-row fragment: rows 8..15 are
+//    never exponentiated, their probabilities are 0 and they are not
+//    stored.
+// M must be a multiple of 8; the last tile's keys past M load as zeros and
+// score -inf.
 namespace rat_k2f {
 
-constexpr int HD = 16, TK = 256, THREADS = 256;
+constexpr int HD = 16, WARPS = 8, THREADS = WARPS * 32;
 
-__global__ void __launch_bounds__(THREADS)
-token_cross_kv_f32_kernel(const float* __restrict__ q,     // [B, n, D]
-                          const float* __restrict__ kvt,   // [1|B, 2D, M]
-                          const float* __restrict__ pe,    // [D, M]
-                          const float* __restrict__ vb,    // [D]
-                          float* __restrict__ out,         // [B, n, D]
-                          size_t kv_stride, int n, int d, int m, float scale) {
-  __shared__ float sk[HD][TK];
-  __shared__ float sv[HD][TK];
-  const int h = blockIdx.x, b = blockIdx.y;
+template <bool SHARED>
+struct Cfg {
+  static constexpr int TK = SHARED ? 64 : 32;          // keys a tile
+  static constexpr int LD = TK + 8;                    // padded row (floats)
+  static constexpr int STAGES = SHARED ? 3 : 2;
+  static constexpr int MAT = HD * LD;                  // a plane (floats)
+  static constexpr int STAGE = 4 * MAT;                // k|v|pe|v lo
+  static constexpr int SMEM = (SHARED ? 1 : WARPS) * STAGES * STAGE * 4;
+};
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_n() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 4 sums x + y (y4 = nullptr: x + bias), split: hi over x, lo over lo.
+__device__ __forceinline__ void form4(float* x, const float* y, float bias, float* lo) {
+  float4 v = *reinterpret_cast<float4*>(x);
+  if (y != nullptr) {
+    const float4 w = *reinterpret_cast<const float4*>(y);
+    v = make_float4(v.x + w.x, v.y + w.y, v.z + w.z, v.w + w.w);
+  } else {
+    v = make_float4(v.x + bias, v.y + bias, v.z + bias, v.w + bias);
+  }
+  uint32_t h[4], l[4];
+  rat_hopper::split_tf32_bits(v.x, h[0], l[0]);
+  rat_hopper::split_tf32_bits(v.y, h[1], l[1]);
+  rat_hopper::split_tf32_bits(v.z, h[2], l[2]);
+  rat_hopper::split_tf32_bits(v.w, h[3], l[3]);
+  *reinterpret_cast<uint4*>(x) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(lo) = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+template <bool SHARED>
+__device__ __forceinline__ void group_sync_f32() {
+  if (SHARED) __syncthreads(); else __syncwarp();
+}
+
+template <bool SHARED>
+__global__ void __launch_bounds__(THREADS, SHARED ? 2 : 1)
+token_cross_kv_tf32x3_kernel(const float* __restrict__ q,    // [B·n, D]
+                             const float* __restrict__ kt,   // prompt 0's [D, M] keys
+                             const float* __restrict__ vt,   // prompt 0's [D, M] values
+                             size_t kv_stride,               // floats a prompt
+                             const float* __restrict__ pe,   // [D, M]
+                             const float* __restrict__ vb,   // [D]
+                             float* __restrict__ out,        // [B·n, D]
+                             int rows, int n, int d, int m, int heads, float scale_log2) {
+  using C = Cfg<SHARED>;
+  constexpr int TK = C::TK, LD = C::LD, STAGES = C::STAGES, MAT = C::MAT, STAGE = C::STAGE;
+  constexpr int GTHREADS = SHARED ? THREADS : 32;
+  constexpr bool HALF = !SHARED;                             // rows 8..15 are padding
+  extern __shared__ __align__(16) float smf[];
+
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float* kr = kvt + b * kv_stride + (size_t)h * HD * m;
-  const float* vr = kvt + b * kv_stride + (size_t)(d + h * HD) * m;
-  const float* pr = pe + (size_t)h * HD * m;
-  const bool live = warp < n;                               // warp-uniform
-  float qv[HD], acc[HD], mrun = -INFINITY, lsum = 0.f;
-#pragma unroll
-  for (int e = 0; e < HD; ++e) {
-    qv[e] = live ? q[((size_t)b * n + warp) * d + h * HD + e] : 0.f;
-    acc[e] = 0.f;
+  const int g = lane / 4, c = lane % 4;
+  int h, r0, nrows, gtid;
+  const float *kb, *vbase;
+  float* ring;
+  if (SHARED) {
+    h = blockIdx.y;
+    r0 = blockIdx.x * (WARPS * 16) + warp * 16;
+    nrows = rows - r0;                                       // may be <= 0: load only
+    kb = kt + (size_t)h * HD * m;
+    vbase = vt + (size_t)h * HD * m;
+    ring = smf;
+    gtid = threadIdx.x;
+  } else {
+    h = blockIdx.y * WARPS + warp;
+    if (h >= heads) return;                                  // no CTA-wide sync below
+    r0 = blockIdx.x * n;
+    nrows = n;
+    kb = kt + blockIdx.x * kv_stride + (size_t)h * HD * m;
+    vbase = vt + blockIdx.x * kv_stride + (size_t)h * HD * m;
+    ring = smf + warp * STAGES * STAGE;
+    gtid = lane;
   }
-  for (int t0 = 0; t0 < m; t0 += TK) {
-    __syncthreads();                                        // the last tile is read
-    for (int e = threadIdx.x; e < HD * TK; e += THREADS) {
-      const int r = e / TK, p = e % TK, key = t0 + p;
-      float kx = 0.f, vx = 0.f;
-      if (key < m) {
-        kx = kr[(size_t)r * m + key] + pr[(size_t)r * m + key];
-        vx = vr[(size_t)r * m + key] + vb[h * HD + r];
+  const float* pb = pe + (size_t)h * HD * m;
+  const int ntiles = (m + TK - 1) / TK;
+
+  // Each thread copies the same 16-byte chunks of every tile: column ch of
+  // stacked rows rbase, rbase + G4, ... (k, then v, then pe), so it forms k
+  // + pe and v + bias on exactly the chunks it copied (no barrier between).
+  constexpr int CPR = TK / 4;                                // chunks a row
+  constexpr int G4 = GTHREADS / CPR;                         // stacked rows a pass
+  constexpr int PASSES = 3 * HD / G4;
+  constexpr int KPASSES = HD / G4;                           // passes of k (then of v)
+  const int ch = gtid % CPR, rbase = gtid / CPR;
+  const float* src[PASSES];
+#pragma unroll
+  for (int p = 0; p < PASSES; ++p) {
+    const int rowlin = rbase + p * G4, mat = rowlin / HD, row = rowlin % HD;
+    src[p] = (mat == 0 ? kb : (mat == 1 ? vbase : pb)) + (size_t)row * m + ch * 4;
+  }
+  float vbias[KPASSES];
+#pragma unroll
+  for (int p = 0; p < KPASSES; ++p) vbias[p] = vb[h * HD + rbase + p * G4];
+
+  auto load_tile = [&](int t) {
+    if (t < ntiles) {
+      float* st = ring + (t % STAGES) * STAGE + rbase * LD + ch * 4;
+      const bool valid = t * TK + ch * 4 < m;
+#pragma unroll
+      for (int p = 0; p < PASSES; ++p)
+        cp_async16(st + p * G4 * LD, src[p] + (valid ? t * TK : 0), valid);
+    }
+    cp_async_commit();                                       // empty groups keep the count
+  };
+
+  // Q's fragments (A of Q·Kᵀ) for channels 8ks..8ks+7, split: rows g and
+  // g + 8 of the warp's 16, channels c and c + 4.
+  uint32_t qh[2][4], ql[2][4];
+  {
+    const float* qr = q + (size_t)(r0 + g) * d + h * HD + c;
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const float x[4] = {g < nrows ? qr[8 * ks] : 0.f,
+                          g + 8 < nrows ? qr[8 * (size_t)d + 8 * ks] : 0.f,
+                          g < nrows ? qr[8 * ks + 4] : 0.f,
+                          g + 8 < nrows ? qr[8 * (size_t)d + 8 * ks + 4] : 0.f};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) rat_hopper::split_tf32_bits(x[e], qh[ks][e], ql[ks][e]);
+    }
+  }
+
+  float o[2][4] = {};                                        // O: channels 0-7, 8-15
+  float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
+
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) load_tile(t);
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait_n<STAGES - 2>();                           // own chunks of tile t landed
+    float* sk = ring + (t % STAGES) * STAGE;                 // k hi; v hi at + MAT
+    {
+      float* own = sk + rbase * LD + ch * 4;
+#pragma unroll
+      for (int p = 0; p < 2 * KPASSES; ++p) {
+        float* x = own + p * G4 * LD;
+        if (p < KPASSES) form4(x, x + 2 * HD * LD, 0.f, x + 2 * HD * LD);
+        else form4(x, nullptr, vbias[p - KPASSES], x + 2 * HD * LD);
       }
-      sk[r][p] = kx;
-      sv[r][p] = vx;
     }
-    __syncthreads();
-    if (!live) continue;
-    float s[TK / 32], mx = -INFINITY;
+    group_sync_f32<SHARED>();                                // tile t formed; t-1 consumed
+    load_tile(t + STAGES - 1);
+    const float* skh = sk;
+    const float* svh = sk + MAT;
+    const float* skl = sk + 2 * MAT;
+    const float* svl = sk + 3 * MAT;
+
+    // S = Q·Kᵀ an 8-key block at a time: B = K [8 channels, 8 keys],
+    // b0 = (channel c, key g), b1 = (channel c + 4, key g).
+    float s[TK / 8][4];
 #pragma unroll
-    for (int j = 0; j < TK / 32; ++j) {
-      const int p = lane + 32 * j;
-      float dot = 0.f;
+    for (int j = 0; j < TK / 8; ++j) {
+      uint32_t bh[2][2], bl[2][2];
 #pragma unroll
-      for (int e = 0; e < HD; ++e) dot = fmaf(qv[e], sk[e][p], dot);
-      s[j] = t0 + p < m ? dot * scale : -INFINITY;
-      mx = fmaxf(mx, s[j]);
+      for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int at = (8 * ks + c + 4 * i) * LD + 8 * j + g;
+          bh[ks][i] = __float_as_uint(skh[at]);
+          bl[ks][i] = __float_as_uint(skl[at]);
+        }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      using rat_hopper::mma_m16n8k8_tf32;
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) mma_m16n8k8_tf32(s[j], ql[ks], bh[ks][0], bh[ks][1]);
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) mma_m16n8k8_tf32(s[j], qh[ks], bl[ks][0], bl[ks][1]);
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) mma_m16n8k8_tf32(s[j], qh[ks], bh[ks][0], bh[ks][1]);
     }
-    const float mnew = fmaxf(mrun, mx);
-    if (mnew == -INFINITY) continue;                        // no key of this lane yet
-    const float corr = expf(mrun - mnew);                   // 0 on the lane's first keys
-    lsum *= corr;
+
+    // Online softmax over the tile in base 2; keys past M (last tile
+    // only, whole 8-key blocks as M % 8 == 0) score -inf.
+    if (t * TK + TK > m) {
 #pragma unroll
-    for (int e = 0; e < HD; ++e) acc[e] *= corr;
+      for (int j = 0; j < TK / 8; ++j)
+        if (t * TK + j * 8 >= m)
 #pragma unroll
-    for (int j = 0; j < TK / 32; ++j) {
-      const float p = expf(s[j] - mnew);
-      lsum += p;
-#pragma unroll
-      for (int e = 0; e < HD; ++e) acc[e] = fmaf(p, sv[e][lane + 32 * j], acc[e]);
+          for (int e = 0; e < 4; ++e) s[j][e] = -INFINITY;
     }
-    mrun = mnew;
+    float alpha[2] = {1.f, 1.f}, m_neg[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < (HALF ? 1 : 2); ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < TK / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(mrow[r], mx * scale_log2);
+      alpha[r] = ex2(mrow[r] - m_new);                       // 0 on the first tile
+      mrow[r] = m_new;
+      m_neg[r] = -m_new;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < TK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (HALF && e >= 2) {
+          s[j][e] = 0.f;
+        } else {
+          s[j][e] = ex2(fmaf(s[j][e], scale_log2, m_neg[e / 2]));
+          sum[e / 2] += s[j][e];
+        }
+      }
+#pragma unroll
+    for (int r = 0; r < (HALF ? 1 : 2); ++r) lrow[r] = lrow[r] * alpha[r] + sum[r];
+
+    // This tile's P·V into a fresh accumulator, an 8-key block at a time
+    // (lo·hi, hi·lo, hi·hi): A = P (a0 = key 2c of row g, a1 = of row g +
+    // 8, a2 = key 2c + 1 of row g, a3 = of row g + 8), B = V [8 keys, 8
+    // channels] with b0 = (key 2c, channel g), b1 = (key 2c + 1, channel g).
+    float ot[2][4] = {};
+#pragma unroll
+    for (int j = 0; j < TK / 8; ++j) {
+      uint32_t ph[4], pl[4];
+      rat_hopper::split_tf32_bits(s[j][0], ph[0], pl[0]);
+      rat_hopper::split_tf32_bits(s[j][2], ph[1], pl[1]);
+      rat_hopper::split_tf32_bits(s[j][1], ph[2], pl[2]);
+      rat_hopper::split_tf32_bits(s[j][3], ph[3], pl[3]);
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+        const int at = (8 * nb + g) * LD + 8 * j + 2 * c;
+        const float2 vh = *reinterpret_cast<const float2*>(svh + at);
+        const float2 vl = *reinterpret_cast<const float2*>(svl + at);
+        rat_hopper::mma_m16n8k8_tf32(ot[nb], pl, __float_as_uint(vh.x), __float_as_uint(vh.y));
+        rat_hopper::mma_m16n8k8_tf32(ot[nb], ph, __float_as_uint(vl.x), __float_as_uint(vl.y));
+        rat_hopper::mma_m16n8k8_tf32(ot[nb], ph, __float_as_uint(vh.x), __float_as_uint(vh.y));
+      }
+    }
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nb][e] = fmaf(o[nb][e], alpha[e / 2], ot[nb][e]);
   }
-  if (!live) return;
-  // merge the lanes' (max, sum, accumulators)
+
+  // Finish the row sums across the quad and store rows < nrows.
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float mo = __shfl_xor_sync(0xffffffffu, mrun, o);
-    const float lo = __shfl_xor_sync(0xffffffffu, lsum, o);
-    const float mn = fmaxf(mrun, mo);
-    const float ca = mrun == -INFINITY ? 0.f : expf(mrun - mn);
-    const float cb = mo == -INFINITY ? 0.f : expf(mo - mn);
-    lsum = lsum * ca + lo * cb;
+  for (int r = 0; r < (HALF ? 1 : 2); ++r) {
+    lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 1);
+    lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 2);
+    const int row = g + 8 * r;
+    if (row < nrows) {
+      float* dst = out + (size_t)(r0 + row) * d + h * HD + 2 * c;
 #pragma unroll
-    for (int e = 0; e < HD; ++e) {
-      const float ao = __shfl_xor_sync(0xffffffffu, acc[e], o);
-      acc[e] = acc[e] * ca + ao * cb;
+      for (int nb = 0; nb < 2; ++nb)
+        *reinterpret_cast<float2*>(dst + 8 * nb) =
+            make_float2(o[nb][2 * r] / lrow[r], o[nb][2 * r + 1] / lrow[r]);
     }
-    mrun = mn;
   }
-  if (lane == 0) {
-    float* dst = out + ((size_t)b * n + warp) * d + h * HD;
-#pragma unroll
-    for (int e = 0; e < HD; ++e) dst[e] = acc[e] / lsum;
-  }
+}
+
+template <bool SHARED>
+int launch(const void* q, const void* kvt, const void* pe, const void* vb, void* out, int b,
+           int n, int d, int m, int heads, cudaStream_t stream) {
+  constexpr int smem = Cfg<SHARED>::SMEM;
+  auto kernel = token_cross_kv_tf32x3_kernel<SHARED>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = b * n;
+  const dim3 grid = SHARED ? dim3((rows + WARPS * 16 - 1) / (WARPS * 16), heads)
+                           : dim3(b, (heads + WARPS - 1) / WARPS);
+  const float* k = static_cast<const float*>(kvt);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), k, k + (size_t)d * m, SHARED ? 0 : (size_t)2 * d * m,
+      static_cast<const float*>(pe), static_cast<const float*>(vb), static_cast<float*>(out),
+      rows, n, d, m, heads, LOG2E / sqrtf((float)HD));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace rat_k2f
@@ -520,14 +744,16 @@ token_cross_kv_f32_kernel(const float* __restrict__ q,     // [B, n, D]
 extern "C" int rat_token_cross_kv_f32(const void* q, const void* kvt, const void* pe,
                                       const void* vb, void* out, int b, int n, int d, int m,
                                       int heads, int kv_shared, void* stream) {
-  constexpr int hd = rat_k2f::HD, threads = rat_k2f::THREADS;
-  if (b < 1 || b > 65535 || heads <= 0 || d != heads * hd || n < 1 || n > threads / 32 ||
+  if (b < 1 || heads <= 0 || d != heads * rat_k2f::HD || (n != 7 && n != 8) ||
       m <= 0 || m % 8)
     return (int)cudaErrorInvalidValue;
-  rat_k2f::token_cross_kv_f32_kernel<<<dim3(heads, b), threads, 0,
-                                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(kvt),
-      static_cast<const float*>(pe), static_cast<const float*>(vb), static_cast<float*>(out),
-      kv_shared ? 0 : (size_t)2 * d * m, n, d, m, 1.f / sqrtf((float)hd));
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return kv_shared ? rat_k2f::launch<true>(q, kvt, pe, vb, out, b, n, d, m, heads, s)
+                   : rat_k2f::launch<false>(q, kvt, pe, vb, out, b, n, d, m, heads, s);
+}
+
+// Dynamic shared memory a CTA of K2 f32's shared (1) or per-prompt (0)
+// schedule takes (for reports).
+extern "C" int rat_token_cross_f32_smem(int shared) {
+  return shared ? rat_k2f::Cfg<true>::SMEM : rat_k2f::Cfg<false>::SMEM;
 }

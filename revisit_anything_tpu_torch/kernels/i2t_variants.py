@@ -8,6 +8,11 @@ timed at both serving shapes (layer 1: the shared branch, layer 2: per
 prompt) and on one work unit alone.
 
     python -m revisit_anything_tpu_torch.kernels.i2t_variants
+    python -m revisit_anything_tpu_torch.kernels.i2t_variants --f32
+
+With ``--f32`` the variants are of K5's f32 form (``rat_i2t_update_f32``:
+split-TF32 products, loads, stores, the attention and the weight ring, on
+f32 operands).
 
 Times are CUDA-event medians of 11 calls, each queued behind a device
 sleep (as ``chip_smoke.py`` times kernels), with the SM clock and board
@@ -97,6 +102,49 @@ VARIANTS = {
               [(_ENTRY, "  if (m > 0) return;\n" + _ENTRY)]),
 }
 
+# K5 f32 (rat_i2t_update_f32): the 8-byte loads of the products' A
+# operands (x for q, the normalized row read back), the keys stores, the
+# kvT TMA stores, the weight ring's refills and the attention, each removed
+_F32_LOAD_A = ("const float2 a = live ? *reinterpret_cast<const float2*>(p0 + col)",
+               "const float2 a = false ? *reinterpret_cast<const float2*>(p0 + col)")
+_F32_LOAD_B = ("const float2 b = live ? *reinterpret_cast<const float2*>(p8 + col)",
+               "const float2 b = false ? *reinterpret_cast<const float2*>(p8 + col)")
+_F32_KEYS = [
+    ("            if (live) *reinterpret_cast<float2*>(krow + 8 * rr * D + col) =",
+     "            if (m < 0) *reinterpret_cast<float2*>(krow + 8 * rr * D + col) ="),
+    ("    if (live)\n#pragma unroll\n      for (int i = 0; i < 16; ++i)",
+     "    if (m < 0)\n#pragma unroll\n      for (int i = 0; i < 16; ++i)"),
+    ("          if (live)\n#pragma unroll\n            for (int kk = 0; kk < 4; ++kk)",
+     "          if (m < 0)\n#pragma unroll\n            for (int kk = 0; kk < 4; ++kk)")]
+_F32_KVT = ("        tma_store_3d(&tkvt, stg_u32, p0, 128 * j, pb);\n"
+            "        tma_store_3d(&tkvt, stg_u32 + 16384, p0 + 32, 128 * j, pb);\n", "")
+_F32_RESIDENT = [
+    ("auto stage_wait = [&](int st) { mbar_wait(full(st % SLOTS), (st / SLOTS) & 1); };",
+     "auto stage_wait = [&](int st) { if (st < SLOTS) mbar_wait(full(st % SLOTS), 0); };"),
+    ("      fill(st + SLOTS, second);", "      fill(st + SLOTS, false);")]
+_F32_ATT = ("      for (int h = 0; h < H; ++h) {\n        uint32_t qhi[2][4]",
+            "      for (int i = 0; i < 64; ++i) a[i] = qv[i];\n"
+            "      for (int h = 0; h < 0; ++h) {\n        uint32_t qhi[2][4]")
+_F32_ENTRY = "  extern __shared__ uint8_t smem_f32[];"
+
+F32_VARIANTS = {
+    "kernel": ("the kernel as built", []),
+    "noload": ("the products' A operands from device memory read as zeros "
+               "(x for q, the normalized row read back)",
+               [_F32_LOAD_A, _F32_LOAD_B]),
+    "nokeys": ("no keys stores (half 0 of y, the keys)", _F32_KEYS),
+    "nokvt": ("no kvT TMA stores", [_F32_KVT]),
+    "resident": ("the weight ring filled once and never refilled",
+                 _F32_RESIDENT),
+    "noattention": ("no attention (a = q)", [_F32_ATT]),
+    "productsonly": ("the products alone: weights resident, no attention, "
+                     "no A loads, no keys stores",
+                     [_F32_LOAD_A, _F32_LOAD_B, *_F32_KEYS, *_F32_RESIDENT,
+                      _F32_ATT]),
+    "empty": ("the weight split, then the update returns at entry",
+              [(_F32_ENTRY, "  if (m > 0) return;\n" + _F32_ENTRY)]),
+}
+
 # (prompts, image leading dim, positions): layer 1 (the shared branch),
 # layer 2 (per prompt), one 128-position unit alone
 SHAPES = ((1024, 1, 4096), (1024, 1024, 4096), (1, 1, 128))
@@ -111,23 +159,23 @@ def _source(reps) -> str:
     return text
 
 
-def _build_all() -> dict:
+def _build_all(variants=VARIANTS, entry="rat_i2t_update") -> dict:
     _OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, (_, reps) in VARIANTS.items():
-        cu = _OUT / f"i2t_{name}.cu"
+    for name, (_, reps) in variants.items():
+        cu = _OUT / f"{entry}_{name}.cu"
         cu.write_text(_source(reps))
         procs[name] = subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build._CSRC),
-             "-shared", "-o", str(_OUT / f"i2t_{name}.so"), str(cu)],
+             "-shared", "-o", str(_OUT / f"{entry}_{name}.so"), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     fns = {}
     for name, proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
-        fn = ctypes.CDLL(str(_OUT / f"i2t_{name}.so")).rat_i2t_update
-        fn.argtypes = list(build.SIGNATURES["rat_i2t_update"])
+        fn = getattr(ctypes.CDLL(str(_OUT / f"{entry}_{name}.so")), entry)
+        fn.argtypes = list(build.SIGNATURES[entry])
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
@@ -137,11 +185,16 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("i2t_variants: needs a CUDA device")
     dev = torch.device("cuda")
-    fns = _build_all()
-    for name, (what, _) in VARIANTS.items():
+    f32 = "--f32" in sys.argv[1:]
+    variants = F32_VARIANTS if f32 else VARIANTS
+    fns = _build_all(variants, "rat_i2t_update_f32" if f32 else "rat_i2t_update")
+    for name, (what, _) in variants.items():
         print(f"[variant] {name}: {what}", flush=True)
     g = torch.Generator(device=dev).manual_seed(0)
-    bf = torch.bfloat16
+    bf = torch.float32 if f32 else torch.bfloat16
+    torch.backends.cuda.matmul.allow_tf32 = False
+    scratch = (torch.empty(att.i2t_f32_scratch(dev), device=dev) if f32
+               else None)
 
     def rnd(*shape, s=1.0, off=0.0):
         return (torch.randn(shape, generator=g, device=dev) * s + off).to(bf)
@@ -166,8 +219,10 @@ def main() -> None:
             kvt.zero_()
 
             def call(fn=fn):
+                extra = (scratch.data_ptr(),) if f32 else ()
                 err = fn(*(a.data_ptr() for a in args), keys.data_ptr(),
-                         kvt.data_ptr(), b, m, int(lead == 1), 1e-6, stream)
+                         kvt.data_ptr(), *extra, b, m, int(lead == 1), 1e-6,
+                         stream)
                 if err:
                     raise RuntimeError(f"launch failed: cudaError {err}")
             ms = _time_ms(call)

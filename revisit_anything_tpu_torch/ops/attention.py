@@ -23,6 +23,14 @@ from revisit_anything_tpu_torch.kernels.build import (
     TOKEN_CROSS_SPLIT, operand)
 
 
+def i2t_f32_scratch(device: torch.device) -> int:
+    """Floats of K5 f32's scratch on ``device`` (the built library's
+    ``rat_i2t_update_f32_scratch(SMs)``): Wqᵀ, Woutᵀ and Wkvᵀ as TF32 hi
+    and lo planes, then q at layer 1, 64 KB a persistent CTA (one an SM)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return 2 * (256 * 128 + 128 * 256 + 256 * 256) + sms * 2 * 64 * 128
+
+
 def kernel_dtype(what: str, t: torch.Tensor) -> torch.dtype:
     """The dtype a CUDA operand picks a kernel by: bf16 or f32; raises on
     any other."""
@@ -185,7 +193,8 @@ def token_cross_attend_kv(q: torch.Tensor, kvt: torch.Tensor,
     inside the kernel. Returns [B, n, D].
 
     CUDA: kernel K2 by q's dtype, bf16 or f32 (head dim 16, n 7 or 8,
-    M % 8 == 0); other dtypes raise. CPU: the plain version."""
+    M % 8 == 0; f32: products in split TF32 on the tensor cores); other
+    dtypes raise. CPU: the plain version."""
     if not q.is_cuda:
         return token_cross_attend_kv_reference(q, kvt, pe_kt, v_bias, heads)
     b, n, d = q.shape
@@ -257,7 +266,8 @@ def i2t_update(img: torch.Tensor, peq: torch.Tensor, tok_k: torch.Tensor,
     Returns (keys [B, M, D], kvt [B, 2·DA2, M]).
 
     CUDA: kernel K5 by img's dtype, bf16 or f32 (D 256, DA 128, 8 heads,
-    7 tokens, M a multiple of 64); other dtypes raise. CPU:
+    7 tokens, M a multiple of 64; f32: products in split TF32 on the
+    tensor cores, as accurate as f32); other dtypes raise. CPU:
     :func:`i2t_update_reference`."""
     if not img.is_cuda:
         return i2t_update_reference(img, peq, tok_k, tok_v, w_q, b_q, w_out,
@@ -283,8 +293,15 @@ def i2t_update(img: torch.Tensor, peq: torch.Tensor, tok_k: torch.Tensor,
         ("ln_bias", ln_bias, (d,)), ("w_kv_next", w_kv_next, (d, 256)))]
     keys = torch.empty((b, m, d), dtype=dt, device=img.device)
     kvt = torch.empty((b, 256, m), dtype=dt, device=img.device)
-    (I2T_UPDATE_F32 if dt == torch.float32 else I2T_UPDATE).launch(
-        x.data_ptr(), pq.data_ptr(), tk.data_ptr(), tv.data_ptr(),
-        *(w.data_ptr() for w in ws), keys.data_ptr(), kvt.data_ptr(), b, m,
-        int(lead == 1), float(eps))
+    ptrs = [x.data_ptr(), pq.data_ptr(), tk.data_ptr(), tv.data_ptr(),
+            *(w.data_ptr() for w in ws), keys.data_ptr(), kvt.data_ptr()]
+    if dt == torch.float32:
+        # the kernel's weight split (Wqᵀ, Woutᵀ and Wkvᵀ as TF32 hi and lo
+        # planes, 1 MB, made anew every call) and layer 1's q
+        scratch = torch.empty(i2t_f32_scratch(img.device), dtype=dt,
+                              device=img.device)
+        I2T_UPDATE_F32.launch(*ptrs, scratch.data_ptr(), b, m, int(lead == 1),
+                              float(eps))
+    else:
+        I2T_UPDATE.launch(*ptrs, b, m, int(lead == 1), float(eps))
     return keys, kvt

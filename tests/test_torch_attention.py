@@ -15,6 +15,7 @@ import torch
 import jax.numpy as jnp
 
 from revisit_anything_tpu.ops.attention import attend as jax_attend
+from revisit_anything_tpu.ops.attention import i2t_update as jax_i2t
 from revisit_anything_tpu.ops.attention import (
     token_cross_attend_kv as jax_token_cross_attend_kv)
 from revisit_anything_tpu_torch.ops import attention as att
@@ -174,7 +175,6 @@ def test_i2t_update_matches_jax(shared, far):
     ``far``: head 0's logits sit more than 100 above head 1's, where a softmax
     shifted by the max over all heads would underflow head 1 (the JAX
     kernel shifts per head, ops/attention.py `_i2t_kernel`)."""
-    from revisit_anything_tpu.ops.attention import i2t_update as jax_i2t
     rng = np.random.default_rng(7 + shared + 2 * far)
     b, t, m, d, da, heads = 3, 7, 64, 32, 16, 2
     f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
@@ -204,3 +204,160 @@ def test_i2t_update_matches_jax(shared, far):
     np.testing.assert_allclose(keys.numpy(), np.asarray(want_keys),
                                atol=atol)
     np.testing.assert_allclose(kvt.numpy(), np.asarray(want_kvt), atol=atol)
+
+
+LOG2E = 1.4426950408889634
+
+
+def _rel(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _token_cross_tf32(q, kvt, pe, vb, heads: int, tk: int, split: bool):
+    """The arithmetic of K2's f32 kernel (token_cross.cu
+    ``token_cross_kv_tf32x3_kernel``) in f32 on the CPU: k + pe and v +
+    bias in f32, tiles of ``tk`` keys (64 for a shared k|v, 32 per prompt),
+    S an 8-key block at a time as lo·hi + hi·lo + hi·hi of TF32 planes
+    over the head's 16 channels (``split``; else one TF32 product), the
+    online softmax in base 2, and each tile's P·V into a fresh accumulator,
+    8 keys at a time (lo·hi, hi·lo, hi·hi), joined to O by O·α + tile."""
+    b, n, d = q.shape
+    hd, m = d // heads, kvt.shape[-1]
+    sl = torch.tensor(LOG2E / np.sqrt(hd), dtype=torch.float32)
+    qh = q.reshape(b, n, heads, hd).transpose(1, 2)              # [B, H, n, hd]
+    kh = (kvt[:, :d] + pe.reshape(1, d, m)).reshape(-1, heads, hd, m)
+    vh = (kvt[:, d:] + vb[:, None]).reshape(-1, heads, hd, m).transpose(
+        -1, -2)                                                   # [L, H, M, hd]
+
+    def acc_product(acc, a, w):
+        if not split:
+            t = _tf32(a) @ _tf32(w)
+            return t if acc is None else acc + t
+        (ah, al), (wh, wl) = _split(a), _split(w)
+        for t in (al @ wh, ah @ wl, ah @ wh):
+            acc = t if acc is None else acc + t
+        return acc
+
+    mrow = torch.full((b, heads, n), -torch.inf)
+    lrow = torch.zeros((b, heads, n))
+    o = torch.zeros((b, heads, n, hd))
+    for k0 in range(0, m, tk):
+        k1 = min(k0 + tk, m)
+        s = torch.cat([acc_product(None, qh, kh[..., j:j + 8])
+                       for j in range(k0, k1, 8)], -1)
+        m_new = torch.maximum(mrow, s.amax(-1) * sl)
+        alpha = torch.exp2(mrow - m_new)
+        p = torch.exp2(s * sl - m_new[..., None])
+        lrow = lrow * alpha + p.sum(-1)
+        tile = None
+        for j in range(0, k1 - k0, 8):
+            tile = acc_product(tile, p[..., j:j + 8],
+                               vh[..., k0 + j:k0 + j + 8, :])
+        o = o * alpha[..., None] + tile
+        mrow = m_new
+    return (o / lrow[..., None]).transpose(1, 2).reshape(b, n, d)
+
+
+@pytest.mark.parametrize("scale", [1.0, 2.0])
+@pytest.mark.parametrize("shared", [True, False])
+def test_split_tf32_token_cross_arithmetic_matches_jax(shared, scale):
+    """K2 f32 (shared k|v: 64-key tiles; per prompt: 32) emulated in f32
+    is within 1e-5 of JAX ``token_cross_attend_kv`` in f32 (relative to
+    the output's largest value); at q, kvt x 2 (scores of std ~4) one
+    TF32 pass misses by far. SAM's widths (8 heads of 16, 7 queries); M =
+    200 ends on a ragged tile."""
+    rng = np.random.default_rng(30 + shared + int(scale))
+    b, n, d, heads, m = 3, 7, 128, 8, 200
+    q = rng.standard_normal((b, n, d)).astype(np.float32) * np.float32(scale)
+    kvt = rng.standard_normal((1 if shared else b, 2 * d, m)).astype(
+        np.float32) * np.float32(scale)
+    pe = rng.standard_normal((1, d, m)).astype(np.float32)
+    vb = rng.standard_normal((d,)).astype(np.float32)
+    want = torch.from_numpy(np.array(jax_token_cross_attend_kv(
+        *map(jnp.asarray, (q, kvt, pe, vb)), heads)))
+    args = [torch.from_numpy(x) for x in (q, kvt, pe, vb)]
+    tk = 64 if shared else 32
+    assert _rel(_token_cross_tf32(*args, heads, tk, split=True), want) < 1e-5
+    if scale > 1:
+        assert _rel(_token_cross_tf32(*args, heads, tk, split=False),
+                    want) > 1e-5
+
+
+def _i2t_tf32(img, peq, tok_k, tok_v, w_q, b_q, w_out, b_out, ln_s, ln_b,
+              w_kv, heads: int, eps: float, split: bool):
+    """The arithmetic of K5's f32 kernel (i2t_update.cu
+    ``i2t_update_tf32x3_kernel``) in f32 on the CPU. Each product runs over
+    32-wide K chunks as lo·hi + hi·lo + hi·hi of TF32 planes (``split``;
+    else one TF32 product): q takes each chunk into a fresh accumulator
+    added to an f32 sum, the out-projection and k|v keep one accumulator
+    over their chunks. The attention's two products are split TF32 too
+    (q_h · k_hᵀ over the head's 16 channels, p · v_h over the tokens), the
+    softmax shifted per head (exp2 of the shifted score times log2 e, one
+    reciprocal a row); the residual and the LayerNorm (E[y²] − μ², clamped)
+    are plain f32."""
+    def passes(a, w):
+        if not split:
+            return _tf32(a) @ _tf32(w)
+        (ah, al), (wh, wl) = _split(a), _split(w)
+        return (al @ wh + ah @ wl) + ah @ wh
+
+    def product(a, w, fold):
+        out = acc = None
+        for k0 in range(0, a.shape[-1], 32):
+            x, y = a[..., k0:k0 + 32], w[k0:k0 + 32]
+            if split:
+                (xh, xl), (yh, yl) = _split(x), _split(y)
+                terms = (xl @ yh, xh @ yl, xh @ yh)
+            else:
+                terms = (_tf32(x) @ _tf32(y),)
+            if fold:
+                acc = None
+            for t in terms:
+                acc = t if acc is None else acc + t
+            if fold:
+                out = acc if out is None else out + acc
+        return out if fold else acc
+
+    b, t, da = tok_k.shape
+    m, d = img.shape[1:]
+    hd = da // heads
+    q = (product(img, w_q, True) + peq) + b_q                    # [1|B, M, DA]
+    qh = q.reshape(q.shape[0], m, heads, hd).transpose(1, 2)
+    s = passes(qh, tok_k.reshape(b, t, heads, hd).permute(0, 2, 3, 1)) * 0.25
+    e = torch.exp2((s - s.amax(-1, keepdim=True)) * LOG2E)
+    p = e * (1.0 / e.sum(-1, keepdim=True))
+    a = passes(p, tok_v.reshape(b, t, heads, hd).transpose(1, 2)).transpose(
+        1, 2).reshape(b, m, da)
+    y = img + (product(a, w_out, False) + b_out)
+    mu = y.sum(-1, keepdim=True) / d
+    var = torch.clamp((y * y).sum(-1, keepdim=True) / d - mu * mu, min=0.0)
+    keys = (y - mu) * (1.0 / torch.sqrt(var + eps)) * ln_s + ln_b
+    return keys, product(keys, w_kv, False).transpose(1, 2)
+
+
+@pytest.mark.parametrize("scale", [1.0, 4.0])
+@pytest.mark.parametrize("shared", [True, False])
+def test_split_tf32_i2t_arithmetic_matches_jax(shared, scale):
+    """K5 f32 emulated in f32 is within 1e-5 of JAX ``i2t_update`` in f32
+    (its Pallas kernel in interpret mode; keys and the next k|v, each
+    relative to its largest value), on the shared branch (layer 1) and per
+    prompt; with the branch and token keys x 4 (sharper softmaxes) one TF32
+    pass misses by far. SAM's widths (D 256, DA 128, 8 heads, 7 tokens)."""
+    rng = np.random.default_rng(40 + shared + int(scale))
+    b, t, m, d, da, heads = 2, 7, 64, 256, 128, 8
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    sc = np.float32(scale)
+    args = (f(1 if shared else b, m, d) * sc, f(1, m, da), f(b, t, da) * sc,
+            f(b, t, da), f(d, da) * np.float32(0.1), f(da) * np.float32(0.1),
+            f(da, d) * np.float32(0.1), f(d) * np.float32(0.1),
+            1.0 + np.float32(0.1) * f(d), f(d) * np.float32(0.1))
+    w_kv = f(d, d) * np.float32(0.1)
+    want = [torch.from_numpy(np.array(x)) for x in jax_i2t(
+        *map(jnp.asarray, args), heads, eps=1e-6, interpret=True,
+        w_kv_next=jnp.asarray(w_kv))]
+    targs = [torch.from_numpy(x) for x in (*args, w_kv)]
+    got = _i2t_tf32(*targs, heads, 1e-6, split=True)
+    assert max(_rel(g, w) for g, w in zip(got, want)) < 1e-5
+    if scale > 1:
+        one = _i2t_tf32(*targs, heads, 1e-6, split=False)
+        assert max(_rel(g, w) for g, w in zip(one, want)) > 1e-5

@@ -180,11 +180,12 @@ def test_maskhead_variants_patch_the_kernel_source():
 
 
 def test_i2t_variants_patch_the_kernel_source():
-    """Every variant of ``kernels.i2t_variants`` still finds the lines it
-    replaces in ``i2t_update.cu`` (the tool runs only on the card)."""
+    """Every variant of ``kernels.i2t_variants``, of K5's bf16 and f32
+    forms, still finds the lines it replaces in ``i2t_update.cu`` (the tool
+    runs only on the card)."""
     from revisit_anything_tpu_torch.kernels import i2t_variants as iv
     base = iv._SRC.read_text()
-    for name, (_, reps) in iv.VARIANTS.items():
+    for name, (_, reps) in (*iv.VARIANTS.items(), *iv.F32_VARIANTS.items()):
         text = iv._source(reps)
         assert (text == base) == (not reps), name
 
@@ -829,11 +830,23 @@ def test_flash_kernel_f32_bias_matches_plain(cuda, b, n, dh):
     assert torch.equal(got, again)
 
 
+# K2 f32's cases: TOKEN_CASES (their ids as before), then q and kvt x 2
+# (scores of std ~4, where one TF32 pass would miss by ~1e-3) shared and
+# per prompt, and a shared k|v over 150 prompts (1,050 stacked rows: the
+# last CTA's 128 rows are ragged)
+TOKEN_F32_CASES = [
+    *(pytest.param(*c, 1.0, id="-".join(map(str, c))) for c in TOKEN_CASES),
+    pytest.param(True, 64, 7, 4096, 2.0, id="True-64-7-4096-x2"),
+    pytest.param(False, 16, 7, 4096, 2.0, id="False-16-7-4096-x2"),
+    pytest.param(True, 150, 7, 4096, 1.0, id="True-150-7-4096")]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shared,b,n,m", TOKEN_CASES)
-def test_token_cross_kernel_f32_matches_plain(cuda, shared, b, n, m):
-    args = _token_inputs(cuda, b, n, m, 1 if shared else b, pe=True,
-                         dtype=torch.float32)
+@pytest.mark.parametrize("shared,b,n,m,scale", TOKEN_F32_CASES)
+def test_token_cross_kernel_f32_matches_plain(cuda, shared, b, n, m, scale):
+    q, kvt, pe, vb = _token_inputs(cuda, b, n, m, 1 if shared else b,
+                                   pe=True, dtype=torch.float32)
+    args = (q * scale, kvt * scale, pe, vb)
     before = (build.TOKEN_CROSS_F32.launches, build.TOKEN_CROSS.launches)
     got = att.token_cross_attend_kv(*args, 8)
     want = att.token_cross_attend_kv_reference(*args, 8)
@@ -845,11 +858,21 @@ def test_token_cross_kernel_f32_matches_plain(cuda, shared, b, n, m):
     assert _rel_err(got, want) < F32_REL
 
 
+# K5 f32's cases: I2T_CASES (their ids as before), then the branch and the
+# token keys x 4 (sharper softmaxes; one TF32 pass would miss by ~5e-4) on
+# the shared branch and per prompt
+I2T_F32_CASES = [
+    *(pytest.param(*c, 1.0, id="-".join(map(str, c))) for c in I2T_CASES),
+    pytest.param(True, 16, 4096, False, 4.0, id="True-16-4096-x4"),
+    pytest.param(False, 16, 4096, False, 4.0, id="False-16-4096-x4")]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shared,b,m,far", I2T_CASES)
-def test_i2t_update_kernel_f32_matches_plain(cuda, shared, b, m, far):
-    args = _i2t_inputs(cuda, shared, b, m, seed=5 if far else 4, far=far,
-                       dtype=torch.float32)
+@pytest.mark.parametrize("shared,b,m,far,scale", I2T_F32_CASES)
+def test_i2t_update_kernel_f32_matches_plain(cuda, shared, b, m, far, scale):
+    args = list(_i2t_inputs(cuda, shared, b, m, seed=5 if far else 4,
+                            far=far, dtype=torch.float32))
+    args[0], args[2] = args[0] * scale, args[2] * scale
     before = (build.I2T_UPDATE_F32.launches, build.I2T_UPDATE.launches)
     keys, kvt = att.i2t_update(*args, 8, 1e-6)
     want_keys, want_kvt = att.i2t_update_reference(*args, 8, 1e-6)
@@ -863,6 +886,28 @@ def test_i2t_update_kernel_f32_matches_plain(cuda, shared, b, m, far):
     tol = 20 * F32_REL if far else F32_REL
     assert _rel_err(keys, want_keys) < tol
     assert _rel_err(kvt, want_kvt) < tol
+
+
+@pytest.mark.gpu
+def test_i2t_update_kernel_f32_shared_branch_is_the_repeated_branch(cuda):
+    """K5 f32 on a shared [1, M, 256] branch (q once a position block,
+    kept for every prompt) and on the same branch repeated to [B, M, 256]
+    (q a prompt) gives the same keys and kvT, bit for bit."""
+    args = list(_i2t_inputs(cuda, True, 5, 4096, dtype=torch.float32))
+    keys, kvt = att.i2t_update(*args, 8, 1e-6)
+    args[0] = args[0].expand(5, -1, -1).contiguous()
+    keys_b, kvt_b = att.i2t_update(*args, 8, 1e-6)
+    torch.cuda.synchronize()
+    assert torch.equal(keys, keys_b) and torch.equal(kvt, kvt_b)
+
+
+@pytest.mark.gpu
+def test_i2t_update_f32_scratch_is_the_kernels(cuda):
+    """The wrapper allocates the scratch K5 f32 takes (its weight split,
+    layer 1's q)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert (att.i2t_f32_scratch(cuda)
+            == build.load().rat_i2t_update_f32_scratch(sms))
 
 
 @pytest.mark.gpu
