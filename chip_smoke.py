@@ -87,8 +87,8 @@ Phases (any failure exits non-zero):
      the planted images first; each query's kept masks against the bf16
      server's (matched at IoU > 0.5: at least 0.9 of them) and against
      the f32 plain path on the card with TF32 off (the same count, each
-     at IoU >= 0.95); wall ms, encode and decode stage ms (CUDA events),
-     peak device memory;
+     at IoU >= 0.95); wall ms, encode and decode stage ms and every stage
+     of [split] (CUDA events), peak device memory;
  10. [insert], continued: remove planted image 1 (its noisy copy must no
      longer find it), snapshot the database to an npz and restore it
      into a fresh server: the same top-5 on the three queries;
@@ -309,16 +309,19 @@ PTXAS_KERNELS = (
      "rat_flash_attention", "rat_flash_attention_smem", (80,)),
     ("flash_attention_kernelILi64ELi0E", "K1 Dh 64, no bias",
      "rat_flash_attention", "rat_flash_attention_smem", (64,)),
-    ("flash_attention_tf32x3_kernelILi64ELb0E", "K1 f32 Dh 64 (split TF32)",
+    ("flash_attention_tf32x3_kernelILi64ELi0E", "K1 f32 Dh 64 (split TF32)",
      "rat_flash_attention_f32", "rat_flash_attention_f32_smem", (64, 0)),
-    ("flash_attention_tf32x3_kernelILi80ELb0E", "K1 f32 Dh 80 (split TF32)",
+    ("flash_attention_tf32x3_kernelILi80ELi0E", "K1 f32 Dh 80 (split TF32)",
      "rat_flash_attention_f32", "rat_flash_attention_f32_smem", (80, 0)),
-    ("flash_attention_tf32x3_kernelILi80ELb1E", "K1 f32 Dh 80 + bias",
+    ("flash_attention_tf32x3_kernelILi80ELi2E", "K1 f32 Dh 80 + bias side 64",
+     "rat_flash_attention_f32_bias", "rat_flash_attention_f32_smem",
+     (80, 2)),
+    ("flash_attention_tf32x3_kernelILi80ELi1E", "K1 f32 Dh 80 + bias other",
      "rat_flash_attention_f32_bias", "rat_flash_attention_f32_smem",
      (80, 0)),
-    ("flash_attention_tf32x3_kernelILi64ELb1E", "K1 f32 Dh 64 + bias",
+    ("flash_attention_tf32x3_kernelILi64ELi2E", "K1 f32 Dh 64 + bias side 64",
      "rat_flash_attention_f32_bias", "rat_flash_attention_f32_smem",
-     (64, 0)),
+     (64, 2)),
     ("token_cross_kv_tf32x3_kernelILb1E", "K2 f32 shared k|v (split TF32)",
      "rat_token_cross_kv_f32", "rat_token_cross_f32_smem", (1,)),
     ("token_cross_kv_tf32x3_kernelILb0E", "K2 f32 per-prompt k|v",
@@ -329,8 +332,10 @@ PTXAS_KERNELS = (
      "rat_i2t_update_f32", "rat_i2t_update_f32_smem", ()),
     ("split_weights_kernel", "K5 f32 weight split", "rat_i2t_update_f32",
      None, ()),
-    ("mask_head_f32_kernel", "K3 f32", "rat_mask_head_f32",
-     "rat_mask_head_f32_smem", ()),
+    ("mask_head_tf32x3_kernelILi3E", "K3 f32 M 3 (split TF32)",
+     "rat_mask_head_f32", "rat_mask_head_f32_smem", ()),
+    ("split_head_weights_kernel", "K3 f32 weight split", "rat_mask_head_f32",
+     None, ()),
     ("resize_flags_kernelILi3ELb1EfE", "K4 f32 M 3 (240x320)",
      "rat_resize_flags_f32", "rat_resize_flags_f32_smem", (3, 320, 240)),
     ("split_kv_kernelILi64E", "K1 f32 Dh 64 K/V split",
@@ -369,21 +374,22 @@ PTXAS_KERNELS = (
 
 # The kernels whose products run by mma.sync (HMMA): B3's instantiations,
 # by their emission (keys, probability, logits mode), B7's layer 2, B8's
-# two depths and K2 f32's two schedules (TF32); and K1 f32's and K5 f32's,
-# by TF32 wgmma (HGMMA ... TF32): (piece of the mangled name, label, the
-# instruction that must be there)
+# two depths and K2 f32's two schedules (TF32); and K1 f32's, K5 f32's and
+# K3 f32's, by TF32 wgmma (HGMMA ... TF32): (piece of the mangled name,
+# label, the instruction that must be there)
 MMA_SASS = (("decode_tail_kernelILi0E", "B3 keys mode", "HMMA"),
             ("decode_tail_kernelILi1E", "B3 probability mode", "HMMA"),
             ("decode_tail_kernelILi2E", "B3 logits mode", "HMMA"),
             ("i2t_probs_l2_kernel", "B7 layer 2", "HMMA"),
             ("t2i_probs_kernelILi1E", "B8 depth 1", "HMMA"),
             ("t2i_probs_kernelILi2E", "B8 depth 2", "HMMA"),
-            ("flash_attention_tf32x3_kernelILi64ELb0E", "K1 f32 Dh 64",
+            ("flash_attention_tf32x3_kernelILi64ELi0E", "K1 f32 Dh 64",
              "HGMMA.*TF32"),
-            ("flash_attention_tf32x3_kernelILi80ELb0E", "K1 f32 Dh 80",
+            ("flash_attention_tf32x3_kernelILi80ELi0E", "K1 f32 Dh 80",
              "HGMMA.*TF32"),
-            ("flash_attention_tf32x3_kernelILi80ELb1E", "K1 f32 Dh 80 + bias",
-             "HGMMA.*TF32"),
+            ("flash_attention_tf32x3_kernelILi80ELi2E",
+             "K1 f32 Dh 80 + bias side 64", "HGMMA.*TF32"),
+            ("mask_head_tf32x3_kernelILi3E", "K3 f32 M 3", "HGMMA.*TF32"),
             ("i2t_update_tf32x3_kernelILb1E", "K5 f32 layer 1", "HGMMA.*TF32"),
             ("i2t_update_tf32x3_kernelILb0E", "K5 f32 layer 2", "HGMMA.*TF32"),
             ("token_cross_kv_tf32x3_kernelILb1E", "K2 f32 shared k|v",
@@ -735,7 +741,8 @@ F32_REL = 1e-5
 def compare_f32_kernels(dev, check) -> None:
     """The f32 forms of the default SAM path's kernels (an f32 SAM, the
     JAX package's default dtype) at the f32 served query's shapes: K1 with
-    the bias (SAM ViT-H's global layer), K2 (shared and per-prompt k|v,
+    the bias (SAM ViT-H's global layer) and without it at the same shape
+    (the bias form's floor), K2 (shared and per-prompt k|v,
     1024 prompts), K5 (layers 1 and 2), K3 (1024 prompts, content 3136,
     M 3) and K4 (17places), each against its plain version in f32 with
     TF32 off. Bound (as K1 f32's rows): the larger of the bytes over
@@ -763,6 +770,9 @@ def compare_f32_kernels(dev, check) -> None:
     q, k, v = (rnd(1, 16, 4096, 80) for _ in range(3))
     bh, bw = rnd(1, 16, 4096, 64), rnd(1, 16, 4096, 64)
     mask = bh.repeat_interleave(64, dim=-1) + bw.repeat(1, 1, 1, 64)
+    # (in brackets PR 23's design, the bias read per score from device
+    # memory); then K1 f32 without the bias at the same shape, the bias
+    # form's floor
     n2 = 16 * 4096 ** 2
     check(build.FLASH_ATTENTION_F32_BIAS,
           "SAM global q/k/v [1,16,4096,80] + bias f32",
@@ -771,8 +781,15 @@ def compare_f32_kernels(dev, check) -> None:
           _rel, F32_REL, (q, k, v, bh, bw),
           (0, 7 * n2, 3 * 4 * n2 * 80),
           library=lambda: F.scaled_dot_product_attention(q, k, v,
-                                                         attn_mask=mask))
-    del q, k, v, bh, bw, mask
+                                                         attn_mask=mask),
+          was=1.745)
+    del mask
+    check(build.FLASH_ATTENTION_F32,
+          "SAM global q/k/v [1,16,4096,80] f32, no bias",
+          lambda: att.attend(q, k, v), lambda: att.attend_reference(q, k, v),
+          _rel, F32_REL, (q, k, v), (0, 5 * n2, 3 * 4 * n2 * 80),
+          library=lambda: F.scaled_dot_product_attention(q, k, v))
+    del q, k, v, bh, bw
     torch.cuda.empty_cache()
 
     # K2 f32 (library: SDPA in f32 on k + pe and v + bias formed outside
@@ -829,7 +846,8 @@ def compare_f32_kernels(dev, check) -> None:
         del iargs
         torch.cuda.empty_cache()
 
-    # K3 f32: 1024 prompts, content 49 rows x 64 = 3136 positions
+    # K3 f32: 1024 prompts, content 49 rows x 64 = 3136 positions (in
+    # brackets PR 23's FMA design)
     margs = (rnd(1024, 4096, 256), rnd(1024, 3, 32, s=0.5),
              rnd(256, 256, s=0.1), rnd(64, s=0.1), rnd(64, s=0.1, off=1.0),
              rnd(64, s=0.1), rnd(64, 128, s=0.1), rnd(32, s=0.1))
@@ -840,7 +858,7 @@ def compare_f32_kernels(dev, check) -> None:
           lambda: mh.upscale_masks_blocks(margs[0][:, :3136], *margs[1:],
                                           eps=1e-6),
           _rel, F32_REL, (margs[0][:, :3136],) + margs[1:],
-          (0, 0, 3 * 1024 * 3136 * head_products))
+          (0, 0, 3 * 1024 * 3136 * head_products), was=27.707)
     del margs
     torch.cuda.empty_cache()
 
@@ -1311,8 +1329,8 @@ def sam_f32_phase(srv, queries, planted, kw, seed) -> dict:
     bf16 server's on the same image (the share matched at IoU > 0.5, as
     [variant] measures) and against the f32 plain path on the card with
     TF32 off (the same count, each mask at IoU >= 0.95 with one of the
-    plain path's); wall ms a query, the encode and decode stages by CUDA
-    events, peak device memory."""
+    plain path's); wall ms a query, the encode and decode stages and every
+    stage of [split] by CUDA events, peak device memory."""
     import numpy as np
     import torch
 
@@ -1361,6 +1379,14 @@ def sam_f32_phase(srv, queries, planted, kw, seed) -> dict:
         img_dev = torch.from_numpy(queries[0]).to(dev)
         encode = [_encode_ms(fsrv, img_dev) for _ in range(4)][1:]
     decode = [_decode_ms(fsrv, queries[0]) for _ in range(4)][1:]
+    # every stage of the query, as [split] takes the bf16 query's
+    splits = [_stage_ms(fsrv, queries[0], answers[0]) for _ in range(4)][1:]
+    stages = {name: statistics.median(dict(p)[name] for p, _ in splits)
+              for name, _ in splits[0][0]}
+    print(f"[sam-f32] f32 query's stages (CUDA events, median of 3 after "
+          f"one): {'; '.join(f'{k} {v:.3f}' for k, v in stages.items())}; "
+          f"wall {statistics.median(w for _, w in splits):.3f} ms",
+          flush=True)
     agree_bf16, plain_iou = [], []
     with torch.inference_mode():
         for i, img in enumerate(queries):
@@ -1401,8 +1427,8 @@ def sam_f32_phase(srv, queries, planted, kw, seed) -> dict:
     del fsrv, sam, dino
     torch.cuda.empty_cache()
     return dict(counts=dict(launches), wall_ms=wall, encode_ms=enc_ms,
-                decode_ms=dec_ms, peak_gib=peak_gib, agree_bf16=agree_bf16,
-                plain_least_iou=plain_iou)
+                decode_ms=dec_ms, stages_ms=stages, peak_gib=peak_gib,
+                agree_bf16=agree_bf16, plain_least_iou=plain_iou)
 
 
 def _noisy(rng, img):
@@ -3784,10 +3810,9 @@ def plain_witness(vsrv, img, ref, decode: str) -> None:
               + "; matched at IoU > 0.5: " + ", ".join(agree), flush=True)
 
 
-def stage_split(srv, img, answer) -> None:
+def _stage_ms(srv, img, answer) -> tuple:
     """One query's stages between CUDA events (SegVLADServer.query step by
-    step; the answer must equal query()'s), then one traced query: the
-    device's busy time is the union of its kernels' intervals."""
+    step; the answer must equal query()'s): ([(stage, ms), ...], wall ms)."""
     import numpy as np
     import torch
 
@@ -3836,10 +3861,21 @@ def stage_split(srv, img, answer) -> None:
     torch.cuda.synchronize()
     if not np.array_equal(top, answer):
         _fail(f"stage split answered {top}, query() {answer}")
-    parts = [f"{name} {prev.elapsed_time(ev):.3f}"
-             for (_, prev, _), (name, ev, _) in zip(marks[:-1], marks[1:])]
-    print(f"[split] ms by stage (CUDA events): {'; '.join(parts)}; "
-          f"wall {1e3 * (marks[-1][2] - marks[0][2]):.3f}", flush=True)
+    return ([(name, prev.elapsed_time(ev))
+             for (_, prev, _), (name, ev, _) in zip(marks[:-1], marks[1:])],
+            1e3 * (marks[-1][2] - marks[0][2]))
+
+
+def stage_split(srv, img, answer) -> None:
+    """One query's stages between CUDA events (:func:`_stage_ms`), then
+    one traced query: the device's busy time is the union of its kernels'
+    intervals."""
+    import torch
+
+    parts, wall = _stage_ms(srv, img, answer)
+    print(f"[split] ms by stage (CUDA events): "
+          f"{'; '.join(f'{name} {ms:.3f}' for name, ms in parts)}; "
+          f"wall {wall:.3f}", flush=True)
 
     from torch.autograd import DeviceType
     with torch.profiler.profile(activities=[

@@ -70,9 +70,10 @@ SIGNATURES: Dict[str, Sequence] = {
     # np, gg, content, n_masks, eps, n_ctas, stream
     "rat_mask_head": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _F, _I, _P),
-    # the same without n_ctas (f32)
-    "rat_mask_head_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                          _I, _F, _P),
+    # the same plus scratch (the weights' TF32 planes) after out, without
+    # n_ctas (f32)
+    "rat_mask_head_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                          _I, _I, _F, _P),
     # logits, h_taps, w_taps, flags, rowst, colany, np, gh, g, n_masks,
     # h, w, thr-off, thr, thr+off, n_sm, stream
     "rat_resize_flags": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
@@ -96,10 +97,11 @@ SIGNATURES: Dict[str, Sequence] = {
     # reports, no launch: dynamic shared memory of a CTA in bytes
     "rat_token_cross_smem": (_I, _I),           # pe, shared
     "rat_flash_attention_smem": (_I,),          # hd
-    "rat_flash_attention_f32_smem": (_I, _I),   # hd, split
+    "rat_flash_attention_f32_smem": (_I, _I),   # hd, split (2: bias side 64)
     "rat_win_attention_smem": (_I, _I),         # side, hd
     "rat_mask_head_smem": (),
     "rat_mask_head_f32_smem": (),
+    "rat_mask_head_f32_scratch": (),            # floats of scratch
     "rat_i2t_update_smem": (),
     "rat_i2t_update_f32_smem": (),
     "rat_i2t_update_f32_scratch": (_I,),        # SMs: floats of scratch

@@ -475,16 +475,19 @@ int dispatch(const void* q, const void* k, const void* v, const void* bias_h,
 // bias at side 64). The TPU kernel computes in its inputs' dtype (scores
 // f32, p rounded to v's dtype), so f32 inputs give f32 attention.
 //
-// The bias (BIAS = true): each score becomes s·scale·log2 e + (bias_h[q,
-// k / side] + bias_w[q, k % side])·log2 e as soon as S leaves the tensor
+// The bias (BIAS > 0): each score becomes s·scale·log2 e + bias_h[q, k /
+// side]·log2 e + bias_w[q, k % side]·log2 e as soon as S leaves the tensor
 // cores, before the row max, so the online softmax below runs unchanged on
-// it (at a scale of 1). At Dh 80 the CTA's shared memory (184 KB) leaves
-// no room for its 128 rows of both tables in f32 (64 KB), so each thread
-// reads its two rows' terms from device memory (L1 and L2 hold a CTA's
-// 64 KB of bias, read once per key tile): one bias_h and one bias_w term a
-// score, found by stepping the key's column across the key grid's rows
-// from the tile's first key (any side; at side 64 a tile lies inside one
-// row).
+// it (at a scale of 1). At side 64 (BIAS = 2, SAM's global layers) a
+// 32-key tile lies inside one row of the key grid, so a tile needs one
+// bias_h term a row, and a thread's bias_w columns repeat every two tiles:
+// the consumers stage their 128 rows of bias_h (times log2 e, rows padded
+// to 65 floats against bank conflicts: 33,280 B) in shared memory before
+// the key loop, and each thread keeps its two rows' 16 bias_w columns
+// (times log2 e) in 32 registers; the key loop reads no bias from device
+// memory. Other sides (BIAS = 1, no served query) read both terms per
+// score from device memory, stepping the key's column across the key
+// grid's rows from the tile's first key.
 //
 // Precision: both products run on the tensor cores in split TF32. An f32
 // operand x is cut into hi = tf32_rna(x) and lo = tf32_rna(x - hi) (11 and
@@ -558,6 +561,11 @@ struct F32Cfg {
   static constexpr int BARS = 64;
   static constexpr int SMEM = 1024 + 2 * Q_PLANE + STAGES * STAGE + BARS;
   static constexpr int SPLIT_SMEM = F32_KEY_PAD * (HD + 1) * 4;
+  // BIAS = 2: bias_h of the CTA's rows [128][65] (f32 · log2 e) after the
+  // barriers
+  static constexpr int BH_PITCH = MAX_SIDE + 1;
+  static constexpr int BIAS_SMEM = SMEM + F32_BQ * BH_PITCH * 4;
+  static_assert(BIAS_SMEM <= 232448, "one CTA an SM");
 };
 
 // x = hi + lo + a rest below 2^-22 |x|, hi and lo TF32.
@@ -623,7 +631,9 @@ __device__ __forceinline__ void wgmma_pv_tf32(float (&d)[HD / 2], const uint32_t
   else wgmma_rs_tf32_n64(d, a, db, accumulate);
 }
 
-template <int HD, bool BIAS>
+// BIAS: 0 none; 1 any side <= 64, read per score; 2 side 64, from shared
+// memory and registers.
+template <int HD, int BIAS>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tk,
@@ -643,6 +653,7 @@ flash_attention_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
   const uint32_t qfull = bars + 8 * (2 * STAGES);
+  float* sbh = reinterpret_cast<float*>(smem_raw + (bars - raw) + C::BARS);
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * F32_BQ;
@@ -703,6 +714,32 @@ flash_attention_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
         lo[i] = l;
       }
     }
+    // BIAS = 2: this warpgroup's 64 rows of bias_h into shared memory, and
+    // each thread's bias_w columns 32hf + 8i + 2c + e of its two rows into
+    // bw[r][4hf + i][e] (rows past N read row N - 1 and are not stored)
+    float bw[2][8][2];
+    if constexpr (BIAS == 2) {
+      for (int i = ctid; i < 64 * MAX_SIDE / 4; i += 128) {
+        const int r = wg * 64 + i / (MAX_SIDE / 4), col = 4 * (i % (MAX_SIDE / 4));
+        const float4 v = __ldg(reinterpret_cast<const float4*>(
+            bias_h + ((size_t)bh * n + min(q0 + r, n - 1)) * MAX_SIDE + col));
+        float* dst = sbh + r * C::BH_PITCH + col;
+        dst[0] = v.x * LOG2E;
+        dst[1] = v.y * LOG2E;
+        dst[2] = v.z * LOG2E;
+        dst[3] = v.w * LOG2E;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float* row = bias_w + ((size_t)bh * n + min(q0 + rl[r], n - 1)) * MAX_SIDE + 2 * c;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float2 v = __ldg(reinterpret_cast<const float2*>(row + 8 * i));
+          bw[r][i][0] = v.x * LOG2E;
+          bw[r][i][1] = v.y * LOG2E;
+        }
+      }
+    }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     named_sync(3 + wg, 128);
 
@@ -749,9 +786,24 @@ flash_attention_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(sc);
 
       // sc[4i + 2r + e]: row rl[r], key k0 + 8i + 2c + e. With a bias,
-      // v = s·scale·log2 e + (bias_h + bias_w)·log2 e (rows past N read row
-      // N - 1 and are not stored; keys past N read nothing).
-      if constexpr (BIAS) {
+      // v = s·scale·log2 e + (bias_h·log2 e + bias_w·log2 e) at side 64,
+      // s·scale·log2 e + (bias_h + bias_w)·log2 e at other sides (rows past
+      // N read row N - 1 and are not stored; keys past N read nothing).
+      if constexpr (BIAS == 2) {
+        // the tile lies in key-grid row k0 / 64; a 32-key tile takes
+        // column half t % 2 of bw
+        const bool hf = BK == 32 && (t & 1);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float bhr = sbh[rl[r] * C::BH_PITCH + k0 / MAX_SIDE];
+#pragma unroll
+          for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              sc[4 * i + 2 * r + e] = fmaf(sc[4 * i + 2 * r + e], scale_log2,
+                                           bhr + (hf ? bw[r][(4 + i) % 8][e] : bw[r][i][e]));
+        }
+      } else if constexpr (BIAS == 1) {
         const int kh0 = k0 / side, kw0 = k0 - kh0 * side;
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
@@ -872,7 +924,7 @@ flash_attention_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
 // Scratch of the f32 kernel: K's planes [2, bh, n, hd], then Vᵀ's [2, bh,
 // hd, n_pad], n_pad = n rounded up to F32_KEY_PAD (the wrapper allocates
 // 2·bh·hd·(n + n_pad) floats).
-template <int HD, bool BIAS>
+template <int HD, int BIAS>
 int launch_f32(const void* q, const void* k, const void* v, const void* bias_h,
                const void* bias_w, void* out, void* scratch, int bh, int n, int side, float scale,
                cudaStream_t stream) {
@@ -881,8 +933,9 @@ int launch_f32(const void* q, const void* k, const void* v, const void* bias_h,
   float* kp = static_cast<float*>(scratch);
   float* vt = kp + (size_t)2 * bh * n * HD;
   auto kernel = flash_attention_tf32x3_kernel<HD, BIAS>;
+  const int smem = BIAS == 2 ? C::BIAS_SMEM : C::SMEM;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap tq, tk, tv;
   const cuuint64_t qdims[3] = {(cuuint64_t)HD, (cuuint64_t)n, (cuuint64_t)bh};
@@ -900,7 +953,7 @@ int launch_f32(const void* q, const void* k, const void* v, const void* bias_h,
       static_cast<const float*>(k), static_cast<const float*>(v), kp, vt, bh, n, n_pad);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3((n + F32_BQ - 1) / F32_BQ, bh), THREADS, C::SMEM, stream>>>(
+  kernel<<<dim3((n + F32_BQ - 1) / F32_BQ, bh), THREADS, smem, stream>>>(
       tq, tk, tv, static_cast<const float*>(bias_h), static_cast<const float*>(bias_w),
       static_cast<float*>(out), n, side, bh, scale * LOG2E);
   return (int)cudaGetLastError();
@@ -940,9 +993,9 @@ extern "C" int rat_flash_attention_f32(const void* q, const void* k, const void*
   if (bh <= 0 || n <= 0 || bh > 65535) return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 64:
-      return launch_f32<64, false>(q, k, v, nullptr, nullptr, out, scratch, bh, n, 1, scale, s);
+      return launch_f32<64, 0>(q, k, v, nullptr, nullptr, out, scratch, bh, n, 1, scale, s);
     case 80:
-      return launch_f32<80, false>(q, k, v, nullptr, nullptr, out, scratch, bh, n, 1, scale, s);
+      return launch_f32<80, 0>(q, k, v, nullptr, nullptr, out, scratch, bh, n, 1, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -957,20 +1010,27 @@ extern "C" int rat_flash_attention_f32_bias(const void* q, const void* k, const 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bh <= 0 || n <= 0 || bh > 65535 || side < 1 || side > MAX_SIDE || side * side != n)
     return (int)cudaErrorInvalidValue;
+  const bool rows = side == MAX_SIDE;
   switch (hd) {
     case 64:
-      return launch_f32<64, true>(q, k, v, bias_h, bias_w, out, scratch, bh, n, side, scale, s);
+      return rows ? launch_f32<64, 2>(q, k, v, bias_h, bias_w, out, scratch, bh, n, side, scale, s)
+                  : launch_f32<64, 1>(q, k, v, bias_h, bias_w, out, scratch, bh, n, side, scale, s);
     case 80:
-      return launch_f32<80, true>(q, k, v, bias_h, bias_w, out, scratch, bh, n, side, scale, s);
+      return rows ? launch_f32<80, 2>(q, k, v, bias_h, bias_w, out, scratch, bh, n, side, scale, s)
+                  : launch_f32<80, 1>(q, k, v, bias_h, bias_w, out, scratch, bh, n, side, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// Dynamic shared memory a CTA of the f32 attention (split = 0) or of its
-// K/V split (split = 1) takes at head dim hd.
+// Dynamic shared memory a CTA of the f32 attention (split = 0), of its
+// K/V split (split = 1) or of the attention with the bias at side 64
+// (split = 2) takes at head dim hd.
+template <int HD>
+int f32_smem(int split) {
+  return split == 1 ? F32Cfg<HD>::SPLIT_SMEM : split == 2 ? F32Cfg<HD>::BIAS_SMEM : F32Cfg<HD>::SMEM;
+}
+
 extern "C" int rat_flash_attention_f32_smem(int hd, int split) {
-  if (hd == 64) return split ? F32Cfg<64>::SPLIT_SMEM : F32Cfg<64>::SMEM;
-  if (hd == 80) return split ? F32Cfg<80>::SPLIT_SMEM : F32Cfg<80>::SMEM;
-  return 0;
+  return hd == 64 ? f32_smem<64>(split) : hd == 80 ? f32_smem<80>(split) : 0;
 }

@@ -4,8 +4,9 @@
 // trap on a lost TMA, TMA loads and stores, 1-D bulk loads,
 // the wgmma fence / commit / wait group and the register-A and MN-major
 // n128 wgmma shapes, the TF32 rounding and split and the TF32 wgmma shapes
-// (the f32 kernels of flash_attention.cu and i2t_update.cu), register pins,
-// named barriers, the mma.sync shapes (bf16, fp16 and TF32: i2t_update.cu,
+// (the f32 kernels of flash_attention.cu and i2t_update.cu) and a K
+// chunk's split and its three passes (K5's and K3's f32 forms), register
+// pins, named barriers, the mma.sync shapes (bf16, fp16 and TF32: i2t_update.cu,
 // decode_tc.cuh, token_cross.cu's f32 kernel) and transposed ldmatrix,
 // and the host's lookup of cuTensorMapEncodeTiled.
 
@@ -336,6 +337,49 @@ __device__ __forceinline__ void mma_m16n8k8_tf32(float (&d)[4], const uint32_t (
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The split-TF32 products of K5's and K3's f32 forms (i2t_update.cu,
+// mask_head.cu): one 32-wide K chunk of a register A operand at a time.
+
+// One K chunk of A in the accumulator's layout, r[kk] = (row g, col 8kk +
+// 2c), (g, +1), (g + 8, 8kk + 2c), (g + 8, +1), cut into the hi and lo
+// fragments of its 4 k-steps (columns 2c and 2c + 1 are K indices c and
+// c + 4 of the permuted weight rows).
+__device__ __forceinline__ void split_chunk(float (&r)[4][4], uint32_t (&fh)[4][4],
+                                            uint32_t (&fl)[4][4]) {
+  // pinned first: no split may rise above the last wgmma wait, or the
+  // fragments of several chunks would be live at once
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(r[kk][e]));
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    split_tf32_bits(r[kk][0], fh[kk][0], fl[kk][0]);
+    split_tf32_bits(r[kk][2], fh[kk][1], fl[kk][1]);
+    split_tf32_bits(r[kk][1], fh[kk][2], fl[kk][2]);
+    split_tf32_bits(r[kk][3], fh[kk][3], fl[kk][3]);
+  }
+}
+
+// acc (+)= A · one stage: lo·hi, hi·lo, then hi·hi over the chunk's 4
+// k-steps; the stage at st is B's hi box [128 N, 32 K] f32 and its lo box
+// right after it (K-major and 128B-swizzled: a k-step is 32 bytes of a
+// row).
+__device__ __forceinline__ void issue_chunk(float (&acc)[64], const uint32_t (&fh)[4][4],
+                                            const uint32_t (&fl)[4][4], uint32_t st, bool fresh) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_tf32_n128(acc, fl[kk], gmma_desc(st + kk * 32, 16, 1024), !fresh || kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_tf32_n128(acc, fh[kk], gmma_desc(st + 128 * 32 * 4 + kk * 32, 16, 1024), 1);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_tf32_n128(acc, fh[kk], gmma_desc(st + kk * 32, 16, 1024), 1);
+  wgmma_commit();
 }
 
 // A 3-d TMA store of a shared-memory tile (a bulk group of this thread);

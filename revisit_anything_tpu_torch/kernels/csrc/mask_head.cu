@@ -106,7 +106,6 @@
 
 #include <math.h>
 
-#include "f32_tile.cuh"
 #include "hopper.cuh"
 
 namespace rat_k3 {
@@ -814,173 +813,520 @@ extern "C" int rat_mask_head_probs(const void* img0, const void* p1, const void*
 //
 // What bounds it on the H100: its products, 2 · (256·256 + 4·64·128 +
 // 16·32·M) FLOP a position, 0.64 TFLOP at 1024 prompts x 3136 positions and
-// M = 3: 3.9 ms at the TF32 rate over the three passes that split-TF32
+// M = 3: 3.9 ms at the TF32 rate over the three passes that split TF32
 // needs (165 TFLOP/s), against 3.3 GB of keys in and 0.6 GB of logits out
-// (1.2 ms at 3.35 TB/s).
+// (1.2 ms at 3.35 TB/s). Beside them run ~11,000 f32 operations a thread
+// an item on the FMA units (768 exact GELUs a position, the splits, the
+// group LN), about 0.6 of the products' time at their bound.
 //
-// Design: a simple kernel, plain f32 FMAs on the CUDA cores (f32_tile.cuh),
-// no tensor cores: one CTA of 256 threads takes 64 positions of one prompt
-// (positions at or past content are zeros and not stored).
-//  1. keys [64, 256] into shared memory; up2_w [64, 128] (resident), the
-//     prompt's hypernetwork rows and the small vectors beside it.
-//  2. y1 = keys · up1_w + up1_b (up1_w streamed by 32-row chunks from L2)
-//     over the keys tile.
-//  3. Group LN (4 groups of 64 a row, a thread a (row, group): two-pass
-//     mean and variance), scale and shift, GELU, in place: h1.
-//  4. For each conv1 group q: y2 = h1[:, q] · up2_w + up2_b, GELU → h2
-//     [64, 128] in shared memory; then the hypernetwork dot, out[p, 4q + r,
-//     m] = sum_c h2[p, 32r + c] · hyper[m, c], into a [64, 16, M] tile.
-//  5. The tile's rows below content leave as one contiguous run.
+// Precision: split TF32, as K5's f32 form. An operand x is cut into hi =
+// tf32_rna(x) and lo = tf32_rna(x - hi), and a product A·B is taken as
+// lo·hi + hi·lo + hi·hi, in that order. conv1 (K 256) takes each 32-wide K
+// chunk's three passes into a fresh accumulator and adds it to an f32 sum
+// (wgmma's accumulator does not round to nearest); conv2 (K 64) keeps one
+// accumulator. The hypernetwork dot (32 channels, M <= 4 masks) runs on
+// the FMA units in f32.
+//
+// Design (Hopper, sm_90a), two kernels on the caller's stream:
+//  - split_head_weights_kernel (the pre-pass) writes up1_wᵀ [256 N, 256 K]
+//    and up2_wᵀ [128 N, 64 K] as TF32 hi and lo planes into 576 KB of
+//    scratch that the wrapper allocates, every call (TF32 wgmma takes B
+//    only K-major). In each 8 K rows it stores the rows in the order
+//    0,2,4,6,1,3,5,7: a thread's f32 accumulator holds columns 2t and 2t + 1
+//    of each 8, the register A operand wants K indices t and t + 4, so a
+//    value held in the accumulator's layout is already its A fragment: the
+//    keys as loaded, conv1's output as conv2's A, with no shuffles.
+//  - mask_head_tf32x3_kernel: persistent CTAs of two warpgroups and no
+//    producer warp (8 warps: 255 registers a thread). A work item is
+//    (prompt, 64 positions), one wgmma row tile; a unit is two consecutive
+//    items, one a warpgroup (a warpgroup without an item runs on zeros and
+//    stores nothing), and a CTA takes a contiguous run of units.
+//  - conv1 runs by group pairs (128 columns: groups 2pr and 2pr + 1), as
+//    wgmma m64n128k8 with A from registers: the keys arrive as 8-byte loads
+//    in the accumulator's layout straight from device memory (the first
+//    pair from HBM, the second from L2), one chunk ahead, and are split in
+//    registers a K chunk at a time, the split's inputs pinned so that no
+//    split rises above the previous chunk's wait (else several chunks'
+//    fragments would be live and the kernel would spill, as K5's did).
+//  - up1_wᵀ's planes (512 KB) stream by TMA through a ring of 4 stages of
+//    [128 N, 32 K] hi and lo (two 128B-swizzled 16 KB boxes) that both
+//    warpgroups read: a unit takes 16 stages. Every thread arrives on a
+//    stage's empty barrier once its products on it have retired; one
+//    thread of the warpgroup that releases a stage second refills its
+//    slot with the stage four ahead. up2_wᵀ's planes (64 KB) stay resident.
+//  - The epilogues stay on the FMA units, a group at a time: y1 + up1_b,
+//    the group LN's two-pass statistics by quad shuffles (a row's 64
+//    channels lie in the 4 threads of a quad), scale and shift, the exact
+//    erff GELU; h1 is split in registers as conv2's A (wgmma m64n128k8 x 8
+//    k-steps x 3 passes against the resident planes); y2 + up2_b, GELU, and
+//    the hypernetwork dot as 8 FMAs a (row, r, mask) and a reduce-scatter
+//    over the quad (18 shuffles at M = 3), after which lane c holds r = c.
+//  - The warpgroups take turns to issue their products (named barriers 3
+//    and 4), so the tensor cores run one's chunk while the other splits,
+//    waits or runs its epilogues.
+//  - Logits go to a per-warpgroup staging tile [64, 16, M] f32; the item's
+//    rows below content are one contiguous run of out and leave by 16-byte
+//    coalesced stores.
+//
+// Shared memory (dynamic, from a 1024-byte aligned base):
+//   up1_wᵀ ring            4 x 32,768        131,072
+//   up2_wᵀ planes          2 x 2 x 16,384     65,536
+//   logits staging         2 x 16,384         32,768  (M = 4)
+//   hypernetwork rows      2 x 512             1,024
+//   up1_b, LN s, b, up2_b  (3 x 64 + 32) x 4     896
+//   mbarriers              9 x 8                  72
+//   release counts         4 x 4                  16
+//   alignment slack                            1,024
+//   total                                    232,408 of 232,448
 namespace rat_k3f {
 
-using namespace rat_f32;
+using namespace rat_hopper;
 
 constexpr int D = 256, C1 = 64, C2 = 32, MAXM = 4;
-constexpr int BM = TILE_ROWS;
-constexpr int XS = D + 4;                        // row pitches (floats)
-constexpr int HS = 4 * C2 + 4;
-constexpr int OFF_X = 0;                         // [BM][XS]: keys, y1, h1
-constexpr int OFF_W = OFF_X + BM * XS;           // [WCHUNK][D]: an up1_w chunk
-constexpr int OFF_W2 = OFF_W + WCHUNK * D;       // [C1][4·C2]: up2_w
-constexpr int OFF_H2 = OFF_W2 + C1 * 4 * C2;     // [BM][HS]: h2 of one group
-constexpr int OFF_O = OFF_H2 + BM * HS;          // [BM][16·M]: logits
-constexpr int OFF_HY = OFF_O + BM * 16 * MAXM;   // [M][C2]: hypernetwork rows
-constexpr int OFF_V = OFF_HY + MAXM * C2;        // up1_b, ln scale, ln bias [C1]; up2_b [C2]
-constexpr int SMEM = (OFF_V + 3 * C1 + C2) * 4;
+constexpr int BP = 64;                     // positions an item: a warpgroup's rows
+constexpr int THREADS = 256;               // two warpgroups
+constexpr int KC = 32;                     // K a chunk: one 128-byte row of f32
+constexpr int SLOTS = 4;                   // ring depth
+constexpr int BOX = 128 * KC * 4;          // a plane's box [128 N, 32 K]
+constexpr int STAGE = 2 * BOX;             // hi, then lo
+constexpr int NCHUNK = D / KC;             // conv1 chunks a group pair: 8
+constexpr int NSTAGE = 2 * NCHUNK;         // stages a unit: 16
+constexpr int STG = BP * 16 * MAXM * 4;    // a warpgroup's logits tile
+constexpr int HYP = MAXM * C2 * 4;         // a warpgroup's hypernetwork rows
+constexpr int OFF_RING = 0;
+constexpr int OFF_W2 = OFF_RING + SLOTS * STAGE;   // plane p, K half h at + (2p + h)·BOX
+constexpr int OFF_STG = OFF_W2 + 4 * BOX;
+constexpr int OFF_HYP = OFF_STG + 2 * STG;
+constexpr int OFF_VEC = OFF_HYP + 2 * HYP;
+constexpr int OFF_BAR = OFF_VEC + (3 * C1 + C2) * 4;   // full x4, empty x4, up2_w
+constexpr int OFF_CNT = OFF_BAR + (2 * SLOTS + 1) * 8; // releases a slot
+constexpr int SMEM = 1024 + OFF_CNT + 4 * SLOTS;
+constexpr int PLANES = 2 * (D * 4 * C1 + C1 * 4 * C2);  // the weights' planes (floats)
+static_assert(SMEM == 232408 && SMEM <= 232448, "the budget in the note above");
 
-__global__ void __launch_bounds__(TILE_THREADS, 1)
-mask_head_f32_kernel(const float* __restrict__ keys,    // [Np, gg, D]
-                     const float* __restrict__ up1_w,   // [D, 4·C1]
-                     const float* __restrict__ up1_b,   // [C1]
-                     const float* __restrict__ ln_s,    // [C1]
-                     const float* __restrict__ ln_b,    // [C1]
-                     const float* __restrict__ up2_w,   // [C1, 4·C2]
-                     const float* __restrict__ up2_b,   // [C2]
-                     const float* __restrict__ hyper,   // [Np, M, C2]
-                     float* __restrict__ out,           // [Np, content, 16, M]
-                     int gg, int content, int n_masks, float eps) {
-  extern __shared__ float4 smem4[];
-  float* const sm = reinterpret_cast<float*>(smem4);
-  float* const sx = sm + OFF_X;
-  float* const sw = sm + OFF_W;
-  float* const sw2 = sm + OFF_W2;
-  float* const sh2 = sm + OFF_H2;
-  float* const so = sm + OFF_O;
-  float* const shy = sm + OFF_HY;
-  float* const sb1 = sm + OFF_V;
-  float* const sls = sb1 + C1;
-  float* const slb = sls + C1;
-  float* const sb2 = slb + C1;
-  const int n = blockIdx.y, p0 = blockIdx.x * BM, tid = threadIdx.x;
-  const int tc = tid % 32, r0 = 8 * (tid / 32);
-  const int rows = min(BM, content - p0);
-  const int M = n_masks;
+// GELU in its exact form, x·Φ(x) = x/2·(1 + erf(x/√2)), as torch's gelu.
+__device__ __forceinline__ float gelu_erf(float x) {
+  return x * 0.5f * (1.f + erff(x * 0.70710678118654752f));
+}
 
-  // 1. keys (zeros past content), up2_w, the hypernetwork rows, vectors
-  const float* x = keys + ((size_t)n * gg + p0) * D;
-  for (int e = tid; e < BM * D / 4; e += TILE_THREADS) {
-    const int r = e / (D / 4), c = 4 * (e % (D / 4));
-    *reinterpret_cast<float4*>(sx + r * XS + c) =
-        r < rows ? *reinterpret_cast<const float4*>(x + (size_t)r * D + c)
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
+// The pre-pass: one CTA a 32 x 32 tile of one weight W [K, N] (up1_w 64
+// tiles, up2_w 8), written as plane[p][n][k'] = (hi, lo)(W[k][n]) with k'
+// = k's place in the order 0,2,4,6,1,3,5,7 of its 8 rows.
+__global__ void __launch_bounds__(256)
+split_head_weights_kernel(const float* __restrict__ up1_w, const float* __restrict__ up2_w,
+                          float* __restrict__ planes) {
+  __shared__ float tile[32][33];
+  int t = blockIdx.x, k_dim = D, n_dim = 4 * C1;
+  const float* w = up1_w;
+  float* dst = planes;
+  if (t >= 64) {
+    t -= 64;
+    w = up2_w;
+    k_dim = C1;
+    n_dim = 4 * C2;
+    dst = planes + 2 * D * 4 * C1;
   }
-  for (int e = 4 * tid; e < C1 * 4 * C2; e += 4 * TILE_THREADS)
-    *reinterpret_cast<float4*>(sw2 + e) = *reinterpret_cast<const float4*>(up2_w + e);
-  for (int e = tid; e < M * C2; e += TILE_THREADS) shy[e] = hyper[(size_t)n * M * C2 + e];
-  if (tid < C1) {
-    sb1[tid] = up1_b[tid];
-    sls[tid] = ln_s[tid];
-    slb[tid] = ln_b[tid];
+  const int k0 = 32 * (t % (k_dim / 32)), n0 = 32 * (t / (k_dim / 32));
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  for (int r = ty; r < 32; r += 8) tile[r][tx] = w[(size_t)(k0 + r) * n_dim + n0 + tx];
+  __syncthreads();
+  const int j = tx % 8, from = (tx & ~7) + 2 * (j % 4) + j / 4;
+  for (int r = ty; r < 32; r += 8) {
+    uint32_t hi, lo;
+    split_tf32_bits(tile[from][r], hi, lo);
+    const size_t at = (size_t)(n0 + r) * k_dim + k0 + tx;
+    dst[at] = __uint_as_float(hi);
+    dst[(size_t)n_dim * k_dim + at] = __uint_as_float(lo);
   }
-  if (tid < C2) sb2[tid] = up2_b[tid];
+}
 
-  // 2. y1 = keys · up1_w + up1_b, over the keys
-  {
-    float acc[8][D / 32];
-    tile_gemm<D, D>(acc, sx, XS, up1_w, sw);
+// K chunk cc of the keys rows g and g + 8 (x0, x8: their column 2c) in
+// the accumulator's layout; a row at or past the item's live rows reads
+// as zeros.
+__device__ __forceinline__ void load_keys(float (&r)[4][4], const float* x0, const float* x8,
+                                          int cc, bool v0, bool v8) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+  for (int kk = 0; kk < 4; ++kk) {
+    const int col = KC * cc + 8 * kk;
+    const float2 a = v0 ? __ldg(reinterpret_cast<const float2*>(x0 + col)) : make_float2(0.f, 0.f);
+    const float2 b = v8 ? __ldg(reinterpret_cast<const float2*>(x8 + col)) : make_float2(0.f, 0.f);
+    r[kk][0] = a.x;
+    r[kk][1] = a.y;
+    r[kk][2] = b.x;
+    r[kk][3] = b.y;
+  }
+}
+
+// acc = h1 · up2_w: 8 k-steps of 8 channels, lo·hi, hi·lo, then hi·hi
+// against the resident planes (hi at sw2, lo at sw2 + 2·BOX; K half h at +
+// h·BOX).
+__device__ __forceinline__ void issue_conv2(float (&acc)[64], const uint32_t (&ah)[8][4],
+                                            const uint32_t (&al)[8][4], uint32_t sw2) {
+  wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < D / 32; ++j) {
-        const int c = tc + 32 * j;
-        sx[(r0 + i) * XS + c] = acc[i][j] + sb1[c % C1];
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_rs_tf32_n128(acc, al[kk], gmma_desc(sw2 + (kk / 4) * BOX + (kk % 4) * 32, 16, 1024),
+                       kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_rs_tf32_n128(acc, ah[kk],
+                       gmma_desc(sw2 + 2 * BOX + (kk / 4) * BOX + (kk % 4) * 32, 16, 1024), 1);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_rs_tf32_n128(acc, ah[kk], gmma_desc(sw2 + (kk / 4) * BOX + (kk % 4) * 32, 16, 1024),
+                       1);
+  wgmma_commit();
+}
+
+// y1 -> h1 for group half H of a pair: y[4i + 2rr + e] is row (16·warp +
+// g + 8rr), pair column 8i + 2c + e; the group's channels 8j + 2c + e are
+// i = 8H + j. h1 = GELU(LN(y1 + up1_b)) leaves split as conv2's A
+// fragments: a[j] = (row g, ch 8j + 2c), (g + 8, 8j + 2c), (g, +1), (g + 8,
+// +1), channels 2c and 2c + 1 being K indices c and c + 4 of up2_wᵀ's
+// permuted rows.
+template <int H>
+__device__ __forceinline__ void head_epilogue1(const float (&y)[64], uint32_t (&ah)[8][4],
+                                               uint32_t (&al)[8][4], const float* sb1,
+                                               const float* sls, const float* slb, int c,
+                                               float eps) {
+  float v[2][16], mu[2], rs[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 b = reinterpret_cast<const float2*>(sb1)[4 * j + c];
+      v[rr][2 * j] = y[4 * (8 * H + j) + 2 * rr] + b.x;
+      v[rr][2 * j + 1] = y[4 * (8 * H + j) + 2 * rr + 1] + b.y;
+      s0 += v[rr][2 * j];
+      s1 += v[rr][2 * j + 1];
+    }
+    mu[rr] = s0 + s1;
+  }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    mu[rr] += __shfl_xor_sync(0xffffffffu, mu[rr], 1);
+    mu[rr] += __shfl_xor_sync(0xffffffffu, mu[rr], 2);
+    mu[rr] *= 1.f / C1;
+    float q0 = 0.f, q1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float d0 = v[rr][2 * j] - mu[rr], d1 = v[rr][2 * j + 1] - mu[rr];
+      q0 = fmaf(d0, d0, q0);
+      q1 = fmaf(d1, d1, q1);
+    }
+    rs[rr] = q0 + q1;
+  }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    rs[rr] += __shfl_xor_sync(0xffffffffu, rs[rr], 1);
+    rs[rr] += __shfl_xor_sync(0xffffffffu, rs[rr], 2);
+    rs[rr] = rsqrtf(rs[rr] * (1.f / C1) + eps);
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 sc = reinterpret_cast<const float2*>(sls)[4 * j + c];
+    const float2 bi = reinterpret_cast<const float2*>(slb)[4 * j + c];
+    float h[2][2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      h[rr][0] = gelu_erf(fmaf((v[rr][2 * j] - mu[rr]) * rs[rr], sc.x, bi.x));
+      h[rr][1] = gelu_erf(fmaf((v[rr][2 * j + 1] - mu[rr]) * rs[rr], sc.y, bi.y));
+    }
+    split_tf32_bits(h[0][0], ah[j][0], al[j][0]);
+    split_tf32_bits(h[1][0], ah[j][1], al[j][1]);
+    split_tf32_bits(h[0][1], ah[j][2], al[j][2]);
+    split_tf32_bits(h[1][1], ah[j][3], al[j][3]);
+  }
+}
+
+// y2 -> logits for group q. acc[4i + 2rr + e] is row (16·warp + g + 8rr),
+// conv2 column 8i + 2c + e = 32r + channel: r = i / 4, channel 8(i % 4) +
+// 2c + e. h2 = GELU(y2 + up2_b) is dotted with the hypernetwork rows, 8
+// FMAs a (row, r, mask) a thread, then summed over the quad by a
+// reduce-scatter (halves over lane bit 1, then bit 0) after which lane c
+// holds r = c of both its rows, written to the staging tile.
+template <int M>
+__device__ __forceinline__ void head_epilogue2(const float (&acc)[64], float* stg,
+                                               const float* hyp, const float* sb2, int q,
+                                               int row0, int c) {
+  float part[2][4][M];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int m = 0; m < M; ++m) part[rr][r][m] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int r = i / 4, j = i % 4;
+    const float2 b = reinterpret_cast<const float2*>(sb2)[4 * j + c];
+    float2 hy[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) hy[m] = reinterpret_cast<const float2*>(hyp + m * C2)[4 * j + c];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const float h0 = gelu_erf(acc[4 * i + 2 * rr] + b.x);
+      const float h1 = gelu_erf(acc[4 * i + 2 * rr + 1] + b.y);
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+        part[rr][r][m] = fmaf(h1, hy[m].y, fmaf(h0, hy[m].x, part[rr][r][m]));
+    }
+  }
+  const bool b1 = c & 2, b0 = c & 1;
+  float w[2][2][M], o[2][M];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+    for (int rp = 0; rp < 2; ++rp)
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const float send = b1 ? part[rr][rp][m] : part[rr][2 + rp][m];
+        const float keep = b1 ? part[rr][2 + rp][m] : part[rr][rp][m];
+        w[rr][rp][m] = keep + __shfl_xor_sync(0xffffffffu, send, 2);
       }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const float send = b0 ? w[rr][0][m] : w[rr][1][m];
+      const float keep = b0 ? w[rr][1][m] : w[rr][0][m];
+      o[rr][m] = keep + __shfl_xor_sync(0xffffffffu, send, 1);
+    }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+    for (int m = 0; m < M; ++m) stg[((row0 + 8 * rr) * 16 + 4 * q + c) * M + m] = o[rr][m];
+}
+
+template <int M>
+__global__ void __launch_bounds__(THREADS, 1)
+mask_head_tf32x3_kernel(const __grid_constant__ CUtensorMap tw1,   // [2, 256 N, 256 K] planes
+                        const __grid_constant__ CUtensorMap tw2,   // [2, 128 N, 64 K] planes
+                        const float* __restrict__ keys,            // [Np, gg, D]
+                        const float* __restrict__ up1_b,           // [C1]
+                        const float* __restrict__ ln_s,            // [C1]
+                        const float* __restrict__ ln_b,            // [C1]
+                        const float* __restrict__ up2_b,           // [C2]
+                        const float* __restrict__ hyper,           // [Np, M, C2]
+                        float* __restrict__ out,                   // [Np, content, 16, M]
+                        int gg, int content, int tiles, int total, float eps) {
+  extern __shared__ uint8_t smem_k3f[];
+  const uint32_t sraw = smem_u32(smem_k3f);
+  const uint32_t base = (sraw + 1023) & ~1023u;
+  uint8_t* sm = smem_k3f + (base - sraw);
+  auto full = [&](int slot) { return base + OFF_BAR + 8 * slot; };
+  auto empty = [&](int slot) { return base + OFF_BAR + 8 * (SLOTS + slot); };
+  const uint32_t wbar = base + OFF_BAR + 16 * SLOTS;
+
+  // this CTA's units [u0, u1): unit u is items 2u (warpgroup 0) and 2u + 1
+  const long long units = (total + 1) / 2;
+  const long long u0 = units * blockIdx.x / gridDim.x;
+  const long long u1 = units * (blockIdx.x + 1) / gridDim.x;
+  const int wg = threadIdx.x / 128, ctid = threadIdx.x % 128;
+  const int warp = ctid / 32, lane = ctid % 32, g = lane / 4, c = lane % 4;
+  const int row0 = 16 * warp + g;                 // this thread's rows: row0, row0 + 8
+  const int bar = 1 + wg;                         // this warpgroup's named barrier
+  float* stg = reinterpret_cast<float*>(sm + OFF_STG + wg * STG);
+  float* hyp = reinterpret_cast<float*>(sm + OFF_HYP + wg * HYP);
+
+  float* sb1 = reinterpret_cast<float*>(sm + OFF_VEC);
+  float* sls = sb1 + C1;
+  float* slb = sls + C1;
+  float* sb2 = slb + C1;
+  for (int i = threadIdx.x; i < C1; i += THREADS) {
+    sb1[i] = up1_b[i];
+    sls[i] = ln_s[i];
+    slb[i] = ln_b[i];
+  }
+  for (int i = threadIdx.x; i < C2; i += THREADS) sb2[i] = up2_b[i];
+  unsigned int* releases = reinterpret_cast<unsigned int*>(sm + OFF_CNT);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < SLOTS; ++i) {
+      mbar_init(full(i), 1);
+      mbar_init(empty(i), THREADS);
+      releases[i] = 0u;
+    }
+    mbar_init(wbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // 3. h1 = GELU(groupLN(y1)): a thread a (row, group)
-  {
-    float* g = sx + (tid / 4) * XS + (tid % 4) * C1;
-    float s = 0.f;
-    for (int c = 0; c < C1; ++c) s += g[c];
-    const float mu = s / C1;
-    float v = 0.f;
-    for (int c = 0; c < C1; ++c) {
-      const float dv = g[c] - mu;
-      v = fmaf(dv, dv, v);
-    }
-    const float rstd = 1.f / sqrtf(v / C1 + eps);
-    for (int c = 0; c < C1; ++c) g[c] = gelu_erf((g[c] - mu) * rstd * sls[c] + slb[c]);
-  }
-  __syncthreads();
-
-  // 4. per group q: h2 = GELU(h1[:, q] · up2_w + up2_b), then the
-  //    hypernetwork dot into the logits tile
-  for (int q = 0; q < 4; ++q) {
-    float acc[8][4 * C2 / 32];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4 * C2 / 32; ++j) acc[i][j] = 0.f;
-    tile_fma<4 * C2>(acc, sx, XS, q * C1, C1, sw2, 4 * C2);
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4 * C2 / 32; ++j) {
-        const int c = tc + 32 * j;
-        sh2[(r0 + i) * HS + c] = gelu_erf(acc[i][j] + sb2[c % C2]);
+  // Ring stage st (counted over this CTA's units) holds unit u0 + st / 16,
+  // group pair (st % 16) / 8, K chunk st % 8 of up1_wᵀ.
+  auto fill = [&](int st) {
+    if (u0 + st / NSTAGE >= u1) return;
+    const uint32_t dst = base + OFF_RING + (st % SLOTS) * STAGE;
+    const int k0 = KC * (st % NCHUNK), n0 = 128 * ((st % NSTAGE) / NCHUNK);
+    mbar_expect_tx(full(st % SLOTS), STAGE);
+    tma_load_3d(dst, &tw1, k0, n0, 0, full(st % SLOTS));
+    tma_load_3d(dst + BOX, &tw1, k0, n0, 1, full(st % SLOTS));
+  };
+  auto stage_at = [&](int st) { return base + OFF_RING + (st % SLOTS) * STAGE; };
+  auto stage_wait = [&](int st) { mbar_wait(full(st % SLOTS), (st / SLOTS) & 1); };
+  auto stage_done = [&](int st) {
+    mbar_arrive(empty(st % SLOTS));
+    if (ctid == 0) {
+      // two releases a use of the slot: the odd one is the second
+      const bool second = atomicAdd(releases + st % SLOTS, 1u) & 1u;
+      if (second && u0 + (st + SLOTS) / NSTAGE < u1) {
+        mbar_wait(empty(st % SLOTS), (st / SLOTS) & 1);
+        fill(st + SLOTS);
       }
-    __syncthreads();
-    for (int e = tid; e < BM * 4 * M; e += TILE_THREADS) {
-      const int p = e / (4 * M), r = (e / M) % 4, mm = e % M;
-      const float* h = sh2 + p * HS + r * C2;
-      const float* w = shy + mm * C2;
-      float o = 0.f;
-#pragma unroll
-      for (int c = 0; c < C2; ++c) o = fmaf(h[c], w[c], o);
-      so[p * 16 * M + (4 * q + r) * M + mm] = o;
     }
-    __syncthreads();
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(wbar, 4 * BOX);
+    for (int p = 0; p < 2; ++p)
+      for (int h = 0; h < 2; ++h)
+        tma_load_3d(base + OFF_W2 + (2 * p + h) * BOX, &tw2, KC * h, 0, p, wbar);
+    for (int i = 0; i < SLOTS; ++i) fill(i);
   }
+  // The warpgroups issue their products in turns (named barriers 3 and 4,
+  // warpgroup 0 first); warpgroup 1 skips the turn after the CTA's last.
+  const int my_turn = 3 + wg, other_turn = 4 - wg;
+  if (wg == 1) named_arrive(3, 256);
+  auto take_turn = [&]() { named_sync(my_turn, 256); };
+  auto pass_turn = [&](bool last) {
+    if (!(wg == 1 && last)) named_arrive(other_turn, 256);
+  };
+  mbar_wait(wbar, 0);
+  const uint32_t sw2 = base + OFF_W2;
 
-  // 5. the rows below content, one contiguous run of out
-  float* dst = out + ((size_t)n * content + p0) * 16 * M;
-  for (int e = tid; e < rows * 16 * M; e += TILE_THREADS) dst[e] = so[e];
+  int s = 0;                                      // ring stages taken
+  for (long long u = u0; u < u1; ++u) {
+    const long long item = 2 * u + wg;
+    const bool live = item < total;
+    const int n = live ? (int)(item / tiles) : 0;
+    const int p0 = live ? (int)(item % tiles) * BP : 0;
+    const int nrows = live ? min(BP, content - p0) : 0;
+    const bool v0 = row0 < nrows, v8 = row0 + 8 < nrows;
+    const float* x0 = keys + ((size_t)n * gg + p0 + row0) * D + 2 * c;
+    const float* x8 = x0 + 8 * D;
+    // the last item's copy-out is done: its staging tile and hypernetwork
+    // rows may be overwritten
+    named_sync(bar, 128);
+    for (int e = ctid; e < M * C2; e += 128) hyp[e] = live ? hyper[(size_t)n * M * C2 + e] : 0.f;
+    named_sync(bar, 128);
+
+    float r[4][4];
+    load_keys(r, x0, x8, 0, v0, v8);
+#pragma unroll 1
+    for (int pr = 0; pr < 2; ++pr) {
+      // y1 of groups 2pr, 2pr + 1: a fresh accumulator a K chunk, summed in f32
+      float y[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) y[i] = 0.f;
+#pragma unroll 1
+      for (int cc = 0; cc < NCHUNK; ++cc) {
+        uint32_t fh[4][4], fl[4][4];
+        split_chunk(r, fh, fl);
+        if (cc + 1 < NCHUNK) load_keys(r, x0, x8, cc + 1, v0, v8);
+        else if (pr == 0) load_keys(r, x0, x8, 0, v0, v8);
+        float acc[64];
+        stage_wait(s);
+        take_turn();
+        issue_chunk(acc, fh, fl, stage_at(s), true);
+        pass_turn(false);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(fh);
+        fence_regs(fl);
+        stage_done(s);
+        ++s;
+#pragma unroll
+        for (int i = 0; i < 64; ++i) y[i] += acc[i];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t ah[8][4], al[8][4];
+        if (h == 0) head_epilogue1<0>(y, ah, al, sb1, sls, slb, c, eps);
+        else head_epilogue1<1>(y, ah, al, sb1, sls, slb, c, eps);
+        float acc[64];
+        take_turn();
+        issue_conv2(acc, ah, al, sw2);
+        pass_turn(u + 1 == u1 && pr == 1 && h == 1);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(ah);
+        fence_regs(al);
+        head_epilogue2<M>(acc, stg, hyp, sb2, 2 * pr + h, row0, c);
+      }
+    }
+    named_sync(bar, 128);
+    // the live rows: one contiguous run of out, 16 bytes at a time
+    const int n16 = nrows * 4 * M;
+    const float4* src4 = reinterpret_cast<const float4*>(stg);
+    float4* dst4 = reinterpret_cast<float4*>(out + ((size_t)n * content + p0) * 16 * M);
+    for (int i = ctid; i < n16; i += 128) dst4[i] = src4[i];
+  }
+}
+
+template <int M>
+int launch(const void* keys, const void* up1_w, const void* up1_b, const void* ln_s,
+           const void* ln_b, const void* up2_w, const void* up2_b, const void* hyper, void* out,
+           void* scratch, int np_, int gg, int content, float eps, cudaStream_t stream) {
+  auto kernel = mask_head_tf32x3_kernel<M>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  const int tiles = (content + BP - 1) / BP;
+  const long long total = (long long)np_ * tiles;
+  if (total > (1ll << 30)) return (int)cudaErrorInvalidValue;
+  float* planes = static_cast<float*>(scratch);
+  CUtensorMap t1, t2;
+  const cuuint32_t box[3] = {KC, 128, 1};
+  const cuuint64_t dims1[3] = {(cuuint64_t)D, (cuuint64_t)4 * C1, 2};
+  const cuuint64_t strides1[2] = {(cuuint64_t)D * 4, (cuuint64_t)4 * C1 * D * 4};
+  const cuuint64_t dims2[3] = {(cuuint64_t)C1, (cuuint64_t)4 * C2, 2};
+  const cuuint64_t strides2[2] = {(cuuint64_t)C1 * 4, (cuuint64_t)4 * C2 * C1 * 4};
+  if (!tensor_map_f32(&t1, planes, 3, dims1, strides1, box) ||
+      !tensor_map_f32(&t2, planes + 2 * D * 4 * C1, 3, dims2, strides2, box))
+    return (int)cudaErrorInvalidValue;
+  typedef const float* P;
+  split_head_weights_kernel<<<72, 256, 0, stream>>>(static_cast<P>(up1_w), static_cast<P>(up2_w),
+                                                     planes);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const long long units = (total + 1) / 2;
+  const int grid = (int)(units < sms ? units : sms);
+  kernel<<<grid, THREADS, SMEM, stream>>>(
+      t1, t2, static_cast<P>(keys), static_cast<P>(up1_b), static_cast<P>(ln_s),
+      static_cast<P>(ln_b), static_cast<P>(up2_b), static_cast<P>(hyper),
+      static_cast<float*>(out), gg, content, tiles, (int)total, eps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace rat_k3f
 
-// K3 in f32: the same arguments as rat_mask_head (n_ctas unused: a CTA a
-// 64-position item), every tensor f32; out [Np, content, 16, M].
+// K3 in f32: the same arguments as rat_mask_head, every tensor f32, plus
+// scratch of rat_mask_head_f32_scratch() floats (the weights' TF32 planes,
+// 576 KB) after out, and no n_ctas (one CTA an SM); out [Np, content, 16,
+// M]. Two launches on the stream: the weight split, then the head.
 extern "C" int rat_mask_head_f32(const void* keys, const void* up1_w, const void* up1_b,
                                  const void* ln_s, const void* ln_b, const void* up2_w,
-                                 const void* up2_b, const void* hyper, void* out, int np_,
-                                 int gg, int content, int n_masks, float eps, void* stream) {
-  using namespace rat_k3f;
-  if (np_ < 1 || np_ > 65535 || content < 1 || content > gg || n_masks < 1 ||
-      n_masks > MAXM)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      mask_head_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err != cudaSuccess) return (int)err;
-  typedef const float* P;
-  mask_head_f32_kernel<<<dim3((content + BM - 1) / BM, np_), TILE_THREADS, SMEM,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<P>(keys), static_cast<P>(up1_w), static_cast<P>(up1_b), static_cast<P>(ln_s),
-      static_cast<P>(ln_b), static_cast<P>(up2_w), static_cast<P>(up2_b), static_cast<P>(hyper),
-      static_cast<float*>(out), gg, content, n_masks, eps);
-  return (int)cudaGetLastError();
+                                 const void* up2_b, const void* hyper, void* out, void* scratch,
+                                 int np_, int gg, int content, int n_masks, float eps,
+                                 void* stream) {
+  if (np_ < 1 || content < 1 || content > gg) return (int)cudaErrorInvalidValue;
+  auto run = [&](auto launch) {
+    return launch(keys, up1_w, up1_b, ln_s, ln_b, up2_w, up2_b, hyper, out, scratch, np_, gg,
+                  content, eps, static_cast<cudaStream_t>(stream));
+  };
+  switch (n_masks) {
+    case 1: return run(rat_k3f::launch<1>);
+    case 2: return run(rat_k3f::launch<2>);
+    case 3: return run(rat_k3f::launch<3>);
+    case 4: return run(rat_k3f::launch<4>);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Dynamic shared memory a K3 f32 CTA takes (for reports).
 extern "C" int rat_mask_head_f32_smem() { return rat_k3f::SMEM; }
+
+// Floats of scratch rat_mask_head_f32 takes: up1_wᵀ's and up2_wᵀ's planes.
+extern "C" int rat_mask_head_f32_scratch() { return rat_k3f::PLANES; }

@@ -8,6 +8,12 @@ of the work to show what it costs), built by its own nvcc into
 one work item alone.
 
     python -m revisit_anything_tpu_torch.kernels.maskhead_variants
+    python -m revisit_anything_tpu_torch.kernels.maskhead_variants --f32
+
+With ``--f32`` the variants are of K3's f32 form (``rat_mask_head_f32``:
+split-TF32 products, the keys loads, the weight ring, the group LN, the
+exact GELU and the logits stores, each removed in turn), held to the plain
+version in f32 with TF32 off.
 
 Times are CUDA-event medians of 11 calls, each queued behind a device
 sleep (as ``chip_smoke.py`` times kernels). Needs a CUDA device and
@@ -106,6 +112,49 @@ PROBS_VARIANTS = {
                            "constexpr bool TURNS = false;")]),
 }
 
+# K3 f32 (rat_mask_head_f32): the keys loads, the weight ring's refills,
+# the group LN, the GELUs and the logits stores, each removed
+_F32_GELU = ("  return x * 0.5f * (1.f + erff(x * 0.70710678118654752f));",
+             "  return x;")
+_F32_LN = [("    mu[rr] *= 1.f / C1;", "    mu[rr] = 0.f;"),
+           ("    rs[rr] = rsqrtf(rs[rr] * (1.f / C1) + eps);", "    rs[rr] = 1.f;")]
+_F32_STORES = ("    for (int i = ctid; i < n16; i += 128) dst4[i] = src4[i];\n", "")
+_F32_LOAD = [("const float2 a = v0 ? __ldg(", "const float2 a = false ? __ldg("),
+             ("const float2 b = v8 ? __ldg(", "const float2 b = false ? __ldg(")]
+_F32_RESIDENT = [
+    ("auto stage_wait = [&](int st) { mbar_wait(full(st % SLOTS), (st / SLOTS) & 1); };",
+     "auto stage_wait = [&](int st) { if (st < SLOTS) mbar_wait(full(st % SLOTS), 0); };"),
+    ("        fill(st + SLOTS);\n", "")]
+_F32_ENTRY = "  extern __shared__ uint8_t smem_k3f[];"
+
+F32_VARIANTS = {
+    "kernel": ("the kernel as built", []),
+    "nogelu": ("no GELU (h = its argument)", [_F32_GELU]),
+    "nolayernorm": ("no group LN statistics or normalization (h1 = "
+                    "GELU(y1 · s + b))", _F32_LN),
+    "nostores": ("no logits stores", [_F32_STORES]),
+    "noload": ("the keys read as zeros (no keys loads)", _F32_LOAD),
+    "resident": ("the weight ring filled once and never refilled (no L2 "
+                 "weight reads after the first four stages)", _F32_RESIDENT),
+    "productsonly": ("the products alone: weights resident, no keys loads, "
+                     "no group LN, no GELU, no logits stores",
+                     [_F32_GELU, *_F32_LN, _F32_STORES, *_F32_LOAD,
+                      *_F32_RESIDENT]),
+    "noturns": ("the two warpgroups issue their products without taking "
+                "turns",
+                [("  if (wg == 1) named_arrive(3, 256);\n  auto take_turn",
+                  "  auto take_turn"),
+                 ("  auto take_turn = [&]() { named_sync(my_turn, 256); };",
+                  "  auto take_turn = [&]() {};"),
+                 ("    if (!(wg == 1 && last)) named_arrive(other_turn, 256);",
+                  "    (void)last;")]),
+    "erfcgelu": ("GELU as x/2·erfc(-x/√2) (erfcf) in place of erff's form",
+                 [(_F32_GELU[0],
+                   "  return 0.5f * x * erfcf(-0.70710678118654752f * x);")]),
+    "empty": ("the weight split, then the head returns at entry",
+              [(_F32_ENTRY, "  if (total > 0) return;\n" + _F32_ENTRY)]),
+}
+
 # (prompts, gg, content, mask tokens): the serving shape, and one
 # 64-position item alone (one CTA, the weights loaded once)
 SHAPES = ((1024, 4096, 3136, 3), (1, 64, 64, 3))
@@ -120,12 +169,17 @@ def _source(reps) -> str:
     return text
 
 
-def _build_all() -> tuple:
-    """K3's and B6's variants, one nvcc each, all started together:
-    ({name: rat_mask_head}, {name: rat_mask_head_probs})."""
+_ENTRIES = {"maskhead": "rat_mask_head", "maskprobs": "rat_mask_head_probs",
+            "maskf32": "rat_mask_head_f32"}
+
+
+def _build_all(tables=(("maskhead", VARIANTS),
+                       ("maskprobs", PROBS_VARIANTS))) -> dict:
+    """The variants of each (tag, table), one nvcc each, all started
+    together: {tag: {name: its entry point}}."""
     _OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for tag, table in (("maskhead", VARIANTS), ("maskprobs", PROBS_VARIANTS)):
+    for tag, table in tables:
         for name, (_, reps) in table.items():
             cu = _OUT / f"{tag}_{name}.cu"
             cu.write_text(_source(reps))
@@ -133,17 +187,17 @@ def _build_all() -> tuple:
                 [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build._CSRC),
                  "-shared", "-o", str(_OUT / f"{tag}_{name}.so"), str(cu)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    fns = {"maskhead": {}, "maskprobs": {}}
+    fns = {tag: {} for tag, _ in tables}
     for (tag, name), proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"{tag} {name}: nvcc failed\n{log}")
-        entry = "rat_mask_head" if tag == "maskhead" else "rat_mask_head_probs"
+        entry = _ENTRIES[tag]
         fn = getattr(ctypes.CDLL(str(_OUT / f"{tag}_{name}.so")), entry)
         fn.argtypes = list(build.SIGNATURES[entry])
         fn.restype = ctypes.c_int
         fns[tag][name] = fn
-    return fns["maskhead"], fns["maskprobs"]
+    return fns
 
 
 def _clock(call, n: int = 300) -> str:
@@ -187,11 +241,43 @@ def _run(fns: dict, call_args, out, want) -> list:
     return parts
 
 
+def main_f32(dev) -> None:
+    """K3 f32's variants at the serving shape and on one unit alone, each
+    held to the plain version in f32 with TF32 off."""
+    fns = _build_all((("maskf32", F32_VARIANTS),))["maskf32"]
+    for name, (what, _) in F32_VARIANTS.items():
+        print(f"[variant] K3 f32 {name}: {what}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape, s=1.0, off=0.0):
+        return torch.randn(shape, generator=g, device=dev) * s + off
+
+    scratch = torch.empty(mh.mask_head_f32_scratch(), device=dev)
+    for np_, gg, content, m in ((1024, 4096, 3136, 3), (1, 128, 128, 3)):
+        head = (rnd(256, 256, s=0.1), rnd(64, s=0.1), rnd(64, s=0.1, off=1.0),
+                rnd(64, s=0.1), rnd(64, 128, s=0.1), rnd(32, s=0.1))
+        keys, hyper = rnd(np_, gg, 256), rnd(np_, m, 32, s=0.5)
+        want = mh.upscale_masks_blocks(keys[:, :content], hyper, *head,
+                                       eps=1e-6)
+        out = torch.empty((np_, content, 16, m), device=dev)
+        ptrs = (keys,) + head + (hyper, out, scratch)    # the C argument order
+        parts = _run(fns, [a.data_ptr() for a in ptrs] + [
+            np_, gg, content, m, 1e-6], out, want)
+        print(f"[variants] K3 f32 keys [{np_},{gg},256] content {content} M "
+              f"{m}: {'; '.join(parts)}", flush=True)
+        del keys, want, out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("maskhead_variants: needs a CUDA device")
     dev = torch.device("cuda")
-    fns, probs_fns = _build_all()
+    if "--f32" in sys.argv[1:]:
+        main_f32(dev)
+        return
+    fns = _build_all()
+    fns, probs_fns = fns["maskhead"], fns["maskprobs"]
     for name, (what, _) in VARIANTS.items():
         print(f"[variant] K3 {name}: {what}", flush=True)
     for name, (what, _) in PROBS_VARIANTS.items():

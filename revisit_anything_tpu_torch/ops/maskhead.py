@@ -102,6 +102,13 @@ def blocks_to_spatial(masks: torch.Tensor, g: int) -> torch.Tensor:
     return x.reshape(np_, m, 4 * g, 4 * g)
 
 
+def mask_head_f32_scratch() -> int:
+    """Floats of K3 f32's scratch (the built library's
+    ``rat_mask_head_f32_scratch()``): up1_wᵀ and up2_wᵀ as TF32 hi and lo
+    planes, made anew every call."""
+    return 2 * (256 * 256 + 64 * 128)
+
+
 def fused_mask_head(keys: torch.Tensor, hyper: torch.Tensor,
                     up1_w: torch.Tensor, up1_b: torch.Tensor,
                     ln_scale: torch.Tensor, ln_bias: torch.Tensor,
@@ -112,9 +119,10 @@ def fused_mask_head(keys: torch.Tensor, hyper: torch.Tensor,
     keys [Np, gg, D] (pad-row skipping: later positions are never read).
 
     CUDA: kernel K3 by keys' dtype (D = 256, M ≤ 4; ``kernels/csrc/
-    mask_head.cu``): bf16, persistent TMA + ``wgmma`` CTAs; f32, plain f32
-    FMAs a 64-position tile (``rat_mask_head_f32``); other dtypes raise.
-    CPU: the plain version."""
+    mask_head.cu``): bf16, persistent TMA + ``wgmma`` CTAs; f32, the same
+    shape in split TF32 on the tensor cores (``rat_mask_head_f32``, after a
+    pre-pass that splits the weights into :func:`mask_head_f32_scratch`
+    floats); other dtypes raise. CPU: the plain version."""
     np_, gg, d = keys.shape
     content = gg if content is None else content
     if not 0 < content <= gg:
@@ -139,7 +147,9 @@ def fused_mask_head(keys: torch.Tensor, hyper: torch.Tensor,
     ptrs = (kf.data_ptr(), *[a.data_ptr() for a in args], out.data_ptr(),
             np_, gg, content, m, float(eps))
     if dt == torch.float32:
-        MASK_HEAD_F32.launch(*ptrs)
+        scratch = torch.empty(mask_head_f32_scratch(), dtype=dt,
+                              device=keys.device)
+        MASK_HEAD_F32.launch(*ptrs[:9], scratch.data_ptr(), *ptrs[9:])
     else:
         MASK_HEAD.launch(*ptrs, torch.cuda.get_device_properties(
             keys.device).multi_processor_count)

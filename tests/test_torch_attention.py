@@ -47,16 +47,24 @@ def _split(x: torch.Tensor):
     return hi, _tf32(x - hi)
 
 
-def _tf32_attend(q, k, v, split: bool) -> torch.Tensor:
+def _tf32_attend(q, k, v, split: bool, bias=None) -> torch.Tensor:
     """The arithmetic of K1's f32 kernel (flash_attention.cu
     ``flash_attention_tf32x3_kernel``) in f32 on the CPU: tiles of 64 keys
     (32 at head dim 80), the online softmax in base 2, and each product
     as lo·hi + hi·lo + hi·hi of TF32 planes summed in that order
     (``split``), or as one TF32 product; each tile's P·V joined to O by
-    O·α + tile."""
+    O·α + tile. With ``bias`` = (bias_h, bias_w, side), the terms as the
+    kernel adds them at side 64: each score becomes s·scale·log2 e +
+    (bias_h·log2 e + bias_w·log2 e), each term times log2 e in f32 before
+    the sum, and the softmax runs on it at a scale of 1."""
     dh, n = q.shape[-1], k.shape[-2]
     bk = 64 if dh == 64 else 32
     sl = torch.tensor(1.4426950408889634 / np.sqrt(dh), dtype=torch.float32)
+    if bias is not None:
+        bias_h, bias_w, side = bias
+        l2e = torch.tensor(LOG2E, dtype=torch.float32)
+        full = ((bias_h * l2e).repeat_interleave(side, dim=-1)
+                + (bias_w * l2e).repeat(1, 1, 1, side))
 
     def product(a, b):
         if not split:
@@ -67,11 +75,14 @@ def _tf32_attend(q, k, v, split: bool) -> torch.Tensor:
     m = torch.full(q.shape[:-1], -torch.inf)
     l = torch.zeros(q.shape[:-1])
     o = torch.zeros(q.shape)
+    scale = sl if bias is None else torch.tensor(1.0)
     for k0 in range(0, n, bk):
         s = product(q, k[..., k0:k0 + bk, :].transpose(-1, -2))
-        m_new = torch.maximum(m, s.amax(-1) * sl)
+        if bias is not None:
+            s = s * sl + full[..., k0:k0 + bk]
+        m_new = torch.maximum(m, s.amax(-1) * scale)
         alpha = torch.exp2(m - m_new)
-        p = torch.exp2(s * sl - m_new[..., None])
+        p = torch.exp2(s * scale - m_new[..., None])
         l = l * alpha + p.sum(-1)
         o = o * alpha[..., None] + product(p, v[..., k0:k0 + bk, :])
         m = m_new
@@ -98,6 +109,34 @@ def test_split_tf32_arithmetic_matches_jax(n, dh, scale):
     assert rel(_tf32_attend(*args, split=True)) < 1e-5
     if scale > 1:
         assert rel(_tf32_attend(*args, split=False)) > 1e-5
+
+
+@pytest.mark.parametrize("scale", [1.0, 2.0])
+@pytest.mark.parametrize("side,dh", [(8, 80), (16, 64)])
+def test_split_tf32_bias_arithmetic_matches_jax(side, dh, scale):
+    """K1 f32 + bias emulated with the bias added in the kernel's order at
+    side 64 (each term times log2 e, then their sum onto the scaled score)
+    is within 1e-5 of JAX ``attend`` with the decomposed bias in f32, at
+    SAM's head dim 80 on a grid of 8 and head dim 64 on a grid of 16; with
+    q, k x 2 one TF32 pass misses by far."""
+    rng = np.random.default_rng(side + int(scale))
+    n = side * side
+    q, k, v = (rng.standard_normal((1, 2, n, dh)).astype(np.float32)
+               for _ in range(3))
+    q, k = q * np.float32(scale), k * np.float32(scale)
+    bh, bw = (rng.standard_normal((1, 2, n, side)).astype(np.float32)
+              for _ in range(2))
+    want = torch.from_numpy(np.array(
+        jax_attend(q, k, v, bh, bw, side=side, block_q=n)))
+    args = [torch.from_numpy(x) for x in (q, k, v)]
+    bias = (torch.from_numpy(bh), torch.from_numpy(bw), side)
+
+    def rel(got):
+        return float((got - want).abs().max() / want.abs().max())
+
+    assert rel(_tf32_attend(*args, split=True, bias=bias)) < 1e-5
+    if scale > 1:
+        assert rel(_tf32_attend(*args, split=False, bias=bias)) > 1e-5
 
 
 @pytest.mark.parametrize("side,dh", [(12, 40), (8, 80)])

@@ -168,13 +168,14 @@ def test_winattn_variants_patch_the_kernel_source():
 
 
 def test_maskhead_variants_patch_the_kernel_source():
-    """Every variant of ``kernels.maskhead_variants``, K3's and B6's,
-    still finds the lines it replaces in ``mask_head.cu`` (the tool runs
-    only on the card)."""
+    """Every variant of ``kernels.maskhead_variants``, K3's, B6's and K3
+    f32's, still finds the lines it replaces in ``mask_head.cu`` (the tool
+    runs only on the card)."""
     from revisit_anything_tpu_torch.kernels import maskhead_variants as mv
     base = mv._SRC.read_text()
     for name, (_, reps) in (*mv.VARIANTS.items(),
-                            *mv.PROBS_VARIANTS.items()):
+                            *mv.PROBS_VARIANTS.items(),
+                            *mv.F32_VARIANTS.items()):
         text = mv._source(reps)
         assert (text == base) == (not reps), name
 
@@ -830,6 +831,22 @@ def test_flash_kernel_f32_bias_matches_plain(cuda, b, n, dh):
     assert torch.equal(got, again)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,dh", [(2, 80), (1, 64)])
+def test_flash_kernel_f32_bias_side_64_scaled(cuda, b, dh):
+    """K1 f32 at side 64 (bias_h staged in shared memory, bias_w in
+    registers) with q, k x 2 and the bias x 4 (sharper softmaxes, bias
+    terms that dominate the scores), over two batches of two heads (each
+    (batch, head) its own bias rows), against the plain version."""
+    (q, k, v, bh, bw), side = _flash_inputs(cuda, b, 4096, dh, True, seed=8,
+                                            dtype=torch.float32)
+    args = (q * 2.0, k * 2.0, v, bh * 4.0, bw * 4.0)
+    got = att.attend(*args, side=side)
+    want = att.attend_reference(*args, side=side)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) < F32_REL
+
+
 # K2 f32's cases: TOKEN_CASES (their ids as before), then q and kvt x 2
 # (scores of std ~4, where one TF32 pass would miss by ~1e-3) shared and
 # per prompt, and a shared k|v over 150 prompts (1,050 stacked rows: the
@@ -923,6 +940,38 @@ def test_mask_head_kernel_f32_matches_plain(cuda, np_, gg, content, m):
     assert got.dtype == torch.float32
     assert got.shape == want.shape == (np_, content, 16, m)
     assert _rel_err(got, want) < F32_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("content,m", [(3130, 1), (3130, 4), (37, 3)])
+def test_mask_head_kernel_f32_scaled_keys(cuda, content, m):
+    """K3 f32 with the keys x 8 (conv1's products far from the weights'
+    scale, where one TF32 pass would miss by ~1e-4) at contents that are
+    not a whole number of 64-position items, M 1, 4 and 3."""
+    args = list(_mask_head_inputs(cuda, 8, 4096, m, seed=9,
+                                  dtype=torch.float32))
+    args[0] = args[0] * 8.0
+    got = mh.fused_mask_head(*args, eps=1e-6, content=content)
+    want = mh.upscale_masks_blocks(args[0][:, :content], *args[1:], eps=1e-6)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (8, content, 16, m)
+    assert _rel_err(got, want) < F32_REL
+
+
+@pytest.mark.gpu
+def test_mask_head_kernel_f32_is_bitwise_repeatable(cuda):
+    """Two launches of K3 f32 on the same inputs give the same bits."""
+    args = _mask_head_inputs(cuda, 8, 4096, 3, dtype=torch.float32)
+    first, second = (mh.fused_mask_head(*args, eps=1e-6, content=3130)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_mask_head_f32_scratch_is_the_kernels(cuda):
+    """The wrapper allocates the scratch K3 f32 takes (its weight split)."""
+    assert mh.mask_head_f32_scratch() == build.load().rat_mask_head_f32_scratch()
 
 
 @pytest.mark.gpu

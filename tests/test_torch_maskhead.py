@@ -138,3 +138,68 @@ def test_mask_head_probs_matches_jax_kernel(content, n_masks):
         content=content).numpy()
     assert got.shape == (np_, content or gg, 16, n_masks)
     np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, by the bit operations the f32 kernels use (``tf32_rna``)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x: torch.Tensor):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mask_head_tf32(keys, hyper, up1_w, up1_b, ln_s, ln_b, up2_w, up2_b,
+                    eps: float, split: bool) -> torch.Tensor:
+    """The arithmetic of K3's f32 kernel (mask_head.cu
+    ``mask_head_tf32x3_kernel``) in f32 on the CPU. A product is lo·hi +
+    hi·lo + hi·hi of TF32 planes summed in that order (``split``; else one
+    TF32 product): conv1 takes each 32-wide K chunk into a fresh
+    accumulator added to an f32 sum from zero, conv2 (K 64) keeps one
+    accumulator. The group LN is two-pass, GELU exact (erf), the
+    hypernetwork dot plain f32."""
+    def passes(a, w):
+        if not split:
+            return _tf32(a) @ _tf32(w)
+        (ah, al), (wh, wl) = _split(a), _split(w)
+        return (al @ wh + ah @ wl) + ah @ wh
+
+    np_, p, d = keys.shape
+    m = hyper.shape[1]
+    y = torch.zeros((np_, p, up1_w.shape[1]))
+    for k0 in range(0, d, 32):
+        y = y + passes(keys[..., k0:k0 + 32], up1_w[k0:k0 + 32])
+    y = y.reshape(np_, p, 4, -1) + up1_b
+    mu = y.sum(-1, keepdim=True) / y.shape[-1]
+    var = ((y - mu) ** 2).sum(-1, keepdim=True) / y.shape[-1]
+    h1 = torch.nn.functional.gelu((y - mu) * torch.rsqrt(var + eps) * ln_s
+                                  + ln_b)
+    y2 = passes(h1, up2_w).reshape(np_, p, 4, 4, -1) + up2_b
+    h2 = torch.nn.functional.gelu(y2)
+    return torch.einsum("npqrc,nmc->npqrm", h2, hyper).reshape(np_, p, 16, m)
+
+
+@pytest.mark.parametrize("scale", [1.0, 4.0])
+def test_split_tf32_mask_head_arithmetic_matches_jax(scale):
+    """K3 f32 emulated in f32 is within 1e-5 of the JAX kernel in f32
+    (interpret mode; relative to the logits' largest value) at SAM's widths
+    (D 256, M 3), a ragged content of 56 of 64 positions, with the keys at
+    unit scale and x 4; one TF32 pass misses by far at both."""
+    rng = np.random.default_rng(25 + int(scale))
+    p = _params(rng, 256, 3, 2, 64)
+    p["keys"] = p["keys"] * np.float32(scale)
+    want = torch.from_numpy(np.array(jax_mask_head(
+        *(jnp.asarray(p[k]) for k in _ORDER), eps=1e-6, content=56,
+        interpret=True)))
+    args = [torch.from_numpy(p[k]) for k in _ORDER]
+    args[0] = args[0][:, :56]
+
+    def rel(split):
+        got = _mask_head_tf32(*args, 1e-6, split=split)
+        return float((got - want).abs().max() / want.abs().max())
+
+    assert rel(True) < 1e-5
+    assert rel(False) > 1e-5
