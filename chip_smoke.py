@@ -14,17 +14,19 @@ drive the command line.
 
 Phases (any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the eighteen kernel entries from
+  2. build the twenty kernel entries from
      revisit_anything_tpu_torch/kernels/csrc (one nvcc per source, in
      parallel);
   3. print the registers, shared memory and spill bytes of the redesigned
      entry points' kernels (K1, K2, B10, B11, K3, B6, K5, K4, B3 in its
      three modes, B7 in its two layers and B8 at its two depths, K1 f32
      and its K/V split at head dims 64 and 80, K1 f32 with the bias, the
-     f32 forms of K2 (both schedules) and K5 (both layers and its weight
-     split), K3 f32 and K4 f32) from ptxas.log, and the tensor-core
-     instructions in the SASS of B3's three instantiations, B7's layer 2,
-     B8's two depths and K2 f32's two schedules (HMMA) and of K1 f32 at
+     f32 forms of K2 and B10 (both schedules each) and K5 (both layers
+     and its weight split), K3 f32, K4 f32 and B11 f32 at head dims 64
+     and 80) from ptxas.log, and the tensor-core instructions in the SASS
+     of B3's three instantiations, B7's layer 2, B8's two depths, K2 f32's
+     and B10 f32's two schedules and B11 f32 at both head dims (HMMA) and
+     of K1 f32 at
      head dims 64 and 80 and with the bias and K5 f32 at both layers
      (TF32 HGMMA) (cuobjdump); then
      compare every kernel with its plain version in bf16 at the main
@@ -32,7 +34,9 @@ Phases (any failure exits non-zero):
      f32, split TF32, at DINOv1's shape and two more within 1e-5; K4, K3,
      K2 and K5 also at multi-crop AMG's crop shapes: 256 prompts, gh
      52; the f32 forms of K1 with the bias, K2, K5, K3 and K4 at the f32
-     served query's shapes within 1e-5, K4's flags equal outside a band
+     served query's shapes, B11 f32 at SAM ViT-H's windowed layer and at
+     head dim 64 and B10 f32 in both schedules, within 1e-5, K4's flags
+     equal outside a band
      of 1e-5 of the logits' scale around each threshold, the band's
      pixels counted), timing both with CUDA events (median of 7 after
      warm-up, each call queued behind a device sleep so that its host
@@ -88,7 +92,13 @@ Phases (any failure exits non-zero):
      server's (matched at IoU > 0.5: at least 0.9 of them) and against
      the f32 plain path on the card with TF32 off (the same count, each
      at IoU >= 0.95); wall ms, encode and decode stage ms and every stage
-     of [split] (CUDA events), peak device memory;
+     of [split] (CUDA events), peak device memory; then one more planted
+     query with the encoder's windowed layers through B11 f32 (counters
+     reset first: the same launches plus 28 of B11 f32, no bf16 kernel;
+     the planted image first; the kept masks against the f32 plain path
+     with plain windows: the same count, each at IoU >= 0.95) and the
+     encode stage with plain and kernel windows (CUDA events, median of 3
+     after one, in turns);
  10. [insert], continued: remove planted image 1 (its noisy copy must no
      longer find it), snapshot the database to an npz and restore it
      into a fresh server: the same top-5 on the three queries;
@@ -175,9 +185,11 @@ Phases (any failure exits non-zero):
      launched), a three-command `serve` loop, `amg` on a
      1200x1600 image, `train` for 3 steps at [train]'s sizes; seconds a
      command (the h5 commands need h5py, absent there: skipped);
- 22. print the kernel table as one JSON line (B10, token_cross_split, has
-     no caller on a serving path, as in the JAX package: launches 0; the
-     f32 forms' launches are the 3 f32 queries'), then the result line.
+ 22. print the kernel table as one JSON line (B10, token_cross_split and
+     token_cross_split_f32, has no caller on a serving path, as in the JAX
+     package: launches 0; the f32 forms' launches are the 3 f32
+     queries', B11 f32's the f32 kernel-window query's), then the result
+     line.
 """
 
 from __future__ import annotations
@@ -322,10 +334,18 @@ PTXAS_KERNELS = (
     ("flash_attention_tf32x3_kernelILi64ELi2E", "K1 f32 Dh 64 + bias side 64",
      "rat_flash_attention_f32_bias", "rat_flash_attention_f32_smem",
      (64, 2)),
-    ("token_cross_kv_tf32x3_kernelILb1E", "K2 f32 shared k|v (split TF32)",
+    ("token_cross_kv_tf32x3_kernelILb1ELb1E", "K2 f32 shared k|v (split TF32)",
      "rat_token_cross_kv_f32", "rat_token_cross_f32_smem", (1,)),
-    ("token_cross_kv_tf32x3_kernelILb0E", "K2 f32 per-prompt k|v",
+    ("token_cross_kv_tf32x3_kernelILb1ELb0E", "K2 f32 per-prompt k|v",
      "rat_token_cross_kv_f32", "rat_token_cross_f32_smem", (0,)),
+    ("token_cross_kv_tf32x3_kernelILb0ELb1E", "B10 f32 shared k, v",
+     "rat_token_cross_f32", "rat_token_cross_f32_smem", (1,)),
+    ("token_cross_kv_tf32x3_kernelILb0ELb0E", "B10 f32 per-prompt k, v",
+     "rat_token_cross_f32", "rat_token_cross_f32_smem", (0,)),
+    ("win_attention_tf32x3_kernelILi80E", "B11 f32 hd 80 (at side 14)",
+     "rat_win_attention_f32", "rat_win_attention_f32_smem", (14, 80)),
+    ("win_attention_tf32x3_kernelILi64E", "B11 f32 hd 64 (at side 14)",
+     "rat_win_attention_f32", "rat_win_attention_f32_smem", (14, 64)),
     ("i2t_update_tf32x3_kernelILb1E", "K5 f32 layer 1 (split TF32)",
      "rat_i2t_update_f32", "rat_i2t_update_f32_smem", ()),
     ("i2t_update_tf32x3_kernelILb0E", "K5 f32 layer 2 (split TF32)",
@@ -374,7 +394,8 @@ PTXAS_KERNELS = (
 
 # The kernels whose products run by mma.sync (HMMA): B3's instantiations,
 # by their emission (keys, probability, logits mode), B7's layer 2, B8's
-# two depths and K2 f32's two schedules (TF32); and K1 f32's, K5 f32's and
+# two depths, K2 f32's and B10 f32's two schedules and B11 f32's two head
+# dims (TF32); and K1 f32's, K5 f32's and
 # K3 f32's, by TF32 wgmma (HGMMA ... TF32): (piece of the mangled name,
 # label, the instruction that must be there)
 MMA_SASS = (("decode_tail_kernelILi0E", "B3 keys mode", "HMMA"),
@@ -392,10 +413,16 @@ MMA_SASS = (("decode_tail_kernelILi0E", "B3 keys mode", "HMMA"),
             ("mask_head_tf32x3_kernelILi3E", "K3 f32 M 3", "HGMMA.*TF32"),
             ("i2t_update_tf32x3_kernelILb1E", "K5 f32 layer 1", "HGMMA.*TF32"),
             ("i2t_update_tf32x3_kernelILb0E", "K5 f32 layer 2", "HGMMA.*TF32"),
-            ("token_cross_kv_tf32x3_kernelILb1E", "K2 f32 shared k|v",
+            ("token_cross_kv_tf32x3_kernelILb1ELb1E", "K2 f32 shared k|v",
              "HMMA.*TF32"),
-            ("token_cross_kv_tf32x3_kernelILb0E", "K2 f32 per-prompt k|v",
-             "HMMA.*TF32"))
+            ("token_cross_kv_tf32x3_kernelILb1ELb0E", "K2 f32 per-prompt k|v",
+             "HMMA.*TF32"),
+            ("token_cross_kv_tf32x3_kernelILb0ELb1E", "B10 f32 shared k, v",
+             "HMMA.*TF32"),
+            ("token_cross_kv_tf32x3_kernelILb0ELb0E", "B10 f32 per-prompt k, v",
+             "HMMA.*TF32"),
+            ("win_attention_tf32x3_kernelILi80E", "B11 f32 hd 80", "HMMA.*TF32"),
+            ("win_attention_tf32x3_kernelILi64E", "B11 f32 hd 64", "HMMA.*TF32"))
 
 
 def ptxas_report() -> None:
@@ -744,8 +771,9 @@ def compare_f32_kernels(dev, check) -> None:
     the bias (SAM ViT-H's global layer) and without it at the same shape
     (the bias form's floor), K2 (shared and per-prompt k|v,
     1024 prompts), K5 (layers 1 and 2), K3 (1024 prompts, content 3136,
-    M 3) and K4 (17places), each against its plain version in f32 with
-    TF32 off. Bound (as K1 f32's rows): the larger of the bytes over
+    M 3) and K4 (17places); and the window kernel's (SAM ViT-H's windowed
+    layer, and at head dim 64) and B10's (as K2's); each against its plain
+    version in f32 with TF32 off. Bound (as K1 f32's rows): the larger of the bytes over
     3.35 TB/s and the products as three TF32 passes at 495 TFLOP/s; K1's
     softmax operations on the FMA units as in its no-bias rows, K4's taps
     as f32 FMAs as in its bf16 row."""
@@ -758,6 +786,7 @@ def compare_f32_kernels(dev, check) -> None:
     from revisit_anything_tpu_torch.ops import attention as att
     from revisit_anything_tpu_torch.ops import maskhead as mh
     from revisit_anything_tpu_torch.ops import maskresize as mr
+    from revisit_anything_tpu_torch.ops import winattn as wa
     from torch.nn import functional as F
 
     g = torch.Generator(device=dev).manual_seed(2323)
@@ -816,7 +845,52 @@ def compare_f32_kernels(dev, check) -> None:
               library=lambda: F.scaled_dot_product_attention(q_l, k_l, v_l),
               was=was)
         del kvt, k_l, v_l, q_l
-    del qt, pe, vb
+    del pe, vb
+
+    # B10 f32: K2 f32's kernel without pe and v bias on separate kᵀ, vᵀ
+    # (library: SDPA in f32, k and v laid out for it outside the timed call)
+    for lead, label in ((1, "q [1024,7,128] kt, vt [1,128,4096] shared f32"),
+                        (1024, "q [1024,7,128] kt, vt [1024,128,4096] f32")):
+        kt, vt = rnd(lead, 128, 4096), rnd(lead, 128, 4096)
+        k_l, v_l = (x.reshape(lead, 8, 16, 4096).transpose(2, 3).contiguous()
+                    for x in (kt, vt))
+        q_l = qt.reshape(1024, 7, 8, 16).transpose(1, 2)
+        q_l = (q_l.transpose(0, 1).reshape(1, 8, 1024 * 7, 16) if lead == 1
+               else q_l).contiguous()
+        check(build.TOKEN_CROSS_SPLIT_F32, label,
+              lambda: att.token_cross_attend(qt, kt, vt, 8),
+              lambda: att.token_cross_attend_reference(qt, kt, vt, 8),
+              _rel, F32_REL, (qt, kt, vt),
+              (0, 0, 3 * 4 * 1024 * 8 * 7 * 4096 * 16),
+              library=lambda: F.scaled_dot_product_attention(q_l, k_l, v_l))
+        del kt, vt, k_l, v_l, q_l
+    del qt
+    torch.cuda.empty_cache()
+
+    # B11 f32: SAM ViT-H's windowed layer (25 windows of 14x14, 16 heads of
+    # 80) and ViT-L's (16 heads of 64). Library: SDPA in f32, q/k/v split
+    # and the bias expanded into its attn_mask outside the timed call.
+    # Bound: the products as three TF32 passes, the bias and softmax's f32
+    # operations as K1 f32 + bias's (7 a score).
+    for heads, hd, what in ((16, 80, "ViT-H"), (16, 64, "ViT-L")):
+        d = heads * hd
+        qkv = rnd(25, 196, 3 * d)
+        bh, bw = rnd(25, 196, heads * 14), rnd(25, 196, heads * 14)
+        q, k, v = (qkv[..., i * d:(i + 1) * d].reshape(25, 196, heads, hd)
+                   .transpose(1, 2).contiguous() for i in range(3))
+        mask = (bh.reshape(25, 196, heads, 14).transpose(1, 2)
+                .repeat_interleave(14, dim=-1)
+                + bw.reshape(25, 196, heads, 14).transpose(1, 2)
+                .repeat(1, 1, 1, 14))
+        n2 = 25 * heads * 196 ** 2
+        check(build.WIN_ATTENTION_F32,
+              f"{what} qkv [25,196,{3 * d}] + bias [25,196,{heads * 14}] f32",
+              lambda: wa.windowed_attend(qkv, bh, bw, heads, 14),
+              lambda: wa.windowed_attend_reference(qkv, bh, bw, heads, 14),
+              _rel, F32_REL, (qkv, bh, bw), (0, 7 * n2, 3 * 4 * n2 * hd),
+              library=lambda: F.scaled_dot_product_attention(q, k, v,
+                                                             attn_mask=mask))
+        del qkv, bh, bw, q, k, v, mask
     torch.cuda.empty_cache()
 
     # K5 f32: layer 1 (shared branch) and layer 2 (per prompt); in brackets
@@ -1276,12 +1350,13 @@ F32_QUERY_LAUNCHES = {"flash_attention_f32_bias": 4, "flash_attention_f32": 31,
 @contextlib.contextmanager
 def _plain_sam_f32():
     """SAM's kernels on the default path replaced by their plain versions
-    (f32 on the card with TF32 off, as main() sets it): K1 in the
+    (f32 on the card with TF32 off, as main() sets it): K1 and B11 in the
     encoder, K2, K5 and K3 in the decoder, K4 in AMG."""
     from revisit_anything_tpu_torch.models.sam import amg, decoder, encoder
     from revisit_anything_tpu_torch.ops import attention as att
     from revisit_anything_tpu_torch.ops import maskhead as mh
     from revisit_anything_tpu_torch.ops import maskresize as mr
+    from revisit_anything_tpu_torch.ops import winattn as wa
 
     def mask_head(keys, hyper, *w, eps=1e-6, content=None):
         return mh.upscale_masks_blocks(keys[:, :content], hyper, *w, eps)
@@ -1291,6 +1366,7 @@ def _plain_sam_f32():
         return (flags,) + mr.flag_stats(flags)
 
     swaps = ((encoder, "attend", att.attend_reference),
+             (encoder, "windowed_attend", wa.windowed_attend_reference),
              (decoder, "token_cross_attend_kv",
               att.token_cross_attend_kv_reference),
              (decoder, "i2t_update", att.i2t_update_reference),
@@ -1330,7 +1406,13 @@ def sam_f32_phase(srv, queries, planted, kw, seed) -> dict:
     [variant] measures) and against the f32 plain path on the card with
     TF32 off (the same count, each mask at IoU >= 0.95 with one of the
     plain path's); wall ms a query, the encode and decode stages and every
-    stage of [split] by CUDA events, peak device memory."""
+    stage of [split] by CUDA events, peak device memory. Then one more
+    planted query with the encoder's windowed layers through B11 f32
+    (window_attention="kernel", counters reset first): F32_QUERY_LAUNCHES
+    and B11 f32 once a windowed layer, no other kernel, the planted image
+    first, its kept masks against the f32 plain path with plain windows
+    (the same count, each at IoU >= 0.95); the encode stage with plain and
+    kernel windows (CUDA events, median of 3 after one, in turns)."""
     import numpy as np
     import torch
 
@@ -1417,6 +1499,7 @@ def sam_f32_phase(srv, queries, planted, kw, seed) -> dict:
             if share < 0.9:
                 _fail(f"[sam-f32] query {i}: only {share:.4f} of the f32 "
                       "masks match a bf16 mask at IoU > 0.5")
+    window = _sam_f32_window(fsrv, queries[0], planted[0])
     enc_ms, dec_ms = statistics.median(encode), statistics.median(decode)
     print(f"[sam-f32] f32 query: wall {statistics.median(wall):.1f} ms "
           f"(median of 3: {', '.join(f'{w:.1f}' for w in wall)}); encode "
@@ -1428,7 +1511,72 @@ def sam_f32_phase(srv, queries, planted, kw, seed) -> dict:
     torch.cuda.empty_cache()
     return dict(counts=dict(launches), wall_ms=wall, encode_ms=enc_ms,
                 decode_ms=dec_ms, stages_ms=stages, peak_gib=peak_gib,
-                agree_bf16=agree_bf16, plain_least_iou=plain_iou)
+                agree_bf16=agree_bf16, plain_least_iou=plain_iou, **window)
+
+
+def _sam_f32_window(fsrv, img, planted: int) -> dict:
+    """[sam-f32]'s kernel-window query (see :func:`sam_f32_phase`)."""
+    import torch
+
+    from revisit_anything_tpu_torch.kernels import build
+
+    enc = fsrv.sam.encoder
+    cfg = fsrv.sam_cfg
+    want = dict(F32_QUERY_LAUNCHES, win_attention_f32=cfg.encoder_depth
+                - len(cfg.global_attn_indexes))
+    t0 = time.perf_counter()
+    try:
+        enc.window_attention = "kernel"
+        torch.cuda.synchronize()
+        build.reset_counts()
+        t = time.perf_counter()
+        top = fsrv.query(img)
+        wall = (time.perf_counter() - t) * 1e3
+        counts = {k.name: k.launches for k in build.KERNELS if k.launches}
+        if counts != want:
+            _fail(f"[sam-f32] kernel-window query launched {counts}, "
+                  f"expected {want} and no other kernel")
+        if top[0] != planted:
+            _fail(f"[sam-f32] kernel windows: noisy copy of planted image "
+                  f"{planted} answered {top}")
+        with torch.inference_mode():
+            img_dev = torch.from_numpy(img).to(fsrv.device)
+            amg_k = fsrv._amg_device(img_dev)
+            enc.window_attention = "plain"
+            with _plain_sam_f32():
+                build.reset_counts()
+                amg_p = fsrv._amg_device(img_dev)
+                stray = [k.name for k in build.KERNELS if k.launches]
+            times = {"plain": [], "kernel": []}
+            for rep in range(4):
+                order = ("plain", "kernel") if rep % 2 else ("kernel",
+                                                             "plain")
+                for form in order:
+                    enc.window_attention = form
+                    times[form].append(_encode_ms(fsrv, img_dev))
+    finally:
+        enc.window_attention = "plain"
+    if stray:
+        _fail(f"[sam-f32] the plain path launched {stray}")
+    n_k, n_p = int(amg_k[1][-1]), int(amg_p[1][-1])
+    best = _best_iou(amg_k, amg_p)
+    least = best.min().item() if n_k else 1.0
+    # the first turn warms both forms up
+    plain_ms = statistics.median(times["plain"][1:])
+    kernel_ms = statistics.median(times["kernel"][1:])
+    print(f"[sam-f32] kernel windows: top-5 {top.tolist()}  query "
+          f"{wall:.1f} ms, launches {counts}; {n_k} masks kept (f32 plain "
+          f"path with plain windows {n_p}), least best IoU {least:.4f}, mean "
+          f"{best.mean().item():.4f}; encode stage (CUDA events, median of 3 "
+          f"after one, in turns) plain windows {plain_ms:.3f} ms, kernel "
+          f"windows {kernel_ms:.3f} ms; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if n_k != n_p or least < 0.95:
+        _fail(f"[sam-f32] kernel windows: {n_k} masks kept against the f32 "
+              f"plain path's {n_p}, least IoU {least}")
+    return dict(window_counts=counts, window_query_ms=wall,
+                window_least_iou=least, encode_plain_windows_ms=plain_ms,
+                encode_kernel_windows_ms=kernel_ms)
 
 
 def _noisy(rng, img):
@@ -4072,7 +4220,8 @@ def main() -> None:
     # launches: the 3 "shared" queries for the kernels of that form, the
     # probability-factored queries for theirs, the window-kernel query for
     # B11, the 3 f32 queries for the f32 forms (K1 f32 without the bias in
-    # their DINOv2-g); B10 (token_cross_split) has no caller on a serving
+    # their DINOv2-g), the f32 kernel-window query for B11 f32; B10
+    # (token_cross_split, token_cross_split_f32) has no caller on a serving
     # path
     table = []
     for k in build.KERNELS:
@@ -4082,6 +4231,7 @@ def main() -> None:
                            for v in served["variants"].values())
                     or served["window"]["counts"][k.name]
                     or served["sam_f32"]["counts"].get(k.name, 0)
+                    or served["sam_f32"]["window_counts"].get(k.name, 0)
                     or backbones["counts"][k.name])
         table.append(dict(
             name=k.name, route="cuda", source=k.source, replaces=k.replaces,
@@ -4105,7 +4255,9 @@ def main() -> None:
     print(f"[sam-f32] f32 query {statistics.median(f['wall_ms']):.1f} ms, "
           f"encode {f['encode_ms']:.3f} ms, decode {f['decode_ms']:.3f} ms, "
           f"peak {f['peak_gib']:.2f} GiB, launches over 3 queries "
-          f"{f['counts']}", flush=True)
+          f"{f['counts']}; encode with plain windows "
+          f"{f['encode_plain_windows_ms']:.3f} ms, kernel windows "
+          f"{f['encode_kernel_windows_ms']:.3f} ms", flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

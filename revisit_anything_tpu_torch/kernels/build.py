@@ -57,8 +57,10 @@ SIGNATURES: Dict[str, Sequence] = {
                                _P),
     # q, kt, vt, out, b, n, d, m, heads, kv_shared, stream
     "rat_token_cross": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "rat_token_cross_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # qkv, bias_h, bias_w, out, b, n, side, heads, hd, scale, stream
     "rat_win_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "rat_win_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     # img, peq, tok_k, tok_v, w_q, b_q, w_out, b_out, ln_s, ln_b, w_kv,
     # keys, kvt, b, m, img_shared, eps, stream
     "rat_i2t_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -99,6 +101,7 @@ SIGNATURES: Dict[str, Sequence] = {
     "rat_flash_attention_smem": (_I,),          # hd
     "rat_flash_attention_f32_smem": (_I, _I),   # hd, split (2: bias side 64)
     "rat_win_attention_smem": (_I, _I),         # side, hd
+    "rat_win_attention_f32_smem": (_I, _I),     # side, hd
     "rat_mask_head_smem": (),
     "rat_mask_head_f32_smem": (),
     "rat_mask_head_f32_scratch": (),            # floats of scratch
@@ -289,12 +292,21 @@ MASK_HEAD_F32 = Kernel(
 RESIZE_FLAGS_F32 = Kernel(
     "resize_flags_f32", "rat_resize_flags_f32", _SRC + "resize_flags.cu",
     "revisit_anything_tpu/ops/maskresize.py:207")
+# and of the window kernel (an f32 SAM with window_attention="kernel") and
+# of B10, which has no serving caller
+WIN_ATTENTION_F32 = Kernel(
+    "win_attention_f32", "rat_win_attention_f32", _SRC + "win_attention.cu",
+    "revisit_anything_tpu/ops/winattn.py:90")
+TOKEN_CROSS_SPLIT_F32 = Kernel(
+    "token_cross_split_f32", "rat_token_cross_f32", _SRC + "token_cross.cu",
+    "revisit_anything_tpu/ops/attention.py:178")
 
 KERNELS = (FLASH_ATTENTION, TOKEN_CROSS, I2T_UPDATE, MASK_HEAD, RESIZE_FLAGS,
            I2T_PROBS, T2I_PROBS, MASK_HEAD_PROBS, DECODE_TAIL,
            DECODE_TAIL_LOGITS, TOKEN_CROSS_SPLIT, WIN_ATTENTION,
            FLASH_ATTENTION_F32, FLASH_ATTENTION_F32_BIAS, TOKEN_CROSS_F32,
-           I2T_UPDATE_F32, MASK_HEAD_F32, RESIZE_FLAGS_F32)
+           I2T_UPDATE_F32, MASK_HEAD_F32, RESIZE_FLAGS_F32,
+           WIN_ATTENTION_F32, TOKEN_CROSS_SPLIT_F32)
 
 
 def reset_counts() -> None:

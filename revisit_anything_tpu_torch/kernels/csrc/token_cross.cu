@@ -459,6 +459,14 @@ extern "C" int rat_token_cross_smem(int pe, int shared) {
 //    stored.
 // M must be a multiple of 8; the last tile's keys past M load as zeros and
 // score -inf.
+//
+// B10 in f32 (entry rat_token_cross_f32) is the same kernel with PE false:
+// separate f32 kᵀ and vᵀ [B or 1, D, M] (a prompt's stride D·M), no pe and
+// no v bias, under the same two schedules; a stage copies k and v only and
+// splits them into the same four planes. It replaces revisit_anything_tpu/
+// ops/attention.py `_token_cross` (pallas_call at :178) on f32 inputs; the
+// TPU kernel rounds p to vt's dtype, f32 here, so the probabilities stay
+// f32.
 namespace rat_k2f {
 
 constexpr int HD = 16, WARPS = 8, THREADS = WARPS * 32;
@@ -501,14 +509,14 @@ __device__ __forceinline__ void group_sync_f32() {
   if (SHARED) __syncthreads(); else __syncwarp();
 }
 
-template <bool SHARED>
+template <bool PE, bool SHARED>
 __global__ void __launch_bounds__(THREADS, SHARED ? 2 : 1)
 token_cross_kv_tf32x3_kernel(const float* __restrict__ q,    // [B·n, D]
                              const float* __restrict__ kt,   // prompt 0's [D, M] keys
                              const float* __restrict__ vt,   // prompt 0's [D, M] values
                              size_t kv_stride,               // floats a prompt
-                             const float* __restrict__ pe,   // [D, M]
-                             const float* __restrict__ vb,   // [D]
+                             const float* __restrict__ pe,   // [D, M] (PE only)
+                             const float* __restrict__ vb,   // [D] (PE only)
                              float* __restrict__ out,        // [B·n, D]
                              int rows, int n, int d, int m, int heads, float scale_log2) {
   using C = Cfg<SHARED>;
@@ -540,7 +548,7 @@ token_cross_kv_tf32x3_kernel(const float* __restrict__ q,    // [B·n, D]
     ring = smf + warp * STAGES * STAGE;
     gtid = lane;
   }
-  const float* pb = pe + (size_t)h * HD * m;
+  const float* pb = PE ? pe + (size_t)h * HD * m : nullptr;
   const int ntiles = (m + TK - 1) / TK;
 
   // Each thread copies the same 16-byte chunks of every tile: column ch of
@@ -548,7 +556,7 @@ token_cross_kv_tf32x3_kernel(const float* __restrict__ q,    // [B·n, D]
   // + pe and v + bias on exactly the chunks it copied (no barrier between).
   constexpr int CPR = TK / 4;                                // chunks a row
   constexpr int G4 = GTHREADS / CPR;                         // stacked rows a pass
-  constexpr int PASSES = 3 * HD / G4;
+  constexpr int PASSES = (PE ? 3 : 2) * HD / G4;
   constexpr int KPASSES = HD / G4;                           // passes of k (then of v)
   const int ch = gtid % CPR, rbase = gtid / CPR;
   const float* src[PASSES];
@@ -559,7 +567,7 @@ token_cross_kv_tf32x3_kernel(const float* __restrict__ q,    // [B·n, D]
   }
   float vbias[KPASSES];
 #pragma unroll
-  for (int p = 0; p < KPASSES; ++p) vbias[p] = vb[h * HD + rbase + p * G4];
+  for (int p = 0; p < KPASSES; ++p) vbias[p] = PE ? vb[h * HD + rbase + p * G4] : 0.f;
 
   auto load_tile = [&](int t) {
     if (t < ntiles) {
@@ -602,7 +610,7 @@ token_cross_kv_tf32x3_kernel(const float* __restrict__ q,    // [B·n, D]
 #pragma unroll
       for (int p = 0; p < 2 * KPASSES; ++p) {
         float* x = own + p * G4 * LD;
-        if (p < KPASSES) form4(x, x + 2 * HD * LD, 0.f, x + 2 * HD * LD);
+        if (p < KPASSES) form4(x, PE ? x + 2 * HD * LD : nullptr, 0.f, x + 2 * HD * LD);
         else form4(x, nullptr, vbias[p - KPASSES], x + 2 * HD * LD);
       }
     }
@@ -719,23 +727,34 @@ token_cross_kv_tf32x3_kernel(const float* __restrict__ q,    // [B·n, D]
   }
 }
 
-template <bool SHARED>
-int launch(const void* q, const void* kvt, const void* pe, const void* vb, void* out, int b,
-           int n, int d, int m, int heads, cudaStream_t stream) {
+template <bool PE, bool SHARED>
+int launch(const void* q, const float* kt, const float* vt, size_t kv_stride, const void* pe,
+           const void* vb, void* out, int b, int n, int d, int m, int heads,
+           cudaStream_t stream) {
   constexpr int smem = Cfg<SHARED>::SMEM;
-  auto kernel = token_cross_kv_tf32x3_kernel<SHARED>;
+  auto kernel = token_cross_kv_tf32x3_kernel<PE, SHARED>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int rows = b * n;
   const dim3 grid = SHARED ? dim3((rows + WARPS * 16 - 1) / (WARPS * 16), heads)
                            : dim3(b, (heads + WARPS - 1) / WARPS);
-  const float* k = static_cast<const float*>(kvt);
   kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), k, k + (size_t)d * m, SHARED ? 0 : (size_t)2 * d * m,
+      static_cast<const float*>(q), kt, vt, SHARED ? 0 : kv_stride,
       static_cast<const float*>(pe), static_cast<const float*>(vb), static_cast<float*>(out),
       rows, n, d, m, heads, LOG2E / sqrtf((float)HD));
   return (int)cudaGetLastError();
+}
+
+template <bool PE>
+int dispatch(const void* q, const float* kt, const float* vt, size_t kv_stride, const void* pe,
+             const void* vb, void* out, int b, int n, int d, int m, int heads, int kv_shared,
+             void* stream) {
+  if (b < 1 || heads <= 0 || d != heads * HD || (n != 7 && n != 8) || m <= 0 || m % 8)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return kv_shared ? launch<PE, true>(q, kt, vt, 0, pe, vb, out, b, n, d, m, heads, s)
+                   : launch<PE, false>(q, kt, vt, kv_stride, pe, vb, out, b, n, d, m, heads, s);
 }
 
 }  // namespace rat_k2f
@@ -744,16 +763,22 @@ int launch(const void* q, const void* kvt, const void* pe, const void* vb, void*
 extern "C" int rat_token_cross_kv_f32(const void* q, const void* kvt, const void* pe,
                                       const void* vb, void* out, int b, int n, int d, int m,
                                       int heads, int kv_shared, void* stream) {
-  if (b < 1 || heads <= 0 || d != heads * rat_k2f::HD || (n != 7 && n != 8) ||
-      m <= 0 || m % 8)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return kv_shared ? rat_k2f::launch<true>(q, kvt, pe, vb, out, b, n, d, m, heads, s)
-                   : rat_k2f::launch<false>(q, kvt, pe, vb, out, b, n, d, m, heads, s);
+  const float* k = static_cast<const float*>(kvt);
+  return rat_k2f::dispatch<true>(q, k, k + (size_t)d * m, (size_t)2 * d * m, pe, vb, out, b,
+                                 n, d, m, heads, kv_shared, stream);
 }
 
-// Dynamic shared memory a CTA of K2 f32's shared (1) or per-prompt (0)
-// schedule takes (for reports).
+// B10 in f32: the same arguments as rat_token_cross, every tensor f32.
+extern "C" int rat_token_cross_f32(const void* q, const void* kt, const void* vt, void* out,
+                                   int b, int n, int d, int m, int heads, int kv_shared,
+                                   void* stream) {
+  return rat_k2f::dispatch<false>(q, static_cast<const float*>(kt),
+                                  static_cast<const float*>(vt), (size_t)d * m, nullptr,
+                                  nullptr, out, b, n, d, m, heads, kv_shared, stream);
+}
+
+// Dynamic shared memory a CTA of K2 f32's (and B10 f32's) shared (1) or
+// per-prompt (0) schedule takes (for reports).
 extern "C" int rat_token_cross_f32_smem(int shared) {
   return shared ? rat_k2f::Cfg<true>::SMEM : rat_k2f::Cfg<false>::SMEM;
 }

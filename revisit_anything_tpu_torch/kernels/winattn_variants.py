@@ -6,6 +6,12 @@ nvcc into ``build/torch_kernels/variants/`` and timed at the SAM ViT-H
 shape beside ``scaled_dot_product_attention``.
 
     python -m revisit_anything_tpu_torch.kernels.winattn_variants
+    python -m revisit_anything_tpu_torch.kernels.winattn_variants --f32
+
+With ``--f32`` the variants are of B11's f32 form
+(``rat_win_attention_f32``: split-TF32 products over a ring of split K|V
+tiles; the split, the bias, each product removed in turn, and other row
+groupings), held to the plain version in f32 with TF32 off.
 
 Times are CUDA-event medians of 11 calls, each queued behind a device
 sleep (as ``chip_smoke.py`` times kernels). Needs a CUDA device and
@@ -16,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -48,7 +55,8 @@ _ENTRY = "  extern __shared__ __align__(16) unsigned char smem[];"
 VARIANTS = {
     "kernel": ("the kernel as built", []),
     "tk64": ("64-key tiles (32 in the kernel)",
-             [("constexpr int TK = 32;", "constexpr int TK = 64;")]),
+             [("constexpr int TK = 32;                       // keys a tile\n",
+               "constexpr int TK = 64;                       // keys a tile\n")]),
     "round0": ("only the first round of row tiles computes",
                [("    const bool active = row0 < npad;",
                  "    const bool active = row0 < npad && round == 0;")]),
@@ -77,6 +85,74 @@ VARIANTS = {
 SHAPES = ((25, 14, 16, 80), (8, 14, 16, 80), (1, 14, 1, 80),
           (2, 31, 16, 80))
 
+# B11 f32 (rat_win_attention_f32): its products, bias, tile split and row
+# grouping
+_F32_QK = """          mma_m16n8k8_tf32(sc[j], ql[ks], __float_as_uint(kh2.x), __float_as_uint(kh2.y));
+          mma_m16n8k8_tf32(sc[j], qh[ks], __float_as_uint(kl2.x), __float_as_uint(kl2.y));
+          mma_m16n8k8_tf32(sm[j], qh[ks], __float_as_uint(kh2.x), __float_as_uint(kh2.y));"""
+_F32_PV = """          mma_m16n8k8_tf32(ot[nb], pl, vh0, vh1);
+          mma_m16n8k8_tf32(ot[nb], ph, vl0, vl1);
+          mma_m16n8k8_tf32(ot[nb], ph, vh0, vh1);"""
+_F32_JOIN = "o[nb][e] = fmaf(o[nb][e], alpha[e / 2], ot[nb][e]);"
+_F32_OT = """    float ot[KS][4];
+#pragma unroll
+    for (int nb = 0; nb < KS; ++nb) ot[nb][0] = ot[nb][1] = ot[nb][2] = ot[nb][3] = 0.f;"""
+_F32_WARPS = "constexpr int MAX_WARPS = 4;"
+_F32_BOUNDS = ("__launch_bounds__(MAX_WARPS * 32, 2)\n"
+               "win_attention_tf32x3_kernel(")
+_F32_ENTRY = "  extern __shared__ __align__(16) float smw[];"
+
+F32_VARIANTS = {
+    "kernel": ("the kernel as built", []),
+    "w5": ("CTAs of up to 5 warps (10 warps an SM, up to 168 registers)",
+           [(_F32_WARPS, "constexpr int MAX_WARPS = 5;")]),
+    "w7": ("CTAs of up to 7 warps, one an SM (up to 255 registers)",
+           [(_F32_WARPS, "constexpr int MAX_WARPS = 7;"),
+            (_F32_BOUNDS, _F32_BOUNDS.replace(", 2)", ", 1)"))]),
+    "unroll": ("the tile copy and split loops unrolled by 4",
+               [("      for (int i = threadIdx.x; i < 2 * TK * CPR; "
+                 "i += blockDim.x) {",
+                 "#pragma unroll 4\n      for (int i = threadIdx.x; "
+                 "i < 2 * TK * CPR; i += blockDim.x) {"),
+                ("    for (int i = threadIdx.x; i < 2 * TK * CPR; "
+                 "i += blockDim.x) {\n      float* x",
+                 "#pragma unroll 4\n    for (int i = threadIdx.x; "
+                 "i < 2 * TK * CPR; i += blockDim.x) {\n      float* x")]),
+    "direct": ("P·V into O itself after its rescale (no fresh accumulator "
+               "a tile: fewer registers, O's sum truncated by mma.sync)",
+               [(_F32_OT, "    float (&ot)[KS][4] = o;\n"
+                          "#pragma unroll\n    for (int nb = 0; nb < KS; "
+                          "++nb)\n#pragma unroll\n      for (int e = 0; e < 4; "
+                          "++e) o[nb][e] *= alpha[e / 2];"),
+                (_F32_JOIN, "(void)0;")]),
+    "noq": ("Q's fragments not loaded from device memory",
+            [("const float2 x0 = v0 ? *reinterpret_cast<const float2*>(q0 + "
+              "8 * ks) : make_float2(0.f, 0.f);",
+              "const float2 x0 = make_float2(lane * 0.1f, ks * 0.2f);"),
+             ("const float2 x1 = v1 ? *reinterpret_cast<const float2*>(q1 + "
+              "8 * ks) : make_float2(0.f, 0.f);",
+              "const float2 x1 = make_float2(ks * 0.3f, lane * 0.2f);")]),
+    "nobias": ("the bias read as zero (no bias loads)",
+               [("(brow[r][ch] + brow[r][cw]) * LOG2E", "0.f")]),
+    "nostage": ("the bias rows not staged (shared memory read as it is)",
+                [("      cp_async4(mine + r * bpitch + col, src, valid);\n",
+                  "")]),
+    "nosplit": ("K|V tiles not split (the lo planes unwritten)",
+                [("    split_tile(t);\n", "")]),
+    "noqk": ("no Q·Kᵀ products (K's fragments still loaded)",
+             [(_F32_QK, "          sc[j][0] += kh2.x + kl2.y;")]),
+    "nopv": ("no P·V products (V's fragments still loaded)",
+             [(_F32_PV, "          ot[nb][0] += __uint_as_float(vh0 ^ vl1) + "
+                        "__uint_as_float(vh1 ^ vl0);")]),
+    "empty": ("returns at entry (launch cost)",
+              [(_F32_ENTRY, _F32_ENTRY + "\n  if (n > 0) return;")]),
+}
+
+# SAM ViT-H's windowed layer, the same at head dim 64 (ViT-B/L), one
+# (window, head) alone, and the widest window
+F32_SHAPES = ((25, 14, 16, 80), (25, 14, 16, 64), (1, 14, 1, 80),
+              (2, 31, 16, 80))
+
 
 def _source(reps) -> str:
     text = _SRC.read_text()
@@ -87,23 +163,27 @@ def _source(reps) -> str:
     return text
 
 
-def _build_all() -> dict:
+def _build_all(variants=VARIANTS, entry="rat_win_attention",
+               tag="win") -> dict:
+    """Each variant by its own nvcc, all started together: {name: its
+    entry point}; ptxas's lines of each kernel are in <tag>_<name>.log."""
     _OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, (_, reps) in VARIANTS.items():
-        cu = _OUT / f"{name}.cu"
+    for name, (_, reps) in variants.items():
+        cu = _OUT / f"{tag}_{name}.cu"
         cu.write_text(_source(reps))
         procs[name] = subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o",
-             str(_OUT / f"{name}.so"), str(cu)],
+            [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build._CSRC),
+             "-shared", "-o", str(_OUT / f"{tag}_{name}.so"), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     fns = {}
     for name, proc in procs.items():
         log = proc.communicate()[0]
+        (_OUT / f"{tag}_{name}.log").write_text(log)
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
-        fn = ctypes.CDLL(str(_OUT / f"{name}.so")).rat_win_attention
-        fn.argtypes = list(build.SIGNATURES["rat_win_attention"])
+        fn = getattr(ctypes.CDLL(str(_OUT / f"{tag}_{name}.so")), entry)
+        fn.argtypes = list(build.SIGNATURES[entry])
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
@@ -126,22 +206,40 @@ def _time_ms(fn, reps: int = 11) -> float:
     return statistics.median(times)
 
 
+def _registers(tag: str, name: str) -> str:
+    """The f32 kernel's registers and spills from the variant's ptxas
+    lines."""
+    log = (_OUT / f"{tag}_{name}.log").read_text()
+    block = log.split("win_attention_tf32x3_kernelILi80E", 1)[-1]
+    regs = re.search(r"Used (\d+) registers", block)
+    spill = re.search(r"(\d+) bytes spill stores", block)
+    return (f"{regs.group(1) if regs else '?'} registers, spill "
+            f"{spill.group(1) if spill else '?'} B")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("winattn_variants: needs a CUDA device")
     dev = torch.device("cuda")
-    fns = _build_all()
-    for name, (what, _) in VARIANTS.items():
-        print(f"[variant] {name}: {what}", flush=True)
+    f32 = "--f32" in sys.argv[1:]
+    dtype = torch.float32 if f32 else torch.bfloat16
+    table, shapes = (F32_VARIANTS, F32_SHAPES) if f32 else (VARIANTS, SHAPES)
+    fns = (_build_all(F32_VARIANTS, "rat_win_attention_f32", "winf32") if f32
+           else _build_all())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name, (what, _) in table.items():
+        regs = f" (hd 80: {_registers('winf32', name)})" if f32 else ""
+        print(f"[variant] {'B11 f32 ' if f32 else ''}{name}: {what}{regs}",
+              flush=True)
     g = torch.Generator(device=dev).manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
-    for b, side, heads, hd in SHAPES:
+    for b, side, heads, hd in shapes:
         n, d = side * side, heads * hd
-        qkv = torch.randn((b, n, 3 * d), generator=g, device=dev).bfloat16()
+        qkv = torch.randn((b, n, 3 * d), generator=g, device=dev).to(dtype)
         bh, bw = (torch.randn((b, n, heads * side), generator=g,
-                              device=dev).bfloat16() for _ in range(2))
+                              device=dev).to(dtype) for _ in range(2))
         want = wa.windowed_attend_reference(qkv, bh, bw, heads, side).float()
-        out = torch.empty((b, n, d), dtype=torch.bfloat16, device=dev)
+        out = torch.empty((b, n, d), dtype=dtype, device=dev)
         parts = []
         for name, fn in fns.items():
             def call(fn=fn):
@@ -158,7 +256,7 @@ def main() -> None:
         mask = (bh.float().reshape(b, n, heads, side).transpose(1, 2)
                 .repeat_interleave(side, -1)
                 + bw.float().reshape(b, n, heads, side).transpose(1, 2)
-                .repeat(1, 1, 1, side)).bfloat16()
+                .repeat(1, 1, 1, side)).to(dtype)
         sdpa = _time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask))
         print(f"[variants] qkv [{b},{n},{3 * d}] heads {heads}: "

@@ -1,7 +1,7 @@
 """Attention kernels K1 (flash attention), K2 (token→image cross
 attention), B10 (the same without pe and v bias, on separate kᵀ and vᵀ)
 and K5 (fused image→token update), each beside its plain PyTorch version;
-K1, K2 and K5 in bf16 and in f32 (an f32 SAM, the JAX package's default).
+each in bf16 and in f32 (an f32 SAM, the JAX package's default).
 
 Counterpart of ``revisit_anything_tpu/ops/attention.py`` (``attend``
 :561, ``token_cross_attend_kv`` :467, ``token_cross_attend`` :200,
@@ -20,7 +20,7 @@ import torch
 from revisit_anything_tpu_torch.kernels.build import (
     FLASH_ATTENTION, FLASH_ATTENTION_F32, FLASH_ATTENTION_F32_BIAS,
     I2T_UPDATE, I2T_UPDATE_F32, TOKEN_CROSS, TOKEN_CROSS_F32,
-    TOKEN_CROSS_SPLIT, operand)
+    TOKEN_CROSS_SPLIT, TOKEN_CROSS_SPLIT_F32, operand)
 
 
 def i2t_f32_scratch(device: torch.device) -> int:
@@ -146,8 +146,9 @@ def token_cross_attend(q: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
     keys and values transposed: kt, vt [B or 1, D, M] (leading dim 1 =
     shared by every prompt). Returns [B, n, D].
 
-    CUDA: kernel B10 (bf16, head dim 16, n 7 or 8, M % 8 == 0). CPU:
-    :func:`token_cross_attend_reference`."""
+    CUDA: kernel B10 by q's dtype, bf16 or f32 (head dim 16, n 7 or 8,
+    M % 8 == 0; f32: products in split TF32 on the tensor cores); other
+    dtypes raise. CPU: :func:`token_cross_attend_reference`."""
     if not q.is_cuda:
         return token_cross_attend_reference(q, kt, vt, heads)
     b, n, d = q.shape
@@ -160,13 +161,14 @@ def token_cross_attend(q: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
     if m % 8:
         raise ValueError(f"token cross attention: M={m} is not a multiple "
                          "of 8")
-    qf = operand("q", q, torch.bfloat16, (b, n, d))
-    kf = operand("kt", kt, torch.bfloat16, (lead, d, m))
-    vf = operand("vt", vt, torch.bfloat16, (lead, d, m))
+    dt = kernel_dtype("token cross attention", q)
+    qf = operand("q", q, dt, (b, n, d))
+    kf = operand("kt", kt, dt, (lead, d, m))
+    vf = operand("vt", vt, dt, (lead, d, m))
     out = torch.empty_like(qf)
-    TOKEN_CROSS_SPLIT.launch(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
-                             out.data_ptr(), b, n, d, m, heads,
-                             int(lead == 1))
+    (TOKEN_CROSS_SPLIT_F32 if dt == torch.float32 else TOKEN_CROSS_SPLIT
+     ).launch(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), out.data_ptr(), b,
+              n, d, m, heads, int(lead == 1))
     return out
 
 

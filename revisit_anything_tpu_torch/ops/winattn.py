@@ -5,8 +5,11 @@ version.
 Counterpart of ``revisit_anything_tpu/ops/winattn.py`` ``windowed_attend``
 (:112; kernel body ``_win_attn_kernel`` :45). The kernel reads the raw qkv
 projection and the q-projected bias components in place: no split,
-permute or copy on the torch side. A wrapper takes the plain version only
-for CPU tensors; for CUDA tensors it launches the kernel or raises.
+permute or copy on the torch side. It runs in bf16 or in f32 (an f32 SAM,
+the JAX package's default dtype: products in split TF32 on the tensor
+cores, entry ``rat_win_attention_f32``). A wrapper takes the plain version
+only for CPU tensors; for CUDA tensors it launches the kernel of the
+operands' dtype or raises.
 """
 
 from __future__ import annotations
@@ -15,7 +18,10 @@ import math
 
 import torch
 
-from revisit_anything_tpu_torch.kernels.build import WIN_ATTENTION, operand
+from revisit_anything_tpu_torch.kernels.build import (WIN_ATTENTION,
+                                                      WIN_ATTENTION_F32,
+                                                      operand)
+from revisit_anything_tpu_torch.ops.attention import kernel_dtype
 
 # the kernel takes every square window below 1024 tokens (side ≤ 31),
 # as many as the encoder's "kernel" rule sends it
@@ -54,8 +60,9 @@ def windowed_attend(qkv: torch.Tensor, bias_h: torch.Tensor,
     bias_h, bias_w [B, N, heads·side] the q-projected decomposed rel-pos
     bias in head-major channels (channel h·side + kh). Returns [B, N, D].
 
-    CUDA: kernel B11 (bf16, head dim 64 or 80, N ≤ 1023). CPU:
-    :func:`windowed_attend_reference`."""
+    CUDA: kernel B11 by qkv's dtype, bf16 or f32 (head dim 64 or 80, N ≤
+    1023; f32: products in split TF32 on the tensor cores, as accurate as
+    f32); other dtypes raise. CPU: :func:`windowed_attend_reference`."""
     b, n, three_d = qkv.shape
     if n != side * side or three_d % (3 * heads):
         raise ValueError(f"windowed attention: N={n}, side={side}, "
@@ -67,12 +74,12 @@ def windowed_attend(qkv: torch.Tensor, bias_h: torch.Tensor,
     if hd not in (64, 80) or n > MAX_TOKENS:
         raise ValueError(f"windowed attention: head dim {hd}, N={n} not "
                          f"built (64 or 80, N <= {MAX_TOKENS})")
-    bf = torch.bfloat16
-    x = operand("qkv", qkv, bf, (b, n, three_d))
-    bh = operand("bias_h", bias_h, bf, (b, n, heads * side))
-    bw = operand("bias_w", bias_w, bf, (b, n, heads * side))
-    out = torch.empty((b, n, d), dtype=bf, device=qkv.device)
-    WIN_ATTENTION.launch(x.data_ptr(), bh.data_ptr(), bw.data_ptr(),
-                         out.data_ptr(), b, n, side, heads, hd,
-                         1.0 / math.sqrt(hd))
+    dt = kernel_dtype("windowed attention", qkv)
+    x = operand("qkv", qkv, dt, (b, n, three_d))
+    bh = operand("bias_h", bias_h, dt, (b, n, heads * side))
+    bw = operand("bias_w", bias_w, dt, (b, n, heads * side))
+    out = torch.empty((b, n, d), dtype=dt, device=qkv.device)
+    (WIN_ATTENTION_F32 if dt == torch.float32 else WIN_ATTENTION).launch(
+        x.data_ptr(), bh.data_ptr(), bw.data_ptr(), out.data_ptr(), b, n,
+        side, heads, hd, 1.0 / math.sqrt(hd))
     return out

@@ -322,6 +322,34 @@ def test_split_tf32_token_cross_arithmetic_matches_jax(shared, scale):
                     want) > 1e-5
 
 
+@pytest.mark.parametrize("scale", [1.0, 2.0])
+@pytest.mark.parametrize("shared", [True, False])
+def test_split_tf32_token_cross_split_arithmetic_matches_jax(shared, scale):
+    """B10 f32 is K2 f32's kernel without pe and v bias (its stage copies k
+    and v only and splits them into the same planes): K2 f32's emulation
+    with pe and bias at zero (k + 0 and v + 0 are exact) is within 1e-5 of
+    JAX ``token_cross_attend`` in f32 (its Pallas kernel in interpret
+    mode), shared and per prompt; at q, kᵀ x 2 one TF32 pass misses by
+    far. SAM's widths; M = 200 ends on a ragged tile."""
+    from revisit_anything_tpu.ops.attention import token_cross_attend
+    rng = np.random.default_rng(50 + shared + int(scale))
+    b, n, d, heads, m = 3, 7, 128, 8, 200
+    lead = 1 if shared else b
+    sc = np.float32(scale)
+    q = rng.standard_normal((b, n, d)).astype(np.float32) * sc
+    kt = rng.standard_normal((lead, d, m)).astype(np.float32) * sc
+    vt = rng.standard_normal((lead, d, m)).astype(np.float32)
+    want = torch.from_numpy(np.array(token_cross_attend(
+        *map(jnp.asarray, (q, kt, vt)), heads)))
+    args = (torch.from_numpy(q), torch.from_numpy(np.concatenate([kt, vt], 1)),
+            torch.zeros(1, d, m), torch.zeros(d))
+    tk = 64 if shared else 32
+    assert _rel(_token_cross_tf32(*args, heads, tk, split=True), want) < 1e-5
+    if scale > 1:
+        assert _rel(_token_cross_tf32(*args, heads, tk, split=False),
+                    want) > 1e-5
+
+
 def _i2t_tf32(img, peq, tok_k, tok_v, w_q, b_q, w_out, b_out, ln_s, ln_b,
               w_kv, heads: int, eps: float, split: bool):
     """The arithmetic of K5's f32 kernel (i2t_update.cu

@@ -147,8 +147,8 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 def test_kernel_table_points_at_sources():
-    assert len(build.KERNELS) == 18
-    assert len({k.entry for k in build.KERNELS}) == 18
+    assert len(build.KERNELS) == 20
+    assert len({k.entry for k in build.KERNELS}) == 20
     for k in build.KERNELS:
         assert os.path.exists(os.path.join(REPO, k.source)), k.source
         path, line = k.replaces.split(":")
@@ -157,12 +157,12 @@ def test_kernel_table_points_at_sources():
 
 
 def test_winattn_variants_patch_the_kernel_source():
-    """Every variant of ``kernels.winattn_variants`` still finds the lines
-    it replaces in ``win_attention.cu`` (the tool runs only on the
-    card)."""
+    """Every variant of ``kernels.winattn_variants``, of B11's bf16 and f32
+    forms, still finds the lines it replaces in ``win_attention.cu`` (the
+    tool runs only on the card)."""
     from revisit_anything_tpu_torch.kernels import winattn_variants as wv
     base = wv._SRC.read_text()
-    for name, (_, reps) in wv.VARIANTS.items():
+    for name, (_, reps) in (*wv.VARIANTS.items(), *wv.F32_VARIANTS.items()):
         text = wv._source(reps)
         assert (text == base) == (not reps), name
 
@@ -534,9 +534,9 @@ def test_sharded_step_on_a_1x1_nccl_mesh_matches_train_step(cuda):
             assert torch.equal(got[name], s), name
 
 
-def _win_inputs(cuda, b, side, heads, hd, seed=9):
+def _win_inputs(cuda, b, side, heads, hd, seed=9, dtype=torch.bfloat16):
     g = torch.Generator(device=cuda).manual_seed(seed)
-    bf = torch.bfloat16
+    bf = dtype
     n = side * side
     qkv = torch.randn((b, n, 3 * heads * hd), generator=g, device=cuda).to(bf)
     bh, bw = (torch.randn((b, n, heads * side), generator=g,
@@ -875,6 +875,68 @@ def test_token_cross_kernel_f32_matches_plain(cuda, shared, b, n, m, scale):
     assert _rel_err(got, want) < F32_REL
 
 
+# B10 f32's cases: TOKEN_CASES (both schedules, n 7 and 8, ragged M), then
+# q and kᵀ x 2 (scores of std ~4, where one TF32 pass would miss by ~1e-3)
+# shared at n 7 and per prompt at n 8
+TOKEN_SPLIT_F32_CASES = [
+    *(pytest.param(*c, 1.0, id="-".join(map(str, c))) for c in TOKEN_CASES),
+    pytest.param(True, 64, 7, 4096, 2.0, id="True-64-7-4096-x2"),
+    pytest.param(False, 16, 8, 4096, 2.0, id="False-16-8-4096-x2")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared,b,n,m,scale", TOKEN_SPLIT_F32_CASES)
+def test_token_cross_split_kernel_f32_matches_plain(cuda, shared, b, n, m,
+                                                    scale):
+    """B10 f32 (K2 f32's kernel without pe and v bias) against its plain
+    version in f32."""
+    q, kt, vt = _token_inputs(cuda, b, n, m, 1 if shared else b, pe=False,
+                              seed=8, dtype=torch.float32)
+    args = (q * scale, kt * scale, vt)
+    before = (build.TOKEN_CROSS_SPLIT_F32.launches,
+              build.TOKEN_CROSS_SPLIT.launches)
+    got = att.token_cross_attend(*args, 8)
+    want = att.token_cross_attend_reference(*args, 8)
+    torch.cuda.synchronize()
+    assert (build.TOKEN_CROSS_SPLIT_F32.launches,
+            build.TOKEN_CROSS_SPLIT.launches) == (before[0] + 1, before[1])
+    assert got.dtype == torch.float32
+    assert got.shape == want.shape == (b, n, 128)
+    assert _rel_err(got, want) < F32_REL
+
+
+# B11 f32's cases: WIN_CASES (SAM ViT-H's windowed layer and one window of
+# it, head dim 64, side 16, N = 25, sides 20 and 31 at both head dims: K
+# and V stream through the ring at every side), then q x 4 (scores of std
+# ~4, where one TF32 pass would miss by ~1e-3) at the served window and at
+# side 16 with head dim 64
+WIN_F32_CASES = [
+    *(pytest.param(*c, 1.0, id="-".join(map(str, c))) for c in WIN_CASES),
+    pytest.param(4, 14, 4, 80, 4.0, id="4-14-4-80-q-x4"),
+    pytest.param(2, 16, 2, 64, 4.0, id="2-16-2-64-q-x4")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,side,heads,hd,scale", WIN_F32_CASES)
+def test_win_attention_kernel_f32_matches_plain(cuda, b, side, heads, hd,
+                                                scale):
+    """B11 f32 against its plain version in f32, from the SAM shape to N =
+    961, twice on the same inputs (bit for bit)."""
+    qkv, bh, bw = _win_inputs(cuda, b, side, heads, hd, dtype=torch.float32)
+    qkv[..., :heads * hd] *= scale
+    before = (build.WIN_ATTENTION_F32.launches, build.WIN_ATTENTION.launches)
+    got = wa.windowed_attend(qkv, bh, bw, heads, side)
+    want = wa.windowed_attend_reference(qkv, bh, bw, heads, side)
+    again = wa.windowed_attend(qkv, bh, bw, heads, side)
+    torch.cuda.synchronize()
+    assert (build.WIN_ATTENTION_F32.launches,
+            build.WIN_ATTENTION.launches) == (before[0] + 2, before[1])
+    assert got.dtype == torch.float32
+    assert got.shape == want.shape == (b, side * side, heads * hd)
+    assert _rel_err(got, want) < F32_REL
+    assert torch.equal(got, again)
+
+
 # K5 f32's cases: I2T_CASES (their ids as before), then the branch and the
 # token keys x 4 (sharper softmaxes; one TF32 pass would miss by ~5e-4) on
 # the shared branch and per prompt
@@ -1000,10 +1062,13 @@ def test_resize_kernel_f32_matches_plain(cuda, orig_hw, np_, m, const, side):
 
 @pytest.mark.gpu
 def test_f32_kernels_dispatch_on_dtype(cuda):
-    """The five wrappers of the default SAM path send bf16 CUDA tensors to
-    the bf16 kernels, f32 ones to the f32 kernels, and raise on f16."""
+    """The seven wrappers with an f32 form (the five of the default SAM
+    path, the window kernel and B10) send bf16 CUDA tensors to the bf16
+    kernels, f32 ones to the f32 kernels, and raise on f16."""
     flash, side = _flash_inputs(cuda, 1, 256, 80, True)
     token = _token_inputs(cuda, 4, 7, 1024, 1, pe=True)
+    split = _token_inputs(cuda, 4, 7, 1024, 4, pe=False)
+    win = _win_inputs(cuda, 2, 14, 2, 80)
     i2t = _i2t_inputs(cuda, True, 4, 128)
     head = _mask_head_inputs(cuda, 2, 128, 3)
     x, whd, wwd, grid = _resize_inputs(cuda, (240, 320), 2, 3)
@@ -1012,6 +1077,10 @@ def test_f32_kernels_dispatch_on_dtype(cuda):
             lambda c: att.attend(*c(flash), side=side),
         (build.TOKEN_CROSS, build.TOKEN_CROSS_F32):
             lambda c: att.token_cross_attend_kv(*c(token), 8),
+        (build.TOKEN_CROSS_SPLIT, build.TOKEN_CROSS_SPLIT_F32):
+            lambda c: att.token_cross_attend(*c(split), 8),
+        (build.WIN_ATTENTION, build.WIN_ATTENTION_F32):
+            lambda c: wa.windowed_attend(*c(win), 2, 14),
         (build.I2T_UPDATE, build.I2T_UPDATE_F32):
             lambda c: att.i2t_update(*c(i2t), 8, 1e-6),
         (build.MASK_HEAD, build.MASK_HEAD_F32):
@@ -1040,27 +1109,34 @@ def test_f32_kernels_dispatch_on_dtype(cuda):
 
 
 @pytest.mark.gpu
-def test_generate_masks_batch_f32_on_the_card_matches_the_cpu(cuda):
+@pytest.mark.parametrize("windows", ["plain", "kernel"])
+def test_generate_masks_batch_f32_on_the_card_matches_the_cpu(cuda, windows):
     """An f32 SAM (the JAX package's default dtype) on two images through
     the f32 kernels, and no bf16 kernel, keeps the masks the CPU's f32
     plain path keeps from the same weights: the same count an image and
-    every mask at IoU >= 0.95 with one of the CPU's."""
+    every mask at IoU >= 0.95 with one of the CPU's. With kernel windows
+    the windowed layer and the 16x16 global layer take B11 f32 (2
+    launches) in K1 f32's place."""
     import copy
 
     from revisit_anything_tpu_torch.models.sam.amg import (
         AmgConfig, generate_masks_batch)
     sam = _offline_sam(torch.float32)
     card = copy.deepcopy(sam).to(cuda)
+    sam.encoder.window_attention = card.encoder.window_attention = windows
     rng = np.random.default_rng(21)
     imgs = [_blob_image(rng, (224, 224)) for _ in range(2)]
     amg = AmgConfig(points_per_side=8, points_per_batch=64,
                     pred_iou_thresh=-1e9, stability_score_thresh=0.0)
     build.reset_counts()
     got = generate_masks_batch(card, imgs, amg, max_masks=32)
-    f32 = (build.FLASH_ATTENTION_F32_BIAS, build.TOKEN_CROSS_F32,
-           build.I2T_UPDATE_F32, build.MASK_HEAD_F32, build.RESIZE_FLAGS_F32)
+    encode = (build.WIN_ATTENTION_F32 if windows == "kernel"
+              else build.FLASH_ATTENTION_F32_BIAS)
+    f32 = (encode, build.TOKEN_CROSS_F32, build.I2T_UPDATE_F32,
+           build.MASK_HEAD_F32, build.RESIZE_FLAGS_F32)
     counts = {k.name: k.launches for k in build.KERNELS if k.launches}
     assert sorted(counts) == sorted(k.name for k in f32), counts
+    assert encode.launches == (2 if windows == "kernel" else 1)
     want = generate_masks_batch(sam, imgs, amg, max_masks=32)
     for g, w in zip(got, want):
         assert len(g) == len(w) > 8

@@ -346,6 +346,43 @@ def test_generate_masks_of_an_f32_sam_matches_jax(models):
         assert abs(g.predicted_iou - w.predicted_iou) <= 1e-4
 
 
+def test_generate_masks_batch_of_an_f32_sam_with_kernel_windows_matches_jax(
+        models):
+    """The slice as a whole: an f32 SAM with ``window_attention="kernel"``
+    (B11 for the windowed layers and the 8x8 global one; B11 f32 on the
+    card, its plain version here) through ``generate_masks_batch`` on two
+    images, against JAX's f32 ``generate_masks_batch`` with ``_WINATTN =
+    "on"`` (its Pallas window kernel in interpret mode) from the same
+    weights: each image's records in JAX's order, each mask equal but for
+    pixels within f32 summation order of the threshold (at most 1e-3 of
+    a mask), predicted IoUs within 1e-4."""
+    from revisit_anything_tpu.models.sam import encoder as jenc
+    tree, sam = models
+    rng = np.random.default_rng(17)
+    imgs = [_image(rng) for _ in range(2)]
+    kw = dict(AMG_KW, crop_n_layers=0)
+    old = jenc._WINATTN
+    try:
+        jenc._WINATTN = "on"
+        jenc.encode_image.clear_cache()
+        want = jamg.generate_masks_batch(tree, JCFG, imgs,
+                                         jamg.AmgConfig(**kw))
+    finally:
+        jenc._WINATTN = old
+        jenc.encode_image.clear_cache()
+    sam.encoder.window_attention = "kernel"
+    try:
+        got = pamg.generate_masks_batch(sam, imgs, pamg.AmgConfig(**kw))
+    finally:
+        sam.encoder.window_attention = "plain"
+    for got_i, want_i in zip(got, want):
+        assert len(got_i) == len(want_i) > 8
+        for g, w in zip(got_i, want_i):
+            assert (g.segmentation != w.segmentation).mean() <= 1e-3
+            np.testing.assert_array_equal(g.point_coords, w.point_coords)
+            assert abs(g.predicted_iou - w.predicted_iou) <= 1e-4
+
+
 def test_multicrop_with_one_crop_is_generate_masks(models):
     _, sam = models
     img = _image(np.random.default_rng(9))
