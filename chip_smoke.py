@@ -14,7 +14,7 @@ drive the command line.
 
 Phases (any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the twenty kernel entries from
+  2. build the twenty-two kernel entries from
      revisit_anything_tpu_torch/kernels/csrc (one nvcc per source, in
      parallel);
   3. print the registers, shared memory and spill bytes of the redesigned
@@ -23,8 +23,10 @@ Phases (any failure exits non-zero):
      and its K/V split at head dims 64 and 80, K1 f32 with the bias, the
      f32 forms of K2 and B10 (both schedules each) and K5 (both layers
      and its weight split), K3 f32, K4 f32 and B11 f32 at head dims 64
-     and 80) from ptxas.log, and the tensor-core instructions in the SASS
-     of B3's three instantiations, B7's layer 2, B8's two depths, K2 f32's
+     and 80, B7 f32 in its two layers and B8 f32 at its two depths) from
+     ptxas.log, and the tensor-core instructions in the SASS
+     of B3's three instantiations, B7's layer 2, B8's two depths, their
+     f32 forms, K2 f32's
      and B10 f32's two schedules and B11 f32 at both head dims (HMMA) and
      of K1 f32 at
      head dims 64 and 80 and with the bias and K5 f32 at both layers
@@ -35,7 +37,9 @@ Phases (any failure exits non-zero):
      K2 and K5 also at multi-crop AMG's crop shapes: 256 prompts, gh
      52; the f32 forms of K1 with the bias, K2, K5, K3 and K4 at the f32
      served query's shapes, B11 f32 at SAM ViT-H's windowed layer and at
-     head dim 64 and B10 f32 in both schedules, within 1e-5, K4's flags
+     head dim 64 and B10 f32 in both schedules, within 1e-5, B7 f32 at
+     its two layers within one bf16 ulp of P and B8 f32 at its two depths
+     within 1e-5 (1024 prompts, M 4096), K4's flags
      equal outside a band
      of 1e-5 of the logits' scale around each threshold, the band's
      pixels counted), timing both with CUDA events (median of 7 after
@@ -98,7 +102,15 @@ Phases (any failure exits non-zero):
      the planted image first; the kept masks against the f32 plain path
      with plain windows: the same count, each at IoU >= 0.95) and the
      encode stage with plain and kernel windows (CUDA events, median of 3
-     after one, in turns);
+     after one, in turns); then the f32 "probs_split" two-way transformer
+     (decoder.run_two_way_probs) on the first planted query's embedding
+     and its 1024 grid prompts, counters reset first: K2 f32 once, B7 f32
+     and B8 f32 twice each and no other kernel; against the same call
+     with those three swapped for their plain f32 versions (no kernel):
+     P1 and P2 within one bf16 ulp, the token state and C2 within 2^-8 of
+     their scale; its ms beside the f32 "shared" transformer's (CUDA
+     events, median of 3 after one, in turns); the mask head after it
+     (B6) has no f32 form yet;
  10. [insert], continued: remove planted image 1 (its noisy copy must no
      longer find it), snapshot the database to an npz and restore it
      into a fresh server: the same top-5 on the three queries;
@@ -188,8 +200,8 @@ Phases (any failure exits non-zero):
  22. print the kernel table as one JSON line (B10, token_cross_split and
      token_cross_split_f32, has no caller on a serving path, as in the JAX
      package: launches 0; the f32 forms' launches are the 3 f32
-     queries', B11 f32's the f32 kernel-window query's), then the result
-     line.
+     queries', B11 f32's the f32 kernel-window query's, B7 f32's and B8
+     f32's the f32 "probs_split" transformer's), then the result line.
 """
 
 from __future__ import annotations
@@ -382,28 +394,45 @@ PTXAS_KERNELS = (
      "rat_decode_tail_smem", ()),
     ("decode_tail_kernelILi2E", "B3 logits mode (then K3)",
      "rat_decode_tail_logits", "rat_decode_tail_smem", ()),
-    ("i2t_probs_l1_kernel", "B7 layer 1", "rat_i2t_probs",
+    ("i2t_probs_l1_kernelI13__nv_bfloat16E", "B7 layer 1", "rat_i2t_probs",
      "rat_i2t_probs_smem", (1,)),
-    ("i2t_probs_l2_kernel", "B7 layer 2", "rat_i2t_probs",
+    ("i2t_probs_l2_kernelI13__nv_bfloat16E", "B7 layer 2", "rat_i2t_probs",
      "rat_i2t_probs_smem", (2,)),
-    ("t2i_probs_kernelILi1E", "B8 depth 1", "rat_t2i_probs",
+    ("t2i_probs_kernelI13__nv_bfloat16Li1E", "B8 depth 1", "rat_t2i_probs",
      "rat_t2i_probs_smem", (1,)),
-    ("t2i_probs_kernelILi2E", "B8 depth 2", "rat_t2i_probs",
+    ("t2i_probs_kernelI13__nv_bfloat16Li2E", "B8 depth 2", "rat_t2i_probs",
      "rat_t2i_probs_smem", (2,)),
+    ("i2t_probs_l1_kernelIfE", "B7 f32 layer 1", "rat_i2t_probs_f32",
+     "rat_i2t_probs_f32_smem", (1,)),
+    ("i2t_probs_l2_kernelIfE", "B7 f32 layer 2", "rat_i2t_probs_f32",
+     "rat_i2t_probs_f32_smem", (2,)),
+    ("t2i_probs_kernelIfLi1E", "B8 f32 depth 1", "rat_t2i_probs_f32",
+     "rat_t2i_probs_f32_smem", (1,)),
+    ("t2i_probs_kernelIfLi2E", "B8 f32 depth 2", "rat_t2i_probs_f32",
+     "rat_t2i_probs_f32_smem", (2,)),
 )
 
 # The kernels whose products run by mma.sync (HMMA): B3's instantiations,
 # by their emission (keys, probability, logits mode), B7's layer 2, B8's
-# two depths, K2 f32's and B10 f32's two schedules and B11 f32's two head
-# dims (TF32); and K1 f32's, K5 f32's and
+# two depths and their f32 forms (fp16: the f32 rebuild's planes), K2
+# f32's and B10 f32's two schedules and B11 f32's two head dims (TF32);
+# and K1 f32's, K5 f32's and
 # K3 f32's, by TF32 wgmma (HGMMA ... TF32): (piece of the mangled name,
 # label, the instruction that must be there)
+# the f32 rebuild's fp16 product at depth 8 (the bf16 kernels' are
+# HMMA.1688.F32.BF16)
+F16_K8 = r"HMMA\.1688\.F32(\.F16)?$"
 MMA_SASS = (("decode_tail_kernelILi0E", "B3 keys mode", "HMMA"),
             ("decode_tail_kernelILi1E", "B3 probability mode", "HMMA"),
             ("decode_tail_kernelILi2E", "B3 logits mode", "HMMA"),
-            ("i2t_probs_l2_kernel", "B7 layer 2", "HMMA"),
-            ("t2i_probs_kernelILi1E", "B8 depth 1", "HMMA"),
-            ("t2i_probs_kernelILi2E", "B8 depth 2", "HMMA"),
+            ("i2t_probs_l2_kernelI13__nv_bfloat16E", "B7 layer 2", "HMMA"),
+            ("t2i_probs_kernelI13__nv_bfloat16Li1E", "B8 depth 1",
+             "HMMA"),
+            ("t2i_probs_kernelI13__nv_bfloat16Li2E", "B8 depth 2",
+             "HMMA"),
+            ("i2t_probs_l2_kernelIfE", "B7 f32 layer 2", F16_K8),
+            ("t2i_probs_kernelIfLi1E", "B8 f32 depth 1", F16_K8),
+            ("t2i_probs_kernelIfLi2E", "B8 f32 depth 2", F16_K8),
             ("flash_attention_tf32x3_kernelILi64ELi0E", "K1 f32 Dh 64",
              "HGMMA.*TF32"),
             ("flash_attention_tf32x3_kernelILi80ELi0E", "K1 f32 Dh 80",
@@ -772,11 +801,14 @@ def compare_f32_kernels(dev, check) -> None:
     (the bias form's floor), K2 (shared and per-prompt k|v,
     1024 prompts), K5 (layers 1 and 2), K3 (1024 prompts, content 3136,
     M 3) and K4 (17places); and the window kernel's (SAM ViT-H's windowed
-    layer, and at head dim 64) and B10's (as K2's); each against its plain
+    layer, and at head dim 64) and B10's (as K2's), and B7's (layers 1 and
+    2) and B8's (depths 1 and 2) at the "probs_split" decode's (1024
+    prompts, M 4096, P bf16); each against its plain
     version in f32 with TF32 off. Bound (as K1 f32's rows): the larger of the bytes over
     3.35 TB/s and the products as three TF32 passes at 495 TFLOP/s; K1's
     softmax operations on the FMA units as in its no-bias rows, K4's taps
-    as f32 FMAs as in its bf16 row."""
+    as f32 FMAs as in its bf16 row; B7's and B8's as compare_probs_f32
+    says."""
     import torch
 
     from revisit_anything_tpu_torch.kernels import build
@@ -970,6 +1002,91 @@ def compare_f32_kernels(dev, check) -> None:
           flags_err_f32, 0.0, (logits,) + taps, (0, 2 * 1024 * 3 * n_taps),
           rate=True)
     del logits, near
+    torch.cuda.empty_cache()
+    compare_probs_f32(dev, check, rnd)
+
+
+def compare_probs_f32(dev, check, rnd) -> None:
+    """B7 f32 (layers 1 and 2) and B8 f32 (depths 1 and 2) at 1024 prompts
+    and M 4096, with inputs as compare_probs_kernels makes them but in f32
+    (P bf16); the plain versions on the first 256 prompts (their f32
+    [B, 4096, 256] branch), the kernel timed at 1024. B8 f32 within
+    F32_REL; B7 f32's bf16 P within one bf16 ulp of its plain version
+    everywhere (its error column is the largest |diff| in ulps), the
+    share of elements that differ at most PROBS_F32_MOVED. Bound: bytes,
+    against the products as the kernels run them on the tensor cores, at
+    the fp16 rate (BF16_FLOP_S, the same on the H100): each rebuild's P·C
+    as two passes (P x 2^15 is exact in fp16, C two 11-bit planes), the
+    scores' and the context's as three (both operands two planes), and the
+    pe terms as f32 multiply-adds."""
+    import torch
+
+    from revisit_anything_tpu_torch.kernels import build
+    from revisit_anything_tpu_torch.kernels.probs_compare import (
+        PROBS_F32_MOVED, bf16_ulps)
+    from revisit_anything_tpu_torch.ops import decode_probs as dpr
+
+    g = torch.Generator(device=dev).manual_seed(4323)
+    b, m, d, da, ht, c = 1024, 4096, 256, 128, 56, 256
+
+    def probs(n):
+        x = torch.randn((n, 8, 7, m), generator=g, device=dev) * 2.0
+        return torch.softmax(x, dim=2).reshape(n, ht, m).to(torch.bfloat16)
+
+    rows = torch.zeros((8, d), device=dev)
+    rows[[0, 3]] = rnd(2, d, s=0.1)
+    rows[[1, 4]] = rnd(2, d, s=0.1, off=1.0)
+    rows[[2, 5]] = rnd(2, d, s=0.1)
+    img0, q1st, peqt = rnd(1, m, d), rnd(1, da, m), rnd(1, da, m)
+    tok_k, qt = rnd(b, 7, da), rnd(b, 7, da)
+    p1, p2 = probs(b), probs(b)
+    c1, c2 = rnd(b, ht, d, s=0.3), rnd(b, ht, d, s=0.3)
+    w_q, w_k, w_v, vb = (rnd(d, da, s=0.1), rnd(d, da, s=0.1),
+                         rnd(d, da, s=0.1), rnd(da, s=0.1))
+    recon = 2 * b * m * ht * d          # one rebuild's P·C
+    rows_x_branch = 2 * b * m * ht * d  # [56, 256] rows against the branch
+    pe_term = 2 * b * ht * m * 16
+
+    def ulp_err(got, want):
+        """(largest |diff|, largest |diff| in bf16 ulps of the plain value);
+        prints the share of P's elements that differ, and fails above
+        PROBS_F32_MOVED of them."""
+        ulps, moved = bf16_ulps(got, want)
+        print(f"[kernel] i2t_probs_f32: {moved:.3e} of P's bf16 elements "
+              f"differ from the plain version's (tol {PROBS_F32_MOVED:g}), "
+              f"by at most {ulps:.3f} ulp", flush=True)
+        if moved > PROBS_F32_MOVED:
+            _fail(f"i2t_probs_f32: {moved:.3e} of P's elements moved, above "
+                  f"{PROBS_F32_MOVED:g}")
+        return (got.float() - want.float()).abs().max().item(), ulps
+
+    check(build.I2T_PROBS_F32,
+          "layer 1: q1st [1,128,4096] f32 -> P [1024,56,4096]",
+          lambda: dpr.i2t_probs(q1st, tok_k, 8),
+          lambda: dpr.i2t_probs_reference(q1st, tok_k, 8),
+          ulp_err, 1.0, (q1st, tok_k), (0, pe_term))
+    rec, rec_c = ((img0, p1, c1, peqt, w_q, rows),
+                  (img0, p1[:c], c1[:c], peqt, w_q, rows))
+    check(build.I2T_PROBS_F32, "layer 2: P1, C1 [1024,56,*] f32 -> P2",
+          lambda: dpr.i2t_probs(None, tok_k, 8, layer=2, recon=rec),
+          lambda: dpr.i2t_probs_reference(None, tok_k[:c], 8, layer=2,
+                                          recon=rec_c),
+          ulp_err, 1.0, (tok_k,) + rec,
+          (2 * recon + 3 * rows_x_branch, pe_term), plain_prompts=c)
+    for depth in (1, 2):
+        ps = (p2, c2) if depth == 2 else (None, None)
+        ps_c = (p2[:c], c2[:c]) if depth == 2 else (None, None)
+        args = (img0, p1, c1) + ps + (w_k, w_v, peqt, rows, vb, 8)
+        args_c = (img0, p1[:c], c1[:c]) + ps_c + (w_k, w_v, peqt, rows, vb,
+                                                  8)
+        check(build.T2I_PROBS_F32,
+              f"depth {depth}: q [1024,7,128] f32 over the rebuilt branch",
+              lambda: dpr.t2i_from_probs(qt, *args),
+              lambda: dpr.t2i_from_probs_reference(qt[:c], *args_c),
+              _rel, F32_REL, [qt] + [x for x in args if
+                                     isinstance(x, torch.Tensor)],
+              (2 * depth * recon + 3 * 2 * rows_x_branch, pe_term),
+              plain_prompts=c)
     torch.cuda.empty_cache()
 
 
@@ -1351,9 +1468,11 @@ F32_QUERY_LAUNCHES = {"flash_attention_f32_bias": 4, "flash_attention_f32": 31,
 def _plain_sam_f32():
     """SAM's kernels on the default path replaced by their plain versions
     (f32 on the card with TF32 off, as main() sets it): K1 and B11 in the
-    encoder, K2, K5 and K3 in the decoder, K4 in AMG."""
+    encoder, K2, K5 and K3 in the decoder, K4 in AMG; and B7 and B8, the
+    "probs_split" two-way transformer's."""
     from revisit_anything_tpu_torch.models.sam import amg, decoder, encoder
     from revisit_anything_tpu_torch.ops import attention as att
+    from revisit_anything_tpu_torch.ops import decode_probs as dpr
     from revisit_anything_tpu_torch.ops import maskhead as mh
     from revisit_anything_tpu_torch.ops import maskresize as mr
     from revisit_anything_tpu_torch.ops import winattn as wa
@@ -1370,6 +1489,8 @@ def _plain_sam_f32():
              (decoder, "token_cross_attend_kv",
               att.token_cross_attend_kv_reference),
              (decoder, "i2t_update", att.i2t_update_reference),
+             (decoder, "i2t_probs", dpr.i2t_probs_reference),
+             (decoder, "t2i_from_probs", dpr.t2i_from_probs_reference),
              (decoder, "fused_mask_head", mask_head),
              (amg, "fused_resize_flags", resize_flags))
     kept = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
@@ -1500,6 +1621,7 @@ def sam_f32_phase(srv, queries, planted, kw, seed) -> dict:
                 _fail(f"[sam-f32] query {i}: only {share:.4f} of the f32 "
                       "masks match a bf16 mask at IoU > 0.5")
     window = _sam_f32_window(fsrv, queries[0], planted[0])
+    probs = _sam_f32_probs_split(fsrv, queries[0])
     enc_ms, dec_ms = statistics.median(encode), statistics.median(decode)
     print(f"[sam-f32] f32 query: wall {statistics.median(wall):.1f} ms "
           f"(median of 3: {', '.join(f'{w:.1f}' for w in wall)}); encode "
@@ -1511,7 +1633,8 @@ def sam_f32_phase(srv, queries, planted, kw, seed) -> dict:
     torch.cuda.empty_cache()
     return dict(counts=dict(launches), wall_ms=wall, encode_ms=enc_ms,
                 decode_ms=dec_ms, stages_ms=stages, peak_gib=peak_gib,
-                agree_bf16=agree_bf16, plain_least_iou=plain_iou, **window)
+                agree_bf16=agree_bf16, plain_least_iou=plain_iou, **window,
+                **probs)
 
 
 def _sam_f32_window(fsrv, img, planted: int) -> dict:
@@ -1577,6 +1700,134 @@ def _sam_f32_window(fsrv, img, planted: int) -> dict:
     return dict(window_counts=counts, window_query_ms=wall,
                 window_least_iou=least, encode_plain_windows_ms=plain_ms,
                 encode_kernel_windows_ms=kernel_ms)
+
+
+# The f32 "probs_split" transformer's token state and C2 against its plain
+# witness, relative to their scale: K2 f32 and B8 f32 are within F32_REL
+# (1e-5) of their plain versions, and where a bf16 probability of P1 or
+# P2 rounds the other way (one ulp, 2^-8 of it, in at most
+# PROBS_F32_MOVED = 1e-3 of P) the state moves by about 1e-3 x 2^-8 ~
+# 4e-6 of its scale to first order. So the state stays within F32_REL;
+# one TF32 pass in a product (~1e-4) does not.
+PROBS_STATE_REL = F32_REL
+
+
+def _sam_f32_probs_split(fsrv, img) -> dict:
+    """[sam-f32]'s "probs_split" two-way transformer (see
+    :func:`sam_f32_phase`): the image's embedding and its 1024 grid
+    prompts as amg._decode_batch builds them, through
+    decoder.run_two_way_probs with the counters reset first, then with K2,
+    B7 and B8 swapped for their plain f32 versions (in chunks of 256
+    prompts, which are independent); its ms beside run_two_way_shared's."""
+    import torch
+
+    from revisit_anything_tpu_torch.kernels import build
+    from revisit_anything_tpu_torch.kernels.probs_compare import (
+        PROBS_F32_MOVED, bf16_ulps)
+    from revisit_anything_tpu_torch.models.sam import decoder as sd
+    from revisit_anything_tpu_torch.models.sam.amg import (
+        resize_mats_and_rows)
+    from revisit_anything_tpu_torch.models.sam.prompt import (
+        embed_points, no_mask_dense_embedding)
+    from revisit_anything_tpu_torch.pipeline import serve as sv
+
+    t0 = time.perf_counter()
+    sam, cfg, dev = fsrv.sam, fsrv.sam_cfg, fsrv.device
+    dec = sam.decoder
+    pts = fsrv._pts[:fsrv._bsz]
+    n = pts.shape[0]
+    gh = resize_mats_and_rows(cfg, tuple(fsrv.input_hw),
+                              tuple(fsrv.sam_hw))[2]
+    with torch.inference_mode():
+        img_dev = torch.from_numpy(img).to(dev)
+        emb = sam.encoder(sv._sam_preprocess_fused(
+            img_dev, fsrv._rh, fsrv._rw, cfg.image_size))[0]
+        sparse = embed_points(sam.prompt, cfg, pts[:, None, :],
+                              torch.ones((n, 1), dtype=torch.int32,
+                                         device=dev), pad=True)
+        dense = no_mask_dense_embedding(sam.prompt, cfg, 1)
+        g, d = cfg.grid, emb.shape[-1]
+        out_tokens = torch.cat([dec.iou_token, dec.mask_tokens], dim=0)
+        tokens = torch.cat([out_tokens[None].expand(n, -1, -1),
+                            sparse.to(out_tokens.dtype)], dim=1)
+        shared_src = (emb[None] + dense[:1]).reshape(1, g * g, d)
+        src_pe_one = fsrv._image_pe.reshape(1, g * g, d).to(shared_src.dtype)
+        content = gh * g
+
+        def probs_split(lo=0, hi=n):
+            return sd.run_two_way_probs(dec, tokens[lo:hi], shared_src,
+                                        src_pe_one, cfg, "probs_split",
+                                        content)
+
+        def shared():
+            return sd.run_two_way_shared(dec, tokens, shared_src,
+                                         src_pe_one, cfg)
+
+        torch.cuda.synchronize()
+        build.reset_counts()
+        queries, (p1, _, p2, c2, _), _, _ = probs_split()
+        torch.cuda.synchronize()
+        counts = {k.name: k.launches for k in build.KERNELS if k.launches}
+        want = {build.TOKEN_CROSS_F32.name: 1, build.I2T_PROBS_F32.name: 2,
+                build.T2I_PROBS_F32.name: 2}
+        if counts != want:
+            _fail(f"[sam-f32] probs_split transformer launched {counts}, "
+                  f"expected {want} and no other kernel")
+        with _plain_sam_f32():
+            build.reset_counts()
+            parts = [probs_split(lo, lo + 256) for lo in range(0, n, 256)]
+            torch.cuda.synchronize()
+            stray = [k.name for k in build.KERNELS if k.launches]
+        if stray:
+            _fail(f"[sam-f32] the plain probs_split transformer launched "
+                  f"{stray}")
+        w_queries = torch.cat([x[0] for x in parts])
+        w_p1, w_p2, w_c2 = (torch.cat([x[1][i] for x in parts])
+                            for i in (0, 2, 3))
+        del parts
+        moved = {}
+        for name, got, ref in (("P1", p1, w_p1), ("P2", p2, w_p2)):
+            ulps, moved[name] = bf16_ulps(got, ref)
+            if ulps > 1.0 or moved[name] > PROBS_F32_MOVED:
+                _fail(f"[sam-f32] probs_split {name} against its plain "
+                      f"witness: {moved[name]:.3e} of its elements moved "
+                      f"(tol {PROBS_F32_MOVED:g}), by at most {ulps:.3f} "
+                      "bf16 ulp (tol 1)")
+        state = {name: _rel(got, ref)[1] for name, got, ref in
+                 (("queries", queries, w_queries), ("C2", c2, w_c2))}
+        del w_p1, w_p2, w_c2, w_queries
+        times = {"probs_split": [], "shared": []}
+        for rep in range(4):
+            order = (("shared", "probs_split") if rep % 2
+                     else ("probs_split", "shared"))
+            for form in order:
+                fn = probs_split if form == "probs_split" else shared
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                out = fn()
+                end.record()
+                end.synchronize()
+                del out
+                times[form].append(start.elapsed_time(end))
+    probs_ms = statistics.median(times["probs_split"][1:])
+    shared_ms = statistics.median(times["shared"][1:])
+    print(f"[sam-f32] probs_split two-way transformer, {n} prompts: launches "
+          f"{counts}; against its plain witness (K2, B7, B8 plain f32): "
+          f"P1 {moved['P1']:.3e}, P2 {moved['P2']:.3e} of their bf16 "
+          f"elements differ (tol {PROBS_F32_MOVED:g}, each by one ulp at "
+          f"most), token state rel_err "
+          f"{state['queries']:.3e}, C2 {state['C2']:.3e} (tol "
+          f"{PROBS_STATE_REL:g}); {probs_ms:.3f} ms against the f32 shared "
+          f"transformer's {shared_ms:.3f} ms (CUDA events, median of 3 after "
+          f"one, in turns); the mask head after it (B6) has no f32 form; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if max(state.values()) > PROBS_STATE_REL:
+        _fail(f"[sam-f32] probs_split transformer against its plain witness:"
+              f" {state} above {PROBS_STATE_REL}")
+    return dict(probs_counts=counts, probs_moved=moved, probs_state=state,
+                probs_split_ms=probs_ms, shared_transformer_ms=shared_ms)
 
 
 def _noisy(rng, img):
@@ -4232,6 +4483,7 @@ def main() -> None:
                     or served["window"]["counts"][k.name]
                     or served["sam_f32"]["counts"].get(k.name, 0)
                     or served["sam_f32"]["window_counts"].get(k.name, 0)
+                    or served["sam_f32"]["probs_counts"].get(k.name, 0)
                     or backbones["counts"][k.name])
         table.append(dict(
             name=k.name, route="cuda", source=k.source, replaces=k.replaces,
@@ -4257,7 +4509,9 @@ def main() -> None:
           f"peak {f['peak_gib']:.2f} GiB, launches over 3 queries "
           f"{f['counts']}; encode with plain windows "
           f"{f['encode_plain_windows_ms']:.3f} ms, kernel windows "
-          f"{f['encode_kernel_windows_ms']:.3f} ms", flush=True)
+          f"{f['encode_kernel_windows_ms']:.3f} ms; probs_split transformer "
+          f"{f['probs_split_ms']:.3f} ms, shared transformer "
+          f"{f['shared_transformer_ms']:.3f} ms", flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

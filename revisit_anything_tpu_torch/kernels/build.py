@@ -85,10 +85,14 @@ SIGNATURES: Dict[str, Sequence] = {
     # q1st, tok_k, img0, p1, c1, peq2t, w_q, rows, out, b, m, layer, eps,
     # stream
     "rat_i2t_probs": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "rat_i2t_probs_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                          _P),
     # q, img0, p1, c1, p2, c2, w_k, w_v, pekt, rows, v_bias, out, b, m,
     # depth, eps, stream
     "rat_t2i_probs": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                       _I, _F, _P),
+    "rat_t2i_probs_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                          _I, _I, _F, _P),
     # img0, p1, c1m, p2, c2m, rows, up1_w, up1_b, ln_s, ln_b, up2_w, up2_b,
     # hyper, out, np, gg, content, n_masks, eps, ln_eps, n_ctas, stream
     "rat_mask_head_probs": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -111,7 +115,9 @@ SIGNATURES: Dict[str, Sequence] = {
     "rat_token_cross_f32_smem": (_I,),          # shared
     "rat_decode_tail_smem": (),
     "rat_i2t_probs_smem": (_I,),                # layer
+    "rat_i2t_probs_f32_smem": (_I,),            # layer
     "rat_t2i_probs_smem": (_I,),                # depth
+    "rat_t2i_probs_f32_smem": (_I,),            # depth
     "rat_resize_flags_smem": (_I, _I, _I),      # n_masks, w, h
     "rat_resize_flags_ctas": (_I, _I, _I),      # n_masks, w, h: CTAs an SM
     "rat_resize_flags_f32_smem": (_I, _I, _I),
@@ -300,13 +306,22 @@ WIN_ATTENTION_F32 = Kernel(
 TOKEN_CROSS_SPLIT_F32 = Kernel(
     "token_cross_split_f32", "rat_token_cross_f32", _SRC + "token_cross.cu",
     "revisit_anything_tpu/ops/attention.py:178")
+# and of the probability-factored decode's image→token probabilities and
+# token→image attention (an f32 SAM's "probs_split" two-way transformer)
+I2T_PROBS_F32 = Kernel(
+    "i2t_probs_f32", "rat_i2t_probs_f32", _SRC + "i2t_probs.cu",
+    "revisit_anything_tpu/ops/decode_probs.py:179")
+T2I_PROBS_F32 = Kernel(
+    "t2i_from_probs_f32", "rat_t2i_probs_f32", _SRC + "t2i_probs.cu",
+    "revisit_anything_tpu/ops/decode_probs.py:290")
 
 KERNELS = (FLASH_ATTENTION, TOKEN_CROSS, I2T_UPDATE, MASK_HEAD, RESIZE_FLAGS,
            I2T_PROBS, T2I_PROBS, MASK_HEAD_PROBS, DECODE_TAIL,
            DECODE_TAIL_LOGITS, TOKEN_CROSS_SPLIT, WIN_ATTENTION,
            FLASH_ATTENTION_F32, FLASH_ATTENTION_F32_BIAS, TOKEN_CROSS_F32,
            I2T_UPDATE_F32, MASK_HEAD_F32, RESIZE_FLAGS_F32,
-           WIN_ATTENTION_F32, TOKEN_CROSS_SPLIT_F32)
+           WIN_ATTENTION_F32, TOKEN_CROSS_SPLIT_F32, I2T_PROBS_F32,
+           T2I_PROBS_F32)
 
 
 def reset_counts() -> None:

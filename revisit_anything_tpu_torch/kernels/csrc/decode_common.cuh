@@ -72,6 +72,11 @@ __device__ __forceinline__ void load_f32(float* dst, const __nv_bfloat16* src, i
   for (int i = threadIdx.x; i < n; i += THREADS) dst[i] = __bfloat162float(src[i]);
 }
 
+// n f32 values -> f32 shared memory.
+__device__ __forceinline__ void load_f32(float* dst, const float* src, int n) {
+  for (int i = threadIdx.x; i < n; i += THREADS) dst[i] = src[i];
+}
+
 // Softmax over the T tokens of one head (the JAX `_head_softmax_rows`).
 __device__ __forceinline__ void softmax_tokens(float s[T]) {
   float mx = s[0];
@@ -100,6 +105,21 @@ __device__ __forceinline__ void attn_out(float* so, const float* sCtx,
 #pragma unroll 8
     for (int d = 0; d < D; ++d) a = fmaf(crow[d], __bfloat162float(Wv[(size_t)d * DA + c]), a);
     so[i] = bf16_round(a + __bfloat162float(vb[c]));
+  }
+}
+
+// attn_out on f32 weights (an f32 SAM): o[t][c] = ctx row . Wv[:, c] +
+// vb[c] in f32, unrounded (the JAX `astype` to f32), into o [T][DA] (shared
+// or global).
+__device__ __forceinline__ void attn_out(float* so, const float* sCtx, const float* Wv,
+                                         const float* vb) {
+  for (int i = threadIdx.x; i < T * DA; i += THREADS) {
+    const int t = i / DA, c = i % DA, h = c / HD;
+    const float* crow = sCtx + (h * T + t) * D;
+    float a = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) a = fmaf(crow[d], Wv[(size_t)d * DA + c], a);
+    so[i] = a + vb[c];
   }
 }
 

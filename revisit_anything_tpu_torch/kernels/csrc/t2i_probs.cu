@@ -32,6 +32,26 @@
 // the walk), the query-side matrix's planes (56 KB; then the context), C1
 // (and C2) staged once a prompt, S / p, two P tiles a layer, vectors and
 // scales: 138,304 B at depth 1, 174,144 B at depth 2, one CTA an SM.
+//
+// The f32 form (rat_t2i_probs_f32, an f32 SAM) replaces the same TPU
+// kernel on f32 inputs: q, img0, C1, C2, pe_k, W_k, W_v, v_bias and the
+// branch rows f32, P1 and P2 bf16; the output f32 [B, T, DA], unrounded,
+// as the JAX kernel's softmax and products are f32. It is the same kernel
+// template on f32 operands (decode_tc.cuh Walk<float>): the f32 rebuilds
+// (each C staged once a prompt as two fp16 planes times a power of two,
+// each P tile converted to fp16 x 2^15 by the threads that copied it, two
+// fp16 passes a product; the error bound is in the header), f32 img0, pe
+// and W_k loads, the token queries kept in f32, and the value projection
+// in f32. Shared memory is what bounds the design: C1 and C2 as planes add
+// 57,344 B, f32 rows 3,072 and f32 token queries 1,792, which with the
+// bf16 form's two sets of P tiles would be 236,352 B at depth 2, over the
+// 232,448 a CTA may have. So the f32 form keeps one set of P tiles at both
+// depths and asks for the next tile's as soon as the rebuilds have read
+// them (the scores, the softmax and the context, about two thirds of a
+// tile's work, hide the copy): 168,256 B at depth 1, 229,184 B at depth 2,
+// one CTA an SM. What bounds it is the kernel's own products at the fp16
+// rate: the rebuilds' as two passes, the scores' and the context's as
+// three (0.97 / 1.22 ms at 1024 prompts, depth 1 / 2).
 
 #include "decode_common.cuh"
 #include "decode_tc.cuh"
@@ -43,75 +63,88 @@ using namespace rat_decode_tc;
 
 constexpr int PT = HT * BM;   // elements of one P tile
 
-// Shared memory (bytes) of a CTA at depth DEPTH.
-template <int DEPTH>
+// Shared memory (bytes) of a CTA on operands E at depth DEPTH.
+template <typename E, int DEPTH>
 struct Smem {
+  static constexpr int E2 = (int)sizeof(E);
   static constexpr int Y = 0;                            // branch planes hi, lo / token rows
   static constexpr int Q = Y + BM * D * 4;               // q Wk^T planes hi, lo / the context
-  static constexpr int C = Q + HT * D * 4;               // C1 (, C2) bf16, wide
-  static constexpr int S = C + DEPTH * HT * D * 2;       // S / p hi, lo; the LN's row sums
-  static constexpr int P = S + HT * BM * 4;              // P tiles [2][DEPTH][HT][BM] bf16
-  static constexpr int V = P + 2 * DEPTH * PT * 2;       // branch rows 0-5 bf16
-  static constexpr int QT = V + 6 * D * 2;               // token queries [T][DA] bf16
-  static constexpr int ALPHA = QT + T * DA * 2;          // rescale / 1 / sum [HT]
+  static constexpr int C = Q + HT * D * 4;               // C1 (, C2) bf16, or f32's planes hi, lo
+  static constexpr int S = C + DEPTH * HT * D * E2;      // S / p hi, lo; the LN's row sums
+  static constexpr int P = S + HT * BM * 4;              // P tiles [P_SETS][DEPTH][HT][BM] bf16
+  static constexpr int V = P + Walk<E>::P_SETS * DEPTH * PT * 2;   // branch rows 0-5
+  static constexpr int QT = V + 6 * D * E2;              // token queries [T][DA]
+  static constexpr int ALPHA = QT + T * DA * E2;         // rescale / 1 / sum [HT]
   static constexpr int SC = ALPHA + 64 * 4;              // planes' s: Y1, Y2, Q; scratch [8]
   static constexpr int TOTAL = SC + 16 * 4;
 };
-static_assert(Smem<1>::TOTAL == 138304 && Smem<2>::TOTAL == 174144, "the byte counts above");
-static_assert(Smem<2>::TOTAL <= 232448, "a CTA fits an SM");
+static_assert(Smem<__nv_bfloat16, 1>::TOTAL == 138304 && Smem<__nv_bfloat16, 2>::TOTAL == 174144 &&
+                  Smem<float, 1>::TOTAL == 168256 && Smem<float, 2>::TOTAL == 229184,
+              "the byte counts above");
+static_assert(Smem<float, 2>::TOTAL <= 232448, "a CTA fits an SM");
 static_assert(BM * WARPS * 8 <= HT * BM * 4, "the LN's row sums fit S");
 
-template <int DEPTH>
+template <typename E, int DEPTH>
 __global__ void __launch_bounds__(THREADS, 1)
-t2i_probs_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, DA]
-                 const __nv_bfloat16* __restrict__ img0,   // [M, D]
+t2i_probs_kernel(const E* __restrict__ q,                  // [B, T, DA]
+                 const E* __restrict__ img0,               // [M, D]
                  const __nv_bfloat16* __restrict__ p1,     // [B, HT, M]
-                 const __nv_bfloat16* __restrict__ c1,     // [B, HT, D]
+                 const E* __restrict__ c1,                 // [B, HT, D]
                  const __nv_bfloat16* __restrict__ p2,     // [B, HT, M] (depth 2)
-                 const __nv_bfloat16* __restrict__ c2,     // [B, HT, D] (depth 2)
-                 const __nv_bfloat16* __restrict__ w_k,    // [D, DA]
-                 const __nv_bfloat16* __restrict__ w_v,    // [D, DA]
-                 const __nv_bfloat16* __restrict__ pekt,   // [DA, M]
-                 const __nv_bfloat16* __restrict__ rows,   // [8, D]
-                 const __nv_bfloat16* __restrict__ v_bias, // [DA]
-                 __nv_bfloat16* __restrict__ out,          // [B, T, DA]
+                 const E* __restrict__ c2,                 // [B, HT, D] (depth 2)
+                 const E* __restrict__ w_k,                // [D, DA]
+                 const E* __restrict__ w_v,                // [D, DA]
+                 const E* __restrict__ pekt,               // [DA, M]
+                 const E* __restrict__ rows,               // [8, D]
+                 const E* __restrict__ v_bias,             // [DA]
+                 E* __restrict__ out,                      // [B, T, DA]
                  int m, float eps) {
-  using L = Smem<DEPTH>;
+  using L = Smem<E, DEPTH>;
+  using W = Walk<E>;
   extern __shared__ __align__(128) unsigned char smem[];
   __half* sYh = reinterpret_cast<__half*>(smem + L::Y);
   __half* sYl = sYh + BM * D;
   __half* sQh = reinterpret_cast<__half*>(smem + L::Q);
   __half* sQl = sQh + HT * D;
-  __nv_bfloat16* sC = reinterpret_cast<__nv_bfloat16*>(smem + L::C);
   float* sS = reinterpret_cast<float*>(smem + L::S);
   __half* sPh = reinterpret_cast<__half*>(smem + L::S);
   __half* sPl = sPh + HT * BM;
   float2* red = reinterpret_cast<float2*>(smem + L::S);
   __nv_bfloat16* sP = reinterpret_cast<__nv_bfloat16*>(smem + L::P);
-  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + L::V);
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem + L::QT);
+  E* sV = reinterpret_cast<E*>(smem + L::V);
+  E* sq = reinterpret_cast<E*>(smem + L::QT);
   float* alpha = reinterpret_cast<float*>(smem + L::ALPHA);
   float* sSc = reinterpret_cast<float*>(smem + L::SC);
   float* scratch = sSc + 8;
-  float* xq = reinterpret_cast<float*>(smem + L::Y);     // q f32, then the output rows
+  // q in f32 (bf16: in the Y region, then the output rows)
+  float* xq = reinterpret_cast<float*>(smem + (W::F32 ? L::QT : L::Y));
   float* sCtx = reinterpret_cast<float*>(smem + L::Q);   // the context [HT][D] f32
 
   const int b = blockIdx.x, lane = threadIdx.x % 32;
   const int tiles = m / BM;
   const __nv_bfloat16* pb[2] = {p1 + (size_t)b * HT * m,
                                 DEPTH == 2 ? p2 + (size_t)b * HT * m : nullptr};
-  // the P tiles of tile i into buffer i % 2, one commit group a tile
+  const E* cb[2] = {c1 + (size_t)b * HT * D, DEPTH == 2 ? c2 + (size_t)b * HT * D : nullptr};
+  // the P tiles of tile i into set i % P_SETS, one commit group a tile
   auto load_p = [&](int i) {
 #pragma unroll
-    for (int l = 0; l < DEPTH; ++l) load_p_async(sP + ((i & 1) * DEPTH + l) * PT, pb[l], m, i * BM);
+    for (int l = 0; l < DEPTH; ++l)
+      load_p_async(sP + ((i % W::P_SETS) * DEPTH + l) * PT, pb[l], m, i * BM);
   };
   load_p(0);
   cp_async_commit();
-  copy16(sV, rows, 6 * D);
-  copy16(sq, q + (size_t)b * T * DA, T * DA);
-  load_f32(xq, q + (size_t)b * T * DA, T * DA);
-  stage_c(sC, c1 + (size_t)b * HT * D);
-  if (DEPTH == 2) stage_c(sC + HT * D, c2 + (size_t)b * HT * D);
+  const E* qb = q + (size_t)b * T * DA;
+  if constexpr (W::F32) {
+    load_f32(sV, rows, 6 * D);
+    load_f32(sq, qb, T * DA);
+  } else {
+    copy16(sV, rows, 6 * D);
+    copy16(sq, qb, T * DA);
+    load_f32(xq, qb, T * DA);
+  }
+  typename W::C c[DEPTH];
+#pragma unroll
+  for (int l = 0; l < DEPTH; ++l) c[l] = stage_c(smem + L::C + l * HT * D * L::E2, scratch, cb[l]);
   __syncthreads();
   branch_scales(sSc, scratch, sV);
   project_rows_tc(sQh, sQl, sSc + 2, scratch, xq, w_k);
@@ -127,19 +160,30 @@ t2i_probs_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, DA]
   const float unscale = 1.f / (sSc[2] * ys);
   for (int i = 0; i < tiles; ++i) {
     const int m0 = i * BM;
-    PeCol pe;                                    // each asked for a phase ahead
-    ImgFrag img;
-    load_pe(pe, pekt, m, m0 + lane);
+    typename W::Pe pe;                           // each asked for a phase ahead
+    typename W::Img img;
+    if constexpr (!W::F32) load_pe(pe, pekt, m, m0 + lane);
     load_img0(img, img0, m0);
-    if (i + 1 < tiles) load_p(i + 1);
-    cp_async_commit();
-    cp_async_wait1();                            // tile i's P
+    if constexpr (W::F32) {
+      cp_async_wait0();                          // tile i's P
+#pragma unroll
+      for (int l = 0; l < DEPTH; ++l) p_tile_to_f16(sP + l * PT);
+    } else {
+      if (i + 1 < tiles) load_p(i + 1);
+      cp_async_commit();
+      cp_async_wait1();                          // tile i's P
+    }
     __syncthreads();
-    const __nv_bfloat16* tp = sP + (i & 1) * DEPTH * PT;
-    rebuild_tc<true>(y, img, sYh, sYl, tp, sC, sV, red, eps, ys1, nullptr);       // keys1
-    if (DEPTH == 2)
-      rebuild_tc<false>(y, img, sYh, sYl, tp + PT, sC + HT * D, sV + 3 * D, red, eps, ys2,
-                        nullptr);                                                 // keys2
+    const auto* tp =
+        reinterpret_cast<const typename W::PTile*>(sP + (i % W::P_SETS) * DEPTH * PT);
+    rebuild_tc<true>(y, img, sYh, sYl, tp, c[0], sV, red, eps, ys1);           // keys1
+    if (DEPTH == 2)                                                              // keys2
+      rebuild_tc<false>(y, img, sYh, sYl, tp + PT, c[DEPTH - 1], sV + 3 * D, red, eps, ys2);
+    if constexpr (W::F32) {                      // the tiles are read
+      if (i + 1 < tiles) load_p(i + 1);
+      cp_async_commit();
+      load_pe(pe, pekt, m, m0 + lane);
+    }
     scores_tc(sS, sQh, sQl, sYh, sYl);
     __syncthreads();
     float s[T];
@@ -154,26 +198,40 @@ t2i_probs_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, DA]
   __syncthreads();
   context_store(ctx, alpha, 1.f / (P_SCALE * ys), sCtx);
   __syncthreads();
-  attn_out(xq, sCtx, w_v, v_bias);
-  __syncthreads();
-  for (int i = threadIdx.x; i < T * DA; i += THREADS)
-    out[(size_t)b * T * DA + i] = __float2bfloat16(xq[i]);
+  if constexpr (W::F32) {
+    attn_out(out + (size_t)b * T * DA, sCtx, w_v, v_bias);   // unrounded
+  } else {
+    attn_out(xq, sCtx, w_v, v_bias);
+    __syncthreads();
+    for (int i = threadIdx.x; i < T * DA; i += THREADS)
+      out[(size_t)b * T * DA + i] = __float2bfloat16(xq[i]);
+  }
 }
 
-template <int DEPTH>
+template <typename E, int DEPTH>
 int launch(const void* const* ptrs, void* out, int b, int m, float eps, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(t2i_probs_kernel<DEPTH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         Smem<DEPTH>::TOTAL);
+  constexpr int smem = Smem<E, DEPTH>::TOTAL;
+  cudaError_t err = cudaFuncSetAttribute(t2i_probs_kernel<E, DEPTH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
+  typedef const E* A;
   typedef const __nv_bfloat16* P;
-  t2i_probs_kernel<DEPTH><<<b, THREADS, Smem<DEPTH>::TOTAL, s>>>(
-      static_cast<P>(ptrs[0]), static_cast<P>(ptrs[1]), static_cast<P>(ptrs[2]),
-      static_cast<P>(ptrs[3]), static_cast<P>(ptrs[4]), static_cast<P>(ptrs[5]),
-      static_cast<P>(ptrs[6]), static_cast<P>(ptrs[7]), static_cast<P>(ptrs[8]),
-      static_cast<P>(ptrs[9]), static_cast<P>(ptrs[10]), static_cast<__nv_bfloat16*>(out), m,
-      eps);
+  t2i_probs_kernel<E, DEPTH><<<b, THREADS, smem, s>>>(
+      static_cast<A>(ptrs[0]), static_cast<A>(ptrs[1]), static_cast<P>(ptrs[2]),
+      static_cast<A>(ptrs[3]), static_cast<P>(ptrs[4]), static_cast<A>(ptrs[5]),
+      static_cast<A>(ptrs[6]), static_cast<A>(ptrs[7]), static_cast<A>(ptrs[8]),
+      static_cast<A>(ptrs[9]), static_cast<A>(ptrs[10]), static_cast<E*>(out), m, eps);
   return (int)cudaGetLastError();
+}
+
+template <typename E>
+int dispatch(const void* const* ptrs, void* out, int b, int m, int depth, float eps,
+             void* stream) {
+  if (b < 1 || m < BM || m % BM != 0 || (depth != 1 && depth != 2) ||
+      (depth == 2 && (ptrs[4] == nullptr || ptrs[5] == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return depth == 2 ? launch<E, 2>(ptrs, out, b, m, eps, s) : launch<E, 1>(ptrs, out, b, m, eps, s);
 }
 
 }  // namespace
@@ -182,15 +240,26 @@ extern "C" int rat_t2i_probs(const void* q, const void* img0, const void* p1, co
                              const void* p2, const void* c2, const void* w_k, const void* w_v,
                              const void* pekt, const void* rows, const void* v_bias, void* out,
                              int b, int m, int depth, float eps, void* stream) {
-  if (b < 1 || m < BM || m % BM != 0 || (depth != 1 && depth != 2) ||
-      (depth == 2 && (p2 == nullptr || c2 == nullptr)))
-    return (int)cudaErrorInvalidValue;
   const void* ptrs[11] = {q, img0, p1, c1, p2, c2, w_k, w_v, pekt, rows, v_bias};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return depth == 2 ? launch<2>(ptrs, out, b, m, eps, s) : launch<1>(ptrs, out, b, m, eps, s);
+  return dispatch<__nv_bfloat16>(ptrs, out, b, m, depth, eps, stream);
 }
 
 // Dynamic shared memory of a CTA at `depth` in bytes (a report, no launch).
 extern "C" int rat_t2i_probs_smem(int depth) {
-  return depth == 2 ? Smem<2>::TOTAL : Smem<1>::TOTAL;
+  return depth == 2 ? Smem<__nv_bfloat16, 2>::TOTAL : Smem<__nv_bfloat16, 1>::TOTAL;
+}
+
+// The f32 form (an f32 SAM): the same arguments with q, img0, c1, c2, w_k,
+// w_v, pekt, rows, v_bias and out f32; p1 and p2 stay bf16.
+extern "C" int rat_t2i_probs_f32(const void* q, const void* img0, const void* p1,
+                                 const void* c1, const void* p2, const void* c2, const void* w_k,
+                                 const void* w_v, const void* pekt, const void* rows,
+                                 const void* v_bias, void* out, int b, int m, int depth,
+                                 float eps, void* stream) {
+  const void* ptrs[11] = {q, img0, p1, c1, p2, c2, w_k, w_v, pekt, rows, v_bias};
+  return dispatch<float>(ptrs, out, b, m, depth, eps, stream);
+}
+
+extern "C" int rat_t2i_probs_f32_smem(int depth) {
+  return depth == 2 ? Smem<float, 2>::TOTAL : Smem<float, 1>::TOTAL;
 }

@@ -30,7 +30,7 @@ import torch
 
 from revisit_anything_tpu_torch.kernels import build
 from revisit_anything_tpu_torch.kernels.maskhead_variants import _clock
-from revisit_anything_tpu_torch.kernels.winattn_variants import _time_ms
+from revisit_anything_tpu_torch.kernels.winattn_variants import time_ms
 from revisit_anything_tpu_torch.ops import attention as att
 
 _SRC = build._CSRC / "i2t_update.cu"
@@ -225,7 +225,7 @@ def main() -> None:
                          stream)
                 if err:
                     raise RuntimeError(f"launch failed: cudaError {err}")
-            ms = _time_ms(call)
+            ms = time_ms(call)
             rel = max(((o[:c].float() - w.float()).abs().max()
                        / w.float().abs().max()).item()
                       for o, w in zip((keys, kvt), want))

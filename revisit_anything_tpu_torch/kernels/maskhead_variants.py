@@ -32,7 +32,7 @@ import sys
 import torch
 
 from revisit_anything_tpu_torch.kernels import build
-from revisit_anything_tpu_torch.kernels.winattn_variants import _time_ms
+from revisit_anything_tpu_torch.kernels.winattn_variants import time_ms
 from revisit_anything_tpu_torch.ops import maskhead as mh
 
 _SRC = build._CSRC / "mask_head.cu"
@@ -232,7 +232,7 @@ def _run(fns: dict, call_args, out, want) -> list:
             err = fn(*call_args, stream)
             if err:
                 raise RuntimeError(f"launch failed: cudaError {err}")
-        ms = _time_ms(call)
+        ms = time_ms(call)
         if want is None:
             want = out.float().clone()
         rel = ((out.float() - want).abs().max() / want.abs().max()).item()

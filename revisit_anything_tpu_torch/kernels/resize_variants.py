@@ -26,7 +26,7 @@ import torch
 
 from revisit_anything_tpu_torch.kernels import build
 from revisit_anything_tpu_torch.kernels.maskhead_variants import _clock
-from revisit_anything_tpu_torch.kernels.winattn_variants import _time_ms
+from revisit_anything_tpu_torch.kernels.winattn_variants import time_ms
 from revisit_anything_tpu_torch.ops import maskresize as mr
 
 _SRC = build._CSRC / "resize_flags.cu"
@@ -150,7 +150,7 @@ def main() -> None:
                          1.0, n_sm, stream)
                 if err:
                     raise RuntimeError(f"launch failed: cudaError {err}")
-            ms = _time_ms(call)
+            ms = time_ms(call)
             mism = (flags != want).float().mean().item()
             clock = _clock(call, n=3000) if np_ > 1 else ""
             print(f"[variants] logits [{np_},{gh * 64},16,3] -> flags "

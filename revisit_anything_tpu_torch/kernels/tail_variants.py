@@ -30,7 +30,7 @@ import torch
 
 from revisit_anything_tpu_torch.kernels import build
 from revisit_anything_tpu_torch.kernels.maskhead_variants import _clock
-from revisit_anything_tpu_torch.kernels.winattn_variants import _time_ms
+from revisit_anything_tpu_torch.kernels.winattn_variants import time_ms
 from revisit_anything_tpu_torch.ops import decode_fused as dfu
 
 _FILES = ("decode_tail.cu", "decode_tc.cuh")
@@ -354,7 +354,7 @@ def main() -> None:
                 @torch.inference_mode()
                 def call():
                     dfu.decode_tail_fused(*args)
-                ms = _time_ms(call)
+                ms = time_ms(call)
                 clock = _clock(call, 30) if (b, m) == SHAPES[0] else ""
                 print(f"[variants] {b} prompts x M {m}: {name} "
                       f"{ms * 1e3:.1f} us{clock}", flush=True)

@@ -189,7 +189,9 @@ def _build_all(variants=VARIANTS, entry="rat_win_attention",
     return fns
 
 
-def _time_ms(fn, reps: int = 11) -> float:
+def time_ms(fn, reps: int = 11) -> float:
+    """Median device time of ``fn`` in ms over ``reps`` calls between CUDA
+    events, each queued behind a device sleep (after 3 warm-up calls)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -248,7 +250,7 @@ def main() -> None:
                          1.0 / math.sqrt(hd), stream)
                 if err:
                     raise RuntimeError(f"launch failed: cudaError {err}")
-            ms = _time_ms(call)
+            ms = time_ms(call)
             rel = ((out.float() - want).abs().max() / want.abs().max()).item()
             parts.append(f"{name} {ms * 1e3:.1f} us (rel_err {rel:.1e})")
         q, k, v = (qkv[..., i * d:(i + 1) * d].reshape(b, n, heads, hd)
@@ -257,7 +259,7 @@ def main() -> None:
                 .repeat_interleave(side, -1)
                 + bw.float().reshape(b, n, heads, side).transpose(1, 2)
                 .repeat(1, 1, 1, side)).to(dtype)
-        sdpa = _time_ms(lambda: F.scaled_dot_product_attention(
+        sdpa = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask))
         print(f"[variants] qkv [{b},{n},{3 * d}] heads {heads}: "
               f"{'; '.join(parts)}; sdpa {sdpa * 1e3:.1f} us", flush=True)

@@ -21,7 +21,11 @@ out-projection bias, LayerNorm scale and bias, rows 3-5 layer 2's
 (``decoder._pack_branch_rows`` in the JAX package).
 
 A wrapper takes the plain version only for CPU tensors; for CUDA tensors
-it launches its kernel or raises.
+it launches its kernel or raises. The kernels come in bf16 and f32 (an
+f32 SAM, the JAX package's dtype), picked by the dtype of the token
+vectors; every activation operand (img0, C, the pe terms) must have that
+dtype and is never cast, P is bf16 in both, and weights are converted
+only where the plain version converts them.
 """
 
 from __future__ import annotations
@@ -31,8 +35,11 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from revisit_anything_tpu_torch.kernels.build import (I2T_PROBS, T2I_PROBS,
-                                                      operand)
+from revisit_anything_tpu_torch.kernels.build import (I2T_PROBS,
+                                                      I2T_PROBS_F32,
+                                                      T2I_PROBS,
+                                                      T2I_PROBS_F32, operand)
+from revisit_anything_tpu_torch.ops.attention import kernel_dtype
 
 # the shapes the kernels are built for: D, DA, heads, tokens
 KERNEL_DIMS = (256, 128, 8, 7)
@@ -141,45 +148,60 @@ def i2t_probs(q1st: Optional[torch.Tensor], tok_k: torch.Tensor,
     queries are keys1·Wq2 + peq2 with keys1 rebuilt in the kernel.
     tok_k [B, T, DA] the projected token keys.
 
-    CUDA: kernel B7 (bf16; D 256, DA 128, 8 heads, 7 tokens, M a
-    multiple of 32). Layer 1 computes the scores on the FMA units, as
+    CUDA: kernel B7 in bf16 or f32 by tok_k's dtype (D 256, DA 128, 8
+    heads, 7 tokens, M a multiple of 32); P is bf16 in both, as the plain
+    version rounds it. Layer 1 computes the scores on the FMA units, as
     the plain version rounds them. Layer 2 rebuilds keys1 a 32-position
-    tile at a time on the tensor cores, from bf16 P1 and C1 onto the f32
-    img0, exact up to the order of summation. It projects on the query
-    side, s = (k_h·W_q,hᵀ)·keys1 + k_h·peq2_h, with the product against
-    the f32 branch as three fp16 products of power-of-two-scaled hi/lo
-    planes, 22 bits of each operand. The result is the same function up
-    to f32 reassociation. CPU: :func:`i2t_probs_reference`."""
+    tile at a time on the tensor cores onto img0 in f32: from bf16 P1
+    and C1 by bf16 products, exact up to the order of summation, or,
+    with an f32 C1, as two fp16 products of P1 against C1's
+    power-of-two-scaled hi/lo planes (22 bits of C1). It projects on the
+    query side, s = (k_h·W_q,hᵀ)·keys1 + k_h·peq2_h, with the product
+    against the f32 branch as three fp16 products of power-of-two-scaled
+    hi/lo planes, 22 bits of each operand. The result is the same
+    function up to f32 reassociation. CPU: :func:`i2t_probs_reference`."""
     if not tok_k.is_cuda:
         return i2t_probs_reference(q1st, tok_k, heads, layer=layer,
                                    recon=recon, eps=eps)
     b, t, da = tok_k.shape
-    bf = torch.bfloat16
+    dt = kernel_dtype("i2t probs", tok_k)
     if layer == 1:
         m = q1st.shape[-1]
         d = KERNEL_DIMS[0]
     else:
-        img0 = recon[0]
-        m, d = img0.shape[1], img0.shape[2]
+        m, d = recon[0].shape[1], recon[0].shape[2]
     if (d, da, heads, t) != KERNEL_DIMS or m % 32:
         raise ValueError(f"i2t probs: (D={d}, DA={da}, heads={heads}, T={t}, "
                          f"M={m}) not built ({KERNEL_DIMS}, M % 32 == 0)")
-    tk = operand("tok_k", tok_k, bf, (b, t, da))
-    if layer == 1:
-        q1 = operand("q1st", q1st, bf, (1, da, m)).data_ptr()
-        rest = [None] * 6
-    else:
-        img0, p1, c1, peq2t, w_q, rows = recon
-        q1 = None
-        rest = [operand(name, x.to(bf), bf, shape) for name, x, shape in (
-            ("img0", img0, (1, m, d)), ("p1", p1, (b, heads * t, m)),
-            ("c1", c1, (b, heads * t, d)), ("peq2t", peq2t, (1, da, m)),
-            ("w_q", w_q, (d, da)), ("branch_rows", rows, (8, d)))]
-    out = torch.empty((b, heads * t, m), dtype=bf, device=tok_k.device)
-    I2T_PROBS.launch(q1, tk.data_ptr(),
-                     *(x if x is None else x.data_ptr() for x in rest),
-                     out.data_ptr(), b, m, int(layer), float(eps))
+    ptrs = [None if x is None else operand(*x).data_ptr()
+            for x in i2t_operands(q1st, tok_k, heads, layer, recon)]
+    out = torch.empty((b, heads * t, m), dtype=torch.bfloat16,
+                      device=tok_k.device)
+    (I2T_PROBS_F32 if dt == torch.float32 else I2T_PROBS).launch(
+        *ptrs, out.data_ptr(), b, m, int(layer), float(eps))
     return out
+
+
+def i2t_operands(q1st, tok_k, heads: int, layer: int, recon) -> list:
+    """What :func:`i2t_probs` hands its kernel before the output, in the C
+    entry's order (q1st, tok_k, img0, p1, c1, peq2t, w_q, rows): each
+    ``(name, tensor, dtype, shape)`` for ``operand``, None where the layer
+    reads nothing. The activations are the caller's tensors, held to
+    tok_k's dtype and never cast; P1 is bf16; W_q is converted to tok_k's
+    dtype, as the plain version converts it; the rows are never rounded."""
+    b, t, da = tok_k.shape
+    dt = tok_k.dtype
+    tk = ("tok_k", tok_k, dt, (b, t, da))
+    if layer == 1:
+        return [("q1st", q1st, dt, (1, da, q1st.shape[-1])), tk] + [None] * 6
+    img0, p1, c1, peq2t, w_q, rows = recon
+    _, m, d = img0.shape
+    ht = heads * t
+    return [None, tk, ("img0", img0, dt, (1, m, d)),
+            ("p1", p1, torch.bfloat16, (b, ht, m)),
+            ("c1", c1, dt, (b, ht, d)), ("peq2t", peq2t, dt, (1, da, m)),
+            ("w_q", w_q.to(dt), dt, (d, da)),
+            ("branch_rows", rows, dt, (8, d))]
 
 
 def t2i_from_probs_reference(q_tok, img0, p1, c1, p2, c2, w_k, w_v, pekt,
@@ -206,43 +228,53 @@ def t2i_from_probs(q_tok: torch.Tensor, img0: torch.Tensor,
     [D, DA]; pekt [1, DA, M] = (pe·Wk + bk)ᵀ; rows [8, D] branch rows;
     v_bias [DA]. Returns the pre-out-projection output [B, T, DA].
 
-    CUDA: kernel B8 (bf16, the shapes of :func:`i2t_probs`). The kernel
-    rebuilds the branch a 32-position tile at a time on the tensor cores
-    (bf16 P·C onto the f32 branch) and projects on the query side:
+    CUDA: kernel B8 in bf16 or f32 by q_tok's dtype (the shapes of
+    :func:`i2t_probs`; P1, P2 bf16 in both). The kernel rebuilds the
+    branch a 32-position tile at a time on the tensor cores onto the f32
+    branch (bf16 P·C, or with f32 C two fp16 products against C's
+    power-of-two-scaled hi/lo planes) and projects on the query side:
     s = (q_h·W_k,hᵀ)·keys + q_h·pe_k,h and o = (p·keys)·W_v + v_bias,
     with an online softmax over the tiles. The scores and p·keys against
     the f32 branch run as three fp16 products of power-of-two-scaled
-    hi/lo planes, 22 bits of each operand. The result is the same
-    function up to f32 reassociation. CPU:
-    :func:`t2i_from_probs_reference`."""
+    hi/lo planes, 22 bits of each operand. The output has q_tok's dtype
+    (bf16 rounded, f32 unrounded). The result is the same function up to
+    f32 reassociation. CPU: :func:`t2i_from_probs_reference`."""
     if not q_tok.is_cuda:
         return t2i_from_probs_reference(q_tok, img0, p1, c1, p2, c2, w_k,
                                         w_v, pekt, rows, v_bias, heads, eps)
     b, t, da = q_tok.shape
     _, m, d = img0.shape
+    dt = kernel_dtype("t2i from probs", q_tok)
     if (d, da, heads, t) != KERNEL_DIMS or m % 32:
         raise ValueError(f"t2i from probs: (D={d}, DA={da}, heads={heads}, "
                          f"T={t}, M={m}) not built ({KERNEL_DIMS}, "
                          "M % 32 == 0)")
-    bf = torch.bfloat16
-    ht = heads * t
     depth = 1 if p2 is None else 2
-    ops = [operand("q_tok", q_tok, bf, (b, t, da)),
-           operand("img0", img0, bf, (1, m, d)),
-           operand("p1", p1, bf, (b, ht, m)),
-           operand("c1", c1, bf, (b, ht, d))]
-    if depth == 2:
-        ops += [operand("p2", p2, bf, (b, ht, m)),
-                operand("c2", c2, bf, (b, ht, d))]
-    tail = [operand("w_k", w_k.to(bf), bf, (d, da)),
-            operand("w_v", w_v.to(bf), bf, (d, da)),
-            operand("pekt", pekt, bf, (1, da, m)),
-            operand("branch_rows", rows.to(bf), bf, (8, d)),
-            operand("v_bias", v_bias.to(bf), bf, (da,))]
-    ptrs = [x.data_ptr() for x in ops]
-    if depth == 1:
-        ptrs += [None, None]
-    out = torch.empty((b, t, da), dtype=bf, device=q_tok.device)
-    T2I_PROBS.launch(*ptrs, *(x.data_ptr() for x in tail), out.data_ptr(),
-                     b, m, depth, float(eps))
+    ptrs = [None if x is None else operand(*x).data_ptr()
+            for x in t2i_operands(q_tok, img0, p1, c1, p2, c2, w_k, w_v,
+                                  pekt, rows, v_bias, heads)]
+    out = torch.empty((b, t, da), dtype=dt, device=q_tok.device)
+    (T2I_PROBS_F32 if dt == torch.float32 else T2I_PROBS).launch(
+        *ptrs, out.data_ptr(), b, m, depth, float(eps))
     return out
+
+
+def t2i_operands(q_tok, img0, p1, c1, p2, c2, w_k, w_v, pekt, rows, v_bias,
+                 heads: int) -> list:
+    """What :func:`t2i_from_probs` hands its kernel before the output, in
+    the C entry's order (q, img0, p1, c1, p2, c2, w_k, w_v, pekt, rows,
+    v_bias), as :func:`i2t_operands`: the activations held to q_tok's
+    dtype and never cast, P bf16, W_k, W_v and v_bias converted to q_tok's
+    dtype as the plain version converts them, the rows never rounded;
+    p2 and c2 None at depth 1."""
+    b, t, da = q_tok.shape
+    _, m, d = img0.shape
+    dt, bf, ht = q_tok.dtype, torch.bfloat16, heads * t
+    deep = p2 is not None
+    return [("q_tok", q_tok, dt, (b, t, da)), ("img0", img0, dt, (1, m, d)),
+            ("p1", p1, bf, (b, ht, m)), ("c1", c1, dt, (b, ht, d)),
+            ("p2", p2, bf, (b, ht, m)) if deep else None,
+            ("c2", c2, dt, (b, ht, d)) if deep else None,
+            ("w_k", w_k.to(dt), dt, (d, da)), ("w_v", w_v.to(dt), dt, (d, da)),
+            ("pekt", pekt, dt, (1, da, m)), ("branch_rows", rows, dt, (8, d)),
+            ("v_bias", v_bias.to(dt), dt, (da,))]

@@ -1,5 +1,4 @@
-"""The eighteen CUDA kernel entries (the default SAM path's in bf16 and
-in f32) against their plain PyTorch versions on the card (marked
+"""The CUDA kernel entries (in bf16, and their f32 forms) against their plain PyTorch versions on the card (marked
 ``gpu``; they skip where there is no CUDA device), plus the port's
 import and dispatch contract, which holds everywhere.
 
@@ -16,6 +15,8 @@ import pytest
 import torch
 
 from revisit_anything_tpu_torch.kernels import build
+from revisit_anything_tpu_torch.kernels.probs_compare import (
+    PROBS_F32_MOVED, bf16_ulps)
 from revisit_anything_tpu_torch.ops import attention as att
 from revisit_anything_tpu_torch.ops import decode_fused as dfu
 from revisit_anything_tpu_torch.ops import decode_probs as dpr
@@ -147,8 +148,8 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 def test_kernel_table_points_at_sources():
-    assert len(build.KERNELS) == 20
-    assert len({k.entry for k in build.KERNELS}) == 20
+    assert len(build.KERNELS) == 22
+    assert len({k.entry for k in build.KERNELS}) == 22
     for k in build.KERNELS:
         assert os.path.exists(os.path.join(REPO, k.source)), k.source
         path, line = k.replaces.split(":")
@@ -1062,9 +1063,11 @@ def test_resize_kernel_f32_matches_plain(cuda, orig_hw, np_, m, const, side):
 
 @pytest.mark.gpu
 def test_f32_kernels_dispatch_on_dtype(cuda):
-    """The seven wrappers with an f32 form (the five of the default SAM
-    path, the window kernel and B10) send bf16 CUDA tensors to the bf16
-    kernels, f32 ones to the f32 kernels, and raise on f16."""
+    """The nine wrappers with an f32 form (the five of the default SAM
+    path, the window kernel, B10, B7 and B8) send bf16 CUDA tensors to
+    the bf16 kernels, f32 ones to the f32 kernels, and raise on f16. B7
+    and B8 pick by their token vectors' dtype; their P stays bf16, and
+    B7's output is bf16 at every dtype."""
     flash, side = _flash_inputs(cuda, 1, 256, 80, True)
     token = _token_inputs(cuda, 4, 7, 1024, 1, pe=True)
     split = _token_inputs(cuda, 4, 7, 1024, 4, pe=False)
@@ -1072,6 +1075,7 @@ def test_f32_kernels_dispatch_on_dtype(cuda):
     i2t = _i2t_inputs(cuda, True, 4, 128)
     head = _mask_head_inputs(cuda, 2, 128, 3)
     x, whd, wwd, grid = _resize_inputs(cuda, (240, 320), 2, 3)
+    pr = _probs_inputs(cuda, b=4, m=128)
     calls = {
         (build.FLASH_ATTENTION, build.FLASH_ATTENTION_F32_BIAS):
             lambda c: att.attend(*c(flash), side=side),
@@ -1088,6 +1092,16 @@ def test_f32_kernels_dispatch_on_dtype(cuda):
         (build.RESIZE_FLAGS, build.RESIZE_FLAGS_F32):
             lambda c: mr.fused_resize_flags(*c((x,)), whd, wwd, 0.0, 1.0,
                                             grid),
+        (build.I2T_PROBS, build.I2T_PROBS_F32):
+            lambda c: dpr.i2t_probs(None, *c((pr["tok_k"],)), 8, layer=2,
+                                    recon=c((pr["img0"],)) + (pr["p1"],)
+                                    + c((pr["c1"], pr["peqt"], pr["w"],
+                                         pr["rows"]))),
+        (build.T2I_PROBS, build.T2I_PROBS_F32):
+            lambda c: dpr.t2i_from_probs(
+                *c((pr["q"], pr["img0"])), pr["p1"], *c((pr["c1"],)),
+                pr["p2"], *c((pr["c2"], pr["w"], pr["w_v"], pr["peqt"],
+                              pr["rows"], pr["v_bias"])), 8),
     }
 
     def cast(dtype):
@@ -1103,7 +1117,10 @@ def test_f32_kernels_dispatch_on_dtype(cuda):
             counts = {k.name: k.launches for k in build.KERNELS if k.launches}
             assert counts == {kernel.name: 1}, counts
             first = out[0] if isinstance(out, tuple) else out
-            assert first.dtype in (dtype, torch.uint8)
+            if k_bf16 is build.I2T_PROBS:
+                assert first.dtype == torch.bfloat16
+            else:
+                assert first.dtype in (dtype, torch.uint8)
         with pytest.raises(ValueError, match="not built|float16"):
             call(cast(torch.float16))
 
@@ -1148,14 +1165,16 @@ def test_generate_masks_batch_f32_on_the_card_matches_the_cpu(cuda, windows):
         assert (best >= 0.95).all(), best
 
 
-def _probs_inputs(cuda, b=16, m=4096, seed=5):
+def _probs_inputs(cuda, b=16, m=4096, seed=5, dtype=torch.bfloat16):
     """Inputs of the probability-factored decode kernels at the serving
-    widths (D 256, DA 128, 8 heads, 7 tokens) for ``b`` prompts."""
+    widths (D 256, DA 128, 8 heads, 7 tokens) for ``b`` prompts: P bf16,
+    every other tensor in ``dtype``."""
     g = torch.Generator(device=cuda).manual_seed(seed)
     bf = torch.bfloat16
 
     def rnd(*shape, s=1.0, off=0.0):
-        return (torch.randn(shape, generator=g, device=cuda) * s + off).to(bf)
+        return (torch.randn(shape, generator=g, device=cuda) * s + off).to(
+            dtype)
 
     def probs(*shape):
         x = torch.randn(shape, generator=g, device=cuda) * 2.0
@@ -1171,7 +1190,7 @@ def _probs_inputs(cuda, b=16, m=4096, seed=5):
                 c1=rnd(b, 56, 256, s=0.3), c2=rnd(b, 56, 256, s=0.3),
                 peqt=rnd(1, 128, m), w=rnd(256, 128, s=0.1),
                 w_v=rnd(256, 128, s=0.1), q=rnd(b, 7, 128),
-                v_bias=rnd(128, s=0.1), rows=rows.to(bf))
+                v_bias=rnd(128, s=0.1), rows=rows.to(dtype))
 
 
 def _large_branch(x, ln_scale, depth):
@@ -1245,12 +1264,93 @@ def test_t2i_from_probs_kernel_matches_plain(cuda, depth, b, m, ln_scale):
 
 
 @pytest.mark.gpu
-def test_probs_kernels_permute_with_their_prompts(cuda):
+@pytest.mark.parametrize("layer,b,m,ln_scale", PROBS_CASES)
+def test_i2t_probs_kernel_f32_matches_plain(cuda, layer, b, m, ln_scale):
+    """B7 f32 (f32 q1st, token keys, img0, C1, pe, W_q and rows; P1 bf16)
+    against its plain version in f32 with TF32 off: its bf16 P within one
+    ulp everywhere, moved in at most PROBS_F32_MOVED of its elements."""
+    x = _large_branch(_probs_inputs(cuda, b=b, m=m, dtype=torch.float32),
+                      ln_scale, 1)
+    recon = (x["img0"], x["p1"], x["c1"], x["peqt"], x["w"], x["rows"])
+    kw = dict(layer=layer, recon=recon if layer == 2 else None)
+    q1st = x["q1st"] if layer == 1 else None
+    before = build.I2T_PROBS_F32.launches
+    got = dpr.i2t_probs(q1st, x["tok_k"], 8, **kw)
+    want = dpr.i2t_probs_reference(q1st, x["tok_k"], 8, **kw)
+    torch.cuda.synchronize()
+    assert build.I2T_PROBS_F32.launches == before + 1
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape == (b, 56, m)
+    if ln_scale > 1.0 and layer == 2:
+        keys1 = dpr.recon_branch(x["img0"], [x["p1"]], [x["c1"]], x["rows"],
+                                 1e-6)
+        assert keys1.abs().max().item() > 65504
+    ulps, moved = bf16_ulps(got, want)
+    assert ulps <= 1.0
+    assert moved <= PROBS_F32_MOVED
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth,b,m,ln_scale", PROBS_CASES)
+def test_t2i_from_probs_kernel_f32_matches_plain(cuda, depth, b, m, ln_scale):
+    """B8 f32 (f32 q, img0, C, pe, weights and rows; P bf16) within
+    F32_REL of its plain version in f32 with TF32 off; the output f32."""
+    x = _large_branch(_probs_inputs(cuda, b=b, m=m, dtype=torch.float32),
+                      ln_scale, depth)
+    p2, c2 = (x["p2"], x["c2"]) if depth == 2 else (None, None)
+    args = (x["q"], x["img0"], x["p1"], x["c1"], p2, c2, x["w"], x["w_v"],
+            x["peqt"], x["rows"], x["v_bias"], 8)
+    before = build.T2I_PROBS_F32.launches
+    got = dpr.t2i_from_probs(*args)
+    want = dpr.t2i_from_probs_reference(*args)
+    torch.cuda.synchronize()
+    assert build.T2I_PROBS_F32.launches == before + 1
+    assert got.dtype == want.dtype == torch.float32
+    assert got.shape == want.shape == (b, 7, 128)
+    if ln_scale > 1.0:
+        ps, cs = [x["p1"], x["p2"]][:depth], [x["c1"], x["c2"]][:depth]
+        keys = dpr.recon_branch(x["img0"], ps, cs, x["rows"], 1e-6)
+        assert keys.abs().max().item() > 65504
+    assert torch.isfinite(got).all()
+    assert _rel_err(got, want) < F32_REL
+
+
+@pytest.mark.gpu
+def test_probs_split_on_an_f32_sam_raises_at_the_mask_head(cuda):
+    """An f32 SAM's "probs_split" decode runs its two-way transformer on
+    the f32 kernels (K2 f32 once, B7 f32 and B8 f32 twice each) and then
+    raises at B6's wrapper, which has no f32 form yet; no bf16 kernel
+    launches and nothing is cast."""
+    from revisit_anything_tpu_torch.models.sam.decoder import decode_masks
+    sam = _offline_sam(torch.float32).to(cuda)
+    cfg = sam.cfg
+    g, d = cfg.grid, cfg.prompt_dim
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    emb, pe = (torch.randn((g, g, d), generator=gen, device=cuda)
+               for _ in range(2))
+    sparse = torch.randn((64, 2, d), generator=gen, device=cuda)
+    dense = torch.randn((1, g, g, d), generator=gen, device=cuda)
+    build.reset_counts()
+    with torch.inference_mode(), pytest.raises(ValueError,
+                                               match="img0: expected"):
+        decode_masks(sam.decoder, cfg, emb, pe, sparse, dense,
+                     decode="probs_split")
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in build.KERNELS if k.launches}
+    assert counts == {build.TOKEN_CROSS_F32.name: 1,
+                      build.I2T_PROBS_F32.name: 2,
+                      build.T2I_PROBS_F32.name: 2}, counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_probs_kernels_permute_with_their_prompts(cuda, dtype):
     """Permuting the prompts permutes B7's (both layers) and B8's (both
-    depths) outputs bit for bit: a CTA reads its own prompt's token rows,
-    P and C only."""
+    depths) outputs bit for bit, in bf16 and in f32: a CTA reads its own
+    prompt's token rows, P and C only."""
     b = 24
-    x = _probs_inputs(cuda, b=b, m=256)
+    x = _probs_inputs(cuda, b=b, m=256, dtype=dtype)
     perm = torch.randperm(b, generator=torch.Generator().manual_seed(0))
     perm = perm.to(cuda)
     xp = {k: (v[perm] if k in ("tok_k", "q", "p1", "p2", "c1", "c2") else v)
