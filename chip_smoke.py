@@ -14,7 +14,7 @@ drive the command line.
 
 Phases (any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the twenty-two kernel entries from
+  2. build the twenty-three kernel entries from
      revisit_anything_tpu_torch/kernels/csrc (one nvcc per source, in
      parallel);
   3. print the registers, shared memory and spill bytes of the redesigned
@@ -23,14 +23,13 @@ Phases (any failure exits non-zero):
      and its K/V split at head dims 64 and 80, K1 f32 with the bias, the
      f32 forms of K2 and B10 (both schedules each) and K5 (both layers
      and its weight split), K3 f32, K4 f32 and B11 f32 at head dims 64
-     and 80, B7 f32 in its two layers and B8 f32 at its two depths) from
-     ptxas.log, and the tensor-core instructions in the SASS
+     and 80, B7 f32 in its two layers, B8 f32 at its two depths and B6
+     f32) from ptxas.log, and the tensor-core instructions in the SASS
      of B3's three instantiations, B7's layer 2, B8's two depths, their
-     f32 forms, K2 f32's
-     and B10 f32's two schedules and B11 f32 at both head dims (HMMA) and
-     of K1 f32 at
-     head dims 64 and 80 and with the bias and K5 f32 at both layers
-     (TF32 HGMMA) (cuobjdump); then
+     f32 forms, K2 f32's and B10 f32's two schedules, B11 f32 at both
+     head dims and B6 f32's rebuild (HMMA) and of K1 f32 at head dims 64
+     and 80 and with the bias, K5 f32 at both layers, K3 f32 and B6 f32's
+     head (TF32 HGMMA) (cuobjdump); then
      compare every kernel with its plain version in bf16 at the main
      path's shapes (K1 also at the offline extraction's batches, and in
      f32, split TF32, at DINOv1's shape and two more within 1e-5; K4, K3,
@@ -38,8 +37,9 @@ Phases (any failure exits non-zero):
      52; the f32 forms of K1 with the bias, K2, K5, K3 and K4 at the f32
      served query's shapes, B11 f32 at SAM ViT-H's windowed layer and at
      head dim 64 and B10 f32 in both schedules, within 1e-5, B7 f32 at
-     its two layers within one bf16 ulp of P and B8 f32 at its two depths
-     within 1e-5 (1024 prompts, M 4096), K4's flags
+     its two layers within one bf16 ulp of P, B8 f32 at its two depths
+     and B6 f32 (content 3136, M 3) within 1e-5 (1024 prompts, M 4096),
+     K4's flags
      equal outside a band
      of 1e-5 of the logits' scale around each threshold, the band's
      pixels counted), timing both with CUDA events (median of 7 after
@@ -109,8 +109,16 @@ Phases (any failure exits non-zero):
      with those three swapped for their plain f32 versions (no kernel):
      P1 and P2 within one bf16 ulp, the token state and C2 within 2^-8 of
      their scale; its ms beside the f32 "shared" transformer's (CUDA
-     events, median of 3 after one, in turns); the mask head after it
-     (B6) has no f32 form yet;
+     events, median of 3 after one, in turns); then one planted query
+     through an f32 server with decode="probs_split", counters reset
+     first: K1 f32 with the bias 4, without it 31, K2 f32 1, B7 f32 2, B8
+     f32 2, B6 f32 1, K4 f32 1 and no other kernel; the planted image
+     first; its kept masks against the f32 "shared" server's (matched at
+     IoU > 0.5: at least 0.9 of them) and against the same query with B7,
+     B8 and B6 swapped for their plain f32 versions, 256 prompts a decode
+     batch (the same count, each at IoU >= 0.95); its decode stage beside
+     the f32 "shared" one's (CUDA events, median of 3 after one, in
+     turns), wall ms and the seconds the step took;
  10. [insert], continued: remove planted image 1 (its noisy copy must no
      longer find it), snapshot the database to an npz and restore it
      into a fresh server: the same top-5 on the three queries;
@@ -200,8 +208,9 @@ Phases (any failure exits non-zero):
  22. print the kernel table as one JSON line (B10, token_cross_split and
      token_cross_split_f32, has no caller on a serving path, as in the JAX
      package: launches 0; the f32 forms' launches are the 3 f32
-     queries', B11 f32's the f32 kernel-window query's, B7 f32's and B8
-     f32's the f32 "probs_split" transformer's), then the result line.
+     queries', B11 f32's the f32 kernel-window query's, B7 f32's, B8
+     f32's and B6 f32's the f32 "probs_split" query's), then the result
+     line.
 """
 
 from __future__ import annotations
@@ -364,8 +373,10 @@ PTXAS_KERNELS = (
      "rat_i2t_update_f32", "rat_i2t_update_f32_smem", ()),
     ("split_weights_kernel", "K5 f32 weight split", "rat_i2t_update_f32",
      None, ()),
-    ("mask_head_tf32x3_kernelILi3E", "K3 f32 M 3 (split TF32)",
+    ("mask_head_tf32x3_kernelILi3ELb0E", "K3 f32 M 3 (split TF32)",
      "rat_mask_head_f32", "rat_mask_head_f32_smem", ()),
+    ("mask_head_tf32x3_kernelILi3ELb1E", "B6 f32 M 3 (split TF32)",
+     "rat_mask_head_probs_f32", "rat_mask_head_f32_smem", ()),
     ("split_head_weights_kernel", "K3 f32 weight split", "rat_mask_head_f32",
      None, ()),
     ("resize_flags_kernelILi3ELb1EfE", "K4 f32 M 3 (240x320)",
@@ -415,10 +426,10 @@ PTXAS_KERNELS = (
 # The kernels whose products run by mma.sync (HMMA): B3's instantiations,
 # by their emission (keys, probability, logits mode), B7's layer 2, B8's
 # two depths and their f32 forms (fp16: the f32 rebuild's planes), K2
-# f32's and B10 f32's two schedules and B11 f32's two head dims (TF32);
-# and K1 f32's, K5 f32's and
-# K3 f32's, by TF32 wgmma (HGMMA ... TF32): (piece of the mangled name,
-# label, the instruction that must be there)
+# f32's and B10 f32's two schedules, B11 f32's two head dims and B6 f32's
+# rebuild (TF32); and K1 f32's, K5 f32's, K3 f32's and B6 f32's head, by
+# TF32 wgmma (HGMMA ... TF32): (piece of the mangled name, label, the
+# instruction that must be there)
 # the f32 rebuild's fp16 product at depth 8 (the bf16 kernels' are
 # HMMA.1688.F32.BF16)
 F16_K8 = r"HMMA\.1688\.F32(\.F16)?$"
@@ -439,7 +450,11 @@ MMA_SASS = (("decode_tail_kernelILi0E", "B3 keys mode", "HMMA"),
              "HGMMA.*TF32"),
             ("flash_attention_tf32x3_kernelILi80ELi2E",
              "K1 f32 Dh 80 + bias side 64", "HGMMA.*TF32"),
-            ("mask_head_tf32x3_kernelILi3E", "K3 f32 M 3", "HGMMA.*TF32"),
+            ("mask_head_tf32x3_kernelILi3ELb0E", "K3 f32 M 3", "HGMMA.*TF32"),
+            ("mask_head_tf32x3_kernelILi3ELb1E", "B6 f32 M 3 (head)",
+             "HGMMA.*TF32"),
+            ("mask_head_tf32x3_kernelILi3ELb1E", "B6 f32 M 3 (rebuild)",
+             "HMMA.*TF32"),
             ("i2t_update_tf32x3_kernelILb1E", "K5 f32 layer 1", "HGMMA.*TF32"),
             ("i2t_update_tf32x3_kernelILb0E", "K5 f32 layer 2", "HGMMA.*TF32"),
             ("token_cross_kv_tf32x3_kernelILb1ELb1E", "K2 f32 shared k|v",
@@ -1007,24 +1022,26 @@ def compare_f32_kernels(dev, check) -> None:
 
 
 def compare_probs_f32(dev, check, rnd) -> None:
-    """B7 f32 (layers 1 and 2) and B8 f32 (depths 1 and 2) at 1024 prompts
-    and M 4096, with inputs as compare_probs_kernels makes them but in f32
-    (P bf16); the plain versions on the first 256 prompts (their f32
-    [B, 4096, 256] branch), the kernel timed at 1024. B8 f32 within
-    F32_REL; B7 f32's bf16 P within one bf16 ulp of its plain version
-    everywhere (its error column is the largest |diff| in ulps), the
-    share of elements that differ at most PROBS_F32_MOVED. Bound: bytes,
-    against the products as the kernels run them on the tensor cores, at
-    the fp16 rate (BF16_FLOP_S, the same on the H100): each rebuild's P·C
-    as two passes (P x 2^15 is exact in fp16, C two 11-bit planes), the
-    scores' and the context's as three (both operands two planes), and the
-    pe terms as f32 multiply-adds."""
+    """B7 f32 (layers 1 and 2), B8 f32 (depths 1 and 2) and B6 f32
+    (content 3136, M 3) at 1024 prompts and M 4096, with inputs as
+    compare_probs_kernels makes them but in f32 (P bf16); the plain
+    versions on the first 256 prompts (their f32 [B, 4096, 256] branch),
+    the kernel timed at 1024. B8 f32 and B6 f32 within F32_REL; B7 f32's
+    bf16 P within one bf16 ulp of its plain version everywhere (its error
+    column is the largest |diff| in ulps), the share of elements that
+    differ at most PROBS_F32_MOVED. Bound: bytes, against the products as
+    the kernels run them on the tensor cores, B7's and B8's at the fp16
+    rate (BF16_FLOP_S, the same on the H100): each rebuild's P·C as two
+    passes (P x 2^15 is exact in fp16, C two 11-bit planes), the scores'
+    and the context's as three (both operands two planes), and the pe
+    terms as f32 multiply-adds; B6 f32's at the TF32 rate (its own note)."""
     import torch
 
     from revisit_anything_tpu_torch.kernels import build
     from revisit_anything_tpu_torch.kernels.probs_compare import (
         PROBS_F32_MOVED, bf16_ulps)
     from revisit_anything_tpu_torch.ops import decode_probs as dpr
+    from revisit_anything_tpu_torch.ops import maskhead as mh
 
     g = torch.Generator(device=dev).manual_seed(4323)
     b, m, d, da, ht, c = 1024, 4096, 256, 128, 56, 256
@@ -1087,6 +1104,29 @@ def compare_probs_f32(dev, check, rnd) -> None:
                                      isinstance(x, torch.Tensor)],
               (2 * depth * recon + 3 * 2 * rows_x_branch, pe_term),
               plain_prompts=c)
+    torch.cuda.empty_cache()
+
+    # B6 f32 at content 3136 (49 items of 64 rows), M 3; the bound's
+    # products at the TF32 rate as the kernel runs them: the head's three
+    # passes (K3 f32's row) and the rebuild's two (P exact in TF32 against
+    # C's hi and lo planes) over the 56 rows, both layers, every position
+    content = 3136
+    hyper = rnd(b, 3, 32, s=0.5)
+    head = (rnd(256, 256, s=0.1), rnd(64, s=0.1), rnd(64, s=0.1, off=1.0),
+            rnd(64, s=0.1), rnd(64, 128, s=0.1), rnd(32, s=0.1))
+    margs = (img0, p1, c1, p2, c2, rows, hyper) + head
+    margs_c = (img0, p1[:c], c1[:c], p2[:c], c2[:c], rows, hyper[:c]) + head
+    head_flop = 2 * (256 * 256 + 4 * 64 * 128 + 16 * 32 * 3)
+    check(build.MASK_HEAD_PROBS_F32,
+          "P1,C1,P2,C2 f32 -> [1024,3136,16,3] f32",
+          lambda: mh.fused_mask_head_probs(*margs, content=content),
+          lambda: mh.mask_head_probs_reference(*margs_c, content=content),
+          _rel, F32_REL,
+          (img0[:, :content], p1[..., :content], c1, p2[..., :content], c2,
+           rows, hyper) + head,
+          (0, 0, b * content * (3 * head_flop + 2 * 2 * 2 * ht * d)),
+          plain_prompts=c)
+    del margs, margs_c, hyper, head
     torch.cuda.empty_cache()
 
 
@@ -1468,8 +1508,8 @@ F32_QUERY_LAUNCHES = {"flash_attention_f32_bias": 4, "flash_attention_f32": 31,
 def _plain_sam_f32():
     """SAM's kernels on the default path replaced by their plain versions
     (f32 on the card with TF32 off, as main() sets it): K1 and B11 in the
-    encoder, K2, K5 and K3 in the decoder, K4 in AMG; and B7 and B8, the
-    "probs_split" two-way transformer's."""
+    encoder, K2, K5 and K3 in the decoder, K4 in AMG; and B7, B8 and B6,
+    the "probs_split" decode's."""
     from revisit_anything_tpu_torch.models.sam import amg, decoder, encoder
     from revisit_anything_tpu_torch.ops import attention as att
     from revisit_anything_tpu_torch.ops import decode_probs as dpr
@@ -1492,6 +1532,7 @@ def _plain_sam_f32():
              (decoder, "i2t_probs", dpr.i2t_probs_reference),
              (decoder, "t2i_from_probs", dpr.t2i_from_probs_reference),
              (decoder, "fused_mask_head", mask_head),
+             (decoder, "fused_mask_head_probs", mh.mask_head_probs_reference),
              (amg, "fused_resize_flags", resize_flags))
     kept = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
@@ -1622,6 +1663,8 @@ def sam_f32_phase(srv, queries, planted, kw, seed) -> dict:
                       "masks match a bf16 mask at IoU > 0.5")
     window = _sam_f32_window(fsrv, queries[0], planted[0])
     probs = _sam_f32_probs_split(fsrv, queries[0])
+    probs.update(_sam_f32_probs_query(fsrv, dict(kw, sam=sam, dino=dino),
+                                      queries[0], planted[0]))
     enc_ms, dec_ms = statistics.median(encode), statistics.median(decode)
     print(f"[sam-f32] f32 query: wall {statistics.median(wall):.1f} ms "
           f"(median of 3: {', '.join(f'{w:.1f}' for w in wall)}); encode "
@@ -1821,13 +1864,112 @@ def _sam_f32_probs_split(fsrv, img) -> dict:
           f"{state['queries']:.3e}, C2 {state['C2']:.3e} (tol "
           f"{PROBS_STATE_REL:g}); {probs_ms:.3f} ms against the f32 shared "
           f"transformer's {shared_ms:.3f} ms (CUDA events, median of 3 after "
-          f"one, in turns); the mask head after it (B6) has no f32 form; "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"one, in turns); {time.perf_counter() - t0:.1f} s", flush=True)
     if max(state.values()) > PROBS_STATE_REL:
         _fail(f"[sam-f32] probs_split transformer against its plain witness:"
               f" {state} above {PROBS_STATE_REL}")
     return dict(probs_counts=counts, probs_moved=moved, probs_state=state,
                 probs_split_ms=probs_ms, shared_transformer_ms=shared_ms)
+
+
+# An f32 query of the "probs_split" decoder: K1 f32 with and without the
+# bias as in F32_QUERY_LAUNCHES, K2 f32 once (layer 1's token->image
+# attention over the shared branch), B7 f32 and B8 f32 twice each, B6 f32
+# and K4 f32 once, and no other kernel
+F32_PROBS_QUERY_LAUNCHES = {
+    "flash_attention_f32_bias": 4, "flash_attention_f32": 31,
+    "token_cross_attention_f32": 1, "i2t_probs_f32": 2,
+    "t2i_from_probs_f32": 2, "mask_head_probs_f32": 1, "resize_flags_f32": 1}
+
+
+def _sam_f32_probs_query(fsrv, kw, img, planted: int) -> dict:
+    """[sam-f32]'s f32 "probs_split" query (see :func:`sam_f32_phase`): a
+    server on the f32 models (``kw``) and fsrv's index with
+    decode="probs_split" serves the planted query with the counters reset
+    first: F32_PROBS_QUERY_LAUNCHES and no other kernel, the planted image
+    first; its kept masks against fsrv's ("shared": the share matched at
+    IoU > 0.5, at least 0.9) and against the same decode with B7, B8 and B6
+    swapped for their plain f32 versions, 256 prompts a decode batch (the
+    same count, each at IoU >= 0.95); its decode stage beside fsrv's (CUDA
+    events, median of 3 after one, in turns)."""
+    import torch
+
+    from revisit_anything_tpu_torch.kernels import build
+    from revisit_anything_tpu_torch.models.sam import decoder
+    from revisit_anything_tpu_torch.ops import decode_probs as dpr
+    from revisit_anything_tpu_torch.ops import maskhead as mh
+    from revisit_anything_tpu_torch.pipeline.serve import SegVLADServer
+
+    t0 = time.perf_counter()
+    psrv = SegVLADServer(index=_live_index(fsrv), **dict(
+        kw, amg=dataclasses.replace(kw["amg"], decode="probs_split")))
+    torch.cuda.synchronize()
+    build.reset_counts()
+    t = time.perf_counter()
+    top = psrv.query(img)
+    wall = (time.perf_counter() - t) * 1e3
+    counts = {k.name: k.launches for k in build.KERNELS if k.launches}
+    if counts != F32_PROBS_QUERY_LAUNCHES:
+        _fail(f"[sam-f32] probs_split query launched {counts}, expected "
+              f"{F32_PROBS_QUERY_LAUNCHES} and no other kernel")
+    if top[0] != planted:
+        _fail(f"[sam-f32] probs_split: noisy copy of planted image {planted}"
+              f" answered {top}")
+    plain = {"i2t_probs": dpr.i2t_probs_reference,
+             "t2i_from_probs": dpr.t2i_from_probs_reference,
+             "fused_mask_head_probs": mh.mask_head_probs_reference}
+    kernels = {name: getattr(decoder, name) for name in plain}
+    swapped = (build.I2T_PROBS_F32, build.T2I_PROBS_F32,
+               build.MASK_HEAD_PROBS_F32)
+    bsz = psrv._bsz
+    with torch.inference_mode():
+        img_dev = torch.from_numpy(img).to(fsrv.device)
+        amg_k = psrv._amg_device(img_dev)
+        n_k, n_s, share = _agreement(amg_k, fsrv._amg_device(img_dev))
+        try:
+            for name, fn in plain.items():
+                setattr(decoder, name, fn)
+            psrv._bsz = 256
+            build.reset_counts()
+            amg_p = psrv._amg_device(img_dev)
+            stray = [k.name for k in swapped if k.launches]
+        finally:
+            psrv._bsz = bsz
+            for name, fn in kernels.items():
+                setattr(decoder, name, fn)
+        times = {"probs_split": [], "shared": []}
+        for rep in range(4):
+            order = (("shared", "probs_split") if rep % 2
+                     else ("probs_split", "shared"))
+            for form in order:
+                times[form].append(_decode_ms(
+                    psrv if form == "probs_split" else fsrv, img))
+    if stray:
+        _fail(f"[sam-f32] the plain probs_split decode launched {stray}")
+    n_p = int(amg_p[1][-1])
+    best = _best_iou(amg_k, amg_p)
+    least = best.min().item() if n_k else 1.0
+    probs_ms = statistics.median(times["probs_split"][1:])
+    shared_ms = statistics.median(times["shared"][1:])
+    seconds = time.perf_counter() - t0
+    print(f"[sam-f32] probs_split query: top-5 {top.tolist()}  query "
+          f"{wall:.1f} ms, launches {counts}; {n_k} masks kept (f32 shared "
+          f"{n_s}), {share:.4f} of them match a shared mask at IoU > 0.5; "
+          f"against B7, B8, B6 plain f32 (256 prompts a decode batch): "
+          f"{n_p} kept, least best IoU {least:.4f}, mean "
+          f"{best.mean().item():.4f}; decode stage {probs_ms:.3f} ms, the "
+          f"f32 shared decode's {shared_ms:.3f} ms (CUDA events, median of 3 "
+          f"after one, in turns); {seconds:.1f} s", flush=True)
+    if share < 0.9:
+        _fail(f"[sam-f32] probs_split: only {share:.4f} of its masks match "
+              "an f32 shared mask at IoU > 0.5")
+    if n_k != n_p or least < 0.95:
+        _fail(f"[sam-f32] probs_split: {n_k} masks kept against the plain "
+              f"decode's {n_p}, least IoU {least}")
+    return dict(probs_query_counts=counts, probs_query_ms=wall,
+                probs_query_share=share, probs_query_least_iou=least,
+                probs_decode_ms=probs_ms, shared_decode_ms=shared_ms,
+                probs_query_s=seconds)
 
 
 def _noisy(rng, img):
@@ -4471,7 +4613,8 @@ def main() -> None:
     # launches: the 3 "shared" queries for the kernels of that form, the
     # probability-factored queries for theirs, the window-kernel query for
     # B11, the 3 f32 queries for the f32 forms (K1 f32 without the bias in
-    # their DINOv2-g), the f32 kernel-window query for B11 f32; B10
+    # their DINOv2-g), the f32 kernel-window query for B11 f32, the f32
+    # "probs_split" query for B7 f32, B8 f32 and B6 f32; B10
     # (token_cross_split, token_cross_split_f32) has no caller on a serving
     # path
     table = []
@@ -4483,6 +4626,7 @@ def main() -> None:
                     or served["window"]["counts"][k.name]
                     or served["sam_f32"]["counts"].get(k.name, 0)
                     or served["sam_f32"]["window_counts"].get(k.name, 0)
+                    or served["sam_f32"]["probs_query_counts"].get(k.name, 0)
                     or served["sam_f32"]["probs_counts"].get(k.name, 0)
                     or backbones["counts"][k.name])
         table.append(dict(
@@ -4511,7 +4655,9 @@ def main() -> None:
           f"{f['encode_plain_windows_ms']:.3f} ms, kernel windows "
           f"{f['encode_kernel_windows_ms']:.3f} ms; probs_split transformer "
           f"{f['probs_split_ms']:.3f} ms, shared transformer "
-          f"{f['shared_transformer_ms']:.3f} ms", flush=True)
+          f"{f['shared_transformer_ms']:.3f} ms; probs_split query "
+          f"{f['probs_query_ms']:.1f} ms, decode {f['probs_decode_ms']:.3f} "
+          f"ms (shared {f['shared_decode_ms']:.3f} ms)", flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -97,6 +97,11 @@ SIGNATURES: Dict[str, Sequence] = {
     # hyper, out, np, gg, content, n_masks, eps, ln_eps, n_ctas, stream
     "rat_mask_head_probs": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _P, _P, _I, _I, _I, _I, _F, _F, _I, _P),
+    # the same plus scratch (the weights' TF32 planes and the keys tiles)
+    # after out (f32 but P1, P2 bf16)
+    "rat_mask_head_probs_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
+                                _P),
     # a pointer to one TailParams struct (ops.decode_fused), stream
     "rat_decode_tail": (_P, _P),
     "rat_decode_tail_logits": (_P, _P),
@@ -109,6 +114,7 @@ SIGNATURES: Dict[str, Sequence] = {
     "rat_mask_head_smem": (),
     "rat_mask_head_f32_smem": (),
     "rat_mask_head_f32_scratch": (),            # floats of scratch
+    "rat_mask_head_probs_f32_scratch": (_I,),   # CTAs: floats of scratch
     "rat_i2t_update_smem": (),
     "rat_i2t_update_f32_smem": (),
     "rat_i2t_update_f32_scratch": (_I,),        # SMs: floats of scratch
@@ -314,6 +320,11 @@ I2T_PROBS_F32 = Kernel(
 T2I_PROBS_F32 = Kernel(
     "t2i_from_probs_f32", "rat_t2i_probs_f32", _SRC + "t2i_probs.cu",
     "revisit_anything_tpu/ops/decode_probs.py:290")
+# and of the mask head on the branch rebuilt from the probabilities (the
+# rest of an f32 SAM's "probs_split" decode)
+MASK_HEAD_PROBS_F32 = Kernel(
+    "mask_head_probs_f32", "rat_mask_head_probs_f32", _SRC + "mask_head.cu",
+    "revisit_anything_tpu/ops/maskhead.py:257")
 
 KERNELS = (FLASH_ATTENTION, TOKEN_CROSS, I2T_UPDATE, MASK_HEAD, RESIZE_FLAGS,
            I2T_PROBS, T2I_PROBS, MASK_HEAD_PROBS, DECODE_TAIL,
@@ -321,7 +332,7 @@ KERNELS = (FLASH_ATTENTION, TOKEN_CROSS, I2T_UPDATE, MASK_HEAD, RESIZE_FLAGS,
            FLASH_ATTENTION_F32, FLASH_ATTENTION_F32_BIAS, TOKEN_CROSS_F32,
            I2T_UPDATE_F32, MASK_HEAD_F32, RESIZE_FLAGS_F32,
            WIN_ATTENTION_F32, TOKEN_CROSS_SPLIT_F32, I2T_PROBS_F32,
-           T2I_PROBS_F32)
+           T2I_PROBS_F32, MASK_HEAD_PROBS_F32)
 
 
 def reset_counts() -> None:

@@ -878,6 +878,70 @@ extern "C" int rat_mask_head_probs(const void* img0, const void* p1, const void*
 //   release counts         4 x 4                  16
 //   alignment slack                            1,024
 //   total                                    232,408 of 232,448
+//
+// B6 in f32 (entry rat_mask_head_probs_f32) replaces B6's TPU kernel
+// (`_mask_head_call_probs`, pallas_call at :257) on f32 inputs, an f32
+// SAM's "probs_split" decode. Its keys tile is rebuilt per item from the
+// shared img0 and the two image -> token updates,
+//   x = LN2(LN1(img0 + P1^T C1 + b1) + P2^T C2 + b2)      (f32, one-pass var)
+// not rounded, and K3 f32's item body runs on it unchanged (one kernel
+// template, RECON = true). P1 and P2 are bf16 (the JAX package rounds the
+// probabilities to bf16 in every dtype); img0, C, the branch rows, the
+// weights and the logits are f32.
+//
+// What bounds it: K3 f32's products (3.9 ms at 1024 prompts x 3136
+// positions, M = 3) and the rebuild's, 2 layers x 2·56·256 FLOP a position
+// as two TF32 passes (0.74 ms at 495 TFLOP/s); its bytes (P1 and P2 0.72
+// GB, the logits 0.62 GB, C 0.12 GB) take ~0.44 ms.
+//
+// Precision: a bf16 P is exact in TF32, and C = C_hi + C_lo + a rest below
+// 2^-22 |C| (split_tf32_bits), so P^T C is two TF32 passes, P^T C_lo and
+// P^T C_hi, each over the 56 rows into a fresh accumulator, joined in f32.
+// One pass (C rounded to TF32) misses the JAX kernel by ~1e-4 of the
+// logits (tests/test_torch_maskhead.py).
+//
+// Design: the warpgroup that runs an item's head first rebuilds its keys,
+// by mma.sync m16n8k8 in TF32 (TF32 wgmma takes its operands K-major only,
+// and P [56, gg] and C [56, 256] are both MN-major in the 56 rows):
+//  - A warp rebuilds the 16 rows it owns in the head, all 256 channels:
+//    acc [4][32] f32 (128 registers) in the accumulator's layout, the same
+//    as B6's, preset to img0's rows (8-byte loads; rows past gg read
+//    zeros).
+//  - P1^T and P2^T [56, 64 positions] bf16 are copied once an item into
+//    the warpgroup's logits staging tile (free between an item's copy-out
+//    and its first logits) by cp.async (pieces past gg zero-filled); an A
+//    fragment is a bf16's bits shifted into a TF32. C1 then C2 stream in
+//    32 chunks of [56, 16 channels] f32 through 4 buffers, 3 ahead, in
+//    the warpgroup's half of the up1_wᵀ ring's last stage: B6 f32 runs
+//    the ring 3 deep (its head alone took K3 f32's time either way).
+//  - Per chunk, P^T C_lo and P^T C_hi of its two n8 tiles run over the 7
+//    k-steps into four fresh accumulators, each B value split into TF32
+//    hi and lo as it is read; acc = (acc + (lo + hi)), then + b after the
+//    layer's last chunk (JAX's (y + a) + b), then the LayerNorm in
+//    registers (a row's 256 channels lie in the 4 threads of a quad).
+//  - The loops over a layer's four 64-channel groups and a group's four
+//    chunks are not unrolled (the accumulators rotate instead): the
+//    instruction cache holds the head's code too, and with them unrolled
+//    the kernel ran 3.4x K3 f32's time.
+//  - The f32 keys fit neither in registers beside the head (K3 f32 runs at
+//    221 of 255) nor in shared memory: each thread writes its own keys to
+//    the warpgroup's [64, 256] f32 tile in device memory, at the places K3
+//    f32's key loads read, and reads them back from there (ld.global.cg,
+//    not the read-only path: this kernel writes the tile). A thread reads
+//    only what it wrote, so no barrier orders them. The tiles follow the
+//    weights' planes in the scratch: 2 x 64 KB a CTA, 16.5 MiB at 132
+//    CTAs; the branch [Np, content, 256] f32 (3.3 GB at 1024 x 3136) is
+//    never written.
+//  - The rebuild takes no turn; its named barriers are its warpgroup's.
+// Where its time goes: kernels/maskhead_variants.py --probs-f32 (PERF.md).
+//
+// Shared memory: K3 f32's, byte for byte (232,408 B), two regions used
+// twice by B6 f32:
+//   logits staging, warpgroup w    16,384 = P1^T, P2^T [56, 72] bf16 (2 x 8,064)
+//   up1_wᵀ ring stage 3            32,768 = 2 warpgroups x 4 C chunks [56, 16] f32
+//                                           (4 x 3,584)
+// Scratch (floats): the weights' planes (147,456), then the keys tiles,
+// n_ctas x 2 x 64 x 256.
 namespace rat_k3f {
 
 using namespace rat_hopper;
@@ -908,6 +972,35 @@ static_assert(SMEM == 232408 && SMEM <= 232448, "the budget in the note above");
 __device__ __forceinline__ float gelu_erf(float x) {
   return x * 0.5f * (1.f + erff(x * 0.70710678118654752f));
 }
+
+// B6 f32's rebuild: P1^T and P2^T [HT k, BP positions] bf16 at a pitch of
+// PP bytes (144 puts the A fragments' reads in distinct banks) in the
+// warpgroup's staging tile, P2 at OFF_P2; NBUF C chunks [HT k, CW
+// channels] f32 in its half of the ring's last stage, which B6 f32 does
+// not use (CHUNKS an item, 16 a layer); and the keys tile of a warpgroup
+// (floats).
+constexpr int HT = 56;
+constexpr int PP = BP * 2 + 16;
+constexpr int OFF_P2 = 8192;
+constexpr int FREE = 1;                 // ring stages B6 f32 gives to the rebuild
+constexpr int CW = 16;
+constexpr int CHUNK = HT * CW * 4;
+constexpr int NBUF = 4;
+constexpr int CHUNKS = 2 * D / CW;
+constexpr int KTILE = BP * D;
+static_assert(HT * PP <= OFF_P2 && OFF_P2 + HT * PP <= STG &&
+                  NBUF * CHUNK <= FREE * STAGE / 2 && HT % 8 == 0,
+              "P1, P2 fit the staging tile, a warpgroup's C chunks its half of the freed stages");
+
+// B6 f32's inputs (K3 f32: all null).
+struct Recon {
+  const float* img0;                       // [gg, D]
+  const __nv_bfloat16 *p1, *p2;            // [Np, HT, gg]
+  const float *c1, *c2;                    // [Np, HT, D]
+  const float* rows;                       // branch rows [8, D]
+  float* keys;                             // keys tiles [n_ctas, 2, BP, D]
+  float ln_eps;
+};
 
 // The pre-pass: one CTA a 32 x 32 tile of one weight W [K, N] (up1_w 64
 // tiles, up2_w 8), written as plane[p][n][k'] = (hi, lo)(W[k][n]) with k'
@@ -940,16 +1033,25 @@ split_head_weights_kernel(const float* __restrict__ up1_w, const float* __restri
   }
 }
 
+// 8 bytes of keys: K3 f32's by the read-only path; B6 f32's keys tile,
+// which the kernel writes, at the L2 (cg).
+template <bool TILE>
+__device__ __forceinline__ float2 ld_keys(const float* p) {
+  if constexpr (TILE) return __ldcg(reinterpret_cast<const float2*>(p));
+  else return __ldg(reinterpret_cast<const float2*>(p));
+}
+
 // K chunk cc of the keys rows g and g + 8 (x0, x8: their column 2c) in
 // the accumulator's layout; a row at or past the item's live rows reads
 // as zeros.
+template <bool TILE>
 __device__ __forceinline__ void load_keys(float (&r)[4][4], const float* x0, const float* x8,
                                           int cc, bool v0, bool v8) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const int col = KC * cc + 8 * kk;
-    const float2 a = v0 ? __ldg(reinterpret_cast<const float2*>(x0 + col)) : make_float2(0.f, 0.f);
-    const float2 b = v8 ? __ldg(reinterpret_cast<const float2*>(x8 + col)) : make_float2(0.f, 0.f);
+    const float2 a = v0 ? ld_keys<TILE>(x0 + col) : make_float2(0.f, 0.f);
+    const float2 b = v8 ? ld_keys<TILE>(x8 + col) : make_float2(0.f, 0.f);
     r[kk][0] = a.x;
     r[kk][1] = a.y;
     r[kk][2] = b.x;
@@ -1099,7 +1201,248 @@ __device__ __forceinline__ void head_epilogue2(const float (&acc)[64], float* st
     for (int m = 0; m < M; ++m) stg[((row0 + 8 * rr) * 16 + 4 * q + c) * M + m] = o[rr][m];
 }
 
-template <int M>
+// B6 f32: a cp.async group's commit; the wait until at most the NBUF - 2
+// latest of this thread's groups are in flight.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_ahead() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(NBUF - 2) : "memory");
+}
+
+// B6 f32: a 16-byte cp.async; the same reading src_bytes (16 or 0: zeros).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// B6 f32: a prompt's P [HT, gg] (bf16) at positions p0.. into the staging
+// tile at ss, [HT, BP] at a pitch of PP bytes; positions past gg read
+// zeros (gg % 8 == 0: a 16-byte piece lies wholly below or past it).
+__device__ __forceinline__ void load_p(uint32_t ss, const __nv_bfloat16* p, int p0, int gg,
+                                       int ctid) {
+  for (int i = ctid; i < HT * BP / 8; i += 128) {
+    const int r = i / (BP / 8), col = 8 * (i % (BP / 8));
+    const bool in = p0 + col < gg;
+    cp_async16_zfill(ss + r * PP + col * 2, p + (size_t)r * gg + (in ? p0 + col : 0), in ? 16 : 0);
+  }
+}
+
+// B6 f32: chunk t of a prompt's C sequence (C1 [HT, D] channels 16t.. for
+// t < 16, then C2's, 16(t - 16)..) into buffer t % NBUF at sc, [HT, CW] f32
+// whose rows r = 2 mod 4 and 3 mod 4 have their two 8-float halves
+// swapped, so that the B fragments' reads (rows 8ks + t and + 4, columns
+// 8u + g) fall in 32 banks.
+__device__ __forceinline__ void load_chunk(uint32_t sc, const float* c1, const float* c2, int t,
+                                           int ctid) {
+  const float* cm = t < CHUNKS / 2 ? c1 : c2;
+  const int q = t % (CHUNKS / 2);
+  const uint32_t dst = sc + (t % NBUF) * CHUNK;
+  for (int i = ctid; i < HT * CW / 4; i += 128) {
+    const int r = i / (CW / 4), col = 4 * (i % (CW / 4));
+    cp_async16(dst + (r * CW + (col ^ ((r & 2) << 2))) * 4, cm + r * D + CW * q + col);
+  }
+}
+
+// B6 f32: k-step ks's operands from the staging tile: P^T's A fragment at
+// the warp's rows pw + g (+ 8), k 8ks + c (+ 4), a bf16's bits shifted into
+// a TF32; C's B values (k 8ks + c, + 4; channel 8u + g) of both n8 tiles.
+__device__ __forceinline__ void recon_operands(uint32_t (&a)[4], float (&b)[2][2],
+                                               const uint8_t* sp, const float* buf, int ks,
+                                               int pw, int g, int c) {
+  const int k = 8 * ks + c;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const unsigned short* row = reinterpret_cast<const unsigned short*>(sp + (k + 4 * h) * PP);
+    a[2 * h] = (uint32_t)row[pw + g] << 16;
+    a[2 * h + 1] = (uint32_t)row[pw + g + 8] << 16;
+  }
+  const int sw = (c & 2) << 2;                   // rows k and k + 4: k % 4 = c
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    b[u][0] = buf[k * CW + ((8 * u + g) ^ sw)];
+    b[u][1] = buf[(k + 4) * CW + ((8 * u + g) ^ sw)];
+  }
+}
+
+// B6 f32: acc += P^T C over the 4 chunks t0.. of C's sequence (the 64
+// channels held in acc; see rebuild_keys), P^T from spl; each chunk's
+// wait, the named barrier that frees the buffer NBUF - 1 chunks back, and
+// that chunk's copy. P^T C_lo and P^T C_hi of a chunk's two n8 tiles run
+// over the 7 k-steps into four fresh accumulators, the next k-step's
+// operands read ahead; then acc = acc + (lo + hi) on acc[0..7], and acc
+// rotates by 8 (the loop is not unrolled: see rebuild_keys).
+__device__ __forceinline__ void recon_group(float (&acc)[32], const uint8_t* spl,
+                                            const uint8_t* sc, uint32_t ssc, const float* c1,
+                                            const float* c2, int t0, int pw, int g, int c,
+                                            int ctid, int bar) {
+#pragma unroll 1
+  for (int i = 0; i < 4; ++i) {
+    const int t = t0 + i;
+    cp_async_wait_ahead();                         // chunk t has landed: this thread's part,
+    named_sync(bar, 128);                          // everyone's; chunk t - 1's buffer is free
+    if (t + NBUF - 1 < CHUNKS) load_chunk(ssc, c1, c2, t + NBUF - 1, ctid);
+    cp_async_commit();                             // (an empty group past the last chunk)
+    const float* buf = reinterpret_cast<const float*>(sc + (t % NBUF) * CHUNK);
+    uint32_t a[2][4];
+    float b[2][2][2];
+    recon_operands(a[0], b[0], spl, buf, 0, pw, g, c);
+    float lo[2][4] = {}, hi[2][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < HT / 8; ++ks) {
+      if (ks + 1 < HT / 8)
+        recon_operands(a[(ks + 1) % 2], b[(ks + 1) % 2], spl, buf, ks + 1, pw, g, c);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        uint32_t h0, l0, h1, l1;
+        split_tf32_bits(b[ks % 2][u][0], h0, l0);
+        split_tf32_bits(b[ks % 2][u][1], h1, l1);
+        mma_m16n8k8_tf32(lo[u], a[ks % 2], l0, l1);
+        mma_m16n8k8_tf32(hi[u], a[ks % 2], h0, h1);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // channel 16i + 8u + 2c + e % 2 of the group: n8 tile 2i + u, at
+        // acc[4u + e] after i rotations
+        float& x = acc[4 * u + e];
+        x = x + (lo[u][e] + hi[u][e]);
+      }
+    float head[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) head[e] = acc[e];
+#pragma unroll
+    for (int e = 0; e < 24; ++e) acc[e] = acc[e + 8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[24 + e] = head[e];
+  }
+}
+
+// B6 f32: prompt n's keys at the item's positions p0.. (the warp's rows pw
+// + g, + 8; this thread's tile rows row0 = pw + g and row0 + 8), rebuilt
+// from img0 through both branch layers, y = LN((y + P^T C) + b), and
+// written to the warpgroup's keys tile kt [BP, D], each value where
+// load_keys reads it from the thread that wrote it. acc[q][4j + 2rr + e] is
+// row row0 + 8rr, channel 64q + 8j + 2c + e. P1^T and P2^T are copied once
+// into the staging tile (sp, at ssp); C's 32 chunks of 16 channels stream
+// through NBUF buffers (sc, at ssc), NBUF - 1 ahead of the one the
+// warpgroup multiplies by. The loops over a layer's four 64-channel groups
+// and a group's four chunks are not unrolled (the group in hand is acc[0],
+// the four rotated after each; the chunk's 16 channels acc[0][0..7], the
+// group rotated by 8 after each): the instruction cache holds the head's
+// code and this, and with this unrolled the kernel ran 3.4x K3 f32's time
+// (the variant "unrolled" of kernels/maskhead_variants.py).
+__device__ __forceinline__ void rebuild_keys(const float* img0, const __nv_bfloat16* p1,
+                                             const __nv_bfloat16* p2, const float* c1,
+                                             const float* c2, const float* rows, float ln_eps,
+                                             float* kt, int n, int p0, int row0, int gg, int g,
+                                             int c, int ctid, int bar, const uint8_t* sp,
+                                             uint32_t ssp, const uint8_t* sc, uint32_t ssc) {
+  const int pw = row0 - g, pos = p0 + row0;
+  const float* c1n = c1 + (size_t)n * HT * D;
+  const float* c2n = c2 + (size_t)n * HT * D;
+  load_p(ssp, p1 + (size_t)n * HT * gg, p0, gg, ctid);
+  load_p(ssp + OFF_P2, p2 + (size_t)n * HT * gg, p0, gg, ctid);
+  for (int t = 0; t < NBUF - 1; ++t) {
+    load_chunk(ssc, c1n, c2n, t, ctid);
+    cp_async_commit();
+  }
+  float acc[4][32];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int p = pos + 8 * rr;
+        const float2 x = p < gg ? __ldg(reinterpret_cast<const float2*>(
+                                      img0 + (size_t)p * D + 64 * q + 8 * j + 2 * c))
+                                : make_float2(0.f, 0.f);
+        acc[q][4 * j + 2 * rr] = x.x;
+        acc[q][4 * j + 2 * rr + 1] = x.y;
+      }
+#pragma unroll 1
+  for (int l = 0; l < 2; ++l) {
+#pragma unroll 1
+    for (int q = 0; q < 4; ++q) {
+      recon_group(acc[0], sp + l * OFF_P2, sc, ssc, c1n, c2n, 16 * l + 4 * q, pw, g, c, ctid,
+                  bar);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {               // the next group to acc[0]
+        const float x = acc[0][e];
+        acc[0][e] = acc[1][e];
+        acc[1][e] = acc[2][e];
+        acc[2][e] = acc[3][e];
+        acc[3][e] = x;
+      }
+    }
+    // (y + a) + b, then the LayerNorm: one-pass variance max(E[y^2] - mu^2,
+    // 0) over the row's 256 channels, which lie in the 4 threads of a quad
+    const float* b = rows + 3 * l * D;
+    float st[2][2] = {};
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 bb = __ldg(reinterpret_cast<const float2*>(b + 64 * q + 8 * j + 2 * c));
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          float& x = acc[q][4 * j + 2 * rr];
+          float& y = acc[q][4 * j + 2 * rr + 1];
+          x += bb.x;
+          y += bb.y;
+          st[rr][0] += x + y;
+          st[rr][1] = fmaf(y, y, fmaf(x, x, st[rr][1]));
+        }
+      }
+#pragma unroll
+    for (int lane = 1; lane < 4; lane *= 2)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) st[rr][k] += __shfl_xor_sync(0xffffffffu, st[rr][k], lane);
+    float mu[2], rs[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      mu[rr] = st[rr][0] * (1.f / D);
+      rs[rr] = rsqrtf(fmaxf(st[rr][1] * (1.f / D) - mu[rr] * mu[rr], 0.f) + ln_eps);
+    }
+    const float *scale = rows + (3 * l + 1) * D, *bias = rows + (3 * l + 2) * D;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int ch = 64 * q + 8 * j + 2 * c;
+        const float2 sc2 = __ldg(reinterpret_cast<const float2*>(scale + ch));
+        const float2 bi2 = __ldg(reinterpret_cast<const float2*>(bias + ch));
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          float& x = acc[q][4 * j + 2 * rr];
+          float& y = acc[q][4 * j + 2 * rr + 1];
+          x = fmaf((x - mu[rr]) * rs[rr], sc2.x, bi2.x);
+          y = fmaf((y - mu[rr]) * rs[rr], sc2.y, bi2.y);
+        }
+      }
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+        *reinterpret_cast<float2*>(kt + (row0 + 8 * rr) * D + 64 * q + 8 * j + 2 * c) =
+            make_float2(acc[q][4 * j + 2 * rr], acc[q][4 * j + 2 * rr + 1]);
+}
+
+// K3 f32 (RECON false: the keys [Np, gg, D]) and B6 f32 (RECON true: keys
+// unused, the keys tile rebuilt from rc).
+template <int M, bool RECON>
 __global__ void __launch_bounds__(THREADS, 1)
 mask_head_tf32x3_kernel(const __grid_constant__ CUtensorMap tw1,   // [2, 256 N, 256 K] planes
                         const __grid_constant__ CUtensorMap tw2,   // [2, 128 N, 64 K] planes
@@ -1110,7 +1453,8 @@ mask_head_tf32x3_kernel(const __grid_constant__ CUtensorMap tw1,   // [2, 256 N,
                         const float* __restrict__ up2_b,           // [C2]
                         const float* __restrict__ hyper,           // [Np, M, C2]
                         float* __restrict__ out,                   // [Np, content, 16, M]
-                        int gg, int content, int tiles, int total, float eps) {
+                        int gg, int content, int tiles, int total, float eps,
+                        const Recon rc) {
   extern __shared__ uint8_t smem_k3f[];
   const uint32_t sraw = smem_u32(smem_k3f);
   const uint32_t base = (sraw + 1023) & ~1023u;
@@ -1118,6 +1462,8 @@ mask_head_tf32x3_kernel(const __grid_constant__ CUtensorMap tw1,   // [2, 256 N,
   auto full = [&](int slot) { return base + OFF_BAR + 8 * slot; };
   auto empty = [&](int slot) { return base + OFF_BAR + 8 * (SLOTS + slot); };
   const uint32_t wbar = base + OFF_BAR + 16 * SLOTS;
+  // the up1_wᵀ ring's depth: B6 f32 gives its last stages to the rebuild
+  constexpr int RING = RECON ? SLOTS - FREE : SLOTS;
 
   // this CTA's units [u0, u1): unit u is items 2u (warpgroup 0) and 2u + 1
   const long long units = (total + 1) / 2;
@@ -1129,6 +1475,7 @@ mask_head_tf32x3_kernel(const __grid_constant__ CUtensorMap tw1,   // [2, 256 N,
   const int bar = 1 + wg;                         // this warpgroup's named barrier
   float* stg = reinterpret_cast<float*>(sm + OFF_STG + wg * STG);
   float* hyp = reinterpret_cast<float*>(sm + OFF_HYP + wg * HYP);
+  float* kt = RECON ? rc.keys + ((size_t)blockIdx.x * 2 + wg) * KTILE : nullptr;
 
   float* sb1 = reinterpret_cast<float*>(sm + OFF_VEC);
   float* sls = sb1 + C1;
@@ -1156,22 +1503,22 @@ mask_head_tf32x3_kernel(const __grid_constant__ CUtensorMap tw1,   // [2, 256 N,
   // group pair (st % 16) / 8, K chunk st % 8 of up1_wᵀ.
   auto fill = [&](int st) {
     if (u0 + st / NSTAGE >= u1) return;
-    const uint32_t dst = base + OFF_RING + (st % SLOTS) * STAGE;
+    const uint32_t dst = base + OFF_RING + (st % RING) * STAGE;
     const int k0 = KC * (st % NCHUNK), n0 = 128 * ((st % NSTAGE) / NCHUNK);
-    mbar_expect_tx(full(st % SLOTS), STAGE);
-    tma_load_3d(dst, &tw1, k0, n0, 0, full(st % SLOTS));
-    tma_load_3d(dst + BOX, &tw1, k0, n0, 1, full(st % SLOTS));
+    mbar_expect_tx(full(st % RING), STAGE);
+    tma_load_3d(dst, &tw1, k0, n0, 0, full(st % RING));
+    tma_load_3d(dst + BOX, &tw1, k0, n0, 1, full(st % RING));
   };
-  auto stage_at = [&](int st) { return base + OFF_RING + (st % SLOTS) * STAGE; };
-  auto stage_wait = [&](int st) { mbar_wait(full(st % SLOTS), (st / SLOTS) & 1); };
+  auto stage_at = [&](int st) { return base + OFF_RING + (st % RING) * STAGE; };
+  auto stage_wait = [&](int st) { mbar_wait(full(st % RING), (st / RING) & 1); };
   auto stage_done = [&](int st) {
-    mbar_arrive(empty(st % SLOTS));
+    mbar_arrive(empty(st % RING));
     if (ctid == 0) {
       // two releases a use of the slot: the odd one is the second
-      const bool second = atomicAdd(releases + st % SLOTS, 1u) & 1u;
-      if (second && u0 + (st + SLOTS) / NSTAGE < u1) {
-        mbar_wait(empty(st % SLOTS), (st / SLOTS) & 1);
-        fill(st + SLOTS);
+      const bool second = atomicAdd(releases + st % RING, 1u) & 1u;
+      if (second && u0 + (st + RING) / NSTAGE < u1) {
+        mbar_wait(empty(st % RING), (st / RING) & 1);
+        fill(st + RING);
       }
     }
   };
@@ -1180,7 +1527,7 @@ mask_head_tf32x3_kernel(const __grid_constant__ CUtensorMap tw1,   // [2, 256 N,
     for (int p = 0; p < 2; ++p)
       for (int h = 0; h < 2; ++h)
         tma_load_3d(base + OFF_W2 + (2 * p + h) * BOX, &tw2, KC * h, 0, p, wbar);
-    for (int i = 0; i < SLOTS; ++i) fill(i);
+    for (int i = 0; i < RING; ++i) fill(i);
   }
   // The warpgroups issue their products in turns (named barriers 3 and 4,
   // warpgroup 0 first); warpgroup 1 skips the turn after the CTA's last.
@@ -1201,16 +1548,26 @@ mask_head_tf32x3_kernel(const __grid_constant__ CUtensorMap tw1,   // [2, 256 N,
     const int p0 = live ? (int)(item % tiles) * BP : 0;
     const int nrows = live ? min(BP, content - p0) : 0;
     const bool v0 = row0 < nrows, v8 = row0 + 8 < nrows;
-    const float* x0 = keys + ((size_t)n * gg + p0 + row0) * D + 2 * c;
+    const float* x0 = (RECON ? kt + row0 * D : keys + ((size_t)n * gg + p0 + row0) * D) + 2 * c;
     const float* x8 = x0 + 8 * D;
     // the last item's copy-out is done: its staging tile and hypernetwork
     // rows may be overwritten
     named_sync(bar, 128);
     for (int e = ctid; e < M * C2; e += 128) hyp[e] = live ? hyper[(size_t)n * M * C2 + e] : 0.f;
     named_sync(bar, 128);
+    if constexpr (RECON) {
+      if (live) {
+        constexpr int off_c = OFF_RING + RING * STAGE;          // the stages the ring leaves
+        constexpr int per_wg = FREE * STAGE / 2;
+        rebuild_keys(rc.img0, rc.p1, rc.p2, rc.c1, rc.c2, rc.rows, rc.ln_eps, kt, n, p0, row0,
+                     gg, g, c, ctid, bar, sm + OFF_STG + wg * STG, base + OFF_STG + wg * STG,
+                     sm + off_c + wg * per_wg, base + off_c + wg * per_wg);
+        named_sync(bar, 128);                     // the staging tile is the logits' again
+      }
+    }
 
     float r[4][4];
-    load_keys(r, x0, x8, 0, v0, v8);
+    load_keys<RECON>(r, x0, x8, 0, v0, v8);
 #pragma unroll 1
     for (int pr = 0; pr < 2; ++pr) {
       // y1 of groups 2pr, 2pr + 1: a fresh accumulator a K chunk, summed in f32
@@ -1221,8 +1578,8 @@ mask_head_tf32x3_kernel(const __grid_constant__ CUtensorMap tw1,   // [2, 256 N,
       for (int cc = 0; cc < NCHUNK; ++cc) {
         uint32_t fh[4][4], fl[4][4];
         split_chunk(r, fh, fl);
-        if (cc + 1 < NCHUNK) load_keys(r, x0, x8, cc + 1, v0, v8);
-        else if (pr == 0) load_keys(r, x0, x8, 0, v0, v8);
+        if (cc + 1 < NCHUNK) load_keys<RECON>(r, x0, x8, cc + 1, v0, v8);
+        else if (pr == 0) load_keys<RECON>(r, x0, x8, 0, v0, v8);
         float acc[64];
         stage_wait(s);
         take_turn();
@@ -1262,22 +1619,25 @@ mask_head_tf32x3_kernel(const __grid_constant__ CUtensorMap tw1,   // [2, 256 N,
   }
 }
 
-template <int M>
-int launch(const void* keys, const void* up1_w, const void* up1_b, const void* ln_s,
-           const void* ln_b, const void* up2_w, const void* up2_b, const void* hyper, void* out,
-           void* scratch, int np_, int gg, int content, float eps, cudaStream_t stream) {
-  auto kernel = mask_head_tf32x3_kernel<M>;
+// A launch's arguments (K3 f32: rc null; B6 f32: keys null).
+struct Args {
+  const void *keys, *up1_w, *up1_b, *ln_s, *ln_b, *up2_w, *up2_b, *hyper;
+  void *out, *scratch;
+  int np_, gg, content;
+  float eps;
+  Recon rc;
+};
+
+template <int M, bool RECON>
+int launch(const Args& a, int n_ctas, cudaStream_t stream) {
+  auto kernel = mask_head_tf32x3_kernel<M, RECON>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  const int tiles = (content + BP - 1) / BP;
-  const long long total = (long long)np_ * tiles;
+  const int tiles = (a.content + BP - 1) / BP;
+  const long long total = (long long)a.np_ * tiles;
   if (total > (1ll << 30)) return (int)cudaErrorInvalidValue;
-  float* planes = static_cast<float*>(scratch);
+  float* planes = static_cast<float*>(a.scratch);
   CUtensorMap t1, t2;
   const cuuint32_t box[3] = {KC, 128, 1};
   const cuuint64_t dims1[3] = {(cuuint64_t)D, (cuuint64_t)4 * C1, 2};
@@ -1288,16 +1648,27 @@ int launch(const void* keys, const void* up1_w, const void* up1_b, const void* l
       !tensor_map_f32(&t2, planes + 2 * D * 4 * C1, 3, dims2, strides2, box))
     return (int)cudaErrorInvalidValue;
   typedef const float* P;
-  split_head_weights_kernel<<<72, 256, 0, stream>>>(static_cast<P>(up1_w), static_cast<P>(up2_w),
-                                                     planes);
+  split_head_weights_kernel<<<72, 256, 0, stream>>>(static_cast<P>(a.up1_w),
+                                                     static_cast<P>(a.up2_w), planes);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long long units = (total + 1) / 2;
-  const int grid = (int)(units < sms ? units : sms);
+  const int grid = (int)(units < n_ctas ? units : n_ctas);
   kernel<<<grid, THREADS, SMEM, stream>>>(
-      t1, t2, static_cast<P>(keys), static_cast<P>(up1_b), static_cast<P>(ln_s),
-      static_cast<P>(ln_b), static_cast<P>(up2_b), static_cast<P>(hyper),
-      static_cast<float*>(out), gg, content, tiles, (int)total, eps);
+      t1, t2, static_cast<P>(a.keys), static_cast<P>(a.up1_b), static_cast<P>(a.ln_s),
+      static_cast<P>(a.ln_b), static_cast<P>(a.up2_b), static_cast<P>(a.hyper),
+      static_cast<float*>(a.out), a.gg, a.content, tiles, (int)total, a.eps, a.rc);
   return (int)cudaGetLastError();
+}
+
+template <bool RECON>
+int launch_m(const Args& a, int n_masks, int n_ctas, cudaStream_t stream) {
+  switch (n_masks) {
+    case 1: return launch<1, RECON>(a, n_ctas, stream);
+    case 2: return launch<2, RECON>(a, n_ctas, stream);
+    case 3: return launch<3, RECON>(a, n_ctas, stream);
+    case 4: return launch<4, RECON>(a, n_ctas, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace rat_k3f
@@ -1312,17 +1683,16 @@ extern "C" int rat_mask_head_f32(const void* keys, const void* up1_w, const void
                                  int np_, int gg, int content, int n_masks, float eps,
                                  void* stream) {
   if (np_ < 1 || content < 1 || content > gg) return (int)cudaErrorInvalidValue;
-  auto run = [&](auto launch) {
-    return launch(keys, up1_w, up1_b, ln_s, ln_b, up2_w, up2_b, hyper, out, scratch, np_, gg,
-                  content, eps, static_cast<cudaStream_t>(stream));
-  };
-  switch (n_masks) {
-    case 1: return run(rat_k3f::launch<1>);
-    case 2: return run(rat_k3f::launch<2>);
-    case 3: return run(rat_k3f::launch<3>);
-    case 4: return run(rat_k3f::launch<4>);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  int dev = 0, sms = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  rat_k3f::Args a = {};
+  a.keys = keys, a.up1_w = up1_w, a.up1_b = up1_b, a.ln_s = ln_s, a.ln_b = ln_b;
+  a.up2_w = up2_w, a.up2_b = up2_b, a.hyper = hyper, a.out = out, a.scratch = scratch;
+  a.np_ = np_, a.gg = gg, a.content = content, a.eps = eps;
+  return rat_k3f::launch_m<false>(a, n_masks, sms, static_cast<cudaStream_t>(stream));
 }
 
 // Dynamic shared memory a K3 f32 CTA takes (for reports).
@@ -1330,3 +1700,35 @@ extern "C" int rat_mask_head_f32_smem() { return rat_k3f::SMEM; }
 
 // Floats of scratch rat_mask_head_f32 takes: up1_wᵀ's and up2_wᵀ's planes.
 extern "C" int rat_mask_head_f32_scratch() { return rat_k3f::PLANES; }
+
+// B6 in f32: rat_mask_head_probs's arguments, every tensor f32 but P1 and
+// P2 (bf16), plus scratch of rat_mask_head_probs_f32_scratch(n_ctas)
+// floats after out (the weights' TF32 planes, then a keys tile [64, 256]
+// for each warpgroup of the grid, at most n_ctas CTAs). Two launches on the
+// stream: the weight split, then the head.
+extern "C" int rat_mask_head_probs_f32(const void* img0, const void* p1, const void* c1m,
+                                       const void* p2, const void* c2m, const void* rows,
+                                       const void* up1_w, const void* up1_b, const void* ln_s,
+                                       const void* ln_b, const void* up2_w, const void* up2_b,
+                                       const void* hyper, void* out, void* scratch, int np_,
+                                       int gg, int content, int n_masks, float eps,
+                                       float ln_eps, int n_ctas, void* stream) {
+  if (np_ < 1 || gg % 8 != 0 || content < 1 || content > gg || n_ctas < 1)
+    return (int)cudaErrorInvalidValue;
+  rat_k3f::Args a = {};
+  a.up1_w = up1_w, a.up1_b = up1_b, a.ln_s = ln_s, a.ln_b = ln_b;
+  a.up2_w = up2_w, a.up2_b = up2_b, a.hyper = hyper, a.out = out, a.scratch = scratch;
+  a.np_ = np_, a.gg = gg, a.content = content, a.eps = eps;
+  typedef const float* F;
+  typedef const __nv_bfloat16* B;
+  a.rc = {static_cast<F>(img0), static_cast<B>(p1), static_cast<B>(p2), static_cast<F>(c1m),
+          static_cast<F>(c2m), static_cast<F>(rows),
+          static_cast<float*>(scratch) + rat_k3f::PLANES, ln_eps};
+  return rat_k3f::launch_m<true>(a, n_masks, n_ctas, static_cast<cudaStream_t>(stream));
+}
+
+// Floats of scratch rat_mask_head_probs_f32 takes for a grid of at most
+// n_ctas CTAs: the weights' planes, then two keys tiles a CTA.
+extern "C" int rat_mask_head_probs_f32_scratch(int n_ctas) {
+  return rat_k3f::PLANES + n_ctas * 2 * rat_k3f::KTILE;
+}

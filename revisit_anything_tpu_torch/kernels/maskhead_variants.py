@@ -9,11 +9,19 @@ one work item alone.
 
     python -m revisit_anything_tpu_torch.kernels.maskhead_variants
     python -m revisit_anything_tpu_torch.kernels.maskhead_variants --f32
+    python -m revisit_anything_tpu_torch.kernels.maskhead_variants --probs-f32
 
 With ``--f32`` the variants are of K3's f32 form (``rat_mask_head_f32``:
 split-TF32 products, the keys loads, the weight ring, the group LN, the
 exact GELU and the logits stores, each removed in turn), held to the plain
-version in f32 with TF32 off.
+version in f32 with TF32 off. With ``--probs-f32`` they are of B6's f32
+form (``rat_mask_head_probs_f32``: the rebuild or the head removed; the
+rebuild's C chunks, P copies, products or splits removed, with and
+without the head; the rebuild run twice, its loops unrolled, two ring
+stages given to it), held to the kernel's own output,
+followed by the count of its local-memory instructions from the SASS and
+whether each lies nearer the rebuild's products (HMMA) or the head's
+(HGMMA).
 
 Times are CUDA-event medians of 11 calls, each queued behind a device
 sleep (as ``chip_smoke.py`` times kernels). Needs a CUDA device and
@@ -24,6 +32,7 @@ does not fit the card at 1024 prompts).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import statistics
 import subprocess
@@ -119,13 +128,19 @@ _F32_GELU = ("  return x * 0.5f * (1.f + erff(x * 0.70710678118654752f));",
 _F32_LN = [("    mu[rr] *= 1.f / C1;", "    mu[rr] = 0.f;"),
            ("    rs[rr] = rsqrtf(rs[rr] * (1.f / C1) + eps);", "    rs[rr] = 1.f;")]
 _F32_STORES = ("    for (int i = ctid; i < n16; i += 128) dst4[i] = src4[i];\n", "")
-_F32_LOAD = [("const float2 a = v0 ? __ldg(", "const float2 a = false ? __ldg("),
-             ("const float2 b = v8 ? __ldg(", "const float2 b = false ? __ldg(")]
+_F32_LOAD = [("const bool v0 = row0 < nrows, v8 = row0 + 8 < nrows;",
+              "const bool v0 = false, v8 = false;")]
 _F32_RESIDENT = [
-    ("auto stage_wait = [&](int st) { mbar_wait(full(st % SLOTS), (st / SLOTS) & 1); };",
-     "auto stage_wait = [&](int st) { if (st < SLOTS) mbar_wait(full(st % SLOTS), 0); };"),
-    ("        fill(st + SLOTS);\n", "")]
+    ("auto stage_wait = [&](int st) { mbar_wait(full(st % RING), (st / RING) & 1); };",
+     "auto stage_wait = [&](int st) { if (st < RING) mbar_wait(full(st % RING), 0); };"),
+    ("        fill(st + RING);\n", "")]
 _F32_ENTRY = "  extern __shared__ uint8_t smem_k3f[];"
+_F32_NOTURNS = [("  if (wg == 1) named_arrive(3, 256);\n  auto take_turn",
+                 "  auto take_turn"),
+                ("  auto take_turn = [&]() { named_sync(my_turn, 256); };",
+                 "  auto take_turn = [&]() {};"),
+                ("    if (!(wg == 1 && last)) named_arrive(other_turn, 256);",
+                 "    (void)last;")]
 
 F32_VARIANTS = {
     "kernel": ("the kernel as built", []),
@@ -141,18 +156,71 @@ F32_VARIANTS = {
                      [_F32_GELU, *_F32_LN, _F32_STORES, *_F32_LOAD,
                       *_F32_RESIDENT]),
     "noturns": ("the two warpgroups issue their products without taking "
-                "turns",
-                [("  if (wg == 1) named_arrive(3, 256);\n  auto take_turn",
-                  "  auto take_turn"),
-                 ("  auto take_turn = [&]() { named_sync(my_turn, 256); };",
-                  "  auto take_turn = [&]() {};"),
-                 ("    if (!(wg == 1 && last)) named_arrive(other_turn, 256);",
-                  "    (void)last;")]),
+                "turns", _F32_NOTURNS),
     "erfcgelu": ("GELU as x/2·erfc(-x/√2) (erfcf) in place of erff's form",
                  [(_F32_GELU[0],
                    "  return 0.5f * x * erfcf(-0.70710678118654752f * x);")]),
     "empty": ("the weight split, then the head returns at entry",
               [(_F32_ENTRY, "  if (total > 0) return;\n" + _F32_ENTRY)]),
+}
+
+# B6 f32 (rat_mask_head_probs_f32): the rebuild, the head, and the
+# rebuild's C chunks, P copies, products and splits, each removed
+_F32_RB = ("        rebuild_keys(rc.img0, rc.p1, rc.p2, rc.c1, rc.c2, rc.rows, rc.ln_eps, kt, "
+           "n, p0, row0,\n"
+           "                     gg, g, c, ctid, bar, sm + OFF_STG + wg * STG, "
+           "base + OFF_STG + wg * STG,\n"
+           "                     sm + off_c + wg * per_wg, base + off_c + wg * per_wg);\n")
+_F32_PAIRS = "    for (int pr = 0; pr < 2; ++pr) {"
+_F32_FILL = ("    mbar_expect_tx(full(st % RING), STAGE);\n"
+             "    tma_load_3d(dst, &tw1, k0, n0, 0, full(st % RING));\n"
+             "    tma_load_3d(dst + BOX, &tw1, k0, n0, 1, full(st % RING));\n")
+_F32_CHUNK = ("    cp_async16(dst + (r * CW + (col ^ ((r & 2) << 2))) * 4, "
+              "cm + r * D + CW * q + col);")
+_F32_MMA = ("        mma_m16n8k8_tf32(lo[u], a[ks % 2], l0, l1);\n"
+            "        mma_m16n8k8_tf32(hi[u], a[ks % 2], h0, h1);\n")
+# the products replaced by one add a k-step, which keeps their operands live
+_F32_NO_MMA = ("        lo[u][ks % 4] += __uint_as_float(l0 ^ l1 ^ a[ks % 2][0]);\n"
+               "        hi[u][ks % 4] += __uint_as_float(h0 ^ h1 ^ a[ks % 2][3]);\n")
+_F32_SPLIT = [("        split_tf32_bits(b[ks % 2][u][0], h0, l0);\n"
+               "        split_tf32_bits(b[ks % 2][u][1], h1, l1);\n",
+               "        h0 = __float_as_uint(b[ks % 2][u][0]), l0 = 0u;\n"
+               "        h1 = __float_as_uint(b[ks % 2][u][1]), l1 = 0u;\n")]
+_F32_NOHEAD = [(_F32_PAIRS, "    for (int pr = 0; pr < 0; ++pr) {"),
+               (_F32_FILL, ""),
+               ("  if (wg == 1) named_arrive(3, 256);\n  auto take_turn",
+                "  auto take_turn")]
+_F32_P = [("  load_p(ssp, p1 + (size_t)n * HT * gg, p0, gg, ctid);\n"
+           "  load_p(ssp + OFF_P2, p2 + (size_t)n * HT * gg, p0, gg, ctid);\n", "")]
+
+PROBS_F32_VARIANTS = {
+    "kernel": ("the kernel as built", []),
+    "norebuild": ("rebuild removed: the head reads the keys tile as left",
+                  [(_F32_RB, "")]),
+    "nohead": ("head removed: the rebuild, hyper rows and logit copy-out "
+               "only (no weight ring, keys loads, products, epilogues or "
+               "turns)", _F32_NOHEAD),
+    "nohead_nochunks": ("head removed, and the rebuild's C chunks not copied",
+                        _F32_NOHEAD + [(_F32_CHUNK, "")]),
+    "nohead_noproducts": ("head removed, and the rebuild's mma.sync removed",
+                          _F32_NOHEAD + [(_F32_MMA, _F32_NO_MMA)]),
+    "nohead_nosplit": ("head removed, and C not split", _F32_NOHEAD + _F32_SPLIT),
+    "nohead_nop": ("head removed, and P not copied", _F32_NOHEAD + _F32_P),
+    "nochunks": ("the rebuild's C chunks not copied (its products read the "
+                 "staging tile as left)", [(_F32_CHUNK, "")]),
+    "noproducts": ("the rebuild's mma.sync removed", [(_F32_MMA, _F32_NO_MMA)]),
+    "nosplit": ("C not split (its hi plane the raw f32 bits, lo zero)",
+                _F32_SPLIT),
+    "twice": ("the rebuild run twice an item", [(_F32_RB, _F32_RB + _F32_RB)]),
+    "unrolled": ("the rebuild's group and chunk loops unrolled (~16 times "
+                 "their code)",
+                 [("#pragma unroll 1\n    for (int q = 0; q < 4; ++q) {\n      recon_group",
+                   "#pragma unroll\n    for (int q = 0; q < 4; ++q) {\n      recon_group"),
+                  ("#pragma unroll 1\n  for (int i = 0; i < 4; ++i) {",
+                   "#pragma unroll\n  for (int i = 0; i < 4; ++i) {")]),
+    "free2": ("two ring stages given to the rebuild (a 2-stage ring, 8 C "
+              "buffers)", [("constexpr int FREE = 1; ", "constexpr int FREE = 2; "),
+                           ("constexpr int NBUF = 4;", "constexpr int NBUF = 8;")]),
 }
 
 # (prompts, gg, content, mask tokens): the serving shape, and one
@@ -170,7 +238,8 @@ def _source(reps) -> str:
 
 
 _ENTRIES = {"maskhead": "rat_mask_head", "maskprobs": "rat_mask_head_probs",
-            "maskf32": "rat_mask_head_f32"}
+            "maskf32": "rat_mask_head_f32",
+            "probsf32": "rat_mask_head_probs_f32"}
 
 
 def _build_all(tables=(("maskhead", VARIANTS),
@@ -269,12 +338,72 @@ def main_f32(dev) -> None:
         del keys, want, out
 
 
+def main_probs_f32(dev) -> None:
+    """B6 f32's variants at the serving shape and on one unit alone, each
+    held to the kernel's own output; then the registers, spills and
+    local-memory instructions of the kernel as built (cuobjdump)."""
+    fns = _build_all((("probsf32", PROBS_F32_VARIANTS),))["probsf32"]
+    for name, (what, _) in PROBS_F32_VARIANTS.items():
+        print(f"[variant] B6 f32 {name}: {what}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape, s=1.0, off=0.0):
+        return torch.randn(shape, generator=g, device=dev) * s + off
+
+    def probs(np_, gg):
+        x = torch.randn((np_, 8, 7, gg), generator=g, device=dev) * 2.0
+        return torch.softmax(x, dim=2).reshape(np_, 56, gg).to(torch.bfloat16)
+
+    n_ctas = torch.cuda.get_device_properties(dev).multi_processor_count
+    scratch = torch.empty(mh.mask_head_probs_f32_scratch(n_ctas), device=dev)
+    for np_, gg, content, m in ((1024, 4096, 3136, 3), (1, 64, 64, 3)):
+        head = (rnd(256, 256, s=0.1), rnd(64, s=0.1), rnd(64, s=0.1, off=1.0),
+                rnd(64, s=0.1), rnd(64, 128, s=0.1), rnd(32, s=0.1))
+        rows = torch.zeros((8, 256), device=dev)
+        rows[[1, 4]] = 1.0
+        rows = rows + rnd(8, 256, s=0.1)
+        ins = (rnd(1, gg, 256), probs(np_, gg), rnd(np_, 56, 256, s=0.3),
+               probs(np_, gg), rnd(np_, 56, 256, s=0.3), rows) + head + (
+                   rnd(np_, m, 32, s=0.5),)
+        out = torch.empty((np_, content, 16, m), device=dev)
+        parts = _run(fns, [a.data_ptr() for a in ins] + [
+            out.data_ptr(), scratch.data_ptr(), np_, gg, content, m, 1e-6,
+            1e-6, n_ctas], out, None)
+        print(f"[variants] B6 f32 P [{np_},56,{gg}] content {content} M {m}: "
+              f"{'; '.join(parts)}", flush=True)
+        del ins, out
+    import re
+    import shutil
+    build.load()
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(build.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    for f in sass.split("Function : ")[1:]:
+        if "mask_head_tf32x3_kernelILi3E" not in f.split("\n", 1)[0]:
+            continue
+        lines = f.splitlines()
+        local = [i for i, ln in enumerate(lines) if re.search(r"\b(STL|LDL)", ln)]
+        print(f"[sass] {lines[0][:70]}: {len(lines)} lines, "
+              f"{len(local)} local-memory instructions", flush=True)
+        # where each lies: nearer an HMMA (the rebuild) or an HGMMA (the head)
+        mma = {k: [i for i, ln in enumerate(lines) if re.search(k, ln)]
+               for k in (r"\bHMMA", r"\bHGMMA")}
+        near = collections.Counter(
+            min(mma, key=lambda k: min((abs(i - j) for j in mma[k]),
+                                       default=1 << 30)) for i in local)
+        print(f"[local] nearest tensor instruction: {dict(near)}", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("maskhead_variants: needs a CUDA device")
     dev = torch.device("cuda")
     if "--f32" in sys.argv[1:]:
         main_f32(dev)
+        return
+    if "--probs-f32" in sys.argv[1:]:
+        main_probs_f32(dev)
         return
     fns = _build_all()
     fns, probs_fns = fns["maskhead"], fns["maskprobs"]

@@ -1,14 +1,14 @@
 """Hold the probability-factored decode kernels, B7 (``i2t_probs``, layers
-1 and 2) and B8 (``t2i_from_probs``, depths 1 and 2), of this checkout
-against another checkout's on the card, and time B7 layer 2's grid two
-ways.
+1 and 2), B8 (``t2i_from_probs``, depths 1 and 2) and B6
+(``fused_mask_head_probs``, content 3136, M 3), of this checkout against
+another checkout's on the card, and time B7 layer 2's grid two ways.
 
     python -m revisit_anything_tpu_torch.kernels.probs_compare [OTHER_ROOT]
     python -m revisit_anything_tpu_torch.kernels.probs_compare --f32
 
 Each checkout runs in its own process and build (the two packages share a
 name), twice, in turns (other, this, this, other). A run makes the same
-seeded inputs (M 4096) and prints, for each of the four launches:
+seeded inputs (M 4096) and prints, for each of the five launches:
 
 - ``[precision]``: on the first 64 prompts, the share of the kernel's
   bf16 output elements that differ from the checkout's own plain f32
@@ -29,7 +29,8 @@ nvcc.
 one process: ``[precision]`` on the first 64 prompts against the plain
 f32 version with TF32 off (B7: the share of its bf16 P elements that
 differ and the largest difference in bf16 ulps; B8: the largest error
-relative to the output's scale), then ``[time]`` at 1024 prompts of each
+relative to the output's scale; B6 the same), then ``[time]`` at 1024
+prompts of each
 launch in bf16 and in f32, in turns (bf16, f32, f32, bf16: each form's
 time the median of its two turns, each turn a median of 11).
 """
@@ -43,7 +44,8 @@ from pathlib import Path
 
 _ROOT = Path(__file__).resolve().parents[2]
 _OUT = _ROOT / "build" / "probs_compare"
-LAUNCHES = ("B7 layer 1", "B7 layer 2", "B8 depth 1", "B8 depth 2")
+LAUNCHES = ("B7 layer 1", "B7 layer 2", "B8 depth 1", "B8 depth 2",
+            "B6 content 3136")
 
 # B7 f32 rounds P to bf16 as its plain version does: an f32 difference of
 # ~2^-20 of a probability (the rebuild's and scores' planes, f32 sums in
@@ -69,7 +71,8 @@ def bf16_ulps(got, want) -> tuple:
 def _inputs(torch, b, seed=0, dtype=None):
     """The serving widths (D 256, DA 128, 8 heads, 7 tokens, M 4096) for
     ``b`` prompts, as ``chip_smoke.py`` makes them: P bf16, the rest in
-    ``dtype`` (bf16 by default)."""
+    ``dtype`` (bf16 by default); then B6's hypernetwork rows (M 3) and
+    mask head weights."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     bf, m = torch.bfloat16, 4096
@@ -91,14 +94,19 @@ def _inputs(torch, b, seed=0, dtype=None):
                 c1=rnd(b, 56, 256, s=0.3), c2=rnd(b, 56, 256, s=0.3),
                 w_q=rnd(256, 128, s=0.1), w_k=rnd(256, 128, s=0.1),
                 w_v=rnd(256, 128, s=0.1), vb=rnd(128, s=0.1),
-                rows=rows.to(dtype))
+                rows=rows.to(dtype), hyper=rnd(b, 3, 32, s=0.5),
+                head=(rnd(256, 256, s=0.1), rnd(64, s=0.1),
+                      rnd(64, s=0.1) + 1, rnd(64, s=0.1),
+                      rnd(64, 128, s=0.1), rnd(32, s=0.1)))
 
 
 def _calls(dpr, x, plain=False):
-    """The four launches on inputs ``x`` (kernels, or their plain
+    """The five launches on inputs ``x`` (kernels, or their plain
     versions), as argument-free functions."""
+    from revisit_anything_tpu_torch.ops import maskhead as mh
     i2t = dpr.i2t_probs_reference if plain else dpr.i2t_probs
     t2i = dpr.t2i_from_probs_reference if plain else dpr.t2i_from_probs
+    head = mh.mask_head_probs_reference if plain else mh.fused_mask_head_probs
     recon = (x["img0"], x["p1"], x["c1"], x["peqt"], x["w_q"], x["rows"])
 
     def attend(p2, c2):
@@ -108,7 +116,9 @@ def _calls(dpr, x, plain=False):
 
     return (lambda: i2t(x["q1st"], x["tok_k"], 8),
             lambda: i2t(None, x["tok_k"], 8, layer=2, recon=recon),
-            attend(None, None), attend(x["p2"], x["c2"]))
+            attend(None, None), attend(x["p2"], x["c2"]),
+            lambda: head(x["img0"], x["p1"], x["c1"], x["p2"], x["c2"],
+                         x["rows"], x["hyper"], *x["head"], content=3136))
 
 
 def _worker(root: str, out: str) -> None:
@@ -126,7 +136,7 @@ def _worker(root: str, out: str) -> None:
     from revisit_anything_tpu_torch.ops import decode_probs as dpr
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"[compare] {root}: {dpr.__file__}", flush=True)
-    x = {k: (v[:64] if v.shape[0] == 1024 else v)
+    x = {k: (v[:64] if k != "head" and v.shape[0] == 1024 else v)
          for k, v in _inputs(torch, 1024).items()}
     saved = []
     with torch.inference_mode():
@@ -156,7 +166,7 @@ def _worker_f32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     f32 = torch.float32
     with torch.inference_mode():
-        x = {k: (v[:64] if v.shape[0] == 1024 else v)
+        x = {k: (v[:64] if k != "head" and v.shape[0] == 1024 else v)
              for k, v in _inputs(torch, 1024, dtype=f32).items()}
         for name, k, p in zip(LAUNCHES, _calls(dpr, x), _calls(dpr, x, True)):
             got, want = k(), p()

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from revisit_anything_tpu_torch.kernels.build import (MASK_HEAD,
                                                       MASK_HEAD_F32,
                                                       MASK_HEAD_PROBS,
+                                                      MASK_HEAD_PROBS_F32,
                                                       operand)
 from revisit_anything_tpu_torch.models.layers import mlp
 from revisit_anything_tpu_torch.ops.attention import kernel_dtype
@@ -109,6 +110,14 @@ def mask_head_f32_scratch() -> int:
     return 2 * (256 * 256 + 64 * 128)
 
 
+def mask_head_probs_f32_scratch(n_ctas: int) -> int:
+    """Floats of B6 f32's scratch for a grid of at most ``n_ctas`` CTAs
+    (the built library's ``rat_mask_head_probs_f32_scratch(n_ctas)``):
+    :func:`mask_head_f32_scratch`'s weight planes, then an f32 keys tile
+    [64, 256] for each of a CTA's two warpgroups."""
+    return mask_head_f32_scratch() + n_ctas * 2 * 64 * 256
+
+
 def fused_mask_head(keys: torch.Tensor, hyper: torch.Tensor,
                     up1_w: torch.Tensor, up1_b: torch.Tensor,
                     ln_scale: torch.Tensor, ln_bias: torch.Tensor,
@@ -171,6 +180,31 @@ def mask_head_probs_reference(img0, p1, c1m, p2, c2m, rows, hyper, up1_w,
                                 up2_w, up2_b, eps)
 
 
+def mask_head_probs_operands(img0, p1, c1m, p2, c2m, rows, hyper, up1_w,
+                             up1_b, ln_scale, ln_bias, up2_w,
+                             up2_b) -> list:
+    """What :func:`fused_mask_head_probs` hands its kernel before the
+    output, in the C entry's order: each ``(name, tensor, dtype, shape)``
+    for ``operand``. The activations (img0, C1, C2, the hypernetwork rows)
+    are the caller's tensors, held to img0's dtype and never cast; P1 and
+    P2 are bf16; the branch rows and the head's weights are converted to
+    img0's dtype, as :func:`fused_mask_head` converts its weights."""
+    _, gg, d = img0.shape
+    np_, ht, _ = p1.shape
+    dt, bf = img0.dtype, torch.bfloat16
+    return [("img0", img0, dt, (1, gg, d)), ("p1", p1, bf, (np_, ht, gg)),
+            ("c1m", c1m, dt, (np_, ht, d)), ("p2", p2, bf, (np_, ht, gg)),
+            ("c2m", c2m, dt, (np_, ht, d)),
+            ("branch_rows", rows.to(dt), dt, (8, d)),
+            ("up1_w", up1_w.to(dt), dt, (256, 256)),
+            ("up1_b", up1_b.to(dt), dt, (64,)),
+            ("ln_scale", ln_scale.to(dt), dt, (64,)),
+            ("ln_bias", ln_bias.to(dt), dt, (64,)),
+            ("up2_w", up2_w.to(dt), dt, (64, 128)),
+            ("up2_b", up2_b.to(dt), dt, (32,)),
+            ("hyper", hyper, dt, (np_, hyper.shape[1], 32))]
+
+
 def fused_mask_head_probs(img0: torch.Tensor, p1: torch.Tensor,
                           c1m: torch.Tensor, p2: torch.Tensor,
                           c2m: torch.Tensor, rows: torch.Tensor,
@@ -184,12 +218,16 @@ def fused_mask_head_probs(img0: torch.Tensor, p1: torch.Tensor,
     image→token probabilities (``ops.decode_probs``): img0 [1, gg, D]
     shared; p1, p2 [Np, H·T, gg] bf16; c1m, c2m [Np, H·T, D]; rows
     [8, D] branch rows; ``ln_eps`` the branch LayerNorm's epsilon.
-    Returns [Np, content, 16, M].
+    Returns [Np, content, 16, M] in img0's dtype.
 
-    CUDA: kernel B6 (bf16, D 256, H·T 56, M ≤ 4, gg a multiple of 8;
-    K3's persistent TMA + ``wgmma`` CTAs behind a ``wgmma`` rebuild of
-    the keys tile, ``kernels/csrc/mask_head.cu``). CPU: the plain
-    version."""
+    CUDA: kernel B6 by img0's dtype (D 256, H·T 56, M ≤ 4, gg a multiple
+    of 8; ``kernels/csrc/mask_head.cu``): bf16, K3's persistent TMA +
+    ``wgmma`` CTAs behind a ``wgmma`` rebuild of the keys tile; f32, K3
+    f32's split-TF32 CTAs behind a rebuild by TF32 ``mma.sync`` (P·C_hi +
+    P·C_lo) into an f32 keys tile a warpgroup in
+    :func:`mask_head_probs_f32_scratch`. The activations must have img0's
+    dtype and P bf16 (:func:`mask_head_probs_operands`); other dtypes
+    raise. CPU: the plain version."""
     _, gg, d = img0.shape
     np_, ht, _ = p1.shape
     content = gg if content is None else content
@@ -204,23 +242,19 @@ def fused_mask_head_probs(img0: torch.Tensor, p1: torch.Tensor,
         raise ValueError(f"mask head (probs) kernel: D={d}, H·T={ht}, M={m}, "
                          f"gg={gg} not built (D 256, H·T 56, M ≤ 4, gg a "
                          "multiple of 8)")
-    bf = torch.bfloat16
-    ins = [operand("img0", img0, bf, (1, gg, d)),
-           operand("p1", p1, bf, (np_, ht, gg)),
-           operand("c1m", c1m, bf, (np_, ht, d)),
-           operand("p2", p2, bf, (np_, ht, gg)),
-           operand("c2m", c2m, bf, (np_, ht, d)),
-           operand("branch_rows", rows.to(bf), bf, (8, d)),
-           operand("up1_w", up1_w.to(bf), bf, (256, 256)),
-           operand("up1_b", up1_b.to(bf), bf, (64,)),
-           operand("ln_scale", ln_scale.to(bf), bf, (64,)),
-           operand("ln_bias", ln_bias.to(bf), bf, (64,)),
-           operand("up2_w", up2_w.to(bf), bf, (64, 128)),
-           operand("up2_b", up2_b.to(bf), bf, (32,)),
-           operand("hyper", hyper.to(bf), bf, (np_, m, 32))]
-    out = torch.empty((np_, content, 16, m), dtype=bf, device=img0.device)
+    dt = kernel_dtype("mask head (probs)", img0)
+    ins = [operand(*x) for x in mask_head_probs_operands(
+        img0, p1, c1m, p2, c2m, rows, hyper, up1_w, up1_b, ln_scale,
+        ln_bias, up2_w, up2_b)]
+    out = torch.empty((np_, content, 16, m), dtype=dt, device=img0.device)
     n_ctas = torch.cuda.get_device_properties(
         img0.device).multi_processor_count
-    MASK_HEAD_PROBS.launch(*(a.data_ptr() for a in ins), out.data_ptr(), np_,
-                           gg, content, m, float(eps), float(ln_eps), n_ctas)
+    ptrs = [a.data_ptr() for a in ins] + [out.data_ptr()]
+    sizes = (np_, gg, content, m, float(eps), float(ln_eps), n_ctas)
+    if dt == torch.float32:
+        scratch = torch.empty(mask_head_probs_f32_scratch(n_ctas), dtype=dt,
+                              device=img0.device)
+        MASK_HEAD_PROBS_F32.launch(*ptrs, scratch.data_ptr(), *sizes)
+    else:
+        MASK_HEAD_PROBS.launch(*ptrs, *sizes)
     return out

@@ -148,8 +148,8 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 def test_kernel_table_points_at_sources():
-    assert len(build.KERNELS) == 22
-    assert len({k.entry for k in build.KERNELS}) == 22
+    assert len(build.KERNELS) == 23
+    assert len({k.entry for k in build.KERNELS}) == 23
     for k in build.KERNELS:
         assert os.path.exists(os.path.join(REPO, k.source)), k.source
         path, line = k.replaces.split(":")
@@ -169,14 +169,15 @@ def test_winattn_variants_patch_the_kernel_source():
 
 
 def test_maskhead_variants_patch_the_kernel_source():
-    """Every variant of ``kernels.maskhead_variants``, K3's, B6's and K3
-    f32's, still finds the lines it replaces in ``mask_head.cu`` (the tool
-    runs only on the card)."""
+    """Every variant of ``kernels.maskhead_variants``, K3's, B6's, K3
+    f32's and B6 f32's, still finds the lines it replaces in
+    ``mask_head.cu`` (the tool runs only on the card)."""
     from revisit_anything_tpu_torch.kernels import maskhead_variants as mv
     base = mv._SRC.read_text()
     for name, (_, reps) in (*mv.VARIANTS.items(),
                             *mv.PROBS_VARIANTS.items(),
-                            *mv.F32_VARIANTS.items()):
+                            *mv.F32_VARIANTS.items(),
+                            *mv.PROBS_F32_VARIANTS.items()):
         text = mv._source(reps)
         assert (text == base) == (not reps), name
 
@@ -1063,11 +1064,11 @@ def test_resize_kernel_f32_matches_plain(cuda, orig_hw, np_, m, const, side):
 
 @pytest.mark.gpu
 def test_f32_kernels_dispatch_on_dtype(cuda):
-    """The nine wrappers with an f32 form (the five of the default SAM
-    path, the window kernel, B10, B7 and B8) send bf16 CUDA tensors to
+    """The ten wrappers with an f32 form (the five of the default SAM
+    path, the window kernel, B10, B7, B8 and B6) send bf16 CUDA tensors to
     the bf16 kernels, f32 ones to the f32 kernels, and raise on f16. B7
-    and B8 pick by their token vectors' dtype; their P stays bf16, and
-    B7's output is bf16 at every dtype."""
+    and B8 pick by their token vectors' dtype, B6 by img0's; their P
+    stays bf16, and B7's output is bf16 at every dtype."""
     flash, side = _flash_inputs(cuda, 1, 256, 80, True)
     token = _token_inputs(cuda, 4, 7, 1024, 1, pe=True)
     split = _token_inputs(cuda, 4, 7, 1024, 4, pe=False)
@@ -1076,6 +1077,7 @@ def test_f32_kernels_dispatch_on_dtype(cuda):
     head = _mask_head_inputs(cuda, 2, 128, 3)
     x, whd, wwd, grid = _resize_inputs(cuda, (240, 320), 2, 3)
     pr = _probs_inputs(cuda, b=4, m=128)
+    hp = _mask_head_probs_args(cuda, 4, 3, gg=128)
     calls = {
         (build.FLASH_ATTENTION, build.FLASH_ATTENTION_F32_BIAS):
             lambda c: att.attend(*c(flash), side=side),
@@ -1102,6 +1104,10 @@ def test_f32_kernels_dispatch_on_dtype(cuda):
                 *c((pr["q"], pr["img0"])), pr["p1"], *c((pr["c1"],)),
                 pr["p2"], *c((pr["c2"], pr["w"], pr["w_v"], pr["peqt"],
                               pr["rows"], pr["v_bias"])), 8),
+        (build.MASK_HEAD_PROBS, build.MASK_HEAD_PROBS_F32):
+            lambda c: mh.fused_mask_head_probs(
+                *c(hp[:1]), hp[1], *c(hp[2:3]), hp[3], *c(hp[4:]),
+                content=120),
     }
 
     def cast(dtype):
@@ -1316,12 +1322,15 @@ def test_t2i_from_probs_kernel_f32_matches_plain(cuda, depth, b, m, ln_scale):
 
 
 @pytest.mark.gpu
-def test_probs_split_on_an_f32_sam_raises_at_the_mask_head(cuda):
-    """An f32 SAM's "probs_split" decode runs its two-way transformer on
-    the f32 kernels (K2 f32 once, B7 f32 and B8 f32 twice each) and then
-    raises at B6's wrapper, which has no f32 form yet; no bf16 kernel
-    launches and nothing is cast."""
-    from revisit_anything_tpu_torch.models.sam.decoder import decode_masks
+def test_probs_split_decodes_an_f32_sam_on_f32_kernels(cuda):
+    """An f32 SAM's "probs_split" decode runs on the f32 kernels alone (K2
+    f32 once, B7 f32 and B8 f32 twice each, B6 f32 once) and gives finite
+    f32 masks within 1e-2 of their scale of the same decode with those
+    four swapped for their plain f32 versions (TF32 off). B7's P is bf16 in
+    both, and where a probability rounds the other way (one bf16 ulp,
+    2^-8 of it, in at most PROBS_F32_MOVED of P) a logit moves by at most
+    ~2^-8 of its scale; the other kernels are within 1e-5."""
+    from revisit_anything_tpu_torch.models.sam import decoder
     sam = _offline_sam(torch.float32).to(cuda)
     cfg = sam.cfg
     g, d = cfg.grid, cfg.prompt_dim
@@ -1330,16 +1339,40 @@ def test_probs_split_on_an_f32_sam_raises_at_the_mask_head(cuda):
                for _ in range(2))
     sparse = torch.randn((64, 2, d), generator=gen, device=cuda)
     dense = torch.randn((1, g, g, d), generator=gen, device=cuda)
+
+    def run():
+        with torch.inference_mode():
+            return decoder.decode_masks(sam.decoder, cfg, emb, pe, sparse,
+                                        dense, decode="probs_split")
+
     build.reset_counts()
-    with torch.inference_mode(), pytest.raises(ValueError,
-                                               match="img0: expected"):
-        decode_masks(sam.decoder, cfg, emb, pe, sparse, dense,
-                     decode="probs_split")
+    masks, iou = run()
     torch.cuda.synchronize()
     counts = {k.name: k.launches for k in build.KERNELS if k.launches}
     assert counts == {build.TOKEN_CROSS_F32.name: 1,
                       build.I2T_PROBS_F32.name: 2,
-                      build.T2I_PROBS_F32.name: 2}, counts
+                      build.T2I_PROBS_F32.name: 2,
+                      build.MASK_HEAD_PROBS_F32.name: 1}, counts
+    assert masks.dtype == iou.dtype == torch.float32
+    assert torch.isfinite(masks).all() and torch.isfinite(iou).all()
+    plain = {"token_cross_attend_kv": att.token_cross_attend_kv_reference,
+             "i2t_probs": dpr.i2t_probs_reference,
+             "t2i_from_probs": dpr.t2i_from_probs_reference,
+             "fused_mask_head_probs": mh.mask_head_probs_reference}
+    kept = {name: getattr(decoder, name) for name in plain}
+    try:
+        for name, fn in plain.items():
+            setattr(decoder, name, fn)
+        build.reset_counts()
+        want, want_iou = run()
+        torch.cuda.synchronize()
+        assert not any(k.launches for k in build.KERNELS)
+    finally:
+        for name, fn in kept.items():
+            setattr(decoder, name, fn)
+    assert masks.shape == want.shape
+    assert _rel_err(masks, want) < 1e-2
+    assert _rel_err(iou, want_iou) < 1e-2
 
 
 @pytest.mark.gpu
@@ -1372,15 +1405,18 @@ def test_probs_kernels_permute_with_their_prompts(cuda, dtype):
         assert torch.equal(a, w[perm])
 
 
-def _mask_head_probs_args(cuda, np_, m, seed=6):
+def _mask_head_probs_args(cuda, np_, m, seed=6, dtype=torch.bfloat16,
+                          ln_scale=1.0, gg=4096):
     """B6's arguments at the serving widths (gg 4096) for ``np_`` prompts
-    and ``m`` mask tokens."""
-    x = _probs_inputs(cuda, b=np_)
+    and ``m`` mask tokens: P bf16, every other tensor in ``dtype``; the
+    branch LayerNorm scales of both layers x ``ln_scale`` (``_large_branch``)."""
+    x = _large_branch(_probs_inputs(cuda, b=np_, m=gg, dtype=dtype), ln_scale,
+                      2)
     g = torch.Generator(device=cuda).manual_seed(seed)
 
     def rnd(*shape, s=1.0, off=0.0):
         return (torch.randn(shape, generator=g, device=cuda) * s + off).to(
-            torch.bfloat16)
+            dtype)
 
     return (x["img0"], x["p1"], x["c1"], x["p2"], x["c2"], x["rows"],
             rnd(np_, m, 32, s=0.5), rnd(256, 256, s=0.1), rnd(64, s=0.1),
@@ -1412,12 +1448,85 @@ def test_mask_head_probs_kernel_matches_plain(cuda, np_, content, m):
     assert _rel_err(got, want) < BF16_REL
 
 
+# B6 f32: MASK_HEAD_PROBS_CASES at the branch LayerNorm's usual scale, and
+# both branch LayerNorm scales x 2^15, so that the rebuilt keys pass fp16's
+# largest value 65504 (they reach the head as f32, split into TF32 there)
+MASK_HEAD_PROBS_F32_CASES = [
+    pytest.param(*getattr(case, "values", case), 1.0,
+                 id=getattr(case, "id", None))
+    for case in MASK_HEAD_PROBS_CASES] + [
+    pytest.param(8, 3130, 3, 32768.0, id="3130-large-branch")]
+
+
 @pytest.mark.gpu
-def test_mask_head_probs_kernel_permutes_with_its_prompts(cuda):
-    """Permuting the prompts permutes B6's output bit for bit: an item
-    reads its own prompt's P and C only (the 64-row boxes' rows 56-63
-    are zeros, never the next prompt's rows 0-7)."""
-    args = _mask_head_probs_args(cuda, 133, 3)
+@pytest.mark.parametrize("np_,content,m,ln_scale", MASK_HEAD_PROBS_F32_CASES)
+def test_mask_head_probs_kernel_f32_matches_plain(cuda, np_, content, m,
+                                                  ln_scale):
+    """B6 f32 (f32 img0, C, rows, weights and hypernetwork rows; P bf16)
+    within F32_REL of its plain version in f32 with TF32 off; the output
+    f32."""
+    args = _mask_head_probs_args(cuda, np_, m, dtype=torch.float32,
+                                 ln_scale=ln_scale)
+    before = (build.MASK_HEAD_PROBS_F32.launches,
+              build.MASK_HEAD_PROBS.launches)
+    got = mh.fused_mask_head_probs(*args, content=content)
+    want = mh.mask_head_probs_reference(*args, content=content)
+    torch.cuda.synchronize()
+    assert (build.MASK_HEAD_PROBS_F32.launches,
+            build.MASK_HEAD_PROBS.launches) == (before[0] + 1, before[1])
+    assert got.dtype == want.dtype == torch.float32
+    assert got.shape == want.shape == (np_, content, 16, m)
+    if ln_scale > 1.0:
+        keys = dpr.recon_branch(args[0], [args[1], args[3]],
+                                [args[2], args[4]], args[5], 1e-6)
+        assert keys.abs().max().item() > 65504
+    assert torch.isfinite(got).all()
+    assert _rel_err(got, want) < F32_REL
+
+
+@pytest.mark.gpu
+def test_mask_head_probs_kernel_f32_is_bitwise_repeatable(cuda):
+    """Two launches of B6 f32 on the same inputs give the same bits."""
+    args = _mask_head_probs_args(cuda, 8, 3, dtype=torch.float32)
+    first, second = (mh.fused_mask_head_probs(*args, content=3130)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_mask_head_probs_f32_scratch_is_the_kernels(cuda):
+    """The wrapper allocates the scratch B6 f32 takes (the weight split,
+    then a keys tile a warpgroup) for the card's CTAs."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    lib = build.load()
+    for n_ctas in (1, sms):
+        assert (mh.mask_head_probs_f32_scratch(n_ctas)
+                == lib.rat_mask_head_probs_f32_scratch(n_ctas))
+
+
+@pytest.mark.gpu
+def test_mask_head_probs_mixed_dtypes_raise(cuda):
+    """B6 casts no activation: an f32 img0 beside bf16 C, or a bf16 img0
+    beside f32 hypernetwork rows, raises before any launch."""
+    f32 = _mask_head_probs_args(cuda, 4, 3, dtype=torch.float32, gg=128)
+    bf = _mask_head_probs_args(cuda, 4, 3, gg=128)
+    build.reset_counts()
+    with pytest.raises(ValueError, match="c1m: expected torch.float32"):
+        mh.fused_mask_head_probs(*f32[:2], bf[2], *f32[3:])
+    with pytest.raises(ValueError, match="hyper: expected torch.bfloat16"):
+        mh.fused_mask_head_probs(*bf[:6], f32[6], *bf[7:])
+    assert not any(k.launches for k in build.KERNELS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_mask_head_probs_kernel_permutes_with_its_prompts(cuda, dtype):
+    """Permuting the prompts permutes B6's output bit for bit, in bf16 and
+    in f32: an item reads its own prompt's P and C only (bf16: the 64-row
+    boxes' rows 56-63 are zeros, never the next prompt's rows 0-7)."""
+    args = _mask_head_probs_args(cuda, 133, 3, dtype=dtype)
     perm = torch.randperm(133, generator=torch.Generator().manual_seed(0))
     perm = perm.to(cuda)
     per_prompt = (1, 2, 3, 4, 6)              # p1, c1, p2, c2, hyper

@@ -203,3 +203,130 @@ def test_split_tf32_mask_head_arithmetic_matches_jax(scale):
 
     assert rel(True) < 1e-5
     assert rel(False) > 1e-5
+
+
+def _probs_state(rng, np_, gg, c_scale):
+    """B6's inputs at SAM's widths (D 256, H·T 56 = 8 heads x 7 tokens):
+    img0 [1, gg, 256], P1 and P2 [np_, 56, gg] bf16 (a softmax over each
+    head's 7 tokens, as the image→token probabilities are), C1 and C2
+    [np_, 56, 256] x ``c_scale``, the branch rows [8, 256]; f32 numpy but
+    P."""
+    def probs():
+        x = rng.standard_normal((np_, 8, 7, gg)) * 2.0
+        e = np.exp(x - x.max(2, keepdims=True))
+        return jnp.asarray((e / e.sum(2, keepdims=True)).reshape(
+            np_, 56, gg).astype(np.float32)).astype(jnp.bfloat16)
+
+    rows = np.zeros((8, 256), np.float32)
+    rows[[0, 3]] = rng.standard_normal((2, 256)) * 0.1
+    rows[[1, 4]] = rng.standard_normal((2, 256)) * 0.1 + 1.0
+    rows[[2, 5]] = rng.standard_normal((2, 256)) * 0.1
+    c1m, c2m = ((rng.standard_normal((np_, 56, 256)) * 0.3
+                 * c_scale).astype(np.float32) for _ in range(2))
+    img0 = rng.standard_normal((1, gg, 256)).astype(np.float32)
+    return img0, probs(), c1m, probs(), c2m, rows
+
+
+def _recon_split(img0, ps, cs, rows, ln_eps, split: bool) -> torch.Tensor:
+    """The rebuild of B6's f32 kernel (mask_head.cu ``rebuild_keys``) in
+    f32 on the CPU: per branch layer y = (y + a) + b, a = P^T C_lo + P^T
+    C_hi over the 56 rows (``split``; a bf16 P is exact in TF32; else one
+    TF32 pass, P^T tf32(C)), then the LayerNorm with the one-pass variance
+    max(E[y²] - mu², 0); the keys stay f32."""
+    y = img0[0]
+    for li, (p, c) in enumerate(zip(ps, cs)):
+        pt = p.float().transpose(1, 2)                 # [Np, gg, 56]
+        if split:
+            hi, lo = _split(c)
+            a = pt @ lo + pt @ hi
+        else:
+            a = pt @ _tf32(c)
+        y = (y + a) + rows[3 * li]
+        mu = y.sum(-1, keepdim=True) * (1.0 / y.shape[-1])
+        var = torch.clamp((y * y).sum(-1, keepdim=True) * (1.0 / y.shape[-1])
+                          - mu * mu, min=0.0)
+        y = (y - mu) * torch.rsqrt(var + ln_eps) * rows[3 * li + 1] \
+            + rows[3 * li + 2]
+    return y
+
+
+@pytest.mark.parametrize("c_scale", [1.0, 8.0])
+def test_split_b6_f32_arithmetic_matches_jax(c_scale):
+    """B6 f32 emulated in f32, in the kernel's order (the rebuild as two
+    TF32 passes against C's hi and lo planes, then K3 f32's split-TF32
+    head), is within 1e-5 of the JAX recon kernel in f32 (interpret mode;
+    relative to the logits' largest value) at SAM's widths (D 256, H·T 56,
+    M 3) and a ragged content of 56 of 64 positions, with C at its usual
+    scale and x 8; C rounded once to TF32 misses by more at both."""
+    rng = np.random.default_rng(28 + int(c_scale))
+    img0, p1, c1m, p2, c2m, rows = _probs_state(rng, 2, 64, c_scale)
+    p = _params(rng, 256, 3, 2, 64)
+    head = _ORDER[1:]
+    want = torch.from_numpy(np.array(fused_mask_head_probs(
+        jnp.asarray(img0), p1, jnp.asarray(c1m), p2, jnp.asarray(c2m),
+        jnp.asarray(rows), *(jnp.asarray(p[k]) for k in head), eps=1e-6,
+        ln_eps=1e-6, content=56, interpret=True)))
+    ps = [torch.from_numpy(np.array(x.astype(jnp.float32))).to(
+        torch.bfloat16)[..., :56] for x in (p1, p2)]
+    cs = [torch.from_numpy(x) for x in (c1m, c2m)]
+    args = [torch.from_numpy(p[k]) for k in head]
+
+    def rel(split):
+        keys = _recon_split(torch.from_numpy(img0)[:, :56], ps, cs,
+                            torch.from_numpy(rows), 1e-6, split)
+        got = _mask_head_tf32(keys, *args, 1e-6, split=True)
+        return float((got - want).abs().max() / want.abs().max())
+
+    assert rel(True) < 1e-5
+    assert rel(False) > 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_mask_head_probs_operands_are_never_cast(dtype):
+    """The operand list B6's CUDA branch hands ``operand``
+    (``mask_head_probs_operands``): img0, C1, C2 and the hypernetwork rows
+    are the caller's own tensors held to img0's dtype, P1 and P2 bf16, and
+    only the branch rows and the head's weights are converted to img0's
+    dtype. An activation of the other dtype stays itself, so ``operand``
+    raises on it (a mixed call never rounds)."""
+    rng = np.random.default_rng(3)
+    img0, p1, c1m, p2, c2m, rows = _probs_state(rng, 2, 64, 1.0)
+    p = _params(rng, 256, 3, 2, 64)
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    ps = [torch.from_numpy(np.array(x.astype(jnp.float32))).to(
+        torch.bfloat16) for x in (p1, p2)]
+    acts = dict(img0=torch.from_numpy(img0).to(dtype),
+                c1m=torch.from_numpy(c1m).to(dtype),
+                c2m=torch.from_numpy(c2m).to(dtype),
+                hyper=torch.from_numpy(p["hyper"]).to(dtype),
+                p1=ps[0], p2=ps[1])
+    weights = [torch.from_numpy(p[k]) for k in _ORDER[2:]]
+    f32_rows = torch.from_numpy(rows)
+
+    def operands(a):
+        return mh.mask_head_probs_operands(
+            a["img0"], a["p1"], a["c1m"], a["p2"], a["c2m"], f32_rows,
+            a["hyper"], *weights)
+
+    shapes = dict(img0=(1, 64, 256), p1=(2, 56, 64), p2=(2, 56, 64),
+                  c1m=(2, 56, 256), c2m=(2, 56, 256), hyper=(2, 3, 32),
+                  branch_rows=(8, 256), up1_w=(256, 256), up1_b=(64,),
+                  ln_scale=(64,), ln_bias=(64,), up2_w=(64, 128),
+                  up2_b=(32,))
+    ops = operands(acts)
+    assert [x[0] for x in ops] == [
+        "img0", "p1", "c1m", "p2", "c2m", "branch_rows", "up1_w", "up1_b",
+        "ln_scale", "ln_bias", "up2_w", "up2_b", "hyper"]
+    for name, x, want, shape in ops:
+        if name in acts:
+            assert x is acts[name], name
+            assert want == (torch.bfloat16 if name in ("p1", "p2")
+                            else dtype), name
+        else:
+            assert x.dtype == want == dtype, name
+        assert x.dtype == want and tuple(x.shape) == shape == shapes[name]
+    for name in ("c1m", "c2m", "hyper"):
+        mixed = dict(acts, **{name: acts[name].to(other)})
+        (x, want), = [(x, w) for n, x, w, _ in operands(mixed) if n == name]
+        assert x is mixed[name] and x.dtype == other and want == dtype
