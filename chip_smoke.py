@@ -14,7 +14,7 @@ drive the command line.
 
 Phases (any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the twenty-three kernel entries from
+  2. build the twenty-five kernel entries from
      revisit_anything_tpu_torch/kernels/csrc (one nvcc per source, in
      parallel);
   3. print the registers, shared memory and spill bytes of the redesigned
@@ -23,10 +23,12 @@ Phases (any failure exits non-zero):
      and its K/V split at head dims 64 and 80, K1 f32 with the bias, the
      f32 forms of K2 and B10 (both schedules each) and K5 (both layers
      and its weight split), K3 f32, K4 f32 and B11 f32 at head dims 64
-     and 80, B7 f32 in its two layers, B8 f32 at its two depths and B6
-     f32) from ptxas.log, and the tensor-core instructions in the SASS
-     of B3's three instantiations, B7's layer 2, B8's two depths, their
-     f32 forms, K2 f32's and B10 f32's two schedules, B11 f32 at both
+     and 80, B7 f32 in its two layers, B8 f32 at its two depths, B6 f32
+     and B3 f32's own kernels: its final walk, which stores keys2, and
+     its three token-side kernels) from ptxas.log, and the tensor-core
+     instructions in the SASS of B3's three instantiations, B7's layer 2,
+     B8's two depths, their f32 forms, B3 f32's final walk, K2 f32's and
+     B10 f32's two schedules, B11 f32 at both
      head dims and B6 f32's rebuild (HMMA) and of K1 f32 at head dims 64
      and 80 and with the bias, K5 f32 at both layers, K3 f32 and B6 f32's
      head (TF32 HGMMA) (cuobjdump); then
@@ -39,6 +41,10 @@ Phases (any failure exits non-zero):
      head dim 64 and B10 f32 in both schedules, within 1e-5, B7 f32 at
      its two layers within one bf16 ulp of P, B8 f32 at its two depths
      and B6 f32 (content 3136, M 3) within 1e-5 (1024 prompts, M 4096),
+     B3 f32 in keys and logits modes (1024 prompts, M 4096, content 3136:
+     the token state within 1e-5, keys2 and the logits per position within
+     1e-5 at all but 0.112 of the positions and 2^-7 at those, as its gpu
+     tests),
      K4's flags
      equal outside a band
      of 1e-5 of the logits' scale around each threshold, the band's
@@ -118,7 +124,12 @@ Phases (any failure exits non-zero):
      B8 and B6 swapped for their plain f32 versions, 256 prompts a decode
      batch (the same count, each at IoU >= 0.95); its decode stage beside
      the f32 "shared" one's (CUDA events, median of 3 after one, in
-     turns), wall ms and the seconds the step took;
+     turns), wall ms and the seconds the step took; then the same for
+     decode="fused_tail_keys" (K2 f32 1, B3 f32 keys mode 1, K3 f32 1)
+     and decode="fused_tail_logits" (K2 f32 1, the B3 f32 logits entry
+     1), each against the same query with the tail swapped for its plain
+     f32 version; then an f32 decode="fused_tail_probs" server, whose
+     tail must raise ValueError (no f32 probability mode yet);
  10. [insert], continued: remove planted image 1 (its noisy copy must no
      longer find it), snapshot the database to an npz and restore it
      into a fresh server: the same top-5 on the three queries;
@@ -205,11 +216,15 @@ Phases (any failure exits non-zero):
      launched), a three-command `serve` loop, `amg` on a
      1200x1600 image, `train` for 3 steps at [train]'s sizes; seconds a
      command (the h5 commands need h5py, absent there: skipped);
- 22. print the kernel table as one JSON line (B10, token_cross_split and
+ 22. print the wall seconds by function of the run ([phases]: every
+     function of this script timed, kernels/smoke_phases.py; the build's
+     own seconds are the [build] line) and the whole run's, then the
+     kernel table as one JSON line (B10, token_cross_split and
      token_cross_split_f32, has no caller on a serving path, as in the JAX
      package: launches 0; the f32 forms' launches are the 3 f32
      queries', B11 f32's the f32 kernel-window query's, B7 f32's, B8
-     f32's and B6 f32's the f32 "probs_split" query's), then the result
+     f32's and B6 f32's the f32 "probs_split" query's, B3 f32's the f32
+     "fused_tail_keys" and "fused_tail_logits" queries'), then the result
      line.
 """
 
@@ -229,20 +244,31 @@ import time
 VARIANTS = ("probs_split", "fused_tail_probs", "fused_tail_keys",
             "fused_tail_logits")
 
+# Wall seconds by function of this run, filled when the script runs as a
+# program (kernels/smoke_phases.py time_functions) and printed as the
+# [phases] line.
+PHASE_SECONDS: dict = {}
+
 
 def _paths() -> dict:
     """The kernels a served query launches in each decoder form (K1 runs
     the SAM encoder's global layers and DINOv2 in all of them), with the
-    window kernel ("shared" decoder), and in f32 ("shared" decoder, f32
-    SAM and DINOv2: K1 f32 with the bias in SAM's global layers, without
-    it in DINOv2's)."""
+    window kernel ("shared" decoder), and in f32 (f32 SAM and DINOv2: K1
+    f32 with the bias in SAM's global layers, without it in DINOv2's; the
+    "shared", "probs_split", "fused_tail_keys" and "fused_tail_logits"
+    decoders)."""
     from revisit_anything_tpu_torch.kernels import build as k
     front = (k.FLASH_ATTENTION, k.TOKEN_CROSS, k.RESIZE_FLAGS)
     shared = front + (k.I2T_UPDATE, k.MASK_HEAD)
+    front_f32 = (k.FLASH_ATTENTION_F32_BIAS, k.FLASH_ATTENTION_F32,
+                 k.TOKEN_CROSS_F32, k.RESIZE_FLAGS_F32)
     return {"shared": shared,
-            "shared_f32": (k.FLASH_ATTENTION_F32_BIAS, k.FLASH_ATTENTION_F32,
-                           k.TOKEN_CROSS_F32, k.I2T_UPDATE_F32,
-                           k.MASK_HEAD_F32, k.RESIZE_FLAGS_F32),
+            "shared_f32": front_f32 + (k.I2T_UPDATE_F32, k.MASK_HEAD_F32),
+            "probs_split_f32": front_f32 + (k.I2T_PROBS_F32, k.T2I_PROBS_F32,
+                                            k.MASK_HEAD_PROBS_F32),
+            "fused_tail_keys_f32": front_f32 + (k.DECODE_TAIL_F32,
+                                                k.MASK_HEAD_F32),
+            "fused_tail_logits_f32": front_f32 + (k.DECODE_TAIL_LOGITS_F32,),
             "probs_split": front + (k.I2T_PROBS, k.T2I_PROBS,
                                     k.MASK_HEAD_PROBS),
             "fused_tail_probs": front + (k.DECODE_TAIL, k.MASK_HEAD_PROBS),
@@ -417,10 +443,22 @@ PTXAS_KERNELS = (
      "rat_i2t_probs_f32_smem", (1,)),
     ("i2t_probs_l2_kernelIfE", "B7 f32 layer 2", "rat_i2t_probs_f32",
      "rat_i2t_probs_f32_smem", (2,)),
-    ("t2i_probs_kernelIfLi1E", "B8 f32 depth 1", "rat_t2i_probs_f32",
+    ("t2i_probs_kernelIfLi1ELb0E", "B8 f32 depth 1", "rat_t2i_probs_f32",
      "rat_t2i_probs_f32_smem", (1,)),
-    ("t2i_probs_kernelIfLi2E", "B8 f32 depth 2", "rat_t2i_probs_f32",
+    ("t2i_probs_kernelIfLi2ELb0E", "B8 f32 depth 2", "rat_t2i_probs_f32",
      "rat_t2i_probs_f32_smem", (2,)),
+    # B3 f32: its walks are B7 f32's two kernels, B8 f32 at depth 1 and
+    # this depth-2 walk that stores keys2; its token side these three
+    ("t2i_probs_kernelIfLi2ELb1E", "B3 f32 final walk (+ keys2)",
+     "rat_decode_tail_f32", "rat_t2i_probs_f32_smem", (2,)),
+    ("tail_queries_f32_kernel", "B3 f32 token queries",
+     "rat_decode_tail_f32", None, ()),
+    ("tail_mid_f32_kernel", "B3 f32 token mid-ops (MLP 2048)",
+     "rat_decode_tail_f32", "rat_decode_tail_f32_smem", (2048,)),
+    ("tail_final_f32_kernelILb0E", "B3 f32 final token ops",
+     "rat_decode_tail_f32", None, ()),
+    ("tail_final_f32_kernelILb1E", "B3 f32 final ops + hypernetwork",
+     "rat_decode_tail_logits_f32", None, ()),
 )
 
 # The kernels whose products run by mma.sync (HMMA): B3's instantiations,
@@ -442,8 +480,10 @@ MMA_SASS = (("decode_tail_kernelILi0E", "B3 keys mode", "HMMA"),
             ("t2i_probs_kernelI13__nv_bfloat16Li2E", "B8 depth 2",
              "HMMA"),
             ("i2t_probs_l2_kernelIfE", "B7 f32 layer 2", F16_K8),
-            ("t2i_probs_kernelIfLi1E", "B8 f32 depth 1", F16_K8),
-            ("t2i_probs_kernelIfLi2E", "B8 f32 depth 2", F16_K8),
+            ("t2i_probs_kernelIfLi1ELb0E", "B8 f32 depth 1", F16_K8),
+            ("t2i_probs_kernelIfLi2ELb0E", "B8 f32 depth 2", F16_K8),
+            ("t2i_probs_kernelIfLi2ELb1E", "B3 f32 final walk (+ keys2)",
+             F16_K8),
             ("flash_attention_tf32x3_kernelILi64ELi0E", "K1 f32 Dh 64",
              "HGMMA.*TF32"),
             ("flash_attention_tf32x3_kernelILi80ELi0E", "K1 f32 Dh 80",
@@ -1019,6 +1059,103 @@ def compare_f32_kernels(dev, check) -> None:
     del logits, near
     torch.cuda.empty_cache()
     compare_probs_f32(dev, check, rnd)
+    compare_tail_f32(dev, check, rnd)
+
+
+def compare_tail_f32(dev, check, rnd) -> None:
+    """B3 f32 in keys mode and logits mode (content 3136) at 1024 prompts
+    and M 4096 on an f32 SAM ViT-H decoder with seeded random weights
+    (N(0, 0.05²), LayerNorm scales 1 + N(0, 0.05²)), against the plain f32
+    version (TF32 off) on the first 256 prompts, the kernel timed at 1024.
+    Bound: bytes (the inputs once, keys2 f32 or the logits once), against
+    the products the function needs at the fp16 rate, each [56, 256]
+    rows-against-the-branch product a pass: keys1 rebuilt twice (the
+    layer-2 token -> image pass and pass B, as bf16 B3 walks) and keys2
+    once, two passes each, three score products and two contexts, three
+    passes each (21 passes; the entry's split pass B rebuilds keys1 a
+    third time, 2 passes of its own overhead, not counted); the four pe
+    terms and the token side (dense layers, C2) as f32 FMAs; in logits
+    mode also K3 f32's three TF32 passes over content and the
+    hypernetwork MLPs."""
+    import torch
+
+    from revisit_anything_tpu_torch.kernels import build
+    from revisit_anything_tpu_torch.kernels.tail_compare import (
+        TAIL_F32_MOVED, TAIL_F32_MOVED_REL, moved_positions)
+    from revisit_anything_tpu_torch.models.sam import SAM_VIT_H
+    from revisit_anything_tpu_torch.models.sam.decoder import MaskDecoder
+    from revisit_anything_tpu_torch.ops import decode_fused as dfu
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(4329)
+    b, m, d, da, ht, c, content = 1024, 4096, 256, 128, 56, 256, 3136
+    dec = MaskDecoder(SAM_VIT_H, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        for name, prm in dec.named_parameters():
+            x = torch.randn(prm.shape, generator=g, device=dev) * 0.05
+            prm.copy_(x + 1.0 if name.endswith("scale") else x)
+    img0, q1st, peq2t, pek2t, pekft = (rnd(1, m, d), rnd(1, da, m),
+                                       rnd(1, da, m), rnd(1, da, m),
+                                       rnd(1, da, m))
+    tok_k, c1 = rnd(b, 7, da), rnd(b, ht, d, s=0.3)
+    qin, tok = rnd(b, 7, d), rnd(b, 7, d)
+    shared = (img0, q1st, peq2t, pek2t, pekft)
+    weights = [prm for mod in (dec.layers[1], dec.final_attn,
+                               dec.norm_final) for prm in mod.parameters()]
+    rows = dfu.branch_rows(dec, torch.float32)
+    tail_ins = [*shared, tok_k, c1, qin, tok, rows] + weights
+    rows_x_branch = 2 * b * m * ht * d
+    pe_term = 2 * b * ht * m * 16
+    mlp = SAM_VIT_H.decoder_mlp_dim
+    token = 2 * b * 7 * (2 * d * mlp + 3 * d * da + 2 * da * d) \
+        + 2 * b * ht * 16 * d
+    tail_ops = (21 * rows_x_branch, 4 * pe_term + token)
+
+    def tail_err(got, want):
+        """The token state's relative error (the row's rel_err, held to
+        F32_REL); keys2's or the logits' per position, failing outside
+        the gpu tests' criterion (kernels/tail_compare.py
+        TAIL_F32_MOVED's note); (the largest |diff| of either, the token
+        state's relative error)."""
+        d0, rel0 = _rel(got[0], want[0])
+        moved, worst = moved_positions(got[1], want[1], got[1].dim() - 2,
+                                       F32_REL)
+        print(f"[kernel] decode tail f32: {moved:.3e} of the "
+              f"{'keys2' if got[1].dim() == 3 else 'logits'} positions "
+              f"beyond {F32_REL:g} of the scale (tol {TAIL_F32_MOVED:g}), "
+              f"the largest {worst:.3e} (tol {TAIL_F32_MOVED_REL:g})",
+              flush=True)
+        if moved > TAIL_F32_MOVED or worst > TAIL_F32_MOVED_REL:
+            _fail(f"decode tail f32: {moved:.3e} of the positions moved, "
+                  f"the largest by {worst:.3e}")
+        return max(d0, (got[1] - want[1]).abs().max().item()), rel0
+
+    args = (dec, *shared, tok_k, c1, qin, tok, 8, 1e-6)
+    args_c = (dec, *shared, tok_k[:c], c1[:c], qin[:c], tok[:c], 8, 1e-6)
+    with torch.inference_mode():
+        check(build.DECODE_TAIL_F32, "keys mode -> keys2 [1024,4096,256] f32",
+              lambda: dfu.decode_tail_fused(*args, emit_keys=True),
+              lambda: dfu.decode_tail_reference(*args_c, emit_keys=True),
+              tail_err, F32_REL, tail_ins, tail_ops, plain_prompts=c)
+        torch.cuda.empty_cache()
+        head_ins = [prm for name, prm in dec.named_parameters()
+                    if name.startswith(("up", "hyper_mlps.1", "hyper_mlps.2",
+                                        "hyper_mlps.3"))]
+        head_flop = 2 * (256 * 256 + 4 * 64 * 128 + 16 * 32 * 3)
+        hyper_flop = 2 * b * 3 * (2 * d * d + d * 32)
+        check(build.DECODE_TAIL_LOGITS_F32,
+              "logits mode -> [1024,3136,16,3] f32",
+              lambda: dfu.decode_tail_fused(*args, mask_head=True,
+                                            content=content),
+              lambda: dfu.decode_tail_reference(*args_c, mask_head=True,
+                                                content=content),
+              tail_err, F32_REL, tail_ins + head_ins,
+              (tail_ops[0], tail_ops[1] + b * content * HEAD_F32 + hyper_flop,
+               3 * b * content * head_flop), plain_prompts=c)
+    del dec, args, args_c, tail_ins, weights
+    torch.cuda.empty_cache()
+    print(f"[kernel] decode tail f32 rows: {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
 
 def compare_probs_f32(dev, check, rnd) -> None:
@@ -1663,8 +1800,8 @@ def sam_f32_phase(srv, queries, planted, kw, seed) -> dict:
                       "masks match a bf16 mask at IoU > 0.5")
     window = _sam_f32_window(fsrv, queries[0], planted[0])
     probs = _sam_f32_probs_split(fsrv, queries[0])
-    probs.update(_sam_f32_probs_query(fsrv, dict(kw, sam=sam, dino=dino),
-                                      queries[0], planted[0]))
+    probs.update(_sam_f32_decode_queries(fsrv, dict(kw, sam=sam, dino=dino),
+                                         queries[0], planted[0]))
     enc_ms, dec_ms = statistics.median(encode), statistics.median(decode)
     print(f"[sam-f32] f32 query: wall {statistics.median(wall):.1f} ms "
           f"(median of 3: {', '.join(f'{w:.1f}' for w in wall)}); encode "
@@ -1880,47 +2017,56 @@ F32_PROBS_QUERY_LAUNCHES = {
     "flash_attention_f32_bias": 4, "flash_attention_f32": 31,
     "token_cross_attention_f32": 1, "i2t_probs_f32": 2,
     "t2i_from_probs_f32": 2, "mask_head_probs_f32": 1, "resize_flags_f32": 1}
+# and of the "fused_tail_keys" and "fused_tail_logits" decoders: K2 f32
+# once, then B3 f32 in keys mode and K3 f32, or the B3 f32 logits entry
+# (its K3 f32 launch inside the entry, uncounted), then K4 f32
+F32_TAIL_KEYS_QUERY_LAUNCHES = {
+    "flash_attention_f32_bias": 4, "flash_attention_f32": 31,
+    "token_cross_attention_f32": 1, "decode_tail_f32": 1,
+    "mask_head_f32": 1, "resize_flags_f32": 1}
+F32_TAIL_LOGITS_QUERY_LAUNCHES = {
+    "flash_attention_f32_bias": 4, "flash_attention_f32": 31,
+    "token_cross_attention_f32": 1, "decode_tail_logits_f32": 1,
+    "resize_flags_f32": 1}
 
 
-def _sam_f32_probs_query(fsrv, kw, img, planted: int) -> dict:
-    """[sam-f32]'s f32 "probs_split" query (see :func:`sam_f32_phase`): a
-    server on the f32 models (``kw``) and fsrv's index with
-    decode="probs_split" serves the planted query with the counters reset
-    first: F32_PROBS_QUERY_LAUNCHES and no other kernel, the planted image
-    first; its kept masks against fsrv's ("shared": the share matched at
-    IoU > 0.5, at least 0.9) and against the same decode with B7, B8 and B6
-    swapped for their plain f32 versions, 256 prompts a decode batch (the
-    same count, each at IoU >= 0.95); its decode stage beside fsrv's (CUDA
-    events, median of 3 after one, in turns)."""
+def _sam_f32_decode_query(fsrv, kw, img, planted: int, decode: str,
+                          launches: dict, plain: dict, swapped: tuple,
+                          tag: str) -> dict:
+    """[sam-f32]'s f32 query of the ``decode`` form (see
+    :func:`sam_f32_phase`): a server on the f32 models (``kw``) and fsrv's
+    index serves the planted query with the counters reset first:
+    ``launches`` and no other kernel, the planted image first; its kept
+    masks against fsrv's ("shared": the share matched at IoU > 0.5, at
+    least 0.9) and against the same decode with ``plain`` (the decoder's
+    names of the form's kernels -> their plain f32 versions) swapped in,
+    256 prompts a decode batch, none of ``swapped`` launched (the same
+    count, each at IoU >= 0.95); its decode stage beside fsrv's (CUDA
+    events, median of 3 after one, in turns). The result's keys start
+    with ``tag``."""
     import torch
 
     from revisit_anything_tpu_torch.kernels import build
     from revisit_anything_tpu_torch.models.sam import decoder
-    from revisit_anything_tpu_torch.ops import decode_probs as dpr
-    from revisit_anything_tpu_torch.ops import maskhead as mh
     from revisit_anything_tpu_torch.pipeline.serve import SegVLADServer
 
     t0 = time.perf_counter()
     psrv = SegVLADServer(index=_live_index(fsrv), **dict(
-        kw, amg=dataclasses.replace(kw["amg"], decode="probs_split")))
+        kw, amg=dataclasses.replace(kw["amg"], decode=decode)))
     torch.cuda.synchronize()
     build.reset_counts()
     t = time.perf_counter()
     top = psrv.query(img)
     wall = (time.perf_counter() - t) * 1e3
     counts = {k.name: k.launches for k in build.KERNELS if k.launches}
-    if counts != F32_PROBS_QUERY_LAUNCHES:
-        _fail(f"[sam-f32] probs_split query launched {counts}, expected "
-              f"{F32_PROBS_QUERY_LAUNCHES} and no other kernel")
+    if counts != launches:
+        _fail(f"[sam-f32] {decode} query launched {counts}, expected "
+              f"{launches} and no other kernel")
+    _check_launches(collections.Counter(counts), f"{decode}_f32")
     if top[0] != planted:
-        _fail(f"[sam-f32] probs_split: noisy copy of planted image {planted}"
+        _fail(f"[sam-f32] {decode}: noisy copy of planted image {planted}"
               f" answered {top}")
-    plain = {"i2t_probs": dpr.i2t_probs_reference,
-             "t2i_from_probs": dpr.t2i_from_probs_reference,
-             "fused_mask_head_probs": mh.mask_head_probs_reference}
     kernels = {name: getattr(decoder, name) for name in plain}
-    swapped = (build.I2T_PROBS_F32, build.T2I_PROBS_F32,
-               build.MASK_HEAD_PROBS_F32)
     bsz = psrv._bsz
     with torch.inference_mode():
         img_dev = torch.from_numpy(img).to(fsrv.device)
@@ -1937,39 +2083,87 @@ def _sam_f32_probs_query(fsrv, kw, img, planted: int) -> dict:
             psrv._bsz = bsz
             for name, fn in kernels.items():
                 setattr(decoder, name, fn)
-        times = {"probs_split": [], "shared": []}
+        times = {decode: [], "shared": []}
         for rep in range(4):
-            order = (("shared", "probs_split") if rep % 2
-                     else ("probs_split", "shared"))
+            order = (("shared", decode) if rep % 2 else (decode, "shared"))
             for form in order:
                 times[form].append(_decode_ms(
-                    psrv if form == "probs_split" else fsrv, img))
+                    psrv if form == decode else fsrv, img))
     if stray:
-        _fail(f"[sam-f32] the plain probs_split decode launched {stray}")
+        _fail(f"[sam-f32] the plain {decode} decode launched {stray}")
     n_p = int(amg_p[1][-1])
     best = _best_iou(amg_k, amg_p)
     least = best.min().item() if n_k else 1.0
-    probs_ms = statistics.median(times["probs_split"][1:])
+    form_ms = statistics.median(times[decode][1:])
     shared_ms = statistics.median(times["shared"][1:])
     seconds = time.perf_counter() - t0
-    print(f"[sam-f32] probs_split query: top-5 {top.tolist()}  query "
+    print(f"[sam-f32] {decode} query: top-5 {top.tolist()}  query "
           f"{wall:.1f} ms, launches {counts}; {n_k} masks kept (f32 shared "
           f"{n_s}), {share:.4f} of them match a shared mask at IoU > 0.5; "
-          f"against B7, B8, B6 plain f32 (256 prompts a decode batch): "
-          f"{n_p} kept, least best IoU {least:.4f}, mean "
-          f"{best.mean().item():.4f}; decode stage {probs_ms:.3f} ms, the "
+          f"against {', '.join(plain)} plain f32 (256 prompts a decode "
+          f"batch): {n_p} kept, least best IoU {least:.4f}, mean "
+          f"{best.mean().item():.4f}; decode stage {form_ms:.3f} ms, the "
           f"f32 shared decode's {shared_ms:.3f} ms (CUDA events, median of 3 "
           f"after one, in turns); {seconds:.1f} s", flush=True)
     if share < 0.9:
-        _fail(f"[sam-f32] probs_split: only {share:.4f} of its masks match "
+        _fail(f"[sam-f32] {decode}: only {share:.4f} of its masks match "
               "an f32 shared mask at IoU > 0.5")
     if n_k != n_p or least < 0.95:
-        _fail(f"[sam-f32] probs_split: {n_k} masks kept against the plain "
+        _fail(f"[sam-f32] {decode}: {n_k} masks kept against the plain "
               f"decode's {n_p}, least IoU {least}")
-    return dict(probs_query_counts=counts, probs_query_ms=wall,
-                probs_query_share=share, probs_query_least_iou=least,
-                probs_decode_ms=probs_ms, shared_decode_ms=shared_ms,
-                probs_query_s=seconds)
+    return {f"{tag}_query_counts": counts, f"{tag}_query_ms": wall,
+            f"{tag}_query_share": share, f"{tag}_query_least_iou": least,
+            f"{tag}_decode_ms": form_ms, f"{tag}_shared_decode_ms": shared_ms,
+            f"{tag}_query_s": seconds}
+
+
+def _sam_f32_decode_queries(fsrv, kw, img, planted: int) -> dict:
+    """[sam-f32]'s f32 "probs_split", "fused_tail_keys" and
+    "fused_tail_logits" queries (:func:`_sam_f32_decode_query`), then an
+    f32 "fused_tail_probs" server, whose tail raises (B3 f32 has no
+    probability mode yet)."""
+    import torch
+
+    from revisit_anything_tpu_torch.kernels import build
+    from revisit_anything_tpu_torch.ops import decode_fused as dfu
+    from revisit_anything_tpu_torch.ops import decode_probs as dpr
+    from revisit_anything_tpu_torch.ops import maskhead as mh
+    from revisit_anything_tpu_torch.pipeline.serve import SegVLADServer
+
+    out = _sam_f32_decode_query(
+        fsrv, kw, img, planted, "probs_split", F32_PROBS_QUERY_LAUNCHES,
+        {"i2t_probs": dpr.i2t_probs_reference,
+         "t2i_from_probs": dpr.t2i_from_probs_reference,
+         "fused_mask_head_probs": mh.mask_head_probs_reference},
+        (build.I2T_PROBS_F32, build.T2I_PROBS_F32,
+         build.MASK_HEAD_PROBS_F32), "probs")
+    tail = {"decode_tail_fused": dfu.decode_tail_reference}
+    out.update(_sam_f32_decode_query(
+        fsrv, kw, img, planted, "fused_tail_keys",
+        F32_TAIL_KEYS_QUERY_LAUNCHES, tail, (build.DECODE_TAIL_F32,),
+        "tail_keys"))
+    out.update(_sam_f32_decode_query(
+        fsrv, kw, img, planted, "fused_tail_logits",
+        F32_TAIL_LOGITS_QUERY_LAUNCHES, tail, (build.DECODE_TAIL_LOGITS_F32,),
+        "tail_logits"))
+    psrv = SegVLADServer(index=_live_index(fsrv), **dict(
+        kw, amg=dataclasses.replace(kw["amg"], decode="fused_tail_probs")))
+    build.reset_counts()
+    try:
+        psrv.query(img)
+    except ValueError as err:
+        if "probability mode on float32" not in str(err):
+            raise
+        torch.cuda.synchronize()
+        launched = {k.name: k.launches for k in build.KERNELS if k.launches}
+        print(f"[sam-f32] fused_tail_probs: the f32 tail raises as it "
+              f"should ({err}), after the launches {launched}", flush=True)
+    else:
+        _fail("[sam-f32] an f32 fused_tail_probs query did not raise at "
+              "the tail")
+    if build.DECODE_TAIL.launches or build.DECODE_TAIL_F32.launches:
+        _fail("[sam-f32] the f32 fused_tail_probs query launched a tail")
+    return out
 
 
 def _noisy(rng, img):
@@ -4589,6 +4783,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false: this smoke needs a GPU")
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -4614,7 +4809,8 @@ def main() -> None:
     # probability-factored queries for theirs, the window-kernel query for
     # B11, the 3 f32 queries for the f32 forms (K1 f32 without the bias in
     # their DINOv2-g), the f32 kernel-window query for B11 f32, the f32
-    # "probs_split" query for B7 f32, B8 f32 and B6 f32; B10
+    # "probs_split" query for B7 f32, B8 f32 and B6 f32, the f32
+    # "fused_tail_keys" and "fused_tail_logits" queries for B3 f32; B10
     # (token_cross_split, token_cross_split_f32) has no caller on a serving
     # path
     table = []
@@ -4627,6 +4823,10 @@ def main() -> None:
                     or served["sam_f32"]["counts"].get(k.name, 0)
                     or served["sam_f32"]["window_counts"].get(k.name, 0)
                     or served["sam_f32"]["probs_query_counts"].get(k.name, 0)
+                    or served["sam_f32"]["tail_keys_query_counts"].get(
+                        k.name, 0)
+                    or served["sam_f32"]["tail_logits_query_counts"].get(
+                        k.name, 0)
                     or served["sam_f32"]["probs_counts"].get(k.name, 0)
                     or backbones["counts"][k.name])
         table.append(dict(
@@ -4657,7 +4857,17 @@ def main() -> None:
           f"{f['probs_split_ms']:.3f} ms, shared transformer "
           f"{f['shared_transformer_ms']:.3f} ms; probs_split query "
           f"{f['probs_query_ms']:.1f} ms, decode {f['probs_decode_ms']:.3f} "
-          f"ms (shared {f['shared_decode_ms']:.3f} ms)", flush=True)
+          f"ms (shared {f['probs_shared_decode_ms']:.3f} ms); "
+          f"fused_tail_keys query {f['tail_keys_query_ms']:.1f} ms, decode "
+          f"{f['tail_keys_decode_ms']:.3f} ms (shared "
+          f"{f['tail_keys_shared_decode_ms']:.3f} ms); fused_tail_logits "
+          f"query {f['tail_logits_query_ms']:.1f} ms, decode "
+          f"{f['tail_logits_decode_ms']:.3f} ms (shared "
+          f"{f['tail_logits_shared_decode_ms']:.3f} ms)", flush=True)
+    from revisit_anything_tpu_torch.kernels.smoke_phases import report
+    print(report(PHASE_SECONDS), flush=True)
+    print(f"[phases] the whole run {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4665,4 +4875,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    from revisit_anything_tpu_torch.kernels.smoke_phases import (
+        time_functions)
+    time_functions(globals(), PHASE_SECONDS)
     main()

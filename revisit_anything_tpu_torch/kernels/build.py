@@ -102,9 +102,12 @@ SIGNATURES: Dict[str, Sequence] = {
     "rat_mask_head_probs_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
                                 _P),
-    # a pointer to one TailParams struct (ops.decode_fused), stream
+    # a pointer to one TailParams struct (ops.decode_fused), stream; the
+    # f32 forms read its work (and, logits mode, mh_scratch) too
     "rat_decode_tail": (_P, _P),
     "rat_decode_tail_logits": (_P, _P),
+    "rat_decode_tail_f32": (_P, _P),
+    "rat_decode_tail_logits_f32": (_P, _P),
     # reports, no launch: dynamic shared memory of a CTA in bytes
     "rat_token_cross_smem": (_I, _I),           # pe, shared
     "rat_flash_attention_smem": (_I,),          # hd
@@ -120,6 +123,9 @@ SIGNATURES: Dict[str, Sequence] = {
     "rat_i2t_update_f32_scratch": (_I,),        # SMs: floats of scratch
     "rat_token_cross_f32_smem": (_I,),          # shared
     "rat_decode_tail_smem": (),
+    "rat_decode_tail_f32_scratch": (_I,),       # M: bytes of work a prompt
+    "rat_decode_tail_f32_smem": (_I,),          # MLP: the token mid-ops'
+
     "rat_i2t_probs_smem": (_I,),                # layer
     "rat_i2t_probs_f32_smem": (_I,),            # layer
     "rat_t2i_probs_smem": (_I,),                # depth
@@ -325,6 +331,14 @@ T2I_PROBS_F32 = Kernel(
 MASK_HEAD_PROBS_F32 = Kernel(
     "mask_head_probs_f32", "rat_mask_head_probs_f32", _SRC + "mask_head.cu",
     "revisit_anything_tpu/ops/maskhead.py:257")
+# and of the fused decode tail in its keys and logits modes (an f32 SAM's
+# "fused_tail_keys" and "fused_tail_logits" decodes)
+DECODE_TAIL_F32 = Kernel(
+    "decode_tail_f32", "rat_decode_tail_f32", _SRC + "decode_tail.cu",
+    "revisit_anything_tpu/ops/decode_fused.py:417")
+DECODE_TAIL_LOGITS_F32 = Kernel(
+    "decode_tail_logits_f32", "rat_decode_tail_logits_f32",
+    _SRC + "decode_tail.cu", "revisit_anything_tpu/ops/decode_fused.py:417")
 
 KERNELS = (FLASH_ATTENTION, TOKEN_CROSS, I2T_UPDATE, MASK_HEAD, RESIZE_FLAGS,
            I2T_PROBS, T2I_PROBS, MASK_HEAD_PROBS, DECODE_TAIL,
@@ -332,7 +346,8 @@ KERNELS = (FLASH_ATTENTION, TOKEN_CROSS, I2T_UPDATE, MASK_HEAD, RESIZE_FLAGS,
            FLASH_ATTENTION_F32, FLASH_ATTENTION_F32_BIAS, TOKEN_CROSS_F32,
            I2T_UPDATE_F32, MASK_HEAD_F32, RESIZE_FLAGS_F32,
            WIN_ATTENTION_F32, TOKEN_CROSS_SPLIT_F32, I2T_PROBS_F32,
-           T2I_PROBS_F32, MASK_HEAD_PROBS_F32)
+           T2I_PROBS_F32, MASK_HEAD_PROBS_F32, DECODE_TAIL_F32,
+           DECODE_TAIL_LOGITS_F32)
 
 
 def reset_counts() -> None:

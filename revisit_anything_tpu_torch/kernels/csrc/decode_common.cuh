@@ -16,7 +16,8 @@
 //     warp a row.
 // Rounding points follow the JAX bodies: token-side dense layers round the
 // f32 product to bf16 before the bias add, token-side LayerNorms run in
-// f32 (two-pass) and round to bf16.
+// f32 (two-pass) and round to bf16; on an f32 SAM's f32 weights nothing
+// rounds (round_tok).
 
 #pragma once
 
@@ -24,6 +25,8 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace rat_decode {
 
@@ -43,6 +46,22 @@ static_assert(BM == 32, "the scores give each lane one position");
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
+
+// The token side's rounding on weights of type WT: a bf16 SAM's values
+// round to bf16, an f32 SAM's stay f32 (the JAX bodies at f32 round
+// nothing).
+template <typename WT>
+__device__ __forceinline__ float round_tok(float x) {
+  if constexpr (std::is_same_v<WT, float>)
+    return x;
+  else
+    return bf16_round(x);
+}
+
+// One weight as f32: bf16 (a plain load) or f32 (through the read-only
+// cache).
+__device__ __forceinline__ float ldw(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float ldw(const float* p) { return __ldg(p); }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -127,10 +146,12 @@ __device__ __forceinline__ void add_rows(float* out, const float* a, const float
   for (int i = threadIdx.x; i < n; i += THREADS) out[i] = bf16_round(a[i] + b[i]);
 }
 
-// Token-side LayerNorm of T rows of D: f32, two-pass variance, rounded to
-// bf16. One warp a row; x and out may alias.
-__device__ __forceinline__ void ln_rows(float* out, const float* x, const __nv_bfloat16* sc,
-                                        const __nv_bfloat16* bi, float eps) {
+// Token-side LayerNorm of T rows of D on WT (bf16 or f32) scale and bias:
+// f32, two-pass variance, rounded as the token side rounds (round_tok).
+// One warp a row; x and out may alias.
+template <typename WT>
+__device__ __forceinline__ void ln_rows(float* out, const float* x, const WT* sc, const WT* bi,
+                                        float eps) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int t = warp; t < T; t += WARPS) {
     float v[D / 32];
@@ -148,8 +169,7 @@ __device__ __forceinline__ void ln_rows(float* out, const float* x, const __nv_b
 #pragma unroll
     for (int e = 0; e < D / 32; ++e) {
       const int c = lane + 32 * e;
-      out[t * D + c] = bf16_round((v[e] - mu) * rs * __bfloat162float(sc[c]) +
-                                  __bfloat162float(bi[c]));
+      out[t * D + c] = round_tok<WT>((v[e] - mu) * rs * ldw(sc + c) + ldw(bi + c));
     }
   }
 }

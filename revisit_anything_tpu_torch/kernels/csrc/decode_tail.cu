@@ -18,6 +18,11 @@
 // [content, 16, 3] bf16 in the block layout of mask_head.cu; all three
 // write the token state [7, D].
 //
+// This note is the bf16 form's; the f32 form (an f32 SAM: keys and
+// logits modes, entries rat_decode_tail_f32 / rat_decode_tail_logits_f32)
+// is a sequence of walks and token kernels, described where it starts
+// below.
+//
 // One kernel, decode_tail_kernel<E>, serves the three modes; E picks what
 // it emits (KEYS keys2, PROBS P1 / P2 / C2, ROWS keys2's first rows and
 // the hypernetwork rows for K3). What bounds it: a prompt needs about 1.0
@@ -90,11 +95,31 @@
 #include "decode_common.cuh"
 #include "decode_tc.cuh"
 
-// mask_head.cu (K3)
+// mask_head.cu (K3, K3 f32)
 extern "C" int rat_mask_head(const void* keys, const void* up1_w, const void* up1_b,
                              const void* ln_s, const void* ln_b, const void* up2_w,
                              const void* up2_b, const void* hyper, void* out, int np_, int gg,
                              int content, int n_masks, float eps, int n_ctas, void* stream);
+extern "C" int rat_mask_head_f32(const void* keys, const void* up1_w, const void* up1_b,
+                                 const void* ln_s, const void* ln_b, const void* up2_w,
+                                 const void* up2_b, const void* hyper, void* out, void* scratch,
+                                 int np_, int gg, int content, int n_masks, float eps,
+                                 void* stream);
+// i2t_probs.cu (B7 f32) and t2i_probs.cu (B8 f32): the f32 form's walks
+extern "C" int rat_i2t_probs_f32(const void* q1st, const void* tok_k, const void* img0,
+                                 const void* p1, const void* c1, const void* peq2t,
+                                 const void* w_q, const void* rows, void* out, int b, int m,
+                                 int layer, float eps, void* stream);
+extern "C" int rat_t2i_probs_f32(const void* q, const void* img0, const void* p1,
+                                 const void* c1, const void* p2, const void* c2, const void* w_k,
+                                 const void* w_v, const void* pekt, const void* rows,
+                                 const void* v_bias, void* out, int b, int m, int depth,
+                                 float eps, void* stream);
+extern "C" int rat_t2i_probs_f32_keys(const void* q, const void* img0, const void* p1,
+                                      const void* c1, const void* p2, const void* c2,
+                                      const void* w_k, const void* w_v, const void* pekt,
+                                      const void* rows, const void* v_bias, void* out, void* keys,
+                                      int b, int m, int klimit, float eps, void* stream);
 
 namespace {
 
@@ -119,6 +144,11 @@ struct TailParams {
   const __nv_bfloat16 *up1_w, *up1_b, *ln_s, *ln_b, *up2_w, *up2_b;
   const __nv_bfloat16 *hw1, *hb1, *hw2, *hb2, *hw3, *hb3;
   __nv_bfloat16 *krows, *hyper, *logits;
+  // the f32 form's scratch: `work` (rat_decode_tail_f32_scratch(m) bytes
+  // a prompt: P1, P2, C2 and the token rows between its walks) and, in
+  // logits mode, K3 f32's weight planes (rat_mask_head_f32_scratch()
+  // floats); the bf16 kernel reads neither
+  void *work, *mh_scratch;
   int b, m, mlp, content, ctas;
   float eps;
 };
@@ -184,19 +214,19 @@ __device__ __forceinline__ void p1_tile(__nv_bfloat16* sP, const __nv_bfloat16* 
 
 // One layer of the three hypernetwork MLPs: out[i][n] = bf16(bf16(x[i] .
 // W[i][:, n]) + b[i][n]) for mask token i, relu'd but for the last layer
-// (the JAX `_dense_rows` rounding). x rows have stride ldx, out rows
-// stride N; W [3][K][N], b [3][N] bf16 (global).
+// (the JAX `_dense_rows` rounding; on an f32 SAM's f32 W and b nothing
+// rounds). x rows have stride ldx, out rows stride N; W [3][K][N], b
+// [3][N] bf16 or f32 (global).
+template <typename WT>
 __device__ __forceinline__ void hyper_layer(float* out, const float* x, int ldx, int K,
-                                            const __nv_bfloat16* W, const __nv_bfloat16* bias,
-                                            int N, bool relu) {
+                                            const WT* W, const WT* bias, int N, bool relu) {
   for (int o = threadIdx.x; o < N_MASKS * N; o += THREADS) {
     const int i = o / N, n = o % N;
-    const __nv_bfloat16* w = W + (size_t)i * K * N + n;
+    const WT* w = W + (size_t)i * K * N + n;
     float acc = 0.f;
 #pragma unroll 8
-    for (int k = 0; k < K; ++k) acc = fmaf(x[i * ldx + k], __bfloat162float(w[(size_t)k * N]), acc);
-    const float y = bf16_round(bf16_round(acc) + __bfloat162float(bias[i * N + n]));
-    out[o] = relu ? fmaxf(y, 0.f) : y;
+    for (int k = 0; k < K; ++k) acc = fmaf(x[i * ldx + k], ldw(w + (size_t)k * N), acc);
+    out[o] = dense_out(acc, bias + i * N, n, relu);
   }
 }
 
@@ -460,4 +490,287 @@ extern "C" int rat_decode_tail_logits(const void* params, void* stream) {
   return rat_mask_head(pr.krows, pr.up1_w, pr.up1_b, pr.ln_s, pr.ln_b, pr.up2_w, pr.up2_b,
                        pr.hyper, pr.logits, pr.b, gg, pr.content, N_MASKS, pr.eps, pr.ctas,
                        stream);
+}
+
+// ---------------------------------------------------------------------
+// The f32 form (entries rat_decode_tail_f32, keys mode, and
+// rat_decode_tail_logits_f32, logits mode; an f32 SAM, the JAX package's
+// dtype): the same TPU kernel on f32 inputs. Everything is f32 (img0, the
+// pe terms, C1, the token rows, the weights and the branch rows) but P1
+// and P2, which the JAX kernel rounds to bf16 at every dtype
+// (decode_fused.py :216, :270); nothing else rounds: the token-side dense
+// layers, LayerNorms and C2 stay f32 (:85-91, :277 at f32), and keys2
+// leaves as f32 (:289). The outputs are f32: the token state [b, T, D],
+// keys2 [b, M, D] (keys mode) or keys2's rows below content [b, content
+// rounded up to 32, D], the hypernetwork rows [b, 3, D/8] and K3 f32's
+// logits [b, content, 16, 3] (logits mode).
+//
+// Why not one kernel, as in bf16: shared memory. Pass B needs C1, C2 and
+// the two query-side matrices in every tile; in f32, C1 and C2 are each
+// two fp16 planes (C s = hi + lo, the f32 rebuild of decode_tc.cuh), and
+// the four [56, 256] matrices as planes take 229,376 B, 262,144 with the
+// branch planes, over the 232,448 B a CTA may have (the bf16 layout's
+// 231,488 B grows to 297,280). So the f32 form splits pass B into two
+// walks over M, the schedule of the probability-factored decode, each a
+// kernel whose layout has run on the card in B7 f32 and B8 f32, with the
+// token state and P1, P2 and C2 waiting in device memory between them
+// (the entry's `work`, rat_decode_tail_f32_scratch(M) bytes a prompt):
+//
+//   launch                          CTA           shared memory (B)
+//   token queries (q + tok) Wq_t2   a prompt      7,168 static
+//   P1 (B7 f32 layer 1)             16 tiles      3,584 static
+//   keys1 -> layer-2 t2i (B8 f32 d1) a prompt     168,256
+//   token mid-ops: out-projection,  a prompt      93,184 at MLP 2048
+//     LN, MLP, LN, k2, v2, C2, the final queries
+//   keys1 -> P2 (B7 f32 layer 2)    a prompt      168,000
+//   keys1 -> keys2, stored, ->      a prompt      229,184
+//     final attention (B8 f32 d2 with the keys store)
+//   final out-projection, LN        a prompt      31,232 static
+//     (logits mode: the hypernetwork MLPs)
+//   logits mode: K3 f32 on keys2's rows (mask_head.cu)
+//
+// The walks rebuild keys1 three times and keys2 once (bf16 B3: keys1
+// twice, keys2 once), each rebuild two fp16 passes (P exact times 2^15
+// against C's two planes), each score and context product three (both
+// operands two planes), as decode_tc.cuh's f32 pieces do; the error bound
+// of the rebuild is there. P1 goes through device memory (0.47 GB at 1024
+// prompts x M 4096, written once, read three times) as P2 does (written
+// once, read once); bf16 B3 recomputes P1 in each pass. The token side
+// runs on the FMA units, a prompt a CTA, its weights (5.8 MB in f32) read
+// from the L2 by every CTA. What bounds the form: the walks' products at
+// the fp16 rate and, in keys mode, keys2's 4.29 GB of f32 stores (1.28 ms
+// at 3.35 TB/s at 1024 prompts x M 4096). The whole runs as one counted
+// launch on the caller's stream, as the logits entry's tail and K3 do.
+
+namespace {
+
+__host__ __device__ __forceinline__ const float* fp(const void* p) {
+  return static_cast<const float*>(p);
+}
+
+// The f32 form's work: P1, P2 [b][HT][M] bf16, C2 [b][HT][D], the layer-2
+// token -> image queries and attention, k2, the final queries and
+// attention [b][T][DA] and the token state [b][T][D], f32, one region
+// after another (every region starts at a multiple of 16 bytes).
+struct Work {
+  __nv_bfloat16 *p1, *p2;
+  float *c2, *q2, *attn2, *k2, *qf, *attnf, *qs;
+};
+
+__host__ __device__ constexpr size_t work_bytes(int m) {
+  return (size_t)2 * HT * m * 2 + (size_t)HT * D * 4 + (size_t)5 * T * DA * 4 + (size_t)T * D * 4;
+}
+
+Work carve(void* at, int b, int m) {
+  char* p = static_cast<char*>(at);
+  auto take = [&](size_t bytes) {
+    char* r = p;
+    p += (size_t)b * bytes;
+    return r;
+  };
+  Work w;
+  w.p1 = reinterpret_cast<__nv_bfloat16*>(take((size_t)HT * m * 2));
+  w.p2 = reinterpret_cast<__nv_bfloat16*>(take((size_t)HT * m * 2));
+  w.c2 = reinterpret_cast<float*>(take(HT * D * 4));
+  w.q2 = reinterpret_cast<float*>(take(T * DA * 4));
+  w.attn2 = reinterpret_cast<float*>(take(T * DA * 4));
+  w.k2 = reinterpret_cast<float*>(take(T * DA * 4));
+  w.qf = reinterpret_cast<float*>(take(T * DA * 4));
+  w.attnf = reinterpret_cast<float*>(take(T * DA * 4));
+  w.qs = reinterpret_cast<float*>(take(T * D * 4));
+  return w;
+}
+
+// The layer-2 token -> image queries of each prompt: (queries + tokens)
+// Wq_t2 + bq_t2 -> q2 [b][T][DA].
+__global__ void __launch_bounds__(THREADS) tail_queries_f32_kernel(const TailParams pr, float* q2) {
+  __shared__ __align__(16) float x[T * D];
+  const size_t o = (size_t)blockIdx.x * T * D;
+  const float *qin = fp(pr.qin) + o, *tok = fp(pr.tok) + o;
+  for (int i = threadIdx.x; i < T * D; i += THREADS) x[i] = qin[i] + tok[i];
+  __syncthreads();
+  dense_rows_k4(q2 + (size_t)blockIdx.x * T * DA, x, D, fp(pr.wq_t2), fp(pr.bq_t2), DA, false);
+}
+
+// Shared memory of tail_mid_f32_kernel (bytes): the token state, its sum
+// with the tokens, a dense layer's output and the tokens [T][D]; the
+// attention and v2 [T][DA]; the MLP's hidden rows [T][mlp]; f32.
+__host__ __device__ constexpr int mid_smem(int mlp) {
+  return (4 * T * D + 2 * T * DA + T * mlp) * 4;
+}
+static_assert(mid_smem(MAX_MLP) == 93184 && mid_smem(MAX_MLP) <= 232448, "the byte count above");
+
+// The token side between the two walks, for each prompt: the layer-2
+// token -> image out-projection, LN, MLP, LN (the token state, to qs),
+// then k2 = (q + tok) Wk_i2 + bk_i2, v2 = q Wv_i2 + bv_i2 and the final
+// queries (q + tok) Wq_fa + bq_fa, and C2[h*T + t][d] = v2[t, h] .
+// Wout_i2[h rows, d]; all f32, unrounded.
+__global__ void __launch_bounds__(THREADS) tail_mid_f32_kernel(const TailParams pr,
+                                                               const float* attn, float* qs,
+                                                               float* k2, float* qf, float* c2) {
+  extern __shared__ __align__(16) float sm[];
+  float* q = sm;                 // the token state [T][D]
+  float* xa = q + T * D;         // [T][D]
+  float* xb = xa + T * D;        // [T][D]
+  float* tk = xb + T * D;        // the tokens [T][D]
+  float* sa = tk + T * D;        // the attention [T][DA]
+  float* v2 = sa + T * DA;       // [T][DA]
+  float* hid = v2 + T * DA;      // the MLP's hidden rows [T][mlp]
+  const int b = blockIdx.x;
+  const size_t ot = (size_t)b * T * D, oa = (size_t)b * T * DA;
+  load_f32(q, fp(pr.qin) + ot, T * D);
+  load_f32(tk, fp(pr.tok) + ot, T * D);
+  load_f32(sa, attn + oa, T * DA);
+  __syncthreads();
+  dense_rows_k4(xb, sa, DA, fp(pr.wout_t2), fp(pr.bout_t2), D, false);
+  __syncthreads();
+  for (int i = threadIdx.x; i < T * D; i += THREADS) xa[i] = q[i] + xb[i];
+  __syncthreads();
+  ln_rows(q, xa, fp(pr.n2_s), fp(pr.n2_b), pr.eps);
+  __syncthreads();
+  dense_rows_k4(hid, q, D, fp(pr.lin1_w), fp(pr.lin1_b), pr.mlp, true);
+  __syncthreads();
+  dense_rows_k4(xb, hid, pr.mlp, fp(pr.lin2_w), fp(pr.lin2_b), D, false);
+  __syncthreads();
+  for (int i = threadIdx.x; i < T * D; i += THREADS) xa[i] = q[i] + xb[i];
+  __syncthreads();
+  ln_rows(q, xa, fp(pr.n3_s), fp(pr.n3_b), pr.eps);
+  __syncthreads();
+  for (int i = threadIdx.x; i < T * D; i += THREADS) {
+    qs[ot + i] = q[i];
+    xa[i] = q[i] + tk[i];
+  }
+  __syncthreads();
+  dense_rows_k4(k2 + oa, xa, D, fp(pr.wk_i2), fp(pr.bk_i2), DA, false);
+  dense_rows_k4(v2, q, D, fp(pr.wv_i2), fp(pr.bv_i2), DA, false);
+  dense_rows_k4(qf + oa, xa, D, fp(pr.wq_fa), fp(pr.bq_fa), DA, false);
+  __syncthreads();
+  const int d = threadIdx.x;
+  const float* wo = fp(pr.wout_i2);
+  float* cb = c2 + (size_t)b * HT * D;
+  for (int hh = 0; hh < H; ++hh) {
+    float w[HD];
+#pragma unroll
+    for (int j = 0; j < HD; ++j) w[j] = wo[(size_t)(hh * HD + j) * D + d];
+#pragma unroll
+    for (int t = 0; t < T; ++t) {
+      float a = 0.f;
+#pragma unroll
+      for (int j = 0; j < HD; ++j) a = fmaf(v2[t * DA + hh * HD + j], w[j], a);
+      cb[(hh * T + t) * D + d] = a;
+    }
+  }
+}
+
+// After the final attention, for each prompt: its out-projection, the
+// residual and the final LayerNorm -> qout [b][T][D] f32; with WITH_HYPER (the
+// logits mode) also the hypernetwork rows of mask tokens 1..3 from token
+// rows 2..4 (as the bf16 ROWS emission) -> hyper [b][3][D/8] f32.
+template <bool WITH_HYPER>
+__global__ void __launch_bounds__(THREADS) tail_final_f32_kernel(const TailParams pr,
+                                                                 const float* attn,
+                                                                 const float* qs) {
+  __shared__ __align__(16) float sa[T * DA];
+  __shared__ __align__(16) float q[T * D];
+  __shared__ __align__(16) float xa[T * D];
+  __shared__ __align__(16) float xb[T * D];
+  __shared__ __align__(16) float h1[N_MASKS * D];
+  __shared__ __align__(16) float h2[N_MASKS * D];
+  const int b = blockIdx.x;
+  const size_t ot = (size_t)b * T * D;
+  load_f32(sa, attn + (size_t)b * T * DA, T * DA);
+  load_f32(q, qs + ot, T * D);
+  __syncthreads();
+  dense_rows_k4(xb, sa, DA, fp(pr.wout_fa), fp(pr.bout_fa), D, false);
+  __syncthreads();
+  for (int i = threadIdx.x; i < T * D; i += THREADS) xa[i] = q[i] + xb[i];
+  __syncthreads();
+  ln_rows(q, xa, fp(pr.nf_s), fp(pr.nf_b), pr.eps);
+  __syncthreads();
+  float* qout = reinterpret_cast<float*>(pr.qout) + ot;
+  for (int i = threadIdx.x; i < T * D; i += THREADS) qout[i] = q[i];
+  if constexpr (WITH_HYPER) {
+    hyper_layer(h1, q + 2 * D, D, D, fp(pr.hw1), fp(pr.hb1), D, true);
+    __syncthreads();
+    hyper_layer(h2, h1, D, D, fp(pr.hw2), fp(pr.hb2), D, true);
+    __syncthreads();
+    hyper_layer(h1, h2, D, D, fp(pr.hw3), fp(pr.hb3), HYPER, false);
+    __syncthreads();
+    float* out = reinterpret_cast<float*>(pr.hyper) + (size_t)b * N_MASKS * HYPER;
+    for (int i = threadIdx.x; i < N_MASKS * HYPER; i += THREADS) out[i] = h1[i];
+  }
+}
+
+#define RAT_TRY(call)              \
+  do {                             \
+    const int e_ = (int)(call);    \
+    if (e_ != 0) return e_;        \
+  } while (0)
+
+// The f32 form's launches on st (see the note above); keys2 to the keys
+// mode's keys2 [b][M][D], or (rows) its tiles below content to krows
+// [b][content rounded up to 32][D] and the hypernetwork rows to hyper.
+int tail_f32(const TailParams& pr, cudaStream_t st, bool rows) {
+  const int b = pr.b, m = pr.m;
+  const float eps = pr.eps;
+  void* s = st;
+  const Work w = carve(pr.work, b, m);
+  tail_queries_f32_kernel<<<b, THREADS, 0, st>>>(pr, w.q2);
+  RAT_TRY(cudaGetLastError());
+  RAT_TRY(rat_i2t_probs_f32(pr.q1st, pr.tok_k1, nullptr, nullptr, nullptr, nullptr, nullptr,
+                            nullptr, w.p1, b, m, 1, eps, s));
+  RAT_TRY(rat_t2i_probs_f32(w.q2, pr.img0, w.p1, pr.c1m, nullptr, nullptr, pr.wk_t2, pr.wv_t2,
+                            pr.pek2t, pr.rows, pr.vb_t2, w.attn2, b, m, 1, eps, s));
+  const int mid = mid_smem(pr.mlp);
+  RAT_TRY(cudaFuncSetAttribute(tail_mid_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               mid));
+  tail_mid_f32_kernel<<<b, THREADS, mid, st>>>(pr, w.attn2, w.qs, w.k2, w.qf, w.c2);
+  RAT_TRY(cudaGetLastError());
+  RAT_TRY(rat_i2t_probs_f32(nullptr, w.k2, pr.img0, w.p1, pr.c1m, pr.peq2t, pr.wq_i2, pr.rows,
+                            w.p2, b, m, 2, eps, s));
+  const int klimit = rows ? (pr.content + BM - 1) / BM * BM : m;
+  RAT_TRY(rat_t2i_probs_f32_keys(w.qf, pr.img0, w.p1, pr.c1m, w.p2, w.c2, pr.wk_fa, pr.wv_fa,
+                                 pr.pekft, pr.rows, pr.vb_fa, w.attnf,
+                                 rows ? (void*)pr.krows : (void*)pr.keys2, b, m, klimit, eps, s));
+  if (rows)
+    tail_final_f32_kernel<true><<<b, THREADS, 0, st>>>(pr, w.attnf, w.qs);
+  else
+    tail_final_f32_kernel<false><<<b, THREADS, 0, st>>>(pr, w.attnf, w.qs);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Bytes of the f32 form's work a prompt at m positions (a report, no
+// launch); the caller passes b times this as TailParams.work.
+extern "C" int rat_decode_tail_f32_scratch(int m) { return (int)work_bytes(m); }
+
+// Dynamic shared memory of the f32 form's token mid-ops CTA in bytes at
+// MLP width mlp (a report, no launch).
+extern "C" int rat_decode_tail_f32_smem(int mlp) { return mid_smem(mlp); }
+
+// The f32 form in keys mode: every TailParams pointer f32 but the unused
+// ones, work set.
+extern "C" int rat_decode_tail_f32(const void* params, void* stream) {
+  const TailParams& pr = *static_cast<const TailParams*>(params);
+  if (!tail_ok(pr) || pr.keys2 == nullptr || pr.p1 != nullptr || pr.p2 != nullptr ||
+      pr.c2m != nullptr || pr.work == nullptr || pr.b > 65535)
+    return (int)cudaErrorInvalidValue;
+  return tail_f32(pr, static_cast<cudaStream_t>(stream), false);
+}
+
+// The f32 form in logits mode: the tail with keys2's rows and the
+// hypernetwork rows, then K3 f32 on them (its weight planes in
+// mh_scratch), on the same stream.
+extern "C" int rat_decode_tail_logits_f32(const void* params, void* stream) {
+  const TailParams& pr = *static_cast<const TailParams*>(params);
+  if (!tail_ok(pr) || pr.keys2 != nullptr || pr.p1 != nullptr || pr.p2 != nullptr ||
+      pr.krows == nullptr || pr.hyper == nullptr || pr.logits == nullptr || pr.content < 1 ||
+      pr.content > pr.m || pr.work == nullptr || pr.mh_scratch == nullptr || pr.b > 65535)
+    return (int)cudaErrorInvalidValue;
+  RAT_TRY(tail_f32(pr, static_cast<cudaStream_t>(stream), true));
+  const int gg = (pr.content + BM - 1) / BM * BM;
+  return rat_mask_head_f32(pr.krows, pr.up1_w, pr.up1_b, pr.ln_s, pr.ln_b, pr.up2_w, pr.up2_b,
+                           pr.hyper, pr.logits, pr.mh_scratch, pr.b, gg, pr.content, N_MASKS,
+                           pr.eps, stream);
 }

@@ -532,9 +532,12 @@ __device__ __forceinline__ void project_rows_tc(__half* sQh, __half* sQl, float*
 // over four k, and W by 16 bytes (8 outputs a thread, dense_rows_n8: N %
 // 8 == 0) or one output a thread (dense_rows_k4). x [T][K] f32 (shared,
 // 16-byte aligned rows, K % 4 == 0), W [K][N] bf16 (global), out [T][N]
-// f32 (shared).
-__device__ __forceinline__ float dense_out(float acc, const __nv_bfloat16* b, int n, bool relu) {
-  const float y = bf16_round(bf16_round(acc) + __bfloat162float(b[n]));
+// f32 (shared). dense_rows_k4 also takes an f32 SAM's f32 W and b, and
+// then rounds nothing (the JAX `_dense_rows` at f32; out shared or
+// global).
+template <typename WT>
+__device__ __forceinline__ float dense_out(float acc, const WT* b, int n, bool relu) {
+  const float y = round_tok<WT>(round_tok<WT>(acc) + ldw(b + n));
   return relu ? fmaxf(y, 0.f) : y;
 }
 
@@ -570,9 +573,9 @@ __device__ __forceinline__ void dense_rows_n8(float* out, const float* x, int K,
   }
 }
 
-__device__ __forceinline__ void dense_rows_k4(float* out, const float* x, int K,
-                                              const __nv_bfloat16* W, const __nv_bfloat16* b,
-                                              int N, bool relu) {
+template <typename WT>
+__device__ __forceinline__ void dense_rows_k4(float* out, const float* x, int K, const WT* W,
+                                              const WT* b, int N, bool relu) {
   for (int n = threadIdx.x; n < N; n += THREADS) {
     float acc[T];
 #pragma unroll
@@ -581,7 +584,7 @@ __device__ __forceinline__ void dense_rows_k4(float* out, const float* x, int K,
     for (int k = 0; k < K; k += 4) {
       float w[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) w[i] = __bfloat162float(W[(size_t)(k + i) * N + n]);
+      for (int i = 0; i < 4; ++i) w[i] = ldw(W + (size_t)(k + i) * N + n);
 #pragma unroll
       for (int t = 0; t < T; ++t) {
         const float4 xv = *reinterpret_cast<const float4*>(x + t * K + k);
@@ -1019,11 +1022,15 @@ __device__ __forceinline__ void p_tile_to_f16(__nv_bfloat16* sP) {
 // brings both planes' fragments): 16 accumulators at once, where whole
 // 16-channel halves held 32 and B8 f32 spilled 180 B at depth 2 (108 B
 // this way; 8.919 -> 8.705 ms, H100 80GB HBM3 at 700 W). The LayerNorm and
-// the planes as rebuild_tc.
+// the planes as rebuild_tc; the new branch also leaves as f32 to out rows
+// ([BM][D], the tile's) when out is given: a quad's four 8-byte stores of
+// a row and n8 tile fill one 32-byte sector, marked evict-first (as
+// emit_rows).
 template <bool FROM_IMG0>
 __device__ __forceinline__ void rebuild_tc(Frag& y, const ImgFragF& img, __half* sYh, __half* sYl,
                                            const __half* sP, const CPlanes& c, const float* vec,
-                                           float2* red, float eps, float ys) {
+                                           float2* red, float eps, float ys,
+                                           float* out = nullptr) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, q = lane % 4, li = lane / 8, lr = lane % 8;
   const int col0 = 32 * warp + 2 * q;           // + 8 nt
@@ -1147,6 +1154,9 @@ __device__ __forceinline__ void rebuild_tc(Frag& y, const ImgFragF& img, __half*
         const int o = wide_idx(row, col0 + 8 * nt);
         *reinterpret_cast<__half2*>(sYh + o) = hi;
         *reinterpret_cast<__half2*>(sYl + o) = lo;
+        if (out)
+          __stcs(reinterpret_cast<float2*>(out + (size_t)row * D + col0 + 8 * nt),
+                 make_float2(v0, v1));
       }
     }
   __syncthreads();

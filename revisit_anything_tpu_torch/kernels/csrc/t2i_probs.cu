@@ -52,6 +52,12 @@
 // one CTA an SM. What bounds it is the kernel's own products at the fp16
 // rate: the rebuilds' as two passes, the scores' and the context's as
 // three (0.97 / 1.22 ms at 1024 prompts, depth 1 / 2).
+//
+// The f32 form at depth 2 also comes with a keys store
+// (rat_t2i_probs_f32_keys, template flag KEYS; no Python entry): the
+// decode tail's f32 form (decode_tail.cu) runs its final attention with
+// it, and each tile's keys2 leaves as f32 from the rebuild's registers
+// (decode_tc.cuh rebuild_tc's `out`) on the way.
 
 #include "decode_common.cuh"
 #include "decode_tc.cuh"
@@ -84,7 +90,10 @@ static_assert(Smem<__nv_bfloat16, 1>::TOTAL == 138304 && Smem<__nv_bfloat16, 2>:
 static_assert(Smem<float, 2>::TOTAL <= 232448, "a CTA fits an SM");
 static_assert(BM * WARPS * 8 <= HT * BM * 4, "the LN's row sums fit S");
 
-template <typename E, int DEPTH>
+// KEYS (f32 at depth 2 only: the decode tail's f32 form,
+// decode_tail.cu) also stores the rebuilt branch, f32, to keys rows
+// [B, klimit, D] for every tile below klimit.
+template <typename E, int DEPTH, bool KEYS = false>
 __global__ void __launch_bounds__(THREADS, 1)
 t2i_probs_kernel(const E* __restrict__ q,                  // [B, T, DA]
                  const E* __restrict__ img0,               // [M, D]
@@ -98,7 +107,9 @@ t2i_probs_kernel(const E* __restrict__ q,                  // [B, T, DA]
                  const E* __restrict__ rows,               // [8, D]
                  const E* __restrict__ v_bias,             // [DA]
                  E* __restrict__ out,                      // [B, T, DA]
-                 int m, float eps) {
+                 float* __restrict__ keys,                 // [B, klimit, D] (KEYS)
+                 int m, float eps, int klimit) {
+  static_assert(!KEYS || (Walk<E>::F32 && DEPTH == 2), "keys leave the f32 depth-2 walk only");
   using L = Smem<E, DEPTH>;
   using W = Walk<E>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -177,7 +188,10 @@ t2i_probs_kernel(const E* __restrict__ q,                  // [B, T, DA]
     const auto* tp =
         reinterpret_cast<const typename W::PTile*>(sP + (i % W::P_SETS) * DEPTH * PT);
     rebuild_tc<true>(y, img, sYh, sYl, tp, c[0], sV, red, eps, ys1);           // keys1
-    if (DEPTH == 2)                                                              // keys2
+    if constexpr (KEYS)                                                          // keys2, stored
+      rebuild_tc<false>(y, img, sYh, sYl, tp + PT, c[DEPTH - 1], sV + 3 * D, red, eps, ys2,
+                        m0 < klimit ? keys + ((size_t)b * klimit + m0) * D : nullptr);
+    else if (DEPTH == 2)                                                         // keys2
       rebuild_tc<false>(y, img, sYh, sYl, tp + PT, c[DEPTH - 1], sV + 3 * D, red, eps, ys2);
     if constexpr (W::F32) {                      // the tiles are read
       if (i + 1 < tiles) load_p(i + 1);
@@ -208,19 +222,21 @@ t2i_probs_kernel(const E* __restrict__ q,                  // [B, T, DA]
   }
 }
 
-template <typename E, int DEPTH>
-int launch(const void* const* ptrs, void* out, int b, int m, float eps, cudaStream_t s) {
+template <typename E, int DEPTH, bool KEYS = false>
+int launch(const void* const* ptrs, void* out, int b, int m, float eps, cudaStream_t s,
+           float* keys = nullptr, int klimit = 0) {
   constexpr int smem = Smem<E, DEPTH>::TOTAL;
-  cudaError_t err = cudaFuncSetAttribute(t2i_probs_kernel<E, DEPTH>,
+  cudaError_t err = cudaFuncSetAttribute(t2i_probs_kernel<E, DEPTH, KEYS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   typedef const E* A;
   typedef const __nv_bfloat16* P;
-  t2i_probs_kernel<E, DEPTH><<<b, THREADS, smem, s>>>(
+  t2i_probs_kernel<E, DEPTH, KEYS><<<b, THREADS, smem, s>>>(
       static_cast<A>(ptrs[0]), static_cast<A>(ptrs[1]), static_cast<P>(ptrs[2]),
       static_cast<A>(ptrs[3]), static_cast<P>(ptrs[4]), static_cast<A>(ptrs[5]),
       static_cast<A>(ptrs[6]), static_cast<A>(ptrs[7]), static_cast<A>(ptrs[8]),
-      static_cast<A>(ptrs[9]), static_cast<A>(ptrs[10]), static_cast<E*>(out), m, eps);
+      static_cast<A>(ptrs[9]), static_cast<A>(ptrs[10]), static_cast<E*>(out), keys, m, eps,
+      klimit);
   return (int)cudaGetLastError();
 }
 
@@ -262,4 +278,21 @@ extern "C" int rat_t2i_probs_f32(const void* q, const void* img0, const void* p1
 
 extern "C" int rat_t2i_probs_f32_smem(int depth) {
   return depth == 2 ? Smem<float, 2>::TOTAL : Smem<float, 1>::TOTAL;
+}
+
+// The f32 form at depth 2 that also stores keys2 (the rebuilt branch,
+// f32) to keys [b, klimit, D] for every 32-position tile below klimit
+// (a multiple of 32): the final attention of the
+// decode tail's f32 form (decode_tail.cu), which emits keys2 on the way.
+extern "C" int rat_t2i_probs_f32_keys(const void* q, const void* img0, const void* p1,
+                                      const void* c1, const void* p2, const void* c2,
+                                      const void* w_k, const void* w_v, const void* pekt,
+                                      const void* rows, const void* v_bias, void* out, void* keys,
+                                      int b, int m, int klimit, float eps, void* stream) {
+  const void* ptrs[11] = {q, img0, p1, c1, p2, c2, w_k, w_v, pekt, rows, v_bias};
+  if (b < 1 || m < BM || m % BM != 0 || p2 == nullptr || c2 == nullptr || keys == nullptr ||
+      klimit < 1 || klimit > m || klimit % BM != 0)
+    return (int)cudaErrorInvalidValue;
+  return launch<float, 2, true>(ptrs, out, b, m, eps, static_cast<cudaStream_t>(stream),
+                                static_cast<float*>(keys), klimit);
 }

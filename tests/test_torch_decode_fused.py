@@ -30,8 +30,12 @@ from revisit_anything_tpu.models.sam import decoder as dec_mod
 from revisit_anything_tpu.models.sam.decoder import (_mlp,
                                                      _upscale_masks_blocks)
 from revisit_anything_tpu.ops.decode_fused import decode_tail_fused as jtail
+from revisit_anything_tpu_torch.kernels.probs_compare import (
+    PROBS_F32_MOVED, bf16_ulps)
 from revisit_anything_tpu_torch.models.sam import SamArchConfig as PortCfg
 from revisit_anything_tpu_torch.models.sam import decoder as pdec
+from revisit_anything_tpu_torch.ops import decode_fused as dfu
+from revisit_anything_tpu_torch.ops import decode_probs as pdp
 from revisit_anything_tpu_torch.ops.decode_fused import decode_tail_fused
 from revisit_anything_tpu_torch.weights import sam_from_jax_params
 
@@ -224,3 +228,180 @@ def test_unknown_decode_raises(setup):
         pdec.decode_masks(sam.decoder, PCFG, *(torch.from_numpy(x) for x in
                                                (emb, pe, sparse, dense)),
                           decode="probs")
+
+
+ACTIVATIONS = ("img0", "q1st", "peq2t", "pek2t", "pekft", "tok_k1", "c1m",
+               "qin", "tok")
+
+
+@pytest.mark.parametrize("mode", ["keys", "probs", "logits"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_tail_kernel_operands_are_never_cast(setup, dtype, mode):
+    """The operand list B3's CUDA branch hands ``operand``
+    (``tail_operands``), in TailParams' order: each activation is the
+    caller's own tensor, held to queries_b's dtype (an f32 img0 beside
+    bf16 tokens makes the kernel raise, never rounds it); the weights,
+    biases and branch rows, and in the logits mode the mask head's
+    weights and the hypernetwork MLPs, are converted to that dtype; P is
+    never an operand (the kernel makes P1 and P2)."""
+    _, sam, *_ = setup
+    x = {k: torch.from_numpy(v) for k, v in _tail_inputs().items()}
+    acts = dict(zip(ACTIVATIONS, [x["img0"]] + [
+        x[k].to(dtype) for k in ("q1st", "peq2t", "pek2t", "pekft",
+                                 "tok_k1", "c1m", "queries_b", "tokens")]))
+    ops = dfu.tail_operands(sam.decoder, *acts.values(), 4,
+                            mask_head=mode == "logits")
+    names = [name for name, *_ in ops]
+    assert names == [n for n in dfu._TAIL_POINTERS if n in names]
+    assert names[:len(ACTIVATIONS)] == list(ACTIVATIONS)
+    assert len(names) == 40 + (12 if mode == "logits" else 0)
+    assert not {"p1", "p2", "c2m", "keys2"} & set(names)
+    for name, t, dt, shape in ops:
+        assert dt == dtype, name
+        assert tuple(t.shape) == tuple(shape), name
+        if name in ACTIVATIONS:
+            assert t is acts[name], name
+        else:
+            assert t.dtype == dtype, name
+
+
+# ----------------------------------------------------------------------
+# B3 f32's arithmetic (kernels/csrc/decode_tail.cu, the f32 form),
+# emulated on the CPU at the kernel's widths in its order: its walks are
+# B7 f32 and B8 f32 (tests/test_torch_decode_probs.py emulates both), the
+# token side between them f32 and unrounded.
+
+KD, KDA, KH, KT, KMLP = 256, 128, 8, 7, 128
+
+
+def _kernel_width_tail(seed, b=2, m=128):
+    """Seeded numpy inputs and the parameter subtrees the JAX tail reads
+    (l2, fa, i1, l1n4, norm_final) at the kernel's widths, MLP 128:
+    weights N(0, 0.05²), LayerNorm scales 1 + N(0, 0.05²)."""
+    rng = np.random.default_rng(seed)
+
+    def rnd(*shape, s=1.0, off=0.0):
+        return (rng.standard_normal(shape) * s + off).astype(np.float32)
+
+    def lin(i, o):
+        return {"w": rnd(i, o, s=0.05), "b": rnd(o, s=0.05)}
+
+    def ln(n):
+        return {"scale": rnd(n, s=0.05, off=1.0), "bias": rnd(n, s=0.05)}
+
+    def attn():
+        return {"q": lin(KD, KDA), "k": lin(KD, KDA), "v": lin(KD, KDA),
+                "out": lin(KDA, KD)}
+
+    prm = dict(l2={"t2i": attn(), "i2t": attn(), "norm2": ln(KD),
+                   "norm3": ln(KD), "norm4": ln(KD), "lin1": lin(KD, KMLP),
+                   "lin2": lin(KMLP, KD)},
+               fa=attn(), i1=attn(), l1n4=ln(KD), norm_final=ln(KD))
+    x = dict(img0=rnd(1, m, KD), q1st=rnd(1, KDA, m), peq2t=rnd(1, KDA, m),
+             pek2t=rnd(1, KDA, m), pekft=rnd(1, KDA, m),
+             tok_k1=rnd(b, KT, KDA), c1m=rnd(b, KH * KT, KD, s=0.3),
+             queries_b=rnd(b, KT, KD), tokens=rnd(b, KT, KD))
+    return x, prm
+
+
+def _jax_tail_f32(x, prm, emit_keys):
+    """JAX ``decode_tail_fused`` in f32 (interpret mode, "highest")."""
+    j = {k: jnp.asarray(v) for k, v in x.items()}
+    with jax.default_matmul_precision("highest"):
+        out = jtail(j["img0"].transpose(0, 2, 1), j["q1st"], j["peq2t"],
+                    j["pek2t"], j["pekft"], j["tok_k1"], j["c1m"],
+                    j["queries_b"], j["tokens"], prm["l2"], prm["fa"],
+                    prm["i1"], prm["l1n4"], prm["norm_final"], KH,
+                    eps=1e-6, interpret=True, emit_keys=emit_keys)
+    return [torch.from_numpy(np.array(o, np.float32)) for o in out]
+
+
+def _tail_f32_emulated(x, prm, p1_ref, p2_ref, split=True):
+    """B3 f32 in the kernel's order: P1 (B7 f32 layer 1: the pe term and
+    the softmax in f32, P bf16); the layer-2 token -> image attention as
+    B8 f32 at depth 1; the token side f32 and unrounded; P2 as B7 f32
+    layer 2; C2; keys2 by two f32 rebuilds (C as two fp16 planes, P as
+    fp16 x 2^15; ``split`` False: C rounded once to TF32); the final
+    attention as B8 f32 at depth 2. P1 and P2 round to bf16, where an f32
+    reassociation may flip one ulp: each is measured against the JAX
+    kernel's (``p1_ref``, ``p2_ref``), and the JAX kernel's goes on, so
+    that the rest can be held to f32. Returns (qout, keys2, (the largest
+    difference of P1 and P2 in bf16 ulps, the largest share of their
+    elements that differ))."""
+    from test_torch_decode_probs import _i2t_l2_f32, _rebuild, _t2i_f32
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    prm = jax.tree_util.tree_map(lambda a: torch.from_numpy(
+        np.asarray(a, np.float32)), prm)
+    l2, fa = prm["l2"], prm["fa"]
+    t2, i2 = l2["t2i"], l2["i2t"]
+    eps = 1e-6
+
+    def dense(a, p):
+        return a @ p["w"] + p["b"]
+
+    def ln(a, p):
+        mu = a.mean(-1, keepdim=True)
+        var = ((a - mu) ** 2).mean(-1, keepdim=True)
+        return (a - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+
+    p_err = []
+
+    def held(got, ref):
+        p_err.append(bf16_ulps(got, ref))
+        return ref.to(torch.bfloat16)
+
+    rows = torch.stack([prm["i1"]["out"]["b"], prm["l1n4"]["scale"],
+                        prm["l1n4"]["bias"], i2["out"]["b"],
+                        l2["norm4"]["scale"], l2["norm4"]["bias"],
+                        torch.zeros(KD), torch.zeros(KD)])
+    qin, tok, img0, c1 = t["queries_b"], t["tokens"], t["img0"], t["c1m"]
+    p1 = held(pdp.i2t_probs_reference(t["q1st"], t["tok_k1"], KH), p1_ref)
+    q2 = dense(qin + tok, t2["q"])
+    attn = _t2i_f32(q2, img0, p1, c1, None, None, t2["k"]["w"],
+                    t2["v"]["w"], t["pek2t"], rows, t2["v"]["b"], KH, eps,
+                    split)
+    q = ln(qin + dense(attn, t2["out"]), l2["norm2"])
+    q = ln(q + dense(torch.relu(dense(q, l2["lin1"])), l2["lin2"]),
+           l2["norm3"])
+    k2, v2, qf = (dense(q + tok, i2["k"]), dense(q, i2["v"]),
+                  dense(q + tok, fa["q"]))
+    p2 = held(_i2t_l2_f32(k2, img0, p1, c1, t["peq2t"], i2["q"]["w"], rows,
+                          KH, eps, split), p2_ref)
+    c2 = pdp.c_matrix(v2, i2["out"]["w"], KH)
+    keys1 = _rebuild(img0, p1, c1, rows[0:3], eps, split)
+    keys2 = _rebuild(keys1, p2, c2, rows[3:6], eps, split)
+    attn = _t2i_f32(qf, img0, p1, c1, p2, c2, fa["k"]["w"], fa["v"]["w"],
+                    t["pekft"], rows, fa["v"]["b"], KH, eps, split)
+    return (ln(q + dense(attn, fa["out"]), prm["norm_final"]), keys2,
+            tuple(max(e) for e in zip(*p_err)))
+
+
+@pytest.mark.parametrize("c_scale", [1.0, 8.0])
+def test_split_f16_decode_tail_arithmetic_matches_jax(c_scale):
+    """B3 f32 emulated in f32 (its walks as B7 f32 and B8 f32: C1 and C2
+    as two fp16 planes, P as fp16 x 2^15, the scores and the context as
+    three fp16 products of planes, the online softmax over 32-position
+    tiles; the token side f32) gives JAX ``decode_tail_fused``'s keys
+    mode in f32 (interpret mode, "highest" products) at the kernel's
+    widths, M 128 (four tiles), 2 prompts: the token state and keys2
+    within 1e-5 of their scale, P1 and P2 within one bf16 ulp of the JAX
+    kernel's in at most PROBS_F32_MOVED of their elements. With C1 and C2
+    x 8 (C1m and W_out of the layer-2 update x 8: the rebuilds' products
+    outweigh img0) C rounded once to TF32 misses by more than 1e-5."""
+    x, prm = _kernel_width_tail(11)
+    x["c1m"] = x["c1m"] * np.float32(c_scale)
+    prm["l2"]["i2t"]["out"]["w"] = (prm["l2"]["i2t"]["out"]["w"]
+                                    * np.float32(c_scale))
+    want_q, want_keys = _jax_tail_f32(x, prm, True)
+    _, p1, p2, _ = _jax_tail_f32(x, prm, False)
+    got_q, got_keys, (ulps, moved) = _tail_f32_emulated(x, prm, p1, p2)
+    assert got_keys.shape == want_keys.shape == (2, 128, KD)
+    assert _rel(got_q, want_q) < 1e-5
+    assert _rel(got_keys, want_keys) < 1e-5
+    assert ulps <= 1.0 and moved <= PROBS_F32_MOVED
+    if c_scale > 1:
+        q1, k1, (ulps, moved) = _tail_f32_emulated(x, prm, p1, p2,
+                                                   split=False)
+        assert (max(_rel(q1, want_q), _rel(k1, want_keys)) > 1e-5
+                or ulps > 1.0 or moved > PROBS_F32_MOVED)

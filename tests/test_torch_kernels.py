@@ -17,6 +17,8 @@ import torch
 from revisit_anything_tpu_torch.kernels import build
 from revisit_anything_tpu_torch.kernels.probs_compare import (
     PROBS_F32_MOVED, bf16_ulps)
+from revisit_anything_tpu_torch.kernels.tail_compare import (
+    TAIL_F32_MOVED, TAIL_F32_MOVED_REL, moved_positions)
 from revisit_anything_tpu_torch.ops import attention as att
 from revisit_anything_tpu_torch.ops import decode_fused as dfu
 from revisit_anything_tpu_torch.ops import decode_probs as dpr
@@ -148,13 +150,39 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 def test_kernel_table_points_at_sources():
-    assert len(build.KERNELS) == 23
-    assert len({k.entry for k in build.KERNELS}) == 23
+    assert len(build.KERNELS) == 25
+    assert len({k.entry for k in build.KERNELS}) == 25
     for k in build.KERNELS:
         assert os.path.exists(os.path.join(REPO, k.source)), k.source
         path, line = k.replaces.split(":")
         with open(os.path.join(REPO, path)) as f:
             assert "pallas_call" in f.readlines()[int(line) - 1]
+
+
+def test_smoke_phases_time_each_function():
+    """``kernels.smoke_phases`` wraps a module's own functions in place
+    (``chip_smoke.py``'s [phases] line): each adds its calls' wall
+    seconds, a nested call of the same function adds nothing again, what
+    the module imported stays as it was, and the line lists the longest
+    first."""
+    import time
+    from revisit_anything_tpu_torch.kernels import smoke_phases
+    ns = {"__name__": "a_smoke", "time": time}
+    exec("def inner(n):\n"
+         "    time.sleep(0.02)\n"
+         "    return inner(n - 1) if n else 0\n"
+         "def outer():\n"
+         "    time.sleep(0.05)\n"
+         "    return inner(2)\n", ns)
+    seconds = {}
+    smoke_phases.time_functions(ns, seconds)
+    assert ns["time"] is time
+    assert ns["outer"]() == 0
+    assert set(seconds) == {"inner", "outer"}
+    assert 0.06 <= seconds["inner"] < seconds["outer"]
+    assert seconds["outer"] >= 0.11
+    line = smoke_phases.report(seconds, least=0.0)
+    assert line.index("outer") < line.index("inner")
 
 
 def test_winattn_variants_patch_the_kernel_source():
@@ -1064,11 +1092,13 @@ def test_resize_kernel_f32_matches_plain(cuda, orig_hw, np_, m, const, side):
 
 @pytest.mark.gpu
 def test_f32_kernels_dispatch_on_dtype(cuda):
-    """The ten wrappers with an f32 form (the five of the default SAM
-    path, the window kernel, B10, B7, B8 and B6) send bf16 CUDA tensors to
-    the bf16 kernels, f32 ones to the f32 kernels, and raise on f16. B7
-    and B8 pick by their token vectors' dtype, B6 by img0's; their P
-    stays bf16, and B7's output is bf16 at every dtype."""
+    """The wrappers with an f32 form (the five of the default SAM path,
+    the window kernel, B10, B7, B8, B6 and B3 in its keys and logits
+    modes) send bf16 CUDA tensors to the bf16 kernels, f32 ones to the
+    f32 kernels, and raise on f16. B7 and B8 pick by their token vectors'
+    dtype, B6 by img0's, B3 by the token state's; their P stays bf16, and
+    B7's output is bf16 at every dtype. B3's probability mode on f32
+    raises before any launch."""
     flash, side = _flash_inputs(cuda, 1, 256, 80, True)
     token = _token_inputs(cuda, 4, 7, 1024, 1, pe=True)
     split = _token_inputs(cuda, 4, 7, 1024, 4, pe=False)
@@ -1078,6 +1108,7 @@ def test_f32_kernels_dispatch_on_dtype(cuda):
     x, whd, wwd, grid = _resize_inputs(cuda, (240, 320), 2, 3)
     pr = _probs_inputs(cuda, b=4, m=128)
     hp = _mask_head_probs_args(cuda, 4, 3, gg=128)
+    tail = _tail_args(cuda, 4, 128, True)
     calls = {
         (build.FLASH_ATTENTION, build.FLASH_ATTENTION_F32_BIAS):
             lambda c: att.attend(*c(flash), side=side),
@@ -1108,6 +1139,12 @@ def test_f32_kernels_dispatch_on_dtype(cuda):
             lambda c: mh.fused_mask_head_probs(
                 *c(hp[:1]), hp[1], *c(hp[2:3]), hp[3], *c(hp[4:]),
                 content=120),
+        (build.DECODE_TAIL, build.DECODE_TAIL_F32):
+            lambda c: dfu.decode_tail_fused(tail[0], *c(tail[1:10]),
+                                            *tail[10:]),
+        (build.DECODE_TAIL_LOGITS, build.DECODE_TAIL_LOGITS_F32):
+            lambda c: dfu.decode_tail_fused(tail[0], *c(tail[1:10]), 8,
+                                            mask_head=True, content=100),
     }
 
     def cast(dtype):
@@ -1129,6 +1166,10 @@ def test_f32_kernels_dispatch_on_dtype(cuda):
                 assert first.dtype in (dtype, torch.uint8)
         with pytest.raises(ValueError, match="not built|float16"):
             call(cast(torch.float16))
+    build.reset_counts()
+    with pytest.raises(ValueError, match="probability mode on float32"):
+        dfu.decode_tail_fused(tail[0], *cast(torch.float32)(tail[1:10]), 8)
+    assert not any(k.launches for k in build.KERNELS)
 
 
 @pytest.mark.gpu
@@ -1376,6 +1417,58 @@ def test_probs_split_decodes_an_f32_sam_on_f32_kernels(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("decode", ["fused_tail_keys", "fused_tail_logits"])
+def test_fused_tail_decodes_an_f32_sam_on_f32_kernels(cuda, decode):
+    """An f32 SAM's "fused_tail_keys" and "fused_tail_logits" decodes run
+    on the f32 kernels alone (K2 f32 once, then B3 f32 in keys mode and
+    K3 f32, or the B3 f32 logits entry) and give finite f32 masks within
+    1e-2 of their scale of the same decode with the tail swapped for its
+    plain f32 version (TF32 off): P1 and P2 are bf16 in both, and where
+    one rounds the other way a logit moves by ~2^-8 of its scale at that
+    position (tail_compare.TAIL_F32_MOVED's note)."""
+    from revisit_anything_tpu_torch.models.sam import decoder
+    sam = _offline_sam(torch.float32).to(cuda)
+    cfg = sam.cfg
+    g, d = cfg.grid, cfg.prompt_dim
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    emb, pe = (torch.randn((g, g, d), generator=gen, device=cuda)
+               for _ in range(2))
+    sparse = torch.randn((64, 2, d), generator=gen, device=cuda)
+    dense = torch.randn((1, g, g, d), generator=gen, device=cuda)
+
+    def run():
+        with torch.inference_mode():
+            return decoder.decode_masks(sam.decoder, cfg, emb, pe, sparse,
+                                        dense, decode=decode)
+
+    keys = decode == "fused_tail_keys"
+    build.reset_counts()
+    masks, iou = run()
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in build.KERNELS if k.launches}
+    assert counts == ({build.TOKEN_CROSS_F32.name: 1,
+                       build.DECODE_TAIL_F32.name: 1,
+                       build.MASK_HEAD_F32.name: 1} if keys else
+                      {build.TOKEN_CROSS_F32.name: 1,
+                       build.DECODE_TAIL_LOGITS_F32.name: 1}), counts
+    assert masks.dtype == iou.dtype == torch.float32
+    assert torch.isfinite(masks).all() and torch.isfinite(iou).all()
+    kept = decoder.decode_tail_fused
+    try:
+        decoder.decode_tail_fused = dfu.decode_tail_reference
+        build.reset_counts()
+        want, want_iou = run()
+        torch.cuda.synchronize()
+        assert not (build.DECODE_TAIL_F32.launches
+                    or build.DECODE_TAIL_LOGITS_F32.launches)
+    finally:
+        decoder.decode_tail_fused = kept
+    assert masks.shape == want.shape
+    assert _rel_err(masks, want) < 1e-2
+    assert _rel_err(iou, want_iou) < 1e-2
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 def test_probs_kernels_permute_with_their_prompts(cuda, dtype):
@@ -1538,13 +1631,13 @@ def test_mask_head_probs_kernel_permutes_with_its_prompts(cuda, dtype):
     assert torch.equal(got, base[perm])
 
 
-def serving_decoder(device, seed=0):
-    """A bf16 SAM ViT-H mask decoder (prompt dim 256, 8 heads, MLP 2048)
-    with seeded random weights: N(0, 0.05²), LayerNorm scales 1 + N(0,
-    0.05²)."""
+def serving_decoder(device, seed=0, dtype=torch.bfloat16):
+    """A SAM ViT-H mask decoder (prompt dim 256, 8 heads, MLP 2048), bf16
+    by default, with seeded random weights: N(0, 0.05²), LayerNorm scales
+    1 + N(0, 0.05²)."""
     from revisit_anything_tpu_torch.models.sam import SAM_VIT_H
     from revisit_anything_tpu_torch.models.sam.decoder import MaskDecoder
-    dec = MaskDecoder(SAM_VIT_H, dtype=torch.bfloat16, device=device)
+    dec = MaskDecoder(SAM_VIT_H, dtype=dtype, device=device)
     g = torch.Generator(device=device).manual_seed(seed)
     with torch.no_grad():
         for name, p in dec.named_parameters():
@@ -1553,14 +1646,15 @@ def serving_decoder(device, seed=0):
     return dec
 
 
-def _tail_args(cuda, b, m, emit_keys, seed=7):
-    """Decode-tail inputs for ``b`` prompts over ``m`` positions."""
-    x = _probs_inputs(cuda, b=b, m=m)
+def _tail_args(cuda, b, m, emit_keys, seed=7, dtype=torch.bfloat16):
+    """Decode-tail inputs for ``b`` prompts over ``m`` positions, a
+    decoder and activations in ``dtype``."""
+    x = _probs_inputs(cuda, b=b, m=m, dtype=dtype)
     g = torch.Generator(device=cuda).manual_seed(seed)
-    dec = serving_decoder(cuda)
+    dec = serving_decoder(cuda, dtype=dtype)
 
     def rnd(*shape):
-        return torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+        return torch.randn(shape, generator=g, device=cuda).to(dtype)
 
     return (dec, x["img0"], x["q1st"], x["peqt"], rnd(1, 128, m),
             rnd(1, 128, m), x["tok_k"], x["c1"], rnd(b, 7, 256),
@@ -1684,6 +1778,137 @@ def test_decode_tail_logits_kernel_matches_plain(cuda, content):
     assert got[1].shape == want[1].shape == (b, content, 16, 3)
     for a, w in zip(got, want):
         assert _rel_err(a, w) < BF16_REL
+
+
+def _assert_tail_f32_close(got, want, trailing):
+    """keys2 or the logits per position within the criterion of
+    tail_compare.TAIL_F32_MOVED's note; the reading prints (pytest -s)."""
+    share, worst = moved_positions(got, want, trailing, F32_REL)
+    print(f"[tail f32] {share:.3e} of the positions beyond F32_REL, the "
+          f"largest {worst:.3e} of the scale")
+    assert share <= TAIL_F32_MOVED and worst <= TAIL_F32_MOVED_REL, (
+        share, worst)
+
+
+def _large_tail(dec, ln_scale):
+    """Both branch LayerNorm scales of ``dec`` times ``ln_scale`` and the
+    query-side weights that score the branch (the layer-2 token -> image
+    keys', the layer-2 image -> token queries', the final attention's
+    keys') divided by it, all exact at a power of two: the branch grows
+    by ``ln_scale`` and its scores keep their usual size (at 2^15 times
+    it a softmax over them is one hot and flips at near-ties, PERF.md
+    §6)."""
+    with torch.no_grad():
+        for layer in dec.layers[:2]:
+            layer.norm4.scale.mul_(ln_scale)
+        for w in (dec.layers[1].t2i.k.w, dec.layers[1].i2t.q.w,
+                  dec.final_attn.k.w):
+            w.div_(ln_scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,m,ln_scale", [
+    pytest.param(16, 4096, 1.0, id="16-4096"),
+    pytest.param(140, 4096, 1.0, id="140-4096"),
+    pytest.param(16, 96, 1.0, id="16-96"),
+    pytest.param(16, 256, 32768.0, id="16-256-large-branch")])
+def test_decode_tail_kernel_f32_matches_plain(cuda, b, m, ln_scale):
+    """B3 f32 in keys mode (f32 activations, weights and rows; P1, P2
+    bf16 inside) against its plain version in f32 with TF32 off: the
+    token state within F32_REL, keys2 as tail_compare.TAIL_F32_MOVED's
+    note says; f32 outputs; one counted launch. At the serving shape,
+    past the card's 132 SMs, at M = 96 (three tiles: the online softmax
+    rescales across tiles) and with both branch LayerNorm scales x 2^15
+    (keys2 past fp16's 65504, which the walks' fp16 planes hold times a
+    power of two)."""
+    args = _tail_args(cuda, b, m, True, dtype=torch.float32)
+    _large_tail(args[0], ln_scale)
+    before = build.DECODE_TAIL_F32.launches
+    with torch.inference_mode():
+        got = dfu.decode_tail_fused(*args)
+        want = dfu.decode_tail_reference(*args)
+    torch.cuda.synchronize()
+    assert build.DECODE_TAIL_F32.launches == before + 1
+    assert got[0].dtype == got[1].dtype == torch.float32
+    assert got[1].shape == want[1].shape == (b, m, 256)
+    if ln_scale > 1.0:
+        assert want[1].abs().max().item() > 65504
+    assert torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()
+    assert _rel_err(got[0], want[0]) < F32_REL
+    _assert_tail_f32_close(got[1], want[1], 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("content", [3136, 4096, 3100, 20])
+def test_decode_tail_logits_kernel_f32_matches_plain(cuda, content):
+    """B3 f32 in logits mode at 140 prompts (more than the card's 132
+    SMs), at content a multiple of 32, not one (K3 f32 reads keys2's rows
+    up to the next multiple) and below one tile, against its plain
+    version in f32 (TF32 off): the token state within F32_REL, the logits
+    per position as tail_compare.TAIL_F32_MOVED's note says; one counted
+    launch, K3 f32's counter unmoved."""
+    b = 140
+    args = _tail_args(cuda, b, 4096, False, seed=10,
+                      dtype=torch.float32)[:-1]
+    before = build.DECODE_TAIL_LOGITS_F32.launches
+    head_before = build.MASK_HEAD_F32.launches
+    with torch.inference_mode():
+        got = dfu.decode_tail_fused(*args, mask_head=True, content=content)
+        want = dfu.decode_tail_reference(*args, mask_head=True,
+                                         content=content)
+    torch.cuda.synchronize()
+    assert build.DECODE_TAIL_LOGITS_F32.launches == before + 1
+    assert build.MASK_HEAD_F32.launches == head_before
+    assert got[1].dtype == torch.float32
+    assert got[1].shape == want[1].shape == (b, content, 16, 3)
+    assert torch.isfinite(got[1]).all()
+    assert _rel_err(got[0], want[0]) < F32_REL
+    _assert_tail_f32_close(got[1], want[1], 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["keys", "logits"])
+def test_decode_tail_f32_kernels_permute_with_their_prompts(cuda, mode):
+    """Permuting the prompts permutes B3 f32's outputs bit for bit in
+    both modes (the logits mode at a content that is not a multiple of
+    32): every launch of the entry reads a prompt's own tokens, keys, C1
+    and work rows only."""
+    b = 24
+    args = _tail_args(cuda, b, 256, mode == "keys", dtype=torch.float32)
+    kw = dict(mask_head=True, content=200) if mode == "logits" else {}
+    perm = torch.randperm(b, generator=torch.Generator().manual_seed(0))
+    perm = perm.to(cuda)
+    per_prompt = (6, 7, 8, 9)                 # tok_k1, c1m, queries, tokens
+    shuffled = tuple(a[perm] if i in per_prompt else a
+                     for i, a in enumerate(args))
+    with torch.inference_mode():
+        base = dfu.decode_tail_fused(*args, **kw)
+        got = dfu.decode_tail_fused(*shuffled, **kw)
+    torch.cuda.synchronize()
+    for a, w in zip(got, base):
+        assert torch.equal(a, w[perm])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["keys", "logits"])
+def test_decode_tail_f32_kernels_are_bitwise_repeatable(cuda, mode):
+    """Two launches of B3 f32 on the same inputs give the same bits."""
+    args = _tail_args(cuda, 16, 512, mode == "keys", dtype=torch.float32)
+    kw = dict(mask_head=True, content=480) if mode == "logits" else {}
+    with torch.inference_mode():
+        first, second = (dfu.decode_tail_fused(*args, **kw)
+                         for _ in range(2))
+    torch.cuda.synchronize()
+    for a, w in zip(first, second):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.gpu
+def test_decode_tail_f32_scratch_is_the_kernels(cuda):
+    """The wrapper allocates the work B3 f32 takes a prompt."""
+    lib = build.load()
+    for m in (96, 4096):
+        assert dfu.tail_f32_scratch(m) == lib.rat_decode_tail_f32_scratch(m)
 
 
 def _small_server(dev, seed=7, **kw):
