@@ -41,10 +41,12 @@ Phases (any failure exits non-zero):
      head dim 64 and B10 f32 in both schedules, within 1e-5, B7 f32 at
      its two layers within one bf16 ulp of P, B8 f32 at its two depths
      and B6 f32 (content 3136, M 3) within 1e-5 (1024 prompts, M 4096),
-     B3 f32 in keys and logits modes (1024 prompts, M 4096, content 3136:
+     B3 f32 in its three modes (1024 prompts, M 4096, content 3136:
      the token state within 1e-5, keys2 and the logits per position within
      1e-5 at all but 0.112 of the positions and 2^-7 at those, as its gpu
-     tests),
+     tests; P1 and P2 within one bf16 ulp, moved in at most 1e-3 of their
+     elements, and C2 within 1e-5; keys mode minus probability mode, the
+     time keys2's stores take),
      K4's flags
      equal outside a band
      of 1e-5 of the logits' scale around each threshold, the band's
@@ -128,8 +130,9 @@ Phases (any failure exits non-zero):
      decode="fused_tail_keys" (K2 f32 1, B3 f32 keys mode 1, K3 f32 1)
      and decode="fused_tail_logits" (K2 f32 1, the B3 f32 logits entry
      1), each against the same query with the tail swapped for its plain
-     f32 version; then an f32 decode="fused_tail_probs" server, whose
-     tail must raise ValueError (no f32 probability mode yet);
+     f32 version, and decode="fused_tail_probs" (K2 f32 1, B3 f32
+     probability mode 1, B6 f32 1) against the same query with the tail
+     and B6 swapped for their plain f32 versions;
  10. [insert], continued: remove planted image 1 (its noisy copy must no
      longer find it), snapshot the database to an npz and restore it
      into a fresh server: the same top-5 on the three queries;
@@ -255,8 +258,7 @@ def _paths() -> dict:
     the SAM encoder's global layers and DINOv2 in all of them), with the
     window kernel ("shared" decoder), and in f32 (f32 SAM and DINOv2: K1
     f32 with the bias in SAM's global layers, without it in DINOv2's; the
-    "shared", "probs_split", "fused_tail_keys" and "fused_tail_logits"
-    decoders)."""
+    five decoder forms)."""
     from revisit_anything_tpu_torch.kernels import build as k
     front = (k.FLASH_ATTENTION, k.TOKEN_CROSS, k.RESIZE_FLAGS)
     shared = front + (k.I2T_UPDATE, k.MASK_HEAD)
@@ -269,6 +271,8 @@ def _paths() -> dict:
             "fused_tail_keys_f32": front_f32 + (k.DECODE_TAIL_F32,
                                                 k.MASK_HEAD_F32),
             "fused_tail_logits_f32": front_f32 + (k.DECODE_TAIL_LOGITS_F32,),
+            "fused_tail_probs_f32": front_f32 + (k.DECODE_TAIL_F32,
+                                                 k.MASK_HEAD_PROBS_F32),
             "probs_split": front + (k.I2T_PROBS, k.T2I_PROBS,
                                     k.MASK_HEAD_PROBS),
             "fused_tail_probs": front + (k.DECODE_TAIL, k.MASK_HEAD_PROBS),
@@ -448,7 +452,8 @@ PTXAS_KERNELS = (
     ("t2i_probs_kernelIfLi2ELb0E", "B8 f32 depth 2", "rat_t2i_probs_f32",
      "rat_t2i_probs_f32_smem", (2,)),
     # B3 f32: its walks are B7 f32's two kernels, B8 f32 at depth 1 and
-    # this depth-2 walk that stores keys2; its token side these three
+    # this depth-2 walk that stores keys2 (probability mode: B8 f32 at
+    # depth 2 above); its token side these three
     ("t2i_probs_kernelIfLi2ELb1E", "B3 f32 final walk (+ keys2)",
      "rat_decode_tail_f32", "rat_t2i_probs_f32_smem", (2,)),
     ("tail_queries_f32_kernel", "B3 f32 token queries",
@@ -652,6 +657,7 @@ def compare_kernels(dev) -> dict:
         if plain_prompts:
             row["plain_prompts"] = plain_prompts
         results.setdefault(kernel.name, []).append(row)
+        return row
 
     # K1: SAM ViT-H global layer and DINOv2-g block shapes
     # (library: scaled_dot_product_attention, the bias materialized as
@@ -1063,11 +1069,17 @@ def compare_f32_kernels(dev, check) -> None:
 
 
 def compare_tail_f32(dev, check, rnd) -> None:
-    """B3 f32 in keys mode and logits mode (content 3136) at 1024 prompts
-    and M 4096 on an f32 SAM ViT-H decoder with seeded random weights
-    (N(0, 0.05²), LayerNorm scales 1 + N(0, 0.05²)), against the plain f32
-    version (TF32 off) on the first 256 prompts, the kernel timed at 1024.
-    Bound: bytes (the inputs once, keys2 f32 or the logits once), against
+    """B3 f32 in keys mode, probability mode and logits mode (content
+    3136) at 1024 prompts and M 4096 on an f32 SAM ViT-H decoder with
+    seeded random weights (N(0, 0.05²), LayerNorm scales 1 + N(0,
+    0.05²)), against the plain f32 version (TF32 off) on the first 256
+    prompts, the kernel timed at 1024; the probability mode's P1 and P2
+    within one bf16 ulp, moved in at most PROBS_F32_MOVED of their
+    elements (B7 f32's criterion), its C2 and token state within F32_REL;
+    the keys mode's time minus the probability mode's (the same walks
+    but for keys2's stores, timed in this call).
+    Bound: bytes (the inputs once, keys2 f32, P1, P2 and C2, or the
+    logits once), against
     the products the function needs at the fp16 rate, each [56, 256]
     rows-against-the-branch product a pass: keys1 rebuilt twice (the
     layer-2 token -> image pass and pass B, as bf16 B3 walks) and keys2
@@ -1080,6 +1092,8 @@ def compare_tail_f32(dev, check, rnd) -> None:
     import torch
 
     from revisit_anything_tpu_torch.kernels import build
+    from revisit_anything_tpu_torch.kernels.probs_compare import (
+        PROBS_F32_MOVED, bf16_ulps)
     from revisit_anything_tpu_torch.kernels.tail_compare import (
         TAIL_F32_MOVED, TAIL_F32_MOVED_REL, moved_positions)
     from revisit_anything_tpu_torch.models.sam import SAM_VIT_H
@@ -1130,14 +1144,44 @@ def compare_tail_f32(dev, check, rnd) -> None:
                   f"the largest by {worst:.3e}")
         return max(d0, (got[1] - want[1]).abs().max().item()), rel0
 
+    def probs_err(got, want):
+        """P1 and P2 in bf16 ulps of the plain version's, failing above one
+        ulp or PROBS_F32_MOVED of their elements moved; (the largest
+        |diff| of the four outputs, the largest relative error of the
+        token state and C2, held to F32_REL)."""
+        for name, p, pw in (("P1", got[1], want[1]), ("P2", got[2], want[2])):
+            ulps, moved = bf16_ulps(p, pw)
+            print(f"[kernel] decode tail f32 probability mode: {moved:.3e} "
+                  f"of {name}'s bf16 elements differ from the plain "
+                  f"version's (tol {PROBS_F32_MOVED:g}), by at most "
+                  f"{ulps:.3f} ulp", flush=True)
+            if ulps > 1.0 or moved > PROBS_F32_MOVED:
+                _fail(f"decode tail f32 probability mode: {name} moved in "
+                      f"{moved:.3e} of its elements, by {ulps} ulp")
+        errs = [_rel(a, w) for a, w in zip(got, want)]
+        return (max(e[0] for e in errs),
+                max(errs[0][1], errs[3][1]))
+
     args = (dec, *shared, tok_k, c1, qin, tok, 8, 1e-6)
     args_c = (dec, *shared, tok_k[:c], c1[:c], qin[:c], tok[:c], 8, 1e-6)
     with torch.inference_mode():
-        check(build.DECODE_TAIL_F32, "keys mode -> keys2 [1024,4096,256] f32",
-              lambda: dfu.decode_tail_fused(*args, emit_keys=True),
-              lambda: dfu.decode_tail_reference(*args_c, emit_keys=True),
-              tail_err, F32_REL, tail_ins, tail_ops, plain_prompts=c)
+        keys_row = check(
+            build.DECODE_TAIL_F32, "keys mode -> keys2 [1024,4096,256] f32",
+            lambda: dfu.decode_tail_fused(*args, emit_keys=True),
+            lambda: dfu.decode_tail_reference(*args_c, emit_keys=True),
+            tail_err, F32_REL, tail_ins, tail_ops, plain_prompts=c)
         torch.cuda.empty_cache()
+        probs_row = check(
+            build.DECODE_TAIL_F32,
+            "probability mode -> P1, P2 [1024,56,4096], C2",
+            lambda: dfu.decode_tail_fused(*args),
+            lambda: dfu.decode_tail_reference(*args_c),
+            probs_err, F32_REL, tail_ins, tail_ops, plain_prompts=c)
+        torch.cuda.empty_cache()
+        print(f"[kernel] decode tail f32: keys mode {keys_row['ms']:.3f} ms "
+              f"- probability mode {probs_row['ms']:.3f} ms = "
+              f"{keys_row['ms'] - probs_row['ms']:.3f} ms, keys2's stores "
+              f"(the same walks otherwise; this call)", flush=True)
         head_ins = [prm for name, prm in dec.named_parameters()
                     if name.startswith(("up", "hyper_mlps.1", "hyper_mlps.2",
                                         "hyper_mlps.3"))]
@@ -2028,6 +2072,13 @@ F32_TAIL_LOGITS_QUERY_LAUNCHES = {
     "flash_attention_f32_bias": 4, "flash_attention_f32": 31,
     "token_cross_attention_f32": 1, "decode_tail_logits_f32": 1,
     "resize_flags_f32": 1}
+# and of the "fused_tail_probs" decoder: K2 f32 once, B3 f32 in
+# probability mode (the keys mode's entry) and B6 f32 on its P1, P2 and
+# C2, then K4 f32
+F32_TAIL_PROBS_QUERY_LAUNCHES = {
+    "flash_attention_f32_bias": 4, "flash_attention_f32": 31,
+    "token_cross_attention_f32": 1, "decode_tail_f32": 1,
+    "mask_head_probs_f32": 1, "resize_flags_f32": 1}
 
 
 def _sam_f32_decode_query(fsrv, kw, img, planted: int, decode: str,
@@ -2118,17 +2169,13 @@ def _sam_f32_decode_query(fsrv, kw, img, planted: int, decode: str,
 
 
 def _sam_f32_decode_queries(fsrv, kw, img, planted: int) -> dict:
-    """[sam-f32]'s f32 "probs_split", "fused_tail_keys" and
-    "fused_tail_logits" queries (:func:`_sam_f32_decode_query`), then an
-    f32 "fused_tail_probs" server, whose tail raises (B3 f32 has no
-    probability mode yet)."""
-    import torch
-
+    """[sam-f32]'s f32 "probs_split", "fused_tail_keys",
+    "fused_tail_logits" and "fused_tail_probs" queries
+    (:func:`_sam_f32_decode_query`)."""
     from revisit_anything_tpu_torch.kernels import build
     from revisit_anything_tpu_torch.ops import decode_fused as dfu
     from revisit_anything_tpu_torch.ops import decode_probs as dpr
     from revisit_anything_tpu_torch.ops import maskhead as mh
-    from revisit_anything_tpu_torch.pipeline.serve import SegVLADServer
 
     out = _sam_f32_decode_query(
         fsrv, kw, img, planted, "probs_split", F32_PROBS_QUERY_LAUNCHES,
@@ -2146,24 +2193,24 @@ def _sam_f32_decode_queries(fsrv, kw, img, planted: int) -> dict:
         fsrv, kw, img, planted, "fused_tail_logits",
         F32_TAIL_LOGITS_QUERY_LAUNCHES, tail, (build.DECODE_TAIL_LOGITS_F32,),
         "tail_logits"))
-    psrv = SegVLADServer(index=_live_index(fsrv), **dict(
-        kw, amg=dataclasses.replace(kw["amg"], decode="fused_tail_probs")))
-    build.reset_counts()
-    try:
-        psrv.query(img)
-    except ValueError as err:
-        if "probability mode on float32" not in str(err):
-            raise
-        torch.cuda.synchronize()
-        launched = {k.name: k.launches for k in build.KERNELS if k.launches}
-        print(f"[sam-f32] fused_tail_probs: the f32 tail raises as it "
-              f"should ({err}), after the launches {launched}", flush=True)
-    else:
-        _fail("[sam-f32] an f32 fused_tail_probs query did not raise at "
-              "the tail")
-    if build.DECODE_TAIL.launches or build.DECODE_TAIL_F32.launches:
-        _fail("[sam-f32] the f32 fused_tail_probs query launched a tail")
+    out.update(_sam_f32_tail_probs_query(fsrv, kw, img, planted))
     return out
+
+
+def _sam_f32_tail_probs_query(fsrv, kw, img, planted: int) -> dict:
+    """[sam-f32]'s f32 "fused_tail_probs" query: B3 f32 in probability
+    mode and B6 f32, against the same query with both swapped for their
+    plain f32 versions (its own [phases] entry)."""
+    from revisit_anything_tpu_torch.kernels import build
+    from revisit_anything_tpu_torch.ops import decode_fused as dfu
+    from revisit_anything_tpu_torch.ops import maskhead as mh
+
+    return _sam_f32_decode_query(
+        fsrv, kw, img, planted, "fused_tail_probs",
+        F32_TAIL_PROBS_QUERY_LAUNCHES,
+        {"decode_tail_fused": dfu.decode_tail_reference,
+         "fused_mask_head_probs": mh.mask_head_probs_reference},
+        (build.DECODE_TAIL_F32, build.MASK_HEAD_PROBS_F32), "tail_probs")
 
 
 def _noisy(rng, img):
@@ -4810,7 +4857,8 @@ def main() -> None:
     # B11, the 3 f32 queries for the f32 forms (K1 f32 without the bias in
     # their DINOv2-g), the f32 kernel-window query for B11 f32, the f32
     # "probs_split" query for B7 f32, B8 f32 and B6 f32, the f32
-    # "fused_tail_keys" and "fused_tail_logits" queries for B3 f32; B10
+    # "fused_tail_keys", "fused_tail_logits" and "fused_tail_probs" queries
+    # for B3 f32; B10
     # (token_cross_split, token_cross_split_f32) has no caller on a serving
     # path
     table = []
@@ -4826,6 +4874,8 @@ def main() -> None:
                     or served["sam_f32"]["tail_keys_query_counts"].get(
                         k.name, 0)
                     or served["sam_f32"]["tail_logits_query_counts"].get(
+                        k.name, 0)
+                    or served["sam_f32"]["tail_probs_query_counts"].get(
                         k.name, 0)
                     or served["sam_f32"]["probs_counts"].get(k.name, 0)
                     or backbones["counts"][k.name])
@@ -4863,7 +4913,10 @@ def main() -> None:
           f"{f['tail_keys_shared_decode_ms']:.3f} ms); fused_tail_logits "
           f"query {f['tail_logits_query_ms']:.1f} ms, decode "
           f"{f['tail_logits_decode_ms']:.3f} ms (shared "
-          f"{f['tail_logits_shared_decode_ms']:.3f} ms)", flush=True)
+          f"{f['tail_logits_shared_decode_ms']:.3f} ms); fused_tail_probs "
+          f"query {f['tail_probs_query_ms']:.1f} ms, decode "
+          f"{f['tail_probs_decode_ms']:.3f} ms (shared "
+          f"{f['tail_probs_shared_decode_ms']:.3f} ms)", flush=True)
     from revisit_anything_tpu_torch.kernels.smoke_phases import report
     print(report(PHASE_SECONDS), flush=True)
     print(f"[phases] the whole run {time.perf_counter() - t_start:.1f} s",

@@ -124,6 +124,7 @@ SIGNATURES: Dict[str, Sequence] = {
     "rat_token_cross_f32_smem": (_I,),          # shared
     "rat_decode_tail_smem": (),
     "rat_decode_tail_f32_scratch": (_I,),       # M: bytes of work a prompt
+    "rat_decode_tail_f32_probs_scratch": (),    # the same, probability mode
     "rat_decode_tail_f32_smem": (_I,),          # MLP: the token mid-ops'
 
     "rat_i2t_probs_smem": (_I,),                # layer
@@ -331,8 +332,9 @@ T2I_PROBS_F32 = Kernel(
 MASK_HEAD_PROBS_F32 = Kernel(
     "mask_head_probs_f32", "rat_mask_head_probs_f32", _SRC + "mask_head.cu",
     "revisit_anything_tpu/ops/maskhead.py:257")
-# and of the fused decode tail in its keys and logits modes (an f32 SAM's
-# "fused_tail_keys" and "fused_tail_logits" decodes)
+# and of the fused decode tail in its keys and probability modes (one
+# entry, as bf16's) and its logits mode (an f32 SAM's "fused_tail_keys",
+# "fused_tail_probs" and "fused_tail_logits" decodes)
 DECODE_TAIL_F32 = Kernel(
     "decode_tail_f32", "rat_decode_tail_f32", _SRC + "decode_tail.cu",
     "revisit_anything_tpu/ops/decode_fused.py:417")

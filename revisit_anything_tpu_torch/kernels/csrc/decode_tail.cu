@@ -18,10 +18,10 @@
 // [content, 16, 3] bf16 in the block layout of mask_head.cu; all three
 // write the token state [7, D].
 //
-// This note is the bf16 form's; the f32 form (an f32 SAM: keys and
-// logits modes, entries rat_decode_tail_f32 / rat_decode_tail_logits_f32)
-// is a sequence of walks and token kernels, described where it starts
-// below.
+// This note is the bf16 form's; the f32 form (an f32 SAM: the three
+// modes, entries rat_decode_tail_f32 (keys and probability modes) /
+// rat_decode_tail_logits_f32) is a sequence of walks and token kernels,
+// described where it starts below.
 //
 // One kernel, decode_tail_kernel<E>, serves the three modes; E picks what
 // it emits (KEYS keys2, PROBS P1 / P2 / C2, ROWS keys2's first rows and
@@ -144,10 +144,11 @@ struct TailParams {
   const __nv_bfloat16 *up1_w, *up1_b, *ln_s, *ln_b, *up2_w, *up2_b;
   const __nv_bfloat16 *hw1, *hb1, *hw2, *hb2, *hw3, *hb3;
   __nv_bfloat16 *krows, *hyper, *logits;
-  // the f32 form's scratch: `work` (rat_decode_tail_f32_scratch(m) bytes
-  // a prompt: P1, P2, C2 and the token rows between its walks) and, in
-  // logits mode, K3 f32's weight planes (rat_mask_head_f32_scratch()
-  // floats); the bf16 kernel reads neither
+  // the f32 form's scratch: `work` (the token rows between its walks,
+  // and P1, P2 and C2 but in probability mode, which writes them to the
+  // outputs: rat_decode_tail_f32_scratch(m) / _probs_scratch() bytes a
+  // prompt) and, in logits mode, K3 f32's weight planes
+  // (rat_mask_head_f32_scratch() floats); the bf16 kernel reads neither
   void *work, *mh_scratch;
   int b, m, mlp, content, ctas;
   float eps;
@@ -493,17 +494,18 @@ extern "C" int rat_decode_tail_logits(const void* params, void* stream) {
 }
 
 // ---------------------------------------------------------------------
-// The f32 form (entries rat_decode_tail_f32, keys mode, and
-// rat_decode_tail_logits_f32, logits mode; an f32 SAM, the JAX package's
-// dtype): the same TPU kernel on f32 inputs. Everything is f32 (img0, the
+// The f32 form (entries rat_decode_tail_f32, keys and probability modes,
+// and rat_decode_tail_logits_f32, logits mode; an f32 SAM, the JAX
+// package's dtype): the same TPU kernel on f32 inputs. Everything is f32 (img0, the
 // pe terms, C1, the token rows, the weights and the branch rows) but P1
 // and P2, which the JAX kernel rounds to bf16 at every dtype
 // (decode_fused.py :216, :270); nothing else rounds: the token-side dense
 // layers, LayerNorms and C2 stay f32 (:85-91, :277 at f32), and keys2
-// leaves as f32 (:289). The outputs are f32: the token state [b, T, D],
-// keys2 [b, M, D] (keys mode) or keys2's rows below content [b, content
-// rounded up to 32, D], the hypernetwork rows [b, 3, D/8] and K3 f32's
-// logits [b, content, 16, 3] (logits mode).
+// leaves as f32 (:289). The outputs are f32 but P1 and P2: the token
+// state [b, T, D], keys2 [b, M, D] (keys mode), P1, P2 [b, HT, M] bf16 and
+// C2 [b, HT, D] f32 (probability mode, :410-415) or keys2's rows below
+// content [b, content rounded up to 32, D], the hypernetwork rows [b, 3,
+// D/8] and K3 f32's logits [b, content, 16, 3] (logits mode).
 //
 // Why not one kernel, as in bf16: shared memory. Pass B needs C1, C2 and
 // the two query-side matrices in every tile; in f32, C1 and C2 are each
@@ -514,7 +516,9 @@ extern "C" int rat_decode_tail_logits(const void* params, void* stream) {
 // walks over M, the schedule of the probability-factored decode, each a
 // kernel whose layout has run on the card in B7 f32 and B8 f32, with the
 // token state and P1, P2 and C2 waiting in device memory between them
-// (the entry's `work`, rat_decode_tail_f32_scratch(M) bytes a prompt):
+// (the entry's `work`, rat_decode_tail_f32_scratch(M) bytes a prompt; in
+// probability mode P1, P2 and C2 wait in the outputs, and the work holds
+// the token rows alone, rat_decode_tail_f32_probs_scratch() bytes):
 //
 //   launch                          CTA           shared memory (B)
 //   token queries (q + tok) Wq_t2   a prompt      7,168 static
@@ -524,7 +528,8 @@ extern "C" int rat_decode_tail_logits(const void* params, void* stream) {
 //     LN, MLP, LN, k2, v2, C2, the final queries
 //   keys1 -> P2 (B7 f32 layer 2)    a prompt      168,000
 //   keys1 -> keys2, stored, ->      a prompt      229,184
-//     final attention (B8 f32 d2 with the keys store)
+//     final attention (B8 f32 d2 with the keys store; probability
+//     mode: B8 f32 d2 as it is, keys2 not stored)
 //   final out-projection, LN        a prompt      31,232 static
 //     (logits mode: the hypernetwork MLPs)
 //   logits mode: K3 f32 on keys2's rows (mask_head.cu)
@@ -539,7 +544,8 @@ extern "C" int rat_decode_tail_logits(const void* params, void* stream) {
 // runs on the FMA units, a prompt a CTA, its weights (5.8 MB in f32) read
 // from the L2 by every CTA. What bounds the form: the walks' products at
 // the fp16 rate and, in keys mode, keys2's 4.29 GB of f32 stores (1.28 ms
-// at 3.35 TB/s at 1024 prompts x M 4096). The whole runs as one counted
+// at 3.35 TB/s at 1024 prompts x M 4096; the probability mode writes P1
+// and P2 once instead, 0.94 GB). The whole runs as one counted
 // launch on the caller's stream, as the logits entry's tail and K3 do.
 
 namespace {
@@ -548,36 +554,50 @@ __host__ __device__ __forceinline__ const float* fp(const void* p) {
   return static_cast<const float*>(p);
 }
 
-// The f32 form's work: P1, P2 [b][HT][M] bf16, C2 [b][HT][D], the layer-2
-// token -> image queries and attention, k2, the final queries and
-// attention [b][T][DA] and the token state [b][T][D], f32, one region
-// after another (every region starts at a multiple of 16 bytes).
+// The f32 form's work: the layer-2 token -> image queries and attention,
+// k2, the final queries and attention [b][T][DA] and the token state
+// [b][T][D], f32, then (keys and logits modes) P1, P2 [b][HT][M] bf16 and
+// C2 [b][HT][D] f32, one region after another (every region starts at a
+// multiple of 16 bytes). The probability mode's P1, P2 and C2 are its
+// outputs.
 struct Work {
   __nv_bfloat16 *p1, *p2;
   float *c2, *q2, *attn2, *k2, *qf, *attnf, *qs;
 };
 
-__host__ __device__ constexpr size_t work_bytes(int m) {
-  return (size_t)2 * HT * m * 2 + (size_t)HT * D * 4 + (size_t)5 * T * DA * 4 + (size_t)T * D * 4;
+__host__ __device__ constexpr size_t rows_bytes() {
+  return (size_t)5 * T * DA * 4 + (size_t)T * D * 4;
 }
 
-Work carve(void* at, int b, int m) {
-  char* p = static_cast<char*>(at);
+__host__ __device__ constexpr size_t work_bytes(int m) {
+  return rows_bytes() + (size_t)2 * HT * m * 2 + (size_t)HT * D * 4;
+}
+
+Work carve(const TailParams& pr, bool probs) {
+  char* p = static_cast<char*>(pr.work);
   auto take = [&](size_t bytes) {
     char* r = p;
-    p += (size_t)b * bytes;
+    p += (size_t)pr.b * bytes;
     return r;
   };
   Work w;
-  w.p1 = reinterpret_cast<__nv_bfloat16*>(take((size_t)HT * m * 2));
-  w.p2 = reinterpret_cast<__nv_bfloat16*>(take((size_t)HT * m * 2));
-  w.c2 = reinterpret_cast<float*>(take(HT * D * 4));
   w.q2 = reinterpret_cast<float*>(take(T * DA * 4));
   w.attn2 = reinterpret_cast<float*>(take(T * DA * 4));
   w.k2 = reinterpret_cast<float*>(take(T * DA * 4));
   w.qf = reinterpret_cast<float*>(take(T * DA * 4));
   w.attnf = reinterpret_cast<float*>(take(T * DA * 4));
   w.qs = reinterpret_cast<float*>(take(T * D * 4));
+  if (probs) {
+    w.p1 = pr.p1;
+    w.p2 = pr.p2;
+    // TailParams declares c2m bf16 (the bf16 form's emission); the f32
+    // form's C2 is f32, [b][HT][D], as the JAX kernel's at f32
+    w.c2 = reinterpret_cast<float*>(pr.c2m);
+  } else {
+    w.p1 = reinterpret_cast<__nv_bfloat16*>(take((size_t)HT * pr.m * 2));
+    w.p2 = reinterpret_cast<__nv_bfloat16*>(take((size_t)HT * pr.m * 2));
+    w.c2 = reinterpret_cast<float*>(take(HT * D * 4));
+  }
   return w;
 }
 
@@ -707,14 +727,16 @@ __global__ void __launch_bounds__(THREADS) tail_final_f32_kernel(const TailParam
     if (e_ != 0) return e_;        \
   } while (0)
 
-// The f32 form's launches on st (see the note above); keys2 to the keys
-// mode's keys2 [b][M][D], or (rows) its tiles below content to krows
-// [b][content rounded up to 32][D] and the hypernetwork rows to hyper.
-int tail_f32(const TailParams& pr, cudaStream_t st, bool rows) {
+// The f32 form's launches on st (see the note above) in emission E:
+// KEYS keys2 to keys2 [b][M][D]; PROBS P1, P2 and C2 to p1, p2 and c2m,
+// keys2 not stored; ROWS keys2's tiles below content to krows [b][content
+// rounded up to 32][D] and the hypernetwork rows to hyper.
+template <int E>
+int tail_f32(const TailParams& pr, cudaStream_t st) {
   const int b = pr.b, m = pr.m;
   const float eps = pr.eps;
   void* s = st;
-  const Work w = carve(pr.work, b, m);
+  const Work w = carve(pr, E == PROBS);
   tail_queries_f32_kernel<<<b, THREADS, 0, st>>>(pr, w.q2);
   RAT_TRY(cudaGetLastError());
   RAT_TRY(rat_i2t_probs_f32(pr.q1st, pr.tok_k1, nullptr, nullptr, nullptr, nullptr, nullptr,
@@ -728,35 +750,48 @@ int tail_f32(const TailParams& pr, cudaStream_t st, bool rows) {
   RAT_TRY(cudaGetLastError());
   RAT_TRY(rat_i2t_probs_f32(nullptr, w.k2, pr.img0, w.p1, pr.c1m, pr.peq2t, pr.wq_i2, pr.rows,
                             w.p2, b, m, 2, eps, s));
-  const int klimit = rows ? (pr.content + BM - 1) / BM * BM : m;
-  RAT_TRY(rat_t2i_probs_f32_keys(w.qf, pr.img0, w.p1, pr.c1m, w.p2, w.c2, pr.wk_fa, pr.wv_fa,
-                                 pr.pekft, pr.rows, pr.vb_fa, w.attnf,
-                                 rows ? (void*)pr.krows : (void*)pr.keys2, b, m, klimit, eps, s));
-  if (rows)
-    tail_final_f32_kernel<true><<<b, THREADS, 0, st>>>(pr, w.attnf, w.qs);
-  else
-    tail_final_f32_kernel<false><<<b, THREADS, 0, st>>>(pr, w.attnf, w.qs);
+  if constexpr (E == PROBS) {
+    RAT_TRY(rat_t2i_probs_f32(w.qf, pr.img0, w.p1, pr.c1m, w.p2, w.c2, pr.wk_fa, pr.wv_fa,
+                              pr.pekft, pr.rows, pr.vb_fa, w.attnf, b, m, 2, eps, s));
+  } else {
+    const int klimit = E == ROWS ? (pr.content + BM - 1) / BM * BM : m;
+    RAT_TRY(rat_t2i_probs_f32_keys(w.qf, pr.img0, w.p1, pr.c1m, w.p2, w.c2, pr.wk_fa, pr.wv_fa,
+                                   pr.pekft, pr.rows, pr.vb_fa, w.attnf,
+                                   E == ROWS ? (void*)pr.krows : (void*)pr.keys2, b, m, klimit,
+                                   eps, s));
+  }
+  tail_final_f32_kernel<E == ROWS><<<b, THREADS, 0, st>>>(pr, w.attnf, w.qs);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Bytes of the f32 form's work a prompt at m positions (a report, no
-// launch); the caller passes b times this as TailParams.work.
+// Bytes of the f32 form's work a prompt at m positions in keys and
+// logits modes (a report, no launch); the caller passes b times this as
+// TailParams.work.
 extern "C" int rat_decode_tail_f32_scratch(int m) { return (int)work_bytes(m); }
+
+// The same in probability mode, at any m: the token rows alone.
+extern "C" int rat_decode_tail_f32_probs_scratch() { return (int)rows_bytes(); }
 
 // Dynamic shared memory of the f32 form's token mid-ops CTA in bytes at
 // MLP width mlp (a report, no launch).
 extern "C" int rat_decode_tail_f32_smem(int mlp) { return mid_smem(mlp); }
 
-// The f32 form in keys mode: every TailParams pointer f32 but the unused
-// ones, work set.
+// The f32 form in keys mode (keys2 set) or probability mode (p1, p2 and
+// c2m set, keys2 not), as the bf16 entry picks: every TailParams pointer
+// f32 but the unused ones and p1, p2 (bf16), work set. Any other mix of
+// outputs is refused before a launch.
 extern "C" int rat_decode_tail_f32(const void* params, void* stream) {
   const TailParams& pr = *static_cast<const TailParams*>(params);
-  if (!tail_ok(pr) || pr.keys2 == nullptr || pr.p1 != nullptr || pr.p2 != nullptr ||
-      pr.c2m != nullptr || pr.work == nullptr || pr.b > 65535)
+  const bool keys_mode = pr.keys2 != nullptr;
+  const bool probs_mode = pr.p1 != nullptr && pr.p2 != nullptr && pr.c2m != nullptr;
+  const bool any_probs = pr.p1 != nullptr || pr.p2 != nullptr || pr.c2m != nullptr;
+  if (!tail_ok(pr) || (keys_mode ? any_probs : !probs_mode) || pr.work == nullptr ||
+      pr.b > 65535)
     return (int)cudaErrorInvalidValue;
-  return tail_f32(pr, static_cast<cudaStream_t>(stream), false);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return keys_mode ? tail_f32<KEYS>(pr, st) : tail_f32<PROBS>(pr, st);
 }
 
 // The f32 form in logits mode: the tail with keys2's rows and the
@@ -768,7 +803,7 @@ extern "C" int rat_decode_tail_logits_f32(const void* params, void* stream) {
       pr.krows == nullptr || pr.hyper == nullptr || pr.logits == nullptr || pr.content < 1 ||
       pr.content > pr.m || pr.work == nullptr || pr.mh_scratch == nullptr || pr.b > 65535)
     return (int)cudaErrorInvalidValue;
-  RAT_TRY(tail_f32(pr, static_cast<cudaStream_t>(stream), true));
+  RAT_TRY(tail_f32<ROWS>(pr, static_cast<cudaStream_t>(stream)));
   const int gg = (pr.content + BM - 1) / BM * BM;
   return rat_mask_head_f32(pr.krows, pr.up1_w, pr.up1_b, pr.ln_s, pr.ln_b, pr.up2_w, pr.up2_b,
                            pr.hyper, pr.logits, pr.mh_scratch, pr.b, gg, pr.content, N_MASKS,

@@ -1,8 +1,10 @@
 """Hold the fused decode tail (B3) of this checkout against another
 checkout's on the card: the same seeded inputs through each checkout's
 ``decode_tail_fused`` in its three modes (140 prompts x M 4096, the
-logits mode at content 3136), compared output by output (bit for bit, and
-the share of bf16 elements that moved); then, in each checkout, the
+logits mode at content 3136), in bf16 and again in f32 (an f32 decoder
+and activations: B3 f32), compared output by output (bit for bit, and
+the share of elements that moved; an f32 mode that one checkout refuses
+with ``ValueError`` is reported as missing there); then, in each checkout, the
 probability and logits modes on the first 64 prompts against that
 checkout's own plain version (the share of bf16 elements moved, as
 ``tail_variants`` ``[precision]``), and the probability mode on the gpu
@@ -54,12 +56,12 @@ def moved_positions(got, want, trailing: int, rel: float) -> tuple:
     return (err > rel).float().mean().item(), err.max().item()
 
 
-def _decoder(torch, g, dev):
-    """A bf16 SAM ViT-H mask decoder with seeded random weights (as the
-    gpu tests' ``serving_decoder``)."""
+def _decoder(torch, g, dev, dtype):
+    """A SAM ViT-H mask decoder in ``dtype`` with seeded random weights
+    (as the gpu tests' ``serving_decoder``)."""
     from revisit_anything_tpu_torch.models.sam import SAM_VIT_H
     from revisit_anything_tpu_torch.models.sam.decoder import MaskDecoder
-    dec = MaskDecoder(SAM_VIT_H, dtype=torch.bfloat16, device=dev)
+    dec = MaskDecoder(SAM_VIT_H, dtype=dtype, device=dev)
     with torch.no_grad():
         for name, prm in dec.named_parameters():
             x = torch.randn(prm.shape, generator=g, device=dev) * 0.05
@@ -67,13 +69,13 @@ def _decoder(torch, g, dev):
     return dec
 
 
-def _args(torch, dev, b, m, seed):
+def _args(torch, dev, b, m, seed, dtype=None):
+    dtype = dtype or torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(seed)
-    dec = _decoder(torch, g, dev)
+    dec = _decoder(torch, g, dev, dtype)
 
     def rnd(*shape, s=1.0):
-        return (torch.randn(shape, generator=g, device=dev) * s).to(
-            torch.bfloat16)
+        return (torch.randn(shape, generator=g, device=dev) * s).to(dtype)
 
     return (dec, rnd(1, m, 256), rnd(1, 128, m), rnd(1, 128, m),
             rnd(1, 128, m), rnd(1, 128, m), rnd(b, 7, 128),
@@ -86,8 +88,9 @@ def _rel(a, w) -> float:
 
 
 def _worker(root: str, out: str) -> None:
-    """In the checkout at ``root``: the three modes' outputs to ``out``,
-    and the large-branch probability case against its plain version."""
+    """In the checkout at ``root``: the three modes' outputs in bf16 and
+    in f32 to ``out``, and the large-branch probability case against its
+    plain version."""
     sys.path[0] = root                 # in place of this script's directory
     import torch
 
@@ -101,6 +104,16 @@ def _worker(root: str, out: str) -> None:
     with torch.inference_mode():
         res = {mode: [o.cpu() for o in dfu.decode_tail_fused(*args, **kw)]
                for mode, kw in zip(MODES, kws)}
+    args32 = _args(torch, dev, 140, 4096, 1, torch.float32)
+    for mode, kw in zip(MODES, kws):
+        try:
+            with torch.inference_mode():
+                res[f"{mode} f32"] = [o.cpu() for o in
+                                      dfu.decode_tail_fused(*args32, **kw)]
+        except ValueError as err:
+            print(f"[compare] {root}: {mode} mode f32 refused: {err}",
+                  flush=True)
+    del args32
     torch.save(res, out)
     few = tuple(a[:64] if i in (6, 7, 8, 9) else a    # per-prompt operands
                 for i, a in enumerate(args))
@@ -140,7 +153,12 @@ def main() -> None:
         subprocess.run([sys.executable, __file__, "--worker", root,
                         str(_OUT / f"{name}.pt")], check=True)
     this, other = (torch.load(_OUT / f"{n}.pt") for n in roots)
-    for mode in MODES:
+    for mode in [*MODES, *(f"{mode} f32" for mode in MODES)]:
+        if mode not in this or mode not in other:
+            print(f"[compare] {mode} mode: missing in "
+                  f"{[n for n, r in zip(roots, (this, other)) if mode not in r]}",
+                  flush=True)
+            continue
         for i, (a, b) in enumerate(zip(this[mode], other[mode])):
             d = (a.float() - b.float()).abs()
             print(f"[compare] {mode} mode output {i}: bit for bit "

@@ -23,9 +23,9 @@ token state after the final LayerNorm. Layouts as in
 ``ops.decode_probs``.
 
 The kernel computes in its inputs' dtype, as the JAX kernel does: bf16
-(a bf16 SAM) or f32 (an f32 SAM, the JAX package's dtype; the keys and
-logits modes). P1 and P2 are bf16 at both, the rest f32 in f32. The
-activations are never cast (:func:`tail_operands`).
+(a bf16 SAM) or f32 (an f32 SAM, the JAX package's dtype), in all three
+modes. P1 and P2 are bf16 at both, the rest f32 in f32. The activations
+are never cast (:func:`tail_operands`).
 """
 
 from __future__ import annotations
@@ -116,13 +116,16 @@ class TailParams(ctypes.Structure):
                 + [("eps", ctypes.c_float)])
 
 
-def tail_f32_scratch(m: int) -> int:
+def tail_f32_scratch(m: int, probs: bool = False) -> int:
     """Bytes of the f32 form's work a prompt at ``m`` positions (the built
-    library's ``rat_decode_tail_f32_scratch(m)``): P1 and P2 [H·T, M]
-    bf16, C2 [H·T, D] and the token rows between its walks, f32."""
+    library's ``rat_decode_tail_f32_scratch(m)``): the token rows between
+    its walks, f32, then P1 and P2 [H·T, M] bf16 and C2 [H·T, D] f32;
+    with ``probs`` (``rat_decode_tail_f32_probs_scratch()``) the token
+    rows alone: the probability mode writes P1, P2 and C2 to its
+    outputs."""
     d, da, heads, t = KERNEL_DIMS
-    return 2 * heads * t * m * 2 + heads * t * d * 4 + 5 * t * da * 4 \
-        + t * d * 4
+    rows = 5 * t * da * 4 + t * d * 4
+    return rows if probs else rows + 2 * heads * t * m * 2 + heads * t * d * 4
 
 
 def _mask_head_operands(dec, d: int, dt: torch.dtype) -> list:
@@ -221,12 +224,13 @@ def decode_tail_fused(dec, img0: torch.Tensor, q1st: torch.Tensor,
     of :func:`tail_operands`). bf16: one tensor-core kernel for the three
     modes; with ``mask_head`` its entry runs the tail and then K3's kernel
     (``kernels/csrc/mask_head.cu``) on keys2's first rows and the
-    hypernetwork rows, on one stream. f32 (an f32 SAM): the keys and
-    logits modes, the tail's two passes as the walks of kernels B7 f32
-    and B8 f32 with the token side between them in the kernel library,
-    P1, P2, C2 and the token rows in a per-call scratch, keys2 stored from
-    the last walk; the logits entry then runs K3 f32; f32 outputs. The
-    probability mode on f32 raises. CPU: :func:`decode_tail_reference`."""
+    hypernetwork rows, on one stream. f32 (an f32 SAM): the three modes,
+    the tail's two passes as the walks of kernels B7 f32 and B8 f32 with
+    the token side between them in the kernel library, the token rows in
+    a per-call scratch, and P1, P2 and C2 there too but in the probability
+    mode, whose walks write them to its outputs (P1, P2 bf16, C2 f32);
+    keys2 stored from the last walk in keys mode; the logits entry then
+    runs K3 f32; f32 outputs but P. CPU: :func:`decode_tail_reference`."""
     _, m, _ = img0.shape
     content = m if content is None else content
     if mask_head and not 0 < content <= m:
@@ -244,9 +248,7 @@ def decode_tail_fused(dec, img0: torch.Tensor, q1st: torch.Tensor,
                          f"T={t}, M={m}, MLP={mlp}) not built "
                          f"({KERNEL_DIMS}, M % 32 == 0, MLP % 8 == 0)")
     f32 = dt == torch.float32
-    if f32 and not (emit_keys or mask_head):
-        raise ValueError("decode tail: the probability mode on float32 is "
-                         "not built (the keys and logits modes are)")
+    probs = not (emit_keys or mask_head)
     ins = {name: operand(name, x, dtype, shape) for name, x, dtype, shape in
            tail_operands(dec, img0, q1st, peq2t, pek2t, pekft, tok_k1, c1m,
                          queries_b, tokens, heads, mask_head)}
@@ -256,8 +258,8 @@ def decode_tail_fused(dec, img0: torch.Tensor, q1st: torch.Tensor,
     outs = dict(qout=qout)
     ctas = 0
     if f32:
-        outs["work"] = torch.empty(b * tail_f32_scratch(m), dtype=torch.uint8,
-                                   device=dev)
+        outs["work"] = torch.empty(b * tail_f32_scratch(m, probs),
+                                   dtype=torch.uint8, device=dev)
     if mask_head:
         # keys2's rows below content, whole 32-position tiles, and the
         # hypernetwork rows, for K3 (bf16: on persistent CTAs, one an SM;

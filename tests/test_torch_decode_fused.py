@@ -326,9 +326,10 @@ def _tail_f32_emulated(x, prm, p1_ref, p2_ref, split=True):
     attention as B8 f32 at depth 2. P1 and P2 round to bf16, where an f32
     reassociation may flip one ulp: each is measured against the JAX
     kernel's (``p1_ref``, ``p2_ref``), and the JAX kernel's goes on, so
-    that the rest can be held to f32. Returns (qout, keys2, (the largest
-    difference of P1 and P2 in bf16 ulps, the largest share of their
-    elements that differ))."""
+    that the rest can be held to f32. Returns (qout, keys2, C2 (the
+    probability mode's, f32, from the token side between the walks), (the
+    largest difference of P1 and P2 in bf16 ulps, the largest share of
+    their elements that differ))."""
     from test_torch_decode_probs import _i2t_l2_f32, _rebuild, _t2i_f32
     t = {k: torch.from_numpy(v) for k, v in x.items()}
     prm = jax.tree_util.tree_map(lambda a: torch.from_numpy(
@@ -373,7 +374,7 @@ def _tail_f32_emulated(x, prm, p1_ref, p2_ref, split=True):
     keys2 = _rebuild(keys1, p2, c2, rows[3:6], eps, split)
     attn = _t2i_f32(qf, img0, p1, c1, p2, c2, fa["k"]["w"], fa["v"]["w"],
                     t["pekft"], rows, fa["v"]["b"], KH, eps, split)
-    return (ln(q + dense(attn, fa["out"]), prm["norm_final"]), keys2,
+    return (ln(q + dense(attn, fa["out"]), prm["norm_final"]), keys2, c2,
             tuple(max(e) for e in zip(*p_err)))
 
 
@@ -386,7 +387,9 @@ def test_split_f16_decode_tail_arithmetic_matches_jax(c_scale):
     mode in f32 (interpret mode, "highest" products) at the kernel's
     widths, M 128 (four tiles), 2 prompts: the token state and keys2
     within 1e-5 of their scale, P1 and P2 within one bf16 ulp of the JAX
-    kernel's in at most PROBS_F32_MOVED of their elements. With C1 and C2
+    kernel's in at most PROBS_F32_MOVED of their elements, and C2 within
+    1e-5 of the JAX probability mode's (f32, B3 f32's probability-mode
+    output). With C1 and C2
     x 8 (C1m and W_out of the layer-2 update x 8: the rebuilds' products
     outweigh img0) C rounded once to TF32 misses by more than 1e-5."""
     x, prm = _kernel_width_tail(11)
@@ -394,14 +397,17 @@ def test_split_f16_decode_tail_arithmetic_matches_jax(c_scale):
     prm["l2"]["i2t"]["out"]["w"] = (prm["l2"]["i2t"]["out"]["w"]
                                     * np.float32(c_scale))
     want_q, want_keys = _jax_tail_f32(x, prm, True)
-    _, p1, p2, _ = _jax_tail_f32(x, prm, False)
-    got_q, got_keys, (ulps, moved) = _tail_f32_emulated(x, prm, p1, p2)
+    _, p1, p2, want_c2 = _jax_tail_f32(x, prm, False)
+    got_q, got_keys, got_c2, (ulps, moved) = _tail_f32_emulated(x, prm, p1,
+                                                                p2)
     assert got_keys.shape == want_keys.shape == (2, 128, KD)
+    assert got_c2.shape == want_c2.shape == (2, KH * KT, KD)
     assert _rel(got_q, want_q) < 1e-5
     assert _rel(got_keys, want_keys) < 1e-5
+    assert _rel(got_c2, want_c2) < 1e-5
     assert ulps <= 1.0 and moved <= PROBS_F32_MOVED
     if c_scale > 1:
-        q1, k1, (ulps, moved) = _tail_f32_emulated(x, prm, p1, p2,
-                                                   split=False)
+        q1, k1, _, (ulps, moved) = _tail_f32_emulated(x, prm, p1, p2,
+                                                      split=False)
         assert (max(_rel(q1, want_q), _rel(k1, want_keys)) > 1e-5
                 or ulps > 1.0 or moved > PROBS_F32_MOVED)

@@ -6,6 +6,7 @@ This file imports no JAX, so the card's machine (which has none) runs it:
 ``python -m pytest tests/test_torch_kernels.py -m gpu --noconftest``.
 """
 
+import ctypes
 import os
 import subprocess
 import sys
@@ -1093,12 +1094,12 @@ def test_resize_kernel_f32_matches_plain(cuda, orig_hw, np_, m, const, side):
 @pytest.mark.gpu
 def test_f32_kernels_dispatch_on_dtype(cuda):
     """The wrappers with an f32 form (the five of the default SAM path,
-    the window kernel, B10, B7, B8, B6 and B3 in its keys and logits
-    modes) send bf16 CUDA tensors to the bf16 kernels, f32 ones to the
-    f32 kernels, and raise on f16. B7 and B8 pick by their token vectors'
-    dtype, B6 by img0's, B3 by the token state's; their P stays bf16, and
-    B7's output is bf16 at every dtype. B3's probability mode on f32
-    raises before any launch."""
+    the window kernel, B10, B7, B8, B6 and B3 in its three modes) send
+    bf16 CUDA tensors to the bf16 kernels, f32 ones to the f32 kernels,
+    and raise on f16. B7 and B8 pick by their token vectors' dtype, B6 by
+    img0's, B3 by the token state's; their P stays bf16, and B7's output
+    is bf16 at every dtype. B3's probability mode on f32 is one launch of
+    the f32 entry that also serves its keys mode."""
     flash, side = _flash_inputs(cuda, 1, 256, 80, True)
     token = _token_inputs(cuda, 4, 7, 1024, 1, pe=True)
     split = _token_inputs(cuda, 4, 7, 1024, 4, pe=False)
@@ -1167,9 +1168,12 @@ def test_f32_kernels_dispatch_on_dtype(cuda):
         with pytest.raises(ValueError, match="not built|float16"):
             call(cast(torch.float16))
     build.reset_counts()
-    with pytest.raises(ValueError, match="probability mode on float32"):
-        dfu.decode_tail_fused(tail[0], *cast(torch.float32)(tail[1:10]), 8)
-    assert not any(k.launches for k in build.KERNELS)
+    out = dfu.decode_tail_fused(tail[0], *cast(torch.float32)(tail[1:10]), 8)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in build.KERNELS if k.launches}
+    assert counts == {build.DECODE_TAIL_F32.name: 1}, counts
+    assert [o.dtype for o in out] == [torch.float32, torch.bfloat16,
+                                      torch.bfloat16, torch.float32]
 
 
 @pytest.mark.gpu
@@ -1417,15 +1421,17 @@ def test_probs_split_decodes_an_f32_sam_on_f32_kernels(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("decode", ["fused_tail_keys", "fused_tail_logits"])
+@pytest.mark.parametrize("decode", ["fused_tail_keys", "fused_tail_logits",
+                                    "fused_tail_probs"])
 def test_fused_tail_decodes_an_f32_sam_on_f32_kernels(cuda, decode):
-    """An f32 SAM's "fused_tail_keys" and "fused_tail_logits" decodes run
-    on the f32 kernels alone (K2 f32 once, then B3 f32 in keys mode and
-    K3 f32, or the B3 f32 logits entry) and give finite f32 masks within
-    1e-2 of their scale of the same decode with the tail swapped for its
-    plain f32 version (TF32 off): P1 and P2 are bf16 in both, and where
-    one rounds the other way a logit moves by ~2^-8 of its scale at that
-    position (tail_compare.TAIL_F32_MOVED's note)."""
+    """An f32 SAM's "fused_tail_keys", "fused_tail_logits" and
+    "fused_tail_probs" decodes run on the f32 kernels alone (K2 f32 once,
+    then B3 f32 in keys mode and K3 f32, the B3 f32 logits entry, or B3
+    f32 in probability mode and B6 f32) and give finite f32 masks within
+    1e-2 of their scale of the same decode with the tail (and B6) swapped
+    for their plain f32 versions (TF32 off): P1 and P2 are bf16 in both,
+    and where one rounds the other way a logit moves by ~2^-8 of its
+    scale at that position (tail_compare.TAIL_F32_MOVED's note)."""
     from revisit_anything_tpu_torch.models.sam import decoder
     sam = _offline_sam(torch.float32).to(cuda)
     cfg = sam.cfg
@@ -1441,28 +1447,35 @@ def test_fused_tail_decodes_an_f32_sam_on_f32_kernels(cuda, decode):
             return decoder.decode_masks(sam.decoder, cfg, emb, pe, sparse,
                                         dense, decode=decode)
 
-    keys = decode == "fused_tail_keys"
+    # the form's kernels that have a plain version swapped in below, and
+    # the one after them that keeps running (K3 f32 after the keys mode)
+    swapped, after = {
+        "fused_tail_keys": ((build.DECODE_TAIL_F32,), (build.MASK_HEAD_F32,)),
+        "fused_tail_logits": ((build.DECODE_TAIL_LOGITS_F32,), ()),
+        "fused_tail_probs": ((build.DECODE_TAIL_F32,
+                              build.MASK_HEAD_PROBS_F32), ())}[decode]
     build.reset_counts()
     masks, iou = run()
     torch.cuda.synchronize()
     counts = {k.name: k.launches for k in build.KERNELS if k.launches}
-    assert counts == ({build.TOKEN_CROSS_F32.name: 1,
-                       build.DECODE_TAIL_F32.name: 1,
-                       build.MASK_HEAD_F32.name: 1} if keys else
-                      {build.TOKEN_CROSS_F32.name: 1,
-                       build.DECODE_TAIL_LOGITS_F32.name: 1}), counts
+    assert counts == {k.name: 1 for k in (build.TOKEN_CROSS_F32, *swapped,
+                                          *after)}, counts
     assert masks.dtype == iou.dtype == torch.float32
     assert torch.isfinite(masks).all() and torch.isfinite(iou).all()
-    kept = decoder.decode_tail_fused
+    plain = {"decode_tail_fused": dfu.decode_tail_reference}
+    if decode == "fused_tail_probs":
+        plain["fused_mask_head_probs"] = mh.mask_head_probs_reference
+    kept = {name: getattr(decoder, name) for name in plain}
     try:
-        decoder.decode_tail_fused = dfu.decode_tail_reference
+        for name, fn in plain.items():
+            setattr(decoder, name, fn)
         build.reset_counts()
         want, want_iou = run()
         torch.cuda.synchronize()
-        assert not (build.DECODE_TAIL_F32.launches
-                    or build.DECODE_TAIL_LOGITS_F32.launches)
+        assert not any(k.launches for k in swapped)
     finally:
-        decoder.decode_tail_fused = kept
+        for name, fn in kept.items():
+            setattr(decoder, name, fn)
     assert masks.shape == want.shape
     assert _rel_err(masks, want) < 1e-2
     assert _rel_err(iou, want_iou) < 1e-2
@@ -1839,6 +1852,76 @@ def test_decode_tail_kernel_f32_matches_plain(cuda, b, m, ln_scale):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,m,ln_scale", [
+    pytest.param(16, 4096, 1.0, id="16-4096"),
+    pytest.param(140, 4096, 1.0, id="140-4096"),
+    pytest.param(16, 96, 1.0, id="16-96"),
+    pytest.param(16, 256, 32768.0, id="16-256-large-branch")])
+def test_decode_tail_probs_kernel_f32_matches_plain(cuda, b, m, ln_scale):
+    """B3 f32 in probability mode against its plain version in f32 with
+    TF32 off, at the keys mode's cases: P1 and P2 bf16 within one bf16
+    ulp, moved in at most PROBS_F32_MOVED of their elements (B7 f32's
+    criterion); C2 and the token state f32 within F32_REL; the JAX
+    kernel's shapes; one counted launch of the f32 entry."""
+    args = _tail_args(cuda, b, m, False, dtype=torch.float32)
+    _large_tail(args[0], ln_scale)
+    before = build.DECODE_TAIL_F32.launches
+    with torch.inference_mode():
+        got = dfu.decode_tail_fused(*args)
+        want = dfu.decode_tail_reference(*args)
+        keys2 = dfu.decode_tail_reference(*args[:-1], True)[1]
+    torch.cuda.synchronize()
+    assert build.DECODE_TAIL_F32.launches == before + 1
+    assert len(got) == len(want) == 4
+    assert [o.dtype for o in got] == [torch.float32, torch.bfloat16,
+                                      torch.bfloat16, torch.float32]
+    assert [tuple(o.shape) for o in got] == [tuple(o.shape) for o in want] \
+        == [(b, 7, 256), (b, 56, m), (b, 56, m), (b, 56, 256)]
+    if ln_scale > 1.0:
+        assert keys2.abs().max().item() > 65504
+    for o in got:
+        assert torch.isfinite(o.float()).all()
+    for p, pw in zip(got[1:3], want[1:3]):
+        ulps, moved = bf16_ulps(p, pw)
+        print(f"[tail f32 probs] P {moved:.3e} of the elements moved, by "
+              f"at most {ulps:.3f} ulp")
+        assert ulps <= 1.0 and moved <= PROBS_F32_MOVED, (ulps, moved)
+    assert _rel_err(got[0], want[0]) < F32_REL
+    assert _rel_err(got[3], want[3]) < F32_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("outputs", [("keys2", "p1", "p2", "c2m"),
+                                     ("keys2", "c2m"), ("p1", "p2"), ()])
+def test_decode_tail_f32_refuses_mixed_outputs(cuda, outputs):
+    """The f32 entry takes keys2 alone (keys mode) or P1, P2 and C2
+    together without keys2 (probability mode): any other mix of outputs
+    is refused before any launch, and its counter does not move."""
+    args = _tail_args(cuda, 2, 128, True, dtype=torch.float32)
+    dec, acts, b, m = args[0], args[1:10], 2, 128
+    ins = {name: build.operand(name, x, dt, shape) for name, x, dt, shape
+           in dfu.tail_operands(dec, *acts, 8)}
+    f32 = dict(device=cuda, dtype=torch.float32)
+    outs = dict(qout=torch.empty((b, 7, 256), **f32),
+                work=torch.empty(b * dfu.tail_f32_scratch(m), device=cuda,
+                                 dtype=torch.uint8),
+                keys2=torch.empty((b, m, 256), **f32),
+                p1=torch.empty((b, 56, m), device=cuda, dtype=torch.bfloat16),
+                p2=torch.empty((b, 56, m), device=cuda, dtype=torch.bfloat16),
+                c2m=torch.empty((b, 56, 256), **f32))
+    ptrs = {name: x.data_ptr() for name, x in ins.items()}
+    ptrs.update((name, outs[name].data_ptr())
+                for name in ("qout", "work", *outputs))
+    params = dfu.TailParams(*(ptrs.get(n) for n in dfu._TAIL_POINTERS),
+                            b, m, dec.layers[1].lin1.w.shape[1], m, 0, 1e-6)
+    build.reset_counts()
+    with pytest.raises(RuntimeError, match="cudaError 1$"):
+        build.DECODE_TAIL_F32.launch(ctypes.addressof(params))
+    torch.cuda.synchronize()
+    assert not any(k.launches for k in build.KERNELS)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("content", [3136, 4096, 3100, 20])
 def test_decode_tail_logits_kernel_f32_matches_plain(cuda, content):
     """B3 f32 in logits mode at 140 prompts (more than the card's 132
@@ -1867,12 +1950,12 @@ def test_decode_tail_logits_kernel_f32_matches_plain(cuda, content):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", ["keys", "logits"])
+@pytest.mark.parametrize("mode", ["keys", "logits", "probs"])
 def test_decode_tail_f32_kernels_permute_with_their_prompts(cuda, mode):
     """Permuting the prompts permutes B3 f32's outputs bit for bit in
-    both modes (the logits mode at a content that is not a multiple of
-    32): every launch of the entry reads a prompt's own tokens, keys, C1
-    and work rows only."""
+    its three modes (the logits mode at a content that is not a multiple
+    of 32): every launch of the entry reads a prompt's own tokens, keys,
+    C1 and work rows only."""
     b = 24
     args = _tail_args(cuda, b, 256, mode == "keys", dtype=torch.float32)
     kw = dict(mask_head=True, content=200) if mode == "logits" else {}
@@ -1890,7 +1973,7 @@ def test_decode_tail_f32_kernels_permute_with_their_prompts(cuda, mode):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", ["keys", "logits"])
+@pytest.mark.parametrize("mode", ["keys", "logits", "probs"])
 def test_decode_tail_f32_kernels_are_bitwise_repeatable(cuda, mode):
     """Two launches of B3 f32 on the same inputs give the same bits."""
     args = _tail_args(cuda, 16, 512, mode == "keys", dtype=torch.float32)
@@ -1905,10 +1988,13 @@ def test_decode_tail_f32_kernels_are_bitwise_repeatable(cuda, mode):
 
 @pytest.mark.gpu
 def test_decode_tail_f32_scratch_is_the_kernels(cuda):
-    """The wrapper allocates the work B3 f32 takes a prompt."""
+    """The wrapper allocates the work B3 f32 takes a prompt, in its keys
+    and logits modes and in its probability mode."""
     lib = build.load()
     for m in (96, 4096):
         assert dfu.tail_f32_scratch(m) == lib.rat_decode_tail_f32_scratch(m)
+        assert (dfu.tail_f32_scratch(m, probs=True)
+                == lib.rat_decode_tail_f32_probs_scratch())
 
 
 def _small_server(dev, seed=7, **kw):
