@@ -58,7 +58,11 @@ Phases (any failure exits non-zero):
      its bound share
      (bound / kernel time) and, where one PyTorch call computes the same
      function, that call's time and the kernel's time over it
-     (× library);
+     (× library); then the f32 walks' cycles by statement of their tile
+     loop (B8 f32 at both depths, B7 f32 layer 2: kernels/probs_compare.py
+     --f32 --phases, its two stamped sources built in parallel; lines
+     tagged [phases], their wall seconds the walk_phases entry of the
+     [phases] line below);
   4. serve small inputs through the kernels on the card and through the
      plain versions on the CPU, from the same weights, with the
      "shared", "fused_tail_keys" and "fused_tail_logits" decoders and
@@ -445,16 +449,18 @@ PTXAS_KERNELS = (
      "rat_t2i_probs_smem", (2,)),
     ("i2t_probs_l1_kernelIfE", "B7 f32 layer 1", "rat_i2t_probs_f32",
      "rat_i2t_probs_f32_smem", (1,)),
-    ("i2t_probs_l2_kernelIfE", "B7 f32 layer 2", "rat_i2t_probs_f32",
+    # the f32 walks (walk_f32.cuh walk_f32_kernel<DEPTH, KIND>: KIND 0
+    # attend, 1 attend and store keys2, 2 B7's P2)
+    ("walk_f32_kernelILi1ELi2E", "B7 f32 layer 2", "rat_i2t_probs_f32",
      "rat_i2t_probs_f32_smem", (2,)),
-    ("t2i_probs_kernelIfLi1ELb0E", "B8 f32 depth 1", "rat_t2i_probs_f32",
+    ("walk_f32_kernelILi1ELi0E", "B8 f32 depth 1", "rat_t2i_probs_f32",
      "rat_t2i_probs_f32_smem", (1,)),
-    ("t2i_probs_kernelIfLi2ELb0E", "B8 f32 depth 2", "rat_t2i_probs_f32",
+    ("walk_f32_kernelILi2ELi0E", "B8 f32 depth 2", "rat_t2i_probs_f32",
      "rat_t2i_probs_f32_smem", (2,)),
     # B3 f32: its walks are B7 f32's two kernels, B8 f32 at depth 1 and
     # this depth-2 walk that stores keys2 (probability mode: B8 f32 at
     # depth 2 above); its token side these three
-    ("t2i_probs_kernelIfLi2ELb1E", "B3 f32 final walk (+ keys2)",
+    ("walk_f32_kernelILi2ELi1E", "B3 f32 final walk (+ keys2)",
      "rat_decode_tail_f32", "rat_t2i_probs_f32_smem", (2,)),
     ("tail_queries_f32_kernel", "B3 f32 token queries",
      "rat_decode_tail_f32", None, ()),
@@ -484,10 +490,10 @@ MMA_SASS = (("decode_tail_kernelILi0E", "B3 keys mode", "HMMA"),
              "HMMA"),
             ("t2i_probs_kernelI13__nv_bfloat16Li2E", "B8 depth 2",
              "HMMA"),
-            ("i2t_probs_l2_kernelIfE", "B7 f32 layer 2", F16_K8),
-            ("t2i_probs_kernelIfLi1ELb0E", "B8 f32 depth 1", F16_K8),
-            ("t2i_probs_kernelIfLi2ELb0E", "B8 f32 depth 2", F16_K8),
-            ("t2i_probs_kernelIfLi2ELb1E", "B3 f32 final walk (+ keys2)",
+            ("walk_f32_kernelILi1ELi2E", "B7 f32 layer 2", F16_K8),
+            ("walk_f32_kernelILi1ELi0E", "B8 f32 depth 1", F16_K8),
+            ("walk_f32_kernelILi2ELi0E", "B8 f32 depth 2", F16_K8),
+            ("walk_f32_kernelILi2ELi1E", "B3 f32 final walk (+ keys2)",
              F16_K8),
             ("flash_attention_tf32x3_kernelILi64ELi0E", "K1 f32 Dh 64",
              "HGMMA.*TF32"),
@@ -575,6 +581,17 @@ def sass_report(kernels) -> None:
               + ")", flush=True)
 
 
+def walk_phases() -> None:
+    """The f32 walks' cycles by statement of their tile loops
+    (kernels/probs_compare.py's probe, on this checkout's sources); fails
+    if a walk's stamps were not all taken."""
+    from revisit_anything_tpu_torch.kernels import probs_compare
+    totals = probs_compare._phases_f32(probs_compare._ROOT)
+    if len(totals) != 3 or not all(math.isfinite(t) and t > 0
+                                   for t in totals.values()):
+        _fail(f"the f32 walks' phase probe read no cycles: {totals}")
+
+
 def compare_kernels(dev) -> dict:
     """Each kernel vs its plain version at the serving shapes (bf16)."""
     import numpy as np
@@ -607,14 +624,13 @@ def compare_kernels(dev) -> dict:
     results = {}
 
     def check(kernel, label, fn_k, fn_p, err_fn, tol, ins, ops,
-              library=None, plain_prompts=None, rate=False, was=None):
+              library=None, plain_prompts=None, rate=False):
         """``ins`` the inputs the function must read (views where it
         reads part of a tensor), ``ops`` = (bf16 FLOP, f32 FLOP[, TF32
         FLOP]) its arithmetic; ``plain_prompts``: the plain version ran on only the
         first prompts, and the kernel's output for those is compared;
         ``rate``: also print the achieved GB/s (the bytes it must read
-        and write over the kernel's time); ``was``: the previous design's
-        time in ms (PERF.md), printed in brackets."""
+        and write over the kernel's time)."""
         out_k, out_p = fn_k(), fn_p()
         torch.cuda.synchronize()
         outs = out_k if isinstance(out_k, (tuple, list)) else (out_k,)
@@ -643,7 +659,7 @@ def compare_kernels(dev) -> dict:
             lib += "  rel_err by output " + " ".join(f"{e:.3e}" for e in parts)
         print(f"[kernel] {kernel.name:22s} {label:44s} max_abs_err="
               f"{abs_err:.3e} rel_err={rel_err:.3e} (tol {tol:g}) "
-              f"kernel {ms:.3f} ms{f' [{was:.3f}]' if was else ''}  plain "
+              f"kernel {ms:.3f} ms  plain "
               f"{plain_ms:.3f} ms{lib}  bound "
               f"{bound_ms:.4f} ms ({bound_by})  bound share {share:.3f}",
               flush=True)
@@ -708,10 +724,11 @@ def compare_kernels(dev) -> dict:
     # sum's add and the split's subtraction; ex2 runs on the SFU and the
     # TF32 roundings are integer operations). Bytes: q, k, v and out once
     # (the K/V split's scratch is the kernel's own traffic).
-    for b, h, n, dh, what, was in (
-            (8, 6, 4016, 64, "DINOv1 ViT-S/8 224x298 s4", 6.350),
-            (1, 1, 1025, 64, "shortest K1 length", 0.092),
-            (2, 1, 1531, 80, "head dim 80", 0.162)):
+    for b, h, n, dh, what in (
+            (8, 6, 4016, 64, "DINOv1 ViT-S/8 224x298 s4"),
+            (1, 1, 1025, 64, "shortest K1 length"),
+            (2, 1, 1531, 80, "head dim 80"),
+            (1, 24, 1531, 64, "f32 query's DINOv2-g")):
         q, k, v = (torch.randn((b, h, n, dh), generator=g, device=dev)
                    for _ in range(3))
         check(build.FLASH_ATTENTION_F32,
@@ -719,8 +736,7 @@ def compare_kernels(dev) -> dict:
               lambda: att.attend(q, k, v),
               lambda: att.attend_reference(q, k, v), _rel, 1e-5, (q, k, v),
               (0, 5 * b * h * n * n, 3 * 4 * b * h * n * n * dh),
-              library=lambda: F.scaled_dot_product_attention(q, k, v),
-              was=was)
+              library=lambda: F.scaled_dot_product_attention(q, k, v))
         del q, k, v
 
     # B11: one SAM ViT-H windowed layer, 25 windows of 14x14, 16 heads of
@@ -892,8 +908,7 @@ def compare_f32_kernels(dev, check) -> None:
     q, k, v = (rnd(1, 16, 4096, 80) for _ in range(3))
     bh, bw = rnd(1, 16, 4096, 64), rnd(1, 16, 4096, 64)
     mask = bh.repeat_interleave(64, dim=-1) + bw.repeat(1, 1, 1, 64)
-    # (in brackets PR 23's design, the bias read per score from device
-    # memory); then K1 f32 without the bias at the same shape, the bias
+    # and after it K1 f32 without the bias at the same shape, the bias
     # form's floor
     n2 = 16 * 4096 ** 2
     check(build.FLASH_ATTENTION_F32_BIAS,
@@ -903,8 +918,7 @@ def compare_f32_kernels(dev, check) -> None:
           _rel, F32_REL, (q, k, v, bh, bw),
           (0, 7 * n2, 3 * 4 * n2 * 80),
           library=lambda: F.scaled_dot_product_attention(q, k, v,
-                                                         attn_mask=mask),
-          was=1.745)
+                                                         attn_mask=mask))
     del mask
     check(build.FLASH_ATTENTION_F32,
           "SAM global q/k/v [1,16,4096,80] f32, no bias",
@@ -915,12 +929,12 @@ def compare_f32_kernels(dev, check) -> None:
     torch.cuda.empty_cache()
 
     # K2 f32 (library: SDPA in f32 on k + pe and v + bias formed outside
-    # the timed call; in brackets PR 23's FMA design)
+    # the timed call)
     qt = rnd(1024, 7, 128)
     pe, vb = rnd(1, 128, 4096), rnd(128)
-    for lead, label, was in (
-            (1, "q [1024,7,128] kvt [1,256,4096] shared f32", 2.029),
-            (1024, "q [1024,7,128] kvt [1024,256,4096] f32", 2.790)):
+    for lead, label in (
+            (1, "q [1024,7,128] kvt [1,256,4096] shared f32"),
+            (1024, "q [1024,7,128] kvt [1024,256,4096] f32")):
         kvt = rnd(lead, 256, 4096)
         k_l = (kvt[:, :128] + pe).reshape(lead, 8, 16, 4096).transpose(
             2, 3).contiguous()
@@ -935,8 +949,7 @@ def compare_f32_kernels(dev, check) -> None:
                                                           8),
               _rel, F32_REL, (qt, kvt, pe, vb),
               (0, 0, 3 * 4 * 1024 * 8 * 7 * 4096 * 16),
-              library=lambda: F.scaled_dot_product_attention(q_l, k_l, v_l),
-              was=was)
+              library=lambda: F.scaled_dot_product_attention(q_l, k_l, v_l))
         del kvt, k_l, v_l, q_l
     del pe, vb
 
@@ -986,16 +999,16 @@ def compare_f32_kernels(dev, check) -> None:
         del qkv, bh, bw, q, k, v, mask
     torch.cuda.empty_cache()
 
-    # K5 f32: layer 1 (shared branch) and layer 2 (per prompt); in brackets
-    # PR 23's FMA design. Bound: the products as three TF32 passes (the 8 x
-    # 7 attention's 2·2·8·7·16 FLOP a (prompt, position) too, on the tensor
-    # cores as the kernel runs them), q = x·Wq counted once a position at
-    # layer 1: the kernel computes it once a position block, since it does
-    # not depend on the prompt (PR 23's bound, 6.755 ms at both layers,
+    # K5 f32: layer 1 (shared branch) and layer 2 (per prompt). Bound: the
+    # products as three TF32 passes (the 8 x 7 attention's 2·2·8·7·16 FLOP
+    # a (prompt, position) too, on the tensor cores as the kernel runs
+    # them), q = x·Wq counted once a position at layer 1: the kernel
+    # computes it once a position block, since it does not depend on the
+    # prompt (the first f32 design's bound, 6.755 ms at both layers,
     # counted it once a prompt).
-    for lead, label, was in (
-            (1, "img [1,4096,256] shared, 1024 prompts f32", 41.602),
-            (1024, "img [1024,4096,256] f32", 44.291)):
+    for lead, label in (
+            (1, "img [1,4096,256] shared, 1024 prompts f32"),
+            (1024, "img [1024,4096,256] f32")):
         q_rows = 4096 if lead == 1 else 1024 * 4096
         iargs = (rnd(lead, 4096, 256), rnd(1, 4096, 128), rnd(1024, 7, 128),
                  rnd(1024, 7, 128), rnd(256, 128, s=0.1), rnd(128, s=0.1),
@@ -1008,13 +1021,11 @@ def compare_f32_kernels(dev, check) -> None:
               _tuple_err, F32_REL, iargs,
               (0, 0, 3 * (2 * q_rows * 256 * 128
                           + 2 * 1024 * 4096 * (128 * 256 + 256 * 256)
-                          + 2 * 2 * 1024 * 4096 * 8 * 7 * 16)),
-              was=was)
+                          + 2 * 2 * 1024 * 4096 * 8 * 7 * 16)))
         del iargs
         torch.cuda.empty_cache()
 
-    # K3 f32: 1024 prompts, content 49 rows x 64 = 3136 positions (in
-    # brackets PR 23's FMA design)
+    # K3 f32: 1024 prompts, content 49 rows x 64 = 3136 positions
     margs = (rnd(1024, 4096, 256), rnd(1024, 3, 32, s=0.5),
              rnd(256, 256, s=0.1), rnd(64, s=0.1), rnd(64, s=0.1, off=1.0),
              rnd(64, s=0.1), rnd(64, 128, s=0.1), rnd(32, s=0.1))
@@ -1025,7 +1036,7 @@ def compare_f32_kernels(dev, check) -> None:
           lambda: mh.upscale_masks_blocks(margs[0][:, :3136], *margs[1:],
                                           eps=1e-6),
           _rel, F32_REL, (margs[0][:, :3136],) + margs[1:],
-          (0, 0, 3 * 1024 * 3136 * head_products), was=27.707)
+          (0, 0, 3 * 1024 * 3136 * head_products))
     del margs
     torch.cuda.empty_cache()
 
@@ -1444,7 +1455,7 @@ def compare_probs_kernels(dev, check, head, rel_tol) -> None:
     check(build.I2T_PROBS, "layer 1: q1st [1,128,4096] -> P [1024,56,4096]",
           lambda: dpr.i2t_probs(q1st, tok_k, 8),
           lambda: dpr.i2t_probs_reference(q1st, tok_k, 8),
-          _rel, rel_tol, (q1st, tok_k), (pe_term, 0), was=0.536)
+          _rel, rel_tol, (q1st, tok_k), (pe_term, 0))
     rec, rec_c = ((img0, p1, c1, peqt, w_q, rows),
                   (img0, p1[:c], c1[:c], peqt, w_q, rows))
     check(build.I2T_PROBS, "layer 2: P1, C1 [1024,56,*] -> P2",
@@ -1452,7 +1463,7 @@ def compare_probs_kernels(dev, check, head, rel_tol) -> None:
           lambda: dpr.i2t_probs_reference(None, tok_k[:c], 8, layer=2,
                                           recon=rec_c),
           _rel, rel_tol, (tok_k,) + rec, (recon + pe_term, 0, rows_x_branch),
-          plain_prompts=c, was=14.244)
+          plain_prompts=c)
     for depth in (1, 2):
         ps = (p2, c2) if depth == 2 else (None, None)
         ps_c = (p2[:c], c2[:c]) if depth == 2 else (None, None)
@@ -1466,7 +1477,7 @@ def compare_probs_kernels(dev, check, head, rel_tol) -> None:
               _rel, rel_tol, [qt] + [x for x in args if
                                      isinstance(x, torch.Tensor)],
               (depth * recon + pe_term, 0, 2 * rows_x_branch),
-              plain_prompts=c, was=(21.663, 32.381)[depth - 1])
+              plain_prompts=c)
 
     hyper = rnd(b, 3, 32, s=0.5)
     margs = (img0, p1, c1, p2, c2, rows, hyper) + head
@@ -1512,8 +1523,7 @@ def compare_probs_kernels(dev, check, head, rel_tol) -> None:
               lambda: dfu.decode_tail_reference(
                   dec, img0, q1st, peqt, pek2t, pekft, tok_k[:c], c1[:c],
                   qin[:c], tok[:c], 8, 1e-6, keys),
-              _tuple_err, rel_tol, tail_ins, tail_ops, plain_prompts=c,
-              was=None if keys else 69.207)
+              _tuple_err, rel_tol, tail_ins, tail_ops, plain_prompts=c)
     # logits mode: the tail, then the mask head on keys2's first `content`
     # positions and the three hypernetwork MLPs (no single library call)
     head_ins = [prm for name, prm in dec.named_parameters()
@@ -1529,7 +1539,7 @@ def compare_probs_kernels(dev, check, head, rel_tol) -> None:
               qin[:c], tok[:c], 8, 1e-6, mask_head=True, content=content),
           _tuple_err, rel_tol, tail_ins + head_ins,
           (tail_ops[0] + b * content * head_flop, hyper_flop, tail_ops[2]),
-          plain_prompts=c, was=108.297)
+          plain_prompts=c)
     torch.cuda.empty_cache()
 
 
@@ -4843,6 +4853,7 @@ def main() -> None:
 
     ptxas_report()
     results = compare_kernels(dev)
+    walk_phases()
     reference_check(dev)
     served = serve(dev)
     checkpoint_phase(dev)

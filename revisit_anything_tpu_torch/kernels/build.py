@@ -93,6 +93,10 @@ SIGNATURES: Dict[str, Sequence] = {
                       _I, _F, _P),
     "rat_t2i_probs_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                           _I, _I, _F, _P),
+    # the f32 form at depth 2 with keys2's store (B3 f32's final walk; no
+    # Python entry): the same plus keys after out, klimit for depth
+    "rat_t2i_probs_f32_keys": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _P, _P, _I, _I, _I, _F, _P),
     # img0, p1, c1m, p2, c2m, rows, up1_w, up1_b, ln_s, ln_b, up2_w, up2_b,
     # hyper, out, np, gg, content, n_masks, eps, ln_eps, n_ctas, stream
     "rat_mask_head_probs": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

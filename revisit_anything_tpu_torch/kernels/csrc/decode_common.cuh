@@ -127,21 +127,6 @@ __device__ __forceinline__ void attn_out(float* so, const float* sCtx,
   }
 }
 
-// attn_out on f32 weights (an f32 SAM): o[t][c] = ctx row . Wv[:, c] +
-// vb[c] in f32, unrounded (the JAX `astype` to f32), into o [T][DA] (shared
-// or global).
-__device__ __forceinline__ void attn_out(float* so, const float* sCtx, const float* Wv,
-                                         const float* vb) {
-  for (int i = threadIdx.x; i < T * DA; i += THREADS) {
-    const int t = i / DA, c = i % DA, h = c / HD;
-    const float* crow = sCtx + (h * T + t) * D;
-    float a = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) a = fmaf(crow[d], Wv[(size_t)d * DA + c], a);
-    so[i] = a + vb[c];
-  }
-}
-
 __device__ __forceinline__ void add_rows(float* out, const float* a, const float* b, int n) {
   for (int i = threadIdx.x; i < n; i += THREADS) out[i] = bf16_round(a[i] + b[i]);
 }

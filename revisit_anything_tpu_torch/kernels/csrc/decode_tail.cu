@@ -513,8 +513,9 @@ extern "C" int rat_decode_tail_logits(const void* params, void* stream) {
 // the four [56, 256] matrices as planes take 229,376 B, 262,144 with the
 // branch planes, over the 232,448 B a CTA may have (the bf16 layout's
 // 231,488 B grows to 297,280). So the f32 form splits pass B into two
-// walks over M, the schedule of the probability-factored decode, each a
-// kernel whose layout has run on the card in B7 f32 and B8 f32, with the
+// walks over M, the schedule of the probability-factored decode, each
+// B7 f32's or B8 f32's kernel (walk_f32.cuh: two warpgroups on alternate
+// 16-position tiles, the branch tile in registers), with the
 // token state and P1, P2 and C2 waiting in device memory between them
 // (the entry's `work`, rat_decode_tail_f32_scratch(M) bytes a prompt; in
 // probability mode P1, P2 and C2 wait in the outputs, and the work holds
@@ -523,11 +524,11 @@ extern "C" int rat_decode_tail_logits(const void* params, void* stream) {
 //   launch                          CTA           shared memory (B)
 //   token queries (q + tok) Wq_t2   a prompt      7,168 static
 //   P1 (B7 f32 layer 1)             16 tiles      3,584 static
-//   keys1 -> layer-2 t2i (B8 f32 d1) a prompt     168,256
+//   keys1 -> layer-2 t2i (B8 f32 d1) a prompt     167,424
 //   token mid-ops: out-projection,  a prompt      93,184 at MLP 2048
 //     LN, MLP, LN, k2, v2, C2, the final queries
-//   keys1 -> P2 (B7 f32 layer 2)    a prompt      168,000
-//   keys1 -> keys2, stored, ->      a prompt      229,184
+//   keys1 -> P2 (B7 f32 layer 2)    a prompt      158,720
+//   keys1 -> keys2, stored, ->      a prompt      229,376
 //     final attention (B8 f32 d2 with the keys store; probability
 //     mode: B8 f32 d2 as it is, keys2 not stored)
 //   final out-projection, LN        a prompt      31,232 static
@@ -537,8 +538,8 @@ extern "C" int rat_decode_tail_logits(const void* params, void* stream) {
 // The walks rebuild keys1 three times and keys2 once (bf16 B3: keys1
 // twice, keys2 once), each rebuild two fp16 passes (P exact times 2^15
 // against C's two planes), each score and context product three (both
-// operands two planes), as decode_tc.cuh's f32 pieces do; the error bound
-// of the rebuild is there. P1 goes through device memory (0.47 GB at 1024
+// operands two planes), as walk_f32.cuh does; the error bound of the
+// rebuild is there. P1 goes through device memory (0.47 GB at 1024
 // prompts x M 4096, written once, read three times) as P2 does (written
 // once, read once); bf16 B3 recomputes P1 in each pass. The token side
 // runs on the FMA units, a prompt a CTA, its weights (5.8 MB in f32) read

@@ -5,7 +5,8 @@
 // per-tile products on a [32 positions x 256 channels] branch tile run on
 // the tensor cores; beside them the shared-memory layouts they read
 // without bank conflicts, the loads that fill them and the token-side
-// pieces (pe terms, scores, softmaxes) on the FMA units.
+// pieces (pe terms, scores, softmaxes) on the FMA units. The f32 walks
+// (B7 f32 layer 2, B8 f32, B3 f32's walks) are walk_f32.cuh's.
 //
 //   rebuild   Y <- LN(Y + P^T C + b)     mma.sync m16n8k16 / m16n8k8 bf16
 //   scores    S[56 x 32] = Q^ . Y^T        mma.sync m16n8k16 fp16, split
@@ -828,369 +829,5 @@ __device__ __forceinline__ void context_store(const Ctx& ctx, const float* inv, 
             make_float2(ctx[mt][nt][2 * hf] * unscale * r, ctx[mt][nt][2 * hf + 1] * unscale * r);
     }
 }
-
-// ---------------------------------------------------------------------
-// f32 forms (B7 f32 and B8 f32: an f32 SAM's img0, C, pe terms, weights,
-// branch rows and token vectors; P stays bf16). The scores and the
-// context are the functions above: they already read the f32 branch and
-// the f32 query-side matrix as fp16 planes. What changes is what reads
-// bf16 operands: the loads below and the rebuild.
-//
-// The f32 rebuild, Y <- LN(Y + P^T C + b) with bf16 P and f32 C: C is
-// held as two fp16 planes of C s (s the power of two with max |C| s <
-// 2^C_TOP, one a prompt and layer), the planes' scheme of the scores, and
-// P converted to fp16 times PF_SCALE = 2^15 (P <= 1, so P 2^15 <= 2^15 <
-// 65504). Each product is two m16n8k16 / m16n8k8 fp16 passes, P C.hi and
-// P C.lo, each from a fresh accumulator; their sum times 1 / (s 2^15)
-// (exact) joins the residual and b in f32 rounded to nearest.
-// Error bound: fp16 x fp16 products are exact in f32. P 2^15 is exact in
-// fp16 for P >= 2^-29 (bf16's 8 bits in fp16's 11) and off by at most
-// 2^-40 below; C s = hi + lo + r with |r| <= 2^-22 |C s| for |C s| >= 2^-3
-// and |r| <= 2^-25 below (lo subnormal). With sum_k P_k <= H = 8 (each
-// head's probabilities sum to one), |P^T C - computed| <= 8 2^-22 max |C|
-// + 56 2^-40 max |C| (~1.9e-6 max |C|), besides the accumulator's own
-// rounding; f32 itself rounds each of the 56 terms to 2^-24.
-constexpr float PF_SCALE = 32768.f;  // P's s in the f32 rebuild
-constexpr int C_TOP = 14;            // C's s: max |C| s < 2^C_TOP
-
-// fp16 at depth 8: A [16 x 8], B [8 x 8].
-__device__ __forceinline__ void mma_m16n8k8_f16(float (&d)[4], uint32_t a0, uint32_t a1,
-                                                uint32_t b0) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5}, {%6}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(b0));
-}
-
-__device__ __forceinline__ float2 lds64f(const void* p) {
-  float2 v;
-  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
-               : "=f"(v.x), "=f"(v.y)
-               : "r"(rat_hopper::smem_u32(p)));
-  return v;
-}
-
-__device__ __forceinline__ uint32_t h2_bits(__half2 h) {
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// Waits until none of the thread's cp.async groups is in flight.
-__device__ __forceinline__ void cp_async_wait0() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// s of the two branch layers' Y planes from f32 rows vec = {b, ln scale,
-// ln bias} x 2 [6][D] (shared); see the bf16 form.
-__device__ __forceinline__ void branch_scales(float* scale, float* scratch, const float* vec) {
-  const int d = threadIdx.x;
-#pragma unroll
-  for (int l = 0; l < 2; ++l) {
-    const float bound = block_max(
-        16.f * fabsf(vec[(3 * l + 1) * D + d]) + fabsf(vec[(3 * l + 2) * D + d]), scratch);
-    if (d == 0) scale[l] = pow2_scale(bound, Y_TOP);
-  }
-}
-
-// The calling thread's column of a transposed f32 pe term (as load_pe).
-struct PeColF {
-  float v[HD];
-};
-
-__device__ __forceinline__ void load_pe(PeColF& pe, const float* pet, int m, int col) {
-  const float* p = pet + (size_t)(threadIdx.x / 32) * HD * m + col;
-#pragma unroll
-  for (int j = 0; j < HD; ++j)
-    asm volatile("ld.global.nc.f32 %0, [%1];\n" : "=f"(pe.v[j]) : "l"(p + (size_t)j * m));
-}
-
-// s[t] += q[t] . pe for the calling thread's head, f32 token vectors q
-// [T][DA] (shared) and an f32 pe column.
-__device__ __forceinline__ void add_pe_term_f32(float s[T], const float* sq, const PeColF& col) {
-  const int h = threadIdx.x / 32;
-#pragma unroll
-  for (int t = 0; t < T; ++t) {
-    float a = 0.f;
-#pragma unroll
-    for (int j = 0; j < HD; ++j) a = fmaf(sq[t * DA + h * HD + j], col.v[j], a);
-    s[t] += a;
-  }
-}
-
-// head_scores_tc with f32 token vectors and an f32 pe column.
-__device__ __forceinline__ void head_scores_tc(float s[T], const float* sS, const float* sq,
-                                               const PeColF& pe, float unscale) {
-  const int h = threadIdx.x / 32, lane = threadIdx.x % 32;
-#pragma unroll
-  for (int t = 0; t < T; ++t) s[t] = sS[s_idx(h * T + t, lane)] * unscale;
-  add_pe_term_f32(s, sq, pe);
-  const float scale = rsqrtf((float)HD);
-#pragma unroll
-  for (int t = 0; t < T; ++t) s[t] *= scale;
-}
-
-// The Frag of img0 rows m0.. ([M, D] f32) as channel pairs [mt][hf][nt],
-// asked for ahead of its use (as load_img0).
-using ImgFragF = float2[2][2][4];
-
-__device__ __forceinline__ void load_img0(ImgFragF& v, const float* img0, int m0) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float* p = img0 + (size_t)(m0 + lane / 4) * D + 32 * warp + 2 * (lane % 4);
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-        asm volatile("ld.global.nc.v2.f32 {%0, %1}, [%2];\n"
-                     : "=f"(v[mt][hf][nt].x), "=f"(v[mt][hf][nt].y)
-                     : "l"(p + (size_t)(16 * mt + 8 * hf) * D + 8 * nt));
-}
-
-// C as the f32 rebuild reads it: the fp16 planes hi, lo of C s (wide
-// layout) and unscale = 1 / (s PF_SCALE), exact.
-struct CPlanes {
-  const __half* hi;
-  const __half* lo;
-  float unscale;
-};
-
-// One prompt's C [HT, D] (global) staged at `at` (shared memory: HT D
-// elements of C's type) as the rebuild of its type reads it. bf16: as it
-// is (stage_c). f32: the fp16 planes of C s, s the power of two with max
-// |C| s < 2^C_TOP (the same in every thread; two reads of C: its max,
-// then the split; scratch [WARPS] floats).
-__device__ __forceinline__ const __nv_bfloat16* stage_c(unsigned char* at, float*,
-                                                        const __nv_bfloat16* c) {
-  __nv_bfloat16* sC = reinterpret_cast<__nv_bfloat16*>(at);
-  stage_c(sC, c);
-  return sC;
-}
-
-__device__ __forceinline__ CPlanes stage_c(unsigned char* at, float* scratch, const float* c) {
-  constexpr int VPR = D / 8;
-  __half* sCh = reinterpret_cast<__half*>(at);
-  __half* sCl = sCh + HT * D;
-  float mx = 0.f;
-  for (int i = threadIdx.x; i < HT * D / 4; i += THREADS) {
-    const float4 v = reinterpret_cast<const float4*>(c)[i];
-    mx = fmaxf(mx, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w))));
-  }
-  const float s = pow2_scale(block_max(mx, scratch), C_TOP);
-  for (int i = threadIdx.x; i < HT * VPR; i += THREADS) {
-    const int k = i / VPR, j = i % VPR;
-    const float4* src = reinterpret_cast<const float4*>(c + (size_t)k * D + 8 * j);
-    const float4 a = src[0], b = src[1];
-    __half2 h0, h1, h2, h3, l0, l1, l2, l3;
-    split2(a.x * s, a.y * s, h0, l0);
-    split2(a.z * s, a.w * s, h1, l1);
-    split2(b.x * s, b.y * s, h2, l2);
-    split2(b.z * s, b.w * s, h3, l3);
-    const int o = wide_idx(k, 8 * j);
-    *reinterpret_cast<uint4*>(sCh + o) =
-        make_uint4(h2_bits(h0), h2_bits(h1), h2_bits(h2), h2_bits(h3));
-    *reinterpret_cast<uint4*>(sCl + o) =
-        make_uint4(h2_bits(l0), h2_bits(l1), h2_bits(l2), h2_bits(l3));
-  }
-  return CPlanes{sCh, sCl, 1.f / (s * PF_SCALE)};
-}
-
-// The calling thread's own chunks of a narrow P tile [HT k][BM] (those
-// load_p_async gave it) from bf16 to fp16 times PF_SCALE, in place, once
-// its copies have landed (cp.async.wait_group shows a thread its own
-// copies); a CTA barrier then publishes the tile.
-__device__ __forceinline__ void p_tile_to_f16(__nv_bfloat16* sP) {
-  for (int i = threadIdx.x; i < HT * (BM / 8); i += THREADS) {
-    const int k = i / (BM / 8), c = i % (BM / 8);
-    uint4* p = reinterpret_cast<uint4*>(sP + narrow_idx(k, 8 * c));
-    const uint4 v = *p;
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-    uint32_t o[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = bf2(w[e]);
-      o[e] = h2_bits(__floats2half2_rn(f.x * PF_SCALE, f.y * PF_SCALE));
-    }
-    *p = make_uint4(o[0], o[1], o[2], o[3]);
-  }
-}
-
-// rebuild_tc with an f32 C: sP the narrow tile as fp16 x PF_SCALE
-// (p_tile_to_f16), c C's planes (stage_c), img the f32 img0 fragment
-// (FROM_IMG0), vec = {b, ln scale, ln bias} [3][D] f32. The warp's 32 channels go an n8 tile at a
-// time, each with fresh accumulators for P C.hi and P C.lo (one ldmatrix.x4
-// brings both planes' fragments): 16 accumulators at once, where whole
-// 16-channel halves held 32 and B8 f32 spilled 180 B at depth 2 (108 B
-// this way; 8.919 -> 8.705 ms, H100 80GB HBM3 at 700 W). The LayerNorm and
-// the planes as rebuild_tc; the new branch also leaves as f32 to out rows
-// ([BM][D], the tile's) when out is given: a quad's four 8-byte stores of
-// a row and n8 tile fill one 32-byte sector, marked evict-first (as
-// emit_rows).
-template <bool FROM_IMG0>
-__device__ __forceinline__ void rebuild_tc(Frag& y, const ImgFragF& img, __half* sYh, __half* sYl,
-                                           const __half* sP, const CPlanes& c, const float* vec,
-                                           float2* red, float eps, float ys,
-                                           float* out = nullptr) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, q = lane % 4, li = lane / 8, lr = lane % 8;
-  const int col0 = 32 * warp + 2 * q;           // + 8 nt
-  float s[2][2], ss[2][2];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      s[mt][hf] = 0.f;
-      ss[mt][hf] = 0.f;
-    }
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const float2 vb = lds64f(vec + col0 + 8 * nt);
-    float ah[2][4], al[2][4];                   // [mt][e]: P C.hi, P C.lo
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        ah[mt][e] = 0.f;
-        al[mt][e] = 0.f;
-      }
-    // P's matrix li is (m + 8 (li & 1), k + 8 (li >> 1)); the planes'
-    // matrices are (k + 8 (li & 1), n) of hi (li < 2) and lo (li >= 2)
-    const __half* plane = (li >> 1) ? c.lo : c.hi;
-#pragma unroll
-    for (int k0 = 0; k0 < 48; k0 += 16) {
-      uint32_t a[2][4], b[4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        ldsm_x4_trans(a[mt], sP + narrow_idx(k0 + lr + 8 * (li >> 1), 16 * mt + 8 * (li & 1)));
-      ldsm_x4_trans(b, plane + wide_idx(k0 + lr + 8 * (li & 1), 32 * warp + 8 * nt));
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        mma_m16n8k16_f16(ah[mt], a[mt], b[0], b[1]);
-        mma_m16n8k16_f16(al[mt], a[mt], b[2], b[3]);
-      }
-    }
-    {
-      // K rows 48..55: matrix li of P is (m 8 li, k 48); of the planes (k
-      // 48, n) of hi (li even) and lo (li odd; b[2], b[3] repeat them)
-      uint32_t a[4], b[4];
-      ldsm_x4_trans(a, sP + narrow_idx(48 + lr, 8 * li));
-      ldsm_x4_trans(b, ((li & 1) ? c.lo : c.hi) + wide_idx(48 + lr, 32 * warp + 8 * nt));
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        mma_m16n8k8_f16(ah[mt], a[2 * mt], a[2 * mt + 1], b[0]);
-        mma_m16n8k8_f16(al[mt], a[2 * mt], a[2 * mt + 1], b[1]);
-      }
-    }
-    // y = (Y + P^T C) + b
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const float2 r = FROM_IMG0 ? img[mt][hf][nt]
-                                   : make_float2(y[mt][nt][2 * hf], y[mt][nt][2 * hf + 1]);
-        const float p0 = (ah[mt][2 * hf] + al[mt][2 * hf]) * c.unscale;
-        const float p1 = (ah[mt][2 * hf + 1] + al[mt][2 * hf + 1]) * c.unscale;
-        const float v0 = (r.x + p0) + vb.x;
-        const float v1 = (r.y + p1) + vb.y;
-        y[mt][nt][2 * hf] = v0;
-        y[mt][nt][2 * hf + 1] = v1;
-        s[mt][hf] += v0 + v1;
-        ss[mt][hf] += v0 * v0 + v1 * v1;
-      }
-  }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1)
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        s[mt][hf] += __shfl_xor_sync(0xffffffffu, s[mt][hf], off);
-        ss[mt][hf] += __shfl_xor_sync(0xffffffffu, ss[mt][hf], off);
-      }
-  if (q == 0)
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
-        red[(16 * mt + g + 8 * hf) * WARPS + warp] = make_float2(s[mt][hf], ss[mt][hf]);
-  __syncthreads();
-  // the rows' mean and 1 / std first, one row's sums at a time, then the
-  // f32 vectors: fewer registers at once than rebuild_tc holds
-  float mu[2][2], rs[2][2];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const float4* r4 = reinterpret_cast<const float4*>(red + (16 * mt + g + 8 * hf) * WARPS);
-      float sum = 0.f, sum2 = 0.f;
-#pragma unroll
-      for (int i = 0; i < WARPS / 2; ++i) {
-        const float4 r = r4[i];
-        sum += r.x + r.z;
-        sum2 += r.y + r.w;
-      }
-      mu[mt][hf] = sum / D;
-      rs[mt][hf] = rsqrtf(fmaxf(sum2 / D - mu[mt][hf] * mu[mt][hf], 0.f) + eps);
-    }
-  float2 vs[4], vi[4];
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    vs[nt] = lds64f(vec + D + col0 + 8 * nt);
-    vi[nt] = lds64f(vec + 2 * D + col0 + 8 * nt);
-  }
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int row = 16 * mt + g + 8 * hf;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const float v0 = (y[mt][nt][2 * hf] - mu[mt][hf]) * rs[mt][hf] * vs[nt].x + vi[nt].x;
-        const float v1 = (y[mt][nt][2 * hf + 1] - mu[mt][hf]) * rs[mt][hf] * vs[nt].y + vi[nt].y;
-        y[mt][nt][2 * hf] = v0;
-        y[mt][nt][2 * hf + 1] = v1;
-        __half2 hi, lo;
-        split2(v0 * ys, v1 * ys, hi, lo);
-        const int o = wide_idx(row, col0 + 8 * nt);
-        *reinterpret_cast<__half2*>(sYh + o) = hi;
-        *reinterpret_cast<__half2*>(sYl + o) = lo;
-        if (out)
-          __stcs(reinterpret_cast<float2*>(out + (size_t)row * D + col0 + 8 * nt),
-                 make_float2(v0, v1));
-      }
-    }
-  __syncthreads();
-}
-
-// What a walk over the rebuilt branch (B7 layer 2, B8) reads on operands
-// E, bf16 or f32 (an f32 SAM; P bf16 either way): its img0 fragment, its
-// pe column, C as the rebuild takes it (stage_c), the element of a P tile
-// as the rebuild reads it, and the sets of P tiles it holds. bf16 asks for
-// the next tile's P before the rebuild, into the other of two sets. f32
-// holds one set: its C planes take the room of the second, so it converts
-// the landed tile to fp16 (p_tile_to_f16) and asks for the next once the
-// rebuild has read it.
-template <typename E>
-struct Walk;
-
-template <>
-struct Walk<__nv_bfloat16> {
-  static constexpr bool F32 = false;
-  static constexpr int P_SETS = 2;
-  using Img = ImgFrag;
-  using Pe = PeCol;
-  using C = const __nv_bfloat16*;
-  using PTile = __nv_bfloat16;
-};
-
-template <>
-struct Walk<float> {
-  static constexpr bool F32 = true;
-  static constexpr int P_SETS = 1;
-  using Img = ImgFragF;
-  using Pe = PeColF;
-  using C = CPlanes;
-  using PTile = __half;
-};
 
 }  // namespace rat_decode_tc

@@ -441,16 +441,17 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A tensor of `rank` dims (dims[0] contiguous, strides in bytes of dims
-// 1..rank-1) as a tensor map of `box` tiles, 128B-swizzled; reads past
-// the tensor fill zeros.
+// 1..rank-1) as a tensor map of `box` tiles, 128B-swizzled unless asked
+// otherwise; reads past the tensor fill zeros.
 inline bool tensor_map_of(CUtensorMapDataType type, CUtensorMap* map, const void* ptr, int rank,
                           const cuuint64_t* dims, const cuuint64_t* strides,
-                          const cuuint32_t* box) {
+                          const cuuint32_t* box,
+                          CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, type, rank, const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

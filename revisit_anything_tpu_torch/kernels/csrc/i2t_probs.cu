@@ -41,19 +41,16 @@
 // The f32 form (rat_i2t_probs_f32, an f32 SAM) replaces the same TPU
 // kernel on f32 inputs: q1st, the token keys, img0, C1, peq2, W_q and the
 // branch rows f32; P1 and the output P stay bf16, as the JAX kernel
-// rounds P for every dtype. Both layers are the same kernel templates on
-// f32 operands (decode_tc.cuh Walk<float>). Layer 2 walks with the f32
-// rebuild (C1 staged once a CTA as two fp16 planes times a power of two,
-// each P1 tile converted to fp16 x 2^15 by the threads that copied it, two
-// fp16 passes a product; the error bound is in the header), f32 img0, pe
-// and W_q loads, and the token keys kept in f32. It holds one P1 tile,
-// asked for the next tile as soon as the rebuild has read it (the scores,
-// the softmax and the stores hide the copy): 168,000 B, one CTA an SM.
-// What bounds layer 2 is its own products at the fp16 rate: the rebuild's
-// as two passes, the scores' as three (0.61 ms at 1024 prompts).
+// rounds P for every dtype. Layer 1 is the same kernel template on f32
+// loads (the token keys and q1st f32). Layer 2 is the f32 walk of
+// walk_f32.cuh (B8 f32's, with the softmax over the 7 tokens and the P2
+// stores in place of the context; two warpgroups on alternate 16-position
+// tiles, P1 by TMA, the branch tile in registers, named barriers), one
+// CTA a prompt.
 
 #include "decode_common.cuh"
 #include "decode_tc.cuh"
+#include "walk_f32.cuh"
 
 namespace {
 
@@ -63,23 +60,19 @@ using namespace rat_decode_tc;
 constexpr int L1_TILES = 16;   // 32-position tiles a CTA takes, layer 1
 constexpr int L2_TILES = 128;  // and layer 2: a whole prompt at M 4096
 
-// Layer 2's shared memory (bytes) on operands E.
-template <typename E>
+// Layer 2's shared memory (bytes).
 struct Smem {
-  static constexpr int E2 = (int)sizeof(E);
   static constexpr int Y = 0;                              // branch planes hi, lo / token keys f32
   static constexpr int Q = Y + BM * D * 4;                 // K2 planes hi, lo
-  static constexpr int C = Q + HT * D * 4;                 // C1 bf16, or f32's planes hi, lo
-  static constexpr int S = C + HT * D * E2;                // S; the LN's row sums
-  static constexpr int P = S + HT * BM * 4;                // P1 tiles [P_SETS][HT][BM] bf16
-  static constexpr int V = P + Walk<E>::P_SETS * HT * BM * 2;   // branch rows 0-5
-  static constexpr int K = V + 6 * D * E2;                 // token keys [T][DA]
-  static constexpr int SC = K + T * DA * E2;               // planes' s: Y1, Y2, K2; scratch [8]
+  static constexpr int C = Q + HT * D * 4;                 // C1
+  static constexpr int S = C + HT * D * 2;                 // S; the LN's row sums
+  static constexpr int P = S + HT * BM * 4;                // P1 tiles [2][HT][BM] bf16
+  static constexpr int V = P + 2 * HT * BM * 2;            // branch rows 0-5
+  static constexpr int K = V + 6 * D * 2;                  // token keys [T][DA]
+  static constexpr int SC = K + T * DA * 2;                // planes' s: Y1, Y2, K2; scratch [8]
   static constexpr int TOTAL = SC + 16 * 4;
 };
-static_assert(Smem<__nv_bfloat16>::TOTAL == 138048 && Smem<float>::TOTAL == 168000 &&
-                  Smem<float>::TOTAL <= 232448,
-              "one CTA an SM");
+static_assert(Smem::TOTAL == 138048, "one CTA an SM");
 static_assert(BM * WARPS * 8 <= HT * BM * 4, "the LN's row sums fit S");
 
 template <typename E>
@@ -96,12 +89,18 @@ i2t_probs_l1_kernel(const E* __restrict__ q1st,               // [DA, M]
   __nv_bfloat16* ob = out + (size_t)b * HT * m;
   const float scale = rsqrtf((float)HD);
   for (int i = t0; i < t_end; ++i) {
-    typename Walk<E>::Pe pe;
-    load_pe(pe, q1st, m, i * BM + lane);
     float s[T];
 #pragma unroll
     for (int t = 0; t < T; ++t) s[t] = 0.f;
-    add_pe_term_f32(s, sK, pe);
+    if constexpr (std::is_same_v<E, float>) {
+      rat_walk_f32::PeColF pe;
+      rat_walk_f32::load_pe(pe, q1st, m, threadIdx.x / 32, i * BM + lane);
+      rat_walk_f32::add_pe_term_f32(s, sK, pe, threadIdx.x / 32);
+    } else {
+      PeCol pe;
+      load_pe(pe, q1st, m, i * BM + lane);
+      add_pe_term_f32(s, sK, pe);
+    }
 #pragma unroll
     for (int t = 0; t < T; ++t) s[t] *= scale;
     softmax_tokens(s);
@@ -109,6 +108,7 @@ i2t_probs_l1_kernel(const E* __restrict__ q1st,               // [DA, M]
   }
 }
 
+// (E is bf16: the f32 form's layer 2 is walk_f32.cuh's walk)
 template <typename E>
 __global__ void __launch_bounds__(THREADS, 1)
 i2t_probs_l2_kernel(const E* __restrict__ tok_k,              // [B, T, DA]
@@ -120,8 +120,8 @@ i2t_probs_l2_kernel(const E* __restrict__ tok_k,              // [B, T, DA]
                     const E* __restrict__ rows,               // [8, D]
                     __nv_bfloat16* __restrict__ out,          // [B, HT, M]
                     int m, float eps) {
-  using L = Smem<E>;
-  using W = Walk<E>;
+  static_assert(std::is_same_v<E, __nv_bfloat16>, "bf16 operands");
+  using L = Smem;
   extern __shared__ __align__(128) unsigned char smem[];
   __half* sYh = reinterpret_cast<__half*>(smem + L::Y);
   __half* sYl = sYh + BM * D;
@@ -130,33 +130,26 @@ i2t_probs_l2_kernel(const E* __restrict__ tok_k,              // [B, T, DA]
   float* sS = reinterpret_cast<float*>(smem + L::S);
   float2* red = reinterpret_cast<float2*>(smem + L::S);
   __nv_bfloat16* sP = reinterpret_cast<__nv_bfloat16*>(smem + L::P);
-  E* sV = reinterpret_cast<E*>(smem + L::V);
-  E* sK = reinterpret_cast<E*>(smem + L::K);
+  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + L::V);
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + L::K);
   float* sSc = reinterpret_cast<float*>(smem + L::SC);
   float* scratch = sSc + 8;
-  // token keys f32 (bf16: in the Y region, before the walk)
-  float* xk = reinterpret_cast<float*>(smem + (W::F32 ? L::K : L::Y));
+  float* xk = reinterpret_cast<float*>(smem + L::Y);      // token keys f32, before the walk
 
   const int b = blockIdx.y, lane = threadIdx.x % 32;
   const int t0 = blockIdx.x * L2_TILES, t_end = min(m / BM, t0 + L2_TILES);
   const __nv_bfloat16* pb = p1 + (size_t)b * HT * m;
   __nv_bfloat16* ob = out + (size_t)b * HT * m;
-  // tile i's P1 into set (i - t0) % P_SETS, one commit group a tile
-  auto load_p = [&](int i) {
-    load_p_async(sP + ((i - t0) % W::P_SETS) * HT * BM, pb, m, i * BM);
-  };
+  // tile i's P1 into set (i - t0) % 2, one commit group a tile
+  auto load_p = [&](int i) { load_p_async(sP + ((i - t0) % 2) * HT * BM, pb, m, i * BM); };
   load_p(t0);
   cp_async_commit();
-  const E* kb = tok_k + (size_t)b * T * DA;
-  if constexpr (W::F32) {
-    load_f32(sV, rows, 6 * D);
-    load_f32(sK, kb, T * DA);
-  } else {
-    copy16(sV, rows, 6 * D);
-    copy16(sK, kb, T * DA);
-    load_f32(xk, kb, T * DA);
-  }
-  const typename W::C c = stage_c(smem + L::C, scratch, c1 + (size_t)b * HT * D);
+  const __nv_bfloat16* kb = tok_k + (size_t)b * T * DA;
+  copy16(sV, rows, 6 * D);
+  copy16(sK, kb, T * DA);
+  load_f32(xk, kb, T * DA);
+  __nv_bfloat16* c = reinterpret_cast<__nv_bfloat16*>(smem + L::C);
+  stage_c(c, c1 + (size_t)b * HT * D);
   __syncthreads();
   branch_scales(sSc, scratch, sV);
   project_rows_tc(sQh, sQl, sSc + 2, scratch, xk, w_q);   // K2 = k Wq2^T
@@ -167,28 +160,16 @@ i2t_probs_l2_kernel(const E* __restrict__ tok_k,              // [B, T, DA]
   Frag y;                                                 // the f32 branch tile
   for (int i = t0; i < t_end; ++i) {
     const int m0 = i * BM;
-    typename W::Pe pe;                                    // each asked for a phase ahead
-    typename W::Img img;
-    if constexpr (!W::F32) load_pe(pe, peq2t, m, m0 + lane);
+    PeCol pe;                                             // each asked for a phase ahead
+    ImgFrag img;
+    load_pe(pe, peq2t, m, m0 + lane);
     load_img0(img, img0, m0);
-    if constexpr (W::F32) {
-      cp_async_wait0();                                   // tile i's P1
-      p_tile_to_f16(sP);
-    } else {
-      if (i + 1 < t_end) load_p(i + 1);
-      cp_async_commit();
-      cp_async_wait1();                                   // tile i's P1
-    }
+    if (i + 1 < t_end) load_p(i + 1);
+    cp_async_commit();
+    cp_async_wait1();                                     // tile i's P1
     __syncthreads();
-    rebuild_tc<true>(y, img, sYh, sYl,
-                     reinterpret_cast<const typename W::PTile*>(
-                         sP + ((i - t0) % W::P_SETS) * HT * BM),
-                     c, sV, red, eps, ys1);               // keys1
-    if constexpr (W::F32) {                               // the tile is read
-      if (i + 1 < t_end) load_p(i + 1);
-      cp_async_commit();
-      load_pe(pe, peq2t, m, m0 + lane);
-    }
+    rebuild_tc<true>(y, img, sYh, sYl, sP + ((i - t0) % 2) * HT * BM, c, sV, red, eps,
+                     ys1);                                // keys1
     scores_tc(sS, sQh, sQl, sYh, sYl);
     __syncthreads();
     float s[T];
@@ -210,15 +191,20 @@ int dispatch(const void* q1st, const void* tok_k, const void* img0, const void* 
   if (layer == 1) {
     i2t_probs_l1_kernel<E><<<dim3((tiles + L1_TILES - 1) / L1_TILES, b), THREADS, 0, s>>>(
         static_cast<A>(q1st), static_cast<A>(tok_k), static_cast<__nv_bfloat16*>(out), m);
+  } else if constexpr (std::is_same_v<E, float>) {
+    // the f32 walk (walk_f32.cuh), one CTA a prompt
+    return rat_walk_f32::launch<1, rat_walk_f32::PROBS>(
+        static_cast<A>(tok_k), static_cast<A>(img0), p1, static_cast<A>(c1), nullptr, nullptr,
+        static_cast<A>(w_q), nullptr, static_cast<A>(peq2t), static_cast<A>(rows), nullptr, out,
+        nullptr, b, m, eps, 0, s);
   } else {
     cudaError_t err = cudaFuncSetAttribute(
-        i2t_probs_l2_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<E>::TOTAL);
+        i2t_probs_l2_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem::TOTAL);
     if (err != cudaSuccess) return (int)err;
-    i2t_probs_l2_kernel<E>
-        <<<dim3((tiles + L2_TILES - 1) / L2_TILES, b), THREADS, Smem<E>::TOTAL, s>>>(
-            static_cast<A>(tok_k), static_cast<A>(img0), static_cast<const __nv_bfloat16*>(p1),
-            static_cast<A>(c1), static_cast<A>(peq2t), static_cast<A>(w_q),
-            static_cast<A>(rows), static_cast<__nv_bfloat16*>(out), m, eps);
+    i2t_probs_l2_kernel<E><<<dim3((tiles + L2_TILES - 1) / L2_TILES, b), THREADS, Smem::TOTAL, s>>>(
+        static_cast<A>(tok_k), static_cast<A>(img0), static_cast<const __nv_bfloat16*>(p1),
+        static_cast<A>(c1), static_cast<A>(peq2t), static_cast<A>(w_q), static_cast<A>(rows),
+        static_cast<__nv_bfloat16*>(out), m, eps);
   }
   return (int)cudaGetLastError();
 }
@@ -234,9 +220,7 @@ extern "C" int rat_i2t_probs(const void* q1st, const void* tok_k, const void* im
 }
 
 // Dynamic shared memory of a CTA of `layer` in bytes (a report, no launch).
-extern "C" int rat_i2t_probs_smem(int layer) {
-  return layer == 2 ? Smem<__nv_bfloat16>::TOTAL : 0;
-}
+extern "C" int rat_i2t_probs_smem(int layer) { return layer == 2 ? Smem::TOTAL : 0; }
 
 // The f32 form (an f32 SAM): the same arguments with q1st, tok_k, img0,
 // c1, peq2t, w_q and rows f32; p1 and out stay bf16.
@@ -248,4 +232,6 @@ extern "C" int rat_i2t_probs_f32(const void* q1st, const void* tok_k, const void
                          stream);
 }
 
-extern "C" int rat_i2t_probs_f32_smem(int layer) { return layer == 2 ? Smem<float>::TOTAL : 0; }
+extern "C" int rat_i2t_probs_f32_smem(int layer) {
+  return layer == 2 ? rat_walk_f32::Smem<1, rat_walk_f32::PROBS>::TOTAL : 0;
+}

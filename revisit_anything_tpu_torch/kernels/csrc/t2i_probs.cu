@@ -36,31 +36,17 @@
 // The f32 form (rat_t2i_probs_f32, an f32 SAM) replaces the same TPU
 // kernel on f32 inputs: q, img0, C1, C2, pe_k, W_k, W_v, v_bias and the
 // branch rows f32, P1 and P2 bf16; the output f32 [B, T, DA], unrounded,
-// as the JAX kernel's softmax and products are f32. It is the same kernel
-// template on f32 operands (decode_tc.cuh Walk<float>): the f32 rebuilds
-// (each C staged once a prompt as two fp16 planes times a power of two,
-// each P tile converted to fp16 x 2^15 by the threads that copied it, two
-// fp16 passes a product; the error bound is in the header), f32 img0, pe
-// and W_k loads, the token queries kept in f32, and the value projection
-// in f32. Shared memory is what bounds the design: C1 and C2 as planes add
-// 57,344 B, f32 rows 3,072 and f32 token queries 1,792, which with the
-// bf16 form's two sets of P tiles would be 236,352 B at depth 2, over the
-// 232,448 a CTA may have. So the f32 form keeps one set of P tiles at both
-// depths and asks for the next tile's as soon as the rebuilds have read
-// them (the scores, the softmax and the context, about two thirds of a
-// tile's work, hide the copy): 168,256 B at depth 1, 229,184 B at depth 2,
-// one CTA an SM. What bounds it is the kernel's own products at the fp16
-// rate: the rebuilds' as two passes, the scores' and the context's as
-// three (0.97 / 1.22 ms at 1024 prompts, depth 1 / 2).
-//
-// The f32 form at depth 2 also comes with a keys store
-// (rat_t2i_probs_f32_keys, template flag KEYS; no Python entry): the
-// decode tail's f32 form (decode_tail.cu) runs its final attention with
-// it, and each tile's keys2 leaves as f32 from the rebuild's registers
-// (decode_tc.cuh rebuild_tc's `out`) on the way.
+// as the JAX kernel's softmax and products are f32. It is its own kernel,
+// walk_f32.cuh (two warpgroups on alternate 16-position tiles, P by TMA,
+// the branch tile in registers, named barriers; the design and its
+// reasons are there). At depth 2 it also comes with a keys store
+// (rat_t2i_probs_f32_keys; no Python entry): the decode tail's f32 form
+// (decode_tail.cu) runs its final attention with it, and each tile's
+// keys2 leaves as f32 from the rebuild's registers on the way.
 
 #include "decode_common.cuh"
 #include "decode_tc.cuh"
+#include "walk_f32.cuh"
 
 namespace {
 
@@ -69,31 +55,26 @@ using namespace rat_decode_tc;
 
 constexpr int PT = HT * BM;   // elements of one P tile
 
-// Shared memory (bytes) of a CTA on operands E at depth DEPTH.
+// Shared memory (bytes) of a CTA at depth DEPTH.
 template <typename E, int DEPTH>
 struct Smem {
   static constexpr int E2 = (int)sizeof(E);
   static constexpr int Y = 0;                            // branch planes hi, lo / token rows
   static constexpr int Q = Y + BM * D * 4;               // q Wk^T planes hi, lo / the context
-  static constexpr int C = Q + HT * D * 4;               // C1 (, C2) bf16, or f32's planes hi, lo
+  static constexpr int C = Q + HT * D * 4;               // C1 (, C2)
   static constexpr int S = C + DEPTH * HT * D * E2;      // S / p hi, lo; the LN's row sums
-  static constexpr int P = S + HT * BM * 4;              // P tiles [P_SETS][DEPTH][HT][BM] bf16
-  static constexpr int V = P + Walk<E>::P_SETS * DEPTH * PT * 2;   // branch rows 0-5
+  static constexpr int P = S + HT * BM * 4;              // P tiles [2][DEPTH][HT][BM] bf16
+  static constexpr int V = P + 2 * DEPTH * PT * 2;       // branch rows 0-5
   static constexpr int QT = V + 6 * D * E2;              // token queries [T][DA]
   static constexpr int ALPHA = QT + T * DA * E2;         // rescale / 1 / sum [HT]
   static constexpr int SC = ALPHA + 64 * 4;              // planes' s: Y1, Y2, Q; scratch [8]
   static constexpr int TOTAL = SC + 16 * 4;
 };
-static_assert(Smem<__nv_bfloat16, 1>::TOTAL == 138304 && Smem<__nv_bfloat16, 2>::TOTAL == 174144 &&
-                  Smem<float, 1>::TOTAL == 168256 && Smem<float, 2>::TOTAL == 229184,
+static_assert(Smem<__nv_bfloat16, 1>::TOTAL == 138304 && Smem<__nv_bfloat16, 2>::TOTAL == 174144,
               "the byte counts above");
-static_assert(Smem<float, 2>::TOTAL <= 232448, "a CTA fits an SM");
 static_assert(BM * WARPS * 8 <= HT * BM * 4, "the LN's row sums fit S");
 
-// KEYS (f32 at depth 2 only: the decode tail's f32 form,
-// decode_tail.cu) also stores the rebuilt branch, f32, to keys rows
-// [B, klimit, D] for every tile below klimit.
-template <typename E, int DEPTH, bool KEYS = false>
+template <typename E, int DEPTH>
 __global__ void __launch_bounds__(THREADS, 1)
 t2i_probs_kernel(const E* __restrict__ q,                  // [B, T, DA]
                  const E* __restrict__ img0,               // [M, D]
@@ -107,11 +88,8 @@ t2i_probs_kernel(const E* __restrict__ q,                  // [B, T, DA]
                  const E* __restrict__ rows,               // [8, D]
                  const E* __restrict__ v_bias,             // [DA]
                  E* __restrict__ out,                      // [B, T, DA]
-                 float* __restrict__ keys,                 // [B, klimit, D] (KEYS)
-                 int m, float eps, int klimit) {
-  static_assert(!KEYS || (Walk<E>::F32 && DEPTH == 2), "keys leave the f32 depth-2 walk only");
+                 int m, float eps) {
   using L = Smem<E, DEPTH>;
-  using W = Walk<E>;
   extern __shared__ __align__(128) unsigned char smem[];
   __half* sYh = reinterpret_cast<__half*>(smem + L::Y);
   __half* sYl = sYh + BM * D;
@@ -127,8 +105,7 @@ t2i_probs_kernel(const E* __restrict__ q,                  // [B, T, DA]
   float* alpha = reinterpret_cast<float*>(smem + L::ALPHA);
   float* sSc = reinterpret_cast<float*>(smem + L::SC);
   float* scratch = sSc + 8;
-  // q in f32 (bf16: in the Y region, then the output rows)
-  float* xq = reinterpret_cast<float*>(smem + (W::F32 ? L::QT : L::Y));
+  float* xq = reinterpret_cast<float*>(smem + L::Y);     // q in f32, then the output rows
   float* sCtx = reinterpret_cast<float*>(smem + L::Q);   // the context [HT][D] f32
 
   const int b = blockIdx.x, lane = threadIdx.x % 32;
@@ -136,26 +113,24 @@ t2i_probs_kernel(const E* __restrict__ q,                  // [B, T, DA]
   const __nv_bfloat16* pb[2] = {p1 + (size_t)b * HT * m,
                                 DEPTH == 2 ? p2 + (size_t)b * HT * m : nullptr};
   const E* cb[2] = {c1 + (size_t)b * HT * D, DEPTH == 2 ? c2 + (size_t)b * HT * D : nullptr};
-  // the P tiles of tile i into set i % P_SETS, one commit group a tile
+  // the P tiles of tile i into set i % 2, one commit group a tile
   auto load_p = [&](int i) {
 #pragma unroll
-    for (int l = 0; l < DEPTH; ++l)
-      load_p_async(sP + ((i % W::P_SETS) * DEPTH + l) * PT, pb[l], m, i * BM);
+    for (int l = 0; l < DEPTH; ++l) load_p_async(sP + ((i % 2) * DEPTH + l) * PT, pb[l], m, i * BM);
   };
   load_p(0);
   cp_async_commit();
   const E* qb = q + (size_t)b * T * DA;
-  if constexpr (W::F32) {
-    load_f32(sV, rows, 6 * D);
-    load_f32(sq, qb, T * DA);
-  } else {
-    copy16(sV, rows, 6 * D);
-    copy16(sq, qb, T * DA);
-    load_f32(xq, qb, T * DA);
-  }
-  typename W::C c[DEPTH];
+  copy16(sV, rows, 6 * D);
+  copy16(sq, qb, T * DA);
+  load_f32(xq, qb, T * DA);
+  const E* c[DEPTH];
 #pragma unroll
-  for (int l = 0; l < DEPTH; ++l) c[l] = stage_c(smem + L::C + l * HT * D * L::E2, scratch, cb[l]);
+  for (int l = 0; l < DEPTH; ++l) {
+    E* sC = reinterpret_cast<E*>(smem + L::C + l * HT * D * L::E2);
+    stage_c(sC, cb[l]);
+    c[l] = sC;
+  }
   __syncthreads();
   branch_scales(sSc, scratch, sV);
   project_rows_tc(sQh, sQl, sSc + 2, scratch, xq, w_k);
@@ -171,33 +146,18 @@ t2i_probs_kernel(const E* __restrict__ q,                  // [B, T, DA]
   const float unscale = 1.f / (sSc[2] * ys);
   for (int i = 0; i < tiles; ++i) {
     const int m0 = i * BM;
-    typename W::Pe pe;                           // each asked for a phase ahead
-    typename W::Img img;
-    if constexpr (!W::F32) load_pe(pe, pekt, m, m0 + lane);
+    PeCol pe;                                    // each asked for a phase ahead
+    ImgFrag img;
+    load_pe(pe, pekt, m, m0 + lane);
     load_img0(img, img0, m0);
-    if constexpr (W::F32) {
-      cp_async_wait0();                          // tile i's P
-#pragma unroll
-      for (int l = 0; l < DEPTH; ++l) p_tile_to_f16(sP + l * PT);
-    } else {
-      if (i + 1 < tiles) load_p(i + 1);
-      cp_async_commit();
-      cp_async_wait1();                          // tile i's P
-    }
+    if (i + 1 < tiles) load_p(i + 1);
+    cp_async_commit();
+    cp_async_wait1();                            // tile i's P
     __syncthreads();
-    const auto* tp =
-        reinterpret_cast<const typename W::PTile*>(sP + (i % W::P_SETS) * DEPTH * PT);
+    const __nv_bfloat16* tp = sP + (i % 2) * DEPTH * PT;
     rebuild_tc<true>(y, img, sYh, sYl, tp, c[0], sV, red, eps, ys1);           // keys1
-    if constexpr (KEYS)                                                          // keys2, stored
-      rebuild_tc<false>(y, img, sYh, sYl, tp + PT, c[DEPTH - 1], sV + 3 * D, red, eps, ys2,
-                        m0 < klimit ? keys + ((size_t)b * klimit + m0) * D : nullptr);
-    else if (DEPTH == 2)                                                         // keys2
+    if (DEPTH == 2)                                                              // keys2
       rebuild_tc<false>(y, img, sYh, sYl, tp + PT, c[DEPTH - 1], sV + 3 * D, red, eps, ys2);
-    if constexpr (W::F32) {                      // the tiles are read
-      if (i + 1 < tiles) load_p(i + 1);
-      cp_async_commit();
-      load_pe(pe, pekt, m, m0 + lane);
-    }
     scores_tc(sS, sQh, sQl, sYh, sYl);
     __syncthreads();
     float s[T];
@@ -212,42 +172,40 @@ t2i_probs_kernel(const E* __restrict__ q,                  // [B, T, DA]
   __syncthreads();
   context_store(ctx, alpha, 1.f / (P_SCALE * ys), sCtx);
   __syncthreads();
-  if constexpr (W::F32) {
-    attn_out(out + (size_t)b * T * DA, sCtx, w_v, v_bias);   // unrounded
-  } else {
-    attn_out(xq, sCtx, w_v, v_bias);
-    __syncthreads();
-    for (int i = threadIdx.x; i < T * DA; i += THREADS)
-      out[(size_t)b * T * DA + i] = __float2bfloat16(xq[i]);
-  }
+  attn_out(xq, sCtx, w_v, v_bias);
+  __syncthreads();
+  for (int i = threadIdx.x; i < T * DA; i += THREADS)
+    out[(size_t)b * T * DA + i] = __float2bfloat16(xq[i]);
 }
 
-template <typename E, int DEPTH, bool KEYS = false>
-int launch(const void* const* ptrs, void* out, int b, int m, float eps, cudaStream_t s,
-           float* keys = nullptr, int klimit = 0) {
+template <typename E, int DEPTH>
+int launch(const void* const* ptrs, void* out, int b, int m, float eps, cudaStream_t s) {
   constexpr int smem = Smem<E, DEPTH>::TOTAL;
-  cudaError_t err = cudaFuncSetAttribute(t2i_probs_kernel<E, DEPTH, KEYS>,
+  cudaError_t err = cudaFuncSetAttribute(t2i_probs_kernel<E, DEPTH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   typedef const E* A;
   typedef const __nv_bfloat16* P;
-  t2i_probs_kernel<E, DEPTH, KEYS><<<b, THREADS, smem, s>>>(
+  t2i_probs_kernel<E, DEPTH><<<b, THREADS, smem, s>>>(
       static_cast<A>(ptrs[0]), static_cast<A>(ptrs[1]), static_cast<P>(ptrs[2]),
       static_cast<A>(ptrs[3]), static_cast<P>(ptrs[4]), static_cast<A>(ptrs[5]),
       static_cast<A>(ptrs[6]), static_cast<A>(ptrs[7]), static_cast<A>(ptrs[8]),
-      static_cast<A>(ptrs[9]), static_cast<A>(ptrs[10]), static_cast<E*>(out), keys, m, eps,
-      klimit);
+      static_cast<A>(ptrs[9]), static_cast<A>(ptrs[10]), static_cast<E*>(out), m, eps);
   return (int)cudaGetLastError();
 }
 
-template <typename E>
-int dispatch(const void* const* ptrs, void* out, int b, int m, int depth, float eps,
-             void* stream) {
-  if (b < 1 || m < BM || m % BM != 0 || (depth != 1 && depth != 2) ||
-      (depth == 2 && (ptrs[4] == nullptr || ptrs[5] == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return depth == 2 ? launch<E, 2>(ptrs, out, b, m, eps, s) : launch<E, 1>(ptrs, out, b, m, eps, s);
+bool bad_shape(int b, int m) { return b < 1 || m < BM || m % BM != 0; }
+
+// The f32 walk (walk_f32.cuh) at depth DEPTH, KIND ATTEND or ATTEND_KEYS.
+template <int DEPTH, int KIND>
+int launch_f32(const void* const* ptrs, void* out, float* keys, int b, int m, float eps,
+               int klimit, cudaStream_t s) {
+  typedef const float* A;
+  return rat_walk_f32::launch<DEPTH, KIND>(
+      static_cast<A>(ptrs[0]), static_cast<A>(ptrs[1]), ptrs[2], static_cast<A>(ptrs[3]),
+      ptrs[4], static_cast<A>(ptrs[5]), static_cast<A>(ptrs[6]), static_cast<A>(ptrs[7]),
+      static_cast<A>(ptrs[8]), static_cast<A>(ptrs[9]), static_cast<A>(ptrs[10]), out, keys, b,
+      m, eps, klimit, s);
 }
 
 }  // namespace
@@ -257,7 +215,12 @@ extern "C" int rat_t2i_probs(const void* q, const void* img0, const void* p1, co
                              const void* pekt, const void* rows, const void* v_bias, void* out,
                              int b, int m, int depth, float eps, void* stream) {
   const void* ptrs[11] = {q, img0, p1, c1, p2, c2, w_k, w_v, pekt, rows, v_bias};
-  return dispatch<__nv_bfloat16>(ptrs, out, b, m, depth, eps, stream);
+  if (bad_shape(b, m) || (depth != 1 && depth != 2) ||
+      (depth == 2 && (p2 == nullptr || c2 == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  typedef __nv_bfloat16 E;
+  return depth == 2 ? launch<E, 2>(ptrs, out, b, m, eps, s) : launch<E, 1>(ptrs, out, b, m, eps, s);
 }
 
 // Dynamic shared memory of a CTA at `depth` in bytes (a report, no launch).
@@ -273,11 +236,18 @@ extern "C" int rat_t2i_probs_f32(const void* q, const void* img0, const void* p1
                                  const void* v_bias, void* out, int b, int m, int depth,
                                  float eps, void* stream) {
   const void* ptrs[11] = {q, img0, p1, c1, p2, c2, w_k, w_v, pekt, rows, v_bias};
-  return dispatch<float>(ptrs, out, b, m, depth, eps, stream);
+  if (bad_shape(b, m) || (depth != 1 && depth != 2) ||
+      (depth == 2 && (p2 == nullptr || c2 == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using rat_walk_f32::ATTEND;
+  return depth == 2 ? launch_f32<2, ATTEND>(ptrs, out, nullptr, b, m, eps, 0, s)
+                    : launch_f32<1, ATTEND>(ptrs, out, nullptr, b, m, eps, 0, s);
 }
 
 extern "C" int rat_t2i_probs_f32_smem(int depth) {
-  return depth == 2 ? Smem<float, 2>::TOTAL : Smem<float, 1>::TOTAL;
+  using rat_walk_f32::ATTEND;
+  return depth == 2 ? rat_walk_f32::Smem<2, ATTEND>::TOTAL : rat_walk_f32::Smem<1, ATTEND>::TOTAL;
 }
 
 // The f32 form at depth 2 that also stores keys2 (the rebuilt branch,
@@ -290,9 +260,9 @@ extern "C" int rat_t2i_probs_f32_keys(const void* q, const void* img0, const voi
                                       const void* rows, const void* v_bias, void* out, void* keys,
                                       int b, int m, int klimit, float eps, void* stream) {
   const void* ptrs[11] = {q, img0, p1, c1, p2, c2, w_k, w_v, pekt, rows, v_bias};
-  if (b < 1 || m < BM || m % BM != 0 || p2 == nullptr || c2 == nullptr || keys == nullptr ||
-      klimit < 1 || klimit > m || klimit % BM != 0)
+  if (bad_shape(b, m) || p2 == nullptr || c2 == nullptr || keys == nullptr || klimit < 1 ||
+      klimit > m || klimit % BM != 0)
     return (int)cudaErrorInvalidValue;
-  return launch<float, 2, true>(ptrs, out, b, m, eps, static_cast<cudaStream_t>(stream),
-                                static_cast<float*>(keys), klimit);
+  return launch_f32<2, rat_walk_f32::ATTEND_KEYS>(ptrs, out, static_cast<float*>(keys), b, m,
+                                                  eps, klimit, static_cast<cudaStream_t>(stream));
 }

@@ -10,7 +10,12 @@ checkout's own plain version (the share of bf16 elements moved, as
 ``tail_variants`` ``[precision]``), and the probability mode on the gpu
 test's large-branch inputs (16 prompts x M 256, both branch LayerNorm
 scales x 2^15) against its plain version: each output's relative error
-and the P2 elements moved by more than 0.25.
+and the P2 elements moved by more than 0.25. The f32 modes are also held
+to their plain versions on the first 64 prompts by their rule (``[f32
+rule]``: the token state and C2 within F32_REL of their scale, keys2 and
+the logits per position, TAIL_F32_MOVED's note, P1 and P2 within one
+bf16 ulp in at most PROBS_F32_MOVED of their elements), and this
+checkout's f32 outputs against the other's by the same measures.
 
     python -m revisit_anything_tpu_torch.kernels.tail_compare OTHER_ROOT
 
@@ -45,6 +50,29 @@ MODES = ("keys", "probs", "logits")
 # of the scale.
 TAIL_F32_MOVED = 2e-2
 TAIL_F32_MOVED_REL = 2e-3
+F32_REL = 1e-5            # the f32 kernels' tolerance (tests, chip_smoke.py)
+
+
+def f32_rule(mode: str, i: int, got, want) -> tuple:
+    """(what, within) of output ``i`` of B3 f32 in ``mode`` against
+    ``want`` by its rule: P1 and P2 (bf16) in ulps, keys2 and the logits
+    (output 1 of the keys and logits modes) per position, the rest
+    relative to their scale."""
+    from revisit_anything_tpu_torch.kernels.probs_compare import (
+        PROBS_F32_MOVED, bf16_ulps)
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return f"dtype or shape {got.dtype} {tuple(got.shape)}", False
+    if got.dtype.is_floating_point and got.element_size() == 2:
+        ulps, moved = bf16_ulps(got, want)
+        return (f"{moved:.3e} of its bf16 elements moved, by at most "
+                f"{ulps:.3f} ulp", ulps <= 1.0 and moved <= PROBS_F32_MOVED)
+    if i == 1 and mode != "probs":
+        moved, worst = moved_positions(got, want, got.dim() - 2, F32_REL)
+        return (f"{moved:.3e} of its positions beyond {F32_REL:g} of the "
+                f"scale, the largest {worst:.3e}",
+                moved <= TAIL_F32_MOVED and worst <= TAIL_F32_MOVED_REL)
+    rel = _rel(got, want)
+    return f"rel_err {rel:.3e}", rel < F32_REL
 
 
 def moved_positions(got, want, trailing: int, rel: float) -> tuple:
@@ -105,15 +133,25 @@ def _worker(root: str, out: str) -> None:
         res = {mode: [o.cpu() for o in dfu.decode_tail_fused(*args, **kw)]
                for mode, kw in zip(MODES, kws)}
     args32 = _args(torch, dev, 140, 4096, 1, torch.float32)
+    few32 = tuple(a[:64] if i in (6, 7, 8, 9) else a
+                  for i, a in enumerate(args32))
     for mode, kw in zip(MODES, kws):
         try:
             with torch.inference_mode():
                 res[f"{mode} f32"] = [o.cpu() for o in
                                       dfu.decode_tail_fused(*args32, **kw)]
+                got = dfu.decode_tail_fused(*few32, **kw)
+                want = dfu.decode_tail_reference(*few32, **kw)
         except ValueError as err:
             print(f"[compare] {root}: {mode} mode f32 refused: {err}",
                   flush=True)
-    del args32
+            continue
+        for i, (a, w) in enumerate(zip(got, want)):
+            what, ok = f32_rule(mode, i, a, w)
+            print(f"[f32 rule] {root}: {mode} mode f32 output {i} against its "
+                  f"plain version, 64 prompts: {what}; within its rule {ok}",
+                  flush=True)
+    del args32, few32
     torch.save(res, out)
     few = tuple(a[:64] if i in (6, 7, 8, 9) else a    # per-prompt operands
                 for i, a in enumerate(args))
@@ -161,9 +199,12 @@ def main() -> None:
             continue
         for i, (a, b) in enumerate(zip(this[mode], other[mode])):
             d = (a.float() - b.float()).abs()
+            rule = (f"; {f32_rule(mode.split()[0], i, a, b)[0]}"
+                    if mode.endswith("f32") else "")
             print(f"[compare] {mode} mode output {i}: bit for bit "
                   f"{torch.equal(a, b)}, moved {(d > 0).float().mean():.4f} "
-                  f"of its elements, max |diff| {d.max():.3e}", flush=True)
+                  f"of its elements, max |diff| {d.max():.3e}{rule}",
+                  flush=True)
 
 
 if __name__ == "__main__":

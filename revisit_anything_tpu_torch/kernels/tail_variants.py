@@ -28,7 +28,7 @@ import sys
 
 import torch
 
-from revisit_anything_tpu_torch.kernels import build
+from revisit_anything_tpu_torch.kernels import build, stamps
 from revisit_anything_tpu_torch.kernels.maskhead_variants import _clock
 from revisit_anything_tpu_torch.kernels.winattn_variants import time_ms
 from revisit_anything_tpu_torch.ops import decode_fused as dfu
@@ -94,9 +94,6 @@ SHAPES = ((1024, 4096), (132, 4096), (1024, 32))
 # written to the (in keys mode unused) C2 pointer.
 TILES = 8
 _LOOP = "  for (int m0 = 0; m0 < m; m0 += BM) {\n"
-_STAMP = ("if (blockIdx.x == 0 && (threadIdx.x & 31) == 0 && m0 >= BM && "
-          "m0 <= TILES * BM) reinterpret_cast<long long*>(pr.c2m)[((m0 / BM - 1)"
-          " * 32 + ns++) * WARPS + threadIdx.x / 32] = clock64();")
 
 
 def _probe_source() -> tuple:
@@ -104,18 +101,9 @@ def _probe_source() -> tuple:
     text = _SRC.read_text()
     head = text.index("decode_tail_kernel(const TailParams pr) {")
     start = text.index(_LOOP, text.index(_LOOP, head) + 1) + len(_LOOP)
-    end = text.index("\n  }\n", start)
-    out, lines, stmt = [f"    int ns = 0;\n    {_STAMP}\n"], [], ""
-    for line in text[start:end].split("\n"):
-        out.append(line + "\n")
-        stmt = f"{stmt} {line.strip()}" if stmt else line.strip()
-        if line.split("//")[0].rstrip().endswith((";", "{", "}")):
-            if line.split("//")[0].rstrip().endswith(";"):
-                out.append(f"    {_STAMP}\n")
-                lines.append(stmt)
-            stmt = ""
-    body = "".join(out).replace("TILES", str(TILES))
-    return text[:start] + body + text[end:], lines
+    return stamps.stamp_loop(text, start, stamps.stamp(
+        "(m0 / BM)", TILES, "reinterpret_cast<long long*>(pr.c2m)", 32,
+        "WARPS"))
 
 
 def _source(reps) -> dict:

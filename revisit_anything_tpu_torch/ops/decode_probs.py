@@ -151,11 +151,12 @@ def i2t_probs(q1st: Optional[torch.Tensor], tok_k: torch.Tensor,
     CUDA: kernel B7 in bf16 or f32 by tok_k's dtype (D 256, DA 128, 8
     heads, 7 tokens, M a multiple of 32); P is bf16 in both, as the plain
     version rounds it. Layer 1 computes the scores on the FMA units, as
-    the plain version rounds them. Layer 2 rebuilds keys1 a 32-position
-    tile at a time on the tensor cores onto img0 in f32: from bf16 P1
-    and C1 by bf16 products, exact up to the order of summation, or,
-    with an f32 C1, as two fp16 products of P1 against C1's
-    power-of-two-scaled hi/lo planes (22 bits of C1). It projects on the
+    the plain version rounds them. Layer 2 rebuilds keys1 a tile at a
+    time on the tensor cores onto img0 in f32: from bf16 P1 and C1 by
+    bf16 products, exact up to the order of summation (32-position tiles),
+    or, with an f32 C1, as two fp16 products of P1 against C1's
+    power-of-two-scaled hi/lo planes (22 bits of C1; two warpgroups on
+    alternate 16-position tiles). It projects on the
     query side, s = (k_h·W_q,hᵀ)·keys1 + k_h·peq2_h, with the product
     against the f32 branch as three fp16 products of power-of-two-scaled
     hi/lo planes, 22 bits of each operand. The result is the same
@@ -230,11 +231,13 @@ def t2i_from_probs(q_tok: torch.Tensor, img0: torch.Tensor,
 
     CUDA: kernel B8 in bf16 or f32 by q_tok's dtype (the shapes of
     :func:`i2t_probs`; P1, P2 bf16 in both). The kernel rebuilds the
-    branch a 32-position tile at a time on the tensor cores onto the f32
-    branch (bf16 P·C, or with f32 C two fp16 products against C's
-    power-of-two-scaled hi/lo planes) and projects on the query side:
-    s = (q_h·W_k,hᵀ)·keys + q_h·pe_k,h and o = (p·keys)·W_v + v_bias,
-    with an online softmax over the tiles. The scores and p·keys against
+    branch a tile at a time on the tensor cores onto the f32 branch (bf16
+    P·C on 32-position tiles, or with f32 C two fp16 products against C's
+    power-of-two-scaled hi/lo planes on 16-position tiles, two warpgroups
+    on alternate ones) and projects on the query side: s =
+    (q_h·W_k,hᵀ)·keys + q_h·pe_k,h and o = (p·keys)·W_v + v_bias, with an
+    online softmax over the tiles (in f32 one a warpgroup, the two merged
+    in a fixed order at the end). The scores and p·keys against
     the f32 branch run as three fp16 products of power-of-two-scaled
     hi/lo planes, 22 bits of each operand. The output has q_tok's dtype
     (bf16 rounded, f32 unrounded). The result is the same function up to

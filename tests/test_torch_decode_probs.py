@@ -145,7 +145,7 @@ def test_t2i_from_probs_matches_jax(state, depth):
 # f32, so rounding each operand to fp16 and multiplying in f32 is what the
 # tensor cores compute, up to the order of the f32 sums.
 
-BM = 32        # positions a tile
+TP = 16        # positions of a warpgroup's tile (walk_f32.cuh)
 P_SCALE = 4096.0      # the context's p planes: p 2^12
 PF_SCALE = 32768.0    # the f32 rebuild's P: P 2^15
 Q_TOP, Y_TOP, C_TOP = 14, 10, 14
@@ -181,7 +181,7 @@ def _split3(a, b, eq):
 
 
 def _rebuild(y, p, c, rows3, eps, split=True, residual=None):
-    """The f32 rebuild_tc on one tile: y [B, BM, D] the residual, p [B, HT, BM]
+    """The f32 rebuild on one tile: y [B, TP, D] the residual, p [B, HT, TP]
     bf16, c [B, HT, D] f32. C as two fp16 planes of C s (split) or rounded
     once to TF32 (one pass), P as fp16 x 2^15; the passes from fresh
     accumulators, then the residual and b, then the one-pass LN."""
@@ -216,6 +216,19 @@ def _query_planes(tok, w, heads):
     return _planes(q, s), s
 
 
+def _scores(qp, yp, unscale):
+    """The scores as the f32 walk (walk_f32.cuh) sums them: each warp's
+    64-channel quarter as three fp16 products of the planes, the quarters
+    added in order, times 1 / the planes' s."""
+    s = None
+    for w in range(4):
+        sl = slice(64 * w, 64 * w + 64)
+        part = _split3((qp[0][..., sl], qp[1][..., sl]),
+                       (yp[0][..., sl], yp[1][..., sl]), "bhtd,bmd->bhtm")
+        s = part if s is None else s + part
+    return s * unscale
+
+
 def _pe_term(tok, pet, heads):
     b, t, da = tok.shape
     hd = da // heads
@@ -225,9 +238,9 @@ def _pe_term(tok, pet, heads):
 
 def _i2t_l2_f32(tok_k, img0, p1, c1, peq2t, w_q, rows, heads, eps=1e-6,
                 split=True):
-    """B7 f32 layer 2 (i2t_probs_l2_kernel<float>) tile by tile: keys1
-    rebuilt (the f32 rebuild_tc; ``split`` False: C rounded once to TF32),
-    the scores K2 . keys1^T as three fp16 products of the planes, the pe
+    """B7 f32 layer 2 (walk_f32.cuh's walk, PROBS) tile by tile: keys1
+    rebuilt (``split`` False: C rounded once to TF32), the scores K2 .
+    keys1^T as three fp16 products of the planes a channel quarter, the pe
     term in f32, the softmax over the tokens, P bf16."""
     b, t, da = tok_k.shape
     hd = da // heads
@@ -235,52 +248,57 @@ def _i2t_l2_f32(tok_k, img0, p1, c1, peq2t, w_q, rows, heads, eps=1e-6,
     ys = _branch_scale(rows[0:3])
     pe = _pe_term(tok_k, peq2t, heads)
     out = []
-    for m0 in range(0, img0.shape[1], BM):
-        keys1 = _rebuild(img0[:, m0:m0 + BM], p1[..., m0:m0 + BM], c1,
+    for m0 in range(0, img0.shape[1], TP):
+        keys1 = _rebuild(img0[:, m0:m0 + TP], p1[..., m0:m0 + TP], c1,
                          rows[0:3], eps, split)
-        y = _planes(keys1, ys)
-        s = _split3((qh, ql), y, "bhtd,bmd->bhtm") * (1.0 / (sq * ys))
-        s = (s + pe[..., m0:m0 + BM]) * (1.0 / np.sqrt(hd))
+        s = _scores((qh, ql), _planes(keys1, ys), 1.0 / (sq * ys))
+        s = (s + pe[..., m0:m0 + TP]) * (1.0 / np.sqrt(hd))
         out.append(torch.softmax(s, dim=2))
     return torch.cat(out, -1).to(torch.bfloat16).reshape(b, heads * t, -1)
 
 
 def _t2i_f32(q, img0, p1, c1, p2, c2, w_k, w_v, pekt, rows, v_bias, heads,
              eps=1e-6, split=True):
-    """B8 f32 (t2i_probs_kernel<float, DEPTH>) tile by tile: the branch
-    rebuilt (the f32 rebuild_tc; ``split`` False: C rounded once to TF32), the scores
-    (q_h W_k,h^T) . keys as three fp16 products of the planes plus the pe
-    term, the online softmax with p as planes times 2^12 and each tile's
-    context from a fresh accumulator joined by an f32 multiply-add, then
-    the value projection in f32."""
+    """B8 f32 (walk_f32.cuh's walk, ATTEND) tile by tile: the branch
+    rebuilt (``split`` False: C rounded once to TF32), the scores (q_h
+    W_k,h^T) . keys as three fp16 products of the planes a channel quarter
+    plus the pe term, two online softmaxes (one a warpgroup: the even and
+    the odd 16-position tiles) with p as planes times 2^12 and each tile's
+    context from a fresh accumulator joined by an f32 multiply-add, the
+    two merged at the end, then the value projection in f32."""
     b, t, da = q.shape
     hd = da // heads
     depth = 1 if p2 is None else 2
     (qh, ql), sq = _query_planes(q, w_k, heads)
     ys = _branch_scale(rows[3:6] if depth == 2 else rows[0:3])
     pe = _pe_term(q, pekt, heads)
-    mrow = torch.full((b, heads, t), -torch.inf)
-    lrow = torch.zeros((b, heads, t))
-    ctx = torch.zeros((b, heads, t, img0.shape[-1]))
-    for m0 in range(0, img0.shape[1], BM):
-        sl = slice(m0, m0 + BM)
+    states = [[torch.full((b, heads, t), -torch.inf),
+               torch.zeros((b, heads, t)),
+               torch.zeros((b, heads, t, img0.shape[-1]))] for _ in range(2)]
+    for i, m0 in enumerate(range(0, img0.shape[1], TP)):
+        st = states[i % 2]
+        sl = slice(m0, m0 + TP)
         y = _rebuild(img0[:, sl], p1[..., sl], c1, rows[0:3], eps, split)
         if depth == 2:
             y = _rebuild(y, p2[..., sl], c2, rows[3:6], eps, split)
         yp = _planes(y, ys)
-        s = _split3((qh, ql), yp, "bhtd,bmd->bhtm") * (1.0 / (sq * ys))
+        s = _scores((qh, ql), yp, 1.0 / (sq * ys))
         s = (s + pe[..., sl]) * (1.0 / np.sqrt(hd))
-        m_new = torch.maximum(mrow, s.amax(-1))
-        alpha = torch.exp(mrow - m_new)
+        m_new = torch.maximum(st[0], s.amax(-1))
+        alpha = torch.exp(st[0] - m_new)
         p = torch.exp(s - m_new[..., None])
-        lrow = lrow * alpha + p.sum(-1)
+        st[1] = st[1] * alpha + p.sum(-1)
         ph, pl = _planes(p, P_SCALE)
         tile = (torch.einsum("bhtm,bmd->bhtd", ph, yp[0])
                 + torch.einsum("bhtm,bmd->bhtd", ph, yp[1])
                 + torch.einsum("bhtm,bmd->bhtd", pl, yp[0]))
-        ctx = ctx * alpha[..., None] + tile
-        mrow = m_new
-    ctx = ctx * (1.0 / (P_SCALE * ys)) * (1.0 / lrow[..., None])
+        st[2] = st[2] * alpha[..., None] + tile
+        st[0] = m_new
+    (m0_, l0, c0), (m1_, l1, c1_) = states
+    mm = torch.maximum(m0_, m1_)
+    e0, e1 = torch.exp(m0_ - mm), torch.exp(m1_ - mm)
+    inv = (1.0 / (P_SCALE * ys)) / (l0 * e0 + l1 * e1)
+    ctx = (c0 * e0[..., None] + c1_ * e1[..., None]) * inv[..., None]
     o = torch.einsum("bhtd,dhj->bthj", ctx,
                      w_v.reshape(w_v.shape[0], heads, hd))
     return o.reshape(b, t, da) + v_bias
@@ -333,8 +351,8 @@ def test_split_f16_i2t_probs_arithmetic_matches_jax(state, c_scale):
 def test_split_f16_t2i_from_probs_arithmetic_matches_jax(state, depth,
                                                          c_scale):
     """B8 f32 emulated in f32 (C as two fp16 planes, P as fp16, scores and
-    context as three fp16 products of planes, the online softmax over
-    32-position tiles) is within 1e-5 of JAX ``t2i_from_probs`` in f32
+    context as three fp16 products of planes, two online softmaxes over
+    alternate 16-position tiles, merged) is within 1e-5 of JAX ``t2i_from_probs`` in f32
     (relative to the output's largest value), at depths 1 and 2; with C x
     8 (the rebuild's product outweighs img0) C rounded once to TF32 misses
     by more than 1e-5."""

@@ -242,6 +242,51 @@ def test_tail_variants_patch_the_kernel_source():
         assert (tv._source(reps) == base) == (not reps), name
 
 
+def test_probs_compare_stamps_the_f32_walk_loop():
+    """``probs_compare --f32 --phases`` finds the f32 walk's tile loop in
+    ``walk_f32.cuh`` and stamps it once at the top and once after each
+    statement of its body, the products among them (the probe runs only
+    on the card)."""
+    from revisit_anything_tpu_torch.kernels import probs_compare as pc
+    f, header, idx = pc._LOOPS[0]
+    text = (build._CSRC / f).read_text()
+    out, labels = pc._stamp(text, header, idx)
+    assert out.count("rat_stamps[") == len(labels) + 1
+    for call in ("rebuild<true", "scores<", "context("):
+        assert any(call in label for label in labels), call
+    assert out.replace(" " * 4 + pc._stamp_line(idx) + "\n", "").replace(
+        "    int ns = 0;\n", "") == text
+
+
+def test_probs_compare_walk_variants_patch_the_source():
+    """Every setting of ``probs_compare --f32 --variants`` still finds the
+    lines of ``walk_f32.cuh`` it replaces, and all but the build as it
+    stands change the source (the timing runs only on the card)."""
+    from revisit_anything_tpu_torch.kernels import probs_compare as pc
+    text = (build._CSRC / "walk_f32.cuh").read_text()
+    for name, reps in pc.WALK_VARIANTS.items():
+        assert (pc._patched(text, reps) == text) == (not reps), name
+
+
+def test_tail_variants_stamp_pass_b_loop():
+    """``tail_variants``' phase probe stamps bf16 B3's pass B loop through
+    the same rewrite (``kernels.stamps``): a stamp at the top and after
+    each statement of the loop body, the products and the barriers among
+    them, within the probe buffer's 32 stamps a tile, and nothing else of
+    the source changed (the probe runs only on the card)."""
+    from revisit_anything_tpu_torch.kernels import tail_variants as tv
+    out, labels = tv._probe_source()
+    assert out.count("clock64()") == len(labels) + 1 <= 32
+    for call in ("rebuild_tc<false>(", "scores_tc(", "context_tc(",
+                 "__syncthreads();"):
+        assert any(call in label for label in labels), call
+    line = tv.stamps.stamp("(m0 / BM)", tv.TILES,
+                           "reinterpret_cast<long long*>(pr.c2m)", 32,
+                           "WARPS")
+    assert out.replace(" " * 4 + line + "\n", "").replace(
+        "    int ns = 0;\n", "") == tv._SRC.read_text()
+
+
 def _flash_inputs(cuda, b, n, dh, bias, seed=0, dtype=torch.bfloat16):
     g = torch.Generator(device=cuda).manual_seed(seed)
     bf = dtype
@@ -1364,6 +1409,92 @@ def test_t2i_from_probs_kernel_f32_matches_plain(cuda, depth, b, m, ln_scale):
         assert keys.abs().max().item() > 65504
     assert torch.isfinite(got).all()
     assert _rel_err(got, want) < F32_REL
+
+
+def _f32_walk(x, walk):
+    """One f32 walk on inputs ``x``: B7 f32 layer 2 ("b7") or B8 f32 at
+    depth 1 or 2 ("b8-1", "b8-2")."""
+    if walk == "b7":
+        recon = (x["img0"], x["p1"], x["c1"], x["peqt"], x["w"], x["rows"])
+        return dpr.i2t_probs(None, x["tok_k"], 8, layer=2, recon=recon)
+    deep = walk == "b8-2"
+    return dpr.t2i_from_probs(x["q"], x["img0"], x["p1"], x["c1"],
+                              x["p2"] if deep else None,
+                              x["c2"] if deep else None, x["w"], x["w_v"],
+                              x["peqt"], x["rows"], x["v_bias"], 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("walk", ["b7", "b8-1", "b8-2"])
+def test_f32_walks_are_bitwise_repeatable_and_permute_with_prompts(cuda,
+                                                                   walk):
+    """The f32 walks (two warpgroups a prompt, their online-softmax states
+    merged in a fixed order) give the same bits from call to call, and a
+    prompt's output does not depend on where it sits in the batch."""
+    x = _probs_inputs(cuda, b=12, m=512, dtype=torch.float32)
+    first, again = _f32_walk(x, walk), _f32_walk(x, walk)
+    perm = torch.arange(11, -1, -1, device=cuda)
+    xp = dict(x, **{k: x[k][perm] for k in ("tok_k", "q", "p1", "p2", "c1",
+                                              "c2")})
+    moved = _f32_walk(xp, walk)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert torch.equal(moved, first[perm])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", ["odd-tiles", "even-tiles", "first-half"])
+def test_t2i_from_probs_kernel_f32_merges_its_softmax_states(cuda, where):
+    """B8 f32 at both depths where the scores peak in one warpgroup's
+    16-position tiles only (odd or even tiles: the pe term 3x larger
+    there) or in the first half of the positions: the merge of the two
+    warpgroups' states, one of them scaled far down, within F32_REL of the
+    plain version."""
+    x = _probs_inputs(cuda, b=16, m=1024, dtype=torch.float32)
+    tile = torch.arange(1024, device=cuda) // 16
+    sel = {"odd-tiles": tile % 2 == 1, "even-tiles": tile % 2 == 0,
+           "first-half": tile < 32}[where]
+    x["peqt"] = torch.where(sel, x["peqt"] * 3.0, x["peqt"])
+    for depth in (1, 2):
+        p2, c2 = (x["p2"], x["c2"]) if depth == 2 else (None, None)
+        args = (x["q"], x["img0"], x["p1"], x["c1"], p2, c2, x["w"],
+                x["w_v"], x["peqt"], x["rows"], x["v_bias"], 8)
+        got = dpr.t2i_from_probs(*args)
+        want = dpr.t2i_from_probs_reference(*args)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert _rel_err(got, want) < F32_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("klimit", [32, 480, 512])
+def test_t2i_probs_f32_keys_stores_the_depth2_rebuild(cuda, klimit):
+    """rat_t2i_probs_f32_keys (B3 f32's final walk) stores keys2, the
+    depth-2 rebuild, for the positions below klimit into [b, klimit, D]
+    (within F32_REL of the plain rebuild's scale: the rebuild is exact up
+    to summation order) and writes nothing past it; its attention output
+    is the depth-2 walk's without the store, bit for bit."""
+    b, m = 8, 512
+    x = _probs_inputs(cuda, b=b, m=m, dtype=torch.float32)
+    args = (x["q"], x["img0"], x["p1"], x["c1"], x["p2"], x["c2"], x["w"],
+            x["w_v"], x["peqt"], x["rows"], x["v_bias"], 8)
+    ptrs = [None if a is None else build.operand(*a).data_ptr()
+            for a in dpr.t2i_operands(*args)]
+    out = torch.empty((b, 7, 128), device=cuda)
+    keys = torch.full((b * klimit + 32, 256), 7.0, device=cuda)   # [b, klimit, D] + 32 rows
+    lib = build.load()
+    err = lib.rat_t2i_probs_f32_keys(
+        *ptrs, out.data_ptr(), keys.data_ptr(), b, m, klimit, 1e-6,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    want = dpr.recon_branch(x["img0"], [x["p1"], x["p2"]],
+                            [x["c1"], x["c2"]], x["rows"], 1e-6)
+    attend = dpr.t2i_from_probs(*args)
+    torch.cuda.synchronize()
+    got = keys[:b * klimit].view(b, klimit, 256)
+    assert _rel_err(got, want[:, :klimit]) < F32_REL
+    assert (keys[b * klimit:] == 7.0).all()
+    assert torch.equal(out, attend)
 
 
 @pytest.mark.gpu
